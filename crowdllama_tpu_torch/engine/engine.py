@@ -1,0 +1,256 @@
+"""Engine facade: the serving seam between the swarm and the model.
+
+Counterpart of ``crowdllama_tpu/engine/engine.py``: ``Chunk``,
+``StopMatcher``, the ``Engine`` base and ``TorchEngine`` (the paged runner
+behind the continuous-batching scheduler, streaming text chunks from
+``generate``).  The protobuf request seams (``Engine.handle*``), embeddings,
+KV shipping and profiling are not ported yet.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import logging
+from dataclasses import dataclass
+from typing import AsyncIterator
+
+import torch
+
+from crowdllama_tpu_torch.config import Configuration
+from crowdllama_tpu_torch.engine.runner import resolve_device
+
+log = logging.getLogger("crowdllama.torch.engine")
+
+
+@dataclass
+class Chunk:
+    text: str
+    done: bool = False
+    done_reason: str = ""
+    prompt_tokens: int = 0
+    completion_tokens: int = 0
+    # Scheduler stamps on the final chunk (ns): submit -> admission and
+    # admission -> first token.
+    queue_ns: int = 0
+    prefill_ns: int = 0
+
+
+class StopMatcher:
+    """Streaming stop-sequence scanner (Ollama options.stop semantics).
+
+    ``feed(text)`` returns (emit_now, stopped): text safe to send — up to
+    ``max(len(stop)) - 1`` chars are held back so a stop spanning two
+    chunks is still caught — and whether a stop fired (everything from the
+    match on is dropped).  ``flush()`` returns the held tail.
+    """
+
+    def __init__(self, stop: list[str] | None):
+        self.stops = [s for s in (stop or []) if s]
+        self._hold = max((len(s) for s in self.stops), default=1) - 1
+        self._pending = ""
+
+    def feed(self, text: str) -> tuple[str, bool]:
+        if not self.stops:
+            return text, False
+        self._pending += text
+        cut = min((i for i in (self._pending.find(s) for s in self.stops)
+                   if i >= 0), default=-1)
+        if cut >= 0:
+            emit, self._pending = self._pending[:cut], ""
+            return emit, True
+        if len(self._pending) > self._hold:
+            split = len(self._pending) - self._hold
+            emit, self._pending = self._pending[:split], self._pending[split:]
+            return emit, False
+        return "", False
+
+    def flush(self) -> str:
+        out, self._pending = self._pending, ""
+        return out
+
+
+class Engine:
+    """Abstract engine seam."""
+
+    models: list[str] = []
+
+    async def start(self) -> None: ...
+    async def stop(self) -> None: ...
+
+    def describe(self) -> dict:
+        """Capability/telemetry snapshot for Resource advertisement."""
+        return {"models": self.models, "throughput": 0.0, "load": 0.0}
+
+    def generate(self, prompt: str, model: str = "", max_tokens: int = 128,
+                 temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
+                 stop: list[str] | None = None, top_k: int = 0,
+                 repeat_penalty: float = 1.0) -> AsyncIterator[Chunk]:
+        raise NotImplementedError
+
+
+class TorchEngine(Engine):
+    """The real engine: PagedModelRunner + continuous-batching Scheduler.
+
+    Serves on CUDA unless ``device`` is given; without CUDA and without a
+    device, construction raises.  ``params`` (a parameter dict, e.g. from
+    ``engine.weights.params_from_numpy``) replaces the random init, whose
+    seed is ``seed``."""
+
+    def __init__(self, config: Configuration | None = None, *,
+                 device: torch.device | str | None = None,
+                 params: dict | None = None,
+                 dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 **overrides):
+        self.config = dataclasses.replace(config or Configuration(),
+                                          **overrides)
+        self.models = [self.config.model]
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.seed = seed
+        self._params = params
+        self.scheduler = None
+        self.tokenizer = None
+        self.runner = None
+
+    async def start(self) -> None:
+        """Build tokenizer/params/runner, run each serving path once
+        (warmup, which also builds the kernels), start the scheduler."""
+        from crowdllama_tpu_torch.engine.paged import PagedModelRunner
+        from crowdllama_tpu_torch.engine.scheduler import Scheduler
+        from crowdllama_tpu_torch.engine.tokenizer import get_tokenizer
+        from crowdllama_tpu_torch.models.config import get_config
+
+        c = self.config
+        device = self.device
+        cfg = get_config(c.model)
+        if c.max_context_length:
+            cfg = dataclasses.replace(cfg, max_context_length=min(
+                cfg.max_context_length, c.max_context_length))
+        self.tokenizer = get_tokenizer(c.model_path)
+        loop = asyncio.get_running_loop()
+
+        def _build():
+            return PagedModelRunner(
+                cfg, params=self._params, max_slots=c.max_batch_slots,
+                max_seq=cfg.max_context_length, dtype=self.dtype,
+                seed=self.seed, device=device, page_size=c.kv_page_size,
+                pool_tokens=c.kv_pool_tokens, prefix_cache=c.kv_prefix_cache,
+                step_token_budget=c.step_token_budget)
+
+        self.runner = await loop.run_in_executor(None, _build)
+        if c.warmup:
+            await loop.run_in_executor(None, self._warmup)
+        self.scheduler = Scheduler(
+            self.runner, decode_chunk=c.decode_chunk,
+            admission_pending_max=c.admission_pending_max,
+            ragged=c.ragged_prefill)
+        self.scheduler.start()
+        log.info("engine up: model=%s device=%s slots=%d max_seq=%d",
+                 cfg.name, device, self.runner.max_slots,
+                 self.runner.max_seq)
+
+    def _warmup(self) -> None:
+        """Run every serving path once before serving: monolithic prefill +
+        insert (kernel A), decode chunks of 1 and decode_chunk (kernel B),
+        the prefix-hit suffix prefill, and a unified ragged prefill of one
+        chunk + 1 tokens (kernel C)."""
+        r = self.runner
+        state = r.init_state()
+        tok, ks, vs, plen = r.prefill([1, 2, 3], 0.0, 1.0, None)
+        state = r.insert(state, 0, ks, vs, plen, tok, 0.0, 1.0)
+        for k in sorted({1, self.config.decode_chunk}):
+            _, state = r.decode_steps(state, k)
+        if r.prefix_cache:
+            r.warmup_ctx_prefill(state)
+        state = r.release(state, 0)
+        if self.config.ragged_prefill and r.max_seq > r.ragged_chunk + 1:
+            job = r.ragged_begin(list(range(2, r.ragged_chunk + 3)), 0,
+                                 state=state)
+            while not job.finished:
+                _, state = r.ragged_step(state, job, 1)
+            _, state = r.ragged_finish(state, job, 0.0, 1.0, None)
+            state = r.release(state, 0)
+        if state.pool_k.is_cuda:
+            torch.cuda.synchronize(state.pool_k.device)
+        log.info("warmup done")
+
+    async def stop(self) -> None:
+        if self.scheduler is not None:
+            await self.scheduler.stop()
+
+    def describe(self) -> dict:
+        d = {"models": self.models, "throughput": 0.0, "load": 0.0}
+        if self.scheduler is not None:
+            d["throughput"] = round(self.scheduler.throughput_ema, 2)
+            d["load"] = round(self.scheduler.load, 3)
+        if self.runner is not None:
+            d["device"] = str(self.runner.device)
+            d["prefix_cache"] = {
+                "hits": self.runner.prefix_hits,
+                "misses": self.runner.prefix_misses,
+                "tokens_reused": self.runner.prefix_tokens_reused,
+            }
+        return d
+
+    async def generate(  # type: ignore[override]
+        self, prompt: str, model: str = "", max_tokens: int = 128,
+        temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
+        stop: list[str] | None = None, top_k: int = 0,
+        repeat_penalty: float = 1.0,
+    ) -> AsyncIterator[Chunk]:
+        from crowdllama_tpu_torch.engine.scheduler import DONE, GenRequest
+
+        if self.scheduler is None:
+            raise RuntimeError("engine not started")
+        if model and model not in self.models:
+            raise ValueError(f"model {model!r} not served (have {self.models})")
+        prompt_ids = self.tokenizer.encode(prompt)
+        req = GenRequest(prompt_ids=prompt_ids, max_tokens=max_tokens,
+                         temperature=temperature, top_p=top_p,
+                         top_k=max(0, int(top_k)),
+                         repeat_penalty=float(repeat_penalty or 1.0),
+                         eos_id=self.tokenizer.eos_id, seed=seed)
+        await self.scheduler.submit(req)
+        decoder = self.tokenizer.stream_decoder()
+        matcher = StopMatcher(stop)
+        completion = 0
+        finished = False
+
+        def _final(text: str, reason: str) -> Chunk:
+            base = req.admitted_at or req.submitted_at
+            q = max(0.0, base - req.submitted_at)
+            p = (max(0.0, req.first_token_at - base)
+                 if req.first_token_at else 0.0)
+            return Chunk(text=text, done=True, done_reason=reason,
+                         prompt_tokens=len(prompt_ids),
+                         completion_tokens=completion,
+                         queue_ns=int(q * 1e9), prefill_ns=int(p * 1e9))
+
+        try:
+            while True:
+                token, reason = await req.out.get()
+                if token is DONE:
+                    finished = True
+                    if reason.startswith("error"):
+                        raise RuntimeError(reason)
+                    yield _final(matcher.flush(), reason)
+                    return
+                completion += 1
+                if token == req.eos_id:
+                    continue  # silent; DONE follows
+                text = decoder.feed(token)
+                if not text:
+                    continue
+                emit, stopped = matcher.feed(text)
+                if stopped:
+                    finished = True
+                    self.scheduler.cancel(req)
+                    yield _final(emit, "stop")
+                    return
+                if emit:
+                    yield Chunk(text=emit)
+        finally:
+            if not finished:
+                # Consumer stopped early: free the decode slot.
+                self.scheduler.cancel(req)

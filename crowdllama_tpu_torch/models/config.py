@@ -1,0 +1,244 @@
+"""Model architecture configs and the named-model registry.
+
+A copy of ``crowdllama_tpu/models/config.py`` (pure dataclasses), kept in
+this package so the port imports nothing of the JAX package.  Covers
+TinyLlama-1.1B, Llama-3 8B/70B, Mixtral 8x7B (MoE), Gemma-2 27B, Qwen and
+Mistral, plus tiny variants for tests.  Family-specific behaviour (Gemma
+logit softcapping, sliding-window interleave, MoE routing) is driven by
+fields.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class RopeScaling:
+    """Long-context RoPE scaling (HF config.json ``rope_scaling``).
+
+    ``rope_type`` "llama3" is the Llama-3.1/3.2 frequency-dependent
+    scheme; "linear" is plain position interpolation.  A frozen
+    dataclass (not a dict) so ModelConfig stays hashable.
+    """
+
+    rope_type: str = "llama3"
+    factor: float = 8.0
+    low_freq_factor: float = 1.0
+    high_freq_factor: float = 4.0
+    original_max_position_embeddings: int = 8192
+
+    def __post_init__(self) -> None:
+        if self.rope_type not in ("llama3", "linear"):
+            raise ValueError(
+                f"unsupported rope scaling type {self.rope_type!r} "
+                f"(supported: llama3, linear)")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "custom"
+    family: str = "llama"  # "llama" | "mistral" | "gemma2" | "mixtral" | "qwen2" | "qwen3"
+    vocab_size: int = 32000
+    hidden_size: int = 2048
+    intermediate_size: int = 5632
+    num_layers: int = 22
+    num_heads: int = 32
+    num_kv_heads: int = 4
+    head_dim: int = 0  # 0 → hidden_size // num_heads
+    rope_theta: float = 10000.0
+    rope_scaling: RopeScaling | None = None  # Llama-3.1-style long context
+    rms_norm_eps: float = 1e-5
+    tie_word_embeddings: bool = False
+    max_context_length: int = 4096
+
+    # Gemma-2 specifics (family="gemma2")
+    query_pre_attn_scalar: float = 0.0  # 0 → 1/sqrt(head_dim)
+    attn_logit_softcap: float = 0.0  # 0 → disabled
+    final_logit_softcap: float = 0.0
+    # 0 → all layers global.  >0: family-patterned (gemma2 windows even
+    # layers, mistral windows every layer — transformer.py
+    # layer_sliding_windows is the source of truth).
+    sliding_window: int = 0
+    post_norms: bool = False  # post-attention/post-mlp RMSNorms (Gemma-2)
+    embedding_multiplier: float = 0.0  # 0 → disabled (Gemma scales by sqrt(D))
+
+    # Qwen specifics
+    attn_qkv_bias: bool = False  # Qwen2/2.5: bias on q/k/v projections
+    qk_norm: bool = False  # Qwen3: per-head RMSNorm on q and k before rope
+
+    # MoE specifics (family="mixtral")
+    num_experts: int = 0  # 0 → dense MLP
+    num_experts_per_tok: int = 2
+    # "sorted": grouped-GEMM dispatch (E/K FLOP saving, exact); "dense":
+    # compute-all-experts reference semantics.
+    moe_dispatch: str = "sorted"
+
+    def __post_init__(self) -> None:
+        if self.moe_dispatch not in ("sorted", "dense"):
+            raise ValueError(
+                f"moe_dispatch must be 'sorted' or 'dense', "
+                f"got {self.moe_dispatch!r}")
+
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+    def param_count(self) -> int:
+        """Total parameters (matches models.transformer.init_params)."""
+        d, f, v = self.hidden_size, self.intermediate_size, self.vocab_size
+        dh = self.resolved_head_dim()
+        attn = d * self.num_heads * dh + 2 * d * self.num_kv_heads * dh \
+            + self.num_heads * dh * d
+        if self.attn_qkv_bias:
+            attn += self.num_heads * dh + 2 * self.num_kv_heads * dh
+        if self.qk_norm:
+            attn += 2 * dh
+        if self.is_moe:
+            mlp = self.num_experts * 3 * d * f + d * self.num_experts
+        else:
+            mlp = 3 * d * f
+        norms = 2 * d + (2 * d if self.post_norms else 0)
+        head = 0 if self.tie_word_embeddings else d * v
+        return self.num_layers * (attn + mlp + norms) + v * d + head + d
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+
+_REGISTRY: dict[str, ModelConfig] = {}
+
+
+def _register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+# ---- test-scale models ----------------------------------------------------
+
+TINY_TEST = _register(ModelConfig(
+    name="tiny-test", family="llama", vocab_size=512, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+    max_context_length=256,
+))
+
+TINY_TEST_MOE = _register(ModelConfig(
+    name="tiny-test-moe", family="mixtral", vocab_size=512, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+    num_experts=4, num_experts_per_tok=2, max_context_length=256,
+))
+
+TINY_TEST_GEMMA = _register(ModelConfig(
+    name="tiny-test-gemma", family="gemma2", vocab_size=512, hidden_size=64,
+    intermediate_size=128, num_layers=4, num_heads=4, num_kv_heads=2,
+    head_dim=16, attn_logit_softcap=50.0, final_logit_softcap=30.0,
+    sliding_window=32, post_norms=True, embedding_multiplier=8.0,
+    max_context_length=256, rms_norm_eps=1e-6,
+))
+
+TINY_TEST_QWEN3_MOE = _register(ModelConfig(
+    name="tiny-test-qwen3-moe", family="qwen3", vocab_size=512,
+    hidden_size=64, intermediate_size=128, num_layers=2, num_heads=4,
+    num_kv_heads=2, head_dim=32, qk_norm=True, num_experts=4,
+    num_experts_per_tok=2, max_context_length=256, rms_norm_eps=1e-6,
+))
+
+TINY_TEST_QWEN2 = _register(ModelConfig(
+    name="tiny-test-qwen2", family="qwen2", vocab_size=512, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+    attn_qkv_bias=True, rms_norm_eps=1e-6, max_context_length=256,
+))
+
+TINY_TEST_QWEN3 = _register(ModelConfig(
+    name="tiny-test-qwen3", family="qwen3", vocab_size=512, hidden_size=64,
+    intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+    head_dim=32, qk_norm=True, rms_norm_eps=1e-6, max_context_length=256,
+))
+
+TINY_TEST_MISTRAL = _register(ModelConfig(
+    name="tiny-test-mistral", family="mistral", vocab_size=512,
+    hidden_size=64, intermediate_size=128, num_layers=2, num_heads=4,
+    num_kv_heads=2, sliding_window=16, rms_norm_eps=1e-6,
+    max_context_length=256,
+))
+
+# ---- production models -----------------------------------------------------
+
+TINYLLAMA_1_1B = _register(ModelConfig(
+    name="tinyllama-1.1b", family="llama", vocab_size=32000, hidden_size=2048,
+    intermediate_size=5632, num_layers=22, num_heads=32, num_kv_heads=4,
+    rope_theta=10000.0, max_context_length=2048,
+))
+
+LLAMA3_8B = _register(ModelConfig(
+    name="llama-3-8b", family="llama", vocab_size=128256, hidden_size=4096,
+    intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
+    rope_theta=500000.0, max_context_length=8192,
+))
+
+# Llama-3.1: same weights shape as 3.0 plus the llama3 rope scaling that
+# stretches usable context to 128k.  Serving ctx defaults far below the
+# architectural maximum — one chip's KV budget is the real bound; callers
+# raise max_context_length per deployment.
+LLAMA31_8B = _register(ModelConfig(
+    name="llama-3.1-8b", family="llama", vocab_size=128256, hidden_size=4096,
+    intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
+    rope_theta=500000.0, max_context_length=16384,
+    rope_scaling=RopeScaling(rope_type="llama3", factor=8.0,
+                             low_freq_factor=1.0, high_freq_factor=4.0,
+                             original_max_position_embeddings=8192),
+))
+
+MISTRAL_7B = _register(ModelConfig(
+    name="mistral-7b", family="mistral", vocab_size=32000, hidden_size=4096,
+    intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
+    rope_theta=10000.0, sliding_window=4096, max_context_length=8192,
+))
+
+LLAMA3_70B = _register(ModelConfig(
+    name="llama-3-70b", family="llama", vocab_size=128256, hidden_size=8192,
+    intermediate_size=28672, num_layers=80, num_heads=64, num_kv_heads=8,
+    rope_theta=500000.0, max_context_length=8192,
+))
+
+MIXTRAL_8X7B = _register(ModelConfig(
+    name="mixtral-8x7b", family="mixtral", vocab_size=32000, hidden_size=4096,
+    intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
+    rope_theta=1000000.0, num_experts=8, num_experts_per_tok=2,
+    max_context_length=32768,
+))
+
+QWEN25_7B = _register(ModelConfig(
+    name="qwen2.5-7b", family="qwen2", vocab_size=152064, hidden_size=3584,
+    intermediate_size=18944, num_layers=28, num_heads=28, num_kv_heads=4,
+    rope_theta=1000000.0, rms_norm_eps=1e-6, attn_qkv_bias=True,
+    max_context_length=32768,
+))
+
+QWEN3_8B = _register(ModelConfig(
+    name="qwen3-8b", family="qwen3", vocab_size=151936, hidden_size=4096,
+    intermediate_size=12288, num_layers=36, num_heads=32, num_kv_heads=8,
+    head_dim=128, rope_theta=1000000.0, rms_norm_eps=1e-6, qk_norm=True,
+    max_context_length=32768,
+))
+
+GEMMA2_27B = _register(ModelConfig(
+    name="gemma-2-27b", family="gemma2", vocab_size=256128, hidden_size=4608,
+    intermediate_size=36864, num_layers=46, num_heads=32, num_kv_heads=16,
+    head_dim=128, rope_theta=10000.0, rms_norm_eps=1e-6,
+    query_pre_attn_scalar=144.0, attn_logit_softcap=50.0,
+    final_logit_softcap=30.0, sliding_window=4096, post_norms=True,
+    embedding_multiplier=67.882251,  # sqrt(4608)
+    tie_word_embeddings=True, max_context_length=8192,
+))
+
+
+def get_config(name: str, **overrides) -> ModelConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
+    cfg = _REGISTRY[name]
+    return replace(cfg, **overrides) if overrides else cfg
+
+
+def list_models() -> list[str]:
+    return sorted(_REGISTRY)

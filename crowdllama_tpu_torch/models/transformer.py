@@ -1,0 +1,237 @@
+"""The dense decoder core (Llama / Gemma-2 / Qwen / Mistral switches).
+
+Counterpart of ``crowdllama_tpu/models/transformer.py``: plain functions
+over a parameter dict whose layer weights are stacked on a leading layer
+axis (``params["layers"][name]`` is ``[L, ...]``), the same names and
+shapes as the JAX package's pytree, so weights cross between the packages
+through numpy (``engine/weights.py params_from_numpy``).  The JAX layer
+``scan`` becomes a Python loop over layers.  Weights are bf16 on the card;
+norms and softmax accumulate in fp32.  MoE layers are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable
+
+import torch
+import torch.nn.functional as F
+
+from crowdllama_tpu_torch.models.config import ModelConfig
+from crowdllama_tpu_torch.ops.attention import (
+    prefill_attention,
+    prefill_attention_ctx,
+)
+from crowdllama_tpu_torch.ops.norms import rms_norm
+from crowdllama_tpu_torch.ops.rope import apply_rope, rope_table
+
+Params = dict[str, Any]
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                dtype: torch.dtype = torch.bfloat16,
+                device: torch.device | str = "cpu") -> Params:
+    """Random-init a parameter dict (layers stacked on axis 0) from
+    ``generator`` (which must live on ``device``)."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE layers are not ported yet")
+    dh = cfg.resolved_head_dim()
+    d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    h, hkv, nl = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
+
+    def dense(*shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (w / math.sqrt(fan_in)).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device, dtype=dtype)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device, dtype=dtype)
+
+    layers: Params = {
+        "ln1": ones(nl, d), "ln2": ones(nl, d),
+        "wq": dense(nl, d, h * dh, fan_in=d),
+        "wk": dense(nl, d, hkv * dh, fan_in=d),
+        "wv": dense(nl, d, hkv * dh, fan_in=d),
+        "wo": dense(nl, h * dh, d, fan_in=h * dh),
+        "w_gate": dense(nl, d, f, fan_in=d),
+        "w_up": dense(nl, d, f, fan_in=d),
+        "w_down": dense(nl, f, d, fan_in=f),
+    }
+    if cfg.attn_qkv_bias:  # Qwen2/2.5
+        layers.update(bq=zeros(nl, h * dh), bk=zeros(nl, hkv * dh),
+                      bv=zeros(nl, hkv * dh))
+    if cfg.qk_norm:  # Qwen3
+        layers.update(q_norm=ones(nl, dh), k_norm=ones(nl, dh))
+    if cfg.post_norms:
+        layers.update(post_ln1=ones(nl, d), post_ln2=ones(nl, d))
+    params: Params = {"embed": dense(v, d, fan_in=d), "layers": layers,
+                      "final_norm": ones(d)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = dense(d, v, fan_in=d)
+    return params
+
+
+def layer_sliding_windows(cfg: ModelConfig) -> list[int]:
+    """Per-layer sliding-window size (0 = global attention): Gemma-2
+    windows even layers, Mistral every layer, other families none."""
+    if cfg.sliding_window > 0:
+        if cfg.family == "gemma2":
+            return [cfg.sliding_window if i % 2 == 0 else 0
+                    for i in range(cfg.num_layers)]
+        return [cfg.sliding_window] * cfg.num_layers
+    return [0] * cfg.num_layers
+
+
+def attn_scale(cfg: ModelConfig) -> float:
+    if cfg.query_pre_attn_scalar > 0:
+        return cfg.query_pre_attn_scalar ** -0.5
+    return cfg.resolved_head_dim() ** -0.5
+
+
+def rope_for(cfg: ModelConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
+    return rope_table(cfg.max_context_length, cfg.resolved_head_dim(),
+                      cfg.rope_theta, scaling=cfg.rope_scaling, device=device)
+
+
+def layer_params(layers: Params, i: int) -> Params:
+    return {k: w[i] for k, w in layers.items()}
+
+
+def _norm(x, w, cfg: ModelConfig, plus_one: bool | None = None):
+    if plus_one is None:
+        plus_one = cfg.family == "gemma2"
+    return rms_norm(x, w, cfg.rms_norm_eps, plus_one=plus_one)
+
+
+def _embed(params: Params, cfg: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.embedding_multiplier > 0:
+        x = (x.float() * cfg.embedding_multiplier).to(x.dtype)
+    return x
+
+
+def _unembed(params: Params, cfg: ModelConfig,
+             x: torch.Tensor) -> torch.Tensor:
+    """Final norm + vocab projection in fp32; logits [..., V] fp32."""
+    x = _norm(x, params["final_norm"], cfg).float()
+    if cfg.tie_word_embeddings:
+        logits = x @ params["embed"].float().T
+    else:
+        logits = x @ params["lm_head"].float()
+    if cfg.final_logit_softcap > 0:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
+
+
+def _mlp(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Dense SwiGLU (Llama) / GeGLU-tanh (Gemma) MLP. x: [..., D]."""
+    gate = x @ lp["w_gate"]
+    up = x @ lp["w_up"]
+    act = (F.gelu(gate, approximate="tanh") if cfg.family == "gemma2"
+           else F.silu(gate))
+    return (act * up) @ lp["w_down"]
+
+
+def _qkv(lp: Params, cfg: ModelConfig, h: torch.Tensor):
+    """Projections (+ Qwen bias / qk-norm) for h [..., D] -> q [..., H, Dh],
+    k/v [..., Hkv, Dh]."""
+    dh = cfg.resolved_head_dim()
+    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    if "bq" in lp:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    lead = h.shape[:-1]
+    q = q.reshape(*lead, cfg.num_heads, dh)
+    k = k.reshape(*lead, cfg.num_kv_heads, dh)
+    v = v.reshape(*lead, cfg.num_kv_heads, dh)
+    if "q_norm" in lp:
+        q = _norm(q, lp["q_norm"], cfg, plus_one=False)
+        k = _norm(k, lp["k_norm"], cfg, plus_one=False)
+    return q, k, v
+
+
+def _residual_tail(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                   attn: torch.Tensor) -> torch.Tensor:
+    """Output projection, residuals and MLP after attention."""
+    attn = attn @ lp["wo"]
+    if cfg.post_norms:
+        attn = _norm(attn, lp["post_ln1"], cfg, plus_one=True)
+    x = x + attn
+    mlp_out = _mlp(lp, cfg, _norm(x, lp["ln2"], cfg))
+    if cfg.post_norms:
+        mlp_out = _norm(mlp_out, lp["post_ln2"], cfg, plus_one=True)
+    return x + mlp_out
+
+
+def scan_prefill_layers(layers: Params, windows: list[int], cfg: ModelConfig,
+                        x: torch.Tensor, positions: torch.Tensor,
+                        kv_valid: torch.Tensor | None = None,
+                        ctx_k: torch.Tensor | None = None,
+                        ctx_v: torch.Tensor | None = None,
+                        ctx_valid: torch.Tensor | None = None,
+                        attention: Callable = prefill_attention):
+    """Run every decoder layer over x [B, T, D]; returns (x, ks, vs) with
+    ks/vs [L, B, Hkv, T, Dh] head-major and contiguous.
+
+    With ``ctx_k``/``ctx_v`` ([L, B, Hkv, C, Dh], ``ctx_valid`` [B, C]) the
+    batch is a suffix continuing a cached prefix: queries attend jointly
+    over the context and the causal suffix (``prefill_attention_ctx``) and
+    ks/vs cover the suffix only.  ``attention`` is the no-context attention
+    function (kernel A's dispatch by default)."""
+    scale = attn_scale(cfg)
+    cos, sin = rope_for(cfg, x.device)
+    b, t = x.shape[0], x.shape[1]
+    ks, vs = [], []
+    for i, window in enumerate(windows):
+        lp = layer_params(layers, i)
+        q, k, v = _qkv(lp, cfg, _norm(x, lp["ln1"], cfg))
+        q = apply_rope(q, positions, cos, sin)
+        k = apply_rope(k, positions, cos, sin)
+        kh = k.transpose(1, 2).contiguous()  # [B, Hkv, T, Dh] cache layout
+        vh = v.transpose(1, 2).contiguous()
+        if ctx_k is not None:
+            attn = prefill_attention_ctx(
+                q, kh, vh, positions, ctx_k[i], ctx_v[i], ctx_valid, scale,
+                softcap=cfg.attn_logit_softcap, sliding_window=window,
+                kv_valid=kv_valid)
+        else:
+            attn = attention(q.contiguous(), kh, vh, positions, scale,
+                             softcap=cfg.attn_logit_softcap,
+                             sliding_window=window, kv_valid=kv_valid)
+        x = _residual_tail(lp, cfg, x, attn.reshape(b, t, -1))
+        ks.append(kh)
+        vs.append(vh)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: torch.Tensor, kv_valid: torch.Tensor | None = None,
+            ctx_k=None, ctx_v=None, ctx_valid=None,
+            attention: Callable = prefill_attention):
+    """Full-prompt forward.  Returns (logits [B, T, V] fp32, k, v
+    [L, B, Hkv, T, Dh]).  ``positions`` are absolute (padding may repeat
+    the last position; ``kv_valid`` False for padding)."""
+    x = _embed(params, cfg, tokens)
+    x, ks, vs = scan_prefill_layers(
+        params["layers"], layer_sliding_windows(cfg), cfg, x, positions,
+        kv_valid=kv_valid, ctx_k=ctx_k, ctx_v=ctx_v, ctx_valid=ctx_valid,
+        attention=attention)
+    return _unembed(params, cfg, x), ks, vs
+
+
+def decode_layer_body(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                      positions: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor, attn_fn: Callable) -> torch.Tensor:
+    """One decoder layer's single-token math, minus the KV-cache policy:
+    ``attn_fn(q [B, H, Dh], k [B, Hkv, Dh], v)`` writes the cache and
+    returns attention [B, H, Dh].  x [B, D] residual stream."""
+    b = x.shape[0]
+    q, k, v = _qkv(lp, cfg, _norm(x, lp["ln1"], cfg))
+    q = apply_rope(q[:, None], positions[:, None], cos, sin)[:, 0]
+    k = apply_rope(k[:, None], positions[:, None], cos, sin)[:, 0]
+    attn = attn_fn(q.contiguous(), k, v)
+    return _residual_tail(lp, cfg, x, attn.reshape(b, -1))

@@ -1,0 +1,180 @@
+"""Kernels B and C: attention over the paged KV pool
+(``csrc/paged_attention.cu``).
+
+Counterparts of ``crowdllama_tpu/ops/pallas/paged.py``:
+
+- B, :func:`flash_paged_decode_attention` (TPU ``flash_paged_decode_
+  attention``): one decode token per slot over that slot's pages.  Its
+  plain version, :func:`paged_decode_attention_plain`, is the engine's
+  gather + ``decode_attention`` path.
+- C, :func:`ragged_paged_attention` (TPU ``flash_ragged_paged_attention``
+  behind the ``ragged_paged_attention`` dispatch): the unified ragged
+  batch, B decode rows plus one prefill chunk, in one launch.  Its plain
+  version is :func:`ragged_paged_attention_ref`.
+
+Pools are one layer's ``[P, Hkv, page, Dh]`` bf16 (the last page is the
+engine's dump page), tables ``[B, NP]`` int32.  Each wrapper launches its
+kernel for CUDA tensors and runs its plain version for CPU tensors only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from crowdllama_tpu_torch.ops.attention import (
+    decode_attention,
+    prefill_attention_ctx,
+)
+from crowdllama_tpu_torch.ops.cuda import check, launch
+
+HEAD_DIM = 64
+MAX_GROUP = 8     # query heads per kv head: one warp each, 8 warps a block
+MAX_PAGE = 128    # keys per page a decode warp scores (4 per lane)
+PAGE_ALIGN = 16   # keys per online-softmax update in the chunk rows
+
+
+def _gathered(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """[P, Hkv, page, Dh] pool -> [rows, Hkv, NP*page, Dh] view of each
+    table row's pages (a copy)."""
+    rows, np_ = table.shape
+    _, hkv, page, dh = pool.shape
+    return pool[table.long()].permute(0, 2, 1, 3, 4).reshape(
+        rows, hkv, np_ * page, dh)
+
+
+def paged_decode_attention_plain(q, pool_k, pool_v, page_table, seq_lens,
+                                 scale: float, softcap: float = 0.0,
+                                 sliding_window: int = 0) -> torch.Tensor:
+    """The plain version of kernel B: gather each slot's pages into a
+    virtual-contiguous view and run :func:`decode_attention`."""
+    return decode_attention(q, _gathered(pool_k, page_table),
+                            _gathered(pool_v, page_table), seq_lens, scale,
+                            softcap=softcap, sliding_window=sliding_window)
+
+
+def ragged_paged_attention_ref(q, chunk_k, chunk_v, pool_k, pool_v,
+                               page_table, q_lens, kv_lens, chunk_slot: int,
+                               scale: float, softcap: float = 0.0,
+                               sliding_window: int = 0) -> torch.Tensor:
+    """The plain version of kernel C (reference semantics).
+
+    q [B + C, H, Dh]: B decode rows (q_len 0 or 1), then the chunk rows of
+    sequence B (q_len = q_lens[B] <= C); chunk_k/chunk_v [1, Hkv, C, Dh] the
+    chunk's fresh KV (also already in the pool).  Decode rows run the gather
+    + decode math of kernel B's plain version; chunk rows run
+    :func:`prefill_attention_ctx` with the slot's pages as cached context.
+    Rows that carry no query (inactive slots, chunk rows past q_lens[B])
+    hold values the caller discards.
+    """
+    b = page_table.shape[0]
+    c = chunk_k.shape[2]
+    _, hkv, page, dh = pool_k.shape
+    w = page_table.shape[1] * page
+    out_dec = paged_decode_attention_plain(
+        q[:b], pool_k, pool_v, page_table, kv_lens[:b], scale,
+        softcap=softcap, sliding_window=sliding_window)
+
+    ctx = kv_lens[b] - q_lens[b]
+    row = page_table[chunk_slot:chunk_slot + 1]
+    ctx_k = _gathered(pool_k, row)
+    ctx_v = _gathered(pool_v, row)
+    dev = q.device
+    ctx_valid = (torch.arange(w, device=dev) < ctx)[None, :]
+    positions = (ctx + torch.arange(c, device=dev))[None, :]
+    kv_valid = (torch.arange(c, device=dev) < q_lens[b])[None, :]
+    out_chunk = prefill_attention_ctx(
+        q[b:][None], chunk_k, chunk_v, positions, ctx_k, ctx_v, ctx_valid,
+        scale, softcap=softcap, sliding_window=sliding_window,
+        kv_valid=kv_valid)[0]
+    return torch.cat([out_dec, out_chunk], dim=0)
+
+
+def _check_pool(q, pool_k, pool_v, page_table) -> tuple[int, int, int, int]:
+    """Validate the operands both paged kernels share; returns
+    (H, Hkv, page, NP)."""
+    check(q.dim() == 3 and pool_k.dim() == 4,
+          "q must be [rows, H, Dh] and the pools [P, Hkv, page, Dh]")
+    h, dh = q.shape[1], q.shape[2]
+    _, hkv, page, pdh = pool_k.shape
+    check(q.device.type == "cuda", f"unsupported device {q.device}")
+    check(all(x.device == q.device for x in (pool_k, pool_v, page_table)),
+          "all operands must be on one device")
+    check(q.dtype == pool_k.dtype == pool_v.dtype == torch.bfloat16,
+          "q and pools must be bfloat16")
+    check(dh == pdh == HEAD_DIM,
+          f"head dim {dh} unsupported (kernel takes {HEAD_DIM})")
+    check(pool_v.shape == pool_k.shape, "pool_k/pool_v shapes differ")
+    check(h % hkv == 0 and h // hkv <= MAX_GROUP,
+          f"heads {h}/{hkv}: at most {MAX_GROUP} query heads per kv head")
+    check(page % PAGE_ALIGN == 0 and page <= MAX_PAGE,
+          f"page size {page} must be a multiple of {PAGE_ALIGN}, "
+          f"at most {MAX_PAGE}")
+    check(page_table.dtype == torch.int32 and page_table.dim() == 2,
+          "page_table must be int32 [B, NP]")
+    check(all(x.is_contiguous() for x in (q, pool_k, pool_v, page_table)),
+          "operands must be contiguous")
+    return h, hkv, page, page_table.shape[1]
+
+
+def flash_paged_decode_attention(q, pool_k, pool_v, page_table, seq_lens,
+                                 scale: float, softcap: float = 0.0,
+                                 sliding_window: int = 0) -> torch.Tensor:
+    """One decode step over the paged pool: q [B, H, Dh], seq_lens [B]
+    int32 (incl. the pending token); returns [B, H, Dh]."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, pool_k, pool_v, page_table, seq_lens, scale, softcap=softcap,
+            sliding_window=sliding_window)
+    b = q.shape[0]
+    h, hkv, page, np_ = _check_pool(q, pool_k, pool_v, page_table)
+    check(page_table.shape[0] == b, "page_table rows != batch")
+    check(seq_lens.device == q.device and seq_lens.dtype == torch.int32
+          and tuple(seq_lens.shape) == (b,) and seq_lens.is_contiguous(),
+          "seq_lens must be int32 [B] on the device")
+    out = torch.empty_like(q)
+    launch("paged_attention", "paged_decode", q.device,
+           q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+           page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+           b, h, hkv, page, np_, float(scale), float(softcap or 0.0),
+           int(sliding_window))
+    flash_paged_decode_attention.launches += 1
+    return out
+
+
+flash_paged_decode_attention.launches = 0
+
+
+def ragged_paged_attention(q, chunk_k, chunk_v, pool_k, pool_v, page_table,
+                           q_lens, kv_lens, chunk_slot: int, scale: float,
+                           softcap: float = 0.0,
+                           sliding_window: int = 0) -> torch.Tensor:
+    """Unified ragged batch attention over the paged pool in one launch:
+    q [B + C, H, Dh], q_lens / kv_lens [B + 1] int32, the chunk's fresh KV
+    already in the pool; returns [B + C, H, Dh].  Kernel C reads the chunk's
+    KV from the pool and writes zeros on rows that carry no query; CPU
+    tensors run :func:`ragged_paged_attention_ref`, which alone reads
+    ``chunk_k``/``chunk_v``."""
+    if q.device.type == "cpu":
+        return ragged_paged_attention_ref(
+            q, chunk_k, chunk_v, pool_k, pool_v, page_table, q_lens, kv_lens,
+            chunk_slot, scale, softcap=softcap, sliding_window=sliding_window)
+    b = page_table.shape[0]
+    c = q.shape[0] - b
+    h, hkv, page, np_ = _check_pool(q, pool_k, pool_v, page_table)
+    check(c >= 0, "q has fewer rows than the page table")
+    check(0 <= int(chunk_slot) < b, f"chunk_slot {chunk_slot} out of range")
+    for name, x in (("q_lens", q_lens), ("kv_lens", kv_lens)):
+        check(x.device == q.device and x.dtype == torch.int32
+              and tuple(x.shape) == (b + 1,) and x.is_contiguous(),
+              f"{name} must be int32 [B + 1] on the device")
+    out = torch.empty_like(q)
+    launch("paged_attention", "ragged_paged", q.device,
+           q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+           page_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
+           out.data_ptr(), b, c, h, hkv, page, np_, int(chunk_slot),
+           float(scale), float(softcap or 0.0), int(sliding_window))
+    ragged_paged_attention.launches += 1
+    return out
+
+
+ragged_paged_attention.launches = 0

@@ -1,0 +1,101 @@
+"""The port's hand-written CUDA kernels against their plain versions, on
+the card (``cuda`` marker; each test skips without a GPU).
+
+This file imports torch and the port only, so it runs on a machine
+without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_card.py
+
+(``--noconftest`` because ``tests/conftest.py`` configures JAX).  Shapes
+are TinyLlama's heads (32 query, 4 kv, Dh 64) at small lengths, with
+softcap, a sliding window, padding and rows that carry no query;
+tolerance: one bf16 rounding of outputs of magnitude ~1 plus fp32
+summation order, atol 2e-2 + rtol 1e-2.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from crowdllama_tpu_torch.ops.cuda.flash import (  # noqa: E402
+    flash_prefill_attention,
+)
+from crowdllama_tpu_torch.ops.cuda.paged import (  # noqa: E402
+    flash_paged_decode_attention,
+    ragged_paged_attention,
+)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (hand-written CUDA kernels)")
+    return torch.device("cuda")
+
+
+def _card_case(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    return gen, bf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 17)])
+def test_prefill_kernel_matches_plain_on_card(cuda_device, softcap, window):
+    from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
+
+    gen, bf = _card_case(cuda_device)
+    t, plen = 160, 150
+    q = torch.randn((2, t, 32, 64), generator=gen, **bf)
+    k = torch.randn((2, 4, t, 64), generator=gen, **bf)
+    v = torch.randn((2, 4, t, 64), generator=gen, **bf)
+    ar = torch.arange(t, device=cuda_device, dtype=torch.int32)
+    pos = torch.clamp(ar, max=plen - 1)[None].repeat(2, 1).contiguous()
+    valid = (ar < plen)[None].repeat(2, 1).contiguous()
+    kw = dict(softcap=softcap, sliding_window=window, kv_valid=valid)
+    got = flash_prefill_attention(q, k, v, pos, 0.125, **kw)
+    want = prefill_attention_ref(q, k, v, pos, 0.125, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_paged_kernels_match_plain_on_card(cuda_device):
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        paged_decode_attention_plain,
+        ragged_paged_attention_ref,
+    )
+
+    gen, bf = _card_case(cuda_device)
+    b, page, np_ = 4, 128, 4
+    pk = torch.randn((17, 4, page, 64), generator=gen, **bf)
+    pv = torch.randn((17, 4, page, 64), generator=gen, **bf)
+    table = torch.tensor([[1, 2, 3, 4], [16, 0, 0, 0], [5, 6, 7, 8],
+                          [9, 10, 11, 12]], dtype=torch.int32,
+                         device=cuda_device)
+    q = torch.randn((b, 32, 64), generator=gen, **bf)
+    lens = torch.tensor([300, 1, 512, 129], dtype=torch.int32,
+                        device=cuda_device)
+    got = flash_paged_decode_attention(q, pk, pv, table, lens, 0.125)
+    want = paged_decode_attention_plain(q, pk, pv, table, lens, 0.125)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=1e-2)
+
+    c, ctx, valid = 64, 256, 50
+    qr = torch.randn((b + c, 32, 64), generator=gen, **bf)
+    cpos = torch.clamp(ctx + torch.arange(c, device=cuda_device),
+                       max=ctx + valid - 1)
+    cpages = table[3, cpos // page].long()
+    ck = pk[cpages, :, cpos % page].transpose(0, 1)[None].contiguous()
+    cv = pv[cpages, :, cpos % page].transpose(0, 1)[None].contiguous()
+    ql = torch.tensor([1, 1, 1, 0, valid], dtype=torch.int32,
+                      device=cuda_device)
+    kl = torch.tensor([300, 1, 512, 1, ctx + valid], dtype=torch.int32,
+                      device=cuda_device)
+    got = ragged_paged_attention(qr, ck, cv, pk, pv, table, ql, kl, 3, 0.125)
+    want = ragged_paged_attention_ref(qr, ck, cv, pk, pv, table, ql, kl, 3,
+                                      0.125)
+    live = [0, 1, 2] + [b + i for i in range(valid)]
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=2e-2, rtol=1e-2)
+    assert not got[[3] + [b + i for i in range(valid, c)]].any()

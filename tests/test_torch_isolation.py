@@ -1,0 +1,135 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX
+package, uses no library attention, never drops to the CPU on its own, and
+its kernel wrappers run the plain version only for CPU tensors."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from crowdllama_tpu_torch.ops import cuda as kernels  # noqa: E402
+from crowdllama_tpu_torch.ops.attention import prefill_attention_ref  # noqa: E402
+from crowdllama_tpu_torch.ops.cuda.flash import flash_prefill_attention  # noqa: E402
+from crowdllama_tpu_torch.ops.cuda.paged import (  # noqa: E402
+    flash_paged_decode_attention,
+    paged_decode_attention_plain,
+    ragged_paged_attention,
+    ragged_paged_attention_ref,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = sorted((ROOT / "crowdllama_tpu_torch").rglob("*.py"))
+FORBIDDEN = {"jax", "jaxlib", "crowdllama_tpu"}
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_port_calls_no_library_attention():
+    for path in PORT:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            name = (node.attr if isinstance(node, ast.Attribute)
+                    else node.id if isinstance(node, ast.Name) else "")
+            assert name != "scaled_dot_product_attention", path
+
+
+def test_engine_without_cuda_raises_instead_of_running_on_cpu(monkeypatch):
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchEngine()
+    assert TorchEngine(device="cpu").device.type == "cpu"
+
+
+def _attn_inputs(device="cpu"):
+    r = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.from_numpy(r.standard_normal(shape).astype(
+            np.float32)).to(device)
+
+    b, hkv, page = 2, 2, 16
+    return dict(
+        q=t(b, 32, 4, 16), k=t(b, hkv, 32, 16), v=t(b, hkv, 32, 16),
+        pos=torch.arange(32, dtype=torch.int32).repeat(b, 1).to(device),
+        dq=t(b, 4, 16), pk=t(6, hkv, page, 16), pv=t(6, hkv, page, 16),
+        table=torch.tensor([[0, 1], [2, 5]], dtype=torch.int32).to(device),
+        lens=torch.tensor([20, 3], dtype=torch.int32).to(device),
+        rq=t(b + 8, 4, 16), ck=t(1, hkv, 8, 16), cv=t(1, hkv, 8, 16),
+        ql=torch.tensor([1, 0, 8], dtype=torch.int32).to(device),
+        kl=torch.tensor([20, 1, 12], dtype=torch.int32).to(device))
+
+
+def _counts():
+    return (flash_prefill_attention.launches,
+            flash_paged_decode_attention.launches,
+            ragged_paged_attention.launches)
+
+
+def test_cpu_tensors_run_the_plain_version_without_launching():
+    x = _attn_inputs()
+    before = _counts()
+    got = flash_prefill_attention(x["q"], x["k"], x["v"], x["pos"], 0.25)
+    torch.testing.assert_close(
+        got, prefill_attention_ref(x["q"], x["k"], x["v"], x["pos"], 0.25),
+        rtol=0, atol=0)
+    got = flash_paged_decode_attention(x["dq"], x["pk"], x["pv"], x["table"],
+                                       x["lens"], 0.25)
+    torch.testing.assert_close(
+        got, paged_decode_attention_plain(x["dq"], x["pk"], x["pv"],
+                                          x["table"], x["lens"], 0.25),
+        rtol=0, atol=0)
+    args = (x["rq"], x["ck"], x["cv"], x["pk"], x["pv"], x["table"], x["ql"],
+            x["kl"], 1, 0.25)
+    torch.testing.assert_close(ragged_paged_attention(*args),
+                               ragged_paged_attention_ref(*args),
+                               rtol=0, atol=0)
+    assert _counts() == before
+
+
+def test_non_cpu_tensors_the_kernels_refuse_raise_without_launching():
+    """A tensor that is not on the CPU is launched or refused, never run
+    through the plain version (meta tensors stand in for unsupported
+    devices and shapes here)."""
+    x = _attn_inputs("meta")
+    before = _counts()
+    with pytest.raises(ValueError):
+        flash_prefill_attention(x["q"], x["k"], x["v"], x["pos"], 0.25)
+    with pytest.raises(ValueError):
+        flash_paged_decode_attention(x["dq"], x["pk"], x["pv"], x["table"],
+                                     x["lens"], 0.25)
+    with pytest.raises(ValueError):
+        ragged_paged_attention(x["rq"], x["ck"], x["cv"], x["pk"], x["pv"],
+                               x["table"], x["ql"], x["kl"], 1, 0.25)
+    assert _counts() == before
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """No nvcc means a raised build error, not a silent plain path; the
+    library name carries a content hash of the sources."""
+    monkeypatch.setattr(kernels.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "CUDA_ROOTS", ())
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(kernels.KernelBuildError, match="nvcc"):
+        kernels.build_all()
+    name = kernels._lib_path("flash_prefill").name
+    assert name.startswith("flash_prefill-") and name.endswith(".so")
