@@ -7,23 +7,35 @@ Phases, each printing one JSON line:
 
 1. device: the card's name, compute capability (must be 9.0) and
    ``nvidia-smi`` name/power limit;
-2. build: compiles every kernel from ``crowdllama_tpu_torch/csrc`` and
-   reports the seconds it took;
-3. kernels: each hand-written kernel (A prefill, B paged decode, C ragged
-   paged) against its plain PyTorch version on the same inputs — at the
-   serving shapes TinyLlama-1.1B gives it, and at small shapes with softcap,
-   a sliding window and all-masked rows — with times for the kernel, the
-   plain version, one PyTorch SDPA call over the same (gathered) inputs and
-   the card's least time for the work (its bound);
-4. engine: ``TorchEngine`` serving tinyllama-1.1b at full width (random
+2. build: compiles every kernel from ``crowdllama_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all at once) and reports the seconds it took;
+3. threefry: the port's threefry keys and bits, and its samplers on logits
+   on the card, against golden vectors captured from JAX
+   (``engine/prng_golden.py``);
+4. kernels: each hand-written kernel (A prefill, B paged decode, C ragged
+   paged, D contiguous decode) against its plain PyTorch version on the
+   same inputs — at the serving shapes TinyLlama-1.1B gives it, and at
+   small shapes with softcap, a sliding window and all-masked rows or
+   zero-length slots — with times for the kernel, the plain version, one
+   PyTorch SDPA call over the same (gathered) inputs and the card's least
+   time for the work (its bound);
+5. engine: ``TorchEngine`` serving tinyllama-1.1b at full width (random
    weights from seed 0, default config: 8 slots, page 128, context 2048)
    to 8 concurrent greedy ``generate()`` streams — 6 short prompts, one
    prompt that repeats a served prompt's first 300 bytes (prefix cache) and
    one of ~1,500 bytes sent while the others decode (unified ragged
    prefill).  Launch counts are zeroed right before the streams are sent
-   and read right after; every kernel must have launched.  Then one
+   and read right after; kernels A-C must have launched.  Then one
    prefill, one decode step and one ragged step run through the kernels and
-   through the plain versions, and their logits must agree.
+   through the plain versions, and their logits must agree;
+6. contiguous: once the paged engine has stopped and its memory is freed,
+   ``TorchEngine(kv_layout="contiguous")`` on the same weights serves 8
+   concurrent streams of 32 tokens — 6 greedy short prompts, one seeded
+   sampled stream (temperature 0.8, seed 1234) and one ~1,500-byte prompt
+   sent while they decode (legacy chunked admission, >= 2 chunks).  Kernels
+   A and D must have launched; the seeded stream must repeat token for
+   token when sent again; one decode step through kernel D must agree with
+   the same step through the plain version.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero exit and
@@ -33,6 +45,8 @@ no last line.  Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import asyncio
+import contextvars
+import gc
 import json
 import subprocess
 import sys
@@ -275,6 +289,48 @@ def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
     return res
 
 
+def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
+                       window: int, timed: bool) -> dict:
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        decode_attention_plain,
+        flash_decode_attention,
+    )
+
+    b, h, hkv, dh = len(lens), 32, 4, 64
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    q = torch.randn((b, h, dh), generator=gen, **bf)
+    kc = torch.randn((b, hkv, s, dh), generator=gen, **bf)
+    vc = torch.randn((b, hkv, s, dh), generator=gen, **bf)
+    seq = torch.tensor(lens, device=dev, dtype=torch.int32)
+    args = (q, kc, vc, seq, dh ** -0.5)
+    kw = dict(softcap=softcap, sliding_window=window)
+    got = flash_decode_attention(*args, **kw)
+    want = decode_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    live = [i for i, n in enumerate(lens) if n > 0]
+    dead = [i for i, n in enumerate(lens) if n == 0]
+    if dead and got[dead].abs().max() != 0:
+        raise AssertionError("flash decode: a zero-length slot must output "
+                             "zeros")
+    res = {"max_abs_err": compare("flash decode", got, want, live)}
+    if timed:
+        res["ms"] = time_ms(lambda: flash_decode_attention(*args, **kw))
+        res["plain_ms"] = time_ms(lambda: decode_attention_plain(*args, **kw))
+        # One SDPA call over the same cache, heads repeated and the length
+        # mask built beforehand (outside the timing).
+        kr, vr = kc.repeat_interleave(h // hkv, 1), vc.repeat_interleave(
+            h // hkv, 1)
+        mask = (torch.arange(s, device=dev)[None] < seq[:, None])[:, None,
+                                                                   None]
+        res["library_ms"] = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kr, vr, attn_mask=mask))
+        kv = sum(lens) * hkv * dh * 2 * 2  # live K and V rows, bf16
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            nbytes(q, seq, got) + kv, 4 * dh * h * sum(lens))
+    return res
+
+
 def kernel_phase(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
@@ -298,6 +354,12 @@ def kernel_phase(dev) -> dict:
                      check_ragged(dev, gen, [40, 130, 0, 9], 2, 128, 64, 64,
                                   0.0, 33, False)["max_abs_err"]]
     out["C"] = cres
+    dres = check_flash_decode(dev, gen, serve_lens, 2048, 0.0, 0, timed=True)
+    dres["small"] = [check_flash_decode(dev, gen, [0, 5, 300, 129], 300,
+                                        30.0, 0, False)["max_abs_err"],
+                     check_flash_decode(dev, gen, [260, 1, 0, 64], 300, 0.0,
+                                        40, False)["max_abs_err"]]
+    out["D"] = dres
     emit({"phase": "kernels_vs_plain", "tolerance": {"atol": ATOL,
                                                       "rtol": RTOL},
           **out})
@@ -418,12 +480,12 @@ def _logit_err(kernel: torch.Tensor, plain: torch.Tensor) -> dict:
                                   .float().mean())}
 
 
-def decode_step_timing(engine, dev, steps: int = 8) -> dict:
-    """Steady-state decode with all slots live: host wall time per step
-    (ending in a synchronize) against the GPU time kernel B takes per
-    step (its launches alone, CUDA events over the same steps)."""
-    from crowdllama_tpu_torch.ops.cuda import paged as paged_ops
-
+def decode_step_timing(engine, dev, kernel, steps: int = 8,
+                       temperature: float = 0.0) -> dict:
+    """Steady-state decode with all slots live (each sampling at
+    ``temperature``): host wall time per step (ending in a synchronize)
+    against the GPU time the attention ``kernel`` takes per step (its
+    launches alone, CUDA events over the same steps)."""
     r = engine.runner
     tok = engine.tokenizer
     with torch.inference_mode():
@@ -431,7 +493,7 @@ def decode_step_timing(engine, dev, steps: int = 8) -> dict:
         for slot in range(r.max_slots):
             ids = tok.encode(SHORT[slot % len(SHORT)] + str(slot))
             first, ks, vs, plen = r.prefill(ids, 0.0, 1.0, None)
-            st = r.insert(st, slot, ks, vs, plen, first, 0.0, 1.0,
+            st = r.insert(st, slot, ks, vs, plen, first, temperature, 1.0,
                           prompt_tokens=ids)
         r.decode_steps(st, steps)  # warm
         torch.cuda.synchronize()
@@ -439,7 +501,6 @@ def decode_step_timing(engine, dev, steps: int = 8) -> dict:
         r.decode_steps(st, steps)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / steps
-        kernel = paged_ops.flash_paged_decode_attention
         spans = []
 
         def timed(*a, **kw):
@@ -451,14 +512,28 @@ def decode_step_timing(engine, dev, steps: int = 8) -> dict:
             spans.append((ev0, ev1))
             return out
 
+        seam = r.decode_attn
         r.decode_attn = timed
         r.decode_steps(st, steps)
-        r.decode_attn = kernel
+        r.decode_attn = seam
         torch.cuda.synchronize()
     attn_ms = sum(a.elapsed_time(b) for a, b in spans) / steps
-    return {"slots": r.max_slots, "step_ms": step_ms,
-            "kernel_b_ms_per_step": attn_ms,
+    return {"slots": r.max_slots, "temperature": temperature,
+            "step_ms": step_ms, "kernel_ms_per_step": attn_ms,
             "tokens_per_s": r.max_slots * 1e3 / step_ms}
+
+
+def seed0_params(dev) -> dict:
+    """TinyLlama-1.1B at full width and depth, random weights from seed 0,
+    with the EOS unembedding column zeroed so no stream stops early (every
+    stream must run to max_tokens whatever batch it lands in)."""
+    from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
+    from crowdllama_tpu_torch.engine.weights import init_params
+    from crowdllama_tpu_torch.models.config import get_config
+
+    params = init_params(get_config("tinyllama-1.1b"), seed=0, device=dev)
+    params["lm_head"][:, ByteTokenizer.EOS] = 0
+    return params
 
 
 def engine_phase(dev) -> dict:
@@ -473,17 +548,7 @@ def engine_phase(dev) -> dict:
                 "B": flash_paged_decode_attention, "C": ragged_paged_attention}
 
     async def go():
-        from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
-        from crowdllama_tpu_torch.engine.weights import init_params
-        from crowdllama_tpu_torch.models.config import get_config
-
-        # Random weights from seed 0, with the EOS unembedding column zeroed
-        # so no greedy stream stops early (every stream must run to
-        # max_tokens whatever batch it lands in).
-        params = init_params(get_config("tinyllama-1.1b"), seed=0,
-                             device=dev)
-        params["lm_head"][:, ByteTokenizer.EOS] = 0
-        engine = TorchEngine(device=dev, params=params)
+        engine = TorchEngine(device=dev, params=seed0_params(dev))
         t0 = time.perf_counter()
         await engine.start()
         start_s = time.perf_counter() - t0
@@ -516,7 +581,10 @@ def engine_phase(dev) -> dict:
         raise AssertionError(f"prefix hits {hits}, ragged chunks "
                              f"{ragged_chunks}: a path was not taken")
     errs = logits_check(engine, dev)
-    steady = decode_step_timing(engine, dev)
+    steady = decode_step_timing(engine, dev, flash_paged_decode_attention)
+    steady_sampled = decode_step_timing(engine, dev,
+                                        flash_paged_decode_attention,
+                                        temperature=0.8)
     ttft = sorted(v["ttft_ms"] for v in reqs.values())
     emit({"phase": "engine", "model": "tinyllama-1.1b", "layers": 22,
           "start_s": start_s, "wall_s": served["wall_s"],
@@ -525,10 +593,174 @@ def engine_phase(dev) -> dict:
           "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
           "launches": launches, "prefix_hits": hits,
           "ragged_chunks": ragged_chunks, "logits_max_abs_err": errs,
-          "steady_decode": steady,
+          "steady_decode": steady, "steady_decode_sampled": steady_sampled,
           "logits_rtol": LOGIT_RTOL, "requests": reqs,
           "card": torch.cuda.get_device_name(0)})
     return launches
+
+
+# ------------------------------------------------------- contiguous phase
+
+SAMPLED = "A seeded sampled stream draws its tokens from threefry keys."
+# The token ids a stream received, per asyncio task (see _IdRecorder).
+_STREAM_IDS: contextvars.ContextVar = contextvars.ContextVar("stream_ids",
+                                                             default=None)
+
+
+class _IdRecorder:
+    """Tokenizer proxy: each stream's decoder appends the token ids it is
+    fed to the list its task set in ``_STREAM_IDS``."""
+
+    def __init__(self, tok):
+        self._tok = tok
+
+    def __getattr__(self, name):
+        return getattr(self._tok, name)
+
+    def stream_decoder(self):
+        dec, ids = self._tok.stream_decoder(), _STREAM_IDS.get()
+
+        class _Dec:
+            def feed(self, token_id):
+                if ids is not None:
+                    ids.append(int(token_id))
+                return dec.feed(token_id)
+
+        return _Dec()
+
+
+async def serve_contiguous(engine) -> dict:
+    results: dict[str, dict] = {}
+
+    async def run(name: str, prompt: str, **kw) -> None:
+        ids: list[int] = []
+        _STREAM_IDS.set(ids)
+        t0 = time.perf_counter()
+        final = None
+        async for chunk in engine.generate(prompt, max_tokens=32, **kw):
+            final = chunk
+        results[name] = {"done": final.done, "reason": final.done_reason,
+                         "completion_tokens": final.completion_tokens,
+                         "prompt_tokens": final.prompt_tokens,
+                         "ttft_ms": (final.queue_ns + final.prefill_ns) / 1e6,
+                         "wall_s": time.perf_counter() - t0, "ids": ids}
+
+    sampled = dict(temperature=0.8, seed=1234)
+    t0 = time.perf_counter()
+    tasks = [asyncio.create_task(run(f"short{i}", p))
+             for i, p in enumerate(SHORT)]
+    tasks.append(asyncio.create_task(run("sampled", SAMPLED, **sampled)))
+    while (engine.scheduler.tokens_generated < 8
+           and not all(t.done() for t in tasks)):
+        await asyncio.sleep(0.005)
+    tasks.append(asyncio.create_task(run("long", LONG)))
+    await asyncio.gather(*tasks)
+    wall = time.perf_counter() - t0
+    await run("sampled_again", SAMPLED, **sampled)
+    return {"requests": results, "wall_s": wall}
+
+
+def contiguous_logits_check(engine) -> dict:
+    """One decode step through kernel D and through its plain version on
+    the same state (3 live slots)."""
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        decode_attention_plain,
+        flash_decode_attention,
+    )
+
+    r, tok = engine.runner, engine.tokenizer
+    with torch.inference_mode():
+        st = r.init_state()
+        for slot, p in enumerate(SHORT[:3]):
+            ids = tok.encode(p)
+            first, ks, vs, plen = r.prefill(ids, 0.0, 1.0, None)
+            st = r.insert(st, slot, ks, vs, plen, first, 0.0, 1.0,
+                          prompt_tokens=ids)
+        seam = r.decode_attn
+        r.decode_attn = decode_attention_plain
+        dp = r.decode_logits(st)
+        r.decode_attn = flash_decode_attention
+        dk = r.decode_logits(st)
+        r.decode_attn = seam
+    err = _logit_err(dk[:3], dp[:3])
+    if not err["max_abs_err"] <= LOGIT_RTOL * err["scale"]:
+        raise AssertionError(f"contiguous decode logits: kernel vs plain "
+                             f"{err}")
+    return err
+
+
+def contiguous_phase(dev) -> int:
+    """The contiguous-KV engine; returns kernel D's launches in its
+    streams."""
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        flash_decode_attention,
+        flash_prefill_attention,
+    )
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention,
+        ragged_paged_attention,
+    )
+
+    wrappers = {"A": flash_prefill_attention, "B": flash_paged_decode_attention,
+                "C": ragged_paged_attention, "D": flash_decode_attention}
+
+    async def go():
+        engine = TorchEngine(device=dev, params=seed0_params(dev),
+                             kv_layout="contiguous")
+        t0 = time.perf_counter()
+        await engine.start()
+        start_s = time.perf_counter() - t0
+        engine.tokenizer = _IdRecorder(engine.tokenizer)
+        try:
+            for w in wrappers.values():
+                w.launches = 0
+            served = await serve_contiguous(engine)
+            launches = {k: w.launches for k, w in wrappers.items()}
+        finally:
+            await engine.stop()
+        return engine, start_s, served, launches
+
+    engine, start_s, served, launches = asyncio.run(go())
+    reqs = served["requests"]
+    for name, v in reqs.items():
+        if not (v["done"] and v["completion_tokens"] == 32
+                and len(v["ids"]) == 32):
+            raise AssertionError(f"stream {name} ended "
+                                 f"{ {k: x for k, x in v.items() if k != 'ids'} }")
+    if reqs["sampled"]["ids"] != reqs["sampled_again"]["ids"]:
+        raise AssertionError("the seeded sampled stream did not repeat: "
+                             f"{reqs['sampled']['ids']} vs "
+                             f"{reqs['sampled_again']['ids']}")
+    chunks = engine.scheduler.prefill_chunks
+    if reqs["long"]["prompt_tokens"] <= engine.runner.prefill_chunk or \
+            chunks < 2:
+        raise AssertionError(f"the long prompt must take >= 2 chunks "
+                             f"({chunks} chunks)")
+    if launches["A"] <= 0 or launches["D"] <= 0:
+        raise AssertionError(f"kernels A and D must launch: {launches}")
+    if launches["B"] or launches["C"]:
+        raise AssertionError(f"paged kernels launched on the contiguous "
+                             f"layout: {launches}")
+    err = contiguous_logits_check(engine)
+    steady = decode_step_timing(engine, dev, flash_decode_attention)
+    ttft = sorted(v["ttft_ms"] for k, v in reqs.items()
+                  if k != "sampled_again")
+    tokens = sum(v["completion_tokens"] for k, v in reqs.items()
+                 if k != "sampled_again")
+    emit({"phase": "contiguous", "model": "tinyllama-1.1b", "layers": 22,
+          "start_s": start_s, "wall_s": served["wall_s"],
+          "completion_tokens": tokens,
+          "tokens_per_s": tokens / served["wall_s"],
+          "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
+          "launches": launches, "prefill_chunks": chunks,
+          "sampled_ids": reqs["sampled"]["ids"],
+          "logits_max_abs_err": err, "logits_rtol": LOGIT_RTOL,
+          "steady_decode": steady,
+          "requests": {k: {x: y for x, y in v.items() if x != "ids"}
+                       for k, v in reqs.items()},
+          "card": torch.cuda.get_device_name(0)})
+    return launches["D"]
 
 
 def main() -> int:
@@ -551,8 +783,14 @@ def main() -> int:
     kernels.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
 
+    from crowdllama_tpu_torch.engine import prng_golden
+
+    emit({"phase": "threefry", **prng_golden.check(dev)})
     res = kernel_phase(dev)
     launches = engine_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["D"] = contiguous_phase(dev)
 
     rows = []
     meta = {"A": ("flash_prefill", "crowdllama_tpu_torch/csrc/flash_prefill.cu",
@@ -562,7 +800,9 @@ def main() -> int:
                   "crowdllama_tpu/ops/pallas/paged.py:196"),
             "C": ("ragged_paged",
                   "crowdllama_tpu_torch/csrc/paged_attention.cu",
-                  "crowdllama_tpu/ops/pallas/paged.py:703")}
+                  "crowdllama_tpu/ops/pallas/paged.py:703"),
+            "D": ("flash_decode", "crowdllama_tpu_torch/csrc/flash_decode.cu",
+                  "crowdllama_tpu/ops/pallas/flash.py:269")}
     for key, (kname, src, repl) in meta.items():
         r = res[key]
         rows.append({"name": kname, "route": "cuda", "source": src,

@@ -1,6 +1,7 @@
 """Engine configuration: the fields of ``crowdllama_tpu/config.py``
 ``Configuration`` that the ported engine reads, under the same names and
-defaults."""
+defaults.  ``kv_layout`` is normalized and checked as the JAX package
+checks it; which combinations serve is ``engine/plan.py``'s decision."""
 
 from __future__ import annotations
 
@@ -14,13 +15,27 @@ class Configuration:
     max_batch_slots: int = 8
     max_context_length: int = 2048
     decode_chunk: int = 8  # decode steps per device dispatch
+    # "paged": page pool + prefix cache (the default); "contiguous":
+    # [L, B, Hkv, S, Dh] per slot, decode through kernel D.
+    kv_layout: str = "paged"
+    kv_dtype: str = "bf16"  # only bf16 is ported
+    quantize: str = ""  # "" = bf16 weights (only mode ported)
+    spec_decode: str = ""  # "" = no speculation (only mode ported)
+    mesh_shape: str = ""  # "" = one device (only mode ported)
     kv_page_size: int = 128
     kv_pool_tokens: int = 0  # 0 = slots x context (no overcommit)
     kv_prefix_cache: bool = True
     # Unified ragged batch: long prompts prefill inside the decode dispatch
     # in chunks of (step_token_budget - max_batch_slots) tokens; 0 = auto
-    # (prefill_chunk + max_batch_slots).
+    # (prefill_chunk + max_batch_slots).  Off (or the contiguous layout):
+    # long prompts admit through legacy chunked prefill.
     ragged_prefill: bool = True
     step_token_budget: int = 0
     warmup: bool = True  # run each serving path once at engine start
     admission_pending_max: int = 0  # 0 = no load-shedding threshold
+
+    def __post_init__(self) -> None:
+        self.kv_layout = (self.kv_layout or "contiguous").strip().lower()
+        if self.kv_layout not in ("contiguous", "paged"):
+            raise ValueError(f"unknown kv layout {self.kv_layout!r} "
+                             "(want 'contiguous' or 'paged')")

@@ -1,10 +1,11 @@
 """Engine facade: the serving seam between the swarm and the model.
 
 Counterpart of ``crowdllama_tpu/engine/engine.py``: ``Chunk``,
-``StopMatcher``, the ``Engine`` base and ``TorchEngine`` (the paged runner
-behind the continuous-batching scheduler, streaming text chunks from
-``generate``).  The protobuf request seams (``Engine.handle*``), embeddings,
-KV shipping and profiling are not ported yet.
+``StopMatcher``, the ``Engine`` base and ``TorchEngine`` (the runner the
+serving plan names, paged or contiguous, behind the continuous-batching
+scheduler, streaming text chunks from ``generate``).  Embeddings run on the
+runner (``engine.runner.embed_prompts``).  The protobuf request seams
+(``Engine.handle*``), KV shipping and profiling are not ported yet.
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ class Engine:
 
 
 class TorchEngine(Engine):
-    """The real engine: PagedModelRunner + continuous-batching Scheduler.
+    """The real engine: the plan's runner + continuous-batching Scheduler.
 
     Serves on CUDA unless ``device`` is given; without CUDA and without a
     device, construction raises.  ``params`` (a parameter dict, e.g. from
@@ -112,17 +113,21 @@ class TorchEngine(Engine):
         self.scheduler = None
         self.tokenizer = None
         self.runner = None
+        self.plan = None
 
     async def start(self) -> None:
-        """Build tokenizer/params/runner, run each serving path once
-        (warmup, which also builds the kernels), start the scheduler."""
-        from crowdllama_tpu_torch.engine.paged import PagedModelRunner
+        """Build tokenizer/params/runner (through the serving plan), run
+        each serving path once (warmup, which also builds the kernels),
+        start the scheduler."""
+        from crowdllama_tpu_torch.engine.factory import build_runner
+        from crowdllama_tpu_torch.engine.plan import resolve_serving_plan
         from crowdllama_tpu_torch.engine.scheduler import Scheduler
         from crowdllama_tpu_torch.engine.tokenizer import get_tokenizer
         from crowdllama_tpu_torch.models.config import get_config
 
         c = self.config
         device = self.device
+        self.plan = resolve_serving_plan(c)
         cfg = get_config(c.model)
         if c.max_context_length:
             cfg = dataclasses.replace(cfg, max_context_length=min(
@@ -131,12 +136,9 @@ class TorchEngine(Engine):
         loop = asyncio.get_running_loop()
 
         def _build():
-            return PagedModelRunner(
-                cfg, params=self._params, max_slots=c.max_batch_slots,
-                max_seq=cfg.max_context_length, dtype=self.dtype,
-                seed=self.seed, device=device, page_size=c.kv_page_size,
-                pool_tokens=c.kv_pool_tokens, prefix_cache=c.kv_prefix_cache,
-                step_token_budget=c.step_token_budget)
+            return build_runner(c, self.plan, cfg, self._params,
+                                dtype=self.dtype, seed=self.seed,
+                                device=device)
 
         self.runner = await loop.run_in_executor(None, _build)
         if c.warmup:
@@ -146,33 +148,44 @@ class TorchEngine(Engine):
             admission_pending_max=c.admission_pending_max,
             ragged=c.ragged_prefill)
         self.scheduler.start()
-        log.info("engine up: model=%s device=%s slots=%d max_seq=%d",
-                 cfg.name, device, self.runner.max_slots,
-                 self.runner.max_seq)
+        log.info("engine up: model=%s device=%s layout=%s slots=%d "
+                 "max_seq=%d", cfg.name, device, self.plan.kv_layout,
+                 self.runner.max_slots, self.runner.max_seq)
 
     def _warmup(self) -> None:
         """Run every serving path once before serving: monolithic prefill +
-        insert (kernel A), decode chunks of 1 and decode_chunk (kernel B),
-        the prefix-hit suffix prefill, and a unified ragged prefill of one
-        chunk + 1 tokens (kernel C)."""
+        insert (kernel A), decode chunks of 1 and decode_chunk (kernel D on
+        the contiguous layout, B on the paged one), the prefix-hit suffix
+        prefill, a legacy chunked prefill of one chunk + 1 tokens, the
+        embeddings forward, and on the paged layout a unified ragged
+        prefill of one chunk + 1 tokens (kernel C)."""
         r = self.runner
         state = r.init_state()
         tok, ks, vs, plen = r.prefill([1, 2, 3], 0.0, 1.0, None)
         state = r.insert(state, 0, ks, vs, plen, tok, 0.0, 1.0)
         for k in sorted({1, self.config.decode_chunk}):
             _, state = r.decode_steps(state, k)
-        if r.prefix_cache:
+        if getattr(r, "prefix_cache", False):
             r.warmup_ctx_prefill(state)
+        if r.prefill_chunk and r.max_seq > r.prefill_chunk + 1:
+            vocab = r.cfg.vocab_size
+            job = r.prefill_begin([1 + i % (vocab - 1)
+                                   for i in range(r.prefill_chunk + 1)])
+            while not r.prefill_step(job):
+                pass
+            r.prefill_finish(job, 0.0, 1.0, None)
+        r.embed_prompts([[1, 2, 3]])
         state = r.release(state, 0)
-        if self.config.ragged_prefill and r.max_seq > r.ragged_chunk + 1:
+        if (self.config.ragged_prefill and r.supports_ragged
+                and r.max_seq > r.ragged_chunk + 1):
             job = r.ragged_begin(list(range(2, r.ragged_chunk + 3)), 0,
                                  state=state)
             while not job.finished:
                 _, state = r.ragged_step(state, job, 1)
             _, state = r.ragged_finish(state, job, 0.0, 1.0, None)
             state = r.release(state, 0)
-        if state.pool_k.is_cuda:
-            torch.cuda.synchronize(state.pool_k.device)
+        if r.device.type == "cuda":
+            torch.cuda.synchronize(r.device)
         log.info("warmup done")
 
     async def stop(self) -> None:
@@ -185,12 +198,15 @@ class TorchEngine(Engine):
             d["throughput"] = round(self.scheduler.throughput_ema, 2)
             d["load"] = round(self.scheduler.load, 3)
         if self.runner is not None:
-            d["device"] = str(self.runner.device)
-            d["prefix_cache"] = {
-                "hits": self.runner.prefix_hits,
-                "misses": self.runner.prefix_misses,
-                "tokens_reused": self.runner.prefix_tokens_reused,
-            }
+            r = self.runner
+            d["device"] = str(r.device)
+            d["kv_layout"] = r.kv_layout
+            if getattr(r, "prefix_cache", False):
+                d["prefix_cache"] = {
+                    "hits": r.prefix_hits,
+                    "misses": r.prefix_misses,
+                    "tokens_reused": r.prefix_tokens_reused,
+                }
         return d
 
     async def generate(  # type: ignore[override]

@@ -1,0 +1,29 @@
+"""Runner construction from a Configuration and its ServingPlan.
+
+Counterpart of the one-device subset of ``crowdllama_tpu/engine/factory.py``
+``build_runner``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def build_runner(config, plan, cfg, params=None, *,
+                 dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                 device=None):
+    """Instantiate the runner ``plan`` names for model ``cfg``."""
+    kwargs = dict(params=params, max_slots=config.max_batch_slots,
+                  max_seq=cfg.max_context_length, dtype=dtype, seed=seed,
+                  device=device)
+    if plan.kv_layout == "paged":
+        from crowdllama_tpu_torch.engine.paged import PagedModelRunner
+
+        return PagedModelRunner(
+            cfg, page_size=config.kv_page_size,
+            pool_tokens=config.kv_pool_tokens,
+            prefix_cache=config.kv_prefix_cache,
+            step_token_budget=config.step_token_budget, **kwargs)
+    from crowdllama_tpu_torch.engine.runner import ModelRunner
+
+    return ModelRunner(cfg, **kwargs)

@@ -19,25 +19,22 @@ one device with a bf16 pool:
 
 Device state is updated in place (the JAX package donates and replaces
 it); methods still return the state so callers read like the reference.
-Megastep, int8 pools, tensor parallelism and KV page export/import are not
-ported yet.
+Legacy chunked admission (``ragged_prefill=False``) runs the base runner's
+``prefill_step`` over accumulators seeded from cached prefix pages
+(:meth:`PagedModelRunner.prefill_begin`).  Megastep, int8 pools, tensor
+parallelism and KV page export/import are not ported yet.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from crowdllama_tpu_torch.engine.runner import ModelRunner
-from crowdllama_tpu_torch.engine.sampling import (
-    REPEAT_LAST_N,
-    apply_repeat_penalty,
-    sample_tokens_slots,
-)
+from crowdllama_tpu_torch.engine.runner import ModelRunner, SlotState
 from crowdllama_tpu_torch.models import transformer as T
 from crowdllama_tpu_torch.ops.cuda.paged import (
     flash_paged_decode_attention,
@@ -49,35 +46,18 @@ class PagesExhausted(ValueError):
     """No free KV pages (overcommitted pool) — reject the request."""
 
 
-@dataclass
-class PagedDecodeState:
+@dataclass(kw_only=True)
+class PagedDecodeState(SlotState):
     pool_k: torch.Tensor          # [L, P+1, Hkv, page, Dh]
     pool_v: torch.Tensor
-    seq_lens: torch.Tensor        # [B] int32 (tokens in cache; last pending)
-    tokens: torch.Tensor          # [B] int32 last sampled token per slot
-    active: torch.Tensor          # [B] bool
-    temperature: torch.Tensor     # [B] f32
-    top_p: torch.Tensor           # [B] f32
-    top_k: torch.Tensor           # [B] int32 (0 = off)
-    repeat_penalty: torch.Tensor  # [B] f32 (1 = off)
-    recent: torch.Tensor          # [B, REPEAT_LAST_N] int32 last-N ring
-    # Per-slot sampling generators (None for a free slot): a slot's draws
-    # depend only on its own generator, never on batch composition.
-    generators: list = field(default_factory=list)
-
-
-def default_slot_generator(slot: int, device) -> torch.Generator:
-    """Deterministic per-slot generator for direct runner callers that do
-    not plumb a request seed."""
-    return torch.Generator(device=device).manual_seed(slot)
 
 
 class PagedModelRunner(ModelRunner):
     """ModelRunner with the paged KV layout."""
 
-    prefill_chunk = 512
     #: the scheduler runs long prompts through the unified ragged step
     supports_ragged = True
+    kv_layout = "paged"
 
     def __init__(self, cfg, *args, page_size: int = 128, pool_tokens: int = 0,
                  prefix_cache: bool = True, step_token_budget: int = 0,
@@ -220,7 +200,7 @@ class PagedModelRunner(ModelRunner):
 
     @torch.inference_mode()
     def init_state(self) -> PagedDecodeState:
-        cfg, dev, b = self.cfg, self.device, self.max_slots
+        cfg, dev = self.cfg, self.device
         shape = (cfg.num_layers, self.total_pages + 1, cfg.num_kv_heads,
                  self.page_size, cfg.resolved_head_dim())
         self._free_pages = list(range(self.total_pages))
@@ -234,35 +214,10 @@ class PagedModelRunner(ModelRunner):
         self._key_children.clear()
         self._pending_match = None
         self._ragged_slot = None
-        i32 = dict(dtype=torch.int32, device=dev)
         return PagedDecodeState(
             pool_k=torch.zeros(shape, dtype=self.dtype, device=dev),
             pool_v=torch.zeros(shape, dtype=self.dtype, device=dev),
-            seq_lens=torch.zeros(b, **i32), tokens=torch.zeros(b, **i32),
-            active=torch.zeros(b, dtype=torch.bool, device=dev),
-            temperature=torch.zeros(b, dtype=torch.float32, device=dev),
-            top_p=torch.ones(b, dtype=torch.float32, device=dev),
-            top_k=torch.zeros(b, **i32),
-            repeat_penalty=torch.ones(b, dtype=torch.float32, device=dev),
-            recent=torch.full((b, REPEAT_LAST_N), cfg.vocab_size, **i32),
-            generators=[None] * b)
-
-    def _activate(self, st: PagedDecodeState, slot: int, plen: int,
-                  first_token: int, temperature: float, top_p: float,
-                  top_k: int, repeat_penalty: float, recent_row: np.ndarray,
-                  generator) -> None:
-        """Flip ``slot`` live with its sampling parameters."""
-        st.seq_lens[slot] = plen
-        st.tokens[slot] = first_token
-        st.active[slot] = True
-        st.temperature[slot] = temperature
-        st.top_p[slot] = top_p
-        st.top_k[slot] = top_k
-        st.repeat_penalty[slot] = repeat_penalty
-        st.recent[slot] = torch.as_tensor(recent_row, device=self.device)
-        if generator is None and temperature > 0:
-            generator = default_slot_generator(slot, self.device)
-        st.generators[slot] = generator
+            **self._slot_fields())
 
     def _table(self, width: int | None = None) -> torch.Tensor:
         table = self.page_table if width is None else self.page_table[:, :width]
@@ -295,7 +250,7 @@ class PagedModelRunner(ModelRunner):
 
     @torch.inference_mode()
     def prefill(self, prompt_ids: list[int], temperature: float, top_p: float,
-                generator=None, state: PagedDecodeState | None = None,
+                key=None, state: PagedDecodeState | None = None,
                 top_k: int = 0, repeat_penalty: float = 1.0):
         """Bucketed prefill with automatic prefix caching.
 
@@ -307,7 +262,7 @@ class PagedModelRunner(ModelRunner):
         pg = self.page_size
         plen = len(prompt_ids)
         if not self.prefix_cache:
-            return super().prefill(prompt_ids, temperature, top_p, generator,
+            return super().prefill(prompt_ids, temperature, top_p, key,
                                    top_k=top_k, repeat_penalty=repeat_penalty)
         # Index keys for every full prompt page; matching is capped one page
         # earlier so at least one suffix token remains to produce logits.
@@ -325,7 +280,7 @@ class PagedModelRunner(ModelRunner):
             if state is not None:
                 self.prefix_misses += 1
             self._pending_match = (keys, [])
-            return super().prefill(prompt_ids, temperature, top_p, generator,
+            return super().prefill(prompt_ids, temperature, top_p, key,
                                    top_k=top_k, repeat_penalty=repeat_penalty)
         self.prefix_hits += 1
         # Pin the matched pages now: the paired insert's _alloc could
@@ -338,13 +293,13 @@ class PagedModelRunner(ModelRunner):
         pages[:len(matched)] = matched  # dump-page padded
         tok, ks, vs = self._prefill_ctx(prompt_ids, ctx_len, state,
                                         torch.from_numpy(pages).to(self.device),
-                                        temperature, top_p, generator, top_k,
+                                        temperature, top_p, key, top_k,
                                         repeat_penalty)
         self._pending_match = (keys, matched)
         return tok, ks, vs, plen
 
     def _prefill_ctx(self, prompt_ids, ctx_len, state, pages, temperature,
-                     top_p, generator, top_k, repeat_penalty):
+                     top_p, key, top_k, repeat_penalty):
         """Suffix prefill attending over cached prefix pages (``pages`` is
         the slot's dump-page padded page list; ``ctx_len`` masks the
         tail)."""
@@ -369,8 +324,40 @@ class PagedModelRunner(ModelRunner):
             kv_valid=kv_valid, ctx_k=ck, ctx_v=cv, ctx_valid=ctx_valid)
         logits = T._unembed(self.params, cfg, x[:, slen - 1])
         tok = self._sample_first(logits, prompt_ids, temperature, top_p,
-                                 generator, top_k, repeat_penalty)
+                                 key, top_k, repeat_penalty)
         return tok, ks, vs
+
+    @torch.inference_mode()
+    def prefill_begin(self, prompt_ids: list[int],
+                      state: PagedDecodeState | None = None):
+        """Legacy chunked-admission job, seeded from cached prefix pages:
+        with ``state`` the cached prefix's KV is copied into the job's
+        accumulators and ``done_tokens`` starts past it, so only the
+        uncovered suffix is prefilled.  The job's insert scatters the whole
+        prompt into fresh pages."""
+        self._clear_pending()
+        job = super().prefill_begin(prompt_ids)
+        if state is None or not self.prefix_cache:
+            return job
+        pg = self.page_size
+        plen = len(prompt_ids)
+        # Cap one page early: >= 1 suffix token must remain for logits.
+        matched = self._match_prefix(
+            self._chain_keys(prompt_ids, max(0, (plen - 1) // pg)))
+        if not matched:
+            self.prefix_misses += 1
+            return job
+        cfg = self.cfg
+        l, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim()
+        ctx_len = len(matched) * pg
+        pages = torch.as_tensor(matched, dtype=torch.long, device=self.device)
+        for pool, ctx in ((state.pool_k, job.ctx_k), (state.pool_v, job.ctx_v)):
+            ctx[:, :, :, :ctx_len] = pool[:, pages].permute(
+                0, 2, 1, 3, 4).reshape(l, 1, hkv, ctx_len, dh)
+        job.done_tokens = ctx_len
+        self.prefix_hits += 1
+        self.prefix_tokens_reused += ctx_len
+        return job
 
     @torch.inference_mode()
     def warmup_ctx_prefill(self, state: PagedDecodeState) -> None:
@@ -387,7 +374,8 @@ class PagedModelRunner(ModelRunner):
                top_k: int = 0, repeat_penalty: float = 1.0):
         """Place a prefilled sequence: shared prefix pages (from the paired
         prefill's match, refcounted) + freshly scattered suffix pages.
-        ``slot_key`` is the slot's sampling generator."""
+        ``slot_key`` seeds the slot's sampling stream (default:
+        ``default_slot_key(slot)``)."""
         bucket = ks.shape[3]
         pg = self.page_size
         if bucket % pg != 0:
@@ -438,10 +426,7 @@ class PagedModelRunner(ModelRunner):
     @torch.inference_mode()
     def release(self, state: PagedDecodeState, slot: int):
         self._free(slot)
-        state.seq_lens[slot] = 0
-        state.tokens[slot] = 0
-        state.active[slot] = False
-        state.generators[slot] = None
+        self._deactivate(state, slot)
         return state
 
     # -------------------------------------------------------------- decode
@@ -476,25 +461,6 @@ class PagedModelRunner(ModelRunner):
             if slot != skip:
                 self._host_seq[slot] = min(self._host_seq[slot] + steps,
                                            self.max_seq)
-
-    def _sample_decode(self, st: PagedDecodeState,
-                       logits: torch.Tensor) -> torch.Tensor:
-        """Sample every slot's next token from logits [B, V], advance the
-        slot state in place; returns the tokens [B] int32."""
-        logits = apply_repeat_penalty(logits, st.recent, st.repeat_penalty)
-        nxt = sample_tokens_slots(logits, st.temperature, st.top_p,
-                                  st.generators, top_k=st.top_k)
-        nxt = torch.where(st.active, nxt, torch.zeros_like(nxt))
-        # The sampled token's sequence position is seq_lens + 1 (the
-        # pending token occupies seq_lens).
-        bidx = torch.arange(st.recent.shape[0], device=self.device)
-        cursor = ((st.seq_lens + 1) % REPEAT_LAST_N).long()
-        st.recent[bidx, cursor] = torch.where(st.active, nxt,
-                                              st.recent[bidx, cursor])
-        st.seq_lens.copy_(torch.where(st.active, st.seq_lens + 1,
-                                      st.seq_lens))
-        st.tokens.copy_(nxt)
-        return nxt
 
     def _decode_positions(self, st: PagedDecodeState, table: torch.Tensor):
         """(positions, lens, write pages, write offsets) of the B decode
@@ -539,10 +505,12 @@ class PagedModelRunner(ModelRunner):
             if slot != self._ragged_slot:
                 self._ensure_slot(slot, num_steps)
         table = self._table()
+        noise = self._step_noise(state, num_steps)
         out = []
-        for _ in range(num_steps):
-            out.append(self._sample_decode(state,
-                                           self.decode_logits(state, table)))
+        for i in range(num_steps):
+            out.append(self._sample_decode(
+                state, self.decode_logits(state, table),
+                None if noise is None else noise[i]))
         self._advance_host(num_steps, skip=self._ragged_slot)
         return torch.stack(out), state
 
@@ -696,6 +664,7 @@ class PagedModelRunner(ModelRunner):
                                                                 num_steps)
         table = self._table(wp)
         ctoks = torch.from_numpy(chunk_tokens).to(self.device)
+        noise = self._step_noise(state, num_steps)
         out = []
         for i in range(num_steps):
             logits, valid = self.ragged_logits(
@@ -703,7 +672,8 @@ class PagedModelRunner(ModelRunner):
                 ctoks[i])
             if valid > 0:
                 job.last_logits = logits[-1]
-            out.append(self._sample_decode(state, logits[:-1]))
+            out.append(self._sample_decode(
+                state, logits[:-1], None if noise is None else noise[i]))
         job.done_tokens = end
         self._host_seq[job.slot] = end
         self._advance_host(num_steps, skip=job.slot)
@@ -723,7 +693,7 @@ class PagedModelRunner(ModelRunner):
 
     @torch.inference_mode()
     def ragged_finish(self, state: PagedDecodeState, job: "RaggedPrefillJob",
-                      temperature: float, top_p: float, generator=None,
+                      temperature: float, top_p: float, key=None,
                       slot_key=None, top_k: int = 0,
                       repeat_penalty: float = 1.0):
         """Sample the first token and activate the slot (its KV is already
@@ -732,7 +702,7 @@ class PagedModelRunner(ModelRunner):
             raise RuntimeError("ragged_finish before the prompt is prefilled")
         plen = len(job.prompt_ids)
         first = self._sample_first(job.last_logits[None], job.prompt_ids,
-                                   temperature, top_p, generator, top_k,
+                                   temperature, top_p, key, top_k,
                                    repeat_penalty)
         recent_row = self._recent_from_prompt(job.prompt_ids, first,
                                               plen=plen)

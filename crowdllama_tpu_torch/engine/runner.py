@@ -1,11 +1,22 @@
-"""ModelRunner: the serving surface the paged runner builds on.
+"""ModelRunner: prefill, chunked prefill, embeddings and the contiguous KV
+layout.
 
 Counterpart of the one-device part of ``crowdllama_tpu/engine/runner.py``
 ``ModelRunner``: the parameters, the prefill buckets, bucketed monolithic
-prefill with first-token sampling, and the decode-chunk readback.  The
-KV layout (insert, release, the decode step) belongs to the subclass
-(``engine/paged.py``).  No mesh, sequence/pipeline parallelism or
-contiguous cache here; those are not ported yet.
+prefill with first-token sampling, legacy chunked admission
+(``prefill_begin`` / ``prefill_step`` / ``prefill_finish``, the plain
+``prefill_attention_ctx`` over the job's KV accumulators), the
+embeddings forward (``embed_prompts``, kernel A through
+``T.hidden_states``), and the contiguous cache ``[L, B, Hkv, S, Dh]``
+whose decode step reads each slot's keys through kernel D.  The paged
+subclass (``engine/paged.py``) replaces the cache layout and reuses the
+rest.  No mesh, sequence/pipeline parallelism, int8 cache or speculation
+here; those are not ported yet.
+
+Sampling keys: each slot carries a threefry key ``[2]`` uint32 in the
+state (host numpy, ``engine/prng.py``); every decode step splits every
+slot's key, live or not, and samples with the sub-key, as the JAX decode
+step does, so a seeded request draws the same tokens on both packages.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without CUDA and without an explicit device, construction raises.
@@ -13,18 +24,25 @@ without CUDA and without an explicit device, construction raises.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from crowdllama_tpu_torch.engine import prng
 from crowdllama_tpu_torch.engine.sampling import (
     REPEAT_LAST_N,
     apply_repeat_penalty,
-    sample_tokens_slots,
+    default_slot_key,
+    noise_width,
+    sample_tokens,
+    sample_with_noise,
+    split_slot_keys,
 )
 from crowdllama_tpu_torch.engine.weights import init_params
 from crowdllama_tpu_torch.models import transformer as T
 from crowdllama_tpu_torch.models.config import ModelConfig
-from crowdllama_tpu_torch.ops.attention import prefill_attention
+from crowdllama_tpu_torch.ops.attention import decode_attention, prefill_attention
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -47,10 +65,45 @@ def prefill_buckets(max_seq: int) -> list[int]:
     return buckets
 
 
+@dataclass(kw_only=True)
+class SlotState:
+    """Per-slot decode state shared by both KV layouts (device tensors,
+    plus the host-side sampling keys)."""
+
+    seq_lens: torch.Tensor        # [B] int32 (tokens in cache; last pending)
+    tokens: torch.Tensor          # [B] int32 last sampled token per slot
+    active: torch.Tensor          # [B] bool
+    temperature: torch.Tensor     # [B] f32
+    top_p: torch.Tensor           # [B] f32
+    top_k: torch.Tensor           # [B] int32 (0 = off)
+    repeat_penalty: torch.Tensor  # [B] f32 (1 = off)
+    recent: torch.Tensor          # [B, REPEAT_LAST_N] int32 last-N ring
+    # Per-slot threefry keys [B, 2] uint32, split every step: a slot's
+    # draws depend only on its own key chain, never on batch composition.
+    keys: np.ndarray
+    # Host mirror of ``active & temperature > 0``: a step where no slot
+    # samples makes no noise (its tokens are argmaxes either way).
+    sampled: np.ndarray
+
+
+@dataclass(kw_only=True)
+class DecodeState(SlotState):
+    """Contiguous-layout decode state."""
+
+    k_cache: torch.Tensor         # [L, B, Hkv, S, Dh] head-major
+    v_cache: torch.Tensor
+
+
 class ModelRunner:
-    #: the scheduler admits prompts longer than this through the unified
-    #: ragged step (engine/paged.py) instead of one monolithic prefill
+    """The contiguous-layout runner, and the base of the paged one."""
+
+    #: the scheduler admits prompts longer than this chunk by chunk
+    #: (legacy chunked admission); 0 disables
     prefill_chunk = 512
+    #: the contiguous layout has no unified ragged step
+    supports_ragged = False
+    kv_layout = "contiguous"
+    _EMBED_BATCH = (1, 2, 4, 8)  # padded batch sizes of the embed forward
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None,
                  max_slots: int = 8, max_seq: int = 0,
@@ -68,15 +121,95 @@ class ModelRunner:
         self.windows = T.layer_sliding_windows(cfg)
         self.scale = T.attn_scale(cfg)
         self.cos, self.sin = T.rope_for(cfg, self.device)
-        #: no-context prefill attention (kernel A's dispatch); a seam that
-        #: lets a caller run the same step through the plain version
+        self.noise_w = noise_width(cfg.vocab_size)
+        #: no-context prefill attention (kernel A) and contiguous decode
+        #: attention (kernel D); seams that let a caller run the same step
+        #: through the plain versions
         self.prefill_attn = prefill_attention
+        self.decode_attn = decode_attention
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
             if n <= b:
                 return b
         raise ValueError(f"prompt length {n} exceeds max_seq {self.max_seq}")
+
+    # -------------------------------------------------------- slot state
+
+    def _slot_fields(self) -> dict:
+        """Fresh per-slot fields of a decode state (every slot free)."""
+        dev, b = self.device, self.max_slots
+        i32 = dict(dtype=torch.int32, device=dev)
+        return dict(
+            seq_lens=torch.zeros(b, **i32), tokens=torch.zeros(b, **i32),
+            active=torch.zeros(b, dtype=torch.bool, device=dev),
+            temperature=torch.zeros(b, dtype=torch.float32, device=dev),
+            top_p=torch.ones(b, dtype=torch.float32, device=dev),
+            top_k=torch.zeros(b, **i32),
+            repeat_penalty=torch.ones(b, dtype=torch.float32, device=dev),
+            recent=torch.full((b, REPEAT_LAST_N), self.cfg.vocab_size, **i32),
+            # Zero keys: valid carries, overwritten when a slot activates.
+            keys=np.zeros((b, 2), np.uint32), sampled=np.zeros((b,), bool))
+
+    def _activate(self, st: SlotState, slot: int, plen: int,
+                  first_token: int, temperature: float, top_p: float,
+                  top_k: int, repeat_penalty: float, recent_row: np.ndarray,
+                  slot_key) -> None:
+        """Flip ``slot`` live with its sampling parameters and key."""
+        st.seq_lens[slot] = plen
+        st.tokens[slot] = first_token
+        st.active[slot] = True
+        st.temperature[slot] = temperature
+        st.top_p[slot] = top_p
+        st.top_k[slot] = top_k
+        st.repeat_penalty[slot] = repeat_penalty
+        st.recent[slot] = torch.as_tensor(recent_row, device=self.device)
+        st.keys[slot] = (default_slot_key(slot) if slot_key is None
+                         else slot_key)
+        st.sampled[slot] = temperature > 0
+
+    def _deactivate(self, st: SlotState, slot: int) -> None:
+        """Free ``slot``; its key keeps advancing with the batch."""
+        st.seq_lens[slot] = 0
+        st.tokens[slot] = 0
+        st.active[slot] = False
+        st.sampled[slot] = False
+
+    def _step_noise(self, st: SlotState, num_steps: int):
+        """Advance every slot's key ``num_steps`` times (one split per
+        step) and return the gumbel noise of those steps [K, B, W] on the
+        device, or None when no live slot samples."""
+        keys, subs = st.keys, []
+        for _ in range(num_steps):
+            keys, sub = split_slot_keys(keys)
+            subs.append(sub)
+        st.keys = keys
+        if not st.sampled.any():
+            return None
+        noise = prng.gumbel(np.stack(subs), (self.noise_w,))
+        return torch.from_numpy(noise).to(self.device)
+
+    def _sample_decode(self, st: SlotState, logits: torch.Tensor,
+                       noise: torch.Tensor | None) -> torch.Tensor:
+        """Sample every slot's next token from logits [B, V] with this
+        step's ``noise`` [B, W], advance the slot state in place; returns
+        the tokens [B] int32."""
+        logits = apply_repeat_penalty(logits, st.recent, st.repeat_penalty)
+        nxt = sample_with_noise(logits, st.temperature, st.top_p, noise,
+                                top_k=st.top_k)
+        nxt = torch.where(st.active, nxt, torch.zeros_like(nxt))
+        # The sampled token's sequence position is seq_lens + 1 (the
+        # pending token occupies seq_lens).
+        bidx = torch.arange(st.recent.shape[0], device=self.device)
+        cursor = ((st.seq_lens + 1) % REPEAT_LAST_N).long()
+        st.recent[bidx, cursor] = torch.where(st.active, nxt,
+                                              st.recent[bidx, cursor])
+        st.seq_lens.copy_(torch.where(st.active, st.seq_lens + 1,
+                                      st.seq_lens))
+        st.tokens.copy_(nxt)
+        return nxt
+
+    # -------------------------------------------------------------- prefill
 
     def _recent_from_prompt(self, prompt_ids: list[int],
                             first_token: int | None = None,
@@ -94,18 +227,19 @@ class ModelRunner:
         return row
 
     def _sample_first(self, logits: torch.Tensor, prompt_ids: list[int],
-                      temperature: float, top_p: float, generator,
+                      temperature: float, top_p: float, key,
                       top_k: int, repeat_penalty: float) -> int:
-        """Sample a prompt's first token from its last logits row [1, V]."""
+        """Sample a prompt's first token from its last logits row [1, V]
+        with ``key`` (None: greedy)."""
         dev = self.device
         logits = apply_repeat_penalty(
             logits,
             torch.as_tensor(self._recent_from_prompt(prompt_ids),
                             device=dev)[None],
             torch.tensor([repeat_penalty], dtype=torch.float32, device=dev))
-        tok = sample_tokens_slots(
+        tok = sample_tokens(
             logits, torch.tensor([temperature], device=dev),
-            torch.tensor([top_p], device=dev), [generator],
+            torch.tensor([top_p], device=dev), key,
             top_k=torch.tensor([top_k], dtype=torch.int32, device=dev))
         return int(tok[0])
 
@@ -116,11 +250,12 @@ class ModelRunner:
 
     @torch.inference_mode()
     def prefill(self, prompt_ids: list[int], temperature: float,
-                top_p: float, generator=None, state=None, top_k: int = 0,
+                top_p: float, key=None, state=None, top_k: int = 0,
                 repeat_penalty: float = 1.0):
         """Bucketed monolithic prefill; returns (first_token, ks, vs, plen)
         with ks/vs [L, 1, Hkv, bucket, Dh].  Padding positions clamp to
-        plen-1 and ``kv_valid`` excludes them."""
+        plen-1 and ``kv_valid`` excludes them.  ``state`` is accepted (and
+        ignored) so the scheduler passes its live state uniformly."""
         plen = len(prompt_ids)
         bucket = self.bucket_for(plen)
         ar = torch.arange(bucket, device=self.device, dtype=torch.int32)
@@ -132,8 +267,203 @@ class ModelRunner:
             kv_valid=kv_valid, attention=self.prefill_attn)
         logits = T._unembed(self.params, self.cfg, x[:, plen - 1])
         tok = self._sample_first(logits, prompt_ids, temperature, top_p,
-                                 generator, top_k, repeat_penalty)
+                                 key, top_k, repeat_penalty)
         return tok, ks, vs, plen
+
+    # ------------------------------------------------------ chunked prefill
+
+    class PrefillJob:
+        """Host handle for an in-progress chunked prefill: the prompt's KV
+        so far in accumulators [L, 1, Hkv, width, Dh] and the last logits
+        row.  The scheduler runs one chunk per decode-loop iteration."""
+
+        def __init__(self, prompt_ids, ctx_k, ctx_v):
+            self.prompt_ids = prompt_ids
+            self.done_tokens = 0
+            self.ctx_k = ctx_k
+            self.ctx_v = ctx_v
+            self.last_logits = None
+
+        @property
+        def finished(self) -> bool:
+            return self.done_tokens >= len(self.prompt_ids)
+
+    def prefill_begin(self, prompt_ids: list[int],
+                      state=None) -> "ModelRunner.PrefillJob":
+        """Start a chunked admission; accumulators are sized to the
+        prompt's bucket.  ``state`` is accepted (and ignored) here; the
+        paged runner seeds the job from cached prefix pages with it."""
+        if len(prompt_ids) >= self.max_seq:
+            raise ValueError(
+                f"prompt of {len(prompt_ids)} tokens exceeds max context "
+                f"{self.max_seq}")
+        cfg = self.cfg
+        shape = (cfg.num_layers, 1, cfg.num_kv_heads,
+                 self.bucket_for(len(prompt_ids)), cfg.resolved_head_dim())
+        return self.PrefillJob(
+            list(prompt_ids),
+            torch.zeros(shape, dtype=self.dtype, device=self.device),
+            torch.zeros(shape, dtype=self.dtype, device=self.device))
+
+    def prefill_step(self, job: "ModelRunner.PrefillJob") -> bool:
+        """Run ONE chunk of the job's prompt; True when the prompt is done."""
+        width = job.ctx_k.shape[3]
+        budget = width - job.done_tokens  # write room left in the buffers
+        take = min(self.prefill_chunk, len(job.prompt_ids) - job.done_tokens)
+        bucket = min(self.bucket_for(take), self.prefill_chunk)
+        if bucket > budget:
+            # A non-power-of-two max_seq tail: shrink to the largest bucket
+            # that fits, or the exact remainder.
+            fitting = [b for b in self.buckets if b <= budget]
+            bucket = fitting[-1] if fitting else budget
+            take = min(take, bucket)
+        ids = job.prompt_ids[job.done_tokens:job.done_tokens + take]
+        job.last_logits = self._prefill_chunk(
+            self._padded(ids, bucket), take, job.done_tokens, job.ctx_k,
+            job.ctx_v)
+        job.done_tokens += take
+        return job.finished
+
+    @torch.inference_mode()
+    def _prefill_chunk(self, tokens, chunk_len: int, ctx_len: int, ctx_k,
+                       ctx_v) -> torch.Tensor:
+        """One chunk over the accumulated context (plain
+        ``prefill_attention_ctx``); appends the chunk's KV to the
+        accumulators in place and returns the last valid row's logits
+        [V]."""
+        t = tokens.shape[1]
+        dev = self.device
+        ar = torch.arange(t, device=dev, dtype=torch.int32)
+        positions = (ctx_len + torch.clamp(ar, max=chunk_len - 1))[None]
+        kv_valid = (ar < chunk_len)[None]
+        ctx_valid = (torch.arange(ctx_k.shape[3], device=dev) < ctx_len)[None]
+        x = T._embed(self.params, self.cfg, tokens)
+        x, ks, vs = T.scan_prefill_layers(
+            self.params["layers"], self.windows, self.cfg, x, positions,
+            kv_valid=kv_valid, ctx_k=ctx_k, ctx_v=ctx_v, ctx_valid=ctx_valid)
+        # Padding rows past chunk_len land beyond the valid region: the
+        # next chunk overwrites them or seq_lens masks them.
+        ctx_k[:, :, :, ctx_len:ctx_len + t] = ks.to(ctx_k.dtype)
+        ctx_v[:, :, :, ctx_len:ctx_len + t] = vs.to(ctx_v.dtype)
+        return T._unembed(self.params, self.cfg, x[0, chunk_len - 1])
+
+    @torch.inference_mode()
+    def prefill_finish(self, job: "ModelRunner.PrefillJob",
+                       temperature: float, top_p: float, key=None,
+                       top_k: int = 0, repeat_penalty: float = 1.0):
+        """Sample the first token; returns (tok, ks, vs, plen) like
+        :meth:`prefill`."""
+        if not job.finished or job.last_logits is None:
+            raise RuntimeError("prefill_finish before the prompt is prefilled")
+        tok = self._sample_first(job.last_logits[None], job.prompt_ids,
+                                 temperature, top_p, key, top_k,
+                                 repeat_penalty)
+        return tok, job.ctx_k, job.ctx_v, len(job.prompt_ids)
+
+    # ------------------------------------------------------------ embeddings
+
+    def embed_prompt(self, prompt_ids: list[int]) -> np.ndarray:
+        """Mean-pooled, L2-normalized embedding of one prompt ([D] fp32)."""
+        return self.embed_prompts([prompt_ids])[0]
+
+    def embed_prompts(self, prompts: list[list[int]]) -> np.ndarray:
+        """Embeddings for many prompts ([N, D] fp32): same-bucket prompts
+        share one forward, padded to 1/2/4/8 rows; padding is excluded
+        from attention and from the pooling mask."""
+        out = np.zeros((len(prompts), self.cfg.hidden_size), np.float32)
+        groups: dict[int, list[int]] = {}
+        for i, ids in enumerate(prompts):
+            groups.setdefault(self.bucket_for(len(ids)), []).append(i)
+        top = self._EMBED_BATCH[-1]
+        for bucket, idxs in groups.items():
+            for pos in range(0, len(idxs), top):
+                chunk = idxs[pos:pos + top]
+                bs = next(b for b in self._EMBED_BATCH if b >= len(chunk))
+                tokens = np.zeros((bs, bucket), np.int64)
+                plens = np.ones((bs,), np.int32)
+                for row, i in enumerate(chunk):
+                    tokens[row, :len(prompts[i])] = prompts[i]
+                    plens[row] = len(prompts[i])
+                vecs = self._embed_fwd(torch.from_numpy(tokens).to(self.device),
+                                       torch.from_numpy(plens).to(self.device))
+                vecs = vecs.cpu().numpy()
+                for row, i in enumerate(chunk):
+                    out[i] = vecs[row]
+        return out
+
+    @torch.inference_mode()
+    def _embed_fwd(self, tokens: torch.Tensor,
+                   plens: torch.Tensor) -> torch.Tensor:
+        t = tokens.shape[1]
+        ar = torch.arange(t, device=self.device, dtype=torch.int32)[None]
+        positions = torch.minimum(ar, plens[:, None] - 1).contiguous()
+        kv_valid = (ar < plens[:, None]).contiguous()
+        h = T.hidden_states(self.params, self.cfg, tokens, positions,
+                            kv_valid=kv_valid, attention=self.prefill_attn)
+        mask = kv_valid[..., None].float()
+        pooled = (h.float() * mask).sum(1) / mask.sum(1).clamp_min(1.0)
+        return pooled / pooled.norm(dim=-1, keepdim=True).clamp_min(1e-9)
+
+    # ------------------------------------------------ contiguous KV layout
+
+    @torch.inference_mode()
+    def init_state(self) -> DecodeState:
+        cfg = self.cfg
+        shape = (cfg.num_layers, self.max_slots, cfg.num_kv_heads,
+                 self.max_seq, cfg.resolved_head_dim())
+        return DecodeState(
+            k_cache=torch.zeros(shape, dtype=self.dtype, device=self.device),
+            v_cache=torch.zeros(shape, dtype=self.dtype, device=self.device),
+            **self._slot_fields())
+
+    @torch.inference_mode()
+    def insert(self, state: DecodeState, slot: int, ks, vs, plen: int,
+               first_token: int, temperature: float, top_p: float,
+               prompt_tokens: list[int] | None = None, slot_key=None,
+               top_k: int = 0, repeat_penalty: float = 1.0) -> DecodeState:
+        """Write a prefilled sequence (ks/vs [L, 1, Hkv, T, Dh]) into
+        ``slot``; ``slot_key`` seeds the slot's sampling stream (default:
+        ``default_slot_key(slot)``)."""
+        t = ks.shape[3]
+        state.k_cache[:, slot, :, :t] = ks[:, 0].to(state.k_cache.dtype)
+        state.v_cache[:, slot, :, :t] = vs[:, 0].to(state.v_cache.dtype)
+        recent_row = self._recent_from_prompt(
+            list(prompt_tokens or []), first_token, plen=plen)
+        self._activate(state, slot, plen, first_token, temperature, top_p,
+                       top_k, repeat_penalty, recent_row, slot_key)
+        return state
+
+    @torch.inference_mode()
+    def release(self, state: DecodeState, slot: int) -> DecodeState:
+        self._deactivate(state, slot)
+        return state
+
+    def pre_decode_check(self, steps: int) -> list[int]:
+        """The contiguous cache never runs out of room: no slot starves."""
+        return []
+
+    def decode_logits(self, st: DecodeState) -> torch.Tensor:
+        """One decode step's forward for every slot: writes each token's KV
+        into the cache and returns logits [B, V] fp32 (no sampling)."""
+        positions = torch.clamp(st.seq_lens, max=self.max_seq - 1)
+        lens = torch.clamp(st.seq_lens + 1, max=self.max_seq)
+        logits, _, _ = T.decode_step(self.params, self.cfg, st.tokens,
+                                     positions, st.k_cache, st.v_cache, lens,
+                                     rope=(self.cos, self.sin),
+                                     attention=self.decode_attn)
+        return logits
+
+    @torch.inference_mode()
+    def decode_steps_device(self, state: DecodeState, num_steps: int = 1):
+        """``num_steps`` decode steps; returns (tokens [K, B] int32 on the
+        device, state)."""
+        noise = self._step_noise(state, num_steps)
+        out = []
+        for i in range(num_steps):
+            out.append(self._sample_decode(
+                state, self.decode_logits(state),
+                None if noise is None else noise[i]))
+        return torch.stack(out), state
 
     def decode_steps(self, state, num_steps: int = 1):
         """Run ``num_steps`` decode steps; returns (tokens [K, B] numpy,

@@ -2,15 +2,19 @@
 
 Counterpart of ``crowdllama_tpu/engine/sampling.py``.  The nucleus filter
 works on the top-``window`` logits, top-k applied before top-p; greedy
-(temperature 0) is an exact argmax.  A sampled row draws its uniform from
-its own ``torch.Generator`` (seeded per request by the scheduler), so a
-seeded request reproduces on this package; the draws are not the JAX
-package's threefry bits.
+(temperature 0) is an exact argmax.  A sampled row draws with JAX's
+``categorical``: argmax of the filtered logits plus gumbel noise from a
+threefry key (``engine/prng.py``), so a seeded request samples the same
+tokens here as on the JAX package.  Keys are [2] / [B, 2] numpy uint32
+pairs; the noise is made on the host and copied to the logits' device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from crowdllama_tpu_torch.engine import prng
 
 TOPK_WINDOW = 64
 #: repeat-penalty lookback (Ollama repeat_last_n default)
@@ -32,6 +36,24 @@ def apply_repeat_penalty(logits: torch.Tensor, recent: torch.Tensor,
                       torch.ones_like(penalty)).float()[:, None]
     adj = torch.where(logits > 0, logits / pen, logits * pen)
     return torch.where(presence & (pen != 1.0), adj, logits)
+
+
+def split_slot_keys(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-slot key split: keys [B, 2] -> (carry [B, 2], sub [B, 2]), as
+    ``jax.vmap(jax.random.split)``."""
+    pair = prng.split(keys)  # [B, 2, 2]
+    return pair[:, 0], pair[:, 1]
+
+
+def default_slot_key(slot: int) -> np.ndarray:
+    """Deterministic per-slot key for direct runner callers that do not
+    plumb a request seed: ``fold_in(PRNGKey(0), slot)``."""
+    return prng.fold_in(prng.PRNGKey(0), slot)
+
+
+def noise_width(vocab: int, window: int = TOPK_WINDOW) -> int:
+    """Candidates per row that a draw ranks (the filter's window)."""
+    return min(window, vocab)
 
 
 def _nucleus_filter(logits, temperature, top_p, window: int, top_k=None):
@@ -57,21 +79,44 @@ def _nucleus_filter(logits, temperature, top_p, window: int, top_k=None):
     return torch.where(keep, scaled, neg_inf), top_idx, greedy
 
 
-def sample_tokens_slots(logits: torch.Tensor, temperature: torch.Tensor,
-                        top_p: torch.Tensor,
-                        generators: list[torch.Generator | None],
-                        window: int = TOPK_WINDOW,
-                        top_k: torch.Tensor | None = None) -> torch.Tensor:
-    """One token per row of logits [B, V] (fp32): argmax where
-    temperature is 0, else a draw from the filtered distribution using row
-    i's ``generators[i]`` (rows without a generator must be greedy)."""
+def sample_with_noise(logits: torch.Tensor, temperature: torch.Tensor,
+                      top_p: torch.Tensor, noise: torch.Tensor | None,
+                      window: int = TOPK_WINDOW,
+                      top_k: torch.Tensor | None = None) -> torch.Tensor:
+    """One token per row of logits [B, V] (fp32): argmax where temperature
+    is 0, else ``argmax(filtered + noise)`` with gumbel ``noise`` [B, W]
+    (None when no row samples: every row is then greedy)."""
+    if noise is None:
+        return logits.argmax(dim=-1).to(torch.int32)
     filtered, top_idx, greedy = _nucleus_filter(logits, temperature, top_p,
                                                 window, top_k=top_k)
-    dev = logits.device
-    u = torch.stack([
-        torch.rand((), generator=g, device=dev) if g is not None
-        else torch.zeros((), device=dev) for g in generators])
-    cdf = torch.cumsum(torch.softmax(filtered, dim=-1), dim=-1)
-    choice = (cdf < u[:, None]).sum(dim=-1).clamp(max=filtered.shape[-1] - 1)
+    choice = (filtered + noise).argmax(dim=-1)
     sampled = top_idx.gather(-1, choice[:, None])[:, 0]
     return torch.where(temperature > 0, sampled, greedy).to(torch.int32)
+
+
+def sample_tokens_slots(logits: torch.Tensor, temperature: torch.Tensor,
+                        top_p: torch.Tensor, keys: np.ndarray,
+                        window: int = TOPK_WINDOW,
+                        top_k: torch.Tensor | None = None) -> torch.Tensor:
+    """Like :func:`sample_tokens` with an independent key per row (keys
+    [B, 2]): row i's noise is ``gumbel(keys[i], (W,))``."""
+    w = noise_width(logits.shape[-1], window)
+    noise = torch.from_numpy(prng.gumbel(keys, (w,))).to(logits.device)
+    return sample_with_noise(logits, temperature, top_p, noise, window,
+                             top_k=top_k)
+
+
+def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
+                  top_p: torch.Tensor, key: np.ndarray | None,
+                  window: int = TOPK_WINDOW,
+                  top_k: torch.Tensor | None = None) -> torch.Tensor:
+    """One key for the whole batch (a prompt's first token): the noise is
+    ``gumbel(key, (B, W))``.  ``key`` None means every row is greedy."""
+    noise = None
+    if key is not None:
+        w = noise_width(logits.shape[-1], window)
+        noise = torch.from_numpy(
+            prng.gumbel(key, (logits.shape[0], w))).to(logits.device)
+    return sample_with_noise(logits, temperature, top_p, noise, window,
+                             top_k=top_k)

@@ -4,11 +4,17 @@ Counterpart of ``crowdllama_tpu/engine/scheduler.py`` (the one-device
 serving core): admit pending requests into free batch slots, run the
 shared decode loop while any slot is active, stream each new token to its
 request's queue, retire slots on EOS / max-tokens / context exhaustion.
-Long prompts are admitted through the runner's unified ragged step: the
-prompt prefills in fixed chunks INSIDE the decode dispatches, so token
-streaming never stalls behind it; one such prompt at a time, later long
-prompts wait in a FIFO of deferred requests while short ones keep
-admitting.
+Long prompts are admitted chunk by chunk, one such prompt at a time
+(later long prompts wait in a FIFO of deferred requests while short ones
+keep admitting): through the paged runner's unified ragged step, where the
+prompt prefills in fixed chunks INSIDE the decode dispatches, or, when the
+runner has no ragged step or ``ragged`` is off, through the legacy chunked
+admission (``prefill_begin`` / ``prefill_step`` / ``prefill_finish``), one
+prefill chunk per loop iteration between decode dispatches.
+
+Sampling keys are threefry pairs (``engine/prng.py``) derived exactly as
+the JAX scheduler derives them, so a seeded request samples the same
+tokens on both packages.
 
 Every runner call runs on one dedicated executor thread, never on the
 event loop, so device state is mutated by one call at a time and the loop
@@ -33,12 +39,15 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
+
+from crowdllama_tpu_torch.engine import prng
 
 log = logging.getLogger("crowdllama.torch.scheduler")
 
 _DONE = object()
-# Slot sentinel: reserved for an in-progress ragged admission — occupied
+# Slot sentinel: reserved for an in-progress chunked admission — occupied
 # (skipped by _free_slot) but carrying no request yet.
 _RESERVED = object()
 
@@ -107,15 +116,17 @@ class Scheduler:
         self._inflight: _InFlightChunk | None = None
         self._last_retire_at = 0.0
         self._admitting = 0  # popped from pending, not yet in a slot
-        # In-progress ragged admission: (req, slot, RaggedPrefillJob).
+        # In-progress chunked admission: (req, slot, job), the job a
+        # RaggedPrefillJob (``ragged`` marker) or a legacy PrefillJob.
         self._chunking: tuple[GenRequest, int, object] | None = None
-        # Long prompts popped while another ragged admission runs (FIFO,
+        # Long prompts popped while another chunked admission runs (FIFO,
         # ahead of pending).
         self._deferred: collections.deque[GenRequest] = collections.deque()
         self._ragged = ragged and getattr(runner, "supports_ragged", False)
         self.tokens_generated = 0
         self.throughput_ema = 0.0  # tokens/sec across the batch
         self.ragged_chunks = 0  # prefill chunks dispatched unified
+        self.prefill_chunks = 0  # legacy chunked-admission chunks run
 
     # ---------------------------------------------------------------- public
 
@@ -186,19 +197,24 @@ class Scheduler:
                 return i
         return None
 
-    def _req_key(self, req: GenRequest, lane: int) -> torch.Generator | None:
-        """Sampling generator for one lane of a request (0 = the prompt's
-        first token, 1 = the slot's decode stream); None for greedy
-        requests.  Seeded requests derive both from the seed alone, so
-        identical seeded requests reproduce exactly."""
-        if req.temperature <= 0:
-            return None
+    def _req_key(self, req: GenRequest, lane: int) -> np.ndarray:
+        """Threefry key [2] uint32 for one sampling lane of a request (0 =
+        the prompt's first token, 1 = the slot's decode stream).  A seed
+        reduces to uint64; its low 31 bits make the key and the words
+        above fold in, then the lane folds in, as the JAX scheduler does,
+        so a seeded request draws the same tokens on both packages.
+        Unseeded requests draw from the scheduler's host RNG."""
         if req.seed:
             seed = req.seed & 0xFFFFFFFFFFFFFFFF
-            derived = hash((seed, lane)) & 0x7FFFFFFFFFFFFFFF
-        else:
-            derived = self._rng.getrandbits(63)
-        return torch.Generator(device=self.runner.device).manual_seed(derived)
+            key = prng.PRNGKey(seed & 0x7FFFFFFF)
+            hi = seed >> 31
+            if hi:
+                key = prng.fold_in(key, hi & 0xFFFFFFFF)
+                if hi >> 32:
+                    key = prng.fold_in(key, hi >> 32)
+            return prng.fold_in(key, lane)
+        return np.array([self._rng.getrandbits(32), self._rng.getrandbits(32)],
+                        np.uint32)
 
     async def _run(self, fn, *args, **kwargs):
         return await asyncio.get_running_loop().run_in_executor(
@@ -210,6 +226,12 @@ class Scheduler:
             self.runner.prefill, req.prompt_ids, req.temperature, req.top_p,
             self._req_key(req, 0), state=self.state, top_k=req.top_k,
             repeat_penalty=req.repeat_penalty)
+        await self._insert_place(req, slot, ks, vs, plen, first)
+
+    async def _insert_place(self, req: GenRequest, slot: int, ks, vs,
+                            plen: int, first: int) -> None:
+        """Insert a prefilled request into its slot and emit its first
+        token (monolithic and legacy chunked admission)."""
         self.state = await self._run(
             self.runner.insert, self.state, slot, ks, vs, plen, first,
             req.temperature, req.top_p, prompt_tokens=req.prompt_ids,
@@ -284,7 +306,8 @@ class Scheduler:
         self._chunking = None
         self._admitting -= 1
         self.slots[slot] = None  # release the reservation
-        await self._run(self.runner.ragged_abort, job)
+        if getattr(job, "ragged", False):  # a legacy job holds no pages
+            await self._run(self.runner.ragged_abort, job)
 
     async def _loop_once(self) -> None:
         if (all(s is None for s in self.slots) and self.pending.empty()
@@ -305,7 +328,8 @@ class Scheduler:
         # Dispatch the NEXT chunk before reading back the previous one, so
         # the readback + emit below overlap this chunk's compute.
         dispatched: _InFlightChunk | None = None
-        rjob = self._chunking
+        rjob = (self._chunking if self._chunking is not None
+                and getattr(self._chunking[2], "ragged", False) else None)
         live = sum(1 for s in self.slots if isinstance(s, _SlotInfo))
         if rjob is not None or live:
             k = self._chunk_size()
@@ -335,6 +359,11 @@ class Scheduler:
                 dispatched = _InFlightChunk(
                     tokens_dev=tokens_dev, snapshot=list(self.slots),
                     dispatched_at=time.monotonic())
+
+        # Advance a legacy chunked admission by ONE prefill chunk (ragged
+        # jobs advanced inside the dispatch above).
+        if self._chunking is not None and rjob is None:
+            await self._prefill_chunk_step()
 
         await self._admit_pending()
 
@@ -380,6 +409,36 @@ class Scheduler:
             self._place(req, slot, len(req.prompt_ids), first)
         return dispatched
 
+    async def _prefill_chunk_step(self) -> None:
+        """Run one chunk of the parked legacy admission; on its last chunk
+        sample the first token, insert and activate its slot."""
+        req, slot, job = self._chunking
+        try:
+            done = await self._run(self.runner.prefill_step, job)
+            self.prefill_chunks += 1
+            if done:
+                self._chunking = None
+                first, ks, vs, plen = await self._run(
+                    self.runner.prefill_finish, job, req.temperature,
+                    req.top_p, self._req_key(req, 0), top_k=req.top_k,
+                    repeat_penalty=req.repeat_penalty)
+                await self._insert_place(req, slot, ks, vs, plen, first)
+        except ValueError as e:
+            # Bad request or pool exhaustion at insert (PagesExhausted):
+            # fail THIS request, the engine stays up.
+            self._chunking = None
+            self.slots[slot] = None
+            log.warning("chunked admit failed: %s", e)
+            req.finish(f"error: {e}")
+        except BaseException:
+            self._chunking = None
+            self.slots[slot] = None
+            req.finish("error: engine failure")
+            raise
+        finally:
+            if self._chunking is None:
+                self._admitting -= 1
+
     async def _admit_pending(self) -> None:
         """Admit waiting requests into free slots; at most one monolithic
         prefill per iteration once more than one slot decodes, so a burst
@@ -396,7 +455,8 @@ class Scheduler:
                 break
             if req.cancelled:
                 continue
-            chunk = self.runner.ragged_chunk if self._ragged else 0
+            chunk = (self.runner.ragged_chunk if self._ragged
+                     else self.runner.prefill_chunk)
             hint = getattr(self.runner, "prefill_prefers_monolithic", None)
             if (chunk and len(req.prompt_ids) > chunk
                     and not (hint is not None
@@ -406,9 +466,14 @@ class Scheduler:
                     continue
                 req.admitted_at = time.monotonic()
                 try:
-                    job = await self._run(self.runner.ragged_begin,
-                                          req.prompt_ids, slot,
-                                          state=self.state)
+                    if self._ragged:
+                        job = await self._run(self.runner.ragged_begin,
+                                              req.prompt_ids, slot,
+                                              state=self.state)
+                    else:
+                        job = await self._run(self.runner.prefill_begin,
+                                              req.prompt_ids,
+                                              state=self.state)
                 except ValueError as e:
                     log.warning("admit failed: %s", e)
                     req.finish(f"error: {e}")

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from crowdllama_tpu_torch.models.config import ModelConfig
 from crowdllama_tpu_torch.ops.attention import (
+    decode_attention,
     prefill_attention,
     prefill_attention_ctx,
 )
@@ -223,6 +224,19 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _unembed(params, cfg, x), ks, vs
 
 
+def hidden_states(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  positions: torch.Tensor,
+                  kv_valid: torch.Tensor | None = None,
+                  attention: Callable = prefill_attention) -> torch.Tensor:
+    """Final-norm hidden states [B, T, D]: the embeddings forward (the
+    prefill layer stack without the vocab projection)."""
+    x = _embed(params, cfg, tokens)
+    x, _, _ = scan_prefill_layers(params["layers"], layer_sliding_windows(cfg),
+                                  cfg, x, positions, kv_valid=kv_valid,
+                                  attention=attention)
+    return _norm(x, params["final_norm"], cfg)
+
+
 def decode_layer_body(lp: Params, cfg: ModelConfig, x: torch.Tensor,
                       positions: torch.Tensor, cos: torch.Tensor,
                       sin: torch.Tensor, attn_fn: Callable) -> torch.Tensor:
@@ -235,3 +249,50 @@ def decode_layer_body(lp: Params, cfg: ModelConfig, x: torch.Tensor,
     k = apply_rope(k[:, None], positions[:, None], cos, sin)[:, 0]
     attn = attn_fn(q.contiguous(), k, v)
     return _residual_tail(lp, cfg, x, attn.reshape(b, -1))
+
+
+def scan_decode_layers(layers: Params, windows: list[int], cfg: ModelConfig,
+                       x: torch.Tensor, positions: torch.Tensor,
+                       k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       seq_lens: torch.Tensor, cos: torch.Tensor,
+                       sin: torch.Tensor,
+                       attention: Callable = decode_attention) -> torch.Tensor:
+    """Every decoder layer over one token per slot, x [B, D], against the
+    contiguous cache [L, B, Hkv, S, Dh] (bf16 branch): each layer writes
+    its token's K/V at ``positions`` in place, then attends over
+    ``seq_lens`` keys (``attention``: kernel D's dispatch by default).
+    ``cos``/``sin`` are the rope tables on x's device.  Returns x."""
+    scale = attn_scale(cfg)
+    slot_idx = torch.arange(x.shape[0], device=x.device)
+    pos = positions.long()
+    for i, window in enumerate(windows):
+        kc, vc = k_cache[i], v_cache[i]
+
+        def attn_fn(q, k, v, kc=kc, vc=vc, window=window):
+            kc[slot_idx, :, pos] = k.to(kc.dtype)
+            vc[slot_idx, :, pos] = v.to(vc.dtype)
+            return attention(q, kc, vc, seq_lens, scale,
+                             softcap=cfg.attn_logit_softcap,
+                             sliding_window=window)
+
+        x = decode_layer_body(layer_params(layers, i), cfg, x, positions,
+                              cos, sin, attn_fn)
+    return x
+
+
+def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                positions: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, seq_lens: torch.Tensor,
+                rope: tuple[torch.Tensor, torch.Tensor] | None = None,
+                attention: Callable = decode_attention):
+    """One token per slot over the contiguous cache (updated in place).
+    Returns (logits [B, V] fp32, k_cache, v_cache); ``seq_lens`` counts
+    the valid cache positions after appending this token.  ``rope`` is
+    the (cos, sin) tables on the cache's device (built here when None; a
+    serving loop passes its precomputed pair)."""
+    cos, sin = rope if rope is not None else rope_for(cfg, k_cache.device)
+    x = _embed(params, cfg, tokens.long())
+    x = scan_decode_layers(params["layers"], layer_sliding_windows(cfg), cfg,
+                           x, positions, k_cache, v_cache, seq_lens, cos, sin,
+                           attention=attention)
+    return _unembed(params, cfg, x), k_cache, v_cache

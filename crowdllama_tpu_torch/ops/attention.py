@@ -7,10 +7,11 @@ grouped-query attention with query heads folded into [Hkv, G] groups
 softcapping and a sliding window (``<= 0`` disables it), masked logits set
 to ``NEG_INF`` so an all-masked row stays finite.
 
-These functions are the plain reference semantics.  ``prefill_attention``
-dispatches to the hand-written Hopper kernel (``ops/cuda/flash.py``) for
-CUDA tensors; decode over a contiguous cache stays plain here (its TPU
-kernel, ``flash_decode_attention``, is not ported yet).
+The ``*_ref`` functions and ``prefill_attention_ctx`` are the plain
+reference semantics.  ``prefill_attention`` (kernel A) and
+``decode_attention`` over a contiguous cache (kernel D) dispatch to the
+hand-written Hopper kernels (``ops/cuda/flash.py``) for CUDA tensors and to
+their references for CPU tensors.
 """
 
 from __future__ import annotations
@@ -123,14 +124,19 @@ def prefill_attention_ctx(q, k, v, positions, ctx_k, ctx_v, ctx_valid,
 def decode_attention(q, k_cache, v_cache, seq_lens, scale: float,
                      softcap: float = 0.0,
                      sliding_window: int = 0) -> torch.Tensor:
-    """One decode step over a contiguous cache [B, Hkv, S, Dh].
+    """One decode step over a contiguous cache [B, Hkv, S, Dh]; q
+    [B, H, Dh], seq_lens [B] valid keys per slot (the new token included).
 
-    Plain in this port: the paged engine reads pages through kernel B
-    (``ops/cuda/paged.py``), and this function serves the gathered-view
-    plain versions.  The contiguous-layout kernel is still to be ported.
+    CUDA tensors run kernel D (``ops/cuda/flash.py``
+    ``flash_decode_attention``); CPU tensors run
+    :func:`decode_attention_ref`.  The contiguous-layout runner calls this
+    in every layer of every decode step.
     """
-    return decode_attention_ref(q, k_cache, v_cache, seq_lens, scale,
-                                softcap=softcap, sliding_window=sliding_window)
+    from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
+
+    return flash_decode_attention(q, k_cache, v_cache, seq_lens, scale,
+                                  softcap=softcap,
+                                  sliding_window=sliding_window)
 
 
 def _decode_probs(logits: torch.Tensor, seq_lens: torch.Tensor, s: int,

@@ -44,6 +44,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "flash_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
                           _P],
     },
+    "flash_decode": {
+        # q, k_cache, v_cache, seq_lens, out, B, H, Hkv, S, scale, softcap,
+        # window, stream
+        "flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    },
     "paged_attention": {
         # q, pool_k, pool_v, table, seq_lens, out, B, H, Hkv, page, np,
         # scale, softcap, window, stream

@@ -1,21 +1,33 @@
-"""Kernel A: causal GQA prefill attention (``csrc/flash_prefill.cu``).
+"""Kernels A and D: flash attention over contiguous K/V.
 
-Counterpart of ``crowdllama_tpu/ops/pallas/flash.py``
-``flash_prefill_attention``.  :func:`flash_prefill_attention` launches the
-hand-written kernel for CUDA tensors and runs the plain version,
-``ops.attention.prefill_attention_ref``, for CPU tensors; there is no other
-fallback.
+Counterparts of ``crowdllama_tpu/ops/pallas/flash.py``:
+
+- A, :func:`flash_prefill_attention` (``csrc/flash_prefill.cu``): causal
+  GQA prefill attention; plain version ``ops.attention.prefill_attention_ref``.
+- D, :func:`flash_decode_attention` (``csrc/flash_decode.cu``): one decode
+  token per slot over the contiguous ``[B, Hkv, S, Dh]`` cache; plain
+  version :data:`decode_attention_plain`.
+
+Each wrapper launches its hand-written kernel for CUDA tensors and runs its
+plain version for CPU tensors; there is no other fallback.
 """
 
 from __future__ import annotations
 
 import torch
 
-from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
+from crowdllama_tpu_torch.ops.attention import (
+    decode_attention_ref,
+    prefill_attention_ref,
+)
 from crowdllama_tpu_torch.ops.cuda import check, launch
 
-HEAD_DIM = 64   # the kernel's fixed head dim
-BLOCK_ROWS = 128  # query rows x heads per block: G must divide it
+HEAD_DIM = 64   # the kernels' fixed head dim
+BLOCK_ROWS = 128  # kernel A: query rows x heads per block (G must divide it)
+MAX_GROUP = 8     # kernel D: query heads per kv head (one warp each)
+
+#: kernel D's plain version (reference semantics, any device)
+decode_attention_plain = decode_attention_ref
 
 
 def flash_prefill_attention(q, k, v, positions, scale: float,
@@ -66,3 +78,44 @@ def flash_prefill_attention(q, k, v, positions, scale: float,
 
 
 flash_prefill_attention.launches = 0
+
+
+def flash_decode_attention(q, k_cache, v_cache, seq_lens, scale: float,
+                           softcap: float = 0.0,
+                           sliding_window: int = 0) -> torch.Tensor:
+    """One decode step over the contiguous cache: q [B, H, Dh], k_cache /
+    v_cache [B, Hkv, S, Dh], seq_lens [B] int32 (the new token included);
+    returns [B, H, Dh].  A slot with seq_len 0 gets zeros from the kernel
+    (the plain version averages V there instead)."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, seq_lens, scale,
+                                      softcap=softcap,
+                                      sliding_window=sliding_window)
+    check(q.dim() == 3 and k_cache.dim() == 4,
+          "q must be [B, H, Dh] and the caches [B, Hkv, S, Dh]")
+    b, h, dh = q.shape
+    _, hkv, s, _ = k_cache.shape
+    check(q.device.type == "cuda", f"unsupported device {q.device}")
+    check(all(x.device == q.device for x in (k_cache, v_cache, seq_lens)),
+          "all operands must be on one device")
+    check(q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16,
+          "q and caches must be bfloat16")
+    check(dh == HEAD_DIM, f"head dim {dh} unsupported (kernel takes {HEAD_DIM})")
+    check(tuple(k_cache.shape) == tuple(v_cache.shape) == (b, hkv, s, dh),
+          f"cache shape {tuple(k_cache.shape)} != {(b, hkv, s, dh)}")
+    check(h % hkv == 0 and h // hkv <= MAX_GROUP,
+          f"heads {h}/{hkv}: at most {MAX_GROUP} query heads per kv head")
+    check(seq_lens.dtype == torch.int32 and tuple(seq_lens.shape) == (b,),
+          "seq_lens must be int32 [B]")
+    check(all(x.is_contiguous() for x in (q, k_cache, v_cache, seq_lens)),
+          "operands must be contiguous")
+    out = torch.empty_like(q)
+    launch("flash_decode", "flash_decode", q.device,
+           q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+           seq_lens.data_ptr(), out.data_ptr(), b, h, hkv, s, float(scale),
+           float(softcap or 0.0), int(sliding_window))
+    flash_decode_attention.launches += 1
+    return out
+
+
+flash_decode_attention.launches = 0

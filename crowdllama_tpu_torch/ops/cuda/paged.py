@@ -5,8 +5,8 @@ Counterparts of ``crowdllama_tpu/ops/pallas/paged.py``:
 
 - B, :func:`flash_paged_decode_attention` (TPU ``flash_paged_decode_
   attention``): one decode token per slot over that slot's pages.  Its
-  plain version, :func:`paged_decode_attention_plain`, is the engine's
-  gather + ``decode_attention`` path.
+  plain version, :func:`paged_decode_attention_plain`, gathers the pages
+  and runs ``decode_attention_ref``.
 - C, :func:`ragged_paged_attention` (TPU ``flash_ragged_paged_attention``
   behind the ``ragged_paged_attention`` dispatch): the unified ragged
   batch, B decode rows plus one prefill chunk, in one launch.  Its plain
@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from crowdllama_tpu_torch.ops.attention import (
-    decode_attention,
+    decode_attention_ref,
     prefill_attention_ctx,
 )
 from crowdllama_tpu_torch.ops.cuda import check, launch
@@ -46,10 +46,11 @@ def paged_decode_attention_plain(q, pool_k, pool_v, page_table, seq_lens,
                                  scale: float, softcap: float = 0.0,
                                  sliding_window: int = 0) -> torch.Tensor:
     """The plain version of kernel B: gather each slot's pages into a
-    virtual-contiguous view and run :func:`decode_attention`."""
-    return decode_attention(q, _gathered(pool_k, page_table),
-                            _gathered(pool_v, page_table), seq_lens, scale,
-                            softcap=softcap, sliding_window=sliding_window)
+    virtual-contiguous view and run :func:`decode_attention_ref`."""
+    return decode_attention_ref(q, _gathered(pool_k, page_table),
+                                _gathered(pool_v, page_table), seq_lens,
+                                scale, softcap=softcap,
+                                sliding_window=sliding_window)
 
 
 def ragged_paged_attention_ref(q, chunk_k, chunk_v, pool_k, pool_v,

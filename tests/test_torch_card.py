@@ -8,7 +8,8 @@ without JAX:
 
 (``--noconftest`` because ``tests/conftest.py`` configures JAX).  Shapes
 are TinyLlama's heads (32 query, 4 kv, Dh 64) at small lengths, with
-softcap, a sliding window, padding and rows that carry no query;
+softcap, a sliding window, padding, rows that carry no query and
+zero-length slots (kernels A-D);
 tolerance: one bf16 rounding of outputs of magnitude ~1 plus fp32
 summation order, atol 2e-2 + rtol 1e-2.
 """
@@ -99,3 +100,29 @@ def test_paged_kernels_match_plain_on_card(cuda_device):
     torch.testing.assert_close(got[live].float(), want[live].float(),
                                atol=2e-2, rtol=1e-2)
     assert not got[[3] + [b + i for i in range(valid, c)]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 0), (0.0, 40)])
+def test_decode_kernel_matches_plain_on_card(cuda_device, softcap, window):
+    """Kernel D over the contiguous cache: mixed lengths, a one-token slot
+    and a zero-length slot (zeros from the kernel)."""
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        decode_attention_plain,
+        flash_decode_attention,
+    )
+
+    gen, bf = _card_case(cuda_device)
+    b, s = 5, 300
+    q = torch.randn((b, 32, 64), generator=gen, **bf)
+    kc = torch.randn((b, 4, s, 64), generator=gen, **bf)
+    vc = torch.randn((b, 4, s, 64), generator=gen, **bf)
+    lens = torch.tensor([300, 1, 0, 129, 77], dtype=torch.int32,
+                        device=cuda_device)
+    kw = dict(softcap=softcap, sliding_window=window)
+    got = flash_decode_attention(q, kc, vc, lens, 0.125, **kw)
+    want = decode_attention_plain(q, kc, vc, lens, 0.125, **kw)
+    live = [0, 1, 3, 4]
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=2e-2, rtol=1e-2)
+    assert not got[2].any()

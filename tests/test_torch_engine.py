@@ -12,7 +12,9 @@
 - The engine: greedy streams token-identical to ``JaxEngine`` on the
   permutation checkpoint (``testing/modelgen.py``) for a short prompt, a
   prefix-cache hit and a prompt longer than the ragged chunk (page 16 and a
-  small step token budget make the ragged path run at this size).
+  small step token budget make the ragged path run at this size); seeded
+  sampled streams token-identical to ``JaxEngine`` on both KV layouts
+  (threefry keys, ``engine/prng.py``).
 """
 
 import asyncio
@@ -283,31 +285,65 @@ async def test_greedy_streams_token_identical_to_jax_engine(tmp_path):
     assert len(prompts[2]) + 1 > teng.runner.ragged_chunk
 
 
-def test_engine_sampled_seed_reproduces():
-    """A seeded sampled request gives the same stream twice (its draws come
-    from generators seeded by the request seed alone)."""
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+async def test_engine_sampled_seed_reproduces(tmp_path, layout):
+    """Seeded sampled streams (temperature > 0, seed set) are token-
+    identical between the port and ``JaxEngine`` on the same weights: a
+    short prompt, and a long one admitted chunk by chunk (ragged on the
+    paged layout, legacy chunks on the contiguous one) with top-k/top-p.
+    A seeded stream also repeats when sent again."""
+    from crowdllama_tpu.config import Configuration, Intervals
+    from crowdllama_tpu.engine.engine import JaxEngine
+    from crowdllama_tpu.testing.modelgen import (
+        permutation_checkpoint,
+        permutation_params,
+    )
 
-    async def run():
-        eng = TorchEngine(device="cpu", dtype=torch.float32, model="tiny-test",
-                          max_context_length=128, kv_page_size=16,
-                          max_batch_slots=2, warmup=False)
-        await eng.start()
-        try:
-            outs = []
-            for _ in range(2):
-                rec = _Recorder(eng.tokenizer)
-                eng.tokenizer = rec
-                async for _c in eng.generate("seeded", max_tokens=6,
-                                             temperature=0.9, seed=1234):
-                    pass
-                outs.append(list(rec.ids))
-                eng.tokenizer = rec._tok
-            return outs
-        finally:
-            await eng.stop()
+    ckpt = permutation_checkpoint("tiny-test", tmp_path / "perm",
+                                  max_context=256)
+    flat = _flatten_params(permutation_params(
+        j_get_config("tiny-test", max_context_length=256)))
+    reqs = [("seeded", dict(temperature=0.8, seed=1234)),
+            ("a long seeded prompt that is admitted in chunks " * 2,
+             dict(temperature=1.1, seed=2**40 + 3, top_k=20, top_p=0.9)),
+            ("seeded", dict(temperature=0.8, seed=1234))]
+    common = dict(max_context_length=256, kv_page_size=16,
+                  step_token_budget=36, max_batch_slots=4, kv_layout=layout)
 
-    a, b = asyncio.run(run())
-    assert a == b and len(a) >= 1
+    async def run(engine):
+        rec = _Recorder(engine.tokenizer)
+        engine.tokenizer = rec
+        outs = []
+        for prompt, kw in reqs:
+            rec.ids.clear()
+            async for _c in engine.generate(prompt, max_tokens=12, **kw):
+                pass
+            outs.append(list(rec.ids))
+        return outs
+
+    jeng = JaxEngine(Configuration(model="tiny-test", model_path=ckpt,
+                                   warmup=False, intervals=Intervals.default(),
+                                   **common))
+    teng = TorchEngine(device="cpu", params=params_from_numpy(
+        flat, dtype=torch.bfloat16), model="tiny-test", warmup=False,
+        **common)
+    await jeng.start()
+    try:
+        jeng.scheduler.runner.prefill_chunk = 32
+        want = await run(jeng)
+    finally:
+        await jeng.stop()
+    await teng.start()
+    try:
+        teng.runner.prefill_chunk = 32
+        got = await run(teng)
+        chunks = teng.scheduler.ragged_chunks + teng.scheduler.prefill_chunks
+        assert chunks >= 2
+    finally:
+        await teng.stop()
+    assert got == want
+    assert got[0] == got[2] and len(got[0]) == 12
+    assert len(set(got[0])) > 2  # really sampled, not one repeated argmax
 
 
 # ------------------------------------------------------ scheduler behaviour

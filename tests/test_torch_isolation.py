@@ -12,8 +12,14 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from crowdllama_tpu_torch.ops import cuda as kernels  # noqa: E402
-from crowdllama_tpu_torch.ops.attention import prefill_attention_ref  # noqa: E402
-from crowdllama_tpu_torch.ops.cuda.flash import flash_prefill_attention  # noqa: E402
+from crowdllama_tpu_torch.ops.attention import (  # noqa: E402
+    decode_attention_ref,
+    prefill_attention_ref,
+)
+from crowdllama_tpu_torch.ops.cuda.flash import (  # noqa: E402
+    flash_decode_attention,
+    flash_prefill_attention,
+)
 from crowdllama_tpu_torch.ops.cuda.paged import (  # noqa: E402
     flash_paged_decode_attention,
     paged_decode_attention_plain,
@@ -59,6 +65,22 @@ def test_engine_without_cuda_raises_instead_of_running_on_cpu(monkeypatch):
     assert TorchEngine(device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_runners_without_cuda_raise_instead_of_running_on_cpu(monkeypatch,
+                                                               layout):
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.engine.paged import PagedModelRunner
+    from crowdllama_tpu_torch.engine.runner import ModelRunner
+    from crowdllama_tpu_torch.models.config import get_config
+
+    cls = PagedModelRunner if layout == "paged" else ModelRunner
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cls(get_config("tiny-test"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchEngine(kv_layout=layout)
+
+
 def _attn_inputs(device="cpu"):
     r = np.random.default_rng(0)
 
@@ -71,6 +93,7 @@ def _attn_inputs(device="cpu"):
         q=t(b, 32, 4, 16), k=t(b, hkv, 32, 16), v=t(b, hkv, 32, 16),
         pos=torch.arange(32, dtype=torch.int32).repeat(b, 1).to(device),
         dq=t(b, 4, 16), pk=t(6, hkv, page, 16), pv=t(6, hkv, page, 16),
+        kc=t(b, hkv, 32, 16), vc=t(b, hkv, 32, 16),
         table=torch.tensor([[0, 1], [2, 5]], dtype=torch.int32).to(device),
         lens=torch.tensor([20, 3], dtype=torch.int32).to(device),
         rq=t(b + 8, 4, 16), ck=t(1, hkv, 8, 16), cv=t(1, hkv, 8, 16),
@@ -80,6 +103,7 @@ def _attn_inputs(device="cpu"):
 
 def _counts():
     return (flash_prefill_attention.launches,
+            flash_decode_attention.launches,
             flash_paged_decode_attention.launches,
             ragged_paged_attention.launches)
 
@@ -90,6 +114,10 @@ def test_cpu_tensors_run_the_plain_version_without_launching():
     got = flash_prefill_attention(x["q"], x["k"], x["v"], x["pos"], 0.25)
     torch.testing.assert_close(
         got, prefill_attention_ref(x["q"], x["k"], x["v"], x["pos"], 0.25),
+        rtol=0, atol=0)
+    got = flash_decode_attention(x["dq"], x["kc"], x["vc"], x["lens"], 0.25)
+    torch.testing.assert_close(
+        got, decode_attention_ref(x["dq"], x["kc"], x["vc"], x["lens"], 0.25),
         rtol=0, atol=0)
     got = flash_paged_decode_attention(x["dq"], x["pk"], x["pv"], x["table"],
                                        x["lens"], 0.25)
@@ -113,6 +141,8 @@ def test_non_cpu_tensors_the_kernels_refuse_raise_without_launching():
     before = _counts()
     with pytest.raises(ValueError):
         flash_prefill_attention(x["q"], x["k"], x["v"], x["pos"], 0.25)
+    with pytest.raises(ValueError):
+        flash_decode_attention(x["dq"], x["kc"], x["vc"], x["lens"], 0.25)
     with pytest.raises(ValueError):
         flash_paged_decode_attention(x["dq"], x["pk"], x["pv"], x["table"],
                                      x["lens"], 0.25)

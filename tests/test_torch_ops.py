@@ -174,29 +174,32 @@ def test_greedy_sampling_is_exact_argmax():
     logits = _logits(8)
     temp = np.zeros(4, np.float32)
     top_p = np.ones(4, np.float32)
+    keys = np.zeros((4, 2), np.uint32)
     got = TS.sample_tokens_slots(torch.from_numpy(logits),
                                  torch.from_numpy(temp),
-                                 torch.from_numpy(top_p), [None] * 4)
-    keys = jnp.zeros((4, 2), jnp.uint32)
+                                 torch.from_numpy(top_p), keys)
     want = JS.sample_tokens_slots(jnp.asarray(logits), jnp.asarray(temp),
-                                  jnp.asarray(top_p), keys)
+                                  jnp.asarray(top_p), jnp.asarray(keys))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_seeded_sampling_reproduces_and_stays_in_filter():
-    """A sampled row draws from its own generator: the same seed gives the
+    """A sampled row draws with its own key chain: the same seed gives the
     same tokens, and every draw lies inside the row's top-k."""
+    from crowdllama_tpu_torch.engine import prng
+
     logits = torch.from_numpy(_logits(9))
     temp = torch.tensor([0.0, 0.8, 0.8, 1.0])
     top_p = torch.ones(4)
     top_k = torch.tensor([0, 3, 3, 5], dtype=torch.int32)
 
     def draw(seed):
-        gens = [None] + [torch.Generator().manual_seed(seed + i)
-                         for i in range(3)]
-        return torch.stack([TS.sample_tokens_slots(logits, temp, top_p, gens,
-                                                   top_k=top_k)
-                            for _ in range(8)])
+        keys, out = prng.split(prng.PRNGKey(seed), 4), []
+        for _ in range(8):
+            keys, sub = TS.split_slot_keys(keys)
+            out.append(TS.sample_tokens_slots(logits, temp, top_p, sub,
+                                              top_k=top_k))
+        return torch.stack(out)
 
     a, b = draw(11), draw(11)
     assert torch.equal(a, b)
