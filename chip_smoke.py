@@ -13,30 +13,41 @@ Phases, each printing one JSON line:
    on the card, against golden vectors captured from JAX
    (``engine/prng_golden.py``);
 4. kernels: each hand-written kernel (A prefill, B paged decode, C ragged
-   paged, D contiguous decode) against its plain PyTorch version on the
+   paged, D contiguous decode, and B and C on int8 pools with bf16
+   scales from ``quantize_kv``) against its plain PyTorch version on the
    same inputs — at the serving shapes TinyLlama-1.1B gives it, and at
    small shapes with softcap, a sliding window and all-masked rows or
    zero-length slots — with times for the kernel, the plain version, one
-   PyTorch SDPA call over the same (gathered) inputs and the card's least
-   time for the work (its bound);
+   PyTorch SDPA call over the same (gathered; for int8, dequantized to
+   bf16) inputs and the card's least time for the work (its bound);
 5. engine: ``TorchEngine`` serving tinyllama-1.1b at full width (random
    weights from seed 0, default config: 8 slots, page 128, context 2048)
    to 8 concurrent greedy ``generate()`` streams — 6 short prompts, one
    prompt that repeats a served prompt's first 300 bytes (prefix cache) and
    one of ~1,500 bytes sent while the others decode (unified ragged
    prefill).  Launch counts are zeroed right before the streams are sent
-   and read right after; kernels A-C must have launched.  Then one
-   prefill, one decode step and one ragged step run through the kernels and
-   through the plain versions, and their logits must agree;
-6. contiguous: once the paged engine has stopped and its memory is freed,
-   ``TorchEngine(kv_layout="contiguous")`` on the same weights serves 8
-   concurrent streams of 32 tokens — 6 greedy short prompts, one seeded
-   sampled stream (temperature 0.8, seed 1234) and one ~1,500-byte prompt
-   sent while they decode (legacy chunked admission, >= 2 chunks).  Kernels
-   A and D must have launched; the seeded stream must repeat token for
-   token when sent again; one decode step through kernel D must agree with
-   the same step through the plain version.
+   and read right after; kernels A-C must have launched, no other.  Then
+   one prefill, one decode step and one ragged step run through the
+   kernels and through the plain versions, and their logits must agree;
+6. engine_int8: the same engine with ``kv_dtype="int8"`` (int8 pools)
+   and the same traffic plus a seeded sampled stream (temperature 0.8,
+   seed 1234) that must repeat token for token when sent again; kernels
+   A, B-int8 and C-int8 must have launched and B, C (bf16) not; one
+   decode step through B-int8 must agree with its plain version; the
+   steady step is reported beside the bf16 pool's;
+7. contiguous: ``TorchEngine(kv_layout="contiguous")`` on the same
+   weights serves 8 concurrent streams of 32 tokens — 6 greedy short
+   prompts, the seeded sampled stream and the ~1,500-byte prompt sent
+   while they decode (legacy chunked admission, >= 2 chunks).  Kernels A
+   and D must have launched; the seeded stream must repeat; one decode
+   step through kernel D must agree with the plain version;
+8. contiguous_int8: the contiguous int8 cache, 4 greedy streams of 16
+   tokens, the long one in legacy chunks; its decode is the plain
+   ``decode_attention_q`` (no Pallas kernel in the JAX package either),
+   so only kernel A may launch.
 
+Each engine phase starts once the previous engine has stopped and its
+memory is freed.
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero exit and
 no last line.  Exits non-zero without a CUDA device.
@@ -54,7 +65,10 @@ import time
 
 import torch
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet, 700 W)
+# H100 SXM dense bf16 (data sheet, 700 W).  Also the operations bound of
+# the int8-pool kernels: their products pair a bf16 query with int8 keys
+# and values, which convert to bf16 exactly, so bf16 is their rate.
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # Kernel vs plain on one output element: both read the same bf16 inputs and
 # accumulate in fp32 in different orders, then round to bf16, so they may
@@ -195,20 +209,41 @@ def _sdpa_gathered(q, pool_k, pool_v, table, lens, qpos):
         q, kk, vv, attn_mask=mask)
 
 
+def _quantized(pool_k, pool_v):
+    """int8 pools with their bf16 scales (``quantize_kv`` of bf16 K/V), and
+    the pools dequantized to bf16 for the library call's yardstick."""
+    from crowdllama_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+
+    (pk8, ks), (pv8, vs) = quantize_kv(pool_k), quantize_kv(pool_v)
+    deq = (dequantize_kv(pk8, ks).to(torch.bfloat16),
+           dequantize_kv(pv8, vs).to(torch.bfloat16))
+    return pk8, pv8, dict(k_scale=ks, v_scale=vs), deq
+
+
+def _kv_token_bytes(hkv: int, dh: int, int8: bool) -> int:
+    """Bytes of one live token's K and V (and their bf16 scales)."""
+    return hkv * dh * 2 * (1 if int8 else 2) + (hkv * 2 * 2 if int8 else 0)
+
+
 def check_decode(dev, gen, lens: list[int], softcap: float, window: int,
-                 timed: bool) -> dict:
+                 timed: bool, int8: bool = False) -> dict:
+    """Kernel B (bf16 pool, or the int8 variant on a quantized pool)
+    against its plain version."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_paged_decode_attention,
         paged_decode_attention_plain,
     )
 
-    b, h, dh, page, np_ = len(lens), 32, 64, 128, 16
+    b, h, hkv, dh, page, np_ = len(lens), 32, 4, 64, 128, 16
     pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129)
+    lib_pools, scales = (pool_k, pool_v), {}
+    if int8:
+        pool_k, pool_v, scales, lib_pools = _quantized(pool_k, pool_v)
     q = torch.randn((b, h, dh), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     seq = torch.tensor(lens, device=dev, dtype=torch.int32)
     args = (q, pool_k, pool_v, table, seq, dh ** -0.5)
-    kw = dict(softcap=softcap, sliding_window=window)
+    kw = dict(softcap=softcap, sliding_window=window, **scales)
     got = flash_paged_decode_attention(*args, **kw)
     want = paged_decode_attention_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -222,8 +257,8 @@ def check_decode(dev, gen, lens: list[int], softcap: float, window: int,
         res["plain_ms"] = time_ms(
             lambda: paged_decode_attention_plain(*args, **kw))
         res["library_ms"] = time_ms(_sdpa_gathered(
-            q[:, :, None], pool_k, pool_v, table, seq, (seq - 1)[:, None]))
-        kv = sum(lens) * 4 * dh * 2 * 2  # live K and V tokens, bf16
+            q[:, :, None], *lib_pools, table, seq, (seq - 1)[:, None]))
+        kv = sum(lens) * _kv_token_bytes(hkv, dh, int8)  # live tokens only
         res["bound_ms"], res["bound_by"] = bound_ms(
             nbytes(q, table, seq, got) + kv, 4 * dh * h * sum(lens))
     return res
@@ -231,16 +266,25 @@ def check_decode(dev, gen, lens: list[int], softcap: float, window: int,
 
 def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
                  c: int, valid: int, softcap: float, window: int,
-                 timed: bool) -> dict:
+                 timed: bool, int8: bool = False) -> dict:
+    """Kernel C (bf16 pool, or the int8 variant) against its plain version.
+    The kernel reads the chunk's KV back from the pool, so on an int8 pool
+    the plain version is fed the chunk rows as the pool holds them
+    (dequantized in fp32); the gap to the plain version fed the fresh
+    bf16 rows (what the engine's CPU path does) is reported apart."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
         ragged_paged_attention,
         ragged_paged_attention_ref,
     )
+    from crowdllama_tpu_torch.ops.quant import dequantize_kv
 
     b, h, hkv, dh, page, np_ = len(dec_lens), 32, 4, 64, 128, 16
     lens = list(dec_lens)
     lens[chunk_slot] = ctx + valid  # the chunk slot's pages hold ctx+chunk
     pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129)
+    fresh_pools, lib_pools, scales = (pool_k, pool_v), (pool_k, pool_v), {}
+    if int8:
+        pool_k, pool_v, scales, lib_pools = _quantized(pool_k, pool_v)
     q = torch.randn((b + c, h, dh), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     q_lens = [1 if n > 0 else 0 for n in dec_lens] + [valid]
@@ -250,13 +294,21 @@ def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
     # has already written it (the plain version reads it as operands).
     cpos = (ctx + torch.arange(c, device=dev)).clamp(max=ctx + valid - 1)
     cpages = table[chunk_slot, (cpos // page).long()].long()
-    chunk_k = pool_k[cpages, :, cpos % page].transpose(0, 1)[None].contiguous()
-    chunk_v = pool_v[cpages, :, cpos % page].transpose(0, 1)[None].contiguous()
+    co = cpos % page
+
+    def rows(pool, sc=None):
+        x = pool[cpages, :, co]
+        if sc is not None:
+            x = dequantize_kv(x, sc[cpages, :, co])
+        return x.transpose(0, 1)[None].contiguous()
+
+    chunk_k = rows(pool_k, scales.get("k_scale"))
+    chunk_v = rows(pool_v, scales.get("v_scale"))
     ql = torch.tensor(q_lens, device=dev, dtype=torch.int32)
     kl = torch.tensor(kv_lens, device=dev, dtype=torch.int32)
-    args = (q, chunk_k, chunk_v, pool_k, pool_v, table, ql, kl, chunk_slot,
-            dh ** -0.5)
-    kw = dict(softcap=softcap, sliding_window=window)
+    tail = (pool_k, pool_v, table, ql, kl, chunk_slot, dh ** -0.5)
+    args = (q, chunk_k, chunk_v, *tail)
+    kw = dict(softcap=softcap, sliding_window=window, **scales)
     got = ragged_paged_attention(*args, **kw)
     want = ragged_paged_attention_ref(*args, **kw)
     torch.cuda.synchronize()
@@ -266,6 +318,11 @@ def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
     if dead and got[dead].abs().max() != 0:
         raise AssertionError("ragged: rows without a query must be zeros")
     res = {"max_abs_err": compare("ragged", got, want, live)}
+    if int8:
+        fresh = ragged_paged_attention_ref(
+            q, rows(fresh_pools[0]), rows(fresh_pools[1]), *tail, **kw)
+        res["fresh_kv_gap"] = float((got[live].float()
+                                     - fresh[live].float()).abs().max())
     if timed:
         res["ms"] = time_ms(lambda: ragged_paged_attention(*args, **kw))
         res["plain_ms"] = time_ms(
@@ -278,14 +335,14 @@ def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
         qpos = torch.zeros((b + 1, c), device=dev, dtype=torch.int64)
         qpos[:b, 0] = kl[:b] - 1
         qpos[b] = cpos
-        res["library_ms"] = time_ms(_sdpa_gathered(qq, pool_k, pool_v, tab,
-                                                   kl, qpos))
+        res["library_ms"] = time_ms(_sdpa_gathered(qq, *lib_pools, tab, kl,
+                                                   qpos))
         dec = [kv_lens[i] for i in range(b) if q_lens[i]]
         seen = sum(dec) + sum(ctx + r + 1 for r in range(valid))
         kv_tokens = sum(dec) + ctx + valid
         res["bound_ms"], res["bound_by"] = bound_ms(
-            nbytes(q, ql, kl, table, got) + kv_tokens * hkv * dh * 2 * 2,
-            4 * dh * h * seen)
+            nbytes(q, ql, kl, table, got)
+            + kv_tokens * _kv_token_bytes(hkv, dh, int8), 4 * dh * h * seen)
     return res
 
 
@@ -347,13 +404,24 @@ def kernel_phase(dev) -> dict:
                      check_decode(dev, gen, [260, 1, 0, 64], 0.0, 40,
                                   False)["max_abs_err"]]
     out["B"] = bres
-    cres = check_ragged(dev, gen, [1723, 1, 402, 0, 77, 1200, 0, 960], 3,
-                        1024, 512, 512, 0.0, 0, timed=True)
-    cres["small"] = [check_ragged(dev, gen, [40, 0, 300, 0], 3, 256, 96, 70,
-                                  30.0, 0, False)["max_abs_err"],
-                     check_ragged(dev, gen, [40, 130, 0, 9], 2, 128, 64, 64,
-                                  0.0, 33, False)["max_abs_err"]]
-    out["C"] = cres
+    bq = check_decode(dev, gen, serve_lens, 0.0, 0, timed=True, int8=True)
+    bq["small"] = [check_decode(dev, gen, [0, 5, 300, 129], 30.0, 0, False,
+                                int8=True)["max_abs_err"],
+                   check_decode(dev, gen, [260, 1, 0, 64], 0.0, 40, False,
+                                int8=True)["max_abs_err"]]
+    out["B_int8"] = bq
+    ragged_serve = ([1723, 1, 402, 0, 77, 1200, 0, 960], 3, 1024, 512, 512,
+                    0.0, 0)
+    ragged_small = [([40, 0, 300, 0], 3, 256, 96, 70, 30.0, 0),
+                    ([40, 130, 0, 9], 2, 128, 64, 64, 0.0, 33)]
+    for key, int8 in (("C", False), ("C_int8", True)):
+        cres = check_ragged(dev, gen, *ragged_serve, timed=True, int8=int8)
+        small = [check_ragged(dev, gen, *a, timed=False, int8=int8)
+                 for a in ragged_small]
+        cres["small"] = [r["max_abs_err"] for r in small]
+        if int8:
+            cres["small_fresh_kv_gap"] = [r["fresh_kv_gap"] for r in small]
+        out[key] = cres
     dres = check_flash_decode(dev, gen, serve_lens, 2048, 0.0, 0, timed=True)
     dres["small"] = [check_flash_decode(dev, gen, [0, 5, 300, 129], 300,
                                         30.0, 0, False)["max_abs_err"],
@@ -366,7 +434,7 @@ def kernel_phase(dev) -> dict:
     return out
 
 
-# ------------------------------------------------------------ engine phase
+# ------------------------------------------------------------ engine phases
 
 SHORT = [
     "The swarm routes each request to a worker that holds the model. " * 6,
@@ -379,229 +447,10 @@ SHORT = [
 HIT = SHORT[0][:300] + " and a different tail that only this request sends."
 LONG = ("Long prompts are prefilled in chunks inside the decode dispatch, "
         "so the other streams keep emitting tokens while it runs. ") * 12
+SAMPLED = ("A seeded sampled stream draws its tokens from threefry keys.",
+           dict(temperature=0.8, seed=1234))
+GREEDY = {f"short{i}": (p, {}) for i, p in enumerate(SHORT)}
 
-
-async def serve(engine) -> dict:
-    results: dict[str, dict] = {}
-
-    async def run(name: str, prompt: str) -> None:
-        t0 = time.perf_counter()
-        final = None
-        async for chunk in engine.generate(prompt, max_tokens=32,
-                                           temperature=0.0):
-            final = chunk
-        results[name] = {"done": final.done, "reason": final.done_reason,
-                         "completion_tokens": final.completion_tokens,
-                         "prompt_tokens": final.prompt_tokens,
-                         "ttft_ms": (final.queue_ns + final.prefill_ns) / 1e6,
-                         "wall_s": time.perf_counter() - t0}
-
-    t0 = time.perf_counter()
-    tasks = [asyncio.create_task(run(f"short{i}", p))
-             for i, p in enumerate(SHORT)]
-    tasks.append(asyncio.create_task(run("prefix_hit", HIT)))
-    # Send the long prompt once the others are decoding.
-    while (engine.scheduler.tokens_generated < 8
-           and not all(t.done() for t in tasks)):
-        await asyncio.sleep(0.005)
-    tasks.append(asyncio.create_task(run("long", LONG)))
-    await asyncio.gather(*tasks)
-    wall = time.perf_counter() - t0
-    return {"requests": results, "wall_s": wall}
-
-
-def logits_check(engine, dev) -> dict:
-    """One prefill, one decode step and one ragged step, each through the
-    kernels and through the plain versions on the same state."""
-    from crowdllama_tpu_torch.models import transformer as T
-    from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
-    from crowdllama_tpu_torch.ops.cuda.flash import flash_prefill_attention
-    from crowdllama_tpu_torch.ops.cuda.paged import (
-        flash_paged_decode_attention,
-        paged_decode_attention_plain,
-        ragged_paged_attention,
-        ragged_paged_attention_ref,
-    )
-
-    r = engine.runner
-    tok = engine.tokenizer
-    errs = {}
-    with torch.inference_mode():
-        ids = tok.encode(SHORT[1])
-        t = r.bucket_for(len(ids))
-        tokens = r._padded(ids, t)
-        ar = torch.arange(t, device=dev, dtype=torch.int32)
-        pos = torch.clamp(ar, max=len(ids) - 1)[None]
-        valid = (ar < len(ids))[None]
-        lk = T.prefill(r.params, r.cfg, tokens, pos, valid,
-                       attention=flash_prefill_attention)[0]
-        lp = T.prefill(r.params, r.cfg, tokens, pos, valid,
-                       attention=prefill_attention_ref)[0]
-        errs["prefill"] = _logit_err(lk[0, :len(ids)], lp[0, :len(ids)])
-
-        st = r.init_state()
-        for slot, p in enumerate(SHORT[:3]):
-            ids = tok.encode(p)
-            first, ks, vs, plen = r.prefill(ids, 0.0, 1.0, None)
-            st = r.insert(st, slot, ks, vs, plen, first, 0.0, 1.0,
-                          prompt_tokens=ids)
-        r.pre_decode_check(1)
-        table = r._table()
-        r.decode_attn = paged_decode_attention_plain
-        dp = r.decode_logits(st, table)
-        r.decode_attn = flash_paged_decode_attention
-        dk = r.decode_logits(st, table)
-        errs["decode"] = _logit_err(dk[:3], dp[:3])
-
-        long_ids = tok.encode(LONG)
-        job = r.ragged_begin(long_ids, 5, st)
-        chunk, ctx_arr, _, wp = r._ragged_provision(job, 1)
-        table = r._table(wp)
-        ctoks = torch.from_numpy(chunk[0]).to(dev)
-        r.ragged_attn = ragged_paged_attention_ref
-        rp, n = r.ragged_logits(st, table, len(long_ids), 5, ctx_arr[0], ctoks)
-        r.ragged_attn = ragged_paged_attention
-        rk, _ = r.ragged_logits(st, table, len(long_ids), 5, ctx_arr[0], ctoks)
-        rows = [0, 1, 2, r.max_slots]  # live decode rows + the chunk row
-        errs["ragged"] = _logit_err(rk[rows], rp[rows])
-        r.ragged_abort(job)
-    for k, e in errs.items():
-        if not e["max_abs_err"] <= LOGIT_RTOL * e["scale"]:
-            raise AssertionError(f"{k} logits: kernel vs plain {e}")
-    return errs
-
-
-def _logit_err(kernel: torch.Tensor, plain: torch.Tensor) -> dict:
-    """Max |kernel - plain|, the plain logits' max |logit| and the share of
-    rows whose argmax agrees."""
-    return {"max_abs_err": float((kernel - plain).abs().max()),
-            "scale": float(plain.abs().max()),
-            "argmax_agree": float((kernel.argmax(-1) == plain.argmax(-1))
-                                  .float().mean())}
-
-
-def decode_step_timing(engine, dev, kernel, steps: int = 8,
-                       temperature: float = 0.0) -> dict:
-    """Steady-state decode with all slots live (each sampling at
-    ``temperature``): host wall time per step (ending in a synchronize)
-    against the GPU time the attention ``kernel`` takes per step (its
-    launches alone, CUDA events over the same steps)."""
-    r = engine.runner
-    tok = engine.tokenizer
-    with torch.inference_mode():
-        st = r.init_state()
-        for slot in range(r.max_slots):
-            ids = tok.encode(SHORT[slot % len(SHORT)] + str(slot))
-            first, ks, vs, plen = r.prefill(ids, 0.0, 1.0, None)
-            st = r.insert(st, slot, ks, vs, plen, first, temperature, 1.0,
-                          prompt_tokens=ids)
-        r.decode_steps(st, steps)  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r.decode_steps(st, steps)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / steps
-        spans = []
-
-        def timed(*a, **kw):
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            out = kernel(*a, **kw)
-            ev1.record()
-            spans.append((ev0, ev1))
-            return out
-
-        seam = r.decode_attn
-        r.decode_attn = timed
-        r.decode_steps(st, steps)
-        r.decode_attn = seam
-        torch.cuda.synchronize()
-    attn_ms = sum(a.elapsed_time(b) for a, b in spans) / steps
-    return {"slots": r.max_slots, "temperature": temperature,
-            "step_ms": step_ms, "kernel_ms_per_step": attn_ms,
-            "tokens_per_s": r.max_slots * 1e3 / step_ms}
-
-
-def seed0_params(dev) -> dict:
-    """TinyLlama-1.1B at full width and depth, random weights from seed 0,
-    with the EOS unembedding column zeroed so no stream stops early (every
-    stream must run to max_tokens whatever batch it lands in)."""
-    from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
-    from crowdllama_tpu_torch.engine.weights import init_params
-    from crowdllama_tpu_torch.models.config import get_config
-
-    params = init_params(get_config("tinyllama-1.1b"), seed=0, device=dev)
-    params["lm_head"][:, ByteTokenizer.EOS] = 0
-    return params
-
-
-def engine_phase(dev) -> dict:
-    from crowdllama_tpu_torch.engine.engine import TorchEngine
-    from crowdllama_tpu_torch.ops.cuda.flash import flash_prefill_attention
-    from crowdllama_tpu_torch.ops.cuda.paged import (
-        flash_paged_decode_attention,
-        ragged_paged_attention,
-    )
-
-    wrappers = {"A": flash_prefill_attention,
-                "B": flash_paged_decode_attention, "C": ragged_paged_attention}
-
-    async def go():
-        engine = TorchEngine(device=dev, params=seed0_params(dev))
-        t0 = time.perf_counter()
-        await engine.start()
-        start_s = time.perf_counter() - t0
-        try:
-            for w in wrappers.values():
-                w.launches = 0
-            hits0 = engine.runner.prefix_hits
-            served = await serve(engine)
-            launches = {k: w.launches for k, w in wrappers.items()}
-            hits = engine.runner.prefix_hits - hits0
-            ragged_chunks = engine.scheduler.ragged_chunks
-            tokens = sum(v["completion_tokens"]
-                         for v in served["requests"].values())
-        finally:
-            await engine.stop()
-        return engine, start_s, served, launches, hits, ragged_chunks, tokens
-
-    engine, start_s, served, launches, hits, ragged_chunks, tokens = \
-        asyncio.run(go())
-    reqs = served["requests"]
-    for name, v in reqs.items():
-        if not (v["done"] and v["completion_tokens"] == 32):
-            raise AssertionError(f"stream {name} ended {v}")
-    if reqs["long"]["prompt_tokens"] <= engine.runner.ragged_chunk:
-        raise AssertionError("the long prompt must exceed one ragged chunk")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the engine")
-    if hits < 1 or ragged_chunks < 1:
-        raise AssertionError(f"prefix hits {hits}, ragged chunks "
-                             f"{ragged_chunks}: a path was not taken")
-    errs = logits_check(engine, dev)
-    steady = decode_step_timing(engine, dev, flash_paged_decode_attention)
-    steady_sampled = decode_step_timing(engine, dev,
-                                        flash_paged_decode_attention,
-                                        temperature=0.8)
-    ttft = sorted(v["ttft_ms"] for v in reqs.values())
-    emit({"phase": "engine", "model": "tinyllama-1.1b", "layers": 22,
-          "start_s": start_s, "wall_s": served["wall_s"],
-          "completion_tokens": tokens,
-          "tokens_per_s": tokens / served["wall_s"],
-          "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
-          "launches": launches, "prefix_hits": hits,
-          "ragged_chunks": ragged_chunks, "logits_max_abs_err": errs,
-          "steady_decode": steady, "steady_decode_sampled": steady_sampled,
-          "logits_rtol": LOGIT_RTOL, "requests": reqs,
-          "card": torch.cuda.get_device_name(0)})
-    return launches
-
-
-# ------------------------------------------------------- contiguous phase
-
-SAMPLED = "A seeded sampled stream draws its tokens from threefry keys."
 # The token ids a stream received, per asyncio task (see _IdRecorder).
 _STREAM_IDS: contextvars.ContextVar = contextvars.ContextVar("stream_ids",
                                                              default=None)
@@ -629,15 +478,48 @@ class _IdRecorder:
         return _Dec()
 
 
-async def serve_contiguous(engine) -> dict:
+def _counters() -> dict:
+    """Kernel row -> (wrapper, its launch-count attribute)."""
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        flash_decode_attention,
+        flash_prefill_attention,
+    )
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention,
+        ragged_paged_attention,
+    )
+
+    return {"A": (flash_prefill_attention, "launches"),
+            "B": (flash_paged_decode_attention, "launches"),
+            "B_int8": (flash_paged_decode_attention, "launches_int8"),
+            "C": (ragged_paged_attention, "launches"),
+            "C_int8": (ragged_paged_attention, "launches_int8"),
+            "D": (flash_decode_attention, "launches")}
+
+
+def _zero_launches() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def _launches() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+
+
+async def serve(engine, streams: dict, max_tokens: int,
+                again: str | None = None) -> dict:
+    """Send ``streams`` (name -> (prompt, generate kwargs)) at once, then
+    LONG once the others are decoding, then stream ``again`` alone a second
+    time (as ``<again>_again``)."""
     results: dict[str, dict] = {}
 
-    async def run(name: str, prompt: str, **kw) -> None:
+    async def run(name: str, prompt: str, kw: dict) -> None:
         ids: list[int] = []
         _STREAM_IDS.set(ids)
         t0 = time.perf_counter()
         final = None
-        async for chunk in engine.generate(prompt, max_tokens=32, **kw):
+        async for chunk in engine.generate(prompt, max_tokens=max_tokens,
+                                           **kw):
             final = chunk
         results[name] = {"done": final.done, "reason": final.done_reason,
                          "completion_tokens": final.completion_tokens,
@@ -645,19 +527,289 @@ async def serve_contiguous(engine) -> dict:
                          "ttft_ms": (final.queue_ns + final.prefill_ns) / 1e6,
                          "wall_s": time.perf_counter() - t0, "ids": ids}
 
-    sampled = dict(temperature=0.8, seed=1234)
     t0 = time.perf_counter()
-    tasks = [asyncio.create_task(run(f"short{i}", p))
-             for i, p in enumerate(SHORT)]
-    tasks.append(asyncio.create_task(run("sampled", SAMPLED, **sampled)))
+    tasks = [asyncio.create_task(run(n, p, kw))
+             for n, (p, kw) in streams.items()]
     while (engine.scheduler.tokens_generated < 8
            and not all(t.done() for t in tasks)):
         await asyncio.sleep(0.005)
-    tasks.append(asyncio.create_task(run("long", LONG)))
+    tasks.append(asyncio.create_task(run("long", LONG, {})))
     await asyncio.gather(*tasks)
     wall = time.perf_counter() - t0
-    await run("sampled_again", SAMPLED, **sampled)
+    if again:
+        await run(f"{again}_again", *streams[again])
     return {"requests": results, "wall_s": wall}
+
+
+def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
+               **engine_kw):
+    """Start ``TorchEngine`` on the seed-0 weights, zero every launch count,
+    serve the traffic, read the counts, stop.  Checks that every stream
+    ended done with ``max_tokens`` tokens and that a seeded stream sent
+    again repeated token for token."""
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+
+    async def go():
+        engine = TorchEngine(device=dev, params=seed0_params(dev),
+                             **engine_kw)
+        t0 = time.perf_counter()
+        await engine.start()
+        start_s = time.perf_counter() - t0
+        engine.tokenizer = _IdRecorder(engine.tokenizer)
+        try:
+            hits0 = getattr(engine.runner, "prefix_hits", 0)
+            _zero_launches()
+            served = await serve(engine, streams, max_tokens, again)
+            launches = _launches()
+            hits = getattr(engine.runner, "prefix_hits", 0) - hits0
+        finally:
+            await engine.stop()
+        return engine, start_s, served, launches, hits
+
+    engine, start_s, served, launches, hits = asyncio.run(go())
+    reqs = served["requests"]
+    for name, v in reqs.items():
+        if not (v["done"] and v["completion_tokens"] == max_tokens
+                and len(v["ids"]) == max_tokens):
+            raise AssertionError(f"stream {name} ended "
+                                 f"{ {k: x for k, x in v.items() if k != 'ids'} }")
+    if again and reqs[again]["ids"] != reqs[f"{again}_again"]["ids"]:
+        raise AssertionError(f"the seeded stream {again} did not repeat: "
+                             f"{reqs[again]['ids']} vs "
+                             f"{reqs[again + '_again']['ids']}")
+    ttft = sorted(v["ttft_ms"] for k, v in reqs.items()
+                  if not k.endswith("_again"))
+    tokens = sum(v["completion_tokens"] for k, v in reqs.items()
+                 if not k.endswith("_again"))
+    summary = {"start_s": start_s, "wall_s": served["wall_s"],
+               "completion_tokens": tokens,
+               "tokens_per_s": tokens / served["wall_s"],
+               "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
+               "launches": launches, "prefix_hits": hits,
+               "requests": {k: {x: y for x, y in v.items() if x != "ids"}
+                            for k, v in reqs.items()}}
+    return engine, summary, reqs
+
+
+def _expect_launches(launches: dict, ran: set[str], phase: str) -> None:
+    """Kernels in ``ran`` launched in the phase's streams; no other did."""
+    for k, n in launches.items():
+        if (n > 0) != (k in ran):
+            raise AssertionError(f"{phase}: kernel {k} launched {n} times "
+                                 f"(expected {'> 0' if k in ran else 0}): "
+                                 f"{launches}")
+
+
+def _logit_err(kernel: torch.Tensor, plain: torch.Tensor) -> dict:
+    """Max |kernel - plain|, the plain logits' max |logit| and the share of
+    rows whose argmax agrees."""
+    return {"max_abs_err": float((kernel - plain).abs().max()),
+            "scale": float(plain.abs().max()),
+            "argmax_agree": float((kernel.argmax(-1) == plain.argmax(-1))
+                                  .float().mean())}
+
+
+def _check_logit_errs(errs: dict, phase: str) -> dict:
+    for k, e in errs.items():
+        if not e["max_abs_err"] <= LOGIT_RTOL * e["scale"]:
+            raise AssertionError(f"{phase} {k} logits: kernel vs plain {e}")
+    return errs
+
+
+def _three_slots(r, tok):
+    st = r.init_state()
+    for slot, p in enumerate(SHORT[:3]):
+        ids = tok.encode(p)
+        first, ks, vs, plen = r.prefill(ids, 0.0, 1.0, None)
+        st = r.insert(st, slot, ks, vs, plen, first, 0.0, 1.0,
+                      prompt_tokens=ids)
+    return st
+
+
+def logits_check(engine, dev, ragged: bool = True) -> dict:
+    """One decode step through kernel B (its bf16 or int8 variant, as the
+    runner's pool is) and through its plain version on the same state (3
+    live slots); with ``ragged`` also one prefill through kernel A and one
+    ragged step through kernel C, each against its plain version."""
+    from crowdllama_tpu_torch.models import transformer as T
+    from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
+    from crowdllama_tpu_torch.ops.cuda.flash import flash_prefill_attention
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention,
+        paged_decode_attention_plain,
+        ragged_paged_attention,
+        ragged_paged_attention_ref,
+    )
+
+    r = engine.runner
+    tok = engine.tokenizer
+    errs = {}
+    with torch.inference_mode():
+        if ragged:
+            ids = tok.encode(SHORT[1])
+            t = r.bucket_for(len(ids))
+            tokens = r._padded(ids, t)
+            ar = torch.arange(t, device=dev, dtype=torch.int32)
+            pos = torch.clamp(ar, max=len(ids) - 1)[None]
+            valid = (ar < len(ids))[None]
+            lk = T.prefill(r.params, r.cfg, tokens, pos, valid,
+                           attention=flash_prefill_attention)[0]
+            lp = T.prefill(r.params, r.cfg, tokens, pos, valid,
+                           attention=prefill_attention_ref)[0]
+            errs["prefill"] = _logit_err(lk[0, :len(ids)], lp[0, :len(ids)])
+
+        st = _three_slots(r, tok)
+        r.pre_decode_check(1)
+        table = r._table()
+        r.decode_attn = paged_decode_attention_plain
+        dp = r.decode_logits(st, table)
+        r.decode_attn = flash_paged_decode_attention
+        dk = r.decode_logits(st, table)
+        errs["decode"] = _logit_err(dk[:3], dp[:3])
+
+        if ragged:
+            long_ids = tok.encode(LONG)
+            job = r.ragged_begin(long_ids, 5, st)
+            chunk, ctx_arr, _, wp = r._ragged_provision(job, 1)
+            table = r._table(wp)
+            ctoks = torch.from_numpy(chunk[0]).to(dev)
+            r.ragged_attn = ragged_paged_attention_ref
+            rp, n = r.ragged_logits(st, table, len(long_ids), 5, ctx_arr[0],
+                                    ctoks)
+            r.ragged_attn = ragged_paged_attention
+            rk, _ = r.ragged_logits(st, table, len(long_ids), 5, ctx_arr[0],
+                                    ctoks)
+            rows = [0, 1, 2, r.max_slots]  # live decode rows + the chunk row
+            errs["ragged"] = _logit_err(rk[rows], rp[rows])
+            r.ragged_abort(job)
+    return errs
+
+
+def decode_step_timing(engine, dev, kernel=None, steps: int = 8,
+                       temperature: float = 0.0) -> dict:
+    """Steady-state decode with all slots live (each sampling at
+    ``temperature``): host wall time per step (ending in a synchronize)
+    and, when ``kernel`` is the runner's decode attention, the GPU time it
+    takes per step (its launches alone, CUDA events over the same
+    steps)."""
+    r = engine.runner
+    tok = engine.tokenizer
+    with torch.inference_mode():
+        st = r.init_state()
+        for slot in range(r.max_slots):
+            ids = tok.encode(SHORT[slot % len(SHORT)] + str(slot))
+            first, ks, vs, plen = r.prefill(ids, 0.0, 1.0, None)
+            st = r.insert(st, slot, ks, vs, plen, first, temperature, 1.0,
+                          prompt_tokens=ids)
+        r.decode_steps(st, steps)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.decode_steps(st, steps)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        spans = []
+
+        def timed(*a, **kw):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            out = kernel(*a, **kw)
+            ev1.record()
+            spans.append((ev0, ev1))
+            return out
+
+        if kernel is not None:
+            seam = r.decode_attn
+            r.decode_attn = timed
+            r.decode_steps(st, steps)
+            r.decode_attn = seam
+            torch.cuda.synchronize()
+    out = {"slots": r.max_slots, "temperature": temperature,
+           "step_ms": step_ms, "tokens_per_s": r.max_slots * 1e3 / step_ms}
+    if kernel is not None:
+        out["kernel_ms_per_step"] = sum(a.elapsed_time(b)
+                                        for a, b in spans) / steps
+    return out
+
+
+def seed0_params(dev) -> dict:
+    """TinyLlama-1.1B at full width and depth, random weights from seed 0,
+    with the EOS unembedding column zeroed so no stream stops early (every
+    stream must run to max_tokens whatever batch it lands in)."""
+    from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
+    from crowdllama_tpu_torch.engine.weights import init_params
+    from crowdllama_tpu_torch.models.config import get_config
+
+    params = init_params(get_config("tinyllama-1.1b"), seed=0, device=dev)
+    params["lm_head"][:, ByteTokenizer.EOS] = 0
+    return params
+
+
+def _free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def engine_phase(dev) -> dict:
+    """The paged engine with a bf16 pool (the default config)."""
+    from crowdllama_tpu_torch.ops.cuda.paged import flash_paged_decode_attention
+
+    engine, summary, reqs = run_engine(
+        dev, {**GREEDY, "prefix_hit": (HIT, {})}, 32)
+    if reqs["long"]["prompt_tokens"] <= engine.runner.ragged_chunk:
+        raise AssertionError("the long prompt must exceed one ragged chunk")
+    _expect_launches(summary["launches"], {"A", "B", "C"}, "paged")
+    ragged_chunks = engine.scheduler.ragged_chunks
+    if summary["prefix_hits"] < 1 or ragged_chunks < 1:
+        raise AssertionError(f"prefix hits {summary['prefix_hits']}, ragged "
+                             f"chunks {ragged_chunks}: a path was not taken")
+    errs = _check_logit_errs(logits_check(engine, dev), "paged")
+    steady = decode_step_timing(engine, dev, flash_paged_decode_attention)
+    steady_sampled = decode_step_timing(engine, dev,
+                                        flash_paged_decode_attention,
+                                        temperature=0.8)
+    emit({"phase": "engine", "model": "tinyllama-1.1b", "layers": 22,
+          **summary, "ragged_chunks": ragged_chunks,
+          "logits_max_abs_err": errs, "steady_decode": steady,
+          "steady_decode_sampled": steady_sampled,
+          "logits_rtol": LOGIT_RTOL, "card": torch.cuda.get_device_name(0)})
+    return {"launches": summary["launches"], "steady": steady,
+            "ids": {k: v["ids"] for k, v in reqs.items()}}
+
+
+def int8_paged_phase(dev, bf16: dict) -> dict:
+    """The paged engine on int8 pools (``kv_dtype="int8"``), the bf16
+    paged phase's traffic plus one seeded sampled stream sent twice:
+    kernels A, B-int8 and C-int8 launch, the bf16 variants do not."""
+    from crowdllama_tpu_torch.ops.cuda.paged import flash_paged_decode_attention
+
+    streams = {**GREEDY, "prefix_hit": (HIT, {}), "sampled": SAMPLED}
+    engine, summary, reqs = run_engine(dev, streams, 32, again="sampled",
+                                       kv_dtype="int8")
+    if engine.runner.init_state().pool_k.dtype != torch.int8:
+        raise AssertionError("kv_dtype='int8' did not build int8 pools")
+    _expect_launches(summary["launches"], {"A", "B_int8", "C_int8"},
+                     "int8 paged")
+    ragged_chunks = engine.scheduler.ragged_chunks
+    if summary["prefix_hits"] < 1 or ragged_chunks < 1:
+        raise AssertionError(f"prefix hits {summary['prefix_hits']}, ragged "
+                             f"chunks {ragged_chunks}: a path was not taken")
+    errs = _check_logit_errs(logits_check(engine, dev, ragged=False),
+                             "int8 paged")
+    steady = decode_step_timing(engine, dev, flash_paged_decode_attention)
+    # Greedy tokens equal to the bf16 pool's, position by position (reported:
+    # int8 KV changes the logits of random weights).
+    same = [a == b for name, ids in bf16["ids"].items()
+            if name in reqs and name != "sampled"
+            for a, b in zip(ids, reqs[name]["ids"])]
+    emit({"phase": "engine_int8", "model": "tinyllama-1.1b", "layers": 22,
+          "kv_dtype": "int8", **summary, "ragged_chunks": ragged_chunks,
+          "sampled_ids": reqs["sampled"]["ids"],
+          "logits_max_abs_err": errs, "logits_rtol": LOGIT_RTOL,
+          "steady_decode": steady, "bf16_steady_decode": bf16["steady"],
+          "greedy_tokens_equal_to_bf16": sum(same) / len(same),
+          "card": torch.cuda.get_device_name(0)})
+    return summary["launches"]
 
 
 def contiguous_logits_check(engine) -> dict:
@@ -670,97 +822,78 @@ def contiguous_logits_check(engine) -> dict:
 
     r, tok = engine.runner, engine.tokenizer
     with torch.inference_mode():
-        st = r.init_state()
-        for slot, p in enumerate(SHORT[:3]):
-            ids = tok.encode(p)
-            first, ks, vs, plen = r.prefill(ids, 0.0, 1.0, None)
-            st = r.insert(st, slot, ks, vs, plen, first, 0.0, 1.0,
-                          prompt_tokens=ids)
+        st = _three_slots(r, tok)
         seam = r.decode_attn
         r.decode_attn = decode_attention_plain
         dp = r.decode_logits(st)
         r.decode_attn = flash_decode_attention
         dk = r.decode_logits(st)
         r.decode_attn = seam
-    err = _logit_err(dk[:3], dp[:3])
-    if not err["max_abs_err"] <= LOGIT_RTOL * err["scale"]:
-        raise AssertionError(f"contiguous decode logits: kernel vs plain "
-                             f"{err}")
-    return err
+    return _check_logit_errs({"decode": _logit_err(dk[:3], dp[:3])},
+                             "contiguous")["decode"]
 
 
-def contiguous_phase(dev) -> int:
-    """The contiguous-KV engine; returns kernel D's launches in its
-    streams."""
-    from crowdllama_tpu_torch.engine.engine import TorchEngine
-    from crowdllama_tpu_torch.ops.cuda.flash import (
-        flash_decode_attention,
-        flash_prefill_attention,
-    )
-    from crowdllama_tpu_torch.ops.cuda.paged import (
-        flash_paged_decode_attention,
-        ragged_paged_attention,
-    )
-
-    wrappers = {"A": flash_prefill_attention, "B": flash_paged_decode_attention,
-                "C": ragged_paged_attention, "D": flash_decode_attention}
-
-    async def go():
-        engine = TorchEngine(device=dev, params=seed0_params(dev),
-                             kv_layout="contiguous")
-        t0 = time.perf_counter()
-        await engine.start()
-        start_s = time.perf_counter() - t0
-        engine.tokenizer = _IdRecorder(engine.tokenizer)
-        try:
-            for w in wrappers.values():
-                w.launches = 0
-            served = await serve_contiguous(engine)
-            launches = {k: w.launches for k, w in wrappers.items()}
-        finally:
-            await engine.stop()
-        return engine, start_s, served, launches
-
-    engine, start_s, served, launches = asyncio.run(go())
-    reqs = served["requests"]
-    for name, v in reqs.items():
-        if not (v["done"] and v["completion_tokens"] == 32
-                and len(v["ids"]) == 32):
-            raise AssertionError(f"stream {name} ended "
-                                 f"{ {k: x for k, x in v.items() if k != 'ids'} }")
-    if reqs["sampled"]["ids"] != reqs["sampled_again"]["ids"]:
-        raise AssertionError("the seeded sampled stream did not repeat: "
-                             f"{reqs['sampled']['ids']} vs "
-                             f"{reqs['sampled_again']['ids']}")
+def _check_chunks(engine, reqs) -> int:
     chunks = engine.scheduler.prefill_chunks
     if reqs["long"]["prompt_tokens"] <= engine.runner.prefill_chunk or \
             chunks < 2:
         raise AssertionError(f"the long prompt must take >= 2 chunks "
                              f"({chunks} chunks)")
-    if launches["A"] <= 0 or launches["D"] <= 0:
-        raise AssertionError(f"kernels A and D must launch: {launches}")
-    if launches["B"] or launches["C"]:
-        raise AssertionError(f"paged kernels launched on the contiguous "
-                             f"layout: {launches}")
+    return chunks
+
+
+def contiguous_phase(dev) -> int:
+    """The contiguous-KV engine; returns kernel D's launches in its
+    streams."""
+    from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
+
+    engine, summary, reqs = run_engine(
+        dev, {**GREEDY, "sampled": SAMPLED}, 32, again="sampled",
+        kv_layout="contiguous")
+    chunks = _check_chunks(engine, reqs)
+    _expect_launches(summary["launches"], {"A", "D"}, "contiguous")
     err = contiguous_logits_check(engine)
     steady = decode_step_timing(engine, dev, flash_decode_attention)
-    ttft = sorted(v["ttft_ms"] for k, v in reqs.items()
-                  if k != "sampled_again")
-    tokens = sum(v["completion_tokens"] for k, v in reqs.items()
-                 if k != "sampled_again")
     emit({"phase": "contiguous", "model": "tinyllama-1.1b", "layers": 22,
-          "start_s": start_s, "wall_s": served["wall_s"],
-          "completion_tokens": tokens,
-          "tokens_per_s": tokens / served["wall_s"],
-          "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
-          "launches": launches, "prefill_chunks": chunks,
+          **summary, "prefill_chunks": chunks,
           "sampled_ids": reqs["sampled"]["ids"],
           "logits_max_abs_err": err, "logits_rtol": LOGIT_RTOL,
-          "steady_decode": steady,
-          "requests": {k: {x: y for x, y in v.items() if x != "ids"}
-                       for k, v in reqs.items()},
-          "card": torch.cuda.get_device_name(0)})
-    return launches["D"]
+          "steady_decode": steady, "card": torch.cuda.get_device_name(0)})
+    return summary["launches"]["D"]
+
+
+def int8_contiguous_phase(dev) -> None:
+    """The contiguous int8 cache: 4 greedy streams of 16 tokens, the long
+    one admitted in legacy chunks.  Its decode runs the plain
+    ``decode_attention_q`` (the JAX package has no Pallas kernel for it),
+    so only kernel A launches."""
+    engine, summary, reqs = run_engine(
+        dev, {k: GREEDY[k] for k in ("short0", "short1", "short2")}, 16,
+        kv_layout="contiguous", kv_dtype="int8")
+    chunks = _check_chunks(engine, reqs)
+    _expect_launches(summary["launches"], {"A"}, "int8 contiguous")
+    steady = decode_step_timing(engine, dev)
+    emit({"phase": "contiguous_int8", "model": "tinyllama-1.1b", "layers": 22,
+          "kv_dtype": "int8", **summary, "prefill_chunks": chunks,
+          "steady_decode": steady, "card": torch.cuda.get_device_name(0)})
+
+
+KERNEL_ROWS = {  # row -> (C symbol, source, TPU kernel it replaces)
+    "A": ("flash_prefill", "crowdllama_tpu_torch/csrc/flash_prefill.cu",
+          "crowdllama_tpu/ops/pallas/flash.py:146"),
+    "B": ("paged_decode", "crowdllama_tpu_torch/csrc/paged_attention.cu",
+          "crowdllama_tpu/ops/pallas/paged.py:196"),
+    "B_int8": ("paged_decode_i8",
+               "crowdllama_tpu_torch/csrc/paged_attention.cu",
+               "crowdllama_tpu/ops/pallas/paged.py:159"),
+    "C": ("ragged_paged", "crowdllama_tpu_torch/csrc/paged_attention.cu",
+          "crowdllama_tpu/ops/pallas/paged.py:703"),
+    "C_int8": ("ragged_paged_i8",
+               "crowdllama_tpu_torch/csrc/paged_attention.cu",
+               "crowdllama_tpu/ops/pallas/paged.py:667"),
+    "D": ("flash_decode", "crowdllama_tpu_torch/csrc/flash_decode.cu",
+          "crowdllama_tpu/ops/pallas/flash.py:269"),
+}
 
 
 def main() -> int:
@@ -787,23 +920,18 @@ def main() -> int:
 
     emit({"phase": "threefry", **prng_golden.check(dev)})
     res = kernel_phase(dev)
-    launches = engine_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    paged = engine_phase(dev)
+    launches = {k: paged["launches"][k] for k in ("A", "B", "C")}
+    _free_card()
+    int8 = int8_paged_phase(dev, paged)
+    launches.update({k: int8[k] for k in ("B_int8", "C_int8")})
+    _free_card()
     launches["D"] = contiguous_phase(dev)
+    _free_card()
+    int8_contiguous_phase(dev)
 
     rows = []
-    meta = {"A": ("flash_prefill", "crowdllama_tpu_torch/csrc/flash_prefill.cu",
-                  "crowdllama_tpu/ops/pallas/flash.py:146"),
-            "B": ("paged_decode",
-                  "crowdllama_tpu_torch/csrc/paged_attention.cu",
-                  "crowdllama_tpu/ops/pallas/paged.py:196"),
-            "C": ("ragged_paged",
-                  "crowdllama_tpu_torch/csrc/paged_attention.cu",
-                  "crowdllama_tpu/ops/pallas/paged.py:703"),
-            "D": ("flash_decode", "crowdllama_tpu_torch/csrc/flash_decode.cu",
-                  "crowdllama_tpu/ops/pallas/flash.py:269")}
-    for key, (kname, src, repl) in meta.items():
+    for key, (kname, src, repl) in KERNEL_ROWS.items():
         r = res[key]
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": repl, "launches": launches[key],

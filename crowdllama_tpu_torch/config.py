@@ -1,7 +1,8 @@
 """Engine configuration: the fields of ``crowdllama_tpu/config.py``
 ``Configuration`` that the ported engine reads, under the same names and
-defaults.  ``kv_layout`` is normalized and checked as the JAX package
-checks it; which combinations serve is ``engine/plan.py``'s decision."""
+defaults.  ``kv_layout`` and ``kv_dtype`` are normalized and checked as
+the JAX package checks them; which combinations serve is
+``engine/plan.py``'s decision."""
 
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ class Configuration:
     # "paged": page pool + prefix cache (the default); "contiguous":
     # [L, B, Hkv, S, Dh] per slot, decode through kernel D.
     kv_layout: str = "paged"
-    kv_dtype: str = "bf16"  # only bf16 is ported
+    # "bf16" or "int8": int8 KV with per-(position, kv head) scales, on
+    # both layouts (paged: kernels B and C read the int8 pages).
+    kv_dtype: str = "bf16"
     quantize: str = ""  # "" = bf16 weights (only mode ported)
     spec_decode: str = ""  # "" = no speculation (only mode ported)
     mesh_shape: str = ""  # "" = one device (only mode ported)
@@ -39,3 +42,7 @@ class Configuration:
         if self.kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv layout {self.kv_layout!r} "
                              "(want 'contiguous' or 'paged')")
+        self.kv_dtype = (self.kv_dtype or "bf16").strip().lower()
+        if self.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"unknown kv dtype {self.kv_dtype!r} "
+                             "(want 'bf16' or 'int8')")

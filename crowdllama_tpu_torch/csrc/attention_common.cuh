@@ -6,12 +6,20 @@
 // across key tiles; a row that saw no valid key ends with l == 0, which is
 // read as 1, so it outputs zeros and never NaN.  Query head h reads kv head
 // h / G.  Head dim is fixed at DH = 64 (the wrappers refuse anything else).
+//
+// Staged K/V rows are bf16 or int8 (the routines are templates on the
+// element type).  An int8 row comes with a per-key fp32 scale in shared
+// memory: the K scale multiplies the score after `scale`, before the
+// softcap; the V scale multiplies the probability after it was added to
+// l, so only the output sum sees it (ops/pallas/paged.py _decode_kernel).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cla {
 
@@ -70,17 +78,44 @@ __device__ __forceinline__ float dot_row(const float (&q)[DH], const __nv_bfloat
   return acc;
 }
 
-// Stage `rows` rows of DH bf16 (contiguous in device memory) into shared
-// memory with row stride `stride` elements; rows in [rows, cap) are zeroed
-// so a partial tile reads defined values.  Called by every thread.
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int stride,
-                                           const __nv_bfloat16* src, int rows, int cap) {
-  constexpr int C8 = DH / 8;  // 16-byte chunks per row
+__device__ __forceinline__ float dot_row(const float (&q)[DH], const int8_t* krow) {
+  const char4* k4 = reinterpret_cast<const char4*>(krow);
+  float acc = 0.f;
+#pragma unroll
+  for (int d = 0; d < DH / 4; ++d) {
+    const char4 c = k4[d];
+    acc = fmaf(q[4 * d], (float)c.x, acc);
+    acc = fmaf(q[4 * d + 1], (float)c.y, acc);
+    acc = fmaf(q[4 * d + 2], (float)c.z, acc);
+    acc = fmaf(q[4 * d + 3], (float)c.w, acc);
+  }
+  return acc;
+}
+
+// Elements (2i, 2i + 1) of a staged bf16 or int8 row as fp32.
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* row, int i) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(row)[i]);
+}
+
+__device__ __forceinline__ float2 load_pair(const int8_t* row, int i) {
+  const char2 c = reinterpret_cast<const char2*>(row)[i];
+  return make_float2((float)c.x, (float)c.y);
+}
+
+// Stage `rows` rows of DH elements (bf16 or int8, contiguous in device
+// memory) into shared memory with row stride `stride` elements (a multiple
+// of 4 bytes); rows in [rows, cap) are zeroed so a partial tile reads
+// defined values.  Called by every thread.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int stride, const T* src, int rows,
+                                           int cap) {
+  constexpr int C16 = DH * (int)sizeof(T) / 16;  // 16-byte chunks per row
+  constexpr int E16 = 16 / (int)sizeof(T);       // elements per chunk
   const uint4* s4 = reinterpret_cast<const uint4*>(src);
-  for (int c = threadIdx.x; c < cap * C8; c += blockDim.x) {
-    int r = c / C8, col = c % C8;
+  for (int c = threadIdx.x; c < cap * C16; c += blockDim.x) {
+    int r = c / C16, col = c % C16;
     uint4 u = r < rows ? s4[c] : make_uint4(0u, 0u, 0u, 0u);
-    uint32_t* d = reinterpret_cast<uint32_t*>(dst + r * stride + col * 8);
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst + r * stride + col * E16);
     d[0] = u.x; d[1] = u.y; d[2] = u.z; d[3] = u.w;
   }
 }
@@ -89,11 +124,15 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int stride,
 // keys (n <= the tile's allocated rows, rows past n zero-filled).  Key j
 // sits at position kpos_sm[j] (or kpos0 + j when kpos_sm is null) and is
 // valid when kval_sm[j] != 0 (all valid when null) and key_visible().
+// Int8 tiles (T = int8_t) read their per-key scales from ksc/vsc.
+template <typename T>
 __device__ __forceinline__ void row_attend_tile(
     const float (&q)[DH], float (&acc)[DH], float& m, float& l,
-    const __nv_bfloat16* Ksm, int kstride, const __nv_bfloat16* Vsm, int vstride,
+    const T* Ksm, int kstride, const T* Vsm, int vstride,
     int n, const int* kpos_sm, const unsigned char* kval_sm, int kpos0,
-    int qpos, int kv_len, int window, float scale, float softcap) {
+    int qpos, int kv_len, int window, float scale, float softcap,
+    const float* ksc = nullptr, const float* vsc = nullptr) {
+  constexpr bool Q8 = std::is_same<T, int8_t>::value;
   for (int j0 = 0; j0 < n; j0 += SUB) {
     float s[SUB];
     float tmax = NEG_INF;
@@ -108,7 +147,9 @@ __device__ __forceinline__ void row_attend_tile(
       }
       float sc = NEG_INF;
       if (v) {
-        sc = softcap_f(dot_row(q, Ksm + j * kstride) * scale, softcap);
+        sc = dot_row(q, Ksm + j * kstride) * scale;
+        if constexpr (Q8) sc *= ksc[j];
+        sc = softcap_f(sc, softcap);
         ok |= 1u << jj;
         tmax = fmaxf(tmax, sc);
       }
@@ -130,12 +171,12 @@ __device__ __forceinline__ void row_attend_tile(
 #pragma unroll
     for (int jj = 0; jj < SUB; ++jj) {
       if (j0 + jj >= n) break;
-      const __nv_bfloat162* v2 =
-          reinterpret_cast<const __nv_bfloat162*>(Vsm + (j0 + jj) * vstride);
-      const float p = s[jj];
+      const T* vrow = Vsm + (j0 + jj) * vstride;
+      float p = s[jj];
+      if constexpr (Q8) p *= vsc[j0 + jj];
 #pragma unroll
       for (int d = 0; d < DH / 2; ++d) {
-        float2 f = __bfloat1622float2(v2[d]);
+        const float2 f = load_pair(vrow, d);
         acc[2 * d] = fmaf(p, f.x, acc[2 * d]);
         acc[2 * d + 1] = fmaf(p, f.y, acc[2 * d + 1]);
       }

@@ -7,11 +7,13 @@
 // flash_ragged_paged_attention (_ragged_v2_kernel): B decode rows plus one
 // prefill chunk cut into QB-row query blocks, in one launch.
 //
-// Pool layout (one layer): [P, Hkv, page, DH] bf16; page id `P - 1` is the
-// engine's dump page and is read like any other.  The table is [B, NP]
-// int32.  Masks follow ops/attention.py: a key at position kpos is seen by
-// a query at qpos when kpos < kv_len, kpos <= qpos and the window allows it
-// (window <= 0 disables; decode's qpos is its newest position).
+// Pool layout (one layer): [P, Hkv, page, DH] bf16, or int8 with per-key
+// scales [P, Hkv, page] bf16 (the *_i8 entries, the TPU kernels' `quant`
+// branch); page id `P - 1` is the engine's dump page and is read like any
+// other.  The table is [B, NP] int32.  Masks follow ops/attention.py: a
+// key at position kpos is seen by a query at qpos when kpos < kv_len,
+// kpos <= qpos and the window allows it (window <= 0 disables; decode's
+// qpos is its newest position).
 //
 // Bound on the H100: bytes.  Each live page is [page, DH] K and V per kv
 // head; a decode row does 4 * DH flops per key per query head (G = 8 heads
@@ -21,7 +23,11 @@
 // below its causal/validity bound (ceil(bound / page) pages, never the
 // table's full width); the G query heads of a kv head share every page read
 // (one warp per query head over one staged page); and no gathered copy of
-// the pool is ever written.  This first version stages one page at a time
+// the pool is ever written.  An int8 pool halves the K/V bytes: its page
+// is staged as int8, with the page's K and V scales beside it as fp32, and
+// converted to fp32 in registers; the K scale goes on the score and the V
+// scale on the probability after l is summed, so no dequantized page is
+// written either.  This first version stages one page at a time
 // without overlapping the next page's load, so it stays well above the
 // bound; double-buffered cp.async/TMA staging is later work.
 //
@@ -40,44 +46,84 @@ using namespace cla;
 
 constexpr int QB = 32;          // chunk query rows per block (TPU _CHUNK_QB)
 constexpr int THREADS_C = 256;  // QB x G (G <= 8) rows; 8 warps for decode
-constexpr int KS = DH + 2;      // padded K row stride: lanes reading different
-                                // rows hit different banks
 
+template <typename T>
+__host__ __device__ constexpr bool is_q8() { return std::is_same<T, int8_t>::value; }
+
+// Padded K row stride in elements: an odd number of 32-bit words per row
+// (bf16: 66 elements = 33 words; int8: 68 bytes = 17 words), so decode
+// lanes that read different rows hit different banks.
+template <typename T>
+__host__ __device__ constexpr int k_stride() { return is_q8<T>() ? DH + 4 : DH + 2; }
+
+template <typename T>
 struct PageSmem {
-  __nv_bfloat16* K;  // [page][KS]
-  __nv_bfloat16* V;  // [page][DH]
-  float* P;          // [warps][page] decode probabilities
-  float* Q;          // [G][DH] decode queries
+  T* K;        // [page][k_stride]
+  T* V;        // [page][DH]
+  float* KSc;  // [page] K scales (int8 pools; null for bf16)
+  float* VSc;  // [page] V scales
+  float* P;    // [warps][page] decode probabilities (V scale folded in)
+  float* Q;    // [G][DH] decode queries
 };
 
-__device__ __forceinline__ PageSmem carve(unsigned char* base, int page, int warps, int G) {
-  PageSmem s;
-  s.K = reinterpret_cast<__nv_bfloat16*>(base);
-  size_t off = ((size_t)page * KS * sizeof(__nv_bfloat16) + 15) & ~size_t(15);
-  s.V = reinterpret_cast<__nv_bfloat16*>(base + off);
-  off += (size_t)page * DH * sizeof(__nv_bfloat16);
-  s.P = reinterpret_cast<float*>(base + off);
-  off += (size_t)warps * page * sizeof(float);
-  s.Q = reinterpret_cast<float*>(base + off);
+__host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// Byte offsets of K, V, scales, P and Q in the block's shared memory.
+template <typename T>
+__host__ __device__ __forceinline__ void smem_layout(int page, int warps, int G,
+                                                     size_t (&off)[6]) {
+  off[0] = 0;
+  off[1] = align16((size_t)page * k_stride<T>() * sizeof(T));
+  off[2] = off[1] + (size_t)page * DH * sizeof(T);
+  off[3] = off[2] + (is_q8<T>() ? 2 * (size_t)page * sizeof(float) : 0);
+  off[4] = off[3] + (size_t)warps * page * sizeof(float);
+  off[5] = off[4] + (size_t)G * DH * sizeof(float);  // total
+}
+
+template <typename T>
+__device__ __forceinline__ PageSmem<T> carve(unsigned char* base, int page, int warps, int G) {
+  size_t off[6];
+  smem_layout<T>(page, warps, G, off);
+  PageSmem<T> s;
+  s.K = reinterpret_cast<T*>(base);
+  s.V = reinterpret_cast<T*>(base + off[1]);
+  s.KSc = is_q8<T>() ? reinterpret_cast<float*>(base + off[2]) : nullptr;
+  s.VSc = is_q8<T>() ? s.KSc + page : nullptr;
+  s.P = reinterpret_cast<float*>(base + off[3]);
+  s.Q = reinterpret_cast<float*>(base + off[4]);
   return s;
 }
 
-__device__ __forceinline__ void stage_page(const PageSmem& s, const __nv_bfloat16* pool_k,
-                                           const __nv_bfloat16* pool_v, int pid, int h,
+template <typename T>
+__device__ __forceinline__ void stage_page(const PageSmem<T>& s, const T* pool_k, const T* pool_v,
+                                           const __nv_bfloat16* k_scale,
+                                           const __nv_bfloat16* v_scale, int pid, int h,
                                            int Hkv, int page) {
-  const size_t base = ((size_t)pid * Hkv + h) * page * DH;
-  stage_rows(s.K, KS, pool_k + base, page, page);
-  stage_rows(s.V, DH, pool_v + base, page, page);
+  const size_t base = ((size_t)pid * Hkv + h) * page;
+  stage_rows(s.K, k_stride<T>(), pool_k + base * DH, page, page);
+  stage_rows(s.V, DH, pool_v + base * DH, page, page);
+  if constexpr (is_q8<T>()) {
+    for (int j = threadIdx.x; j < page; j += blockDim.x) {
+      s.KSc[j] = __bfloat162float(k_scale[base + j]);
+      s.VSc[j] = __bfloat162float(v_scale[base + j]);
+    }
+  }
 }
 
 // Decode attention of one slot row for the G query heads of kv head h.
 // q_row / o_row point at [H, DH] rows; `table_row` lists the slot's pages.
-__device__ __forceinline__ void decode_heads(const PageSmem& s, const __nv_bfloat16* __restrict__ q_row,
-                             const __nv_bfloat16* __restrict__ pool_k,
-                             const __nv_bfloat16* __restrict__ pool_v,
-                             const int* __restrict__ table_row, __nv_bfloat16* o_row,
-                             int h, int G, int Hkv, int page, int qpos, int kv_len,
-                             int window, float scale, float softcap) {
+template <typename T>
+__device__ __forceinline__ void decode_heads(const PageSmem<T>& s,
+                                             const __nv_bfloat16* __restrict__ q_row,
+                                             const T* __restrict__ pool_k,
+                                             const T* __restrict__ pool_v,
+                                             const __nv_bfloat16* __restrict__ k_scale,
+                                             const __nv_bfloat16* __restrict__ v_scale,
+                                             const int* __restrict__ table_row,
+                                             __nv_bfloat16* o_row, int h, int G, int Hkv,
+                                             int page, int qpos, int kv_len, int window,
+                                             float scale, float softcap) {
+  constexpr int KS = k_stride<T>();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bool head = warp < G;
   for (int i = threadIdx.x; i < G * DH; i += blockDim.x)
@@ -93,7 +139,7 @@ __device__ __forceinline__ void decode_heads(const PageSmem& s, const __nv_bfloa
   float* P = s.P + warp * page;
   for (int n = 0; n < npages; ++n) {
     __syncthreads();  // previous page fully consumed
-    stage_page(s, pool_k, pool_v, table_row[n], h, Hkv, page);
+    stage_page(s, pool_k, pool_v, k_scale, v_scale, table_row[n], h, Hkv, page);
     __syncthreads();
     if (!head) continue;
     float sc[4];
@@ -103,7 +149,9 @@ __device__ __forceinline__ void decode_heads(const PageSmem& s, const __nv_bfloa
       const int j = lane + 32 * i;
       sc[i] = NEG_INF;
       if (j < page && key_visible(n * page + j, qpos, kv_len, window)) {
-        sc[i] = softcap_f(dot_row(qr, s.K + j * KS) * scale, softcap);
+        float x = dot_row(qr, s.K + j * KS) * scale;
+        if constexpr (is_q8<T>()) x *= s.KSc[j];
+        sc[i] = softcap_f(x, softcap);
         tmax = fmaxf(tmax, sc[i]);
       }
     }
@@ -116,7 +164,10 @@ __device__ __forceinline__ void decode_heads(const PageSmem& s, const __nv_bfloa
     for (int i = 0; i < 4; ++i) {
       const int j = lane + 32 * i;
       const float p = sc[i] == NEG_INF ? 0.f : expf(sc[i] - m_new);
-      if (j < page) P[j] = p;
+      if (j < page) {
+        if constexpr (is_q8<T>()) P[j] = p * s.VSc[j];  // after l's sum
+        else P[j] = p;
+      }
       psum += p;
     }
     l = l * alpha + warp_sum(psum);
@@ -124,9 +175,8 @@ __device__ __forceinline__ void decode_heads(const PageSmem& s, const __nv_bfloa
     __syncwarp();
     a0 *= alpha;
     a1 *= alpha;
-    const __nv_bfloat162* V2 = reinterpret_cast<const __nv_bfloat162*>(s.V);
     for (int j = 0; j < page; ++j) {
-      const float2 f = __bfloat1622float2(V2[j * (DH / 2) + lane]);
+      const float2 f = load_pair(s.V + j * DH, lane);
       a0 = fmaf(P[j], f.x, a0);
       a1 = fmaf(P[j], f.y, a1);
     }
@@ -139,34 +189,36 @@ __device__ __forceinline__ void decode_heads(const PageSmem& s, const __nv_bfloa
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS_C)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ pool_k,
-                    const __nv_bfloat16* __restrict__ pool_v,
+paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ pool_k,
+                    const T* __restrict__ pool_v, const __nv_bfloat16* __restrict__ k_scale,
+                    const __nv_bfloat16* __restrict__ v_scale,
                     const int* __restrict__ table, const int* __restrict__ seq_lens,
                     __nv_bfloat16* __restrict__ out, int H, int Hkv, int page,
                     int np, float scale, float softcap, int window) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / Hkv;
-  const PageSmem s = carve(smem, page, blockDim.x / 32, G);
+  const PageSmem<T> s = carve<T>(smem, page, blockDim.x / 32, G);
   const int h = blockIdx.x, b = blockIdx.y;
   const int len = seq_lens[b];
-  decode_heads(s, q + (size_t)b * H * DH, pool_k, pool_v, table + (size_t)b * np,
-               out + (size_t)b * H * DH, h, G, Hkv, page, len - 1, len, window,
-               scale, softcap);
+  decode_heads(s, q + (size_t)b * H * DH, pool_k, pool_v, k_scale, v_scale,
+               table + (size_t)b * np, out + (size_t)b * H * DH, h, G, Hkv, page, len - 1,
+               len, window, scale, softcap);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS_C)
-ragged_paged_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ pool_k,
-                    const __nv_bfloat16* __restrict__ pool_v,
+ragged_paged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ pool_k,
+                    const T* __restrict__ pool_v, const __nv_bfloat16* __restrict__ k_scale,
+                    const __nv_bfloat16* __restrict__ v_scale,
                     const int* __restrict__ table, const int* __restrict__ q_lens,
                     const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ out,
                     int B, int C, int H, int Hkv, int page, int np, int chunk_slot,
                     float scale, float softcap, int window) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / Hkv;
-  const PageSmem s = carve(smem, page, THREADS_C / 32, G);
+  const PageSmem<T> s = carve<T>(smem, page, THREADS_C / 32, G);
   const int nb = blockIdx.x, h = blockIdx.y;
 
   if (nb < B) {  // decode row nb: q_start = kv_len - 1, q_valid = q_lens[nb]
@@ -177,8 +229,9 @@ ragged_paged_kernel(const __nv_bfloat16* __restrict__ q,
       return;
     }
     const int kv_len = kv_lens[nb];
-    decode_heads(s, q + (size_t)nb * H * DH, pool_k, pool_v, table + (size_t)nb * np,
-                 o_row, h, G, Hkv, page, kv_len - 1, kv_len, window, scale, softcap);
+    decode_heads(s, q + (size_t)nb * H * DH, pool_k, pool_v, k_scale, v_scale,
+                 table + (size_t)nb * np, o_row, h, G, Hkv, page, kv_len - 1, kv_len, window,
+                 scale, softcap);
     return;
   }
 
@@ -209,19 +262,50 @@ ragged_paged_kernel(const __nv_bfloat16* __restrict__ q,
   const int npages = q_valid > 0 && bound > 0 ? (bound + page - 1) / page : 0;
   for (int n = 0; n < npages; ++n) {
     __syncthreads();
-    stage_page(s, pool_k, pool_v, trow[n], h, Hkv, page);
+    stage_page(s, pool_k, pool_v, k_scale, v_scale, trow[n], h, Hkv, page);
     __syncthreads();
     if (live)
-      row_attend_tile(qr, acc, m, l, s.K, KS, s.V, DH, page, nullptr, nullptr,
-                      n * page, qpos, kv_len, window, scale, softcap);
+      row_attend_tile(qr, acc, m, l, s.K, k_stride<T>(), s.V, DH, page, nullptr, nullptr,
+                      n * page, qpos, kv_len, window, scale, softcap, s.KSc, s.VSc);
   }
   if (exists) store_row(out + ((size_t)(B + row) * H + h * G + g) * DH, acc, l);
 }
 
+template <typename T>
 size_t page_smem_bytes(int page, int warps, int G) {
-  size_t k = ((size_t)page * KS * sizeof(__nv_bfloat16) + 15) & ~size_t(15);
-  return k + (size_t)page * DH * sizeof(__nv_bfloat16) + (size_t)warps * page * sizeof(float) +
-         (size_t)G * DH * sizeof(float);
+  size_t off[6];
+  smem_layout<T>(page, warps, G, off);
+  return off[5];
+}
+
+template <typename T>
+int launch_decode(const void* q, const void* pool_k, const void* pool_v, const void* k_scale,
+                  const void* v_scale, const int* table, const int* seq_lens, void* out,
+                  int B, int H, int Hkv, int page, int np, float scale, float softcap,
+                  int window, void* stream) {
+  const int G = H / Hkv;
+  dim3 grid(Hkv, B);
+  paged_decode_kernel<T><<<grid, 32 * G, page_smem_bytes<T>(page, G, G), (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const T*)pool_k, (const T*)pool_v,
+      (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale, table, seq_lens,
+      (__nv_bfloat16*)out, H, Hkv, page, np, scale, softcap, window);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_ragged(const void* q, const void* pool_k, const void* pool_v, const void* k_scale,
+                  const void* v_scale, const int* table, const int* q_lens,
+                  const int* kv_lens, void* out, int B, int C, int H, int Hkv, int page,
+                  int np, int chunk_slot, float scale, float softcap, int window,
+                  void* stream) {
+  const int G = H / Hkv;
+  dim3 grid(B + (C + QB - 1) / QB, Hkv);
+  ragged_paged_kernel<T><<<grid, THREADS_C, page_smem_bytes<T>(page, THREADS_C / 32, G),
+                           (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const T*)pool_k, (const T*)pool_v,
+      (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale, table, q_lens, kv_lens,
+      (__nv_bfloat16*)out, B, C, H, Hkv, page, np, chunk_slot, scale, softcap, window);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -230,14 +314,18 @@ extern "C" int paged_decode(const void* q, const void* pool_k, const void* pool_
                             const int* table, const int* seq_lens, void* out, int B,
                             int H, int Hkv, int page, int np, float scale,
                             float softcap, int window, void* stream) {
-  const int G = H / Hkv;
-  const int threads = 32 * G;
-  dim3 grid(Hkv, B);
-  paged_decode_kernel<<<grid, threads, page_smem_bytes(page, G, G), (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)pool_k,
-      (const __nv_bfloat16*)pool_v, table, seq_lens, (__nv_bfloat16*)out, H, Hkv,
-      page, np, scale, softcap, window);
-  return (int)cudaGetLastError();
+  return launch_decode<__nv_bfloat16>(q, pool_k, pool_v, nullptr, nullptr, table, seq_lens,
+                                      out, B, H, Hkv, page, np, scale, softcap, window,
+                                      stream);
+}
+
+extern "C" int paged_decode_i8(const void* q, const void* pool_k, const void* pool_v,
+                               const void* k_scale, const void* v_scale, const int* table,
+                               const int* seq_lens, void* out, int B, int H, int Hkv,
+                               int page, int np, float scale, float softcap, int window,
+                               void* stream) {
+  return launch_decode<int8_t>(q, pool_k, pool_v, k_scale, v_scale, table, seq_lens, out, B,
+                               H, Hkv, page, np, scale, softcap, window, stream);
 }
 
 extern "C" int ragged_paged(const void* q, const void* pool_k, const void* pool_v,
@@ -245,12 +333,17 @@ extern "C" int ragged_paged(const void* q, const void* pool_k, const void* pool_
                             void* out, int B, int C, int H, int Hkv, int page, int np,
                             int chunk_slot, float scale, float softcap, int window,
                             void* stream) {
-  const int G = H / Hkv;
-  dim3 grid(B + (C + QB - 1) / QB, Hkv);
-  ragged_paged_kernel<<<grid, THREADS_C, page_smem_bytes(page, THREADS_C / 32, G),
-                        (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)pool_k,
-      (const __nv_bfloat16*)pool_v, table, q_lens, kv_lens, (__nv_bfloat16*)out, B, C,
-      H, Hkv, page, np, chunk_slot, scale, softcap, window);
-  return (int)cudaGetLastError();
+  return launch_ragged<__nv_bfloat16>(q, pool_k, pool_v, nullptr, nullptr, table, q_lens,
+                                      kv_lens, out, B, C, H, Hkv, page, np, chunk_slot, scale,
+                                      softcap, window, stream);
+}
+
+extern "C" int ragged_paged_i8(const void* q, const void* pool_k, const void* pool_v,
+                               const void* k_scale, const void* v_scale, const int* table,
+                               const int* q_lens, const int* kv_lens, void* out, int B,
+                               int C, int H, int Hkv, int page, int np, int chunk_slot,
+                               float scale, float softcap, int window, void* stream) {
+  return launch_ragged<int8_t>(q, pool_k, pool_v, k_scale, v_scale, table, q_lens, kv_lens,
+                               out, B, C, H, Hkv, page, np, chunk_slot, scale, softcap,
+                               window, stream);
 }

@@ -148,9 +148,10 @@ class TorchEngine(Engine):
             admission_pending_max=c.admission_pending_max,
             ragged=c.ragged_prefill)
         self.scheduler.start()
-        log.info("engine up: model=%s device=%s layout=%s slots=%d "
-                 "max_seq=%d", cfg.name, device, self.plan.kv_layout,
-                 self.runner.max_slots, self.runner.max_seq)
+        log.info("engine up: model=%s device=%s layout=%s kv_dtype=%s "
+                 "slots=%d max_seq=%d", cfg.name, device, self.plan.kv_layout,
+                 self.plan.kv_dtype, self.runner.max_slots,
+                 self.runner.max_seq)
 
     def _warmup(self) -> None:
         """Run every serving path once before serving: monolithic prefill +
@@ -158,7 +159,11 @@ class TorchEngine(Engine):
         the contiguous layout, B on the paged one), the prefix-hit suffix
         prefill, a legacy chunked prefill of one chunk + 1 tokens, the
         embeddings forward, and on the paged layout a unified ragged
-        prefill of one chunk + 1 tokens (kernel C)."""
+        prefill of one chunk + 1 tokens (kernel C).  On an int8 KV cache
+        the same calls run its paths: quantizing insert, int8 decode
+        (kernel B's int8 variant when paged, the plain
+        ``decode_attention_q`` when contiguous), the dequantized context
+        of the prefix-hit prefill and the int8 ragged step."""
         r = self.runner
         state = r.init_state()
         tok, ks, vs, plen = r.prefill([1, 2, 3], 0.0, 1.0, None)
@@ -167,8 +172,8 @@ class TorchEngine(Engine):
             _, state = r.decode_steps(state, k)
         if getattr(r, "prefix_cache", False):
             r.warmup_ctx_prefill(state)
+        vocab = r.cfg.vocab_size
         if r.prefill_chunk and r.max_seq > r.prefill_chunk + 1:
-            vocab = r.cfg.vocab_size
             job = r.prefill_begin([1 + i % (vocab - 1)
                                    for i in range(r.prefill_chunk + 1)])
             while not r.prefill_step(job):
@@ -178,7 +183,8 @@ class TorchEngine(Engine):
         state = r.release(state, 0)
         if (self.config.ragged_prefill and r.supports_ragged
                 and r.max_seq > r.ragged_chunk + 1):
-            job = r.ragged_begin(list(range(2, r.ragged_chunk + 3)), 0,
+            job = r.ragged_begin([2 + i % (vocab - 2)
+                                  for i in range(r.ragged_chunk + 1)], 0,
                                  state=state)
             while not job.finished:
                 _, state = r.ragged_step(state, job, 1)
@@ -201,6 +207,7 @@ class TorchEngine(Engine):
             r = self.runner
             d["device"] = str(r.device)
             d["kv_layout"] = r.kv_layout
+            d["kv_dtype"] = r.kv_dtype
             if getattr(r, "prefix_cache", False):
                 d["prefix_cache"] = {
                     "hits": r.prefix_hits,

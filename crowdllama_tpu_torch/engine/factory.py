@@ -15,7 +15,7 @@ def build_runner(config, plan, cfg, params=None, *,
     """Instantiate the runner ``plan`` names for model ``cfg``."""
     kwargs = dict(params=params, max_slots=config.max_batch_slots,
                   max_seq=cfg.max_context_length, dtype=dtype, seed=seed,
-                  device=device)
+                  device=device, kv_dtype=plan.kv_dtype)
     if plan.kv_layout == "paged":
         from crowdllama_tpu_torch.engine.paged import PagedModelRunner
 

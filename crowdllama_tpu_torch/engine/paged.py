@@ -1,11 +1,15 @@
 """Block-paged KV cache: slot -> page-table indirection over a shared pool.
 
 Counterpart of ``crowdllama_tpu/engine/paged.py`` ``PagedModelRunner`` on
-one device with a bf16 pool:
+one device:
 
 - pool ``[L, P + 1, Hkv, page, Dh]`` (k and v); page id ``P`` is the
   reserved dump page that absorbs the writes of inactive slots and of chunk
   rows past the prompt, so no real page is ever clobbered;
+- ``kv_dtype="int8"``: int8 pools with per-(position, kv head) bf16 scales
+  ``[L, P + 1, Hkv, page]``; KV is quantized where it enters the pool
+  (insert, decode and ragged writes), the kernels read the int8 pages with
+  their scales, and the context paths dequantize the slot's pages;
 - page table: host-side ``[B, max_pages]`` int32, uploaded per dispatch;
   pages are allocated at insert and before each decode chunk, freed at
   release, refcounted across slots;
@@ -21,8 +25,8 @@ Device state is updated in place (the JAX package donates and replaces
 it); methods still return the state so callers read like the reference.
 Legacy chunked admission (``ragged_prefill=False``) runs the base runner's
 ``prefill_step`` over accumulators seeded from cached prefix pages
-(:meth:`PagedModelRunner.prefill_begin`).  Megastep, int8 pools, tensor
-parallelism and KV page export/import are not ported yet.
+(:meth:`PagedModelRunner.prefill_begin`).  Megastep, tensor parallelism
+and KV page export/import are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from crowdllama_tpu_torch.ops.cuda.paged import (
     flash_paged_decode_attention,
     ragged_paged_attention,
 )
+from crowdllama_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 
 
 class PagesExhausted(ValueError):
@@ -48,8 +53,10 @@ class PagesExhausted(ValueError):
 
 @dataclass(kw_only=True)
 class PagedDecodeState(SlotState):
-    pool_k: torch.Tensor          # [L, P+1, Hkv, page, Dh]
-    pool_v: torch.Tensor
+    pool_k: torch.Tensor          # [L, P+1, Hkv, page, Dh] (int8 with
+    pool_v: torch.Tensor          # kv_dtype="int8")
+    k_scale: torch.Tensor | None = None  # [L, P+1, Hkv, page] bf16, int8 only
+    v_scale: torch.Tensor | None = None
 
 
 class PagedModelRunner(ModelRunner):
@@ -200,7 +207,7 @@ class PagedModelRunner(ModelRunner):
 
     @torch.inference_mode()
     def init_state(self) -> PagedDecodeState:
-        cfg, dev = self.cfg, self.device
+        cfg = self.cfg
         shape = (cfg.num_layers, self.total_pages + 1, cfg.num_kv_heads,
                  self.page_size, cfg.resolved_head_dim())
         self._free_pages = list(range(self.total_pages))
@@ -214,10 +221,9 @@ class PagedModelRunner(ModelRunner):
         self._key_children.clear()
         self._pending_match = None
         self._ragged_slot = None
-        return PagedDecodeState(
-            pool_k=torch.zeros(shape, dtype=self.dtype, device=dev),
-            pool_v=torch.zeros(shape, dtype=self.dtype, device=dev),
-            **self._slot_fields())
+        k, v, scales = self._kv_zeros(shape)
+        return PagedDecodeState(pool_k=k, pool_v=v, **scales,
+                                **self._slot_fields())
 
     def _table(self, width: int | None = None) -> torch.Tensor:
         table = self.page_table if width is None else self.page_table[:, :width]
@@ -302,17 +308,20 @@ class PagedModelRunner(ModelRunner):
                      top_p, key, top_k, repeat_penalty):
         """Suffix prefill attending over cached prefix pages (``pages`` is
         the slot's dump-page padded page list; ``ctx_len`` masks the
-        tail)."""
+        tail).  int8 context pages are dequantized and cast to the
+        runner's dtype."""
         cfg = self.cfg
         l, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim()
         suffix = prompt_ids[ctx_len:]
         slen = len(suffix)
         t = self.bucket_for(slen)
         c = pages.shape[0] * self.page_size
-        ck = state.pool_k[:, pages].permute(0, 2, 1, 3, 4).reshape(
-            l, 1, hkv, c, dh)
-        cv = state.pool_v[:, pages].permute(0, 2, 1, 3, 4).reshape(
-            l, 1, hkv, c, dh)
+        ck, cv = state.pool_k[:, pages], state.pool_v[:, pages]
+        if self.kv_dtype == "int8":
+            ck = dequantize_kv(ck, state.k_scale[:, pages]).to(self.dtype)
+            cv = dequantize_kv(cv, state.v_scale[:, pages]).to(self.dtype)
+        ck = ck.permute(0, 2, 1, 3, 4).reshape(l, 1, hkv, c, dh)
+        cv = cv.permute(0, 2, 1, 3, 4).reshape(l, 1, hkv, c, dh)
         dev = self.device
         ar = torch.arange(t, device=dev, dtype=torch.int32)
         ctx_valid = (torch.arange(c, device=dev) < ctx_len)[None]
@@ -321,7 +330,8 @@ class PagedModelRunner(ModelRunner):
         x = T._embed(self.params, cfg, self._padded(suffix, t))
         x, ks, vs = T.scan_prefill_layers(
             self.params["layers"], self.windows, cfg, x, positions,
-            kv_valid=kv_valid, ctx_k=ck, ctx_v=cv, ctx_valid=ctx_valid)
+            kv_valid=kv_valid, ctx_k=ck, ctx_v=cv, ctx_valid=ctx_valid,
+            rope=(self.cos, self.sin))
         logits = T._unembed(self.params, cfg, x[:, slen - 1])
         tok = self._sample_first(logits, prompt_ids, temperature, top_p,
                                  key, top_k, repeat_penalty)
@@ -333,8 +343,9 @@ class PagedModelRunner(ModelRunner):
         """Legacy chunked-admission job, seeded from cached prefix pages:
         with ``state`` the cached prefix's KV is copied into the job's
         accumulators and ``done_tokens`` starts past it, so only the
-        uncovered suffix is prefilled.  The job's insert scatters the whole
-        prompt into fresh pages."""
+        uncovered suffix is prefilled (int8 pages dequantized in fp32, then
+        cast to the accumulators' dtype).  The job's insert scatters the
+        whole prompt into fresh pages."""
         self._clear_pending()
         job = super().prefill_begin(prompt_ids)
         if state is None or not self.prefix_cache:
@@ -351,9 +362,13 @@ class PagedModelRunner(ModelRunner):
         l, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim()
         ctx_len = len(matched) * pg
         pages = torch.as_tensor(matched, dtype=torch.long, device=self.device)
-        for pool, ctx in ((state.pool_k, job.ctx_k), (state.pool_v, job.ctx_v)):
-            ctx[:, :, :, :ctx_len] = pool[:, pages].permute(
-                0, 2, 1, 3, 4).reshape(l, 1, hkv, ctx_len, dh)
+        for pool, scales, ctx in ((state.pool_k, state.k_scale, job.ctx_k),
+                                  (state.pool_v, state.v_scale, job.ctx_v)):
+            kv = pool[:, pages]
+            if self.kv_dtype == "int8":
+                kv = dequantize_kv(kv, scales[:, pages])
+            ctx[:, :, :, :ctx_len] = kv.permute(0, 2, 1, 3, 4).reshape(
+                l, 1, hkv, ctx_len, dh).to(ctx.dtype)
         job.done_tokens = ctx_len
         self.prefix_hits += 1
         self.prefix_tokens_reused += ctx_len
@@ -413,6 +428,14 @@ class PagedModelRunner(ModelRunner):
         # [L, 1, Hkv, bucket, Dh] -> [L, np, Hkv, page, Dh] page-major rows
         l, _, hkv, _, dh = ks.shape
         idx = torch.as_tensor(fresh, dtype=torch.long, device=self.device)
+        if self.kv_dtype == "int8":
+            # Quantize before the page scatter; scales [L, 1, Hkv, bucket]
+            # -> [L, np, Hkv, page] like the values.
+            ks, k_sc = quantize_kv(ks, state.k_scale.dtype)
+            vs, v_sc = quantize_kv(vs, state.v_scale.dtype)
+            for sc_pool, sc in ((state.k_scale, k_sc), (state.v_scale, v_sc)):
+                sc_pool[:, idx] = sc[:, 0].reshape(
+                    l, hkv, bucket // pg, pg).permute(0, 2, 1, 3)
         for pool, kv in ((state.pool_k, ks), (state.pool_v, vs)):
             pool[:, idx] = kv[:, 0].reshape(
                 l, hkv, bucket // pg, pg, dh).permute(0, 2, 1, 3, 4).to(
@@ -473,6 +496,25 @@ class PagedModelRunner(ModelRunner):
         return (positions, lens, torch.where(st.active, cur, dump),
                 positions % self.page_size)
 
+    def _write_kv(self, st: PagedDecodeState, i: int, wpages, woffs, k,
+                  v) -> dict:
+        """Scatter rows k/v [N, Hkv, Dh] into layer ``i``'s pool at
+        (page, offset) pairs, quantized on an int8 pool; returns the
+        scale keywords the attention kernels take ({} on a bf16 pool)."""
+        pk, pv = st.pool_k[i], st.pool_v[i]
+        if self.kv_dtype != "int8":
+            pk[wpages, :, woffs] = k.to(pk.dtype)
+            pv[wpages, :, woffs] = v.to(pv.dtype)
+            return {}
+        sk, sv = st.k_scale[i], st.v_scale[i]
+        kq, k_sc = quantize_kv(k, sk.dtype)
+        vq, v_sc = quantize_kv(v, sv.dtype)
+        pk[wpages, :, woffs] = kq
+        pv[wpages, :, woffs] = vq
+        sk[wpages, :, woffs] = k_sc
+        sv[wpages, :, woffs] = v_sc
+        return dict(k_scale=sk, v_scale=sv)
+
     def decode_logits(self, st: PagedDecodeState,
                       table: torch.Tensor) -> torch.Tensor:
         """One decode step's forward for every slot: writes each token's KV
@@ -484,12 +526,11 @@ class PagedModelRunner(ModelRunner):
         for i, window in enumerate(self.windows):
             pk, pv = st.pool_k[i], st.pool_v[i]
 
-            def attn_fn(q, k, v, pk=pk, pv=pv, window=window):
-                pk[wpages, :, woffs] = k.to(pk.dtype)
-                pv[wpages, :, woffs] = v.to(pv.dtype)
+            def attn_fn(q, k, v, i=i, pk=pk, pv=pv, window=window):
+                scales = self._write_kv(st, i, wpages, woffs, k, v)
                 return self.decode_attn(q, pk, pv, table, lens, self.scale,
                                         softcap=cfg.attn_logit_softcap,
-                                        sliding_window=window)
+                                        sliding_window=window, **scales)
 
             x = T.decode_layer_body(T.layer_params(self.params["layers"], i),
                                     cfg, x, positions, self.cos, self.sin,
@@ -633,9 +674,8 @@ class PagedModelRunner(ModelRunner):
         for i, window in enumerate(self.windows):
             pk, pv = st.pool_k[i], st.pool_v[i]
 
-            def attn_fn(q, k, v, pk=pk, pv=pv, window=window):
-                pk[wpages, :, woffs] = k.to(pk.dtype)
-                pv[wpages, :, woffs] = v.to(pv.dtype)
+            def attn_fn(q, k, v, i=i, pk=pk, pv=pv, window=window):
+                scales = self._write_kv(st, i, wpages, woffs, k, v)
                 # The chunk's fresh KV also rides as operands: the plain
                 # version's self block reads it directly.
                 chunk_k = k[b:].transpose(0, 1)[None]
@@ -643,7 +683,7 @@ class PagedModelRunner(ModelRunner):
                 return self.ragged_attn(
                     q, chunk_k, chunk_v, pk, pv, table, q_lens, kv_lens,
                     chunk_slot, self.scale, softcap=cfg.attn_logit_softcap,
-                    sliding_window=window)
+                    sliding_window=window, **scales)
 
             x = T.decode_layer_body(T.layer_params(self.params["layers"], i),
                                     cfg, x, positions, self.cos, self.sin,

@@ -2,9 +2,9 @@
 
 Counterpart of the one-device subset of ``crowdllama_tpu/engine/plan.py``
 ``resolve_serving_plan``: the paged and the contiguous layout with a bf16
-KV cache, bf16 weights and no speculation.  Every other combination raises
-``NotImplementedError`` naming the ROADMAP item that will port it; nothing
-falls back silently.
+or int8 KV cache, bf16 weights and no speculation.  Every other
+combination raises ``NotImplementedError`` naming the ROADMAP item that
+will port it; nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -13,8 +13,7 @@ from dataclasses import dataclass
 
 # What is not ported yet, and the ROADMAP Queue 1 item that ports it.
 _NOT_PORTED = {
-    "kv_dtype": ("bf16", "int8 KV (ROADMAP Queue 1 item 5)"),
-    "quantize": ("", "quantized weights (ROADMAP Queue 1 item 5)"),
+    "quantize": ("", "quantized weights (ROADMAP Queue 1 item 10)"),
     "spec_decode": ("", "speculative decoding (ROADMAP Queue 1 item 4)"),
     "mesh_shape": ("", "multi-device meshes (ROADMAP Queue 1 item 8)"),
 }
@@ -40,4 +39,5 @@ def resolve_serving_plan(config) -> ServingPlan:
                 f"yet: {what}")
     runner = {"paged": "PagedModelRunner",
               "contiguous": "ModelRunner"}[config.kv_layout]
-    return ServingPlan(runner=runner, kv_layout=config.kv_layout)
+    return ServingPlan(runner=runner, kv_layout=config.kv_layout,
+                       kv_dtype=config.kv_dtype)

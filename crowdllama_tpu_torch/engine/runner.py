@@ -8,10 +8,14 @@ prefill with first-token sampling, legacy chunked admission
 ``prefill_attention_ctx`` over the job's KV accumulators), the
 embeddings forward (``embed_prompts``, kernel A through
 ``T.hidden_states``), and the contiguous cache ``[L, B, Hkv, S, Dh]``
-whose decode step reads each slot's keys through kernel D.  The paged
-subclass (``engine/paged.py``) replaces the cache layout and reuses the
-rest.  No mesh, sequence/pipeline parallelism, int8 cache or speculation
-here; those are not ported yet.
+whose decode step reads each slot's keys through kernel D.  With
+``kv_dtype="int8"`` the cache is int8 with per-(position, kv head) bf16
+scales ``[L, B, Hkv, S]``: insert quantizes the prefilled bucket, decode
+quantizes each new token and attends with the plain
+``decode_attention_q`` (the JAX package has no Pallas kernel for this
+path either).  The paged subclass (``engine/paged.py``) replaces the cache
+layout and reuses the rest.  No mesh, sequence/pipeline parallelism or
+speculation here; those are not ported yet.
 
 Sampling keys: each slot carries a threefry key ``[2]`` uint32 in the
 state (host numpy, ``engine/prng.py``); every decode step splits every
@@ -43,6 +47,9 @@ from crowdllama_tpu_torch.engine.weights import init_params
 from crowdllama_tpu_torch.models import transformer as T
 from crowdllama_tpu_torch.models.config import ModelConfig
 from crowdllama_tpu_torch.ops.attention import decode_attention, prefill_attention
+from crowdllama_tpu_torch.ops.quant import quantize_kv
+
+KV_DTYPES = ("bf16", "int8")
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -90,8 +97,10 @@ class SlotState:
 class DecodeState(SlotState):
     """Contiguous-layout decode state."""
 
-    k_cache: torch.Tensor         # [L, B, Hkv, S, Dh] head-major
-    v_cache: torch.Tensor
+    k_cache: torch.Tensor         # [L, B, Hkv, S, Dh] head-major (int8
+    v_cache: torch.Tensor         # with kv_dtype="int8")
+    k_scale: torch.Tensor | None = None  # [L, B, Hkv, S] bf16, int8 only
+    v_scale: torch.Tensor | None = None
 
 
 class ModelRunner:
@@ -108,7 +117,12 @@ class ModelRunner:
     def __init__(self, cfg: ModelConfig, params: dict | None = None,
                  max_slots: int = 8, max_seq: int = 0,
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None,
+                 kv_dtype: str = "bf16"):
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
+        self.kv_dtype = kv_dtype
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_slots = max_slots
@@ -264,7 +278,8 @@ class ModelRunner:
         x = T._embed(self.params, self.cfg, self._padded(prompt_ids, bucket))
         x, ks, vs = T.scan_prefill_layers(
             self.params["layers"], self.windows, self.cfg, x, positions,
-            kv_valid=kv_valid, attention=self.prefill_attn)
+            kv_valid=kv_valid, attention=self.prefill_attn,
+            rope=(self.cos, self.sin))
         logits = T._unembed(self.params, self.cfg, x[:, plen - 1])
         tok = self._sample_first(logits, prompt_ids, temperature, top_p,
                                  key, top_k, repeat_penalty)
@@ -340,7 +355,8 @@ class ModelRunner:
         x = T._embed(self.params, self.cfg, tokens)
         x, ks, vs = T.scan_prefill_layers(
             self.params["layers"], self.windows, self.cfg, x, positions,
-            kv_valid=kv_valid, ctx_k=ctx_k, ctx_v=ctx_v, ctx_valid=ctx_valid)
+            kv_valid=kv_valid, ctx_k=ctx_k, ctx_v=ctx_v, ctx_valid=ctx_valid,
+            rope=(self.cos, self.sin))
         # Padding rows past chunk_len land beyond the valid region: the
         # next chunk overwrites them or seq_lens masks them.
         ctx_k[:, :, :, ctx_len:ctx_len + t] = ks.to(ctx_k.dtype)
@@ -399,32 +415,51 @@ class ModelRunner:
         positions = torch.minimum(ar, plens[:, None] - 1).contiguous()
         kv_valid = (ar < plens[:, None]).contiguous()
         h = T.hidden_states(self.params, self.cfg, tokens, positions,
-                            kv_valid=kv_valid, attention=self.prefill_attn)
+                            kv_valid=kv_valid, attention=self.prefill_attn,
+                            rope=(self.cos, self.sin))
         mask = kv_valid[..., None].float()
         pooled = (h.float() * mask).sum(1) / mask.sum(1).clamp_min(1.0)
         return pooled / pooled.norm(dim=-1, keepdim=True).clamp_min(1e-9)
 
     # ------------------------------------------------ contiguous KV layout
 
+    def _kv_zeros(self, shape: tuple[int, ...]):
+        """Zeroed K and V buffers of ``shape`` in the KV dtype, and the
+        zeroed bf16 scales ``shape[:-1]`` an int8 cache carries as
+        ``k_scale``/``v_scale`` keywords ({} for bf16)."""
+        quantized = self.kv_dtype == "int8"
+        kw = dict(dtype=torch.int8 if quantized else self.dtype,
+                  device=self.device)
+        scales = {}
+        if quantized:
+            scales = {name: torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                        device=self.device)
+                      for name in ("k_scale", "v_scale")}
+        return torch.zeros(shape, **kw), torch.zeros(shape, **kw), scales
+
     @torch.inference_mode()
     def init_state(self) -> DecodeState:
         cfg = self.cfg
-        shape = (cfg.num_layers, self.max_slots, cfg.num_kv_heads,
-                 self.max_seq, cfg.resolved_head_dim())
-        return DecodeState(
-            k_cache=torch.zeros(shape, dtype=self.dtype, device=self.device),
-            v_cache=torch.zeros(shape, dtype=self.dtype, device=self.device),
-            **self._slot_fields())
+        k, v, scales = self._kv_zeros(
+            (cfg.num_layers, self.max_slots, cfg.num_kv_heads, self.max_seq,
+             cfg.resolved_head_dim()))
+        return DecodeState(k_cache=k, v_cache=v, **scales,
+                           **self._slot_fields())
 
     @torch.inference_mode()
     def insert(self, state: DecodeState, slot: int, ks, vs, plen: int,
                first_token: int, temperature: float, top_p: float,
                prompt_tokens: list[int] | None = None, slot_key=None,
                top_k: int = 0, repeat_penalty: float = 1.0) -> DecodeState:
-        """Write a prefilled sequence (ks/vs [L, 1, Hkv, T, Dh]) into
-        ``slot``; ``slot_key`` seeds the slot's sampling stream (default:
-        ``default_slot_key(slot)``)."""
+        """Write a prefilled sequence (ks/vs [L, 1, Hkv, T, Dh], quantized
+        first on an int8 cache) into ``slot``; ``slot_key`` seeds the slot's
+        sampling stream (default: ``default_slot_key(slot)``)."""
         t = ks.shape[3]
+        if self.kv_dtype == "int8":
+            ks, k_sc = quantize_kv(ks, state.k_scale.dtype)
+            vs, v_sc = quantize_kv(vs, state.v_scale.dtype)
+            state.k_scale[:, slot, :, :t] = k_sc[:, 0]
+            state.v_scale[:, slot, :, :t] = v_sc[:, 0]
         state.k_cache[:, slot, :, :t] = ks[:, 0].to(state.k_cache.dtype)
         state.v_cache[:, slot, :, :t] = vs[:, 0].to(state.v_cache.dtype)
         recent_row = self._recent_from_prompt(
@@ -447,11 +482,12 @@ class ModelRunner:
         into the cache and returns logits [B, V] fp32 (no sampling)."""
         positions = torch.clamp(st.seq_lens, max=self.max_seq - 1)
         lens = torch.clamp(st.seq_lens + 1, max=self.max_seq)
-        logits, _, _ = T.decode_step(self.params, self.cfg, st.tokens,
-                                     positions, st.k_cache, st.v_cache, lens,
-                                     rope=(self.cos, self.sin),
-                                     attention=self.decode_attn)
-        return logits
+        out = T.decode_step(self.params, self.cfg, st.tokens, positions,
+                            st.k_cache, st.v_cache, lens,
+                            rope=(self.cos, self.sin),
+                            attention=self.decode_attn, k_scale=st.k_scale,
+                            v_scale=st.v_scale)
+        return out[0]
 
     @torch.inference_mode()
     def decode_steps_device(self, state: DecodeState, num_steps: int = 1):

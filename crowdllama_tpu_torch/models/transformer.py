@@ -20,10 +20,12 @@ import torch.nn.functional as F
 from crowdllama_tpu_torch.models.config import ModelConfig
 from crowdllama_tpu_torch.ops.attention import (
     decode_attention,
+    decode_attention_q,
     prefill_attention,
     prefill_attention_ctx,
 )
 from crowdllama_tpu_torch.ops.norms import rms_norm
+from crowdllama_tpu_torch.ops.quant import quantize_kv
 from crowdllama_tpu_torch.ops.rope import apply_rope, rope_table
 
 Params = dict[str, Any]
@@ -174,7 +176,8 @@ def scan_prefill_layers(layers: Params, windows: list[int], cfg: ModelConfig,
                         ctx_k: torch.Tensor | None = None,
                         ctx_v: torch.Tensor | None = None,
                         ctx_valid: torch.Tensor | None = None,
-                        attention: Callable = prefill_attention):
+                        attention: Callable = prefill_attention,
+                        rope: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Run every decoder layer over x [B, T, D]; returns (x, ks, vs) with
     ks/vs [L, B, Hkv, T, Dh] head-major and contiguous.
 
@@ -182,9 +185,10 @@ def scan_prefill_layers(layers: Params, windows: list[int], cfg: ModelConfig,
     batch is a suffix continuing a cached prefix: queries attend jointly
     over the context and the causal suffix (``prefill_attention_ctx``) and
     ks/vs cover the suffix only.  ``attention`` is the no-context attention
-    function (kernel A's dispatch by default)."""
+    function (kernel A's dispatch by default).  ``rope`` is the (cos, sin)
+    pair on x's device (built here when None; a runner passes its own)."""
     scale = attn_scale(cfg)
-    cos, sin = rope_for(cfg, x.device)
+    cos, sin = rope if rope is not None else rope_for(cfg, x.device)
     b, t = x.shape[0], x.shape[1]
     ks, vs = [], []
     for i, window in enumerate(windows):
@@ -212,7 +216,8 @@ def scan_prefill_layers(layers: Params, windows: list[int], cfg: ModelConfig,
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, kv_valid: torch.Tensor | None = None,
             ctx_k=None, ctx_v=None, ctx_valid=None,
-            attention: Callable = prefill_attention):
+            attention: Callable = prefill_attention,
+            rope: tuple[torch.Tensor, torch.Tensor] | None = None):
     """Full-prompt forward.  Returns (logits [B, T, V] fp32, k, v
     [L, B, Hkv, T, Dh]).  ``positions`` are absolute (padding may repeat
     the last position; ``kv_valid`` False for padding)."""
@@ -220,20 +225,22 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x, ks, vs = scan_prefill_layers(
         params["layers"], layer_sliding_windows(cfg), cfg, x, positions,
         kv_valid=kv_valid, ctx_k=ctx_k, ctx_v=ctx_v, ctx_valid=ctx_valid,
-        attention=attention)
+        attention=attention, rope=rope)
     return _unembed(params, cfg, x), ks, vs
 
 
 def hidden_states(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   positions: torch.Tensor,
                   kv_valid: torch.Tensor | None = None,
-                  attention: Callable = prefill_attention) -> torch.Tensor:
+                  attention: Callable = prefill_attention,
+                  rope: tuple[torch.Tensor, torch.Tensor] | None = None
+                  ) -> torch.Tensor:
     """Final-norm hidden states [B, T, D]: the embeddings forward (the
     prefill layer stack without the vocab projection)."""
     x = _embed(params, cfg, tokens)
     x, _, _ = scan_prefill_layers(params["layers"], layer_sliding_windows(cfg),
                                   cfg, x, positions, kv_valid=kv_valid,
-                                  attention=attention)
+                                  attention=attention, rope=rope)
     return _norm(x, params["final_norm"], cfg)
 
 
@@ -256,24 +263,42 @@ def scan_decode_layers(layers: Params, windows: list[int], cfg: ModelConfig,
                        k_cache: torch.Tensor, v_cache: torch.Tensor,
                        seq_lens: torch.Tensor, cos: torch.Tensor,
                        sin: torch.Tensor,
-                       attention: Callable = decode_attention) -> torch.Tensor:
+                       attention: Callable = decode_attention,
+                       k_scale: torch.Tensor | None = None,
+                       v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Every decoder layer over one token per slot, x [B, D], against the
-    contiguous cache [L, B, Hkv, S, Dh] (bf16 branch): each layer writes
-    its token's K/V at ``positions`` in place, then attends over
-    ``seq_lens`` keys (``attention``: kernel D's dispatch by default).
-    ``cos``/``sin`` are the rope tables on x's device.  Returns x."""
+    contiguous cache [L, B, Hkv, S, Dh]: each layer writes its token's K/V
+    at ``positions`` in place, then attends over ``seq_lens`` keys
+    (``attention``: kernel D's dispatch by default).  With ``k_scale`` /
+    ``v_scale`` [L, B, Hkv, S] the caches are int8: the token's K/V are
+    quantized on write (values and scales at ``positions``) and attention
+    is the plain :func:`decode_attention_q`.  ``cos``/``sin`` are the rope
+    tables on x's device.  Returns x."""
     scale = attn_scale(cfg)
     slot_idx = torch.arange(x.shape[0], device=x.device)
     pos = positions.long()
+    quantized = k_scale is not None
+    kw = dict(softcap=cfg.attn_logit_softcap)
     for i, window in enumerate(windows):
         kc, vc = k_cache[i], v_cache[i]
 
-        def attn_fn(q, k, v, kc=kc, vc=vc, window=window):
-            kc[slot_idx, :, pos] = k.to(kc.dtype)
-            vc[slot_idx, :, pos] = v.to(vc.dtype)
-            return attention(q, kc, vc, seq_lens, scale,
-                             softcap=cfg.attn_logit_softcap,
-                             sliding_window=window)
+        if quantized:
+            def attn_fn(q, k, v, kc=kc, vc=vc, ks=k_scale[i], vs=v_scale[i],
+                        window=window):
+                kq, k_sc = quantize_kv(k, ks.dtype)  # [B,Hkv,Dh], [B,Hkv]
+                vq, v_sc = quantize_kv(v, vs.dtype)
+                kc[slot_idx, :, pos] = kq
+                vc[slot_idx, :, pos] = vq
+                ks[slot_idx, :, pos] = k_sc
+                vs[slot_idx, :, pos] = v_sc
+                return decode_attention_q(q, kc, ks, vc, vs, seq_lens, scale,
+                                          sliding_window=window, **kw)
+        else:
+            def attn_fn(q, k, v, kc=kc, vc=vc, window=window):
+                kc[slot_idx, :, pos] = k.to(kc.dtype)
+                vc[slot_idx, :, pos] = v.to(vc.dtype)
+                return attention(q, kc, vc, seq_lens, scale,
+                                 sliding_window=window, **kw)
 
         x = decode_layer_body(layer_params(layers, i), cfg, x, positions,
                               cos, sin, attn_fn)
@@ -284,15 +309,22 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, seq_lens: torch.Tensor,
                 rope: tuple[torch.Tensor, torch.Tensor] | None = None,
-                attention: Callable = decode_attention):
+                attention: Callable = decode_attention,
+                k_scale: torch.Tensor | None = None,
+                v_scale: torch.Tensor | None = None):
     """One token per slot over the contiguous cache (updated in place).
-    Returns (logits [B, V] fp32, k_cache, v_cache); ``seq_lens`` counts
-    the valid cache positions after appending this token.  ``rope`` is
-    the (cos, sin) tables on the cache's device (built here when None; a
+    Returns (logits [B, V] fp32, k_cache, v_cache), plus (k_scale,
+    v_scale) when the cache is int8 (scales passed in); ``seq_lens``
+    counts the valid cache positions after appending this token.  ``rope``
+    is the (cos, sin) tables on the cache's device (built here when None; a
     serving loop passes its precomputed pair)."""
     cos, sin = rope if rope is not None else rope_for(cfg, k_cache.device)
     x = _embed(params, cfg, tokens.long())
     x = scan_decode_layers(params["layers"], layer_sliding_windows(cfg), cfg,
                            x, positions, k_cache, v_cache, seq_lens, cos, sin,
-                           attention=attention)
-    return _unembed(params, cfg, x), k_cache, v_cache
+                           attention=attention, k_scale=k_scale,
+                           v_scale=v_scale)
+    logits = _unembed(params, cfg, x)
+    if k_scale is not None:
+        return logits, k_cache, v_cache, k_scale, v_scale
+    return logits, k_cache, v_cache

@@ -7,8 +7,8 @@ grouped-query attention with query heads folded into [Hkv, G] groups
 softcapping and a sliding window (``<= 0`` disables it), masked logits set
 to ``NEG_INF`` so an all-masked row stays finite.
 
-The ``*_ref`` functions and ``prefill_attention_ctx`` are the plain
-reference semantics.  ``prefill_attention`` (kernel A) and
+The ``*_ref`` functions, ``prefill_attention_ctx`` and the int8-cache
+``decode_attention_q`` are the plain reference semantics.  ``prefill_attention`` (kernel A) and
 ``decode_attention`` over a contiguous cache (kernel D) dispatch to the
 hand-written Hopper kernels (``ops/cuda/flash.py``) for CUDA tensors and to
 their references for CPU tensors.
@@ -164,4 +164,26 @@ def decode_attention_ref(q, k_cache, v_cache, seq_lens, scale: float,
     logits = _softcap(logits, softcap)
     probs = _decode_probs(logits, seq_lens, k_cache.shape[2], sliding_window)
     out = torch.einsum("bhgk,bhkd->bhgd", probs, v_cache.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_q(q, k_cache, k_scale, v_cache, v_scale, seq_lens,
+                       scale: float, softcap: float = 0.0,
+                       sliding_window: int = 0) -> torch.Tensor:
+    """Decode attention over an int8 cache [B, Hkv, S, Dh] with
+    per-position scales [B, Hkv, S]: the K scale acts on the score plane,
+    the V scale is folded into the probabilities, and the masks are
+    :func:`_decode_probs`, shared with the bf16 path.  Plain PyTorch: the
+    contiguous int8 cache runs it in every decode step (the JAX package
+    has no Pallas kernel for it either), and kernel B's int8 plain version
+    runs it over the gathered pages."""
+    num_kv = k_cache.shape[1]
+    b, h, d = q.shape
+    qg = q.reshape(b, num_kv, h // num_kv, d)  # [B,Hkv,G,Dh]
+    logits = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k_cache.float()
+                          ) * k_scale[:, :, None, :].float() * scale
+    logits = _softcap(logits, softcap)
+    probs = _decode_probs(logits, seq_lens, k_cache.shape[2], sliding_window)
+    pv = probs * v_scale[:, :, None, :].float()  # fold the V scales
+    out = torch.einsum("bhgk,bhkd->bhgd", pv, v_cache.float())
     return out.reshape(b, h, d).to(q.dtype)

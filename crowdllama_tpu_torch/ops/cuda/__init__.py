@@ -58,6 +58,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # np, chunk_slot, scale, softcap, window, stream
         "ragged_paged": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _F, _F, _I, _P],
+        # the int8-pool variants: k_scale, v_scale follow pool_v
+        "paged_decode_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _F, _F, _I, _P],
+        "ragged_paged_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _F, _F, _I, _P],
     },
 }
 

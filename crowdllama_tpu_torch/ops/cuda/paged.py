@@ -6,15 +6,20 @@ Counterparts of ``crowdllama_tpu/ops/pallas/paged.py``:
 - B, :func:`flash_paged_decode_attention` (TPU ``flash_paged_decode_
   attention``): one decode token per slot over that slot's pages.  Its
   plain version, :func:`paged_decode_attention_plain`, gathers the pages
-  and runs ``decode_attention_ref``.
+  and runs ``decode_attention_ref`` (``decode_attention_q`` on int8 pools).
 - C, :func:`ragged_paged_attention` (TPU ``flash_ragged_paged_attention``
   behind the ``ragged_paged_attention`` dispatch): the unified ragged
   batch, B decode rows plus one prefill chunk, in one launch.  Its plain
   version is :func:`ragged_paged_attention_ref`.
 
-Pools are one layer's ``[P, Hkv, page, Dh]`` bf16 (the last page is the
-engine's dump page), tables ``[B, NP]`` int32.  Each wrapper launches its
-kernel for CUDA tensors and runs its plain version for CPU tensors only.
+Pools are one layer's ``[P, Hkv, page, Dh]``, bf16 or int8 (the last page
+is the engine's dump page), tables ``[B, NP]`` int32.  An int8 pool comes
+with per-position scales ``k_scale``/``v_scale`` ``[P, Hkv, page]`` bf16:
+the K scale multiplies the scores, the V scale the probabilities after
+the softmax denominator is summed.  Each wrapper launches its kernel (the
+bf16 or the int8 variant, counted apart in ``launches`` and
+``launches_int8``) for CUDA tensors and runs its plain version for CPU
+tensors only.
 """
 
 from __future__ import annotations
@@ -22,10 +27,12 @@ from __future__ import annotations
 import torch
 
 from crowdllama_tpu_torch.ops.attention import (
+    decode_attention_q,
     decode_attention_ref,
     prefill_attention_ctx,
 )
 from crowdllama_tpu_torch.ops.cuda import check, launch
+from crowdllama_tpu_torch.ops.quant import dequantize_kv
 
 HEAD_DIM = 64
 MAX_GROUP = 8     # query heads per kv head: one warp each, 8 warps a block
@@ -42,30 +49,47 @@ def _gathered(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         rows, hkv, np_ * page, dh)
 
 
+def _gathered_scales(scales: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """[P, Hkv, page] scales -> [rows, Hkv, NP*page] (a copy)."""
+    rows, np_ = table.shape
+    _, hkv, page = scales.shape
+    return scales[table.long()].permute(0, 2, 1, 3).reshape(
+        rows, hkv, np_ * page)
+
+
 def paged_decode_attention_plain(q, pool_k, pool_v, page_table, seq_lens,
                                  scale: float, softcap: float = 0.0,
-                                 sliding_window: int = 0) -> torch.Tensor:
+                                 sliding_window: int = 0, k_scale=None,
+                                 v_scale=None) -> torch.Tensor:
     """The plain version of kernel B: gather each slot's pages into a
-    virtual-contiguous view and run :func:`decode_attention_ref`."""
-    return decode_attention_ref(q, _gathered(pool_k, page_table),
-                                _gathered(pool_v, page_table), seq_lens,
-                                scale, softcap=softcap,
-                                sliding_window=sliding_window)
+    virtual-contiguous view and run :func:`decode_attention_ref`, or on an
+    int8 pool :func:`decode_attention_q` over the gathered pages and
+    scales."""
+    view_k = _gathered(pool_k, page_table)
+    view_v = _gathered(pool_v, page_table)
+    kw = dict(softcap=softcap, sliding_window=sliding_window)
+    if k_scale is None:
+        return decode_attention_ref(q, view_k, view_v, seq_lens, scale, **kw)
+    return decode_attention_q(q, view_k, _gathered_scales(k_scale, page_table),
+                              view_v, _gathered_scales(v_scale, page_table),
+                              seq_lens, scale, **kw)
 
 
 def ragged_paged_attention_ref(q, chunk_k, chunk_v, pool_k, pool_v,
                                page_table, q_lens, kv_lens, chunk_slot: int,
                                scale: float, softcap: float = 0.0,
-                               sliding_window: int = 0) -> torch.Tensor:
+                               sliding_window: int = 0, k_scale=None,
+                               v_scale=None) -> torch.Tensor:
     """The plain version of kernel C (reference semantics).
 
     q [B + C, H, Dh]: B decode rows (q_len 0 or 1), then the chunk rows of
     sequence B (q_len = q_lens[B] <= C); chunk_k/chunk_v [1, Hkv, C, Dh] the
     chunk's fresh KV (also already in the pool).  Decode rows run the gather
     + decode math of kernel B's plain version; chunk rows run
-    :func:`prefill_attention_ctx` with the slot's pages as cached context.
-    Rows that carry no query (inactive slots, chunk rows past q_lens[B])
-    hold values the caller discards.
+    :func:`prefill_attention_ctx` with the slot's pages as cached context
+    (on an int8 pool dequantized in fp32) and the fresh chunk KV as the
+    self block.  Rows that carry no query (inactive slots, chunk rows past
+    q_lens[B]) hold values the caller discards.
     """
     b = page_table.shape[0]
     c = chunk_k.shape[2]
@@ -73,12 +97,16 @@ def ragged_paged_attention_ref(q, chunk_k, chunk_v, pool_k, pool_v,
     w = page_table.shape[1] * page
     out_dec = paged_decode_attention_plain(
         q[:b], pool_k, pool_v, page_table, kv_lens[:b], scale,
-        softcap=softcap, sliding_window=sliding_window)
+        softcap=softcap, sliding_window=sliding_window, k_scale=k_scale,
+        v_scale=v_scale)
 
     ctx = kv_lens[b] - q_lens[b]
     row = page_table[chunk_slot:chunk_slot + 1]
     ctx_k = _gathered(pool_k, row)
     ctx_v = _gathered(pool_v, row)
+    if k_scale is not None:
+        ctx_k = dequantize_kv(ctx_k, _gathered_scales(k_scale, row))
+        ctx_v = dequantize_kv(ctx_v, _gathered_scales(v_scale, row))
     dev = q.device
     ctx_valid = (torch.arange(w, device=dev) < ctx)[None, :]
     positions = (ctx + torch.arange(c, device=dev))[None, :]
@@ -90,18 +118,41 @@ def ragged_paged_attention_ref(q, chunk_k, chunk_v, pool_k, pool_v,
     return torch.cat([out_dec, out_chunk], dim=0)
 
 
-def _check_pool(q, pool_k, pool_v, page_table) -> tuple[int, int, int, int]:
+def _check_scales(pool_k, pool_v, k_scale, v_scale) -> bool:
+    """Validate the pool/scales pairing on any device; True for an int8
+    pool (whose kernels and plain versions read the scales)."""
+    quant = k_scale is not None or v_scale is not None
+    int8 = pool_k.dtype == torch.int8 or pool_v.dtype == torch.int8
+    check(quant == int8, "an int8 pool needs k_scale and v_scale, and only "
+          "an int8 pool takes them")
+    if quant:
+        check(k_scale is not None and v_scale is not None,
+              "k_scale and v_scale come together")
+        check(pool_k.dtype == pool_v.dtype == torch.int8,
+              "pool_k and pool_v must both be int8")
+        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            check(s.dtype == torch.bfloat16
+                  and tuple(s.shape) == tuple(pool_k.shape[:3]),
+                  f"{name} must be bfloat16 [P, Hkv, page] like the pool")
+    return quant
+
+
+def _check_pool(q, pool_k, pool_v, page_table, k_scale,
+                v_scale) -> tuple[int, int, int, int]:
     """Validate the operands both paged kernels share; returns
     (H, Hkv, page, NP)."""
     check(q.dim() == 3 and pool_k.dim() == 4,
           "q must be [rows, H, Dh] and the pools [P, Hkv, page, Dh]")
     h, dh = q.shape[1], q.shape[2]
     _, hkv, page, pdh = pool_k.shape
+    scales = [] if k_scale is None else [k_scale, v_scale]
+    ops = (q, pool_k, pool_v, page_table, *scales)
     check(q.device.type == "cuda", f"unsupported device {q.device}")
-    check(all(x.device == q.device for x in (pool_k, pool_v, page_table)),
+    check(all(x.device == q.device for x in ops),
           "all operands must be on one device")
-    check(q.dtype == pool_k.dtype == pool_v.dtype == torch.bfloat16,
-          "q and pools must be bfloat16")
+    check(q.dtype == torch.bfloat16, "q must be bfloat16")
+    check(scales or pool_k.dtype == pool_v.dtype == torch.bfloat16,
+          "pools must be bfloat16 (or int8 with scales)")
     check(dh == pdh == HEAD_DIM,
           f"head dim {dh} unsupported (kernel takes {HEAD_DIM})")
     check(pool_v.shape == pool_k.shape, "pool_k/pool_v shapes differ")
@@ -112,56 +163,71 @@ def _check_pool(q, pool_k, pool_v, page_table) -> tuple[int, int, int, int]:
           f"at most {MAX_PAGE}")
     check(page_table.dtype == torch.int32 and page_table.dim() == 2,
           "page_table must be int32 [B, NP]")
-    check(all(x.is_contiguous() for x in (q, pool_k, pool_v, page_table)),
-          "operands must be contiguous")
+    check(all(x.is_contiguous() for x in ops), "operands must be contiguous")
     return h, hkv, page, page_table.shape[1]
 
 
 def flash_paged_decode_attention(q, pool_k, pool_v, page_table, seq_lens,
                                  scale: float, softcap: float = 0.0,
-                                 sliding_window: int = 0) -> torch.Tensor:
+                                 sliding_window: int = 0, k_scale=None,
+                                 v_scale=None) -> torch.Tensor:
     """One decode step over the paged pool: q [B, H, Dh], seq_lens [B]
-    int32 (incl. the pending token); returns [B, H, Dh]."""
+    int32 (incl. the pending token); returns [B, H, Dh].  ``k_scale`` /
+    ``v_scale`` [P, Hkv, page] bf16 go with an int8 pool."""
+    quant = _check_scales(pool_k, pool_v, k_scale, v_scale)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, pool_k, pool_v, page_table, seq_lens, scale, softcap=softcap,
-            sliding_window=sliding_window)
+            sliding_window=sliding_window, k_scale=k_scale, v_scale=v_scale)
     b = q.shape[0]
-    h, hkv, page, np_ = _check_pool(q, pool_k, pool_v, page_table)
+    h, hkv, page, np_ = _check_pool(q, pool_k, pool_v, page_table, k_scale,
+                                    v_scale)
     check(page_table.shape[0] == b, "page_table rows != batch")
     check(seq_lens.device == q.device and seq_lens.dtype == torch.int32
           and tuple(seq_lens.shape) == (b,) and seq_lens.is_contiguous(),
           "seq_lens must be int32 [B] on the device")
     out = torch.empty_like(q)
-    launch("paged_attention", "paged_decode", q.device,
-           q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-           page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-           b, h, hkv, page, np_, float(scale), float(softcap or 0.0),
-           int(sliding_window))
-    flash_paged_decode_attention.launches += 1
+    tail = (b, h, hkv, page, np_, float(scale), float(softcap or 0.0),
+            int(sliding_window))
+    if quant:
+        launch("paged_attention", "paged_decode_i8", q.device,
+               q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+               k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
+               seq_lens.data_ptr(), out.data_ptr(), *tail)
+        flash_paged_decode_attention.launches_int8 += 1
+    else:
+        launch("paged_attention", "paged_decode", q.device,
+               q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+               page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+               *tail)
+        flash_paged_decode_attention.launches += 1
     return out
 
 
 flash_paged_decode_attention.launches = 0
+flash_paged_decode_attention.launches_int8 = 0
 
 
 def ragged_paged_attention(q, chunk_k, chunk_v, pool_k, pool_v, page_table,
                            q_lens, kv_lens, chunk_slot: int, scale: float,
-                           softcap: float = 0.0,
-                           sliding_window: int = 0) -> torch.Tensor:
+                           softcap: float = 0.0, sliding_window: int = 0,
+                           k_scale=None, v_scale=None) -> torch.Tensor:
     """Unified ragged batch attention over the paged pool in one launch:
     q [B + C, H, Dh], q_lens / kv_lens [B + 1] int32, the chunk's fresh KV
     already in the pool; returns [B + C, H, Dh].  Kernel C reads the chunk's
-    KV from the pool and writes zeros on rows that carry no query; CPU
-    tensors run :func:`ragged_paged_attention_ref`, which alone reads
-    ``chunk_k``/``chunk_v``."""
+    KV from the pool (quantized, on an int8 pool) and writes zeros on rows
+    that carry no query; CPU tensors run :func:`ragged_paged_attention_ref`,
+    which alone reads ``chunk_k``/``chunk_v``."""
+    quant = _check_scales(pool_k, pool_v, k_scale, v_scale)
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(
             q, chunk_k, chunk_v, pool_k, pool_v, page_table, q_lens, kv_lens,
-            chunk_slot, scale, softcap=softcap, sliding_window=sliding_window)
+            chunk_slot, scale, softcap=softcap, sliding_window=sliding_window,
+            k_scale=k_scale, v_scale=v_scale)
     b = page_table.shape[0]
     c = q.shape[0] - b
-    h, hkv, page, np_ = _check_pool(q, pool_k, pool_v, page_table)
+    h, hkv, page, np_ = _check_pool(q, pool_k, pool_v, page_table, k_scale,
+                                    v_scale)
     check(c >= 0, "q has fewer rows than the page table")
     check(0 <= int(chunk_slot) < b, f"chunk_slot {chunk_slot} out of range")
     for name, x in (("q_lens", q_lens), ("kv_lens", kv_lens)):
@@ -169,13 +235,20 @@ def ragged_paged_attention(q, chunk_k, chunk_v, pool_k, pool_v, page_table,
               and tuple(x.shape) == (b + 1,) and x.is_contiguous(),
               f"{name} must be int32 [B + 1] on the device")
     out = torch.empty_like(q)
-    launch("paged_attention", "ragged_paged", q.device,
-           q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-           page_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
-           out.data_ptr(), b, c, h, hkv, page, np_, int(chunk_slot),
-           float(scale), float(softcap or 0.0), int(sliding_window))
-    ragged_paged_attention.launches += 1
+    meta = (page_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
+            out.data_ptr(), b, c, h, hkv, page, np_, int(chunk_slot),
+            float(scale), float(softcap or 0.0), int(sliding_window))
+    if quant:
+        launch("paged_attention", "ragged_paged_i8", q.device,
+               q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+               k_scale.data_ptr(), v_scale.data_ptr(), *meta)
+        ragged_paged_attention.launches_int8 += 1
+    else:
+        launch("paged_attention", "ragged_paged", q.device,
+               q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *meta)
+        ragged_paged_attention.launches += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.launches_int8 = 0

@@ -9,7 +9,8 @@ without JAX:
 (``--noconftest`` because ``tests/conftest.py`` configures JAX).  Shapes
 are TinyLlama's heads (32 query, 4 kv, Dh 64) at small lengths, with
 softcap, a sliding window, padding, rows that carry no query and
-zero-length slots (kernels A-D);
+zero-length slots (kernels A-D, and B and C on int8 pools with bf16
+scales from ``quantize_kv``);
 tolerance: one bf16 rounding of outputs of magnitude ~1 plus fp32
 summation order, atol 2e-2 + rtol 1e-2.
 """
@@ -126,3 +127,55 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, softcap, window):
     torch.testing.assert_close(got[live].float(), want[live].float(),
                                atol=2e-2, rtol=1e-2)
     assert not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 40)])
+def test_paged_int8_kernels_match_plain_on_card(cuda_device, softcap, window):
+    """Kernels B and C on an int8 pool: mixed lengths, a one-token slot, a
+    zero-length slot and an inactive row (zeros from the kernels).  C's
+    plain version gets the chunk rows as the pool holds them (dequantized
+    in fp32), since the kernel reads them back from the pool."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        paged_decode_attention_plain,
+        ragged_paged_attention_ref,
+    )
+    from crowdllama_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+
+    gen, bf = _card_case(cuda_device)
+    b, page = 4, 128
+    pk8, ksc = quantize_kv(torch.randn((17, 4, page, 64), generator=gen, **bf))
+    pv8, vsc = quantize_kv(torch.randn((17, 4, page, 64), generator=gen, **bf))
+    sc = dict(k_scale=ksc, v_scale=vsc, softcap=softcap,
+              sliding_window=window)
+    table = torch.tensor([[1, 2, 3, 4], [16, 0, 0, 0], [5, 6, 7, 8],
+                          [9, 10, 11, 12]], dtype=torch.int32,
+                         device=cuda_device)
+    q = torch.randn((b, 32, 64), generator=gen, **bf)
+    lens = torch.tensor([300, 1, 0, 129], dtype=torch.int32,
+                        device=cuda_device)
+    got = flash_paged_decode_attention(q, pk8, pv8, table, lens, 0.125, **sc)
+    want = paged_decode_attention_plain(q, pk8, pv8, table, lens, 0.125, **sc)
+    torch.testing.assert_close(got[[0, 1, 3]].float(),
+                               want[[0, 1, 3]].float(), atol=2e-2, rtol=1e-2)
+    assert not got[2].any()
+
+    c, ctx, valid = 64, 256, 50
+    qr = torch.randn((b + c, 32, 64), generator=gen, **bf)
+    cpos = torch.clamp(ctx + torch.arange(c, device=cuda_device),
+                       max=ctx + valid - 1)
+    cp, co = table[3, cpos // page].long(), cpos % page
+    ck = dequantize_kv(pk8[cp, :, co], ksc[cp, :, co]).transpose(0, 1)[None]
+    cv = dequantize_kv(pv8[cp, :, co], vsc[cp, :, co]).transpose(0, 1)[None]
+    ql = torch.tensor([1, 1, 0, 0, valid], dtype=torch.int32,
+                      device=cuda_device)
+    kl = torch.tensor([300, 1, 1, 1, ctx + valid], dtype=torch.int32,
+                      device=cuda_device)
+    got = ragged_paged_attention(qr, ck, cv, pk8, pv8, table, ql, kl, 3,
+                                 0.125, **sc)
+    want = ragged_paged_attention_ref(qr, ck, cv, pk8, pv8, table, ql, kl, 3,
+                                      0.125, **sc)
+    live = [0, 1] + [b + i for i in range(valid)]
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=2e-2, rtol=1e-2)
+    assert not got[[2, 3] + [b + i for i in range(valid, c)]].any()

@@ -14,7 +14,8 @@
   permutation checkpoint, with long prompts admitted through legacy chunked
   prefill on the contiguous layout and on the paged layout with
   ``ragged_prefill=False`` (a prefix hit seeds the paged job's context).
-- The serving plan: unported axes raise, the layout is validated.
+- The serving plan: unported axes raise, int8 KV resolves on both layouts,
+  the layout and the KV dtype are validated.
 """
 
 import os
@@ -295,6 +296,17 @@ async def test_chunked_admission_streams_match_jax_engine(tmp_path, layout):
     ("kv_dtype", "int8"), ("quantize", "int8"), ("spec_decode", "ngram"),
     ("mesh_shape", "1x2")])
 def test_unported_axes_raise_naming_the_roadmap_item(axis, value):
+    """Unported axes raise naming their ROADMAP item.  int8 KV is ported:
+    it resolves on both layouts, normalized and carried in the plan, and
+    an unknown KV dtype is refused."""
+    if axis == "kv_dtype":
+        for layout in ("paged", "contiguous"):
+            plan = resolve_serving_plan(Configuration(
+                kv_layout=layout, kv_dtype=f" {value.upper()} "))
+            assert (plan.kv_layout, plan.kv_dtype) == (layout, "int8")
+        with pytest.raises(ValueError, match="unknown kv dtype"):
+            Configuration(kv_dtype="fp8")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         resolve_serving_plan(Configuration(**{axis: value}))
 

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package, uses no library attention, never drops to the CPU on its own, and
-its kernel wrappers run the plain version only for CPU tensors."""
+its kernel wrappers run the plain version only for CPU tensors (and refuse
+an int8 pool whose scales do not pair with it, on every device)."""
 
 import ast
 from pathlib import Path
@@ -105,7 +106,9 @@ def _counts():
     return (flash_prefill_attention.launches,
             flash_decode_attention.launches,
             flash_paged_decode_attention.launches,
-            ragged_paged_attention.launches)
+            flash_paged_decode_attention.launches_int8,
+            ragged_paged_attention.launches,
+            ragged_paged_attention.launches_int8)
 
 
 def test_cpu_tensors_run_the_plain_version_without_launching():
@@ -149,6 +152,75 @@ def test_non_cpu_tensors_the_kernels_refuse_raise_without_launching():
     with pytest.raises(ValueError):
         ragged_paged_attention(x["rq"], x["ck"], x["cv"], x["pk"], x["pv"],
                                x["table"], x["ql"], x["kl"], 1, 0.25)
+    assert _counts() == before
+
+
+def _int8_pool(x):
+    """The fp32 pools of ``x`` as int8 with bf16 scales [P, Hkv, page]."""
+    from crowdllama_tpu_torch.ops.quant import quantize_kv
+
+    (pk8, ksc), (pv8, vsc) = quantize_kv(x["pk"]), quantize_kv(x["pv"])
+    return pk8, pv8, ksc, vsc
+
+
+@pytest.mark.parametrize("case", [
+    "int8_pool_without_scales", "scales_with_float_pool", "one_scale_only",
+    "scale_shape", "scale_dtype"])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_int8_pool_and_scales_must_pair(case, device):
+    """The paged wrappers refuse an int8 pool without scales, scales with a
+    float pool and scales of the wrong shape or dtype, on every device,
+    before any plain version runs or kernel launches."""
+    x = _attn_inputs()
+    pk8, pv8, ksc, vsc = _int8_pool(x)
+    pools, scales = (pk8, pv8), dict(k_scale=ksc, v_scale=vsc)
+    if case == "int8_pool_without_scales":
+        scales = {}
+    elif case == "scales_with_float_pool":
+        pools = (x["pk"], x["pv"])
+    elif case == "one_scale_only":
+        scales = dict(k_scale=ksc)
+    elif case == "scale_shape":
+        scales["v_scale"] = vsc[:, :, :-1]
+    else:
+        scales["k_scale"] = ksc.float()
+    move = lambda t: t.to(device)  # noqa: E731
+    pools = tuple(map(move, pools))
+    scales = {k: move(v) for k, v in scales.items()}
+    x = {k: move(v) for k, v in x.items()}
+    before = _counts()
+    with pytest.raises(ValueError, match="scale|int8"):
+        flash_paged_decode_attention(x["dq"], *pools, x["table"], x["lens"],
+                                     0.25, **scales)
+    with pytest.raises(ValueError, match="scale|int8"):
+        ragged_paged_attention(x["rq"], x["ck"], x["cv"], *pools, x["table"],
+                               x["ql"], x["kl"], 1, 0.25, **scales)
+    assert _counts() == before
+
+
+def test_int8_cpu_tensors_run_the_plain_version_without_launching():
+    from crowdllama_tpu_torch.ops.attention import decode_attention_q
+
+    x = _attn_inputs()
+    pk8, pv8, ksc, vsc = _int8_pool(x)
+    sc = dict(k_scale=ksc, v_scale=vsc)
+    before = _counts()
+    got = flash_paged_decode_attention(x["dq"], pk8, pv8, x["table"],
+                                       x["lens"], 0.25, **sc)
+    torch.testing.assert_close(
+        got, paged_decode_attention_plain(x["dq"], pk8, pv8, x["table"],
+                                          x["lens"], 0.25, **sc),
+        rtol=0, atol=0)
+    # Slot 1's three keys sit at the start of page 2.
+    want = decode_attention_q(x["dq"][1:], pk8[2][None], ksc[2][None],
+                              pv8[2][None], vsc[2][None], x["lens"][1:],
+                              0.25)
+    torch.testing.assert_close(got[1:], want, rtol=0, atol=1e-6)
+    args = (x["rq"], x["ck"], x["cv"], pk8, pv8, x["table"], x["ql"],
+            x["kl"], 1, 0.25)
+    torch.testing.assert_close(ragged_paged_attention(*args, **sc),
+                               ragged_paged_attention_ref(*args, **sc),
+                               rtol=0, atol=0)
     assert _counts() == before
 
 
