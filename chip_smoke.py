@@ -13,13 +13,16 @@ Phases, each printing one JSON line:
    on the card, against golden vectors captured from JAX
    (``engine/prng_golden.py``);
 4. kernels: each hand-written kernel (A prefill, B paged decode, C ragged
-   paged, D contiguous decode, and B and C on int8 pools with bf16
-   scales from ``quantize_kv``) against its plain PyTorch version on the
-   same inputs — at the serving shapes TinyLlama-1.1B gives it, and at
-   small shapes with softcap, a sliding window and all-masked rows or
-   zero-length slots — with times for the kernel, the plain version, one
-   PyTorch SDPA call over the same (gathered; for int8, dequantized to
-   bf16) inputs and the card's least time for the work (its bound);
+   paged, D contiguous decode, E one prefill chunk over its slot's pages,
+   F paged decode on tensor-parallel shares of the heads, and B, C, E and
+   F on int8 pools with bf16 scales from ``quantize_kv``) against its
+   plain PyTorch version on the same inputs — at the serving shapes
+   TinyLlama-1.1B gives it, and at small shapes with softcap, a sliding
+   window and all-masked rows or zero-length slots — with times for the
+   kernel, the plain version, one PyTorch SDPA call over the same
+   (gathered; for int8, dequantized to bf16) inputs and the card's least
+   time for the work (its bound).  F at tp 2 and 4 must equal B on the
+   whole pool bit for bit;
 5. engine: ``TorchEngine`` serving tinyllama-1.1b at full width (random
    weights from seed 0, default config: 8 slots, page 128, context 2048)
    to 8 concurrent greedy ``generate()`` streams — 6 short prompts, one
@@ -44,10 +47,24 @@ Phases, each printing one JSON line:
 8. contiguous_int8: the contiguous int8 cache, 4 greedy streams of 16
    tokens, the long one in legacy chunks; its decode is the plain
    ``decode_attention_q`` (no Pallas kernel in the JAX package either),
-   so only kernel A may launch.
+   so only kernel A may launch;
+9. engine_tp: the paged engine tensor-parallel, ``mesh_shape="2"`` with
+   both ranks on the one card (``devices=[cuda:0, cuda:0]``: it proves the
+   sharded math and kernel F's launches, not a tp speed-up), the paged
+   phase's traffic: every stream done, F 22 calls and B 44 launches per
+   decode step, A and C per rank, step logits kernel vs plain within 2%
+   of their scale, the share of greedy tokens equal to the one-device
+   phase's, the steady step and the peak memory beside that phase's
+   (peak at most 1.1x);
+10. engine_tp_int8: the same on int8 pools, 3 streams of 16 tokens
+   (F-int8, B-int8 and C-int8 per rank), one decode step vs plain.
 
 Each engine phase starts once the previous engine has stopped and its
-memory is freed.
+memory is freed; its peak memory is counted from before the engine loads
+its weights (kept on the host between phases), the start's peak and the
+serving peak apart.  No engine path of either package runs kernel E (the
+unified ragged step replaced it), so it launches only in the kernel
+phase and its row's launch count is 0.
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero exit and
 no last line.  Exits non-zero without a CUDA device.
@@ -57,6 +74,7 @@ from __future__ import annotations
 
 import asyncio
 import contextvars
+import functools
 import gc
 import json
 import subprocess
@@ -79,6 +97,11 @@ ATOL, RTOL = 2e-2, 1e-2
 # (above), and random-weight layers carry that noise to the logits, so the
 # bound is relative to the logits' own scale: 5% of max |logit|.
 LOGIT_RTOL = 0.05
+# The tensor-parallel phases: 2% of max |logit| (the sharded step differs
+# from the one-device one only by the order of the row-parallel sums).
+LOGIT_RTOL_TP = 0.02
+# tp=2 on one card holds the same weights and pools as tp=1.
+TP_MEMORY_RATIO = 1.1
 
 
 def emit(obj: dict) -> None:
@@ -388,6 +411,100 @@ def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
     return res
 
 
+def check_chunk(dev, gen, ctx: int, c: int, valid: int, softcap: float,
+                window: int, timed: bool, int8: bool = False) -> dict:
+    """Kernel E (bf16 pool, or the int8 variant) against its plain version:
+    a chunk of ``c`` rows (``valid`` carry a query) at context ``ctx`` over
+    its slot's pages, which hold ctx + valid tokens."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_ragged_chunk_attention,
+        ragged_chunk_attention_plain,
+    )
+
+    h, hkv, dh, page, np_ = 32, 4, 64, 128, 16
+    pool_k, pool_v, table = _paged_inputs(dev, gen, 1, [ctx + valid], page,
+                                          np_, 129)
+    lib_pools, scales = (pool_k, pool_v), {}
+    if int8:
+        pool_k, pool_v, scales, lib_pools = _quantized(pool_k, pool_v)
+    q = torch.randn((c, h, dh), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    i32 = dict(device=dev, dtype=torch.int32)
+    ctx_t, kv_t = torch.tensor(ctx, **i32), torch.tensor(ctx + valid, **i32)
+    args = (q, pool_k, pool_v, table[0], ctx_t, kv_t, dh ** -0.5)
+    kw = dict(softcap=softcap, sliding_window=window, **scales)
+    got = flash_ragged_chunk_attention(*args, **kw)
+    want = ragged_chunk_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if valid < c and got[valid:].abs().max() != 0:
+        raise AssertionError("chunk: rows past the valid ones must be zeros")
+    res = {"max_abs_err": compare(f"chunk ctx={ctx}", got[:valid],
+                                  want[:valid])}
+    if timed:
+        res["ms"] = time_ms(lambda: flash_ragged_chunk_attention(*args, **kw))
+        res["plain_ms"] = time_ms(
+            lambda: ragged_chunk_attention_plain(*args, **kw))
+        qpos = (ctx + torch.arange(c, device=dev))[None]
+        res["library_ms"] = time_ms(_sdpa_gathered(
+            q.transpose(0, 1)[None], *lib_pools, table, kv_t[None], qpos))
+        seen = sum(ctx + r + 1 for r in range(valid))
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            nbytes(q, table[0], ctx_t, kv_t, got)
+            + (ctx + valid) * _kv_token_bytes(hkv, dh, int8),
+            4 * dh * h * seen)
+    return res
+
+
+def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
+                    window: int, timed: bool, int8: bool = False) -> dict:
+    """Kernel F on tp shares of B's inputs (q heads and pool kv heads,
+    kv-major): every rank's output must equal B's on the whole pool bit
+    for bit, and F is held against its plain version."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention,
+        flash_paged_decode_attention_tp,
+        paged_decode_attention_tp_plain,
+    )
+
+    b, h, hkv, dh, page, np_ = len(lens), 32, 4, 64, 128, 16
+    pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129)
+    lib_pools, scales = (pool_k, pool_v), {}
+    if int8:
+        pool_k, pool_v, scales, lib_pools = _quantized(pool_k, pool_v)
+    q = torch.randn((b, h, dh), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    seq = torch.tensor(lens, device=dev, dtype=torch.int32)
+    kw = dict(softcap=softcap, sliding_window=window)
+    whole = flash_paged_decode_attention(q, pool_k, pool_v, table, seq,
+                                         dh ** -0.5, **kw, **scales)
+
+    def cut(x):
+        return [part.contiguous() for part in x.chunk(tp, dim=1)]
+
+    args = (cut(q), cut(pool_k), cut(pool_v), table, seq, dh ** -0.5)
+    kw.update({f"{k}s": cut(v) for k, v in scales.items()})
+    got = torch.cat(flash_paged_decode_attention_tp(*args, **kw), dim=1)
+    want = torch.cat(paged_decode_attention_tp_plain(*args, **kw), dim=1)
+    torch.cuda.synchronize()
+    if not torch.equal(got, whole):
+        raise AssertionError(f"tp decode (tp={tp}) differs from kernel B on "
+                             f"the whole pool")
+    live = [i for i, n in enumerate(lens) if n > 0]
+    res = {"max_abs_err": compare(f"tp decode tp={tp}", got, want, live),
+           "equal_to_B": True}
+    if timed:
+        res["ms"] = time_ms(
+            lambda: flash_paged_decode_attention_tp(*args, **kw))
+        res["plain_ms"] = time_ms(
+            lambda: paged_decode_attention_tp_plain(*args, **kw))
+        res["library_ms"] = time_ms(_sdpa_gathered(
+            q[:, :, None], *lib_pools, table, seq, (seq - 1)[:, None]))
+        kv = sum(lens) * _kv_token_bytes(hkv, dh, int8)  # live tokens only
+        res["bound_ms"], res["bound_by"] = bound_ms(
+            nbytes(q, table, seq, got) + kv, 4 * dh * h * sum(lens))
+    return res
+
+
 def kernel_phase(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
@@ -428,6 +545,28 @@ def kernel_phase(dev) -> dict:
                      check_flash_decode(dev, gen, [260, 1, 0, 64], 300, 0.0,
                                         40, False)["max_abs_err"]]
     out["D"] = dres
+    for key, int8 in (("E", False), ("E_int8", True)):
+        eres = check_chunk(dev, gen, 1024, 512, 512, 0.0, 0, timed=True,
+                           int8=int8)
+        eres["small"] = [
+            check_chunk(dev, gen, 256, 96, 70, 30.0, 0, False,
+                        int8=int8)["max_abs_err"],
+            check_chunk(dev, gen, 128, 80, 77, 0.0, 33, False,
+                        int8=int8)["max_abs_err"],
+            check_chunk(dev, gen, 0, 64, 64, 0.0, 0, False,
+                        int8=int8)["max_abs_err"]]
+        out[key] = eres
+    for key, int8 in (("F", False), ("F_int8", True)):
+        fres = check_tp_decode(dev, gen, serve_lens, 2, 0.0, 0, timed=True,
+                               int8=int8)
+        fres["tp4"] = check_tp_decode(dev, gen, serve_lens, 4, 0.0, 0,
+                                      False, int8=int8)["max_abs_err"]
+        fres["small"] = [
+            check_tp_decode(dev, gen, [0, 5, 300, 129], 2, 30.0, 0, False,
+                            int8=int8)["max_abs_err"],
+            check_tp_decode(dev, gen, [260, 1, 0, 64], 4, 0.0, 40, False,
+                            int8=int8)["max_abs_err"]]
+        out[key] = fres
     emit({"phase": "kernels_vs_plain", "tolerance": {"atol": ATOL,
                                                       "rtol": RTOL},
           **out})
@@ -486,6 +625,8 @@ def _counters() -> dict:
     )
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_paged_decode_attention,
+        flash_paged_decode_attention_tp,
+        flash_ragged_chunk_attention,
         ragged_paged_attention,
     )
 
@@ -494,7 +635,11 @@ def _counters() -> dict:
             "B_int8": (flash_paged_decode_attention, "launches_int8"),
             "C": (ragged_paged_attention, "launches"),
             "C_int8": (ragged_paged_attention, "launches_int8"),
-            "D": (flash_decode_attention, "launches")}
+            "D": (flash_decode_attention, "launches"),
+            "E": (flash_ragged_chunk_attention, "launches"),
+            "E_int8": (flash_ragged_chunk_attention, "launches_int8"),
+            "F": (flash_paged_decode_attention_tp, "launches"),
+            "F_int8": (flash_paged_decode_attention_tp, "launches_int8")}
 
 
 def _zero_launches() -> None:
@@ -543,30 +688,45 @@ async def serve(engine, streams: dict, max_tokens: int,
 
 def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
                **engine_kw):
-    """Start ``TorchEngine`` on the seed-0 weights, zero every launch count,
-    serve the traffic, read the counts, stop.  Checks that every stream
-    ended done with ``max_tokens`` tokens and that a seeded stream sent
-    again repeated token for token."""
+    """Reset the card's peak-memory mark, start ``TorchEngine`` on the
+    seed-0 weights (on ``dev``, or on the tp ranks ``devices`` in
+    ``engine_kw`` names), zero every launch count, serve the traffic, read
+    the counts, stop.  The card's memory is read at four points: what was
+    allocated before the engine, the peak while it started (loading and
+    warm-up), what stayed allocated after that, and the peak while it
+    served; ``max_memory_allocated`` is the larger peak.  Checks that every stream ended done with
+    ``max_tokens`` tokens and that a seeded stream sent again repeated
+    token for token."""
     from crowdllama_tpu_torch.engine.engine import TorchEngine
 
+    if "devices" not in engine_kw:
+        engine_kw["device"] = dev
+
     async def go():
-        engine = TorchEngine(device=dev, params=seed0_params(dev),
-                             **engine_kw)
+        params = seed0_params(dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        memory = {"before_start": torch.cuda.memory_allocated(dev)}
+        engine = TorchEngine(params=params, **engine_kw)
         t0 = time.perf_counter()
         await engine.start()
         start_s = time.perf_counter() - t0
         engine.tokenizer = _IdRecorder(engine.tokenizer)
         try:
+            memory.update(start_peak=torch.cuda.max_memory_allocated(dev),
+                          after_start=torch.cuda.memory_allocated(dev))
+            torch.cuda.reset_peak_memory_stats(dev)
             hits0 = getattr(engine.runner, "prefix_hits", 0)
             _zero_launches()
             served = await serve(engine, streams, max_tokens, again)
             launches = _launches()
+            memory["serve_peak"] = torch.cuda.max_memory_allocated(dev)
             hits = getattr(engine.runner, "prefix_hits", 0) - hits0
         finally:
             await engine.stop()
-        return engine, start_s, served, launches, hits
+        return engine, start_s, served, launches, hits, memory
 
-    engine, start_s, served, launches, hits = asyncio.run(go())
+    engine, start_s, served, launches, hits, memory = asyncio.run(go())
     reqs = served["requests"]
     for name, v in reqs.items():
         if not (v["done"] and v["completion_tokens"] == max_tokens
@@ -586,6 +746,9 @@ def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
                "tokens_per_s": tokens / served["wall_s"],
                "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
                "launches": launches, "prefix_hits": hits,
+               "max_memory_allocated": max(memory["start_peak"],
+                                           memory["serve_peak"]),
+               "memory": memory,
                "requests": {k: {x: y for x, y in v.items() if x != "ids"}
                             for k, v in reqs.items()}}
     return engine, summary, reqs
@@ -627,16 +790,17 @@ def _three_slots(r, tok):
 
 
 def logits_check(engine, dev, ragged: bool = True) -> dict:
-    """One decode step through kernel B (its bf16 or int8 variant, as the
-    runner's pool is) and through its plain version on the same state (3
-    live slots); with ``ragged`` also one prefill through kernel A and one
-    ragged step through kernel C, each against its plain version."""
+    """One decode step through kernel F (B on every rank: its bf16 or int8
+    variant, as the runner's pool is) and through its plain version on the
+    same state (3 live slots); with ``ragged`` also one prefill through
+    kernel A and one ragged step through kernel C, each against its plain
+    version."""
     from crowdllama_tpu_torch.models import transformer as T
     from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
     from crowdllama_tpu_torch.ops.cuda.flash import flash_prefill_attention
     from crowdllama_tpu_torch.ops.cuda.paged import (
-        flash_paged_decode_attention,
-        paged_decode_attention_plain,
+        flash_paged_decode_attention_tp,
+        paged_decode_attention_tp_plain,
         ragged_paged_attention,
         ragged_paged_attention_ref,
     )
@@ -661,9 +825,9 @@ def logits_check(engine, dev, ragged: bool = True) -> dict:
         st = _three_slots(r, tok)
         r.pre_decode_check(1)
         table = r._table()
-        r.decode_attn = paged_decode_attention_plain
+        r.decode_attn = paged_decode_attention_tp_plain
         dp = r.decode_logits(st, table)
-        r.decode_attn = flash_paged_decode_attention
+        r.decode_attn = flash_paged_decode_attention_tp
         dk = r.decode_logits(st, table)
         errs["decode"] = _logit_err(dk[:3], dp[:3])
 
@@ -732,17 +896,25 @@ def decode_step_timing(engine, dev, kernel=None, steps: int = 8,
     return out
 
 
+@functools.cache
 def seed0_params(dev) -> dict:
-    """TinyLlama-1.1B at full width and depth, random weights from seed 0,
-    with the EOS unembedding column zeroed so no stream stops early (every
-    stream must run to max_tokens whatever batch it lands in)."""
+    """TinyLlama-1.1B at full width and depth, random weights from seed 0
+    (made on ``dev``, kept on the host: each engine copies them to its
+    ranks, so no card holds a spare copy), with the EOS unembedding column
+    zeroed so no stream stops early (every stream must run to max_tokens
+    whatever batch it lands in)."""
     from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
     from crowdllama_tpu_torch.engine.weights import init_params
     from crowdllama_tpu_torch.models.config import get_config
 
     params = init_params(get_config("tinyllama-1.1b"), seed=0, device=dev)
     params["lm_head"][:, ByteTokenizer.EOS] = 0
-    return params
+
+    def host(tree):
+        return {k: host(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    return host(params)
 
 
 def _free_card() -> None:
@@ -752,7 +924,9 @@ def _free_card() -> None:
 
 def engine_phase(dev) -> dict:
     """The paged engine with a bf16 pool (the default config)."""
-    from crowdllama_tpu_torch.ops.cuda.paged import flash_paged_decode_attention
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+    )
 
     engine, summary, reqs = run_engine(
         dev, {**GREEDY, "prefix_hit": (HIT, {})}, 32)
@@ -764,9 +938,9 @@ def engine_phase(dev) -> dict:
         raise AssertionError(f"prefix hits {summary['prefix_hits']}, ragged "
                              f"chunks {ragged_chunks}: a path was not taken")
     errs = _check_logit_errs(logits_check(engine, dev), "paged")
-    steady = decode_step_timing(engine, dev, flash_paged_decode_attention)
+    steady = decode_step_timing(engine, dev, flash_paged_decode_attention_tp)
     steady_sampled = decode_step_timing(engine, dev,
-                                        flash_paged_decode_attention,
+                                        flash_paged_decode_attention_tp,
                                         temperature=0.8)
     emit({"phase": "engine", "model": "tinyllama-1.1b", "layers": 22,
           **summary, "ragged_chunks": ragged_chunks,
@@ -774,19 +948,112 @@ def engine_phase(dev) -> dict:
           "steady_decode_sampled": steady_sampled,
           "logits_rtol": LOGIT_RTOL, "card": torch.cuda.get_device_name(0)})
     return {"launches": summary["launches"], "steady": steady,
-            "ids": {k: v["ids"] for k, v in reqs.items()}}
+            "ids": {k: v["ids"] for k, v in reqs.items()},
+            "max_memory_allocated": summary["max_memory_allocated"]}
+
+
+def _expect_tp_launches(launches: dict, tp: int, int8: bool,
+                        phase: str) -> int:
+    """Per decode step one F call per layer and one B launch per layer per
+    rank; A and C (its int8 variant on int8 pools) once per layer per rank.
+    Returns the decode steps the phase ran."""
+    sfx = "_int8" if int8 else ""
+    f, b = launches["F" + sfx], launches["B" + sfx]
+    a, c = launches["A"], launches["C" + sfx]
+    if not (f > 0 and f % 22 == 0 and b == tp * f and a > 0
+            and a % (22 * tp) == 0 and c > 0 and c % (22 * tp) == 0):
+        raise AssertionError(f"{phase}: launches {launches} are not 22 F "
+                             f"calls and {22 * tp} B launches per decode "
+                             f"step, with A and C per rank")
+    return f // 22
+
+
+def _greedy_share(ids: dict, reqs: dict) -> float:
+    same = [a == b for name, x in ids.items()
+            if name in reqs and name != "sampled"
+            for a, b in zip(x, reqs[name]["ids"])]
+    return sum(same) / len(same)
+
+
+def tp_phase(dev, paged: dict) -> dict:
+    """The paged engine at tp=2 with both ranks on the one card, the paged
+    phase's traffic: kernel F decodes (B on each rank), A and C run per
+    rank."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+    )
+
+    tp = 2
+    engine, summary, reqs = run_engine(
+        dev, {**GREEDY, "prefix_hit": (HIT, {})}, 32, mesh_shape=str(tp),
+        devices=[dev, dev])
+    r = engine.runner
+    if r.tp != tp or r.devices != [dev, dev]:
+        raise AssertionError(f"tp engine runs tp={r.tp} on {r.devices}")
+    if reqs["long"]["prompt_tokens"] <= r.ragged_chunk:
+        raise AssertionError("the long prompt must exceed one ragged chunk")
+    _expect_launches(summary["launches"], {"A", "B", "C", "F"}, "tp")
+    steps = _expect_tp_launches(summary["launches"], tp, False, "tp")
+    ragged_chunks = engine.scheduler.ragged_chunks
+    if summary["prefix_hits"] < 1 or ragged_chunks < 1:
+        raise AssertionError(f"prefix hits {summary['prefix_hits']}, ragged "
+                             f"chunks {ragged_chunks}: a path was not taken")
+    errs = logits_check(engine, dev)
+    for k, e in errs.items():
+        if not e["max_abs_err"] <= LOGIT_RTOL_TP * e["scale"]:
+            raise AssertionError(f"tp {k} logits: kernel vs plain {e}")
+    steady = decode_step_timing(engine, dev, flash_paged_decode_attention_tp)
+    peak, peak1 = summary["max_memory_allocated"], paged[
+        "max_memory_allocated"]
+    if peak > TP_MEMORY_RATIO * peak1:
+        raise AssertionError(f"tp={tp} peak memory {peak} B above "
+                             f"{TP_MEMORY_RATIO}x tp=1's {peak1} B")
+    emit({"phase": "engine_tp", "model": "tinyllama-1.1b", "layers": 22,
+          "tp": r.tp, "devices": [str(d) for d in r.devices], **summary,
+          "decode_steps": steps, "ragged_chunks": ragged_chunks,
+          "logits_max_abs_err": errs, "logits_rtol": LOGIT_RTOL_TP,
+          "greedy_tokens_equal_to_tp1": _greedy_share(paged["ids"], reqs),
+          "steady_decode": steady, "tp1_steady_decode": paged["steady"],
+          "tp1_max_memory_allocated": peak1,
+          "memory_ratio_to_tp1": peak / peak1,
+          "card": torch.cuda.get_device_name(0)})
+    return summary["launches"]
+
+
+def tp_int8_phase(dev) -> dict:
+    """The tensor-parallel engine on int8 pools: 3 streams of 16 tokens
+    (2 short, the long one through the ragged step), F-int8 decodes and
+    C-int8 runs per rank; one decode step through F-int8 vs plain."""
+    engine, summary, reqs = run_engine(
+        dev, {k: GREEDY[k] for k in ("short0", "short1")}, 16,
+        mesh_shape="2", devices=[dev, dev], kv_dtype="int8")
+    _expect_launches(summary["launches"], {"A", "B_int8", "C_int8", "F_int8"},
+                     "tp int8")
+    steps = _expect_tp_launches(summary["launches"], 2, True, "tp int8")
+    errs = logits_check(engine, dev, ragged=False)
+    for k, e in errs.items():
+        if not e["max_abs_err"] <= LOGIT_RTOL_TP * e["scale"]:
+            raise AssertionError(f"tp int8 {k} logits: kernel vs plain {e}")
+    emit({"phase": "engine_tp_int8", "model": "tinyllama-1.1b", "layers": 22,
+          "tp": engine.runner.tp, "kv_dtype": "int8", **summary,
+          "decode_steps": steps, "logits_max_abs_err": errs,
+          "logits_rtol": LOGIT_RTOL_TP,
+          "card": torch.cuda.get_device_name(0)})
+    return summary["launches"]
 
 
 def int8_paged_phase(dev, bf16: dict) -> dict:
     """The paged engine on int8 pools (``kv_dtype="int8"``), the bf16
     paged phase's traffic plus one seeded sampled stream sent twice:
     kernels A, B-int8 and C-int8 launch, the bf16 variants do not."""
-    from crowdllama_tpu_torch.ops.cuda.paged import flash_paged_decode_attention
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+    )
 
     streams = {**GREEDY, "prefix_hit": (HIT, {}), "sampled": SAMPLED}
     engine, summary, reqs = run_engine(dev, streams, 32, again="sampled",
                                        kv_dtype="int8")
-    if engine.runner.init_state().pool_k.dtype != torch.int8:
+    if engine.runner.init_state().pool_k[0].dtype != torch.int8:
         raise AssertionError("kv_dtype='int8' did not build int8 pools")
     _expect_launches(summary["launches"], {"A", "B_int8", "C_int8"},
                      "int8 paged")
@@ -796,7 +1063,7 @@ def int8_paged_phase(dev, bf16: dict) -> dict:
                              f"chunks {ragged_chunks}: a path was not taken")
     errs = _check_logit_errs(logits_check(engine, dev, ragged=False),
                              "int8 paged")
-    steady = decode_step_timing(engine, dev, flash_paged_decode_attention)
+    steady = decode_step_timing(engine, dev, flash_paged_decode_attention_tp)
     # Greedy tokens equal to the bf16 pool's, position by position (reported:
     # int8 KV changes the logits of random weights).
     same = [a == b for name, ids in bf16["ids"].items()
@@ -878,7 +1145,9 @@ def int8_contiguous_phase(dev) -> None:
           "steady_decode": steady, "card": torch.cuda.get_device_name(0)})
 
 
-KERNEL_ROWS = {  # row -> (C symbol, source, TPU kernel it replaces)
+# row -> (name, source, TPU kernel it replaces); the name is the C symbol,
+# for F the wrapper that launches B's symbol once per tensor-parallel rank.
+KERNEL_ROWS = {
     "A": ("flash_prefill", "crowdllama_tpu_torch/csrc/flash_prefill.cu",
           "crowdllama_tpu/ops/pallas/flash.py:146"),
     "B": ("paged_decode", "crowdllama_tpu_torch/csrc/paged_attention.cu",
@@ -893,6 +1162,16 @@ KERNEL_ROWS = {  # row -> (C symbol, source, TPU kernel it replaces)
                "crowdllama_tpu/ops/pallas/paged.py:667"),
     "D": ("flash_decode", "crowdllama_tpu_torch/csrc/flash_decode.cu",
           "crowdllama_tpu/ops/pallas/flash.py:269"),
+    "E": ("ragged_chunk", "crowdllama_tpu_torch/csrc/paged_attention.cu",
+          "crowdllama_tpu/ops/pallas/paged.py:412"),
+    "E_int8": ("ragged_chunk_i8",
+               "crowdllama_tpu_torch/csrc/paged_attention.cu",
+               "crowdllama_tpu/ops/pallas/paged.py:376"),
+    "F": ("paged_decode_tp", "crowdllama_tpu_torch/csrc/paged_attention.cu",
+          "crowdllama_tpu/ops/pallas/paged.py:860"),
+    "F_int8": ("paged_decode_tp_i8",
+               "crowdllama_tpu_torch/csrc/paged_attention.cu",
+               "crowdllama_tpu/ops/pallas/paged.py:898"),
 }
 
 
@@ -923,12 +1202,18 @@ def main() -> int:
     paged = engine_phase(dev)
     launches = {k: paged["launches"][k] for k in ("A", "B", "C")}
     _free_card()
+    launches["F"] = tp_phase(dev, paged)["F"]
+    _free_card()
+    launches["F_int8"] = tp_int8_phase(dev)["F_int8"]
+    _free_card()
     int8 = int8_paged_phase(dev, paged)
     launches.update({k: int8[k] for k in ("B_int8", "C_int8")})
     _free_card()
     launches["D"] = contiguous_phase(dev)
     _free_card()
     int8_contiguous_phase(dev)
+    # No engine path runs kernel E; every phase checked it stayed at 0.
+    launches["E"] = launches["E_int8"] = 0
 
     rows = []
     for key, (kname, src, repl) in KERNEL_ROWS.items():

@@ -24,7 +24,10 @@ class Configuration:
     kv_dtype: str = "bf16"
     quantize: str = ""  # "" = bf16 weights (only mode ported)
     spec_decode: str = ""  # "" = no speculation (only mode ported)
-    mesh_shape: str = ""  # "" = one device (only mode ported)
+    # "" = one device (paged: tp over the visible CUDA devices the kv heads
+    # divide, 1 on a one-card machine); "2" = tp=2 (paged only; the other
+    # axes are not ported).  TorchEngine(devices=...) places the tp ranks.
+    mesh_shape: str = ""
     kv_page_size: int = 128
     kv_pool_tokens: int = 0  # 0 = slots x context (no overcommit)
     kv_prefix_cache: bool = True

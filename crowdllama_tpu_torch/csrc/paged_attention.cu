@@ -1,11 +1,16 @@
-// Kernels B and C: attention over the paged KV pool, read through the page
-// table.
+// Kernels B, C and E: attention over the paged KV pool, read through the
+// page table.
 //
 // B, paged_decode, replaces crowdllama_tpu/ops/pallas/paged.py
 // flash_paged_decode_attention (_decode_kernel): one query token per slot
 // over that slot's pages.  C, ragged_paged, replaces
 // flash_ragged_paged_attention (_ragged_v2_kernel): B decode rows plus one
-// prefill chunk cut into QB-row query blocks, in one launch.
+// prefill chunk cut into QB-row query blocks, in one launch.  E,
+// ragged_chunk, replaces flash_ragged_chunk_attention (_chunk_kernel): one
+// prefill chunk alone over its slot's pages, C's chunk blocks without the
+// decode rows (both run the same chunk_block routine).  Kernel F of the
+// TPU package (flash_paged_decode_attention_tp) is B launched once per
+// tensor-parallel rank, from ops/cuda/paged.py; it has no code here.
 //
 // Pool layout (one layer): [P, Hkv, page, DH] bf16, or int8 with per-key
 // scales [P, Hkv, page] bf16 (the *_i8 entries, the TPU kernels' `quant`
@@ -34,9 +39,11 @@
 // Decode rows (B, and C's decode blocks): one block per (slot, kv head),
 // one warp per query head; each lane scores keys lane, lane + 32, ... of a
 // page, warp shuffles give the page's max and sum, and each lane
-// accumulates two output dims.  Chunk blocks of C: one block per (query
-// block of QB = 32 queries, kv head), one thread per (query, head) row,
-// the shared thread-per-row routine of attention_common.cuh.
+// accumulates two output dims.  Chunk blocks of C and E: one block per
+// (query block of QB = 32 queries, kv head), one thread per (query, head)
+// row, the shared thread-per-row routine of attention_common.cuh.  A chunk
+// block does ~4 * DH flops per key per row in fp32 FMA, so it is bound by
+// operations, not bytes (the tensor cores are later work).
 
 #include "attention_common.cuh"
 
@@ -189,6 +196,57 @@ __device__ __forceinline__ void decode_heads(const PageSmem<T>& s,
   }
 }
 
+// Chunk query block jb for kv head h: the chunk's rows jb*QB + r (r < QB,
+// row < C) at positions ctx + row; the first q_len rows of the chunk carry
+// a query, the others exist only to be written as zeros.  One thread per
+// (row, query head of the group), the thread-per-row routine of
+// attention_common.cuh over the slot's pages `trow`, stopping at the
+// block's causal/validity bound.  q and out point at chunk row 0
+// ([C, H, DH]).  Kernel C runs it for its chunk blocks, kernel E for all
+// of its blocks.
+template <typename T>
+__device__ __forceinline__ void chunk_block(const PageSmem<T>& s,
+                                            const __nv_bfloat16* __restrict__ q,
+                                            const T* __restrict__ pool_k,
+                                            const T* __restrict__ pool_v,
+                                            const __nv_bfloat16* __restrict__ k_scale,
+                                            const __nv_bfloat16* __restrict__ v_scale,
+                                            const int* __restrict__ trow,
+                                            __nv_bfloat16* __restrict__ out, int jb, int C,
+                                            int H, int G, int Hkv, int h, int page, int ctx,
+                                            int q_len, int kv_len, int window, float scale,
+                                            float softcap) {
+  const int q_start = ctx + jb * QB;
+  const int q_valid = max(0, min(QB, q_len - jb * QB));
+  const int r = threadIdx.x / G, g = threadIdx.x % G;
+  const int row = jb * QB + r;  // chunk row index in [0, C)
+  const bool exists = r < QB && row < C;
+  const bool live = exists && r < q_valid;
+  const int qpos = q_start + r;
+
+  float qr[DH], acc[DH];
+  float m = NEG_INF, l = 0.f;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
+  if (live) {
+    load_row_f32(q + ((size_t)row * H + h * G + g) * DH, qr);
+  } else {
+#pragma unroll
+    for (int d = 0; d < DH; ++d) qr[d] = 0.f;
+  }
+  const int bound = min(kv_len, q_start + q_valid);
+  const int npages = q_valid > 0 && bound > 0 ? (bound + page - 1) / page : 0;
+  for (int n = 0; n < npages; ++n) {
+    __syncthreads();
+    stage_page(s, pool_k, pool_v, k_scale, v_scale, trow[n], h, Hkv, page);
+    __syncthreads();
+    if (live)
+      row_attend_tile(qr, acc, m, l, s.K, k_stride<T>(), s.V, DH, page, nullptr, nullptr,
+                      n * page, qpos, kv_len, window, scale, softcap, s.KSc, s.VSc);
+  }
+  if (exists) store_row(out + ((size_t)row * H + h * G + g) * DH, acc, l);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS_C)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ pool_k,
@@ -235,40 +293,33 @@ ragged_paged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ p
     return;
   }
 
-  // Chunk block jb: queries ctx + jb*QB + r for r < q_valid.
-  const int jb = nb - B;
+  // Chunk block nb - B of the chunk rows that follow the B decode rows.
   const int kv_len = kv_lens[B];
-  const int ctx = kv_len - q_lens[B];
-  const int q_start = ctx + jb * QB;
-  const int q_valid = max(0, min(QB, q_lens[B] - jb * QB));
-  const int r = threadIdx.x / G, g = threadIdx.x % G;
-  const int row = jb * QB + r;  // chunk row index in [0, C)
-  const bool exists = r < QB && row < C;
-  const bool live = exists && r < q_valid;
-  const int qpos = q_start + r;
+  chunk_block(s, q + (size_t)B * H * DH, pool_k, pool_v, k_scale, v_scale,
+              table + (size_t)chunk_slot * np, out + (size_t)B * H * DH, nb - B, C, H, G,
+              Hkv, h, page, kv_len - q_lens[B], q_lens[B], kv_len, window, scale, softcap);
+}
 
-  float qr[DH], acc[DH];
-  float m = NEG_INF, l = 0.f;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-  if (live) {
-    load_row_f32(q + ((size_t)(B + row) * H + h * G + g) * DH, qr);
-  } else {
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qr[d] = 0.f;
-  }
-  const int* trow = table + (size_t)chunk_slot * np;
-  const int bound = min(kv_len, q_start + q_valid);
-  const int npages = q_valid > 0 && bound > 0 ? (bound + page - 1) / page : 0;
-  for (int n = 0; n < npages; ++n) {
-    __syncthreads();
-    stage_page(s, pool_k, pool_v, k_scale, v_scale, trow[n], h, Hkv, page);
-    __syncthreads();
-    if (live)
-      row_attend_tile(qr, acc, m, l, s.K, k_stride<T>(), s.V, DH, page, nullptr, nullptr,
-                      n * page, qpos, kv_len, window, scale, softcap, s.KSc, s.VSc);
-  }
-  if (exists) store_row(out + ((size_t)(B + row) * H + h * G + g) * DH, acc, l);
+// Kernel E: one prefill chunk alone, grid (chunk blocks, kv heads).  The
+// context and key lengths are read from device memory (the TPU kernel's
+// scalar prefetch), so the host never waits on them; rows j >= kv_len -
+// ctx_len carry no query and are written as zeros (the caller drops them).
+template <typename T>
+__global__ void __launch_bounds__(THREADS_C)
+ragged_chunk_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ pool_k,
+                    const T* __restrict__ pool_v, const __nv_bfloat16* __restrict__ k_scale,
+                    const __nv_bfloat16* __restrict__ v_scale, const int* __restrict__ pages,
+                    const int* __restrict__ ctx_len, const int* __restrict__ kv_len,
+                    __nv_bfloat16* __restrict__ out, int C, int H, int Hkv, int page, int np,
+                    float scale, float softcap, int window) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = H / Hkv;
+  const PageSmem<T> s = carve<T>(smem, page, THREADS_C / 32, G);
+  const int ctx = *ctx_len;
+  const int kv = min(*kv_len, np * page);  // never past the slot's pages
+  const int q_len = max(0, min(C, kv - ctx));
+  chunk_block(s, q, pool_k, pool_v, k_scale, v_scale, pages, out, blockIdx.x, C, H, G, Hkv,
+              blockIdx.y, page, ctx, q_len, kv, window, scale, softcap);
 }
 
 template <typename T>
@@ -305,6 +356,21 @@ int launch_ragged(const void* q, const void* pool_k, const void* pool_v, const v
       (const __nv_bfloat16*)q, (const T*)pool_k, (const T*)pool_v,
       (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale, table, q_lens, kv_lens,
       (__nv_bfloat16*)out, B, C, H, Hkv, page, np, chunk_slot, scale, softcap, window);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_chunk(const void* q, const void* pool_k, const void* pool_v, const void* k_scale,
+                 const void* v_scale, const int* pages, const int* ctx_len, const int* kv_len,
+                 void* out, int C, int H, int Hkv, int page, int np, float scale, float softcap,
+                 int window, void* stream) {
+  const int G = H / Hkv;
+  dim3 grid((C + QB - 1) / QB, Hkv);
+  ragged_chunk_kernel<T><<<grid, THREADS_C, page_smem_bytes<T>(page, THREADS_C / 32, G),
+                           (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const T*)pool_k, (const T*)pool_v,
+      (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale, pages, ctx_len, kv_len,
+      (__nv_bfloat16*)out, C, H, Hkv, page, np, scale, softcap, window);
   return (int)cudaGetLastError();
 }
 
@@ -346,4 +412,22 @@ extern "C" int ragged_paged_i8(const void* q, const void* pool_k, const void* po
   return launch_ragged<int8_t>(q, pool_k, pool_v, k_scale, v_scale, table, q_lens, kv_lens,
                                out, B, C, H, Hkv, page, np, chunk_slot, scale, softcap,
                                window, stream);
+}
+
+extern "C" int ragged_chunk(const void* q, const void* pool_k, const void* pool_v,
+                            const int* pages, const int* ctx_len, const int* kv_len, void* out,
+                            int C, int H, int Hkv, int page, int np, float scale, float softcap,
+                            int window, void* stream) {
+  return launch_chunk<__nv_bfloat16>(q, pool_k, pool_v, nullptr, nullptr, pages, ctx_len,
+                                     kv_len, out, C, H, Hkv, page, np, scale, softcap, window,
+                                     stream);
+}
+
+extern "C" int ragged_chunk_i8(const void* q, const void* pool_k, const void* pool_v,
+                               const void* k_scale, const void* v_scale, const int* pages,
+                               const int* ctx_len, const int* kv_len, void* out, int C, int H,
+                               int Hkv, int page, int np, float scale, float softcap,
+                               int window, void* stream) {
+  return launch_chunk<int8_t>(q, pool_k, pool_v, k_scale, v_scale, pages, ctx_len, kv_len,
+                              out, C, H, Hkv, page, np, scale, softcap, window, stream);
 }

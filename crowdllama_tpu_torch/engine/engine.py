@@ -20,6 +20,7 @@ import torch
 
 from crowdllama_tpu_torch.config import Configuration
 from crowdllama_tpu_torch.engine.runner import resolve_device
+from crowdllama_tpu_torch.parallel.mesh import build_mesh
 
 log = logging.getLogger("crowdllama.torch.engine")
 
@@ -96,17 +97,32 @@ class TorchEngine(Engine):
     Serves on CUDA unless ``device`` is given; without CUDA and without a
     device, construction raises.  ``params`` (a parameter dict, e.g. from
     ``engine.weights.params_from_numpy``) replaces the random init, whose
-    seed is ``seed``."""
+    seed is ``seed``; the engine hands it to the runner (which shards it
+    under tp) and keeps no reference.  Tensor parallelism: ``mesh_shape``
+    (e.g. "2") with the ranks on ``devices`` (default: the visible CUDA
+    devices, each once); ``devices`` may name one device twice, e.g.
+    ``["cpu", "cpu"]`` or two shards on one card."""
 
     def __init__(self, config: Configuration | None = None, *,
                  device: torch.device | str | None = None,
+                 devices: list | None = None,
                  params: dict | None = None,
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  **overrides):
         self.config = dataclasses.replace(config or Configuration(),
                                           **overrides)
         self.models = [self.config.model]
-        self.device = resolve_device(device)
+        if devices is not None and device is not None:
+            raise ValueError("pass device= or devices=, not both")
+        self._device = device
+        self.devices = (None if devices is None
+                        else [torch.device(d) for d in devices])
+        if self.devices is not None:
+            self.device = self.devices[0]
+        elif self.config.mesh_shape and device is None:
+            self.device = build_mesh(self.config.mesh_shape).devices[0]
+        else:
+            self.device = resolve_device(device)
         self.dtype = dtype
         self.seed = seed
         self._params = params
@@ -126,7 +142,6 @@ class TorchEngine(Engine):
         from crowdllama_tpu_torch.models.config import get_config
 
         c = self.config
-        device = self.device
         self.plan = resolve_serving_plan(c)
         cfg = get_config(c.model)
         if c.max_context_length:
@@ -136,11 +151,13 @@ class TorchEngine(Engine):
         loop = asyncio.get_running_loop()
 
         def _build():
-            return build_runner(c, self.plan, cfg, self._params,
+            params, self._params = self._params, None
+            return build_runner(c, self.plan, cfg, params,
                                 dtype=self.dtype, seed=self.seed,
-                                device=device)
+                                device=self._device, devices=self.devices)
 
         self.runner = await loop.run_in_executor(None, _build)
+        self.device = self.runner.device
         if c.warmup:
             await loop.run_in_executor(None, self._warmup)
         self.scheduler = Scheduler(
@@ -148,10 +165,10 @@ class TorchEngine(Engine):
             admission_pending_max=c.admission_pending_max,
             ragged=c.ragged_prefill)
         self.scheduler.start()
-        log.info("engine up: model=%s device=%s layout=%s kv_dtype=%s "
-                 "slots=%d max_seq=%d", cfg.name, device, self.plan.kv_layout,
-                 self.plan.kv_dtype, self.runner.max_slots,
-                 self.runner.max_seq)
+        log.info("engine up: model=%s devices=%s layout=%s kv_dtype=%s "
+                 "slots=%d max_seq=%d", cfg.name, self.runner.devices,
+                 self.plan.kv_layout, self.plan.kv_dtype,
+                 self.runner.max_slots, self.runner.max_seq)
 
     def _warmup(self) -> None:
         """Run every serving path once before serving: monolithic prefill +
@@ -206,6 +223,8 @@ class TorchEngine(Engine):
         if self.runner is not None:
             r = self.runner
             d["device"] = str(r.device)
+            d["tp"] = r.tp
+            d["devices"] = [str(x) for x in r.devices]
             d["kv_layout"] = r.kv_layout
             d["kv_dtype"] = r.kv_dtype
             if getattr(r, "prefix_cache", False):

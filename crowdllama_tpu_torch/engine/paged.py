@@ -1,7 +1,7 @@
 """Block-paged KV cache: slot -> page-table indirection over a shared pool.
 
-Counterpart of ``crowdllama_tpu/engine/paged.py`` ``PagedModelRunner`` on
-one device:
+Counterpart of ``crowdllama_tpu/engine/paged.py`` ``PagedModelRunner``, on
+one device or tensor-parallel over a tp mesh:
 
 - pool ``[L, P + 1, Hkv, page, Dh]`` (k and v); page id ``P`` is the
   reserved dump page that absorbs the writes of inactive slots and of chunk
@@ -19,14 +19,25 @@ one device:
 - decode attention reads pages straight from the pool through the table
   (kernel B, ``ops/cuda/paged.py``); the unified ragged step runs B decode
   rows plus one prefill chunk of a long prompt in one attention launch per
-  layer (kernel C).
+  layer (kernel C);
+- tensor parallelism (``mesh_shape="2"``, or the default mesh: tp =
+  ``largest_tp`` of the visible CUDA devices and the kv heads): the pools
+  and scales shard kv heads, each rank's ``[L, P + 1, Hkv/tp, page, Dh]``
+  on its device (``pool_k`` etc. are per-rank lists, of one on one
+  device); pages are not sharded, so the allocator, page table, prefix
+  cache and dump page are shared by every rank.  Decode runs kernel F (B
+  on every rank); prefill (kernel A), the prefix-hit context, legacy
+  chunks and the ragged step (kernel C) run per rank.  (The JAX package runs prefill and the ragged
+  step through its jnp references on a multi-device mesh only because
+  GSPMD cannot partition a ``pallas_call``; A and C are independent per kv
+  head, so the port runs them per rank.  The function is the same.)
 
 Device state is updated in place (the JAX package donates and replaces
 it); methods still return the state so callers read like the reference.
 Legacy chunked admission (``ragged_prefill=False``) runs the base runner's
 ``prefill_step`` over accumulators seeded from cached prefix pages
-(:meth:`PagedModelRunner.prefill_begin`).  Megastep, tensor parallelism
-and KV page export/import are not ported yet.
+(:meth:`PagedModelRunner.prefill_begin`).  Megastep, meshes other than
+tp, and KV page export/import are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,13 +49,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from crowdllama_tpu_torch.engine.runner import ModelRunner, SlotState
+from crowdllama_tpu_torch.engine.runner import (
+    ModelRunner,
+    SlotState,
+    resolve_device,
+)
 from crowdllama_tpu_torch.models import transformer as T
 from crowdllama_tpu_torch.ops.cuda.paged import (
-    flash_paged_decode_attention,
+    flash_paged_decode_attention_tp,
     ragged_paged_attention,
 )
 from crowdllama_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+from crowdllama_tpu_torch.parallel.mesh import (
+    Mesh,
+    largest_tp,
+    visible_devices,
+)
 
 
 class PagesExhausted(ValueError):
@@ -53,10 +73,11 @@ class PagesExhausted(ValueError):
 
 @dataclass(kw_only=True)
 class PagedDecodeState(SlotState):
-    pool_k: torch.Tensor          # [L, P+1, Hkv, page, Dh] (int8 with
-    pool_v: torch.Tensor          # kv_dtype="int8")
-    k_scale: torch.Tensor | None = None  # [L, P+1, Hkv, page] bf16, int8 only
-    v_scale: torch.Tensor | None = None
+    # Per rank, the rank's kv heads on its device.
+    pool_k: list[torch.Tensor]    # [L, P+1, Hkv/tp, page, Dh] (int8 with
+    pool_v: list[torch.Tensor]    # kv_dtype="int8")
+    k_scale: list[torch.Tensor] | None = None  # [L, P+1, Hkv/tp, page]
+    v_scale: list[torch.Tensor] | None = None  # bf16, int8 only
 
 
 class PagedModelRunner(ModelRunner):
@@ -103,10 +124,30 @@ class PagedModelRunner(ModelRunner):
         # Slot owned by an in-progress ragged prefill: the grow/advance
         # loops must not treat it as a decoding slot.
         self._ragged_slot: int | None = None
-        #: paged decode attention (kernel B) and unified ragged attention
-        #: (kernel C); seams like ``prefill_attn``
-        self.decode_attn = flash_paged_decode_attention
+        #: paged decode attention over the per-rank pools (kernel F: B on
+        #: every rank) and unified ragged attention (kernel C, per rank);
+        #: seams like ``prefill_attn``
+        self.decode_attn = flash_paged_decode_attention_tp
         self.ragged_attn = ragged_paged_attention
+
+    def _build_mesh(self, mesh_shape, device, devices) -> Mesh:
+        """The default mesh is the JAX paged runner's: tp = the largest
+        degree dividing both the device count (``devices``, else the
+        visible CUDA devices) and the kv heads; 1 on a one-card machine."""
+        if not mesh_shape and device is None:
+            devs = devices if devices is not None else visible_devices()
+            tp = largest_tp(len(devs), self.cfg.num_kv_heads)
+            if tp == 1 and devices is None:
+                return Mesh.single(resolve_device(None))
+            mesh_shape = str(tp)
+        return super()._build_mesh(mesh_shape, device, devices)
+
+    def _rank_kv(self, st: PagedDecodeState) -> list[tuple]:
+        """Per rank: (pool_k, pool_v, k_scale, v_scale), the scales None on
+        a bf16 pool."""
+        none = [None] * self.tp
+        return list(zip(st.pool_k, st.pool_v, st.k_scale or none,
+                        st.v_scale or none))
 
     # ------------------------------------------------------------ allocator
 
@@ -208,8 +249,9 @@ class PagedModelRunner(ModelRunner):
     @torch.inference_mode()
     def init_state(self) -> PagedDecodeState:
         cfg = self.cfg
-        shape = (cfg.num_layers, self.total_pages + 1, cfg.num_kv_heads,
-                 self.page_size, cfg.resolved_head_dim())
+        shape = (cfg.num_layers, self.total_pages + 1,
+                 cfg.num_kv_heads // self.tp, self.page_size,
+                 cfg.resolved_head_dim())
         self._free_pages = list(range(self.total_pages))
         self._slot_pages = {}
         self._host_seq[:] = 0
@@ -221,9 +263,11 @@ class PagedModelRunner(ModelRunner):
         self._key_children.clear()
         self._pending_match = None
         self._ragged_slot = None
-        k, v, scales = self._kv_zeros(shape)
-        return PagedDecodeState(pool_k=k, pool_v=v, **scales,
-                                **self._slot_fields())
+        per = [self._kv_zeros(shape, d) for d in self.devices]
+        scales = {name: [p[2][name] for p in per] for name in per[0][2]}
+        return PagedDecodeState(pool_k=[p[0] for p in per],
+                                pool_v=[p[1] for p in per],
+                                **scales, **self._slot_fields())
 
     def _table(self, width: int | None = None) -> torch.Tensor:
         table = self.page_table if width is None else self.page_table[:, :width]
@@ -311,17 +355,21 @@ class PagedModelRunner(ModelRunner):
         tail).  int8 context pages are dequantized and cast to the
         runner's dtype."""
         cfg = self.cfg
-        l, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim()
+        l, dh = cfg.num_layers, cfg.resolved_head_dim()
+        hkv = cfg.num_kv_heads // self.tp
         suffix = prompt_ids[ctx_len:]
         slen = len(suffix)
         t = self.bucket_for(slen)
         c = pages.shape[0] * self.page_size
-        ck, cv = state.pool_k[:, pages], state.pool_v[:, pages]
-        if self.kv_dtype == "int8":
-            ck = dequantize_kv(ck, state.k_scale[:, pages]).to(self.dtype)
-            cv = dequantize_kv(cv, state.v_scale[:, pages]).to(self.dtype)
-        ck = ck.permute(0, 2, 1, 3, 4).reshape(l, 1, hkv, c, dh)
-        cv = cv.permute(0, 2, 1, 3, 4).reshape(l, 1, hkv, c, dh)
+        cks, cvs = [], []
+        for pk, pv, ksc, vsc in self._rank_kv(state):
+            idx = pages.to(pk.device)
+            ck, cv = pk[:, idx], pv[:, idx]
+            if self.kv_dtype == "int8":
+                ck = dequantize_kv(ck, ksc[:, idx]).to(self.dtype)
+                cv = dequantize_kv(cv, vsc[:, idx]).to(self.dtype)
+            cks.append(ck.permute(0, 2, 1, 3, 4).reshape(l, 1, hkv, c, dh))
+            cvs.append(cv.permute(0, 2, 1, 3, 4).reshape(l, 1, hkv, c, dh))
         dev = self.device
         ar = torch.arange(t, device=dev, dtype=torch.int32)
         ctx_valid = (torch.arange(c, device=dev) < ctx_len)[None]
@@ -329,9 +377,9 @@ class PagedModelRunner(ModelRunner):
         kv_valid = (ar < slen)[None]
         x = T._embed(self.params, cfg, self._padded(suffix, t))
         x, ks, vs = T.scan_prefill_layers(
-            self.params["layers"], self.windows, cfg, x, positions,
-            kv_valid=kv_valid, ctx_k=ck, ctx_v=cv, ctx_valid=ctx_valid,
-            rope=(self.cos, self.sin))
+            T.layer_stacks(self.params), self.windows, cfg, x, positions,
+            kv_valid=kv_valid, ctx_k=cks, ctx_v=cvs, ctx_valid=ctx_valid,
+            rope=self.ropes)
         logits = T._unembed(self.params, cfg, x[:, slen - 1])
         tok = self._sample_first(logits, prompt_ids, temperature, top_p,
                                  key, top_k, repeat_penalty)
@@ -359,16 +407,19 @@ class PagedModelRunner(ModelRunner):
             self.prefix_misses += 1
             return job
         cfg = self.cfg
-        l, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim()
+        l, dh = cfg.num_layers, cfg.resolved_head_dim()
+        hkv = cfg.num_kv_heads // self.tp
         ctx_len = len(matched) * pg
-        pages = torch.as_tensor(matched, dtype=torch.long, device=self.device)
-        for pool, scales, ctx in ((state.pool_k, state.k_scale, job.ctx_k),
-                                  (state.pool_v, state.v_scale, job.ctx_v)):
-            kv = pool[:, pages]
-            if self.kv_dtype == "int8":
-                kv = dequantize_kv(kv, scales[:, pages])
-            ctx[:, :, :, :ctx_len] = kv.permute(0, 2, 1, 3, 4).reshape(
-                l, 1, hkv, ctx_len, dh).to(ctx.dtype)
+        for (pk, pv, ksc, vsc), ctx_k, ctx_v in zip(
+                self._rank_kv(state), job.ctx_k, job.ctx_v):
+            pages = torch.as_tensor(matched, dtype=torch.long,
+                                    device=pk.device)
+            for pool, scales, ctx in ((pk, ksc, ctx_k), (pv, vsc, ctx_v)):
+                kv = pool[:, pages]
+                if self.kv_dtype == "int8":
+                    kv = dequantize_kv(kv, scales[:, pages])
+                ctx[:, :, :, :ctx_len] = kv.permute(0, 2, 1, 3, 4).reshape(
+                    l, 1, hkv, ctx_len, dh).to(ctx.dtype)
         job.done_tokens = ctx_len
         self.prefix_hits += 1
         self.prefix_tokens_reused += ctx_len
@@ -391,7 +442,7 @@ class PagedModelRunner(ModelRunner):
         prefill's match, refcounted) + freshly scattered suffix pages.
         ``slot_key`` seeds the slot's sampling stream (default:
         ``default_slot_key(slot)``)."""
-        bucket = ks.shape[3]
+        bucket = ks[0].shape[3]
         pg = self.page_size
         if bucket % pg != 0:
             raise ValueError(
@@ -425,21 +476,22 @@ class PagedModelRunner(ModelRunner):
                 if ctx_len + (i + 1) * pg > plen or ki >= len(keys):
                     break
                 self._index_page(keys, ki, page)
-        # [L, 1, Hkv, bucket, Dh] -> [L, np, Hkv, page, Dh] page-major rows
-        l, _, hkv, _, dh = ks.shape
-        idx = torch.as_tensor(fresh, dtype=torch.long, device=self.device)
-        if self.kv_dtype == "int8":
-            # Quantize before the page scatter; scales [L, 1, Hkv, bucket]
-            # -> [L, np, Hkv, page] like the values.
-            ks, k_sc = quantize_kv(ks, state.k_scale.dtype)
-            vs, v_sc = quantize_kv(vs, state.v_scale.dtype)
-            for sc_pool, sc in ((state.k_scale, k_sc), (state.v_scale, v_sc)):
-                sc_pool[:, idx] = sc[:, 0].reshape(
-                    l, hkv, bucket // pg, pg).permute(0, 2, 1, 3)
-        for pool, kv in ((state.pool_k, ks), (state.pool_v, vs)):
-            pool[:, idx] = kv[:, 0].reshape(
-                l, hkv, bucket // pg, pg, dh).permute(0, 2, 1, 3, 4).to(
-                pool.dtype)
+        for (pk, pv, ksc, vsc), kr, vr in zip(self._rank_kv(state), ks, vs):
+            # [L, 1, Hkv, bucket, Dh] -> [L, np, Hkv, page, Dh] page-major
+            l, _, hkv, _, dh = kr.shape
+            idx = torch.as_tensor(fresh, dtype=torch.long, device=pk.device)
+            if self.kv_dtype == "int8":
+                # Quantize before the page scatter; scales [L, 1, Hkv,
+                # bucket] -> [L, np, Hkv, page] like the values.
+                kr, k_sc = quantize_kv(kr, ksc.dtype)
+                vr, v_sc = quantize_kv(vr, vsc.dtype)
+                for sc_pool, sc in ((ksc, k_sc), (vsc, v_sc)):
+                    sc_pool[:, idx] = sc[:, 0].reshape(
+                        l, hkv, bucket // pg, pg).permute(0, 2, 1, 3)
+            for pool, kv in ((pk, kr), (pv, vr)):
+                pool[:, idx] = kv[:, 0].reshape(
+                    l, hkv, bucket // pg, pg, dh).permute(0, 2, 1, 3, 4).to(
+                    pool.dtype)
         recent_row = self._recent_from_prompt(
             list(prompt_tokens or []), first_token, plen=plen)
         self._activate(state, slot, plen, first_token, temperature, top_p,
@@ -496,17 +548,21 @@ class PagedModelRunner(ModelRunner):
         return (positions, lens, torch.where(st.active, cur, dump),
                 positions % self.page_size)
 
-    def _write_kv(self, st: PagedDecodeState, i: int, wpages, woffs, k,
-                  v) -> dict:
-        """Scatter rows k/v [N, Hkv, Dh] into layer ``i``'s pool at
-        (page, offset) pairs, quantized on an int8 pool; returns the
-        scale keywords the attention kernels take ({} on a bf16 pool)."""
-        pk, pv = st.pool_k[i], st.pool_v[i]
+    def _layer_kv(self, st: PagedDecodeState, i: int) -> list[tuple]:
+        """Per rank: layer ``i``'s (pool_k, pool_v, k_scale, v_scale)."""
+        return [tuple(None if x is None else x[i] for x in rank)
+                for rank in self._rank_kv(st)]
+
+    def _write_kv(self, layer: tuple, wpages, woffs, k, v) -> dict:
+        """Scatter rows k/v [N, Hkv, Dh] into one layer's pools ``layer``
+        (one rank's, from :meth:`_layer_kv`) at (page, offset) pairs,
+        quantized on an int8 pool; returns the scale keywords the
+        attention kernels take ({} on a bf16 pool)."""
+        pk, pv, sk, sv = layer
         if self.kv_dtype != "int8":
             pk[wpages, :, woffs] = k.to(pk.dtype)
             pv[wpages, :, woffs] = v.to(pv.dtype)
             return {}
-        sk, sv = st.k_scale[i], st.v_scale[i]
         kq, k_sc = quantize_kv(k, sk.dtype)
         vq, v_sc = quantize_kv(v, sv.dtype)
         pk[wpages, :, woffs] = kq
@@ -515,26 +571,44 @@ class PagedModelRunner(ModelRunner):
         sv[wpages, :, woffs] = v_sc
         return dict(k_scale=sk, v_scale=sv)
 
+    def _on_ranks(self, *xs: torch.Tensor) -> list[tuple]:
+        """``xs`` on every rank's device, per rank (no copy on rank 0's)."""
+        return [tuple(x.to(d) for x in xs) for d in self.devices]
+
+    def _layer_body(self, i: int, x, positions, attn_fn):
+        """Layer ``i`` over x [N, D] with ``attn_fn`` taking and returning
+        per-rank lists."""
+        return T.decode_layer_body(
+            T.layer_params(T.layer_stacks(self.params), i), self.cfg, x,
+            positions, self.ropes, attn_fn)
+
     def decode_logits(self, st: PagedDecodeState,
                       table: torch.Tensor) -> torch.Tensor:
         """One decode step's forward for every slot: writes each token's KV
-        into the pool and returns logits [B, V] fp32 (no sampling)."""
+        into the pool and returns logits [B, V] fp32 (no sampling).  The
+        attention is one kernel F call per layer (one B launch per rank)."""
         cfg = self.cfg
         positions, lens, wpages, woffs = self._decode_positions(st, table)
-        wpages, woffs = wpages.long(), woffs.long()
+        writes = self._on_ranks(wpages.long(), woffs.long())
+        kw = dict(softcap=cfg.attn_logit_softcap)
         x = T._embed(self.params, cfg, st.tokens.long())
         for i, window in enumerate(self.windows):
-            pk, pv = st.pool_k[i], st.pool_v[i]
+            layer = self._layer_kv(st, i)
 
-            def attn_fn(q, k, v, i=i, pk=pk, pv=pv, window=window):
-                scales = self._write_kv(st, i, wpages, woffs, k, v)
-                return self.decode_attn(q, pk, pv, table, lens, self.scale,
-                                        softcap=cfg.attn_logit_softcap,
-                                        sliding_window=window, **scales)
+            def attn_fn(qs, ks, vs, layer=layer, window=window):
+                scales = [self._write_kv(lay, *w, k, v)
+                          for lay, w, k, v in zip(layer, writes, ks, vs)]
+                per_rank = {}
+                if scales[0]:
+                    per_rank = dict(k_scales=[sc["k_scale"] for sc in scales],
+                                    v_scales=[sc["v_scale"] for sc in scales])
+                return self.decode_attn(qs, [lay[0] for lay in layer],
+                                        [lay[1] for lay in layer], table,
+                                        lens, self.scale,
+                                        sliding_window=window, **kw,
+                                        **per_rank)
 
-            x = T.decode_layer_body(T.layer_params(self.params["layers"], i),
-                                    cfg, x, positions, self.cos, self.sin,
-                                    attn_fn)
+            x = self._layer_body(i, x, positions, attn_fn)
         return T._unembed(self.params, cfg, x)
 
     @torch.inference_mode()
@@ -669,25 +743,29 @@ class PagedModelRunner(ModelRunner):
                                          device=dev)])
         kv_lens = torch.cat([lens_dec, torch.tensor(
             [ctx_i + valid], dtype=torch.int32, device=dev)])
+        ranked = self._on_ranks(wpages, woffs, table, q_lens, kv_lens)
         x = T._embed(self.params, cfg,
                      torch.cat([st.tokens.long(), ctoks]))
         for i, window in enumerate(self.windows):
-            pk, pv = st.pool_k[i], st.pool_v[i]
+            layer = self._layer_kv(st, i)
 
-            def attn_fn(q, k, v, i=i, pk=pk, pv=pv, window=window):
-                scales = self._write_kv(st, i, wpages, woffs, k, v)
-                # The chunk's fresh KV also rides as operands: the plain
-                # version's self block reads it directly.
-                chunk_k = k[b:].transpose(0, 1)[None]
-                chunk_v = v[b:].transpose(0, 1)[None]
-                return self.ragged_attn(
-                    q, chunk_k, chunk_v, pk, pv, table, q_lens, kv_lens,
-                    chunk_slot, self.scale, softcap=cfg.attn_logit_softcap,
-                    sliding_window=window, **scales)
+            def attn_fn(qs, ks, vs, layer=layer, window=window):
+                outs = []
+                for lay, (wp, wo, tab, ql, kl), q, k, v in zip(
+                        layer, ranked, qs, ks, vs):
+                    scales = self._write_kv(lay, wp, wo, k, v)
+                    # The chunk's fresh KV also rides as operands: the
+                    # plain version's self block reads it directly.
+                    chunk_k = k[b:].transpose(0, 1)[None]
+                    chunk_v = v[b:].transpose(0, 1)[None]
+                    outs.append(self.ragged_attn(
+                        q, chunk_k, chunk_v, lay[0], lay[1], tab, ql, kl,
+                        chunk_slot, self.scale,
+                        softcap=cfg.attn_logit_softcap,
+                        sliding_window=window, **scales))
+                return outs
 
-            x = T.decode_layer_body(T.layer_params(self.params["layers"], i),
-                                    cfg, x, positions, self.cos, self.sin,
-                                    attn_fn)
+            x = self._layer_body(i, x, positions, attn_fn)
         # Unembed the B decode rows + ONE chunk row (the last valid one).
         rows = torch.cat([x[:b], x[b + max(valid - 1, 0)][None]])
         return T._unembed(self.params, cfg, rows), valid

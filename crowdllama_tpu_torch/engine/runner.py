@@ -14,8 +14,10 @@ scales ``[L, B, Hkv, S]``: insert quantizes the prefilled bucket, decode
 quantizes each new token and attends with the plain
 ``decode_attention_q`` (the JAX package has no Pallas kernel for this
 path either).  The paged subclass (``engine/paged.py``) replaces the cache
-layout and reuses the rest.  No mesh, sequence/pipeline parallelism or
-speculation here; those are not ported yet.
+layout and reuses the rest.  The base runner holds the tp mesh and the
+per-rank parameters and rope tables (lists of one on one device); only
+the paged runner serves over more than one rank.  Sequence/pipeline
+parallelism and speculation are not ported yet.
 
 Sampling keys: each slot carries a threefry key ``[2]`` uint32 in the
 state (host numpy, ``engine/prng.py``); every decode step splits every
@@ -48,6 +50,8 @@ from crowdllama_tpu_torch.models import transformer as T
 from crowdllama_tpu_torch.models.config import ModelConfig
 from crowdllama_tpu_torch.ops.attention import decode_attention, prefill_attention
 from crowdllama_tpu_torch.ops.quant import quantize_kv
+from crowdllama_tpu_torch.parallel.mesh import Mesh, build_mesh
+from crowdllama_tpu_torch.parallel.sharding import shard_params
 
 KV_DTYPES = ("bf16", "int8")
 
@@ -118,29 +122,63 @@ class ModelRunner:
                  max_slots: int = 8, max_seq: int = 0,
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  device: torch.device | str | None = None,
-                 kv_dtype: str = "bf16"):
+                 kv_dtype: str = "bf16", mesh_shape: str = "",
+                 devices: list | None = None):
         if kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
         self.kv_dtype = kv_dtype
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = self._build_mesh(mesh_shape, device, devices)
+        #: the tp ranks' devices, rank 0's first; the slot state, the
+        #: activations between layers and the logits live on rank 0's
+        self.devices = list(self.mesh.devices)
+        self.device = self.devices[0]
+        self.tp = self.mesh.tp
         self.max_slots = max_slots
         self.max_seq = max_seq or cfg.max_context_length
         if params is None:
-            params = init_params(cfg, seed, dtype=dtype, device=self.device)
-        self.params = params
-        self.dtype = params["embed"].dtype
+            # Under tp the full random init is made on the host, so no
+            # card ever holds more than its ranks' slices.
+            params = init_params(cfg, seed, dtype=dtype, device=(
+                self.device if self.tp == 1 else "cpu"))
+        #: the per-rank parameter dicts (one on one device); the full dict
+        #: is not kept
+        self.params = shard_params(params, cfg, self.mesh)
+        self.dtype = self.params[0]["embed"].dtype
         self.buckets = prefill_buckets(self.max_seq)
         self.windows = T.layer_sliding_windows(cfg)
         self.scale = T.attn_scale(cfg)
-        self.cos, self.sin = T.rope_for(cfg, self.device)
+        #: per-rank (cos, sin) rope tables; ranks on one device share a pair
+        tables: dict = {}
+        for d in self.devices:
+            if d not in tables:
+                tables[d] = T.rope_for(cfg, d)
+        self.ropes = [tables[d] for d in self.devices]
         self.noise_w = noise_width(cfg.vocab_size)
         #: no-context prefill attention (kernel A) and contiguous decode
         #: attention (kernel D); seams that let a caller run the same step
         #: through the plain versions
         self.prefill_attn = prefill_attention
         self.decode_attn = decode_attention
+
+    def _build_mesh(self, mesh_shape: str, device,
+                    devices: list | None) -> Mesh:
+        """The runner's mesh: one device (``device``, else CUDA) unless a
+        mesh spec or a device list is given.  The contiguous layout serves
+        on one device only."""
+        if not mesh_shape and devices is None:
+            return Mesh.single(resolve_device(device))
+        if device is not None:
+            raise ValueError("pass device= or a mesh (mesh_shape=/devices=), "
+                             "not both")
+        mesh = build_mesh(mesh_shape, devices)
+        if mesh.size > 1 and self.kv_layout != "paged":
+            raise NotImplementedError(
+                f"mesh {mesh.axes} on the {self.kv_layout} layout is not "
+                f"ported yet: multi-device meshes other than tp on the paged "
+                f"layout (ROADMAP Queue 1 item 8)")
+        return mesh
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -267,8 +305,8 @@ class ModelRunner:
                 top_p: float, key=None, state=None, top_k: int = 0,
                 repeat_penalty: float = 1.0):
         """Bucketed monolithic prefill; returns (first_token, ks, vs, plen)
-        with ks/vs [L, 1, Hkv, bucket, Dh].  Padding positions clamp to
-        plen-1 and ``kv_valid`` excludes them.  ``state`` is accepted (and
+        with ks/vs per rank [L, 1, Hkv/tp, bucket, Dh].  Padding positions
+        clamp to plen-1 and ``kv_valid`` excludes them.  ``state`` is accepted (and
         ignored) so the scheduler passes its live state uniformly."""
         plen = len(prompt_ids)
         bucket = self.bucket_for(plen)
@@ -277,9 +315,8 @@ class ModelRunner:
         kv_valid = (ar < plen)[None]
         x = T._embed(self.params, self.cfg, self._padded(prompt_ids, bucket))
         x, ks, vs = T.scan_prefill_layers(
-            self.params["layers"], self.windows, self.cfg, x, positions,
-            kv_valid=kv_valid, attention=self.prefill_attn,
-            rope=(self.cos, self.sin))
+            T.layer_stacks(self.params), self.windows, self.cfg, x, positions,
+            kv_valid=kv_valid, attention=self.prefill_attn, rope=self.ropes)
         logits = T._unembed(self.params, self.cfg, x[:, plen - 1])
         tok = self._sample_first(logits, prompt_ids, temperature, top_p,
                                  key, top_k, repeat_penalty)
@@ -289,8 +326,9 @@ class ModelRunner:
 
     class PrefillJob:
         """Host handle for an in-progress chunked prefill: the prompt's KV
-        so far in accumulators [L, 1, Hkv, width, Dh] and the last logits
-        row.  The scheduler runs one chunk per decode-loop iteration."""
+        so far in per-rank accumulators [L, 1, Hkv/tp, width, Dh]
+        and the last logits row.  The scheduler runs one chunk per
+        decode-loop iteration."""
 
         def __init__(self, prompt_ids, ctx_k, ctx_v):
             self.prompt_ids = prompt_ids
@@ -313,16 +351,15 @@ class ModelRunner:
                 f"prompt of {len(prompt_ids)} tokens exceeds max context "
                 f"{self.max_seq}")
         cfg = self.cfg
-        shape = (cfg.num_layers, 1, cfg.num_kv_heads,
+        shape = (cfg.num_layers, 1, cfg.num_kv_heads // self.tp,
                  self.bucket_for(len(prompt_ids)), cfg.resolved_head_dim())
-        return self.PrefillJob(
-            list(prompt_ids),
-            torch.zeros(shape, dtype=self.dtype, device=self.device),
-            torch.zeros(shape, dtype=self.dtype, device=self.device))
+        return self.PrefillJob(list(prompt_ids), *(
+            [torch.zeros(shape, dtype=self.dtype, device=d)
+             for d in self.devices] for _ in range(2)))
 
     def prefill_step(self, job: "ModelRunner.PrefillJob") -> bool:
         """Run ONE chunk of the job's prompt; True when the prompt is done."""
-        width = job.ctx_k.shape[3]
+        width = job.ctx_k[0].shape[3]
         budget = width - job.done_tokens  # write room left in the buffers
         take = min(self.prefill_chunk, len(job.prompt_ids) - job.done_tokens)
         bucket = min(self.bucket_for(take), self.prefill_chunk)
@@ -343,24 +380,26 @@ class ModelRunner:
     def _prefill_chunk(self, tokens, chunk_len: int, ctx_len: int, ctx_k,
                        ctx_v) -> torch.Tensor:
         """One chunk over the accumulated context (plain
-        ``prefill_attention_ctx``); appends the chunk's KV to the
-        accumulators in place and returns the last valid row's logits
-        [V]."""
+        ``prefill_attention_ctx``, per rank under tp); appends the chunk's
+        KV to the accumulators in place and returns the last valid row's
+        logits [V]."""
         t = tokens.shape[1]
         dev = self.device
         ar = torch.arange(t, device=dev, dtype=torch.int32)
         positions = (ctx_len + torch.clamp(ar, max=chunk_len - 1))[None]
         kv_valid = (ar < chunk_len)[None]
-        ctx_valid = (torch.arange(ctx_k.shape[3], device=dev) < ctx_len)[None]
+        width = ctx_k[0].shape[3]
+        ctx_valid = (torch.arange(width, device=dev) < ctx_len)[None]
         x = T._embed(self.params, self.cfg, tokens)
         x, ks, vs = T.scan_prefill_layers(
-            self.params["layers"], self.windows, self.cfg, x, positions,
+            T.layer_stacks(self.params), self.windows, self.cfg, x, positions,
             kv_valid=kv_valid, ctx_k=ctx_k, ctx_v=ctx_v, ctx_valid=ctx_valid,
-            rope=(self.cos, self.sin))
+            rope=self.ropes)
         # Padding rows past chunk_len land beyond the valid region: the
         # next chunk overwrites them or seq_lens masks them.
-        ctx_k[:, :, :, ctx_len:ctx_len + t] = ks.to(ctx_k.dtype)
-        ctx_v[:, :, :, ctx_len:ctx_len + t] = vs.to(ctx_v.dtype)
+        for acc, new in ((ctx_k, ks), (ctx_v, vs)):
+            for a, n in zip(acc, new):
+                a[:, :, :, ctx_len:ctx_len + t] = n.to(a.dtype)
         return T._unembed(self.params, self.cfg, x[0, chunk_len - 1])
 
     @torch.inference_mode()
@@ -416,24 +455,26 @@ class ModelRunner:
         kv_valid = (ar < plens[:, None]).contiguous()
         h = T.hidden_states(self.params, self.cfg, tokens, positions,
                             kv_valid=kv_valid, attention=self.prefill_attn,
-                            rope=(self.cos, self.sin))
+                            rope=self.ropes)
         mask = kv_valid[..., None].float()
         pooled = (h.float() * mask).sum(1) / mask.sum(1).clamp_min(1.0)
         return pooled / pooled.norm(dim=-1, keepdim=True).clamp_min(1e-9)
 
     # ------------------------------------------------ contiguous KV layout
 
-    def _kv_zeros(self, shape: tuple[int, ...]):
-        """Zeroed K and V buffers of ``shape`` in the KV dtype, and the
-        zeroed bf16 scales ``shape[:-1]`` an int8 cache carries as
-        ``k_scale``/``v_scale`` keywords ({} for bf16)."""
+    def _kv_zeros(self, shape: tuple[int, ...], device=None):
+        """Zeroed K and V buffers of ``shape`` in the KV dtype on ``device``
+        (default: the runner's), and the zeroed bf16 scales ``shape[:-1]``
+        an int8 cache carries as ``k_scale``/``v_scale`` keywords ({} for
+        bf16)."""
+        device = device or self.device
         quantized = self.kv_dtype == "int8"
         kw = dict(dtype=torch.int8 if quantized else self.dtype,
-                  device=self.device)
+                  device=device)
         scales = {}
         if quantized:
             scales = {name: torch.zeros(shape[:-1], dtype=torch.bfloat16,
-                                        device=self.device)
+                                        device=device)
                       for name in ("k_scale", "v_scale")}
         return torch.zeros(shape, **kw), torch.zeros(shape, **kw), scales
 
@@ -451,9 +492,10 @@ class ModelRunner:
                first_token: int, temperature: float, top_p: float,
                prompt_tokens: list[int] | None = None, slot_key=None,
                top_k: int = 0, repeat_penalty: float = 1.0) -> DecodeState:
-        """Write a prefilled sequence (ks/vs [L, 1, Hkv, T, Dh], quantized
-        first on an int8 cache) into ``slot``; ``slot_key`` seeds the slot's
+        """Write a prefilled sequence (ks/vs: one rank's [L, 1, Hkv, T, Dh],
+        quantized first on an int8 cache) into ``slot``; ``slot_key`` seeds the slot's
         sampling stream (default: ``default_slot_key(slot)``)."""
+        (ks,), (vs,) = ks, vs
         t = ks.shape[3]
         if self.kv_dtype == "int8":
             ks, k_sc = quantize_kv(ks, state.k_scale.dtype)
@@ -484,7 +526,7 @@ class ModelRunner:
         lens = torch.clamp(st.seq_lens + 1, max=self.max_seq)
         out = T.decode_step(self.params, self.cfg, st.tokens, positions,
                             st.k_cache, st.v_cache, lens,
-                            rope=(self.cos, self.sin),
+                            rope=self.ropes,
                             attention=self.decode_attn, k_scale=st.k_scale,
                             v_scale=st.v_scale)
         return out[0]

@@ -26,7 +26,9 @@ def params_from_numpy(flat: dict[str, np.ndarray],
                       device: torch.device | str = "cpu") -> dict:
     """Rebuild the parameter dict from the JAX package's flat ``/``-joined
     names (``layers/wq``, ``embed``, ...: its ``_flatten_params``), casting
-    to ``dtype`` on ``device``."""
+    to ``dtype`` on ``device``.  The full dict serves a one-device runner
+    as it is; a tensor-parallel runner slices it per rank
+    (``parallel/sharding.py shard_params``)."""
     params: dict = {}
     for name, arr in flat.items():
         node = params

@@ -63,6 +63,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
                             _I, _F, _F, _I, _P],
         "ragged_paged_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _F, _F, _I, _P],
+        # q, pool_k, pool_v, pages, ctx_len, kv_len, out, C, H, Hkv, page,
+        # np, scale, softcap, window, stream
+        "ragged_chunk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                         _F, _I, _P],
+        "ragged_chunk_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _F, _F, _I, _P],
     },
 }
 

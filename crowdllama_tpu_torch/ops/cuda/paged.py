@@ -1,4 +1,4 @@
-"""Kernels B and C: attention over the paged KV pool
+"""Kernels B, C, E and F: attention over the paged KV pool
 (``csrc/paged_attention.cu``).
 
 Counterparts of ``crowdllama_tpu/ops/pallas/paged.py``:
@@ -11,6 +11,18 @@ Counterparts of ``crowdllama_tpu/ops/pallas/paged.py``:
   behind the ``ragged_paged_attention`` dispatch): the unified ragged
   batch, B decode rows plus one prefill chunk, in one launch.  Its plain
   version is :func:`ragged_paged_attention_ref`.
+- E, :func:`flash_ragged_chunk_attention` (TPU ``flash_ragged_chunk_
+  attention``, the same name and signature): one prefill chunk alone over
+  its slot's pages, C's chunk blocks without decode rows.  No engine path
+  of either package calls it (the unified step replaced it); its plain
+  version is :func:`ragged_chunk_attention_plain`.
+- F, :func:`flash_paged_decode_attention_tp` (TPU ``flash_paged_decode_
+  attention_tp``): kernel B on every tensor-parallel rank's share of the
+  q heads and pool kv heads, table and lengths shared; the per-rank
+  outputs concatenated over heads are B's answer on the whole pool.  Its
+  plain version, :func:`paged_decode_attention_tp_plain`, runs B's per
+  rank.  The paged decode step calls F at every tp degree; over one rank
+  F is B's launch alone and does not count as an F call.
 
 Pools are one layer's ``[P, Hkv, page, Dh]``, bf16 or int8 (the last page
 is the engine's dump page), tables ``[B, NP]`` int32.  An int8 pool comes
@@ -27,6 +39,10 @@ from __future__ import annotations
 import torch
 
 from crowdllama_tpu_torch.ops.attention import (
+    NEG_INF,
+    _softcap,
+    _softmax_rows,
+    _window_ok,
     decode_attention_q,
     decode_attention_ref,
     prefill_attention_ctx,
@@ -252,3 +268,147 @@ def ragged_paged_attention(q, chunk_k, chunk_v, pool_k, pool_v, page_table,
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_int8 = 0
+
+
+def ragged_chunk_attention_plain(q, pool_k, pool_v, pages, ctx_len, kv_len,
+                                 scale: float, softcap: float = 0.0,
+                                 sliding_window: int = 0, k_scale=None,
+                                 v_scale=None) -> torch.Tensor:
+    """The plain version of kernel E: gather the slot's pages (on an int8
+    pool dequantized in fp32) and run the masked fp32 attention of chunk
+    row j at position ``ctx_len + j`` over the keys ``< kv_len`` it may
+    see.  The chunk's own K/V are read back from the pool, as the kernel
+    reads them.  Rows ``j >= kv_len - ctx_len`` are the caller's to drop
+    (here they see every key below ``kv_len``; the kernel writes zeros)."""
+    c, h, dh = q.shape
+    row = pages.reshape(1, -1)
+    k, v = _gathered(pool_k, row)[0], _gathered(pool_v, row)[0]
+    if k_scale is not None:
+        k = dequantize_kv(k, _gathered_scales(k_scale, row)[0])
+        v = dequantize_kv(v, _gathered_scales(v_scale, row)[0])
+    hkv, w = k.shape[0], k.shape[1]
+    dev = q.device
+    ctx = torch.as_tensor(ctx_len, device=dev).reshape(())
+    kv = torch.as_tensor(kv_len, device=dev).reshape(())
+    qpos = (ctx + torch.arange(c, device=dev))[:, None]   # [C, 1]
+    kpos = torch.arange(w, device=dev)[None, :]            # [1, W]
+    mask = (kpos < kv) & (kpos <= qpos) & _window_ok(kpos, qpos,
+                                                    int(sliding_window))
+    qg = q.reshape(c, hkv, h // hkv, dh).float()
+    logits = torch.einsum("chgd,hkd->hgck", qg, k.float()) * scale
+    logits = _softcap(logits, softcap)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    out = torch.einsum("hgck,hkd->chgd", _softmax_rows(logits), v.float())
+    return out.reshape(c, h, dh).to(q.dtype)
+
+
+def _check_len_scalar(name: str, x, q) -> None:
+    check(isinstance(x, torch.Tensor) and x.device == q.device
+          and x.dtype == torch.int32 and x.numel() == 1,
+          f"{name} must be an int32 scalar tensor on the device")
+
+
+def flash_ragged_chunk_attention(q, pool_k, pool_v, pages, ctx_len, kv_len,
+                                 scale: float, softcap: float = 0.0,
+                                 sliding_window: int = 0, k_scale=None,
+                                 v_scale=None) -> torch.Tensor:
+    """One prefill chunk's attention over its slot's pages: q [C, H, Dh],
+    ``pages`` [NP] int32 (the slot's table row), ``ctx_len`` / ``kv_len``
+    int32 scalars on the device (tokens already in the pool, and those
+    plus the valid chunk rows), the chunk's own K/V already in the pool.
+    Row j sees keys ``< min(kv_len, ctx_len + j + 1)``.  Returns [C, H,
+    Dh]; rows past ``kv_len - ctx_len`` are the caller's to drop (kernel
+    E writes zeros there).  CPU tensors run
+    :func:`ragged_chunk_attention_plain`."""
+    quant = _check_scales(pool_k, pool_v, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return ragged_chunk_attention_plain(
+            q, pool_k, pool_v, pages, ctx_len, kv_len, scale,
+            softcap=softcap, sliding_window=sliding_window, k_scale=k_scale,
+            v_scale=v_scale)
+    check(pages.dim() == 1, "pages must be [NP]")
+    h, hkv, page, np_ = _check_pool(q, pool_k, pool_v, pages[None], k_scale,
+                                    v_scale)
+    _check_len_scalar("ctx_len", ctx_len, q)
+    _check_len_scalar("kv_len", kv_len, q)
+    out = torch.empty_like(q)
+    meta = (pages.data_ptr(), ctx_len.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), q.shape[0], h, hkv, page, np_, float(scale),
+            float(softcap or 0.0), int(sliding_window))
+    if quant:
+        launch("paged_attention", "ragged_chunk_i8", q.device,
+               q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+               k_scale.data_ptr(), v_scale.data_ptr(), *meta)
+        flash_ragged_chunk_attention.launches_int8 += 1
+    else:
+        launch("paged_attention", "ragged_chunk", q.device, q.data_ptr(),
+               pool_k.data_ptr(), pool_v.data_ptr(), *meta)
+        flash_ragged_chunk_attention.launches += 1
+    return out
+
+
+flash_ragged_chunk_attention.launches = 0
+flash_ragged_chunk_attention.launches_int8 = 0
+
+
+def _rank_scales(k_scales, v_scales, n: int) -> list[dict]:
+    if k_scales is None and v_scales is None:
+        return [{} for _ in range(n)]
+    check(k_scales is not None and v_scales is not None
+          and len(k_scales) == len(v_scales) == n,
+          "k_scales and v_scales come together, one per rank")
+    return [dict(k_scale=k, v_scale=v) for k, v in zip(k_scales, v_scales)]
+
+
+def paged_decode_attention_tp_plain(qs, pools_k, pools_v, page_table,
+                                    seq_lens, scale: float,
+                                    softcap: float = 0.0,
+                                    sliding_window: int = 0, k_scales=None,
+                                    v_scales=None) -> list[torch.Tensor]:
+    """The plain version of kernel F: kernel B's plain version on every
+    rank (the shared table and lengths moved to the rank's device)."""
+    return [paged_decode_attention_plain(
+        q, pk, pv, page_table.to(q.device), seq_lens.to(q.device), scale,
+        softcap=softcap, sliding_window=sliding_window, **sc)
+        for q, pk, pv, sc in zip(qs, pools_k, pools_v,
+                                 _rank_scales(k_scales, v_scales, len(qs)))]
+
+
+def flash_paged_decode_attention_tp(qs, pools_k, pools_v, page_table,
+                                    seq_lens, scale: float,
+                                    softcap: float = 0.0,
+                                    sliding_window: int = 0, k_scales=None,
+                                    v_scales=None) -> list[torch.Tensor]:
+    """Paged decode on a tensor-parallel pool: per rank r, q shard
+    ``qs[r]`` [B, H/tp, Dh] (kv-major heads), pools ``pools_k[r]`` /
+    ``pools_v[r]`` [P, Hkv/tp, page, Dh] (and the int8 pools' scales per
+    rank), table [B, NP] and ``seq_lens`` [B] shared.  Launches kernel B
+    on every rank's device and returns the per-rank outputs; concatenated
+    over heads they are B's answer on the whole pool.  A call over more
+    than one rank counts once in ``launches`` (``launches_int8``), beside
+    B's per-launch counts; over one rank it is B's launch alone.  CPU
+    tensors run :func:`paged_decode_attention_tp_plain`."""
+    n = len(qs)
+    check(n >= 1 and len(pools_k) == len(pools_v) == n,
+          "one q shard and one pool pair per rank")
+    scales = _rank_scales(k_scales, v_scales, n)
+    kinds = {q.device.type for q in qs}
+    check(len(kinds) == 1, f"ranks on mixed device types {sorted(kinds)}")
+    if kinds == {"cpu"}:
+        return paged_decode_attention_tp_plain(
+            qs, pools_k, pools_v, page_table, seq_lens, scale,
+            softcap=softcap, sliding_window=sliding_window,
+            k_scales=k_scales, v_scales=v_scales)
+    outs = [flash_paged_decode_attention(
+        q, pk, pv, page_table.to(q.device), seq_lens.to(q.device), scale,
+        softcap=softcap, sliding_window=sliding_window, **sc)
+        for q, pk, pv, sc in zip(qs, pools_k, pools_v, scales)]
+    if n > 1 and k_scales is None:
+        flash_paged_decode_attention_tp.launches += 1
+    elif n > 1:
+        flash_paged_decode_attention_tp.launches_int8 += 1
+    return outs
+
+
+flash_paged_decode_attention_tp.launches = 0
+flash_paged_decode_attention_tp.launches_int8 = 0

@@ -10,7 +10,8 @@ without JAX:
 are TinyLlama's heads (32 query, 4 kv, Dh 64) at small lengths, with
 softcap, a sliding window, padding, rows that carry no query and
 zero-length slots (kernels A-D, and B and C on int8 pools with bf16
-scales from ``quantize_kv``);
+scales from ``quantize_kv``; kernel E on both pools; kernel F bit-equal
+to B at tp 2 and 4);
 tolerance: one bf16 rounding of outputs of magnitude ~1 plus fp32
 summation order, atol 2e-2 + rtol 1e-2.
 """
@@ -179,3 +180,80 @@ def test_paged_int8_kernels_match_plain_on_card(cuda_device, softcap, window):
     torch.testing.assert_close(got[live].float(), want[live].float(),
                                atol=2e-2, rtol=1e-2)
     assert not got[[2, 3] + [b + i for i in range(valid, c)]].any()
+
+
+def _pools(dev, gen, int8: bool):
+    from crowdllama_tpu_torch.ops.quant import quantize_kv
+
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    pk = torch.randn((17, 4, 128, 64), generator=gen, **bf)
+    pv = torch.randn((17, 4, 128, 64), generator=gen, **bf)
+    if not int8:
+        return pk, pv, {}
+    (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
+    return pk, pv, dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ctx,valid,softcap,window", [
+    (0, 64, 0.0, 0), (256, 50, 30.0, 0), (128, 77, 0.0, 40)])
+def test_chunk_kernel_matches_plain_on_card(cuda_device, int8, ctx, valid,
+                                            softcap, window):
+    """Kernel E: one chunk of 80 rows (a partial last query block) over its
+    slot's pages; rows past the valid ones are zeros from the kernel."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_ragged_chunk_attention,
+        ragged_chunk_attention_plain,
+    )
+
+    gen, bf = _card_case(cuda_device)
+    pk, pv, sc = _pools(cuda_device, gen, int8)
+    c = 80
+    q = torch.randn((c, 32, 64), generator=gen, **bf)
+    pages = torch.tensor([3, 9, 1, 14], dtype=torch.int32, device=cuda_device)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    args = (q, pk, pv, pages, torch.tensor(ctx, **i32),
+            torch.tensor(ctx + valid, **i32), 0.125)
+    kw = dict(softcap=softcap, sliding_window=window, **sc)
+    got = flash_ragged_chunk_attention(*args, **kw)
+    want = ragged_chunk_attention_plain(*args, **kw)
+    torch.testing.assert_close(got[:valid].float(), want[:valid].float(),
+                               atol=2e-2, rtol=1e-2)
+    assert not got[valid:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_tp_decode_is_bit_identical_to_paged_decode_on_card(cuda_device,
+                                                            int8, tp):
+    """Kernel F on tp shares of the q heads and pool kv heads gives, rank
+    by rank, exactly B's output on the whole pool (its (slot, kv head)
+    blocks are independent); a call counts as an F call only over more
+    than one rank."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+    )
+
+    gen, bf = _card_case(cuda_device)
+    pk, pv, sc = _pools(cuda_device, gen, int8)
+    table = torch.tensor([[1, 2, 3, 4], [16, 0, 0, 0], [5, 6, 7, 8],
+                          [9, 10, 11, 12]], dtype=torch.int32,
+                         device=cuda_device)
+    q = torch.randn((4, 32, 64), generator=gen, **bf)
+    lens = torch.tensor([300, 1, 0, 129], dtype=torch.int32,
+                        device=cuda_device)
+    full = flash_paged_decode_attention(q, pk, pv, table, lens, 0.125, **sc)
+
+    def cut(x):
+        return [s.contiguous() for s in x.chunk(tp, dim=1)]
+
+    skw = {f"{k}s": cut(v) for k, v in sc.items()}
+    calls = lambda: (flash_paged_decode_attention_tp.launches  # noqa: E731
+                     + flash_paged_decode_attention_tp.launches_int8)
+    before = calls()
+    outs = flash_paged_decode_attention_tp(cut(q), cut(pk), cut(pv), table,
+                                           lens, 0.125, **skw)
+    assert torch.equal(torch.cat(outs, dim=1), full)
+    assert calls() - before == (tp > 1)

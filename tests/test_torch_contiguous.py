@@ -298,7 +298,8 @@ async def test_chunked_admission_streams_match_jax_engine(tmp_path, layout):
 def test_unported_axes_raise_naming_the_roadmap_item(axis, value):
     """Unported axes raise naming their ROADMAP item.  int8 KV is ported:
     it resolves on both layouts, normalized and carried in the plan, and
-    an unknown KV dtype is refused."""
+    an unknown KV dtype is refused.  A tp mesh is ported on the paged
+    layout only: the contiguous layout refuses it."""
     if axis == "kv_dtype":
         for layout in ("paged", "contiguous"):
             plan = resolve_serving_plan(Configuration(
@@ -306,6 +307,13 @@ def test_unported_axes_raise_naming_the_roadmap_item(axis, value):
             assert (plan.kv_layout, plan.kv_dtype) == (layout, "int8")
         with pytest.raises(ValueError, match="unknown kv dtype"):
             Configuration(kv_dtype="fp8")
+        return
+    if axis == "mesh_shape":
+        assert resolve_serving_plan(Configuration(
+            mesh_shape=value)).mesh_shape == value
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+            resolve_serving_plan(Configuration(mesh_shape=value,
+                                               kv_layout="contiguous"))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         resolve_serving_plan(Configuration(**{axis: value}))

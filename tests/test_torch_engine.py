@@ -90,10 +90,10 @@ def test_prefill_logits_and_kv_match_jax(model):
     valid = (np.arange(t) < plen)[None].repeat(b, 0)
     jl, jk, jv = JT.prefill(_jax_params(flat), jcfg, jnp.asarray(tokens),
                             jnp.asarray(pos), kv_valid=jnp.asarray(valid))
-    tl, tk, tv = T.prefill(params_from_numpy(flat), cfg,
-                           torch.from_numpy(tokens).long(),
-                           torch.from_numpy(pos),
-                           kv_valid=torch.from_numpy(valid))
+    tl, (tk,), (tv,) = T.prefill([params_from_numpy(flat)], cfg,
+                                 torch.from_numpy(tokens).long(),
+                                 torch.from_numpy(pos),
+                                 kv_valid=torch.from_numpy(valid))
     _close(tl, jl)
     _close(tk, jk)
     _close(tv, jv)
@@ -118,11 +118,11 @@ def test_decode_layer_body_matches_jax(model):
     want = JT.decode_layer_body(
         jlp, jcfg, jnp.asarray(x), jnp.asarray(pos), jcos, jsin,
         lambda q, k, v: q + jnp.repeat(v, g, axis=1))
-    tlp = T.layer_params(params_from_numpy(flat)["layers"], 1)
+    tlp = T.layer_params([params_from_numpy(flat)["layers"]], 1)
     got = T.decode_layer_body(
         tlp, cfg, torch.from_numpy(x), torch.from_numpy(pos),
-        torch.from_numpy(np.array(jcos)), torch.from_numpy(np.array(jsin)),
-        lambda q, k, v: q + v.repeat_interleave(g, dim=1))
+        [(torch.from_numpy(np.array(jcos)), torch.from_numpy(np.array(jsin)))],
+        lambda qs, ks, vs: [qs[0] + vs[0].repeat_interleave(g, dim=1)])
     _close(got, want)
 
 

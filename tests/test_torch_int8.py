@@ -270,6 +270,8 @@ def _kv_arrays(state, layout: str):
     out = {}
     for n in names:
         x = getattr(state, n)
+        if layout == "paged" and isinstance(x, list):  # the port's one rank
+            (x,) = x
         out[n] = (_np(x) if isinstance(x, torch.Tensor)
                   else np.asarray(jnp.asarray(x, jnp.float32)
                                   if x.dtype == jnp.bfloat16 else x))
@@ -356,7 +358,7 @@ def test_prefill_reuses_the_runner_rope_tables(monkeypatch):
 
     monkeypatch.setattr(T, "rope_for", no_rebuild)
     got = T.prefill(run.params, cfg, tokens, torch.clamp(ar, max=39)[None],
-                    (ar < 40)[None], rope=(run.cos, run.sin))[0]
+                    (ar < 40)[None], rope=run.ropes)[0]
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     with torch.inference_mode():
         st = run.init_state()
@@ -466,7 +468,7 @@ async def test_int8_streams_match_jax_engine(tmp_path, layout, ragged):
             assert sched.prefill_chunks >= 4 and sched.ragged_chunks == 0
         if layout == "paged":
             assert teng.runner.prefix_hits == jhits >= 1
-            assert teng.runner.init_state().pool_k.dtype == torch.int8
+            assert teng.runner.init_state().pool_k[0].dtype == torch.int8
     finally:
         await teng.stop()
     assert got == want
