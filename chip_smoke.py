@@ -18,7 +18,10 @@ Phases, each printing one JSON line:
    F on int8 pools with bf16 scales from ``quantize_kv``) against its
    plain PyTorch version on the same inputs — at the serving shapes
    TinyLlama-1.1B gives it, and at small shapes with softcap, a sliding
-   window and all-masked rows or zero-length slots — with times for the
+   window and all-masked rows or zero-length slots (C and E also at a
+   context that is not page-aligned, a window across a page boundary, a
+   chunk that is not a multiple of a block's queries and, for E, a group
+   of 7 query heads per kv head) — with times for the
    kernel, the plain version, one PyTorch SDPA call over the same
    (gathered; for int8, dequantized to bf16) inputs and the card's least
    time for the work (its bound).  F at tp 2 and 4 must equal B on the
@@ -32,12 +35,16 @@ Phases, each printing one JSON line:
    and read right after; kernels A-C must have launched, no other.  Then
    one prefill, one decode step and one ragged step run through the
    kernels and through the plain versions, and their logits must agree;
+   the long prompt's TTFT is reported beside the time of each ragged step
+   of a long prompt prefilled beside 3 decoding slots (and its kernel C
+   time, CUDA events);
 6. engine_int8: the same engine with ``kv_dtype="int8"`` (int8 pools)
    and the same traffic plus a seeded sampled stream (temperature 0.8,
    seed 1234) that must repeat token for token when sent again; kernels
    A, B-int8 and C-int8 must have launched and B, C (bf16) not; one
    decode step through B-int8 must agree with its plain version; the
-   steady step is reported beside the bf16 pool's;
+   ragged steps and the steady step are reported, the latter beside the
+   bf16 pool's;
 7. contiguous: ``TorchEngine(kv_layout="contiguous")`` on the same
    weights serves 8 concurrent streams of 32 tokens — 6 greedy short
    prompts, the seeded sampled stream and the ~1,500-byte prompt sent
@@ -412,16 +419,18 @@ def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
 
 
 def check_chunk(dev, gen, ctx: int, c: int, valid: int, softcap: float,
-                window: int, timed: bool, int8: bool = False) -> dict:
+                window: int, timed: bool, int8: bool = False,
+                h: int = 32) -> dict:
     """Kernel E (bf16 pool, or the int8 variant) against its plain version:
     a chunk of ``c`` rows (``valid`` carry a query) at context ``ctx`` over
-    its slot's pages, which hold ctx + valid tokens."""
+    its slot's pages, which hold ctx + valid tokens; ``h`` query heads over
+    4 kv heads."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_ragged_chunk_attention,
         ragged_chunk_attention_plain,
     )
 
-    h, hkv, dh, page, np_ = 32, 4, 64, 128, 16
+    hkv, dh, page, np_ = 4, 64, 128, 16
     pool_k, pool_v, table = _paged_inputs(dev, gen, 1, [ctx + valid], page,
                                           np_, 129)
     lib_pools, scales = (pool_k, pool_v), {}
@@ -530,7 +539,8 @@ def kernel_phase(dev) -> dict:
     ragged_serve = ([1723, 1, 402, 0, 77, 1200, 0, 960], 3, 1024, 512, 512,
                     0.0, 0)
     ragged_small = [([40, 0, 300, 0], 3, 256, 96, 70, 30.0, 0),
-                    ([40, 130, 0, 9], 2, 128, 64, 64, 0.0, 33)]
+                    ([40, 130, 0, 9], 2, 128, 64, 64, 0.0, 33),
+                    ([40, 0, 300, 0], 3, 200, 75, 61, 30.0, 100)]
     for key, int8 in (("C", False), ("C_int8", True)):
         cres = check_ragged(dev, gen, *ragged_serve, timed=True, int8=int8)
         small = [check_ragged(dev, gen, *a, timed=False, int8=int8)
@@ -554,7 +564,11 @@ def kernel_phase(dev) -> dict:
             check_chunk(dev, gen, 128, 80, 77, 0.0, 33, False,
                         int8=int8)["max_abs_err"],
             check_chunk(dev, gen, 0, 64, 64, 0.0, 0, False,
-                        int8=int8)["max_abs_err"]]
+                        int8=int8)["max_abs_err"],
+            check_chunk(dev, gen, 200, 75, 60, 30.0, 100, False,
+                        int8=int8)["max_abs_err"],
+            check_chunk(dev, gen, 200, 75, 61, 0.0, 100, False, int8=int8,
+                        h=28)["max_abs_err"]]
         out[key] = eres
     for key, int8 in (("F", False), ("F_int8", True)):
         fres = check_tp_decode(dev, gen, serve_lens, 2, 0.0, 0, timed=True,
@@ -849,6 +863,20 @@ def logits_check(engine, dev, ragged: bool = True) -> dict:
     return errs
 
 
+def _event_timed(kernel, spans: list):
+    """``kernel`` wrapped to record a pair of CUDA events around each call
+    into ``spans``."""
+    def timed(*a, **kw):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = kernel(*a, **kw)
+        ev1.record()
+        spans.append((ev0, ev1))
+        return out
+    return timed
+
+
 def decode_step_timing(engine, dev, kernel=None, steps: int = 8,
                        temperature: float = 0.0) -> dict:
     """Steady-state decode with all slots live (each sampling at
@@ -872,19 +900,9 @@ def decode_step_timing(engine, dev, kernel=None, steps: int = 8,
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / steps
         spans = []
-
-        def timed(*a, **kw):
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            out = kernel(*a, **kw)
-            ev1.record()
-            spans.append((ev0, ev1))
-            return out
-
         if kernel is not None:
             seam = r.decode_attn
-            r.decode_attn = timed
+            r.decode_attn = _event_timed(kernel, spans)
             r.decode_steps(st, steps)
             r.decode_attn = seam
             torch.cuda.synchronize()
@@ -894,6 +912,37 @@ def decode_step_timing(engine, dev, kernel=None, steps: int = 8,
         out["kernel_ms_per_step"] = sum(a.elapsed_time(b)
                                         for a, b in spans) / steps
     return out
+
+
+def ragged_step_timing(engine, kernel) -> dict:
+    """A long prompt (LONG behind a new first page, so no prefix hit)
+    prefilled alone through ragged steps of one chunk beside 3 live decode
+    slots, as the scheduler dispatches them: host wall ms of each step
+    (ending in a synchronize) and the GPU time of the step's ragged
+    attention launches (``kernel``, the runner's ``ragged_attn``, CUDA
+    events)."""
+    r, tok = engine.runner, engine.tokenizer
+    spans, step_ms = [], []
+    with torch.inference_mode():
+        st = _three_slots(r, tok)
+        job = r.ragged_begin(tok.encode("Timed. " + LONG), 5, st)
+        r.ragged_attn = _event_timed(kernel, spans)
+        try:
+            while not job.finished:
+                r.pre_decode_check(1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, st = r.ragged_step(st, job, 1)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            r.ragged_attn = kernel
+            r.ragged_abort(job)
+    steps = len(step_ms)
+    return {"chunk": r.ragged_chunk, "steps": steps, "step_ms": step_ms,
+            "step_ms_mean": sum(step_ms) / steps,
+            "attention_ms_per_step": sum(a.elapsed_time(b)
+                                         for a, b in spans) / steps}
 
 
 @functools.cache
@@ -926,6 +975,7 @@ def engine_phase(dev) -> dict:
     """The paged engine with a bf16 pool (the default config)."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_paged_decode_attention_tp,
+        ragged_paged_attention,
     )
 
     engine, summary, reqs = run_engine(
@@ -938,12 +988,14 @@ def engine_phase(dev) -> dict:
         raise AssertionError(f"prefix hits {summary['prefix_hits']}, ragged "
                              f"chunks {ragged_chunks}: a path was not taken")
     errs = _check_logit_errs(logits_check(engine, dev), "paged")
+    ragged = ragged_step_timing(engine, ragged_paged_attention)
     steady = decode_step_timing(engine, dev, flash_paged_decode_attention_tp)
     steady_sampled = decode_step_timing(engine, dev,
                                         flash_paged_decode_attention_tp,
                                         temperature=0.8)
     emit({"phase": "engine", "model": "tinyllama-1.1b", "layers": 22,
           **summary, "ragged_chunks": ragged_chunks,
+          "long_ttft_ms": reqs["long"]["ttft_ms"], "ragged_step": ragged,
           "logits_max_abs_err": errs, "steady_decode": steady,
           "steady_decode_sampled": steady_sampled,
           "logits_rtol": LOGIT_RTOL, "card": torch.cuda.get_device_name(0)})
@@ -1048,6 +1100,7 @@ def int8_paged_phase(dev, bf16: dict) -> dict:
     kernels A, B-int8 and C-int8 launch, the bf16 variants do not."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_paged_decode_attention_tp,
+        ragged_paged_attention,
     )
 
     streams = {**GREEDY, "prefix_hit": (HIT, {}), "sampled": SAMPLED}
@@ -1063,6 +1116,7 @@ def int8_paged_phase(dev, bf16: dict) -> dict:
                              f"chunks {ragged_chunks}: a path was not taken")
     errs = _check_logit_errs(logits_check(engine, dev, ragged=False),
                              "int8 paged")
+    ragged = ragged_step_timing(engine, ragged_paged_attention)
     steady = decode_step_timing(engine, dev, flash_paged_decode_attention_tp)
     # Greedy tokens equal to the bf16 pool's, position by position (reported:
     # int8 KV changes the logits of random weights).
@@ -1071,6 +1125,7 @@ def int8_paged_phase(dev, bf16: dict) -> dict:
             for a, b in zip(ids, reqs[name]["ids"])]
     emit({"phase": "engine_int8", "model": "tinyllama-1.1b", "layers": 22,
           "kv_dtype": "int8", **summary, "ragged_chunks": ragged_chunks,
+          "long_ttft_ms": reqs["long"]["ttft_ms"], "ragged_step": ragged,
           "sampled_ids": reqs["sampled"]["ids"],
           "logits_max_abs_err": errs, "logits_rtol": LOGIT_RTOL,
           "steady_decode": steady, "bf16_steady_decode": bf16["steady"],

@@ -6,12 +6,35 @@
 // across key tiles; a row that saw no valid key ends with l == 0, which is
 // read as 1, so it outputs zeros and never NaN.  Query head h reads kv head
 // h / G.  Head dim is fixed at DH = 64 (the wrappers refuse anything else).
+// Int8 K/V come with per-key fp32 scales: the K scale multiplies the score
+// after `scale`, before the softcap; the V scale multiplies the probability
+// after it was added to l, so only the output sum sees it
+// (ops/pallas/paged.py _decode_kernel, _chunk_kernel).
 //
-// Staged K/V rows are bf16 or int8 (the routines are templates on the
-// element type).  An int8 row comes with a per-key fp32 scale in shared
-// memory: the K scale multiplies the score after `scale`, before the
-// softcap; the V scale multiplies the probability after it was added to
-// l, so only the output sum sees it (ops/pallas/paged.py _decode_kernel).
+// Two ways to attend query rows to staged key tiles:
+//
+// - row_attend_tile: one thread per (query, head) row, fp32 FMAs, bf16
+//   tiles (kernel A).
+// - tc_attend, the tensor-core tile (the chunk blocks of kernels C and E).
+//   Bound on the H100: operations, 4 * DH flops per visible (row, key) pair
+//   at 989 TF/s bf16; the K/V bytes are read once per block, mostly from
+//   L2, and take less time.  Design: a block holds 128 (query, head) rows
+//   of one kv head, 16 per warp; Q's mma fragments are loaded once per
+//   block; 128-key tiles, gathered from wherever the caller says each 16
+//   keys live (pages of the pool, or a stretch of a cache), stream through
+//   a three-stage cp.async ring, so two tiles are in flight while one is
+//   computed, with one barrier per tile (int8: two, around its
+//   conversion); S = Q K^T of a whole tile is
+//   mma.sync.m16n8k16 (bf16 in, fp32 accumulate) from ldmatrix fragments
+//   into fp32 registers; row max and sum by quad shuffles; masks only on
+//   tiles that cross the block's kv_len, causal or window edge; O rescaled
+//   once per tile; P reused in registers as the A operand of O += P V
+//   (ldmatrix.trans for V).  Rows are padded in shared memory to 144
+//   bytes, so ldmatrix has no bank conflicts.  An int8 tile is staged raw
+//   (half the bytes) and converted to bf16 in shared memory once per
+//   block, exactly (|x| <= 127).  Products of bf16 values are exact in the
+//   fp32 accumulators; the one rounding the TPU kernel does not make is P
+//   in bf16 (it keeps P in fp32), after l's sum and after the V scale.
 
 #pragma once
 
@@ -120,19 +143,15 @@ __device__ __forceinline__ void stage_rows(T* dst, int stride, const T* src, int
   }
 }
 
-// Thread-per-row online-softmax update over one staged key tile of `n`
-// keys (n <= the tile's allocated rows, rows past n zero-filled).  Key j
-// sits at position kpos_sm[j] (or kpos0 + j when kpos_sm is null) and is
+// Thread-per-row online-softmax update over one staged bf16 key tile of
+// `n` keys (n <= the tile's allocated rows, rows past n zero-filled).  Key
+// j sits at position kpos_sm[j] (or kpos0 + j when kpos_sm is null) and is
 // valid when kval_sm[j] != 0 (all valid when null) and key_visible().
-// Int8 tiles (T = int8_t) read their per-key scales from ksc/vsc.
-template <typename T>
 __device__ __forceinline__ void row_attend_tile(
     const float (&q)[DH], float (&acc)[DH], float& m, float& l,
-    const T* Ksm, int kstride, const T* Vsm, int vstride,
+    const __nv_bfloat16* Ksm, int kstride, const __nv_bfloat16* Vsm, int vstride,
     int n, const int* kpos_sm, const unsigned char* kval_sm, int kpos0,
-    int qpos, int kv_len, int window, float scale, float softcap,
-    const float* ksc = nullptr, const float* vsc = nullptr) {
-  constexpr bool Q8 = std::is_same<T, int8_t>::value;
+    int qpos, int kv_len, int window, float scale, float softcap) {
   for (int j0 = 0; j0 < n; j0 += SUB) {
     float s[SUB];
     float tmax = NEG_INF;
@@ -147,9 +166,7 @@ __device__ __forceinline__ void row_attend_tile(
       }
       float sc = NEG_INF;
       if (v) {
-        sc = dot_row(q, Ksm + j * kstride) * scale;
-        if constexpr (Q8) sc *= ksc[j];
-        sc = softcap_f(sc, softcap);
+        sc = softcap_f(dot_row(q, Ksm + j * kstride) * scale, softcap);
         ok |= 1u << jj;
         tmax = fmaxf(tmax, sc);
       }
@@ -171,14 +188,12 @@ __device__ __forceinline__ void row_attend_tile(
 #pragma unroll
     for (int jj = 0; jj < SUB; ++jj) {
       if (j0 + jj >= n) break;
-      const T* vrow = Vsm + (j0 + jj) * vstride;
-      float p = s[jj];
-      if constexpr (Q8) p *= vsc[j0 + jj];
+      const __nv_bfloat16* vrow = Vsm + (j0 + jj) * vstride;
 #pragma unroll
       for (int d = 0; d < DH / 2; ++d) {
         const float2 f = load_pair(vrow, d);
-        acc[2 * d] = fmaf(p, f.x, acc[2 * d]);
-        acc[2 * d + 1] = fmaf(p, f.y, acc[2 * d + 1]);
+        acc[2 * d] = fmaf(s[jj], f.x, acc[2 * d]);
+        acc[2 * d + 1] = fmaf(s[jj], f.y, acc[2 * d + 1]);
       }
     }
   }
@@ -191,6 +206,343 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* dst, const float (&acc)
 #pragma unroll
   for (int d = 0; d < DH / 2; ++d)
     d2[d] = __floats2bfloat162_rn(acc[2 * d] * inv, acc[2 * d + 1] * inv);
+}
+
+// ------------------------------------------------------------------------
+// The tensor-core tile.
+
+constexpr int TC_WARPS = 8;
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_ROWS = 16 * TC_WARPS;  // (query, head) rows of a block
+constexpr int TC_TILE = 128;            // keys per staged tile
+constexpr int TC_STAGES = 3;            // tiles in the cp.async ring
+constexpr int TC_GROUP = 16;            // keys a caller places together
+constexpr int TC_SROW = DH + 8;         // bf16 shared-memory row: 144 bytes
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most the N newest committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Bytes 2i and 2i + 1 of w (signed) as a bf16 pair, exactly.
+__device__ __forceinline__ uint32_t i8x2_to_bf16(uint32_t w, int i) {
+  return pack_bf16((float)((int)(w << (24 - 16 * i)) >> 24),
+                   (float)((int)(w << (16 - 16 * i)) >> 24));
+}
+
+// Shared memory of tc_attend.  bf16: a ring of TC_STAGES K and V tiles
+// [TC_TILE][TC_SROW].  int8: the bf16 K and V tiles the mma reads, a ring
+// of raw stages (K, V [TC_TILE][DH] int8, then their bf16 scales), and the
+// current tile's scales in fp32.
+template <typename T>
+__host__ __device__ constexpr size_t tc_smem_bytes() {
+  return std::is_same<T, int8_t>::value
+             ? (size_t)TC_TILE * (2 * TC_SROW * 2 + TC_STAGES * (2 * DH + 2 * 2) + 2 * 4)
+             : (size_t)TC_TILE * TC_STAGES * 2 * TC_SROW * 2;
+}
+
+// Attention of one block of 128 (query, head) rows over the keys at
+// positions [k_lo, k_hi), all TC_THREADS threads.  Rows are query-major:
+// row r is query r / G of the block, at position q_start + r / G, and head
+// r % G of the kv head (queries per block: TC_ROWS / G; a group that does
+// not divide 128 pads the last rows).  q and out point at the block's
+// first query for its first head; queries are q_stride elements apart,
+// heads DH.  Queries >= n_queries do not exist (never read or written);
+// queries >= q_valid carry no query and are written as zeros.  The caller
+// says where the keys live: the TC_GROUP keys at positions 16 g .. 16 g +
+// 15 are rows key_row(g) .. + 15 of k and v ([rows, DH]) and, on int8, of
+// the scales ks and vs, for g < groups (a tile past them re-reads group
+// groups - 1, whose keys lie past kv_len and are masked).  A key is seen
+// when key_visible() allows it.  `smem` holds tc_smem_bytes<T>() bytes,
+// 16-byte aligned.
+template <typename T, typename KeyRow>
+__device__ __forceinline__ void tc_attend(
+    unsigned char* smem, const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    size_t q_stride, int G, int n_queries, int q_valid, int q_start, const T* __restrict__ k,
+    const T* __restrict__ v, const __nv_bfloat16* __restrict__ ks,
+    const __nv_bfloat16* __restrict__ vs, KeyRow key_row, int groups, int k_lo, int k_hi,
+    int kv_len, int window, float scale, float softcap) {
+  constexpr bool Q8 = std::is_same<T, int8_t>::value;
+  constexpr int NT = TC_TILE / 8;  // S column tiles of 8 keys
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;  // fragment row (and row + 8), column pair
+
+  // This thread's two fragment rows: warp * 16 + gq and that + 8.
+  size_t roff[2];
+  int qpos[2];
+  bool exist[2], live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gq + 8 * i, qi = r / G;
+    exist[i] = qi < TC_ROWS / G && qi < n_queries;
+    live[i] = exist[i] && qi < q_valid;
+    qpos[i] = q_start + qi;
+    roff[i] = (size_t)qi * q_stride + (size_t)(r % G) * DH;
+  }
+  // Q as the A operand of four k-steps of 16 dims, zero on rows without a
+  // query.
+  uint32_t qf[DH / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e & 1, col = kk * 16 + 2 * tq + (e >> 1) * 8;
+      qf[kk][e] = live[i] ? *reinterpret_cast<const uint32_t*>(q + roff[i] + col) : 0u;
+    }
+  }
+
+  float o[DH / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < DH / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // running max, log2 units
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+
+  constexpr size_t TILE_B = (size_t)TC_TILE * TC_SROW * 2;  // one bf16 K or V tile
+  __nv_bfloat16* const tiles = reinterpret_cast<__nv_bfloat16*>(smem);
+  int8_t* const raw = reinterpret_cast<int8_t*>(smem + 2 * TILE_B);
+  __nv_bfloat16* const raw_sc =
+      reinterpret_cast<__nv_bfloat16*>(raw + (size_t)TC_STAGES * 2 * TC_TILE * DH);
+  float* const KSc = reinterpret_cast<float*>(raw_sc + (size_t)TC_STAGES * 2 * TC_TILE);
+  float* const VSc = KSc + TC_TILE;
+
+  // Start the copies of key tile n into ring stage `stage`.
+  auto issue = [&](int n, int stage) {
+    const int g0 = n * (TC_TILE / TC_GROUP);
+    if constexpr (!Q8) {
+      __nv_bfloat16* kd = tiles + (size_t)stage * 2 * TC_TILE * TC_SROW;
+      __nv_bfloat16* vd = kd + (size_t)TC_TILE * TC_SROW;
+#pragma unroll
+      for (int c = tid; c < TC_TILE * (DH / 8); c += TC_THREADS) {
+        const int r = c / (DH / 8), col = (c % (DH / 8)) * 8;
+        const size_t row = key_row(min(g0 + r / TC_GROUP, groups - 1)) + r % TC_GROUP;
+        cp_async16(kd + r * TC_SROW + col, k + row * DH + col);
+        cp_async16(vd + r * TC_SROW + col, v + row * DH + col);
+      }
+    } else {
+      int8_t* kd = raw + (size_t)stage * 2 * TC_TILE * DH;
+      int8_t* vd = kd + (size_t)TC_TILE * DH;
+#pragma unroll
+      for (int c = tid; c < TC_TILE * (DH / 16); c += TC_THREADS) {
+        const int r = c / (DH / 16), col = (c % (DH / 16)) * 16;
+        const size_t row = key_row(min(g0 + r / TC_GROUP, groups - 1)) + r % TC_GROUP;
+        cp_async16(kd + r * DH + col, k + row * DH + col);
+        cp_async16(vd + r * DH + col, v + row * DH + col);
+      }
+      // Scales: 8 keys a copy, two copies a group; K's, then V's.
+      if (tid < 2 * (TC_TILE / 8)) {
+        const int c = tid % (TC_TILE / 8);
+        const size_t row = key_row(min(g0 + c / 2, groups - 1)) + (c % 2) * 8;
+        const bool isv = tid >= TC_TILE / 8;
+        __nv_bfloat16* sd = raw_sc + (size_t)(stage * 2 + isv) * TC_TILE;
+        cp_async16(sd + c * 8, (isv ? vs : ks) + row);
+      }
+    }
+  };
+
+  const int q_last = q_start + q_valid - 1;
+  const int t_lo = max(k_lo, 0) / TC_TILE;
+  const int ntiles = k_hi > 0 ? (k_hi + TC_TILE - 1) / TC_TILE - t_lo : 0;
+#pragma unroll
+  for (int st = 0; st < TC_STAGES - 1; ++st) {
+    if (st < ntiles) issue(t_lo + st, st);
+    cp_async_commit();
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    const int n = t_lo + it, stage = it % TC_STAGES;
+    cp_async_wait<TC_STAGES - 2>();
+    // Tile n has landed, from every thread's copies, and every warp is
+    // done with tile n - 1: its stage takes tile n + TC_STAGES - 1.
+    __syncthreads();
+    if (it + TC_STAGES - 1 < ntiles)
+      issue(n + TC_STAGES - 1, (it + TC_STAGES - 1) % TC_STAGES);
+    cp_async_commit();
+    const __nv_bfloat16* Ks = tiles;
+    if constexpr (Q8) {
+      // int8 -> bf16 once per element per block, scales -> fp32.
+      const int8_t* kr = raw + (size_t)stage * 2 * TC_TILE * DH;
+#pragma unroll
+      for (int c = tid; c < 2 * TC_TILE * (DH / 16); c += TC_THREADS) {
+        const uint4 w = *reinterpret_cast<const uint4*>(kr + c * 16);
+        // c covers K rows then V rows, 4 chunks of 16 a row.
+        uint4* d = reinterpret_cast<uint4*>(tiles + (size_t)(c / 4) * TC_SROW + (c % 4) * 16);
+        d[0] = make_uint4(i8x2_to_bf16(w.x, 0), i8x2_to_bf16(w.x, 1), i8x2_to_bf16(w.y, 0),
+                          i8x2_to_bf16(w.y, 1));
+        d[1] = make_uint4(i8x2_to_bf16(w.z, 0), i8x2_to_bf16(w.z, 1), i8x2_to_bf16(w.w, 0),
+                          i8x2_to_bf16(w.w, 1));
+      }
+      const __nv_bfloat16* sc = raw_sc + (size_t)stage * 2 * TC_TILE;
+      if (tid < TC_TILE) {
+        KSc[tid] = __bfloat162float(sc[tid]);
+        VSc[tid] = __bfloat162float(sc[TC_TILE + tid]);
+      }
+      __syncthreads();
+    } else {
+      Ks = tiles + (size_t)stage * 2 * TC_TILE * TC_SROW;
+    }
+    const __nv_bfloat16* Vs = Ks + (size_t)TC_TILE * TC_SROW;
+
+    const int base = n * TC_TILE;
+    // Does a key of this tile fall outside some live row's view?
+    const bool edge = base + TC_TILE > kv_len || base + TC_TILE - 1 > q_start ||
+                      (window > 0 && base <= q_last - window);
+
+    // S = Q K^T: column tile nt holds keys nt * 8 .. + 7.
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      const __nv_bfloat16* kr = Ks + (nt * 8 + (lane & 7)) * TC_SROW + (lane >> 3) * 8;
+      uint32_t b[4];
+      ldsm_x4(b, kr);
+      mma_16816(s[nt], qf[0], b[0], b[1]);
+      mma_16816(s[nt], qf[1], b[2], b[3]);
+      ldsm_x4(b, kr + 32);
+      mma_16816(s[nt], qf[2], b[0], b[1]);
+      mma_16816(s[nt], qf[3], b[2], b[3]);
+    }
+    // Logits in log2 units: dot * scale (* K scale), softcap, mask.
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[nt][e] * scale;
+          if constexpr (Q8) x *= KSc[nt * 8 + 2 * tq + (e & 1)];
+          s[nt][e] = softcap * tanhf(x / softcap) * LOG2E;
+        }
+    } else {
+      const float scale2 = scale * LOG2E;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[nt][e] * scale2;
+          if constexpr (Q8) x *= KSc[nt * 8 + 2 * tq + (e & 1)];
+          s[nt][e] = x;
+        }
+    }
+    if (edge) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!key_visible(base + nt * 8 + 2 * tq + (e & 1), qpos[e >> 1], kv_len, window))
+            s[nt][e] = NEG_INF;
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+    }
+    float alpha[2], mref[2], lsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      // A row that has seen no key yet: every logit is NEG_INF, and
+      // exp2(NEG_INF - 0) is 0.
+      mref[i] = m_new == NEG_INF ? 0.f : m_new;
+    }
+    // P = exp(S - m) in fp32 into l, then (int8) times the V scale.
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = exp2f(s[nt][e] - mref[i]);
+        lsum[i] += p;
+        if constexpr (Q8) p *= VSc[nt * 8 + 2 * tq + (e & 1)];
+        s[nt][e] = p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + lsum[i];
+#pragma unroll
+    for (int dt = 0; dt < DH / 8; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+    // O += P V: P's accumulator tiles 2kt, 2kt + 1 are the A fragment of
+    // keys kt * 16 .. + 15, rounded to bf16.
+#pragma unroll
+    for (int kt = 0; kt < NT / 2; ++kt) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]),
+                             pack_bf16(s[2 * kt][2], s[2 * kt][3]),
+                             pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
+                             pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
+      const int mi = lane >> 3;
+      const __nv_bfloat16* vr =
+          Vs + (kt * 16 + (lane & 7) + (mi & 1) * 8) * TC_SROW + (mi >> 1) * 8;
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, vr + dp * 16);
+        mma_16816(o[2 * dp], a, b[0], b[1]);
+        mma_16816(o[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (!exist[i]) continue;
+    const float inv = live[i] ? 1.f / (l[i] == 0.f ? 1.f : l[i]) : 0.f;
+    __nv_bfloat16* orow = out + roff[i];
+#pragma unroll
+    for (int dt = 0; dt < DH / 8; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * tq) =
+          live[i] ? __floats2bfloat162_rn(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv)
+                  : __floats2bfloat162_rn(0.f, 0.f);
+  }
 }
 
 }  // namespace cla

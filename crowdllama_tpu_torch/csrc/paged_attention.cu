@@ -5,7 +5,7 @@
 // flash_paged_decode_attention (_decode_kernel): one query token per slot
 // over that slot's pages.  C, ragged_paged, replaces
 // flash_ragged_paged_attention (_ragged_v2_kernel): B decode rows plus one
-// prefill chunk cut into QB-row query blocks, in one launch.  E,
+// prefill chunk cut into query blocks, in one launch.  E,
 // ragged_chunk, replaces flash_ragged_chunk_attention (_chunk_kernel): one
 // prefill chunk alone over its slot's pages, C's chunk blocks without the
 // decode rows (both run the same chunk_block routine).  Kernel F of the
@@ -20,30 +20,41 @@
 // kpos <= qpos and the window allows it (window <= 0 disables; decode's
 // qpos is its newest position).
 //
-// Bound on the H100: bytes.  Each live page is [page, DH] K and V per kv
-// head; a decode row does 4 * DH flops per key per query head (G = 8 heads
-// share a key), ~2 flop per byte read, far below the ~295 flop/byte at which
-// the tensor cores would bound.  So the least time is the live KV bytes at
-// 3.35 TB/s.  What the design does about it: a block reads only the pages
-// below its causal/validity bound (ceil(bound / page) pages, never the
-// table's full width); the G query heads of a kv head share every page read
-// (one warp per query head over one staged page); and no gathered copy of
-// the pool is ever written.  An int8 pool halves the K/V bytes: its page
-// is staged as int8, with the page's K and V scales beside it as fp32, and
-// converted to fp32 in registers; the K scale goes on the score and the V
-// scale on the probability after l is summed, so no dequantized page is
-// written either.  This first version stages one page at a time
-// without overlapping the next page's load, so it stays well above the
-// bound; double-buffered cp.async/TMA staging is later work.
-//
 // Decode rows (B, and C's decode blocks): one block per (slot, kv head),
 // one warp per query head; each lane scores keys lane, lane + 32, ... of a
 // page, warp shuffles give the page's max and sum, and each lane
-// accumulates two output dims.  Chunk blocks of C and E: one block per
-// (query block of QB = 32 queries, kv head), one thread per (query, head)
-// row, the shared thread-per-row routine of attention_common.cuh.  A chunk
-// block does ~4 * DH flops per key per row in fp32 FMA, so it is bound by
-// operations, not bytes (the tensor cores are later work).
+// accumulates two output dims.  Bound on the H100: bytes.  Each live page
+// is [page, DH] K and V per kv head; a decode row does 4 * DH flops per key
+// per query head (G = 8 heads share a key), ~2 flop per byte read, far
+// below the ~295 flop/byte at which the tensor cores would bound.  So the
+// least time is the live KV bytes at 3.35 TB/s.  What the design does about
+// it: a block reads only the pages below its causal/validity bound
+// (ceil(bound / page) pages, never the table's full width); the G query
+// heads of a kv head share every page read; and no gathered copy of the
+// pool is ever written.  An int8 pool halves the K/V bytes: its page is
+// staged as int8, with the page's K and V scales beside it as fp32, and
+// converted to fp32 in registers; the K scale goes on the score and the V
+// scale on the probability after l is summed.  This first version stages
+// one page at a time without overlapping the next page's load, so it stays
+// well above the bound; double-buffered staging and split-KV are later
+// work.
+//
+// Chunk blocks (C's chunk rows, and every block of E): one block per
+// (query block of 128 / G queries, kv head), the 128 (query, head) rows of
+// the tensor-core tile of attention_common.cuh (tc_attend), which gathers
+// its 128-key tiles from the slot's pages in 16-key groups (a page of 128
+// is one tile).  Bound on the H100: operations, 4 * DH flops per visible
+// (row, key) pair at 989 TF/s bf16 (TinyLlama's 512-row chunk at context
+// 1024 moves ~5.8 MB of q, K/V and out, whose time at 3.35 TB/s is about a
+// third of the operations' time).  The block walks only the tiles that
+// hold a key some live row sees: from the window's start for its first
+// query to its causal/validity bound.  With G = 8 a block holds 16
+// queries, so a 512-row chunk is 32 x Hkv blocks.  Dynamic shared memory
+// is 110,592 bytes (three bf16 stages of K and V; int8: 88,576), past the
+// 48 KB default: each launcher opts its kernel in once per device.  The
+// registers (a whole tile's fp32 S, O and Q's fragments, ~180-195 a
+// thread) hold an SM to one such block of 256 threads; C's 8 decode + 32
+// chunk blocks per kv head thus fill the card once and a fraction.
 
 #include "attention_common.cuh"
 
@@ -51,8 +62,7 @@ namespace {
 
 using namespace cla;
 
-constexpr int QB = 32;          // chunk query rows per block (TPU _CHUNK_QB)
-constexpr int THREADS_C = 256;  // QB x G (G <= 8) rows; 8 warps for decode
+constexpr int THREADS_C = TC_THREADS;  // 8 warps: a decode warp per head (G <= 8)
 
 template <typename T>
 __host__ __device__ constexpr bool is_q8() { return std::is_same<T, int8_t>::value; }
@@ -196,16 +206,28 @@ __device__ __forceinline__ void decode_heads(const PageSmem<T>& s,
   }
 }
 
-// Chunk query block jb for kv head h: the chunk's rows jb*QB + r (r < QB,
-// row < C) at positions ctx + row; the first q_len rows of the chunk carry
-// a query, the others exist only to be written as zeros.  One thread per
-// (row, query head of the group), the thread-per-row routine of
-// attention_common.cuh over the slot's pages `trow`, stopping at the
-// block's causal/validity bound.  q and out point at chunk row 0
-// ([C, H, DH]).  Kernel C runs it for its chunk blocks, kernel E for all
-// of its blocks.
+// Where the 16 keys at positions 16 g .. 16 g + 15 of a chunk block's slot
+// live: in table entry 16 g / page's page for kv head h, as rows of the
+// pool viewed as [P * Hkv * page, DH] (and of the scales as [P * Hkv *
+// page]).
+struct PageRows {
+  const int* table;
+  int Hkv, h, page;
+  __device__ __forceinline__ size_t operator()(int g) const {
+    const int pos = g * TC_GROUP;
+    return ((size_t)table[pos / page] * Hkv + h) * page + pos % page;
+  }
+};
+
+// Chunk query block jb for kv head h: the chunk's queries jb * QB + i (i <
+// QB = 128 / G, below C) at positions ctx + jb * QB + i; the first q_len
+// queries of the chunk carry a query, the others are written as zeros.
+// The tensor-core tile over the slot's pages `trow` (np of them), from the
+// window's start for the block's first query to its causal/validity
+// bound.  q and out point at chunk row 0 ([C, H, DH]).  Kernel C runs it
+// for its chunk blocks, kernel E for all of its blocks.
 template <typename T>
-__device__ __forceinline__ void chunk_block(const PageSmem<T>& s,
+__device__ __forceinline__ void chunk_block(unsigned char* smem,
                                             const __nv_bfloat16* __restrict__ q,
                                             const T* __restrict__ pool_k,
                                             const T* __restrict__ pool_v,
@@ -213,38 +235,19 @@ __device__ __forceinline__ void chunk_block(const PageSmem<T>& s,
                                             const __nv_bfloat16* __restrict__ v_scale,
                                             const int* __restrict__ trow,
                                             __nv_bfloat16* __restrict__ out, int jb, int C,
-                                            int H, int G, int Hkv, int h, int page, int ctx,
-                                            int q_len, int kv_len, int window, float scale,
-                                            float softcap) {
-  const int q_start = ctx + jb * QB;
-  const int q_valid = max(0, min(QB, q_len - jb * QB));
-  const int r = threadIdx.x / G, g = threadIdx.x % G;
-  const int row = jb * QB + r;  // chunk row index in [0, C)
-  const bool exists = r < QB && row < C;
-  const bool live = exists && r < q_valid;
-  const int qpos = q_start + r;
-
-  float qr[DH], acc[DH];
-  float m = NEG_INF, l = 0.f;
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-  if (live) {
-    load_row_f32(q + ((size_t)row * H + h * G + g) * DH, qr);
-  } else {
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qr[d] = 0.f;
-  }
-  const int bound = min(kv_len, q_start + q_valid);
-  const int npages = q_valid > 0 && bound > 0 ? (bound + page - 1) / page : 0;
-  for (int n = 0; n < npages; ++n) {
-    __syncthreads();
-    stage_page(s, pool_k, pool_v, k_scale, v_scale, trow[n], h, Hkv, page);
-    __syncthreads();
-    if (live)
-      row_attend_tile(qr, acc, m, l, s.K, k_stride<T>(), s.V, DH, page, nullptr, nullptr,
-                      n * page, qpos, kv_len, window, scale, softcap, s.KSc, s.VSc);
-  }
-  if (exists) store_row(out + ((size_t)row * H + h * G + g) * DH, acc, l);
+                                            int H, int G, int Hkv, int h, int page, int np,
+                                            int ctx, int q_len, int kv_len, int window,
+                                            float scale, float softcap) {
+  const int qb = TC_ROWS / G;
+  const int q0 = jb * qb;
+  const int q_start = ctx + q0;
+  const int q_valid = max(0, min(qb, q_len - q0));
+  const int bound = q_valid > 0 ? min(kv_len, q_start + q_valid) : 0;
+  const int k_lo = window > 0 ? q_start - window + 1 : 0;
+  const size_t first = ((size_t)q0 * H + (size_t)h * G) * DH;
+  tc_attend<T>(smem, q + first, out + first, (size_t)H * DH, G, C - q0, q_valid, q_start,
+               pool_k, pool_v, k_scale, v_scale, PageRows{trow, Hkv, h, page},
+               np * page / TC_GROUP, k_lo, bound, kv_len, window, scale, softcap);
 }
 
 template <typename T>
@@ -276,10 +279,10 @@ ragged_paged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ p
                     float scale, float softcap, int window) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / Hkv;
-  const PageSmem<T> s = carve<T>(smem, page, THREADS_C / 32, G);
   const int nb = blockIdx.x, h = blockIdx.y;
 
   if (nb < B) {  // decode row nb: q_start = kv_len - 1, q_valid = q_lens[nb]
+    const PageSmem<T> s = carve<T>(smem, page, THREADS_C / 32, G);
     __nv_bfloat16* o_row = out + (size_t)nb * H * DH;
     if (q_lens[nb] <= 0) {  // inactive slot: zeros, as the TPU kernel writes
       for (int i = threadIdx.x; i < G * DH; i += blockDim.x)
@@ -295,9 +298,10 @@ ragged_paged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ p
 
   // Chunk block nb - B of the chunk rows that follow the B decode rows.
   const int kv_len = kv_lens[B];
-  chunk_block(s, q + (size_t)B * H * DH, pool_k, pool_v, k_scale, v_scale,
+  chunk_block(smem, q + (size_t)B * H * DH, pool_k, pool_v, k_scale, v_scale,
               table + (size_t)chunk_slot * np, out + (size_t)B * H * DH, nb - B, C, H, G,
-              Hkv, h, page, kv_len - q_lens[B], q_lens[B], kv_len, window, scale, softcap);
+              Hkv, h, page, np, kv_len - q_lens[B], q_lens[B], kv_len, window, scale,
+              softcap);
 }
 
 // Kernel E: one prefill chunk alone, grid (chunk blocks, kv heads).  The
@@ -313,13 +317,11 @@ ragged_chunk_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ p
                     __nv_bfloat16* __restrict__ out, int C, int H, int Hkv, int page, int np,
                     float scale, float softcap, int window) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int G = H / Hkv;
-  const PageSmem<T> s = carve<T>(smem, page, THREADS_C / 32, G);
   const int ctx = *ctx_len;
   const int kv = min(*kv_len, np * page);  // never past the slot's pages
   const int q_len = max(0, min(C, kv - ctx));
-  chunk_block(s, q, pool_k, pool_v, k_scale, v_scale, pages, out, blockIdx.x, C, H, G, Hkv,
-              blockIdx.y, page, ctx, q_len, kv, window, scale, softcap);
+  chunk_block(smem, q, pool_k, pool_v, k_scale, v_scale, pages, out, blockIdx.x, C, H,
+              H / Hkv, Hkv, blockIdx.y, page, np, ctx, q_len, kv, window, scale, softcap);
 }
 
 template <typename T>
@@ -343,16 +345,32 @@ int launch_decode(const void* q, const void* pool_k, const void* pool_v, const v
   return (int)cudaGetLastError();
 }
 
+// Opt `kernel` in, once per device, to `bytes` of dynamic shared memory
+// (past the 48 KB default).  `done` holds a bit per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t bytes, unsigned& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 32 && (done >> dev & 1u))) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
+}
+
 template <typename T>
 int launch_ragged(const void* q, const void* pool_k, const void* pool_v, const void* k_scale,
                   const void* v_scale, const int* table, const int* q_lens,
                   const int* kv_lens, void* out, int B, int C, int H, int Hkv, int page,
                   int np, int chunk_slot, float scale, float softcap, int window,
                   void* stream) {
-  const int G = H / Hkv;
-  dim3 grid(B + (C + QB - 1) / QB, Hkv);
-  ragged_paged_kernel<T><<<grid, THREADS_C, page_smem_bytes<T>(page, THREADS_C / 32, G),
-                           (cudaStream_t)stream>>>(
+  // The chunk tile's shared memory also holds a decode block's (under 40
+  // KB at page 128, G = 8).
+  static unsigned opted = 0;
+  cudaError_t err = allow_smem(ragged_paged_kernel<T>, tc_smem_bytes<T>(), opted);
+  if (err != cudaSuccess) return (int)err;
+  const int qb = TC_ROWS / (H / Hkv);
+  dim3 grid(B + (C + qb - 1) / qb, Hkv);
+  ragged_paged_kernel<T><<<grid, THREADS_C, tc_smem_bytes<T>(), (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const T*)pool_k, (const T*)pool_v,
       (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale, table, q_lens, kv_lens,
       (__nv_bfloat16*)out, B, C, H, Hkv, page, np, chunk_slot, scale, softcap, window);
@@ -364,10 +382,12 @@ int launch_chunk(const void* q, const void* pool_k, const void* pool_v, const vo
                  const void* v_scale, const int* pages, const int* ctx_len, const int* kv_len,
                  void* out, int C, int H, int Hkv, int page, int np, float scale, float softcap,
                  int window, void* stream) {
-  const int G = H / Hkv;
-  dim3 grid((C + QB - 1) / QB, Hkv);
-  ragged_chunk_kernel<T><<<grid, THREADS_C, page_smem_bytes<T>(page, THREADS_C / 32, G),
-                           (cudaStream_t)stream>>>(
+  static unsigned opted = 0;
+  cudaError_t err = allow_smem(ragged_chunk_kernel<T>, tc_smem_bytes<T>(), opted);
+  if (err != cudaSuccess) return (int)err;
+  const int qb = TC_ROWS / (H / Hkv);
+  dim3 grid((C + qb - 1) / qb, Hkv);
+  ragged_chunk_kernel<T><<<grid, THREADS_C, tc_smem_bytes<T>(), (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const T*)pool_k, (const T*)pool_v,
       (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale, pages, ctx_len, kv_len,
       (__nv_bfloat16*)out, C, H, Hkv, page, np, scale, softcap, window);

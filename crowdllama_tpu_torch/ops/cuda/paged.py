@@ -51,9 +51,12 @@ from crowdllama_tpu_torch.ops.cuda import check, launch
 from crowdllama_tpu_torch.ops.quant import dequantize_kv
 
 HEAD_DIM = 64
-MAX_GROUP = 8     # query heads per kv head: one warp each, 8 warps a block
-MAX_PAGE = 128    # keys per page a decode warp scores (4 per lane)
-PAGE_ALIGN = 16   # keys per online-softmax update in the chunk rows
+# Query heads per kv head: a decode warp each, 8 warps a block; the chunk
+# blocks' 128 (query, head) rows hold at least 16 queries.
+MAX_GROUP = 8
+# Keys per page: 4 per decode lane, and the chunk tile's fp32 scores.
+MAX_PAGE = 128
+PAGE_ALIGN = 16   # keys per mma k-step of the chunk tile's P V
 
 
 def _gathered(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -180,6 +183,8 @@ def _check_pool(q, pool_k, pool_v, page_table, k_scale,
     check(page_table.dtype == torch.int32 and page_table.dim() == 2,
           "page_table must be int32 [B, NP]")
     check(all(x.is_contiguous() for x in ops), "operands must be contiguous")
+    check(all(x.data_ptr() % 16 == 0 for x in (q, pool_k, pool_v, *scales)),
+          "q, pools and scales must be 16-byte aligned (16-byte copies)")
     return h, hkv, page, page_table.shape[1]
 
 

@@ -10,8 +10,10 @@ without JAX:
 are TinyLlama's heads (32 query, 4 kv, Dh 64) at small lengths, with
 softcap, a sliding window, padding, rows that carry no query and
 zero-length slots (kernels A-D, and B and C on int8 pools with bf16
-scales from ``quantize_kv``; kernel E on both pools; kernel F bit-equal
-to B at tp 2 and 4);
+scales from ``quantize_kv``; kernel E, and C's chunk rows, on both pools
+at the edges of the chunk tile: unaligned contexts and chunk lengths,
+windows across pages, groups of 2, 4 and 7; kernel F bit-equal to B at
+tp 2 and 4);
 tolerance: one bf16 rounding of outputs of magnitude ~1 plus fp32
 summation order, atol 2e-2 + rtol 1e-2.
 """
@@ -182,26 +184,38 @@ def test_paged_int8_kernels_match_plain_on_card(cuda_device, softcap, window):
     assert not got[[2, 3] + [b + i for i in range(valid, c)]].any()
 
 
-def _pools(dev, gen, int8: bool):
+def _pools(dev, gen, int8: bool, page: int = 128):
     from crowdllama_tpu_torch.ops.quant import quantize_kv
 
     bf = dict(device=dev, dtype=torch.bfloat16)
-    pk = torch.randn((17, 4, 128, 64), generator=gen, **bf)
-    pv = torch.randn((17, 4, 128, 64), generator=gen, **bf)
+    pk = torch.randn((17, 4, page, 64), generator=gen, **bf)
+    pv = torch.randn((17, 4, page, 64), generator=gen, **bf)
     if not int8:
         return pk, pv, {}
     (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
     return pk, pv, dict(k_scale=ks, v_scale=vs)
 
 
+# Chunk cases for kernels E and C: (ctx, chunk rows, valid rows, softcap,
+# window, query heads over the 4 kv heads).  Chunk blocks hold 128 / G
+# queries (16 at G = 8); the cases take chunk lengths that are not a
+# multiple of that, a context that is not page-aligned, windows across a
+# page boundary, valid rows fewer than the chunk's, and groups of 2, 4 and 7
+# (7 leaves the last two rows of a block's 128 empty).
+CHUNK_CASES = [
+    (0, 80, 64, 0.0, 0, 32), (256, 80, 50, 30.0, 0, 32),
+    (128, 80, 77, 0.0, 40, 32), (200, 75, 75, 0.0, 0, 32),
+    (200, 75, 60, 30.0, 100, 32), (200, 90, 81, 0.0, 0, 8),
+    (130, 70, 70, 30.0, 50, 16), (200, 75, 61, 0.0, 100, 28)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("ctx,valid,softcap,window", [
-    (0, 64, 0.0, 0), (256, 50, 30.0, 0), (128, 77, 0.0, 40)])
-def test_chunk_kernel_matches_plain_on_card(cuda_device, int8, ctx, valid,
-                                            softcap, window):
-    """Kernel E: one chunk of 80 rows (a partial last query block) over its
-    slot's pages; rows past the valid ones are zeros from the kernel."""
+@pytest.mark.parametrize("ctx,c,valid,softcap,window,h", CHUNK_CASES)
+def test_chunk_kernel_matches_plain_on_card(cuda_device, int8, ctx, c, valid,
+                                            softcap, window, h):
+    """Kernel E: one chunk over its slot's pages; rows past the valid ones
+    are zeros from the kernel."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_ragged_chunk_attention,
         ragged_chunk_attention_plain,
@@ -209,8 +223,7 @@ def test_chunk_kernel_matches_plain_on_card(cuda_device, int8, ctx, valid,
 
     gen, bf = _card_case(cuda_device)
     pk, pv, sc = _pools(cuda_device, gen, int8)
-    c = 80
-    q = torch.randn((c, 32, 64), generator=gen, **bf)
+    q = torch.randn((c, h, 64), generator=gen, **bf)
     pages = torch.tensor([3, 9, 1, 14], dtype=torch.int32, device=cuda_device)
     i32 = dict(dtype=torch.int32, device=cuda_device)
     args = (q, pk, pv, pages, torch.tensor(ctx, **i32),
@@ -221,6 +234,81 @@ def test_chunk_kernel_matches_plain_on_card(cuda_device, int8, ctx, valid,
     torch.testing.assert_close(got[:valid].float(), want[:valid].float(),
                                atol=2e-2, rtol=1e-2)
     assert not got[valid:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("page", [16, 32])
+def test_chunk_kernel_small_pages_on_card(cuda_device, int8, page):
+    """Kernel E on pages smaller than its 128-key tiles: each tile gathers
+    several pages of the table, the last one past the table's end."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_ragged_chunk_attention,
+        ragged_chunk_attention_plain,
+    )
+
+    gen, bf = _card_case(cuda_device)
+    pk, pv, sc = _pools(cuda_device, gen, int8, page)
+    ctx, c, valid = 100, 75, 70
+    q = torch.randn((c, 32, 64), generator=gen, **bf)
+    pages = torch.randperm(16, generator=torch.Generator().manual_seed(page))
+    pages = pages[:-(-(ctx + valid) // page)].to(torch.int32).to(cuda_device)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    args = (q, pk, pv, pages, torch.tensor(ctx, **i32),
+            torch.tensor(ctx + valid, **i32), 0.125)
+    kw = dict(softcap=30.0, sliding_window=50, **sc)
+    got = flash_ragged_chunk_attention(*args, **kw)
+    want = ragged_chunk_attention_plain(*args, **kw)
+    torch.testing.assert_close(got[:valid].float(), want[:valid].float(),
+                               atol=2e-2, rtol=1e-2)
+    assert not got[valid:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ctx,c,valid,softcap,window,h", CHUNK_CASES[3:])
+def test_ragged_kernel_chunk_rows_match_plain_on_card(cuda_device, int8, ctx,
+                                                      c, valid, softcap,
+                                                      window, h):
+    """Kernel C's chunk rows at the edges of the chunk tile, beside decode
+    rows (one inactive); the plain version gets the chunk's rows as the
+    pool holds them.  Rows without a query are zeros from the kernel."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        ragged_paged_attention,
+        ragged_paged_attention_ref,
+    )
+    from crowdllama_tpu_torch.ops.quant import dequantize_kv
+
+    gen, bf = _card_case(cuda_device)
+    pk, pv, sc = _pools(cuda_device, gen, int8)
+    b, page = 4, 128
+    table = torch.tensor([[1, 2, 3, 4], [16, 0, 0, 0], [5, 6, 7, 8],
+                          [9, 10, 11, 12]], dtype=torch.int32,
+                         device=cuda_device)
+    qr = torch.randn((b + c, h, 64), generator=gen, **bf)
+    cpos = torch.clamp(ctx + torch.arange(c, device=cuda_device),
+                       max=ctx + valid - 1)
+    cp, co = table[3, cpos // page].long(), cpos % page
+
+    def rows(pool, scale):
+        x = pool[cp, :, co]
+        if scale is not None:
+            x = dequantize_kv(x, scale[cp, :, co])
+        return x.transpose(0, 1)[None].contiguous()
+
+    ck, cv = rows(pk, sc.get("k_scale")), rows(pv, sc.get("v_scale"))
+    ql = torch.tensor([1, 0, 1, 0, valid], dtype=torch.int32,
+                      device=cuda_device)
+    kl = torch.tensor([300, 1, 512, 1, ctx + valid], dtype=torch.int32,
+                      device=cuda_device)
+    args = (qr, ck, cv, pk, pv, table, ql, kl, 3, 0.125)
+    kw = dict(softcap=softcap, sliding_window=window, **sc)
+    got = ragged_paged_attention(*args, **kw)
+    want = ragged_paged_attention_ref(*args, **kw)
+    live = [0, 2] + [b + i for i in range(valid)]
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=2e-2, rtol=1e-2)
+    assert not got[[1, 3] + [b + i for i in range(valid, c)]].any()
 
 
 @pytest.mark.cuda

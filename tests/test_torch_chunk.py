@@ -9,7 +9,10 @@ read the same bf16 (or int8 + bf16 scale) inputs and accumulate in fp32
 in different orders, then round to bf16.  Also E's plain version against
 the chunk rows of kernel C's plain version (its reference semantics),
 and the wrapper's dispatch: CPU tensors run the plain version without
-launching, other devices are launched or refused.
+launching, other devices are launched or refused.  Last, a torch
+emulation of the CUDA chunk tile's arithmetic order (page-wise online
+softmax, P rounded to bf16 after the V scale) against JAX's E, at the
+same tolerance: the one rounding the card adds stays inside it.
 """
 
 import os
@@ -111,6 +114,69 @@ def test_chunk_plain_matches_the_ragged_reference_chunk_rows(ctx, valid,
         torch.tensor([1, ctx + valid], dtype=torch.int32), 0, 0.25, **kw)
     torch.testing.assert_close(got[:valid], ref[1:1 + valid], atol=1e-5,
                                rtol=0)
+
+
+def _tile_emulation(q, pk, pv, pages, ctx, kv, scale, softcap=0.0,
+                    window=0, k_scale=None, v_scale=None):
+    """The arithmetic order of the CUDA chunk tile, in torch: one page at a
+    time, logits ``dot * scale`` (times the K scale) then the softcap and
+    the mask; an fp32 online softmax rescaled once per page; P summed into
+    l in fp32, times the V scale, then rounded to bf16 before P V (the JAX
+    kernel keeps P in fp32)."""
+    c, h, dh = q.shape
+    _, hkv, page, _ = pk.shape
+    g = h // hkv
+    rows = q.float().reshape(c, hkv, g, dh).transpose(0, 1).reshape(
+        hkv, c * g, dh)                       # query-major rows per kv head
+    qpos = (ctx + torch.arange(c)).repeat_interleave(g)[:, None]
+    m = torch.full((hkv, c * g), JP.NEG_INF)
+    l = torch.zeros((hkv, c * g))
+    o = torch.zeros((hkv, c * g, dh))
+    for n, pid in enumerate(pages.tolist()):
+        kpos = n * page + torch.arange(page)[None, :]
+        s = torch.einsum("hrd,hkd->hrk", rows, pk[pid].float()) * scale
+        if k_scale is not None:
+            s = s * k_scale[pid].float()[:, None, :]
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        mask = (kpos < kv) & (kpos <= qpos)
+        if window > 0:
+            mask &= kpos > qpos - window
+        s = torch.where(mask, s, torch.full_like(s, JP.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None]) * mask
+        l = l * alpha + p.sum(-1)
+        if v_scale is not None:
+            p = p * v_scale[pid].float()[:, None, :]
+        p = p.to(torch.bfloat16).float()
+        o = o * alpha[..., None] + torch.einsum("hrk,hkd->hrd", p,
+                                                pv[pid].float())
+        m = m_new
+    out = o / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+    return out.reshape(hkv, c, g, dh).transpose(0, 1).reshape(c, h, dh).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ctx,valid,softcap,window", CASES)
+def test_bf16_probabilities_stay_within_tolerance_of_jax(
+        interpret_mode, ctx, valid, softcap, window, int8):
+    """The CUDA chunk tile rounds P to bf16 where JAX's kernel keeps it in
+    fp32: emulated in torch, that order stays within the kernels'
+    tolerance of JAX's E in interpret mode on the valid rows."""
+    q, pk, pv, pages, scales = _chunk_case(ctx + valid, int8)
+    kw = dict(softcap=softcap, window=window)
+    got = _tile_emulation(q, pk, pv, pages, ctx, ctx + valid, 0.25, **scales,
+                          **kw)
+    jscales = {k: _jx(v) for k, v in scales.items()}
+    want = JP.flash_ragged_chunk_attention(
+        _jx(q), _jx(pk), _jx(pv), _jx(pages), jnp.int32(ctx),
+        jnp.int32(ctx + valid), 0.25, softcap=softcap, sliding_window=window,
+        **jscales)
+    np.testing.assert_allclose(got[:valid].float().numpy(),
+                               np.asarray(want, np.float32)[:valid],
+                               atol=ATOL, rtol=RTOL)
 
 
 def _launches():
