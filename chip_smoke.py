@@ -8,11 +8,15 @@ Phases, each printing one JSON line:
 1. device: the card's name, compute capability (must be 9.0) and
    ``nvidia-smi`` name/power limit;
 2. build: compiles every kernel from ``crowdllama_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once) and reports the seconds it took;
+   ``nvcc`` per source, all at once; each kernel at head dims 64 and 128)
+   and reports the seconds it took and each instantiation's registers
+   and spills from ``ptxas -v``;
 3. threefry: the port's threefry keys and bits, and its samplers on logits
-   on the card, against golden vectors captured from JAX
-   (``engine/prng_golden.py``);
-4. kernels: each hand-written kernel (A prefill, B paged decode, C ragged
+   on the card (rows with tied logits too), against golden vectors
+   captured from JAX (``engine/prng_golden.py``);
+4. kernels, once at Dh 64 over TinyLlama's 4 kv heads and once at Dh 128
+   over Llama-3-8B's 8 (A also at qwen2.5-7b's group of 7, 28 / 4 heads,
+   at both): each hand-written kernel (A prefill, B paged decode, C ragged
    paged, D contiguous decode, E one prefill chunk over its slot's pages,
    F paged decode on tensor-parallel shares of the heads, and B, C, E and
    F on int8 pools with bf16 scales from ``quantize_kv``) against its
@@ -66,13 +70,27 @@ Phases, each printing one JSON line:
 10. engine_tp_int8: the same on int8 pools, 3 streams of 16 tokens
    (F-int8, B-int8 and C-int8 per rank), one decode step vs plain.
 
+11. engine_llama: llama-3-8b at full width and depth (32 layers, Dh
+   128, 32 / 8 heads, hidden 4096, vocab 128256; random bf16 weights from
+   seed 0 made on the card, EOS column zeroed) on the paged main path,
+   the paged phase's traffic and checks (kernels A-C at Dh 128);
+12. engine_llama_int8, contiguous_llama, engine_llama_tp,
+   engine_llama_tp_int8: llama-3-8b cut to 4 layers at full width on
+   int8 pools (B-int8, C-int8), the contiguous layout (D), tp=2 on the
+   one card (F) and tp=2 on int8 pools (F-int8), 3 streams of 16 tokens
+   each, one decode step (and on bf16 paged pools a prefill and a ragged
+   step) vs the plain versions; the cut is printed as ``reduced``.
+
 Each engine phase starts once the previous engine has stopped and its
 memory is freed; its peak memory is counted from before the engine loads
-its weights (kept on the host between phases), the start's peak and the
-serving peak apart.  No engine path of either package runs kernel E (the
+its weights (TinyLlama's kept on the host between phases, llama-3-8b's
+made on the card for each phase), the start's peak and the serving peak
+apart.  No engine path of either package runs kernel E (the
 unified ragged step replaced it), so it launches only in the kernel
 phase and its row's launch count is 0.
-Then the ``kernels`` line, the ``nvidia-smi`` line, and last
+Then the ``kernels`` line (a row per kernel and head dim, the Dh-128
+rows named ``<symbol>_dh128`` with the llama phases' launches), the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero exit and
 no last line.  Exits non-zero without a CUDA device.
 """
@@ -95,6 +113,9 @@ import torch
 # and values, which convert to bf16 exactly, so bf16 is their rate.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+# At most the H100's boost clock (1.98 GHz): a sleep of this many cycles
+# per second of host time lasts at least that long.
+SLEEP_CYCLES_PER_S = 2e9
 # Kernel vs plain on one output element: both read the same bf16 inputs and
 # accumulate in fp32 in different orders, then round to bf16, so they may
 # differ by one bf16 ulp of the value (2^-8 relative) plus fp32 order noise.
@@ -123,9 +144,20 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls between two CUDA
+    events, queued behind a device sleep twice as long as the host took to
+    issue them, so the events time the device's work back to back and not
+    the host's gaps between launches (which set the time of a call that is
+    faster than its own launch)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2 * host_s * SLEEP_CYCLES_PER_S))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -165,11 +197,11 @@ def nbytes(*ts) -> int:
 # ------------------------------------------------------------ kernel phase
 
 def check_prefill(dev, gen, t: int, softcap: float, window: int,
-                  masked_rows: int, timed: bool) -> dict:
+                  masked_rows: int, timed: bool, h: int = 32, hkv: int = 4,
+                  dh: int = 64) -> dict:
     from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
     from crowdllama_tpu_torch.ops.cuda.flash import flash_prefill_attention
 
-    h, hkv, dh = 32, 4, 64
     bf = dict(device=dev, dtype=torch.bfloat16)
     q = torch.randn((1, t, h, dh), generator=gen, **bf)
     k = torch.randn((1, hkv, t, dh), generator=gen, **bf)
@@ -204,10 +236,9 @@ def check_prefill(dev, gen, t: int, softcap: float, window: int,
 
 
 def _paged_inputs(dev, gen, b: int, lens: list[int], page: int, np_: int,
-                  pool_pages: int):
+                  pool_pages: int, hkv: int = 4, dh: int = 64):
     """A pool with distinct random pages per slot: table row i holds slot
     i's pages (the dump page, pool_pages - 1, pads every row)."""
-    hkv, dh = 4, 64
     bf = dict(device=dev, dtype=torch.bfloat16)
     pool_k = torch.randn((pool_pages, hkv, page, dh), generator=gen, **bf)
     pool_v = torch.randn((pool_pages, hkv, page, dh), generator=gen, **bf)
@@ -256,7 +287,8 @@ def _kv_token_bytes(hkv: int, dh: int, int8: bool) -> int:
 
 
 def check_decode(dev, gen, lens: list[int], softcap: float, window: int,
-                 timed: bool, int8: bool = False) -> dict:
+                 timed: bool, int8: bool = False, hkv: int = 4,
+                 dh: int = 64) -> dict:
     """Kernel B (bf16 pool, or the int8 variant on a quantized pool)
     against its plain version."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
@@ -264,8 +296,9 @@ def check_decode(dev, gen, lens: list[int], softcap: float, window: int,
         paged_decode_attention_plain,
     )
 
-    b, h, hkv, dh, page, np_ = len(lens), 32, 4, 64, 128, 16
-    pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129)
+    b, h, page, np_ = len(lens), 32, 128, 16
+    pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129,
+                                          hkv, dh)
     lib_pools, scales = (pool_k, pool_v), {}
     if int8:
         pool_k, pool_v, scales, lib_pools = _quantized(pool_k, pool_v)
@@ -296,7 +329,8 @@ def check_decode(dev, gen, lens: list[int], softcap: float, window: int,
 
 def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
                  c: int, valid: int, softcap: float, window: int,
-                 timed: bool, int8: bool = False) -> dict:
+                 timed: bool, int8: bool = False, hkv: int = 4,
+                 dh: int = 64) -> dict:
     """Kernel C (bf16 pool, or the int8 variant) against its plain version.
     The kernel reads the chunk's KV back from the pool, so on an int8 pool
     the plain version is fed the chunk rows as the pool holds them
@@ -308,10 +342,11 @@ def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
     )
     from crowdllama_tpu_torch.ops.quant import dequantize_kv
 
-    b, h, hkv, dh, page, np_ = len(dec_lens), 32, 4, 64, 128, 16
+    b, h, page, np_ = len(dec_lens), 32, 128, 16
     lens = list(dec_lens)
     lens[chunk_slot] = ctx + valid  # the chunk slot's pages hold ctx+chunk
-    pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129)
+    pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129,
+                                          hkv, dh)
     fresh_pools, lib_pools, scales = (pool_k, pool_v), (pool_k, pool_v), {}
     if int8:
         pool_k, pool_v, scales, lib_pools = _quantized(pool_k, pool_v)
@@ -377,13 +412,14 @@ def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
 
 
 def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
-                       window: int, timed: bool) -> dict:
+                       window: int, timed: bool, hkv: int = 4,
+                       dh: int = 64) -> dict:
     from crowdllama_tpu_torch.ops.cuda.flash import (
         decode_attention_plain,
         flash_decode_attention,
     )
 
-    b, h, hkv, dh = len(lens), 32, 4, 64
+    b, h = len(lens), 32
     bf = dict(device=dev, dtype=torch.bfloat16)
     q = torch.randn((b, h, dh), generator=gen, **bf)
     kc = torch.randn((b, hkv, s, dh), generator=gen, **bf)
@@ -420,19 +456,19 @@ def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
 
 def check_chunk(dev, gen, ctx: int, c: int, valid: int, softcap: float,
                 window: int, timed: bool, int8: bool = False,
-                h: int = 32) -> dict:
+                h: int = 32, hkv: int = 4, dh: int = 64) -> dict:
     """Kernel E (bf16 pool, or the int8 variant) against its plain version:
     a chunk of ``c`` rows (``valid`` carry a query) at context ``ctx`` over
     its slot's pages, which hold ctx + valid tokens; ``h`` query heads over
-    4 kv heads."""
+    ``hkv`` kv heads."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_ragged_chunk_attention,
         ragged_chunk_attention_plain,
     )
 
-    hkv, dh, page, np_ = 4, 64, 128, 16
+    page, np_ = 128, 16
     pool_k, pool_v, table = _paged_inputs(dev, gen, 1, [ctx + valid], page,
-                                          np_, 129)
+                                          np_, 129, hkv, dh)
     lib_pools, scales = (pool_k, pool_v), {}
     if int8:
         pool_k, pool_v, scales, lib_pools = _quantized(pool_k, pool_v)
@@ -465,7 +501,8 @@ def check_chunk(dev, gen, ctx: int, c: int, valid: int, softcap: float,
 
 
 def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
-                    window: int, timed: bool, int8: bool = False) -> dict:
+                    window: int, timed: bool, int8: bool = False,
+                    hkv: int = 4, dh: int = 64) -> dict:
     """Kernel F on tp shares of B's inputs (q heads and pool kv heads,
     kv-major): every rank's output must equal B's on the whole pool bit
     for bit, and F is held against its plain version."""
@@ -475,8 +512,9 @@ def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
         paged_decode_attention_tp_plain,
     )
 
-    b, h, hkv, dh, page, np_ = len(lens), 32, 4, 64, 128, 16
-    pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129)
+    b, h, page, np_ = len(lens), 32, 128, 16
+    pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129,
+                                          hkv, dh)
     lib_pools, scales = (pool_k, pool_v), {}
     if int8:
         pool_k, pool_v, scales, lib_pools = _quantized(pool_k, pool_v)
@@ -514,27 +552,31 @@ def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
     return res
 
 
-def kernel_phase(dev) -> dict:
-    gen = torch.Generator(device=dev).manual_seed(0)
+def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
+    """Every kernel against its plain version at head dim ``dh`` over
+    ``hkv`` kv heads (32 query heads; TinyLlama's 4 at Dh 64, Llama-3-8B's
+    8 at Dh 128): the serving shapes timed, then the small shapes."""
+    d = dict(hkv=hkv, dh=dh)
     out = {}
-    a = check_prefill(dev, gen, 512, 0.0, 0, 0, timed=True)
-    a["small"] = [check_prefill(dev, gen, 64, 30.0, 9, 5, False)
+    a = check_prefill(dev, gen, 512, 0.0, 0, 0, timed=True, **d)
+    a["small"] = [check_prefill(dev, gen, 64, 30.0, 9, 5, False, **d)
                   ["max_abs_err"],
-                  check_prefill(dev, gen, 96, 0.0, 17, 0, False)
+                  check_prefill(dev, gen, 96, 0.0, 17, 0, False, **d)
                   ["max_abs_err"]]
     out["A"] = a
     serve_lens = [1723, 1, 402, 2048, 77, 1200, 513, 960]
-    bres = check_decode(dev, gen, serve_lens, 0.0, 0, timed=True)
+    bres = check_decode(dev, gen, serve_lens, 0.0, 0, timed=True, **d)
     bres["small"] = [check_decode(dev, gen, [0, 5, 300, 129], 30.0, 0,
-                                  False)["max_abs_err"],
+                                  False, **d)["max_abs_err"],
                      check_decode(dev, gen, [260, 1, 0, 64], 0.0, 40,
-                                  False)["max_abs_err"]]
+                                  False, **d)["max_abs_err"]]
     out["B"] = bres
-    bq = check_decode(dev, gen, serve_lens, 0.0, 0, timed=True, int8=True)
+    bq = check_decode(dev, gen, serve_lens, 0.0, 0, timed=True, int8=True,
+                      **d)
     bq["small"] = [check_decode(dev, gen, [0, 5, 300, 129], 30.0, 0, False,
-                                int8=True)["max_abs_err"],
+                                int8=True, **d)["max_abs_err"],
                    check_decode(dev, gen, [260, 1, 0, 64], 0.0, 40, False,
-                                int8=True)["max_abs_err"]]
+                                int8=True, **d)["max_abs_err"]]
     out["B_int8"] = bq
     ragged_serve = ([1723, 1, 402, 0, 77, 1200, 0, 960], 3, 1024, 512, 512,
                     0.0, 0)
@@ -542,52 +584,78 @@ def kernel_phase(dev) -> dict:
                     ([40, 130, 0, 9], 2, 128, 64, 64, 0.0, 33),
                     ([40, 0, 300, 0], 3, 200, 75, 61, 30.0, 100)]
     for key, int8 in (("C", False), ("C_int8", True)):
-        cres = check_ragged(dev, gen, *ragged_serve, timed=True, int8=int8)
-        small = [check_ragged(dev, gen, *a, timed=False, int8=int8)
+        cres = check_ragged(dev, gen, *ragged_serve, timed=True, int8=int8,
+                            **d)
+        small = [check_ragged(dev, gen, *a, timed=False, int8=int8, **d)
                  for a in ragged_small]
         cres["small"] = [r["max_abs_err"] for r in small]
         if int8:
             cres["small_fresh_kv_gap"] = [r["fresh_kv_gap"] for r in small]
         out[key] = cres
-    dres = check_flash_decode(dev, gen, serve_lens, 2048, 0.0, 0, timed=True)
+    dres = check_flash_decode(dev, gen, serve_lens, 2048, 0.0, 0, timed=True,
+                              **d)
     dres["small"] = [check_flash_decode(dev, gen, [0, 5, 300, 129], 300,
-                                        30.0, 0, False)["max_abs_err"],
+                                        30.0, 0, False, **d)["max_abs_err"],
                      check_flash_decode(dev, gen, [260, 1, 0, 64], 300, 0.0,
-                                        40, False)["max_abs_err"]]
+                                        40, False, **d)["max_abs_err"]]
     out["D"] = dres
     for key, int8 in (("E", False), ("E_int8", True)):
         eres = check_chunk(dev, gen, 1024, 512, 512, 0.0, 0, timed=True,
-                           int8=int8)
+                           int8=int8, **d)
         eres["small"] = [
             check_chunk(dev, gen, 256, 96, 70, 30.0, 0, False,
-                        int8=int8)["max_abs_err"],
+                        int8=int8, **d)["max_abs_err"],
             check_chunk(dev, gen, 128, 80, 77, 0.0, 33, False,
-                        int8=int8)["max_abs_err"],
+                        int8=int8, **d)["max_abs_err"],
             check_chunk(dev, gen, 0, 64, 64, 0.0, 0, False,
-                        int8=int8)["max_abs_err"],
+                        int8=int8, **d)["max_abs_err"],
             check_chunk(dev, gen, 200, 75, 60, 30.0, 100, False,
-                        int8=int8)["max_abs_err"],
+                        int8=int8, **d)["max_abs_err"],
             check_chunk(dev, gen, 200, 75, 61, 0.0, 100, False, int8=int8,
-                        h=28)["max_abs_err"]]
+                        h=7 * hkv, **d)["max_abs_err"]]
         out[key] = eres
     for key, int8 in (("F", False), ("F_int8", True)):
         fres = check_tp_decode(dev, gen, serve_lens, 2, 0.0, 0, timed=True,
-                               int8=int8)
+                               int8=int8, **d)
         fres["tp4"] = check_tp_decode(dev, gen, serve_lens, 4, 0.0, 0,
-                                      False, int8=int8)["max_abs_err"]
+                                      False, int8=int8, **d)["max_abs_err"]
         fres["small"] = [
             check_tp_decode(dev, gen, [0, 5, 300, 129], 2, 30.0, 0, False,
-                            int8=int8)["max_abs_err"],
+                            int8=int8, **d)["max_abs_err"],
             check_tp_decode(dev, gen, [260, 1, 0, 64], 4, 0.0, 40, False,
-                            int8=int8)["max_abs_err"]]
+                            int8=int8, **d)["max_abs_err"]]
         out[key] = fres
-    emit({"phase": "kernels_vs_plain", "tolerance": {"atol": ATOL,
-                                                      "rtol": RTOL},
-          **out})
+    return out
+
+
+def kernel_phase(dev) -> dict:
+    """The kernel checks at Dh 64 (TinyLlama) and at Dh 128 (Llama-3-8B),
+    a line each, then kernel A at a group of 7 (qwen2.5-7b's 28 query / 4
+    kv heads: 18 queries a block, its last two rows empty) at both; returns
+    the rows keyed by kernel, ``_dh128`` appended at Dh 128."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for dh, hkv in ((64, 4), (128, 8)):
+        res = kernel_checks(dev, gen, hkv, dh)
+        emit({"phase": "kernels_vs_plain", "head_dim": dh, "kv_heads": hkv,
+              "tolerance": {"atol": ATOL, "rtol": RTOL}, **res})
+        out.update({k + ("" if dh == 64 else "_dh128"): v
+                    for k, v in res.items()})
+    group7 = {dh: [check_prefill(dev, gen, 512, 0.0, 0, 0, False, h=28,
+                                 dh=dh)["max_abs_err"],
+                   check_prefill(dev, gen, 96, 30.0, 17, 5, False, h=28,
+                                 dh=dh)["max_abs_err"]] for dh in (64, 128)}
+    emit({"phase": "kernel_A_group7", "heads": [28, 4],
+          "max_abs_err": group7})
     return out
 
 
 # ------------------------------------------------------------ engine phases
+
+TINYLLAMA = "tinyllama-1.1b"
+LLAMA = "llama-3-8b"
+# Depth of the llama-3-8b phases beside the full-depth paged one.
+LLAMA_CUT_LAYERS = 4
 
 SHORT = [
     "The swarm routes each request to a worker that holds the model. " * 6,
@@ -701,9 +769,10 @@ async def serve(engine, streams: dict, max_tokens: int,
 
 
 def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
-               **engine_kw):
-    """Reset the card's peak-memory mark, start ``TorchEngine`` on the
-    seed-0 weights (on ``dev``, or on the tp ranks ``devices`` in
+               params: dict | None = None, **engine_kw):
+    """Reset the card's peak-memory mark, start ``TorchEngine`` on
+    ``params`` (default: TinyLlama's seed-0 weights) (on ``dev``, or on the
+    tp ranks ``devices`` in
     ``engine_kw`` names), zero every launch count, serve the traffic, read
     the counts, stop.  The card's memory is read at four points: what was
     allocated before the engine, the peak while it started (loading and
@@ -717,11 +786,11 @@ def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
         engine_kw["device"] = dev
 
     async def go():
-        params = seed0_params(dev)
+        weights = seed0_params(dev) if params is None else params
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         memory = {"before_start": torch.cuda.memory_allocated(dev)}
-        engine = TorchEngine(params=params, **engine_kw)
+        engine = TorchEngine(params=weights, **engine_kw)
         t0 = time.perf_counter()
         await engine.start()
         start_s = time.perf_counter() - t0
@@ -971,15 +1040,19 @@ def _free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def engine_phase(dev) -> dict:
-    """The paged engine with a bf16 pool (the default config)."""
+def engine_phase(dev, phase: str = "engine", model: str = TINYLLAMA,
+                 params: dict | None = None) -> dict:
+    """The paged engine with a bf16 pool (the default config), serving
+    ``model`` (on ``params``; default TinyLlama's seed-0 weights)."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_paged_decode_attention_tp,
         ragged_paged_attention,
     )
 
     engine, summary, reqs = run_engine(
-        dev, {**GREEDY, "prefix_hit": (HIT, {})}, 32)
+        dev, {**GREEDY, "prefix_hit": (HIT, {})}, 32, params=params,
+        model=model)
+    del params
     if reqs["long"]["prompt_tokens"] <= engine.runner.ragged_chunk:
         raise AssertionError("the long prompt must exceed one ragged chunk")
     _expect_launches(summary["launches"], {"A", "B", "C"}, "paged")
@@ -993,7 +1066,9 @@ def engine_phase(dev) -> dict:
     steady_sampled = decode_step_timing(engine, dev,
                                         flash_paged_decode_attention_tp,
                                         temperature=0.8)
-    emit({"phase": "engine", "model": "tinyllama-1.1b", "layers": 22,
+    emit({"phase": phase, "model": model,
+          "layers": engine.runner.cfg.num_layers,
+          "head_dim": engine.runner.cfg.resolved_head_dim(),
           **summary, "ragged_chunks": ragged_chunks,
           "long_ttft_ms": reqs["long"]["ttft_ms"], "ragged_step": ragged,
           "logits_max_abs_err": errs, "steady_decode": steady,
@@ -1005,19 +1080,20 @@ def engine_phase(dev) -> dict:
 
 
 def _expect_tp_launches(launches: dict, tp: int, int8: bool,
-                        phase: str) -> int:
+                        phase: str, layers: int = 22) -> int:
     """Per decode step one F call per layer and one B launch per layer per
     rank; A and C (its int8 variant on int8 pools) once per layer per rank.
     Returns the decode steps the phase ran."""
     sfx = "_int8" if int8 else ""
     f, b = launches["F" + sfx], launches["B" + sfx]
     a, c = launches["A"], launches["C" + sfx]
-    if not (f > 0 and f % 22 == 0 and b == tp * f and a > 0
-            and a % (22 * tp) == 0 and c > 0 and c % (22 * tp) == 0):
-        raise AssertionError(f"{phase}: launches {launches} are not 22 F "
-                             f"calls and {22 * tp} B launches per decode "
-                             f"step, with A and C per rank")
-    return f // 22
+    if not (f > 0 and f % layers == 0 and b == tp * f and a > 0
+            and a % (layers * tp) == 0 and c > 0
+            and c % (layers * tp) == 0):
+        raise AssertionError(f"{phase}: launches {launches} are not "
+                             f"{layers} F calls and {layers * tp} B launches "
+                             f"per decode step, with A and C per rank")
+    return f // layers
 
 
 def _greedy_share(ids: dict, reqs: dict) -> float:
@@ -1200,6 +1276,84 @@ def int8_contiguous_phase(dev) -> None:
           "steady_decode": steady, "card": torch.cuda.get_device_name(0)})
 
 
+def llama_params(dev, layers: int | None = None):
+    """llama-3-8b at full width (32 query / 8 kv heads, Dh 128, hidden
+    4096, vocab 128256), random bf16 weights from seed 0 made on the card
+    (~16 GB at full depth; no host copy), the EOS column zeroed as in
+    :func:`seed0_params`; ``layers`` cuts the depth.  Returns (config,
+    params)."""
+    from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
+    from crowdllama_tpu_torch.engine.weights import init_params
+    from crowdllama_tpu_torch.models.config import get_config
+
+    cfg = get_config(LLAMA, **({} if layers is None
+                               else {"num_layers": layers}))
+    params = init_params(cfg, seed=0, device=dev)
+    params["lm_head"][:, ByteTokenizer.EOS] = 0
+    return cfg, params
+
+
+def llama_phase(dev) -> dict:
+    """llama-3-8b at full width and depth on the paged main path (bf16
+    pool, default config): the TinyLlama paged phase's traffic and
+    checks at Dh 128."""
+    return engine_phase(dev, "engine_llama", LLAMA, llama_params(dev)[1])
+
+
+def llama_cut_phase(dev, phase: str, ran: set[str], **engine_kw) -> dict:
+    """llama-3-8b cut to LLAMA_CUT_LAYERS layers at full width, on one
+    more path at Dh 128 (``engine_kw``: int8 pools, the contiguous layout,
+    tp=2 on the one card): 2 greedy short prompts and the long one, 16
+    tokens each.  The kernels in ``ran`` launch and no other; one decode
+    step (and on bf16 paged pools a prefill and a ragged step) through the
+    kernels agrees with the plain versions (2% of the logits' scale under
+    tp, else 5%); the steady decode step is reported.  Returns the launch
+    counts of the streams."""
+    from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+    )
+
+    cfg, params = llama_params(dev, LLAMA_CUT_LAYERS)
+    engine, summary, reqs = run_engine(
+        dev, {k: GREEDY[k] for k in ("short0", "short1")}, 16,
+        params=params, model=LLAMA, model_config=cfg, **engine_kw)
+    del params
+    r = engine.runner
+    int8 = engine_kw.get("kv_dtype") == "int8"
+    tp = int(engine_kw.get("mesh_shape") or 1)
+    _expect_launches(summary["launches"], ran, phase)
+    out = {}
+    if tp > 1:
+        out["decode_steps"] = _expect_tp_launches(
+            summary["launches"], tp, int8, phase, LLAMA_CUT_LAYERS)
+    if engine_kw.get("kv_layout") == "contiguous":
+        out["prefill_chunks"] = _check_chunks(engine, reqs)
+        errs = {"decode": contiguous_logits_check(engine)}
+        kernel = flash_decode_attention
+    else:
+        out["ragged_chunks"] = engine.scheduler.ragged_chunks
+        if (reqs["long"]["prompt_tokens"] <= r.ragged_chunk
+                or out["ragged_chunks"] < 1):
+            raise AssertionError(f"{phase}: the long prompt took no ragged "
+                                 f"chunk")
+        errs = logits_check(engine, dev, ragged=not int8)
+        kernel = flash_paged_decode_attention_tp
+    rtol = LOGIT_RTOL_TP if tp > 1 else LOGIT_RTOL
+    for k, e in errs.items():
+        if not e["max_abs_err"] <= rtol * e["scale"]:
+            raise AssertionError(f"{phase} {k} logits: kernel vs plain {e}")
+    steady = decode_step_timing(engine, dev, kernel)
+    kw = {k: [str(d) for d in v] if k == "devices" else v
+          for k, v in engine_kw.items()}
+    emit({"phase": phase, "model": LLAMA, "layers": cfg.num_layers,
+          "head_dim": cfg.resolved_head_dim(),
+          "reduced": {"num_layers": [32, LLAMA_CUT_LAYERS]}, **kw,
+          **summary, **out, "logits_max_abs_err": errs, "logits_rtol": rtol,
+          "steady_decode": steady, "card": torch.cuda.get_device_name(0)})
+    return summary["launches"]
+
+
 # row -> (name, source, TPU kernel it replaces); the name is the C symbol,
 # for F the wrapper that launches B's symbol once per tensor-parallel rank.
 KERNEL_ROWS = {
@@ -1248,7 +1402,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": [dict(r, library=lib) for lib in kernels.SIGNATURES
+                    for r in kernels.ptxas_usage(lib)]})
 
     from crowdllama_tpu_torch.engine import prng_golden
 
@@ -1267,18 +1423,39 @@ def main() -> int:
     launches["D"] = contiguous_phase(dev)
     _free_card()
     int8_contiguous_phase(dev)
+    _free_card()
+    # Dh 128: llama-3-8b at full depth on the paged main path, then cut to
+    # LLAMA_CUT_LAYERS layers on the other paths.
+    paged128 = llama_phase(dev)["launches"]
+    launches128 = {k: paged128[k] for k in ("A", "B", "C")}
+    for phase, ran, kw in (
+            ("engine_llama_int8", {"A", "B_int8", "C_int8"},
+             dict(kv_dtype="int8")),
+            ("contiguous_llama", {"A", "D"}, dict(kv_layout="contiguous")),
+            ("engine_llama_tp", {"A", "B", "C", "F"},
+             dict(mesh_shape="2", devices=[dev, dev])),
+            ("engine_llama_tp_int8", {"A", "B_int8", "C_int8", "F_int8"},
+             dict(mesh_shape="2", devices=[dev, dev], kv_dtype="int8"))):
+        _free_card()
+        got = llama_cut_phase(dev, phase, ran, **kw)
+        launches128.update({k: got[k] for k in ran - {"A", "B", "C"}
+                            if k not in launches128})
     # No engine path runs kernel E; every phase checked it stayed at 0.
     launches["E"] = launches["E_int8"] = 0
+    launches128["E"] = launches128["E_int8"] = 0
 
     rows = []
-    for key, (kname, src, repl) in KERNEL_ROWS.items():
-        r = res[key]
-        rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": repl, "launches": launches[key],
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+    for dh, counts in ((64, launches), (128, launches128)):
+        sfx = "" if dh == 64 else "_dh128"
+        for key, (kname, src, repl) in KERNEL_ROWS.items():
+            r = res[key + sfx]
+            rows.append({"name": kname + sfx, "head_dim": dh, "route": "cuda",
+                         "source": src, "replaces": repl,
+                         "launches": counts[key],
+                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                         "bound_by": r["bound_by"],
+                         "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,36 +5,43 @@
 // NEG_INF; an fp32 online softmax (running max m, denominator l) carries
 // across key tiles; a row that saw no valid key ends with l == 0, which is
 // read as 1, so it outputs zeros and never NaN.  Query head h reads kv head
-// h / G.  Head dim is fixed at DH = 64 (the wrappers refuse anything else).
-// Int8 K/V come with per-key fp32 scales: the K scale multiplies the score
-// after `scale`, before the softcap; the V scale multiplies the probability
-// after it was added to l, so only the output sum sees it
+// h / G.  The head dim DH is a template parameter of every routine; the
+// kernels instantiate 64 (TinyLlama) and 128 (Llama-3, Mistral, Qwen,
+// Gemma-2) and their C entries dispatch on it (the wrappers refuse other
+// dims).  Int8 K/V come with per-key fp32 scales: the K scale multiplies
+// the score after `scale`, before the softcap; the V scale multiplies the
+// probability after it was added to l, so only the output sum sees it
 // (ops/pallas/paged.py _decode_kernel, _chunk_kernel).
 //
-// Two ways to attend query rows to staged key tiles:
+// Two ways to attend query rows to key tiles:
 //
-// - row_attend_tile: one thread per (query, head) row, fp32 FMAs, bf16
-//   tiles (kernel A).
-// - tc_attend, the tensor-core tile (the chunk blocks of kernels C and E).
-//   Bound on the H100: operations, 4 * DH flops per visible (row, key) pair
-//   at 989 TF/s bf16; the K/V bytes are read once per block, mostly from
-//   L2, and take less time.  Design: a block holds 128 (query, head) rows
-//   of one kv head, 16 per warp; Q's mma fragments are loaded once per
-//   block; 128-key tiles, gathered from wherever the caller says each 16
-//   keys live (pages of the pool, or a stretch of a cache), stream through
-//   a three-stage cp.async ring, so two tiles are in flight while one is
-//   computed, with one barrier per tile (int8: two, around its
-//   conversion); S = Q K^T of a whole tile is
-//   mma.sync.m16n8k16 (bf16 in, fp32 accumulate) from ldmatrix fragments
-//   into fp32 registers; row max and sum by quad shuffles; masks only on
-//   tiles that cross the block's kv_len, causal or window edge; O rescaled
-//   once per tile; P reused in registers as the A operand of O += P V
-//   (ldmatrix.trans for V).  Rows are padded in shared memory to 144
-//   bytes, so ldmatrix has no bank conflicts.  An int8 tile is staged raw
-//   (half the bytes) and converted to bf16 in shared memory once per
-//   block, exactly (|x| <= 127).  Products of bf16 values are exact in the
-//   fp32 accumulators; the one rounding the TPU kernel does not make is P
-//   in bf16 (it keeps P in fp32), after l's sum and after the V scale.
+// - Decode rows (kernels B, D and C's decode blocks): a warp per query
+//   head over keys staged in shared memory, its q row staged through
+//   shared memory into fp32 registers (dot_row, load_vec), fp32 FMAs.
+// - tc_attend, the tensor-core tile (kernel A, and the chunk blocks of
+//   kernels C and E).  Bound on the H100: operations, 4 * DH flops per
+//   visible (row, key) pair at 989 TF/s bf16; the K/V bytes are read once
+//   per block, mostly from L2, and take less time.  Design: a block holds
+//   128 (query, head) rows of one kv head, 16 per warp; Q's mma fragments
+//   are loaded once per block; key tiles of tc_tile<DH>() keys (128 at Dh
+//   64, 64 at Dh 128, so a thread's fp32 S, O and Q fragments fit its
+//   registers at both), gathered from wherever the caller says each 16
+//   keys live (pages of the pool, or a stretch of a contiguous K/V), stream
+//   through a three-stage cp.async ring, so two tiles are in flight while
+//   one is computed, with one barrier per tile (int8: two, around its
+//   conversion); S = Q K^T of a whole tile is mma.sync.m16n8k16 (bf16 in,
+//   fp32 accumulate) from ldmatrix fragments into fp32 registers; row max
+//   and sum by quad shuffles; a mask policy (SpanMask for keys whose
+//   positions are their indices, PosMask for keys with positions and valid
+//   flags of their own) masks only the tiles that cross a live row's view;
+//   O rescaled once per tile; P reused in registers as the A operand of O
+//   += P V (ldmatrix.trans for V).  Rows are padded in shared memory by 16
+//   bytes (144 or 272 bytes, 4 banks apart), so ldmatrix has no bank
+//   conflicts.  An int8 tile is staged raw (half the bytes) and converted
+//   to bf16 in shared memory once per block, exactly (|x| <= 127).
+//   Products of bf16 values are exact in the fp32 accumulators; the one
+//   rounding the TPU kernel does not make is P in bf16 (it keeps P in
+//   fp32), after l's sum and after the V scale.
 
 #pragma once
 
@@ -42,14 +49,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
 #include <type_traits>
 
 namespace cla {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int DH = 64;
-// Keys scored per online-softmax update in the thread-per-row routine.
-constexpr int SUB = 16;
 
 __device__ __forceinline__ float softcap_f(float s, float cap) {
   return cap > 0.f ? cap * tanhf(s / cap) : s;
@@ -73,34 +78,38 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// One bf16 row of DH from device memory into fp32 registers.
-__device__ __forceinline__ void load_row_f32(const __nv_bfloat16* src, float (&dst)[DH]) {
-  const uint4* s4 = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int c = 0; c < DH / 8; ++c) {
-    uint4 u = s4[c];
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float2 f = __bfloat1622float2(h2[e]);
-      dst[c * 8 + 2 * e] = f.x;
-      dst[c * 8 + 2 * e + 1] = f.y;
-    }
-  }
+// Opt `kernel` in, once per device, to `bytes` of dynamic shared memory
+// (past the 48 KB default; each launcher passes the most any of its
+// launches takes).  `done` holds a bit per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t bytes, unsigned& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 32 && (done >> dev & 1u))) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
 }
 
+__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// ------------------------------------------------------------------------
+// Decode rows.
+
+template <int DH>
 __device__ __forceinline__ float dot_row(const float (&q)[DH], const __nv_bfloat16* krow) {
   const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(krow);
   float acc = 0.f;
 #pragma unroll
   for (int d = 0; d < DH / 2; ++d) {
-    float2 f = __bfloat1622float2(k2[d]);
+    const float2 f = __bfloat1622float2(k2[d]);
     acc = fmaf(q[2 * d], f.x, acc);
     acc = fmaf(q[2 * d + 1], f.y, acc);
   }
   return acc;
 }
 
+template <int DH>
 __device__ __forceinline__ float dot_row(const float (&q)[DH], const int8_t* krow) {
   const char4* k4 = reinterpret_cast<const char4*>(krow);
   float acc = 0.f;
@@ -115,21 +124,52 @@ __device__ __forceinline__ float dot_row(const float (&q)[DH], const int8_t* kro
   return acc;
 }
 
-// Elements (2i, 2i + 1) of a staged bf16 or int8 row as fp32.
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* row, int i) {
-  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(row)[i]);
+// Elements N * i .. N * i + N - 1 (N = 2 or 4) of a staged bf16 or int8
+// row as fp32: a decode lane's share of the output dims.
+template <int N>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* row, int i, float (&f)[N]) {
+  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 dims");
+  const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(row) + (N / 2) * i;
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) {
+    const float2 x = __bfloat1622float2(r2[e]);
+    f[2 * e] = x.x;
+    f[2 * e + 1] = x.y;
+  }
 }
 
-__device__ __forceinline__ float2 load_pair(const int8_t* row, int i) {
-  const char2 c = reinterpret_cast<const char2*>(row)[i];
-  return make_float2((float)c.x, (float)c.y);
+template <int N>
+__device__ __forceinline__ void load_vec(const int8_t* row, int i, float (&f)[N]) {
+  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 dims");
+  if constexpr (N == 2) {
+    const char2 c = reinterpret_cast<const char2*>(row)[i];
+    f[0] = (float)c.x;
+    f[1] = (float)c.y;
+  } else {
+    const char4 c = reinterpret_cast<const char4*>(row)[i];
+    f[0] = (float)c.x;
+    f[1] = (float)c.y;
+    f[2] = (float)c.z;
+    f[3] = (float)c.w;
+  }
+}
+
+// acc / l (l == 0 read as 1) as bf16 into elements N * i .. of a row.
+template <int N>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* row, int i, const float (&acc)[N],
+                                          float l) {
+  const float inv = 1.f / (l == 0.f ? 1.f : l);
+  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(row) + (N / 2) * i;
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e)
+    d2[e] = __floats2bfloat162_rn(acc[2 * e] * inv, acc[2 * e + 1] * inv);
 }
 
 // Stage `rows` rows of DH elements (bf16 or int8, contiguous in device
 // memory) into shared memory with row stride `stride` elements (a multiple
 // of 4 bytes); rows in [rows, cap) are zeroed so a partial tile reads
 // defined values.  Called by every thread.
-template <typename T>
+template <int DH, typename T>
 __device__ __forceinline__ void stage_rows(T* dst, int stride, const T* src, int rows,
                                            int cap) {
   constexpr int C16 = DH * (int)sizeof(T) / 16;  // 16-byte chunks per row
@@ -143,82 +183,28 @@ __device__ __forceinline__ void stage_rows(T* dst, int stride, const T* src, int
   }
 }
 
-// Thread-per-row online-softmax update over one staged bf16 key tile of
-// `n` keys (n <= the tile's allocated rows, rows past n zero-filled).  Key
-// j sits at position kpos_sm[j] (or kpos0 + j when kpos_sm is null) and is
-// valid when kval_sm[j] != 0 (all valid when null) and key_visible().
-__device__ __forceinline__ void row_attend_tile(
-    const float (&q)[DH], float (&acc)[DH], float& m, float& l,
-    const __nv_bfloat16* Ksm, int kstride, const __nv_bfloat16* Vsm, int vstride,
-    int n, const int* kpos_sm, const unsigned char* kval_sm, int kpos0,
-    int qpos, int kv_len, int window, float scale, float softcap) {
-  for (int j0 = 0; j0 < n; j0 += SUB) {
-    float s[SUB];
-    float tmax = NEG_INF;
-    unsigned ok = 0u;
-#pragma unroll
-    for (int jj = 0; jj < SUB; ++jj) {
-      const int j = j0 + jj;
-      bool v = j < n;
-      if (v) {
-        const int kp = kpos_sm ? kpos_sm[j] : kpos0 + j;
-        v = key_visible(kp, qpos, kv_len, window) && (!kval_sm || kval_sm[j]);
-      }
-      float sc = NEG_INF;
-      if (v) {
-        sc = softcap_f(dot_row(q, Ksm + j * kstride) * scale, softcap);
-        ok |= 1u << jj;
-        tmax = fmaxf(tmax, sc);
-      }
-      s[jj] = sc;
-    }
-    if (!ok) continue;  // every key masked: the update is the identity
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < SUB; ++jj) {
-      s[jj] = (ok >> jj) & 1u ? expf(s[jj] - m_new) : 0.f;
-      psum += s[jj];
-    }
-    l = l * alpha + psum;
-    m = m_new;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int jj = 0; jj < SUB; ++jj) {
-      if (j0 + jj >= n) break;
-      const __nv_bfloat16* vrow = Vsm + (j0 + jj) * vstride;
-#pragma unroll
-      for (int d = 0; d < DH / 2; ++d) {
-        const float2 f = load_pair(vrow, d);
-        acc[2 * d] = fmaf(s[jj], f.x, acc[2 * d]);
-        acc[2 * d + 1] = fmaf(s[jj], f.y, acc[2 * d + 1]);
-      }
-    }
-  }
-}
-
-// acc / l (l == 0 read as 1) as bf16 into a DH row of device memory.
-__device__ __forceinline__ void store_row(__nv_bfloat16* dst, const float (&acc)[DH], float l) {
-  const float inv = 1.f / (l == 0.f ? 1.f : l);
-  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
-#pragma unroll
-  for (int d = 0; d < DH / 2; ++d)
-    d2[d] = __floats2bfloat162_rn(acc[2 * d] * inv, acc[2 * d + 1] * inv);
-}
-
 // ------------------------------------------------------------------------
 // The tensor-core tile.
 
 constexpr int TC_WARPS = 8;
 constexpr int TC_THREADS = 32 * TC_WARPS;
 constexpr int TC_ROWS = 16 * TC_WARPS;  // (query, head) rows of a block
-constexpr int TC_TILE = 128;            // keys per staged tile
 constexpr int TC_STAGES = 3;            // tiles in the cp.async ring
 constexpr int TC_GROUP = 16;            // keys a caller places together
-constexpr int TC_SROW = DH + 8;         // bf16 shared-memory row: 144 bytes
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Keys per staged tile: a thread holds TILE / 2 fp32 of S, DH / 2 of O and
+// DH / 4 words of Q's fragments, 112 at Dh 64 and 128 at Dh 128.
+template <int DH>
+__host__ __device__ constexpr int tc_tile() {
+  static_assert(DH == 64 || DH == 128, "head dims 64 and 128");
+  return 8192 / DH;
+}
+
+// bf16 shared-memory row: 16 bytes of padding, so the 8 rows an ldmatrix
+// reads start 4 banks apart (144 or 272 bytes).
+template <int DH>
+__host__ __device__ constexpr int tc_srow() { return DH + 8; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -273,39 +259,118 @@ __device__ __forceinline__ uint32_t i8x2_to_bf16(uint32_t w, int i) {
 }
 
 // Shared memory of tc_attend.  bf16: a ring of TC_STAGES K and V tiles
-// [TC_TILE][TC_SROW].  int8: the bf16 K and V tiles the mma reads, a ring
-// of raw stages (K, V [TC_TILE][DH] int8, then their bf16 scales), and the
-// current tile's scales in fp32.
-template <typename T>
+// [TILE][SROW].  int8: the bf16 K and V tiles the mma reads, a ring of raw
+// stages (K, V [TILE][DH] int8, then their bf16 scales), and the current
+// tile's scales in fp32.
+template <typename T, int DH>
 __host__ __device__ constexpr size_t tc_smem_bytes() {
+  constexpr size_t TILE = tc_tile<DH>(), SROW = tc_srow<DH>();
   return std::is_same<T, int8_t>::value
-             ? (size_t)TC_TILE * (2 * TC_SROW * 2 + TC_STAGES * (2 * DH + 2 * 2) + 2 * 4)
-             : (size_t)TC_TILE * TC_STAGES * 2 * TC_SROW * 2;
+             ? TILE * (2 * SROW * 2 + TC_STAGES * (2 * DH + 2 * 2) + 2 * 4)
+             : TILE * TC_STAGES * 2 * SROW * 2;
 }
 
+// Mask policy of keys whose positions are their indices (the paged
+// callers): key kpos is seen by the query at qpos when key_visible()
+// allows it; the block's live queries sit at q_start .. q_last.
+struct SpanMask {
+  int q_start, q_last, kv_len, window;
+
+  __device__ __forceinline__ int qpos(int qi) const { return q_start + qi; }
+  __device__ __forceinline__ void stage(int, int, int) const {}
+  // Does a key of the tile at [base, base + tile) fall outside some live
+  // row's view?  (Block-wide; qlo / qhi unused.)
+  __device__ __forceinline__ bool edge(int base, int tile, int, int, int) const {
+    return base + tile > kv_len || base + tile - 1 > q_start ||
+           (window > 0 && base <= q_last - window);
+  }
+  __device__ __forceinline__ bool visible(int kpos, int, int, int qp) const {
+    return key_visible(kpos, qp, kv_len, window);
+  }
+};
+
+// Mask policy of keys with positions and valid flags of their own (kernel
+// A): key j is seen by a query at qpos when kval[j] holds, kpos[j] <= qpos
+// and the window allows it (kpos[j] > qpos - window).  Each tile's
+// positions and flags are staged beside its K/V stage (plain stores at
+// issue time, ordered by the ring's barrier before use), with each warp's
+// min and max position and whether all its keys are valid, so a thread can
+// tell cheaply whether its live rows see every key of the tile.  Keys at
+// or past n_keys are invalid.
+template <int TILE>
+struct PosMask {
+  const int* qpos_row;            // the block's first query's position
+  const int* kpos_row;            // key positions [n_keys]
+  const unsigned char* kval_row;  // key valid flags [n_keys], or null: all valid
+  int n_keys, window;
+  int* kpos_s;                    // [TC_STAGES][TILE]
+  unsigned char* kval_s;          // [TC_STAGES][TILE]
+  int* stats;                     // [TC_STAGES][TILE / 32][3]: min, max, all valid
+
+  static constexpr size_t smem_bytes() {
+    return (size_t)TC_STAGES * TILE * (4 + 1) + (size_t)TC_STAGES * (TILE / 32) * 3 * 4;
+  }
+  __device__ __forceinline__ int qpos(int qi) const { return qpos_row[qi]; }
+  __device__ __forceinline__ void stage(int n, int st, int tid) const {
+    if (tid >= TILE) return;  // whole warps: TILE is a multiple of 32
+    const int j = n * TILE + tid;
+    const bool ok = j < n_keys && (!kval_row || kval_row[j]);
+    const int p = j < n_keys ? kpos_row[j] : 0;
+    kpos_s[st * TILE + tid] = p;
+    kval_s[st * TILE + tid] = ok;
+    const int all = __all_sync(0xffffffffu, ok);
+    const int mn = __reduce_min_sync(0xffffffffu, p), mx = __reduce_max_sync(0xffffffffu, p);
+    if ((tid & 31) == 0) {
+      int* s = stats + (st * (TILE / 32) + tid / 32) * 3;
+      s[0] = mn;
+      s[1] = mx;
+      s[2] = all;
+    }
+  }
+  // Does some key of stage st's tile fall outside the view of a live row
+  // at a position in [qlo, qhi]?  (No live row: qlo > qhi, never.)
+  __device__ __forceinline__ bool edge(int, int, int st, int qlo, int qhi) const {
+    if (qlo > qhi) return false;
+    int mn = INT_MAX, mx = INT_MIN, all = 1;
+#pragma unroll
+    for (int w = 0; w < TILE / 32; ++w) {
+      const int* s = stats + (st * (TILE / 32) + w) * 3;
+      mn = min(mn, s[0]);
+      mx = max(mx, s[1]);
+      all &= s[2];
+    }
+    return !all || mx > qlo || (window > 0 && mn <= qhi - window);
+  }
+  __device__ __forceinline__ bool visible(int, int col, int st, int qp) const {
+    const int p = kpos_s[st * TILE + col];
+    return kval_s[st * TILE + col] && p <= qp && (window <= 0 || p > qp - window);
+  }
+};
+
 // Attention of one block of 128 (query, head) rows over the keys at
-// positions [k_lo, k_hi), all TC_THREADS threads.  Rows are query-major:
-// row r is query r / G of the block, at position q_start + r / G, and head
-// r % G of the kv head (queries per block: TC_ROWS / G; a group that does
+// indices [k_lo, k_hi), all TC_THREADS threads.  Rows are query-major: row
+// r is query r / G of the block, at position mask.qpos(r / G), and head r
+// % G of the kv head (queries per block: TC_ROWS / G; a group that does
 // not divide 128 pads the last rows).  q and out point at the block's
 // first query for its first head; queries are q_stride elements apart,
 // heads DH.  Queries >= n_queries do not exist (never read or written);
 // queries >= q_valid carry no query and are written as zeros.  The caller
-// says where the keys live: the TC_GROUP keys at positions 16 g .. 16 g +
-// 15 are rows key_row(g) .. + 15 of k and v ([rows, DH]) and, on int8, of
-// the scales ks and vs, for g < groups (a tile past them re-reads group
-// groups - 1, whose keys lie past kv_len and are masked).  A key is seen
-// when key_visible() allows it.  `smem` holds tc_smem_bytes<T>() bytes,
-// 16-byte aligned.
-template <typename T, typename KeyRow>
+// says where the keys live: key 16 g + r (r < 16) is row key_row(g, r) of k
+// and v ([rows, DH]) and, on int8, of the scales ks and vs, for g <
+// groups, the 8 keys from an r of 0 or 8 on consecutive rows (a tile past
+// the groups re-reads group groups - 1, whose keys the mask hides).
+// `mask` says which keys a row sees (SpanMask, PosMask).  `smem` holds
+// tc_smem_bytes<T, DH>() bytes, 16-byte aligned.
+template <typename T, int DH, typename KeyRow, typename Mask>
 __device__ __forceinline__ void tc_attend(
     unsigned char* smem, const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
-    size_t q_stride, int G, int n_queries, int q_valid, int q_start, const T* __restrict__ k,
+    size_t q_stride, int G, int n_queries, int q_valid, const T* __restrict__ k,
     const T* __restrict__ v, const __nv_bfloat16* __restrict__ ks,
     const __nv_bfloat16* __restrict__ vs, KeyRow key_row, int groups, int k_lo, int k_hi,
-    int kv_len, int window, float scale, float softcap) {
+    const Mask& mask, float scale, float softcap) {
   constexpr bool Q8 = std::is_same<T, int8_t>::value;
-  constexpr int NT = TC_TILE / 8;  // S column tiles of 8 keys
+  constexpr int TILE = tc_tile<DH>(), SROW = tc_srow<DH>();
+  constexpr int NT = TILE / 8;  // S column tiles of 8 keys
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;  // fragment row (and row + 8), column pair
 
@@ -313,16 +378,21 @@ __device__ __forceinline__ void tc_attend(
   size_t roff[2];
   int qpos[2];
   bool exist[2], live[2];
+  int qlo = INT_MAX, qhi = INT_MIN;  // positions of its live rows
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + gq + 8 * i, qi = r / G;
     exist[i] = qi < TC_ROWS / G && qi < n_queries;
     live[i] = exist[i] && qi < q_valid;
-    qpos[i] = q_start + qi;
+    qpos[i] = exist[i] ? mask.qpos(qi) : 0;
     roff[i] = (size_t)qi * q_stride + (size_t)(r % G) * DH;
+    if (live[i]) {
+      qlo = min(qlo, qpos[i]);
+      qhi = max(qhi, qpos[i]);
+    }
   }
-  // Q as the A operand of four k-steps of 16 dims, zero on rows without a
-  // query.
+  // Q as the A operand of DH / 16 k-steps of 16 dims, zero on rows without
+  // a query.
   uint32_t qf[DH / 16][4];
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
@@ -339,51 +409,51 @@ __device__ __forceinline__ void tc_attend(
   float m[2] = {NEG_INF, NEG_INF};  // running max, log2 units
   float l[2] = {0.f, 0.f};          // this thread's share of the row sums
 
-  constexpr size_t TILE_B = (size_t)TC_TILE * TC_SROW * 2;  // one bf16 K or V tile
+  constexpr size_t TILE_B = (size_t)TILE * SROW * 2;  // one bf16 K or V tile
   __nv_bfloat16* const tiles = reinterpret_cast<__nv_bfloat16*>(smem);
   int8_t* const raw = reinterpret_cast<int8_t*>(smem + 2 * TILE_B);
   __nv_bfloat16* const raw_sc =
-      reinterpret_cast<__nv_bfloat16*>(raw + (size_t)TC_STAGES * 2 * TC_TILE * DH);
-  float* const KSc = reinterpret_cast<float*>(raw_sc + (size_t)TC_STAGES * 2 * TC_TILE);
-  float* const VSc = KSc + TC_TILE;
+      reinterpret_cast<__nv_bfloat16*>(raw + (size_t)TC_STAGES * 2 * TILE * DH);
+  float* const KSc = reinterpret_cast<float*>(raw_sc + (size_t)TC_STAGES * 2 * TILE);
+  float* const VSc = KSc + TILE;
 
   // Start the copies of key tile n into ring stage `stage`.
   auto issue = [&](int n, int stage) {
-    const int g0 = n * (TC_TILE / TC_GROUP);
+    const int g0 = n * (TILE / TC_GROUP);
     if constexpr (!Q8) {
-      __nv_bfloat16* kd = tiles + (size_t)stage * 2 * TC_TILE * TC_SROW;
-      __nv_bfloat16* vd = kd + (size_t)TC_TILE * TC_SROW;
+      __nv_bfloat16* kd = tiles + (size_t)stage * 2 * TILE * SROW;
+      __nv_bfloat16* vd = kd + (size_t)TILE * SROW;
 #pragma unroll
-      for (int c = tid; c < TC_TILE * (DH / 8); c += TC_THREADS) {
+      for (int c = tid; c < TILE * (DH / 8); c += TC_THREADS) {
         const int r = c / (DH / 8), col = (c % (DH / 8)) * 8;
-        const size_t row = key_row(min(g0 + r / TC_GROUP, groups - 1)) + r % TC_GROUP;
-        cp_async16(kd + r * TC_SROW + col, k + row * DH + col);
-        cp_async16(vd + r * TC_SROW + col, v + row * DH + col);
+        const size_t row = key_row(min(g0 + r / TC_GROUP, groups - 1), r % TC_GROUP);
+        cp_async16(kd + r * SROW + col, k + row * DH + col);
+        cp_async16(vd + r * SROW + col, v + row * DH + col);
       }
     } else {
-      int8_t* kd = raw + (size_t)stage * 2 * TC_TILE * DH;
-      int8_t* vd = kd + (size_t)TC_TILE * DH;
+      int8_t* kd = raw + (size_t)stage * 2 * TILE * DH;
+      int8_t* vd = kd + (size_t)TILE * DH;
 #pragma unroll
-      for (int c = tid; c < TC_TILE * (DH / 16); c += TC_THREADS) {
+      for (int c = tid; c < TILE * (DH / 16); c += TC_THREADS) {
         const int r = c / (DH / 16), col = (c % (DH / 16)) * 16;
-        const size_t row = key_row(min(g0 + r / TC_GROUP, groups - 1)) + r % TC_GROUP;
+        const size_t row = key_row(min(g0 + r / TC_GROUP, groups - 1), r % TC_GROUP);
         cp_async16(kd + r * DH + col, k + row * DH + col);
         cp_async16(vd + r * DH + col, v + row * DH + col);
       }
       // Scales: 8 keys a copy, two copies a group; K's, then V's.
-      if (tid < 2 * (TC_TILE / 8)) {
-        const int c = tid % (TC_TILE / 8);
-        const size_t row = key_row(min(g0 + c / 2, groups - 1)) + (c % 2) * 8;
-        const bool isv = tid >= TC_TILE / 8;
-        __nv_bfloat16* sd = raw_sc + (size_t)(stage * 2 + isv) * TC_TILE;
+      if (tid < 2 * (TILE / 8)) {
+        const int c = tid % (TILE / 8);
+        const size_t row = key_row(min(g0 + c / 2, groups - 1), (c % 2) * 8);
+        const bool isv = tid >= TILE / 8;
+        __nv_bfloat16* sd = raw_sc + (size_t)(stage * 2 + isv) * TILE;
         cp_async16(sd + c * 8, (isv ? vs : ks) + row);
       }
     }
+    mask.stage(n, stage, tid);
   };
 
-  const int q_last = q_start + q_valid - 1;
-  const int t_lo = max(k_lo, 0) / TC_TILE;
-  const int ntiles = k_hi > 0 ? (k_hi + TC_TILE - 1) / TC_TILE - t_lo : 0;
+  const int t_lo = max(k_lo, 0) / TILE;
+  const int ntiles = k_hi > 0 ? (k_hi + TILE - 1) / TILE - t_lo : 0;
 #pragma unroll
   for (int st = 0; st < TC_STAGES - 1; ++st) {
     if (st < ntiles) issue(t_lo + st, st);
@@ -401,46 +471,46 @@ __device__ __forceinline__ void tc_attend(
     const __nv_bfloat16* Ks = tiles;
     if constexpr (Q8) {
       // int8 -> bf16 once per element per block, scales -> fp32.
-      const int8_t* kr = raw + (size_t)stage * 2 * TC_TILE * DH;
+      const int8_t* kr = raw + (size_t)stage * 2 * TILE * DH;
 #pragma unroll
-      for (int c = tid; c < 2 * TC_TILE * (DH / 16); c += TC_THREADS) {
+      for (int c = tid; c < 2 * TILE * (DH / 16); c += TC_THREADS) {
         const uint4 w = *reinterpret_cast<const uint4*>(kr + c * 16);
-        // c covers K rows then V rows, 4 chunks of 16 a row.
-        uint4* d = reinterpret_cast<uint4*>(tiles + (size_t)(c / 4) * TC_SROW + (c % 4) * 16);
+        // c covers K rows then V rows, DH / 16 chunks of 16 a row.
+        uint4* d = reinterpret_cast<uint4*>(tiles + (size_t)(c / (DH / 16)) * SROW +
+                                            (c % (DH / 16)) * 16);
         d[0] = make_uint4(i8x2_to_bf16(w.x, 0), i8x2_to_bf16(w.x, 1), i8x2_to_bf16(w.y, 0),
                           i8x2_to_bf16(w.y, 1));
         d[1] = make_uint4(i8x2_to_bf16(w.z, 0), i8x2_to_bf16(w.z, 1), i8x2_to_bf16(w.w, 0),
                           i8x2_to_bf16(w.w, 1));
       }
-      const __nv_bfloat16* sc = raw_sc + (size_t)stage * 2 * TC_TILE;
-      if (tid < TC_TILE) {
+      const __nv_bfloat16* sc = raw_sc + (size_t)stage * 2 * TILE;
+      if (tid < TILE) {
         KSc[tid] = __bfloat162float(sc[tid]);
-        VSc[tid] = __bfloat162float(sc[TC_TILE + tid]);
+        VSc[tid] = __bfloat162float(sc[TILE + tid]);
       }
       __syncthreads();
     } else {
-      Ks = tiles + (size_t)stage * 2 * TC_TILE * TC_SROW;
+      Ks = tiles + (size_t)stage * 2 * TILE * SROW;
     }
-    const __nv_bfloat16* Vs = Ks + (size_t)TC_TILE * TC_SROW;
+    const __nv_bfloat16* Vs = Ks + (size_t)TILE * SROW;
 
-    const int base = n * TC_TILE;
-    // Does a key of this tile fall outside some live row's view?
-    const bool edge = base + TC_TILE > kv_len || base + TC_TILE - 1 > q_start ||
-                      (window > 0 && base <= q_last - window);
+    const int base = n * TILE;
+    const bool edge = mask.edge(base, TILE, stage, qlo, qhi);
 
-    // S = Q K^T: column tile nt holds keys nt * 8 .. + 7.
+    // S = Q K^T: column tile nt holds keys nt * 8 .. + 7; each ldmatrix
+    // brings 32 dims (two k-steps).
     float s[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (nt * 8 + (lane & 7)) * TC_SROW + (lane >> 3) * 8;
-      uint32_t b[4];
-      ldsm_x4(b, kr);
-      mma_16816(s[nt], qf[0], b[0], b[1]);
-      mma_16816(s[nt], qf[1], b[2], b[3]);
-      ldsm_x4(b, kr + 32);
-      mma_16816(s[nt], qf[2], b[0], b[1]);
-      mma_16816(s[nt], qf[3], b[2], b[3]);
+      const __nv_bfloat16* kr = Ks + (nt * 8 + (lane & 7)) * SROW + (lane >> 3) * 8;
+#pragma unroll
+      for (int kk = 0; kk < DH / 32; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(b, kr + kk * 32);
+        mma_16816(s[nt], qf[2 * kk], b[0], b[1]);
+        mma_16816(s[nt], qf[2 * kk + 1], b[2], b[3]);
+      }
     }
     // Logits in log2 units: dot * scale (* K scale), softcap, mask.
     if (softcap > 0.f) {
@@ -467,9 +537,10 @@ __device__ __forceinline__ void tc_attend(
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (!key_visible(base + nt * 8 + 2 * tq + (e & 1), qpos[e >> 1], kv_len, window))
-            s[nt][e] = NEG_INF;
+        for (int e = 0; e < 4; ++e) {
+          const int col = nt * 8 + 2 * tq + (e & 1);
+          if (!mask.visible(base + col, col, stage, qpos[e >> 1])) s[nt][e] = NEG_INF;
+        }
     }
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -519,7 +590,7 @@ __device__ __forceinline__ void tc_attend(
                              pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
       const int mi = lane >> 3;
       const __nv_bfloat16* vr =
-          Vs + (kt * 16 + (lane & 7) + (mi & 1) * 8) * TC_SROW + (mi >> 1) * 8;
+          Vs + (kt * 16 + (lane & 7) + (mi & 1) * 8) * SROW + (mi >> 1) * 8;
 #pragma unroll
       for (int dp = 0; dp < DH / 16; ++dp) {
         uint32_t b[4];

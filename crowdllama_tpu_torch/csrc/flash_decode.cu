@@ -12,13 +12,14 @@
 // per head, ~2 flop per byte read, far below the tensor cores' ~295
 // flop/byte.  So the least time is the live KV bytes at 3.35 TB/s.  What
 // the design does about it: one block per (kv head, slot) stages TILE keys
-// at a time in shared memory for its G query heads (one warp each), the
+// at a time in shared memory for its G query heads (one warp each, q in
+// fp32 registers, each lane owning DH / 32 output dims), the
 // key loop stops at seq_len and starts at the first tile the window can
 // see, so only live rows are read (the TPU kernel block-copies the whole
 // row into VMEM and only skips compute).  This first version does not
 // overlap the next tile's load with the current tile's math, and at the
-// serving shape (8 slots x 4 kv heads) the grid is 32 blocks on 132 SMs:
-// splitting the key axis across blocks (split-KV) is later work.
+// serving shape (8 slots x 4 or 8 kv heads) the grid is 32-64 blocks on 132
+// SMs: splitting the key axis across blocks (split-KV) is later work.
 
 #include "attention_common.cuh"
 
@@ -26,24 +27,36 @@ namespace {
 
 using namespace cla;
 
-constexpr int TILE = 128;     // keys staged per step (4 per lane)
-constexpr int MAX_G = 8;      // query heads per kv head: one warp each
-constexpr int KS = DH + 2;    // padded K row stride: lanes reading different
-                              // rows hit different banks
+constexpr int TILE = 128;  // keys staged per step (4 per lane)
+constexpr int MAX_G = 8;   // query heads per kv head: one warp each
 
+// Padded K row stride: an odd number of words, so lanes reading different
+// rows hit different banks.
+template <int DH>
+__host__ __device__ constexpr int k_stride() { return DH + 2; }
+
+template <int DH>
+size_t smem_bytes(int G) {
+  return align16((size_t)TILE * k_stride<DH>() * sizeof(__nv_bfloat16)) +
+         (size_t)TILE * DH * sizeof(__nv_bfloat16) + (size_t)G * TILE * sizeof(float) +
+         (size_t)G * DH * sizeof(float);
+}
+
+template <int DH>
 __global__ void __launch_bounds__(32 * MAX_G)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k_cache,
                     const __nv_bfloat16* __restrict__ v_cache,
                     const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out,
                     int H, int Hkv, int S, float scale, float softcap, int window) {
+  constexpr int KS = k_stride<DH>(), N = DH / 32;  // output dims per lane
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / Hkv;
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  size_t off = ((size_t)TILE * KS * sizeof(__nv_bfloat16) + 15) & ~size_t(15);
+  size_t off = align16((size_t)TILE * KS * sizeof(__nv_bfloat16));
   __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + off);
   off += (size_t)TILE * DH * sizeof(__nv_bfloat16);
   float* P = reinterpret_cast<float*>(smem + off) + warp * TILE;
@@ -63,12 +76,14 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int first = window > 0 ? max(0, len - window) : 0;
   const size_t plane = ((size_t)b * Hkv + h) * S * DH;
 
-  float m = NEG_INF, l = 0.f, a0 = 0.f, a1 = 0.f;
+  float m = NEG_INF, l = 0.f, acc[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e) acc[e] = 0.f;
   for (int t0 = (first / TILE) * TILE; t0 < live; t0 += TILE) {
     const int rows = min(TILE, live - t0);
     __syncthreads();  // previous tile fully consumed
-    stage_rows(Ks, KS, k_cache + plane + (size_t)t0 * DH, rows, TILE);
-    stage_rows(Vs, DH, v_cache + plane + (size_t)t0 * DH, rows, TILE);
+    stage_rows<DH>(Ks, KS, k_cache + plane + (size_t)t0 * DH, rows, TILE);
+    stage_rows<DH>(Vs, DH, v_cache + plane + (size_t)t0 * DH, rows, TILE);
     __syncthreads();
     float sc[4];
     float tmax = NEG_INF;
@@ -77,7 +92,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
       const int j = lane + 32 * i;
       sc[i] = NEG_INF;
       if (j < rows && key_visible(t0 + j, qpos, len, window)) {
-        sc[i] = softcap_f(dot_row(qr, Ks + j * KS) * scale, softcap);
+        sc[i] = softcap_f(dot_row<DH>(qr, Ks + j * KS) * scale, softcap);
         tmax = fmaxf(tmax, sc[i]);
       }
     }
@@ -96,36 +111,47 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     l = l * alpha + warp_sum(psum);
     m = m_new;
     __syncwarp();
-    a0 *= alpha;
-    a1 *= alpha;
-    const __nv_bfloat162* V2 = reinterpret_cast<const __nv_bfloat162*>(Vs);
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[e] *= alpha;
     for (int j = 0; j < rows; ++j) {
-      const float2 f = __bfloat1622float2(V2[j * (DH / 2) + lane]);
-      a0 = fmaf(P[j], f.x, a0);
-      a1 = fmaf(P[j], f.y, a1);
+      float f[N];
+      load_vec<N>(Vs + j * DH, lane, f);
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[e] = fmaf(P[j], f[e], acc[e]);
     }
     __syncwarp();
   }
-  const float inv = 1.f / (l == 0.f ? 1.f : l);
-  reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * H + (size_t)h * G + warp) * DH)[lane] =
-      __floats2bfloat162_rn(a0 * inv, a1 * inv);
+  store_vec<N>(out + ((size_t)b * H + (size_t)h * G + warp) * DH, lane, acc, l);
 }
 
-size_t smem_bytes(int G) {
-  size_t k = ((size_t)TILE * KS * sizeof(__nv_bfloat16) + 15) & ~size_t(15);
-  return k + (size_t)TILE * DH * sizeof(__nv_bfloat16) + (size_t)G * TILE * sizeof(float) +
-         (size_t)G * DH * sizeof(float);
+template <int DH>
+int launch_decode(const void* q, const void* k_cache, const void* v_cache, const int* seq_lens,
+                  void* out, int B, int H, int Hkv, int S, float scale, float softcap,
+                  int window, void* stream) {
+  static unsigned opted = 0;
+  const cudaError_t err = allow_smem(flash_decode_kernel<DH>, smem_bytes<DH>(MAX_G), opted);
+  if (err != cudaSuccess) return (int)err;
+  const int G = H / Hkv;
+  dim3 grid(Hkv, B);
+  flash_decode_kernel<DH><<<grid, 32 * G, smem_bytes<DH>(G), (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache, (const __nv_bfloat16*)v_cache,
+      seq_lens, (__nv_bfloat16*)out, H, Hkv, S, scale, softcap, window);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int flash_decode(const void* q, const void* k_cache, const void* v_cache,
                             const int* seq_lens, void* out, int B, int H, int Hkv, int S,
-                            float scale, float softcap, int window, void* stream) {
-  const int G = H / Hkv;
-  dim3 grid(Hkv, B);
-  flash_decode_kernel<<<grid, 32 * G, smem_bytes(G), (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache, (const __nv_bfloat16*)v_cache,
-      seq_lens, (__nv_bfloat16*)out, H, Hkv, S, scale, softcap, window);
-  return (int)cudaGetLastError();
+                            float scale, float softcap, int window, int dh, void* stream) {
+  switch (dh) {
+    case 64:
+      return launch_decode<64>(q, k_cache, v_cache, seq_lens, out, B, H, Hkv, S, scale,
+                               softcap, window, stream);
+    case 128:
+      return launch_decode<128>(q, k_cache, v_cache, seq_lens, out, B, H, Hkv, S, scale,
+                                softcap, window, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

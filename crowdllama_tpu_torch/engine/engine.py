@@ -101,14 +101,16 @@ class TorchEngine(Engine):
     under tp) and keeps no reference.  Tensor parallelism: ``mesh_shape``
     (e.g. "2") with the ranks on ``devices`` (default: the visible CUDA
     devices, each once); ``devices`` may name one device twice, e.g.
-    ``["cpu", "cpu"]`` or two shards on one card."""
+    ``["cpu", "cpu"]`` or two shards on one card.  ``model_config`` (a
+    ``ModelConfig``) serves in place of the registry's entry for
+    ``config.model``, e.g. a copy cut to fewer layers."""
 
     def __init__(self, config: Configuration | None = None, *,
                  device: torch.device | str | None = None,
                  devices: list | None = None,
                  params: dict | None = None,
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
-                 **overrides):
+                 model_config=None, **overrides):
         self.config = dataclasses.replace(config or Configuration(),
                                           **overrides)
         self.models = [self.config.model]
@@ -126,6 +128,7 @@ class TorchEngine(Engine):
         self.dtype = dtype
         self.seed = seed
         self._params = params
+        self._model_config = model_config
         self.scheduler = None
         self.tokenizer = None
         self.runner = None
@@ -143,7 +146,7 @@ class TorchEngine(Engine):
 
         c = self.config
         self.plan = resolve_serving_plan(c)
-        cfg = get_config(c.model)
+        cfg = self._model_config or get_config(c.model)
         if c.max_context_length:
             cfg = dataclasses.replace(cfg, max_context_length=min(
                 cfg.max_context_length, c.max_context_length))

@@ -63,7 +63,11 @@ def _nucleus_filter(logits, temperature, top_p, window: int, top_k=None):
     greedy = logits.argmax(dim=-1)
     temp = temperature.clamp_min(1e-6)[:, None]
     window = min(window, logits.shape[-1])
-    top_logits, top_idx = logits.topk(window, dim=-1)  # [B, W] descending
+    # A stable descending sort puts the lower index first among equal
+    # logits, as ``jax.lax.top_k`` does (``topk``'s tie order is not
+    # defined), so tied rows draw the same tokens as the JAX package.
+    top_logits, top_idx = logits.sort(dim=-1, descending=True, stable=True)
+    top_logits, top_idx = top_logits[:, :window], top_idx[:, :window]
     scaled = top_logits / temp
     neg_inf = torch.full_like(scaled, float("-inf"))
     if top_k is not None:

@@ -20,11 +20,11 @@ from crowdllama_tpu_torch.ops.attention import (
     decode_attention_ref,
     prefill_attention_ref,
 )
-from crowdllama_tpu_torch.ops.cuda import check, launch
+from crowdllama_tpu_torch.ops.cuda import HEAD_DIMS, check, launch
 
-HEAD_DIM = 64   # the kernels' fixed head dim
-BLOCK_ROWS = 128  # kernel A: query rows x heads per block (G must divide it)
-MAX_GROUP = 8     # kernel D: query heads per kv head (one warp each)
+# Query heads per kv head: kernel D's warps (one each), and kernel A's
+# groups (7 pads its blocks' 128 rows).
+MAX_GROUP = 8
 
 #: kernel D's plain version (reference semantics, any device)
 decode_attention_plain = decode_attention_ref
@@ -39,7 +39,8 @@ def flash_prefill_attention(q, k, v, positions, scale: float,
 
     The caller guarantees ``positions[b, t] <= t`` (arange, or arange
     clamped at plen-1 with ``kv_valid`` masking the padding): the kernel
-    skips key tiles above each query tile's diagonal.
+    skips key tiles above each query block's diagonal.  Head dims 64 and
+    128, up to 8 query heads per kv head.
     """
     if q.device.type == "cpu":
         return prefill_attention_ref(q, k, v, positions, scale,
@@ -54,9 +55,10 @@ def flash_prefill_attention(q, k, v, positions, scale: float,
           "all operands must be on one device")
     check(q.dtype == k.dtype == v.dtype == torch.bfloat16,
           "q/k/v must be bfloat16")
-    check(dh == HEAD_DIM, f"head dim {dh} unsupported (kernel takes {HEAD_DIM})")
-    check(h % hkv == 0 and BLOCK_ROWS % (h // hkv) == 0,
-          f"heads {h}/{hkv}: group size must divide {BLOCK_ROWS}")
+    check(dh in HEAD_DIMS,
+          f"head dim {dh} unsupported (kernel takes {HEAD_DIMS})")
+    check(h % hkv == 0 and h // hkv <= MAX_GROUP,
+          f"heads {h}/{hkv}: at most {MAX_GROUP} query heads per kv head")
     check(tuple(k.shape) == tuple(v.shape) == (b, hkv, t, dh),
           f"k/v shape {tuple(k.shape)} != {(b, hkv, t, dh)}")
     check(positions.dtype == torch.int32 and tuple(positions.shape) == (b, t),
@@ -67,12 +69,14 @@ def flash_prefill_attention(q, k, v, positions, scale: float,
     check(all(x.is_contiguous() for x in (q, k, v, positions))
           and (kv_valid is None or kv_valid.is_contiguous()),
           "operands must be contiguous")
+    check(all(x.data_ptr() % 16 == 0 for x in (q, k, v)),
+          "q, k and v must be 16-byte aligned (16-byte copies)")
     out = torch.empty_like(q)
     launch("flash_prefill", "flash_prefill", q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), positions.data_ptr(),
            None if kv_valid is None else kv_valid.data_ptr(), out.data_ptr(),
            b, t, h, hkv, float(scale), float(softcap or 0.0),
-           int(sliding_window))
+           int(sliding_window), dh)
     flash_prefill_attention.launches += 1
     return out
 
@@ -100,7 +104,8 @@ def flash_decode_attention(q, k_cache, v_cache, seq_lens, scale: float,
           "all operands must be on one device")
     check(q.dtype == k_cache.dtype == v_cache.dtype == torch.bfloat16,
           "q and caches must be bfloat16")
-    check(dh == HEAD_DIM, f"head dim {dh} unsupported (kernel takes {HEAD_DIM})")
+    check(dh in HEAD_DIMS,
+          f"head dim {dh} unsupported (kernel takes {HEAD_DIMS})")
     check(tuple(k_cache.shape) == tuple(v_cache.shape) == (b, hkv, s, dh),
           f"cache shape {tuple(k_cache.shape)} != {(b, hkv, s, dh)}")
     check(h % hkv == 0 and h // hkv <= MAX_GROUP,
@@ -109,11 +114,13 @@ def flash_decode_attention(q, k_cache, v_cache, seq_lens, scale: float,
           "seq_lens must be int32 [B]")
     check(all(x.is_contiguous() for x in (q, k_cache, v_cache, seq_lens)),
           "operands must be contiguous")
+    check(all(x.data_ptr() % 16 == 0 for x in (q, k_cache, v_cache)),
+          "q and the caches must be 16-byte aligned (16-byte loads)")
     out = torch.empty_like(q)
     launch("flash_decode", "flash_decode", q.device,
            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
            seq_lens.data_ptr(), out.data_ptr(), b, h, hkv, s, float(scale),
-           float(softcap or 0.0), int(sliding_window))
+           float(softcap or 0.0), int(sliding_window), dh)
     flash_decode_attention.launches += 1
     return out
 

@@ -24,8 +24,9 @@ Counterparts of ``crowdllama_tpu/ops/pallas/paged.py``:
   rank.  The paged decode step calls F at every tp degree; over one rank
   F is B's launch alone and does not count as an F call.
 
-Pools are one layer's ``[P, Hkv, page, Dh]``, bf16 or int8 (the last page
-is the engine's dump page), tables ``[B, NP]`` int32.  An int8 pool comes
+Pools are one layer's ``[P, Hkv, page, Dh]`` (Dh 64 or 128 on the
+card), bf16 or int8 (the last page is the engine's dump page), tables
+``[B, NP]`` int32.  An int8 pool comes
 with per-position scales ``k_scale``/``v_scale`` ``[P, Hkv, page]`` bf16:
 the K scale multiplies the scores, the V scale the probabilities after
 the softmax denominator is summed.  Each wrapper launches its kernel (the
@@ -47,16 +48,15 @@ from crowdllama_tpu_torch.ops.attention import (
     decode_attention_ref,
     prefill_attention_ctx,
 )
-from crowdllama_tpu_torch.ops.cuda import check, launch
+from crowdllama_tpu_torch.ops.cuda import HEAD_DIMS, check, launch
 from crowdllama_tpu_torch.ops.quant import dequantize_kv
 
-HEAD_DIM = 64
 # Query heads per kv head: a decode warp each, 8 warps a block; the chunk
 # blocks' 128 (query, head) rows hold at least 16 queries.
 MAX_GROUP = 8
-# Keys per page: 4 per decode lane, and the chunk tile's fp32 scores.
+# Keys per page: 4 per decode lane.
 MAX_PAGE = 128
-PAGE_ALIGN = 16   # keys per mma k-step of the chunk tile's P V
+PAGE_ALIGN = 16   # keys the chunk tile gathers together (one mma k-step)
 
 
 def _gathered(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -172,8 +172,8 @@ def _check_pool(q, pool_k, pool_v, page_table, k_scale,
     check(q.dtype == torch.bfloat16, "q must be bfloat16")
     check(scales or pool_k.dtype == pool_v.dtype == torch.bfloat16,
           "pools must be bfloat16 (or int8 with scales)")
-    check(dh == pdh == HEAD_DIM,
-          f"head dim {dh} unsupported (kernel takes {HEAD_DIM})")
+    check(dh == pdh and dh in HEAD_DIMS,
+          f"head dim {dh} unsupported (kernels take {HEAD_DIMS})")
     check(pool_v.shape == pool_k.shape, "pool_k/pool_v shapes differ")
     check(h % hkv == 0 and h // hkv <= MAX_GROUP,
           f"heads {h}/{hkv}: at most {MAX_GROUP} query heads per kv head")
@@ -209,7 +209,7 @@ def flash_paged_decode_attention(q, pool_k, pool_v, page_table, seq_lens,
           "seq_lens must be int32 [B] on the device")
     out = torch.empty_like(q)
     tail = (b, h, hkv, page, np_, float(scale), float(softcap or 0.0),
-            int(sliding_window))
+            int(sliding_window), q.shape[2])
     if quant:
         launch("paged_attention", "paged_decode_i8", q.device,
                q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
@@ -258,7 +258,8 @@ def ragged_paged_attention(q, chunk_k, chunk_v, pool_k, pool_v, page_table,
     out = torch.empty_like(q)
     meta = (page_table.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(),
             out.data_ptr(), b, c, h, hkv, page, np_, int(chunk_slot),
-            float(scale), float(softcap or 0.0), int(sliding_window))
+            float(scale), float(softcap or 0.0), int(sliding_window),
+            q.shape[2])
     if quant:
         launch("paged_attention", "ragged_paged_i8", q.device,
                q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
@@ -339,7 +340,7 @@ def flash_ragged_chunk_attention(q, pool_k, pool_v, pages, ctx_len, kv_len,
     out = torch.empty_like(q)
     meta = (pages.data_ptr(), ctx_len.data_ptr(), kv_len.data_ptr(),
             out.data_ptr(), q.shape[0], h, hkv, page, np_, float(scale),
-            float(softcap or 0.0), int(sliding_window))
+            float(softcap or 0.0), int(sliding_window), q.shape[2])
     if quant:
         launch("paged_attention", "ragged_chunk_i8", q.device,
                q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),

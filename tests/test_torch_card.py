@@ -14,7 +14,10 @@ scales from ``quantize_kv``; kernel E, and C's chunk rows, on both pools
 at the edges of the chunk tile: unaligned contexts and chunk lengths,
 windows across pages, groups of 2, 4 and 7; kernel F bit-equal to B at
 tp 2 and 4);
-tolerance: one bf16 rounding of outputs of magnitude ~1 plus fp32
+and at head dim 128 with Llama-3-8B's heads (32 query, 8 kv): every
+kernel on both pools, A at groups of 4 and 7 (and 7 at Dh 64), F
+bit-equal to B, and the builds' ``ptxas`` reports without spills.
+Tolerance: one bf16 rounding of outputs of magnitude ~1 plus fp32
 summation order, atol 2e-2 + rtol 1e-2.
 """
 
@@ -345,3 +348,243 @@ def test_tp_decode_is_bit_identical_to_paged_decode_on_card(cuda_device,
                                            lens, 0.125, **skw)
     assert torch.equal(torch.cat(outs, dim=1), full)
     assert calls() - before == (tp > 1)
+
+
+# ------------------------------------------------------------ head dim 128
+
+ATOL, RTOL = 2e-2, 1e-2
+
+
+def _close(got, want):
+    torch.testing.assert_close(got.float(), want.float(), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,h,hkv,softcap,window", [
+    (128, 32, 8, 0.0, 0), (128, 32, 8, 30.0, 17), (128, 28, 4, 0.0, 0),
+    (128, 28, 4, 30.0, 40), (64, 28, 4, 0.0, 33)])
+def test_prefill_kernel_head_dims_and_groups_on_card(cuda_device, dh, h, hkv,
+                                                     softcap, window):
+    """Kernel A at Dh 128 (groups of 4 and 7) and at Dh 64 with a group of
+    7, over two batch rows padded past their prompt (positions clamped,
+    padding keys invalid), every row that sees a key held against the
+    plain version; row 1's first 7 queries see none and are zeros from the
+    kernel (the plain version averages V there)."""
+    from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
+
+    gen, bf = _card_case(cuda_device)
+    t, plen = 200, 181
+    q = torch.randn((2, t, h, dh), generator=gen, **bf)
+    k = torch.randn((2, hkv, t, dh), generator=gen, **bf)
+    v = torch.randn((2, hkv, t, dh), generator=gen, **bf)
+    ar = torch.arange(t, device=cuda_device, dtype=torch.int32)
+    pos = torch.clamp(ar, max=plen - 1)[None].repeat(2, 1).contiguous()
+    valid = (ar < plen)[None].repeat(2, 1).contiguous()
+    valid[1, :7] = False  # row 1's first queries see no key
+    kw = dict(softcap=softcap, sliding_window=window, kv_valid=valid)
+    got = flash_prefill_attention(q, k, v, pos, dh ** -0.5, **kw)
+    want = prefill_attention_ref(q, k, v, pos, dh ** -0.5, **kw)
+    _close(got[0], want[0])
+    _close(got[1, 7:], want[1, 7:])
+    assert not got[1, :7].any()
+
+
+def _pools128(dev, gen, int8: bool, page: int = 128, pages: int = 17):
+    from crowdllama_tpu_torch.ops.quant import quantize_kv
+
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    pk = torch.randn((pages, 8, page, 128), generator=gen, **bf)
+    pv = torch.randn((pages, 8, page, 128), generator=gen, **bf)
+    if not int8:
+        return pk, pv, {}
+    (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
+    return pk, pv, dict(k_scale=ks, v_scale=vs)
+
+
+_TABLE = [[1, 2, 3, 4], [16, 0, 0, 0], [5, 6, 7, 8], [9, 10, 11, 12]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 40)])
+def test_paged_decode_dh128_on_card(cuda_device, int8, softcap, window):
+    """Kernel B at Dh 128 (its page past 48 KB of shared memory at page
+    128): mixed lengths, a one-token and a zero-length slot."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        paged_decode_attention_plain,
+    )
+
+    gen, bf = _card_case(cuda_device)
+    pk, pv, sc = _pools128(cuda_device, gen, int8)
+    table = torch.tensor(_TABLE, dtype=torch.int32, device=cuda_device)
+    q = torch.randn((4, 32, 128), generator=gen, **bf)
+    lens = torch.tensor([300, 1, 0, 512], dtype=torch.int32,
+                        device=cuda_device)
+    kw = dict(softcap=softcap, sliding_window=window, **sc)
+    got = flash_paged_decode_attention(q, pk, pv, table, lens, 0.088, **kw)
+    want = paged_decode_attention_plain(q, pk, pv, table, lens, 0.088, **kw)
+    _close(got[[0, 1, 3]], want[[0, 1, 3]])
+    assert not got[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 40)])
+def test_flash_decode_dh128_on_card(cuda_device, softcap, window):
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        decode_attention_plain,
+        flash_decode_attention,
+    )
+
+    gen, bf = _card_case(cuda_device)
+    b, s = 5, 300
+    q = torch.randn((b, 32, 128), generator=gen, **bf)
+    kc = torch.randn((b, 8, s, 128), generator=gen, **bf)
+    vc = torch.randn((b, 8, s, 128), generator=gen, **bf)
+    lens = torch.tensor([300, 1, 0, 129, 77], dtype=torch.int32,
+                        device=cuda_device)
+    kw = dict(softcap=softcap, sliding_window=window)
+    got = flash_decode_attention(q, kc, vc, lens, 0.088, **kw)
+    want = decode_attention_plain(q, kc, vc, lens, 0.088, **kw)
+    _close(got[[0, 1, 3, 4]], want[[0, 1, 3, 4]])
+    assert not got[2].any()
+
+
+# (ctx, chunk rows, valid rows, softcap, window, query heads over 8 kv
+# heads): Dh 128's 64-key tiles, windows across tiles and pages, groups of
+# 4, 2 and 7 (56 / 8).
+CHUNK128_CASES = [
+    (0, 80, 64, 0.0, 0, 32), (256, 80, 50, 30.0, 0, 32),
+    (200, 75, 60, 30.0, 100, 32), (130, 70, 70, 0.0, 50, 16),
+    (200, 75, 61, 0.0, 100, 56)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ctx,c,valid,softcap,window,h", CHUNK128_CASES)
+def test_chunk_and_ragged_dh128_on_card(cuda_device, int8, ctx, c, valid,
+                                        softcap, window, h):
+    """Kernel E over its slot's pages, and C's chunk rows beside decode
+    rows on the same pool, at Dh 128."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_ragged_chunk_attention,
+        ragged_chunk_attention_plain,
+        ragged_paged_attention_ref,
+    )
+    from crowdllama_tpu_torch.ops.quant import dequantize_kv
+
+    gen, bf = _card_case(cuda_device)
+    pk, pv, sc = _pools128(cuda_device, gen, int8)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    q = torch.randn((c, h, 128), generator=gen, **bf)
+    pages = torch.tensor([3, 9, 1, 14], **i32)
+    args = (q, pk, pv, pages, torch.tensor(ctx, **i32),
+            torch.tensor(ctx + valid, **i32), 0.088)
+    kw = dict(softcap=softcap, sliding_window=window, **sc)
+    got = flash_ragged_chunk_attention(*args, **kw)
+    want = ragged_chunk_attention_plain(*args, **kw)
+    _close(got[:valid], want[:valid])
+    assert not got[valid:].any()
+
+    b, page = 4, 128
+    table = torch.tensor(_TABLE, **i32)
+    qr = torch.randn((b + c, h, 128), generator=gen, **bf)
+    cpos = torch.clamp(ctx + torch.arange(c, device=cuda_device),
+                       max=ctx + valid - 1)
+    cp, co = table[3, cpos // page].long(), cpos % page
+
+    def rows(pool, scale):
+        x = pool[cp, :, co]
+        if scale is not None:
+            x = dequantize_kv(x, scale[cp, :, co])
+        return x.transpose(0, 1)[None].contiguous()
+
+    ck, cv = rows(pk, sc.get("k_scale")), rows(pv, sc.get("v_scale"))
+    ql = torch.tensor([1, 0, 1, 0, valid], **i32)
+    kl = torch.tensor([300, 1, 512, 1, ctx + valid], **i32)
+    rargs = (qr, ck, cv, pk, pv, table, ql, kl, 3, 0.088)
+    got = ragged_paged_attention(*rargs, **kw)
+    want = ragged_paged_attention_ref(*rargs, **kw)
+    live = [0, 2] + [b + i for i in range(valid)]
+    _close(got[live], want[live])
+    assert not got[[1, 3] + [b + i for i in range(valid, c)]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("page", [16, 64])
+def test_chunk_dh128_small_pages_on_card(cuda_device, int8, page):
+    """E at Dh 128 on pages of 16 and 64 keys: a 64-key tile gathers four
+    pages of 16, or is one page of 64."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_ragged_chunk_attention,
+        ragged_chunk_attention_plain,
+    )
+
+    gen, bf = _card_case(cuda_device)
+    pk, pv, sc = _pools128(cuda_device, gen, int8, page, pages=17)
+    ctx, c, valid = 100, 75, 70
+    q = torch.randn((c, 32, 128), generator=gen, **bf)
+    pages = torch.randperm(16, generator=torch.Generator().manual_seed(page))
+    pages = pages[:-(-(ctx + valid) // page)].to(torch.int32).to(cuda_device)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    args = (q, pk, pv, pages, torch.tensor(ctx, **i32),
+            torch.tensor(ctx + valid, **i32), 0.088)
+    kw = dict(softcap=30.0, sliding_window=50, **sc)
+    got = flash_ragged_chunk_attention(*args, **kw)
+    want = ragged_chunk_attention_plain(*args, **kw)
+    _close(got[:valid], want[:valid])
+    assert not got[valid:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_decode_dh128_bit_identical_to_paged_decode(cuda_device, int8, tp):
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+    )
+
+    gen, bf = _card_case(cuda_device)
+    pk, pv, sc = _pools128(cuda_device, gen, int8)
+    table = torch.tensor(_TABLE, dtype=torch.int32, device=cuda_device)
+    q = torch.randn((4, 32, 128), generator=gen, **bf)
+    lens = torch.tensor([300, 1, 0, 512], dtype=torch.int32,
+                        device=cuda_device)
+    full = flash_paged_decode_attention(q, pk, pv, table, lens, 0.088, **sc)
+
+    def cut(x):
+        return [s.contiguous() for s in x.chunk(tp, dim=1)]
+
+    skw = {f"{k}s": cut(v) for k, v in sc.items()}
+    outs = flash_paged_decode_attention_tp(cut(q), cut(pk), cut(pv), table,
+                                           lens, 0.088, **skw)
+    assert torch.equal(torch.cat(outs, dim=1), full)
+
+
+@pytest.mark.cuda
+def test_builds_report_no_spills(cuda_device):
+    """Every kernel instantiation, at Dh 64 and 128 on both pools, keeps
+    its registers: ``ptxas -v`` reports no spill stores or loads."""
+    from crowdllama_tpu_torch.ops import cuda as kernels
+
+    rows = [dict(r, library=name) for name in kernels.SIGNATURES
+            for r in kernels.ptxas_usage(name)]
+    assert {(r["kernel"], r["dh"]) for r in rows} >= {
+        (k, dh) for dh in (64, 128)
+        for k in ("flash_prefill_kernel", "flash_decode_kernel",
+                  "paged_decode_kernel", "ragged_paged_kernel",
+                  "ragged_chunk_kernel")}
+    spills = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
+    assert not spills, spills
+
+
+@pytest.mark.cuda
+def test_samplers_match_jax_goldens_on_card(cuda_device):
+    """Threefry and the samplers with the logits on the card, against the
+    goldens captured from JAX, tied rows included (the window's stable
+    sort orders equal logits as ``jax.lax.top_k``)."""
+    from crowdllama_tpu_torch.engine import prng_golden
+
+    got = prng_golden.check(cuda_device)
+    assert got["tied_slot_tokens"] == prng_golden.TIED_SLOT_TOKENS

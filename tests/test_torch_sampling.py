@@ -153,3 +153,68 @@ def test_goldens_are_jax_and_the_port_reproduces_them():
     assert (np.asarray(JS.sample_tokens(*args, key, top_k=top_k)).tolist()
             == golden.BATCH_TOKENS)
     golden.check("cpu")
+
+
+def _tied_case(seed, rows=8, vocab=512, tied=40):
+    """Rows whose top-64 window holds ``tied`` columns tied at 1.5 (above
+    every other logit), at scattered indices."""
+    r = np.random.default_rng(seed)
+    logits = r.standard_normal((rows, vocab)).astype(np.float32)
+    for i in range(rows):
+        logits[i, r.choice(vocab, tied, replace=False)] = 1.5
+    temp = np.full((rows,), 0.8, np.float32)
+    return logits, temp
+
+
+@pytest.mark.parametrize("per_row", [True, False])
+@pytest.mark.parametrize("cut", ["top_p", "top_k"])
+def test_sample_tokens_match_jax_on_tied_rows(per_row, cut):
+    """Tied logits in the window: the port's window must order ties as
+    ``jax.lax.top_k`` does (lower index first), so every seeded draw lands
+    on JAX's token.  50 seeds x 8 rows, with a nucleus cut (top_p 0.9) or
+    a top-k cut (k 50, inside the tie block's end at rank 40 and past
+    it)."""
+    logits, temp = _tied_case(17)
+    rows = logits.shape[0]
+    top_p = np.full((rows,), 0.9 if cut == "top_p" else 1.0, np.float32)
+    top_k = np.full((rows,), 50 if cut == "top_k" else 0, np.int32)
+    top_k[::2] = 20 if cut == "top_k" else 0
+    targs = (torch.from_numpy(logits), torch.from_numpy(temp),
+             torch.from_numpy(top_p))
+    jargs = (jnp.asarray(logits), jnp.asarray(temp), jnp.asarray(top_p))
+    for seed in range(50):
+        key = prng.PRNGKey(seed)
+        if per_row:
+            keys = prng.split(key, rows)
+            got = S.sample_tokens_slots(*targs, keys,
+                                        top_k=torch.from_numpy(top_k))
+            want = JS.sample_tokens_slots(*jargs, jnp.asarray(keys),
+                                          top_k=jnp.asarray(top_k))
+        else:
+            got = S.sample_tokens(*targs, key, top_k=torch.from_numpy(top_k))
+            want = JS.sample_tokens(*jargs, jnp.asarray(key),
+                                    top_k=jnp.asarray(top_k))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_nucleus_window_orders_ties_as_jax_top_k():
+    logits, temp = _tied_case(3)
+    ones = np.ones_like(temp)
+    _, idx, _ = S._nucleus_filter(torch.from_numpy(logits),
+                                  torch.from_numpy(temp),
+                                  torch.from_numpy(ones), S.TOPK_WINDOW)
+    _, jidx = jax.lax.top_k(jnp.asarray(logits), S.TOPK_WINDOW)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+
+
+
+def test_tied_goldens_are_jax():
+    """The tied-row goldens (held on the card by chip_smoke.py and
+    tests/test_torch_card.py) are JAX's draws."""
+    args = (jnp.asarray(golden.tied_logits()), jnp.full((8,), 0.8),
+            jnp.asarray(golden.TIED_TOP_P))
+    top_k = jnp.asarray(golden.TIED_TOP_K, jnp.int32)
+    for seed, want in enumerate(golden.TIED_SLOT_TOKENS):
+        keys = jax.random.split(jax.random.PRNGKey(seed), 8)
+        assert np.asarray(JS.sample_tokens_slots(
+            *args, keys, top_k=top_k)).tolist() == want
