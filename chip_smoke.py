@@ -9,8 +9,10 @@ Phases, each printing one JSON line:
    ``nvidia-smi`` name/power limit;
 2. build: compiles every kernel from ``crowdllama_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once; each kernel at head dims 64 and 128)
-   and reports the seconds it took and each instantiation's registers
-   and spills from ``ptxas -v``;
+   and reports the seconds it took, each instantiation's registers and
+   spills from ``ptxas -v``, and each entry's dynamic shared memory and
+   blocks per SM at the serving groups (8 query heads a kv head at Dh 64,
+   4 at Dh 128);
 3. threefry: the port's threefry keys and bits, and its samplers on logits
    on the card (rows with tied logits too), against golden vectors
    captured from JAX (``engine/prng_golden.py``);
@@ -22,10 +24,13 @@ Phases, each printing one JSON line:
    F on int8 pools with bf16 scales from ``quantize_kv``) against its
    plain PyTorch version on the same inputs — at the serving shapes
    TinyLlama-1.1B gives it, and at small shapes with softcap, a sliding
-   window and all-masked rows or zero-length slots (C and E also at a
-   context that is not page-aligned, a window across a page boundary, a
-   chunk that is not a multiple of a block's queries and, for E, a group
-   of 7 query heads per kv head) — with times for the
+   window and all-masked rows or zero-length slots (B, B-int8, F and
+   F-int8 also at lengths on the edges of B's split-KV plan, 256 keys a
+   split: 0, 1, 127, 128, 129, 256, 257 and the table's 2,048, with
+   windows that leave whole splits empty, two calls equal; C and E also
+   at a context that is not page-aligned, a window across a page
+   boundary, a chunk that is not a multiple of a block's queries and, for
+   E, a group of 7 query heads per kv head) — with times for the
    kernel, the plain version, one PyTorch SDPA call over the same
    (gathered; for int8, dequantized to bf16) inputs and the card's least
    time for the work (its bound).  F at tp 2 and 4 must equal B on the
@@ -62,13 +67,15 @@ Phases, each printing one JSON line:
 9. engine_tp: the paged engine tensor-parallel, ``mesh_shape="2"`` with
    both ranks on the one card (``devices=[cuda:0, cuda:0]``: it proves the
    sharded math and kernel F's launches, not a tp speed-up), the paged
-   phase's traffic: every stream done, F 22 calls and B 44 launches per
-   decode step, A and C per rank, step logits kernel vs plain within 2%
+   phase's traffic: every stream done, 22 F launches per decode step (the
+   two ranks in one grid) and no B launch, A and C per rank, step logits
+   kernel vs plain within 2%
    of their scale, the share of greedy tokens equal to the one-device
    phase's, the steady step and the peak memory beside that phase's
    (peak at most 1.1x);
 10. engine_tp_int8: the same on int8 pools, 3 streams of 16 tokens
-   (F-int8, B-int8 and C-int8 per rank), one decode step vs plain.
+   (F-int8 launches, no B-int8; C-int8 per rank), one decode step vs
+   plain.
 
 11. engine_llama: llama-3-8b at full width and depth (32 layers, Dh
    128, 32 / 8 heads, hidden 4096, vocab 128256; random bf16 weights from
@@ -308,8 +315,12 @@ def check_decode(dev, gen, lens: list[int], softcap: float, window: int,
     args = (q, pool_k, pool_v, table, seq, dh ** -0.5)
     kw = dict(softcap=softcap, sliding_window=window, **scales)
     got = flash_paged_decode_attention(*args, **kw)
+    again = flash_paged_decode_attention(*args, **kw)
     want = paged_decode_attention_plain(*args, **kw)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("decode: two calls differ (the split merge must "
+                             "read its partials in split order)")
     live = [i for i, n in enumerate(lens) if n > 0]
     dead = [i for i, n in enumerate(lens) if n == 0]
     if dead and got[dead].abs().max() != 0:
@@ -530,7 +541,13 @@ def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
 
     args = (cut(q), cut(pool_k), cut(pool_v), table, seq, dh ** -0.5)
     kw.update({f"{k}s": cut(v) for k, v in scales.items()})
+    before = _launches()
     got = torch.cat(flash_paged_decode_attention_tp(*args, **kw), dim=1)
+    moved = {k: n - before[k] for k, n in _launches().items()
+             if n != before[k]}
+    if moved != {"F_int8" if int8 else "F": 1}:
+        raise AssertionError(f"tp decode (tp={tp}) on one card must be one "
+                             f"F launch and nothing else: {moved}")
     want = torch.cat(paged_decode_attention_tp_plain(*args, **kw), dim=1)
     torch.cuda.synchronize()
     if not torch.equal(got, whole):
@@ -552,6 +569,16 @@ def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
     return res
 
 
+# Lengths on the edges of kernel B's split plan at the serving table (16
+# pages of 128: splits of 2 pages, 256 keys): an empty slot, one key, a
+# page less one, a page, a page and one, one split, one split and one key,
+# the whole table.  Cases (softcap, window): none; a window of 40 (the
+# 2,048-token slot's keys in its last split only, 7 splits empty); softcap
+# and a window of 300 (first key 1,748: 6 splits empty, 2 merged).
+SPLIT_EDGE_LENS = [0, 1, 127, 128, 129, 256, 257, 2048]
+SPLIT_EDGE_CASES = [(0.0, 0), (0.0, 40), (30.0, 300)]
+
+
 def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
     """Every kernel against its plain version at head dim ``dh`` over
     ``hkv`` kv heads (32 query heads; TinyLlama's 4 at Dh 64, Llama-3-8B's
@@ -565,19 +592,19 @@ def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
                   ["max_abs_err"]]
     out["A"] = a
     serve_lens = [1723, 1, 402, 2048, 77, 1200, 513, 960]
-    bres = check_decode(dev, gen, serve_lens, 0.0, 0, timed=True, **d)
-    bres["small"] = [check_decode(dev, gen, [0, 5, 300, 129], 30.0, 0,
-                                  False, **d)["max_abs_err"],
-                     check_decode(dev, gen, [260, 1, 0, 64], 0.0, 40,
-                                  False, **d)["max_abs_err"]]
-    out["B"] = bres
-    bq = check_decode(dev, gen, serve_lens, 0.0, 0, timed=True, int8=True,
-                      **d)
-    bq["small"] = [check_decode(dev, gen, [0, 5, 300, 129], 30.0, 0, False,
-                                int8=True, **d)["max_abs_err"],
-                   check_decode(dev, gen, [260, 1, 0, 64], 0.0, 40, False,
-                                int8=True, **d)["max_abs_err"]]
-    out["B_int8"] = bq
+    for key, int8 in (("B", False), ("B_int8", True)):
+        bres = check_decode(dev, gen, serve_lens, 0.0, 0, timed=True,
+                            int8=int8, **d)
+        bres["small"] = [
+            check_decode(dev, gen, [0, 5, 300, 129], 30.0, 0, False,
+                         int8=int8, **d)["max_abs_err"],
+            check_decode(dev, gen, [260, 1, 0, 64], 0.0, 40, False,
+                         int8=int8, **d)["max_abs_err"]]
+        bres["split_edges"] = [
+            check_decode(dev, gen, SPLIT_EDGE_LENS, sc, win, False,
+                         int8=int8, **d)["max_abs_err"]
+            for sc, win in SPLIT_EDGE_CASES]
+        out[key] = bres
     ragged_serve = ([1723, 1, 402, 0, 77, 1200, 0, 960], 3, 1024, 512, 512,
                     0.0, 0)
     ragged_small = [([40, 0, 300, 0], 3, 256, 96, 70, 30.0, 0),
@@ -624,6 +651,10 @@ def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
                             int8=int8, **d)["max_abs_err"],
             check_tp_decode(dev, gen, [260, 1, 0, 64], 4, 0.0, 40, False,
                             int8=int8, **d)["max_abs_err"]]
+        fres["split_edges"] = [
+            check_tp_decode(dev, gen, SPLIT_EDGE_LENS, tp, sc, win, False,
+                            int8=int8, **d)["max_abs_err"]
+            for tp, (sc, win) in zip((2, 4, 2), SPLIT_EDGE_CASES)]
         out[key] = fres
     return out
 
@@ -873,9 +904,9 @@ def _three_slots(r, tok):
 
 
 def logits_check(engine, dev, ragged: bool = True) -> dict:
-    """One decode step through kernel F (B on every rank: its bf16 or int8
-    variant, as the runner's pool is) and through its plain version on the
-    same state (3 live slots); with ``ragged`` also one prefill through
+    """One decode step through kernel F (B's grid over every rank: its bf16
+    or int8 variant, as the runner's pool is) and through its plain version
+    on the same state (3 live slots); with ``ragged`` also one prefill through
     kernel A and one ragged step through kernel C, each against its plain
     version."""
     from crowdllama_tpu_torch.models import transformer as T
@@ -1081,18 +1112,18 @@ def engine_phase(dev, phase: str = "engine", model: str = TINYLLAMA,
 
 def _expect_tp_launches(launches: dict, tp: int, int8: bool,
                         phase: str, layers: int = 22) -> int:
-    """Per decode step one F call per layer and one B launch per layer per
-    rank; A and C (its int8 variant on int8 pools) once per layer per rank.
-    Returns the decode steps the phase ran."""
+    """Per decode step one F launch per layer (the ranks on the one card
+    in one grid) and no B launch; A and C (its int8 variant on int8 pools)
+    once per layer per rank.  Returns the decode steps the phase ran."""
     sfx = "_int8" if int8 else ""
     f, b = launches["F" + sfx], launches["B" + sfx]
     a, c = launches["A"], launches["C" + sfx]
-    if not (f > 0 and f % layers == 0 and b == tp * f and a > 0
+    if not (f > 0 and f % layers == 0 and b == 0 and a > 0
             and a % (layers * tp) == 0 and c > 0
             and c % (layers * tp) == 0):
         raise AssertionError(f"{phase}: launches {launches} are not "
-                             f"{layers} F calls and {layers * tp} B launches "
-                             f"per decode step, with A and C per rank")
+                             f"{layers} F launches and no B launch per "
+                             f"decode step, with A and C per rank")
     return f // layers
 
 
@@ -1105,8 +1136,8 @@ def _greedy_share(ids: dict, reqs: dict) -> float:
 
 def tp_phase(dev, paged: dict) -> dict:
     """The paged engine at tp=2 with both ranks on the one card, the paged
-    phase's traffic: kernel F decodes (B on each rank), A and C run per
-    rank."""
+    phase's traffic: kernel F decodes (both ranks in one launch of B's
+    grid), A and C run per rank."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_paged_decode_attention_tp,
     )
@@ -1120,7 +1151,7 @@ def tp_phase(dev, paged: dict) -> dict:
         raise AssertionError(f"tp engine runs tp={r.tp} on {r.devices}")
     if reqs["long"]["prompt_tokens"] <= r.ragged_chunk:
         raise AssertionError("the long prompt must exceed one ragged chunk")
-    _expect_launches(summary["launches"], {"A", "B", "C", "F"}, "tp")
+    _expect_launches(summary["launches"], {"A", "C", "F"}, "tp")
     steps = _expect_tp_launches(summary["launches"], tp, False, "tp")
     ragged_chunks = engine.scheduler.ragged_chunks
     if summary["prefix_hits"] < 1 or ragged_chunks < 1:
@@ -1155,7 +1186,7 @@ def tp_int8_phase(dev) -> dict:
     engine, summary, reqs = run_engine(
         dev, {k: GREEDY[k] for k in ("short0", "short1")}, 16,
         mesh_shape="2", devices=[dev, dev], kv_dtype="int8")
-    _expect_launches(summary["launches"], {"A", "B_int8", "C_int8", "F_int8"},
+    _expect_launches(summary["launches"], {"A", "C_int8", "F_int8"},
                      "tp int8")
     steps = _expect_tp_launches(summary["launches"], 2, True, "tp int8")
     errs = logits_check(engine, dev, ragged=False)
@@ -1355,7 +1386,8 @@ def llama_cut_phase(dev, phase: str, ran: set[str], **engine_kw) -> dict:
 
 
 # row -> (name, source, TPU kernel it replaces); the name is the C symbol,
-# for F the wrapper that launches B's symbol once per tensor-parallel rank.
+# for F B's symbol launched once over every tensor-parallel rank on the
+# card (the ranks folded into its grid).
 KERNEL_ROWS = {
     "A": ("flash_prefill", "crowdllama_tpu_torch/csrc/flash_prefill.cu",
           "crowdllama_tpu/ops/pallas/flash.py:146"),
@@ -1404,7 +1436,11 @@ def main() -> int:
     kernels.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": [dict(r, library=lib) for lib in kernels.SIGNATURES
-                    for r in kernels.ptxas_usage(lib)]})
+                    for r in kernels.ptxas_usage(lib)],
+          "smem": [dict(kernels.kernel_resources(lib, sym, dh, g, dev),
+                        entry=sym, dh=dh, group=g)
+                   for lib, entries in kernels.SIGNATURES.items()
+                   for sym in entries for dh, g in ((64, 8), (128, 4))]})
 
     from crowdllama_tpu_torch.engine import prng_golden
 
@@ -1432,13 +1468,13 @@ def main() -> int:
             ("engine_llama_int8", {"A", "B_int8", "C_int8"},
              dict(kv_dtype="int8")),
             ("contiguous_llama", {"A", "D"}, dict(kv_layout="contiguous")),
-            ("engine_llama_tp", {"A", "B", "C", "F"},
+            ("engine_llama_tp", {"A", "C", "F"},
              dict(mesh_shape="2", devices=[dev, dev])),
-            ("engine_llama_tp_int8", {"A", "B_int8", "C_int8", "F_int8"},
+            ("engine_llama_tp_int8", {"A", "C_int8", "F_int8"},
              dict(mesh_shape="2", devices=[dev, dev], kv_dtype="int8"))):
         _free_card()
         got = llama_cut_phase(dev, phase, ran, **kw)
-        launches128.update({k: got[k] for k in ran - {"A", "B", "C"}
+        launches128.update({k: got[k] for k in ran - {"A", "C"}
                             if k not in launches128})
     # No engine path runs kernel E; every phase checked it stayed at 0.
     launches["E"] = launches["E_int8"] = 0

@@ -15,9 +15,10 @@
 //
 // Two ways to attend query rows to key tiles:
 //
-// - Decode rows (kernels B, D and C's decode blocks): a warp per query
-//   head over keys staged in shared memory, its q row staged through
-//   shared memory into fp32 registers (dot_row, load_vec), fp32 FMAs.
+// - Decode rows (kernel D here; kernels B and C's decode blocks run their
+//   staged, split-KV version in paged_attention.cu): a warp per query head
+//   over keys staged in shared memory, its q row in fp32 registers
+//   (dot_row, load_vec), fp32 FMAs.
 // - tc_attend, the tensor-core tile (kernel A, and the chunk blocks of
 //   kernels C and E).  Bound on the H100: operations, 4 * DH flops per
 //   visible (row, key) pair at 989 TF/s bf16; the K/V bytes are read once
@@ -93,6 +94,23 @@ cudaError_t allow_smem(Kernel* kernel, size_t bytes, unsigned& done) {
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
+// The build report of a kernel: the dynamic shared memory it launches with
+// (`bytes`) and how many of its blocks of `threads` an SM holds, registers
+// and shared memory both, into out[0] and out[1].  The kernel's opt-in is
+// set to `max_bytes`, what its launcher opts it in to, so a report never
+// lowers it.
+template <typename Kernel>
+int occupancy(Kernel* kernel, int threads, size_t bytes, size_t max_bytes, int* out) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_bytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, bytes);
+  out[0] = (int)bytes;
+  out[1] = blocks;
+  return (int)err;
+}
+
 // ------------------------------------------------------------------------
 // Decode rows.
 
@@ -105,21 +123,6 @@ __device__ __forceinline__ float dot_row(const float (&q)[DH], const __nv_bfloat
     const float2 f = __bfloat1622float2(k2[d]);
     acc = fmaf(q[2 * d], f.x, acc);
     acc = fmaf(q[2 * d + 1], f.y, acc);
-  }
-  return acc;
-}
-
-template <int DH>
-__device__ __forceinline__ float dot_row(const float (&q)[DH], const int8_t* krow) {
-  const char4* k4 = reinterpret_cast<const char4*>(krow);
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < DH / 4; ++d) {
-    const char4 c = k4[d];
-    acc = fmaf(q[4 * d], (float)c.x, acc);
-    acc = fmaf(q[4 * d + 1], (float)c.y, acc);
-    acc = fmaf(q[4 * d + 2], (float)c.z, acc);
-    acc = fmaf(q[4 * d + 3], (float)c.w, acc);
   }
   return acc;
 }
@@ -217,6 +220,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// A 16-byte copy that reads nothing and writes zeros when !valid (src must
+// still be a mapped address).
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
 
 // Wait until at most the N newest committed groups are still in flight.

@@ -21,6 +21,8 @@
 // serving shape (8 slots x 4 or 8 kv heads) the grid is 32-64 blocks on 132
 // SMs: splitting the key axis across blocks (split-KV) is later work.
 
+#include <cstring>
+
 #include "attention_common.cuh"
 
 namespace {
@@ -151,6 +153,22 @@ extern "C" int flash_decode(const void* q, const void* k_cache, const void* v_ca
     case 128:
       return launch_decode<128>(q, k_cache, v_cache, seq_lens, out, B, H, Hkv, S, scale,
                                 softcap, window, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory kernel D launches with at head dim dh and G
+// query heads per kv head (out[0]), and its blocks an SM holds (out[1]).
+extern "C" int resources(const char* entry, int dh, int G, int* out) {
+  if (strcmp(entry, "flash_decode")) return (int)cudaErrorInvalidValue;
+  switch (dh) {
+    case 64:
+      return occupancy(flash_decode_kernel<64>, 32 * G, smem_bytes<64>(G), smem_bytes<64>(MAX_G),
+                       out);
+    case 128:
+      return occupancy(flash_decode_kernel<128>, 32 * G, smem_bytes<128>(G),
+                       smem_bytes<128>(MAX_G), out);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -26,6 +26,8 @@
 // does not see: an invalid key, a position past the row's, or one the
 // window drops.
 
+#include <cstring>
+
 #include "attention_common.cuh"
 
 namespace {
@@ -111,6 +113,22 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
     case 128:
       return launch_prefill<128>(q, k, v, positions, kv_valid, out, B, T, H, Hkv, scale,
                                  softcap, window, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory kernel A launches with at head dim dh (any G),
+// and its blocks an SM holds (out[1]).
+extern "C" int resources(const char* entry, int dh, int, int* out) {
+  if (strcmp(entry, "flash_prefill")) return (int)cudaErrorInvalidValue;
+  switch (dh) {
+    case 64:
+      return occupancy(flash_prefill_kernel<64>, TC_THREADS, prefill_smem_bytes<64>(),
+                       prefill_smem_bytes<64>(), out);
+    case 128:
+      return occupancy(flash_prefill_kernel<128>, TC_THREADS, prefill_smem_bytes<128>(),
+                       prefill_smem_bytes<128>(), out);
     default:
       return (int)cudaErrorInvalidValue;
   }

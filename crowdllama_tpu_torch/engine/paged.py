@@ -25,8 +25,8 @@ one device or tensor-parallel over a tp mesh:
   and scales shard kv heads, each rank's ``[L, P + 1, Hkv/tp, page, Dh]``
   on its device (``pool_k`` etc. are per-rank lists, of one on one
   device); pages are not sharded, so the allocator, page table, prefix
-  cache and dump page are shared by every rank.  Decode runs kernel F (B
-  on every rank); prefill (kernel A), the prefix-hit context, legacy
+  cache and dump page are shared by every rank.  Decode runs kernel F (B's
+  grid over every rank, one launch a device); prefill (kernel A), the prefix-hit context, legacy
   chunks and the ragged step (kernel C) run per rank.  (The JAX package runs prefill and the ragged
   step through its jnp references on a multi-device mesh only because
   GSPMD cannot partition a ``pallas_call``; A and C are independent per kv
@@ -124,8 +124,9 @@ class PagedModelRunner(ModelRunner):
         # Slot owned by an in-progress ragged prefill: the grow/advance
         # loops must not treat it as a decoding slot.
         self._ragged_slot: int | None = None
-        #: paged decode attention over the per-rank pools (kernel F: B on
-        #: every rank) and unified ragged attention (kernel C, per rank);
+        #: paged decode attention over the per-rank pools (kernel F: B's
+        #: grid over every rank) and unified ragged attention (kernel C, per
+        #: rank);
         #: seams like ``prefill_attn``
         self.decode_attn = flash_paged_decode_attention_tp
         self.ragged_attn = ragged_paged_attention
@@ -586,7 +587,7 @@ class PagedModelRunner(ModelRunner):
                       table: torch.Tensor) -> torch.Tensor:
         """One decode step's forward for every slot: writes each token's KV
         into the pool and returns logits [B, V] fp32 (no sampling).  The
-        attention is one kernel F call per layer (one B launch per rank)."""
+        attention is one kernel F call per layer (one launch per device)."""
         cfg = self.cfg
         positions, lens, wpages, woffs = self._decode_positions(st, table)
         writes = self._on_ranks(wpages.long(), woffs.long())

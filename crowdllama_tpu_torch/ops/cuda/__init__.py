@@ -7,7 +7,9 @@ named by a content hash of every source and the flags, so an edited source
 rebuilds and an unchanged one loads the existing library.  :func:`build_all`
 starts one ``nvcc`` per source at once and keeps each build's ``ptxas``
 report (registers, stack and spills of every kernel instantiation) beside
-its library, read by :func:`ptxas_usage`.  Nothing is built at import: the
+its library, read by :func:`ptxas_usage`; every library's ``resources``
+entry reports the dynamic shared memory an entry launches with and its
+blocks per SM (:func:`kernel_resources`).  Nothing is built at import: the
 first wrapper launch (or an explicit :func:`build_all`) builds.
 
 Each wrapper passes every pointer and the stream as ``c_void_p`` and each
@@ -56,17 +58,19 @@ SIGNATURES: dict[str, dict[str, list]] = {
                          _P],
     },
     "paged_attention": {
-        # q, pool_k, pool_v, table, seq_lens, out, B, H, Hkv, page, np,
-        # scale, softcap, window, dh, stream
-        "paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                         _I, _I, _P],
+        # nranks, q[], pool_k[], pool_v[], out[] (host arrays of nranks
+        # device pointers), table, seq_lens, scratch, counters, B, H, Hkv,
+        # page, np, pps, splits, scale, softcap, window, dh, stream
+        "paged_decode": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _F, _F, _I, _I, _P],
         # q, pool_k, pool_v, table, q_lens, kv_lens, out, B, C, H, Hkv, page,
         # np, chunk_slot, scale, softcap, window, dh, stream
         "ragged_paged": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _F, _F, _I, _I, _P],
         # the int8-pool variants: k_scale, v_scale follow pool_v
-        "paged_decode_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _F, _F, _I, _I, _P],
+        # k_scale[], v_scale[] follow pool_v[]
+        "paged_decode_i8": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
         "ragged_paged_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _F, _F, _I, _I, _P],
         # q, pool_k, pool_v, pages, ctx_len, kv_len, out, C, H, Hkv, page,
@@ -77,6 +81,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
                             _I, _I, _F, _F, _I, _I, _P],
     },
 }
+
+# Every library's build report: entry name, dh, query heads per kv head,
+# int out[2] (dynamic shared memory bytes, blocks an SM holds).
+RESOURCES = [ctypes.c_char_p, _I, _I, _P]
 
 # Head dims every kernel is compiled for; the wrappers refuse others.
 HEAD_DIMS = (64, 128)
@@ -183,11 +191,26 @@ def library(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all()
     lib = ctypes.CDLL(str(path))
-    for sym, argtypes in SIGNATURES[name].items():
+    for sym, argtypes in {**SIGNATURES[name], "resources": RESOURCES}.items():
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_resources(name: str, symbol: str, dh: int, group: int,
+                     device: torch.device) -> dict:
+    """Entry ``symbol`` of library ``name`` at head dim ``dh`` and
+    ``group`` query heads per kv head, on ``device``: the dynamic shared
+    memory it launches with and how many of its blocks an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        err = library(name).resources(symbol.encode(), dh, group,
+                                      ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"{symbol} resources failed: cudaError {err}")
+    return {"smem_bytes": out[0], "blocks_per_sm": out[1]}
 
 
 def launch(name: str, symbol: str, device: torch.device, *args) -> None:

@@ -19,10 +19,19 @@ Counterparts of ``crowdllama_tpu/ops/pallas/paged.py``:
 - F, :func:`flash_paged_decode_attention_tp` (TPU ``flash_paged_decode_
   attention_tp``): kernel B on every tensor-parallel rank's share of the
   q heads and pool kv heads, table and lengths shared; the per-rank
-  outputs concatenated over heads are B's answer on the whole pool.  Its
-  plain version, :func:`paged_decode_attention_tp_plain`, runs B's per
-  rank.  The paged decode step calls F at every tp degree; over one rank
-  F is B's launch alone and does not count as an F call.
+  outputs concatenated over heads are B's answer on the whole pool, bit
+  for bit.  The ranks that share a device (at most :data:`MAX_RANKS`) run
+  as one launch of B's grid, counted in F's ``launches``; B's counts do
+  not move.  Its plain version,
+  :func:`paged_decode_attention_tp_plain`, runs B's per rank.  The paged
+  decode step calls F at every tp degree; over one rank F is B's launch
+  alone and does not count as an F launch.
+
+B splits each (slot, kv head) into the key runs of :func:`split_plan`,
+one block each, and merges them in the same launch; its fp32 partials and
+per-(slot, kv head) counters live in a buffer made once per device and
+grown as needed (:func:`_split_scratch`), so a call launches nothing else.
+Calls on one device share that buffer, so they run in one stream's order.
 
 Pools are one layer's ``[P, Hkv, page, Dh]`` (Dh 64 or 128 on the
 card), bf16 or int8 (the last page is the engine's dump page), tables
@@ -36,6 +45,8 @@ tensors only.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -54,9 +65,13 @@ from crowdllama_tpu_torch.ops.quant import dequantize_kv
 # Query heads per kv head: a decode warp each, 8 warps a block; the chunk
 # blocks' 128 (query, head) rows hold at least 16 queries.
 MAX_GROUP = 8
-# Keys per page: 4 per decode lane.
 MAX_PAGE = 128
 PAGE_ALIGN = 16   # keys the chunk tile gathers together (one mma k-step)
+# Kernel B's split-KV plan: keys a split walks (two pages of 128), and the
+# most splits a (slot, kv head) is cut into.
+SPLIT_KEYS = 256
+MAX_SPLITS = 32
+MAX_RANKS = 8     # ranks on one device one launch of B's grid takes (F)
 
 
 def _gathered(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -188,6 +203,90 @@ def _check_pool(q, pool_k, pool_v, page_table, k_scale,
     return h, hkv, page, page_table.shape[1]
 
 
+def split_plan(np_: int, page: int) -> tuple[int, int]:
+    """Kernel B's split of a slot's keys: (pages per split, splits).  Split
+    s walks the table's pages ``[s * pps, (s + 1) * pps)``.  It depends on
+    the table width and the page size alone: the host sizes the grid
+    without reading the lengths, and every tensor-parallel share of a pool
+    splits a (slot, kv head) exactly as the whole pool does."""
+    pps = max(1, SPLIT_KEYS // page, -(-np_ // MAX_SPLITS))
+    return pps, max(1, -(-np_ // pps))
+
+
+# device -> (fp32 partials, int32 arrival counters) of kernel B's merge.
+_SPLIT_SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_scratch(device: torch.device, rows: int,
+                   floats: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B's partials (at least ``floats`` fp32) and one counter per
+    (slot, rank, kv head) row on ``device``, made once and grown as needed.
+    New counters are zeros and every launch leaves them at zero, so a call
+    needs no memset."""
+    scratch, counters = _SPLIT_SCRATCH.get(device, (None, None))
+    if scratch is None or scratch.numel() < floats:
+        scratch = torch.empty(floats, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < rows:
+        counters = torch.zeros(rows, dtype=torch.int32, device=device)
+    _SPLIT_SCRATCH[device] = (scratch, counters)
+    return scratch, counters
+
+
+def _ptrs(ts) -> ctypes.Array:
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def decode_launch_shape(qs, pools_k, table) -> dict:
+    """The launch of kernel B's grid over the ranks ``qs`` (one for B, a
+    device's ranks for F), from shapes alone: the split plan, the grid
+    (ranks x Hkv, B, splits), threads a block (8 warps at every group
+    size) and the scratch's rows (slot, rank, kv head) and fp32
+    partials."""
+    b, h, dh = qs[0].shape
+    _, hkv, page, _ = pools_k[0].shape
+    np_ = table.shape[1]
+    pps, splits = split_plan(np_, page)
+    rows = b * hkv * len(qs)
+    g = h // hkv
+    return dict(pps=pps, splits=splits, grid=(len(qs) * hkv, b, splits),
+                threads=256, rows=rows, floats=rows * splits * g * (dh + 4))
+
+
+def _launch_decode(qs, pools_k, pools_v, k_scales, v_scales, table, seq_lens,
+                   scale: float, softcap: float,
+                   window: int) -> list[torch.Tensor]:
+    """One launch of kernel B's split-KV grid over the ranks ``qs`` (all on
+    one device, validated, sharing ``table`` and ``seq_lens`` there; scales
+    None on bf16 pools); returns each rank's output."""
+    dev = qs[0].device
+    shape = decode_launch_shape(qs, pools_k, table)
+    scratch, counters = _split_scratch(dev, shape["rows"], shape["floats"])
+    outs = [torch.empty_like(q) for q in qs]
+    arrays = [_ptrs(x) for x in (qs, pools_k, pools_v)]
+    if k_scales is not None:
+        arrays += [_ptrs(k_scales), _ptrs(v_scales)]
+    arrays.append(_ptrs(outs))
+    b, h, dh = qs[0].shape
+    _, hkv, page, _ = pools_k[0].shape
+    launch("paged_attention",
+           "paged_decode" if k_scales is None else "paged_decode_i8", dev,
+           len(qs), *(ctypes.addressof(a) for a in arrays), table.data_ptr(),
+           seq_lens.data_ptr(), scratch.data_ptr(), counters.data_ptr(), b, h,
+           hkv, page, table.shape[1], shape["pps"], shape["splits"],
+           float(scale), float(softcap or 0.0), int(window), dh)
+    return outs
+
+
+def _check_decode(q, pool_k, pool_v, page_table, seq_lens, k_scale=None,
+                  v_scale=None) -> None:
+    _check_pool(q, pool_k, pool_v, page_table, k_scale, v_scale)
+    b = q.shape[0]
+    check(page_table.shape[0] == b, "page_table rows != batch")
+    check(seq_lens.device == q.device and seq_lens.dtype == torch.int32
+          and tuple(seq_lens.shape) == (b,) and seq_lens.is_contiguous(),
+          "seq_lens must be int32 [B] on the device")
+
+
 def flash_paged_decode_attention(q, pool_k, pool_v, page_table, seq_lens,
                                  scale: float, softcap: float = 0.0,
                                  sliding_window: int = 0, k_scale=None,
@@ -200,27 +299,13 @@ def flash_paged_decode_attention(q, pool_k, pool_v, page_table, seq_lens,
         return paged_decode_attention_plain(
             q, pool_k, pool_v, page_table, seq_lens, scale, softcap=softcap,
             sliding_window=sliding_window, k_scale=k_scale, v_scale=v_scale)
-    b = q.shape[0]
-    h, hkv, page, np_ = _check_pool(q, pool_k, pool_v, page_table, k_scale,
-                                    v_scale)
-    check(page_table.shape[0] == b, "page_table rows != batch")
-    check(seq_lens.device == q.device and seq_lens.dtype == torch.int32
-          and tuple(seq_lens.shape) == (b,) and seq_lens.is_contiguous(),
-          "seq_lens must be int32 [B] on the device")
-    out = torch.empty_like(q)
-    tail = (b, h, hkv, page, np_, float(scale), float(softcap or 0.0),
-            int(sliding_window), q.shape[2])
+    _check_decode(q, pool_k, pool_v, page_table, seq_lens, k_scale, v_scale)
+    scales = ([k_scale], [v_scale]) if quant else (None, None)
+    out, = _launch_decode([q], [pool_k], [pool_v], *scales, page_table,
+                          seq_lens, scale, softcap, sliding_window)
     if quant:
-        launch("paged_attention", "paged_decode_i8", q.device,
-               q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-               k_scale.data_ptr(), v_scale.data_ptr(), page_table.data_ptr(),
-               seq_lens.data_ptr(), out.data_ptr(), *tail)
         flash_paged_decode_attention.launches_int8 += 1
     else:
-        launch("paged_attention", "paged_decode", q.device,
-               q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-               page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-               *tail)
         flash_paged_decode_attention.launches += 1
     return out
 
@@ -388,12 +473,13 @@ def flash_paged_decode_attention_tp(qs, pools_k, pools_v, page_table,
     """Paged decode on a tensor-parallel pool: per rank r, q shard
     ``qs[r]`` [B, H/tp, Dh] (kv-major heads), pools ``pools_k[r]`` /
     ``pools_v[r]`` [P, Hkv/tp, page, Dh] (and the int8 pools' scales per
-    rank), table [B, NP] and ``seq_lens`` [B] shared.  Launches kernel B
-    on every rank's device and returns the per-rank outputs; concatenated
-    over heads they are B's answer on the whole pool.  A call over more
-    than one rank counts once in ``launches`` (``launches_int8``), beside
-    B's per-launch counts; over one rank it is B's launch alone.  CPU
-    tensors run :func:`paged_decode_attention_tp_plain`."""
+    rank), table [B, NP] and ``seq_lens`` [B] shared.  Returns the per-rank
+    outputs; concatenated over heads they are B's answer on the whole pool,
+    bit for bit.  Over one rank it is B's launch (B's count).  Over more,
+    the ranks on each device (at most :data:`MAX_RANKS`) run as one launch
+    of B's grid, each counted in ``launches`` (``launches_int8``); B's
+    counts do not move.  CPU tensors run
+    :func:`paged_decode_attention_tp_plain`."""
     n = len(qs)
     check(n >= 1 and len(pools_k) == len(pools_v) == n,
           "one q shard and one pool pair per rank")
@@ -405,14 +491,39 @@ def flash_paged_decode_attention_tp(qs, pools_k, pools_v, page_table,
             qs, pools_k, pools_v, page_table, seq_lens, scale,
             softcap=softcap, sliding_window=sliding_window,
             k_scales=k_scales, v_scales=v_scales)
-    outs = [flash_paged_decode_attention(
-        q, pk, pv, page_table.to(q.device), seq_lens.to(q.device), scale,
-        softcap=softcap, sliding_window=sliding_window, **sc)
-        for q, pk, pv, sc in zip(qs, pools_k, pools_v, scales)]
-    if n > 1 and k_scales is None:
-        flash_paged_decode_attention_tp.launches += 1
-    elif n > 1:
-        flash_paged_decode_attention_tp.launches_int8 += 1
+    if n == 1:
+        return [flash_paged_decode_attention(
+            qs[0], pools_k[0], pools_v[0], page_table.to(qs[0].device),
+            seq_lens.to(qs[0].device), scale, softcap=softcap,
+            sliding_window=sliding_window, **scales[0])]
+    quant = k_scales is not None
+    for q, pk, pv, sc in zip(qs, pools_k, pools_v, scales):
+        _check_scales(pk, pv, sc.get("k_scale"), sc.get("v_scale"))
+        check(q.shape == qs[0].shape and pk.shape == pools_k[0].shape
+              and pk.dtype == pools_k[0].dtype,
+              "every rank's q shard and pools must have the same shapes")
+    by_dev: dict[torch.device, list[int]] = {}
+    for r, q in enumerate(qs):
+        by_dev.setdefault(q.device, []).append(r)
+    outs: list[torch.Tensor | None] = [None] * n
+    for dev, ranks in by_dev.items():
+        check(len(ranks) <= MAX_RANKS,
+              f"at most {MAX_RANKS} ranks on one device")
+        table, lens = page_table.to(dev), seq_lens.to(dev)
+        for r in ranks:
+            _check_decode(qs[r], pools_k[r], pools_v[r], table, lens,
+                          **scales[r])
+        pick = lambda xs: [xs[r] for r in ranks]  # noqa: E731
+        got = _launch_decode(pick(qs), pick(pools_k), pick(pools_v),
+                             pick(k_scales) if quant else None,
+                             pick(v_scales) if quant else None, table, lens,
+                             scale, softcap, sliding_window)
+        for r, out in zip(ranks, got):
+            outs[r] = out
+        if quant:
+            flash_paged_decode_attention_tp.launches_int8 += 1
+        else:
+            flash_paged_decode_attention_tp.launches += 1
     return outs
 
 

@@ -16,7 +16,14 @@ windows across pages, groups of 2, 4 and 7; kernel F bit-equal to B at
 tp 2 and 4);
 and at head dim 128 with Llama-3-8B's heads (32 query, 8 kv): every
 kernel on both pools, A at groups of 4 and 7 (and 7 at Dh 64), F
-bit-equal to B, and the builds' ``ptxas`` reports without spills.
+bit-equal to B, and the builds' ``ptxas`` reports without spills.  Kernel
+B's split-KV grid on both pools, at both head dims and groups of 1, 2, 4,
+7 and 8 (padded to 4 or 8 heads), at lengths on its split edges (0, 1,
+page - 1, page, page + 1, one split's 256 keys, one more, the table's
+width), with softcap and windows that leave whole splits empty, and on
+pages of 16, 32 and 64 (a stage spanning several pages); two calls
+equal; F at tp 2 and 4 one launch on one card, bit-equal to B; the
+decode block's shared memory leaves two blocks a SM at both head dims.
 Tolerance: one bf16 rounding of outputs of magnitude ~1 plus fp32
 summation order, atol 2e-2 + rtol 1e-2.
 """
@@ -343,11 +350,15 @@ def test_tp_decode_is_bit_identical_to_paged_decode_on_card(cuda_device,
     skw = {f"{k}s": cut(v) for k, v in sc.items()}
     calls = lambda: (flash_paged_decode_attention_tp.launches  # noqa: E731
                      + flash_paged_decode_attention_tp.launches_int8)
-    before = calls()
+    b_calls = lambda: (flash_paged_decode_attention.launches  # noqa: E731
+                       + flash_paged_decode_attention.launches_int8)
+    before, b_before = calls(), b_calls()
     outs = flash_paged_decode_attention_tp(cut(q), cut(pk), cut(pv), table,
                                            lens, 0.125, **skw)
     assert torch.equal(torch.cat(outs, dim=1), full)
+    # One launch over every rank on the card; B's count moves only at tp 1.
     assert calls() - before == (tp > 1)
+    assert b_calls() - b_before == (tp == 1)
 
 
 # ------------------------------------------------------------ head dim 128
@@ -557,9 +568,13 @@ def test_tp_decode_dh128_bit_identical_to_paged_decode(cuda_device, int8, tp):
         return [s.contiguous() for s in x.chunk(tp, dim=1)]
 
     skw = {f"{k}s": cut(v) for k, v in sc.items()}
+    before = (flash_paged_decode_attention_tp.launches
+              + flash_paged_decode_attention_tp.launches_int8)
     outs = flash_paged_decode_attention_tp(cut(q), cut(pk), cut(pv), table,
                                            lens, 0.088, **skw)
     assert torch.equal(torch.cat(outs, dim=1), full)
+    assert (flash_paged_decode_attention_tp.launches
+            + flash_paged_decode_attention_tp.launches_int8) == before + 1
 
 
 @pytest.mark.cuda
@@ -588,3 +603,147 @@ def test_samplers_match_jax_goldens_on_card(cuda_device):
 
     got = prng_golden.check(cuda_device)
     assert got["tied_slot_tokens"] == prng_golden.TIED_SLOT_TOKENS
+
+
+# ------------------------------------------------------ B's split-KV grid
+
+# Lengths on the edges of B's split plan at page 128 and a table of 16
+# pages (2 pages, 256 keys, a split): no key, one, a page less one, a page,
+# a page and one, one split, one split and one key, the whole table.
+SPLIT_EDGE_LENS = [0, 1, 127, 128, 129, 256, 257, 2048]
+
+
+def _split_case(dev, gen, int8: bool, dh: int, h: int, hkv: int,
+                page: int = 128, lens=None):
+    """Pools with distinct pages per slot (the last page pads every table
+    row), q and the lengths (default: the edge lengths at page 128); the
+    table holds 2,048 keys."""
+    from crowdllama_tpu_torch.ops.quant import quantize_kv
+
+    lens = SPLIT_EDGE_LENS if lens is None else lens
+    np_ = 2048 // page
+    need = [-(-n // page) for n in lens]
+    pages = sum(need) + 1
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    pk = torch.randn((pages, hkv, page, dh), generator=gen, **bf)
+    pv = torch.randn((pages, hkv, page, dh), generator=gen, **bf)
+    table = torch.full((len(need), np_), pages - 1, dtype=torch.int32)
+    perm = torch.randperm(pages - 1, generator=torch.Generator().manual_seed(7))
+    used = 0
+    for i, k in enumerate(need):
+        table[i, :k] = perm[used:used + k].to(torch.int32)
+        used += k
+    q = torch.randn((len(need), h, dh), generator=gen, **bf)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    sc = {}
+    if int8:
+        (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
+        sc = dict(k_scale=ks, v_scale=vs)
+    return q, pk, pv, table.to(dev), lens, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 40),
+                                            (0.0, 300)])
+def test_split_decode_edges_match_plain_on_card(cuda_device, int8, dh, hkv,
+                                                group, softcap, window):
+    """Kernel B at its split edges: one live split written directly,
+    several merged (windows of 40 and 300 leave the first 7 and 6 splits of
+    the 2,048-token slot empty), the zero-length slot zeros; two calls give
+    the same bits (the merge reads its partials in split order)."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        paged_decode_attention_plain,
+    )
+
+    gen, _ = _card_case(cuda_device)
+    q, pk, pv, table, lens, sc = _split_case(cuda_device, gen, int8, dh,
+                                             group * hkv, hkv)
+    args = (q, pk, pv, table, lens, dh ** -0.5)
+    kw = dict(softcap=softcap, sliding_window=window, **sc)
+    got = flash_paged_decode_attention(*args, **kw)
+    again = flash_paged_decode_attention(*args, **kw)
+    want = paged_decode_attention_plain(*args, **kw)
+    assert torch.equal(got, again)
+    _close(got[1:], want[1:])
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("page", [16, 32, 64])
+def test_split_decode_small_pages_on_card(cuda_device, int8, dh, hkv, page):
+    """Kernel B on pages smaller than its 64-key stages (16, 32: a stage
+    gathers several pages) or equal to one (64); splits of 256 keys span
+    16, 8 or 4 pages; lengths at page and split edges, a window across
+    pages."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        paged_decode_attention_plain,
+    )
+
+    gen, _ = _card_case(cuda_device)
+    lens = [0, 1, page - 1, page + 1, 255, 257, 1000, 2048]
+    q, pk, pv, table, lens, sc = _split_case(cuda_device, gen, int8, dh, 32,
+                                             hkv, page, lens)
+    kw = dict(softcap=30.0, sliding_window=300, **sc)
+    got = flash_paged_decode_attention(q, pk, pv, table, lens, dh ** -0.5,
+                                       **kw)
+    want = paged_decode_attention_plain(q, pk, pv, table, lens, dh ** -0.5,
+                                        **kw)
+    _close(got[1:], want[1:])
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_decode_at_split_edges_is_one_launch_equal_to_b(cuda_device, int8,
+                                                           dh, hkv, tp):
+    """Kernel F at B's split edges with a window that empties splits: the
+    ranks on the one card run as one launch, bit-equal to B on the whole
+    pool (the split plan does not depend on the kv heads)."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+    )
+
+    gen, _ = _card_case(cuda_device)
+    q, pk, pv, table, lens, sc = _split_case(cuda_device, gen, int8, dh,
+                                             32, hkv)
+    kw = dict(softcap=30.0, sliding_window=300)
+    full = flash_paged_decode_attention(q, pk, pv, table, lens, dh ** -0.5,
+                                        **kw, **sc)
+
+    def cut(x):
+        return [s.contiguous() for s in x.chunk(tp, dim=1)]
+
+    counts = lambda: (flash_paged_decode_attention_tp.launches,  # noqa: E731
+                      flash_paged_decode_attention_tp.launches_int8,
+                      flash_paged_decode_attention.launches,
+                      flash_paged_decode_attention.launches_int8)
+    before = counts()
+    outs = flash_paged_decode_attention_tp(
+        cut(q), cut(pk), cut(pv), table, lens, dh ** -0.5, **kw,
+        **{f"{k}s": cut(v) for k, v in sc.items()})
+    assert torch.equal(torch.cat(outs, dim=1), full)
+    moved = [a - b for a, b in zip(counts(), before)]
+    assert moved == ([0, 1, 0, 0] if int8 else [1, 0, 0, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,group", [(64, 8), (128, 4), (128, 8)])
+def test_decode_block_leaves_two_blocks_a_sm(cuda_device, dh, group):
+    """B's decode block (the ring of three 64-key stages, page ids, P and
+    the flag) leaves room for two blocks a SM in shared memory at both head
+    dims and both pools, and launches (at least one block a SM)."""
+    from crowdllama_tpu_torch.ops import cuda as kernels
+
+    sm_bytes = 228 * 1024  # an H100 SM's shared memory; 1 KB a block reserved
+    for entry in ("paged_decode", "paged_decode_i8"):
+        res = kernels.kernel_resources("paged_attention", entry, dh, group,
+                                       cuda_device)
+        assert 2 * (res["smem_bytes"] + 1024) <= sm_bytes, res
+        assert res["blocks_per_sm"] >= 1, res
