@@ -24,11 +24,11 @@ Phases, each printing one JSON line:
    F on int8 pools with bf16 scales from ``quantize_kv``) against its
    plain PyTorch version on the same inputs — at the serving shapes
    TinyLlama-1.1B gives it, and at small shapes with softcap, a sliding
-   window and all-masked rows or zero-length slots (B, B-int8, F and
-   F-int8 also at lengths on the edges of B's split-KV plan, 256 keys a
-   split: 0, 1, 127, 128, 129, 256, 257 and the table's 2,048, with
-   windows that leave whole splits empty, two calls equal; C and E also
-   at a context that is not page-aligned, a window across a page
+   window and all-masked rows or zero-length slots (B, B-int8, D, F and
+   F-int8 also at lengths on the edges of their split-KV plan, 256 keys a
+   split: 0, 1, 127, 128, 129, 256, 257 and the table's or cache's 2,048,
+   with windows that leave whole splits empty, two calls equal; C and E
+   also at a context that is not page-aligned, a window across a page
    boundary, a chunk that is not a multiple of a block's queries and, for
    E, a group of 7 query heads per kv head) — with times for the
    kernel, the plain version, one PyTorch SDPA call over the same
@@ -439,8 +439,12 @@ def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
     args = (q, kc, vc, seq, dh ** -0.5)
     kw = dict(softcap=softcap, sliding_window=window)
     got = flash_decode_attention(*args, **kw)
+    again = flash_decode_attention(*args, **kw)
     want = decode_attention_plain(*args, **kw)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("flash decode: two calls differ (the split "
+                             "merge must read its partials in split order)")
     live = [i for i, n in enumerate(lens) if n > 0]
     dead = [i for i, n in enumerate(lens) if n == 0]
     if dead and got[dead].abs().max() != 0:
@@ -569,10 +573,10 @@ def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
     return res
 
 
-# Lengths on the edges of kernel B's split plan at the serving table (16
-# pages of 128: splits of 2 pages, 256 keys): an empty slot, one key, a
-# page less one, a page, a page and one, one split, one split and one key,
-# the whole table.  Cases (softcap, window): none; a window of 40 (the
+# Lengths on the edges of the split plan of kernels B and D at the serving
+# table (16 pages of 128: splits of 2 pages, 256 keys) and cache (2,048
+# keys, splits of 256): an empty slot, one key, a page less one, a page, a
+# page and one, one split, one split and one key, the whole table.  Cases (softcap, window): none; a window of 40 (the
 # 2,048-token slot's keys in its last split only, 7 splits empty); softcap
 # and a window of 300 (first key 1,748: 6 splits empty, 2 merged).
 SPLIT_EDGE_LENS = [0, 1, 127, 128, 129, 256, 257, 2048]
@@ -625,6 +629,10 @@ def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
                                         30.0, 0, False, **d)["max_abs_err"],
                      check_flash_decode(dev, gen, [260, 1, 0, 64], 300, 0.0,
                                         40, False, **d)["max_abs_err"]]
+    dres["split_edges"] = [
+        check_flash_decode(dev, gen, SPLIT_EDGE_LENS, 2048, sc, win, False,
+                           **d)["max_abs_err"]
+        for sc, win in SPLIT_EDGE_CASES]
     out["D"] = dres
     for key, int8 in (("E", False), ("E_int8", True)):
         eres = check_chunk(dev, gen, 1024, 512, 512, 0.0, 0, timed=True,

@@ -15,10 +15,8 @@
 //
 // Two ways to attend query rows to key tiles:
 //
-// - Decode rows (kernel D here; kernels B and C's decode blocks run their
-//   staged, split-KV version in paged_attention.cu): a warp per query head
-//   over keys staged in shared memory, its q row in fp32 registers
-//   (dot_row, load_vec), fp32 FMAs.
+// - Decode rows (kernels B, D, F and C's decode blocks): the split-KV
+//   decode stages of decode_common.cuh, fp32 FMAs on the CUDA cores.
 // - tc_attend, the tensor-core tile (kernel A, and the chunk blocks of
 //   kernels C and E).  Bound on the H100: operations, 4 * DH flops per
 //   visible (row, key) pair at 989 TF/s bf16; the K/V bytes are read once
@@ -109,81 +107,6 @@ int occupancy(Kernel* kernel, int threads, size_t bytes, size_t max_bytes, int* 
   out[0] = (int)bytes;
   out[1] = blocks;
   return (int)err;
-}
-
-// ------------------------------------------------------------------------
-// Decode rows.
-
-template <int DH>
-__device__ __forceinline__ float dot_row(const float (&q)[DH], const __nv_bfloat16* krow) {
-  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(krow);
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < DH / 2; ++d) {
-    const float2 f = __bfloat1622float2(k2[d]);
-    acc = fmaf(q[2 * d], f.x, acc);
-    acc = fmaf(q[2 * d + 1], f.y, acc);
-  }
-  return acc;
-}
-
-// Elements N * i .. N * i + N - 1 (N = 2 or 4) of a staged bf16 or int8
-// row as fp32: a decode lane's share of the output dims.
-template <int N>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* row, int i, float (&f)[N]) {
-  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 dims");
-  const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(row) + (N / 2) * i;
-#pragma unroll
-  for (int e = 0; e < N / 2; ++e) {
-    const float2 x = __bfloat1622float2(r2[e]);
-    f[2 * e] = x.x;
-    f[2 * e + 1] = x.y;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(const int8_t* row, int i, float (&f)[N]) {
-  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 dims");
-  if constexpr (N == 2) {
-    const char2 c = reinterpret_cast<const char2*>(row)[i];
-    f[0] = (float)c.x;
-    f[1] = (float)c.y;
-  } else {
-    const char4 c = reinterpret_cast<const char4*>(row)[i];
-    f[0] = (float)c.x;
-    f[1] = (float)c.y;
-    f[2] = (float)c.z;
-    f[3] = (float)c.w;
-  }
-}
-
-// acc / l (l == 0 read as 1) as bf16 into elements N * i .. of a row.
-template <int N>
-__device__ __forceinline__ void store_vec(__nv_bfloat16* row, int i, const float (&acc)[N],
-                                          float l) {
-  const float inv = 1.f / (l == 0.f ? 1.f : l);
-  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(row) + (N / 2) * i;
-#pragma unroll
-  for (int e = 0; e < N / 2; ++e)
-    d2[e] = __floats2bfloat162_rn(acc[2 * e] * inv, acc[2 * e + 1] * inv);
-}
-
-// Stage `rows` rows of DH elements (bf16 or int8, contiguous in device
-// memory) into shared memory with row stride `stride` elements (a multiple
-// of 4 bytes); rows in [rows, cap) are zeroed so a partial tile reads
-// defined values.  Called by every thread.
-template <int DH, typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int stride, const T* src, int rows,
-                                           int cap) {
-  constexpr int C16 = DH * (int)sizeof(T) / 16;  // 16-byte chunks per row
-  constexpr int E16 = 16 / (int)sizeof(T);       // elements per chunk
-  const uint4* s4 = reinterpret_cast<const uint4*>(src);
-  for (int c = threadIdx.x; c < cap * C16; c += blockDim.x) {
-    int r = c / C16, col = c % C16;
-    uint4 u = r < rows ? s4[c] : make_uint4(0u, 0u, 0u, 0u);
-    uint32_t* d = reinterpret_cast<uint32_t*>(dst + r * stride + col * E16);
-    d[0] = u.x; d[1] = u.y; d[2] = u.z; d[3] = u.w;
-  }
 }
 
 // ------------------------------------------------------------------------

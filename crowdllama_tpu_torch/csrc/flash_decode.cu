@@ -4,155 +4,113 @@
 // (_decode_kernel).  Cache layout (one layer): [B, Hkv, S, DH] bf16, head
 // major, so a (slot, kv head) pair's keys are one contiguous [S, DH] plane.
 // Key j of slot b is seen when j < seq_lens[b] and (window <= 0 or
-// j > seq_lens[b] - 1 - window); the output is acc / l with l == 0 read as
-// 1, so a slot with seq_len 0 writes zeros.
+// j > seq_lens[b] - 1 - window); keys at or past S do not exist.  The
+// output is acc / l with l == 0 read as 1, so a slot with seq_len 0 writes
+// zeros.
 //
-// Bound on the H100: bytes.  A slot reads its live K and V rows once; the
-// G = H / Hkv query heads of a kv head share every key, 4 * DH flops per key
-// per head, ~2 flop per byte read, far below the tensor cores' ~295
-// flop/byte.  So the least time is the live KV bytes at 3.35 TB/s.  What
-// the design does about it: one block per (kv head, slot) stages TILE keys
-// at a time in shared memory for its G query heads (one warp each, q in
-// fp32 registers, each lane owning DH / 32 output dims), the
-// key loop stops at seq_len and starts at the first tile the window can
-// see, so only live rows are read (the TPU kernel block-copies the whole
-// row into VMEM and only skips compute).  This first version does not
-// overlap the next tile's load with the current tile's math, and at the
-// serving shape (8 slots x 4 or 8 kv heads) the grid is 32-64 blocks on 132
-// SMs: splitting the key axis across blocks (split-KV) is later work.
+// Bound on the H100: bytes.  A slot's G = H / Hkv query heads share every
+// key of their kv head, 4 * DH flops per key per head, ~2 flop per byte
+// read, far below the tensor cores' ~295 flop/byte, so the least time is
+// the live K and V rows (min(seq_len, S) keys of each (slot, kv head)) read
+// once at 3.35 TB/s.  What the design does about it: D runs the split-KV
+// decode stages of decode_common.cuh, the ones kernel B runs over the
+// paged pool, with the contiguous key-row policy (ContigDecodeRows: row
+// (b * Hkv + h) * S + pos, no table):
+// - the grid is (Hkv, B, splits) with splits of `span` keys from S alone
+//   (flash_decode_plan in ops/cuda/flash.py: 256 keys a split, at most 32
+//   splits, widened in multiples of 64 keys past 8,192), so enough blocks
+//   stream the live rows at once (at the serving shapes 8 x Hkv x 8, where
+//   one block per (slot, kv head) walked up to 2,048 keys in turn) and the
+//   host sizes the grid without reading the lengths; splits past a slot's
+//   length or before its window return at once, and the live splits merge
+//   in the same launch, in split order;
+// - 64-key stages stream through a three-stage cp.async ring, so two
+//   stages load while one is computed; keys at or past min(seq_len, S) are
+//   zero-filled and masked, never read, so S need not be a multiple of 64;
+// - each staged K and V element is read from shared memory once and used
+//   for all G heads of its kv head, and no FMA chain is longer than 8 keys
+//   a stage.
 
 #include <cstring>
 
-#include "attention_common.cuh"
+#include "decode_common.cuh"
 
 namespace {
 
 using namespace cla;
+using bf16 = __nv_bfloat16;
 
-constexpr int TILE = 128;  // keys staged per step (4 per lane)
-constexpr int MAX_G = 8;   // query heads per kv head: one warp each
-
-// Padded K row stride: an odd number of words, so lanes reading different
-// rows hit different banks.
-template <int DH>
-__host__ __device__ constexpr int k_stride() { return DH + 2; }
-
-template <int DH>
-size_t smem_bytes(int G) {
-  return align16((size_t)TILE * k_stride<DH>() * sizeof(__nv_bfloat16)) +
-         (size_t)TILE * DH * sizeof(__nv_bfloat16) + (size_t)G * TILE * sizeof(float) +
-         (size_t)G * DH * sizeof(float);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(32 * MAX_G)
-flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k_cache,
-                    const __nv_bfloat16* __restrict__ v_cache,
-                    const int* __restrict__ seq_lens, __nv_bfloat16* __restrict__ out,
-                    int H, int Hkv, int S, float scale, float softcap, int window) {
-  constexpr int KS = k_stride<DH>(), N = DH / 32;  // output dims per lane
+// Grid (Hkv, B, splits), DEC_THREADS threads, for G <= GP query heads per
+// kv head (GP 4 or 8).  scratch holds (B x Hkv) x splits x G partials of
+// part_stride<DH>() floats; counters one int32 per (slot, kv head), zero
+// between launches.
+template <int DH, int GP>
+__global__ void __launch_bounds__(DEC_THREADS, decode_min_blocks<bf16, DH, GP>())
+flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_cache,
+                    const bf16* __restrict__ v_cache, const int* __restrict__ seq_lens,
+                    float* __restrict__ scratch, int* __restrict__ counters,
+                    bf16* __restrict__ out, int H, int Hkv, int S, int span, int splits,
+                    float scale, float softcap, int window) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / Hkv;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  size_t off = align16((size_t)TILE * KS * sizeof(__nv_bfloat16));
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + off);
-  off += (size_t)TILE * DH * sizeof(__nv_bfloat16);
-  float* P = reinterpret_cast<float*>(smem + off) + warp * TILE;
-  off += (size_t)G * TILE * sizeof(float);
-  float* Qs = reinterpret_cast<float*>(smem + off);
-
-  const __nv_bfloat16* q_row = q + ((size_t)b * H + (size_t)h * G) * DH;
-  for (int i = threadIdx.x; i < G * DH; i += blockDim.x) Qs[i] = __bfloat162float(q_row[i]);
-  __syncthreads();
-  float qr[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) qr[d] = Qs[warp * DH + d];
-
   const int len = seq_lens[b];
-  const int qpos = len - 1;
-  const int live = min(len, S);  // keys that exist in the cache
-  const int first = window > 0 ? max(0, len - window) : 0;
-  const size_t plane = ((size_t)b * Hkv + h) * S * DH;
+  const size_t head0 = ((size_t)b * H + (size_t)h * G) * DH;
+  decode_split<bf16, DH, GP>(smem, q + head0, k_cache, v_cache, nullptr, nullptr,
+                             ContigDecodeRows{((size_t)b * Hkv + h) * S}, out + head0, scratch,
+                             counters, G, len, window, max(0, min(len, S)), span, splits, scale,
+                             softcap);
+}
 
-  float m = NEG_INF, l = 0.f, acc[N];
-#pragma unroll
-  for (int e = 0; e < N; ++e) acc[e] = 0.f;
-  for (int t0 = (first / TILE) * TILE; t0 < live; t0 += TILE) {
-    const int rows = min(TILE, live - t0);
-    __syncthreads();  // previous tile fully consumed
-    stage_rows<DH>(Ks, KS, k_cache + plane + (size_t)t0 * DH, rows, TILE);
-    stage_rows<DH>(Vs, DH, v_cache + plane + (size_t)t0 * DH, rows, TILE);
-    __syncthreads();
-    float sc[4];
-    float tmax = NEG_INF;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = lane + 32 * i;
-      sc[i] = NEG_INF;
-      if (j < rows && key_visible(t0 + j, qpos, len, window)) {
-        sc[i] = softcap_f(dot_row<DH>(qr, Ks + j * KS) * scale, softcap);
-        tmax = fmaxf(tmax, sc[i]);
-      }
-    }
-    tmax = warp_max(tmax);
-    if (tmax == NEG_INF) continue;  // no visible key in this tile (uniform)
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int j = lane + 32 * i;
-      const float p = sc[i] == NEG_INF ? 0.f : expf(sc[i] - m_new);
-      P[j] = p;
-      psum += p;
-    }
-    l = l * alpha + warp_sum(psum);
-    m = m_new;
-    __syncwarp();
-#pragma unroll
-    for (int e = 0; e < N; ++e) acc[e] *= alpha;
-    for (int j = 0; j < rows; ++j) {
-      float f[N];
-      load_vec<N>(Vs + j * DH, lane, f);
-#pragma unroll
-      for (int e = 0; e < N; ++e) acc[e] = fmaf(P[j], f[e], acc[e]);
-    }
-    __syncwarp();
-  }
-  store_vec<N>(out + ((size_t)b * H + (size_t)h * G + warp) * DH, lane, acc, l);
+template <int DH, int GP>
+int launch_gp(const void* q, const void* k_cache, const void* v_cache, const int* seq_lens,
+              void* scratch, void* counters, void* out, int B, int H, int Hkv, int S, int span,
+              int splits, float scale, float softcap, int window, void* stream) {
+  constexpr size_t bytes = decode_smem_bytes<bf16, DH>();
+  static unsigned opted = 0;
+  const cudaError_t err = allow_smem(flash_decode_kernel<DH, GP>, bytes, opted);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Hkv, B, splits);
+  flash_decode_kernel<DH, GP><<<grid, DEC_THREADS, bytes, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k_cache, (const bf16*)v_cache, seq_lens, (float*)scratch,
+      (int*)counters, (bf16*)out, H, Hkv, S, span, splits, scale, softcap, window);
+  return (int)cudaGetLastError();
 }
 
 template <int DH>
 int launch_decode(const void* q, const void* k_cache, const void* v_cache, const int* seq_lens,
-                  void* out, int B, int H, int Hkv, int S, float scale, float softcap,
-                  int window, void* stream) {
-  static unsigned opted = 0;
-  const cudaError_t err = allow_smem(flash_decode_kernel<DH>, smem_bytes<DH>(MAX_G), opted);
-  if (err != cudaSuccess) return (int)err;
-  const int G = H / Hkv;
-  dim3 grid(Hkv, B);
-  flash_decode_kernel<DH><<<grid, 32 * G, smem_bytes<DH>(G), (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_cache, (const __nv_bfloat16*)v_cache,
-      seq_lens, (__nv_bfloat16*)out, H, Hkv, S, scale, softcap, window);
-  return (int)cudaGetLastError();
+                  void* scratch, void* counters, void* out, int B, int H, int Hkv, int S,
+                  int span, int splits, float scale, float softcap, int window, void* stream) {
+  auto go = H / Hkv <= 4 ? launch_gp<DH, 4> : launch_gp<DH, 8>;
+  return go(q, k_cache, v_cache, seq_lens, scratch, counters, out, B, H, Hkv, S, span, splits,
+            scale, softcap, window, stream);
+}
+
+template <int DH>
+int report(int G, int* out) {
+  constexpr size_t bytes = decode_smem_bytes<bf16, DH>();
+  return G <= 4 ? occupancy(flash_decode_kernel<DH, 4>, DEC_THREADS, bytes, bytes, out)
+                : occupancy(flash_decode_kernel<DH, 8>, DEC_THREADS, bytes, bytes, out);
 }
 
 }  // namespace
 
+// splits of span keys each (span a multiple of the 64-key stage) cover the
+// S keys of every (slot, kv head); at most MAX_SPLITS of them.
 extern "C" int flash_decode(const void* q, const void* k_cache, const void* v_cache,
-                            const int* seq_lens, void* out, int B, int H, int Hkv, int S,
-                            float scale, float softcap, int window, int dh, void* stream) {
+                            const int* seq_lens, void* scratch, void* counters, void* out,
+                            int B, int H, int Hkv, int S, int span, int splits, float scale,
+                            float softcap, int window, int dh, void* stream) {
+  if (splits < 1 || splits > MAX_SPLITS || span < 1 || span % DEC_KEYS ||
+      (long long)span * splits < S)
+    return (int)cudaErrorInvalidValue;
   switch (dh) {
     case 64:
-      return launch_decode<64>(q, k_cache, v_cache, seq_lens, out, B, H, Hkv, S, scale,
-                               softcap, window, stream);
+      return launch_decode<64>(q, k_cache, v_cache, seq_lens, scratch, counters, out, B, H, Hkv,
+                               S, span, splits, scale, softcap, window, stream);
     case 128:
-      return launch_decode<128>(q, k_cache, v_cache, seq_lens, out, B, H, Hkv, S, scale,
-                                softcap, window, stream);
+      return launch_decode<128>(q, k_cache, v_cache, seq_lens, scratch, counters, out, B, H,
+                                Hkv, S, span, splits, scale, softcap, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -164,11 +122,9 @@ extern "C" int resources(const char* entry, int dh, int G, int* out) {
   if (strcmp(entry, "flash_decode")) return (int)cudaErrorInvalidValue;
   switch (dh) {
     case 64:
-      return occupancy(flash_decode_kernel<64>, 32 * G, smem_bytes<64>(G), smem_bytes<64>(MAX_G),
-                       out);
+      return report<64>(G, out);
     case 128:
-      return occupancy(flash_decode_kernel<128>, 32 * G, smem_bytes<128>(G),
-                       smem_bytes<128>(MAX_G), out);
+      return report<128>(G, out);
     default:
       return (int)cudaErrorInvalidValue;
   }

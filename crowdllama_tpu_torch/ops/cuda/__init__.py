@@ -52,10 +52,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
                           _I, _P],
     },
     "flash_decode": {
-        # q, k_cache, v_cache, seq_lens, out, B, H, Hkv, S, scale, softcap,
-        # window, dh, stream
-        "flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
-                         _P],
+        # q, k_cache, v_cache, seq_lens, scratch, counters, out, B, H, Hkv,
+        # S, span, splits, scale, softcap, window, dh, stream
+        "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _F, _F, _I, _I, _P],
     },
     "paged_attention": {
         # nranks, q[], pool_k[], pool_v[], out[] (host arrays of nranks

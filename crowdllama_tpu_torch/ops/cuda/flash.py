@@ -6,7 +6,12 @@ Counterparts of ``crowdllama_tpu/ops/pallas/flash.py``:
   GQA prefill attention; plain version ``ops.attention.prefill_attention_ref``.
 - D, :func:`flash_decode_attention` (``csrc/flash_decode.cu``): one decode
   token per slot over the contiguous ``[B, Hkv, S, Dh]`` cache; plain
-  version :data:`decode_attention_plain`.
+  version :data:`decode_attention_plain`.  It runs kernel B's split-KV
+  decode stages (``csrc/decode_common.cuh``) over each (slot, kv head)'s
+  contiguous plane: the splits of :func:`flash_decode_plan`, from ``S``
+  alone, one block each, merged in the same launch through the scratch
+  and counters B's calls use on the same device
+  (:func:`~crowdllama_tpu_torch.ops.cuda.paged.split_scratch`).
 
 Each wrapper launches its hand-written kernel for CUDA tensors and runs its
 plain version for CPU tensors; there is no other fallback.
@@ -21,9 +26,14 @@ from crowdllama_tpu_torch.ops.attention import (
     prefill_attention_ref,
 )
 from crowdllama_tpu_torch.ops.cuda import HEAD_DIMS, check, launch
+from crowdllama_tpu_torch.ops.cuda.paged import (
+    DECODE_STAGE_KEYS,
+    split_plan,
+    split_scratch,
+)
 
-# Query heads per kv head: kernel D's warps (one each), and kernel A's
-# groups (7 pads its blocks' 128 rows).
+# Query heads per kv head: kernel D's heads (padded to 4 or 8 in its
+# block), and kernel A's groups (7 pads its blocks' 128 rows).
 MAX_GROUP = 8
 
 #: kernel D's plain version (reference semantics, any device)
@@ -84,6 +94,31 @@ def flash_prefill_attention(q, k, v, positions, scale: float,
 flash_prefill_attention.launches = 0
 
 
+def flash_decode_plan(s: int) -> tuple[int, int]:
+    """Kernel D's split of a (slot, kv head)'s ``s`` cache positions: (keys
+    per split, splits).  Split i walks the keys ``[i * span, (i + 1) *
+    span)``: kernel B's plan over the cache cut into 64-key decode stages,
+    so 256 keys a split, widened by whole stages where more than
+    :data:`~crowdllama_tpu_torch.ops.cuda.paged.MAX_SPLITS` splits would
+    be needed (past 8,192 keys).  It depends on the cache length alone,
+    never on the slots' lengths, so the host sizes the grid without
+    reading them."""
+    stages, splits = split_plan(-(-s // DECODE_STAGE_KEYS), DECODE_STAGE_KEYS)
+    return stages * DECODE_STAGE_KEYS, splits
+
+
+def flash_decode_launch_shape(q, k_cache) -> dict:
+    """Kernel D's launch, from shapes alone: the split plan, the grid (Hkv,
+    B, splits), threads a block (8 warps at every group size) and the
+    scratch's rows (slot, kv head) and fp32 partials."""
+    b, h, dh = q.shape
+    _, hkv, s, _ = k_cache.shape
+    span, splits = flash_decode_plan(s)
+    rows = b * hkv
+    return dict(span=span, splits=splits, grid=(hkv, b, splits), threads=256,
+                rows=rows, floats=rows * splits * (h // hkv) * (dh + 4))
+
+
 def flash_decode_attention(q, k_cache, v_cache, seq_lens, scale: float,
                            softcap: float = 0.0,
                            sliding_window: int = 0) -> torch.Tensor:
@@ -116,11 +151,15 @@ def flash_decode_attention(q, k_cache, v_cache, seq_lens, scale: float,
           "operands must be contiguous")
     check(all(x.data_ptr() % 16 == 0 for x in (q, k_cache, v_cache)),
           "q and the caches must be 16-byte aligned (16-byte loads)")
+    shape = flash_decode_launch_shape(q, k_cache)
+    scratch, counters = split_scratch(q.device, shape["rows"],
+                                      shape["floats"])
     out = torch.empty_like(q)
     launch("flash_decode", "flash_decode", q.device,
            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-           seq_lens.data_ptr(), out.data_ptr(), b, h, hkv, s, float(scale),
-           float(softcap or 0.0), int(sliding_window), dh)
+           seq_lens.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+           out.data_ptr(), b, h, hkv, s, shape["span"], shape["splits"],
+           float(scale), float(softcap or 0.0), int(sliding_window), dh)
     flash_decode_attention.launches += 1
     return out
 

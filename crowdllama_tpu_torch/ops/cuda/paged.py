@@ -30,8 +30,10 @@ Counterparts of ``crowdllama_tpu/ops/pallas/paged.py``:
 B splits each (slot, kv head) into the key runs of :func:`split_plan`,
 one block each, and merges them in the same launch; its fp32 partials and
 per-(slot, kv head) counters live in a buffer made once per device and
-grown as needed (:func:`_split_scratch`), so a call launches nothing else.
-Calls on one device share that buffer, so they run in one stream's order.
+grown as needed (:func:`split_scratch`), so a call launches nothing else.
+Calls on one device share that buffer, kernel D's calls too
+(``ops/cuda/flash.py``), so they run in one stream's order; every launch
+leaves the counters at zero.
 
 Pools are one layer's ``[P, Hkv, page, Dh]`` (Dh 64 or 128 on the
 card), bf16 or int8 (the last page is the engine's dump page), tables
@@ -67,10 +69,12 @@ from crowdllama_tpu_torch.ops.quant import dequantize_kv
 MAX_GROUP = 8
 MAX_PAGE = 128
 PAGE_ALIGN = 16   # keys the chunk tile gathers together (one mma k-step)
-# Kernel B's split-KV plan: keys a split walks (two pages of 128), and the
-# most splits a (slot, kv head) is cut into.
+# The split-KV plan of kernels B and D: keys a split walks (two pages of
+# 128), the most splits a (slot, kv head) is cut into, and the keys of one
+# decode stage (D's plan is B's over the cache cut into stages).
 SPLIT_KEYS = 256
 MAX_SPLITS = 32
+DECODE_STAGE_KEYS = 64
 MAX_RANKS = 8     # ranks on one device one launch of B's grid takes (F)
 
 
@@ -213,16 +217,17 @@ def split_plan(np_: int, page: int) -> tuple[int, int]:
     return pps, max(1, -(-np_ // pps))
 
 
-# device -> (fp32 partials, int32 arrival counters) of kernel B's merge.
+# device -> (fp32 partials, int32 arrival counters) of the split merge of
+# kernels B and D.
 _SPLIT_SCRATCH: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _split_scratch(device: torch.device, rows: int,
-                   floats: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B's partials (at least ``floats`` fp32) and one counter per
-    (slot, rank, kv head) row on ``device``, made once and grown as needed.
-    New counters are zeros and every launch leaves them at zero, so a call
-    needs no memset."""
+def split_scratch(device: torch.device, rows: int,
+                  floats: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The split merge's partials (at least ``floats`` fp32) and one counter
+    per (slot, rank, kv head) row on ``device``, made once and grown as
+    needed, shared by kernels B and D.  New counters are zeros and every
+    launch leaves them at zero, so a call needs no memset."""
     scratch, counters = _SPLIT_SCRATCH.get(device, (None, None))
     if scratch is None or scratch.numel() < floats:
         scratch = torch.empty(floats, dtype=torch.float32, device=device)
@@ -260,7 +265,7 @@ def _launch_decode(qs, pools_k, pools_v, k_scales, v_scales, table, seq_lens,
     None on bf16 pools); returns each rank's output."""
     dev = qs[0].device
     shape = decode_launch_shape(qs, pools_k, table)
-    scratch, counters = _split_scratch(dev, shape["rows"], shape["floats"])
+    scratch, counters = split_scratch(dev, shape["rows"], shape["floats"])
     outs = [torch.empty_like(q) for q in qs]
     arrays = [_ptrs(x) for x in (qs, pools_k, pools_v)]
     if k_scales is not None:

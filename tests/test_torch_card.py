@@ -24,6 +24,11 @@ width), with softcap and windows that leave whole splits empty, and on
 pages of 16, 32 and 64 (a stage spanning several pages); two calls
 equal; F at tp 2 and 4 one launch on one card, bit-equal to B; the
 decode block's shared memory leaves two blocks a SM at both head dims.
+Kernel D on the same decode stages: at its split and stage edges over
+caches of 2,048 and 600 keys, both head dims, groups of 1, 2, 4, 7 and 8,
+softcap and windows that empty whole splits, two calls equal; bit-equal
+to B on the same keys in pages of 128; D and B calls in turn on one
+stream, each equal to its plain version, the shared counters at zero.
 Tolerance: one bf16 rounding of outputs of magnitude ~1 plus fp32
 summation order, atol 2e-2 + rtol 1e-2.
 """
@@ -736,14 +741,120 @@ def test_tp_decode_at_split_edges_is_one_launch_equal_to_b(cuda_device, int8,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh,group", [(64, 8), (128, 4), (128, 8)])
 def test_decode_block_leaves_two_blocks_a_sm(cuda_device, dh, group):
-    """B's decode block (the ring of three 64-key stages, page ids, P and
-    the flag) leaves room for two blocks a SM in shared memory at both head
-    dims and both pools, and launches (at least one block a SM)."""
+    """The decode block of B and D (the ring of three 64-key stages, page
+    ids, P and the flag) leaves room for two blocks a SM in shared memory at
+    both head dims and both pools, and launches (at least one block a
+    SM)."""
     from crowdllama_tpu_torch.ops import cuda as kernels
 
     sm_bytes = 228 * 1024  # an H100 SM's shared memory; 1 KB a block reserved
-    for entry in ("paged_decode", "paged_decode_i8"):
-        res = kernels.kernel_resources("paged_attention", entry, dh, group,
-                                       cuda_device)
+    for lib, entry in (("paged_attention", "paged_decode"),
+                       ("paged_attention", "paged_decode_i8"),
+                       ("flash_decode", "flash_decode")):
+        res = kernels.kernel_resources(lib, entry, dh, group, cuda_device)
         assert 2 * (res["smem_bytes"] + 1024) <= sm_bytes, res
         assert res["blocks_per_sm"] >= 1, res
+
+
+# ------------------------------------------------------ D's split-KV grid
+
+def _contig_case(dev, gen, dh: int, h: int, hkv: int, s: int):
+    """Caches [B, Hkv, S, Dh] and q at lengths on D's split and stage edges
+    (no key, one, a stage less one, a stage, a stage and one, a split less
+    one, a split, a split and one, S - 1, S)."""
+    lens = [0, 1, 63, 64, 65, 255, 256, 257, s - 1, s]
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    q = torch.randn((len(lens), h, dh), generator=gen, **bf)
+    kc = torch.randn((len(lens), hkv, s, dh), generator=gen, **bf)
+    vc = torch.randn((len(lens), hkv, s, dh), generator=gen, **bf)
+    return q, kc, vc, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
+@pytest.mark.parametrize("s", [2048, 600])
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 40),
+                                            (0.0, 300)])
+def test_flash_decode_split_edges_match_plain_on_card(cuda_device, dh, hkv,
+                                                      group, s, softcap,
+                                                      window):
+    """Kernel D at its split and stage edges over caches of 2,048 and 600
+    keys (not a multiple of a split): one live split written directly,
+    several merged (windows of 40 and 300 leave the first splits of the
+    longest slots empty), the zero-length slot zeros; two calls give the
+    same bits (the merge reads its partials in split order)."""
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        decode_attention_plain,
+        flash_decode_attention,
+    )
+
+    gen, _ = _card_case(cuda_device)
+    q, kc, vc, lens = _contig_case(cuda_device, gen, dh, group * hkv, hkv, s)
+    args = (q, kc, vc, lens, dh ** -0.5)
+    kw = dict(softcap=softcap, sliding_window=window)
+    got = flash_decode_attention(*args, **kw)
+    again = flash_decode_attention(*args, **kw)
+    want = decode_attention_plain(*args, **kw)
+    assert torch.equal(got, again)
+    _close(got[1:], want[1:])
+    assert not got[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("group", [4, 8])
+def test_flash_decode_is_bit_identical_to_paged_decode(cuda_device, dh, hkv,
+                                                       group):
+    """D on a contiguous cache and B on the same keys in pages of 128 run
+    the same decode stages with the same 256-key splits: the same bits."""
+    from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
+
+    gen, _ = _card_case(cuda_device)
+    s, page = 2048, 128
+    q, kc, vc, lens = _contig_case(cuda_device, gen, dh, group * hkv, hkv, s)
+    b, np_ = q.shape[0], s // page
+
+    def paged(x):
+        return x.reshape(b, hkv, np_, page, dh).transpose(1, 2).reshape(
+            b * np_, hkv, page, dh).contiguous()
+
+    table = torch.arange(b * np_, dtype=torch.int32,
+                         device=cuda_device).reshape(b, np_)
+    kw = dict(softcap=30.0, sliding_window=300)
+    got = flash_decode_attention(q, kc, vc, lens, dh ** -0.5, **kw)
+    want = flash_paged_decode_attention(q, paged(kc), paged(vc), table, lens,
+                                        dh ** -0.5, **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+def test_flash_decode_and_paged_decode_interleaved_on_card(cuda_device, dh,
+                                                           hkv):
+    """D and B share the device's split scratch and counters: calls of one
+    and the other in turn on one stream each match their plain versions,
+    and every launch leaves the counters at zero."""
+    from crowdllama_tpu_torch.ops.cuda import paged as P
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        decode_attention_plain,
+        flash_decode_attention,
+    )
+
+    gen, _ = _card_case(cuda_device)
+    dq, kc, vc, dlens = _contig_case(cuda_device, gen, dh, 32, hkv, 600)
+    q, pk, pv, table, lens, _ = _split_case(cuda_device, gen, False, dh, 32,
+                                            hkv)
+    kw = dict(softcap=30.0, sliding_window=300)
+    d_want = decode_attention_plain(dq, kc, vc, dlens, 0.1, **kw)
+    b_want = P.paged_decode_attention_plain(q, pk, pv, table, lens, 0.1, **kw)
+    for _ in range(3):
+        for name, got, want in (
+                ("D", flash_decode_attention(dq, kc, vc, dlens, 0.1, **kw),
+                 d_want),
+                ("B", flash_paged_decode_attention(q, pk, pv, table, lens,
+                                                   0.1, **kw), b_want)):
+            _close(got[1:], want[1:])
+            assert not got[0].any(), name
+            counters = P._SPLIT_SCRATCH[got.device][1]
+            assert not counters.any(), (name, counters.nonzero())
