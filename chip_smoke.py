@@ -47,24 +47,37 @@ Phases, each printing one JSON line:
    the long prompt's TTFT is reported beside the time of each ragged step
    of a long prompt prefilled beside 3 decoding slots (and its kernel C
    time, CUDA events);
-6. engine_int8: the same engine with ``kv_dtype="int8"`` (int8 pools)
+6. wire: the worker's request seam on tinyllama-1.1b (paged, bf16, the
+   same seed-0 weights): the port's ``IPCServer`` on a Unix socket, a
+   client speaking only the port's llama.v1 codec; a PB greedy request
+   equal to a direct ``generate()``, a seeded one that repeats, a JSON
+   prompt of the long prompt, a JSON embed equal to ``embed_prompts``,
+   ping, status, an oversized frame (dropped, the server keeps serving);
+   the golden frames of ``core/wire_golden.py``; one request streamed
+   through ``handle_streaming_frames``; an IPC ``profile`` of 1 s while 4
+   streams decode (the trace's top kernels and the card's busy share:
+   the union of kernel intervals over the window); last ``migrate()``
+   under 3 streams (MigrateFrames with their delivered tokens and chain
+   hashes, the pool idle, new requests refused).  A, B and C launch, no
+   other; the host us to encode and decode one frame;
+7. engine_int8: the same engine with ``kv_dtype="int8"`` (int8 pools)
    and the same traffic plus a seeded sampled stream (temperature 0.8,
    seed 1234) that must repeat token for token when sent again; kernels
    A, B-int8 and C-int8 must have launched and B, C (bf16) not; one
    decode step through B-int8 must agree with its plain version; the
    ragged steps and the steady step are reported, the latter beside the
    bf16 pool's;
-7. contiguous: ``TorchEngine(kv_layout="contiguous")`` on the same
+8. contiguous: ``TorchEngine(kv_layout="contiguous")`` on the same
    weights serves 8 concurrent streams of 32 tokens — 6 greedy short
    prompts, the seeded sampled stream and the ~1,500-byte prompt sent
    while they decode (legacy chunked admission, >= 2 chunks).  Kernels A
    and D must have launched; the seeded stream must repeat; one decode
    step through kernel D must agree with the plain version;
-8. contiguous_int8: the contiguous int8 cache, 4 greedy streams of 16
+9. contiguous_int8: the contiguous int8 cache, 4 greedy streams of 16
    tokens, the long one in legacy chunks; its decode is the plain
    ``decode_attention_q`` (no Pallas kernel in the JAX package either),
    so only kernel A may launch;
-9. engine_tp: the paged engine tensor-parallel, ``mesh_shape="2"`` with
+10. engine_tp: the paged engine tensor-parallel, ``mesh_shape="2"`` with
    both ranks on the one card (``devices=[cuda:0, cuda:0]``: it proves the
    sharded math and kernel F's launches, not a tp speed-up), the paged
    phase's traffic: every stream done, 22 F launches per decode step (the
@@ -73,15 +86,15 @@ Phases, each printing one JSON line:
    of their scale, the share of greedy tokens equal to the one-device
    phase's, the steady step and the peak memory beside that phase's
    (peak at most 1.1x);
-10. engine_tp_int8: the same on int8 pools, 3 streams of 16 tokens
+11. engine_tp_int8: the same on int8 pools, 3 streams of 16 tokens
    (F-int8 launches, no B-int8; C-int8 per rank), one decode step vs
    plain.
 
-11. engine_llama: llama-3-8b at full width and depth (32 layers, Dh
+12. engine_llama: llama-3-8b at full width and depth (32 layers, Dh
    128, 32 / 8 heads, hidden 4096, vocab 128256; random bf16 weights from
    seed 0 made on the card, EOS column zeroed) on the paged main path,
    the paged phase's traffic and checks (kernels A-C at Dh 128);
-12. engine_llama_int8, contiguous_llama, engine_llama_tp,
+13. engine_llama_int8, contiguous_llama, engine_llama_tp,
    engine_llama_tp_int8: llama-3-8b cut to 4 layers at full width on
    int8 pools (B-int8, C-int8), the contiguous layout (D), tp=2 on the
    one card (F) and tp=2 on int8 pools (F-int8), 3 streams of 16 tokens
@@ -109,6 +122,7 @@ import contextvars
 import functools
 import gc
 import json
+import struct
 import subprocess
 import sys
 import time
@@ -1118,6 +1132,345 @@ def engine_phase(dev, phase: str = "engine", model: str = TINYLLAMA,
             "max_memory_allocated": summary["max_memory_allocated"]}
 
 
+class _StreamLog(_IdRecorder):
+    """``_IdRecorder`` that also keeps each stream decoder's token ids, in
+    the order the streams started (``streams``, each a list of
+    ``(host seconds, id)``), for streams served in tasks this script did
+    not create (the IPC server's)."""
+
+    def __init__(self, tok):
+        super().__init__(tok)
+        self.streams: list[list] = []
+
+    def stream_decoder(self):
+        dec, log = super().stream_decoder(), []
+        self.streams.append(log)
+
+        class _Dec:
+            def feed(self, token_id):
+                log.append((time.perf_counter(), int(token_id)))
+                return dec.feed(token_id)
+
+        return _Dec()
+
+
+def _ids(log: list) -> list[int]:
+    return [t for _, t in log]
+
+
+def busy_share(trace_path: str, seconds: float) -> dict:
+    """The card's busy share over a ``capture_profile`` window: the union
+    of the trace's CUDA kernel intervals over the window's length, the
+    union over the span from the first kernel's start to the last one's
+    end, the 5 kernels with the most device time, and the trace's event
+    count by category."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["name"])
+                     for e in events if e.get("cat") == "kernel")
+    if not kernels:
+        raise AssertionError(f"the profile {trace_path} holds no CUDA "
+                             f"kernel ({len(events)} events)")
+    busy, end, by_name = 0.0, -1.0, {}
+    for t0, t1, name in kernels:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
+    span = kernels[-1][1] - kernels[0][0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    cats: dict[str, int] = {}
+    for e in events:
+        cats[e.get("cat", "")] = cats.get(e.get("cat", ""), 0) + 1
+    return {"events_by_category": cats, "kernels": len(kernels),
+            "busy_us": busy,
+            "window_us": seconds * 1e6, "busy_share": busy / (seconds * 1e6),
+            "kernel_span_us": span, "busy_share_of_span": busy / span,
+            "top_kernels": [{"name": n, "device_us": us,
+                             "launches": sum(1 for k in kernels
+                                             if k[2] == n)}
+                            for n, us in top]}
+
+
+def codec_timing(iters: int = 2000) -> dict:
+    """Host microseconds to encode one streamed GenerateResponse frame
+    (``genresp_frame_bytes``) and to decode it (``wire.decode_payload``)."""
+    from crowdllama_tpu_torch.core import wire
+    from crowdllama_tpu_torch.core.messages import genresp_frame_bytes
+
+    kw = dict(worker_id="worker-a", done=False, trace_id="trace-1")
+    frame = genresp_frame_bytes(TINYLLAMA, " tok", **kw)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        genresp_frame_bytes(TINYLLAMA, " tok", **kw)
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        wire.decode_payload(frame[4:])
+    t2 = time.perf_counter()
+    return {"frame_bytes": len(frame), "encode_us": (t1 - t0) * 1e6 / iters,
+            "decode_us": (t2 - t1) * 1e6 / iters}
+
+
+PROFILE_S = 1.0
+WIRE_TOKENS = 32
+# The client's line limit: an embed reply of two tinyllama vectors (2 x
+# 2,048 floats as JSON) is longer than asyncio's default 64 KiB.
+IPC_READ_LIMIT = 1 << 24
+
+
+async def _ipc_pb(sock: str, msg):
+    """One PB request over a new connection -> (reply, ms)."""
+    from crowdllama_tpu_torch.core import wire
+
+    reader, writer = await asyncio.open_unix_connection(
+        sock, limit=IPC_READ_LIMIT)
+    try:
+        t0 = time.perf_counter()
+        await wire.write_length_prefixed_pb(writer, msg)
+        reply = await wire.read_length_prefixed_pb(reader, timeout=120)
+        return reply, (time.perf_counter() - t0) * 1e3
+    finally:
+        writer.close()
+
+
+async def _ipc_json(sock: str, obj: dict | bytes):
+    """One JSON line (or raw bytes) over a new connection -> (the reply
+    line parsed, or b"" when the server dropped the connection; ms)."""
+    reader, writer = await asyncio.open_unix_connection(
+        sock, limit=IPC_READ_LIMIT)
+    try:
+        data = (obj if isinstance(obj, bytes)
+                else json.dumps(obj).encode() + b"\n")
+        t0 = time.perf_counter()
+        writer.write(data)
+        await writer.drain()
+        line = await asyncio.wait_for(reader.readline(), 120)
+        ms = (time.perf_counter() - t0) * 1e3
+        return (json.loads(line) if line else b""), ms
+    finally:
+        writer.close()
+
+
+def wire_phase(dev) -> dict:
+    """The worker's request seam on the card: the port's ``IPCServer`` on a
+    Unix socket over ``TorchEngine`` (tinyllama-1.1b at full width and
+    depth, paged, bf16, TinyLlama's seed-0 weights), a client speaking only
+    the port's codec.  Requests one at a time on the idle engine: a PB
+    GenerateRequest (greedy, 32 tokens) equal to a direct ``generate()`` of
+    the same prompt, a seeded PB request (0.8, seed 1234) sent twice that
+    repeats, a JSON ``prompt`` of the long prompt (kernel C), a JSON
+    ``embed`` of two inputs equal to ``runner.embed_prompts`` within 1e-3
+    of their scale, ``ping``, ``status`` and a frame header over the cap
+    (that connection is dropped, the server keeps serving).  The golden
+    frames (``core/wire_golden.py``); one request streamed through
+    ``handle_streaming_frames`` (its text is the greedy reply's, the last
+    frame done with 32 tokens); an IPC ``profile`` of 1 s while 4 streams
+    decode (the trace's size, top kernels and the card's busy share);
+    last, ``migrate()`` under 3 streams of 2-4 prompt pages: each ends in a MigrateFrame with
+    its delivered tokens and chain hashes, slots and pages go idle, a new
+    request is refused.  A, B and C launch, no other kernel."""
+    import os
+    import tempfile
+
+    from crowdllama_tpu_torch.core import wire, wire_golden
+    from crowdllama_tpu_torch.core.messages import create_generate_request
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.ipc.server import IPCServer
+
+    golden = wire_golden.check()
+    codec = codec_timing()
+    greedy_prompt, (seeded_prompt, seeded_kw) = SHORT[2], SAMPLED
+
+    async def go(tmp: str) -> dict:
+        sock = os.path.join(tmp, "ipc.sock")
+        engine = TorchEngine(params=seed0_params(dev), device=dev,
+                             model=TINYLLAMA,
+                             profile_dir=os.path.join(tmp, "profile"))
+        await engine.start()
+        log = _StreamLog(engine.tokenizer)
+        engine.tokenizer = log
+        srv = IPCServer(sock, engine)
+        await srv.start()
+        r, tok = engine.runner, engine.tokenizer
+        out: dict = {"latency_ms": {}}
+        lat = out["latency_ms"]
+        try:
+            _zero_launches()
+            # Direct generate() on the idle engine: the reference reply.
+            direct = ""
+            t0 = time.perf_counter()
+            async for chunk in engine.generate(greedy_prompt,
+                                               max_tokens=WIRE_TOKENS):
+                direct += chunk.text
+            lat["direct_generate"] = (time.perf_counter() - t0) * 1e3
+            direct_ids = _ids(log.streams[-1])
+
+            reply, lat["pb_greedy"] = await _ipc_pb(
+                sock, create_generate_request(TINYLLAMA, greedy_prompt,
+                                              max_tokens=WIRE_TOKENS))
+            gr = reply.generate_response
+            if not (gr.done and gr.completion_tokens == WIRE_TOKENS
+                    and gr.response == direct
+                    and _ids(log.streams[-1]) == direct_ids):
+                raise AssertionError(f"wire: IPC greedy reply {gr} differs "
+                                     f"from generate() ({direct!r})")
+            seeded = []
+            for i in range(2):
+                reply, lat[f"pb_seeded_{i}"] = await _ipc_pb(
+                    sock, create_generate_request(
+                        TINYLLAMA, seeded_prompt, max_tokens=WIRE_TOKENS,
+                        **seeded_kw))
+                seeded.append((reply.generate_response.response,
+                               _ids(log.streams[-1])))
+            if seeded[0] != seeded[1] or len(seeded[0][1]) != WIRE_TOKENS:
+                raise AssertionError(f"wire: the seeded request did not "
+                                     f"repeat: {seeded}")
+            chunks0 = engine.scheduler.ragged_chunks
+            line, lat["json_prompt_long"] = await _ipc_json(sock, {
+                "type": "prompt", "text": LONG, "model": TINYLLAMA})
+            if (line.get("type") != "response" or not line.get("done")
+                    or engine.scheduler.ragged_chunks <= chunks0):
+                raise AssertionError(f"wire: JSON prompt reply {line}")
+            inputs = ["alpha beta gamma", SHORT[0]]
+            line, lat["json_embed"] = await _ipc_json(sock, {
+                "type": "embed", "input": inputs})
+            want = r.embed_prompts([tok.encode(x) for x in inputs])
+            got = torch.tensor(line["embeddings"])
+            embed_err = float((got - torch.from_numpy(want)).abs().max())
+            if not (got.shape == want.shape
+                    and embed_err <= 1e-3 * float(abs(want).max())):
+                raise AssertionError(f"wire: IPC embeddings differ from "
+                                     f"embed_prompts by {embed_err}")
+            pong, lat["json_ping"] = await _ipc_json(sock, {"type": "ping"})
+            status, lat["json_status"] = await _ipc_json(
+                sock, {"type": "status"})
+            dropped, _ = await _ipc_json(
+                sock, struct.pack(">I", wire.MAX_MESSAGE_SIZE + 1))
+            again, _ = await _ipc_json(sock, {"type": "ping"})
+            if (pong != {"type": "pong"} or status != {
+                    "type": "status", "peer_id": "", "workers": []}
+                    or dropped != b"" or again != {"type": "pong"}):
+                raise AssertionError(f"wire: ping/status/oversized: {pong} "
+                                     f"{status} {dropped!r} {again}")
+
+            # One request streamed through handle_streaming_frames.
+            t0 = time.perf_counter()
+            frames, first_frame = [], None
+            async for frame in engine.handle_streaming_frames(
+                    create_generate_request(TINYLLAMA, greedy_prompt,
+                                            max_tokens=WIRE_TOKENS,
+                                            stream=True)):
+                frames.append(wire.decode_payload(frame[4:]))
+                first_frame = first_frame or time.perf_counter()
+            first_token = log.streams[-1][0][0]
+            text = "".join(f.generate_response.response for f in frames)
+            last = frames[-1].generate_response
+            if not (text == direct and last.done
+                    and last.completion_tokens == WIRE_TOKENS):
+                raise AssertionError(f"wire: streamed frames {frames}")
+            out["stream"] = {"frames": len(frames),
+                             "ttft_ms": (first_token - t0) * 1e3,
+                             "first_frame_ms": (first_frame - t0) * 1e3,
+                             "wall_ms": (time.perf_counter() - t0) * 1e3}
+
+            # IPC profile while 4 streams decode.
+            async def drive(prompt):
+                async for _ in engine.generate(prompt, max_tokens=1024):
+                    pass
+
+            n0 = len(log.streams)
+            tasks = [asyncio.create_task(drive(p)) for p in SHORT[:4]]
+            while (len(log.streams) < n0 + 4
+                   or min(len(x) for x in log.streams[n0:]) < 2):
+                await asyncio.sleep(0.01)
+            reply, lat["json_profile"] = await _ipc_json(sock, {
+                "type": "profile", "seconds": PROFILE_S})
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            if reply.get("type") != "profile":
+                raise AssertionError(f"wire: profile reply {reply}")
+            (trace,) = [os.path.join(reply["trace_dir"], f)
+                        for f in os.listdir(reply["trace_dir"])]
+            out["profile"] = {"trace": trace,
+                              "trace_bytes": os.path.getsize(trace),
+                              "streams": 4,
+                              **busy_share(trace, PROFILE_S)}
+            while any(s is not None for s in engine.scheduler.slots):
+                await asyncio.sleep(0.01)
+
+            # Migrate 3 streams once each has 4 tokens.
+            free0, cached0 = len(r._free_pages), len(r._page_key)
+            prompts = [SHORT[0], SHORT[1], SHORT[4]]  # 2-4 pages each
+            streams: dict[int, list] = {}
+            ids: dict[int, list] = {}
+
+            async def frames_of(i, prompt):
+                ids[i] = []
+                _STREAM_IDS.set(ids[i])
+                msg = create_generate_request(TINYLLAMA, prompt,
+                                              max_tokens=1024)
+                msg.trace_id = f"migrate-{i}"
+                streams[i] = [wire.decode_payload(f[4:]) async for f in
+                              engine.handle_streaming_frames(msg, "worker")]
+
+            tasks = [asyncio.create_task(frames_of(i, p))
+                     for i, p in enumerate(prompts)]
+            while len(ids) < 3 or min(len(v) for v in ids.values()) < 4:
+                await asyncio.sleep(0.005)
+            moved = await engine.migrate()
+            await asyncio.wait_for(asyncio.gather(*tasks), 60)
+            for i, prompt in enumerate(prompts):
+                last = streams[i][-1]
+                mf = last.migrate_frame
+                want_keys = r.chain_keys_for_prompt(tok.encode(prompt))
+                if not (last.WhichOneof("message") == "migrate_frame"
+                        and mf.delivered_tokens == len(ids[i])
+                        and list(mf.chain_hashes) == want_keys
+                        and len(want_keys) >= 2
+                        and mf.page_size == r.page_size
+                        and last.trace_id == f"migrate-{i}"):
+                    raise AssertionError(f"wire: stream {i} ended {last} "
+                                         f"after {len(ids[i])} tokens")
+            idle = (all(s is None for s in engine.scheduler.slots)
+                    and not r._slot_pages
+                    and len(set(r._free_pages) | set(r._page_key))
+                    == r.total_pages)
+            refused, _ = await _ipc_json(sock, {"type": "prompt",
+                                                "text": "x"})
+            if not (moved == 3 and idle and refused == {
+                    "type": "error",
+                    "error": "worker is draining for shutdown"}):
+                raise AssertionError(f"wire: migrate moved {moved}, idle "
+                                     f"{idle}, then {refused}")
+            out["migrate"] = {
+                "moved": moved,
+                "delivered_tokens": [len(ids[i]) for i in range(3)],
+                "chain_hashes": [len(streams[i][-1].migrate_frame
+                                     .chain_hashes) for i in range(3)],
+                "free_pages": [free0, len(r._free_pages)],
+                "cached_pages": [cached0, len(r._page_key)],
+                "total_pages": r.total_pages}
+            out["launches"] = _launches()
+            out["embed_max_abs_err"] = embed_err
+            out["greedy_ids"] = len(direct_ids)
+            out["ragged_chunks"] = engine.scheduler.ragged_chunks - chunks0
+        finally:
+            await srv.stop()
+            await engine.stop()
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="cs") as tmp:
+        if len(os.path.join(tmp, "ipc.sock")) > 100:
+            raise SystemExit(f"chip_smoke: socket path under {tmp} too long")
+        out = asyncio.run(go(tmp))
+    _expect_launches(out["launches"], {"A", "B", "C"}, "wire")
+    smi = nvidia_smi()
+    emit({"phase": "wire", "model": TINYLLAMA, "golden": golden,
+          "codec": codec, **out,
+          "card": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+    return out
+
+
 def _expect_tp_launches(launches: dict, tp: int, int8: bool,
                         phase: str, layers: int = 22) -> int:
     """Per decode step one F launch per layer (the ranks on the one card
@@ -1456,6 +1809,8 @@ def main() -> int:
     res = kernel_phase(dev)
     paged = engine_phase(dev)
     launches = {k: paged["launches"][k] for k in ("A", "B", "C")}
+    _free_card()
+    wire_phase(dev)
     _free_card()
     launches["F"] = tp_phase(dev, paged)["F"]
     _free_card()

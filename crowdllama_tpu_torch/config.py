@@ -39,6 +39,8 @@ class Configuration:
     step_token_budget: int = 0
     warmup: bool = True  # run each serving path once at engine start
     admission_pending_max: int = 0  # 0 = no load-shedding threshold
+    # Directory ``capture_profile`` writes its traces under; "" = off.
+    profile_dir: str = ""
 
     def __post_init__(self) -> None:
         self.kv_layout = (self.kv_layout or "contiguous").strip().lower()

@@ -221,6 +221,14 @@ class PagedModelRunner(ModelRunner):
             keys.append(h.digest())
         return keys
 
+    def chain_keys_for_prompt(self, prompt_ids: list[int]) -> list[bytes]:
+        """Chain hashes of the prompt's pages a successor could take over
+        (a MigrateFrame carries them; equal to the JAX runner's for the
+        same ids and page size): the full pages before the last token, as
+        prefill matching caps them (one token must remain for logits)."""
+        return self._chain_keys(prompt_ids,
+                                max(0, (len(prompt_ids) - 1) // self.page_size))
+
     def _match_prefix(self, keys: list[bytes]) -> list[int]:
         """Leading cached pages for ``keys`` (LRU-touched as they match)."""
         matched: list[int] = []

@@ -24,8 +24,15 @@ the slots it was dispatched for, and emission checks slot identity against
 it, so a slot retired (or retired-and-readmitted) between dispatch and
 readback never receives another chunk's tokens.
 
-Not ported yet: speculation, megastep, the autopilot, drain/migrate, the
-dispatch watchdog, KV import and the fault-injection hooks.
+Graceful shutdown: ``drain`` rejects new submissions and waits for the
+work in flight; ``migrate`` retires every request (active slots, the
+chunked admission in progress, deferred and pending requests) with the
+terminal reason ``"migrate"`` at the loop's next safe point, between
+dispatches, so the gateway re-routes each stream.  Released slots return
+their pages through the runner's prefix cache.
+
+Not ported yet: speculation, megastep, the autopilot, the dispatch
+watchdog, KV import and the fault-injection hooks.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import functools
 import logging
 import random
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -76,12 +84,15 @@ class GenRequest:
     cancelled: bool = False  # client went away: drop at admission / free slot
     finished: bool = False
 
-    def finish(self, reason: str) -> None:
+    def finish(self, reason: str) -> bool:
         """Claim this request's terminal: exactly one ``(DONE, reason)`` is
-        ever queued, whichever path gets here first."""
-        if not self.finished:
-            self.finished = True
-            self.out.put_nowait((_DONE, reason))
+        ever queued, whichever path gets here first.  True when this call
+        claimed it."""
+        if self.finished:
+            return False
+        self.finished = True
+        self.out.put_nowait((_DONE, reason))
+        return True
 
 
 @dataclass
@@ -127,6 +138,14 @@ class Scheduler:
         self.throughput_ema = 0.0  # tokens/sec across the batch
         self.ragged_chunks = 0  # prefill chunks dispatched unified
         self.prefill_chunks = 0  # legacy chunked-admission chunks run
+        self._draining = False  # submissions are refused
+        # Set by migrate(): the loop retires everything at its next safe
+        # point and resolves the future with the count moved.
+        self._migrating: asyncio.Future | None = None
+        self._embeds = 0  # embedding forwards in flight (drain waits)
+        # Submitted requests whose output queue a consumer may still be
+        # reading (drain waits for them to empty).
+        self._tracked: weakref.WeakSet[GenRequest] = weakref.WeakSet()
 
     # ---------------------------------------------------------------- public
 
@@ -143,6 +162,7 @@ class Scheduler:
                                   thread_name_prefix="torch-dispatch")
 
     def start(self) -> None:
+        self._draining = False
         if self._exec is None:
             self._exec = self._new_executor()
         if self.state is None:
@@ -163,6 +183,10 @@ class Scheduler:
             self._exec = None
 
     async def submit(self, req: GenRequest) -> None:
+        if self._draining:
+            # Shutting down: reject so the gateway fails over to another
+            # worker instead of queueing work this one will not serve.
+            raise RuntimeError("worker is draining for shutdown")
         if len(req.prompt_ids) >= self.runner.max_seq:
             raise ValueError(
                 f"prompt of {len(req.prompt_ids)} tokens exceeds max context "
@@ -175,6 +199,7 @@ class Scheduler:
                     f"overloaded: {depth} requests pending (admission "
                     f"threshold {self.admission_pending_max})")
         await self.pending.put(req)
+        self._tracked.add(req)
         self._wake.set()
 
     def cancel(self, req: GenRequest) -> None:
@@ -183,6 +208,59 @@ class Scheduler:
         loop touches device state)."""
         req.cancelled = True
         self._wake.set()
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    async def drain(self, timeout: float = 30.0) -> bool:
+        """Refuse new submissions and wait for every admitted and pending
+        request to finish; True when drained, False on timeout.  Covers
+        the popped-but-not-placed window (``_admitting``), the last
+        dispatched chunk, embedding forwards, and output queues a consumer
+        is still reading (those of cancelled requests have none)."""
+        self._draining = True
+        deadline = time.monotonic() + timeout
+        while True:
+            if (all(s is None for s in self.slots) and self.pending.empty()
+                    and self._admitting == 0 and not self._deferred
+                    and self._inflight is None and self._embeds == 0
+                    and all(r.out.empty() or r.cancelled
+                            for r in list(self._tracked))):
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            await asyncio.sleep(0.1)
+
+    async def migrate(self) -> int:
+        """Refuse new submissions and retire every request (active slots,
+        the chunked admission in progress, deferred and pending requests)
+        with ``"migrate"`` at the loop's next safe point; returns how many
+        were moved.  A slot whose last token was already emitted keeps its
+        own terminal (it was served, not moved)."""
+        self._draining = True
+        if self._task is None:
+            return await self._retire_all("migrate")
+        if self._migrating is None:
+            self._migrating = asyncio.get_running_loop().create_future()
+            self._wake.set()
+        return await asyncio.shield(self._migrating)
+
+    async def embed(self, prompts: list[list[int]],
+                    batch: int) -> list[list[float]]:
+        """The runner's embeddings of ``prompts`` on the dispatch thread,
+        one submission per ``batch`` prompts so decode chunks interleave
+        with a bulk embed; ``drain`` waits for it."""
+        out: list[list[float]] = []
+        self._embeds += 1
+        try:
+            for i in range(0, len(prompts), batch):
+                vecs = await self._run(self.runner.embed_prompts,
+                                       prompts[i:i + batch])
+                out.extend(vecs.tolist())
+        finally:
+            self._embeds -= 1
+        return out
 
     @property
     def load(self) -> float:
@@ -286,6 +364,33 @@ class Scheduler:
             self._deferred.popleft().finish(reason)
         while not self.pending.empty():
             self.pending.get_nowait().finish(reason)
+        if self._migrating is not None:
+            # Everything was failed above: nothing left to move.
+            fut, self._migrating = self._migrating, None
+            if not fut.done():
+                fut.set_result(0)
+
+    async def _retire_all(self, reason: str) -> int:
+        """Finish every request with ``reason`` (between dispatches): the
+        chunked admission in progress (its pages freed), active slots
+        (released), deferred and pending requests.  Returns how many this
+        call finished."""
+        moved = 0
+        if self._chunking is not None:
+            req = self._chunking[0]
+            await self._abort_chunking()
+            moved += req.finish(reason)
+        for i, info in enumerate(self.slots):
+            if isinstance(info, _SlotInfo):
+                self.slots[i] = None
+                self.state = await self._run(self.runner.release, self.state,
+                                             i)
+                moved += info.req.finish(reason)
+        while self._deferred:
+            moved += self._deferred.popleft().finish(reason)
+        while not self.pending.empty():
+            moved += self.pending.get_nowait().finish(reason)
+        return moved
 
     async def _loop(self) -> None:
         while True:
@@ -312,7 +417,7 @@ class Scheduler:
     async def _loop_once(self) -> None:
         if (all(s is None for s in self.slots) and self.pending.empty()
                 and self._inflight is None and self._chunking is None
-                and not self._deferred):
+                and not self._deferred and self._migrating is None):
             self._wake.clear()
             await self._wake.wait()
 
@@ -324,6 +429,16 @@ class Scheduler:
                                              i)
         if self._chunking is not None and self._chunking[0].cancelled:
             await self._abort_chunking()
+
+        # migrate(): retire everything at this safe point.  Slots clear
+        # before the in-flight chunk is read back, so its tokens are
+        # dropped by the identity check (the successor replays decode).
+        if self._migrating is not None:
+            fut = self._migrating
+            moved = await self._retire_all("migrate")
+            self._migrating = None
+            if not fut.done():
+                fut.set_result(moved)
 
         # Dispatch the NEXT chunk before reading back the previous one, so
         # the readback + emit below overlap this chunk's compute.
