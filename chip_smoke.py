@@ -60,6 +60,22 @@ Phases, each printing one JSON line:
    under 3 streams (MigrateFrames with their delivered tokens and chain
    hashes, the pool idle, new requests refused).  A, B and C launch, no
    other; the host us to encode and decode one frame;
+   swarm (on the wire phase's engine, before its migrate, its own line):
+   the worker's swarm plane, every module the port's own — a DHT
+   bootstrap node, a worker ``Peer`` over the engine, a client host with
+   its own key on loopback.  The ``crypto_golden`` vectors (X25519,
+   Ed25519, ChaCha20-Poly1305, HKDF: the bytes ``cryptography`` gives)
+   on this Python; the client discovers the worker through the DHT (its
+   metadata names the card as ``gpu_model`` and the model), times the
+   signed handshake, then sends the greedy request (streamed) and the
+   seeded request over one pooled secure stream: both token for token a
+   direct ``generate()``, the second with no new handshake.  Kernels A
+   and B must launch in the phase; host ms of each request beside the
+   direct ``generate()``, and us to seal one streamed frame;
+   cli: ``python -m crowdllama_tpu_torch.cli.main start --worker-mode``
+   (tinyllama-1.1b, random weights) in its own process joins this
+   process's DHT node, answers one request over a secure stream from a
+   worker whose metadata names the card, and exits 0 on SIGTERM;
 7. engine_int8: the same engine with ``kv_dtype="int8"`` (int8 pools)
    and the same traffic plus a seeded sampled stream (temperature 0.8,
    seed 1234) that must repeat token for token when sent again; kernels
@@ -786,6 +802,11 @@ def _launches() -> dict:
     return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
+def _set_launches(counts: dict) -> None:
+    for k, (fn, attr) in _counters().items():
+        setattr(fn, attr, counts[k])
+
+
 async def serve(engine, streams: dict, max_tokens: int,
                 again: str | None = None) -> dict:
     """Send ``streams`` (name -> (prompt, generate kwargs)) at once, then
@@ -1250,6 +1271,169 @@ async def _ipc_json(sock: str, obj: dict | bytes):
         writer.close()
 
 
+SWARM_HANDSHAKES = 5
+SWARM_FRAMES = 200
+
+
+async def _discover(host, dht, peer_id: str, timeout: float = 30.0):
+    """The worker's Resource as DHT discovery finds it (the namespace
+    key's providers, then each one's metadata)."""
+    from crowdllama_tpu_torch.net.discovery import discover_peers
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        for r in await discover_peers(host, dht):
+            if r.peer_id == peer_id:
+                return r
+        await asyncio.sleep(0.2)
+    raise AssertionError(f"swarm: the client did not discover {peer_id[:8]}")
+
+
+async def swarm_checks(engine, log: "_StreamLog") -> dict:
+    """The worker's swarm plane on the card, all port modules: a DHT
+    bootstrap node, a worker ``Peer`` over ``engine`` and a client host
+    with its own key, on loopback.  The client finds the worker through
+    the DHT, reads its metadata (the card's name as ``gpu_model``, the
+    model), times the signed handshake, then sends the PB greedy request
+    (streamed) and the seeded request of the wire phase over one secure
+    inference stream, borrowed from a ``StreamPool`` twice (the second
+    request reuses it: no new handshake).  Both replies must be token for
+    token a direct ``generate()`` of the same request.  Also the
+    ``crypto_golden`` vectors on this machine's Python, and host us to
+    seal one streamed frame.  Each request runs directly before and after
+    it goes through the peer, so its time stands between two direct
+    readings."""
+    from crowdllama_tpu_torch.config import Configuration
+    from crowdllama_tpu_torch.core import wire
+    from crowdllama_tpu_torch.core.messages import (
+        create_generate_request,
+        genresp_frame_bytes,
+    )
+    from crowdllama_tpu_torch.core.protocol import INFERENCE_PROTOCOL
+    from crowdllama_tpu_torch.net import crypto_golden, secure
+    from crowdllama_tpu_torch.net.discovery import new_host_and_dht
+    from crowdllama_tpu_torch.net.host import StreamPool
+    from crowdllama_tpu_torch.peer.peer import Peer
+    from crowdllama_tpu_torch.utils.crypto import (
+        ChaCha20Poly1305,
+        Ed25519PrivateKey,
+    )
+
+    t0 = time.perf_counter()
+    out: dict = {"crypto_golden": crypto_golden.check(),
+                 "crypto_golden_s": time.perf_counter() - t0}
+    frame = genresp_frame_bytes(TINYLLAMA, " tok", worker_id="w" * 40,
+                                done=False, trace_id="t" * 16)
+    aead = ChaCha20Poly1305(bytes(32))
+    t0 = time.perf_counter()
+    for i in range(SWARM_FRAMES):
+        aead.encrypt(i.to_bytes(12, "big"), frame, None)
+    out["seal_us_per_frame"] = ((time.perf_counter() - t0) * 1e6
+                                / SWARM_FRAMES)
+    out["frame_bytes"] = len(frame)
+
+    greedy_prompt, (seeded_prompt, seeded_kw) = SHORT[2], SAMPLED
+
+    async def direct(prompt: str, kw: dict) -> tuple:
+        """A direct ``generate()``: (text, token ids, ms)."""
+        text = ""
+        t0 = time.perf_counter()
+        async for chunk in engine.generate(prompt, max_tokens=WIRE_TOKENS,
+                                           **kw):
+            text += chunk.text
+        return text, _ids(log.streams[-1]), (time.perf_counter() - t0) * 1e3
+
+    boot_host, _ = await new_host_and_dht(Ed25519PrivateKey.generate(),
+                                          listen_host="127.0.0.1")
+    addr = f"127.0.0.1:{boot_host.listen_port}"
+    peer = Peer(Ed25519PrivateKey.generate(), Configuration(
+        listen_host="127.0.0.1", bootstrap_peers=[addr], model=TINYLLAMA),
+        engine)
+    client, client_dht = await new_host_and_dht(
+        Ed25519PrivateKey.generate(), listen_host="127.0.0.1")
+    try:
+        await peer.start()
+        if await client_dht.bootstrap([addr]) != 1:
+            raise AssertionError("swarm: the client could not bootstrap")
+        t0 = time.perf_counter()
+        res = await _discover(client, client_dht, peer.peer_id)
+        out["discover_ms"] = (time.perf_counter() - t0) * 1e3
+        name = torch.cuda.get_device_name(0)
+        if not (res.gpu_model == name and res.supported_models == [TINYLLAMA]
+                and res.worker_mode and res.vram_gb > 0):
+            raise AssertionError(f"swarm: metadata {res}")
+        out["metadata"] = {k: getattr(res, k) for k in (
+            "gpu_model", "vram_gb", "accelerator", "supported_models",
+            "max_context_length", "version")}
+        contact = await client_dht.find_peer(peer.peer_id)
+        hs = []
+        for _ in range(SWARM_HANDSHAKES):
+            t0 = time.perf_counter()
+            s = await client.new_stream(contact, INFERENCE_PROTOCOL)
+            hs.append((time.perf_counter() - t0) * 1e3)
+            s.close()
+        out["handshake_ms"] = hs
+
+        pool = StreamPool()
+        streams_out = client.stats["streams_out"]
+        replies: dict = {}
+        for name, prompt, kw, stream in (
+                ("greedy", greedy_prompt, {}, True),
+                ("seeded", seeded_prompt, seeded_kw, False)):
+            # Direct, through the peer, direct again: the host's spread
+            # between requests is wider than the peer's cost.
+            before = await direct(prompt, kw)
+            s = pool.get(contact.peer_id) or await client.new_stream(
+                contact, INFERENCE_PROTOCOL)
+            msg = create_generate_request(TINYLLAMA, prompt, stream=stream,
+                                          max_tokens=WIRE_TOKENS, **kw)
+            msg.trace_id = f"swarm-{name}"
+            ns0, ops0 = secure.aead_stats()
+            t0 = time.perf_counter()
+            await wire.write_length_prefixed_pb(s.writer, msg)
+            frames = []
+            while True:
+                m = await wire.read_length_prefixed_pb(s.reader, timeout=120)
+                frames.append(m.generate_response)
+                if m.generate_response.done:
+                    break
+            ms = (time.perf_counter() - t0) * 1e3
+            ns1, ops1 = secure.aead_stats()
+            pool.put(contact.peer_id, s)
+            ids = _ids(log.streams[-1])
+            after = await direct(prompt, kw)
+            last = frames[-1]
+            replies[name] = {
+                "ms": ms, "direct_ms": [before[2], after[2]],
+                "frames": len(frames), "completion_tokens":
+                last.completion_tokens,
+                "aead_ops": ops1 - ops0,
+                "aead_us_per_op": (ns1 - ns0) / 1e3 / max(1, ops1 - ops0)}
+            text = "".join(f.response for f in frames)
+            if not (text == before[0] == after[0]
+                    and ids == before[1] == after[1]
+                    and last.completion_tokens == WIRE_TOKENS
+                    and last.worker_id == peer.peer_id):
+                raise AssertionError(
+                    f"swarm: the {name} reply through the peer differs from "
+                    f"generate(): {text!r} vs {before[0]!r}")
+        if not (pool.hits == 1 and pool.misses == 1
+                and client.stats["streams_out"] == streams_out + 1):
+            raise AssertionError(f"swarm: the second request did not reuse "
+                                 f"the pooled stream: {pool.hits} hits, "
+                                 f"{pool.misses} misses")
+        pool.close()
+        out["requests"] = replies
+        out["pool"] = {"hits": pool.hits, "misses": pool.misses}
+        out["worker_streams_in"] = peer.host.stats["streams_in"]
+    finally:
+        await client.close()
+        await peer.stop()
+        await boot_host.close()
+        engine.obs = engine._peer = None
+    return out
+
+
 def wire_phase(dev) -> dict:
     """The worker's request seam on the card: the port's ``IPCServer`` on a
     Unix socket over ``TorchEngine`` (tinyllama-1.1b at full width and
@@ -1398,6 +1582,14 @@ def wire_phase(dev) -> dict:
             while any(s is not None for s in engine.scheduler.slots):
                 await asyncio.sleep(0.01)
 
+            # The swarm phase on this engine, its launches counted apart.
+            wire_launches = _launches()
+            _zero_launches()
+            out["swarm"] = await swarm_checks(engine, log)
+            out["swarm"]["launches"] = _launches()
+            _set_launches({k: n + out["swarm"]["launches"][k]
+                           for k, n in wire_launches.items()})
+
             # Migrate 3 streams once each has 4 tokens.
             free0, cached0 = len(r._free_pages), len(r._page_key)
             prompts = [SHORT[0], SHORT[1], SHORT[4]]  # 2-4 pages each
@@ -1464,10 +1656,109 @@ def wire_phase(dev) -> dict:
             raise SystemExit(f"chip_smoke: socket path under {tmp} too long")
         out = asyncio.run(go(tmp))
     _expect_launches(out["launches"], {"A", "B", "C"}, "wire")
+    swarm = out.pop("swarm")
+    for k in ("A", "B"):
+        if not swarm["launches"][k]:
+            raise AssertionError(f"swarm: kernel {k} did not launch: "
+                                 f"{swarm['launches']}")
     smi = nvidia_smi()
+    card = torch.cuda.get_device_name(0)
     emit({"phase": "wire", "model": TINYLLAMA, "golden": golden,
-          "codec": codec, **out,
-          "card": torch.cuda.get_device_name(0), "nvidia_smi": smi})
+          "codec": codec, **out, "card": card, "nvidia_smi": smi})
+    emit({"phase": "swarm", "model": TINYLLAMA, **swarm, "card": card,
+          "nvidia_smi": smi})
+    return out
+
+
+CLI_TOKENS = 16
+
+
+def cli_phase(extra: tuple = ()) -> dict:
+    """The worker as its users start it, on the card: ``python -m
+    crowdllama_tpu_torch.cli.main start --worker-mode`` (tinyllama-1.1b,
+    random weights, the default config) in a process of its own, pointed
+    at a DHT bootstrap node of this process.  Once a metadata op of the
+    DHT answers for it, a client host sends one GenerateRequest over a
+    secure inference stream; the reply must be done and come from the
+    worker whose metadata names the card.  Then SIGTERM: the worker
+    drains and must exit 0.  ``extra`` adds CLI flags."""
+    import os
+    import signal
+    import tempfile
+
+    from crowdllama_tpu_torch.core import wire
+    from crowdllama_tpu_torch.core.messages import create_generate_request
+    from crowdllama_tpu_torch.core.protocol import INFERENCE_PROTOCOL
+    from crowdllama_tpu_torch.core.resource import Resource
+    from crowdllama_tpu_torch.net.discovery import new_host_and_dht
+    from crowdllama_tpu_torch.utils.crypto import Ed25519PrivateKey
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    async def go(tmp: str) -> dict:
+        boot, boot_dht = await new_host_and_dht(
+            Ed25519PrivateKey.generate(), listen_host="127.0.0.1")
+        client, client_dht = await new_host_and_dht(
+            Ed25519PrivateKey.generate(), listen_host="127.0.0.1")
+        addr = f"127.0.0.1:{boot.listen_port}"
+        err = open(os.path.join(tmp, "worker.err"), "w")
+        t0 = time.perf_counter()
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "crowdllama_tpu_torch.cli.main", "start",
+            "--worker-mode", "--model", TINYLLAMA, "--bootstrap-peers", addr,
+            "--key-path", tmp, *extra, cwd=root, stderr=err)
+        out: dict = {}
+        try:
+            res = None
+            while res is None:
+                if proc.returncode is not None or time.perf_counter() - t0 > 600:
+                    raise AssertionError(f"cli: the worker did not come up "
+                                         f"(rc {proc.returncode})")
+                for c in boot_dht.table.contacts():
+                    raw = await boot_dht.request_metadata(c)
+                    if raw:
+                        res = Resource.from_json(raw)
+                await asyncio.sleep(0.5)
+            out["up_s"] = time.perf_counter() - t0
+            out["metadata"] = {k: getattr(res, k) for k in (
+                "gpu_model", "vram_gb", "supported_models", "worker_mode")}
+            await client_dht.bootstrap([addr])
+            contact = await client_dht.find_peer(res.peer_id)
+            s = await client.new_stream(contact, INFERENCE_PROTOCOL)
+            t1 = time.perf_counter()
+            await wire.write_length_prefixed_pb(s.writer, create_generate_request(
+                TINYLLAMA, SHORT[2], max_tokens=CLI_TOKENS))
+            reply = (await wire.read_length_prefixed_pb(
+                s.reader, timeout=120)).generate_response
+            out["request_ms"] = (time.perf_counter() - t1) * 1e3
+            s.close()
+            out["reply"] = {"done": reply.done, "reason": reply.done_reason,
+                            "completion_tokens": reply.completion_tokens}
+            if not (reply.done and reply.done_reason in ("stop", "length")
+                    and 1 <= reply.completion_tokens <= CLI_TOKENS
+                    and reply.worker_id == res.peer_id
+                    and res.supported_models == [TINYLLAMA]
+                    and res.gpu_model == torch.cuda.get_device_name(0)):
+                raise AssertionError(f"cli: reply {reply} from {res}")
+            proc.send_signal(signal.SIGTERM)
+            out["rc"] = await asyncio.wait_for(proc.wait(), 120)
+        finally:
+            if proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+            err.close()
+            await client.close()
+            await boot.close()
+        if out["rc"] != 0:
+            with open(os.path.join(tmp, "worker.err")) as f:
+                raise AssertionError(f"cli: the worker exited {out['rc']}: "
+                                     f"{f.read()[-2000:]}")
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="cli") as tmp:
+        out = asyncio.run(go(tmp))
+    emit({"phase": "cli", "model": TINYLLAMA, **out,
+          "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()})
     return out
 
 
@@ -1812,6 +2103,7 @@ def main() -> int:
     _free_card()
     wire_phase(dev)
     _free_card()
+    cli_phase()
     launches["F"] = tp_phase(dev, paged)["F"]
     _free_card()
     launches["F_int8"] = tp_int8_phase(dev)["F_int8"]

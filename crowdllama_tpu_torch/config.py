@@ -1,16 +1,119 @@
-"""Engine configuration: the fields of ``crowdllama_tpu/config.py``
-``Configuration`` that the ported engine reads, under the same names and
-defaults.  ``kv_layout`` and ``kv_dtype`` are normalized and checked as
-the JAX package checks them; which combinations serve is
-``engine/plan.py``'s decision."""
+"""Node and engine configuration.
+
+Counterpart of ``crowdllama_tpu/config.py``: ``Intervals`` (every
+background cadence, compressed in test mode) and the fields of
+``Configuration`` that the port's engine and worker read, under the same
+names, defaults and ``CROWDLLAMA_TPU_*`` environment variables, layered
+defaults -> environment -> CLI flags.  ``add_flags`` registers the subset
+of the JAX CLI's flags the port serves, with the same flag names; flags
+whose values the serving plan (``engine/plan.py``) refuses stay refused
+there.  The one new flag is ``--device {cuda,cpu}`` (default ``cuda``):
+entry points run on the card unless the caller asks for the CPU.
+"""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import argparse
+import os
+from dataclasses import dataclass, field, fields
+
+
+def is_test_mode() -> bool:
+    return os.environ.get("CROWDLLAMA_TPU_TEST_MODE", "") == "1"
+
+
+@dataclass
+class Intervals:
+    """Every background cadence in one place, test-mode aware: metadata
+    publish 5 s, advertise 1 s, local metadata refresh 30 s, discovery
+    10 s, health check 20 s, stale 60 s, quarantine 600 s."""
+
+    discovery: float = 10.0
+    advertise: float = 1.0
+    metadata_publish: float = 5.0
+    metadata_refresh: float = 30.0
+    health_check: float = 20.0
+    stale_after: float = 60.0
+    cleanup: float = 20.0
+    quarantine: float = 600.0
+    metadata_max_age: float = 3600.0
+    metadata_timeout: float = 5.0
+    stream_read_timeout: float = 5.0
+    backoff_base: float = 10.0
+    max_failed_attempts: int = 3
+    dht_provider_check: float = 60.0
+    dht_bucket_refresh: float = 600.0
+    relay_reprobe: float = 60.0
+    # Minimum age before the advertise/publish tickers re-provide their
+    # DHT records (membership or own-contact changes re-provide after at
+    # most reprovide / 20; the provider TTL is 30 min).
+    reprovide: float = 120.0
+
+    @classmethod
+    def default(cls) -> "Intervals":
+        if is_test_mode():
+            return cls(
+                discovery=2.0,
+                advertise=0.5,
+                metadata_publish=1.0,
+                metadata_refresh=5.0,
+                health_check=5.0,
+                stale_after=30.0,
+                cleanup=5.0,
+                quarantine=30.0,
+                backoff_base=0.5,
+                dht_provider_check=2.0,
+                dht_bucket_refresh=5.0,
+                relay_reprobe=2.0,
+                reprovide=10.0,
+            )
+        return cls()
+
+
+def _norm_quantize(value: str) -> str:
+    """Normalize quantize spellings; reject unknown modes loudly."""
+    v = (value or "").strip().lower()
+    if v in ("", "none", "off", "0", "false"):
+        return ""
+    if v in ("int8", "int4"):
+        return v
+    raise ValueError(
+        f"unknown quantize mode {value!r} (want '', 'int8' or 'int4')")
+
+
+def _flag(value: str) -> bool:
+    return value in ("1", "true")
+
+
+def _csv(value: str) -> list[str]:
+    return [a.strip() for a in value.split(",") if a.strip()]
 
 
 @dataclass
 class Configuration:
+    # ---- node
+    verbose: bool = False
+    key_path: str = ""
+    bootstrap_peers: list[str] = field(default_factory=list)  # "host:port"
+    listen_host: str = "0.0.0.0"
+    listen_port: int = 0  # 0 = ephemeral
+    ipc_socket: str = ""
+    engine_backend: str = "jax"  # the real engine ("jax" names it) | "fake"
+    # NAT traversal: the port dials direct only; "always" (relay every
+    # stream) is refused by the peer until the relay is ported.
+    relay_mode: str = "auto"
+    drain_timeout: float = 30.0  # graceful-shutdown grace for in-flight reqs
+    kv_ship_timeout: float = 5.0  # cap on serving one KvFetchRequest
+    # Observability plane: span ring capacity, age-based span eviction
+    # (0 = capacity only), trace_id exemplars on the latency histograms.
+    trace_buffer: int = 64
+    trace_ttl: float = 0.0
+    metrics_exemplars: bool = False
+    # Where the engine serves: "cuda" (the card; refused without one) or
+    # "cpu" (asked for explicitly).
+    device: str = "cuda"
+
+    # ---- engine
     model: str = "tinyllama-1.1b"
     model_path: str = ""  # empty = random-init weights (only mode ported)
     max_batch_slots: int = 8
@@ -42,6 +145,8 @@ class Configuration:
     # Directory ``capture_profile`` writes its traces under; "" = off.
     profile_dir: str = ""
 
+    intervals: Intervals = field(default_factory=Intervals.default)
+
     def __post_init__(self) -> None:
         self.kv_layout = (self.kv_layout or "contiguous").strip().lower()
         if self.kv_layout not in ("contiguous", "paged"):
@@ -51,3 +156,180 @@ class Configuration:
         if self.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"unknown kv dtype {self.kv_dtype!r} "
                              "(want 'bf16' or 'int8')")
+
+    # Field -> environment variable, as the JAX package names them.
+    _ENV = {
+        "key_path": "CROWDLLAMA_TPU_KEY_PATH",
+        "bootstrap_peers": "CROWDLLAMA_TPU_BOOTSTRAP_PEERS",
+        "listen_host": "CROWDLLAMA_TPU_LISTEN_HOST",
+        "listen_port": "CROWDLLAMA_TPU_LISTEN_PORT",
+        "ipc_socket": "CROWDLLAMA_TPU_SOCKET",
+        "engine_backend": "CROWDLLAMA_TPU_ENGINE",
+        "relay_mode": "CROWDLLAMA_TPU_RELAY_MODE",
+        "drain_timeout": "CROWDLLAMA_TPU_DRAIN_TIMEOUT",
+        "kv_ship_timeout": "CROWDLLAMA_TPU_KV_SHIP_TIMEOUT",
+        "trace_buffer": "CROWDLLAMA_TPU_TRACE_BUFFER",
+        "trace_ttl": "CROWDLLAMA_TPU_TRACE_TTL",
+        "metrics_exemplars": "CROWDLLAMA_TPU_METRICS_EXEMPLARS",
+        "model": "CROWDLLAMA_TPU_MODEL",
+        "model_path": "CROWDLLAMA_TPU_MODEL_PATH",
+        "max_batch_slots": "CROWDLLAMA_TPU_MAX_BATCH_SLOTS",
+        "max_context_length": "CROWDLLAMA_TPU_MAX_CONTEXT_LENGTH",
+        "decode_chunk": "CROWDLLAMA_TPU_DECODE_CHUNK",
+        "kv_layout": "CROWDLLAMA_TPU_KV_LAYOUT",
+        "kv_dtype": "CROWDLLAMA_TPU_KV_DTYPE",
+        "quantize": "CROWDLLAMA_TPU_QUANTIZE",
+        "spec_decode": "CROWDLLAMA_TPU_SPEC_DECODE",
+        "mesh_shape": "CROWDLLAMA_TPU_MESH",
+        "kv_page_size": "CROWDLLAMA_TPU_KV_PAGE_SIZE",
+        "kv_pool_tokens": "CROWDLLAMA_TPU_KV_POOL_TOKENS",
+        "kv_prefix_cache": "CROWDLLAMA_TPU_KV_PREFIX_CACHE",
+        "ragged_prefill": "CROWDLLAMA_TPU_RAGGED_PREFILL",
+        "step_token_budget": "CROWDLLAMA_TPU_STEP_TOKEN_BUDGET",
+        "warmup": "CROWDLLAMA_TPU_WARMUP",
+        "admission_pending_max": "CROWDLLAMA_TPU_ADMISSION_PENDING_MAX",
+        "profile_dir": "CROWDLLAMA_TPU_PROFILE_DIR",
+    }
+
+    @classmethod
+    def from_environment(cls, **overrides) -> "Configuration":
+        """Defaults <- environment <- explicit overrides (``None`` values
+        are skipped), then the JAX package's checks."""
+        cfg = cls()
+        env = os.environ
+        cfg.verbose = env.get("CROWDLLAMA_TPU_VERBOSE", "") in ("1", "true")
+        types = {f.name: f.type for f in fields(cls)}
+        for name, var in cls._ENV.items():
+            raw = env.get(var)
+            if not raw:
+                continue
+            kind = types[name]
+            if kind == "bool":
+                value = _flag(raw)
+            elif kind == "list[str]":
+                value = _csv(raw)
+            elif kind == "int":
+                value = int(raw)
+            elif kind == "float":
+                value = float(raw)
+            else:
+                value = raw
+            setattr(cfg, name, value)
+        for k, v in overrides.items():
+            if v is not None:
+                setattr(cfg, k, v)
+        cfg.__post_init__()
+        cfg.quantize = _norm_quantize(cfg.quantize)
+        cfg.spec_decode = (cfg.spec_decode or "").strip().lower()
+        if cfg.spec_decode not in ("", "ngram", "draft"):
+            raise ValueError(f"unknown spec_decode {cfg.spec_decode!r} "
+                             "(want '', 'ngram' or 'draft')")
+        cfg.relay_mode = (cfg.relay_mode or "auto").strip().lower()
+        if cfg.relay_mode not in ("auto", "always", "off"):
+            raise ValueError(f"unknown relay_mode {cfg.relay_mode!r} "
+                             "(want 'auto', 'always' or 'off')")
+        cfg.device = (cfg.device or "cuda").strip().lower()
+        if cfg.device not in ("cuda", "cpu"):
+            raise ValueError(f"unknown device {cfg.device!r} "
+                             "(want 'cuda' or 'cpu')")
+        for name, low, strict in (
+                ("kv_page_size", 0, True), ("kv_pool_tokens", 0, False),
+                ("trace_buffer", 1, False), ("trace_ttl", 0, False),
+                ("drain_timeout", 0, True), ("kv_ship_timeout", 0, True),
+                ("admission_pending_max", 0, False)):
+            v = getattr(cfg, name)
+            if v < low or (strict and v == low):
+                raise ValueError(f"{name} must be {'>' if strict else '>='} "
+                                 f"{low}, got {v}")
+        return cfg
+
+    @staticmethod
+    def add_flags(parser: argparse.ArgumentParser) -> None:
+        """Register the CLI flags the port serves (the JAX CLI's names)."""
+        parser.add_argument("--verbose", action="store_true", default=None)
+        parser.add_argument("--key-path", dest="key_path")
+        parser.add_argument(
+            "--bootstrap-peers", dest="bootstrap_peers",
+            help="comma-separated host:port bootstrap addresses")
+        parser.add_argument("--listen-port", dest="listen_port", type=int)
+        parser.add_argument("--model", dest="model")
+        parser.add_argument("--model-path", dest="model_path")
+        parser.add_argument("--engine", dest="engine_backend")
+        parser.add_argument("--mesh", dest="mesh_shape")
+        parser.add_argument("--quantize", dest="quantize",
+                            choices=("", "int8", "int4"),
+                            help="weight-only quantization for the engine")
+        parser.add_argument("--kv-layout", dest="kv_layout",
+                            choices=("contiguous", "paged"),
+                            help="KV cache layout (paged: shared page pool)")
+        parser.add_argument("--kv-page-size", dest="kv_page_size", type=int,
+                            help="paged KV page size in tokens")
+        parser.add_argument("--kv-pool-tokens", dest="kv_pool_tokens",
+                            type=int,
+                            help="paged pool size in tokens (0 = no "
+                                 "overcommit)")
+        parser.add_argument("--kv-dtype", dest="kv_dtype",
+                            choices=("bf16", "int8"),
+                            help="KV cache dtype (int8: quantized cache, "
+                                 "contiguous or paged layout)")
+        parser.add_argument("--relay-mode", dest="relay_mode",
+                            choices=("auto", "always", "off"),
+                            help="NAT relay through the bootstrap node "
+                                 "(the port dials direct only)")
+        parser.add_argument("--spec-decode", dest="spec_decode",
+                            choices=("", "ngram", "draft"),
+                            help="speculative decoding")
+        parser.add_argument("--step-token-budget", dest="step_token_budget",
+                            type=int,
+                            help="unified ragged batch: per-step token "
+                                 "budget (decode slots + one prefill "
+                                 "chunk; 0 = auto)")
+        parser.add_argument("--no-ragged-prefill", dest="ragged_prefill",
+                            action="store_const", const=False, default=None,
+                            help="disable unified ragged prefill: long "
+                                 "prompts use legacy chunked prefill")
+        parser.add_argument("--profile-dir", dest="profile_dir",
+                            help="enable torch.profiler captures into "
+                                 "this dir")
+        parser.add_argument("--trace-buffer", dest="trace_buffer", type=int,
+                            help="span ring-buffer capacity (default 64)")
+        parser.add_argument("--trace-ttl", dest="trace_ttl", type=float,
+                            help="evict trace-ring spans older than this "
+                                 "many seconds (0 = capacity-only)")
+        parser.add_argument("--metrics-exemplars", dest="metrics_exemplars",
+                            action="store_const", const=True, default=None,
+                            help="attach trace_id exemplars to latency "
+                                 "histogram buckets")
+        parser.add_argument("--admission-pending-max",
+                            dest="admission_pending_max", type=int,
+                            help="worker: scheduler pending depth that "
+                                 "rejects new work as overloaded (0 = off)")
+        parser.add_argument("--kv-ship-timeout", dest="kv_ship_timeout",
+                            type=float,
+                            help="seconds a KV fetch may take before it "
+                                 "is refused")
+        parser.add_argument("--drain-timeout", dest="drain_timeout",
+                            type=float,
+                            help="graceful-drain window in seconds")
+        parser.add_argument("--device", dest="device",
+                            choices=("cuda", "cpu"),
+                            help="where the engine serves (default cuda; "
+                                 "without a card the worker refuses to "
+                                 "start unless cpu is asked for)")
+
+    _FLAG_FIELDS = (
+        "verbose", "key_path", "listen_port", "model", "model_path",
+        "engine_backend", "mesh_shape", "quantize", "kv_layout",
+        "kv_page_size", "kv_pool_tokens", "kv_dtype", "relay_mode",
+        "spec_decode", "step_token_budget", "ragged_prefill", "profile_dir",
+        "trace_buffer", "trace_ttl", "metrics_exemplars",
+        "admission_pending_max", "kv_ship_timeout", "drain_timeout",
+        "device")
+
+    @classmethod
+    def from_flags(cls, args: argparse.Namespace) -> "Configuration":
+        overrides = {k: getattr(args, k, None) for k in cls._FLAG_FIELDS}
+        bp = getattr(args, "bootstrap_peers", None)
+        if isinstance(bp, str):
+            overrides["bootstrap_peers"] = _csv(bp)
+        return cls.from_environment(**overrides)

@@ -4,9 +4,9 @@ Counterpart of ``crowdllama_tpu/core/wire.py`` (its framing, socket
 helpers and frame scanner): a frame is a 4-byte big-endian length followed
 by an encoded ``llama.v1.BaseMessage`` (``core/llama_v1.py``, no
 protobuf), with a 10 MB read cap.  Helpers for asyncio streams (the
-serving plane is asyncio) and for blocking sockets (simple clients).  The
-JAX package's native envelope encoder and its ``FrameBatcher`` are not
-ported.
+serving plane is asyncio) and for blocking sockets (simple clients), and
+``FrameBatcher``, which coalesces a stream's frames per event-loop tick.
+The JAX package's native envelope encoder is not ported.
 """
 
 from __future__ import annotations
@@ -99,6 +99,77 @@ def _recvexact(sock: socket.socket, n: int) -> bytes:
             raise WireError("stream closed mid-frame")
         buf.extend(chunk)
     return bytes(buf)
+
+
+class FrameBatcher:
+    """Coalesces the frame writes issued within one event-loop tick into
+    one underlying ``write``: over a ``SecureWriter`` a batch of small
+    frames becomes one sealed AEAD frame instead of one each.  The flush
+    runs through ``loop.call_soon``, as soon as the producer suspends.
+
+    The stream's first frame is written inline: the time to the first
+    token must not depend on the producer ever suspending (a burst
+    producer may emit a whole stream without yielding to the loop).
+    ``drain()`` does not force a flush; it raises a captured write error
+    and applies the writer's backpressure.  Pending bytes are bounded by
+    ``max_pending`` (an oversized batch flushes inline).  Call ``flush()``
+    before closing the stream.
+    """
+
+    def __init__(self, writer, max_pending: int = 64 * 1024):
+        self._w = writer
+        self._max_pending = max_pending
+        self._pending = bytearray()
+        self._scheduled = False
+        self._first = True
+        self._error: BaseException | None = None
+        self.batched_writes = 0   # frames accepted
+        self.flushes = 0          # underlying write calls
+
+    def write(self, frame: bytes) -> None:
+        if self._error:
+            return  # surfaced on the next drain()/flush()
+        self._pending += frame
+        self.batched_writes += 1
+        if self._first:
+            self._first = False
+            self._flush_now()
+        elif len(self._pending) >= self._max_pending:
+            self._flush_now()
+        elif not self._scheduled:
+            self._scheduled = True
+            asyncio.get_running_loop().call_soon(self._tick)
+
+    def _tick(self) -> None:
+        self._scheduled = False
+        self._flush_now()
+
+    def _flush_now(self) -> None:
+        if not self._pending or self._error:
+            return
+        data = bytes(self._pending)
+        self._pending.clear()
+        try:
+            self._w.write(data)
+            self.flushes += 1
+        except Exception as e:  # surfaced on the next drain()/flush()
+            self._error = e
+
+    def _raise_pending_error(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    async def drain(self) -> None:
+        self._raise_pending_error()
+        await self._w.drain()
+        self._raise_pending_error()
+
+    async def flush(self) -> None:
+        """Force out anything still pending (end of stream)."""
+        self._flush_now()
+        self._raise_pending_error()
+        await self._w.drain()
 
 
 def scan_frames(buf: bytes | bytearray | memoryview

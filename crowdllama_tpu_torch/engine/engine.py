@@ -8,9 +8,12 @@ above it speaks (``handle``: one llama.v1 ``BaseMessage`` in, one out;
 (the runner the serving plan names, paged or contiguous, behind the
 continuous-batching scheduler, streaming text chunks from ``generate``;
 ``embed``, ``drain``, ``migrate``, ``capture_profile``) and
-``FakeEngine``, the echo engine of consumer nodes and tests.  Not ported:
-KV shipping (``kv_donor``), the remote-draft ``VerifyResult`` branch, the
-fault-injection sites and the obs plane.
+``FakeEngine``, the echo engine of consumer nodes and tests.  The seams
+record the obs plane's spans and histograms (``_obs_generate``, into the
+``NodeObs`` a ``Peer`` hands to ``engine.obs``) and carry the chaos sites
+of ``testing/faults.py`` (``engine.request``, ``engine.stream_chunk``).
+Not ported: KV shipping (``kv_donor`` fetches, ``export_kv_pages`` answers
+None) and the remote-draft ``VerifyResult`` branch.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from crowdllama_tpu_torch.core.messages import (
 )
 from crowdllama_tpu_torch.engine.runner import resolve_device
 from crowdllama_tpu_torch.parallel.mesh import build_mesh
+from crowdllama_tpu_torch.testing import faults
 
 log = logging.getLogger("crowdllama.torch.engine")
 
@@ -97,9 +101,43 @@ class Engine:
     """Abstract engine seam."""
 
     models: list[str] = []
+    # NodeObs of the owning worker peer (set by Peer.start); None when the
+    # engine runs without a peer (IPC-only, unit tests).
+    obs = None
+    # The owning Peer (attach_peer): a chaos drain goes through it.
+    _peer = None
+    _chaos_drain = None  # the task a "drain" fault started
 
     async def start(self) -> None: ...
     async def stop(self) -> None: ...
+
+    def attach_peer(self, peer) -> None:
+        """Called by ``Peer.start()``."""
+        self._peer = peer
+
+    def obs_gauges(self) -> dict:
+        """Engine/scheduler gauges for the metrics exposition: the JAX
+        engine's keys, at zero on an engine without a scheduler."""
+        g = {"pending_depth": 0.0, "active_slots": 0.0,
+             "batch_occupancy": 0.0, "kv_cache_utilization": 0.0,
+             "prefill_chunk_slots": 0.0, "step_token_budget_used": 0.0,
+             "host_dispatches_total": 0.0, "tokens_per_dispatch": 0.0}
+        for cls in ("plain", "megastep", "ragged", "ragged_mega", "spec"):
+            g[f"duty_cycle|dispatch={cls}"] = 0.0
+        g.update({"autotune_score": 0.0, "autotune_moves_total": 0.0,
+                  "autotune_reverts_total": 0.0,
+                  "autotune_backoffs_total": 0.0})
+        for dial in ("megastep_k", "draft_k", "step_token_budget",
+                     "prefill_chunk", "pipeline_depth"):
+            g[f"autotune_dial|dial={dial}"] = 0.0
+        return g
+
+    async def export_kv_pages(self, model: str, chain_hashes: list[bytes],
+                              page_size: int) -> dict | None:
+        """A peer's KvFetchRequest: the pages of the longest indexed
+        prefix, or None when this engine has nothing to offer (KV page
+        export is not ported: always None)."""
+        return None
 
     async def drain(self, timeout: float = 30.0) -> bool:
         """Finish in-flight work before shutdown; True when drained."""
@@ -130,6 +168,28 @@ class Engine:
 
     # ---- the request seams: llama.v1 BaseMessage in ----------------------
 
+    def _obs_generate(self, msg: pb.BaseMessage, model: str, t0: int,
+                      first_ns: int, end_ns: int,
+                      final: Chunk | None) -> None:
+        """Record the worker-side spans and histograms of one generate
+        exchange.  The queue/prefill split is the scheduler's stamps on
+        the final chunk when it has them, else prefill is the first
+        chunk's latency (FakeEngine)."""
+        if self.obs is None:
+            return
+        queue_ns = final.queue_ns if final else 0
+        prefill_ns = final.prefill_ns if final else 0
+        if not prefill_ns:
+            prefill_ns = max(0, (first_ns or end_ns) - t0 - queue_ns)
+        decode_ns = max(0, (end_ns - t0) - queue_ns - prefill_ns)
+        steps = final.completion_tokens if final else 0
+        if steps > 0 and decode_ns > 0:
+            self.obs.metrics.decode_step_seconds.observe(
+                decode_ns / steps / 1e9)
+        self.obs.observe_generate(
+            msg.trace_id, msg.parent_span, model, queue_ns, prefill_ns,
+            decode_ns, steps, end_ns - t0, node="worker")
+
     async def handle(self, msg: pb.BaseMessage,
                      worker_id: str = "") -> pb.BaseMessage:
         """One request message -> one reply message (an EmbedResponse for
@@ -139,24 +199,38 @@ class Engine:
             t0 = time.monotonic_ns()
             vectors, n_tokens = await self.embed(
                 list(ereq.input), model=ereq.model, truncate=ereq.truncate)
+            dt = time.monotonic_ns() - t0
+            if self.obs is not None:
+                self.obs.metrics.request_seconds.labels(
+                    ereq.model).observe(dt / 1e9)
+                if msg.trace_id:
+                    self.obs.trace.record(msg.trace_id, "embed", dt,
+                                          parent=msg.parent_span)
+                    self.obs.trace.finish(msg.trace_id, dt)
             return create_embed_response(
                 model=ereq.model, embeddings=vectors, worker_id=worker_id,
-                total_duration_ns=time.monotonic_ns() - t0,
-                prompt_tokens=n_tokens)
+                total_duration_ns=dt, prompt_tokens=n_tokens)
         req = extract_generate_request(msg)
+        await faults.inject("engine.request", worker=worker_id,
+                            model=req.model)
         t0 = time.monotonic_ns()
+        first_ns = 0
         text_parts: list[str] = []
         final: Chunk | None = None
         async for chunk in self._gen_from_request(req):
+            if not first_ns:
+                first_ns = time.monotonic_ns()
             text_parts.append(chunk.text)
             final = chunk
         if final is None:
             raise RuntimeError("generation ended without a final chunk")
+        end_ns = time.monotonic_ns()
+        self._obs_generate(msg, req.model, t0, first_ns, end_ns, final)
         return create_generate_response(
             model=req.model, response="".join(text_parts),
             worker_id=worker_id, done=True,
             done_reason=final.done_reason or "stop",
-            total_duration_ns=time.monotonic_ns() - t0,
+            total_duration_ns=end_ns - t0,
             prompt_tokens=final.prompt_tokens,
             completion_tokens=final.completion_tokens)
 
@@ -176,7 +250,25 @@ class Engine:
         dropped: the successor replays the generation)."""
         req = extract_generate_request(msg)
         t0 = time.monotonic_ns()
+        first_ns = 0
+        n_chunk = 0
         async for chunk in self._gen_from_request(req):
+            if not first_ns:
+                first_ns = time.monotonic_ns()
+            try:
+                await faults.inject("engine.stream_chunk", worker=worker_id,
+                                    model=req.model, index=n_chunk)
+            except faults.DrainRequested:
+                # Chaos trigger for live migration: as if SIGTERM landed
+                # mid-stream.  The drain runs beside this stream, which
+                # ends in a MigrateFrame at the scheduler's next safe point.
+                self._chaos_drain = asyncio.get_running_loop().create_task(
+                    self._peer.drain() if self._peer is not None
+                    else self.migrate())
+            n_chunk += 1
+            if chunk.done:
+                self._obs_generate(msg, req.model, t0, first_ns,
+                                   time.monotonic_ns(), chunk)
             if chunk.done and chunk.done_reason == "migrate":
                 hashes, page_size = self._migrate_export_meta(req)
                 mig = migrate_frame_msg(
@@ -368,7 +460,16 @@ class TorchEngine(Engine):
         loop's next safe point; prefix pages stay cached."""
         if self.scheduler is None:
             return 0
-        return await self.scheduler.migrate()
+        moved = await self.scheduler.migrate()
+        if moved and self.obs is not None:
+            self.obs.metrics.drain_inc("migrated_slots", moved)
+        return moved
+
+    def obs_gauges(self) -> dict:
+        g = super().obs_gauges()
+        if self.scheduler is not None:
+            g.update(self.scheduler.telemetry_gauges())
+        return g
 
     def _migrate_export_meta(self, req: pb.GenerateRequest
                              ) -> tuple[list[bytes], int]:

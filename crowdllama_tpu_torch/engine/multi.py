@@ -37,6 +37,24 @@ class MultiEngine(Engine):
                 model_path=config.model_path if i == 0 else ""), **engine_kw)
             for i, name in enumerate(names)}
         self.models = names
+        self._obs = None
+
+    # The peer hands its NodeObs to ``engine.obs``; the children serve, so
+    # the handle fans out to them.
+    @property
+    def obs(self):
+        return self._obs
+
+    @obs.setter
+    def obs(self, value) -> None:
+        self._obs = value
+        for eng in self._engines.values():
+            eng.obs = value
+
+    def attach_peer(self, peer) -> None:
+        self._peer = peer
+        for eng in self._engines.values():
+            eng.attach_peer(peer)
 
     def _child(self, model: str) -> TorchEngine:
         if not model:
@@ -76,10 +94,29 @@ class MultiEngine(Engine):
         eng = TorchEngine(dataclasses.replace(
             self.config, model=name, model_path=path or self.config.model_path),
             **self._engine_kw)
+        eng.obs = self._obs
+        eng.attach_peer(self._peer)
         await eng.start()
         self._engines[name] = eng
         self.models = list(self._engines)
         log.info("hot-registered model %s from %s", name, path or "<default>")
+
+    # Point-in-time gauges take the max across children; depths and
+    # counts sum.
+    _GAUGE_MAX = frozenset({"batch_occupancy", "kv_cache_utilization",
+                            "step_token_budget_used", "tokens_per_dispatch",
+                            "autotune_score"})
+
+    def obs_gauges(self) -> dict:
+        out: dict = {}
+        for eng in self._engines.values():
+            for k, v in eng.obs_gauges().items():
+                if (k in self._GAUGE_MAX or k.startswith("duty_cycle")
+                        or k.startswith("autotune_dial")):
+                    out[k] = max(out.get(k, 0.0), v)
+                else:
+                    out[k] = out.get(k, 0.0) + v
+        return out
 
     def describe(self) -> dict:
         per = {name: e.describe() for name, e in self._engines.items()}

@@ -137,6 +137,8 @@ class Scheduler:
         self.tokens_generated = 0
         self.throughput_ema = 0.0  # tokens/sec across the batch
         self.ragged_chunks = 0  # prefill chunks dispatched unified
+        self.host_dispatches = 0  # decode / ragged programs dispatched
+        self._tokens_per_dispatch = 0  # tokens the last retired flight emitted
         self.prefill_chunks = 0  # legacy chunked-admission chunks run
         self._draining = False  # submissions are refused
         # Set by migrate(): the loop retires everything at its next safe
@@ -266,6 +268,39 @@ class Scheduler:
     def load(self) -> float:
         busy = sum(1 for s in self.slots if s is not None)
         return busy / max(1, len(self.slots))
+
+    def telemetry_gauges(self) -> dict:
+        """Scheduler gauges for the metrics exposition, under the JAX
+        scheduler's keys: queue depth, batch occupancy, KV-cache
+        utilization (paged: the page pool's occupancy, cached prefix pages
+        included; contiguous: tokens held over capacity), the chunked
+        admission in progress, dispatches and the tokens of the last
+        retired flight.  The self-watchdog and remote-draft planes are
+        not ported and read 0 (``Engine.obs_gauges`` zeroes the rest), so
+        every family exists on a torch worker."""
+        active = sum(1 for s in self.slots if isinstance(s, _SlotInfo))
+        total = max(1, len(self.slots))
+        r = self.runner
+        free_pages = getattr(r, "_free_pages", None)
+        if getattr(r, "total_pages", 0) and free_pages is not None:
+            util = 1.0 - len(free_pages) / r.total_pages
+        else:
+            used = sum(s.prompt_len + s.generated for s in self.slots
+                       if isinstance(s, _SlotInfo))
+            util = used / (total * max(1, r.max_seq))
+        return {
+            "pending_depth": float(self.pending.qsize() + len(self._deferred)
+                                   + self._admitting),
+            "active_slots": float(active),
+            "batch_occupancy": active / total,
+            "kv_cache_utilization": util,
+            "prefill_chunk_slots": 1.0 if self._chunking is not None else 0.0,
+            "host_dispatches_total": float(self.host_dispatches),
+            "tokens_per_dispatch": float(self._tokens_per_dispatch),
+            "wedged": 0.0, "wedged_events_total": 0.0,
+            "spec_pipeline_depth": 0.0, "spec_pipeline_verifies": 0.0,
+            "spec_pipeline_stale": 0.0, "spec_pipeline_freeruns": 0.0,
+        }
 
     # ------------------------------------------------------------------ loop
 
@@ -469,6 +504,7 @@ class Scheduler:
             if rjob is not None:
                 dispatched = await self._ragged_dispatch(k)
             elif live:
+                self.host_dispatches += 1
                 tokens_dev, self.state = await self._run(
                     self.runner.decode_steps_device, self.state, k)
                 dispatched = _InFlightChunk(
@@ -505,6 +541,7 @@ class Scheduler:
             req.finish(f"error: {e}")
             return None
         self.ragged_chunks += n_chunks
+        self.host_dispatches += 1
         dispatched = _InFlightChunk(
             tokens_dev=tokens_dev, snapshot=list(self.slots),
             dispatched_at=time.monotonic())
@@ -633,6 +670,7 @@ class Scheduler:
                     continue
                 self._emit(info.req, int(tokens[step, i]), info)
                 emitted += 1
+        self._tokens_per_dispatch = emitted
         if emitted == 0:
             return  # pure-overshoot chunk: not a throughput sample
         rate = emitted / dt

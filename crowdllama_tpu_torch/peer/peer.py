@@ -1,0 +1,541 @@
+"""The worker peer: a torch engine joins the swarm.
+
+Counterpart of the worker side of ``crowdllama_tpu/peer/peer.py``: one
+node object owning the stream host, the DHT node, the capability
+metadata, the peer manager and the engine seam.  It serves the metadata
+stream and the DHT ``metadata`` op, runs the metadata refresh / publish /
+advertise loops (re-bootstrapping when the routing table empties) and
+serves the inference stream: llama.v1 requests in a loop per stream, so
+a gateway's stream pool amortizes the handshake.
+
+The advertised metadata is the engine's live telemetry; ``gpu_model``,
+``vram_gb`` and ``accelerator`` come from ``torch.cuda`` for the device
+the engine serves on (the TPU-only fields keep their defaults).
+
+Not ported: the relay (``relay_mode="always"`` is refused), swarm model
+sharing and pull, the consumer role and gossip (a ``gossip_frame`` is
+ignored, as a JAX worker without a gossip node ignores it), KV page
+export (a ``kv_fetch_request`` is answered in band with ``matched=0``
+and an error) and remote-draft verification (``DraftChunk`` credits are
+nacked, so a gateway's pump degrades to plain streaming).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+import time
+
+from crowdllama_tpu_torch.config import Configuration
+from crowdllama_tpu_torch.core import llama_v1 as pb
+from crowdllama_tpu_torch.core import wire
+from crowdllama_tpu_torch.core.messages import (
+    create_embed_response,
+    genresp_frame_bytes,
+    kv_pages_msg,
+    metrics_snapshot_msg,
+    trace_spans_msg,
+    verify_result_msg,
+)
+from crowdllama_tpu_torch.core.protocol import (
+    INFERENCE_PROTOCOL,
+    METADATA_PROTOCOL,
+    metadata_key,
+    namespace_key,
+)
+from crowdllama_tpu_torch.core.resource import Resource
+from crowdllama_tpu_torch.engine.engine import Engine
+from crowdllama_tpu_torch.net.discovery import (
+    discover_peers,
+    new_host_and_dht,
+    request_peer_metadata,
+)
+from crowdllama_tpu_torch.net.host import STREAM_POOL_IDLE_S, Stream
+from crowdllama_tpu_torch.obs import NodeObs
+from crowdllama_tpu_torch.obs.http import node_metric_lines
+from crowdllama_tpu_torch.peermanager.manager import (
+    PeerHealthConfig,
+    PeerManager,
+)
+from crowdllama_tpu_torch.testing import faults
+from crowdllama_tpu_torch.utils.aio import run_every
+from crowdllama_tpu_torch.utils.crypto import Ed25519PrivateKey
+from crowdllama_tpu_torch.version import VERSION
+
+log = logging.getLogger("crowdllama.torch.peer")
+
+
+def _engine_device(engine):
+    """The torch device ``engine`` serves on (a MultiEngine's first
+    child's), or None for an engine without one (FakeEngine)."""
+    dev = getattr(engine, "device", None)
+    if dev is None:
+        children = getattr(engine, "_engines", None)
+        if children:
+            dev = getattr(next(iter(children.values())), "device", None)
+    return dev
+
+
+def device_capabilities(device) -> dict:
+    """Resource fields for the device an engine serves on: the card's
+    name and total memory in GiB from ``torch.cuda``, or ``"cpu"``."""
+    if device is None:
+        return {}
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"accelerator": device.type, "gpu_model": "", "vram_gb": 0}
+    index = device.index if device.index is not None else 0
+    name = torch.cuda.get_device_name(index)
+    total = torch.cuda.get_device_properties(index).total_memory
+    return {"accelerator": name.lower().replace(" ", "-"),
+            "gpu_model": name, "vram_gb": int(round(total / (1 << 30)))}
+
+
+class Peer:
+    """One swarm worker node serving ``engine``."""
+
+    def __init__(self, key: Ed25519PrivateKey, config: Configuration,
+                 engine: Engine, worker_mode: bool = True):
+        if not worker_mode:
+            raise NotImplementedError(
+                "consumer mode needs the gateway's HTTP plane, which is not "
+                "ported to crowdllama_tpu_torch yet")
+        self.config = config
+        self.key = key
+        self.engine = engine
+        self.worker_mode = True
+        self.host = None
+        self.dht = None
+        self.resource = Resource(worker_mode=True, version=VERSION)
+        self.peer_manager: PeerManager | None = None
+        self._tasks: list[asyncio.Task] = []
+        self._draining = False
+        self._capabilities = device_capabilities(_engine_device(engine))
+        self.obs = NodeObs(trace_capacity=config.trace_buffer or 64,
+                           node="worker", trace_ttl=config.trace_ttl or 0.0,
+                           exemplars=bool(config.metrics_exemplars))
+
+    # ----------------------------------------------------------- lifecycle
+
+    async def start(self) -> None:
+        if self.config.relay_mode == "always":
+            raise NotImplementedError(
+                "relay_mode='always' needs the relay (net/relay.py), which "
+                "is not ported to crowdllama_tpu_torch yet: use 'auto' or "
+                "'off' (direct dials)")
+        self.host, self.dht = await new_host_and_dht(
+            self.key, listen_host=self.config.listen_host,
+            listen_port=self.config.listen_port)
+        self.resource.peer_id = self.host.peer_id
+        self.update_metadata()
+        self.host.set_stream_handler(METADATA_PROTOCOL,
+                                     self._handle_metadata_stream)
+        # Health probes and discovery prefer the pooled KAD "metadata" op;
+        # the read-to-EOF stream above stays served as the fallback.
+        self.dht.metadata_provider = self._metadata_snapshot
+        self.host.set_stream_handler(INFERENCE_PROTOCOL,
+                                     self._handle_inference_stream)
+        self.engine.obs = self.obs
+        self.engine.attach_peer(self)
+        self.peer_manager = PeerManager(
+            self_peer_id=self.host.peer_id,
+            config=PeerHealthConfig(intervals=self.config.intervals),
+            metadata_fetcher=self._fetch_peer_metadata,
+            discovery=self._run_discovery,
+            on_peer_removed=self.dht.evict_peer)
+        self.dht.peer_seen = self.peer_manager.mark_seen
+        if self.config.bootstrap_peers:
+            n = await self.dht.bootstrap(self.config.bootstrap_peers)
+            log.info("bootstrapped to %d/%d peers", n,
+                     len(self.config.bootstrap_peers))
+        self.peer_manager.start()
+        iv = self.config.intervals
+        self.dht.start_maintenance(provider_check=iv.dht_provider_check,
+                                   bucket_refresh=iv.dht_bucket_refresh)
+        self._tasks = [
+            asyncio.create_task(
+                run_every(iv.metadata_refresh, self.update_metadata, log,
+                          logging.DEBUG), name="peer-metadata-refresh"),
+            asyncio.create_task(
+                run_every(iv.metadata_publish, self._publish_metadata, log,
+                          logging.DEBUG), name="peer-publish"),
+            asyncio.create_task(
+                run_every(iv.advertise, self._advertise, log, logging.DEBUG),
+                name="peer-advertise"),
+        ]
+        log.info("peer %s up (worker) on %s", self.host.peer_id[:8],
+                 self.host.contact.addr)
+
+    async def stop_advertising(self) -> None:
+        """Stop the publish/advertise/refresh loops without closing
+        streams: the swarm stops learning about this peer while in-flight
+        requests keep being served."""
+        for t in self._tasks:
+            t.cancel()
+        for t in self._tasks:
+            try:
+                await t
+            except asyncio.CancelledError:
+                pass
+        self._tasks = []
+
+    async def drain(self) -> int:
+        """Graceful drain: flip to ``draining`` and hand off in-flight
+        generation; idempotent.  The engine's migration is requested
+        first (the scheduler claims every stream at its next safe point),
+        then the advertised metadata flips to ``draining`` with one forced
+        provide, then the migration is awaited.  New GenerateRequests get
+        the typed ``draining`` reject from here on, but the serve loops
+        stay up.  Returns how many requests were migrated."""
+        if self._draining:
+            return 0
+        self._draining = True
+        self.resource.draining = True
+        self.resource.draining_reason = "drain"
+        self.resource.touch()
+        self.obs.metrics.drain_inc("initiated")
+        t0 = time.perf_counter_ns()
+        migrating = asyncio.ensure_future(self.engine.migrate())
+        await self.stop_advertising()
+        if self.dht is not None and self.host is not None:
+            try:
+                await self.dht.reconnect_if_needed()
+                await asyncio.wait_for(
+                    self.dht.provide(metadata_key(self.host.peer_id.encode()),
+                                     min_interval=0), timeout=5.0)
+            except Exception as e:
+                log.warning("drain metadata publish failed: %s", e)
+        migrated = await migrating
+        self.obs.trace.record(f"drain-{self.peer_id[:8]}", "drain",
+                              time.perf_counter_ns() - t0, migrated=migrated)
+        log.info("peer %s draining: %d in-flight requests migrated",
+                 self.peer_id[:8], migrated)
+        return migrated
+
+    async def stop(self) -> None:
+        await self.stop_advertising()
+        # Departure publish before the teardown: peers that re-probe in
+        # the window see draining=true and deroute.
+        if self.dht is not None and self.host is not None:
+            self.resource.draining = True
+            self.resource.touch()
+            try:
+                await asyncio.wait_for(
+                    self.dht.provide(metadata_key(self.host.peer_id.encode()),
+                                     min_interval=0), timeout=2.0)
+            except Exception as e:
+                log.debug("departure publish failed: %s", e)
+        if self.peer_manager is not None:
+            await self.peer_manager.stop()
+        if self.dht is not None:
+            await self.dht.stop_maintenance()
+        if self.host is not None:
+            await self.host.close()
+
+    @property
+    def peer_id(self) -> str:
+        return self.host.peer_id if self.host else ""
+
+    # ------------------------------------------------------------ metadata
+
+    def update_metadata(self) -> None:
+        """Refresh the advertised Resource from live engine telemetry."""
+        d = self.engine.describe()
+        r = self.resource
+        r.supported_models = list(d.get("models", []))
+        r.tokens_throughput = float(d.get("throughput", 0.0))
+        r.load = float(d.get("load", 0.0))
+        r.version = VERSION
+        r.worker_mode = True
+        r.max_context_length = self.config.max_context_length
+        r.embeddings = bool(d.get("embeddings", True))
+        for k, v in self._capabilities.items():
+            setattr(r, k, v)
+        r.touch()
+
+    async def _publish_metadata(self) -> None:
+        """Provide this peer's stable metadata key (refreshed in place)."""
+        await self.dht.reconnect_if_needed()
+        await self.dht.provide(metadata_key(self.host.peer_id.encode()),
+                               min_interval=self.config.intervals.reprovide)
+
+    async def _advertise(self) -> None:
+        """Provide the namespace rendezvous key; the network re-provide is
+        rate-limited to ``intervals.reprovide``."""
+        await self.dht.reconnect_if_needed()
+        await self.dht.provide(namespace_key(),
+                               min_interval=self.config.intervals.reprovide)
+
+    # ------------------------------------------------------------- streams
+
+    def _metadata_snapshot(self) -> bytes:
+        """Current Resource JSON (refreshed, so probes see live load)."""
+        self.update_metadata()
+        return self.resource.to_json()
+
+    async def _handle_metadata_stream(self, stream: Stream) -> None:
+        """Serve Resource JSON and close."""
+        stream.writer.write(self._metadata_snapshot())
+        await stream.writer.drain()
+        stream.writer.write_eof()
+        if self.peer_manager is not None:
+            self.peer_manager.mark_seen(stream.remote_peer_id)
+
+    async def _handle_inference_stream(self, stream: Stream) -> None:
+        """Serve inference requests on one stream until the client closes
+        or idles out.  A streamed generate request gets one frame per
+        chunk, done on the last; everything else one reply frame."""
+        while await self._serve_one_inference(stream):
+            pass
+
+    async def _serve_one_inference(self, stream: Stream) -> bool:
+        """One request/reply exchange; False ends the stream's loop."""
+        try:
+            # The idle window outlasts the gateway pool's (plus slack).
+            msg = await wire.read_length_prefixed_pb(
+                stream.reader,
+                timeout=max(self.config.intervals.stream_read_timeout,
+                            STREAM_POOL_IDLE_S + 5.0))
+        except (wire.WireError, pb.DecodeError, asyncio.TimeoutError,
+                OSError) as e:
+            log.debug("inference stream read ended: %s", e)
+            return False
+        tid = msg.trace_id
+        which = msg.WhichOneof("message")
+        try:
+            if which == "embed_request":
+                reply = await self.engine.handle(msg, worker_id=self.peer_id)
+                reply.trace_id = tid
+                await wire.write_length_prefixed_pb(stream.writer, reply)
+                return True
+            if which == "kv_fetch_request":
+                await self._serve_kv_fetch(stream, msg)
+                return True
+            if which == "trace_fetch":
+                await self._serve_trace_fetch(stream, msg)
+                return True
+            if which == "metrics_fetch":
+                await self._serve_metrics_fetch(stream, msg)
+                return True
+            if which == "gossip_frame":
+                return True  # a worker has no gossip node
+            if which == "draft_chunk":
+                # A DraftChunk outside a remote-draft stream: nack it
+                # terminally so the sender's pump stops.
+                dc = msg.draft_chunk
+                nack = verify_result_msg(
+                    chunk_id=dc.chunk_id, position=dc.position, accepted=0,
+                    tokens=[], done=True, draft_k=0, depth_hint=1)
+                nack.trace_id = tid
+                await wire.write_length_prefixed_pb(stream.writer, nack)
+                return True
+            if which != "generate_request":
+                raise ValueError("expected GenerateRequest")
+            req = msg.generate_request
+            if self._draining:
+                # Typed reject: the gateway fails over without spending its
+                # failover budget; the stream stays open.
+                self.obs.metrics.drain_inc("rejected_requests")
+                await wire.write_frame_bytes(stream.writer, genresp_frame_bytes(
+                    model=req.model, response="", worker_id=self.peer_id,
+                    done=True, done_reason="draining", trace_id=tid))
+                return True
+            if req.stream:
+                return await self._serve_streamed(stream, msg)
+            reply = await self.engine.handle(msg, worker_id=self.peer_id)
+            reply.trace_id = tid
+            t0 = time.perf_counter_ns()
+            await wire.write_length_prefixed_pb(stream.writer, reply)
+            if tid:
+                self.obs.trace.record(tid, "stream_flush",
+                                      time.perf_counter_ns() - t0,
+                                      parent=msg.parent_span)
+            return True
+        except faults.StallStream as e:
+            # Injected gray failure: hold the transport open, write nothing
+            # again, until the client gives up and closes its end.
+            log.warning("fault injection stalled inference stream: %s", e)
+            try:
+                await asyncio.wait_for(stream.reader.read(), timeout=600.0)
+            except Exception:
+                pass
+            stream.close()
+            return False
+        except faults.KillStream as e:
+            # Injected worker death: drop the transport with no error frame.
+            log.warning("fault injection killed inference stream: %s", e)
+            stream.close()
+            return False
+        except Exception as e:
+            log.warning("inference failed: %s", e)
+            if which == "embed_request":
+                # "invalid:" marks a client error (no retry elsewhere); a
+                # capability gap stays retryable.
+                prefix = "invalid: " if isinstance(e, ValueError) else ""
+                detail = str(e) or (
+                    "this worker's engine does not support embeddings"
+                    if isinstance(e, NotImplementedError) else repr(e))
+                err = create_embed_response(
+                    model=msg.embed_request.model, embeddings=[],
+                    worker_id=self.peer_id, error=prefix + detail)
+                err.trace_id = tid
+                err_frame = wire.encode_frame(err)
+            else:
+                err_frame = genresp_frame_bytes(
+                    model=(msg.generate_request.model
+                           if which == "generate_request" else ""),
+                    response=f"error: {e}", worker_id=self.peer_id,
+                    done=True, done_reason="error", trace_id=tid)
+            try:
+                await wire.write_frame_bytes(stream.writer, err_frame)
+            except Exception:
+                return False  # writer dead: end the stream's serve loop
+            return True
+
+    async def _serve_streamed(self, stream: Stream, msg) -> bool:
+        """A streamed generate request: the engine's encoded frames through
+        a ``FrameBatcher`` (the first frame inline, later frames coalesced
+        per loop tick into one sealed write).  On a remote-draft request a
+        reader task nacks the gateway's DraftChunk credits meanwhile."""
+        tid = msg.trace_id
+        remote_draft = bool(msg.generate_request.remote_draft)
+        reader_task = None
+        if remote_draft:
+            reader_task = asyncio.get_running_loop().create_task(
+                self._nack_draft_chunks(stream, tid))
+        flush_ns = 0
+        batcher = wire.FrameBatcher(stream.writer)
+        try:
+            async for frame in self.engine.handle_streaming_frames(
+                    msg, worker_id=self.peer_id):
+                t0 = time.perf_counter_ns()
+                batcher.write(frame)
+                await batcher.drain()
+                flush_ns += time.perf_counter_ns() - t0
+            t0 = time.perf_counter_ns()
+            await batcher.flush()
+            flush_ns += time.perf_counter_ns() - t0
+        finally:
+            if reader_task is not None:
+                reader_task.cancel()
+                try:
+                    await reader_task
+                except (asyncio.CancelledError, Exception):
+                    pass
+        if tid:
+            self.obs.trace.record(tid, "stream_flush", flush_ns,
+                                  parent=msg.parent_span)
+        # A remote-draft stream is one-shot: the cancelled reader may have
+        # left part of a DraftChunk in the receive buffer.
+        return not remote_draft
+
+    async def _nack_draft_chunks(self, stream: Stream, tid: str) -> None:
+        """Reader side of a remote-draft stream on an engine that cannot
+        verify: nack every DraftChunk so the gateway streams unpaced."""
+        try:
+            while True:
+                msg = await wire.read_length_prefixed_pb(stream.reader,
+                                                         timeout=600.0)
+                if msg.WhichOneof("message") != "draft_chunk":
+                    continue
+                dc = msg.draft_chunk
+                await faults.inject("spec.draft_chunk", worker=self.peer_id,
+                                    chunk_id=int(dc.chunk_id))
+                await faults.inject("spec.verify", worker=self.peer_id,
+                                    chunk_id=int(dc.chunk_id))
+                nack = verify_result_msg(
+                    chunk_id=dc.chunk_id, position=dc.position, accepted=0,
+                    tokens=[], done=False, draft_k=0, depth_hint=1)
+                if tid:
+                    nack.trace_id = tid
+                await wire.write_length_prefixed_pb(stream.writer, nack)
+        except asyncio.CancelledError:
+            raise
+        except faults.KillStream as e:
+            log.warning("fault injection killed draft reader: %s", e)
+            stream.close()
+        except Exception as e:
+            log.debug("draft chunk reader ended: %s", e)
+
+    def _node_label(self) -> str:
+        return f"{self.obs.trace.node or 'peer'}:{self.peer_id[:8]}"
+
+    async def _serve_trace_fetch(self, stream: Stream, msg) -> None:
+        """The trace collector's span-fragment fetch: this node's JSON
+        record of the trace, or ``found=false``."""
+        trace_id = msg.trace_fetch.trace_id
+        rec = self.obs.trace.get(trace_id) if trace_id else None
+        if rec is None:
+            out = trace_spans_msg(trace_id, node=self._node_label(),
+                                  found=False)
+        else:
+            out = trace_spans_msg(trace_id, node=self._node_label(),
+                                  payload=json.dumps(rec).encode("utf-8"),
+                                  found=True)
+        out.trace_id = trace_id
+        await wire.write_length_prefixed_pb(stream.writer, out)
+
+    async def _serve_metrics_fetch(self, stream: Stream, msg) -> None:
+        """The gateway's cluster-scrape fetch: ``node_metric_lines``,
+        prefix-filtered by ``families`` (TYPE headers follow their
+        family)."""
+        node = self._node_label()
+        try:
+            lines = node_metric_lines(self)
+            prefixes = tuple(msg.metrics_fetch.families)
+            if prefixes:
+                lines = [ln for ln in lines
+                         if ln.split()[-2 if ln.startswith("# TYPE") else 0]
+                         .startswith(prefixes)]
+            out = metrics_snapshot_msg(
+                node=node, payload="\n".join(lines).encode("utf-8"),
+                found=True)
+        except Exception as e:  # a sick node still answers, flagged
+            log.warning("metrics snapshot failed: %s", e)
+            out = metrics_snapshot_msg(node=node, found=False, error=str(e))
+        out.trace_id = msg.trace_id
+        await wire.write_length_prefixed_pb(stream.writer, out)
+
+    async def _serve_kv_fetch(self, stream: Stream, msg) -> None:
+        """A peer's paged-KV fetch, answered in band: the port exports no
+        pages yet, so the reply is ``KvPages(matched=0, done=True,
+        error=...)`` and the fetcher falls back to plain prefill."""
+        req = msg.kv_fetch_request
+        await faults.inject("kv.serve", worker=self.peer_id, model=req.model)
+        try:
+            await asyncio.wait_for(
+                self.engine.export_kv_pages(
+                    req.model, list(req.chain_hashes), int(req.page_size)),
+                timeout=max(1.0, self.config.kv_ship_timeout))
+            err = "kv export unavailable"
+        except Exception as e:
+            err = f"kv export failed: {e}"
+        out = kv_pages_msg(pb.KvPages(model=req.model, matched=0, done=True,
+                                      error=err))
+        out.trace_id = msg.trace_id
+        await wire.write_length_prefixed_pb(stream.writer, out)
+
+    # ----------------------------------------------------------- discovery
+
+    async def _fetch_peer_metadata(self, peer_id: str) -> Resource:
+        contact = await self.dht.find_peer(peer_id)
+        if contact is None:
+            raise LookupError(f"peer {peer_id[:8]} not resolvable")
+        raw = await self.dht.request_metadata(contact)
+        if raw is not None:
+            resource = Resource.from_json(raw.encode())
+            if resource.peer_id and resource.peer_id != contact.peer_id:
+                raise ValueError(
+                    f"metadata peer_id {resource.peer_id[:8]} does not "
+                    f"match peer {contact.peer_id[:8]}")
+            return resource
+        return await request_peer_metadata(
+            self.host, contact, timeout=self.config.intervals.metadata_timeout)
+
+    async def _run_discovery(self, skip: set[str]) -> list[Resource]:
+        return await discover_peers(self.host, self.dht,
+                                    intervals=self.config.intervals,
+                                    skip_peer_ids=skip)
