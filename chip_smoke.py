@@ -47,6 +47,25 @@ Phases, each printing one JSON line:
    the long prompt's TTFT is reported beside the time of each ragged step
    of a long prompt prefilled beside 3 decoding slots (and its kernel C
    time, CUDA events);
+   megastep (run here, printed after the wire line): the same engine
+   with ``megastep_k=8`` (decode_chunk 8): each full decode chunk one
+   replay of a CUDA graph captured at warm-up (kernel B inside it), the
+   ragged megastep eager (C).  First its sub-phases, 2 greedy prompts of
+   16 tokens each, eager then under megastep on one engine,
+   token-identical: paged int8 (B-int8), contiguous (D), tp=2 on the
+   card (F), llama-3-8b cut to 4 layers (``reduced``).  Then the paged
+   phase's streams (and the seeded one) sent at once, eagerly and then
+   under megastep on one engine: token-identical, the seeded stream
+   repeating alone; B launches 22 times a decode step, C 22 times a
+   ragged step (ragged_mega flights among them), no capture while
+   serving; the duty-cycle gauges; one flight graph against eager (the
+   done-flags where ``_emit`` retires); host ms per step, graph replay
+   against eager, in 5 alternated pairs; 5 captures (seconds, pool
+   bytes); the busy share over 1 s while 4 streams decode (CUDA events
+   around each replay) beside the wire phase's eager one; then a
+   ``megastep_profile`` line: device time and top kernels and operators
+   of one graph flight and one eager chunk (``torch.profiler``).  Every
+   graph capture of the run precedes its first profiler session;
 6. wire: the worker's request seam on tinyllama-1.1b (paged, bf16, the
    same seed-0 weights): the port's ``IPCServer`` on a Unix socket, a
    client speaking only the port's llama.v1 codec; a PB greedy request
@@ -2037,6 +2056,477 @@ def llama_cut_phase(dev, phase: str, ran: set[str], **engine_kw) -> dict:
     return summary["launches"]
 
 
+# ------------------------------------------------------------ megastep
+
+MEGASTEP_K = 8
+MEGASTEP_PAIRS = 5
+MEGASTEP_SUB_TOKENS = 16
+
+
+class _StepCount:
+    """Instruments a runner's dispatch entry points (on the instance): the
+    steps and calls of each, so a phase can hold the launch counts
+    against the steps the scheduler dispatched."""
+
+    ENTRIES = {"decode_steps_device": 1, "decode_megastep": 1,
+               "ragged_step": 2, "ragged_megastep": 2}
+
+    def __init__(self, r):
+        self.steps = dict.fromkeys(self.ENTRIES, 0)
+        self.calls = dict.fromkeys(self.ENTRIES, 0)
+        for name, pos in self.ENTRIES.items():
+            fn = getattr(r, name, None)
+            if fn is not None:
+                setattr(r, name, self._wrap(name, pos, fn))
+
+    def _wrap(self, name, pos, fn):
+        def counted(*a, **kw):
+            self.steps[name] += kw.get("num_steps",
+                                       a[pos] if len(a) > pos else 1)
+            self.calls[name] += 1
+            return fn(*a, **kw)
+        return counted
+
+    def reset(self) -> None:
+        for d in (self.steps, self.calls):
+            for k in d:
+                d[k] = 0
+
+    def decode_steps(self) -> int:
+        return self.steps["decode_steps_device"] + self.steps[
+            "decode_megastep"]
+
+    def ragged_steps(self) -> int:
+        return self.steps["ragged_step"] + self.steps["ragged_megastep"]
+
+
+async def _serve_ids(engine, streams: dict, max_tokens: int) -> dict:
+    """Send ``streams`` (name -> (prompt, kwargs)) at once; each stream's
+    token ids, every stream checked done with ``max_tokens`` tokens."""
+    out: dict[str, list] = {}
+
+    async def run(name, prompt, kw):
+        ids: list[int] = []
+        _STREAM_IDS.set(ids)
+        final = None
+        async for chunk in engine.generate(prompt, max_tokens=max_tokens,
+                                           **kw):
+            final = chunk
+        if not (final.done and final.completion_tokens == max_tokens
+                and len(ids) == max_tokens):
+            raise AssertionError(f"megastep: stream {name} ended {final}")
+        out[name] = ids
+
+    await asyncio.gather(*(run(n, p, kw) for n, (p, kw) in streams.items()))
+    return out
+
+
+def _clone_state(st):
+    """A copy of a decode state: every tensor cloned, the host keys too."""
+    import dataclasses
+
+    def copy(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, list):
+            return [t.clone() for t in v]
+        return v.copy() if hasattr(v, "copy") else v
+
+    return dataclasses.replace(st, **{f.name: copy(getattr(st, f.name))
+                                      for f in dataclasses.fields(st)})
+
+
+def _live_state(r, tok, temperature: float = 0.0):
+    st = r.init_state()
+    for slot in range(r.max_slots):
+        ids = tok.encode(SHORT[slot % len(SHORT)] + str(slot))
+        first, ks, vs, plen = r.prefill(ids, 0.0, 1.0, None)
+        st = r.insert(st, slot, ks, vs, plen, first, temperature, 1.0,
+                      prompt_tokens=ids)
+    return st
+
+
+def megastep_flight_check(r, tok) -> dict:
+    """One K-step flight with 8 live slots as a graph replay and eagerly
+    (``decode_steps_device`` on a copy of the state): the tokens agree up
+    to the whole-batch exit, the rows after it are zero, and the
+    done-flags fire where ``_emit`` retires each slot (its budget, slot
+    0's EOS id taken from the eager tokens)."""
+    import numpy as np
+
+    k = MEGASTEP_K
+    with torch.inference_mode():
+        st = _live_state(r, tok)
+        copy = _clone_state(st)
+        eager, _ = r.decode_steps_device(copy, k)
+        eager = eager.cpu().numpy()
+        budgets = np.array([3, 5, 6, 2, 6, 4, 1, 5], np.int32)[:r.max_slots]
+        eos = np.full((r.max_slots,), -1, np.int32)
+        eos[0] = eager[1, 0]
+        replays = sum(g.replays for g in r._graphs._graphs.values())
+        toks, done, _ = r.decode_megastep(st, k, eos_ids=eos,
+                                          budgets=budgets)
+        toks, done = toks.cpu().numpy(), done.cpu().numpy()
+        if sum(g.replays for g in r._graphs._graphs.values()) != replays + 1:
+            raise AssertionError("megastep: the flight did not replay a graph")
+    fire = []
+    for s in range(r.max_slots):
+        hits = [i for i in range(k)
+                if eager[i, s] == eos[s] or i + 1 >= budgets[s]]
+        fire.append(hits[0])
+    want = np.zeros_like(done)
+    for s, i in enumerate(fire):
+        want[i, s] = True
+    last = max(fire)
+    if not ((toks[:last + 1] == eager[:last + 1]).all()
+            and not toks[last + 1:].any() and (done == want).all()):
+        raise AssertionError(f"megastep: graph flight {toks.tolist()} "
+                             f"{done.astype(int).tolist()} vs eager "
+                             f"{eager.tolist()}, fires {fire}")
+    return {"steps": k, "fires": fire, "rows_compared": last + 1}
+
+
+def megastep_timing(r, tok) -> dict:
+    """Host ms per step, alternated in pairs on one state with 8 live
+    slots: a K-step graph replay and eager ``decode_steps_device(K)``,
+    each ending in a synchronize; then captures on fresh graph caches
+    (the masked warm-up, the capture and the first replay, the capture
+    alone, the graph pool's reserved bytes)."""
+    from crowdllama_tpu_torch.engine.graphs import GraphCache
+
+    k = MEGASTEP_K
+    graph_ms, eager_ms, caps = [], [], []
+    with torch.inference_mode():
+        st = _live_state(r, tok)
+        r.decode_megastep(st, k)
+        r.decode_steps_device(st, k)
+        for _ in range(MEGASTEP_PAIRS):
+            for fn, out in ((r.decode_megastep, graph_ms),
+                            (r.decode_steps_device, eager_ms)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(st, k)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3 / k)
+        kept = r._graphs
+        try:
+            for _ in range(MEGASTEP_PAIRS):
+                r._graphs = cache = GraphCache()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r.decode_megastep(st, k)
+                torch.cuda.synchronize()
+                caps.append({"first_flight_s": time.perf_counter() - t0,
+                             "capture_s": cache.capture_s[0],
+                             "pool_bytes": cache.pool_bytes[0]})
+        finally:
+            r._graphs = kept
+    return {"k": k, "slots": r.max_slots, "graph_ms_per_step": graph_ms,
+            "eager_ms_per_step": eager_ms, "captures": caps}
+
+
+def megastep_top_ops(r, tok, n: int = 8) -> dict:
+    """``torch.profiler`` in this thread around one K-step graph flight
+    and one eager K-step chunk on a state of 8 live slots: each one's
+    device us per step and its top ``n`` kernels by device time (with
+    their calls), and the top ``n`` operators by the device time of the
+    kernels they launched.  Runs after every graph capture of the phase
+    (a profiler session starts the device tracing)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    k = MEGASTEP_K
+    out = {}
+    with torch.inference_mode():
+        st = _live_state(r, tok)
+        for name, fn in (("graph", r.decode_megastep),
+                         ("eager", r.decode_steps_device)):
+            fn(st, k)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                fn(st, k)
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            kernels = [e for e in events if e.device_type.name == "CUDA"]
+            ops = [e for e in events if e.device_type.name == "CPU"
+                   and e.key.startswith("aten::")]
+            out[name] = {
+                "kernels": sum(e.count for e in kernels),
+                "device_us_per_step": sum(e.self_device_time_total
+                                          for e in kernels) / k,
+                "top_kernels": [
+                    {"name": e.key[:120], "device_us": e.self_device_time_total,
+                     "calls": e.count}
+                    for e in sorted(kernels, key=lambda e:
+                                    -e.self_device_time_total)[:n]],
+                "top_ops": [
+                    {"name": e.key, "device_us": e.device_time_total,
+                     "calls": e.count}
+                    for e in sorted(ops, key=lambda e:
+                                    -e.device_time_total)[:n]]}
+    return out
+
+
+def _expect_steps(launches: dict, kernel: str, per_step: int, steps: int,
+                  phase: str) -> None:
+    if launches[kernel] != per_step * steps or steps <= 0:
+        raise AssertionError(f"{phase}: {kernel} launched "
+                             f"{launches[kernel]} times, not {per_step} per "
+                             f"step of {steps} steps: {launches}")
+
+
+def megastep_sub_phase(dev, phase: str, ran: set, decode_kernel: str,
+                       params=None, model: str = TINYLLAMA, **engine_kw):
+    """One more path under megastep: 2 greedy prompts of 16 tokens served
+    eagerly (the scheduler's megastep off), then again under megastep, on
+    one engine without the prefix cache (so both passes prefill the same
+    way): token-identical; under megastep only the kernels in ``ran``
+    launch, ``decode_kernel`` once a layer a decode step, and graph
+    replays ran."""
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+
+    if "devices" not in engine_kw:
+        engine_kw["device"] = dev
+    streams = {k: GREEDY[k] for k in ("short0", "short2")}
+
+    async def go():
+        engine = TorchEngine(params=seed0_params(dev) if params is None
+                             else params, model=model,
+                             megastep_k=MEGASTEP_K, decode_chunk=8,
+                             kv_prefix_cache=False, **engine_kw)
+        await engine.start()
+        engine.tokenizer = _IdRecorder(engine.tokenizer)
+        r = engine.runner
+        count = _StepCount(r)
+        try:
+            engine.scheduler._megastep = False
+            eager = await _serve_ids(engine, streams, MEGASTEP_SUB_TOKENS)
+            engine.scheduler._megastep = True
+            replays0 = sum(g.replays for g in r._graphs._graphs.values())
+            _zero_launches()
+            count.reset()
+            mega = await _serve_ids(engine, streams, MEGASTEP_SUB_TOKENS)
+            launches = _launches()
+            replays = sum(g.replays for g in r._graphs._graphs.values()) \
+                - replays0
+        finally:
+            await engine.stop()
+        return engine, eager, mega, launches, dict(count.steps), replays
+
+    engine, eager, mega, launches, steps, replays = asyncio.run(go())
+    r = engine.runner
+    layers = r.cfg.num_layers
+    if mega != eager:
+        raise AssertionError(f"{phase}: megastep streams {mega} differ from "
+                             f"eager {eager}")
+    _expect_launches(launches, ran, phase)
+    decode_steps = steps["decode_steps_device"] + steps["decode_megastep"]
+    _expect_steps(launches, decode_kernel, layers, decode_steps, phase)
+    if launches["A"] % (layers * r.tp) or not replays \
+            or steps["decode_megastep"] < MEGASTEP_K:
+        raise AssertionError(f"{phase}: A {launches['A']}, {replays} graph "
+                             f"replays, steps {steps}")
+    out = {"phase": phase, "model": model, "layers": layers,
+           "head_dim": r.cfg.resolved_head_dim(), "tp": r.tp,
+           "kv_layout": r.kv_layout, "kv_dtype": r.kv_dtype,
+           "megastep_k": MEGASTEP_K, "streams": len(streams),
+           "tokens": MEGASTEP_SUB_TOKENS, "launches": launches,
+           "steps": steps, "graph_replays": replays,
+           "graph_captures": r._graphs.captures,
+           "capture_s": r._graphs.capture_s,
+           "pool_bytes": r._graphs.pool_bytes,
+           "token_identical_to_eager": True}
+    if model == LLAMA:
+        out["reduced"] = {"num_layers": [32, layers]}
+    return out
+
+
+def megastep_phase(dev, paged: dict) -> tuple[dict, dict]:
+    """TorchEngine with ``megastep_k=8`` (tinyllama-1.1b at full width and
+    depth, paged bf16, TinyLlama's seed-0 weights, decode_chunk 8).
+
+    The paged phase's streams (6 greedy short prompts, the prefix hit, the
+    seeded stream and the 1,465-token prompt, which waits for the first
+    free slot and prefills beside the others' decode), all sent at once,
+    so the scheduler's sequence of dispatches is the same whatever the
+    host's speed: once with the scheduler's megastep off, then, after
+    ``init_state`` (the scheduler's state, zeroed in place: an empty pool
+    and prefix cache), under megastep, token-identical; the seeded stream
+    sent again alone repeats.  (Held against the eager paged phase's
+    streams only as a share: there the long prompt arrives on a host-timed
+    poll, and which decode steps ride the ragged flights, whose decode
+    rows kernel C sums in another order than B, moves with the host's
+    speed.)  Under megastep the graphs captured at warm-up serve every
+    flight; B launches 22 times a decode step and C 22 times a ragged
+    step, ragged_mega flights among them, A in multiples of 22, no other
+    kernel; the gauges (duty cycle of the megastep and ragged_mega classes
+    nonzero, not wedged, host gaps counted).  Then on the runner, the
+    scheduler idle: one flight graph against eager, host ms per step in
+    alternated pairs, capture times and pool bytes.  Then the card's busy
+    share over 1 s while 4 streams decode under megastep, from CUDA
+    events around every graph replay in the window (the profiler's trace
+    holds no kernel of a graph replayed from the dispatch thread), and
+    last the top device kernels and operators of one graph flight and one
+    eager chunk (``megastep_top_ops``).  The sub-phases come first: paged
+    int8 (B-int8), contiguous (D), tp=2 on the card (F) and llama-3-8b
+    cut to 4 layers (Dh 128).  Every capture of the phase precedes its
+    profiler session.  Returns (the phase's line, the profile line) for
+    the caller to print."""
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.obs.metrics import ENGINE_TELEMETRY
+
+    subs = []
+    for phase, ran, kernel, kw in (
+            ("megastep_int8", {"A", "B_int8"}, "B_int8",
+             dict(kv_dtype="int8")),
+            ("megastep_contiguous", {"A", "D"}, "D",
+             dict(kv_layout="contiguous")),
+            ("megastep_tp", {"A", "F"}, "F",
+             dict(mesh_shape="2", devices=[dev, dev]))):
+        subs.append(megastep_sub_phase(dev, phase, ran, kernel, **kw))
+        _free_card()
+    cfg, params = llama_params(dev, LLAMA_CUT_LAYERS)
+    subs.append(megastep_sub_phase(dev, "megastep_llama", {"A", "B"}, "B",
+                                   params=params, model=LLAMA,
+                                   model_config=cfg))
+    del params
+    _free_card()
+
+    streams = {**GREEDY, "prefix_hit": (HIT, {}), "sampled": SAMPLED,
+               "long": (LONG, {})}
+    classes = ("plain", "megastep", "ragged", "other")
+
+    async def go() -> dict:
+        engine = TorchEngine(params=seed0_params(dev), device=dev,
+                             model=TINYLLAMA, megastep_k=MEGASTEP_K,
+                             decode_chunk=8)
+        t0 = time.perf_counter()
+        await engine.start()
+        out: dict = {"start_s": time.perf_counter() - t0}
+        engine.tokenizer = _IdRecorder(engine.tokenizer)
+        r, sched = engine.runner, engine.scheduler
+        graphs = r._graphs
+        out["warmup_graphs"] = {"captures": graphs.captures,
+                                "capture_s": list(graphs.capture_s),
+                                "pool_bytes": list(graphs.pool_bytes)}
+        count = _StepCount(r)
+        try:
+            sched._megastep = False
+            out["eager"] = await _serve_ids(engine, streams, 32)
+            if r.init_state() is not sched.state:
+                raise AssertionError("megastep: init_state did not keep the "
+                                     "captured state")
+            sched._megastep = True
+            gaps0 = {c: ENGINE_TELEMETRY.host_gap_seconds.labels(c).count
+                     for c in classes}
+            _zero_launches()
+            count.reset()
+            t1 = time.perf_counter()
+            out["mega"] = await _serve_ids(engine, streams, 32)
+            out["wall_s"] = time.perf_counter() - t1
+            out["launches"] = _launches()
+            out["steps"], out["calls"] = dict(count.steps), dict(count.calls)
+            out["captures_while_serving"] = graphs.captures - 2
+            out["sampled_again"] = (await _serve_ids(
+                engine, {"sampled": SAMPLED}, 32))["sampled"]
+            out["gauges"] = engine.obs_gauges()
+            out["host_gap_counts"] = {
+                c: ENGINE_TELEMETRY.host_gap_seconds.labels(c).count
+                - gaps0[c] for c in classes}
+            out["flight"] = megastep_flight_check(r, engine.tokenizer)
+            out["timing"] = megastep_timing(r, engine.tokenizer)
+            r.init_state()
+
+            logs = [[] for _ in range(4)]
+
+            async def drive(i, prompt):
+                _STREAM_IDS.set(logs[i])
+                async for _ in engine.generate(prompt, max_tokens=1024):
+                    pass
+
+            tasks = [asyncio.create_task(drive(i, p))
+                     for i, p in enumerate(SHORT[:4])]
+            while min(len(x) for x in logs) < 2:
+                await asyncio.sleep(0.01)
+            # CUDA events around every graph replay of a 1 s window: the
+            # device span of each flight (the profiler's trace shows no
+            # kernel of a graph replayed from the dispatch thread).
+            spans: list = []
+            replays = {g: g._replay for g in graphs._graphs.values()}
+            for g, fn in replays.items():
+                g._replay = _event_timed(fn, spans)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            await asyncio.sleep(PROFILE_S)
+            ev1.record()
+            for t in tasks:
+                t.cancel()
+            await asyncio.gather(*tasks, return_exceptions=True)
+            for g, fn in replays.items():
+                g._replay = fn
+            torch.cuda.synchronize(dev)
+            inside = [(a, b) for a, b in spans
+                      if ev0.elapsed_time(a) >= 0 and b.elapsed_time(ev1) >= 0]
+            if not inside:
+                raise AssertionError("megastep: no graph replay in the "
+                                     "busy-share window")
+            window_ms = ev0.elapsed_time(ev1)
+            replay_ms = sum(a.elapsed_time(b) for a, b in inside)
+            out["busy"] = {"streams": 4, "replays": len(inside),
+                           "replay_device_ms": replay_ms,
+                           "window_ms": window_ms,
+                           "busy_share": replay_ms / window_ms}
+            while any(s is not None for s in sched.slots):
+                await asyncio.sleep(0.01)
+            out["top_ops"] = megastep_top_ops(r, engine.tokenizer)
+            r.init_state()
+        finally:
+            await engine.stop()
+        return out
+
+    out = asyncio.run(go())
+    _free_card()
+    eager, mega = out.pop("eager"), out.pop("mega")
+    same = {n: mega[n] == ids for n, ids in eager.items()}
+    if not all(same.values()):
+        raise AssertionError(f"megastep: streams differ from the eager "
+                             f"pass's: {same}")
+    if out["sampled_again"] != mega["sampled"]:
+        raise AssertionError(f"megastep: the seeded stream did not repeat: "
+                             f"{mega['sampled']} vs {out['sampled_again']}")
+    shared = [a == b for n, ids in paged["ids"].items() if n in mega
+              for a, b in zip(ids, mega[n])]
+    launches, steps, calls = out["launches"], out["steps"], out["calls"]
+    _expect_launches(launches, {"A", "B", "C"}, "megastep")
+    decode_steps = steps["decode_steps_device"] + steps["decode_megastep"]
+    ragged_steps = steps["ragged_step"] + steps["ragged_megastep"]
+    _expect_steps(launches, "B", 22, decode_steps, "megastep")
+    _expect_steps(launches, "C", 22, ragged_steps, "megastep")
+    if launches["A"] % 22 or not calls["ragged_megastep"] \
+            or not calls["decode_megastep"] or out["captures_while_serving"]:
+        raise AssertionError(f"megastep: A {launches['A']}, calls {calls}, "
+                             f"{out['captures_while_serving']} captures "
+                             f"while serving")
+    g = out["gauges"]
+    if not (g["duty_cycle|dispatch=megastep"] > 0
+            and g["duty_cycle|dispatch=ragged_mega"] > 0
+            and g["wedged"] == 0 and out["host_gap_counts"]["megastep"] > 0):
+        raise AssertionError(f"megastep: gauges {g}, host gaps "
+                             f"{out['host_gap_counts']}")
+    smi = nvidia_smi()
+    card = torch.cuda.get_device_name(0)
+    profile_line = {"phase": "megastep_profile", "model": TINYLLAMA,
+                    "megastep_k": MEGASTEP_K, **out.pop("top_ops"),
+                    "card": card, "nvidia_smi": smi}
+    line = {"phase": "megastep", "model": TINYLLAMA, "layers": 22,
+            "megastep_k": MEGASTEP_K, "decode_chunk": 8, **out,
+            "decode_steps": decode_steps, "ragged_steps": ragged_steps,
+            "streams_identical_to_eager_pass": same,
+            "tokens_equal_to_paged_phase": sum(shared) / len(shared),
+            "sampled_ids": mega["sampled"], "sub_phases": subs, "card": card, "nvidia_smi": smi}
+    return line, profile_line
+
+
 # row -> (name, source, TPU kernel it replaces); the name is the C symbol,
 # for F B's symbol launched once over every tensor-parallel rank on the
 # card (the ranks folded into its grid).
@@ -2101,7 +2591,14 @@ def main() -> int:
     paged = engine_phase(dev)
     launches = {k: paged["launches"][k] for k in ("A", "B", "C")}
     _free_card()
-    wire_phase(dev)
+    # Megastep captures its graphs before any profiler session of the
+    # process (the wire phase's is the first); its lines print after the
+    # wire phase's, beside whose eager busy share they stand.
+    mega_line, mega_profile = megastep_phase(dev, paged)
+    _free_card()
+    wire = wire_phase(dev)
+    emit(mega_profile)
+    emit({**mega_line, "wire_busy_share": wire["profile"]["busy_share"]})
     _free_card()
     cli_phase()
     launches["F"] = tp_phase(dev, paged)["F"]

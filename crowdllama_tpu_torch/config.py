@@ -140,6 +140,14 @@ class Configuration:
     # long prompts admit through legacy chunked prefill.
     ragged_prefill: bool = True
     step_token_budget: int = 0
+    # Kernel-looped decode megastep: K full decode steps per host dispatch
+    # with on-device sampling and done-flags, each flight one CUDA graph
+    # replay on the card.  0 = the per-step-chunk path.
+    megastep_k: int = 0
+    # Dispatch self-watchdog: a flight older than this multiple of its
+    # dispatch-class flight-duration EWMA marks the engine wedged and
+    # self-drains.  0 = off.
+    wedge_multiplier: float = 0.0
     warmup: bool = True  # run each serving path once at engine start
     admission_pending_max: int = 0  # 0 = no load-shedding threshold
     # Directory ``capture_profile`` writes its traces under; "" = off.
@@ -186,6 +194,8 @@ class Configuration:
         "kv_prefix_cache": "CROWDLLAMA_TPU_KV_PREFIX_CACHE",
         "ragged_prefill": "CROWDLLAMA_TPU_RAGGED_PREFILL",
         "step_token_budget": "CROWDLLAMA_TPU_STEP_TOKEN_BUDGET",
+        "megastep_k": "CROWDLLAMA_TPU_MEGASTEP_K",
+        "wedge_multiplier": "CROWDLLAMA_TPU_WEDGE_MULTIPLIER",
         "warmup": "CROWDLLAMA_TPU_WARMUP",
         "admission_pending_max": "CROWDLLAMA_TPU_ADMISSION_PENDING_MAX",
         "profile_dir": "CROWDLLAMA_TPU_PROFILE_DIR",
@@ -236,7 +246,8 @@ class Configuration:
                 ("kv_page_size", 0, True), ("kv_pool_tokens", 0, False),
                 ("trace_buffer", 1, False), ("trace_ttl", 0, False),
                 ("drain_timeout", 0, True), ("kv_ship_timeout", 0, True),
-                ("admission_pending_max", 0, False)):
+                ("admission_pending_max", 0, False),
+                ("wedge_multiplier", 0, False)):
             v = getattr(cfg, name)
             if v < low or (strict and v == low):
                 raise ValueError(f"{name} must be {'>' if strict else '>='} "
@@ -284,6 +295,11 @@ class Configuration:
                             help="unified ragged batch: per-step token "
                                  "budget (decode slots + one prefill "
                                  "chunk; 0 = auto)")
+        parser.add_argument("--megastep-k", dest="megastep_k", type=int,
+                            help="kernel-looped decode megastep: K full "
+                                 "decode steps per host dispatch with "
+                                 "on-device sampling (0 = legacy per-step "
+                                 "path)")
         parser.add_argument("--no-ragged-prefill", dest="ragged_prefill",
                             action="store_const", const=False, default=None,
                             help="disable unified ragged prefill: long "
@@ -311,6 +327,12 @@ class Configuration:
         parser.add_argument("--drain-timeout", dest="drain_timeout",
                             type=float,
                             help="graceful-drain window in seconds")
+        parser.add_argument("--wedge-multiplier", dest="wedge_multiplier",
+                            type=float,
+                            help="worker self-watchdog: declare the engine "
+                                 "wedged when a dispatch flight exceeds this "
+                                 "multiple of its class EWMA and self-drain "
+                                 "(0 = off)")
         parser.add_argument("--device", dest="device",
                             choices=("cuda", "cpu"),
                             help="where the engine serves (default cuda; "
@@ -321,7 +343,8 @@ class Configuration:
         "verbose", "key_path", "listen_port", "model", "model_path",
         "engine_backend", "mesh_shape", "quantize", "kv_layout",
         "kv_page_size", "kv_pool_tokens", "kv_dtype", "relay_mode",
-        "spec_decode", "step_token_budget", "ragged_prefill", "profile_dir",
+        "spec_decode", "step_token_budget", "ragged_prefill", "megastep_k",
+        "wedge_multiplier", "profile_dir",
         "trace_buffer", "trace_ttl", "metrics_exemplars",
         "admission_pending_max", "kv_ship_timeout", "drain_timeout",
         "device")

@@ -106,7 +106,7 @@ class Engine:
     obs = None
     # The owning Peer (attach_peer): a chaos drain goes through it.
     _peer = None
-    _chaos_drain = None  # the task a "drain" fault started
+    _chaos_drain = None  # the task a "drain" fault or the watchdog started
 
     async def start(self) -> None: ...
     async def stop(self) -> None: ...
@@ -117,7 +117,10 @@ class Engine:
 
     def obs_gauges(self) -> dict:
         """Engine/scheduler gauges for the metrics exposition: the JAX
-        engine's keys, at zero on an engine without a scheduler."""
+        engine's keys, at zero on an engine without a scheduler (a
+        ``TorchEngine`` overlays its scheduler's measured values: the duty
+        cycle per dispatch class, ``step_token_budget_used``, the
+        watchdog's).  The autopilot is not ported: its keys read 0."""
         g = {"pending_depth": 0.0, "active_slots": 0.0,
              "batch_occupancy": 0.0, "kv_cache_utilization": 0.0,
              "prefill_chunk_slots": 0.0, "step_token_budget_used": 0.0,
@@ -370,13 +373,16 @@ class TorchEngine(Engine):
         each serving path once (warmup, which also builds the kernels),
         start the scheduler."""
         from crowdllama_tpu_torch.engine.factory import build_runner
-        from crowdllama_tpu_torch.engine.plan import resolve_serving_plan
+        from crowdllama_tpu_torch.engine.plan import (
+            check_megastep,
+            resolve_serving_plan,
+        )
         from crowdllama_tpu_torch.engine.scheduler import Scheduler
         from crowdllama_tpu_torch.engine.tokenizer import get_tokenizer
         from crowdllama_tpu_torch.models.config import get_config
 
         c = self.config
-        self.plan = resolve_serving_plan(c)
+        self.plan = resolve_serving_plan(c, devices=self.devices)
         cfg = self._model_config or get_config(c.model)
         if c.max_context_length:
             cfg = dataclasses.replace(cfg, max_context_length=min(
@@ -391,13 +397,16 @@ class TorchEngine(Engine):
                                 device=self._device, devices=self.devices)
 
         self.runner = await loop.run_in_executor(None, _build)
+        check_megastep(c.megastep_k, self.runner.devices)
         self.device = self.runner.device
         if c.warmup:
             await loop.run_in_executor(None, self._warmup)
         self.scheduler = Scheduler(
             self.runner, decode_chunk=c.decode_chunk,
             admission_pending_max=c.admission_pending_max,
-            ragged=c.ragged_prefill)
+            ragged=c.ragged_prefill, megastep_k=c.megastep_k,
+            wedge_multiplier=c.wedge_multiplier)
+        self.scheduler.drain_requested_cb = self._self_drain
         self.scheduler.start()
         log.info("engine up: model=%s devices=%s layout=%s kv_dtype=%s "
                  "slots=%d max_seq=%d", cfg.name, self.runner.devices,
@@ -414,13 +423,25 @@ class TorchEngine(Engine):
         the same calls run its paths: quantizing insert, int8 decode
         (kernel B's int8 variant when paged, the plain
         ``decode_attention_q`` when contiguous), the dequantized context
-        of the prefix-hit prefill and the int8 ragged step."""
+        of the prefix-hit prefill and the int8 ragged step.  With
+        ``megastep_k`` a megastep flight runs greedy and once sampled: on
+        the card each captures its CUDA graph on this state, which the
+        runner then keeps (``init_state`` zeroes it in place), so the
+        scheduler's flights replay these captures."""
         r = self.runner
         state = r.init_state()
         tok, ks, vs, plen = r.prefill([1, 2, 3], 0.0, 1.0, None)
         state = r.insert(state, 0, ks, vs, plen, tok, 0.0, 1.0)
         for k in sorted({1, self.config.decode_chunk}):
             _, state = r.decode_steps(state, k)
+        mk = self.config.megastep_k
+        if mk and getattr(r, "supports_megastep", False):
+            _, _, state = r.decode_megastep(state, mk)
+            slot = min(1, r.max_slots - 1)
+            state = r.insert(state, slot, ks, vs, plen, tok, 1.0, 1.0)
+            _, _, state = r.decode_megastep(state, mk)
+            if slot:
+                state = r.release(state, slot)
         if getattr(r, "prefix_cache", False):
             r.warmup_ctx_prefill(state)
         vocab = r.cfg.vocab_size
@@ -448,6 +469,14 @@ class TorchEngine(Engine):
     async def stop(self) -> None:
         if self.scheduler is not None:
             await self.scheduler.stop()
+
+    def _self_drain(self) -> None:
+        """The self-watchdog's drain: through the owning peer when there is
+        one (it publishes draining to the swarm), else this engine's
+        ``migrate``."""
+        loop = asyncio.get_running_loop()
+        self._chaos_drain = loop.create_task(
+            self._peer.drain() if self._peer is not None else self.migrate())
 
     async def drain(self, timeout: float = 30.0) -> bool:
         """Finish in-flight requests before shutdown; False on timeout."""
@@ -536,7 +565,11 @@ class TorchEngine(Engine):
         stop: list[str] | None = None, top_k: int = 0,
         repeat_penalty: float = 1.0,
     ) -> AsyncIterator[Chunk]:
-        from crowdllama_tpu_torch.engine.scheduler import DONE, GenRequest
+        from crowdllama_tpu_torch.engine.scheduler import (
+            DONE,
+            GenRequest,
+            WedgedError,
+        )
 
         if self.scheduler is None:
             raise RuntimeError("engine not started")
@@ -569,6 +602,9 @@ class TorchEngine(Engine):
                 token, reason = await req.out.get()
                 if token is DONE:
                     finished = True
+                    if reason.startswith("error: wedged"):
+                        # Typed: the self-watchdog failed this request.
+                        raise WedgedError(reason[len("error: "):])
                     if reason.startswith("error"):
                         raise RuntimeError(reason)
                     yield _final(matcher.flush(), reason)

@@ -36,8 +36,14 @@ Device state is updated in place (the JAX package donates and replaces
 it); methods still return the state so callers read like the reference.
 Legacy chunked admission (``ragged_prefill=False``) runs the base runner's
 ``prefill_step`` over accumulators seeded from cached prefix pages
-(:meth:`PagedModelRunner.prefill_begin`).  Megastep, meshes other than
-tp, and KV page export/import are not ported yet.
+(:meth:`PagedModelRunner.prefill_begin`).  Megastep: ``decode_megastep``
+(the base runner's, one CUDA graph replay a flight on the card, with the
+page table at full width as its static input) and ``ragged_megastep``
+(K unified steps in one dispatch with on-device done-flags, eager on the
+card through kernel C: C takes the chunk's slot by value and the step
+builds its ``q_lens``/``kv_lens`` from host ints, so a graph would need a
+capture per slot).  Megastep needs every tp rank on one device.  Meshes
+other than tp, and KV page export/import are not ported yet.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from crowdllama_tpu_torch.ops.cuda.paged import (
     flash_paged_decode_attention_tp,
     ragged_paged_attention,
 )
+from crowdllama_tpu_torch.ops.megastep import run_ragged_megastep
 from crowdllama_tpu_torch.ops.quant import dequantize_kv, quantize_kv
 from crowdllama_tpu_torch.parallel.mesh import (
     Mesh,
@@ -272,6 +279,9 @@ class PagedModelRunner(ModelRunner):
         self._key_children.clear()
         self._pending_match = None
         self._ragged_slot = None
+        kept = self._kept_state()
+        if kept is not None:
+            return kept
         per = [self._kv_zeros(shape, d) for d in self.devices]
         scales = {name: [p[2][name] for p in per] for name in per[0][2]}
         return PagedDecodeState(pool_k=[p[0] for p in per],
@@ -638,6 +648,23 @@ class PagedModelRunner(ModelRunner):
         self._advance_host(num_steps, skip=self._ragged_slot)
         return torch.stack(out), state
 
+    # ------------------------------------------------------------ megastep
+
+    def _step_logits(self, st: PagedDecodeState, table) -> torch.Tensor:
+        return self.decode_logits(st, table)
+
+    def _mega_prepare(self, num_steps: int) -> dict:
+        """Grow every decoding slot's pages for the full K (an early exit
+        frees the extra pages at release, as EOS overshoot does); the
+        flight's page table at full width."""
+        for slot in list(self._slot_pages):
+            if slot != self._ragged_slot:
+                self._ensure_slot(slot, num_steps)
+        return {"table": self._table()}
+
+    def _mega_advance(self, num_steps: int) -> None:
+        self._advance_host(num_steps, skip=self._ragged_slot)
+
     # ------------------------------------------------ unified ragged batch
 
     class RaggedPrefillJob:
@@ -806,6 +833,43 @@ class PagedModelRunner(ModelRunner):
         self._advance_host(num_steps, skip=job.slot)
         self._ragged_index(job)
         return torch.stack(out), state
+
+    @torch.inference_mode()
+    def ragged_megastep(self, state: PagedDecodeState,
+                        job: "RaggedPrefillJob", num_steps: int = 1,
+                        eos_ids=None, budgets=None):
+        """K = ``num_steps`` unified steps in one host dispatch: every
+        decode slot advances one token a step with on-device sampling and
+        done-flags (as :meth:`decode_megastep`), and the job prefills up
+        to ``ragged_chunk`` prompt tokens a step (as :meth:`ragged_step`:
+        pages provisioned and ``done_tokens`` advanced to the dispatch end
+        at dispatch).  A step runs while a decode slot is alive or the
+        step carries prompt tokens.  Runs eagerly (kernel C on the card).
+        Returns (tokens [K, B], done [K, B] bool, state)."""
+        eos_ids, budgets = self._mega_limits_dev(eos_ids, budgets)
+        chunk_tokens, ctx_arr, end, wp = self._ragged_provision(job,
+                                                                num_steps)
+        table = self._table(wp)
+        ctoks = torch.from_numpy(chunk_tokens).to(self.device)
+        noise = self._step_noise(state, num_steps)
+        total = len(job.prompt_ids)
+
+        def step(i):
+            logits, valid = self.ragged_logits(state, table, total, job.slot,
+                                               ctx_arr[i], ctoks[i])
+            tok = self._sample_decode(state, logits[:-1],
+                                      None if noise is None else noise[i])
+            return tok, (logits[-1] if valid > 0 else None)
+
+        tokens, done, last = run_ragged_megastep(
+            step, state, eos_ids, budgets, [c < total for c in ctx_arr],
+            num_steps, self.cfg.vocab_size)
+        job.last_logits = last
+        job.done_tokens = end
+        self._host_seq[job.slot] = end
+        self._advance_host(num_steps, skip=job.slot)
+        self._ragged_index(job)
+        return tokens, done, state
 
     def _ragged_index(self, job: "RaggedPrefillJob") -> None:
         """Prefix-index the job's freshly completed full pages."""

@@ -7,7 +7,9 @@ paged layout tensor-parallel over a tp mesh (``mesh_shape="2"``).  Every
 other combination raises ``NotImplementedError`` naming the ROADMAP item
 that will port it; nothing falls back silently (the JAX package moves a
 paged request on a dp/sp/pp mesh to the contiguous layout; the port
-refuses it).
+refuses it).  ``megastep_k > 0`` needs every tp rank on one device (each
+flight is one CUDA graph there): :func:`check_megastep` refuses ranks on
+distinct devices.
 """
 
 from __future__ import annotations
@@ -35,10 +37,25 @@ class ServingPlan:
     mesh_shape: str = ""  # "" = one device, or the paged default mesh
 
 
-def resolve_serving_plan(config) -> ServingPlan:
+def check_megastep(megastep_k: int, devices) -> None:
+    """Refuse ``megastep_k > 0`` when the tp ranks (``devices``) sit on
+    distinct devices: a megastep flight is one CUDA graph on one device,
+    and graphs across devices are not ported."""
+    names = {str(d) for d in devices or ()}
+    if megastep_k > 0 and len(names) > 1:
+        raise ValueError(
+            f"megastep_k={megastep_k} with tp ranks on distinct devices "
+            f"{sorted(names)} is not ported to crowdllama_tpu_torch yet: "
+            f"{_MESHES}")
+
+
+def resolve_serving_plan(config, devices=None) -> ServingPlan:
     """The runner ``config`` serves with; raises ``NotImplementedError``
     for an axis the port does not carry yet.  A mesh spec is checked for
-    its axes only; the runner checks it against the devices."""
+    its axes only; the runner checks it against the devices.  With
+    ``megastep_k > 0`` the tp ranks must share one device: ``devices`` as
+    the engine places them, or, without a list, a tp mesh (its default
+    ranks are distinct devices) is refused with a ``ValueError``."""
     for axis, (ported, what) in _NOT_PORTED.items():
         value = getattr(config, axis)
         if value != ported:
@@ -54,6 +71,14 @@ def resolve_serving_plan(config) -> ServingPlan:
                 f"mesh_shape={config.mesh_shape!r} {axes} on the "
                 f"{config.kv_layout} layout is not ported to "
                 f"crowdllama_tpu_torch yet: {_MESHES}")
+    megastep_k = getattr(config, "megastep_k", 0)
+    if devices is not None:
+        check_megastep(megastep_k, devices)
+    elif megastep_k > 0 and shape is not None and shape[-1] > 1:
+        raise ValueError(
+            f"megastep_k={megastep_k} on mesh_shape={config.mesh_shape!r} "
+            f"(its tp ranks take distinct devices) is not ported to "
+            f"crowdllama_tpu_torch yet: {_MESHES}")
     runner = {"paged": "PagedModelRunner",
               "contiguous": "ModelRunner"}[config.kv_layout]
     return ServingPlan(runner=runner, kv_layout=config.kv_layout,

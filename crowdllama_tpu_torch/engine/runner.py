@@ -19,6 +19,13 @@ per-rank parameters and rope tables (lists of one on one device); only
 the paged runner serves over more than one rank.  Sequence/pipeline
 parallelism and speculation are not ported yet.
 
+Megastep (``decode_megastep``, both layouts): K decode steps per host
+dispatch with on-device sampling and done-flags (``ops/megastep.py``).
+On the CPU the harness runs eagerly; on CUDA each flight replays a CUDA
+graph captured once per shape (``engine/graphs.py``).  Once a graph
+exists, ``init_state`` zeroes the captured state in place instead of
+allocating a new one, so the graph's addresses stay the state's.
+
 Sampling keys: each slot carries a threefry key ``[2]`` uint32 in the
 state (host numpy, ``engine/prng.py``); every decode step splits every
 slot's key, live or not, and samples with the sub-key, as the JAX decode
@@ -30,12 +37,15 @@ without CUDA and without an explicit device, construction raises.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from crowdllama_tpu_torch.engine import prng
+from crowdllama_tpu_torch.engine.graphs import GraphCache
+from crowdllama_tpu_torch.engine.plan import check_megastep
 from crowdllama_tpu_torch.engine.sampling import (
     REPEAT_LAST_N,
     apply_repeat_penalty,
@@ -49,6 +59,7 @@ from crowdllama_tpu_torch.engine.weights import init_params
 from crowdllama_tpu_torch.models import transformer as T
 from crowdllama_tpu_torch.models.config import ModelConfig
 from crowdllama_tpu_torch.ops.attention import decode_attention, prefill_attention
+from crowdllama_tpu_torch.ops.megastep import NO_BUDGET, run_decode_megastep
 from crowdllama_tpu_torch.ops.quant import quantize_kv
 from crowdllama_tpu_torch.parallel.mesh import Mesh, build_mesh
 from crowdllama_tpu_torch.parallel.sharding import shard_params
@@ -115,7 +126,12 @@ class ModelRunner:
     prefill_chunk = 512
     #: the contiguous layout has no unified ragged step
     supports_ragged = False
+    #: the scheduler may run full decode chunks as megasteps
+    supports_megastep = True
     kv_layout = "contiguous"
+    #: captured megastep graphs (``engine/graphs.py``): made on the first
+    #: CUDA megastep; None on the CPU, where the harness runs eagerly
+    _graphs: GraphCache | None = None
     _EMBED_BATCH = (1, 2, 4, 8)  # padded batch sizes of the embed forward
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None,
@@ -479,7 +495,33 @@ class ModelRunner:
         return torch.zeros(shape, **kw), torch.zeros(shape, **kw), scales
 
     @torch.inference_mode()
+    def _kept_state(self) -> SlotState | None:
+        """The state the megastep graphs were captured on, reset in place
+        to what a fresh ``init_state`` makes (zeroed KV, every slot free):
+        its tensors keep the addresses the graphs hold.  None before any
+        capture."""
+        st = None if self._graphs is None else self._graphs.state
+        if st is None:
+            return None
+        fresh = self._slot_fields()
+        for f in dataclasses.fields(st):
+            cur = getattr(st, f.name)
+            if isinstance(cur, torch.Tensor):
+                if f.name in fresh:
+                    cur.copy_(fresh[f.name])
+                else:
+                    cur.zero_()
+            elif isinstance(cur, list):
+                for t in cur:
+                    t.zero_()
+        st.keys, st.sampled = fresh["keys"], fresh["sampled"]
+        return st
+
+    @torch.inference_mode()
     def init_state(self) -> DecodeState:
+        kept = self._kept_state()
+        if kept is not None:
+            return kept
         cfg = self.cfg
         k, v, scales = self._kv_zeros(
             (cfg.num_layers, self.max_slots, cfg.num_kv_heads, self.max_seq,
@@ -548,3 +590,95 @@ class ModelRunner:
         state)."""
         tokens, state = self.decode_steps_device(state, num_steps)
         return tokens.cpu().numpy(), state
+
+    # ------------------------------------------------------------ megastep
+
+    def _mega_limits_dev(self, eos_ids, budgets):
+        """Device-resident eos/budget vectors [B] int32; the no-limit
+        defaults are made once."""
+        if eos_ids is None:
+            if getattr(self, "_mega_no_eos", None) is None:
+                self._mega_no_eos = torch.full((self.max_slots,), -1,
+                                               dtype=torch.int32,
+                                               device=self.device)
+            eos_ids = self._mega_no_eos
+        else:
+            eos_ids = torch.as_tensor(np.asarray(eos_ids, np.int32)).to(
+                self.device)
+        if budgets is None:
+            if getattr(self, "_mega_no_budget", None) is None:
+                self._mega_no_budget = torch.full(
+                    (self.max_slots,), NO_BUDGET, dtype=torch.int32,
+                    device=self.device)
+            budgets = self._mega_no_budget
+        else:
+            budgets = torch.as_tensor(np.asarray(budgets, np.int32)).to(
+                self.device)
+        return eos_ids, budgets
+
+    def _graph_cache(self) -> GraphCache | None:
+        """The megastep graphs: made on the first CUDA megastep; None on
+        the CPU unless a caller set one."""
+        if self._graphs is None and self.device.type == "cuda":
+            self._graphs = GraphCache()
+        return self._graphs
+
+    def _step_logits(self, st, table) -> torch.Tensor:
+        """One decode step's logits [B, V] (``table``: the paged runner's
+        page table; unused here)."""
+        return self.decode_logits(st)
+
+    def _mega_prepare(self, num_steps: int) -> dict:
+        """Dispatch-time host bookkeeping before a megastep; returns the
+        flight's layout inputs (the paged runner's page table)."""
+        return {}
+
+    def _mega_advance(self, num_steps: int) -> None:
+        """Dispatch-time host bookkeeping after a megastep."""
+
+    @torch.inference_mode()
+    def decode_megastep(self, state, num_steps: int, eos_ids=None,
+                        budgets=None):
+        """K = ``num_steps`` full decode steps per host dispatch with
+        on-device sampling and per-slot done-flags (``ops/megastep.py``).
+        Returns ``(tokens [K, B] int32, done [K, B] bool, state)`` on the
+        device, so the host pays one read per flight.  ``eos_ids`` [B]
+        (-1 disables) and ``budgets`` [B] (tokens the host still wants)
+        drive the flags; the defaults disable both, which makes it
+        :meth:`decode_steps_device` plus all-false flags.  Host bookkeeping
+        assumes the full K.  On CUDA the flight is one replay of the
+        graph for (layout, kv dtype, tp, K, sampled); on the CPU the
+        harness runs eagerly."""
+        check_megastep(num_steps, self.devices)
+        eos_ids, budgets = self._mega_limits_dev(eos_ids, budgets)
+        values = {"eos_ids": eos_ids, "budgets": budgets,
+                  **self._mega_prepare(num_steps)}
+        noise = self._step_noise(state, num_steps)
+        if noise is not None:
+            values["noise"] = noise
+
+        def body(inputs):
+            table, noise = inputs.get("table"), inputs.get("noise")
+
+            def step(i):
+                return self._sample_decode(
+                    state, self._step_logits(state, table),
+                    None if noise is None else noise[i])
+
+            return run_decode_megastep(step, state, inputs["eos_ids"],
+                                       inputs["budgets"], num_steps)
+
+        graphs = self._graph_cache()
+        if graphs is None:
+            tokens, done = body(values)
+        else:
+            key = (self.kv_layout, self.kv_dtype, self.tp, num_steps,
+                   noise is not None)
+            graph = graphs.graph(
+                key, state,
+                lambda: {k: torch.zeros(v.shape, dtype=v.dtype,
+                                        device=self.device)
+                         for k, v in values.items()}, body)
+            tokens, done = graph.replay(state, **values)
+        self._mega_advance(num_steps)
+        return tokens, done, state

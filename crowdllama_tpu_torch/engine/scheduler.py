@@ -24,6 +24,24 @@ the slots it was dispatched for, and emission checks slot identity against
 it, so a slot retired (or retired-and-readmitted) between dispatch and
 readback never receives another chunk's tokens.
 
+Megastep (``megastep_k > 0``, runners with ``supports_megastep``): a
+full-size decode chunk dispatches K steps as one ``decode_megastep``
+flight, and a full-size chunk with a ragged prefill parked as one
+``ragged_megastep`` flight, each returning per-slot done-flags beside the
+tokens (limits from ``_mega_limits``: each slot's EOS id and remaining
+budget).  Smaller chunks keep the per-step path.
+
+The flight plane: each flight is read back in one host transfer (tokens
+and done-flags together) and accounted per dispatch class (``plain``,
+``megastep``, ``ragged``, ``ragged_mega``): the host gap before it, an
+EWMA of its duty cycle and of its duration, the prefill chunks it
+carried (``crowdllama_prefill_chunk_seconds``) and its useful and padding
+tokens; ``step_token_budget_used`` is set at dispatch.  The self-watchdog
+(``wedge_multiplier > 0``) judges the flight in progress against its
+class's duration EWMA from a task of its own and, past the threshold,
+fails every request with a typed ``error: wedged: ...`` reason and
+self-drains once.
+
 Graceful shutdown: ``drain`` rejects new submissions and waits for the
 work in flight; ``migrate`` retires every request (active slots, the
 chunked admission in progress, deferred and pending requests) with the
@@ -31,8 +49,8 @@ terminal reason ``"migrate"`` at the loop's next safe point, between
 dispatches, so the gateway re-routes each stream.  Released slots return
 their pages through the runner's prefix cache.
 
-Not ported yet: speculation, megastep, the autopilot, the dispatch
-watchdog, KV import and the fault-injection hooks.
+Not ported yet: speculation (the ``spec`` class reads 0), the autopilot,
+KV import and the fault-injection hooks.
 """
 
 from __future__ import annotations
@@ -51,6 +69,7 @@ import numpy as np
 import torch
 
 from crowdllama_tpu_torch.engine import prng
+from crowdllama_tpu_torch.obs.metrics import ENGINE_TELEMETRY
 
 log = logging.getLogger("crowdllama.torch.scheduler")
 
@@ -63,6 +82,13 @@ _RESERVED = object()
 class OverloadedError(RuntimeError):
     """Admission rejected: pending depth crossed the configured threshold.
     The message starts with "overloaded" (the gateway maps it to HTTP 503)."""
+
+
+class WedgedError(RuntimeError):
+    """The dispatch self-watchdog declared the engine wedged: a flight
+    stayed in flight far past its dispatch class's duration EWMA.
+    Requests failed under it carry a reason starting ``"error: wedged"``,
+    which the engine re-raises as this type."""
 
 
 @dataclass(eq=False)  # identity semantics (slot tracking)
@@ -109,13 +135,24 @@ class _InFlightChunk:
     tokens_dev: torch.Tensor            # [K, B] on the device
     snapshot: list                      # slot infos at dispatch time
     dispatched_at: float
+    # Prefill chunks that rode this flight (0 = no ragged prefill).
+    ragged_steps: int = 0
+    # Megastep flights: the per-slot done-flags [K, B] on the device.
+    done_dev: torch.Tensor | None = None
 
 
 class Scheduler:
     def __init__(self, runner, max_queue: int = 256, decode_chunk: int = 8,
-                 admission_pending_max: int = 0, ragged: bool = True):
+                 admission_pending_max: int = 0, ragged: bool = True,
+                 megastep_k: int = 0, wedge_multiplier: float = 0.0,
+                 clock=time.monotonic):
         self.runner = runner
         self.decode_chunk = max(1, decode_chunk)
+        # K steps per megastep flight; 0 (or a runner without
+        # supports_megastep) keeps the per-step-chunk path.
+        self.megastep_k = max(0, megastep_k)
+        self._megastep = (self.megastep_k > 0
+                          and getattr(runner, "supports_megastep", False))
         self.admission_pending_max = max(0, admission_pending_max)
         self.slots: list = [None] * runner.max_slots
         self.pending: asyncio.Queue[GenRequest] = asyncio.Queue(max_queue)
@@ -139,6 +176,27 @@ class Scheduler:
         self.ragged_chunks = 0  # prefill chunks dispatched unified
         self.host_dispatches = 0  # decode / ragged programs dispatched
         self._tokens_per_dispatch = 0  # tokens the last retired flight emitted
+        # Tokens of work the last dispatched step carried (live decode
+        # slots + prefill-chunk tokens per step).
+        self._step_budget_used = 0.0
+        # Per dispatch class: EWMAs of the duty cycle (device window over
+        # window + host gap) and of the flight's duration (the watchdog's
+        # baseline).
+        self._duty: dict[str, float] = {}
+        self._flight_ewma: dict[str, float] = {}
+        # Self-watchdog: a flight older than wedge_multiplier x its class's
+        # duration EWMA (at least wedge_floor_s) marks the engine wedged.
+        self.wedge_multiplier = max(0.0, float(wedge_multiplier))
+        self._clock = clock
+        self.wedge_floor_s = 5.0
+        self.wedge_check_interval_s = 0.25
+        self.wedged = False
+        self.wedged_events = 0
+        self._wedge_drain_fired = False
+        self._watchdog_task: asyncio.Task | None = None
+        # Called once when the watchdog trips (the engine points it at the
+        # peer's drain, else its own migrate).
+        self.drain_requested_cb = None
         self.prefill_chunks = 0  # legacy chunked-admission chunks run
         self._draining = False  # submissions are refused
         # Set by migrate(): the loop retires everything at its next safe
@@ -165,14 +223,26 @@ class Scheduler:
 
     def start(self) -> None:
         self._draining = False
+        self.wedged = False
+        self._wedge_drain_fired = False
         if self._exec is None:
             self._exec = self._new_executor()
         if self.state is None:
             self.state = self.runner.init_state()
         if self._task is None:
             self._task = asyncio.create_task(self._loop(), name="decode-loop")
+        if self.wedge_multiplier > 0 and self._watchdog_task is None:
+            self._watchdog_task = asyncio.create_task(
+                self._watchdog_loop(), name="wedge-watchdog")
 
     async def stop(self) -> None:
+        if self._watchdog_task is not None:
+            self._watchdog_task.cancel()
+            try:
+                await self._watchdog_task
+            except asyncio.CancelledError:
+                pass
+            self._watchdog_task = None
         if self._task is not None:
             self._task.cancel()
             try:
@@ -239,8 +309,12 @@ class Scheduler:
         the chunked admission in progress, deferred and pending requests)
         with ``"migrate"`` at the loop's next safe point; returns how many
         were moved.  A slot whose last token was already emitted keeps its
-        own terminal (it was served, not moved)."""
+        own terminal (it was served, not moved).  A wedged engine moves
+        nothing: its loop may never reach a safe point, and the watchdog
+        already failed every request."""
         self._draining = True
+        if self.wedged:
+            return 0
         if self._task is None:
             return await self._retire_all("migrate")
         if self._migrating is None:
@@ -274,10 +348,11 @@ class Scheduler:
         scheduler's keys: queue depth, batch occupancy, KV-cache
         utilization (paged: the page pool's occupancy, cached prefix pages
         included; contiguous: tokens held over capacity), the chunked
-        admission in progress, dispatches and the tokens of the last
-        retired flight.  The self-watchdog and remote-draft planes are
-        not ported and read 0 (``Engine.obs_gauges`` zeroes the rest), so
-        every family exists on a torch worker."""
+        admission in progress, the token budget the last dispatched step
+        carried, dispatches and the tokens of the last retired flight, the
+        duty cycle per dispatch class, and the self-watchdog's level and
+        trips.  Speculation is not ported: its class and the remote-draft
+        plane read 0, so every family exists on a torch worker."""
         active = sum(1 for s in self.slots if isinstance(s, _SlotInfo))
         total = max(1, len(self.slots))
         r = self.runner
@@ -288,19 +363,105 @@ class Scheduler:
             used = sum(s.prompt_len + s.generated for s in self.slots
                        if isinstance(s, _SlotInfo))
             util = used / (total * max(1, r.max_seq))
-        return {
+        g = {
             "pending_depth": float(self.pending.qsize() + len(self._deferred)
                                    + self._admitting),
             "active_slots": float(active),
             "batch_occupancy": active / total,
             "kv_cache_utilization": util,
             "prefill_chunk_slots": 1.0 if self._chunking is not None else 0.0,
+            "step_token_budget_used": float(self._step_budget_used),
             "host_dispatches_total": float(self.host_dispatches),
             "tokens_per_dispatch": float(self._tokens_per_dispatch),
-            "wedged": 0.0, "wedged_events_total": 0.0,
+            "wedged": 1.0 if self.wedged else 0.0,
+            "wedged_events_total": float(self.wedged_events),
             "spec_pipeline_depth": 0.0, "spec_pipeline_verifies": 0.0,
             "spec_pipeline_stale": 0.0, "spec_pipeline_freeruns": 0.0,
         }
+        for cls in ("plain", "megastep", "ragged", "ragged_mega", "spec"):
+            g[f"duty_cycle|dispatch={cls}"] = float(self._duty.get(cls, 0.0))
+        return g
+
+    # --------------------------------------------- dispatch self-watchdog
+
+    @staticmethod
+    def _flight_class(fl: _InFlightChunk) -> str:
+        """Dispatch class of a flight, from host-side metadata only (the
+        watchdog must not touch the device a hung flight holds)."""
+        if fl.done_dev is not None:
+            return "ragged_mega" if fl.ragged_steps else "megastep"
+        return "ragged" if fl.ragged_steps else "plain"
+
+    def check_wedged(self, now: float | None = None) -> bool:
+        """One watchdog probe: has the flight in progress outlived its
+        class's threshold, ``max(wedge_floor_s, wedge_multiplier x the
+        class's flight-duration EWMA)``?  Pure host arithmetic on the
+        injected clock.  A class with no retired flight is never judged
+        (its first flight holds the megastep graph's capture).
+        Idempotent once tripped."""
+        if self.wedged:
+            return True
+        fl = self._inflight
+        if self.wedge_multiplier <= 0 or fl is None:
+            return False
+        cls = self._flight_class(fl)
+        ewma = self._flight_ewma.get(cls)
+        if ewma is None:
+            return False
+        if now is None:
+            now = self._clock()
+        age = now - fl.dispatched_at
+        threshold = max(self.wedge_floor_s, self.wedge_multiplier * ewma)
+        if age <= threshold:
+            return False
+        self._declare_wedged(cls, age, threshold)
+        return True
+
+    def _declare_wedged(self, cls: str, age: float,
+                        threshold: float) -> None:
+        """Fail every request a terminal can still reach with the typed
+        ``error: wedged`` reason, refuse new submissions, resolve a waiting
+        ``migrate`` with 0, and start one self-drain through
+        ``drain_requested_cb``.  Touches no device state: the dispatch
+        thread may be stuck in the hung flight."""
+        self.wedged = True
+        self.wedged_events += 1
+        self._draining = True
+        reason = (f"error: wedged: {cls} flight stuck for {age:.1f}s "
+                  f"(threshold {threshold:.1f}s = "
+                  f"{self.wedge_multiplier:g}x class EWMA)")
+        log.error("dispatch self-watchdog: %s; failing in-flight requests "
+                  "and self-draining", reason[len("error: "):])
+        if self._chunking is not None:
+            self._chunking[0].finish(reason)
+        for info in self.slots:
+            if isinstance(info, _SlotInfo):
+                info.req.finish(reason)
+        while self._deferred:
+            self._deferred.popleft().finish(reason)
+        while not self.pending.empty():
+            self.pending.get_nowait().finish(reason)
+        if self._migrating is not None:
+            fut, self._migrating = self._migrating, None
+            if not fut.done():
+                fut.set_result(0)
+        if self.drain_requested_cb is not None \
+                and not self._wedge_drain_fired:
+            self._wedge_drain_fired = True
+            try:
+                self.drain_requested_cb()
+            except Exception:
+                log.exception("wedge self-drain callback failed")
+
+    async def _watchdog_loop(self) -> None:
+        """A task apart from the decode loop: a wedged flight parks the
+        loop in its executor await, so only another task still runs."""
+        while not self.wedged:
+            await asyncio.sleep(self.wedge_check_interval_s)
+            try:
+                self.check_wedged()
+            except Exception:
+                log.exception("wedge watchdog probe failed")
 
     # ------------------------------------------------------------------ loop
 
@@ -384,6 +545,25 @@ class Scheduler:
         if not self.pending.empty() or self._deferred:
             return 1
         return self.decode_chunk
+
+    def _mega_limits(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per-slot EOS ids and remaining token budgets [B] int32 for a
+        megastep flight, from host bookkeeping: the flags fire where
+        ``_emit`` would retire the slot (the same EOS compare; the budget
+        is the lesser of the request's and the context's headroom)."""
+        b = len(self.slots)
+        eos = np.full((b,), -1, np.int32)
+        budgets = np.zeros((b,), np.int32)
+        for i, info in enumerate(self.slots):
+            if not isinstance(info, _SlotInfo):
+                continue
+            req = info.req
+            if req.eos_id is not None and req.eos_id >= 0:
+                eos[i] = req.eos_id
+            budgets[i] = max(0, min(
+                req.max_tokens - info.generated,
+                (self.runner.max_seq - 1) - info.prompt_len - info.generated))
+        return eos, budgets
 
     def _fail_all(self, reason: str) -> None:
         if self._chunking is not None:
@@ -483,6 +663,12 @@ class Scheduler:
         live = sum(1 for s in self.slots if isinstance(s, _SlotInfo))
         if rjob is not None or live:
             k = self._chunk_size()
+            # Only full-size chunks become megasteps (a size-1 dispatch
+            # keeps its admission-latency purpose); deciding before
+            # pre_decode_check sizes page growth for the real step count.
+            use_mega = self._megastep and k == self.decode_chunk
+            if use_mega:
+                k = self.megastep_k
             # Slots an overcommitted pool cannot grow finish with "length"
             # (their pages free on release), one at a time.
             starved = await self._run(self.runner.pre_decode_check, k)
@@ -502,14 +688,22 @@ class Scheduler:
                 starved = await self._run(self.runner.pre_decode_check, k)
             live = sum(1 for s in self.slots if isinstance(s, _SlotInfo))
             if rjob is not None:
-                dispatched = await self._ragged_dispatch(k)
+                dispatched = await self._ragged_dispatch(k, use_mega, live)
             elif live:
+                done_dev = None
+                if use_mega:
+                    eos_ids, budgets = self._mega_limits()
+                    tokens_dev, done_dev, self.state = await self._run(
+                        self.runner.decode_megastep, self.state, k,
+                        eos_ids=eos_ids, budgets=budgets)
+                else:
+                    tokens_dev, self.state = await self._run(
+                        self.runner.decode_steps_device, self.state, k)
+                self._step_budget_used = float(live)
                 self.host_dispatches += 1
-                tokens_dev, self.state = await self._run(
-                    self.runner.decode_steps_device, self.state, k)
                 dispatched = _InFlightChunk(
                     tokens_dev=tokens_dev, snapshot=list(self.slots),
-                    dispatched_at=time.monotonic())
+                    dispatched_at=self._clock(), done_dev=done_dev)
 
         # Advance a legacy chunked admission by ONE prefill chunk (ragged
         # jobs advanced inside the dispatch above).
@@ -523,16 +717,26 @@ class Scheduler:
         self._inflight = dispatched
         await asyncio.sleep(0)  # let submitters/streamers run
 
-    async def _ragged_dispatch(self, k: int) -> _InFlightChunk | None:
-        """Advance the parked ragged admission inside this decode dispatch;
-        on its last chunk sample its first token and activate its slot."""
+    async def _ragged_dispatch(self, k: int, mega: bool,
+                               live: int) -> _InFlightChunk | None:
+        """Advance the parked ragged admission inside this decode dispatch
+        (``mega``: one ``ragged_megastep`` flight of ``k`` steps with
+        done-flags, else ``ragged_step``); on its last chunk sample its
+        first token and activate its slot."""
         req, slot, job = self._chunking
         c = self.runner.ragged_chunk
         chunk_toks = min(k * c, len(job.prompt_ids) - job.done_tokens)
         n_chunks = -(-chunk_toks // max(1, c))
+        done_dev = None
         try:
-            tokens_dev, self.state = await self._run(
-                self.runner.ragged_step, self.state, job, k)
+            if mega:
+                eos_ids, budgets = self._mega_limits()
+                tokens_dev, done_dev, self.state = await self._run(
+                    self.runner.ragged_megastep, self.state, job, k,
+                    eos_ids=eos_ids, budgets=budgets)
+            else:
+                tokens_dev, self.state = await self._run(
+                    self.runner.ragged_step, self.state, job, k)
         except ValueError as e:
             # Pool cannot cover the job's next pages (PagesExhausted):
             # fail THIS request, the engine stays up.
@@ -541,10 +745,12 @@ class Scheduler:
             req.finish(f"error: {e}")
             return None
         self.ragged_chunks += n_chunks
+        self._step_budget_used = float(live + chunk_toks / max(1, k))
         self.host_dispatches += 1
         dispatched = _InFlightChunk(
             tokens_dev=tokens_dev, snapshot=list(self.slots),
-            dispatched_at=time.monotonic())
+            dispatched_at=self._clock(), ragged_steps=n_chunks,
+            done_dev=done_dev)
         if job.finished:
             self._chunking = None
             self._admitting -= 1
@@ -653,14 +859,57 @@ class Scheduler:
                 break
 
     async def _retire_inflight(self) -> None:
-        """Read back and emit the in-flight chunk, if any."""
+        """Read back and emit the in-flight chunk, if any, and account it
+        in the flight plane."""
         if self._inflight is None:
             return
         fl, self._inflight = self._inflight, None
-        tokens = await self._run(lambda t: t.cpu().numpy(), fl.tokens_dev)
-        now = time.monotonic()
+        # One host transfer per flight: the done-flags ride with the tokens.
+        if fl.done_dev is None:
+            packed = await self._run(lambda t: t.cpu().numpy(), fl.tokens_dev)
+            tokens, done = packed, None
+        else:
+            packed = await self._run(
+                lambda t, d: torch.stack([t, d.to(t.dtype)]).cpu().numpy(),
+                fl.tokens_dev, fl.done_dev)
+            tokens, done = packed[0], packed[1].astype(bool)
+        now = self._clock()
         dt = max(now - max(self._last_retire_at, fl.dispatched_at), 1e-6)
+        # Host gap: the stretch after the previous flight retired with
+        # nothing queued on the device (zero when this flight was
+        # dispatched before that retire, the pipelined steady state).
+        gap = (max(0.0, fl.dispatched_at - self._last_retire_at)
+               if self._last_retire_at else 0.0)
+        cls = self._flight_class(fl)
+        ENGINE_TELEMETRY.host_gap_seconds.labels(cls).observe(gap)
+        duty = dt / max(dt + gap, 1e-9)
+        prev = self._duty.get(cls)
+        self._duty[cls] = duty if prev is None else 0.9 * prev + 0.1 * duty
+        # The watchdog's baseline: the wall time spent waiting on flights
+        # of this class.
+        e = self._flight_ewma.get(cls)
+        self._flight_ewma[cls] = dt if e is None else 0.9 * e + 0.1 * dt
         self._last_retire_at = now
+        if fl.ragged_steps:
+            # The flight's chunks ran back to back: share its wall time.
+            per = max(now - fl.dispatched_at, 1e-6) / fl.ragged_steps
+            for _ in range(fl.ragged_steps):
+                ENGINE_TELEMETRY.prefill_chunk_seconds.observe(per)
+        # Every step runs the whole batch: slots empty at dispatch computed
+        # throwaway rows.  A megastep flight counts only the steps before
+        # its whole-batch exit (a fused ragged flight at least its chunks).
+        live_cols = np.array([isinstance(s, _SlotInfo) for s in fl.snapshot],
+                             bool)
+        live = int(live_cols.sum())
+        steps_run = tokens.shape[0]
+        if done is not None and live_cols.any() \
+                and done[:, live_cols].any(axis=0).all():
+            steps_run = int(done[:, live_cols].argmax(axis=0).max()) + 1
+            if fl.ragged_steps:
+                steps_run = max(steps_run, fl.ragged_steps)
+        ENGINE_TELEMETRY.padding_inc(
+            useful=live * steps_run,
+            waste=max(0, tokens.shape[-1] - live) * steps_run)
         emitted = 0
         for step in range(tokens.shape[0]):
             for i, info in enumerate(fl.snapshot):
