@@ -94,7 +94,28 @@ Phases, each printing one JSON line:
    cli: ``python -m crowdllama_tpu_torch.cli.main start --worker-mode``
    (tinyllama-1.1b, random weights) in its own process joins this
    process's DHT node, answers one request over a secure stream from a
-   worker whose metadata names the card, and exits 0 on SIGTERM;
+   worker whose metadata names the card; beside it ``start`` (a
+   consumer with its gateway on ``--gateway-port``) in a process of its
+   own: the CLI's ``network-status`` names the worker healthy and ``run
+   <model> "<prompt>"`` prints through that gateway the text a greedy
+   ``/api/chat`` of the prompt replies; both processes exit 0 on SIGTERM;
+   gateway (its own line, and a ``gateway_megastep`` line): the consumer
+   side, every module the port's own, on 127.0.0.1 — a DHT node, two
+   workers (eager, paged bf16, one set of seed-0 weights shared on the
+   card, the unembedding of every id but printable ASCII zeroed so each
+   token is a character), a consumer ``Peer`` and its ``Gateway``, the
+   standard library's ``http.client`` as the client: greedy ``/api/chat``
+   (streamed and not) and the CLI's ``run`` through this gateway,
+   ``/api/generate`` equal to ``generate()``, a
+   seeded request that repeats, SSE ``/v1/chat/completions``,
+   ``/api/embed`` vs the runner, tags, health, /metrics, a stitched
+   trace, a burst shed with ``Retry-After``, TTFB and tokens/s of 8
+   concurrent chats beside 8 direct streams, host us per NDJSON frame,
+   the busy share over 1 s with 4 streams through the gateway, the long
+   prompt through it (kernel C), a drain at the third chunk failing over
+   with the same text; A, B and C launch; then a worker with
+   ``megastep_k=8`` behind the same gateway: tokens/s of 8 streams
+   beside direct ``generate()`` and the AEAD's us per operation;
 7. engine_int8: the same engine with ``kv_dtype="int8"`` (int8 pools)
    and the same traffic plus a seeded sampled stream (temperature 0.8,
    seed 1234) that must repeat token for token when sent again; kernels
@@ -1208,9 +1229,12 @@ def busy_share(trace_path: str, seconds: float) -> dict:
         events = json.load(f)["traceEvents"]
     kernels = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["name"])
                      for e in events if e.get("cat") == "kernel")
+    cats: dict[str, int] = {}
+    for e in events:
+        cats[e.get("cat", "")] = cats.get(e.get("cat", ""), 0) + 1
     if not kernels:
         raise AssertionError(f"the profile {trace_path} holds no CUDA "
-                             f"kernel ({len(events)} events)")
+                             f"kernel (events by category: {cats})")
     busy, end, by_name = 0.0, -1.0, {}
     for t0, t1, name in kernels:
         busy += max(0.0, t1 - max(t0, end))
@@ -1218,9 +1242,6 @@ def busy_share(trace_path: str, seconds: float) -> dict:
         by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
     span = kernels[-1][1] - kernels[0][0]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    cats: dict[str, int] = {}
-    for e in events:
-        cats[e.get("cat", "")] = cats.get(e.get("cat", ""), 0) + 1
     return {"events_by_category": cats, "kernels": len(kernels),
             "busy_us": busy,
             "window_us": seconds * 1e6, "busy_share": busy / (seconds * 1e6),
@@ -1699,8 +1720,15 @@ def cli_phase(extra: tuple = ()) -> dict:
     at a DHT bootstrap node of this process.  Once a metadata op of the
     DHT answers for it, a client host sends one GenerateRequest over a
     secure inference stream; the reply must be done and come from the
-    worker whose metadata names the card.  Then SIGTERM: the worker
-    drains and must exit 0.  ``extra`` adds CLI flags."""
+    worker whose metadata names the card.  Beside it, ``start`` (a
+    consumer, ``--gateway-port``) in a process of its own on the same DHT
+    node: once its ``/api/health`` lists the worker healthy, the CLI's
+    ``network-status`` exits 0 naming the worker healthy and ``run
+    <model> "<prompt>"`` prints a reply through the consumer's gateway
+    (the gateway's /metrics then counts one 200 on /api/chat), the text
+    of a greedy ``/api/chat`` of the same prompt and a newline.  Then
+    SIGTERM to both: each must exit 0.  ``extra`` adds the worker's CLI
+    flags."""
     import os
     import signal
     import tempfile
@@ -1721,11 +1749,19 @@ def cli_phase(extra: tuple = ()) -> dict:
             Ed25519PrivateKey.generate(), listen_host="127.0.0.1")
         addr = f"127.0.0.1:{boot.listen_port}"
         err = open(os.path.join(tmp, "worker.err"), "w")
+        cerr = open(os.path.join(tmp, "consumer.err"), "w")
+        gport = _free_port()
+        cli = (sys.executable, "-m", "crowdllama_tpu_torch.cli.main")
         t0 = time.perf_counter()
         proc = await asyncio.create_subprocess_exec(
-            sys.executable, "-m", "crowdllama_tpu_torch.cli.main", "start",
-            "--worker-mode", "--model", TINYLLAMA, "--bootstrap-peers", addr,
-            "--key-path", tmp, *extra, cwd=root, stderr=err)
+            *cli, "start", "--worker-mode", "--model", TINYLLAMA,
+            "--bootstrap-peers", addr, "--key-path", tmp, *extra, cwd=root,
+            stderr=err)
+        os.makedirs(os.path.join(tmp, "consumer"))
+        cons = await asyncio.create_subprocess_exec(
+            *cli, "start", "--gateway-port", str(gport), "--bootstrap-peers",
+            addr, "--key-path", os.path.join(tmp, "consumer"),
+            "--listen-port", "0", cwd=root, stderr=cerr)
         out: dict = {}
         try:
             res = None
@@ -1735,7 +1771,7 @@ def cli_phase(extra: tuple = ()) -> dict:
                                          f"(rc {proc.returncode})")
                 for c in boot_dht.table.contacts():
                     raw = await boot_dht.request_metadata(c)
-                    if raw:
+                    if raw and Resource.from_json(raw).worker_mode:
                         res = Resource.from_json(raw)
                 await asyncio.sleep(0.5)
             out["up_s"] = time.perf_counter() - t0
@@ -1759,19 +1795,27 @@ def cli_phase(extra: tuple = ()) -> dict:
                     and res.supported_models == [TINYLLAMA]
                     and res.gpu_model == torch.cuda.get_device_name(0)):
                 raise AssertionError(f"cli: reply {reply} from {res}")
+            out["consumer"] = await _cli_consumer(cli, root, gport,
+                                                  res.peer_id, cons)
             proc.send_signal(signal.SIGTERM)
+            cons.send_signal(signal.SIGTERM)
             out["rc"] = await asyncio.wait_for(proc.wait(), 120)
+            out["consumer_rc"] = await asyncio.wait_for(cons.wait(), 120)
         finally:
-            if proc.returncode is None:
-                proc.kill()
-                await proc.wait()
+            for p in (proc, cons):
+                if p.returncode is None:
+                    p.kill()
+                    await p.wait()
             err.close()
+            cerr.close()
             await client.close()
             await boot.close()
-        if out["rc"] != 0:
-            with open(os.path.join(tmp, "worker.err")) as f:
-                raise AssertionError(f"cli: the worker exited {out['rc']}: "
-                                     f"{f.read()[-2000:]}")
+        for rc, name in ((out.get("rc"), "worker"),
+                         (out.get("consumer_rc"), "consumer")):
+            if rc != 0:
+                with open(os.path.join(tmp, f"{name}.err")) as f:
+                    raise AssertionError(f"cli: the {name} exited {rc}: "
+                                         f"{f.read()[-2000:]}")
         return out
 
     with tempfile.TemporaryDirectory(prefix="cli") as tmp:
@@ -1779,6 +1823,659 @@ def cli_phase(extra: tuple = ()) -> dict:
     emit({"phase": "cli", "model": TINYLLAMA, **out,
           "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()})
     return out
+
+
+GATEWAY_TOKENS = 32
+GATEWAY_STREAMS = 8
+GATEWAY_CAP = 2
+GATEWAY_BURST = 6
+GATEWAY_BUSY_TOKENS = 256
+GATEWAY_MEGA_TOKENS = 64
+FRAME_ITERS = 2000
+# The gateway's fixed families on /metrics.
+GATEWAY_FAMILIES = (
+    "crowdllama_gateway_requests_total", "crowdllama_gateway_ttfb_seconds",
+    "crowdllama_gateway_hotpath_us_total", "crowdllama_gateway_shed_total",
+    "crowdllama_gateway_failovers_total", "crowdllama_workers_healthy",
+    "crowdllama_request_seconds", "crowdllama_ttft_seconds",
+    "crowdllama_hedge_launched_total", "crowdllama_host_streams_total")
+
+
+def gateway_params(dev) -> dict:
+    """TinyLlama's seed-0 weights (as ``seed0_params``), made once on the
+    card for every engine of the gateway phase to share, with the
+    unembedding columns of every id but printable ASCII (32-126) zeroed:
+    a greedy token is then one character of text, so a stream carries a
+    frame per token and its text is as long as its token ids (the byte
+    tokenizer renders the ids past 255 that random weights otherwise emit
+    as nothing)."""
+    params = seed0_params(dev)
+    keep = torch.zeros(params["lm_head"].shape[1], dtype=torch.bool)
+    keep[32:127] = True
+    params["lm_head"][:, ~keep] = 0
+
+    def card(tree):
+        return {k: card(v) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    return card(params)
+
+
+def _http(port: int, method: str, path: str, body=None,
+          lines: list | None = None, timeout: float = 600.0) -> dict:
+    """One request over the standard library's ``http.client``: status,
+    headers (lower-case names), the send time and every body line with
+    its arrival time (host seconds), appended to ``lines`` as they
+    come."""
+    import http.client
+
+    lines = [] if lines is None else lines
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        headers = {"Content-Type": "application/json"} if data else {}
+        t0 = time.perf_counter()
+        conn.request(method, path, body=data, headers=headers)
+        resp = conn.getresponse()
+        while line := resp.readline():
+            lines.append((time.perf_counter(), line))
+        return {"status": resp.status, "t0": t0, "lines": lines,
+                "headers": {k.lower(): v for k, v in resp.getheaders()}}
+    finally:
+        conn.close()
+
+
+def _ndjson(r: dict) -> list[dict]:
+    return [json.loads(ln) for _, ln in r["lines"] if ln.strip()]
+
+
+def _sse(r: dict) -> list:
+    out = []
+    for _, ln in r["lines"]:
+        ln = ln.decode().strip()
+        if ln.startswith("data: "):
+            ev = ln[len("data: "):]
+            out.append(ev if ev == "[DONE]" else json.loads(ev))
+    return out
+
+
+def _chat_body(prompt: str, tokens: int, stream: bool, **options) -> dict:
+    return {"model": TINYLLAMA, "stream": stream,
+            "messages": [{"role": "user", "content": prompt}],
+            "options": {"num_predict": tokens, **options}}
+
+
+async def _direct(engine, prompt: str, tokens: int) -> tuple:
+    """A direct greedy ``generate()``: (text, seconds to the first chunk,
+    completion tokens)."""
+    text, first, final = "", 0.0, None
+    t0 = time.perf_counter()
+    async for chunk in engine.generate(prompt, max_tokens=tokens):
+        first = first or time.perf_counter() - t0
+        text += chunk.text
+        final = chunk
+    return text, first, final.completion_tokens
+
+
+async def _concurrent(gw, prompts: list[str], tokens: int) -> dict:
+    """``prompts`` as streamed chats through the gateway ``gw`` at once:
+    each one's TTFB (first NDJSON line after the send), the worker that
+    served it and its completion tokens, tokens/s over the whole window,
+    and what the gateway's host paid for streams meanwhile (pool hits and
+    misses, handshakes and their seconds)."""
+    stats, pool = gw.peer.host.stats, gw._stream_pool
+    before = (pool.hits, pool.misses, stats.get("streams_out", 0),
+              stats.get("handshake_ns", 0))
+    t0 = time.perf_counter()
+    rs = await asyncio.gather(*(asyncio.to_thread(
+        _http, gw.port, "POST", "/api/chat", _chat_body(p, tokens, True))
+        for p in prompts))
+    wall = time.perf_counter() - t0
+    after = (pool.hits, pool.misses, stats.get("streams_out", 0),
+             stats.get("handshake_ns", 0))
+    for r in rs:
+        if r["status"] != 200 or not _ndjson(r)[-1].get("done"):
+            raise AssertionError(f"gateway: a concurrent stream ended "
+                                 f"{r['status']} {r['lines'][-1:]}")
+    last = [_ndjson(r)[-1] for r in rs]
+    ttfb = sorted((r["lines"][0][0] - r["t0"]) * 1e3 for r in rs)
+    tokens_out = sum(x["eval_count"] for x in last)
+    return {"ttfb_ms_median": ttfb[len(ttfb) // 2], "ttfb_ms_max": ttfb[-1],
+            "ttfb_ms": ttfb, "wall_s": wall, "completion_tokens": tokens_out,
+            "tokens_per_s": tokens_out / wall,
+            "frames": [len(_ndjson(r)) for r in rs],
+            "workers": [x["worker_id"] for x in last],
+            "pool_hits": after[0] - before[0],
+            "pool_misses": after[1] - before[1],
+            "streams_dialed": after[2] - before[2],
+            "handshake_s": (after[3] - before[3]) / 1e9}
+
+
+def _counts(workers: list[str]) -> dict:
+    """Streams per worker (its id's head)."""
+    return {w[:8]: workers.count(w) for w in sorted(set(workers))}
+
+
+async def _concurrent_direct(assign: list, tokens: int) -> dict:
+    """The same prompts as direct ``generate()`` streams at once, each on
+    the engine (``assign``: (engine, prompt)) the gateway gave it."""
+    t0 = time.perf_counter()
+    rs = await asyncio.gather(*(_direct(e, p, tokens) for e, p in assign))
+    wall = time.perf_counter() - t0
+    ttft = sorted(r[1] * 1e3 for r in rs)
+    tokens_out = sum(r[2] for r in rs)
+    return {"ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
+            "ttft_ms": ttft, "wall_s": wall, "completion_tokens": tokens_out,
+            "tokens_per_s": tokens_out / wall}
+
+
+def frame_render_us(iters: int = FRAME_ITERS) -> float:
+    """Host us to render one streamed chat frame as the gateway writes it
+    (a decoded GenerateResponse -> Ollama JSON -> one NDJSON line)."""
+    from crowdllama_tpu_torch.core import wire
+    from crowdllama_tpu_torch.core.messages import genresp_frame_bytes
+    from crowdllama_tpu_torch.gateway.gateway import Gateway
+
+    resp = wire.decode_payload(genresp_frame_bytes(
+        TINYLLAMA, " tok", worker_id="w" * 40, done=False)[4:]
+    ).generate_response
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        json.dumps(Gateway._ollama_json(resp, True, final=False)).encode() \
+            + b"\n"
+    return (time.perf_counter() - t0) * 1e6 / iters
+
+
+def _flush_us_per_frame(gw, tids: set, frames: dict) -> list[float]:
+    """Host us per NDJSON frame the gateway wrote (each request's
+    ``stream_flush`` span over its frames)."""
+    out = []
+    for rec in gw.obs.trace.snapshot()["traces"]:
+        if rec["trace_id"] in tids:
+            flush = [s["dur_us"] for s in rec["spans"]
+                     if s["name"] == "stream_flush"]
+            if flush and frames.get(rec["trace_id"]):
+                out.append(flush[0] / frames[rec["trace_id"]])
+    return sorted(out)
+
+
+async def _wait_routable(pm, ids: set, timeout: float = 90.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not ids <= {p.peer_id for p in pm.get_healthy_peers()
+                      if p.is_worker and not p.resource.draining}:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"gateway: workers {ids} not routable")
+        await asyncio.sleep(0.1)
+
+
+def gateway_phase(dev) -> tuple[dict, dict]:
+    """The consumer side on the card, all port modules on 127.0.0.1: a DHT
+    bootstrap node, two workers (``Peer`` over ``TorchEngine``,
+    tinyllama-1.1b paged bf16, eager, on one set of ``gateway_params``
+    shared on the card), a consumer ``Peer`` and its ``Gateway``; the
+    client is the standard library's ``http.client``.  Launch counts are
+    zeroed once the workers are routable and read after the eager part.
+    Checks: a greedy ``/api/chat`` of 32 tokens, not streamed and
+    streamed, whose text and token ids equal a direct ``generate()`` of
+    the same prompt on the worker that served it, and the CLI's ``run``
+    through this gateway printing that text; a seeded request sent
+    twice that repeats; ``/v1/chat/completions`` as SSE (the greedy text,
+    ``[DONE]`` last); ``/api/generate`` equal to ``generate()``;
+    ``/api/embed`` within 1e-3 of the runner's embeddings; ``/api/tags``
+    and ``/api/health`` listing both workers; ``/metrics`` carrying the
+    gateway families; ``/debug/trace/{id}`` stitched with the worker's
+    spans; a burst of 6 over an admission cap of 2 answered 503 with a
+    ``Retry-After`` of 1-2 s.  Reports: TTFB, median and max, and
+    tokens/s of 8 concurrent streamed chats through the gateway, on the
+    pool the sequential checks left (cold, most streams dialed fresh) and
+    again on the pool that batch filled, beside 8 direct ``generate()``
+    streams sent at once to the engines the gateway chose (with the pool
+    hits, dials and handshake seconds of each batch); host us per NDJSON
+    frame (the gateway's ``stream_flush`` span over its frames, and a
+    render microbenchmark); the card's busy share over a 1 s
+    ``capture_profile`` while 4 streams go through the gateway.
+    Then the long prompt through the gateway while both engines decode
+    direct streams (kernel C), and last a stream whose worker is drained
+    at its third chunk: it fails over to the other worker with the
+    undisturbed stream's text.  A, B and C must have launched.
+
+    ``gateway_megastep`` (its own line): a third worker with
+    ``megastep_k=8`` (graphs captured at its start) behind the same
+    gateway once the eager workers are gone; 8 concurrent streams of 64
+    tokens through the gateway (on a pool a first batch filled) beside 8
+    direct ``generate()`` streams on that engine, and the AEAD's us per
+    seal or open under that load (the process-wide ``aead_stats``: the
+    gateway's and the worker's frames).
+    Returns (the gateway line, the megastep line)."""
+    import os
+    import tempfile
+
+    from crowdllama_tpu_torch.config import Configuration
+    from crowdllama_tpu_torch.engine.engine import FakeEngine, TorchEngine
+    from crowdllama_tpu_torch.gateway.gateway import Gateway
+    from crowdllama_tpu_torch.net import secure
+    from crowdllama_tpu_torch.net.discovery import new_host_and_dht
+    from crowdllama_tpu_torch.peer.peer import Peer
+    from crowdllama_tpu_torch.testing import faults
+    from crowdllama_tpu_torch.utils.crypto import Ed25519PrivateKey
+
+    def key():
+        return Ed25519PrivateKey.generate()
+
+    async def go(tmp: str) -> tuple[dict, dict]:
+        params = gateway_params(dev)
+        boot, _ = await new_host_and_dht(key(), listen_host="127.0.0.1")
+        node = dict(listen_host="127.0.0.1",
+                    bootstrap_peers=[f"127.0.0.1:{boot.listen_port}"])
+        engines = [TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                               profile_dir=os.path.join(tmp, f"p{i}"))
+                   for i in range(2)]
+        workers = [Peer(key(), Configuration(model=TINYLLAMA, **node), e)
+                   for e in engines]
+        consumer = Peer(key(), Configuration(**node), FakeEngine(models=[]),
+                        worker_mode=False)
+        gw = Gateway(consumer, port=0, host="127.0.0.1", retry_after_s=1.0)
+        started: list = []
+        out: dict = {}
+        mega_out: dict = {}
+        try:
+            for part in (*engines, *workers, consumer, gw):
+                await part.start()
+                started.append(part)
+            logs = []
+            for e in engines:
+                e.tokenizer = _StreamLog(e.tokenizer)
+                logs.append(e.tokenizer)
+            by_id = {w.peer_id: (e, lg)
+                     for w, e, lg in zip(workers, engines, logs)}
+            pm = consumer.peer_manager
+            t0 = time.perf_counter()
+            await _wait_routable(pm, set(by_id))
+            out["discover_s"] = time.perf_counter() - t0
+            port = gw.port
+
+            async def call(method, path, body=None, lines=None):
+                return await asyncio.to_thread(_http, port, method, path,
+                                               body, lines)
+
+            _zero_launches()
+            # Greedy chat, not streamed and streamed, against generate().
+            prompt = SHORT[2]
+            fmt = engines[0]._format_chat(
+                [{"role": "user", "content": prompt}])
+            r = await call("POST", "/api/chat",
+                           _chat_body(prompt, GATEWAY_TOKENS, False))
+            reply = json.loads(r["lines"][0][1])
+            eng, log = by_id[reply["worker_id"]]
+            gw_ids = _ids(log.streams[-1])
+            text = (await _direct(eng, fmt, GATEWAY_TOKENS))[0]
+            ids = _ids(log.streams[-1])
+            before = {t["trace_id"] for t in gw.obs.trace.snapshot()[
+                "traces"]}
+            r = await call("POST", "/api/chat",
+                           _chat_body(prompt, GATEWAY_TOKENS, True))
+            stream = _ndjson(r)
+            (stream_tid,) = {t["trace_id"] for t in gw.obs.trace.snapshot()[
+                "traces"]} - before
+            s_eng, s_log = by_id[stream[-1]["worker_id"]]
+            stream_text = "".join(x["message"]["content"] for x in stream)
+            if not (r["status"] == 200 and reply["message"]["content"] == text
+                    and stream_text == text and len(text) == GATEWAY_TOKENS
+                    and gw_ids == ids == _ids(s_log.streams[-1])
+                    and reply["eval_count"] == stream[-1]["eval_count"]
+                    == GATEWAY_TOKENS and len(stream) == GATEWAY_TOKENS + 1
+                    and r["headers"]["content-type"]
+                    == "application/x-ndjson"):
+                raise AssertionError(f"gateway: greedy chat {reply} / "
+                                     f"{stream_text!r} differs from "
+                                     f"generate() {text!r}")
+            out["greedy"] = {"text": text, "frames": len(stream),
+                             "worker": reply["worker_id"][:8]}
+            # The CLI's ``run`` through this gateway prints the same text.
+            run = await _cli_command(
+                (sys.executable, "-m", "crowdllama_tpu_torch.cli.main"),
+                os.path.dirname(os.path.abspath(__file__)), "gateway",
+                "run", TINYLLAMA, prompt, "--gateway",
+                f"http://127.0.0.1:{port}", "--max-tokens",
+                str(GATEWAY_TOKENS), "--temperature", "0")
+            if run["stdout"] != text + "\n":
+                raise AssertionError(f"gateway: run printed "
+                                     f"{run['stdout']!r}, not {text!r}")
+            out["cli_run"] = {"stdout": run["stdout"], "s": run["s"]}
+            # A seeded request, twice.
+            seeded = []
+            for _ in range(2):
+                r = await call("POST", "/api/chat", _chat_body(
+                    SAMPLED[0], GATEWAY_TOKENS, False, **SAMPLED[1]))
+                rep = json.loads(r["lines"][0][1])
+                seeded.append((rep["message"]["content"],
+                               _ids(by_id[rep["worker_id"]][1].streams[-1]),
+                               rep["eval_count"]))
+            if seeded[0] != seeded[1] or seeded[0][2] != GATEWAY_TOKENS \
+                    or len(seeded[0][1]) != GATEWAY_TOKENS:
+                raise AssertionError(f"gateway: the seeded request did not "
+                                     f"repeat: {seeded}")
+            # OpenAI SSE.
+            r = await call("POST", "/v1/chat/completions", {
+                "model": TINYLLAMA, "stream": True, "temperature": 0,
+                "max_tokens": GATEWAY_TOKENS,
+                "messages": [{"role": "user", "content": prompt}]})
+            events = _sse(r)
+            sse_text = "".join(ev["choices"][0]["delta"].get("content", "")
+                               for ev in events[:-1])
+            if not (r["headers"]["content-type"] == "text/event-stream"
+                    and events[-1] == "[DONE]" and sse_text == text
+                    and events[-2]["choices"][0]["finish_reason"]
+                    == "length"):
+                raise AssertionError(f"gateway: SSE {events[-2:]} "
+                                     f"{sse_text!r}")
+            # /api/generate on a raw prompt.
+            r = await call("POST", "/api/generate", {
+                "model": TINYLLAMA, "prompt": prompt,
+                "options": {"num_predict": GATEWAY_TOKENS}})
+            rep = json.loads(r["lines"][0][1])
+            eng, log = by_id[rep["worker_id"]]
+            gen_ids = _ids(log.streams[-1])
+            gtext = (await _direct(eng, prompt, GATEWAY_TOKENS))[0]
+            gids = _ids(log.streams[-1])
+            if not (rep["response"] == gtext and gen_ids == gids
+                    and rep["eval_count"] == GATEWAY_TOKENS):
+                raise AssertionError(f"gateway: /api/generate {rep} vs "
+                                     f"{gtext!r}")
+            # Embeddings against the runner's.
+            inputs = ["alpha beta gamma", SHORT[0]]
+            r = await call("POST", "/api/embed", {"model": TINYLLAMA,
+                                                  "input": inputs})
+            rep = json.loads(r["lines"][0][1])
+            eng, _ = by_id[rep["worker_id"]]
+            want = eng.runner.embed_prompts(
+                [eng.tokenizer.encode(x) for x in inputs])
+            got = torch.tensor(rep["embeddings"])
+            embed_err = float((got - torch.from_numpy(want)).abs().max())
+            if not (got.shape == want.shape
+                    and embed_err <= 1e-3 * float(abs(want).max())):
+                raise AssertionError(f"gateway: embeddings differ from "
+                                     f"embed_prompts by {embed_err}")
+            # Tags, health, metrics, the stitched trace.
+            tags = json.loads((await call("GET", "/api/tags"))["lines"][0][1])
+            health = json.loads((await call(
+                "GET", "/api/health"))["lines"][0][1])
+            metrics = b"".join(ln for _, ln in (await call(
+                "GET", "/metrics"))["lines"]).decode()
+            fams = {ln.split()[2] for ln in metrics.splitlines()
+                    if ln.startswith("# TYPE ")}
+            r = await call("GET", f"/debug/trace/{stream_tid}")
+            stitched = json.loads(b"".join(ln for _, ln in r["lines"]))
+            wnode = f"worker:{stream[-1]['worker_id'][:8]}"
+            names = {(s["node"], s["name"]) for s in stitched["spans"]}
+            if not (tags["models"] == [{"name": TINYLLAMA,
+                                        "model": TINYLLAMA}]
+                    and set(health["workers"]) == set(by_id)
+                    and all(w["is_healthy"]
+                            for w in health["workers"].values())
+                    and set(GATEWAY_FAMILIES) <= fams
+                    and "crowdllama_workers_healthy 2" in metrics
+                    and stitched["nodes"] == ["gateway", wnode]
+                    and {(wnode, "prefill"), (wnode, "decode_step"),
+                         ("gateway", "route"), ("gateway", "io_wait")}
+                    <= names):
+                raise AssertionError(
+                    f"gateway: tags {tags}, health {health}, families "
+                    f"missing {set(GATEWAY_FAMILIES) - fams}, trace "
+                    f"{stitched['nodes']} {sorted(names)}")
+            out["metrics_families"] = len(fams)
+            out["stitched"] = {"nodes": stitched["nodes"],
+                               "spans": len(stitched["spans"])}
+            # A burst over the admission cap.
+            gw.admission_max_inflight = GATEWAY_CAP
+            burst = await asyncio.gather(*(call(
+                "POST", "/api/chat", _chat_body(p, GATEWAY_TOKENS, True))
+                for p in (SHORT * 2)[:GATEWAY_BURST]))
+            gw.admission_max_inflight = 0
+            shed = [r for r in burst if r["status"] == 503]
+            ok = [r for r in burst if r["status"] == 200]
+            if not (shed and len(ok) + len(shed) == GATEWAY_BURST
+                    and all(1 <= int(r["headers"]["retry-after"]) <= 2
+                            for r in shed)
+                    and all(_ndjson(r)[-1]["done"] for r in ok)):
+                raise AssertionError(
+                    f"gateway: burst {[r['status'] for r in burst]}")
+            out["burst"] = {"sent": GATEWAY_BURST, "cap": GATEWAY_CAP,
+                            "shed": len(shed),
+                            "retry_after": sorted(
+                                int(r["headers"]["retry-after"])
+                                for r in shed)}
+            # TTFB and tokens/s: 8 concurrent chats on the streams the
+            # pool holds (cold: as the sequential checks left it), again
+            # on a pool the first batch filled (warm), then the same 8 as
+            # direct streams on the engines the gateway chose.
+            prompts = (SHORT + [HIT, SAMPLED[0]])[:GATEWAY_STREAMS]
+            cold = await _concurrent(gw, prompts, GATEWAY_TOKENS)
+            cold["workers"] = _counts(cold["workers"])
+            before = {t["trace_id"] for t in gw.obs.trace.snapshot()[
+                "traces"]}
+            via = await _concurrent(gw, prompts, GATEWAY_TOKENS)
+            tids = {t["trace_id"]: t for t in gw.obs.trace.snapshot()[
+                "traces"] if t["trace_id"] not in before}
+            direct = await _concurrent_direct(
+                [(by_id[w][0], engines[0]._format_chat(
+                    [{"role": "user", "content": p}]))
+                 for w, p in zip(via["workers"], prompts)], GATEWAY_TOKENS)
+            frames = {tid: GATEWAY_TOKENS + 1 for tid in tids}
+            flush = _flush_us_per_frame(gw, set(tids), frames)
+            via["workers"] = _counts(via["workers"])
+            out["concurrent"] = {
+                "streams": GATEWAY_STREAMS, "tokens": GATEWAY_TOKENS,
+                "gateway_cold_pool": cold, "gateway": via, "direct": direct,
+                "tokens_per_s_share": via["tokens_per_s"]
+                / direct["tokens_per_s"],
+                "ttfb_over_ttft_median": via["ttfb_ms_median"]
+                / direct["ttft_ms_median"]}
+            out["frame_us"] = {
+                "flush_us_per_frame": flush,
+                "flush_us_per_frame_median": flush[len(flush) // 2],
+                "render_us": frame_render_us()}
+            # Busy share: a 1 s profile while 4 streams go through.
+            lines = [[] for _ in range(4)]
+            busy_tasks = [asyncio.create_task(call(
+                "POST", "/api/chat",
+                _chat_body(p, GATEWAY_BUSY_TOKENS, True), lines[i]))
+                for i, p in enumerate(SHORT[:4])]
+            while min(len(x) for x in lines) < 2:
+                await asyncio.sleep(0.01)
+            trace_dir = await engines[0].capture_profile(PROFILE_S)
+            (trace,) = [os.path.join(trace_dir, f)
+                        for f in os.listdir(trace_dir)]
+            out["busy"] = {"streams": 4, "trace_bytes":
+                           os.path.getsize(trace),
+                           **busy_share(trace, PROFILE_S)}
+            await asyncio.gather(*busy_tasks)
+            # The long prompt through the gateway while both engines
+            # decode direct streams: a ragged prefill (kernel C).
+            chunks0 = sum(e.scheduler.ragged_chunks for e in engines)
+            logs_n = [len(lg.streams) for lg in logs]
+            bg = [asyncio.create_task(_direct(e, p, 96))
+                  for e in engines for p in SHORT[:2]]
+            while any(len(lg.streams) < n + 2 or
+                      min(len(s) for s in lg.streams[n:]) < 2
+                      for lg, n in zip(logs, logs_n)):
+                await asyncio.sleep(0.01)
+            r = await call("POST", "/api/chat", _chat_body(LONG, 8, True))
+            await asyncio.gather(*bg)
+            out["long"] = {"status": r["status"], "ragged_chunks": sum(
+                e.scheduler.ragged_chunks for e in engines) - chunks0,
+                "frames": len(_ndjson(r))}
+            if r["status"] != 200 or out["long"]["ragged_chunks"] < 1:
+                raise AssertionError(f"gateway: long prompt {out['long']}")
+            # Failover: the serving worker drained at its third chunk.
+            fo0 = gw._robust["failovers"]
+            plan = faults.FaultPlan(rules=[faults.FaultRule(
+                site="engine.stream_chunk", action="drain", after=2)])
+            with faults.installed(plan):
+                r = await call("POST", "/api/chat",
+                               _chat_body(prompt, GATEWAY_TOKENS, True))
+            moved = _ndjson(r)
+            drained = plan.log[0][1]["worker"] if plan.log else ""
+            moved_text = "".join(x["message"]["content"] for x in moved)
+            if not (drained and moved_text == text
+                    and moved[-1]["worker_id"] not in ("", drained)
+                    and moved[-1]["eval_count"] == GATEWAY_TOKENS
+                    and gw._robust["failovers"] == fo0 + 1
+                    and gw.obs.metrics.migrated_streams == 1):
+                raise AssertionError(
+                    f"gateway: failover {plan.log} -> {moved[-1]}, text "
+                    f"{moved_text!r} vs {text!r}")
+            out["failover"] = {"drained": drained[:8],
+                               "to": moved[-1]["worker_id"][:8],
+                               "frames": len(moved),
+                               "failovers": gw._robust["failovers"] - fo0}
+            out["launches"] = _launches()
+            out["embed_max_abs_err"] = embed_err
+            out["robust"] = dict(gw._robust)
+
+            # gateway_megastep: the eager workers leave, a megastep worker
+            # joins behind the same gateway.
+            for w in workers:
+                pm.mark_draining(w.peer_id)
+            for part in (*workers, *engines):
+                await part.stop()
+                started.remove(part)
+            engines = workers = by_id = logs = None
+            _free_card()
+            mega = TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                               megastep_k=MEGASTEP_K, decode_chunk=8)
+            t0 = time.perf_counter()
+            await mega.start()
+            started.append(mega)
+            mega_out["start_s"] = time.perf_counter() - t0
+            mworker = Peer(key(), Configuration(model=TINYLLAMA, **node),
+                           mega)
+            await mworker.start()
+            started.append(mworker)
+            await _wait_routable(pm, {mworker.peer_id})
+            mprompts = (SHORT + [HIT, SAMPLED[0]])[:GATEWAY_STREAMS]
+            await _concurrent(gw, mprompts, 8)  # fills the stream pool
+            ns0, ops0 = secure.aead_stats()
+            via = await _concurrent(gw, mprompts, GATEWAY_MEGA_TOKENS)
+            ns1, ops1 = secure.aead_stats()
+            direct = await _concurrent_direct(
+                [(mega, mega._format_chat([{"role": "user", "content": p}]))
+                 for p in mprompts], GATEWAY_MEGA_TOKENS)
+            g = mega.obs_gauges()
+            via["workers"] = _counts(via["workers"])
+            mega_out.update({
+                "megastep_k": MEGASTEP_K, "streams": GATEWAY_STREAMS,
+                "tokens": GATEWAY_MEGA_TOKENS, "gateway": via,
+                "direct": direct,
+                "tokens_per_s_share": via["tokens_per_s"]
+                / direct["tokens_per_s"],
+                "aead": {"ops": ops1 - ops0, "us": (ns1 - ns0) / 1e3,
+                         "us_per_op": (ns1 - ns0) / 1e3
+                         / max(1, ops1 - ops0),
+                         "share_of_wall": (ns1 - ns0) / 1e9
+                         / via["wall_s"]},
+                "duty_cycle_megastep": g["duty_cycle|dispatch=megastep"],
+                "captures": mega.runner._graphs.captures})
+            if not (via["completion_tokens"] == direct["completion_tokens"]
+                    == GATEWAY_STREAMS * GATEWAY_MEGA_TOKENS
+                    and g["duty_cycle|dispatch=megastep"] > 0):
+                raise AssertionError(f"gateway_megastep: {mega_out}")
+        finally:
+            for part in reversed(started):
+                await part.stop()
+            await boot.close()
+        return out, mega_out
+
+    with tempfile.TemporaryDirectory(prefix="gw") as tmp:
+        out, mega_out = asyncio.run(go(tmp))
+    _free_card()
+    launches = out.pop("launches")
+    for k in ("A", "B", "C"):
+        if not launches[k]:
+            raise AssertionError(f"gateway: kernel {k} did not launch: "
+                                 f"{launches}")
+    card = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    line = {"phase": "gateway", "model": TINYLLAMA, "workers": 2, **out,
+            "launches": launches, "card": card, "nvidia_smi": smi}
+    mline = {"phase": "gateway_megastep", "model": TINYLLAMA, **mega_out,
+             "card": card, "nvidia_smi": smi}
+    return line, mline
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+async def _cli_consumer(cli: tuple, root: str, gport: int, worker_id: str,
+                        cons) -> dict:
+    """The CLI consumer's side of the cli phase: wait for its gateway to
+    list ``worker_id`` healthy, then ``network-status`` and ``run``
+    through it as subprocesses; both must exit 0."""
+    gateway = f"http://127.0.0.1:{gport}"
+    t0 = time.perf_counter()
+    while True:
+        if cons.returncode is not None or time.perf_counter() - t0 > 120:
+            raise AssertionError(f"cli: the consumer's gateway did not list "
+                                 f"the worker (rc {cons.returncode})")
+        try:
+            r = await asyncio.to_thread(_http, gport, "GET", "/api/health",
+                                        None, None, 5.0)
+            health = json.loads(r["lines"][0][1])
+            if health["workers"].get(worker_id, {}).get("is_healthy"):
+                break
+        except (OSError, IndexError, ValueError):
+            pass  # not up yet
+        await asyncio.sleep(0.5)
+    out: dict = {"up_s": time.perf_counter() - t0}
+    out["network_status"] = await _cli_command(
+        cli, root, "cli", "network-status", "--gateway", gateway)
+    out["run"] = await _cli_command(
+        cli, root, "cli", "run", TINYLLAMA, SHORT[2], "--gateway", gateway,
+        "--max-tokens", str(CLI_TOKENS), "--temperature", "0")
+    status = out["network_status"]["stdout"]
+    if not (f"{worker_id[:12]} [healthy]" in status
+            and "workers: 1" in status):
+        raise AssertionError(f"cli: network-status printed {status!r}")
+    metrics = b"".join(ln for _, ln in (await asyncio.to_thread(
+        _http, gport, "GET", "/metrics"))["lines"]).decode()
+    if 'crowdllama_gateway_requests_total{path="/api/chat",status="200"} 1' \
+            not in metrics:
+        raise AssertionError("cli: the consumer's gateway did not count "
+                             "the run's /api/chat")
+    # The same greedy chat as one JSON reply: ``run`` printed its text
+    # and a newline.  This worker's random weights may render as little
+    # or no text (the byte tokenizer prints nothing for ids past 255); the
+    # gateway phase runs ``run`` on printable weights.
+    r = await asyncio.to_thread(_http, gport, "POST", "/api/chat",
+                                _chat_body(SHORT[2], CLI_TOKENS, False,
+                                           temperature=0))
+    reply = json.loads(r["lines"][0][1])
+    if not (r["status"] == 200 and reply["eval_count"] == CLI_TOKENS
+            and out["run"]["stdout"] == reply["message"]["content"] + "\n"):
+        raise AssertionError(f"cli: run printed {out['run']['stdout']!r}, "
+                             f"/api/chat replied {reply}")
+    out["run"]["eval_count"] = reply["eval_count"]
+    return out
+
+
+async def _cli_command(cli: tuple, root: str, phase: str, *args) -> dict:
+    """One CLI command in a process of its own: rc, seconds and stdout
+    (whole); it must exit 0."""
+    t0 = time.perf_counter()
+    p = await asyncio.create_subprocess_exec(
+        *cli, *args, cwd=root, stdout=asyncio.subprocess.PIPE,
+        stderr=asyncio.subprocess.PIPE)
+    stdout, stderr = await asyncio.wait_for(p.communicate(), 300)
+    if p.returncode != 0:
+        raise AssertionError(f"{phase}: {args[0]} exited {p.returncode}: "
+                             f"{stderr.decode()[-2000:]}")
+    return {"rc": p.returncode, "s": time.perf_counter() - t0,
+            "stdout": stdout.decode()}
 
 
 def _expect_tp_launches(launches: dict, tp: int, int8: bool,
@@ -2601,6 +3298,9 @@ def main() -> int:
     emit({**mega_line, "wire_busy_share": wire["profile"]["busy_share"]})
     _free_card()
     cli_phase()
+    for line in gateway_phase(dev):
+        emit(line)
+    _free_card()
     launches["F"] = tp_phase(dev, paged)["F"]
     _free_card()
     launches["F_int8"] = tp_int8_phase(dev)["F_int8"]

@@ -1,24 +1,31 @@
-"""Worker CLI: ``python -m crowdllama_tpu_torch.cli.main start --worker-mode``.
+"""Node CLI: ``python -m crowdllama_tpu_torch.cli.main start [--worker-mode]
+| version | network-status | trace | top | run``.
 
-Counterpart of the worker path of ``crowdllama_tpu/cli/main.py``
-``run_node``: the node's identity key (``KeyManager``), the engine (the
+Counterpart of ``crowdllama_tpu/cli/main.py``.  ``start --worker-mode``
+runs a worker: the node's identity key (``KeyManager``), the engine (the
 port's ``MultiEngine`` over the comma-separated ``--model`` list, or
-``FakeEngine`` for ``--engine fake``), ``engine.start()``, the ``Peer``,
-the optional IPC server (``CROWDLLAMA_TPU_SOCKET``) and a clean stop:
-SIGTERM drains (in-flight streams migrate to the swarm, then the worker
-stays up as a drained peer for ``--drain-timeout`` or until a second
-signal); SIGINT finishes in-flight requests in place.
+``FakeEngine`` for ``--engine fake``), the ``Peer``, with
+``--worker-metrics-port`` its ``ObsServer``, and the optional IPC server
+(``CROWDLLAMA_TPU_SOCKET``).  Plain ``start`` runs a consumer: a ``Peer``
+in consumer mode over ``FakeEngine(models=[])`` and its ``Gateway`` on
+``--gateway-port``.  SIGTERM on a worker drains (in-flight streams
+migrate to the swarm, then it stays up as a drained peer for
+``--drain-timeout`` or until a second signal); SIGINT, and any signal on
+a consumer, finishes in-flight requests in place.
 
-The engine serves on the card; without CUDA the worker refuses to start
-unless ``--device cpu`` is given.  Consumer mode (the gateway) is not
-ported and is refused with a message.
+A worker's engine serves on the card; without CUDA it refuses to start
+unless ``--device cpu`` is given.  A consumer runs no model, so it needs
+no card.  ``network-status``, ``trace``, ``top`` and ``run`` talk to a
+gateway over the port's HTTP client (``net/http.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
+import re
 import signal
 import sys
 
@@ -28,22 +35,45 @@ from crowdllama_tpu_torch.version import version_string
 
 log = logging.getLogger("crowdllama.torch.cli")
 
-CONSUMER_REFUSED = ("error: consumer mode (the gateway) is not ported to "
-                    "crowdllama_tpu_torch yet; start a worker with "
-                    "--worker-mode, or run the gateway from crowdllama_tpu")
 NO_CUDA = ("error: no CUDA device available; the worker serves on the card "
            "(pass --device cpu to serve on the CPU)")
+GATEWAY = "http://127.0.0.1:9001"
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="crowdllama-tpu-torch",
-                                description="PyTorch/CUDA swarm worker")
+                                description="PyTorch/CUDA swarm node")
     sub = p.add_subparsers(dest="command")
     start = sub.add_parser("start", help="run a swarm node")
     start.add_argument("--worker-mode", action="store_true",
-                       help="serve inference (the only mode ported)")
+                       help="serve inference (default: consumer/gateway "
+                            "mode)")
     Configuration.add_flags(start)
     sub.add_parser("version", help="print version")
+    status = sub.add_parser("network-status",
+                            help="probe a gateway's health endpoint")
+    status.add_argument("--gateway", default=GATEWAY)
+    trace = sub.add_parser(
+        "trace", help="fetch a cross-node stitched trace from a gateway "
+                      "and print it as a waterfall")
+    trace.add_argument("trace_id", help="trace id (from a response header, "
+                                        "exemplar, or /debug/flightrecorder)")
+    trace.add_argument("--gateway", default=GATEWAY)
+    top = sub.add_parser(
+        "top", help="live per-worker swarm table from a gateway's "
+                    "/metrics/cluster scrape")
+    top.add_argument("--gateway", default=GATEWAY)
+    top.add_argument("--watch", type=float, default=0.0, metavar="SECONDS",
+                     help="refresh every N seconds (default: one shot)")
+    run = sub.add_parser(
+        "run", help="chat with a model through a gateway (ollama-run style)")
+    run.add_argument("model", help="model name (see /api/tags)")
+    run.add_argument("prompt", nargs="?", default="",
+                     help="one-shot prompt; omit for an interactive REPL")
+    run.add_argument("--gateway", default=GATEWAY)
+    run.add_argument("--temperature", type=float, default=0.7)
+    run.add_argument("--top-p", type=float, default=0.95)
+    run.add_argument("--max-tokens", type=int, default=0)
     return p
 
 
@@ -60,26 +90,58 @@ def make_engine(cfg: Configuration):
     return MultiEngine(cfg, device="cpu" if cfg.device == "cpu" else None)
 
 
-async def run_worker(cfg: Configuration) -> None:
-    """Engine + peer (+ IPC) until SIGINT/SIGTERM."""
+def make_gateway(cfg: Configuration, peer):
+    from crowdllama_tpu_torch.gateway.gateway import Gateway
+
+    return Gateway(peer, port=cfg.gateway_port,
+                   trace_buffer=cfg.trace_buffer,
+                   request_timeout=cfg.request_timeout,
+                   admission_max_inflight=cfg.admission_max_inflight,
+                   retry_after_s=cfg.retry_after_s, kv_ship=cfg.kv_ship,
+                   flight_recorder=cfg.flight_recorder,
+                   trace_ttl=cfg.trace_ttl,
+                   metrics_exemplars=cfg.metrics_exemplars,
+                   slo_ttft_ms=cfg.slo_ttft_ms,
+                   slo_decode_ms=cfg.slo_decode_ms,
+                   stream_stall_ms=cfg.stream_stall_ms,
+                   hedge_ttft_ms=cfg.hedge_ttft_ms,
+                   profile_dir=cfg.profile_dir)
+
+
+async def run_node(cfg: Configuration, worker_mode: bool = True) -> None:
+    """Worker: engine + peer (+ ObsServer).  Consumer: peer + gateway.
+    Either may add IPC.  Runs until SIGINT/SIGTERM."""
+    from crowdllama_tpu_torch.engine.engine import FakeEngine
     from crowdllama_tpu_torch.ipc.server import IPCServer
+    from crowdllama_tpu_torch.obs.http import ObsServer
     from crowdllama_tpu_torch.peer.peer import Peer
 
-    key = KeyManager(cfg.key_path or None).get_or_create_private_key("worker")
-    engine = make_engine(cfg)
-    log.info("starting worker node (%s)", version_string())
+    component = "worker" if worker_mode else "consumer"
+    key = KeyManager(cfg.key_path or None).get_or_create_private_key(
+        component)
+    # A consumer never runs inference locally.
+    engine = make_engine(cfg) if worker_mode else FakeEngine(models=[])
+    log.info("starting %s node (%s)", component, version_string())
     await engine.start()
-    peer = Peer(key, cfg, engine=engine)
+    peer = Peer(key, cfg, engine=engine, worker_mode=worker_mode)
+    gateway = obs_server = ipc = None
     try:
         await peer.start()
+        if not worker_mode:
+            gateway = make_gateway(cfg, peer)
+            await gateway.start()
+        elif cfg.worker_metrics_port:
+            obs_server = ObsServer(peer, host=cfg.listen_host,
+                                   port=cfg.worker_metrics_port)
+            await obs_server.start()
+        if cfg.ipc_socket:
+            ipc = IPCServer(cfg.ipc_socket, engine, peer=peer)
+            await ipc.start()
     except BaseException:
-        await peer.stop()
-        await engine.stop()
+        for part in (ipc, obs_server, gateway, peer, engine):
+            if part is not None:
+                await part.stop()
         raise
-    ipc = None
-    if cfg.ipc_socket:
-        ipc = IPCServer(cfg.ipc_socket, engine, peer=peer)
-        await ipc.start()
 
     stop = asyncio.Event()
     got_sig: list[int] = []
@@ -95,7 +157,7 @@ async def run_worker(cfg: Configuration) -> None:
         await stop.wait()
     finally:
         log.info("shutting down")
-        if signal.SIGTERM in got_sig:
+        if signal.SIGTERM in got_sig and worker_mode:
             # SIGTERM = live-migration drain: advertise draining, migrate
             # in-flight streams, stay up through the drain window.
             migrated = await peer.drain()
@@ -113,10 +175,261 @@ async def run_worker(cfg: Configuration) -> None:
             if not await engine.drain(cfg.drain_timeout):
                 log.warning("drain timed out after %.0fs; dropping "
                             "in-flight requests", cfg.drain_timeout)
-        if ipc is not None:
-            await ipc.stop()
+        for part in (ipc, obs_server, gateway):
+            if part is not None:
+                await part.stop()
         await peer.stop()
         await engine.stop()
+
+
+# ----------------------------------------------------- gateway commands
+
+
+async def _get(url: str, timeout: float):
+    """(status, body bytes) of one GET."""
+    from crowdllama_tpu_torch.net import http
+
+    async with http.request("GET", url, timeout=timeout) as resp:
+        return resp.status, await asyncio.wait_for(resp.read(), timeout)
+
+
+async def _network_status(gateway: str) -> int:
+    try:
+        _, raw = await _get(f"{gateway}/api/health", 5)
+        body = json.loads(raw)
+    except Exception as e:
+        print(f"gateway unreachable: {e}", file=sys.stderr)
+        return 1
+    print(f"gateway: {gateway}")
+    print(f"peer id: {body.get('peer_id', '?')}")
+    workers = body.get("workers", {})
+    print(f"workers: {len(workers)}")
+    for pid, w in workers.items():
+        mark = "healthy" if w.get("is_healthy") else "unhealthy"
+        print(f"  {pid[:12]} [{mark}] "
+              f"models={','.join(w.get('supported_models', []))} "
+              f"tput={w.get('tokens_throughput', 0)} "
+              f"accel={w.get('accelerator', '?')}")
+    return 0
+
+
+async def _trace(args) -> int:
+    """``trace <trace_id>``: the gateway's stitched trace as a waterfall."""
+    from crowdllama_tpu_torch.obs.collector import render_waterfall
+
+    try:
+        status, raw = await _get(
+            f"{args.gateway}/debug/trace/{args.trace_id}", 15)
+        body = json.loads(raw)
+    except Exception as e:
+        print(f"gateway unreachable: {e}", file=sys.stderr)
+        return 1
+    if status != 200:
+        print(f"error: {body.get('error', status)}", file=sys.stderr)
+        return 1
+    print(render_waterfall(body))
+    return 0
+
+
+def _parse_exposition(text: str) -> list[tuple[str, dict, float]]:
+    """Prometheus text -> [(family, labels, value)], enough for ``top``."""
+    out: list[tuple[str, dict, float]] = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = re.match(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{([^}]*)\})? (\S+)",
+                     line)
+        if m is None:
+            continue
+        name, _, inner, value = m.groups()
+        labels: dict = {}
+        for part in (inner or "").split(","):
+            if "=" in part:
+                k, _, v = part.partition("=")
+                labels[k.strip()] = v.strip().strip('"')
+        try:
+            out.append((name, labels, float(value)))
+        except ValueError:
+            continue
+    return out
+
+
+_TOP_COLUMNS = {
+    "crowdllama_worker_throughput_tokens_per_sec": "tok/s",
+    "crowdllama_worker_load": "load",
+    "crowdllama_worker_healthy": "ok",
+    "crowdllama_engine_batch_occupancy": "occ",
+    "crowdllama_engine_kv_cache_utilization": "kv",
+    "crowdllama_engine_pending_depth": "pend",
+    "crowdllama_engine_active_slots": "act",
+    "crowdllama_autotune_moves_total": "moves",
+}
+
+
+def render_top(text: str) -> str:
+    """A ``/metrics/cluster`` exposition as the per-worker table: the
+    gateway's routing view (``peer``) joined with each worker's scraped
+    engine gauges (``worker``, the same 16-character peer-id head)."""
+    rows: dict[str, dict] = {}
+    rollups: dict[str, float] = {}
+    for name, labels, value in _parse_exposition(text):
+        if name.startswith("crowdllama_cluster_"):
+            rollups[name[len("crowdllama_cluster_"):]] = value
+            continue
+        wid = labels.get("peer") or labels.get("worker")
+        if not wid:
+            continue
+        row = rows.setdefault(wid, {})
+        if name in _TOP_COLUMNS:
+            row[_TOP_COLUMNS[name]] = value
+        elif name == "crowdllama_engine_duty_cycle":
+            # The busiest dispatch class is the one that matters.
+            row["duty"] = max(row.get("duty", 0.0), value)
+        elif name == "crowdllama_autotune_dial":
+            row.setdefault("dials", {})[labels.get("dial", "")] = value
+    lines = [
+        f"workers {rollups.get('workers_total', 0):g} "
+        f"(scraped {rollups.get('workers_scraped', 0):g})   "
+        f"tok/s {rollups.get('tokens_per_second', 0):g}   "
+        f"occupancy {rollups.get('batch_occupancy', 0):.2f}   "
+        f"kv {rollups.get('kv_cache_utilization', 0):.2f}   "
+        f"inflight {rollups.get('inflight', 0):g}",
+        f"{'WORKER':<18}{'OK':>3}{'LOAD':>7}{'TOK/S':>8}{'ACT':>5}"
+        f"{'PEND':>6}{'OCC':>6}{'KV':>6}{'DUTY':>6}  {'DIALS':<20}",
+    ]
+    for wid in sorted(rows):
+        r = rows[wid]
+        dials = r.get("dials") or {}
+        if dials:
+            dial_col = (f"K{dials.get('megastep_k', 0):g}"
+                        f"/k{dials.get('draft_k', 0):g}"
+                        f"/B{dials.get('step_token_budget', 0):g}"
+                        f"/C{dials.get('prefill_chunk', 0):g}"
+                        f" m{r.get('moves', 0):g}")
+        else:
+            dial_col = "-"
+        lines.append(
+            f"{wid:<18}{'y' if r.get('ok', 0) else 'n':>3}"
+            f"{r.get('load', 0.0):>7.2f}{r.get('tok/s', 0.0):>8.1f}"
+            f"{r.get('act', 0.0):>5.0f}{r.get('pend', 0.0):>6.0f}"
+            f"{r.get('occ', 0.0):>6.2f}{r.get('kv', 0.0):>6.2f}"
+            f"{r.get('duty', 0.0):>6.2f}  {dial_col:<20}")
+    if not rows:
+        lines.append("(no workers visible)")
+    return "\n".join(lines)
+
+
+async def _top(args) -> int:
+    """``top``: one GET /metrics/cluster per refresh (``--watch N``
+    loops until ^C)."""
+    while True:
+        try:
+            status, raw = await _get(f"{args.gateway}/metrics/cluster", 30)
+        except Exception as e:
+            print(f"gateway unreachable: {e}", file=sys.stderr)
+            return 1
+        if status != 200:
+            print(f"error: HTTP {status}", file=sys.stderr)
+            return 1
+        if args.watch > 0:
+            print("\x1b[2J\x1b[H", end="")  # clear between frames
+        print(render_top(raw.decode("utf-8")))
+        if args.watch <= 0:
+            return 0
+        try:
+            await asyncio.sleep(args.watch)
+        except (KeyboardInterrupt, asyncio.CancelledError):
+            return 0
+
+
+async def _run_chat(args) -> int:
+    """``run <model> [prompt]``: an NDJSON client of the gateway's
+    /api/chat, printing tokens as they arrive; one-shot with a prompt,
+    a REPL without."""
+    from crowdllama_tpu_torch.net import http
+
+    history: list[dict] = []
+    options = {"temperature": args.temperature, "top_p": args.top_p}
+    if args.max_tokens:
+        options["num_predict"] = args.max_tokens
+
+    async def turn(content: str) -> bool:
+        history.append({"role": "user", "content": content})
+        try:
+            async with http.request(
+                    "POST", f"{args.gateway}/api/chat",
+                    json={"model": args.model, "messages": history,
+                          "stream": True, "options": options},
+                    timeout=600) as resp:
+                if resp.status != 200:
+                    body = await resp.text()
+                    print(f"error: {body.strip()}", file=sys.stderr)
+                    history.pop()
+                    return False
+                parts = []
+                async for line in resp.lines():
+                    if not line.strip():
+                        continue
+                    frame = json.loads(line)
+                    if frame.get("done_reason") == "error":
+                        print(f"\nerror: "
+                              f"{frame.get('error', 'worker failed')}",
+                              file=sys.stderr)
+                        history.pop()
+                        return False
+                    text = frame.get("message", {}).get("content", "")
+                    if text:
+                        parts.append(text)
+                        print(text, end="", flush=True)
+                    if frame.get("done"):
+                        break
+                print()
+                history.append({"role": "assistant",
+                                "content": "".join(parts)})
+                return True
+        except (OSError, asyncio.TimeoutError, http.ClientError,
+                json.JSONDecodeError) as e:
+            print(f"gateway error: {e or type(e).__name__}", file=sys.stderr)
+            history.pop()
+            return False
+
+    if args.prompt:
+        return 0 if await turn(args.prompt) else 1
+    print(f"chatting with {args.model} via {args.gateway} "
+          "(/bye or Ctrl-D to exit)", file=sys.stderr)
+    # stdin on a daemon thread, one line per turn (the event keeps ">>> "
+    # from interleaving with streamed tokens; the default executor would
+    # hang Ctrl-C, joining a thread blocked in input()).
+    import threading
+
+    loop = asyncio.get_running_loop()
+    lines: asyncio.Queue[str | None] = asyncio.Queue()
+    ready = threading.Event()
+
+    def reader() -> None:
+        while True:
+            ready.wait()
+            ready.clear()
+            try:
+                line = input(">>> ")
+            except (EOFError, KeyboardInterrupt):
+                loop.call_soon_threadsafe(lines.put_nowait, None)
+                return
+            loop.call_soon_threadsafe(lines.put_nowait, line)
+
+    threading.Thread(target=reader, daemon=True).start()
+    while True:
+        ready.set()
+        line = await lines.get()
+        if line is None:
+            print(file=sys.stderr)
+            return 0
+        line = line.strip()
+        if line in ("/bye", "/exit", "/quit"):
+            return 0
+        if line:
+            await turn(line)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -124,24 +437,34 @@ def main(argv: list[str] | None = None) -> int:
     if args.command == "version":
         print(version_string())
         return 0
+    if args.command == "network-status":
+        return asyncio.run(_network_status(args.gateway))
+    if args.command == "trace":
+        return asyncio.run(_trace(args))
+    if args.command == "top":
+        return asyncio.run(_top(args))
+    if args.command == "run":
+        try:
+            return asyncio.run(_run_chat(args))
+        except KeyboardInterrupt:
+            print(file=sys.stderr)
+            return 0
     if args.command != "start":
         build_parser().print_help()
-        return 2
-    if not args.worker_mode:
-        print(CONSUMER_REFUSED, file=sys.stderr)
         return 2
     cfg = Configuration.from_flags(args)
     logging.basicConfig(
         stream=sys.stderr, level=logging.DEBUG if cfg.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    if cfg.engine_backend != "fake" and cfg.device == "cuda":
+    if (args.worker_mode and cfg.engine_backend != "fake"
+            and cfg.device == "cuda"):
         import torch
 
         if not torch.cuda.is_available():
             print(NO_CUDA, file=sys.stderr)
             return 2
     try:
-        asyncio.run(run_worker(cfg))
+        asyncio.run(run_node(cfg, worker_mode=args.worker_mode))
     except KeyboardInterrupt:
         pass
     return 0

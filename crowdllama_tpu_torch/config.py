@@ -7,8 +7,17 @@ names, defaults and ``CROWDLLAMA_TPU_*`` environment variables, layered
 defaults -> environment -> CLI flags.  ``add_flags`` registers the subset
 of the JAX CLI's flags the port serves, with the same flag names; flags
 whose values the serving plan (``engine/plan.py``) refuses stay refused
-there.  The one new flag is ``--device {cuda,cpu}`` (default ``cuda``):
-entry points run on the card unless the caller asks for the CPU.
+there.  The consumer's fields (the gateway's port, admission, budgets,
+SLO objectives, the stall watchdog and the hedge, the KV-ship hint, the
+flight recorder) and a worker's ``worker_metrics_port`` parse as the JAX
+package's.  The replicated gateway's fields (``gateway_peers``,
+``gossip_interval``, ``gossip_snapshot_path``, ``tenant_quota``), the
+gateway-drafted pipeline's (``gateway_spec_pipeline``,
+``spec_draft_path``) and the worker's KV fetch threshold
+(``kv_ship_min_tokens``) parse too, but any value other than their
+default is refused with the ROADMAP item that ports them.  The one new flag is
+``--device {cuda,cpu}`` (default ``cuda``): entry points run on the card
+unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -89,6 +98,19 @@ def _csv(value: str) -> list[str]:
     return [a.strip() for a in value.split(",") if a.strip()]
 
 
+# Fields that parse but are served by planes the port does not have yet:
+# field -> (its default, the ROADMAP item that ports it).
+_REFUSED = {
+    "gateway_peers": ([], "Queue 1 item 1.4 (swarm/gossip.py)"),
+    "gossip_interval": (2.0, "Queue 1 item 1.4 (swarm/gossip.py)"),
+    "gossip_snapshot_path": ("", "Queue 1 item 1.4 (swarm/gossip.py)"),
+    "tenant_quota": ("", "Queue 1 item 1.4 (swarm/gossip.py)"),
+    "gateway_spec_pipeline": ("off", "Queue 1 item 4 (speculation)"),
+    "spec_draft_path": ("", "Queue 1 item 4 (speculation)"),
+    "kv_ship_min_tokens": (512, "Queue 1 item 9 (KV page export, kv_donor)"),
+}
+
+
 @dataclass
 class Configuration:
     # ---- node
@@ -97,6 +119,7 @@ class Configuration:
     bootstrap_peers: list[str] = field(default_factory=list)  # "host:port"
     listen_host: str = "0.0.0.0"
     listen_port: int = 0  # 0 = ephemeral
+    gateway_port: int = 9001  # the consumer's HTTP gateway
     ipc_socket: str = ""
     engine_backend: str = "jax"  # the real engine ("jax" names it) | "fake"
     # NAT traversal: the port dials direct only; "always" (relay every
@@ -112,6 +135,38 @@ class Configuration:
     # Where the engine serves: "cuda" (the card; refused without one) or
     # "cpu" (asked for explicitly).
     device: str = "cuda"
+    # A worker's /metrics + /debug/trace + POST /drain listener (0 = off).
+    worker_metrics_port: int = 0
+
+    # ---- consumer (the gateway)
+    # Per-request wall-clock budget in seconds, charged across retries and
+    # failovers (X-Request-Timeout may lower it).
+    request_timeout: float = 600.0
+    # Routed requests in flight before new ones get 503 + Retry-After
+    # (0 = off), and the Retry-After hint in seconds.
+    admission_max_inflight: int = 0
+    retry_after_s: float = 1.0
+    # KV-ship hints: on a prefix-affinity miss the gateway names the worker
+    # that last held the prefix as the chosen worker's page donor.
+    kv_ship: bool = False
+    # Stitched traces of interesting requests the flight recorder keeps.
+    flight_recorder: int = 32
+    # SLO objectives in ms (0 = off): TTFT and the decode step.
+    slo_ttft_ms: float = 0.0
+    slo_decode_ms: float = 0.0
+    # The per-stream progress watchdog (max token gap, ms) and the hedged
+    # first token (ms of first-token silence before a second worker is
+    # raced); 0 = off.
+    stream_stall_ms: float = 0.0
+    hedge_ttft_ms: float = 0.0
+    # Refused unless at their defaults (``_REFUSED``).
+    kv_ship_min_tokens: int = 512  # a worker's donor fetch threshold
+    gateway_peers: list[str] = field(default_factory=list)
+    gossip_interval: float = 2.0
+    gossip_snapshot_path: str = ""
+    tenant_quota: str = ""
+    gateway_spec_pipeline: str = "off"
+    spec_draft_path: str = ""
 
     # ---- engine
     model: str = "tinyllama-1.1b"
@@ -199,6 +254,24 @@ class Configuration:
         "warmup": "CROWDLLAMA_TPU_WARMUP",
         "admission_pending_max": "CROWDLLAMA_TPU_ADMISSION_PENDING_MAX",
         "profile_dir": "CROWDLLAMA_TPU_PROFILE_DIR",
+        "gateway_port": "CROWDLLAMA_TPU_GATEWAY_PORT",
+        "worker_metrics_port": "CROWDLLAMA_TPU_WORKER_METRICS_PORT",
+        "request_timeout": "CROWDLLAMA_TPU_REQUEST_TIMEOUT",
+        "admission_max_inflight": "CROWDLLAMA_TPU_ADMISSION_MAX_INFLIGHT",
+        "retry_after_s": "CROWDLLAMA_TPU_RETRY_AFTER",
+        "kv_ship": "CROWDLLAMA_TPU_KV_SHIP",
+        "kv_ship_min_tokens": "CROWDLLAMA_TPU_KV_SHIP_MIN_TOKENS",
+        "flight_recorder": "CROWDLLAMA_TPU_FLIGHT_RECORDER",
+        "slo_ttft_ms": "CROWDLLAMA_TPU_SLO_TTFT_MS",
+        "slo_decode_ms": "CROWDLLAMA_TPU_SLO_DECODE_MS",
+        "stream_stall_ms": "CROWDLLAMA_TPU_STREAM_STALL_MS",
+        "hedge_ttft_ms": "CROWDLLAMA_TPU_HEDGE_TTFT_MS",
+        "gateway_peers": "CROWDLLAMA_TPU_GATEWAY_PEERS",
+        "gossip_interval": "CROWDLLAMA_TPU_GOSSIP_INTERVAL",
+        "gossip_snapshot_path": "CROWDLLAMA_TPU_GOSSIP_SNAPSHOT",
+        "tenant_quota": "CROWDLLAMA_TPU_TENANT_QUOTA",
+        "gateway_spec_pipeline": "CROWDLLAMA_TPU_GATEWAY_SPEC_PIPELINE",
+        "spec_draft_path": "CROWDLLAMA_TPU_SPEC_DRAFT_PATH",
     }
 
     @classmethod
@@ -247,11 +320,30 @@ class Configuration:
                 ("trace_buffer", 1, False), ("trace_ttl", 0, False),
                 ("drain_timeout", 0, True), ("kv_ship_timeout", 0, True),
                 ("admission_pending_max", 0, False),
-                ("wedge_multiplier", 0, False)):
+                ("wedge_multiplier", 0, False),
+                ("worker_metrics_port", 0, False),
+                ("request_timeout", 0, True),
+                ("admission_max_inflight", 0, False),
+                ("retry_after_s", 0, False),
+                ("flight_recorder", 1, False),
+                ("slo_ttft_ms", 0, False), ("slo_decode_ms", 0, False),
+                ("stream_stall_ms", 0, False), ("hedge_ttft_ms", 0, False),
+                ("gossip_interval", 0, True)):
             v = getattr(cfg, name)
             if v < low or (strict and v == low):
                 raise ValueError(f"{name} must be {'>' if strict else '>='} "
                                  f"{low}, got {v}")
+        cfg.gateway_spec_pipeline = (
+            cfg.gateway_spec_pipeline or "off").strip().lower()
+        if cfg.gateway_spec_pipeline not in ("off", "gateway", "worker"):
+            raise ValueError(f"unknown gateway_spec_pipeline "
+                             f"{cfg.gateway_spec_pipeline!r} "
+                             "(want 'off', 'gateway' or 'worker')")
+        for name, (default, item) in _REFUSED.items():
+            if getattr(cfg, name) != default:
+                raise ValueError(
+                    f"{name}={getattr(cfg, name)!r} is not served by "
+                    f"crowdllama_tpu_torch yet (ROADMAP {item})")
         return cfg
 
     @staticmethod
@@ -263,6 +355,7 @@ class Configuration:
             "--bootstrap-peers", dest="bootstrap_peers",
             help="comma-separated host:port bootstrap addresses")
         parser.add_argument("--listen-port", dest="listen_port", type=int)
+        parser.add_argument("--gateway-port", dest="gateway_port", type=int)
         parser.add_argument("--model", dest="model")
         parser.add_argument("--model-path", dest="model_path")
         parser.add_argument("--engine", dest="engine_backend")
@@ -338,6 +431,76 @@ class Configuration:
                             help="where the engine serves (default cuda; "
                                  "without a card the worker refuses to "
                                  "start unless cpu is asked for)")
+        parser.add_argument("--worker-metrics-port",
+                            dest="worker_metrics_port", type=int,
+                            help="worker-side /metrics + /debug/trace "
+                                 "listener port (0 = disabled)")
+        parser.add_argument("--flight-recorder", dest="flight_recorder",
+                            type=int,
+                            help="stitched traces of interesting requests "
+                                 "kept for GET /debug/flightrecorder "
+                                 "(default 32)")
+        parser.add_argument("--slo-ttft-ms", dest="slo_ttft_ms", type=float,
+                            help="TTFT objective in ms for the SLO "
+                                 "burn-rate plane (0 = disabled)")
+        parser.add_argument("--slo-decode-ms", dest="slo_decode_ms",
+                            type=float,
+                            help="per decode-step objective in ms for the "
+                                 "SLO burn-rate plane (0 = disabled)")
+        parser.add_argument("--stream-stall-ms", dest="stream_stall_ms",
+                            type=float,
+                            help="gateway per-stream progress watchdog: max "
+                                 "token inter-arrival gap in ms before the "
+                                 "stream is failed over with the worker "
+                                 "quarantined as wedged (0 = off)")
+        parser.add_argument("--hedge-ttft-ms", dest="hedge_ttft_ms",
+                            type=float,
+                            help="race the second-best worker when the first "
+                                 "token is slower than this many ms (or the "
+                                 "live TTFT p95 once known); exactly one "
+                                 "stream is delivered (0 = off)")
+        parser.add_argument("--request-timeout", dest="request_timeout",
+                            type=float,
+                            help="per-request wall-clock budget in seconds, "
+                                 "charged across retries/failovers "
+                                 "(X-Request-Timeout may lower it)")
+        parser.add_argument("--admission-max-inflight",
+                            dest="admission_max_inflight", type=int,
+                            help="gateway: max concurrent routed requests "
+                                 "before shedding 503s (0 = off)")
+        parser.add_argument("--retry-after", dest="retry_after_s",
+                            type=float,
+                            help="Retry-After seconds hinted on shed 503s")
+        parser.add_argument("--kv-ship", dest="kv_ship",
+                            action="store_const", const=True, default=None,
+                            help="hint the worker that last held a shared "
+                                 "prefix as the chosen worker's KV donor")
+        parser.add_argument("--kv-ship-min-tokens", dest="kv_ship_min_tokens",
+                            type=int,
+                            help="skip the fetch when fewer prefix tokens "
+                                 "than this are missing locally (refused "
+                                 "unless 512: not ported)")
+        parser.add_argument("--gateway-peers", dest="gateway_peers",
+                            help="other gateway replicas to gossip with "
+                                 "(refused: not ported)")
+        parser.add_argument("--tenant-quota", dest="tenant_quota",
+                            help="per-tenant admission quotas (refused: "
+                                 "not ported)")
+        parser.add_argument("--gossip-interval", dest="gossip_interval",
+                            type=float,
+                            help="seconds between gossip rounds (refused "
+                                 "unless 2: not ported)")
+        parser.add_argument("--gossip-snapshot", dest="gossip_snapshot_path",
+                            help="gossip map snapshot file (refused: not "
+                                 "ported)")
+        parser.add_argument("--gateway-spec-pipeline",
+                            dest="gateway_spec_pipeline",
+                            choices=("off", "gateway", "worker"),
+                            help="gateway-drafted speculative pipeline "
+                                 "(refused unless off: not ported)")
+        parser.add_argument("--spec-draft-path", dest="spec_draft_path",
+                            help="draft model checkpoint dir (refused: not "
+                                 "ported)")
 
     _FLAG_FIELDS = (
         "verbose", "key_path", "listen_port", "model", "model_path",
@@ -347,12 +510,17 @@ class Configuration:
         "wedge_multiplier", "profile_dir",
         "trace_buffer", "trace_ttl", "metrics_exemplars",
         "admission_pending_max", "kv_ship_timeout", "drain_timeout",
-        "device")
+        "device", "gateway_port", "worker_metrics_port", "flight_recorder",
+        "slo_ttft_ms", "slo_decode_ms", "stream_stall_ms", "hedge_ttft_ms",
+        "request_timeout", "admission_max_inflight", "retry_after_s",
+        "kv_ship", "kv_ship_min_tokens", "tenant_quota", "gossip_interval",
+        "gossip_snapshot_path", "gateway_spec_pipeline", "spec_draft_path")
 
     @classmethod
     def from_flags(cls, args: argparse.Namespace) -> "Configuration":
         overrides = {k: getattr(args, k, None) for k in cls._FLAG_FIELDS}
-        bp = getattr(args, "bootstrap_peers", None)
-        if isinstance(bp, str):
-            overrides["bootstrap_peers"] = _csv(bp)
+        for name in ("bootstrap_peers", "gateway_peers"):
+            v = getattr(args, name, None)
+            if isinstance(v, str):
+                overrides[name] = _csv(v)
         return cls.from_environment(**overrides)

@@ -377,6 +377,15 @@ def _read_varint(buf: bytes, pos: int, end: int) -> tuple[int, int]:
             raise DecodeError("varint longer than 10 bytes")
 
 
+def _read_tag(buf: bytes, pos: int, end: int) -> tuple[int, int]:
+    """A field's key: a varint of at most 5 bytes that fits in 32 bits,
+    as protobuf reads it (so field numbers stop at 2**29 - 1)."""
+    key, stop = _read_varint(buf, pos, min(end, pos + 5))
+    if key >> 32:
+        raise DecodeError("tag wider than 32 bits")
+    return key, stop
+
+
 def _read_len(buf: bytes, pos: int, end: int) -> tuple[int, int]:
     n, pos = _read_varint(buf, pos, end)
     if n > end - pos:
@@ -399,7 +408,9 @@ def _skip(buf: bytes, pos: int, end: int, wt: int, num: int,
         if depth >= _MAX_DEPTH:
             raise DecodeError("nesting too deep")
         while True:
-            key, pos = _read_varint(buf, pos, end)
+            key, pos = _read_tag(buf, pos, end)
+            if key >> 3 == 0:
+                raise DecodeError("field number 0")
             if key & 7 == _EGROUP:
                 if key >> 3 != num:
                     raise DecodeError("mismatched end group")
@@ -444,7 +455,7 @@ def _decode_into(msg: Message, buf: bytes, pos: int, end: int,
         raise DecodeError("nesting too deep")
     by_number, v = msg._BY_NUMBER, msg._v
     while pos < end:
-        key, pos = _read_varint(buf, pos, end)
+        key, pos = _read_tag(buf, pos, end)
         num, wt = key >> 3, key & 7
         if num == 0:
             raise DecodeError("field number 0")

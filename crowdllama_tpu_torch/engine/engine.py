@@ -512,10 +512,19 @@ class TorchEngine(Engine):
     async def capture_profile(self, seconds: float = 3.0) -> str:
         """Trace ``seconds`` (0.1-60) of live serving with
         ``torch.profiler`` (CPU activity, and CUDA kernels when the engine
-        serves on a card: the device-wide trace spans whatever the
-        scheduler dispatches meanwhile), write it as a Chrome trace
+        serves on a card), write it as a Chrome trace
         (``<host>.pt.trace.json``) in a new directory under
-        ``profile_dir/plugins/profile/`` and return that directory."""
+        ``profile_dir/plugins/profile/`` and return that directory.
+
+        The session opens and closes on the scheduler's dispatch thread,
+        between two of its device calls, so the trace holds that thread's
+        operators and the kernels it launches.  On the card, a session
+        opened on another thread while the dispatch thread launches
+        kernels sometimes records none of them: CUPTI hands back that
+        thread's runtime calls but no kernel record
+        (``obs/profiler_probe.py`` counts such sessions).  An engine not
+        serving yet traces from a worker thread.  The export runs on a
+        worker thread."""
         if not self.config.profile_dir:
             raise RuntimeError("profiling disabled: set profile_dir "
                                "(--profile-dir / CROWDLLAMA_TPU_PROFILE_DIR)")
@@ -525,9 +534,26 @@ class TorchEngine(Engine):
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         root = os.path.join(self.config.profile_dir, "plugins", "profile")
 
-        def _trace() -> str:
-            with torch.profiler.profile(activities=activities) as prof:
-                time.sleep(seconds)
+        def _start() -> torch.profiler.profile:
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
+            return prof
+
+        sched = self.scheduler
+        if sched is not None and sched._exec is not None:
+            prof = await sched.on_dispatch_thread(_start)
+            try:
+                await asyncio.sleep(seconds)
+            finally:
+                await sched.on_dispatch_thread(prof.stop)
+        else:
+            prof = await asyncio.to_thread(_start)
+            try:
+                await asyncio.sleep(seconds)
+            finally:
+                await asyncio.to_thread(prof.stop)
+
+        def _export() -> str:
             os.makedirs(root, exist_ok=True)
             out = tempfile.mkdtemp(
                 prefix=time.strftime("%Y_%m_%d_%H_%M_%S_"), dir=root)
@@ -535,7 +561,7 @@ class TorchEngine(Engine):
                 os.path.join(out, f"{os.uname().nodename}.pt.trace.json"))
             return out
 
-        return await asyncio.get_running_loop().run_in_executor(None, _trace)
+        return await asyncio.to_thread(_export)
 
     def describe(self) -> dict:
         d = {"models": self.models, "throughput": 0.0, "load": 0.0}

@@ -338,6 +338,14 @@ class Scheduler:
             self._embeds -= 1
         return out
 
+    async def on_dispatch_thread(self, fn, *args):
+        """``fn(*args)`` on the dispatch thread, between two of the loop's
+        device calls (that thread launches every kernel of this
+        scheduler)."""
+        if self._exec is None:
+            raise RuntimeError("scheduler not started")
+        return await self._run(fn, *args)
+
     @property
     def load(self) -> float:
         busy = sum(1 for s in self.slots if s is not None)

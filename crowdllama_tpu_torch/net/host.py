@@ -155,6 +155,7 @@ class StreamPool:
         self._closed = False
         self.hits = 0
         self.misses = 0
+        self.evicted_dead = 0  # pooled streams the remote had closed
 
     @staticmethod
     def _transport_dead(s: Stream) -> bool:
@@ -170,6 +171,7 @@ class StreamPool:
             if (time.monotonic() - ts < self.idle_s
                     and not s.writer.is_closing()):
                 if self._transport_dead(s):
+                    self.evicted_dead += 1
                     s.close()
                     continue
                 self.hits += 1

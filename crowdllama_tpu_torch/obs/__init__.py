@@ -6,13 +6,22 @@ per-request span trees and a :class:`~.metrics.NodeMetrics` bundle, both
 served over the p2p plane (``trace_fetch`` / ``metrics_fetch`` on the
 inference stream).  Trace ids ride the llama.v1 envelope (``trace_id`` /
 ``parent_span``), so one id follows a request gateway -> peer -> engine.
-The aiohttp listener of the JAX package (``ObsServer``) is not ported.
+``GATEWAY_ROOT_SPAN`` names the gateway's root span, the parent every
+worker-side span of a routed request points at.  The HTTP listeners are
+the gateway's and ``obs/http.py``'s ``ObsServer`` (a worker's
+``--worker-metrics-port``); ``obs/collector.py`` stitches traces across
+nodes, ``obs/cluster.py`` scrapes the swarm's metrics and ``obs/slo.py``
+keeps the gateway's burn rates.
 """
 
 from __future__ import annotations
 
 from crowdllama_tpu_torch.obs.metrics import NodeMetrics
-from crowdllama_tpu_torch.obs.trace import TraceBuffer
+from crowdllama_tpu_torch.obs.trace import TraceBuffer, new_trace_id
+
+__all__ = ["GATEWAY_ROOT_SPAN", "NodeObs", "new_trace_id"]
+
+GATEWAY_ROOT_SPAN = "gateway"
 
 
 class NodeObs:

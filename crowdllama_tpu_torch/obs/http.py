@@ -1,19 +1,25 @@
-"""A worker's metric exposition, one composition for every scrape surface.
+"""A worker's metric exposition and its HTTP listener.
 
-Counterpart of ``crowdllama_tpu/obs/http.py``'s line builders:
-``node_metric_lines`` is the payload a ``MetricsSnapshot`` carries over
-the p2p plane (the gateway's cluster scrape), in the JAX worker's
+Counterpart of ``crowdllama_tpu/obs/http.py``: ``node_metric_lines`` is
+one composition for both scrape surfaces, the payload a
+``MetricsSnapshot`` carries over the p2p plane (the gateway's cluster
+scrape) and :class:`ObsServer`'s ``/metrics``, in the JAX worker's
 families: the node's histograms, the engine gauges, the engine telemetry
-plane, device memory and the host's stream counters.  The native data
-plane is not ported, so ``crowdllama_native_enabled`` reads 0 and there
-is no fallback counter.  The aiohttp listener (``ObsServer``) is not
-ported.
+plane, device memory and the host's stream counters.  ``ObsServer`` (a
+worker's ``--worker-metrics-port``) also serves ``/debug/trace`` and
+``POST /drain``, on the port's own HTTP plane (``net/http.py``).
+
+The native data plane is not ported (ROADMAP Queue 1 item 1.1): a worker
+reports ``crowdllama_native_enabled 0`` with no fallback counter, and the
+JAX package's ``native_metric_lines`` is left out, so the gateway's
+/metrics carries no ``crowdllama_native_*`` family.
 """
 
 from __future__ import annotations
 
 import logging
 
+from crowdllama_tpu_torch.net import http
 from crowdllama_tpu_torch.obs.metrics import (
     ENGINE_TELEMETRY,
     device_memory_lines,
@@ -63,3 +69,53 @@ def node_metric_lines(peer) -> list[str]:
     lines.extend(["# TYPE crowdllama_native_enabled gauge",
                   "crowdllama_native_enabled 0"])
     return lines
+
+
+class ObsServer:
+    """A worker's metrics / trace / drain endpoint."""
+
+    def __init__(self, peer, host: str = "127.0.0.1", port: int = 0) -> None:
+        self.peer = peer
+        self.host = host
+        self.port = port
+        self._server: http.Server | None = None
+        self.app = http.Application()
+        self.app.router.add_get("/metrics", self.handle_metrics)
+        self.app.router.add_get("/debug/trace", self.handle_trace)
+        # The operator's drain hook: SIGTERM's graceful path over HTTP.
+        self.app.router.add_post("/drain", self.handle_drain)
+
+    async def start(self) -> None:
+        self._server = http.Server(self.app, self.host, self.port)
+        await self._server.start()
+        self.port = self._server.port  # port=0 binds an ephemeral one
+        log.info("worker obs endpoint on %s:%d", self.host, self.port)
+
+    async def stop(self) -> None:
+        if self._server is not None:
+            await self._server.stop()
+            self._server = None
+
+    async def handle_metrics(self, request: http.Request) -> http.Response:
+        return http.Response(
+            text="\n".join(node_metric_lines(self.peer)) + "\n",
+            content_type="text/plain")
+
+    async def handle_trace(self, request: http.Request) -> http.Response:
+        """``?trace_id=`` filters to one trace, ``?limit=N`` keeps the N
+        newest records, as the gateway's."""
+        try:
+            limit = max(0, int(request.query.get("limit", "0") or 0))
+        except ValueError:
+            limit = 0
+        return http.json_response(self.peer.obs.trace.snapshot(
+            trace_id=request.query.get("trace_id", ""), limit=limit))
+
+    async def handle_drain(self, request: http.Request) -> http.Response:
+        already = bool(self.peer._draining)
+        migrated = await self.peer.drain()
+        return http.json_response({
+            "draining": True,
+            "already_draining": already,
+            "migrated_streams": migrated,
+        })

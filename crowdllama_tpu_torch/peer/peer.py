@@ -1,23 +1,30 @@
-"""The worker peer: a torch engine joins the swarm.
+"""The swarm node: a torch worker, or a consumer in front of a gateway.
 
-Counterpart of the worker side of ``crowdllama_tpu/peer/peer.py``: one
-node object owning the stream host, the DHT node, the capability
-metadata, the peer manager and the engine seam.  It serves the metadata
+Counterpart of ``crowdllama_tpu/peer/peer.py``: one node object owning
+the stream host, the DHT node, the capability metadata, the peer manager
+and the engine seam.  It serves the metadata
 stream and the DHT ``metadata`` op, runs the metadata refresh / publish /
 advertise loops (re-bootstrapping when the routing table empties) and
 serves the inference stream: llama.v1 requests in a loop per stream, so
 a gateway's stream pool amortizes the handshake.
 
-The advertised metadata is the engine's live telemetry; ``gpu_model``,
-``vram_gb`` and ``accelerator`` come from ``torch.cuda`` for the device
-the engine serves on (the TPU-only fields keep their defaults).
+A worker's advertised metadata is the engine's live telemetry;
+``gpu_model``, ``vram_gb`` and ``accelerator`` come from ``torch.cuda``
+for the device the engine serves on (the TPU-only fields keep their
+defaults).  A consumer (``worker_mode=False``) runs no model: its engine
+is ``FakeEngine(models=[])``, it advertises ``worker_mode=false`` with
+node ``"consumer"`` on its ``NodeObs``, and it runs discovery, the peer
+manager and the metadata handlers so its gateway (``gateway/``) can
+route.
 
-Not ported: the relay (``relay_mode="always"`` is refused), swarm model
-sharing and pull, the consumer role and gossip (a ``gossip_frame`` is
-ignored, as a JAX worker without a gossip node ignores it), KV page
-export (a ``kv_fetch_request`` is answered in band with ``matched=0``
-and an error) and remote-draft verification (``DraftChunk`` credits are
-nacked, so a gateway's pump degrades to plain streaming).
+Not ported: the relay (every node refuses ``relay_mode="always"``; a
+consumer dials direct and skips the relay's dial-back probe, as the
+port's worker does under ``"auto"``), swarm model sharing and pull,
+gossip (a ``gossip_frame`` is ignored, as a JAX node without a gossip
+node ignores it), KV page export (a ``kv_fetch_request`` is answered in
+band with ``matched=0`` and an error) and remote-draft verification
+(``DraftChunk`` credits are nacked, so a gateway's pump degrades to plain
+streaming).
 """
 
 from __future__ import annotations
@@ -95,27 +102,26 @@ def device_capabilities(device) -> dict:
 
 
 class Peer:
-    """One swarm worker node serving ``engine``."""
+    """One swarm node: a worker serving ``engine``, or a consumer."""
 
     def __init__(self, key: Ed25519PrivateKey, config: Configuration,
                  engine: Engine, worker_mode: bool = True):
-        if not worker_mode:
-            raise NotImplementedError(
-                "consumer mode needs the gateway's HTTP plane, which is not "
-                "ported to crowdllama_tpu_torch yet")
         self.config = config
         self.key = key
         self.engine = engine
-        self.worker_mode = True
+        self.worker_mode = bool(worker_mode)
         self.host = None
         self.dht = None
-        self.resource = Resource(worker_mode=True, version=VERSION)
+        self.resource = Resource(worker_mode=self.worker_mode,
+                                 version=VERSION)
         self.peer_manager: PeerManager | None = None
         self._tasks: list[asyncio.Task] = []
         self._draining = False
-        self._capabilities = device_capabilities(_engine_device(engine))
+        self._capabilities = (device_capabilities(_engine_device(engine))
+                              if self.worker_mode else {})
         self.obs = NodeObs(trace_capacity=config.trace_buffer or 64,
-                           node="worker", trace_ttl=config.trace_ttl or 0.0,
+                           node="worker" if self.worker_mode else "consumer",
+                           trace_ttl=config.trace_ttl or 0.0,
                            exemplars=bool(config.metrics_exemplars))
 
     # ----------------------------------------------------------- lifecycle
@@ -166,7 +172,8 @@ class Peer:
                 run_every(iv.advertise, self._advertise, log, logging.DEBUG),
                 name="peer-advertise"),
         ]
-        log.info("peer %s up (worker) on %s", self.host.peer_id[:8],
+        log.info("peer %s up (%s) on %s", self.host.peer_id[:8],
+                 "worker" if self.worker_mode else "consumer",
                  self.host.contact.addr)
 
     async def stop_advertising(self) -> None:
@@ -249,7 +256,7 @@ class Peer:
         r.tokens_throughput = float(d.get("throughput", 0.0))
         r.load = float(d.get("load", 0.0))
         r.version = VERSION
-        r.worker_mode = True
+        r.worker_mode = self.worker_mode
         r.max_context_length = self.config.max_context_length
         r.embeddings = bool(d.get("embeddings", True))
         for k, v in self._capabilities.items():

@@ -461,6 +461,40 @@ async def test_capture_profile_writes_a_chrome_trace(tmp_path):
     assert "traceEvents" in json.loads(trace.read_text())
 
 
+async def test_capture_profile_traces_the_dispatch_thread(tmp_path):
+    """The session opens and closes on the scheduler's dispatch thread, so
+    the trace holds the operators that thread runs while a stream
+    decodes; a stopped engine's scheduler refuses ``on_dispatch_thread``
+    and its profile comes from a worker thread."""
+    import json
+    import threading
+
+    engine = _tiny(profile_dir=str(tmp_path))
+    await engine.start()
+    try:
+        name = await engine.scheduler.on_dispatch_thread(
+            lambda: threading.current_thread().name)
+        assert name.startswith("torch-dispatch")
+        tid = await engine.scheduler.on_dispatch_thread(threading.get_native_id)
+        gen = engine.generate("abc", max_tokens=200)
+        await gen.__anext__()
+        out = await engine.capture_profile(0.3)
+        rest = [c async for c in gen]
+    finally:
+        await engine.stop()
+    assert rest and rest[-1].done
+    with pytest.raises(RuntimeError, match="not started"):
+        await engine.scheduler.on_dispatch_thread(threading.get_ident)
+    idle = await engine.capture_profile(0.1)
+    traces = sorted((tmp_path / "plugins" / "profile").rglob(
+        "*.pt.trace.json"))
+    assert sorted(str(t.parent) for t in traces) == sorted([out, idle])
+    trace = next(t for t in traces if str(t.parent) == out)
+    ops = [e for e in json.loads(trace.read_text())["traceEvents"]
+           if e.get("cat") == "cpu_op" and e["name"].startswith("aten::")]
+    assert ops and {e["tid"] for e in ops} == {tid}
+
+
 # ----------------------------------------------------------- MultiEngine
 
 async def test_multi_engine_routes_drains_and_migrates():

@@ -18,8 +18,9 @@ and one more request (the typed ``draining`` reject).
   ``kv_fetch_request`` gets the in-band refusal (``matched=0``,
   ``done``, an error); a stray ``draft_chunk`` a terminal nack.
 - The CLI parses the ``start --worker-mode`` flags it shares with the JAX
-  parser into equal values (defaults too); it refuses consumer mode and,
-  without CUDA, refuses to start unless ``--device cpu`` is given; with
+  parser into equal values (defaults too); consumer mode starts without
+  CUDA, a worker refuses to start without it unless ``--device cpu`` is
+  given; with
   it, ``python -m crowdllama_tpu_torch.cli.main start --worker-mode``
   joins a JAX bootstrap node, serves metadata and exits 0 on SIGINT.
 """
@@ -246,9 +247,17 @@ def test_every_port_flag_is_a_jax_flag_but_device():
 
 
 def test_cli_refuses_consumer_mode_and_a_missing_card(monkeypatch, capsys):
-    assert tcli.main(["start"]) == 2
-    assert "consumer mode" in capsys.readouterr().err
+    # Consumer mode is served now (it runs no model, so it needs no card);
+    # a worker without a card is still refused.
+    ran = []
+
+    async def run_node(cfg, worker_mode=True):
+        ran.append((cfg.gateway_port, worker_mode))
+
+    monkeypatch.setattr(tcli, "run_node", run_node)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tcli.main(["start", "--gateway-port", "9123"]) == 0
+    assert ran == [(9123, False)]
     assert tcli.main(["start", "--worker-mode"]) == 2
     assert "--device cpu" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -259,6 +268,40 @@ def test_cli_refuses_consumer_mode_and_a_missing_card(monkeypatch, capsys):
     assert eng._child("tiny-test").device == torch.device("cpu")
     with pytest.raises(SystemExit):
         tcli.build_parser().parse_args(["start", "--device", "tpu"])
+
+
+@pytest.mark.parametrize("flag,value,item", [
+    ("--gateway-peers", "a:1", "item 1.4"),
+    ("--gossip-interval", "3", "item 1.4"),
+    ("--gossip-snapshot", "/s", "item 1.4"),
+    ("--tenant-quota", "t=1", "item 1.4"),
+    ("--gateway-spec-pipeline", "gateway", "item 4"),
+    ("--spec-draft-path", "/d", "item 4"),
+    ("--kv-ship-min-tokens", "64", "item 9"),
+])
+def test_unported_flags_refuse_any_value_but_their_default(flag, value,
+                                                          item):
+    # The JAX CLI takes the value; the port parses it and refuses it at
+    # start, naming the ROADMAP item that ports its plane.
+    args = ["start", flag, value]
+    jconfig.Configuration.from_flags(jcli.build_parser().parse_args(args))
+    with pytest.raises(ValueError, match=f"ROADMAP Queue 1 {item}\\b"):
+        tconfig.Configuration.from_flags(
+            tcli.build_parser().parse_args(args))
+
+
+@pytest.mark.parametrize("worker_mode", [True, False],
+                         ids=["worker", "consumer"])
+def test_relay_always_is_refused_on_every_node(worker_mode):
+    from crowdllama_tpu_torch.engine.engine import FakeEngine
+
+    peer = TPeer(TKey.generate(),
+                 tconfig.Configuration(relay_mode="always", device="cpu"),
+                 FakeEngine(models=["tiny-test"] if worker_mode else []),
+                 worker_mode=worker_mode)
+    with pytest.raises(NotImplementedError, match="relay"):
+        asyncio.run(peer.start())
+    assert peer.host is None
 
 
 def test_cli_worker_joins_a_jax_swarm_on_the_cpu(tmp_path):

@@ -106,6 +106,12 @@ def _full_name(cls) -> str:
     return next(k for k, v in tpb.MESSAGES.items() if v is cls)
 
 
+def _f32(v: float) -> bytes:
+    """A float field's value as its float32 bit pattern: NaN compares
+    equal to the same NaN (``==`` on floats never holds for NaN)."""
+    return struct.pack("<f", v)
+
+
 def _port_fields(m) -> dict:
     out = {}
     for f in m.FIELDS:
@@ -113,6 +119,8 @@ def _port_fields(m) -> dict:
         if f.kind == "message":
             v = ([_port_fields(x) for x in v] if f.repeated
                  else None if v is None else _port_fields(v))
+        elif f.kind == "float":
+            v = [_f32(x) for x in v] if f.repeated else _f32(v)
         elif f.repeated:
             v = list(v)
         out[f.name] = v
@@ -127,6 +135,8 @@ def _pb_fields(m) -> dict:
         if fd.message_type is not None:
             v = ([_pb_fields(x) for x in v] if repeated
                  else _pb_fields(v) if m.HasField(fd.name) else None)
+        elif fd.type == fd.TYPE_FLOAT:
+            v = [_f32(x) for x in v] if repeated else _f32(v)
         elif repeated:
             v = list(v)
         out[fd.name] = v
@@ -321,6 +331,12 @@ def test_last_scalar_wins_and_submessages_merge():
     "1202c328",              # invalid UTF-8 in a string field
     "0a",                    # key without a value
     "3500",                  # truncated fixed32
+    "808080801000",          # tag of 2**32: past 32 bits
+    "0d0000000080808080" "1000",  # the same after a known field
+    "888080808000" "00",     # tag of 6 bytes (value 8)
+    "ffffffff0f",            # tag 0xffffffff: wire type 7
+    "0b00000c",              # field number 0 inside a group
+    "0b888080801000" "0c",   # a 33-bit tag inside a group
 ])
 def test_invalid_input_raises_decode_error(data):
     raw = bytes.fromhex(data)
@@ -328,6 +344,17 @@ def test_invalid_input_raises_decode_error(data):
         jpb.GenerateRequest.FromString(raw)
     with pytest.raises(tpb.DecodeError):
         tpb.GenerateRequest.FromString(raw)
+
+
+@pytest.mark.parametrize("data", [
+    "8880808000" "00",       # tag of 5 bytes (value 8): field 1
+    "f8ffffff0f" "00",       # field 2**29 - 1, the largest
+    "0bf8ffffff0f000c",      # the same inside a group
+])
+def test_widest_tags_decode_like_protobuf(data):
+    raw = bytes.fromhex(data)
+    assert _port_fields(tpb.GenerateRequest.FromString(raw)) == _pb_fields(
+        jpb.GenerateRequest.FromString(raw))
 
 
 def test_bytes_fields_take_any_bytes_and_setters_check_types():
