@@ -13,6 +13,11 @@ Phases, each printing one JSON line:
    spills from ``ptxas -v``, and each entry's dynamic shared memory and
    blocks per SM at the serving groups (8 query heads a kv head at Dh 64,
    4 at Dh 128);
+   native: the native data plane (``crowdllama_tpu_torch/native``)
+   built from the checkout's C++ source with g++ (a failure is an
+   error), then seal and open of one 64 KiB and one 256 KiB (``CHUNK``)
+   frame, the native session against the Python ChaCha20-Poly1305 in
+   this process, byte-equal, median host us of each;
 3. threefry: the port's threefry keys and bits, and its samplers on logits
    on the card (rows with tied logits too), against golden vectors
    captured from JAX (``engine/prng_golden.py``);
@@ -116,6 +121,24 @@ Phases, each printing one JSON line:
    with the same text; A, B and C launch; then a worker with
    ``megastep_k=8`` behind the same gateway: tokens/s of 8 streams
    beside direct ``generate()`` and the AEAD's us per operation;
+   relay (its own line): a torch-only swarm of processes started through
+   their CLIs (``cli_child``): ``python -m crowdllama_tpu_torch.cli.dht
+   start`` (bootstrap node and relay), a worker ``start --worker-mode
+   --relay-mode always`` (tinyllama-1.1b, seed-0 weights,
+   ``--megastep-k 8``) reachable only through the relay, and per rung of
+   the dial ladder a consumer ``start`` with its gateway: the splice,
+   connection reversal and a hole punch on loopback.  Each rung: a greedy
+   streamed ``/api/chat`` equal in text and tokens to a direct greedy
+   ``generate()`` here on the same weights (TTFB beside its TTFT), 8
+   concurrent chats, the ladder's counters and the worker's inbound
+   stream kinds naming the rung; A, B and C launch on the worker; every
+   process has the native plane on with no fallback and exits 0 on
+   SIGTERM;
+   aead_split (its own line): ``gateway_megastep`` with the gateway in
+   a process of its own (a consumer ``start``), the megastep worker
+   here, once with ``CROWDLLAMA_NO_NATIVE=1`` on both sides and once
+   without: per side AEAD operations, us per operation and share of the
+   wall, and tokens/s through the gateway as a share of direct;
 7. engine_int8: the same engine with ``kv_dtype="int8"`` (int8 pools)
    and the same traffic plus a seeded sampled stream (temperature 0.8,
    seed 1234) that must repeat token for token when sent again; kernels
@@ -174,6 +197,7 @@ no last line.  Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import contextvars
 import functools
 import gc
@@ -1841,6 +1865,35 @@ GATEWAY_FAMILIES = (
     "crowdllama_hedge_launched_total", "crowdllama_host_streams_total")
 
 
+def _printable(params: dict) -> dict:
+    """Zero the unembedding columns of every id but printable ASCII
+    (32-126) in place: a greedy token is then one character of text."""
+    lm_head = params["lm_head"]
+    keep = torch.zeros(lm_head.shape[1], dtype=torch.bool,
+                       device=lm_head.device)
+    keep[32:127] = True
+    lm_head[:, ~keep] = 0
+    return params
+
+
+@contextlib.contextmanager
+def _printable_init():
+    """While entered, every runner this process builds without weights
+    makes its seed's random weights and then ``_printable`` ones: the
+    relay phase's CLI worker (``cli_child`` enters it when
+    ``CHIP_SMOKE_PRINTABLE`` is set) and its direct reference, so both
+    hold the same weights and a greedy stream carries a character a
+    token."""
+    from crowdllama_tpu_torch.engine import runner
+
+    init = runner.init_params
+    runner.init_params = lambda *a, **kw: _printable(init(*a, **kw))
+    try:
+        yield
+    finally:
+        runner.init_params = init
+
+
 def gateway_params(dev) -> dict:
     """TinyLlama's seed-0 weights (as ``seed0_params``), made once on the
     card for every engine of the gateway phase to share, with the
@@ -1849,10 +1902,7 @@ def gateway_params(dev) -> dict:
     frame per token and its text is as long as its token ids (the byte
     tokenizer renders the ids past 255 that random weights otherwise emit
     as nothing)."""
-    params = seed0_params(dev)
-    keep = torch.zeros(params["lm_head"].shape[1], dtype=torch.bool)
-    keep[32:127] = True
-    params["lm_head"][:, ~keep] = 0
+    params = _printable(seed0_params(dev))
 
     def card(tree):
         return {k: card(v) if isinstance(v, dict) else v.to(dev)
@@ -1918,34 +1968,17 @@ async def _direct(engine, prompt: str, tokens: int) -> tuple:
 
 
 async def _concurrent(gw, prompts: list[str], tokens: int) -> dict:
-    """``prompts`` as streamed chats through the gateway ``gw`` at once:
-    each one's TTFB (first NDJSON line after the send), the worker that
-    served it and its completion tokens, tokens/s over the whole window,
-    and what the gateway's host paid for streams meanwhile (pool hits and
-    misses, handshakes and their seconds)."""
+    """``prompts`` as streamed chats through the gateway ``gw`` at once
+    (``_concurrent_port``), with what the gateway's host paid for streams
+    meanwhile (pool hits and misses, handshakes and their seconds)."""
     stats, pool = gw.peer.host.stats, gw._stream_pool
     before = (pool.hits, pool.misses, stats.get("streams_out", 0),
               stats.get("handshake_ns", 0))
-    t0 = time.perf_counter()
-    rs = await asyncio.gather(*(asyncio.to_thread(
-        _http, gw.port, "POST", "/api/chat", _chat_body(p, tokens, True))
-        for p in prompts))
-    wall = time.perf_counter() - t0
+    out = await _concurrent_port(gw.port, prompts, tokens)
     after = (pool.hits, pool.misses, stats.get("streams_out", 0),
              stats.get("handshake_ns", 0))
-    for r in rs:
-        if r["status"] != 200 or not _ndjson(r)[-1].get("done"):
-            raise AssertionError(f"gateway: a concurrent stream ended "
-                                 f"{r['status']} {r['lines'][-1:]}")
-    last = [_ndjson(r)[-1] for r in rs]
-    ttfb = sorted((r["lines"][0][0] - r["t0"]) * 1e3 for r in rs)
-    tokens_out = sum(x["eval_count"] for x in last)
-    return {"ttfb_ms_median": ttfb[len(ttfb) // 2], "ttfb_ms_max": ttfb[-1],
-            "ttfb_ms": ttfb, "wall_s": wall, "completion_tokens": tokens_out,
-            "tokens_per_s": tokens_out / wall,
-            "frames": [len(_ndjson(r)) for r in rs],
-            "workers": [x["worker_id"] for x in last],
-            "pool_hits": after[0] - before[0],
+    out.pop("texts")
+    return {**out, "pool_hits": after[0] - before[0],
             "pool_misses": after[1] - before[1],
             "streams_dialed": after[2] - before[2],
             "handshake_s": (after[3] - before[3]) / 1e9}
@@ -2401,6 +2434,699 @@ def gateway_phase(dev) -> tuple[dict, dict]:
     mline = {"phase": "gateway_megastep", "model": TINYLLAMA, **mega_out,
              "card": card, "nvidia_smi": smi}
     return line, mline
+
+
+# --------------------------------------------------- the native data plane
+
+MICRO_SIZES = (64 * 1024, 256 * 1024)  # a 64 KiB frame and CHUNK
+
+
+def native_phase() -> dict:
+    """The native data plane: the library built from the checkout's
+    source with g++ (a build failure is an error, never a quiet fallback),
+    then seal and open of one frame at 64 KiB and at ``CHUNK`` (256 KiB),
+    the native ``AeadSession`` against the Python ``ChaCha20Poly1305`` in
+    this process: median host us of each, both paths byte-equal."""
+    from crowdllama_tpu_torch import native
+    from crowdllama_tpu_torch.net.secure import CHUNK
+    from crowdllama_tpu_torch.utils.crypto import ChaCha20Poly1305
+
+    t0 = time.perf_counter()
+    if not native.ensure_built():
+        raise AssertionError(f"native: the library did not build: "
+                             f"{native.stats()['build_error']}")
+    out: dict = {"phase": "native", "build_s": time.perf_counter() - t0,
+                 "library": native.so_path().name, "chunk": CHUNK}
+    key = bytes(range(32))
+
+    def median_us(fn, iters: int) -> float:
+        ts = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t) * 1e6)
+        return sorted(ts)[len(ts) // 2]
+
+    lib = native.load()
+    nonce = (0).to_bytes(12, "big")
+    for size in MICRO_SIZES:
+        data = bytes(i % 251 for i in range(size))
+        py = ChaCha20Poly1305(key)
+        ct = py.encrypt(nonce, data, None)
+        sealer = native.AeadSession(lib, key)
+        frames = [sealer.seal_frames(data, size)[4:] for _ in range(200)]
+        if frames[0] != ct:
+            raise AssertionError(f"native: seal of {size} B differs")
+        seal = native.AeadSession(lib, key)
+        opener, pending = native.AeadSession(lib, key), iter(frames)
+
+        def open_next():
+            if opener.open(next(pending)) != data:
+                raise AssertionError(f"native: open of {size} B differs")
+
+        row = {"native_seal_us": median_us(
+                   lambda: seal.seal_frames(data, size), len(frames)),
+               "native_open_us": median_us(open_next, len(frames)),
+               "python_seal_us": median_us(
+                   lambda: py.encrypt(nonce, data, None), 5),
+               "python_open_us": median_us(
+                   lambda: py.decrypt(nonce, ct, None), 5)}
+        row["seal_speedup"] = row["python_seal_us"] / row["native_seal_us"]
+        row["open_speedup"] = row["python_open_us"] / row["native_open_us"]
+        out[f"{size // 1024}KiB"] = row
+    out["envelope"] = envelope_timing(median_us)
+    st = native.stats()
+    if not st["enabled"] or st["fallbacks"]:
+        raise AssertionError(f"native: {st}")
+    out["nvidia_smi"] = nvidia_smi()
+    emit(out)
+    return out
+
+
+ENVELOPE_SIZES = (1, 64, 4096, 64 * 1024)  # characters of text a frame
+
+
+def envelope_timing(median_us) -> dict:
+    """The llama.v1 envelope, native against the port's Python codec, at
+    ``ENVELOPE_SIZES`` characters of text: a streamed reply frame encoded
+    (``wire.encode_genresp_frame`` vs ``resp_msg`` + ``encode_frame``) and
+    decoded (``decode_payload_fast`` vs ``decode_payload``), and a chat
+    request encoded (``encode_genreq_frame`` vs ``create_generate_request``
+    + ``encode_frame``); median host us of 300 calls each, both paths
+    byte-equal.  ``native_faster_everywhere`` says whether the native
+    path won every pair, the ground for the call sites' dispatch on
+    every size."""
+    from crowdllama_tpu_torch.core import messages, wire
+
+    rows, wins = {}, []
+    for size in ENVELOPE_SIZES:
+        text = "a" * size
+        resp = dict(model=TINYLLAMA, response=text, worker_id="w" * 52,
+                    done=False, done_reason="", total_duration_ns=0,
+                    prompt_tokens=40, completion_tokens=7,
+                    created_ns=1_700_000_000_123_456_789,
+                    trace_id="t" * 16, parent_span="gateway")
+
+        def codec_resp():
+            msg = messages.resp_msg(messages._generate_response(
+                resp["model"], text, resp["worker_id"], False, "", 0, 40, 7,
+                resp["created_ns"]))
+            msg.trace_id, msg.parent_span = resp["trace_id"], "gateway"
+            return wire.encode_frame(msg)
+
+        req = dict(model=TINYLLAMA, prompt="", stream=True,
+                   messages=({"role": "user", "content": text},),
+                   max_tokens=64, temperature=0.0, top_p=1.0, seed=0,
+                   stop=(), top_k=0, repeat_penalty=1.0)
+
+        def codec_req():
+            msg = messages.create_generate_request(**req)
+            msg.trace_id, msg.parent_span = "t" * 16, "gateway"
+            return wire.encode_frame(msg)
+
+        def native_req():
+            return wire.encode_genreq_frame(**req, trace_id="t" * 16,
+                                            parent_span="gateway")
+
+        frame = wire.encode_genresp_frame(**resp)
+        payload = frame[4:]
+        fast = wire.decode_payload_fast(payload)
+        if not (frame == codec_resp() and native_req() == codec_req()
+                and isinstance(fast, wire.FastBaseMessage)
+                and fast.generate_response.response == text):
+            raise AssertionError(f"native: the envelope of {size} "
+                                 f"characters differs from the codec's")
+        row = {"encode_native_us": median_us(
+                   lambda: wire.encode_genresp_frame(**resp), 300),
+               "encode_codec_us": median_us(codec_resp, 300),
+               "decode_native_us": median_us(
+                   lambda: wire.decode_payload_fast(payload), 300),
+               "decode_codec_us": median_us(
+                   lambda: wire.decode_payload(payload), 300),
+               "request_native_us": median_us(native_req, 300),
+               "request_codec_us": median_us(codec_req, 300)}
+        wins += [row[f"{k}_native_us"] < row[f"{k}_codec_us"]
+                 for k in ("encode", "decode", "request")]
+        rows[str(size)] = row
+    return {"sizes": rows, "native_faster_everywhere": all(wins)}
+
+
+def cli_child(module: str, out_path: str, *argv: str) -> None:
+    """Run one of the port's CLIs (``module``'s ``main(argv)``) in this
+    process, as ``python -m <module> <argv>`` would, and write what only
+    this process can see to ``out_path`` when it returns: its exit code,
+    its native data plane's stats, its kernel launch counts since the
+    last SIGUSR1 (which zeroes them) and its AEAD totals (net/secure.py)
+    at each SIGUSR1 and SIGUSR2 (which also writes the launch counts to
+    ``<out_path>.snap`` at once).  With ``CHIP_SMOKE_PRINTABLE`` set, the
+    engines it builds hold ``_printable_init``'s weights.  The relay and
+    split phases start their processes through it."""
+    import faulthandler
+    import importlib
+    import os
+    import signal
+
+    from crowdllama_tpu_torch import native
+    from crowdllama_tpu_torch.net import secure
+
+    marks: dict = {}
+
+    def mark(signum, _frame):
+        if signum == signal.SIGUSR1:
+            _zero_launches()
+            marks["start"] = secure.aead_stats()
+        else:
+            marks["end"] = secure.aead_stats()
+            with open(out_path + ".snap", "w") as f:
+                json.dump({"launches": _launches()}, f)
+
+    signal.signal(signal.SIGUSR1, mark)
+    signal.signal(signal.SIGUSR2, mark)
+    # SIGQUIT prints every thread's stack (a phase that times out asks).
+    faulthandler.register(signal.SIGQUIT, all_threads=True)
+    main = importlib.import_module(module).main
+    if os.environ.get("CHIP_SMOKE_PRINTABLE"):
+        with _printable_init():
+            rc = main(list(argv))
+    else:
+        rc = main(list(argv))
+    with open(out_path, "w") as f:
+        json.dump({"rc": rc, "native": native.stats(),
+                   "launches": _launches(), "aead": marks}, f)
+    sys.exit(rc)
+
+
+async def _spawn_cli(root: str, tmp: str, name: str, module: str,
+                     *argv: str, env: dict | None = None):
+    """``cli_child(module, ...)`` in a process of its own (cwd ``root``,
+    stderr to ``<tmp>/<name>.err``), and the path it reports to."""
+    import os
+
+    out = os.path.join(tmp, f"{name}.json")
+    err = open(os.path.join(tmp, f"{name}.err"), "w")
+    code = ("import sys, chip_smoke; chip_smoke.cli_child(*sys.argv[1:])")
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-c", code, module, out, *argv, cwd=root,
+        stderr=err, env={**os.environ, **(env or {})})
+    proc.err_file = err
+    return proc, out
+
+
+async def _stop_cli(proc, out: str, name: str, tmp: str) -> dict:
+    """SIGTERM ``proc``; it must exit 0 and report through ``out``."""
+    import os
+    import signal
+
+    if proc.returncode is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        rc = await asyncio.wait_for(proc.wait(), 120)
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+        proc.err_file.close()
+    if rc != 0 or not os.path.exists(out):
+        with open(os.path.join(tmp, f"{name}.err")) as f:
+            raise AssertionError(f"{name}: exited {rc}: {f.read()[-2000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+async def _wait_worker(gport: int, proc, timeout: float = 300.0) -> str:
+    """The id of the one worker the gateway on ``gport`` lists healthy."""
+    t0 = time.perf_counter()
+    while True:
+        if proc.returncode is not None or time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"the gateway on {gport} lists no healthy "
+                                 f"worker (rc {proc.returncode})")
+        try:
+            r = await asyncio.to_thread(_http, gport, "GET", "/api/health",
+                                        None, None, 5.0)
+            workers = json.loads(r["lines"][0][1])["workers"]
+            ok = [w for w, v in workers.items() if v.get("is_healthy")]
+            if ok:
+                return ok[0]
+        except (OSError, IndexError, ValueError):
+            pass  # not up yet
+        await asyncio.sleep(0.5)
+
+
+async def _concurrent_port(port: int, prompts: list[str], tokens: int,
+                           timeout: float = 180.0) -> dict:
+    """``prompts`` as streamed chats at once through the gateway on
+    ``port``: each one's TTFB (first NDJSON line after the send), frames,
+    text, the worker that served it and its completion tokens, and
+    tokens/s over the whole window."""
+    t0 = time.perf_counter()
+    rs = await asyncio.gather(*(asyncio.to_thread(
+        _http, port, "POST", "/api/chat", _chat_body(p, tokens, True), None,
+        timeout) for p in prompts))
+    wall = time.perf_counter() - t0
+    for r in rs:
+        if r["status"] != 200 or not _ndjson(r)[-1].get("done"):
+            raise AssertionError(f"a concurrent stream ended {r['status']} "
+                                 f"{r['lines'][-1:]}")
+    last = [_ndjson(r)[-1] for r in rs]
+    ttfb = sorted((r["lines"][0][0] - r["t0"]) * 1e3 for r in rs)
+    tokens_out = sum(x["eval_count"] for x in last)
+    return {"ttfb_ms_median": ttfb[len(ttfb) // 2], "ttfb_ms_max": ttfb[-1],
+            "ttfb_ms": ttfb, "wall_s": wall, "completion_tokens": tokens_out,
+            "tokens_per_s": tokens_out / wall,
+            "frames": [len(_ndjson(r)) for r in rs],
+            "workers": [x["worker_id"] for x in last],
+            "texts": ["".join(x["message"]["content"] for x in _ndjson(r))
+                      for r in rs]}
+
+
+def _series(text: str) -> dict:
+    """/metrics text -> {"name{labels}": value}."""
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#") and " " in ln:
+            k, _, v = ln.rpartition(" ")
+            try:
+                out[k] = float(v)
+            except ValueError:
+                pass
+    return out
+
+
+def _dump_children(procs: list, tmp: str) -> None:
+    """Ask each live child for its threads' stacks (SIGQUIT, see
+    ``cli_child``), then print the tail of every child's stderr."""
+    import glob
+    import signal
+
+    for proc, _path, _name in procs:
+        if proc.returncode is None:
+            proc.send_signal(signal.SIGQUIT)
+    time.sleep(1.0)
+    for path in sorted(glob.glob(f"{tmp}/*.err")):
+        with open(path, errors="replace") as f:
+            print(f"--- {path}\n{f.read()[-6000:]}", file=sys.stderr)
+
+
+RELAY_BG_TOKENS = 1024
+
+
+async def _ragged_on_worker(gport: int, worker, w_out: str) -> dict:
+    """The long prompt through the gateway on ``gport`` while a
+    ``RELAY_BG_TOKENS``-token chat decodes on the worker process, so it is
+    prefilled in ragged steps beside a decoding slot (kernel C); tried
+    with the long prompt sent after 0.3, 0.15 and 0.6 s until the
+    worker's launch counts (``cli_child``'s snapshot at SIGUSR2) show
+    C.  Both replies must be done."""
+    import signal
+
+    for delay in (0.3, 0.15, 0.6):
+        bg = asyncio.create_task(asyncio.to_thread(
+            _http, gport, "POST", "/api/chat",
+            _chat_body(SHORT[0], RELAY_BG_TOKENS, True), None, 180.0))
+        await asyncio.sleep(delay)
+        long_r = await asyncio.to_thread(
+            _http, gport, "POST", "/api/chat", _chat_body(LONG, 8, True),
+            None, 180.0)
+        bg_r = await bg
+        worker.send_signal(signal.SIGUSR2)
+        await asyncio.sleep(0.5)
+        with open(w_out + ".snap") as f:
+            launches = json.load(f)["launches"]
+        long_last, bg_last = _ndjson(long_r)[-1], _ndjson(bg_r)[-1]
+        if not (long_last.get("done") and bg_last.get("done")):
+            raise AssertionError(f"relay: long {long_last}, bg {bg_last}")
+        if launches["C"]:
+            return {"delay_s": delay, "eval_count": long_last["eval_count"],
+                    "bg_eval_count": bg_last["eval_count"],
+                    "C": launches["C"]}
+    raise AssertionError(f"relay: kernel C never launched: {launches}")
+
+
+def _metrics(port: int) -> dict:
+    r = _http(port, "GET", "/metrics", None, None, 30.0)
+    return _series(b"".join(ln for _, ln in r["lines"]).decode())
+
+
+def _native_ok(where: str, report: dict) -> dict:
+    st = report["native"]
+    if not st["enabled"] or any(st["fallbacks"].values()):
+        raise AssertionError(f"{where}: native {st}")
+    return {"enabled": st["enabled"], "fallbacks": st["fallbacks"],
+            "envelope_calls": st["calls"].get("envelope", 0)}
+
+
+RELAY_TOKENS = 32
+RELAY_RUNGS = (
+    # rung, the consumer's environment (the ladder's other rungs off)
+    ("splice", {"CROWDLLAMA_TPU_NO_REVERSE": "1",
+                "CROWDLLAMA_TPU_NO_PUNCH": "1"}),
+    ("reverse", {}),
+    ("punch", {"CROWDLLAMA_TPU_NO_REVERSE": "1"}),
+)
+
+
+RUNG_KIND = {"splice": "relayed", "reverse": "reversed", "punch": "punched"}
+
+
+def relay_phase(dev, extra: tuple = ()) -> dict:
+    """A torch-only swarm in processes of their own, each started through
+    its CLI: ``python -m crowdllama_tpu_torch.cli.dht start`` (the
+    bootstrap node, hosting the relay), one worker ``start --worker-mode
+    --relay-mode always`` (tinyllama-1.1b at full width, seed-0 random
+    weights made printable by ``_printable_init``, ``--megastep-k 8``, no
+    prefix cache) that is reachable only through the relay, and for each
+    rung of the dial ladder a consumer ``start`` with its gateway: the
+    splice (reversal and punch off), connection reversal (the consumer's
+    port dial-back confirmed) and a hole punch on loopback (reversal
+    off).  Each rung: one greedy streamed ``/api/chat`` whose text (a
+    character a token, never empty) and token count equal a direct
+    greedy ``generate()`` of the same prompt on the same weights in this
+    process (its TTFB beside the direct TTFT), then 8 concurrent greedy
+    chats, each one's text equal to a direct ``generate()`` of its
+    prompt.  The prefix cache is off on both sides, so every prompt takes
+    the same full prefill: a prefix hit prefills through another
+    attention path, whose bf16 rounding flips near-tied greedy tokens of
+    random weights (with the cache on, 3 of the 8 chats of the second
+    rung, which hit the first rung's pages, differed from direct).  The
+    consumer's ladder counters and the worker's stream kinds show the
+    rung taken.  Kernels A, B and C launch on the worker (counts zeroed
+    before the first rung's traffic, read at its exit); every process
+    has the native data plane on with no fallback and exits 0 on
+    SIGTERM; the native envelope served every frame (each consumer's
+    native envelope calls at least the frames its gateway streamed, the
+    worker's at least all of them).  ``extra`` adds the worker's CLI
+    flags."""
+    import os
+    import signal
+    import tempfile
+
+    from crowdllama_tpu_torch.config import Configuration
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    main_mod = "crowdllama_tpu_torch.cli.main"
+    prompt = SHORT[2]
+    prompts = (SHORT + [HIT, SAMPLED[0]])[:GATEWAY_STREAMS]
+
+    async def direct_reference() -> dict:
+        with _printable_init():
+            engine = TorchEngine(Configuration(
+                model=TINYLLAMA, megastep_k=MEGASTEP_K,
+                kv_prefix_cache=False), device=dev)
+            await engine.start()
+        try:
+            def chat(p):
+                return engine._format_chat([{"role": "user", "content": p}])
+
+            await _direct(engine, chat(prompt), RELAY_TOKENS)  # warm
+            text, ttft, n = await _direct(engine, chat(prompt), RELAY_TOKENS)
+            texts = {p: (await _direct(engine, chat(p), RELAY_TOKENS))[0]
+                     for p in prompts}
+        finally:
+            await engine.stop()
+        if not (len(text) == RELAY_TOKENS and all(
+                len(t) == RELAY_TOKENS for t in texts.values())):
+            raise AssertionError(f"relay: a direct text is not a character "
+                                 f"a token: {text!r} {texts}")
+        return {"text": text, "ttft_ms": ttft * 1e3, "tokens": n,
+                "texts": texts}
+
+    async def go(tmp: str) -> dict:
+        dport, wport = _free_port(), _free_port()
+        addr = f"127.0.0.1:{dport}"
+        dht, dht_out = await _spawn_cli(
+            root, tmp, "dht", "crowdllama_tpu_torch.cli.dht", "start",
+            "--port", str(dport), "--host", "127.0.0.1", "--key-path",
+            os.path.join(tmp, "dht"))
+        procs = [(dht, dht_out, "dht")]
+        out: dict = {"rungs": {}}
+        try:
+            while True:  # the bootstrap node listens
+                try:
+                    _r, w = await asyncio.open_connection("127.0.0.1", dport)
+                    w.close()
+                    break
+                except OSError:
+                    if dht.returncode is not None:
+                        raise AssertionError("relay: the dht node exited")
+                    await asyncio.sleep(0.2)
+            t0 = time.perf_counter()
+            worker, w_out = await _spawn_cli(
+                root, tmp, "worker", main_mod, "start", "--worker-mode",
+                "--relay-mode", "always", "--model", TINYLLAMA,
+                "--megastep-k", str(MEGASTEP_K), "--bootstrap-peers", addr,
+                "--key-path", os.path.join(tmp, "w"),
+                "--worker-metrics-port", str(wport), *extra,
+                env={"CHIP_SMOKE_PRINTABLE": "1",
+                     "CROWDLLAMA_TPU_KV_PREFIX_CACHE": "0"})
+            procs.append((worker, w_out, "worker"))
+            out["direct"] = await direct_reference()
+            _free_card()
+            print("relay: direct reference done", file=sys.stderr,
+                  flush=True)
+            zeroed, seen_before, streamed = False, {}, 0
+            for rung, env in RELAY_RUNGS:
+                gport = _free_port()
+                cons, c_out = await _spawn_cli(
+                    root, tmp, f"consumer_{rung}", main_mod, "start",
+                    "--gateway-port", str(gport), "--bootstrap-peers", addr,
+                    "--key-path", os.path.join(tmp, f"c_{rung}"),
+                    "--listen-port", "0", env=env)
+                procs.append((cons, c_out, f"consumer_{rung}"))
+                worker_id = await _wait_worker(gport, cons)
+                print(f"relay {rung}: the worker is routable", file=sys.stderr,
+                      flush=True)
+                if not zeroed:
+                    out["worker_up_s"] = time.perf_counter() - t0
+                    worker.send_signal(signal.SIGUSR1)
+                    await asyncio.sleep(0.5)
+                    zeroed = True
+                r = await asyncio.to_thread(
+                    _http, gport, "POST", "/api/chat",
+                    _chat_body(prompt, RELAY_TOKENS, True), None, 180.0)
+                lines = _ndjson(r)
+                text = "".join(x["message"]["content"] for x in lines)
+                one = {"status": r["status"], "text_equal":
+                       text == out["direct"]["text"],
+                       "eval_count": lines[-1].get("eval_count"),
+                       "ttfb_ms": (r["lines"][0][0] - r["t0"]) * 1e3}
+                conc = await _concurrent_port(gport, prompts, RELAY_TOKENS)
+                if rung == "splice":
+                    out["long"] = await _ragged_on_worker(gport, worker,
+                                                          w_out)
+                cm = await asyncio.to_thread(_metrics, gport)
+                wm = await asyncio.to_thread(_metrics, wport)
+                ladder = {f"{g}_{o}": cm.get(
+                    f'crowdllama_dial_ladder_attempts_total{{rung="{g}",'
+                    f'outcome="{o}"}}', 0.0)
+                    for g in ("direct", "reverse", "punch", "splice")
+                    for o in ("ok", "fail")}
+                seen = {k: wm.get(f'crowdllama_host_streams_total{{kind='
+                                  f'"streams_{k}_in"}}', 0.0)
+                        for k in ("relayed", "reversed", "punched")}
+                kinds = {k: v - seen_before.get(k, 0.0)
+                         for k, v in seen.items()}
+                seen_before = seen
+                procs.remove((cons, c_out, f"consumer_{rung}"))
+                rep = await _stop_cli(cons, c_out, f"consumer_{rung}", tmp)
+                differ = [p for p, t in zip(prompts, conc.pop("texts"))
+                          if t != out["direct"]["texts"][p]]
+                conc["texts_equal"] = len(prompts) - len(differ)
+                served_by = set(conc["workers"])
+                conc["workers"] = _counts(conc["workers"])
+                frames = len(lines) + sum(conc["frames"])
+                streamed += frames
+                out["rungs"][rung] = {
+                    "single": one, "concurrent": conc, "ladder": ladder,
+                    "worker_streams_in": kinds, "frames": frames,
+                    "consumer_native": _native_ok(f"relay {rung} consumer",
+                                                  rep)}
+                if not (r["status"] == 200 and one["text_equal"]
+                        and len(text) == RELAY_TOKENS and not differ
+                        and out["rungs"][rung]["consumer_native"][
+                            "envelope_calls"] >= frames
+                        and one["eval_count"] == out["direct"]["tokens"]
+                        and conc["completion_tokens"]
+                        == GATEWAY_STREAMS * RELAY_TOKENS
+                        and served_by == {worker_id}
+                        and ladder[f"{rung}_ok"] >= 1
+                        and kinds[RUNG_KIND[rung]] >= 1
+                        # A failed reversal or punch falls back to the
+                        # splice; the rung must carry most streams.
+                        and (rung == "splice" or ladder[f"{rung}_ok"]
+                             > ladder["splice_ok"])):
+                    raise AssertionError(f"relay {rung}: "
+                                         f"{out['rungs'][rung]}")
+            for proc, path, name in reversed(list(procs)):
+                procs.remove((proc, path, name))
+                rep = await _stop_cli(proc, path, name, tmp)
+                out[f"{name}_native"] = _native_ok(f"relay {name}", rep)
+                if name == "worker":
+                    out["launches"] = rep["launches"]
+                    if out["worker_native"]["envelope_calls"] < streamed:
+                        raise AssertionError(
+                            f"relay: the worker's native envelope served "
+                            f"{out['worker_native']} of {streamed} frames")
+            with open(os.path.join(tmp, "dht.err")) as f:
+                classes = [ln for ln in f if "address class" in ln]
+            out["relay_addr_classes"] = (classes[-1].split(
+                "address class: ", 1)[1].strip() if classes else "")
+        except BaseException:
+            _dump_children(procs, tmp)
+            raise
+        finally:
+            for proc, path, name in procs:
+                if proc.returncode is None:
+                    proc.kill()
+                    await proc.wait()
+                proc.err_file.close()
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="relay") as tmp:
+        out = asyncio.run(go(tmp))
+    _expect_launches(out["launches"], {"A", "B", "C"}, "relay")
+    direct = out["direct"]
+    splice = out["rungs"]["splice"]["single"]
+    line = {"phase": "relay", "model": TINYLLAMA, "megastep_k": MEGASTEP_K,
+            "tokens": RELAY_TOKENS, "streams": GATEWAY_STREAMS, **out,
+            "ttfb_splice_over_direct": splice["ttfb_ms"] / direct["ttft_ms"],
+            "card": torch.cuda.get_device_name(0),
+            "nvidia_smi": nvidia_smi()}
+    line["direct"] = {k: v for k, v in direct.items()
+                      if k not in ("text", "texts")}
+    emit(line)
+    return line
+
+
+SPLIT_REPS = 3
+
+
+def aead_split_phase(dev) -> dict:
+    """``gateway_megastep`` with the gateway in a process of its own: a
+    worker (``megastep_k=8``, the gateway phase's printable seed-0
+    weights) in this process behind a consumer ``start`` with its gateway
+    in another, once with ``CROWDLLAMA_NO_NATIVE=1`` on both sides (the
+    Python AEAD) and once without (native).  For each side, over the 8
+    concurrent streams of 64 tokens: AEAD operations, us per operation
+    and the AEAD's share of the wall, beside tokens/s through the gateway
+    as a share of direct ``generate()`` streams on the same engine (the
+    medians of ``SPLIT_REPS`` batches each; the AEAD over all of them)."""
+    import os
+    import signal
+    import tempfile
+
+    from crowdllama_tpu_torch import native
+    from crowdllama_tpu_torch.config import Configuration
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.net import secure
+    from crowdllama_tpu_torch.net.discovery import new_host_and_dht
+    from crowdllama_tpu_torch.peer.peer import Peer
+    from crowdllama_tpu_torch.utils.crypto import Ed25519PrivateKey
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    prompts = (SHORT + [HIT, SAMPLED[0]])[:GATEWAY_STREAMS]
+    params = gateway_params(dev)
+
+    async def go(tmp: str) -> dict:
+        boot, _ = await new_host_and_dht(Ed25519PrivateKey.generate(),
+                                         listen_host="127.0.0.1")
+        addr = f"127.0.0.1:{boot.listen_port}"
+        engine = TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                             megastep_k=MEGASTEP_K, decode_chunk=8)
+        await engine.start()
+        worker = Peer(Ed25519PrivateKey.generate(), Configuration(
+            model=TINYLLAMA, listen_host="127.0.0.1", bootstrap_peers=[addr],
+            relay_mode="off"), engine)
+        await worker.start()
+        out: dict = {}
+        try:
+            chats = [engine._format_chat([{"role": "user", "content": p}])
+                     for p in prompts]
+            await _concurrent_direct([(engine, c) for c in chats], 8)
+            direct = [await _concurrent_direct(
+                [(engine, c) for c in chats], GATEWAY_MEGA_TOKENS)
+                for _ in range(SPLIT_REPS)]
+            direct_tps = sorted(d["tokens_per_s"] for d in direct)
+            out["direct"] = {"tokens_per_s": [d["tokens_per_s"]
+                                              for d in direct],
+                             "ttft_ms_median": [d["ttft_ms_median"]
+                                                for d in direct]}
+            for mode in ("python", "native"):
+                env = {"CROWDLLAMA_NO_NATIVE": "1"} if mode == "python" \
+                    else {}
+                if mode == "python":
+                    os.environ["CROWDLLAMA_NO_NATIVE"] = "1"
+                else:
+                    os.environ.pop("CROWDLLAMA_NO_NATIVE", None)
+                gport = _free_port()
+                cons, c_out = await _spawn_cli(
+                    root, tmp, f"gateway_{mode}",
+                    "crowdllama_tpu_torch.cli.main", "start",
+                    "--gateway-port", str(gport), "--bootstrap-peers", addr,
+                    "--key-path", os.path.join(tmp, f"g_{mode}"),
+                    "--listen-port", "0", "--relay-mode", "off", env=env)
+                try:
+                    await _wait_worker(gport, cons)
+                    await _concurrent_port(gport, prompts, 8)  # the pool
+                    cons.send_signal(signal.SIGUSR1)
+                    await asyncio.sleep(0.2)
+                    w0 = secure.aead_stats()
+                    vias = [await _concurrent_port(gport, prompts,
+                                                   GATEWAY_MEGA_TOKENS)
+                            for _ in range(SPLIT_REPS)]
+                    w1 = secure.aead_stats()
+                    cons.send_signal(signal.SIGUSR2)
+                    await asyncio.sleep(0.2)
+                except BaseException:
+                    _dump_children([(cons, c_out, mode)], tmp)
+                    raise
+                finally:
+                    rep = await _stop_cli(cons, c_out, f"gateway_{mode}", tmp)
+                g0, g1 = rep["aead"]["start"], rep["aead"]["end"]
+                wall = sum(v["wall_s"] for v in vias)
+                tps = sorted(v["tokens_per_s"] for v in vias)
+
+                def side(ns0, ops0, ns1, ops1):
+                    ops = ops1 - ops0
+                    return {"ops": ops, "us_per_op": (ns1 - ns0) / 1e3
+                            / max(1, ops),
+                            "share_of_wall": (ns1 - ns0) / 1e9 / wall}
+
+                out[mode] = {
+                    "gateway": {"tokens_per_s": [v["tokens_per_s"]
+                                                 for v in vias],
+                                "ttfb_ms_median": [v["ttfb_ms_median"]
+                                                   for v in vias],
+                                "wall_s": wall},
+                    "tokens_per_s_share": tps[len(tps) // 2]
+                    / direct_tps[len(direct_tps) // 2],
+                    "aead_gateway": side(*g0, *g1),
+                    "aead_worker": side(*w0, *w1),
+                    "gateway_native": rep["native"]["enabled"],
+                    "worker_native": mode == "native"
+                    and native.native_enabled()}
+                if not (all(v["completion_tokens"] == GATEWAY_STREAMS
+                            * GATEWAY_MEGA_TOKENS for v in vias)
+                        and rep["native"]["enabled"] == (mode == "native")
+                        and out[mode]["aead_gateway"]["ops"] > 0
+                        and out[mode]["aead_worker"]["ops"] > 0):
+                    raise AssertionError(f"aead_split {mode}: {out[mode]}")
+        finally:
+            os.environ.pop("CROWDLLAMA_NO_NATIVE", None)
+            await worker.stop()
+            await engine.stop()
+            await boot.close()
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="split") as tmp:
+        out = asyncio.run(go(tmp))
+    line = {"phase": "aead_split", "model": TINYLLAMA,
+            "megastep_k": MEGASTEP_K, "streams": GATEWAY_STREAMS,
+            "tokens": GATEWAY_MEGA_TOKENS, **out,
+            "card": torch.cuda.get_device_name(0),
+            "nvidia_smi": nvidia_smi()}
+    emit(line)
+    return line
 
 
 def _free_port() -> int:
@@ -3281,6 +4007,7 @@ def main() -> int:
                    for lib, entries in kernels.SIGNATURES.items()
                    for sym in entries for dh, g in ((64, 8), (128, 4))]})
 
+    native_phase()
     from crowdllama_tpu_torch.engine import prng_golden
 
     emit({"phase": "threefry", **prng_golden.check(dev)})
@@ -3300,6 +4027,15 @@ def main() -> int:
     cli_phase()
     for line in gateway_phase(dev):
         emit(line)
+    _free_card()
+    relay_phase(dev)
+    from crowdllama_tpu_torch import native
+
+    # Every phase so far ran the native data plane with no fallback; the
+    # split phase's Python half is the first to count one.
+    _native_ok("chip_smoke", {"native": native.stats()})
+    _free_card()
+    aead_split_phase(dev)
     _free_card()
     launches["F"] = tp_phase(dev, paged)["F"]
     _free_card()

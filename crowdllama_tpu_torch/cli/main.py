@@ -29,6 +29,7 @@ import re
 import signal
 import sys
 
+from crowdllama_tpu_torch import native
 from crowdllama_tpu_torch.config import Configuration
 from crowdllama_tpu_torch.utils.keys import KeyManager
 from crowdllama_tpu_torch.version import version_string
@@ -463,6 +464,10 @@ def main(argv: list[str] | None = None) -> int:
         if not torch.cuda.is_available():
             print(NO_CUDA, file=sys.stderr)
             return 2
+    # Build the native data plane before the loop runs: under a running
+    # loop a first build goes to a background thread and the first
+    # streams take the Python path.
+    native.ensure_built()
     try:
         asyncio.run(run_node(cfg, worker_mode=args.worker_mode))
     except KeyboardInterrupt:

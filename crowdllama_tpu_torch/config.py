@@ -122,8 +122,10 @@ class Configuration:
     gateway_port: int = 9001  # the consumer's HTTP gateway
     ipc_socket: str = ""
     engine_backend: str = "jax"  # the real engine ("jax" names it) | "fake"
-    # NAT traversal: the port dials direct only; "always" (relay every
-    # stream) is refused by the peer until the relay is ported.
+    # NAT traversal (net/relay.py): "auto" relays a worker only when the
+    # bootstrap node cannot dial it back (re-probed every
+    # intervals.relay_reprobe), "always" relays every worker's inbound
+    # streams, "off" dials direct only.
     relay_mode: str = "auto"
     drain_timeout: float = 30.0  # graceful-shutdown grace for in-flight reqs
     kv_ship_timeout: float = 5.0  # cap on serving one KvFetchRequest
@@ -378,8 +380,7 @@ class Configuration:
                                  "contiguous or paged layout)")
         parser.add_argument("--relay-mode", dest="relay_mode",
                             choices=("auto", "always", "off"),
-                            help="NAT relay through the bootstrap node "
-                                 "(the port dials direct only)")
+                            help="NAT relay through the bootstrap node")
         parser.add_argument("--spec-decode", dest="spec_decode",
                             choices=("", "ngram", "draft"),
                             help="speculative decoding")

@@ -96,9 +96,18 @@ def genresp_frame_bytes(
 ) -> bytes:
     """Encoded wire frame ([4B BE len][BaseMessage]) of a GenerateResponse
     envelope built from scalars: the per-chunk path of a streaming worker.
-    The same bytes as the JAX package's for the same ``created_ns``."""
+    The same bytes as the JAX package's for the same ``created_ns``.  The
+    native encoder serves while the library is loaded (see ``wire``'s
+    envelope fast path); both paths give the same bytes."""
     if created_ns is None:
         created_ns = time.time_ns()
+    frame = wire.encode_genresp_frame(
+        model=model, response=response, worker_id=worker_id, done=done,
+        done_reason=done_reason, total_duration_ns=total_duration_ns,
+        prompt_tokens=prompt_tokens, completion_tokens=completion_tokens,
+        created_ns=created_ns, trace_id=trace_id, parent_span=parent_span)
+    if frame is not None:
+        return frame
     msg = resp_msg(_generate_response(
         model, response, worker_id, done, done_reason, total_duration_ns,
         prompt_tokens, completion_tokens, created_ns))

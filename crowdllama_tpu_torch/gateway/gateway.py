@@ -22,9 +22,11 @@ Not ported, and so not parameters here: the replicated gateway's gossip
 node and tenant quotas (ROADMAP Queue 1 item 1.4) and the speculative
 pipeline (item 4); ``config.py`` refuses their flags.  ``/api/pull`` of
 a model no worker serves answers 501 (swarm model sharing, item 9).  The
-native data plane is not ported (item 1.1): frames go through the port's
-llama.v1 codec, and /metrics has no ``crowdllama_native_*`` family.  The
-autopilot's back-off capture goes with the autopilot (item 11).
+autopilot's back-off capture goes with the autopilot (item 11).  The
+native data plane encodes request frames (``core/wire.encode_genreq_frame``)
+and decodes reply frames with its strict decoder where it applies
+(``core/wire.decode_payload_fast``); /metrics carries the
+``crowdllama_native_*`` families.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from crowdllama_tpu_torch.net.host import HANDSHAKE_TIMEOUT, StreamPool
 from crowdllama_tpu_torch.obs import GATEWAY_ROOT_SPAN, NodeObs, new_trace_id
 from crowdllama_tpu_torch.obs.cluster import ClusterScraper
 from crowdllama_tpu_torch.obs.collector import FlightRecorder, TraceCollector
-from crowdllama_tpu_torch.obs.http import host_stat_lines
+from crowdllama_tpu_torch.obs.http import host_stat_lines, native_metric_lines
 from crowdllama_tpu_torch.obs.metrics import (
     ENGINE_TELEMETRY,
     LabelGuard,
@@ -275,9 +277,11 @@ class Gateway:
         self._stream_pool.put(worker_id, s)
 
     async def _dial(self, worker_id: str, acc: dict | None = None,
-                    timeout: float | None = None):
+                    timeout: float | None = None, trace_id: str = ""):
         """A fresh stream; ``timeout`` caps dial + handshake at the
-        request's remaining budget."""
+        request's remaining budget.  ``trace_id`` rides a relay splice's
+        connect frame, so the relay records a relay_splice span the
+        collector can stitch."""
         t0 = time.perf_counter_ns()
         contact = await self.peer.dht.find_peer(worker_id)
         if contact is None:
@@ -285,7 +289,7 @@ class Gateway:
         hs = (HANDSHAKE_TIMEOUT if timeout is None
               else max(0.05, min(HANDSHAKE_TIMEOUT, timeout)))
         s = await self.peer.host.new_stream(contact, INFERENCE_PROTOCOL,
-                                            timeout=hs)
+                                            timeout=hs, trace_id=trace_id)
         if acc is not None:
             acc["dial_ns"] = acc.get("dial_ns", 0) \
                 + time.perf_counter_ns() - t0
@@ -359,7 +363,9 @@ class Gateway:
         t0 = time.perf_counter_ns()
         payload = await wire.read_frame_payload(s.reader, timeout=timeout)
         t1 = time.perf_counter_ns()
-        reply = wire.decode_payload(payload)
+        # The native strict decoder serves the GenerateResponse arm (the
+        # per-chunk case); every other shape goes through the codec.
+        reply = wire.decode_payload_fast(payload)
         t2 = time.perf_counter_ns()
         self._perf["io_wait_ns"] += t1 - t0
         self._perf["serde_ns"] += t2 - t1
@@ -666,7 +672,7 @@ class Gateway:
                 s.close()
                 log.debug("pooled stream to %s stale (%s); redialing",
                           worker_id[:8], e)
-        s = await self._dial(worker_id, acc=acc)
+        s = await self._dial(worker_id, acc=acc, trace_id=msg.trace_id)
         try:
             await self._send_frame(s, frame, acc=acc)
             reply = await self._recv_pb(s, timeout=timeout, acc=acc)
@@ -818,6 +824,7 @@ class Gateway:
         lines.extend(ENGINE_TELEMETRY.expose())
         lines.extend(device_memory_lines())
         lines.extend(host_stat_lines(self.peer.host))
+        lines.extend(native_metric_lines())
         lines.extend(self.slo.expose())
         return web.Response(text="\n".join(lines) + "\n",
                             content_type="text/plain")
@@ -1178,7 +1185,7 @@ class Gateway:
                               shape="chat") -> web.StreamResponse:
         t_build = time.perf_counter_ns()
         stops = options.get("stop") or []
-        msg = create_generate_request(
+        req_kwargs = dict(
             model=model,
             prompt=prompt,
             stream=stream,
@@ -1196,6 +1203,7 @@ class Gateway:
             repeat_penalty=max(0.0, float(
                 options.get("repeat_penalty", 1.0) or 1.0)),
         )
+        msg = create_generate_request(**req_kwargs)
         self._perf["serde_ns"] += time.perf_counter_ns() - t_build
         # The trace id every hop downstream inherits.
         tid = new_trace_id()
@@ -1206,6 +1214,27 @@ class Gateway:
         deadline = t0 + budget
         self._perf["requests"] += 1
         acc: dict = {}
+
+        def native_frame(kv_donor: str = "",
+                         migrate: bool = False) -> bytes | None:
+            """The request's wire frame from the admission scalars by the
+            native encoder (the codec's bytes for ``msg``), or None: the
+            attempt then encodes ``msg`` with the codec."""
+            t_enc = time.perf_counter_ns()
+            try:
+                frame = wire.encode_genreq_frame(
+                    **req_kwargs, kv_donor=kv_donor, migrate=migrate,
+                    trace_id=tid, parent_span=GATEWAY_ROOT_SPAN)
+            except wire.WireError:
+                return None  # oversize: the codec raises the same error
+            dt = time.perf_counter_ns() - t_enc
+            self._perf["serde_ns"] += dt
+            acc["serde_ns"] = acc.get("serde_ns", 0) + dt
+            return frame
+
+        # Encoded once at admission; an attempt with a donor or a
+        # migration encodes its own.
+        base_frame = native_frame()
         self.obs.trace.begin(tid, node="gateway", model=model,
                              path=request.path, stream=stream)
         aead0 = secure.aead_stats()[0]
@@ -1280,10 +1309,13 @@ class Gateway:
                         "failing stream over %s -> %s (replaying %d "
                         "delivered chars)", prev_worker[:8],
                         worker.peer_id[:8], len(sctx.sent_text))
+                frame = (base_frame if not gr.kv_donor and not gr.migrate
+                         else native_frame(gr.kv_donor, gr.migrate))
                 try:
                     resp = await self._forward(request, worker.peer_id, msg,
                                                stream, shape, t0, acc=acc,
-                                               ctx=sctx, deadline=deadline)
+                                               ctx=sctx, deadline=deadline,
+                                               frame=frame)
                     winner_id = sctx.winner or worker.peer_id
                     self._affinity_put(akey, winner_id)
                     if drained_worker and drained_worker != winner_id:
@@ -1600,7 +1632,8 @@ class Gateway:
                           worker_id[:8], e)
         s = await self._dial(worker_id, acc=acc,
                              timeout=(remaining()
-                                      if deadline is not None else None))
+                                      if deadline is not None else None),
+                             trace_id=msg.trace_id)
         try:
             await self._send_frame(s, frame, acc=acc)
             return s, await _first(s)
@@ -1693,13 +1726,15 @@ class Gateway:
                        shape: str, t0: float,
                        acc: dict | None = None,
                        ctx: _StreamCtx | None = None,
-                       deadline: float | None = None) -> web.StreamResponse:
+                       deadline: float | None = None,
+                       frame: bytes | None = None) -> web.StreamResponse:
         """Send the request to ``worker_id`` and relay the reply as Ollama
         NDJSON (``chat`` / ``generate``) or OpenAI SSE (``openai-*``).
         ``t0`` is the admission time (TTFB), ``acc`` the request's phase
         accumulator.  On a failover call (``ctx.out`` prepared) the reply
         is replayed and trimmed against ``ctx.sent_text``.  Every
-        dial / recv is clamped to what is left before ``deadline``."""
+        dial / recv is clamped to what is left before ``deadline``.
+        ``frame`` is ``msg`` already encoded (None: encode it here)."""
         if acc is None:
             acc = {}
         if ctx is None:
@@ -1728,7 +1763,8 @@ class Gateway:
 
         if not stream:
             resp = classify(await self._roundtrip(
-                worker_id, msg, timeout=_recv_timeout(), acc=acc))
+                worker_id, msg, timeout=_recv_timeout(), acc=acc,
+                frame=frame))
             if resp.done_reason == "error":
                 raise RuntimeError(resp.response)
             return web.json_response(render(resp, final=True))
@@ -1739,7 +1775,8 @@ class Gateway:
         stall_decode = self._stall_budget("decode")
         if remaining() <= 0:
             raise _BudgetExhausted("budget exhausted before dial")
-        frame = self._encode_frame(msg, acc=acc)
+        if frame is None:
+            frame = self._encode_frame(msg, acc=acc)
         # The hedge only on a stream's first attempt: a replay already has
         # client bytes out.
         hedge_thr = self._hedge_threshold() if ctx.out is None else 0.0

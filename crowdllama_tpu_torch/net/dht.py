@@ -1,8 +1,8 @@
 """Kademlia-style DHT with provider records.
 
-Counterpart of ``crowdllama_tpu/net/dht.py`` (its pure-Python routing
-table; the native one is not ported): an XOR-metric k-bucket routing
-table, iterative lookups (alpha=3, k=20) and TTL'd provider records, with
+Counterpart of ``crowdllama_tpu/net/dht.py``: an XOR-metric k-bucket
+routing table (native, ``NativeRoutingTable``, when the library is
+loaded; ``PyRoutingTable`` otherwise, with the same semantics), iterative lookups (alpha=3, k=20) and TTL'd provider records, with
 RPCs as JSON frames on the KAD protocol over pooled ``net/host.py``
 streams.  The RPCs (ping, find_node, get_providers, add_provider,
 find_peer, metadata) are the JAX node's, so port and JAX nodes share one
@@ -12,12 +12,14 @@ DHT.
 from __future__ import annotations
 
 import asyncio
+import ctypes
 import logging
 import os
 import random
 import time
 from dataclasses import dataclass, field
 
+from crowdllama_tpu_torch import native
 from crowdllama_tpu_torch.net.host import (
     STREAM_POOL_IDLE_S,
     Contact,
@@ -88,6 +90,73 @@ class PyRoutingTable:
 
     def contacts(self) -> list[Contact]:
         return [c for bucket in self.buckets for _, c in bucket]
+
+
+class NativeRoutingTable:
+    """The C++ routing table (``native/_src``) with the semantics of
+    :class:`PyRoutingTable`: ids live in the native table, Contacts in a
+    side dict kept in step through the eviction it reports."""
+
+    def __init__(self, self_id: bytes, k: int = K, lib=None):
+        self._lib = lib if lib is not None else native.load()
+        assert self._lib is not None
+        self.self_id = self_id
+        self.k = k
+        self._h = self._lib.cl_rt_new(self_id, k)
+        self._contacts: dict[bytes, Contact] = {}
+
+    def __del__(self):
+        try:
+            if getattr(self, "_h", None):
+                self._lib.cl_rt_free(self._h)
+                self._h = None
+        except Exception:
+            pass
+
+    def update(self, contact: Contact) -> None:
+        node_id = peer_id_to_dht_id(contact.peer_id)
+        evicted_buf = (ctypes.c_uint8 * 32)()
+        evicted = ctypes.c_int(0)
+        if self._lib.cl_rt_upsert(self._h, node_id, evicted_buf,
+                                  ctypes.byref(evicted)):
+            self._contacts[node_id] = contact
+            if evicted.value:
+                self._contacts.pop(bytes(evicted_buf), None)
+
+    def remove(self, peer_id: str) -> None:
+        node_id = peer_id_to_dht_id(peer_id)
+        if self._lib.cl_rt_remove(self._h, node_id):
+            self._contacts.pop(node_id, None)
+
+    def closest(self, target: bytes, k: int | None = None) -> list[Contact]:
+        k = k or self.k
+        out = (ctypes.c_uint8 * (32 * k))()
+        n = self._lib.cl_rt_closest(self._h, target, k, out)
+        raw = bytes(out)
+        return [self._contacts[raw[i * 32:(i + 1) * 32]] for i in range(n)]
+
+    def __len__(self) -> int:
+        return int(self._lib.cl_rt_size(self._h))
+
+    def contacts(self) -> list[Contact]:
+        # Mutation is single-threaded (asyncio) and every native insert,
+        # evict and remove mirrors into _contacts in the same call, so the
+        # native count always equals len(_contacts).
+        cap = len(self._contacts)
+        out = (ctypes.c_uint8 * (32 * cap))()
+        n = self._lib.cl_rt_dump(self._h, out, cap)
+        assert n == cap, f"native table out of sync: {n} != {cap}"
+        raw = bytes(out)
+        return [self._contacts[raw[i * 32:(i + 1) * 32]] for i in range(n)]
+
+
+def RoutingTable(self_id: bytes, k: int = K):
+    """The native table when the library is loaded, else the Python one
+    (same interface and semantics)."""
+    lib = native.load()
+    if lib is not None:
+        return NativeRoutingTable(self_id, k, lib=lib)
+    return PyRoutingTable(self_id, k)
 
 
 @dataclass
@@ -199,7 +268,7 @@ class DHTNode:
     def __init__(self, host: Host, server_mode: bool = True):
         self.host = host
         self.node_id = peer_id_to_dht_id(host.peer_id)
-        self.table = PyRoutingTable(self.node_id)
+        self.table = RoutingTable(self.node_id)
         self.providers = ProviderStore()
         self.server_mode = server_mode
         self.bootstrap_addrs: list[str] = []

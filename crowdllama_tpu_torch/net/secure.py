@@ -1,7 +1,6 @@
 """Authenticated encryption for host streams (X25519 + ChaCha20-Poly1305).
 
-Counterpart of ``crowdllama_tpu/net/secure.py`` (its Python path; the
-native AEAD session is not ported).  Each signed hello of the handshake
+Counterpart of ``crowdllama_tpu/net/secure.py``.  Each signed hello of the handshake
 (``net/host.py``) carries an ephemeral X25519 key bound to the peer's
 identity by the Ed25519 signature; both sides HKDF the ECDH secret into
 two directional ChaCha20-Poly1305 keys (``derive_keys``: the JAX
@@ -13,6 +12,13 @@ and surface as ``TamperError``, a ``ConnectionResetError``, so every
 wire-error handler treats it as a dead stream.  An empty plaintext frame
 is the authenticated close.
 
+Each direction seals through a native session (``native.AeadSession``,
+the C++ ChaCha20-Poly1305 of ``native/_src``) when the library is
+loaded, and through ``utils/crypto.py`` otherwise, with the fallback
+counted (``native.record_fallback("aead")``).  The two paths put the same
+bytes on the wire and share the counter semantics: one nonce a frame,
+advanced on a successful open and on a failed tag alike.
+
 The adapters expose the part of the asyncio Stream{Reader,Writer}
 surface the protocol code uses (readexactly / read / at_eof, write /
 drain / write_eof / close / is_closing).
@@ -23,6 +29,7 @@ from __future__ import annotations
 import asyncio
 import time
 
+from crowdllama_tpu_torch import native
 from crowdllama_tpu_torch.utils.crypto import (
     ChaCha20Poly1305,
     InvalidTag,
@@ -68,10 +75,20 @@ def ecdh(private: X25519PrivateKey, peer_public_raw: bytes) -> bytes:
     return private.exchange(X25519PublicKey.from_public_bytes(peer_public_raw))
 
 
-def _count(t0: int) -> None:
+def _count(t0: int, ops: int = 1) -> None:
     global _aead_ns, _aead_ops
     _aead_ns += time.perf_counter_ns() - t0
-    _aead_ops += 1
+    _aead_ops += ops
+
+
+def _native_session(key: bytes) -> "native.AeadSession | None":
+    """A native AEAD context for one direction, or None (the counted
+    Python path) when the library is not loaded."""
+    lib = native.load()
+    if lib is None:
+        native.record_fallback("aead")
+        return None
+    return native.AeadSession(lib, key)
 
 
 class SecureWriter:
@@ -79,19 +96,41 @@ class SecureWriter:
 
     def __init__(self, writer: asyncio.StreamWriter, key: bytes):
         self._w = writer
-        self._aead = ChaCha20Poly1305(key)
+        self._native = _native_session(key)
+        self._aead = None if self._native is not None else ChaCha20Poly1305(key)
         self._ctr = 0
+
+    @property
+    def counter(self) -> int:
+        """Frames sealed so far (either path)."""
+        return self._native.counter if self._native is not None else self._ctr
 
     def _frame(self, chunk: bytes) -> None:
         """Seal exactly one frame (empty chunk = authenticated close)."""
+        t0 = time.perf_counter_ns()
+        if self._native is not None:
+            frame = (self._native.seal_frames(bytes(chunk), len(chunk))
+                     if chunk else
+                     self._native.seal_frames(b"", CHUNK, with_eof=True))
+            _count(t0)
+            self._w.write(frame)
+            return
         nonce = self._ctr.to_bytes(12, "big")
         self._ctr += 1
-        t0 = time.perf_counter_ns()
         ct = self._aead.encrypt(nonce, chunk, None)
         _count(t0)
         self._w.write(len(ct).to_bytes(4, "big") + ct)
 
     def write(self, data: bytes) -> None:
+        if self._native is not None:
+            if not data:
+                return
+            t0 = time.perf_counter_ns()
+            before = self._native.counter
+            frames = self._native.seal_frames(bytes(data), CHUNK)
+            _count(t0, self._native.counter - before)
+            self._w.write(frames)
+            return
         data = bytes(data)
         for off in range(0, len(data), CHUNK):
             self._frame(data[off:off + CHUNK])
@@ -111,17 +150,26 @@ class SecureWriter:
     def is_closing(self) -> bool:
         return self._w.is_closing()
 
+    def get_extra_info(self, name, default=None):
+        return self._w.get_extra_info(name, default)
+
 
 class SecureReader:
     """Decrypting adapter over an asyncio StreamReader."""
 
     def __init__(self, reader: asyncio.StreamReader, key: bytes):
         self._r = reader
-        self._aead = ChaCha20Poly1305(key)
+        self._native = _native_session(key)
+        self._aead = None if self._native is not None else ChaCha20Poly1305(key)
         self._ctr = 0
         self._buf = bytearray()
         self._eof = False
         self._authenticated_eof = False  # saw the empty close frame
+
+    @property
+    def counter(self) -> int:
+        """Frames consumed so far (either path)."""
+        return self._native.counter if self._native is not None else self._ctr
 
     async def _fill(self) -> None:
         """Read and decrypt one frame into the plaintext buffer."""
@@ -139,17 +187,23 @@ class SecureReader:
             ct = await self._r.readexactly(length)
         except asyncio.IncompleteReadError as e:
             raise TamperError("stream cut mid-frame") from e
-        nonce = self._ctr.to_bytes(12, "big")
-        # The counter advances on a failed tag too: a stream that failed
-        # authentication is dead.
-        self._ctr += 1
+        # The counter advances on a failed tag too (on both paths): a
+        # stream that failed authentication is dead.
         t0 = time.perf_counter_ns()
-        try:
-            pt = self._aead.decrypt(nonce, ct, None)
-        except InvalidTag as e:
-            raise TamperError("frame failed authentication") from e
-        finally:
+        if self._native is not None:
+            pt = self._native.open(ct)
             _count(t0)
+            if pt is None:
+                raise TamperError("frame failed authentication")
+        else:
+            nonce = self._ctr.to_bytes(12, "big")
+            self._ctr += 1
+            try:
+                pt = self._aead.decrypt(nonce, ct, None)
+            except InvalidTag as e:
+                raise TamperError("frame failed authentication") from e
+            finally:
+                _count(t0)
         if not pt:  # authenticated close (SecureWriter.write_eof)
             self._eof = True
             self._authenticated_eof = True

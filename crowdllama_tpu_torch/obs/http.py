@@ -9,16 +9,16 @@ plane, device memory and the host's stream counters.  ``ObsServer`` (a
 worker's ``--worker-metrics-port``) also serves ``/debug/trace`` and
 ``POST /drain``, on the port's own HTTP plane (``net/http.py``).
 
-The native data plane is not ported (ROADMAP Queue 1 item 1.1): a worker
-reports ``crowdllama_native_enabled 0`` with no fallback counter, and the
-JAX package's ``native_metric_lines`` is left out, so the gateway's
-/metrics carries no ``crowdllama_native_*`` family.
+``native_metric_lines`` (the ``crowdllama_native_*`` families: whether
+the native data plane serves this process, and its Python-path dispatches
+per component) closes both the worker's and the gateway's exposition.
 """
 
 from __future__ import annotations
 
 import logging
 
+from crowdllama_tpu_torch import native
 from crowdllama_tpu_torch.net import http
 from crowdllama_tpu_torch.obs.metrics import (
     ENGINE_TELEMETRY,
@@ -27,6 +27,25 @@ from crowdllama_tpu_torch.obs.metrics import (
 )
 
 log = logging.getLogger("crowdllama.torch.obs")
+
+
+def native_metric_lines() -> list[str]:
+    """Native data-plane health: a gauge for whether the C++ path serves
+    this process, and a counter of every dispatch to the Python path per
+    component (each label always present, so dashboards rate() without
+    sparse-series gaps)."""
+    st = native.stats()
+    lines = [
+        "# TYPE crowdllama_native_enabled gauge",
+        f"crowdllama_native_enabled {1 if st['enabled'] else 0}",
+        "# TYPE crowdllama_native_fallbacks_total counter",
+    ]
+    components = {"aead": 0, "envelope": 0, "frame_scan": 0}
+    components.update(st["fallbacks"])
+    for comp, v in sorted(components.items()):
+        lines.append(
+            f'crowdllama_native_fallbacks_total{{component="{comp}"}} {v}')
+    return lines
 
 
 def host_stat_lines(host) -> list[str]:
@@ -42,8 +61,8 @@ def host_stat_lines(host) -> list[str]:
     lines.append(
         f"crowdllama_host_handshake_seconds_total "
         f"{host.stats.get('handshake_ns', 0) / 1e9:.6f}")
-    # Every rung at zero too (the port climbs only "direct"), so
-    # dashboards rate() without sparse-series gaps.
+    # Every rung at zero too, so dashboards rate() without sparse-series
+    # gaps.
     lines.append("# TYPE crowdllama_dial_ladder_attempts_total counter")
     for rung in ("direct", "reverse", "punch", "splice"):
         for outcome in ("ok", "fail"):
@@ -66,8 +85,7 @@ def node_metric_lines(peer) -> list[str]:
     lines.extend(ENGINE_TELEMETRY.expose())
     lines.extend(device_memory_lines())
     lines.extend(host_stat_lines(peer.host))
-    lines.extend(["# TYPE crowdllama_native_enabled gauge",
-                  "crowdllama_native_enabled 0"])
+    lines.extend(native_metric_lines())
     return lines
 
 

@@ -17,9 +17,16 @@ node ``"consumer"`` on its ``NodeObs``, and it runs discovery, the peer
 manager and the metadata handlers so its gateway (``gateway/``) can
 route.
 
-Not ported: the relay (every node refuses ``relay_mode="always"``; a
-consumer dials direct and skips the relay's dial-back probe, as the
-port's worker does under ``"auto"``), swarm model sharing and pull,
+NAT traversal (``net/relay.py``): a worker the bootstrap node cannot dial
+back (or any worker under ``relay_mode="always"``) registers with a relay
+and advertises the relay's address, failing over to any
+``relay_capable`` swarm peer; a directly reachable worker hosts a
+``RelayService`` itself; under ``"auto"`` the re-probe moves a worker
+between the two as its reachability changes; a consumer's dial-back
+probe confirms its own port so its dials to relayed workers try
+connection reversal first.
+
+Not ported: swarm model sharing and pull,
 gossip (a ``gossip_frame`` is ignored, as a JAX node without a gossip
 node ignores it), KV page export (a ``kv_fetch_request`` is answered in
 band with ``matched=0`` and an error) and remote-draft verification
@@ -58,7 +65,8 @@ from crowdllama_tpu_torch.net.discovery import (
     new_host_and_dht,
     request_peer_metadata,
 )
-from crowdllama_tpu_torch.net.host import STREAM_POOL_IDLE_S, Stream
+from crowdllama_tpu_torch.net import relay
+from crowdllama_tpu_torch.net.host import STREAM_POOL_IDLE_S, Contact, Stream
 from crowdllama_tpu_torch.obs import NodeObs
 from crowdllama_tpu_torch.obs.http import node_metric_lines
 from crowdllama_tpu_torch.peermanager.manager import (
@@ -115,6 +123,8 @@ class Peer:
         self.resource = Resource(worker_mode=self.worker_mode,
                                  version=VERSION)
         self.peer_manager: PeerManager | None = None
+        self.relay_client = None  # net/relay.py RelayClient when relaying
+        self.relay_service = None  # RelayService when hosting one
         self._tasks: list[asyncio.Task] = []
         self._draining = False
         self._capabilities = (device_capabilities(_engine_device(engine))
@@ -127,11 +137,6 @@ class Peer:
     # ----------------------------------------------------------- lifecycle
 
     async def start(self) -> None:
-        if self.config.relay_mode == "always":
-            raise NotImplementedError(
-                "relay_mode='always' needs the relay (net/relay.py), which "
-                "is not ported to crowdllama_tpu_torch yet: use 'auto' or "
-                "'off' (direct dials)")
         self.host, self.dht = await new_host_and_dht(
             self.key, listen_host=self.config.listen_host,
             listen_port=self.config.listen_port)
@@ -157,6 +162,7 @@ class Peer:
             n = await self.dht.bootstrap(self.config.bootstrap_peers)
             log.info("bootstrapped to %d/%d peers", n,
                      len(self.config.bootstrap_peers))
+        await self._setup_relay()
         self.peer_manager.start()
         iv = self.config.intervals
         self.dht.start_maintenance(provider_check=iv.dht_provider_check,
@@ -172,9 +178,159 @@ class Peer:
                 run_every(iv.advertise, self._advertise, log, logging.DEBUG),
                 name="peer-advertise"),
         ]
+        if self.worker_mode and self.config.relay_mode == "auto":
+            self._tasks.append(asyncio.create_task(
+                run_every(iv.relay_reprobe, self._reprobe_relay, log,
+                          logging.DEBUG), name="peer-relay-reprobe"))
         log.info("peer %s up (%s) on %s", self.host.peer_id[:8],
                  "worker" if self.worker_mode else "consumer",
                  self.host.contact.addr)
+
+    async def _setup_relay(self) -> None:
+        """NAT traversal: a worker the bootstrap node cannot dial back
+        registers for reverse streams through it (failing over to any
+        relay_capable swarm peer) and advertises the relay's address; a
+        directly reachable worker hosts a RelayService and advertises
+        relay_capable, so relay capacity grows with the swarm's public
+        members."""
+        if self.config.relay_mode == "off":
+            return
+        if not self.worker_mode:
+            # A consumer never relays, but a dial-back-confirmed listen
+            # port lets its dials to relayed workers try connection
+            # reversal: the worker dials back and the data path skips the
+            # relay.
+            if self.config.bootstrap_peers:
+                try:
+                    self.host.reverse_dialable = await relay.dialback_probe(
+                        self.host, self.config.bootstrap_peers[0])
+                except Exception as e:
+                    log.debug("consumer dialback probe unavailable (%s)", e)
+            return
+        if not self.config.bootstrap_peers:
+            self._start_relay_service()
+            return
+        relay_addr = self.config.bootstrap_peers[0]
+        if self.config.relay_mode == "auto":
+            try:
+                if await relay.dialback_probe(self.host, relay_addr):
+                    self.host.reverse_dialable = True
+                    self._start_relay_service()
+                    return
+            except Exception as e:
+                # No relay service at the bootstrap node: relaying through
+                # it is impossible either way, so stay direct rather than
+                # stall startup on a doomed registration.
+                log.debug("dialback probe unavailable (%s); staying "
+                          "direct", e)
+                return
+        await self._register_relay(relay_addr)
+
+    async def _register_relay(self, relay_addr: str) -> bool:
+        """Register for reverse streams via ``relay_addr`` (with failover
+        candidates); False when the registration cannot start."""
+        log.info("worker not directly reachable: relaying via %s", relay_addr)
+        # Stop advertising the direct address BEFORE registering, so no
+        # peer learns a bogus direct contact.
+        self.host.hello_dialable = False
+        client = relay.RelayClient(self.host, relay_addr,
+                                   candidates=self._relay_candidates,
+                                   on_relay_change=self._on_relay_change)
+        try:
+            await client.start()
+        except Exception:
+            await client.stop()  # the reconnect loop too
+            self.host.hello_dialable = True  # direct-only beats dead
+            log.exception("relay registration failed; staying direct")
+            return False
+        self.relay_client = client
+        self.host.reverse_dialable = False  # confirmed not dialable
+        if self.relay_service is not None:
+            # A NATed node cannot relay for others.
+            self.relay_service.close()
+            self.relay_service = None
+            self.resource.relay_capable = False
+        self._on_relay_change(client.relay_addr)
+        return True
+
+    def _start_relay_service(self) -> None:
+        """Host a RelayService for NATed swarm members."""
+        if self.relay_service is None:
+            self.relay_service = relay.RelayService(self.host)
+            # Traced splices record relay_splice spans into this node's
+            # ring, so the trace collector can fetch the relay hop.
+            self.relay_service.obs = self.obs
+            self.resource.relay_capable = True
+            log.info("hosting relay service for NATed peers")
+
+    def _relay_candidates(self) -> list[str]:
+        """Failover relay addresses: the bootstrap peers first, then every
+        healthy peer advertising relay_capable (resolved through the local
+        routing table, no network round trip)."""
+        cands = list(self.config.bootstrap_peers)
+        try:
+            capable = {
+                p.peer_id for p in self.peer_manager.get_healthy_peers()
+                if getattr(p.resource, "relay_capable", False)}
+            for c in self.dht.table.contacts():
+                if c.peer_id in capable and not c.relay:
+                    cands.append(f"{c.host}:{c.port}")
+        except Exception as e:
+            log.debug("relay candidate scan failed: %s", e)
+        seen: set[str] = set()
+        return [a for a in cands if not (a in seen or seen.add(a))]
+
+    def _on_relay_change(self, relay_addr: str) -> None:
+        """(Re-)advertise the current relay contact: fires on every
+        successful registration, failover to a new relay included."""
+        rhost, _, rport = relay_addr.rpartition(":")
+        self.host.relay_contact = Contact(
+            peer_id=self.host.peer_id, host=rhost or "127.0.0.1",
+            port=int(rport), relay=True)
+        self.resource.reachability = "relay"
+        self.update_metadata()
+
+    async def _reprobe_relay(self) -> None:
+        """``relay_mode="auto"`` tracks reachability both ways: a relaying
+        worker whose port became reachable drops the relay, and a direct
+        worker whose port stopped being reachable goes back to relaying
+        (otherwise a transiently open NAT would strand the worker
+        advertising a dead direct address)."""
+        if self.config.relay_mode != "auto":
+            return
+        if self.relay_client is not None:
+            try:
+                reachable = await relay.dialback_probe(
+                    self.host, self.relay_client.relay_addr)
+            except Exception:
+                return  # relay gone mid-probe: the client fails over
+            if not reachable:
+                return
+            log.info("direct dialback succeeded; dropping relay %s",
+                     self.relay_client.relay_addr)
+            await self.relay_client.stop()
+            self.relay_client = None
+            self.host.relay_contact = None
+            self.host.hello_dialable = True
+            self.host.reverse_dialable = True
+            self.resource.reachability = "direct"
+            self._start_relay_service()
+            self.update_metadata()
+            await self._publish_metadata()
+            return
+        cands = self._relay_candidates()
+        if not cands:
+            return
+        try:
+            reachable = await relay.dialback_probe(self.host, cands[0])
+        except Exception:
+            return  # no relay service reachable to probe through
+        if reachable:
+            self.host.reverse_dialable = True
+            return
+        log.info("direct dialback stopped succeeding; returning to relay")
+        if await self._register_relay(cands[0]):
+            await self._publish_metadata()
 
     async def stop_advertising(self) -> None:
         """Stop the publish/advertise/refresh loops without closing
@@ -235,6 +391,12 @@ class Peer:
                                      min_interval=0), timeout=2.0)
             except Exception as e:
                 log.debug("departure publish failed: %s", e)
+        if self.relay_client is not None:
+            await self.relay_client.stop()
+            self.relay_client = None
+        if self.relay_service is not None:
+            self.relay_service.close()
+            self.relay_service = None
         if self.peer_manager is not None:
             await self.peer_manager.stop()
         if self.dht is not None:

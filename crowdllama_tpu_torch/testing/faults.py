@@ -29,6 +29,8 @@ FAULT_SITES: dict[str, str] = {
     "engine.request": "non-streamed inference entry (engine/engine.py)",
     "engine.stream_chunk": "before the worker yields chunk N of a stream",
     "host.new_stream": "before a dial + handshake (net/host.py)",
+    "relay.op": "relay service op dispatch (net/relay.py)",
+    "relay.splice": "before a relay starts its bidirectional copy loop",
     "kv.serve": "donor side, before a KvFetchRequest is served",
     "spec.draft_chunk": "after the worker reads a DraftChunk off a "
                         "remote-draft stream (peer/peer.py)",

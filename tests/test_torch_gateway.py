@@ -48,6 +48,7 @@ from crowdllama_tpu.peer.peer import Peer as JPeer  # noqa: E402
 from crowdllama_tpu.utils.crypto_compat import (  # noqa: E402
     Ed25519PrivateKey as JKey,
 )
+from crowdllama_tpu_torch import native  # noqa: E402
 from crowdllama_tpu_torch.config import Configuration as TConf  # noqa: E402
 from crowdllama_tpu_torch.core import wire as twire  # noqa: E402
 from crowdllama_tpu_torch.core.messages import (  # noqa: E402
@@ -263,6 +264,19 @@ async def _topology(tmp_path) -> dict:
             await _wait(lambda: tworker.peer_id in {
                 p.peer_id for p in cons.peer_manager.get_healthy_peers()},
                 "the port worker")
+        # Every request frame the port gateway sends, beside the codec's
+        # encoding of its message.
+        frames = out["request_frames"] = []
+        forward = tgw._forward
+
+        async def recording_forward(request, worker_id, msg, *a,
+                                    frame=None, **kw):
+            frames.append((frame, twire.encode_frame(msg)))
+            return await forward(request, worker_id, msg, *a, frame=frame,
+                                 **kw)
+
+        tgw._forward = recording_forward
+        envelope0 = native.stats()["calls"].get("envelope", 0)
         async with aiohttp.ClientSession() as s:
             # 1. Every route, to each gateway in turn.
             replies: dict = {"jax": {}, "port": {}}
@@ -282,6 +296,9 @@ async def _topology(tmp_path) -> dict:
                     replies[k][name] = await _call(s, bases[k], method,
                                                    path, body)
             out["replies"] = replies
+            del tgw._forward
+            out["envelope_calls"] = (native.stats()["calls"].get(
+                "envelope", 0) - envelope0)
             out["consumer_ids"] = {"jax": jcons.peer_id,
                                    "port": tcons.peer_id}
 
@@ -356,14 +373,30 @@ async def _topology(tmp_path) -> dict:
             plan = faults.FaultPlan(rules=[faults.FaultRule(
                 site="engine.stream_chunk", action="stall_stream", after=2,
                 match={"worker": tworker.peer_id})])
-            with faults.installed(plan):
-                fo["stall"] = (await _call(s, bases["port"], "POST",
-                                           "/api/chat", LONG))["body"]
+            # The quarantine is read when it happens: the consumer's health
+            # loop re-fetches the worker's metadata and replaces its
+            # Resource, which can lift the mark before the chat returns.
+            pm = tcons.peer_manager
+            mark = pm.mark_draining
+            marks = []
+
+            def recording_mark(peer_id, reason="drain"):
+                accepted = mark(peer_id, reason)
+                marks.append((peer_id, reason, accepted))
+                return accepted
+
+            pm.mark_draining = recording_mark
+            try:
+                with faults.installed(plan):
+                    fo["stall"] = (await _call(s, bases["port"], "POST",
+                                               "/api/chat", LONG))["body"]
+            finally:
+                del pm.mark_draining
             tgw.stream_stall_ms = 0.0
             fo["stall_log"] = list(plan.log)
             fo["stall_robust"] = dict(tgw._robust)
-            fo["wedged"] = tcons.peer_manager.get_peer(
-                tworker.peer_id).resource.draining_reason
+            fo["wedged"] = [(pid, reason) for pid, reason, accepted in marks
+                            if accepted]
             # The port worker never drained: a re-probe lifts the wedge.
             await tcons.peer_manager.perform_health_checks()
             # Drain at the third chunk: the stream migrates.
@@ -435,6 +468,19 @@ def test_streams_carry_the_whole_reply(swarm):
     assert sse[-2]["choices"][0]["finish_reason"] in ("stop", "length")
 
 
+def test_request_frames_are_the_native_encoders(swarm):
+    """With the native library loaded, every generate request the port
+    gateway forwards was encoded by the native request encoder, in the
+    codec's bytes, and the served frames went through the native
+    envelope (the worker's reply frames, the gateway's decode)."""
+    frames = swarm["request_frames"]
+    assert frames
+    for frame, codec in frames:
+        assert frame == (codec if native.native_enabled() else None)
+    if native.native_enabled():
+        assert swarm["envelope_calls"] > len(frames)
+
+
 @pytest.mark.parametrize("gw", ["jax", "port"])
 def test_shed_503_with_jittered_retry_after(swarm, gw):
     replies = swarm["shed"][gw]
@@ -481,7 +527,7 @@ def test_stall_fails_over_to_the_jax_worker(swarm):
     assert lines[-1]["worker_id"] == fo["ids"]["jax"]
     r = fo["stall_robust"]
     assert (r["stalled_streams"], r["wedge_quarantines"]) == (1, 1)
-    assert fo["wedged"] == "wedged"
+    assert fo["wedged"] == [(fo["ids"]["torch"], "wedged")]
 
 
 def test_drain_fails_over_to_the_jax_worker(swarm):

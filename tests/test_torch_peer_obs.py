@@ -11,9 +11,8 @@ reply; the stream stays usable), a non-streamed request, then ``drain()``
 and one more request (the typed ``draining`` reject).
 
 - ``node_metric_lines`` of the two workers have the same metric families
-  and label names (the port has no native plane, so no
-  ``crowdllama_native_fallbacks_total``), and the trace records the same
-  spans, parents and meta keys.
+  and label names (``crowdllama_native_*`` included), and the trace
+  records the same spans, parents and meta keys.
 - ``metrics_fetch`` and ``trace_fetch`` are answered over the stream; a
   ``kv_fetch_request`` gets the in-band refusal (``matched=0``,
   ``done``, an error); a stray ``draft_chunk`` a terminal nack.
@@ -160,8 +159,7 @@ def _schema(lines: list[str]) -> dict:
 
 def test_metric_families_and_labels_equal_the_jax_workers(served):
     want = _schema(served["jax"]["lines"])
-    want = {k: v for k, v in want.items()
-            if not k.startswith("crowdllama_native_fallbacks_total")}
+    assert "crowdllama_native_fallbacks_total counter" in want
     assert _schema(served["torch"]["lines"]) == want
     payload = served["torch"]["metrics"].payload.decode().splitlines()
     assert _schema(payload) == _schema(served["torch"]["lines"])
@@ -288,20 +286,6 @@ def test_unported_flags_refuse_any_value_but_their_default(flag, value,
     with pytest.raises(ValueError, match=f"ROADMAP Queue 1 {item}\\b"):
         tconfig.Configuration.from_flags(
             tcli.build_parser().parse_args(args))
-
-
-@pytest.mark.parametrize("worker_mode", [True, False],
-                         ids=["worker", "consumer"])
-def test_relay_always_is_refused_on_every_node(worker_mode):
-    from crowdllama_tpu_torch.engine.engine import FakeEngine
-
-    peer = TPeer(TKey.generate(),
-                 tconfig.Configuration(relay_mode="always", device="cpu"),
-                 FakeEngine(models=["tiny-test"] if worker_mode else []),
-                 worker_mode=worker_mode)
-    with pytest.raises(NotImplementedError, match="relay"):
-        asyncio.run(peer.start())
-    assert peer.host is None
 
 
 def test_cli_worker_joins_a_jax_swarm_on_the_cpu(tmp_path):
