@@ -173,6 +173,41 @@ Phases, each printing one JSON line:
    128, 32 / 8 heads, hidden 4096, vocab 128256; random bf16 weights from
    seed 0 made on the card, EOS column zeroed) on the paged main path,
    the paged phase's traffic and checks (kernels A-C at Dh 128);
+12a. spec (its own line): speculative decoding on tinyllama-1.1b at full
+   width (22 layers, page 128, context 2,048, 8 slots).  Weights: the
+   permutation weights of ``testing/modelgen.py`` (greedy decode walks a
+   fixed next-id cycle with O(1) margins) on the card; a draft, the same
+   weights cut to 2 layers, written by the port's ``save_params`` into a
+   temporary directory, read back byte-equal and served through
+   ``spec_draft_path``; the seed-0 random weights.  The plain paged
+   engine serves 8 concurrent greedy streams of 64 tokens (4 prompts that
+   echo a stretch of the cycle, 3 short prompts, and the ~1,500-byte
+   prompt sent while they decode: kernel C); n-gram speculation on paged
+   bf16 and int8 pools and on the contiguous cache (``spec_draft=4``) and
+   the draft model from the checkpoint serve the same streams and give
+   the same text and token ids.  Per engine: tokens per verify step, the
+   accepted share by source, retunes; the echo streams verify more than
+   one token a step, the draft runner accepts >= 90% of the drafts it
+   offers; launches between sending the streams and their end: A and C
+   (C-int8) on the paged engines, D on the draft runner, and the plain
+   decode kernel (B, B-int8, D on the contiguous cache) exactly 22 times
+   per step of the ``plain`` dispatch class (the flight plane's class
+   steps); the ``spec`` duty cycle above 0; a seeded sampled stream
+   (temperature 0.8, seed 1234) repeats.  Adaptive draft length:
+   ``spec_draft=2, spec_draft_max=6`` on the echo streams grows k; the
+   seed-0 random weights behind the permutation draft pause (k = 0) and
+   probe, and B launches once paused.  Numerics on the random weights:
+   one verify step's row-0 logits against the decode step's through B
+   (and B-int8 on int8 pools) within ``LOGIT_RTOL`` of their scale.
+   Times, as findings: host ms of a verify dispatch beside a plain step
+   in 5 alternated pairs, the context gather's ms (CUDA events), tokens/s
+   of the echo streams under n-gram and draft beside plain, peak memory.
+   The pipeline: the port's ``Gateway`` with
+   ``gateway_spec_pipeline="gateway"`` drafting from the checkpoint on
+   the card (A and D) in front of a worker with ``spec_decode="ngram"``:
+   a streamed greedy ``/api/chat`` equal to a direct ``generate()`` with
+   verify rounds answered, then ``"worker"`` mode (pure ack credits)
+   with the same text;
 13. engine_llama_int8, contiguous_llama, engine_llama_tp,
    engine_llama_tp_int8: llama-3-8b cut to 4 layers at full width on
    int8 pools (B-int8, C-int8), the contiguous layout (D), tp=2 on the
@@ -872,21 +907,23 @@ def _set_launches(counts: dict) -> None:
 
 
 async def serve(engine, streams: dict, max_tokens: int,
-                again: str | None = None) -> dict:
+                again: str | None = None, long: bool = True) -> dict:
     """Send ``streams`` (name -> (prompt, generate kwargs)) at once, then
-    LONG once the others are decoding, then stream ``again`` alone a second
-    time (as ``<again>_again``)."""
+    LONG once the others are decoding (unless ``long`` is False), then
+    stream ``again`` alone a second time (as ``<again>_again``)."""
     results: dict[str, dict] = {}
 
     async def run(name: str, prompt: str, kw: dict) -> None:
         ids: list[int] = []
         _STREAM_IDS.set(ids)
         t0 = time.perf_counter()
-        final = None
+        final, text = None, ""
         async for chunk in engine.generate(prompt, max_tokens=max_tokens,
                                            **kw):
             final = chunk
+            text += chunk.text
         results[name] = {"done": final.done, "reason": final.done_reason,
+                         "text": text,
                          "completion_tokens": final.completion_tokens,
                          "prompt_tokens": final.prompt_tokens,
                          "ttft_ms": (final.queue_ns + final.prefill_ns) / 1e6,
@@ -898,7 +935,8 @@ async def serve(engine, streams: dict, max_tokens: int,
     while (engine.scheduler.tokens_generated < 8
            and not all(t.done() for t in tasks)):
         await asyncio.sleep(0.005)
-    tasks.append(asyncio.create_task(run("long", LONG, {})))
+    if long:
+        tasks.append(asyncio.create_task(run("long", LONG, {})))
     await asyncio.gather(*tasks)
     wall = time.perf_counter() - t0
     if again:
@@ -952,8 +990,9 @@ def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
     for name, v in reqs.items():
         if not (v["done"] and v["completion_tokens"] == max_tokens
                 and len(v["ids"]) == max_tokens):
-            raise AssertionError(f"stream {name} ended "
-                                 f"{ {k: x for k, x in v.items() if k != 'ids'} }")
+            raise AssertionError(
+                f"stream {name} ended "
+                f"{ {k: x for k, x in v.items() if k not in ('ids', 'text')} }")
     if again and reqs[again]["ids"] != reqs[f"{again}_again"]["ids"]:
         raise AssertionError(f"the seeded stream {again} did not repeat: "
                              f"{reqs[again]['ids']} vs "
@@ -970,7 +1009,8 @@ def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
                "max_memory_allocated": max(memory["start_peak"],
                                            memory["serve_peak"]),
                "memory": memory,
-               "requests": {k: {x: y for x, y in v.items() if x != "ids"}
+               "requests": {k: {x: y for x, y in v.items()
+                                if x not in ("ids", "text")}
                             for k, v in reqs.items()}}
     return engine, summary, reqs
 
@@ -3950,6 +3990,485 @@ def megastep_phase(dev, paged: dict) -> tuple[dict, dict]:
     return line, profile_line
 
 
+# ------------------------------------------------------------- speculation
+
+SPEC_TOKENS = 64
+SPEC_DRAFT = 4
+SPEC_PAIRS = 5
+# Echo prompts: a stretch of the permutation cycle over printable ASCII
+# (one byte token a character, which the byte tokenizer round-trips),
+# then the stretch's first ids again, so the greedy walk replays the
+# stretch for all SPEC_TOKENS tokens: (first id, stretch, repeat).
+ECHO_RUNS = ((32, 92, 4), (33, 90, 5), (34, 88, 6), (35, 85, 3))
+ECHO = {f"echo{i}": ("".join(map(chr, range(a, a + n)))
+                     + "".join(map(chr, range(a, a + m))), {})
+        for i, (a, n, m) in enumerate(ECHO_RUNS)}
+NON_ECHO = {f"short{i}": (SHORT[i], {}) for i in (2, 3, 5)}
+SPEC_STREAMS = {**ECHO, **NON_ECHO}
+
+
+@functools.cache
+def perm_params(dev) -> dict:
+    """TinyLlama-1.1B's width and depth with the permutation weights
+    (``testing/modelgen.py``) in bf16 on the card: greedy decode walks the
+    next-id cycle with O(1) logit margins, so every path emits the same
+    tokens."""
+    from crowdllama_tpu_torch.models.config import get_config
+    from crowdllama_tpu_torch.testing.modelgen import permutation_params
+
+    return permutation_params(get_config(TINYLLAMA), dtype=torch.bfloat16,
+                              device=dev)
+
+
+def _cut(params: dict, layers: int) -> dict:
+    return {**params, "layers": {k: v[:layers].clone()
+                                 for k, v in params["layers"].items()}}
+
+
+def _spec_recorders(engine) -> tuple[dict, list]:
+    """Per request (by stream name, from its prompt): tokens emitted in
+    speculative flights, the verify steps they took, and the drafts
+    offered and accepted in them; and the runner's draft lengths as the
+    controller sets them."""
+    from crowdllama_tpu_torch.engine.scheduler import _SlotInfo
+
+    sched, runner = engine.scheduler, engine.runner
+    names = {p: n for n, (p, _) in {**SPEC_STREAMS, "long": (LONG, {})}
+             .items()}
+    tok = engine.tokenizer
+    by_ids = {tuple(tok.encode(p)): n for p, n in names.items()}
+    per: dict = {}
+    emit_flight = sched._emit_flight
+
+    def recorded(fl, tokens):
+        before = {i: info.generated for i, info in enumerate(fl.snapshot)
+                  if isinstance(info, _SlotInfo)}
+        out = emit_flight(fl, tokens)
+        if tokens.ndim != 3:
+            return out
+        k = tokens.shape[1] - 3
+        for i, g0 in before.items():
+            info = fl.snapshot[i]
+            got = info.generated - g0
+            steps = cum = 0
+            for s in range(tokens.shape[0]):
+                if cum >= got:
+                    break
+                steps += 1
+                cum += int(tokens[s, 0, i])
+            name = by_ids.get(tuple(info.req.prompt_ids), "other")
+            d = per.setdefault(name, {"emitted": 0, "steps": 0,
+                                      "accepted": 0, "offered": 0})
+            d["emitted"] += got
+            d["steps"] += steps
+            d["accepted"] += got - steps
+            d["offered"] += steps * k
+        return out
+
+    sched._emit_flight = recorded
+    ks = [getattr(runner, "draft_len", 0)]
+    set_k = getattr(runner, "set_draft_len", None)
+    if set_k is not None:
+        def record_k(k):
+            set_k(k)
+            ks.append(runner.draft_len)
+
+        runner.set_draft_len = record_k
+    return per, ks
+
+
+def _expect_spec_launches(phase: str, launches: dict, ran: set, held: str,
+                          layers: int, classes: dict) -> None:
+    """Kernels in ``ran`` launched, ``held`` exactly ``layers`` times per
+    step of the ``plain`` dispatch class (``classes``: steps per class,
+    from the scheduler's flight plane), and no other kernel."""
+    want_held = layers * classes.get("plain", 0)
+    for k, n in launches.items():
+        ok = (n > 0 if k in ran else n == 0)
+        if k == held:
+            ok = n == want_held and (n > 0 or k not in ran)
+        if not ok:
+            raise AssertionError(
+                f"{phase}: kernel {k} launched {n} times (ran {sorted(ran)}, "
+                f"{held} held to {layers} x {classes.get('plain', 0)} plain "
+                f"steps): {launches}, classes {classes}")
+
+
+def spec_engine(dev, params, phase: str, ref: dict | None, ran: set,
+                held: str, probe_interval: int = 0, streams=None,
+                long: bool = True, **engine_kw) -> dict:
+    """One engine on ``params`` serving ``streams`` (default: the echo and
+    short prompts, then LONG while they decode, unless ``long`` is False)
+    with ``SPEC_TOKENS``
+    tokens each, launch counts zeroed right before and read right after.
+    Checks: every stream done and full; text and token ids equal to
+    ``ref``'s (the plain engine's streams) when given; kernels in ``ran``
+    launched and ``held`` (the layout's plain decode kernel) launched
+    exactly ``num_layers`` times per step of the ``plain`` dispatch class;
+    no other kernel launched.  Then, on a speculative engine, the seeded
+    sampled stream twice, alone: it must repeat."""
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+
+    streams = SPEC_STREAMS if streams is None else streams
+
+    async def go():
+        torch.cuda.synchronize(dev)
+        engine = TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                             **engine_kw)
+        await engine.start()
+        engine.tokenizer = _IdRecorder(engine.tokenizer)
+        sched = engine.scheduler
+        if probe_interval:
+            sched.spec_probe_interval = probe_interval
+        per, ks = _spec_recorders(engine)
+        try:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _zero_launches()
+            served = await serve(engine, streams, SPEC_TOKENS, long=long)
+            launches = _launches()
+            classes = dict(sched.class_steps)
+            # What the sampled stream below moves is not this traffic's.
+            ctl = dict(retunes=sched.spec_retunes, probes=sched.spec_probes,
+                       stats=engine.describe().get("spec_decode", {}),
+                       draft_len_trajectory=list(ks))
+            del sched._emit_flight
+            peak = torch.cuda.max_memory_allocated(dev)
+            gauges = engine.obs_gauges()
+            sampled = None
+            if engine_kw.get("spec_decode"):
+                sampled = []
+                for _ in range(2):
+                    ids: list[int] = []
+                    _STREAM_IDS.set(ids)
+                    async for _c in engine.generate(
+                            SAMPLED[0], max_tokens=SPEC_TOKENS,
+                            **SAMPLED[1]):
+                        pass
+                    sampled.append(ids)
+        finally:
+            await engine.stop()
+        return (engine, served, launches, classes, peak, gauges, per, ctl,
+                sampled)
+
+    engine, served, launches, classes, peak, gauges, per, ctl, sampled = \
+        asyncio.run(go())
+    reqs = served["requests"]
+    for name, v in reqs.items():
+        if not (v["done"] and len(v["ids"]) == SPEC_TOKENS):
+            raise AssertionError(f"{phase}: stream {name} ended {v}")
+        if ref is not None and (v["ids"] != ref[name]["ids"]
+                                or v["text"] != ref[name]["text"]):
+            raise AssertionError(f"{phase}: stream {name} differs from the "
+                                 f"plain engine's: {v['ids']} vs "
+                                 f"{ref[name]['ids']}")
+    if sampled is not None and sampled[0] != sampled[1]:
+        raise AssertionError(f"{phase}: the seeded sampled stream did not "
+                             f"repeat: {sampled}")
+    _expect_spec_launches(phase, launches, ran, held,
+                          engine.runner.cfg.num_layers, classes)
+    echo_tps = {n: d["emitted"] / max(1, d["steps"])
+                for n, d in per.items() if n in ECHO}
+    echo_walls = [reqs[n]["wall_s"] for n in ECHO if n in reqs]
+    out = {"launches": launches, "class_steps": classes,
+           "serve_peak": peak, "per_stream": per,
+           "echo_tokens_per_verify_step": echo_tps,
+           "echo_tokens_per_s": (SPEC_TOKENS * len(echo_walls)
+                                 / max(echo_walls) if echo_walls else None),
+           "tokens_per_s": (SPEC_TOKENS * len(reqs)) / served["wall_s"],
+           "duty_cycle": {c: gauges[f"duty_cycle|dispatch={c}"]
+                          for c in ("plain", "ragged", "spec")},
+           "draft_len_trajectory": ctl["draft_len_trajectory"],
+           "ids": {n: v["ids"] for n, v in reqs.items()},
+           "requests": {n: {"text": v["text"], "wall_s": v["wall_s"],
+                            "ttft_ms": v["ttft_ms"]}
+                        for n, v in reqs.items()}}
+    if engine_kw.get("spec_decode"):
+        out.update(stats=ctl["stats"], retunes=ctl["retunes"],
+                   probes=ctl["probes"],
+                   tokens_per_verify_step=ctl["stats"].get("tokens_per_step"))
+        if gauges["duty_cycle|dispatch=spec"] <= 0:
+            raise AssertionError(f"{phase}: no spec duty cycle: {gauges}")
+    return out
+
+
+def spec_numerics(dev, params) -> dict:
+    """On seed-0 random weights, per pool dtype (a speculative paged runner
+    over 3 live slots): one verify step's row-0 logits (the plain
+    ``prefill_attention_ctx`` over the gathered pages) against the plain
+    decode step's logits through kernel B (or B-int8) on the same state,
+    within ``LOGIT_RTOL`` of their scale.  Then, with all 8 slots live,
+    host ms of one verify dispatch (k = 4) beside one plain step, in
+    ``SPEC_PAIRS`` alternated pairs, and the context gather's ms (CUDA
+    events around ``_verify_context``)."""
+    from crowdllama_tpu_torch.engine.spec import SpecPagedModelRunner
+    from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
+    from crowdllama_tpu_torch.models.config import get_config
+
+    tok = ByteTokenizer()
+    out = {}
+    for kv in ("bf16", "int8"):
+        r = SpecPagedModelRunner(get_config(TINYLLAMA), params=params,
+                                 device=dev, kv_dtype=kv,
+                                 draft_len=SPEC_DRAFT)
+        held = "B" if kv == "bf16" else "B_int8"
+        with torch.inference_mode():
+            st = _three_slots(r, tok)
+            r.pre_decode_check(1)
+            table = r._table()
+            drafts = torch.zeros((r.max_slots, SPEC_DRAFT), dtype=torch.int32,
+                                 device=dev)
+            verify = r.verify_forward(st, table, drafts)[0][:, 0]
+            _zero_launches()
+            plain = r.decode_logits(st, table)
+            torch.cuda.synchronize()
+            launched = _launches()
+        _expect_spec_launches(f"spec numerics {kv}", launched, {held}, held,
+                              r.cfg.num_layers, {"plain": 1})
+        errs = _check_logit_errs(
+            {"verify_row0_vs_decode": _logit_err(verify[:3], plain[:3])},
+            f"spec {kv}")
+        out[kv] = {**errs, **spec_dispatch_timing(r, tok)}
+        del r, st, table, verify, plain
+        _free_card()
+    return out
+
+
+def spec_dispatch_timing(r, tok) -> dict:
+    with torch.inference_mode():
+        st = r.init_state()
+        for slot in range(r.max_slots):
+            ids = tok.encode(SHORT[slot % len(SHORT)] + str(slot))
+            first, ks, vs, plen = r.prefill(ids, 0.0, 1.0, None)
+            st = r.insert(st, slot, ks, vs, plen, first, 0.0, 1.0,
+                          prompt_tokens=ids)
+
+        def dispatch(k: int) -> float:
+            r.set_draft_len(k)
+            r.pre_decode_check(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.decode_steps(st, 1)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        dispatch(0), dispatch(SPEC_DRAFT)  # warm
+        pairs = []
+        for i in range(SPEC_PAIRS):
+            order = ((0, SPEC_DRAFT) if i % 2 == 0 else (SPEC_DRAFT, 0))
+            row = {}
+            for k in order:
+                row["plain_ms" if k == 0 else "verify_ms"] = dispatch(k)
+            pairs.append(row)
+        spans: list = []
+        r._verify_context = _event_timed(r._verify_context, spans)
+        for _ in range(3):
+            dispatch(SPEC_DRAFT)
+        del r._verify_context
+        torch.cuda.synchronize()
+    return {"slots": r.max_slots, "draft_len": SPEC_DRAFT, "pairs": pairs,
+            "verify_ms_mean": sum(p["verify_ms"] for p in pairs) / len(pairs),
+            "plain_ms_mean": sum(p["plain_ms"] for p in pairs) / len(pairs),
+            "gather_ms": sum(a.elapsed_time(b) for a, b in spans) / len(spans),
+            "gather_bytes": 2 * r.cfg.num_layers * r.max_slots
+            * r.max_pages_per_slot * r.page_size * r.cfg.num_kv_heads
+            * r.cfg.resolved_head_dim() * 2}
+
+
+def spec_pipeline(dev, params, ckpt: str) -> dict:
+    """The gateway-drafted pipeline, every module the port's own, on
+    127.0.0.1: a DHT node, a worker (``spec_decode="ngram"`` on the
+    permutation weights), a consumer and its ``Gateway`` with
+    ``spec_pipeline="gateway"`` drafting from the checkpoint on the card
+    (its prefill kernel A, its step kernel D).  A streamed greedy
+    ``/api/chat`` must equal a direct ``generate()`` of the chat prompt,
+    with VerifyResults answered (``spec_pipeline_verifies``) and drafts
+    accepted; then ``"worker"`` mode (pure ack credits): the same text."""
+    from crowdllama_tpu_torch.config import Configuration
+    from crowdllama_tpu_torch.engine.engine import FakeEngine, TorchEngine
+    from crowdllama_tpu_torch.gateway.gateway import Gateway
+    from crowdllama_tpu_torch.net.discovery import new_host_and_dht
+    from crowdllama_tpu_torch.peer.peer import Peer
+    from crowdllama_tpu_torch.utils.crypto import Ed25519PrivateKey
+
+    def key():
+        return Ed25519PrivateKey.generate()
+
+    prompt = ECHO["echo0"][0]
+
+    async def go() -> dict:
+        boot, _ = await new_host_and_dht(key(), listen_host="127.0.0.1")
+        node = dict(listen_host="127.0.0.1",
+                    bootstrap_peers=[f"127.0.0.1:{boot.listen_port}"])
+        engine = TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                             spec_decode="ngram", spec_draft=SPEC_DRAFT)
+        worker = Peer(key(), Configuration(model=TINYLLAMA, **node), engine)
+        consumer = Peer(key(), Configuration(**node), FakeEngine(models=[]),
+                        worker_mode=False)
+        gw = Gateway(consumer, port=0, host="127.0.0.1",
+                     spec_pipeline="gateway", spec_draft_path=ckpt)
+        started: list = []
+        out: dict = {}
+        try:
+            for part in (engine, worker, consumer, gw):
+                await part.start()
+                started.append(part)
+            await _wait_routable(consumer.peer_manager, {worker.peer_id})
+            chat = engine._format_chat([{"role": "user", "content": prompt}])
+            direct, _, _ = await _direct(engine, chat, SPEC_TOKENS)
+            for mode in ("gateway", "worker"):
+                gw.spec_pipeline = mode
+                sched = engine.scheduler
+                v0, st0 = sched.spec_verifies, dict(gw._spec_stats)
+                _zero_launches()
+                t0 = time.perf_counter()
+                r = await asyncio.to_thread(
+                    _http, gw.port, "POST", "/api/chat",
+                    _chat_body(prompt, SPEC_TOKENS, True))
+                wall = time.perf_counter() - t0
+                launches = _launches()
+                text = "".join(ln["message"]["content"] for ln in _ndjson(r))
+                stats = {k: v - st0[k] for k, v in gw._spec_stats.items()}
+                out[mode] = {"status": r["status"], "wall_s": wall,
+                             "verifies": sched.spec_verifies - v0,
+                             "stats": stats, "launches": launches,
+                             "text_equal": text == direct}
+                if r["status"] != 200 or text != direct:
+                    raise AssertionError(f"spec pipeline {mode}: {text!r} vs "
+                                         f"the direct {direct!r}")
+                if out[mode]["verifies"] <= 0:
+                    raise AssertionError(f"spec pipeline {mode}: no verify "
+                                         f"round answered: {out[mode]}")
+            g = out["gateway"]
+            if not g["stats"]["accepted"] > 0:
+                raise AssertionError(f"spec pipeline: no draft accepted: {g}")
+            # The worker prefills (A); the gateway's drafter prefills (A)
+            # and steps (D) on the card; no plain decode step ran.
+            _expect_spec_launches("spec pipeline", g["launches"], {"A", "D"},
+                                  "B", engine.runner.cfg.num_layers, {})
+            if out["worker"]["stats"]["acks"] <= 0:
+                raise AssertionError(f"spec pipeline worker mode sent no "
+                                     f"ack credit: {out['worker']}")
+            out["drafter_device"] = str(gw._spec_drafter.device)
+        finally:
+            for part in reversed(started):
+                await part.stop()
+            await boot.close()
+        return out
+
+    return asyncio.run(go())
+
+
+def spec_phase(dev) -> dict:
+    """Speculative decoding on tinyllama-1.1b at full width (22 layers,
+    page 128, context 2048, 8 slots).  Weights: the permutation weights
+    (``perm_params``); the draft is the same weights cut to 2 layers,
+    written with the port's ``save_params`` and read back byte-equal, and
+    served through ``spec_draft_path``; the seed-0 random weights.  The
+    plain paged engine serves the reference: 4 echo prompts, 3 short
+    prompts and LONG (ragged, kernel C) sent while they decode, greedy,
+    ``SPEC_TOKENS`` tokens each.  Each speculative engine (n-gram on paged
+    bf16 and int8 pools and on the contiguous cache, ``spec_draft=4``;
+    the draft model from the checkpoint) serves the same streams and must
+    give the same text and token ids; the echo streams must verify more
+    than one token a step, the draft runner accept at least 90% of the
+    drafts offered; the seeded sampled stream repeats.  Adaptive k:
+    ``spec_draft=2, spec_draft_max=6`` on the permutation weights must
+    grow k; the seed-0 random weights behind the permutation draft must
+    pause (k = 0) and probe, and kernel B then launches.  Then
+    ``spec_numerics`` and ``spec_pipeline``."""
+    import tempfile
+
+    from crowdllama_tpu_torch.engine.weights import (
+        load_native_params,
+        save_params,
+    )
+    from crowdllama_tpu_torch.models.config import get_config
+
+    out: dict = {}
+    params = perm_params(dev)
+    draft = _cut(params, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        dcfg = get_config(TINYLLAMA, num_layers=2)
+        t0 = time.perf_counter()
+        save_params(dcfg, draft, tmp, {"note": "permutation draft"})
+        back = load_native_params(dcfg, tmp, dtype=draft["embed"].dtype,
+                                  device=dev)
+        out["checkpoint_s"] = time.perf_counter() - t0
+        for name, t in (("embed", "embed"), ("lm_head", "lm_head")):
+            if not torch.equal(back[name], draft[t]):
+                raise AssertionError(f"draft checkpoint: {name} differs")
+        for name, t in draft["layers"].items():
+            if not torch.equal(back["layers"][name], t):
+                raise AssertionError(f"draft checkpoint: layers/{name}")
+        del back, draft
+        plain = spec_engine(dev, params, "spec_plain", None, {"A", "B", "C"},
+                            "B")
+        ref = {n: {"ids": plain["ids"][n], "text": plain["requests"][n]["text"]}
+               for n in plain["ids"]}
+        runs = {"plain": plain}
+        for name, ran, held, kw in (
+                ("ngram_paged", {"A", "C"}, "B", {}),
+                ("ngram_int8", {"A", "C_int8"}, "B_int8",
+                 dict(kv_dtype="int8")),
+                ("ngram_contiguous", {"A"}, "D",
+                 dict(kv_layout="contiguous")),
+                ("draft_paged", {"A", "C", "D"}, "B",
+                 dict(spec_decode="draft", spec_draft_path=tmp))):
+            _free_card()
+            kw.setdefault("spec_decode", "ngram")
+            runs[name] = spec_engine(dev, params, f"spec {name}", ref, ran,
+                                     held, spec_draft=SPEC_DRAFT, **kw)
+            for n, tps in runs[name]["echo_tokens_per_verify_step"].items():
+                if not tps > 1.0:
+                    raise AssertionError(f"spec {name}: echo stream {n} "
+                                         f"verified {tps} tokens a step")
+        per = runs["draft_paged"]["per_stream"].values()
+        share = (sum(d["accepted"] for d in per)
+                 / max(1, sum(d["offered"] for d in per)))
+        runs["draft_paged"]["accepted_share"] = share
+        if share < 0.9:
+            raise AssertionError(f"spec draft: accepted {share} of the "
+                                 f"drafts offered")
+        _free_card()
+        grow = spec_engine(dev, params, "spec adaptive_grow", ref, {"A"},
+                           "B", streams=ECHO, long=False,
+                           spec_decode="ngram", spec_draft=2,
+                           spec_draft_max=6)
+        if not max(grow["draft_len_trajectory"]) > 2:
+            raise AssertionError(f"spec adaptive: k did not grow: "
+                                 f"{grow['draft_len_trajectory']}")
+        runs["adaptive_grow"] = grow
+        _free_card()
+        random_w = seed0_params(dev)
+        pause = spec_engine(dev, random_w, "spec adaptive_pause", None,
+                            {"A", "B", "C", "D"}, "B", probe_interval=8,
+                            streams=NON_ECHO, spec_decode="draft",
+                            spec_draft=2, spec_draft_max=6,
+                            spec_draft_path=tmp)
+        if not (0 in pause["draft_len_trajectory"] and pause["probes"] > 0):
+            raise AssertionError(f"spec adaptive: no pause and probe on "
+                                 f"random weights: {pause}")
+        runs["adaptive_pause"] = pause
+        _free_card()
+        out["numerics"] = spec_numerics(dev, random_w)
+        _free_card()
+        out["pipeline"] = spec_pipeline(dev, params, tmp)
+    del params
+    perm_params.cache_clear()
+    _free_card()
+    out["runs"] = {n: {k: v for k, v in r.items() if k not in ("ids",)}
+                   for n, r in runs.items()}
+    out["echo_tokens_per_s"] = {n: r["echo_tokens_per_s"]
+                                for n, r in runs.items()}
+    out["serve_peak"] = {n: r["serve_peak"] for n, r in runs.items()}
+    emit({"phase": "spec", "model": TINYLLAMA, "slots": 8, "page": 128,
+          "context": 2048, "tokens": SPEC_TOKENS, "draft_len": SPEC_DRAFT,
+          **out, "logits_rtol": LOGIT_RTOL,
+          "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()})
+    return out
+
+
 # row -> (name, source, TPU kernel it replaces); the name is the C symbol,
 # for F B's symbol launched once over every tensor-parallel rank on the
 # card (the ranks folded into its grid).
@@ -4047,6 +4566,8 @@ def main() -> int:
     launches["D"] = contiguous_phase(dev)
     _free_card()
     int8_contiguous_phase(dev)
+    _free_card()
+    spec_phase(dev)
     _free_card()
     # Dh 128: llama-3-8b at full depth on the paged main path, then cut to
     # LLAMA_CUT_LAYERS layers on the other paths.

@@ -106,7 +106,10 @@ def make_gateway(cfg: Configuration, peer):
                    slo_decode_ms=cfg.slo_decode_ms,
                    stream_stall_ms=cfg.stream_stall_ms,
                    hedge_ttft_ms=cfg.hedge_ttft_ms,
-                   profile_dir=cfg.profile_dir)
+                   profile_dir=cfg.profile_dir,
+                   spec_pipeline=cfg.gateway_spec_pipeline,
+                   spec_draft_path=cfg.spec_draft_path,
+                   device="cpu" if cfg.device == "cpu" else None)
 
 
 async def run_node(cfg: Configuration, worker_mode: bool = True) -> None:

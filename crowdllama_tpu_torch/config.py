@@ -10,12 +10,15 @@ whose values the serving plan (``engine/plan.py``) refuses stay refused
 there.  The consumer's fields (the gateway's port, admission, budgets,
 SLO objectives, the stall watchdog and the hedge, the KV-ship hint, the
 flight recorder) and a worker's ``worker_metrics_port`` parse as the JAX
-package's.  The replicated gateway's fields (``gateway_peers``,
-``gossip_interval``, ``gossip_snapshot_path``, ``tenant_quota``), the
-gateway-drafted pipeline's (``gateway_spec_pipeline``,
-``spec_draft_path``) and the worker's KV fetch threshold
-(``kv_ship_min_tokens``) parse too, but any value other than their
-default is refused with the ROADMAP item that ports them.  The one new flag is
+package's, and so do speculation's (``spec_decode``, ``spec_draft``,
+``spec_draft_model``, ``spec_draft_path``, ``spec_draft_max``,
+``gateway_spec_pipeline``), with the JAX package's checks; a
+``spec_draft_path`` must be a native checkpoint (HF-layout directories
+are not ported).  The replicated gateway's fields (``gateway_peers``,
+``gossip_interval``, ``gossip_snapshot_path``, ``tenant_quota``) and the
+worker's KV fetch threshold (``kv_ship_min_tokens``) parse too, but any
+value other than their default is refused with the ROADMAP item that
+ports them.  The one new flag is
 ``--device {cuda,cpu}`` (default ``cuda``): entry points run on the card
 unless the caller asks for the CPU.
 """
@@ -105,10 +108,45 @@ _REFUSED = {
     "gossip_interval": (2.0, "Queue 1 item 1.4 (swarm/gossip.py)"),
     "gossip_snapshot_path": ("", "Queue 1 item 1.4 (swarm/gossip.py)"),
     "tenant_quota": ("", "Queue 1 item 1.4 (swarm/gossip.py)"),
-    "gateway_spec_pipeline": ("off", "Queue 1 item 4 (speculation)"),
-    "spec_draft_path": ("", "Queue 1 item 4 (speculation)"),
     "kv_ship_min_tokens": (512, "Queue 1 item 9 (KV page export, kv_donor)"),
 }
+
+
+def _check_spec(cfg) -> None:
+    """The JAX package's speculation checks, and a ``spec_draft_path``
+    that must be a native checkpoint."""
+    if cfg.spec_decode:
+        if cfg.kv_layout == "contiguous" and cfg.kv_dtype != "bf16":
+            raise ValueError(
+                "spec_decode on the contiguous layout requires the bf16 KV "
+                "cache: use --kv-dtype bf16 or --kv-layout paged (paged "
+                "spec verifies against int8 pools)")
+        if cfg.spec_draft < 1:
+            raise ValueError("spec_draft must be >= 1")
+        if cfg.spec_draft_max < 0:
+            raise ValueError("spec_draft_max must be >= 0")
+        if cfg.spec_draft_max and cfg.spec_draft_max < cfg.spec_draft:
+            raise ValueError(
+                f"spec_draft_max ({cfg.spec_draft_max}) must be >= "
+                f"spec_draft ({cfg.spec_draft}): it is the adaptive "
+                "controller's growth ceiling")
+    if cfg.spec_decode == "draft":
+        if not cfg.spec_draft_model and not cfg.spec_draft_path:
+            raise ValueError(
+                "spec_decode=draft needs --spec-draft-model (registry "
+                "name) or --spec-draft-path (a distill-draft checkpoint "
+                "dir, which carries its own config)")
+        if cfg.kv_layout != "paged":
+            raise ValueError(
+                "draft-model speculation runs on the paged layout only "
+                "(the serving default); drop --kv-layout contiguous or "
+                "use spec_decode=ngram")
+    if cfg.spec_draft_path:
+        from crowdllama_tpu_torch.engine.weights import (
+            require_native_checkpoint,
+        )
+
+        require_native_checkpoint(cfg.spec_draft_path, "spec_draft_path")
 
 
 @dataclass
@@ -167,8 +205,10 @@ class Configuration:
     gossip_interval: float = 2.0
     gossip_snapshot_path: str = ""
     tenant_quota: str = ""
+    # Gateway-drafted speculative pipeline: "off" | "gateway" (draft at
+    # the gateway from spec_draft_path, DraftChunk frames ahead of the
+    # worker) | "worker" (pure ack credits).  Streamed requests only.
     gateway_spec_pipeline: str = "off"
-    spec_draft_path: str = ""
 
     # ---- engine
     model: str = "tinyllama-1.1b"
@@ -183,7 +223,15 @@ class Configuration:
     # both layouts (paged: kernels B and C read the int8 pages).
     kv_dtype: str = "bf16"
     quantize: str = ""  # "" = bf16 weights (only mode ported)
-    spec_decode: str = ""  # "" = no speculation (only mode ported)
+    # "" | "ngram" (prompt-lookup drafts) | "draft" (a small draft model
+    # proposes; paged layout only): engine/spec.py.
+    spec_decode: str = ""
+    spec_draft: int = 4  # draft tokens per verify step
+    spec_draft_model: str = ""  # draft model registry name (spec "draft")
+    spec_draft_path: str = ""   # native draft checkpoint dir
+    # > 0: the acceptance-adaptive draft length retunes draft_len within
+    # [0, spec_draft_max] between dispatches (0 pauses speculation).
+    spec_draft_max: int = 0
     # "" = one device (paged: tp over the visible CUDA devices the kv heads
     # divide, 1 on a one-card machine); "2" = tp=2 (paged only; the other
     # axes are not ported).  TorchEngine(devices=...) places the tp ranks.
@@ -245,6 +293,9 @@ class Configuration:
         "kv_dtype": "CROWDLLAMA_TPU_KV_DTYPE",
         "quantize": "CROWDLLAMA_TPU_QUANTIZE",
         "spec_decode": "CROWDLLAMA_TPU_SPEC_DECODE",
+        "spec_draft": "CROWDLLAMA_TPU_SPEC_DRAFT",
+        "spec_draft_model": "CROWDLLAMA_TPU_SPEC_DRAFT_MODEL",
+        "spec_draft_max": "CROWDLLAMA_TPU_SPEC_DRAFT_MAX",
         "mesh_shape": "CROWDLLAMA_TPU_MESH",
         "kv_page_size": "CROWDLLAMA_TPU_KV_PAGE_SIZE",
         "kv_pool_tokens": "CROWDLLAMA_TPU_KV_POOL_TOKENS",
@@ -341,6 +392,7 @@ class Configuration:
             raise ValueError(f"unknown gateway_spec_pipeline "
                              f"{cfg.gateway_spec_pipeline!r} "
                              "(want 'off', 'gateway' or 'worker')")
+        _check_spec(cfg)
         for name, (default, item) in _REFUSED.items():
             if getattr(cfg, name) != default:
                 raise ValueError(
@@ -383,7 +435,17 @@ class Configuration:
                             help="NAT relay through the bootstrap node")
         parser.add_argument("--spec-decode", dest="spec_decode",
                             choices=("", "ngram", "draft"),
-                            help="speculative decoding")
+                            help="speculative decoding: ngram prompt lookup "
+                                 "or a small draft model")
+        parser.add_argument("--spec-draft", dest="spec_draft", type=int,
+                            help="draft tokens per speculative verify step")
+        parser.add_argument("--spec-draft-model", dest="spec_draft_model",
+                            help="draft model name (spec_decode=draft)")
+        parser.add_argument("--spec-draft-max", dest="spec_draft_max",
+                            type=int,
+                            help="enable acceptance-adaptive draft length: "
+                                 "retune within [0, N] between dispatches "
+                                 "(0 = fixed --spec-draft)")
         parser.add_argument("--step-token-budget", dest="step_token_budget",
                             type=int,
                             help="unified ragged batch: per-step token "
@@ -497,17 +559,19 @@ class Configuration:
         parser.add_argument("--gateway-spec-pipeline",
                             dest="gateway_spec_pipeline",
                             choices=("off", "gateway", "worker"),
-                            help="gateway-drafted speculative pipeline "
-                                 "(refused unless off: not ported)")
+                            help="gateway-drafted speculative pipeline: "
+                                 "draft at the gateway (--spec-draft-path) "
+                                 "or pace on the worker's own drafts")
         parser.add_argument("--spec-draft-path", dest="spec_draft_path",
-                            help="draft model checkpoint dir (refused: not "
-                                 "ported)")
+                            help="draft model checkpoint dir (a native "
+                                 "checkpoint)")
 
     _FLAG_FIELDS = (
         "verbose", "key_path", "listen_port", "model", "model_path",
         "engine_backend", "mesh_shape", "quantize", "kv_layout",
         "kv_page_size", "kv_pool_tokens", "kv_dtype", "relay_mode",
-        "spec_decode", "step_token_budget", "ragged_prefill", "megastep_k",
+        "spec_decode", "spec_draft", "spec_draft_model", "spec_draft_max",
+        "step_token_budget", "ragged_prefill", "megastep_k",
         "wedge_multiplier", "profile_dir",
         "trace_buffer", "trace_ttl", "metrics_exemplars",
         "admission_pending_max", "kv_ship_timeout", "drain_timeout",

@@ -11,9 +11,15 @@ continuous-batching scheduler, streaming text chunks from ``generate``;
 ``FakeEngine``, the echo engine of consumer nodes and tests.  The seams
 record the obs plane's spans and histograms (``_obs_generate``, into the
 ``NodeObs`` a ``Peer`` hands to ``engine.obs``) and carry the chaos sites
-of ``testing/faults.py`` (``engine.request``, ``engine.stream_chunk``).
-Not ported: KV shipping (``kv_donor`` fetches, ``export_kv_pages`` answers
-None) and the remote-draft ``VerifyResult`` branch.
+of ``testing/faults.py`` (``engine.request``, ``engine.stream_chunk``,
+``spec.verify``).  A streamed request flagged ``remote_draft`` on an
+engine whose runner verifies remote drafts (``supports_remote_draft``)
+paces on the ``DraftFeed`` the peer fills from the gateway's DraftChunk
+frames: ``generate`` yields a handshake (chunk 0: the prompt ids and the
+first token) and one control chunk per consumed credit, which
+``handle_streaming_frames`` writes as ``VerifyResult`` frames between the
+text frames.  Not ported: KV shipping (``kv_donor`` fetches,
+``export_kv_pages`` answers None).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from crowdllama_tpu_torch.core.messages import (
     flatten_chat,
     genresp_frame_bytes,
     migrate_frame_msg,
+    verify_result_msg,
 )
 from crowdllama_tpu_torch.engine.runner import resolve_device
 from crowdllama_tpu_torch.parallel.mesh import build_mesh
@@ -61,6 +68,9 @@ class Chunk:
     # admission -> first token.
     queue_ns: int = 0
     prefill_ns: int = 0
+    # Remote-draft control chunk: the VerifyResult payload (no text, not
+    # done); None on every text chunk.
+    verify: dict | None = None
 
 
 class StopMatcher:
@@ -107,6 +117,10 @@ class Engine:
     # The owning Peer (attach_peer): a chaos drain goes through it.
     _peer = None
     _chaos_drain = None  # the task a "drain" fault or the watchdog started
+    # Engines whose runner batch-verifies remote drafts opt in; on every
+    # other engine a remote-draft stream runs unpaced and the peer nacks
+    # the gateway's DraftChunk credits.
+    supports_remote_draft = False
 
     async def start(self) -> None: ...
     async def stop(self) -> None: ...
@@ -238,26 +252,49 @@ class Engine:
             completion_tokens=final.completion_tokens)
 
     async def handle_streaming(self, msg: pb.BaseMessage,
-                               worker_id: str = ""
+                               worker_id: str = "", draft_feed=None
                                ) -> AsyncIterator[pb.BaseMessage]:
         """``handle_streaming_frames`` with each frame decoded."""
-        async for frame in self.handle_streaming_frames(msg, worker_id):
+        async for frame in self.handle_streaming_frames(
+                msg, worker_id, draft_feed=draft_feed):
             yield wire.decode_payload(frame[4:])
 
+    def _verify_frame_fields(self) -> tuple[int, int]:
+        """(draft_k, depth_hint) a VerifyResult advertises."""
+        return 0, 1
+
     async def handle_streaming_frames(self, msg: pb.BaseMessage,
-                                      worker_id: str = ""
+                                      worker_id: str = "", draft_feed=None
                                       ) -> AsyncIterator[bytes]:
         """Encoded wire frames, one GenerateResponse per chunk (``done``
         on the last) with the request's trace id; a request handed off by
         ``migrate`` ends in a MigrateFrame instead (its held-back text is
-        dropped: the successor replays the generation)."""
+        dropped: the successor replays the generation).  With
+        ``draft_feed`` a remote-draft request's control chunks become
+        VerifyResult frames (the ``spec.verify`` fault site before each)."""
         req = extract_generate_request(msg)
         t0 = time.monotonic_ns()
         first_ns = 0
         n_chunk = 0
-        async for chunk in self._gen_from_request(req):
+        async for chunk in self._gen_from_request(req,
+                                                  draft_feed=draft_feed):
             if not first_ns:
                 first_ns = time.monotonic_ns()
+            if chunk.verify is not None:
+                v = chunk.verify
+                await faults.inject("spec.verify", worker=worker_id,
+                                    model=req.model,
+                                    chunk_id=int(v.get("chunk_id", 0)))
+                dk, dh = self._verify_frame_fields()
+                vmsg = verify_result_msg(
+                    chunk_id=int(v.get("chunk_id", 0)),
+                    position=int(v.get("position", 0)),
+                    accepted=int(v.get("accepted", 0)),
+                    tokens=v.get("tokens", []), done=False, draft_k=dk,
+                    depth_hint=dh, prompt_ids=v.get("prompt_ids", []))
+                vmsg.trace_id = msg.trace_id
+                yield wire.encode_frame(vmsg)
+                continue
             try:
                 await faults.inject("engine.stream_chunk", worker=worker_id,
                                     model=req.model, index=n_chunk)
@@ -313,16 +350,21 @@ class Engine:
         paged prefix index advertise nothing."""
         return [], 0
 
-    def _gen_from_request(self, req: pb.GenerateRequest
+    def _gen_from_request(self, req: pb.GenerateRequest, draft_feed=None
                           ) -> AsyncIterator[Chunk]:
         # The float fields are float32 values (as protobuf reads them), so
         # a seeded request draws the same tokens on either package.
+        kwargs = {}
+        if (draft_feed is not None and req.remote_draft
+                and self.supports_remote_draft):
+            # Only engines that pace on credits see the keywords.
+            kwargs = dict(remote_draft=True, draft_feed=draft_feed)
         return self.generate(
             self._prompt_of(req), model=req.model,
             max_tokens=req.max_tokens or 128, temperature=req.temperature,
             top_p=req.top_p or 1.0, seed=int(req.seed or 0),
             stop=list(req.stop), top_k=int(req.top_k or 0),
-            repeat_penalty=float(req.repeat_penalty or 1.0))
+            repeat_penalty=float(req.repeat_penalty or 1.0), **kwargs)
 
 
 class TorchEngine(Engine):
@@ -404,8 +446,8 @@ class TorchEngine(Engine):
         self.scheduler = Scheduler(
             self.runner, decode_chunk=c.decode_chunk,
             admission_pending_max=c.admission_pending_max,
-            ragged=c.ragged_prefill, megastep_k=c.megastep_k,
-            wedge_multiplier=c.wedge_multiplier)
+            spec_draft_max=c.spec_draft_max, ragged=c.ragged_prefill,
+            megastep_k=c.megastep_k, wedge_multiplier=c.wedge_multiplier)
         self.scheduler.drain_requested_cb = self._self_drain
         self.scheduler.start()
         log.info("engine up: model=%s devices=%s layout=%s kv_dtype=%s "
@@ -469,6 +511,16 @@ class TorchEngine(Engine):
     async def stop(self) -> None:
         if self.scheduler is not None:
             await self.scheduler.stop()
+
+    @property
+    def supports_remote_draft(self) -> bool:  # type: ignore[override]
+        """True once the runner carries the hosted verify
+        (``SpecPagedModelRunner``): known after ``start()``."""
+        return bool(getattr(self.runner, "supports_remote_draft", False))
+
+    def _verify_frame_fields(self) -> tuple[int, int]:
+        return (int(getattr(self.runner, "draft_len", 0)),
+                int(getattr(self.scheduler, "spec_pipeline_depth", 1)))
 
     def _self_drain(self) -> None:
         """The self-watchdog's drain: through the owning peer when there is
@@ -583,16 +635,45 @@ class TorchEngine(Engine):
                     "misses": r.prefix_misses,
                     "tokens_reused": r.prefix_tokens_reused,
                 }
+        if self.scheduler is not None and self.scheduler.spec_steps:
+            d["spec_decode"] = self._spec_stats()
+        return d
+
+    def _spec_stats(self) -> dict:
+        """The ``spec_decode`` block of ``describe()``, under the JAX
+        engine's keys: verify steps, tokens per step, and the accepted
+        share of offered drafts split by source (prompt echo only pays on
+        traffic that replays its input)."""
+        s, c = self.scheduler, self.config
+        steps, emitted = s.spec_steps, s.spec_emitted
+        offered = steps * max(1, c.spec_draft)
+        echo, gen = s.spec_accept_echo, s.spec_accept_gen
+        d = {"mode": c.spec_decode, "verify_steps": steps,
+             "tokens_emitted": emitted,
+             "tokens_per_step": round(emitted / steps, 2),
+             "acceptance_rate": round((echo + gen) / offered, 3),
+             "accepted_prompt_echo": echo, "accepted_generative": gen,
+             "acceptance_rate_prompt_echo": round(echo / offered, 3),
+             "acceptance_rate_generative": round(gen / offered, 3)}
+        if c.spec_decode == "draft":
+            d["draft_model"] = c.spec_draft_model or c.spec_draft_path
+        if s._spec_adaptive:
+            d["adaptive"] = {"draft_len": getattr(self.runner, "draft_len", 0),
+                             "draft_len_max": s.spec_draft_max,
+                             "retunes": s.spec_retunes,
+                             "probes": s.spec_probes}
         return d
 
     async def generate(  # type: ignore[override]
         self, prompt: str, model: str = "", max_tokens: int = 128,
         temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
         stop: list[str] | None = None, top_k: int = 0,
-        repeat_penalty: float = 1.0,
+        repeat_penalty: float = 1.0, remote_draft: bool = False,
+        draft_feed=None,
     ) -> AsyncIterator[Chunk]:
         from crowdllama_tpu_torch.engine.scheduler import (
             DONE,
+            VERIFY,
             GenRequest,
             WedgedError,
         )
@@ -607,6 +688,8 @@ class TorchEngine(Engine):
                          top_k=max(0, int(top_k)),
                          repeat_penalty=float(repeat_penalty or 1.0),
                          eos_id=self.tokenizer.eos_id, seed=seed)
+        if remote_draft and draft_feed is not None:
+            req.remote_draft, req.feed = True, draft_feed
         await self.scheduler.submit(req)
         decoder = self.tokenizer.stream_decoder()
         matcher = StopMatcher(stop)
@@ -626,6 +709,10 @@ class TorchEngine(Engine):
         try:
             while True:
                 token, reason = await req.out.get()
+                if token is VERIFY:
+                    # A consumed DraftChunk credit's answer: control only.
+                    yield Chunk(text="", verify=reason)
+                    continue
                 if token is DONE:
                     finished = True
                     if reason.startswith("error: wedged"):
@@ -636,6 +723,13 @@ class TorchEngine(Engine):
                     yield _final(matcher.flush(), reason)
                     return
                 completion += 1
+                if completion == 1 and req.remote_draft:
+                    # Handshake (chunk 0, never a credit): the prompt ids
+                    # and the first token seed the gateway's drafter.
+                    yield Chunk(text="", verify={
+                        "chunk_id": 0, "position": 1, "accepted": 0,
+                        "tokens": [int(token)],
+                        "prompt_ids": [int(t) for t in prompt_ids]})
                 if token == req.eos_id:
                     continue  # silent; DONE follows
                 text = decoder.feed(token)

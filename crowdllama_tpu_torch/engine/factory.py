@@ -3,12 +3,38 @@
 Counterpart of the ported subset of ``crowdllama_tpu/engine/factory.py``
 ``build_runner``: the plan's runner on one device or, paged, over the tp
 mesh ``config.mesh_shape`` names (ranks on ``devices``, else the visible
-CUDA devices).
+CUDA devices).  The draft-model runner's draft comes from
+``spec_draft_path`` (a native checkpoint, which carries its own
+architecture) or, without one, is ``spec_draft_model`` from the registry
+on random weights (seed 0).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+
+def draft_model(config, cfg, dtype: torch.dtype = torch.bfloat16):
+    """(draft ModelConfig, its parameter dict on the host or None for a
+    random init) for ``spec_decode="draft"``, at the main model's
+    context."""
+    from crowdllama_tpu_torch.engine.weights import (
+        load_native_params,
+        native_config_from_dir,
+    )
+    from crowdllama_tpu_torch.models.config import get_config
+
+    if config.spec_draft_path:
+        draft_cfg = dataclasses.replace(
+            native_config_from_dir(config.spec_draft_path),
+            max_context_length=cfg.max_context_length)
+        return draft_cfg, load_native_params(draft_cfg,
+                                             config.spec_draft_path,
+                                             dtype=dtype)
+    return get_config(config.spec_draft_model,
+                      max_context_length=cfg.max_context_length), None
 
 
 def build_runner(config, plan, cfg, params=None, *,
@@ -19,14 +45,28 @@ def build_runner(config, plan, cfg, params=None, *,
                   max_seq=cfg.max_context_length, dtype=dtype, seed=seed,
                   device=device, kv_dtype=plan.kv_dtype,
                   mesh_shape=plan.mesh_shape, devices=devices)
+    if plan.spec:
+        kwargs["draft_len"] = config.spec_draft
     if plan.kv_layout == "paged":
+        from crowdllama_tpu_torch.engine import spec
         from crowdllama_tpu_torch.engine.paged import PagedModelRunner
 
-        return PagedModelRunner(
-            cfg, page_size=config.kv_page_size,
-            pool_tokens=config.kv_pool_tokens,
-            prefix_cache=config.kv_prefix_cache,
-            step_token_budget=config.step_token_budget, **kwargs)
+        kwargs.update(page_size=config.kv_page_size,
+                      pool_tokens=config.kv_pool_tokens,
+                      prefix_cache=config.kv_prefix_cache,
+                      step_token_budget=config.step_token_budget)
+        if plan.runner == "DraftSpecPagedModelRunner":
+            draft_cfg, draft_params = draft_model(config, cfg, dtype)
+            return spec.DraftSpecPagedModelRunner(
+                cfg, draft_cfg=draft_cfg, draft_params=draft_params,
+                **kwargs)
+        if plan.runner == "SpecPagedModelRunner":
+            return spec.SpecPagedModelRunner(cfg, **kwargs)
+        return PagedModelRunner(cfg, **kwargs)
+    if plan.runner == "SpecModelRunner":
+        from crowdllama_tpu_torch.engine.spec import SpecModelRunner
+
+        return SpecModelRunner(cfg, **kwargs)
     from crowdllama_tpu_torch.engine.runner import ModelRunner
 
     return ModelRunner(cfg, **kwargs)

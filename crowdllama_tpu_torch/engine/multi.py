@@ -104,8 +104,8 @@ class MultiEngine(Engine):
     # Point-in-time gauges take the max across children; depths and
     # counts sum.
     _GAUGE_MAX = frozenset({"batch_occupancy", "kv_cache_utilization",
-                            "step_token_budget_used", "tokens_per_dispatch",
-                            "autotune_score"})
+                            "spec_draft_len", "step_token_budget_used",
+                            "tokens_per_dispatch", "autotune_score"})
 
     def obs_gauges(self) -> dict:
         out: dict = {}
@@ -136,14 +136,28 @@ class MultiEngine(Engine):
         eng = self._engines.get(req.model)
         return eng._migrate_export_meta(req) if eng is not None else ([], 0)
 
+    @property
+    def supports_remote_draft(self) -> bool:  # type: ignore[override]
+        """Any child verifies remote drafts (a request for another child
+        streams unpaced)."""
+        return any(e.supports_remote_draft for e in self._engines.values())
+
+    def _verify_frame_fields(self) -> tuple[int, int]:
+        return max((e._verify_frame_fields() for e in self._engines.values()),
+                   default=(0, 1))
+
     def generate(self, prompt: str, model: str = "", max_tokens: int = 128,
                  temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
                  stop: list[str] | None = None, top_k: int = 0,
-                 repeat_penalty: float = 1.0) -> AsyncIterator[Chunk]:
-        return self._child(model).generate(
+                 repeat_penalty: float = 1.0,
+                 **remote) -> AsyncIterator[Chunk]:
+        child = self._child(model)
+        if not child.supports_remote_draft:
+            remote = {}  # remote_draft / draft_feed: this child cannot pace
+        return child.generate(
             prompt, model=model, max_tokens=max_tokens,
             temperature=temperature, top_p=top_p, seed=seed, stop=stop,
-            top_k=top_k, repeat_penalty=repeat_penalty)
+            top_k=top_k, repeat_penalty=repeat_penalty, **remote)
 
     async def embed(self, texts: list[str], model: str = "",
                     truncate: bool = True) -> tuple[list[list[float]], int]:

@@ -2,12 +2,15 @@
 
 Counterpart of the ported subset of ``crowdllama_tpu/engine/plan.py``
 ``resolve_serving_plan``: the paged and the contiguous layout with a bf16
-or int8 KV cache, bf16 weights and no speculation, on one device, and the
-paged layout tensor-parallel over a tp mesh (``mesh_shape="2"``).  Every
-other combination raises ``NotImplementedError`` naming the ROADMAP item
-that will port it; nothing falls back silently (the JAX package moves a
-paged request on a dp/sp/pp mesh to the contiguous layout; the port
-refuses it).  ``megastep_k > 0`` needs every tp rank on one device (each
+or int8 KV cache and bf16 weights, on one device, and the paged layout
+tensor-parallel over a tp mesh (``mesh_shape="2"``); the spec axis as the
+JAX plan composes it (paged + ngram: ``SpecPagedModelRunner``, paged +
+draft: ``DraftSpecPagedModelRunner``, contiguous + ngram:
+``SpecModelRunner``; draft on the contiguous layout and ngram on the
+contiguous int8 cache raise ``ValueError``).  Every other combination
+raises ``NotImplementedError`` naming the ROADMAP item that will port it;
+nothing falls back silently (the JAX package moves a paged request on a
+dp/sp/pp mesh to the contiguous layout; the port refuses it).  ``megastep_k > 0`` needs every tp rank on one device (each
 flight is one CUDA graph there): :func:`check_megastep` refuses ranks on
 distinct devices.
 """
@@ -21,8 +24,12 @@ from crowdllama_tpu_torch.parallel.mesh import AXES, mesh_axes
 # What is not ported yet, and the ROADMAP Queue 1 item that ports it.
 _NOT_PORTED = {
     "quantize": ("", "quantized weights (ROADMAP Queue 1 item 10)"),
-    "spec_decode": ("", "speculative decoding (ROADMAP Queue 1 item 4)"),
 }
+_RUNNERS = {("paged", ""): "PagedModelRunner",
+            ("paged", "ngram"): "SpecPagedModelRunner",
+            ("paged", "draft"): "DraftSpecPagedModelRunner",
+            ("contiguous", ""): "ModelRunner",
+            ("contiguous", "ngram"): "SpecModelRunner"}
 _MESHES = ("meshes other than tp on the paged layout (contiguous tp, dp, "
            "sp, pp, ep: ROADMAP Queue 1 item 8)")
 
@@ -31,10 +38,11 @@ _MESHES = ("meshes other than tp on the paged layout (contiguous tp, dp, "
 class ServingPlan:
     """What the engine builds for a Configuration."""
 
-    runner: str       # "ModelRunner" | "PagedModelRunner"
+    runner: str       # a name of ``_RUNNERS``
     kv_layout: str
     kv_dtype: str = "bf16"
     mesh_shape: str = ""  # "" = one device, or the paged default mesh
+    spec: str = ""    # "" | "ngram" | "draft"
 
 
 def check_megastep(megastep_k: int, devices) -> None:
@@ -79,8 +87,15 @@ def resolve_serving_plan(config, devices=None) -> ServingPlan:
             f"megastep_k={megastep_k} on mesh_shape={config.mesh_shape!r} "
             f"(its tp ranks take distinct devices) is not ported to "
             f"crowdllama_tpu_torch yet: {_MESHES}")
-    runner = {"paged": "PagedModelRunner",
-              "contiguous": "ModelRunner"}[config.kv_layout]
-    return ServingPlan(runner=runner, kv_layout=config.kv_layout,
-                       kv_dtype=config.kv_dtype,
-                       mesh_shape=config.mesh_shape)
+    spec = config.spec_decode
+    if config.kv_layout == "contiguous":
+        if spec == "draft":
+            raise ValueError(
+                "draft-model speculation runs on the paged layout only")
+        if spec == "ngram" and config.kv_dtype != "bf16":
+            raise ValueError(
+                "spec_decode on the contiguous layout requires the bf16 KV "
+                "cache (the verify forward reads the cache as bf16 context)")
+    return ServingPlan(runner=_RUNNERS[(config.kv_layout, spec)],
+                       kv_layout=config.kv_layout, kv_dtype=config.kv_dtype,
+                       mesh_shape=config.mesh_shape, spec=spec)

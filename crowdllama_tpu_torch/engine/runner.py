@@ -17,7 +17,8 @@ path either).  The paged subclass (``engine/paged.py``) replaces the cache
 layout and reuses the rest.  The base runner holds the tp mesh and the
 per-rank parameters and rope tables (lists of one on one device); only
 the paged runner serves over more than one rank.  Sequence/pipeline
-parallelism and speculation are not ported yet.
+parallelism is not ported yet; speculation subclasses both layouts
+(``engine/spec.py``).
 
 Megastep (``decode_megastep``, both layouts): K decode steps per host
 dispatch with on-device sampling and done-flags (``ops/megastep.py``).
@@ -106,6 +107,12 @@ class SlotState:
     # Host mirror of ``active & temperature > 0``: a step where no slot
     # samples makes no noise (its tokens are argmaxes either way).
     sampled: np.ndarray
+    # Speculative runners (engine/spec.py): the n-gram proposer's token
+    # history [B, S] int32, and the draft model's contiguous cache
+    # [Ld, B, Hkv_d, S, Dh_d]; None on every other runner.
+    hist: torch.Tensor | None = None
+    draft_k: torch.Tensor | None = None
+    draft_v: torch.Tensor | None = None
 
 
 @dataclass(kw_only=True)

@@ -49,8 +49,25 @@ terminal reason ``"migrate"`` at the loop's next safe point, between
 dispatches, so the gateway re-routes each stream.  Released slots return
 their pages through the runner's prefix cache.
 
-Not ported yet: speculation (the ``spec`` class reads 0), the autopilot,
-KV import and the fault-injection hooks.
+The speculation plane (runners of ``engine/spec.py``): a speculative
+flight returns the packed ``[K, 2+J, B]`` block (the ``spec`` dispatch
+class); retire emits each step's counted tokens, splits the accepted
+drafts by source (prompt echo or generative) and feeds the adaptive
+controller (``spec_draft_max > 0``): ``_spec_retune`` moves
+``draft_len`` between dispatches from a windowed acceptance rate (k = 0
+pauses speculation, and after ``spec_probe_interval`` plain steps one
+k = 1 probe of one step re-samples acceptance).  A megastep flight runs
+only at ``draft_len == 0``; speculative flights run eagerly.  The
+gateway-drafted pipeline: a request with a ``DraftFeed``
+(``core/spec_pipeline.py``) paces decode on its credits when every live
+slot is paced (``_dispatch_paced``: the hosted verify over the gateway's
+drafts, or one round of the runner's own program for pure-ack credits),
+answers each consumed credit with a ``VERIFY`` payload, nacks stale
+chunks without a verify, and releases the stream to full speed after
+``spec_pipeline_stall_s`` without credit, a mixed batch or a ragged
+prefill.
+
+Not ported yet: the autopilot, KV import and the fault-injection hooks.
 """
 
 from __future__ import annotations
@@ -74,6 +91,10 @@ from crowdllama_tpu_torch.obs.metrics import ENGINE_TELEMETRY
 log = logging.getLogger("crowdllama.torch.scheduler")
 
 _DONE = object()
+# Remote-draft verify payload marker on a request's out queue: the paired
+# value is a dict the engine turns into a VerifyResult frame interleaved
+# with the stream's text frames.
+_VERIFY = object()
 # Slot sentinel: reserved for an in-progress chunked admission — occupied
 # (skipped by _free_slot) but carrying no request yet.
 _RESERVED = object()
@@ -109,6 +130,11 @@ class GenRequest:
     first_token_at: float = 0.0
     cancelled: bool = False  # client went away: drop at admission / free slot
     finished: bool = False
+    # Gateway-drafted speculation: the request rides a paced remote-draft
+    # stream and ``feed`` is its DraftFeed (one credit consumed per verify
+    # round, one VERIFY payload queued back per credit).
+    remote_draft: bool = False
+    feed: object | None = None
 
     def finish(self, reason: str) -> bool:
         """Claim this request's terminal: exactly one ``(DONE, reason)`` is
@@ -139,13 +165,16 @@ class _InFlightChunk:
     ragged_steps: int = 0
     # Megastep flights: the per-slot done-flags [K, B] on the device.
     done_dev: torch.Tensor | None = None
+    # Paced flights: the (slot, chunk_id) credits consumed; retire answers
+    # each with a VERIFY payload of the tokens the slot emitted.
+    verify_meta: list | None = None
 
 
 class Scheduler:
     def __init__(self, runner, max_queue: int = 256, decode_chunk: int = 8,
-                 admission_pending_max: int = 0, ragged: bool = True,
-                 megastep_k: int = 0, wedge_multiplier: float = 0.0,
-                 clock=time.monotonic):
+                 admission_pending_max: int = 0, spec_draft_max: int = 0,
+                 ragged: bool = True, megastep_k: int = 0,
+                 wedge_multiplier: float = 0.0, clock=time.monotonic):
         self.runner = runner
         self.decode_chunk = max(1, decode_chunk)
         # K steps per megastep flight; 0 (or a runner without
@@ -206,6 +235,39 @@ class Scheduler:
         # Submitted requests whose output queue a consumer may still be
         # reading (drain waits for them to empty).
         self._tracked: weakref.WeakSet[GenRequest] = weakref.WeakSet()
+        # Steps dispatched per class (a plain flight of K steps counts K),
+        # counted at dispatch: the kernels a flight launches are too.
+        self.class_steps: dict[str, int] = {}
+        # Speculation: verify steps retired (x live slots), tokens they
+        # emitted, and the accepted drafts by source.
+        self.spec_steps = 0
+        self.spec_emitted = 0
+        self.spec_accept_echo = 0
+        self.spec_accept_gen = 0
+        # The acceptance-adaptive draft length (runners with
+        # supports_adaptive_draft, spec_draft_max > 0).
+        self.spec_draft_max = max(0, spec_draft_max)
+        self._spec_adaptive = (
+            self.spec_draft_max > 0
+            and getattr(runner, "supports_adaptive_draft", False)
+            and getattr(runner, "draft_len", 0) > 0)
+        self.spec_retunes = 0
+        self.spec_probes = 0
+        self.spec_shrink_rate = 0.25   # window rate at/below: shrink
+        self.spec_grow_rate = 0.8      # window rate at/above: grow
+        self.spec_probe_interval = 64  # plain steps between paused probes
+        self._accept_acc = 0
+        self._accept_off = 0
+        self._plain_since_probe = 0
+        self._spec_probing = False
+        # Gateway-drafted pipeline: the depth hint advertised on every
+        # VerifyResult, the stall budget before a creditless stream runs
+        # free, and the plane's counters.
+        self.spec_pipeline_depth = 8
+        self.spec_pipeline_stall_s = 2.0
+        self.spec_verifies = 0
+        self.spec_stale_chunks = 0
+        self.spec_pipeline_freeruns = 0
 
     # ---------------------------------------------------------------- public
 
@@ -270,6 +332,9 @@ class Scheduler:
                 raise OverloadedError(
                     f"overloaded: {depth} requests pending (admission "
                     f"threshold {self.admission_pending_max})")
+        if req.feed is not None:
+            # Credits the peer's chunk reader pushes wake a parked loop.
+            req.feed._waker = self._wake.set
         await self.pending.put(req)
         self._tracked.add(req)
         self._wake.set()
@@ -358,9 +423,10 @@ class Scheduler:
         included; contiguous: tokens held over capacity), the chunked
         admission in progress, the token budget the last dispatched step
         carried, dispatches and the tokens of the last retired flight, the
-        duty cycle per dispatch class, and the self-watchdog's level and
-        trips.  Speculation is not ported: its class and the remote-draft
-        plane read 0, so every family exists on a torch worker."""
+        duty cycle per dispatch class, the self-watchdog's level and
+        trips, the remote-draft pipeline's plane, and on a speculative
+        runner the verify steps, emitted and accepted tokens and the live
+        draft length."""
         active = sum(1 for s in self.slots if isinstance(s, _SlotInfo))
         total = max(1, len(self.slots))
         r = self.runner
@@ -383,11 +449,19 @@ class Scheduler:
             "tokens_per_dispatch": float(self._tokens_per_dispatch),
             "wedged": 1.0 if self.wedged else 0.0,
             "wedged_events_total": float(self.wedged_events),
-            "spec_pipeline_depth": 0.0, "spec_pipeline_verifies": 0.0,
-            "spec_pipeline_stale": 0.0, "spec_pipeline_freeruns": 0.0,
+            "spec_pipeline_depth": float(self.spec_pipeline_depth),
+            "spec_pipeline_verifies": float(self.spec_verifies),
+            "spec_pipeline_stale": float(self.spec_stale_chunks),
+            "spec_pipeline_freeruns": float(self.spec_pipeline_freeruns),
         }
         for cls in ("plain", "megastep", "ragged", "ragged_mega", "spec"):
             g[f"duty_cycle|dispatch={cls}"] = float(self._duty.get(cls, 0.0))
+        if hasattr(r, "draft_len"):
+            g.update(spec_steps=float(self.spec_steps),
+                     spec_emitted=float(self.spec_emitted),
+                     spec_accept_echo=float(self.spec_accept_echo),
+                     spec_accept_gen=float(self.spec_accept_gen),
+                     spec_draft_len=float(r.draft_len))
         return g
 
     # --------------------------------------------- dispatch self-watchdog
@@ -398,7 +472,9 @@ class Scheduler:
         watchdog must not touch the device a hung flight holds)."""
         if fl.done_dev is not None:
             return "ragged_mega" if fl.ragged_steps else "megastep"
-        return "ragged" if fl.ragged_steps else "plain"
+        if fl.ragged_steps:
+            return "ragged"
+        return "spec" if getattr(fl.tokens_dev, "ndim", 2) == 3 else "plain"
 
     def check_wedged(self, now: float | None = None) -> bool:
         """One watchdog probe: has the flight in progress outlived its
@@ -547,7 +623,10 @@ class Scheduler:
 
     def _chunk_size(self) -> int:
         """Steps per dispatch: 1 while an admittable request waits
-        (admission latency beats amortization), else decode_chunk."""
+        (admission latency beats amortization) or a paused speculation
+        probes, else decode_chunk."""
+        if self._spec_probing:
+            return 1
         if self._free_slot() is None:
             return self.decode_chunk
         if not self.pending.empty() or self._deferred:
@@ -572,6 +651,156 @@ class Scheduler:
                 req.max_tokens - info.generated,
                 (self.runner.max_seq - 1) - info.prompt_len - info.generated))
         return eos, budgets
+
+    def _spec_retune(self, accepted: int, offered: int) -> None:
+        """Fold one retired flight's acceptance into the window; retune
+        draft_len once the window holds 2k offered drafts: halve at a rate
+        <= spec_shrink_rate (k = 0 pauses), one up toward spec_draft_max at
+        >= spec_grow_rate.  Runs between dispatches (retire)."""
+        self._accept_acc += accepted
+        self._accept_off += offered
+        k = getattr(self.runner, "draft_len", 0)
+        if self._accept_off < 2 * max(1, k):
+            return
+        rate = self._accept_acc / max(1, self._accept_off)
+        new_k = k
+        if rate <= self.spec_shrink_rate:
+            new_k = k // 2
+        elif rate >= self.spec_grow_rate and k < self.spec_draft_max:
+            new_k = k + 1
+        self._accept_acc = self._accept_off = 0
+        self._spec_probing = False
+        if new_k != k:
+            self.runner.set_draft_len(new_k)
+            self.spec_retunes += 1
+            if new_k == 0:
+                self._plain_since_probe = 0
+            log.info("spec retune: draft_len %d -> %d (window rate %.2f)",
+                     k, new_k, rate)
+
+    def _spec_probe_tick(self, steps: int) -> None:
+        """A paused controller counts plain steps; after
+        spec_probe_interval of them it arms ONE k=1 probe (one step, via
+        ``_chunk_size``) whose acceptance ``_spec_retune`` then reads."""
+        self._plain_since_probe += steps
+        if (not self._spec_probing
+                and self._plain_since_probe >= self.spec_probe_interval):
+            self._plain_since_probe = 0
+            self._spec_probing = True
+            self.spec_probes += 1
+            self.runner.set_draft_len(1)
+
+    # ----------------------------------- gateway-drafted pipeline pacing
+
+    def _paced_slots(self, rjob) -> list:
+        """Live slots pacing on remote-draft credits, after the release
+        rules: a closed and drained feed, a mixed batch (an unpaced live
+        slot) or a ragged prefill in flight sets ``free_run``.  Pacing is
+        exact only when every live slot is paced."""
+        paced, live = [], 0
+        for i, info in enumerate(self.slots):
+            if not isinstance(info, _SlotInfo):
+                continue
+            live += 1
+            feed = info.req.feed
+            if feed is None or feed.free_run:
+                continue
+            if feed.closed and not feed.chunks:
+                feed.free_run = True  # the gateway hung up: finish at speed
+                continue
+            paced.append((i, info))
+        if paced and (rjob is not None or len(paced) != live):
+            for _i, info in paced:
+                info.req.feed.free_run = True
+                self.spec_pipeline_freeruns += 1
+            return []
+        return paced
+
+    async def _dispatch_paced(self, paced) -> _InFlightChunk | None:
+        """One pipeline round: one credit per paced feed (stale draft
+        chunks nacked at once), then ONE verify round: the hosted verify
+        over the gateway's drafts when a credit carried tokens, else one
+        step of the runner's own program.  Creditless feeds park the loop
+        until credit arrives or the stall budget frees the stream.  None
+        when nothing was dispatched."""
+        if self._inflight is not None:
+            # Per-slot counts are pre-retire until the previous round
+            # retires: consume credits next iteration.
+            return None
+        now = time.monotonic()
+        ready, park = True, self.spec_pipeline_stall_s
+        for _i, info in paced:
+            feed = info.req.feed
+            if feed.chunks:
+                feed.stalled_at = 0.0
+                continue
+            if not feed.stalled_at:
+                feed.stalled_at = now
+            waited = now - feed.stalled_at
+            if waited >= self.spec_pipeline_stall_s:
+                feed.free_run = True
+                self.spec_pipeline_freeruns += 1
+                log.warning("spec pipeline stall: releasing paced stream "
+                            "to full speed after %.1fs without credit",
+                            waited)
+            else:
+                ready = False
+                park = min(park, self.spec_pipeline_stall_s - waited)
+        if any(info.req.feed.free_run for _i, info in paced):
+            return None  # released: the next iteration dispatches normally
+        if not ready:
+            if (self.pending.empty() and not self._deferred
+                    and self._migrating is None and self._chunking is None):
+                self._wake.clear()
+                try:
+                    await asyncio.wait_for(self._wake.wait(),
+                                           timeout=max(0.01, park))
+                except asyncio.TimeoutError:
+                    pass
+            return None
+        kmax = int(getattr(self.runner, "draft_len", 0))
+        meta: list[tuple[int, int]] = []
+        token_chunks: dict[int, list[int]] = {}
+        for i, info in paced:
+            feed = info.req.feed
+            credit = None
+            while feed.chunks:
+                cid, pos, toks = feed.chunks.popleft()
+                if toks and (kmax <= 0 or pos != info.generated):
+                    # Drafted from a superseded prefix, or the runner
+                    # paused drafting: nack without a verify forward.
+                    self.spec_stale_chunks += 1
+                    self.spec_verifies += 1
+                    info.req.out.put_nowait((_VERIFY, {
+                        "chunk_id": cid, "position": info.generated,
+                        "accepted": 0, "tokens": []}))
+                    continue
+                credit = (cid, toks)
+                break
+            if credit is None:
+                continue  # the stale flush ate every queued credit
+            cid, toks = credit
+            meta.append((i, cid))
+            if toks:
+                token_chunks[i] = toks
+        if not meta:
+            return None
+        if token_chunks:
+            kk = min(max(len(t) for t in token_chunks.values()), kmax)
+            drafts = np.full((len(self.slots), kk), -1, np.int32)
+            for i, toks in token_chunks.items():
+                t = toks[:kk]
+                drafts[i, :len(t)] = t
+            tokens_dev, self.state = await self._run(
+                self.runner.decode_steps_hosted, self.state, drafts)
+        else:
+            tokens_dev, self.state = await self._run(
+                self.runner.decode_steps_device, self.state, 1)
+        self._step_budget_used = float(len(meta))
+        self.host_dispatches += 1
+        return _InFlightChunk(tokens_dev=tokens_dev,
+                              snapshot=list(self.slots),
+                              dispatched_at=self._clock(), verify_meta=meta)
 
     def _fail_all(self, reason: str) -> None:
         if self._chunking is not None:
@@ -670,11 +899,19 @@ class Scheduler:
                 and getattr(self._chunking[2], "ragged", False) else None)
         live = sum(1 for s in self.slots if isinstance(s, _SlotInfo))
         if rjob is not None or live:
-            k = self._chunk_size()
+            # When every live slot rides a remote-draft stream, decode
+            # advances one verify round per wire credit.
+            paced = self._paced_slots(rjob)
+            k = 1 if paced else self._chunk_size()
             # Only full-size chunks become megasteps (a size-1 dispatch
-            # keeps its admission-latency purpose); deciding before
+            # keeps its admission-latency purpose), and a plain decode
+            # chunk only while speculation is paused (draft_len 0):
+            # speculative flights run eagerly.  Deciding before
             # pre_decode_check sizes page growth for the real step count.
-            use_mega = self._megastep and k == self.decode_chunk
+            use_mega = (self._megastep and k == self.decode_chunk
+                        and (rjob is not None
+                             or (not paced and getattr(self.runner,
+                                                       "draft_len", 0) == 0)))
             if use_mega:
                 k = self.megastep_k
             # Slots an overcommitted pool cannot grow finish with "length"
@@ -697,6 +934,8 @@ class Scheduler:
             live = sum(1 for s in self.slots if isinstance(s, _SlotInfo))
             if rjob is not None:
                 dispatched = await self._ragged_dispatch(k, use_mega, live)
+            elif paced:
+                dispatched = await self._dispatch_paced(paced)
             elif live:
                 done_dev = None
                 if use_mega:
@@ -722,6 +961,10 @@ class Scheduler:
 
         # Retire the PREVIOUS chunk (readback overlaps the new dispatch).
         await self._retire_inflight()
+        if dispatched is not None:
+            cls = self._flight_class(dispatched)
+            self.class_steps[cls] = (self.class_steps.get(cls, 0)
+                                     + dispatched.tokens_dev.shape[0])
         self._inflight = dispatched
         await asyncio.sleep(0)  # let submitters/streamers run
 
@@ -918,15 +1161,7 @@ class Scheduler:
         ENGINE_TELEMETRY.padding_inc(
             useful=live * steps_run,
             waste=max(0, tokens.shape[-1] - live) * steps_run)
-        emitted = 0
-        for step in range(tokens.shape[0]):
-            for i, info in enumerate(fl.snapshot):
-                # Emit only to slots still owned by the request they were
-                # dispatched for.
-                if not isinstance(info, _SlotInfo) or self.slots[i] is not info:
-                    continue
-                self._emit(info.req, int(tokens[step, i]), info)
-                emitted += 1
+        emitted = self._emit_flight(fl, tokens)
         self._tokens_per_dispatch = emitted
         if emitted == 0:
             return  # pure-overshoot chunk: not a throughput sample
@@ -934,5 +1169,63 @@ class Scheduler:
         self.throughput_ema = (rate if self.throughput_ema == 0.0
                                else 0.9 * self.throughput_ema + 0.1 * rate)
 
+    def _emit_flight(self, fl: _InFlightChunk, tokens: np.ndarray) -> int:
+        """Emit a read-back flight's tokens to the slots still owned by the
+        request they were dispatched for; returns how many.  A packed
+        speculative block [K, 2+J, B] emits each step's counted tokens,
+        splits the accepted drafts by source, feeds the adaptive
+        controller, and answers the flight's consumed credits with VERIFY
+        payloads; a plain flight on a paused controller counts toward the
+        next probe."""
+        emitted = acc = off = 0
+        spec = tokens.ndim == 3
+        # k at dispatch, from the block's shape: a retune may have
+        # happened since.
+        k_dispatch = tokens.shape[1] - 3 if spec else 0
+        verify_tok: dict[int, list[int]] = {}
+        for step in range(tokens.shape[0]):
+            for i, info in enumerate(fl.snapshot):
+                if not isinstance(info, _SlotInfo) or self.slots[i] is not info:
+                    continue
+                row = (tokens[step, 1:1 + int(tokens[step, 0, i]), i] if spec
+                       else tokens[step, i:i + 1])
+                n = 0
+                for tok in row:
+                    if self.slots[i] is not info:  # retired mid-step
+                        break
+                    self._emit(info.req, int(tok), info)
+                    if fl.verify_meta is not None:
+                        verify_tok.setdefault(i, []).append(int(tok))
+                    n += 1
+                emitted += n
+                if spec and n >= 1:
+                    if n > 1:
+                        if int(tokens[step, -1, i]) == 1:
+                            self.spec_accept_echo += n - 1
+                        else:
+                            self.spec_accept_gen += n - 1
+                    acc += n - 1
+                    off += k_dispatch
+        if spec:
+            self.spec_steps += tokens.shape[0] * max(
+                1, sum(1 for s in fl.snapshot if isinstance(s, _SlotInfo)))
+            self.spec_emitted += emitted
+            if self._spec_adaptive and off:
+                self._spec_retune(acc, off)
+        elif (self._spec_adaptive
+              and getattr(self.runner, "draft_len", -1) == 0):
+            self._spec_probe_tick(tokens.shape[0])
+        for slot, chunk_id in fl.verify_meta or ():
+            # One VerifyResult per consumed credit (a slot retired in the
+            # round answers too, so the gateway's window drains).
+            info = fl.snapshot[slot]
+            toks = verify_tok.get(slot, [])
+            self.spec_verifies += 1
+            info.req.out.put_nowait((_VERIFY, {
+                "chunk_id": chunk_id, "position": info.generated,
+                "accepted": max(0, len(toks) - 1), "tokens": toks}))
+        return emitted
+
 
 DONE = _DONE
+VERIFY = _VERIFY

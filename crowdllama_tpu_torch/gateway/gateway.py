@@ -14,13 +14,19 @@ error, on a drain or migrate (the drained worker becomes the successor's
 KV donor), and on a stall past ``stream_stall_ms``; the replay is trimmed
 by count so the client sees every character once.  ``hedge_ttft_ms``
 races a second worker for the first token and delivers one stream.
-``/metrics``, ``/metrics/cluster``, ``/debug/trace[/{id}]``,
+The speculative pipeline (``spec_pipeline``): streamed generations are
+flagged ``remote_draft``; the worker's VerifyResult frames feed a
+per-stream ``SpecPipelinePump`` (``gateway/draft.py``) that answers with
+DraftChunk frames, drafted here by the ``spec_draft_path`` checkpoint
+("gateway", on this process's card) or pure ack credits ("worker");
+such a stream is never hedged or pooled back, and its failover replay runs
+plain.  ``/metrics``, ``/metrics/cluster``, ``/debug/trace[/{id}]``,
 ``/debug/flightrecorder`` and ``/debug/profile`` (``torch.profiler``
 over this process) are the operator's surfaces.
 
 Not ported, and so not parameters here: the replicated gateway's gossip
-node and tenant quotas (ROADMAP Queue 1 item 1.4) and the speculative
-pipeline (item 4); ``config.py`` refuses their flags.  ``/api/pull`` of
+node and tenant quotas (ROADMAP Queue 1 item 1.4); ``config.py`` refuses
+their flags.  ``/api/pull`` of
 a model no worker serves answers 501 (swarm model sharing, item 9).  The
 autopilot's back-off capture goes with the autopilot (item 11).  The
 native data plane encodes request frames (``core/wire.encode_genreq_frame``)
@@ -147,7 +153,8 @@ class Gateway:
                  trace_ttl: float = 0.0, metrics_exemplars: bool = False,
                  slo_ttft_ms: float = 0.0, slo_decode_ms: float = 0.0,
                  stream_stall_ms: float = 0.0, hedge_ttft_ms: float = 0.0,
-                 profile_dir: str = ""):
+                 profile_dir: str = "", spec_pipeline: str = "off",
+                 spec_draft_path: str = "", device=None):
         self.peer = peer
         self.port = port
         self.host = host
@@ -231,11 +238,25 @@ class Gateway:
         self._affinity_evicted = 0
         self._affinity_repointed = 0
         self._kv_hints = 0
-        # The replicated gateway's and the draft pipeline's counters: their
-        # families render at zero until those planes are ported.
+        # The replicated gateway's counter: its family renders at zero
+        # until that plane is ported.
         self._gossip_affinity_hits = 0
+        # The speculative pipeline: "off", "gateway" (draft here from
+        # spec_draft_path, on ``device``: the card unless the CPU is asked
+        # for) or "worker" (pure ack credits).  The drafter loads on the
+        # first remote-draft stream.
+        if spec_pipeline not in ("off", "gateway", "worker"):
+            raise ValueError(f"spec_pipeline must be off|gateway|worker, "
+                             f"got {spec_pipeline!r}")
+        self.spec_pipeline = spec_pipeline
+        self.spec_draft_path = str(spec_draft_path or "")
+        self.spec_device = device
+        self._spec_drafter = None
+        self._spec_drafter_tried = False
         self._spec_stats = {"chunks": 0, "acks": 0, "nacks": 0,
                             "accepted": 0, "offered": 0}
+        # The depth controller's warm start per worker: (rtt, step) EWMAs.
+        self._spec_wire: dict[str, tuple[float, float]] = {}
 
     # ----------------------------------------------------------- lifecycle
 
@@ -1209,6 +1230,11 @@ class Gateway:
         tid = new_trace_id()
         msg.trace_id = tid
         msg.parent_span = GATEWAY_ROOT_SPAN
+        # The speculative pipeline: a streamed generation opens the
+        # VerifyResult sub-protocol (a worker that cannot verify nacks
+        # every chunk and the stream runs plain).
+        if stream and self.spec_pipeline != "off":
+            msg.generate_request.remote_draft = True
         t0 = time.monotonic()  # TTFB counts from admission, retries in
         budget = self._budget(request)
         deadline = t0 + budget
@@ -1309,8 +1335,16 @@ class Gateway:
                         "failing stream over %s -> %s (replaying %d "
                         "delivered chars)", prev_worker[:8],
                         worker.peer_id[:8], len(sctx.sent_text))
-                frame = (base_frame if not gr.kv_donor and not gr.migrate
-                         else native_frame(gr.kv_donor, gr.migrate))
+                if sctx.out is not None and gr.remote_draft:
+                    # A failover replay runs plain: the draft window died
+                    # with the worker.
+                    gr.remote_draft = False
+                frame = None
+                if not gr.remote_draft:
+                    # The native encoder carries no remote_draft field.
+                    frame = (base_frame if not gr.kv_donor
+                             and not gr.migrate
+                             else native_frame(gr.kv_donor, gr.migrate))
                 try:
                     resp = await self._forward(request, worker.peer_id, msg,
                                                stream, shape, t0, acc=acc,
@@ -1587,13 +1621,16 @@ class Gateway:
 
     async def _open_stream(self, worker_id: str, msg, frame: bytes,
                            deadline: float | None, stall_ttft: float,
-                           acc: dict, use_pool: bool = True):
+                           acc: dict, use_pool: bool = True,
+                           vsink: list | None = None):
         """Send ``frame`` on a pooled (one fresh redial when stale) or
         fresh stream and read the FIRST response frame: ``(stream,
         first_resp)``, the caller owning the stream.  Receives are
         clamped to ``stall_ttft`` when the watchdog is armed, so a silent
         worker surfaces as _StreamStalled (no redial).  A cancel (a lost
-        hedge race) closes the stream."""
+        hedge race) closes the stream.  With ``vsink`` the VerifyResult
+        frames a remote-draft worker sends before its first text frame
+        (the handshake) are appended there instead."""
         def remaining() -> float:
             return (deadline - time.monotonic()) if deadline is not None \
                 else 600.0
@@ -1603,8 +1640,14 @@ class Gateway:
             return min(t, stall_ttft) if stall_ttft > 0 else t
 
         async def _first(s):
-            raw = await self._recv_pb(s, timeout=_recv_timeout(), acc=acc)
-            return self._classify_frame(raw, worker_id)
+            while True:
+                raw = await self._recv_pb(s, timeout=_recv_timeout(),
+                                          acc=acc)
+                if (vsink is not None
+                        and raw.WhichOneof("message") == "verify_result"):
+                    vsink.append(raw.verify_result)
+                    continue
+                return self._classify_frame(raw, worker_id)
 
         s = self._pool_get(worker_id) if use_pool else None
         if s is not None:
@@ -1777,16 +1820,30 @@ class Gateway:
             raise _BudgetExhausted("budget exhausted before dial")
         if frame is None:
             frame = self._encode_frame(msg, acc=acc)
+        # A remote-draft stream interleaves VerifyResult frames with its
+        # text frames: they feed the draft pump and never reach the
+        # client; it is not hedged (a raced duplicate would consume the
+        # draft window twice) and not pooled back (one-shot on the worker
+        # too).
+        rd = bool(msg.generate_request.remote_draft)
+        vsink: list | None = [] if rd else None
         # The hedge only on a stream's first attempt: a replay already has
         # client bytes out.
-        hedge_thr = self._hedge_threshold() if ctx.out is None else 0.0
+        hedge_thr = (self._hedge_threshold() if ctx.out is None and not rd
+                     else 0.0)
         if hedge_thr > 0:
             s, first, worker_id = await self._hedge_race(
                 worker_id, msg, frame, deadline, stall_ttft, acc, hedge_thr)
         else:
             s, first = await self._open_stream(
-                worker_id, msg, frame, deadline, stall_ttft, acc)
+                worker_id, msg, frame, deadline, stall_ttft, acc,
+                vsink=vsink)
         ctx.winner = worker_id
+        pump = None
+        if rd:
+            pump = self._spec_pump(s, msg, acc, worker_id)
+            for vr in vsink:
+                await pump.on_verify(vr)
         # Pooled back only once the terminal frame was read.
         clean = False
         try:
@@ -1854,8 +1911,13 @@ class Gateway:
                 if remaining() <= 0:
                     raise _BudgetExhausted("budget exhausted mid-stream")
                 try:
-                    raw = await self._recv_pb(
-                        s, timeout=_recv_timeout(stall_decode), acc=acc)
+                    while True:
+                        raw = await self._recv_pb(
+                            s, timeout=_recv_timeout(stall_decode), acc=acc)
+                        if (pump is None or raw.WhichOneof("message")
+                                != "verify_result"):
+                            break
+                        await pump.on_verify(raw.verify_result)
                     resp = classify(raw)
                 except asyncio.TimeoutError as e:
                     if remaining() <= 0:
@@ -1879,10 +1941,61 @@ class Gateway:
                 raise _StreamStarted(out, e) from e
             return out
         finally:
-            if clean:
+            if pump is not None:
+                st = self._spec_stats
+                st["chunks"] += pump.chunks_sent
+                st["acks"] += pump.acks_sent
+                st["nacks"] += pump.nacks
+                st["accepted"] += pump.tokens_accepted
+                st["offered"] += pump.tokens_offered
+                if pump.ctrl.rtt_ewma > 0.0 and pump.ctrl.step_ewma > 0.0:
+                    self._spec_wire[worker_id] = (pump.ctrl.rtt_ewma,
+                                                  pump.ctrl.step_ewma)
+            if clean and pump is None:
                 self._pool_put(worker_id, s)
             else:
                 s.close()
+
+    def _drafter(self):
+        """The gateway's draft model, loaded on the first remote-draft
+        stream; None in "worker" mode or when the checkpoint is unusable
+        (the pump then sends pure ack credits)."""
+        if self.spec_pipeline != "gateway":
+            return None
+        if self._spec_drafter is None and not self._spec_drafter_tried:
+            self._spec_drafter_tried = True
+            if not self.spec_draft_path:
+                log.warning("spec_pipeline=gateway with no draft "
+                            "checkpoint; degrading to ack pacing")
+            else:
+                try:
+                    from crowdllama_tpu_torch.gateway.draft import (
+                        GatewayDrafter,
+                    )
+
+                    self._spec_drafter = GatewayDrafter.from_checkpoint(
+                        self.spec_draft_path, device=self.spec_device)
+                    log.info("gateway draft model loaded from %s",
+                             self.spec_draft_path)
+                except Exception as e:
+                    log.warning("gateway draft load failed (%s); "
+                                "degrading to ack pacing", e)
+        return self._spec_drafter
+
+    def _spec_pump(self, s, msg, acc: dict, worker_id: str):
+        """The stream's draft pump, writing to ``s``, its depth controller
+        warm-started from the last stream to the same worker."""
+        from crowdllama_tpu_torch.gateway.draft import SpecPipelinePump
+
+        async def send(frame: bytes) -> None:
+            await self._send_frame(s, frame, acc=acc)
+
+        pump = SpecPipelinePump(model=msg.generate_request.model, send=send,
+                                drafter=self._drafter())
+        wire_est = self._spec_wire.get(worker_id)
+        if wire_est is not None:
+            pump.ctrl.rtt_ewma, pump.ctrl.step_ewma = wire_est
+        return pump
 
     @staticmethod
     def _ollama_json(resp, chat: bool, final: bool) -> dict:

@@ -26,12 +26,17 @@ between the two as its reachability changes; a consumer's dial-back
 probe confirms its own port so its dials to relayed workers try
 connection reversal first.
 
+A remote-draft stream (the gateway-drafted speculative pipeline): a
+reader task drains the gateway's ``DraftChunk`` frames into a
+``DraftFeed`` that the scheduler paces on, when the engine can verify
+remote drafts (``supports_remote_draft``); on any other engine
+(``FakeEngine``, a plain runner) it nacks each chunk, so the gateway's
+pump degrades to plain streaming.
+
 Not ported: swarm model sharing and pull,
 gossip (a ``gossip_frame`` is ignored, as a JAX node without a gossip
-node ignores it), KV page export (a ``kv_fetch_request`` is answered in
-band with ``matched=0`` and an error) and remote-draft verification
-(``DraftChunk`` credits are nacked, so a gateway's pump degrades to plain
-streaming).
+node ignores it) and KV page export (a ``kv_fetch_request`` is answered
+in band with ``matched=0`` and an error).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import time
 
 from crowdllama_tpu_torch.config import Configuration
 from crowdllama_tpu_torch.core import llama_v1 as pb
+from crowdllama_tpu_torch.core.spec_pipeline import DraftFeed
 from crowdllama_tpu_torch.core import wire
 from crowdllama_tpu_torch.core.messages import (
     create_embed_response,
@@ -568,18 +574,23 @@ class Peer:
         """A streamed generate request: the engine's encoded frames through
         a ``FrameBatcher`` (the first frame inline, later frames coalesced
         per loop tick into one sealed write).  On a remote-draft request a
-        reader task nacks the gateway's DraftChunk credits meanwhile."""
+        reader task meanwhile feeds the gateway's DraftChunk credits to the
+        engine's ``DraftFeed`` (or nacks them when it cannot verify)."""
         tid = msg.trace_id
         remote_draft = bool(msg.generate_request.remote_draft)
-        reader_task = None
+        feed = reader_task = None
         if remote_draft:
+            feed = DraftFeed()
             reader_task = asyncio.get_running_loop().create_task(
-                self._nack_draft_chunks(stream, tid))
+                self._read_draft_chunks(
+                    stream, feed, tid,
+                    bool(getattr(self.engine, "supports_remote_draft",
+                                 False))))
         flush_ns = 0
         batcher = wire.FrameBatcher(stream.writer)
         try:
             async for frame in self.engine.handle_streaming_frames(
-                    msg, worker_id=self.peer_id):
+                    msg, worker_id=self.peer_id, draft_feed=feed):
                 t0 = time.perf_counter_ns()
                 batcher.write(frame)
                 await batcher.drain()
@@ -594,6 +605,7 @@ class Peer:
                     await reader_task
                 except (asyncio.CancelledError, Exception):
                     pass
+                feed.close()
         if tid:
             self.obs.trace.record(tid, "stream_flush", flush_ns,
                                   parent=msg.parent_span)
@@ -601,9 +613,13 @@ class Peer:
         # left part of a DraftChunk in the receive buffer.
         return not remote_draft
 
-    async def _nack_draft_chunks(self, stream: Stream, tid: str) -> None:
-        """Reader side of a remote-draft stream on an engine that cannot
-        verify: nack every DraftChunk so the gateway streams unpaced."""
+    async def _read_draft_chunks(self, stream: Stream, feed: DraftFeed,
+                                 tid: str, consume: bool) -> None:
+        """Reader side of a remote-draft stream: each DraftChunk is pushed
+        into ``feed`` (one pipeline credit), or, when the engine cannot
+        verify (``consume`` False), nacked at once so the gateway streams
+        unpaced.  A transport error closes the feed: the scheduler frees
+        the stream and the generation finishes on its own."""
         try:
             while True:
                 msg = await wire.read_length_prefixed_pb(stream.reader,
@@ -613,6 +629,9 @@ class Peer:
                 dc = msg.draft_chunk
                 await faults.inject("spec.draft_chunk", worker=self.peer_id,
                                     chunk_id=int(dc.chunk_id))
+                if consume:
+                    feed.push(dc.chunk_id, dc.position, list(dc.tokens))
+                    continue
                 await faults.inject("spec.verify", worker=self.peer_id,
                                     chunk_id=int(dc.chunk_id))
                 nack = verify_result_msg(
@@ -620,14 +639,20 @@ class Peer:
                     tokens=[], done=False, draft_k=0, depth_hint=1)
                 if tid:
                     nack.trace_id = tid
+                # Whole-frame write: the batcher seals complete frames, so
+                # interleaving with the response frames is safe.
                 await wire.write_length_prefixed_pb(stream.writer, nack)
         except asyncio.CancelledError:
             raise
         except faults.KillStream as e:
+            # Injected worker death mid-verify: drop the transport with no
+            # error frame.
             log.warning("fault injection killed draft reader: %s", e)
             stream.close()
+            feed.close()
         except Exception as e:
             log.debug("draft chunk reader ended: %s", e)
+            feed.close()
 
     def _node_label(self) -> str:
         return f"{self.obs.trace.node or 'peer'}:{self.peer_id[:8]}"

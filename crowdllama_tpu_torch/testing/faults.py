@@ -34,7 +34,8 @@ FAULT_SITES: dict[str, str] = {
     "kv.serve": "donor side, before a KvFetchRequest is served",
     "spec.draft_chunk": "after the worker reads a DraftChunk off a "
                         "remote-draft stream (peer/peer.py)",
-    "spec.verify": "before the peer's nack of a DraftChunk is written",
+    "spec.verify": "before a VerifyResult frame is written (the engine's "
+                   "verify answer, or the peer's nack of a DraftChunk)",
 }
 
 

@@ -293,13 +293,14 @@ async def test_chunked_admission_streams_match_jax_engine(tmp_path, layout):
 # ---------------------------------------------------------------------- plan
 
 @pytest.mark.parametrize("axis,value", [
-    ("kv_dtype", "int8"), ("quantize", "int8"), ("spec_decode", "ngram"),
+    ("kv_dtype", "int8"), ("quantize", "int8"), ("mesh_shape", "1x1x2x1x1"),
     ("mesh_shape", "1x2")])
 def test_unported_axes_raise_naming_the_roadmap_item(axis, value):
     """Unported axes raise naming their ROADMAP item.  int8 KV is ported:
     it resolves on both layouts, normalized and carried in the plan, and
     an unknown KV dtype is refused.  A tp mesh is ported on the paged
-    layout only: the contiguous layout refuses it."""
+    layout only: the contiguous layout refuses it; an sp mesh is refused
+    on both."""
     if axis == "kv_dtype":
         for layout in ("paged", "contiguous"):
             plan = resolve_serving_plan(Configuration(
@@ -307,6 +308,13 @@ def test_unported_axes_raise_naming_the_roadmap_item(axis, value):
             assert (plan.kv_layout, plan.kv_dtype) == (layout, "int8")
         with pytest.raises(ValueError, match="unknown kv dtype"):
             Configuration(kv_dtype="fp8")
+        return
+    if axis == "mesh_shape" and value != "1x2":
+        for layout in ("paged", "contiguous"):
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP Queue 1 item 8"):
+                resolve_serving_plan(Configuration(mesh_shape=value,
+                                                   kv_layout=layout))
         return
     if axis == "mesh_shape":
         assert resolve_serving_plan(Configuration(

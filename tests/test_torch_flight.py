@@ -9,6 +9,10 @@ scheduler's.
   duty cycle per dispatch class, ``step_token_budget_used``,
   ``crowdllama_host_gap_seconds`` per class, ``crowdllama_prefill_chunk_
   seconds`` and the padding counters (useful and waste tokens).
+- The speculation plane: the same traffic plus an echo prompt on n-gram
+  speculative engines of both packages: the ``spec`` class's duty cycle
+  and host gaps and the ``spec_*`` gauges move alike, and the
+  ``spec_pipeline_*`` gauges exist on both.
 - The self-watchdog, the JAX units (``tests/test_gray_failure.py``) on
   the port's ``Scheduler`` with a stub runner and a fake clock: the
   threshold arithmetic per dispatch class; the typed failure of every
@@ -52,6 +56,9 @@ def _families(engine, telemetry, before=None) -> dict:
     out["prefill_chunk_seconds_count"] = telemetry.prefill_chunk_seconds.count
     out["padding_waste_tokens_total"] = pad["waste"]
     out["useful_tokens_total"] = pad["useful"]
+    # The speculation plane's gauges (spec_steps etc. on a spec runner
+    # only; the pipeline's on every worker).
+    out.update({k: v for k, v in g.items() if k.startswith("spec_")})
     if before is not None:
         for k in out:
             if "count" in k or k.endswith("_total"):
@@ -59,10 +66,13 @@ def _families(engine, telemetry, before=None) -> dict:
     return out
 
 
-async def _traffic(engine) -> list:
+async def _traffic(engine, echo: bool = False) -> list:
     outs = []
-    for prompt in ("the quick brown fox",
-                   "a long prompt that is prefilled in chunks " * 3):
+    prompts = ["the quick brown fox",
+               "a long prompt that is prefilled in chunks " * 3]
+    if echo:  # the permutation walk replays the prompt's opening stretch
+        prompts.append("()*+,-./0123456789:;<=>?@ABCDEFGHIJ" + "()*+")
+    for prompt in prompts:
         text = ""
         async for chunk in engine.generate(prompt, max_tokens=12):
             text += chunk.text
@@ -117,6 +127,47 @@ async def test_flight_plane_families_move_as_on_a_jax_worker(tmp_path,
     assert {"step_token_budget_used", "prefill_chunk_seconds_count",
             "padding_waste_tokens_total",
             "useful_tokens_total"} <= nonzero["torch"]
+
+
+async def test_spec_class_and_families_move_as_on_a_jax_worker(tmp_path):
+    from crowdllama_tpu.config import Configuration, Intervals
+    from crowdllama_tpu.engine.engine import JaxEngine
+    from crowdllama_tpu.obs.metrics import ENGINE_TELEMETRY as JTEL
+    from crowdllama_tpu.testing.modelgen import permutation_checkpoint
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.engine.weights import load_native_params
+    from crowdllama_tpu_torch.models.config import get_config
+    from crowdllama_tpu_torch.obs.metrics import ENGINE_TELEMETRY as TTEL
+
+    ckpt = permutation_checkpoint("tiny-test", tmp_path / "perm",
+                                  max_context=256)
+    common = dict(max_context_length=256, kv_page_size=16,
+                  step_token_budget=36, max_batch_slots=4, decode_chunk=4,
+                  spec_decode="ngram", spec_draft=3)
+    jeng = JaxEngine(Configuration(model="tiny-test", model_path=ckpt,
+                                   warmup=False, intervals=Intervals.default(),
+                                   **common))
+    teng = TorchEngine(device="cpu", params=load_native_params(
+        get_config("tiny-test", max_context_length=256), ckpt),
+        model="tiny-test", warmup=False, **common)
+    moved = {}
+    for name, eng, tel in (("jax", jeng, JTEL), ("torch", teng, TTEL)):
+        await eng.start()
+        try:
+            before = _families(eng, tel)
+            texts = await _traffic(eng, echo=True)
+            moved[name] = _families(eng, tel, before)
+        finally:
+            await eng.stop()
+        moved[name + "_texts"] = texts
+    assert moved["torch_texts"] == moved["jax_texts"]
+    nonzero = {k: {f for f, v in moved[k].items() if v}
+               for k in ("jax", "torch")}
+    assert nonzero["torch"] == nonzero["jax"]
+    assert set(moved["torch"]) == set(moved["jax"])
+    assert {"duty_cycle|spec", "host_gap_seconds_count|spec", "spec_steps",
+            "spec_emitted", "spec_accept_echo", "spec_draft_len",
+            "spec_pipeline_depth"} <= nonzero["torch"]
 
 
 # ------------------------------------------------- dispatch self-watchdog

@@ -273,14 +273,19 @@ def test_cli_refuses_consumer_mode_and_a_missing_card(monkeypatch, capsys):
     ("--gossip-interval", "3", "item 1.4"),
     ("--gossip-snapshot", "/s", "item 1.4"),
     ("--tenant-quota", "t=1", "item 1.4"),
-    ("--gateway-spec-pipeline", "gateway", "item 4"),
-    ("--spec-draft-path", "/d", "item 4"),
+    ("--spec-draft-path", "hf-dir", "item 9"),
+    ("--spec-draft-path", "/d", "item 9"),
     ("--kv-ship-min-tokens", "64", "item 9"),
 ])
 def test_unported_flags_refuse_any_value_but_their_default(flag, value,
-                                                          item):
+                                                          item, tmp_path):
     # The JAX CLI takes the value; the port parses it and refuses it at
-    # start, naming the ROADMAP item that ports its plane.
+    # start, naming the ROADMAP item that ports its plane.  A draft
+    # checkpoint is served when native: an HF-layout directory (config.json
+    # without the marker) or no directory at all is refused (item 9).
+    if value == "hf-dir":
+        (tmp_path / "config.json").write_text('{"model_type": "llama"}')
+        value = str(tmp_path)
     args = ["start", flag, value]
     jconfig.Configuration.from_flags(jcli.build_parser().parse_args(args))
     with pytest.raises(ValueError, match=f"ROADMAP Queue 1 {item}\\b"):
