@@ -121,6 +121,23 @@ Phases, each printing one JSON line:
    with the same text; A, B and C launch; then a worker with
    ``megastep_k=8`` behind the same gateway: tokens/s of 8 streams
    beside direct ``generate()`` and the AEAD's us per operation;
+   kv_ship and replicated (a line each): two tinyllama workers (paged
+   bf16, the gateway phase's printable weights, ``kv_ship``) behind two
+   ``Gateway`` replicas gossiping through ``GossipNode``s, all on
+   127.0.0.1.  The continuation of a chat whose 1,465-token first turn
+   ran on worker 1 lands on worker 2, which fetches worker 1's 11 pages
+   and streams what it streams from an empty cache, token for token,
+   kernel B launching over the imported pages; the same prompt direct on
+   worker 2, from an empty cache and with the donor, in 3 alternated
+   pairs (TTFT, fetch ms, bytes) and the card's busy share over 1 s of
+   an import; an injected ``kv.serve`` error: plain prefill, the same
+   tokens, one fallback; a stream drained mid-decode on worker 1 hands
+   its pages to worker 2 (0 prefill tokens replayed, the undrained
+   text); then int8 pools, the same fetch with B-int8.  Replicated: the
+   conversation continued through replica 2 lands on replica 1's pinned
+   worker (a gossip affinity hit), ``default=1000,hot=2`` quotas shed
+   the hot tenant alone on both replicas (usage gossiped), and the drain
+   replica 1 saw quarantines worker 1 on replica 2 within a round;
    relay (its own line): a torch-only swarm of processes started through
    their CLIs (``cli_child``): ``python -m crowdllama_tpu_torch.cli.dht
    start`` (bootstrap node and relay), a worker ``start --worker-mode
@@ -1952,7 +1969,8 @@ def gateway_params(dev) -> dict:
 
 
 def _http(port: int, method: str, path: str, body=None,
-          lines: list | None = None, timeout: float = 600.0) -> dict:
+          lines: list | None = None, timeout: float = 600.0,
+          headers: dict | None = None) -> dict:
     """One request over the standard library's ``http.client``: status,
     headers (lower-case names), the send time and every body line with
     its arrival time (host seconds), appended to ``lines`` as they
@@ -1963,7 +1981,9 @@ def _http(port: int, method: str, path: str, body=None,
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     try:
         data = None if body is None else json.dumps(body).encode()
-        headers = {"Content-Type": "application/json"} if data else {}
+        headers = dict(headers or {})
+        if data:
+            headers["Content-Type"] = "application/json"
         t0 = time.perf_counter()
         conn.request(method, path, body=data, headers=headers)
         resp = conn.getresponse()
@@ -2474,6 +2494,516 @@ def gateway_phase(dev) -> tuple[dict, dict]:
     mline = {"phase": "gateway_megastep", "model": TINYLLAMA, **mega_out,
              "card": card, "nvidia_smi": smi}
     return line, mline
+
+
+# ------------------------------- KV page shipping and the replicated gateway
+
+KV_TOKENS = 32
+KV_PAIRS = 3
+KV_HANDOFF_TOKENS = 64
+# The drain hand-off's prompt (about 5 pages of 128 tokens), sharing no
+# page with the other prompts of its phase.
+HANDOFF = ("A drained worker stays up as the KV donor of the streams it "
+           "migrated, so each successor fetches their pages. ") * 7
+GOSSIP_INTERVAL_S = 0.5
+TENANT_QUOTA = "default=1000,hot=2"
+
+
+async def _evict(engine) -> None:
+    """Drop every cached prefix page of ``engine`` once its slots are free
+    (a finished stream's slot is released at the loop's next safe point),
+    on its dispatch thread between dispatches: its next prompt starts
+    cold.  With no slot live no page has a holder, so the refcounts are
+    reset first: a page that was evicted once and then grown into by a
+    ragged prefill or a decode step leaves its release at -1, which no
+    eviction takes (the JAX runner's bookkeeping too, ROADMAP Queue 3)."""
+    r = engine.runner
+    t0 = time.perf_counter()
+    while any(x is not None for x in engine.scheduler.slots):
+        if time.perf_counter() - t0 > 30:
+            raise AssertionError("kv_ship: a slot stayed busy")
+        await asyncio.sleep(0.005)
+
+    def evict(_state) -> None:
+        if r._slot_pages:
+            raise AssertionError(f"kv_ship: slots hold pages {r._slot_pages}")
+        r._page_refs.clear()
+        r._evict_cached(r.total_pages)
+
+    await engine.scheduler.run_exclusive(evict)
+    if r._prefix_index:
+        raise AssertionError(f"kv_ship: {len(r._prefix_index)} cached pages "
+                             "survived the eviction")
+
+
+async def _direct_ids(engine, prompt: str, tokens: int, **kw) -> dict:
+    """A direct greedy ``generate()`` (``kw`` may name a ``kv_donor``):
+    its text and token ids, host ms from the call to the first chunk (on
+    the import path the fetch is inside it), and the final chunk's fetch
+    ms and fallback flag."""
+    log = engine.tokenizer
+    n = len(log.streams)
+    text, first, final = "", 0.0, None
+    t0 = time.perf_counter()
+    async for chunk in engine.generate(prompt, max_tokens=tokens, **kw):
+        first = first or time.perf_counter() - t0
+        text += chunk.text
+        final = chunk
+    return {"text": text, "ids": _ids(log.streams[n]),
+            "ttft_ms": first * 1e3, "fetch_ms": final.kv_fetch_ns / 1e6,
+            "fallback": final.kv_fallback,
+            "completion_tokens": final.completion_tokens}
+
+
+def _steer(gw, to: str, ids: set) -> None:
+    """Route ``gw``'s requests that no affinity pins to worker ``to`` while
+    it routes (``_unsteer`` undoes it)."""
+    find = type(gw)._find_worker.__get__(gw)
+
+    def pick(model, exclude=frozenset(), **kw):
+        if to not in exclude:
+            w = find(model, exclude=exclude | (ids - {to}), **kw)
+            if w is not None:
+                return w
+        return find(model, exclude=exclude, **kw)
+
+    gw._find_worker = pick
+
+
+def _unsteer(gw) -> None:
+    gw.__dict__.pop("_find_worker", None)
+
+
+async def _chat(gw, messages: list, tokens: int, lines=None,
+                tenant: str = "") -> dict:
+    """A streamed ``/api/chat`` through ``gw``: its status, text, worker
+    and the gateway's raw reply."""
+    body = {"model": TINYLLAMA, "stream": True, "messages": messages,
+            "options": {"num_predict": tokens}}
+    r = await asyncio.to_thread(_http, gw.port, "POST", "/api/chat", body,
+                                lines, 600.0,
+                                {"X-Tenant": tenant} if tenant else None)
+    frames = _ndjson(r) if r["status"] == 200 else []
+    return {"status": r["status"], "raw": r,
+            "text": "".join(x["message"]["content"] for x in frames),
+            "worker": frames[-1]["worker_id"] if frames else "",
+            "retry_after": r["headers"].get("retry-after")}
+
+
+def _same_share(a: list[int], b: list[int]) -> float:
+    """Share of positions where two token streams agree."""
+    return sum(x == y for x, y in zip(a, b)) / max(1, len(a))
+
+
+def _kv_span_ms(worker, name: str) -> list[float]:
+    return [s["dur_us"] / 1e3 for t in worker.obs.trace.snapshot()["traces"]
+            for s in t["spans"] if s["name"] == name]
+
+
+def kv_ship_phase(dev) -> tuple[dict, dict]:
+    """KV page shipping and the replicated gateway on the card, every
+    module the port's own, on 127.0.0.1: a DHT node, two tinyllama-1.1b
+    workers (paged bf16 at full width and depth, prefix cache on,
+    ``kv_ship``, the printable seed-0 weights of the gateway phase shared
+    on the card), and two consumers whose ``Gateway`` replicas
+    (``kv_ship``, tenant quotas ``default=1000,hot=2``) gossip through
+    ``GossipNode``s every 0.5 s.
+
+    The streams a fetch must reproduce token for token are the donor's
+    own: the donor serving the same prompt from its cached pages takes
+    the importer's route (the pages, then the suffix prefilled over them),
+    so equal pages give equal tokens.  A prefill of the whole prompt from
+    an empty cache takes another route (the prompt's last chunk through
+    kernel C's ragged step instead of the suffix over the pages); in bf16
+    the two round apart, and random weights have near-tied logits, so its
+    stream is reported as the share of tokens equal to the import's.
+
+    kv_ship (its own line): the 1,465-token prompt as turn 1 of a chat
+    through replica 1 on worker 1; its continuation through replica 1
+    with the pin bypassed (as when worker 1 is saturated) lands on worker
+    2, which fetches worker 1's pages: exactly the pages its chain keys
+    find on the donor (11) are imported, the stream equals worker 1's
+    stream of the same prompt from its cache token for token (and its
+    share equal to worker 2's from an empty cache is reported), and
+    kernel B launches (counts zeroed right before the continuation).
+    Then, direct on worker 2, the turn-1 prompt from an empty cache
+    without and with the donor in 3 alternated pairs: TTFT (the import
+    path's includes its fetch), fetch ms, bytes, every cold stream equal
+    to the first and every import equal to the donor's; the card's busy
+    share over a 1 s profile of one import request; one fetch with an
+    injected ``kv.serve`` error on worker 1: plain prefill, the cold
+    stream, ``kv_ship_fallbacks_total`` 1.  The drain hand-off: a stream
+    of a 700-byte prompt decoding on worker 1 (from its cache) through
+    replica 1 migrates on ``drain()``; worker 2 fetches its pages
+    (``replayed_prefill_tokens_total`` 0) and the delivered text equals
+    the undrained stream's.  Last, two workers on int8 pools: the same
+    fetch, direct, with B-int8 launching.  No fetch but the injected one
+    may fall back.
+
+    replicated (its own line): a continuation of the conversation through
+    replica 2 lands on the worker replica 1 pinned (a gossip affinity
+    hit); the hot tenant through replica 2 is admitted twice and shed
+    (503, ``Retry-After``) while another tenant is admitted, and replica
+    1, charged by the gossiped usage, sheds it too; the drain replica 1
+    saw quarantines worker 1 on replica 2 within one gossip round (the
+    ``quar/`` entry from replica 1's node)."""
+    import os
+    import tempfile
+
+    from crowdllama_tpu_torch.config import Configuration
+    from crowdllama_tpu_torch.engine.engine import FakeEngine, TorchEngine
+    from crowdllama_tpu_torch.gateway.gateway import Gateway
+    from crowdllama_tpu_torch.net.discovery import new_host_and_dht
+    from crowdllama_tpu_torch.peer.peer import Peer
+    from crowdllama_tpu_torch.swarm.gossip import (
+        QUARANTINE_PREFIX,
+        GossipNode,
+        TenantQuotas,
+        parse_tenant_quotas,
+    )
+    from crowdllama_tpu_torch.testing import faults
+    from crowdllama_tpu_torch.utils.crypto import Ed25519PrivateKey
+
+    def key():
+        return Ed25519PrivateKey.generate()
+
+    async def workers_on(boot, params, started, **kw):
+        node = dict(listen_host="127.0.0.1",
+                    bootstrap_peers=[f"127.0.0.1:{boot.listen_port}"])
+        engines = [TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                               kv_ship=True, **kw) for _ in range(2)]
+        workers = [Peer(key(), Configuration(model=TINYLLAMA, kv_ship=True,
+                                             **node), e) for e in engines]
+        for part in (*engines, *workers):
+            await part.start()
+            started.append(part)
+        for e in engines:
+            e.tokenizer = _StreamLog(e.tokenizer)
+        return engines, workers
+
+    async def go(tmp: str) -> tuple[dict, dict]:
+        params = gateway_params(dev)
+        boot, _ = await new_host_and_dht(key(), listen_host="127.0.0.1")
+        node = dict(listen_host="127.0.0.1",
+                    bootstrap_peers=[f"127.0.0.1:{boot.listen_port}"])
+        started: list = []
+        out: dict = {}
+        rep: dict = {}
+        try:
+            (e1, e2), (w1, w2) = await workers_on(
+                boot, params, started, profile_dir=tmp)
+            ids = {w1.peer_id, w2.peer_id}
+            consumers = [Peer(key(), Configuration(**node),
+                              FakeEngine(models=[]), worker_mode=False)
+                         for _ in range(2)]
+            for c in consumers:
+                await c.start()
+                started.append(c)
+            addrs = [f"127.0.0.1:{c.host.listen_port}" for c in consumers]
+            quotas = [TenantQuotas(parse_tenant_quotas(TENANT_QUOTA))
+                      for _ in consumers]
+            gnodes = [GossipNode(c, peers=[addrs[1 - i]],
+                                 interval=GOSSIP_INTERVAL_S, quotas=q)
+                      for i, (c, q) in enumerate(zip(consumers, quotas))]
+            gws = [Gateway(c, port=0, host="127.0.0.1", kv_ship=True,
+                           gossip=g, tenant_quotas=q)
+                   for c, g, q in zip(consumers, gnodes, quotas)]
+            for g, gw in zip(gnodes, gws):
+                g.metrics = gw.obs.metrics
+                await g.start()
+                started.append(g)
+                await gw.start()
+                started.append(gw)
+            for c in consumers:
+                await _wait_routable(c.peer_manager, ids)
+            gw1, gw2 = gws
+            m2 = e2.obs.metrics
+
+            # Turn 1 on worker 1; the continuation's cold reference on
+            # worker 2 (then its cache is emptied).
+            turn1 = [{"role": "user", "content": LONG}]
+            _steer(gw1, w1.peer_id, ids)
+            r1 = await _chat(gw1, turn1, KV_TOKENS)
+            _unsteer(gw1)
+            if r1["status"] != 200 or r1["worker"] != w1.peer_id:
+                raise AssertionError(f"kv_ship: turn 1 {r1['status']} on "
+                                     f"{r1['worker'][:8]}")
+            cont = turn1 + [{"role": "assistant", "content": r1["text"]},
+                            {"role": "user", "content": "Continue."}]
+            cont_prompt = e2._format_chat(cont)
+            cont_ids = e2.tokenizer.encode(cont_prompt)
+            covered = e1.runner.local_prefix_coverage(
+                e1.runner.chain_keys_for_prompt(cont_ids))
+            cold = await _direct_ids(e2, cont_prompt, KV_TOKENS)
+            await _evict(e2)
+            # The continuation, pin bypassed, on worker 2 with worker 1 as
+            # its donor.
+            gw1._affinity_get = lambda akey, model: None
+            _steer(gw1, w2.peer_id, ids)
+            hints0 = gw1._kv_hints
+            _zero_launches()
+            r2 = await _chat(gw1, cont, KV_TOKENS)
+            launches = _launches()
+            _unsteer(gw1)
+            gw1.__dict__.pop("_affinity_get")
+            n_log = e2.tokenizer.streams[-1]
+            donor = await _direct_ids(e1, cont_prompt, KV_TOKENS)
+            fetch = {"pages": e2.runner.kv_pages_imported,
+                     "donor_pages": covered,
+                     "exported": e1.runner.kv_pages_exported,
+                     "bytes": m2.kv_ship["bytes"],
+                     "kv_fetch_span_ms": _kv_span_ms(w2, "kv_fetch"),
+                     "kv_export_span_ms": _kv_span_ms(w1, "kv_export"),
+                     "prompt_tokens": len(cont_ids), "launches": launches,
+                     "cold_same_share": _same_share(_ids(n_log),
+                                                    cold["ids"])}
+            if not (r2["status"] == 200 and r2["worker"] == w2.peer_id
+                    and gw1._kv_hints == hints0 + 1
+                    and covered == 11 == fetch["pages"] == fetch["exported"]
+                    and _ids(n_log) == donor["ids"] and r2["text"] ==
+                    donor["text"] and len(donor["ids"]) == KV_TOKENS
+                    and m2.kv_ship["fallbacks"] == 0
+                    and fetch["kv_fetch_span_ms"] and launches["B"] > 0):
+                raise AssertionError(
+                    f"kv_ship: fetch {fetch}, worker {r2['worker'][:8]}, "
+                    f"ids equal {_ids(n_log) == donor['ids']}, fallbacks "
+                    f"{m2.kv_ship['fallbacks']}")
+            out["fetch"] = fetch
+
+            # replicated: the conversation continued through replica 2.
+            akey, _ = Gateway._affinity_key(TINYLLAMA, cont, "")
+            t0 = time.perf_counter()
+            while (gnodes[1].lookup_affinity(akey) or ("",))[0] \
+                    != w2.peer_id:
+                if time.perf_counter() - t0 > 10 * GOSSIP_INTERVAL_S:
+                    raise AssertionError("replicated: the pin never "
+                                         "reached replica 2")
+                await asyncio.sleep(0.02)
+            rep["pin_gossip_s"] = time.perf_counter() - t0
+            hits0 = gw2._gossip_affinity_hits
+            cont2 = cont + [{"role": "assistant", "content": r2["text"]},
+                            {"role": "user", "content": "And again."}]
+            r3 = await _chat(gw2, cont2, 8)
+            rep["affinity"] = {"worker": r3["worker"][:8],
+                               "gossip_affinity_hits":
+                               gw2._gossip_affinity_hits - hits0}
+            if not (r3["status"] == 200 and r3["worker"] == w2.peer_id
+                    and gw2._gossip_affinity_hits >= hits0 + 1):
+                raise AssertionError(f"replicated: continuation {rep}")
+
+            # TTFT: the turn-1 prompt from an empty cache, without and with
+            # the donor, alternated.
+            prompt1 = e2._format_chat(turn1)
+            donor1 = (await _direct_ids(e1, prompt1, KV_TOKENS))["ids"]
+            pairs, cold1 = [], None
+            for i in range(KV_PAIRS):
+                pair = {}
+                for mode in (("cold", "import") if i % 2 == 0
+                             else ("import", "cold")):
+                    await _evict(e2)
+                    b0, p0 = m2.kv_ship["bytes"], e2.runner.kv_pages_imported
+                    kw = {"kv_donor": w1.peer_id} if mode == "import" else {}
+                    r = await _direct_ids(e2, prompt1, KV_TOKENS, **kw)
+                    r.update(bytes=m2.kv_ship["bytes"] - b0,
+                             pages=e2.runner.kv_pages_imported - p0)
+                    pair[mode] = r
+                cold1 = cold1 or pair["cold"]["ids"]
+                if not (pair["import"]["pages"] == 11
+                        and not pair["import"]["fallback"]
+                        and pair["import"]["ids"] == donor1
+                        and pair["cold"]["ids"] == cold1
+                        and pair["cold"]["pages"] == 0):
+                    raise AssertionError(f"kv_ship: pair {i}: {pair}")
+                pairs.append({m: {k: v for k, v in x.items()
+                                  if k not in ("ids", "text")}
+                              for m, x in pair.items()})
+            out["ttft_pairs"] = pairs
+            out["cold_same_share"] = _same_share(donor1, cold1)
+            # The card's busy share over 1 s holding one import request.
+            await _evict(e2)
+            prof = asyncio.create_task(e2.capture_profile(PROFILE_S))
+            await asyncio.sleep(0.05)
+            r = await _direct_ids(e2, prompt1, KV_TOKENS,
+                                  kv_donor=w1.peer_id)
+            trace_dir = await prof
+            (trace,) = [os.path.join(trace_dir, f)
+                        for f in os.listdir(trace_dir)]
+            out["import_busy"] = {"ttft_ms": r["ttft_ms"],
+                                  "fetch_ms": r["fetch_ms"],
+                                  **busy_share(trace, PROFILE_S)}
+
+            # The one deliberate fallback: kv.serve fails on worker 1.
+            await _evict(e2)
+            plan = faults.FaultPlan(rules=[faults.FaultRule(
+                site="kv.serve", action="error", times=0,
+                match={"worker": w1.peer_id})])
+            p0 = e2.runner.kv_pages_imported
+            with faults.installed(plan):
+                r = await _direct_ids(e2, prompt1, KV_TOKENS,
+                                      kv_donor=w1.peer_id)
+            out["fallback"] = {"fired": len(plan.log),
+                               "fallbacks": m2.kv_ship["fallbacks"],
+                               "retries": m2.kv_ship["retries"],
+                               "pages": e2.runner.kv_pages_imported - p0,
+                               "fetch_ms": r["fetch_ms"]}
+            if not (plan.log and r["fallback"] and r["ids"] == cold1
+                    and m2.kv_ship["fallbacks"] == 1
+                    and e2.runner.kv_pages_imported == p0):
+                raise AssertionError(f"kv_ship: fallback {out['fallback']}")
+
+            # replicated: tenant quotas, admits shared by gossip.
+            say = [{"role": "user", "content": SHORT[2]}]
+            hot_tasks = [asyncio.create_task(_chat(gw2, say, 4, tenant="hot"))
+                         for _ in range(3)]
+            # Replica 1's bucket is charged the hot tenant's admits when
+            # their digest arrives (it refills at 2/s from there), so a
+            # request sent to it at once is shed too.
+            t0 = time.perf_counter()
+            while quotas[0].cluster_admitted("hot") < 2:
+                if time.perf_counter() - t0 > 10 * GOSSIP_INTERVAL_S:
+                    raise AssertionError("replicated: usage not gossiped")
+                await asyncio.sleep(0.001)
+            hot1 = await _chat(gw1, say, 4, tenant="hot")
+            hot = sorted(await asyncio.gather(*hot_tasks),
+                         key=lambda x: x["status"])
+            light = await _chat(gw2, say, 4, tenant="light")
+            rep["tenants"] = {
+                "quota": TENANT_QUOTA,
+                "hot_via_2": [x["status"] for x in hot],
+                "retry_after": hot[2]["retry_after"],
+                "light_via_2": light["status"], "hot_via_1": hot1["status"],
+                "shed_2": dict(gw2.obs.metrics.tenant_shed),
+                "admitted_2": dict(gw2.obs.metrics.tenant_admitted)}
+            if not ([x["status"] for x in hot] == [200, 200, 503]
+                    and hot[2]["retry_after"] and light["status"] == 200
+                    and hot1["status"] == 503):
+                raise AssertionError(f"replicated: tenants {rep['tenants']}")
+
+            # The drain hand-off: the undrained stream on worker 1, then the
+            # same stream drained mid-decode.
+            hmsgs = [{"role": "user", "content": HANDOFF}]
+            _steer(gw1, w1.peer_id, ids)
+            # Once cold, then the reference from worker 1's cache: the
+            # route the drained stream and its successor take.
+            await _chat(gw1, hmsgs, KV_HANDOFF_TOKENS)
+            ref = await _chat(gw1, hmsgs, KV_HANDOFF_TOKENS)
+            if ref["worker"] != w1.peer_id:
+                raise AssertionError(f"kv_ship: reference on {ref['worker']}")
+            hcover = e1.runner.local_prefix_coverage(
+                e1.runner.chain_keys_for_prompt(e1.tokenizer.encode(
+                    e1._format_chat(hmsgs))))
+            # Stamp replica 1's quarantine write and its arrival on
+            # replica 2.
+            quar = QUARANTINE_PREFIX + w1.peer_id
+            stamps: dict = {}
+            record, on_entry = gnodes[0].record_quarantine, gnodes[1].on_entry
+
+            def stamped_record(worker_id, reason="drain"):
+                stamps.setdefault("recorded", time.perf_counter())
+                record(worker_id, reason)
+
+            def stamped_entry(entry):
+                if entry.key == quar:
+                    stamps.setdefault("applied", time.perf_counter())
+                on_entry(entry)
+
+            gnodes[0].record_quarantine = stamped_record
+            gnodes[1].on_entry = stamped_entry
+            lines: list = []
+            p0, f0 = e2.runner.kv_pages_imported, m2.kv_ship["fetches"]
+            moving = asyncio.create_task(
+                _chat(gw1, hmsgs, KV_HANDOFF_TOKENS, lines))
+            while len(lines) < 8:
+                await asyncio.sleep(0.005)
+            t_drain = time.perf_counter()
+            delivered = len(lines)
+            migrated = await w1.drain()
+            moved = await moving
+            _unsteer(gw1)
+            while "applied" not in stamps or \
+                    consumers[1].peer_manager.is_routable(
+                        w1.peer_id, TINYLLAMA) is not None:
+                if time.perf_counter() - t_drain > 20 * GOSSIP_INTERVAL_S:
+                    raise AssertionError(f"replicated: no quarantine "
+                                         f"relayed {stamps}")
+                await asyncio.sleep(0.01)
+            relay_s = stamps["applied"] - stamps["recorded"]
+            origin = gnodes[1].state.entries[quar].origin
+            out["handoff"] = {
+                "migrated": migrated, "delivered_before": delivered,
+                "worker": moved["worker"][:8],
+                "pages": e2.runner.kv_pages_imported - p0,
+                "donor_pages": hcover,
+                "fetches": m2.kv_ship["fetches"] - f0,
+                "replayed_prefill_tokens": m2.replayed_prefill_tokens,
+                "fallbacks": m2.kv_ship["fallbacks"],
+                "migrated_streams": gw1.obs.metrics.migrated_streams}
+            if not (migrated >= 1 and moved["status"] == 200
+                    and delivered < KV_HANDOFF_TOKENS
+                    and moved["worker"] == w2.peer_id
+                    and moved["text"] == ref["text"]
+                    and len(ref["text"]) == KV_HANDOFF_TOKENS
+                    and out["handoff"]["pages"] == hcover > 0
+                    and out["handoff"]["fetches"] == 1
+                    and m2.replayed_prefill_tokens == 0
+                    and m2.kv_ship["fallbacks"] == 1):
+                raise AssertionError(f"kv_ship: handoff {out['handoff']}")
+            rep["quarantine"] = {
+                "relay_s": relay_s, "interval_s": GOSSIP_INTERVAL_S,
+                "from_replica_1": origin == gnodes[0].state.node_id}
+            if not (origin == gnodes[0].state.node_id
+                    and relay_s <= 2 * GOSSIP_INTERVAL_S):
+                raise AssertionError(f"replicated: {rep['quarantine']}")
+            rep["gossip"] = [dict(g.metrics.gossip) for g in gnodes]
+            rep["rounds"] = [g.rounds for g in gnodes]
+
+            # int8 pools: two more workers, the same fetch, direct.
+            for part in reversed(started):
+                await (part.stop(save=False) if isinstance(part, GossipNode)
+                       else part.stop())
+            started.clear()
+            e1 = e2 = w1 = w2 = None
+            _free_card()
+            (i1, i2), (v1, v2) = await workers_on(boot, params, started,
+                                                  kv_dtype="int8")
+            await _direct_ids(i1, prompt1, KV_TOKENS)
+            donor8 = await _direct_ids(i1, prompt1, KV_TOKENS)
+            cold8 = await _direct_ids(i2, prompt1, KV_TOKENS)
+            await _evict(i2)
+            for t0 in range(300):  # the donor in worker 2's DHT view
+                if await v2.dht.find_peer(v1.peer_id) is not None:
+                    break
+                await asyncio.sleep(0.05)
+            _zero_launches()
+            r = await _direct_ids(i2, prompt1, KV_TOKENS,
+                                  kv_donor=v1.peer_id)
+            launches8 = _launches()
+            out["int8"] = {"pages": i2.runner.kv_pages_imported,
+                           "bytes": i2.obs.metrics.kv_ship["bytes"],
+                           "ttft_ms": r["ttft_ms"], "fetch_ms": r["fetch_ms"],
+                           "cold_ttft_ms": cold8["ttft_ms"],
+                           "cold_same_share": _same_share(r["ids"],
+                                                          cold8["ids"]),
+                           "launches": launches8}
+            if not (i2.runner.kv_pages_imported == 11 and not r["fallback"]
+                    and r["ids"] == donor8["ids"]
+                    and launches8["B_int8"] > 0 and launches8["B"] == 0):
+                raise AssertionError(f"kv_ship: int8 {out['int8']}")
+        finally:
+            for part in reversed(started):
+                await (part.stop(save=False) if isinstance(part, GossipNode)
+                       else part.stop())
+            await boot.close()
+        return out, rep
+
+    with tempfile.TemporaryDirectory(prefix="kv") as tmp:
+        out, rep = asyncio.run(go(tmp))
+    _free_card()
+    card, smi = torch.cuda.get_device_name(0), nvidia_smi()
+    return ({"phase": "kv_ship", "model": TINYLLAMA, **out, "card": card,
+             "nvidia_smi": smi},
+            {"phase": "replicated", "model": TINYLLAMA, "replicas": 2,
+             **rep, "card": card, "nvidia_smi": smi})
 
 
 # --------------------------------------------------- the native data plane
@@ -4545,6 +5075,9 @@ def main() -> int:
     _free_card()
     cli_phase()
     for line in gateway_phase(dev):
+        emit(line)
+    _free_card()
+    for line in kv_ship_phase(dev):
         emit(line)
     _free_card()
     relay_phase(dev)

@@ -8,10 +8,12 @@ port's ``MultiEngine`` over the comma-separated ``--model`` list, or
 ``--worker-metrics-port`` its ``ObsServer``, and the optional IPC server
 (``CROWDLLAMA_TPU_SOCKET``).  Plain ``start`` runs a consumer: a ``Peer``
 in consumer mode over ``FakeEngine(models=[])`` and its ``Gateway`` on
-``--gateway-port``.  SIGTERM on a worker drains (in-flight streams
-migrate to the swarm, then it stays up as a drained peer for
-``--drain-timeout`` or until a second signal); SIGINT, and any signal on
-a consumer, finishes in-flight requests in place.
+``--gateway-port``, with the replicated gateway's ``GossipNode`` when
+``--gateway-peers``, ``--gossip-snapshot`` or ``--tenant-quota`` is given
+(the map is snapshotted on shutdown).  SIGTERM on a worker drains
+(in-flight streams migrate to the swarm, then it stays up as a drained
+peer for ``--drain-timeout`` or until a second signal); SIGINT, and any
+signal on a consumer, finishes in-flight requests in place.
 
 A worker's engine serves on the card; without CUDA it refuses to start
 unless ``--device cpu`` is given.  A consumer runs no model, so it needs
@@ -91,7 +93,30 @@ def make_engine(cfg: Configuration):
     return MultiEngine(cfg, device="cpu" if cfg.device == "cpu" else None)
 
 
-def make_gateway(cfg: Configuration, peer):
+def make_gossip(cfg: Configuration, peer):
+    """The consumer's (GossipNode or None, TenantQuotas or None): a node
+    when it has replicas to gossip with, a snapshot to keep (a bounced
+    single gateway rehydrates its affinity map) or quotas to share."""
+    from crowdllama_tpu_torch.swarm.gossip import (
+        GossipNode,
+        TenantQuotas,
+        parse_tenant_quotas,
+    )
+
+    quotas = None
+    if cfg.tenant_quota:
+        quotas = TenantQuotas(parse_tenant_quotas(cfg.tenant_quota),
+                              node_id=peer.peer_id)
+    gossip = None
+    if cfg.gateway_peers or cfg.gossip_snapshot_path or quotas:
+        gossip = GossipNode(peer, peers=cfg.gateway_peers,
+                            interval=cfg.gossip_interval,
+                            snapshot_path=cfg.gossip_snapshot_path,
+                            quotas=quotas)
+    return gossip, quotas
+
+
+def make_gateway(cfg: Configuration, peer, gossip=None, tenant_quotas=None):
     from crowdllama_tpu_torch.gateway.gateway import Gateway
 
     return Gateway(peer, port=cfg.gateway_port,
@@ -99,6 +124,7 @@ def make_gateway(cfg: Configuration, peer):
                    request_timeout=cfg.request_timeout,
                    admission_max_inflight=cfg.admission_max_inflight,
                    retry_after_s=cfg.retry_after_s, kv_ship=cfg.kv_ship,
+                   gossip=gossip, tenant_quotas=tenant_quotas,
                    flight_recorder=cfg.flight_recorder,
                    trace_ttl=cfg.trace_ttl,
                    metrics_exemplars=cfg.metrics_exemplars,
@@ -128,11 +154,15 @@ async def run_node(cfg: Configuration, worker_mode: bool = True) -> None:
     log.info("starting %s node (%s)", component, version_string())
     await engine.start()
     peer = Peer(key, cfg, engine=engine, worker_mode=worker_mode)
-    gateway = obs_server = ipc = None
+    gateway = gossip = obs_server = ipc = None
     try:
         await peer.start()
         if not worker_mode:
-            gateway = make_gateway(cfg, peer)
+            gossip, quotas = make_gossip(cfg, peer)
+            gateway = make_gateway(cfg, peer, gossip, quotas)
+            if gossip is not None:
+                gossip.metrics = gateway.obs.metrics
+                await gossip.start()
             await gateway.start()
         elif cfg.worker_metrics_port:
             obs_server = ObsServer(peer, host=cfg.listen_host,
@@ -142,6 +172,8 @@ async def run_node(cfg: Configuration, worker_mode: bool = True) -> None:
             ipc = IPCServer(cfg.ipc_socket, engine, peer=peer)
             await ipc.start()
     except BaseException:
+        if gossip is not None:
+            await gossip.stop(save=False)
         for part in (ipc, obs_server, gateway, peer, engine):
             if part is not None:
                 await part.stop()
@@ -179,9 +211,15 @@ async def run_node(cfg: Configuration, worker_mode: bool = True) -> None:
             if not await engine.drain(cfg.drain_timeout):
                 log.warning("drain timed out after %.0fs; dropping "
                             "in-flight requests", cfg.drain_timeout)
-        for part in (ipc, obs_server, gateway):
+        for part in (ipc, obs_server):
             if part is not None:
                 await part.stop()
+        if gossip is not None:
+            # The map (affinity pins, quarantines) lands in the snapshot
+            # file, and the restarted gateway rehydrates it.
+            await gossip.stop(save=True)
+        if gateway is not None:
+            await gateway.stop()
         await peer.stop()
         await engine.stop()
 

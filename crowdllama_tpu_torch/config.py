@@ -16,9 +16,8 @@ package's, and so do speculation's (``spec_decode``, ``spec_draft``,
 ``spec_draft_path`` must be a native checkpoint (HF-layout directories
 are not ported).  The replicated gateway's fields (``gateway_peers``,
 ``gossip_interval``, ``gossip_snapshot_path``, ``tenant_quota``) and the
-worker's KV fetch threshold (``kv_ship_min_tokens``) parse too, but any
-value other than their default is refused with the ROADMAP item that
-ports them.  The one new flag is
+worker's KV fetch threshold (``kv_ship_min_tokens``) parse and are served
+as the JAX package's.  The one new flag is
 ``--device {cuda,cpu}`` (default ``cuda``): entry points run on the card
 unless the caller asks for the CPU.
 """
@@ -99,17 +98,6 @@ def _flag(value: str) -> bool:
 
 def _csv(value: str) -> list[str]:
     return [a.strip() for a in value.split(",") if a.strip()]
-
-
-# Fields that parse but are served by planes the port does not have yet:
-# field -> (its default, the ROADMAP item that ports it).
-_REFUSED = {
-    "gateway_peers": ([], "Queue 1 item 1.4 (swarm/gossip.py)"),
-    "gossip_interval": (2.0, "Queue 1 item 1.4 (swarm/gossip.py)"),
-    "gossip_snapshot_path": ("", "Queue 1 item 1.4 (swarm/gossip.py)"),
-    "tenant_quota": ("", "Queue 1 item 1.4 (swarm/gossip.py)"),
-    "kv_ship_min_tokens": (512, "Queue 1 item 9 (KV page export, kv_donor)"),
-}
 
 
 def _check_spec(cfg) -> None:
@@ -199,8 +187,13 @@ class Configuration:
     # raced); 0 = off.
     stream_stall_ms: float = 0.0
     hedge_ttft_ms: float = 0.0
-    # Refused unless at their defaults (``_REFUSED``).
-    kv_ship_min_tokens: int = 512  # a worker's donor fetch threshold
+    # A worker skips a donor fetch when fewer prefix tokens than this are
+    # missing locally (the round trip would cost more than it saves).
+    kv_ship_min_tokens: int = 512
+    # The replicated gateway: the other replicas' p2p addresses to gossip
+    # with, seconds between rounds, the map's snapshot file, and the
+    # per-tenant quotas ("name=requests_per_sec,..."; "" = the global shed
+    # only).
     gateway_peers: list[str] = field(default_factory=list)
     gossip_interval: float = 2.0
     gossip_snapshot_path: str = ""
@@ -372,6 +365,7 @@ class Configuration:
                 ("kv_page_size", 0, True), ("kv_pool_tokens", 0, False),
                 ("trace_buffer", 1, False), ("trace_ttl", 0, False),
                 ("drain_timeout", 0, True), ("kv_ship_timeout", 0, True),
+                ("kv_ship_min_tokens", 0, False),
                 ("admission_pending_max", 0, False),
                 ("wedge_multiplier", 0, False),
                 ("worker_metrics_port", 0, False),
@@ -393,11 +387,6 @@ class Configuration:
                              f"{cfg.gateway_spec_pipeline!r} "
                              "(want 'off', 'gateway' or 'worker')")
         _check_spec(cfg)
-        for name, (default, item) in _REFUSED.items():
-            if getattr(cfg, name) != default:
-                raise ValueError(
-                    f"{name}={getattr(cfg, name)!r} is not served by "
-                    f"crowdllama_tpu_torch yet (ROADMAP {item})")
         return cfg
 
     @staticmethod
@@ -541,21 +530,22 @@ class Configuration:
         parser.add_argument("--kv-ship-min-tokens", dest="kv_ship_min_tokens",
                             type=int,
                             help="skip the fetch when fewer prefix tokens "
-                                 "than this are missing locally (refused "
-                                 "unless 512: not ported)")
+                                 "than this are missing locally")
         parser.add_argument("--gateway-peers", dest="gateway_peers",
-                            help="other gateway replicas to gossip with "
-                                 "(refused: not ported)")
+                            help="other gateway replicas' p2p addresses "
+                                 "(host:port, comma-separated) to gossip "
+                                 "routing state with")
         parser.add_argument("--tenant-quota", dest="tenant_quota",
-                            help="per-tenant admission quotas (refused: "
-                                 "not ported)")
+                            help="per-tenant admission quotas, "
+                                 "name=requests_per_sec comma-separated "
+                                 "(X-Tenant header; unknown tenants "
+                                 "charge 'default')")
         parser.add_argument("--gossip-interval", dest="gossip_interval",
                             type=float,
-                            help="seconds between gossip rounds (refused "
-                                 "unless 2: not ported)")
+                            help="seconds between gossip rounds")
         parser.add_argument("--gossip-snapshot", dest="gossip_snapshot_path",
-                            help="gossip map snapshot file (refused: not "
-                                 "ported)")
+                            help="gossip map snapshot file, written on "
+                                 "shutdown and read at start")
         parser.add_argument("--gateway-spec-pipeline",
                             dest="gateway_spec_pipeline",
                             choices=("off", "gateway", "worker"),

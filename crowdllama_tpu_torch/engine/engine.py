@@ -18,8 +18,19 @@ paces on the ``DraftFeed`` the peer fills from the gateway's DraftChunk
 frames: ``generate`` yields a handshake (chunk 0: the prompt ids and the
 first token) and one control chunk per consumed credit, which
 ``handle_streaming_frames`` writes as ``VerifyResult`` frames between the
-text frames.  Not ported: KV shipping (``kv_donor`` fetches,
-``export_kv_pages`` answers None).
+text frames.
+
+KV shipping: a request whose ``kv_donor`` names another worker makes
+``generate`` fetch the prompt's prefix pages from that donor over a pooled
+inference stream before submitting (two attempts within
+``kv_ship_timeout``, the ``kv_ship_min_tokens`` break-even gate, both
+bypassed for a migrated stream), and the scheduler imports them at
+admission; every failure falls back to plain prefill.  As a donor,
+``export_kv_pages`` gathers the pages on the dispatch thread between
+dispatches (``Scheduler.run_exclusive``).  The fetch is the worker's
+``kv_fetch`` span and the ``crowdllama_kv_ship_*``,
+``crowdllama_kv_fetch_seconds`` and
+``crowdllama_replayed_prefill_tokens_total`` families.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import hashlib
 import logging
 import math
 import os
+import random
 import tempfile
 import time
 from dataclasses import dataclass
@@ -43,8 +55,10 @@ from crowdllama_tpu_torch.core import wire
 from crowdllama_tpu_torch.core.messages import (
     create_embed_response,
     create_generate_response,
+    create_kv_fetch_request,
     extract_embed_request,
     extract_generate_request,
+    extract_kv_pages,
     flatten_chat,
     genresp_frame_bytes,
     migrate_frame_msg,
@@ -68,6 +82,11 @@ class Chunk:
     # admission -> first token.
     queue_ns: int = 0
     prefill_ns: int = 0
+    # KV shipping, on the final chunk: the wall time spent fetching donor
+    # pages before submit (the worker's kv_fetch span; 0 = no fetch), and
+    # whether the fetch yielded no pages and prefill ran plain.
+    kv_fetch_ns: int = 0
+    kv_fallback: bool = False
     # Remote-draft control chunk: the VerifyResult payload (no text, not
     # done); None on every text chunk.
     verify: dict | None = None
@@ -121,6 +140,9 @@ class Engine:
     # other engine a remote-draft stream runs unpaced and the peer nacks
     # the gateway's DraftChunk credits.
     supports_remote_draft = False
+    # Engines that act on a GenerateRequest.kv_donor hint (fetch a donor's
+    # pages before prefill) opt in; everywhere else the hint is dropped.
+    supports_kv_donor = False
 
     async def start(self) -> None: ...
     async def stop(self) -> None: ...
@@ -152,8 +174,8 @@ class Engine:
     async def export_kv_pages(self, model: str, chain_hashes: list[bytes],
                               page_size: int) -> dict | None:
         """A peer's KvFetchRequest: the pages of the longest indexed
-        prefix, or None when this engine has nothing to offer (KV page
-        export is not ported: always None)."""
+        prefix, or None when this engine has nothing to offer (no paged
+        prefix cache, another model, another page size)."""
         return None
 
     async def drain(self, timeout: float = 30.0) -> bool:
@@ -196,9 +218,16 @@ class Engine:
             return
         queue_ns = final.queue_ns if final else 0
         prefill_ns = final.prefill_ns if final else 0
+        kv_ns = final.kv_fetch_ns if final else 0
+        if kv_ns:
+            # The donor fetch ran before submit: in neither the queue nor
+            # the prefill stamp, so it gets its own span.
+            self.obs.trace.record(
+                msg.trace_id, "kv_fetch", kv_ns, parent=msg.parent_span,
+                **({"fallback": True} if final.kv_fallback else {}))
         if not prefill_ns:
-            prefill_ns = max(0, (first_ns or end_ns) - t0 - queue_ns)
-        decode_ns = max(0, (end_ns - t0) - queue_ns - prefill_ns)
+            prefill_ns = max(0, (first_ns or end_ns) - t0 - queue_ns - kv_ns)
+        decode_ns = max(0, (end_ns - t0) - queue_ns - prefill_ns - kv_ns)
         steps = final.completion_tokens if final else 0
         if steps > 0 and decode_ns > 0:
             self.obs.metrics.decode_step_seconds.observe(
@@ -234,7 +263,7 @@ class Engine:
         first_ns = 0
         text_parts: list[str] = []
         final: Chunk | None = None
-        async for chunk in self._gen_from_request(req):
+        async for chunk in self._gen_from_request(req, trace_id=msg.trace_id):
             if not first_ns:
                 first_ns = time.monotonic_ns()
             text_parts.append(chunk.text)
@@ -276,7 +305,7 @@ class Engine:
         t0 = time.monotonic_ns()
         first_ns = 0
         n_chunk = 0
-        async for chunk in self._gen_from_request(req,
+        async for chunk in self._gen_from_request(req, trace_id=msg.trace_id,
                                                   draft_feed=draft_feed):
             if not first_ns:
                 first_ns = time.monotonic_ns()
@@ -350,8 +379,8 @@ class Engine:
         paged prefix index advertise nothing."""
         return [], 0
 
-    def _gen_from_request(self, req: pb.GenerateRequest, draft_feed=None
-                          ) -> AsyncIterator[Chunk]:
+    def _gen_from_request(self, req: pb.GenerateRequest, trace_id: str = "",
+                          draft_feed=None) -> AsyncIterator[Chunk]:
         # The float fields are float32 values (as protobuf reads them), so
         # a seeded request draws the same tokens on either package.
         kwargs = {}
@@ -359,6 +388,14 @@ class Engine:
                 and self.supports_remote_draft):
             # Only engines that pace on credits see the keywords.
             kwargs = dict(remote_draft=True, draft_feed=draft_feed)
+        if req.kv_donor and self.supports_kv_donor:
+            # Only engines that opted in see the keywords; the trace id
+            # puts the donor's kv_export span in this request's trace.  A
+            # migrated stream bypasses the kv_ship and break-even gates:
+            # the fetch is the point of its re-route.
+            kwargs.update(kv_donor=req.kv_donor, kv_trace=trace_id)
+            if req.migrate:
+                kwargs["migrate"] = True
         return self.generate(
             self._prompt_of(req), model=req.model,
             max_tokens=req.max_tokens or 128, temperature=req.temperature,
@@ -380,6 +417,8 @@ class TorchEngine(Engine):
     ``["cpu", "cpu"]`` or two shards on one card.  ``model_config`` (a
     ``ModelConfig``) serves in place of the registry's entry for
     ``config.model``, e.g. a copy cut to fewer layers."""
+
+    supports_kv_donor = True
 
     def __init__(self, config: Configuration | None = None, *,
                  device: torch.device | str | None = None,
@@ -409,6 +448,7 @@ class TorchEngine(Engine):
         self.tokenizer = None
         self.runner = None
         self.plan = None
+        self._kv_streams = None  # pooled donor streams (lazy StreamPool)
 
     async def start(self) -> None:
         """Build tokenizer/params/runner (through the serving plan), run
@@ -509,6 +549,8 @@ class TorchEngine(Engine):
         log.info("warmup done")
 
     async def stop(self) -> None:
+        if self._kv_streams is not None:
+            self._kv_streams.close()
         if self.scheduler is not None:
             await self.scheduler.stop()
 
@@ -560,6 +602,179 @@ class TorchEngine(Engine):
             return [], 0
         ids = self.tokenizer.encode(self._prompt_of(req))
         return r.chain_keys_for_prompt(ids), int(r.page_size)
+
+    # ------------------------------------------------------- KV shipping
+
+    def _kv_ship_ready(self, migrate: bool = False) -> bool:
+        """Whether this engine imports a donor's pages: ``kv_ship`` on
+        (a migrated stream needs no opt-in) and a paged prefix cache."""
+        r = self.runner
+        return ((bool(self.config.kv_ship) or migrate)
+                and self.scheduler is not None and r is not None
+                and getattr(r, "prefix_cache", False)
+                and hasattr(r, "import_pages"))
+
+    async def export_kv_pages(self, model: str, chain_hashes: list[bytes],
+                              page_size: int) -> dict | None:
+        """Donor side: serve a peer's fetch from the prefix index.  The
+        gather runs on the dispatch thread between dispatches
+        (``run_exclusive``): read from the event loop while a dispatch or
+        a graph replay is in flight, the pool would race the card."""
+        r = self.runner
+        if (self.scheduler is None or r is None
+                or not getattr(r, "prefix_cache", False)
+                or not hasattr(r, "export_pages")):
+            return None
+        if model and model not in self.models:
+            return None
+        hashes = [bytes(h) for h in chain_hashes]
+        return await self.scheduler.run_exclusive(
+            lambda state: r.export_pages(state, hashes,
+                                         page_size=int(page_size)))
+
+    async def _fetch_kv_payload(self, donor: str, model: str,
+                                prompt_ids: list[int], trace_id: str = "",
+                                migrate: bool = False
+                                ) -> tuple[dict | None, int]:
+        """Receiver side: dial the donor and pull the prompt's prefix
+        pages.  Returns (the payload for ``GenRequest.kv_import`` or None,
+        the fetch's wall ns; 0 when no fetch was attempted).  Every failure
+        (donor gone, stream killed, timeout) degrades to plain prefill.
+        One failure earns one retry after a jittered backoff inside the
+        same ``kv_ship_timeout`` budget.
+
+        ``migrate`` marks a migrated stream: the kv_ship opt-in and the
+        break-even gate are bypassed, and the prompt pages this worker
+        recomputes although the donor could have served them are counted
+        in ``replayed_prefill_tokens`` (0 is a complete hand-off)."""
+        r = self.runner
+        peer = self._peer
+        if (not self._kv_ship_ready(migrate) or peer is None or not donor
+                or donor == getattr(peer, "peer_id", "")):
+            return None, 0
+        keys = r.chain_keys_for_prompt(prompt_ids)
+        covered = r.local_prefix_coverage(keys)
+        uncovered = (len(keys) - covered) * r.page_size
+        mx = self.obs.metrics if self.obs is not None else None
+
+        def _account_replay(covered_pages: int) -> None:
+            if migrate and mx is not None:
+                mx.replayed_prefill_tokens += (
+                    max(0, len(keys) - covered_pages) * r.page_size)
+
+        if uncovered <= 0:
+            return None, 0  # local pages already cover the prompt
+        if (not migrate
+                and uncovered < max(1, int(self.config.kv_ship_min_tokens))):
+            return None, 0  # a short tail: the round trip costs more
+        timeout = max(0.5, float(self.config.kv_ship_timeout))
+        deadline = time.monotonic() + timeout
+        t0 = time.monotonic_ns()
+        payload, err = None, None
+        for attempt in range(2):
+            budget = deadline - time.monotonic()
+            if budget <= 0:
+                break
+            try:
+                payload = await asyncio.wait_for(
+                    self._kv_fetch_once(peer, donor, model, keys, trace_id),
+                    budget)
+                err = None
+                break
+            except Exception as e:
+                err = e
+                if attempt:
+                    break
+                # Decorrelated jitter; no retry when the backoff would eat
+                # what is left of the budget.
+                backoff = random.uniform(0.05, 0.15)
+                if deadline - time.monotonic() <= backoff:
+                    break
+                if mx is not None:
+                    mx.kv_ship_inc("retries")
+                log.warning("kv fetch from %s failed (%s); retrying in "
+                            "%.0f ms", donor, e, backoff * 1e3)
+                await asyncio.sleep(backoff)
+        dt = time.monotonic_ns() - t0
+        if mx is not None:
+            mx.kv_ship_inc("fetches")
+            mx.kv_fetch_seconds.observe(dt / 1e9)
+        if err is not None or payload is None:
+            if mx is not None:
+                mx.kv_ship_inc("fallbacks")
+            if err is not None:
+                log.warning("kv fetch from %s failed (%s); plain prefill",
+                            donor, err)
+            _account_replay(covered)
+            return None, dt
+        if mx is not None:
+            mx.kv_ship_inc("bytes", payload.get("bytes", 0))
+        # The donor's pages cover keys[:n] from the chain's start: a
+        # superset or subset of the local coverage, never disjoint.
+        _account_replay(max(covered, len(payload.get("keys", ()))))
+        return payload, dt
+
+    async def _kv_fetch_once(self, peer, donor: str, model: str,
+                             keys: list[bytes],
+                             trace_id: str = "") -> dict | None:
+        """One fetch over a pooled stream to ``donor``: a
+        KvFetchRequest, then KvPages frames until ``done`` (an in-band
+        error raises).  None when the donor matched nothing."""
+        from crowdllama_tpu_torch.core.protocol import INFERENCE_PROTOCOL
+        from crowdllama_tpu_torch.net.host import StreamPool
+
+        await faults.inject("kv.fetch", worker=getattr(peer, "peer_id", ""),
+                            donor=donor)
+        # Pooled: the dial and signed hello cost more than a small fetch.
+        if self._kv_streams is None:
+            self._kv_streams = StreamPool(max_per_key=2)
+        stream = self._kv_streams.get(donor)
+        if stream is None:
+            contact = await peer.dht.find_peer(donor)
+            if contact is None:
+                raise LookupError(f"kv donor {donor} not found in DHT")
+            stream = await peer.host.new_stream(contact, INFERENCE_PROTOCOL)
+        done = False
+        try:
+            fetch = create_kv_fetch_request(model, keys, self.runner.page_size)
+            fetch.trace_id = trace_id  # the donor's kv_export joins it
+            await wire.write_length_prefixed_pb(stream.writer, fetch)
+            k_pages: list[bytes] = []
+            v_pages: list[bytes] = []
+            k_scales: list[bytes] = []
+            v_scales: list[bytes] = []
+            dtype = ""
+            while True:
+                frame = await wire.read_length_prefixed_pb(
+                    stream.reader,
+                    timeout=max(0.5, float(self.config.kv_ship_timeout)))
+                kvp = extract_kv_pages(frame)
+                if kvp.error:
+                    raise RuntimeError(f"kv donor error: {kvp.error}")
+                dtype = kvp.kv_dtype or dtype
+                k_pages.extend(kvp.k_pages)
+                v_pages.extend(kvp.v_pages)
+                k_scales.extend(kvp.k_scales)
+                v_scales.extend(kvp.v_scales)
+                if kvp.done:
+                    done = True
+                    break
+        finally:
+            # A completed exchange leaves the stream at a frame boundary
+            # (reusable); anything else may leave frames in flight.
+            if done:
+                self._kv_streams.put(donor, stream)
+            else:
+                stream.close()
+        n = min(len(k_pages), len(v_pages))
+        if n == 0:
+            return None  # the donor matched nothing
+        total = sum(len(b) for b in (*k_pages, *v_pages,
+                                     *k_scales, *v_scales))
+        return {"keys": keys[:n],
+                "k_pages": k_pages[:n], "v_pages": v_pages[:n],
+                "k_scales": k_scales[:n], "v_scales": v_scales[:n],
+                "kv_dtype": dtype, "bytes": total}
 
     async def capture_profile(self, seconds: float = 3.0) -> str:
         """Trace ``seconds`` (0.1-60) of live serving with
@@ -635,6 +850,12 @@ class TorchEngine(Engine):
                     "misses": r.prefix_misses,
                     "tokens_reused": r.prefix_tokens_reused,
                 }
+            if hasattr(r, "kv_pages_exported"):
+                d["kv_ship"] = {
+                    "enabled": bool(self.config.kv_ship),
+                    "pages_exported": r.kv_pages_exported,
+                    "pages_imported": r.kv_pages_imported,
+                }
         if self.scheduler is not None and self.scheduler.spec_steps:
             d["spec_decode"] = self._spec_stats()
         return d
@@ -668,7 +889,8 @@ class TorchEngine(Engine):
         self, prompt: str, model: str = "", max_tokens: int = 128,
         temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
         stop: list[str] | None = None, top_k: int = 0,
-        repeat_penalty: float = 1.0, remote_draft: bool = False,
+        repeat_penalty: float = 1.0, kv_donor: str = "", kv_trace: str = "",
+        migrate: bool = False, remote_draft: bool = False,
         draft_feed=None,
     ) -> AsyncIterator[Chunk]:
         from crowdllama_tpu_torch.engine.scheduler import (
@@ -683,11 +905,18 @@ class TorchEngine(Engine):
         if model and model not in self.models:
             raise ValueError(f"model {model!r} not served (have {self.models})")
         prompt_ids = self.tokenizer.encode(prompt)
+        kv_import, kv_ns = None, 0
+        if kv_donor:
+            kv_import, kv_ns = await self._fetch_kv_payload(
+                kv_donor, model, prompt_ids, trace_id=kv_trace,
+                migrate=migrate)
+        kv_fallback = kv_import is None and kv_ns > 0
         req = GenRequest(prompt_ids=prompt_ids, max_tokens=max_tokens,
                          temperature=temperature, top_p=top_p,
                          top_k=max(0, int(top_k)),
                          repeat_penalty=float(repeat_penalty or 1.0),
-                         eos_id=self.tokenizer.eos_id, seed=seed)
+                         eos_id=self.tokenizer.eos_id, seed=seed,
+                         kv_import=kv_import)
         if remote_draft and draft_feed is not None:
             req.remote_draft, req.feed = True, draft_feed
         await self.scheduler.submit(req)
@@ -704,7 +933,8 @@ class TorchEngine(Engine):
             return Chunk(text=text, done=True, done_reason=reason,
                          prompt_tokens=len(prompt_ids),
                          completion_tokens=completion,
-                         queue_ns=int(q * 1e9), prefill_ns=int(p * 1e9))
+                         queue_ns=int(q * 1e9), prefill_ns=int(p * 1e9),
+                         kv_fetch_ns=kv_ns, kv_fallback=kv_fallback)
 
         try:
             while True:

@@ -6,7 +6,9 @@ Counterpart of ``crowdllama_tpu/engine/multi.py``: one child
 share the device; their schedulers' dispatch threads interleave at the
 device queue, so serving stays single-flight per child while models
 multiplex the card.  Keyword arguments other than the configuration
-(``device``, ``dtype``, ``seed``) go to every child.
+(``device``, ``dtype``, ``seed``) go to every child.  A ``kv_donor`` hint
+reaches the child that serves the request's model, and a donor fetch is
+answered by the child of the model it names.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ log = logging.getLogger("crowdllama.torch.engine.multi")
 
 
 class MultiEngine(Engine):
+    supports_kv_donor = True
+
     def __init__(self, config: Configuration, **engine_kw):
         self.config = config
         self._engine_kw = engine_kw
@@ -149,7 +153,8 @@ class MultiEngine(Engine):
     def generate(self, prompt: str, model: str = "", max_tokens: int = 128,
                  temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
                  stop: list[str] | None = None, top_k: int = 0,
-                 repeat_penalty: float = 1.0,
+                 repeat_penalty: float = 1.0, kv_donor: str = "",
+                 kv_trace: str = "", migrate: bool = False,
                  **remote) -> AsyncIterator[Chunk]:
         child = self._child(model)
         if not child.supports_remote_draft:
@@ -157,7 +162,15 @@ class MultiEngine(Engine):
         return child.generate(
             prompt, model=model, max_tokens=max_tokens,
             temperature=temperature, top_p=top_p, seed=seed, stop=stop,
-            top_k=top_k, repeat_penalty=repeat_penalty, **remote)
+            top_k=top_k, repeat_penalty=repeat_penalty, kv_donor=kv_donor,
+            kv_trace=kv_trace, migrate=migrate, **remote)
+
+    async def export_kv_pages(self, model: str, chain_hashes: list[bytes],
+                              page_size: int) -> dict | None:
+        eng = self._engines.get(model)
+        if eng is None:
+            return None
+        return await eng.export_kv_pages(model, chain_hashes, page_size)
 
     async def embed(self, texts: list[str], model: str = "",
                     truncate: bool = True) -> tuple[list[list[float]], int]:

@@ -42,8 +42,12 @@ page table at full width as its static input) and ``ragged_megastep``
 (K unified steps in one dispatch with on-device done-flags, eager on the
 card through kernel C: C takes the chunk's slot by value and the step
 builds its ``q_lens``/``kv_lens`` from host ints, so a graph would need a
-capture per slot).  Megastep needs every tp rank on one device.  Meshes
-other than tp, and KV page export/import are not ported yet.
+capture per slot).  Megastep needs every tp rank on one device.  KV page
+shipping: ``export_pages`` gathers the prefix index's pages for a donor
+fetch and ``import_pages`` writes a donor's pages into fresh pool pages
+in place, in the JAX package's wire format (one ``[L, Hkv, page, Dh]``
+buffer a page, the whole head axis, so pages cross tp degrees and
+packages).  Meshes other than tp are not ported yet.
 """
 
 from __future__ import annotations
@@ -72,6 +76,11 @@ from crowdllama_tpu_torch.parallel.mesh import (
     largest_tp,
     visible_devices,
 )
+
+
+# Host bit patterns of a pool dtype (numpy has no bf16).
+_NP_BITS = {torch.bfloat16: np.int16, torch.float16: np.float16,
+            torch.float32: np.float32}
 
 
 class PagesExhausted(ValueError):
@@ -120,6 +129,8 @@ class PagedModelRunner(ModelRunner):
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.prefix_tokens_reused = 0
+        self.kv_pages_exported = 0  # pages served to donor fetches
+        self.kv_pages_imported = 0  # pages seeded from a donor
         # Unified ragged batch: per-step token budget = one decode token
         # per slot + one prefill chunk of ``ragged_chunk`` tokens (a page
         # multiple; prefill_chunk by default so chunk boundaries match the
@@ -522,6 +533,179 @@ class PagedModelRunner(ModelRunner):
         self._free(slot)
         self._deactivate(state, slot)
         return state
+
+    # ------------------------------------------------------- KV shipping
+
+    def kv_wire_dtype(self) -> str:
+        """The pool dtype as ``KvPages.kv_dtype`` names it (JAX's names):
+        "int8" pools ship int8 pages and bf16 scales, the others their
+        pool bytes ("bfloat16", "float32")."""
+        if self.kv_dtype == "int8":
+            return "int8"
+        return str(self.dtype).removeprefix("torch.")
+
+    def local_prefix_coverage(self, keys: list[bytes]) -> int:
+        """How many leading chain keys the local index already holds (a
+        fetch pays only for the uncovered tail)."""
+        m = 0
+        for k in keys:
+            if k not in self._prefix_index:
+                break
+            m += 1
+        return m
+
+    def _host_pages(self, pools: list[torch.Tensor],
+                    pages: list[int]) -> np.ndarray:
+        """Pages ``pages`` of per-rank pools ``[L, P+1, Hkv/tp, page, ...]``
+        on the host, page-major ``[n, L, Hkv, page, ...]`` with the rank
+        shares concatenated along the head axis, as raw bytes (one
+        device->host copy a rank; numpy has no bf16, so a bf16 pool comes
+        across as int16 bit patterns)."""
+        per_rank = []
+        for pool in pools:
+            idx = torch.as_tensor(pages, dtype=torch.long, device=pool.device)
+            g = pool[:, idx].movedim(1, 0).contiguous()
+            if g.dtype == torch.bfloat16:
+                g = g.view(torch.int16)
+            per_rank.append(g.cpu())
+        return torch.cat(per_rank, dim=2).numpy()
+
+    @torch.inference_mode()
+    def export_pages(self, state: PagedDecodeState, chain_hashes: list[bytes],
+                     page_size: int = 0) -> dict | None:
+        """A donor's answer to a KvFetchRequest: the K/V pages of the
+        longest indexed prefix of ``chain_hashes``, each page one
+        ``[L, Hkv, page, Dh]`` C-order buffer of the pool dtype (and an int8
+        pool's bf16 scales ``[L, Hkv, page]``), the bytes the JAX runner
+        exports.  The matched pages are pinned (+1 ref) for the gather, so
+        an admission's ``_alloc`` cannot evict and reuse them meanwhile;
+        the scheduler runs this between dispatches (``run_exclusive``).
+
+        Returns None when nothing matched, the prefix cache is off, or the
+        requester's page size differs."""
+        if not self.prefix_cache or (page_size
+                                     and page_size != self.page_size):
+            return None
+        pages: list[int] = []
+        for k in chain_hashes:
+            page = self._prefix_index.get(bytes(k))
+            if page is None:
+                break
+            pages.append(page)
+            self._lru_tick += 1
+            self._index_lru[bytes(k)] = self._lru_tick
+        if not pages:
+            return None
+        for p in pages:
+            self._page_refs[p] = self._page_refs.get(p, 0) + 1
+        try:
+            k_host = self._host_pages(state.pool_k, pages)
+            v_host = self._host_pages(state.pool_v, pages)
+            k_scales: list[bytes] = []
+            v_scales: list[bytes] = []
+            if self.kv_dtype == "int8":
+                ks = self._host_pages(state.k_scale, pages)
+                vs = self._host_pages(state.v_scale, pages)
+                k_scales = [ks[i].tobytes() for i in range(len(pages))]
+                v_scales = [vs[i].tobytes() for i in range(len(pages))]
+        finally:
+            for p in pages:
+                self._page_refs[p] = self._page_refs.get(p, 1) - 1
+        self.kv_pages_exported += len(pages)
+        return {
+            "matched": len(pages),
+            "kv_dtype": self.kv_wire_dtype(),
+            "k_pages": [k_host[i].tobytes() for i in range(len(pages))],
+            "v_pages": [v_host[i].tobytes() for i in range(len(pages))],
+            "k_scales": k_scales,
+            "v_scales": v_scales,
+        }
+
+    @torch.inference_mode()
+    def import_pages(self, state: PagedDecodeState,
+                     payload: dict) -> tuple[PagedDecodeState, int]:
+        """Seed the prefix index from a donor's exported pages.
+
+        ``payload``: ``keys`` (chain hashes aligned with the page lists),
+        ``k_pages``/``v_pages`` (and ``k_scales``/``v_scales`` on int8)
+        and ``kv_dtype``.  Locally covered leading keys are skipped; the
+        rest get fresh pages, written into the pool tensors in place (the
+        megastep graphs hold the pools' addresses, so the state is never
+        rebound; each rank takes its share of the kv heads) and indexed at
+        refcount 0, the state a locally inserted-then-released prefix
+        leaves, so the ordinary suffix-only prefill consumes them.  The
+        scatter is eager: no compile to bucket, so no row is padded onto
+        the dump page.  Raises ValueError on a dtype or size mismatch and
+        ``PagesExhausted`` when the pool cannot hold them; the caller
+        falls back to plain prefill."""
+        keys = [bytes(k) for k in payload["keys"]]
+        k_pages, v_pages = payload["k_pages"], payload["v_pages"]
+        n = min(len(keys), len(k_pages), len(v_pages))
+        if not self.prefix_cache or n == 0:
+            return state, 0
+        want = self.kv_wire_dtype()
+        got = payload.get("kv_dtype", "")
+        if got != want:
+            raise ValueError(f"kv dtype mismatch: donor ships {got!r}, "
+                             f"local pool is {want!r}")
+        skip = self.local_prefix_coverage(keys[:n])
+        if skip >= n:
+            return state, 0
+        cfg = self.cfg
+        l, hkv, dh = (cfg.num_layers, cfg.num_kv_heads,
+                      cfg.resolved_head_dim())
+        pg = self.page_size
+        quant = self.kv_dtype == "int8"
+        pool_np = np.dtype(np.int8 if quant else _NP_BITS[self.dtype])
+        page_nbytes = l * hkv * pg * dh * pool_np.itemsize
+        scale_nbytes = l * hkv * pg * 2  # bf16
+        for buf in (*k_pages[skip:n], *v_pages[skip:n]):
+            if len(buf) != page_nbytes:
+                raise ValueError(f"kv page payload is {len(buf)} bytes, "
+                                 f"expected {page_nbytes}")
+        if quant:
+            for buf in (*payload["k_scales"][skip:n],
+                        *payload["v_scales"][skip:n]):
+                if len(buf) != scale_nbytes:
+                    raise ValueError(
+                        f"kv scale payload is {len(buf)} bytes, "
+                        f"expected {scale_nbytes}")
+        n_imp = n - skip
+        fresh = self._alloc(n_imp)  # PagesExhausted -> caller falls back
+
+        def stack(bufs, np_dt, dt, shape) -> torch.Tensor:
+            rows = np.stack([np.frombuffer(b, np_dt).reshape(shape)
+                             for b in bufs])
+            return torch.from_numpy(rows).view(dt)  # [n, L, Hkv, pg, ...]
+
+        pool_dt = torch.int8 if quant else self.dtype
+        sources = [(state.pool_k, stack(k_pages[skip:n], pool_np, pool_dt,
+                                         (l, hkv, pg, dh))),
+                   (state.pool_v, stack(v_pages[skip:n], pool_np, pool_dt,
+                                         (l, hkv, pg, dh)))]
+        if quant:
+            for pools, name in ((state.k_scale, "k_scales"),
+                                (state.v_scale, "v_scales")):
+                sources.append((pools, stack(payload[name][skip:n], np.int16,
+                                             torch.bfloat16, (l, hkv, pg))))
+        share = hkv // self.tp
+        for pools, host in sources:
+            for r, pool in enumerate(pools):
+                idx = torch.as_tensor(fresh, dtype=torch.long,
+                                      device=pool.device)
+                part = host[:, :, r * share:(r + 1) * share]
+                pool[:, idx] = part.to(pool.device).movedim(0, 1)
+        for i, page in enumerate(fresh):
+            key = keys[skip + i]
+            self._prefix_index[key] = page
+            self._page_key[page] = key
+            self._lru_tick += 1
+            self._index_lru[key] = self._lru_tick
+            if skip + i > 0:  # chain edge for cascade eviction
+                self._key_children.setdefault(
+                    keys[skip + i - 1], set()).add(key)
+        self.kv_pages_imported += n_imp
+        return state, n_imp
 
     # -------------------------------------------------------------- decode
 

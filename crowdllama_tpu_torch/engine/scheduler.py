@@ -67,7 +67,14 @@ chunks without a verify, and releases the stream to full speed after
 ``spec_pipeline_stall_s`` without credit, a mixed batch or a ragged
 prefill.
 
-Not ported yet: the autopilot, KV import and the fault-injection hooks.
+KV shipping: a request carrying ``kv_import`` (a donor's pages, fetched
+by the engine before submit) seeds the runner's prefix index at
+admission, before the monolithic / chunked / ragged decision, so imported
+pages steer admission exactly as a local prefix hit does; a failed import
+falls back to plain prefill.  ``run_exclusive`` runs a donor's export on
+the dispatch thread between dispatches.
+
+Not ported yet: the autopilot and the fault-injection hooks.
 """
 
 from __future__ import annotations
@@ -135,6 +142,9 @@ class GenRequest:
     # round, one VERIFY payload queued back per credit).
     remote_draft: bool = False
     feed: object | None = None
+    # A donor's fetched pages (``TorchEngine._fetch_kv_payload``), seeded
+    # into the prefix index right before this request's admission.
+    kv_import: dict | None = None
 
     def finish(self, reason: str) -> bool:
         """Claim this request's terminal: exactly one ``(DONE, reason)`` is
@@ -235,6 +245,9 @@ class Scheduler:
         # Submitted requests whose output queue a consumer may still be
         # reading (drain waits for them to empty).
         self._tracked: weakref.WeakSet[GenRequest] = weakref.WeakSet()
+        # run_exclusive calls waiting for the loop's next safe point:
+        # (fn, future) pairs.
+        self._exclusive: list[tuple] = []
         # Steps dispatched per class (a plain flight of K steps counts K),
         # counted at dispatch: the kernels a flight launches are too.
         self.class_steps: dict[str, int] = {}
@@ -312,6 +325,10 @@ class Scheduler:
             except asyncio.CancelledError:
                 pass
             self._task = None
+        while self._exclusive:  # their safe point never comes
+            _fn, fut = self._exclusive.pop(0)
+            if not fut.done():
+                fut.set_exception(RuntimeError("scheduler stopped"))
         if self._exec is not None:
             self._exec.shutdown(wait=True)
             self._exec = None
@@ -410,6 +427,49 @@ class Scheduler:
         if self._exec is None:
             raise RuntimeError("scheduler not started")
         return await self._run(fn, *args)
+
+    async def run_exclusive(self, fn):
+        """``fn(state) -> result`` on the dispatch thread at the decode
+        loop's next safe point, between two dispatches (at once when the
+        loop is not running).  ``fn`` treats the state as read-only: KV
+        export (device->host gathers and allocator bookkeeping) qualifies.
+        A failing ``fn`` fails its caller, never the loop."""
+        if self._task is None:
+            return await self._run(fn, self.state)
+        fut = asyncio.get_running_loop().create_future()
+        self._exclusive.append((fn, fut))
+        self._wake.set()
+        return await fut
+
+    async def _run_exclusive_fns(self) -> None:
+        while self._exclusive:
+            fn, fut = self._exclusive.pop(0)
+            try:
+                res = await self._run(fn, self.state)
+            except BaseException as e:
+                if not fut.done():
+                    fut.set_exception(e)
+                if not isinstance(e, Exception):
+                    raise
+            else:
+                if not fut.done():
+                    fut.set_result(res)
+
+    async def _apply_kv_import(self, req: GenRequest) -> None:
+        """Seed a request's fetched donor pages into the runner's prefix
+        index right before its admission.  A failure costs speed, not
+        correctness: the request continues with a plain prefill."""
+        payload, req.kv_import = req.kv_import, None
+        imp = getattr(self.runner, "import_pages", None)
+        if payload is None or imp is None:
+            return
+        try:
+            self.state, n = await self._run(imp, self.state, payload)
+            if n:
+                log.info("kv import: seeded %d fetched pages", n)
+        except Exception as e:
+            log.warning("kv import failed (%s); falling back to plain "
+                        "prefill", e)
 
     @property
     def load(self) -> float:
@@ -750,6 +810,7 @@ class Scheduler:
             return None  # released: the next iteration dispatches normally
         if not ready:
             if (self.pending.empty() and not self._deferred
+                    and not self._exclusive
                     and self._migrating is None and self._chunking is None):
                 self._wake.clear()
                 try:
@@ -869,7 +930,8 @@ class Scheduler:
     async def _loop_once(self) -> None:
         if (all(s is None for s in self.slots) and self.pending.empty()
                 and self._inflight is None and self._chunking is None
-                and not self._deferred and self._migrating is None):
+                and not self._deferred and not self._exclusive
+                and self._migrating is None):
             self._wake.clear()
             await self._wake.wait()
 
@@ -891,6 +953,9 @@ class Scheduler:
             self._migrating = None
             if not fut.done():
                 fut.set_result(moved)
+
+        # run_exclusive: nothing is queued on the dispatch thread now.
+        await self._run_exclusive_fns()
 
         # Dispatch the NEXT chunk before reading back the previous one, so
         # the readback + emit below overlap this chunk's compute.
@@ -1064,6 +1129,10 @@ class Scheduler:
                 break
             if req.cancelled:
                 continue
+            if req.kv_import is not None:
+                # Before the monolithic-vs-chunked decision: imported pages
+                # steer it as a local prefix hit does.
+                await self._apply_kv_import(req)
             chunk = (self.runner.ragged_chunk if self._ragged
                      else self.runner.prefill_chunk)
             hint = getattr(self.runner, "prefill_prefers_monolithic", None)

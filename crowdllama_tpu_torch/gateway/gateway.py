@@ -24,9 +24,14 @@ plain.  ``/metrics``, ``/metrics/cluster``, ``/debug/trace[/{id}]``,
 ``/debug/flightrecorder`` and ``/debug/profile`` (``torch.profiler``
 over this process) are the operator's surfaces.
 
-Not ported, and so not parameters here: the replicated gateway's gossip
-node and tenant quotas (ROADMAP Queue 1 item 1.4); ``config.py`` refuses
-their flags.  ``/api/pull`` of
+The replicated gateway: with a ``gossip`` node (``swarm/gossip.py``) the
+affinity pins and drain quarantines are shared with the other replicas (a
+continuation routes to the worker that holds its KV, or names it as the
+chosen worker's ``kv_donor``, whichever replica it comes through; a
+drain one replica observes quarantines the worker on all), and with
+``tenant_quotas`` admission is per tenant (``X-Tenant``): a token bucket
+charged by every replica's admits, and a weighted fair share of the
+inflight cap.  ``/api/pull`` of
 a model no worker serves answers 501 (swarm model sharing, item 9).  The
 autopilot's back-off capture goes with the autopilot (item 11).  The
 native data plane encodes request frames (``core/wire.encode_genreq_frame``)
@@ -149,7 +154,7 @@ class Gateway:
                  trace_buffer: int = 64, request_timeout: float = 600.0,
                  admission_max_inflight: int = 0,
                  retry_after_s: float = 1.0, kv_ship: bool = False,
-                 flight_recorder: int = 32,
+                 gossip=None, tenant_quotas=None, flight_recorder: int = 32,
                  trace_ttl: float = 0.0, metrics_exemplars: bool = False,
                  slo_ttft_ms: float = 0.0, slo_decode_ms: float = 0.0,
                  stream_stall_ms: float = 0.0, hedge_ttft_ms: float = 0.0,
@@ -158,6 +163,11 @@ class Gateway:
         self.peer = peer
         self.port = port
         self.host = host
+        # The replicated gateway: the GossipNode sharing affinity pins and
+        # quarantines with the other replicas (None: all process-local),
+        # and the per-tenant token buckets that replace the global shed.
+        self.gossip = gossip
+        self.tenant_quotas = tenant_quotas
         self.kv_ship = bool(kv_ship)
         # Budget per request (X-Request-Timeout may lower it), admission
         # cap (0 = off), Retry-After hint on shed 503s.
@@ -238,9 +248,11 @@ class Gateway:
         self._affinity_evicted = 0
         self._affinity_repointed = 0
         self._kv_hints = 0
-        # The replicated gateway's counter: its family renders at zero
-        # until that plane is ported.
+        # Continuations whose pin came from the gossip map rather than this
+        # process's own LRU (the cross-replica hit count).
         self._gossip_affinity_hits = 0
+        # Per-tenant inflight (weighted-fair admission): tenant -> count.
+        self._tenant_inflight: dict[str, int] = {}
         # The speculative pipeline: "off", "gateway" (draft here from
         # spec_draft_path, on ``device``: the card unless the CPU is asked
         # for) or "worker" (pure ack credits).  The drafter loads on the
@@ -273,6 +285,33 @@ class Gateway:
                 self._affinity_drop_worker(peer_id)
 
             pm.on_peer_removed = _on_removed
+            if self.gossip is not None:
+                # Our observation of a drain enters the replicated map, so
+                # the other replicas stop routing to the worker within one
+                # round.
+                prev_drain = pm.on_draining
+
+                def _on_draining(peer_id: str) -> None:
+                    if prev_drain is not None:
+                        prev_drain(peer_id)
+                    self.gossip.record_quarantine(peer_id)
+
+                pm.on_draining = _on_draining
+        if self.gossip is not None:
+            # Another replica's quarantine quarantines the worker here
+            # (mark_draining is idempotent, versions cannot regress);
+            # affinity entries are read on a local miss.
+            from crowdllama_tpu_torch.swarm.gossip import QUARANTINE_PREFIX
+
+            def _on_entry(entry) -> None:
+                if (entry.tombstone
+                        or not entry.key.startswith(QUARANTINE_PREFIX)):
+                    return
+                pm2 = self.peer.peer_manager
+                if pm2 is not None:
+                    pm2.mark_draining(entry.key[len(QUARANTINE_PREFIX):])
+
+            self.gossip.on_entry = _on_entry
         self._server = web.Server(self.app, self.host, self.port)
         await self._server.start()
         self.port = self._server.port
@@ -1124,13 +1163,25 @@ class Gateway:
 
     def _affinity_get(self, akey: str | None, model: str):
         """The remembered worker of this conversation, if it still routes
-        ``model`` and is not near saturation."""
+        ``model`` and is not near saturation.  On a local miss the gossip
+        map is read: a conversation whose earlier turns went through
+        another replica still routes to the worker holding its KV (the pin
+        is seeded into the local LRU)."""
         if akey is None:
             return None
         entry = self._affinity.get(akey)
         if entry is None or time.monotonic() - entry[1] > self._AFFINITY_TTL_S:
             self._affinity.pop(akey, None)
-            return None
+            entry = None
+            if self.gossip is not None:
+                remote = self.gossip.lookup_affinity(
+                    akey, max_age_s=self._AFFINITY_TTL_S)
+                if remote is not None:
+                    self._affinity_put(akey, remote[0])
+                    self._gossip_affinity_hits += 1
+                    entry = self._affinity.get(akey)
+            if entry is None:
+                return None
         self._affinity.move_to_end(akey)
         pm = self.peer.peer_manager
         cand = pm.is_routable(entry[0], model) if pm is not None else None
@@ -1149,6 +1200,10 @@ class Gateway:
             self._affinity_evicted += 1
         self._affinity[akey] = (worker_id, time.monotonic())
         self._affinity.move_to_end(akey)
+        if self.gossip is not None:
+            # Mirrored, so the other replicas route this conversation's
+            # continuations here too.
+            self.gossip.record_affinity(akey, worker_id)
 
     def _affinity_drop_worker(self, worker_id: str,
                               successor: str = "") -> None:
@@ -1162,18 +1217,30 @@ class Gateway:
             if successor:
                 self._affinity[akey] = (successor, now)
                 self._affinity_repointed += 1
+                if self.gossip is not None:
+                    self.gossip.record_affinity(akey, successor)
             else:
                 del self._affinity[akey]
+                if self.gossip is not None:
+                    self.gossip.drop_affinity(akey)
 
     def _kv_donor_for(self, akey: str | None, model: str,
                       chosen_worker: str) -> str:
         """The remembered worker as a page donor for a continuation that
-        lands elsewhere ("" when kv_ship is off or it no longer routes)."""
+        lands elsewhere ("" when kv_ship is off or it no longer routes).
+        On a local miss, a pin another replica gossiped is as good."""
         if not self.kv_ship or akey is None:
             return ""
         entry = self._affinity.get(akey)
         if entry is None or time.monotonic() - entry[1] > self._AFFINITY_TTL_S:
-            return ""
+            entry = None
+            if self.gossip is not None:
+                remote = self.gossip.lookup_affinity(
+                    akey, max_age_s=self._AFFINITY_TTL_S)
+                if remote is not None:
+                    entry = (remote[0], time.monotonic())
+            if entry is None:
+                return ""
         if entry[0] == chosen_worker:
             return ""
         pm = self.peer.peer_manager
@@ -1186,20 +1253,65 @@ class Gateway:
                      shape="chat") -> web.StreamResponse:
         """The admission gate and inflight accounting around
         _route_admitted: shedding happens before a trace id is minted or
-        a worker touched."""
+        a worker touched.  With tenant quotas the shed is per tenant: a
+        token bucket bounds each tenant's rate across the cluster (other
+        replicas' admits arrive as gossiped digests and drain the same
+        buckets), and under inflight pressure a tenant at or above its
+        weighted fair share of the cap is shed while lighter tenants are
+        admitted."""
+        tq = self.tenant_quotas
+        mx = self.obs.metrics
+        tenant = self._tenant_of(request) if tq is not None else ""
         if self.admission_max_inflight \
                 and self._inflight >= self.admission_max_inflight:
+            if tq is not None:
+                tq.shed_total += 1
+                mx.tenant_inc(mx.tenant_shed, tenant)
             return self._shed_response(
                 shape, model,
                 f"overloaded: {self._inflight} requests in flight "
                 f"(admission cap {self.admission_max_inflight})")
+        if tq is not None:
+            if not tq.try_admit(tenant):
+                mx.tenant_inc(mx.tenant_shed, tenant)
+                return self._shed_response(
+                    shape, model,
+                    f"tenant {tenant!r} over quota "
+                    f"({tq.quotas.get(tenant, tq.quotas.get('default', 0))}"
+                    f" req/s)")
+            cap = self.admission_max_inflight
+            if cap:
+                active = {t for t, n in self._tenant_inflight.items()
+                          if n > 0}
+                share = tq.fair_share(tenant, cap, active)
+                if self._tenant_inflight.get(tenant, 0) >= share:
+                    mx.tenant_inc(mx.tenant_shed, tenant)
+                    return self._shed_response(
+                        shape, model,
+                        f"tenant {tenant!r} over fair share "
+                        f"({share:.1f} of {cap} inflight)")
+            mx.tenant_inc(mx.tenant_admitted, tenant)
         self._inflight += 1
+        if tq is not None:
+            self._tenant_inflight[tenant] = \
+                self._tenant_inflight.get(tenant, 0) + 1
+            mx.tenant_inflight[tenant] = self._tenant_inflight[tenant]
         try:
             return await self._route_admitted(
                 request, model, stream, options, messages=messages,
                 prompt=prompt, shape=shape)
         finally:
             self._inflight -= 1
+            if tq is not None:
+                self._tenant_inflight[tenant] -= 1
+                mx.tenant_inflight[tenant] = self._tenant_inflight[tenant]
+
+    def _tenant_of(self, request: web.Request) -> str:
+        """The tenant key: the X-Tenant header through the label guard
+        (a client varying the header cannot mint unbounded buckets or
+        series)."""
+        raw = request.headers.get("X-Tenant", "") or "default"
+        return self.obs.metrics.tenant_guard.value(raw)
 
     async def _route_admitted(self, request, model, stream, options,
                               messages=None, prompt="",

@@ -33,10 +33,14 @@ remote drafts (``supports_remote_draft``); on any other engine
 (``FakeEngine``, a plain runner) it nacks each chunk, so the gateway's
 pump degrades to plain streaming.
 
-Not ported: swarm model sharing and pull,
-gossip (a ``gossip_frame`` is ignored, as a JAX node without a gossip
-node ignores it) and KV page export (a ``kv_fetch_request`` is answered
-in band with ``matched=0`` and an error).
+KV shipping, donor side: a ``kv_fetch_request`` is answered with the
+engine's exported pages in ``KvPages`` frames of about 4 MiB each, errors
+in band; a draining worker keeps serving fetches as its migrated streams'
+donor.  The replicated gateway: a consumer's ``GossipNode``
+(``swarm/gossip.py``) attaches itself as ``gossip_node``, and inbound
+``gossip_frame`` messages go to it (a node without one ignores them).
+
+Not ported: swarm model sharing and pull.
 """
 
 from __future__ import annotations
@@ -133,6 +137,9 @@ class Peer:
         self.relay_service = None  # RelayService when hosting one
         self._tasks: list[asyncio.Task] = []
         self._draining = False
+        # Replicated gateway plane: a consumer's GossipNode attaches here
+        # and the serve loop hands it inbound gossip frames.
+        self.gossip_node = None
         self._capabilities = (device_capabilities(_engine_device(engine))
                               if self.worker_mode else {})
         self.obs = NodeObs(trace_capacity=config.trace_buffer or 64,
@@ -358,7 +365,9 @@ class Peer:
         then the advertised metadata flips to ``draining`` with one forced
         provide, then the migration is awaited.  New GenerateRequests get
         the typed ``draining`` reject from here on, but the serve loops
-        stay up.  Returns how many requests were migrated."""
+        stay up: the node keeps answering KvFetchRequests as the donor of
+        the streams it migrated.  Returns how many requests were
+        migrated."""
         if self._draining:
             return 0
         self._draining = True
@@ -496,7 +505,16 @@ class Peer:
                 await self._serve_metrics_fetch(stream, msg)
                 return True
             if which == "gossip_frame":
-                return True  # a worker has no gossip node
+                # Replicated gateway anti-entropy: merge, and answer with
+                # our own frame when the sender asks to sync.  A node
+                # without a gossip node ignores the frame.
+                if self.gossip_node is not None:
+                    reply = await self.gossip_node.handle_frame(msg)
+                    if reply is not None:
+                        reply.trace_id = tid
+                        await wire.write_length_prefixed_pb(stream.writer,
+                                                            reply)
+                return True
             if which == "draft_chunk":
                 # A DraftChunk outside a remote-draft stream: nack it
                 # terminally so the sender's pump stops.
@@ -693,24 +711,69 @@ class Peer:
         out.trace_id = msg.trace_id
         await wire.write_length_prefixed_pb(stream.writer, out)
 
+    _KV_FRAME_BYTES = 4 * 1024 * 1024  # page payload per KvPages frame
+
     async def _serve_kv_fetch(self, stream: Stream, msg) -> None:
-        """A peer's paged-KV fetch, answered in band: the port exports no
-        pages yet, so the reply is ``KvPages(matched=0, done=True,
-        error=...)`` and the fetcher falls back to plain prefill."""
+        """A peer's paged-KV fetch, donor side: the engine's exported pages
+        stream out in KvPages frames of about ``_KV_FRAME_BYTES`` (at least
+        one page pair a frame); every failure is reported in band
+        (``KvPages.error``) and the fetcher falls back to plain prefill.
+        The export pins pages only for its device->host gather, so a slow
+        receiver holds no pool pages.  A traced fetch records the
+        ``kv_export`` span."""
         req = msg.kv_fetch_request
+        tid = msg.trace_id
         await faults.inject("kv.serve", worker=self.peer_id, model=req.model)
+        t0 = time.perf_counter_ns()
         try:
-            await asyncio.wait_for(
+            payload = await asyncio.wait_for(
                 self.engine.export_kv_pages(
                     req.model, list(req.chain_hashes), int(req.page_size)),
                 timeout=max(1.0, self.config.kv_ship_timeout))
-            err = "kv export unavailable"
+        except faults.KillStream:
+            raise
         except Exception as e:
-            err = f"kv export failed: {e}"
-        out = kv_pages_msg(pb.KvPages(model=req.model, matched=0, done=True,
-                                      error=err))
-        out.trace_id = msg.trace_id
-        await wire.write_length_prefixed_pb(stream.writer, out)
+            payload, err = None, f"kv export failed: {e}"
+        else:
+            err = "" if payload is not None else "kv export unavailable"
+        if payload is None or payload["matched"] == 0:
+            out = kv_pages_msg(pb.KvPages(model=req.model, matched=0,
+                                          done=True, error=err))
+            out.trace_id = tid
+            await wire.write_length_prefixed_pb(stream.writer, out)
+            return
+        k_pages, v_pages = payload["k_pages"], payload["v_pages"]
+        k_scales, v_scales = payload["k_scales"], payload["v_scales"]
+        matched = payload["matched"]
+        sent_bytes = 0
+        start = 0
+        while start < matched:
+            end, size = start, 0
+            while end < matched and (size < self._KV_FRAME_BYTES
+                                     or end == start):
+                size += len(k_pages[end]) + len(v_pages[end])
+                if k_scales:
+                    size += len(k_scales[end]) + len(v_scales[end])
+                end += 1
+            frame = pb.KvPages(model=req.model, matched=matched, start=start,
+                               kv_dtype=payload["kv_dtype"],
+                               done=end >= matched)
+            frame.k_pages.extend(k_pages[start:end])
+            frame.v_pages.extend(v_pages[start:end])
+            if k_scales:
+                frame.k_scales.extend(k_scales[start:end])
+                frame.v_scales.extend(v_scales[start:end])
+            out = kv_pages_msg(frame)
+            out.trace_id = tid
+            await wire.write_length_prefixed_pb(stream.writer, out)
+            sent_bytes += size
+            start = end
+        self.obs.metrics.kv_ship_inc("bytes", sent_bytes)
+        self.obs.metrics.kv_ship_inc("fetches")
+        if tid:
+            self.obs.trace.record(tid, "kv_export",
+                                  time.perf_counter_ns() - t0,
+                                  pages=matched, bytes=sent_bytes)
 
     # ----------------------------------------------------------- discovery
 

@@ -31,7 +31,10 @@ FAULT_SITES: dict[str, str] = {
     "host.new_stream": "before a dial + handshake (net/host.py)",
     "relay.op": "relay service op dispatch (net/relay.py)",
     "relay.splice": "before a relay starts its bidirectional copy loop",
+    "kv.fetch": "before a worker dials a KV-page donor",
     "kv.serve": "donor side, before a KvFetchRequest is served",
+    "gossip.send": "before a gateway replica pushes an anti-entropy frame",
+    "gossip.recv": "before an inbound gossip frame is merged",
     "spec.draft_chunk": "after the worker reads a DraftChunk off a "
                         "remote-draft stream (peer/peer.py)",
     "spec.verify": "before a VerifyResult frame is written (the engine's "

@@ -4,18 +4,20 @@ worker's.
 A port worker (``Peer`` over ``TorchEngine`` on the CPU) and a JAX worker
 (``Peer`` over ``JaxEngine``), both on ``tiny-test`` random weights, each
 get the same llama.v1 traffic from a JAX client host over one pooled
-inference stream: a streamed generate request carrying a trace id, then
-``trace_fetch``, ``metrics_fetch`` (whole and filtered), a
-``kv_fetch_request``, a stray ``draft_chunk``, a ``gossip_frame`` (no
-reply; the stream stays usable), a non-streamed request, then ``drain()``
-and one more request (the typed ``draining`` reject).
+inference stream: a streamed generate request of a two-page prompt
+carrying a trace id, then ``trace_fetch``, ``metrics_fetch`` (whole and
+filtered), a ``kv_fetch_request`` for that prompt's chain hashes, a stray
+``draft_chunk``, a ``gossip_frame`` (no reply; the stream stays usable), a
+non-streamed request, then ``drain()`` and one more request (the typed
+``draining`` reject).
 
 - ``node_metric_lines`` of the two workers have the same metric families
   and label names (``crowdllama_native_*`` included), and the trace
   records the same spans, parents and meta keys.
 - ``metrics_fetch`` and ``trace_fetch`` are answered over the stream; a
-  ``kv_fetch_request`` gets the in-band refusal (``matched=0``,
-  ``done``, an error); a stray ``draft_chunk`` a terminal nack.
+  ``kv_fetch_request`` gets the prompt's two pages (``matched=2``,
+  ``done``, no error, pages of the same size as the JAX worker's); a
+  stray ``draft_chunk`` a terminal nack.
 - The CLI parses the ``start --worker-mode`` flags it shares with the JAX
   parser into equal values (defaults too); consumer mode starts without
   CUDA, a worker refuses to start without it unless ``--device cpu`` is
@@ -68,6 +70,8 @@ DEADLINE = 120.0
 ENGINE = dict(model="tiny-test", max_context_length=256, kv_page_size=16,
               max_batch_slots=2, warmup=False)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Two full pages of 16 tokens before its last token.
+PAGED_PROMPT = "hello " * 7
 
 
 async def _rt(stream, msg, frames: bool = False):
@@ -100,8 +104,8 @@ async def _drive(pkg: str) -> dict:
         s = await client.new_stream(
             Contact(worker.peer_id, "127.0.0.1", worker.host.listen_port),
             INFERENCE_PROTOCOL)
-        req = jm.create_generate_request("tiny-test", "hello", stream=True,
-                                         max_tokens=6)
+        req = jm.create_generate_request("tiny-test", PAGED_PROMPT,
+                                         stream=True, max_tokens=6)
         req.trace_id, req.parent_span = "trace-1", "gateway"
         out["frames"] = await _rt(s, req, frames=True)
         out["trace"] = (await _rt(s, jm.trace_fetch_msg("trace-1"))).trace_spans
@@ -109,8 +113,11 @@ async def _drive(pkg: str) -> dict:
         out["metrics"] = (await _rt(s, jm.metrics_fetch_msg())).metrics_snapshot
         out["metrics_req"] = (await _rt(s, jm.metrics_fetch_msg(
             ["crowdllama_request_seconds"]))).metrics_snapshot
+        runner = engine.runner if pkg == "torch" else engine._runner
+        keys = runner.chain_keys_for_prompt(
+            engine.tokenizer.encode(PAGED_PROMPT))
         out["kv"] = (await _rt(s, jm.create_kv_fetch_request(
-            "tiny-test", [b"\x01" * 32], 16))).kv_pages
+            "tiny-test", keys, 16))).kv_pages
         out["draft"] = (await _rt(s, jm.draft_chunk_msg(
             "tiny-test", chunk_id=3, position=9, tokens=[1]))).verify_result
         await jwire.write_length_prefixed_pb(
@@ -196,10 +203,13 @@ def test_served_arms(served):
                 pkg["metrics_req"].payload.decode().splitlines()
                 if ln.startswith("# TYPE")}
         assert fams == {"crowdllama_request_seconds"}
-    kv = t["kv"]
-    assert (kv.matched, kv.done, kv.model) == (0, True, "tiny-test")
-    assert kv.error and not kv.k_pages
-    assert (j["kv"].matched, j["kv"].done) == (0, True)
+    for kv in (t["kv"], j["kv"]):
+        assert (kv.matched, kv.done, kv.model, kv.error) == (
+            2, True, "tiny-test", "")
+        assert kv.kv_dtype == "bfloat16" and not kv.k_scales
+        assert len(kv.k_pages) == len(kv.v_pages) == 2
+    assert [len(b) for b in t["kv"].k_pages] == [
+        len(b) for b in j["kv"].k_pages]
 
 
 # ------------------------------------------------------------------- CLI
@@ -223,7 +233,15 @@ def _configs(argv):
     return t, j
 
 
-@pytest.mark.parametrize("argv", [[], SHARED], ids=["defaults", "shared"])
+@pytest.mark.parametrize("argv", [
+    [], SHARED,
+    # The replicated gateway's flags and the worker's fetch threshold,
+    # refused by the port until its gossip plane and KV page shipping.
+    ["--gateway-peers", "a:1, b:2"], ["--gossip-interval", "3"],
+    ["--gossip-snapshot", "/s"], ["--tenant-quota", "t=1"],
+    ["--kv-ship-min-tokens", "64"]],
+    ids=["defaults", "shared", "gateway-peers", "gossip-interval",
+         "gossip-snapshot", "tenant-quota", "kv-ship-min-tokens"])
 def test_cli_flags_parse_as_the_jax_clis(argv):
     t, j = _configs(argv)
     shared = [f.name for f in dataclasses.fields(t)
@@ -269,13 +287,8 @@ def test_cli_refuses_consumer_mode_and_a_missing_card(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--gateway-peers", "a:1", "item 1.4"),
-    ("--gossip-interval", "3", "item 1.4"),
-    ("--gossip-snapshot", "/s", "item 1.4"),
-    ("--tenant-quota", "t=1", "item 1.4"),
     ("--spec-draft-path", "hf-dir", "item 9"),
     ("--spec-draft-path", "/d", "item 9"),
-    ("--kv-ship-min-tokens", "64", "item 9"),
 ])
 def test_unported_flags_refuse_any_value_but_their_default(flag, value,
                                                           item, tmp_path):
