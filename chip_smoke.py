@@ -126,8 +126,11 @@ Phases, each printing one JSON line:
    ``Gateway`` replicas gossiping through ``GossipNode``s, all on
    127.0.0.1.  The continuation of a chat whose 1,465-token first turn
    ran on worker 1 lands on worker 2, which fetches worker 1's 11 pages
-   and streams what it streams from an empty cache, token for token,
-   kernel B launching over the imported pages; the same prompt direct on
+   and streams what worker 1 streams from its cache, token for token,
+   kernel B launching over the imported pages; worker 2's last-position
+   logits of the turn-1 prompt over the imported pages agree with a
+   prefill of it from an empty cache within 5% of their scale (on int8
+   pools too); the same prompt direct on
    worker 2, from an empty cache and with the donor, in 3 alternated
    pairs (TTFT, fetch ms, bytes) and the card's busy share over 1 s of
    an import; an injected ``kv.serve`` error: plain prefill, the same
@@ -225,6 +228,20 @@ Phases, each printing one JSON line:
    a streamed greedy ``/api/chat`` equal to a direct ``generate()`` with
    verify rounds answered, then ``"worker"`` mode (pure ack credits)
    with the same text;
+12b. hf (its own line): HF checkpoints written by the port
+   (``save_hf_checkpoint``: bf16 ``LlamaForCausalLM`` tensors in two
+   shards with an index, the published ``config.json``, a
+   ``tokenizer.json`` and a ``tokenizer_config.json`` with the chat
+   template, from ``testing/hf_fixtures.py``) and served through
+   ``TorchEngine(model=<a name outside the registry>, model_path=dir)``:
+   tinyllama-1.1b at full width and depth (byte-fallback BPE,
+   TinyLlama-Chat's template, the paged phase's 8 streams as chats) and
+   llama-3.1-8b cut to 4 layers (llama3 rope scaling, byte-level BPE,
+   Llama-3.1's template, 3 chats of 16 tokens).  Each: the config equal
+   to the registry's, every tensor as written, streams token for token
+   those of an engine on the same weights in memory fed the same prompt
+   ids, A, B and C launched, stream deltas equal to ``decode``; load
+   seconds, GB/s and the host's peak RSS;
 13. engine_llama_int8, contiguous_llama, engine_llama_tp,
    engine_llama_tp_int8: llama-3-8b cut to 4 layers at full width on
    int8 pools (B-int8, C-int8), the contiguous layout (D), tp=2 on the
@@ -251,6 +268,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import contextvars
+import dataclasses
 import functools
 import gc
 import json
@@ -2600,6 +2618,55 @@ def _kv_span_ms(worker, name: str) -> list[float]:
             for s in t["spans"] if s["name"] == name]
 
 
+async def import_logits_check(engine, prompt: str, pages: int) -> dict:
+    """The import route against a cold prefill, at the runner's level, on
+    ``engine``'s dispatch thread: the last-position logits of ``prompt``
+    prefilled as its suffix over the ``pages`` pages its chain finds in
+    the prefix index (the pages a fetch imported), against those of a
+    prefill of the whole prompt from an empty cache (kernel A).  bf16 (or
+    int8) rounding moves them by a few per cent of their scale at most; a
+    wrong page, table or offset by O(1)."""
+    import numpy as np
+
+    from crowdllama_tpu_torch.engine.runner import ModelRunner
+
+    r = engine.runner
+    ids = engine.tokenizer.encode(prompt)
+    pg = r.page_size
+
+    def check(state) -> dict:
+        matched = r._match_prefix(r._chain_keys(ids, (len(ids) - 1) // pg))
+        if len(matched) != pages:
+            raise AssertionError(f"kv_ship: {len(matched)} cached pages "
+                                 f"for the prompt, expected {pages}")
+        got: list = []
+        sample = r._sample_first
+
+        def capture(logits, *args, **kwargs):
+            got.append(logits.float()[0].clone())
+            return sample(logits, *args, **kwargs)
+
+        table = np.full((r.max_pages_per_slot,), r.total_pages, np.int64)
+        table[:pages] = matched
+        r._sample_first = capture
+        try:
+            with torch.inference_mode():
+                r._prefill_ctx(ids, pages * pg, state,
+                               torch.from_numpy(table).to(r.device), 0.0,
+                               1.0, None, 0, 1.0)
+                ModelRunner.prefill(r, ids, 0.0, 1.0, None)
+        finally:
+            del r._sample_first
+        via_pages, cold = got
+        return {"import_vs_cold": _logit_err(via_pages, cold),
+                "prompt_tokens": len(ids), "suffix_tokens": len(ids)
+                - pages * pg}
+
+    errs = await engine.scheduler.run_exclusive(check)
+    _check_logit_errs({"import_vs_cold": errs["import_vs_cold"]}, "kv_ship")
+    return errs
+
+
 def kv_ship_phase(dev) -> tuple[dict, dict]:
     """KV page shipping and the replicated gateway on the card, every
     module the port's own, on 127.0.0.1: a DHT node, two tinyllama-1.1b
@@ -2626,6 +2693,11 @@ def kv_ship_phase(dev) -> tuple[dict, dict]:
     stream of the same prompt from its cache token for token (and its
     share equal to worker 2's from an empty cache is reported), and
     kernel B launches (counts zeroed right before the continuation).
+    Beside that token check, a logits check: after an import, worker 2's
+    last-position logits of the turn-1 prompt over the 11 imported pages
+    (the suffix prefilled over them) against a prefill of the whole
+    prompt from an empty cache, within ``LOGIT_RTOL`` of their scale (an
+    import fault moves them by O(1); on int8 pools too).
     Then, direct on worker 2, the turn-1 prompt from an empty cache
     without and with the donor in 3 alternated pairs: TTFT (the import
     path's includes its fetch), fetch ms, bytes, every cold stream equal
@@ -2831,6 +2903,9 @@ def kv_ship_phase(dev) -> tuple[dict, dict]:
             out["import_busy"] = {"ttft_ms": r["ttft_ms"],
                                   "fetch_ms": r["fetch_ms"],
                                   **busy_share(trace, PROFILE_S)}
+            # The imported pages against a cold prefill, within the kernel
+            # checks' tolerance.
+            out["logits"] = await import_logits_check(e2, prompt1, 11)
 
             # The one deliberate fallback: kv.serve fails on worker 1.
             await _evict(e2)
@@ -2978,7 +3053,9 @@ def kv_ship_phase(dev) -> tuple[dict, dict]:
             r = await _direct_ids(i2, prompt1, KV_TOKENS,
                                   kv_donor=v1.peer_id)
             launches8 = _launches()
+            logits8 = await import_logits_check(i2, prompt1, 11)
             out["int8"] = {"pages": i2.runner.kv_pages_imported,
+                           "logits": logits8,
                            "bytes": i2.obs.metrics.kv_ship["bytes"],
                            "ttft_ms": r["ttft_ms"], "fetch_ms": r["fetch_ms"],
                            "cold_ttft_ms": cold8["ttft_ms"],
@@ -3000,8 +3077,8 @@ def kv_ship_phase(dev) -> tuple[dict, dict]:
         out, rep = asyncio.run(go(tmp))
     _free_card()
     card, smi = torch.cuda.get_device_name(0), nvidia_smi()
-    return ({"phase": "kv_ship", "model": TINYLLAMA, **out, "card": card,
-             "nvidia_smi": smi},
+    return ({"phase": "kv_ship", "model": TINYLLAMA, **out,
+             "logits_rtol": LOGIT_RTOL, "card": card, "nvidia_smi": smi},
             {"phase": "replicated", "model": TINYLLAMA, "replicas": 2,
              **rep, "card": card, "nvidia_smi": smi})
 
@@ -4047,6 +4124,330 @@ def llama_cut_phase(dev, phase: str, ran: set[str], **engine_kw) -> dict:
           **summary, **out, "logits_max_abs_err": errs, "logits_rtol": rtol,
           "steady_decode": steady, "card": torch.cuda.get_device_name(0)})
     return summary["launches"]
+
+
+# ------------------------------------------------------------ HF checkpoints
+
+HF_TOKENS = 32
+HF_LLAMA = "llama-3.1-8b"
+HF_LLAMA_TOKENS = 16
+# Decode dispatches before the long chat enters the queue: the same step
+# on every engine, so two engines on the same weights batch alike.
+HF_INJECT_AT = 2
+# The synthetic tokenizers' merges are learned from the phase's prompts.
+HF_CORPUS = SHORT + [HIT, LONG, "You answer in one short paragraph."]
+HF_SYSTEM = {"role": "system", "content": HF_CORPUS[-1]}
+
+
+class _DeltaLog:
+    """Tokenizer proxy: each stream's decoder appends (id, text delta) to
+    the list its task set in ``_STREAM_IDS``."""
+
+    def __init__(self, tok):
+        self._tok = tok
+
+    def __getattr__(self, name):
+        return getattr(self._tok, name)
+
+    def stream_decoder(self):
+        dec, log = self._tok.stream_decoder(), _STREAM_IDS.get()
+
+        class _Dec:
+            def feed(self, token_id):
+                text = dec.feed(token_id)
+                if log is not None:
+                    log.append((int(token_id), text))
+                return text
+
+        return _Dec()
+
+
+class _RssPeak:
+    """The host's resident set sampled every 5 ms on a thread while
+    entered: ``before`` and ``peak`` bytes."""
+
+    def __enter__(self):
+        import os
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.before = self.peak = self._rss()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, self._rss())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+async def _serve_chats(engine, prompts: dict, long_name: str | None,
+                       tokens: int) -> dict:
+    """Greedy streams of ``prompts`` (name -> prompt text): all but
+    ``long_name`` sent at once (the loop is idle, so it admits them in one
+    pass), ``long_name`` put in the queue at the scheduler's
+    ``HF_INJECT_AT``-th dispatch, while the others decode.  name -> its
+    token ids, the concatenated text deltas, and its final chunk's
+    counts."""
+    sched = engine.scheduler
+    out: dict = {}
+
+    async def run(name: str) -> None:
+        log: list = []
+        _STREAM_IDS.set(log)
+        final = None
+        async for chunk in engine.generate(prompts[name], max_tokens=tokens):
+            final = chunk
+        out[name] = {"ids": [t for t, _ in log],
+                     "deltas": "".join(d for _, d in log),
+                     "done": final.done,
+                     "completion_tokens": final.completion_tokens,
+                     "prompt_tokens": final.prompt_tokens}
+
+    admit, late = sched._admit_pending, []
+
+    async def admit_then_inject() -> None:
+        if (long_name and not late
+                and sched.host_dispatches >= HF_INJECT_AT):
+            n = sched.pending.qsize()
+            late.append(asyncio.create_task(run(long_name)))
+            while sched.pending.qsize() == n and not late[0].done():
+                await asyncio.sleep(0)
+        await admit()
+
+    sched._admit_pending = admit_then_inject
+    try:
+        await asyncio.gather(*[asyncio.create_task(run(n)) for n in prompts
+                               if n != long_name])
+        if long_name and not late:
+            raise AssertionError("hf: the long chat was never sent")
+        await asyncio.gather(*late)
+    finally:
+        del sched._admit_pending
+    return out
+
+
+def _hf_model(dev, root: str, name: str, registry: str, params: dict,
+              config: dict, tokenizer: tuple, shards: int, chats: dict,
+              long_name: str, tokens: int, layers: int | None) -> dict:
+    """One HF directory written and served (see :func:`hf_phase`)."""
+    import os
+
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.engine.weights import save_hf_checkpoint
+    from crowdllama_tpu_torch.models.config import get_config
+    from crowdllama_tpu_torch.models.convert import hf_state_dict
+    from crowdllama_tpu_torch.testing.hf_fixtures import write_tokenizer
+
+    want_cfg = get_config(registry, **({"num_layers": layers} if layers
+                                       else {}))
+    path = os.path.join(root, name)
+    t0 = time.perf_counter()
+    if layers:
+        config = dict(config, num_hidden_layers=layers)
+    files = save_hf_checkpoint(hf_state_dict(want_cfg, params), config,
+                               path, shards=shards)
+    write_tokenizer(path, *tokenizer)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(f) for f in files)
+    gc.collect()
+
+    async def serve_hf():
+        torch.cuda.reset_peak_memory_stats(dev)
+        engine = TorchEngine(device=dev, model=name, model_path=path)
+        t0 = time.perf_counter()
+        with _RssPeak() as rss:
+            await engine.start()
+        start_s = time.perf_counter() - t0
+        try:
+            # Every loaded tensor as written (on the card, as the runner
+            # holds it), and the config as the registry's.
+            flat_loaded = _flat(engine.runner.params[0])
+            flat_want = _flat(params)
+            unequal = sorted(k for k in flat_want
+                             if k not in flat_loaded or not torch.equal(
+                                 flat_loaded[k], flat_want[k].to(dev)))
+            clamp = min(want_cfg.max_context_length,
+                        engine.config.max_context_length)
+            cfg_want = dataclasses.replace(want_cfg, name=name,
+                                           max_context_length=clamp)
+            prompts = {n: engine._format_chat(m) for n, m in chats.items()}
+            tok = engine.tokenizer
+            engine.tokenizer = _DeltaLog(tok)
+            hits0 = engine.runner.prefix_hits
+            _zero_launches()
+            served = await _serve_chats(engine, prompts, long_name, tokens)
+            launches = _launches()
+            hits = engine.runner.prefix_hits - hits0
+            ragged = engine.scheduler.ragged_chunks
+            ragged_chunk = engine.runner.ragged_chunk
+        finally:
+            await engine.stop()
+        return {"engine": engine, "tok": tok, "prompts": prompts,
+                "served": served, "launches": launches, "hits": hits,
+                "ragged_chunks": ragged, "ragged_chunk": ragged_chunk,
+                "start_s": start_s, "rss": rss, "unequal": unequal,
+                "n_tensors": len(flat_want), "cfg_ok":
+                engine.model_config == cfg_want,
+                "cfg": dataclasses.asdict(engine.model_config)}
+
+    got = asyncio.run(serve_hf())
+    engine, tok = got.pop("engine"), got["tok"]
+    load_s = engine.load_seconds
+    del engine
+    _free_card()
+
+    async def serve_memory():
+        # The same weights in memory, fed the same prompt ids (the HF
+        # engine's tokenizer), the same steps.
+        engine = TorchEngine(params=params, device=dev, model=registry,
+                             model_config=want_cfg if layers else None)
+        await engine.start()
+        engine.tokenizer = _DeltaLog(tok)
+        try:
+            return await _serve_chats(engine, got["prompts"], long_name,
+                                      tokens)
+        finally:
+            await engine.stop()
+
+    ref = asyncio.run(serve_memory())
+    _free_card()
+    served = got["served"]
+    streams = {}
+    for n, v in served.items():
+        streams[n] = {
+            "prompt_tokens": v["prompt_tokens"],
+            "done": v["done"] and v["completion_tokens"] == tokens
+            and len(v["ids"]) == tokens,
+            "same_as_memory": v["ids"] == ref[n]["ids"],
+            "deltas_equal_decode": v["deltas"] == tok.decode(v["ids"])}
+    line = {"layers": want_cfg.num_layers,
+            "head_dim": want_cfg.resolved_head_dim(),
+            "config_equal": got["cfg_ok"], "rope_scaling":
+            got["cfg"]["rope_scaling"], "shards": len(files),
+            "bytes": nbytes, "write_s": write_s, "load_s": load_s,
+            "load_gb_per_s": nbytes / load_s / 1e9, "start_s":
+            got["start_s"], "rss_before_bytes": got["rss"].before,
+            "rss_peak_bytes": got["rss"].peak,
+            "tensors_equal": not got["unequal"],
+            "tensors": got["n_tensors"], "launches": got["launches"],
+            "prefix_hits": got["hits"],
+            "ragged_chunks": got["ragged_chunks"], "streams": streams,
+            "bos_id": tok.bos_id, "eos_id": tok.eos_id}
+    long_tokens = served[long_name]["prompt_tokens"]
+    if not (got["cfg_ok"] and not got["unequal"]
+            and all(v["done"] and v["same_as_memory"]
+                    and v["deltas_equal_decode"] for v in streams.values())
+            and all(got["launches"][k] > 0 for k in ("A", "B", "C"))
+            and long_tokens > got["ragged_chunk"]
+            and got["ragged_chunks"] >= 1):
+        raise AssertionError(f"hf {name}: {line} (config "
+                             f"{got['cfg']}, unequal {got['unequal'][:5]})")
+    return line
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def _zero_columns(params: dict, ids) -> dict:
+    """Zero the unembedding columns of ``ids`` in place: random weights
+    then never emit them (the model's EOS, and the byte tokens whose lone
+    decodes a stream decoder renders differently from a whole decode)."""
+    params["lm_head"][:, torch.as_tensor(list(ids))] = 0
+    return params
+
+
+def hf_phase(dev) -> dict:
+    """HF checkpoints served through ``TorchEngine(model=<a name outside
+    the registry>, model_path=dir)``.  Two directories are written under
+    a temporary directory by the port's own ``save_hf_checkpoint`` /
+    ``write_safetensors``: bf16 tensors under ``LlamaForCausalLM`` names,
+    projections ``[out, in]``, in two shards with a
+    ``model.safetensors.index.json``; the published ``config.json``
+    fields; a ``tokenizer.json`` and a ``tokenizer_config.json`` with the
+    family's chat template, written here (``testing/hf_fixtures.py``):
+
+    - tinyllama-1.1b at full width and depth: the seed-0 weights with the
+      unembedding of ``<unk>``, ``<s>``, ``</s>`` and the 256 byte tokens
+      zeroed; TinyLlama's kind of byte-fallback BPE; TinyLlama-Chat's
+      template; the paged phase's 8 streams of 32 tokens as chats (6
+      short, the prefix hit, the long one sent while the others decode);
+    - llama-3.1-8b cut to ``LLAMA_CUT_LAYERS`` layers (``reduced``), its
+      llama3 rope scaling in config.json: random weights from seed 0 with
+      the byte tokens' and the specials' columns zeroed; Llama-3's kind of
+      byte-level BPE; Llama-3.1's template; 2 short chats and the long
+      one of 16 tokens.
+
+    Each must: derive the registry's config (but the name and the cut),
+    hold every tensor as written, stream token for token what an engine
+    given the same weights in memory streams from the same prompt ids in
+    the same steps, launch kernels A, B and C (counts zeroed right before
+    the streams: Dh 64, then Dh 128), and stream deltas that concatenate
+    to ``decode`` of the ids.  The line: per model the write and load
+    seconds, GB/s of the load (from the page cache), the host's RSS
+    before and at its peak while the engine started, shards and bytes,
+    the launches and each chat's prompt tokens."""
+    import tempfile
+
+    from crowdllama_tpu_torch.engine.weights import init_params
+    from crowdllama_tpu_torch.models.config import get_config
+    from crowdllama_tpu_torch.testing import hf_fixtures as hf
+
+    chats = {f"short{i}": [{"role": "user", "content": p}]
+             for i, p in enumerate(SHORT)}
+    chats["short5"] = [HF_SYSTEM, {"role": "user", "content": SHORT[5]}]
+    chats["prefix_hit"] = [{"role": "user", "content": HIT}]
+    chats["long"] = [{"role": "user", "content": LONG}]
+    out = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hf") as root:
+        # A fresh copy: the cached one is shared, and the gateway phase
+        # made it printable in place.
+        params = _zero_columns(seed0_params.__wrapped__(dev), range(3 + 256))
+        out[TINYLLAMA] = _hf_model(
+            dev, root, "hf-tinyllama-chat", TINYLLAMA, params,
+            hf.TINYLLAMA_CONFIG, hf.sentencepiece_tokenizer(HF_CORPUS), 2,
+            chats, "long", HF_TOKENS, None)
+        del params
+        _free_card()
+        cfg = get_config(HF_LLAMA, num_layers=LLAMA_CUT_LAYERS)
+        params = init_params(cfg, seed=0, device=dev)
+        _zero_columns(params, [*range(256), *range(128000, 128256)])
+        params = {k: ({x: y.cpu() for x, y in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+        _free_card()
+        out[HF_LLAMA] = _hf_model(
+            dev, root, "hf-llama-3.1-instruct", HF_LLAMA, params,
+            hf.LLAMA31_CONFIG, hf.byte_level_tokenizer(HF_CORPUS), 2,
+            {k: [HF_SYSTEM, *chats[k]] if k == "short1" else chats[k]
+             for k in ("short0", "short1", "long")}, "long",
+            HF_LLAMA_TOKENS, LLAMA_CUT_LAYERS)
+        out[HF_LLAMA]["reduced"] = {"num_layers": [32, LLAMA_CUT_LAYERS]}
+        del params
+    _free_card()
+    return {"phase": "hf", **out, "seconds": time.perf_counter() - t0,
+            "card": torch.cuda.get_device_name(0),
+            "nvidia_smi": nvidia_smi()}
 
 
 # ------------------------------------------------------------ megastep
@@ -5101,6 +5502,8 @@ def main() -> int:
     int8_contiguous_phase(dev)
     _free_card()
     spec_phase(dev)
+    _free_card()
+    emit(hf_phase(dev))
     _free_card()
     # Dh 128: llama-3-8b at full depth on the paged main path, then cut to
     # LLAMA_CUT_LAYERS layers on the other paths.

@@ -13,8 +13,8 @@ flight recorder) and a worker's ``worker_metrics_port`` parse as the JAX
 package's, and so do speculation's (``spec_decode``, ``spec_draft``,
 ``spec_draft_model``, ``spec_draft_path``, ``spec_draft_max``,
 ``gateway_spec_pipeline``), with the JAX package's checks; a
-``spec_draft_path`` must be a native checkpoint (HF-layout directories
-are not ported).  The replicated gateway's fields (``gateway_peers``,
+``spec_draft_path`` must be a checkpoint directory, native or HF.  The
+replicated gateway's fields (``gateway_peers``,
 ``gossip_interval``, ``gossip_snapshot_path``, ``tenant_quota``) and the
 worker's KV fetch threshold (``kv_ship_min_tokens``) parse and are served
 as the JAX package's.  The one new flag is
@@ -102,7 +102,7 @@ def _csv(value: str) -> list[str]:
 
 def _check_spec(cfg) -> None:
     """The JAX package's speculation checks, and a ``spec_draft_path``
-    that must be a native checkpoint."""
+    that must be a checkpoint directory (native or HF)."""
     if cfg.spec_decode:
         if cfg.kv_layout == "contiguous" and cfg.kv_dtype != "bf16":
             raise ValueError(
@@ -130,11 +130,9 @@ def _check_spec(cfg) -> None:
                 "(the serving default); drop --kv-layout contiguous or "
                 "use spec_decode=ngram")
     if cfg.spec_draft_path:
-        from crowdllama_tpu_torch.engine.weights import (
-            require_native_checkpoint,
-        )
+        from crowdllama_tpu_torch.engine.weights import require_checkpoint
 
-        require_native_checkpoint(cfg.spec_draft_path, "spec_draft_path")
+        require_checkpoint(cfg.spec_draft_path, "spec_draft_path")
 
 
 @dataclass
@@ -205,7 +203,8 @@ class Configuration:
 
     # ---- engine
     model: str = "tinyllama-1.1b"
-    model_path: str = ""  # empty = random-init weights (only mode ported)
+    # empty = random-init weights; else a native or an HF checkpoint dir
+    model_path: str = ""
     max_batch_slots: int = 8
     max_context_length: int = 2048
     decode_chunk: int = 8  # decode steps per device dispatch

@@ -360,8 +360,7 @@ class Engine:
                 trace_id=msg.trace_id)
 
     def _format_chat(self, messages: list[dict], model: str = "") -> str:
-        """Chat -> prompt string: the role-tagged flattening (the byte
-        tokenizer has no chat template)."""
+        """Chat -> prompt string: the role-tagged flattening."""
         return flatten_chat(messages)
 
     def _prompt_of(self, req: pb.GenerateRequest) -> str:
@@ -416,7 +415,10 @@ class TorchEngine(Engine):
     devices, each once); ``devices`` may name one device twice, e.g.
     ``["cpu", "cpu"]`` or two shards on one card.  ``model_config`` (a
     ``ModelConfig``) serves in place of the registry's entry for
-    ``config.model``, e.g. a copy cut to fewer layers."""
+    ``config.model``, e.g. a copy cut to fewer layers.  ``model_path``
+    (a native or an HF checkpoint directory) serves its weights and
+    tokenizer; a ``model`` name outside the registry takes the
+    directory's config.json."""
 
     supports_kv_donor = True
 
@@ -447,6 +449,8 @@ class TorchEngine(Engine):
         self.scheduler = None
         self.tokenizer = None
         self.runner = None
+        self.model_config = None
+        self.load_seconds = 0.0  # host seconds to load model_path
         self.plan = None
         self._kv_streams = None  # pooled donor streams (lazy StreamPool)
 
@@ -461,19 +465,32 @@ class TorchEngine(Engine):
         )
         from crowdllama_tpu_torch.engine.scheduler import Scheduler
         from crowdllama_tpu_torch.engine.tokenizer import get_tokenizer
-        from crowdllama_tpu_torch.models.config import get_config
+        from crowdllama_tpu_torch.engine.weights import (
+            load_params_for,
+            resolve_clamped_model_config,
+        )
 
         c = self.config
         self.plan = resolve_serving_plan(c, devices=self.devices)
-        cfg = self._model_config or get_config(c.model)
-        if c.max_context_length:
-            cfg = dataclasses.replace(cfg, max_context_length=min(
-                cfg.max_context_length, c.max_context_length))
+        if self._model_config is not None:
+            cfg = self._model_config
+            if c.max_context_length:
+                cfg = dataclasses.replace(cfg, max_context_length=min(
+                    cfg.max_context_length, c.max_context_length))
+        else:
+            cfg = resolve_clamped_model_config(c)
+        self.model_config = cfg
         self.tokenizer = get_tokenizer(c.model_path)
         loop = asyncio.get_running_loop()
 
         def _build():
             params, self._params = self._params, None
+            if params is None and c.model_path:
+                # Loaded on the host; the runner places (and under tp
+                # shards) it.  Without a path the runner inits on the card.
+                t0 = time.perf_counter()
+                params = load_params_for(c, cfg, dtype=self.dtype)
+                self.load_seconds = time.perf_counter() - t0
             return build_runner(c, self.plan, cfg, params,
                                 dtype=self.dtype, seed=self.seed,
                                 device=self._device, devices=self.devices)
@@ -494,6 +511,22 @@ class TorchEngine(Engine):
                  "slots=%d max_seq=%d", cfg.name, self.runner.devices,
                  self.plan.kv_layout, self.plan.kv_dtype,
                  self.runner.max_slots, self.runner.max_seq)
+
+    def _format_chat(self, messages: list[dict], model: str = "") -> str:
+        """Chat -> prompt string: the checkpoint's own chat template when
+        its tokenizer has one, else the role-tagged flattening."""
+        fmt = getattr(self.tokenizer, "format_chat", None)
+        if fmt is not None:
+            try:
+                return fmt(messages)
+            except ValueError:
+                pass  # no template (or none this package renders): flatten
+            except Exception:
+                # A template that rejects this conversation (Gemma's raises
+                # on a system role): flatten, loudly.
+                log.warning("chat template failed; using generic "
+                            "flattening", exc_info=True)
+        return flatten_chat(messages)
 
     def _warmup(self) -> None:
         """Run every serving path once before serving: monolithic prefill +

@@ -5,6 +5,7 @@ Counterpart of the ported subset of ``crowdllama_tpu/engine/factory.py``
 mesh ``config.mesh_shape`` names (ranks on ``devices``, else the visible
 CUDA devices).  The draft-model runner's draft comes from
 ``spec_draft_path`` (a native checkpoint, which carries its own
+architecture, or an HF checkpoint of ``spec_draft_model``'s
 architecture) or, without one, is ``spec_draft_model`` from the registry
 on random weights (seed 0).
 """
@@ -19,22 +20,27 @@ import torch
 def draft_model(config, cfg, dtype: torch.dtype = torch.bfloat16):
     """(draft ModelConfig, its parameter dict on the host or None for a
     random init) for ``spec_decode="draft"``, at the main model's
-    context."""
+    context: a native checkpoint carries its own architecture; otherwise
+    the architecture is ``spec_draft_model``'s registry entry, with an HF
+    ``spec_draft_path``'s weights."""
     from crowdllama_tpu_torch.engine.weights import (
-        load_native_params,
+        is_native_checkpoint,
+        load_or_init_params,
         native_config_from_dir,
     )
     from crowdllama_tpu_torch.models.config import get_config
 
-    if config.spec_draft_path:
+    path = config.spec_draft_path
+    if path and is_native_checkpoint(path):
         draft_cfg = dataclasses.replace(
-            native_config_from_dir(config.spec_draft_path),
+            native_config_from_dir(path),
             max_context_length=cfg.max_context_length)
-        return draft_cfg, load_native_params(draft_cfg,
-                                             config.spec_draft_path,
-                                             dtype=dtype)
-    return get_config(config.spec_draft_model,
-                      max_context_length=cfg.max_context_length), None
+    else:
+        draft_cfg = get_config(config.spec_draft_model,
+                               max_context_length=cfg.max_context_length)
+    if not path:
+        return draft_cfg, None
+    return draft_cfg, load_or_init_params(draft_cfg, path, dtype=dtype)
 
 
 def build_runner(config, plan, cfg, params=None, *,

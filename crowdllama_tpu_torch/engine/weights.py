@@ -1,24 +1,30 @@
-"""Weights: random init from a seed, weights carried across from numpy, and
-native checkpoints.
+"""Weights: random init from a seed, weights carried across from numpy,
+native checkpoints and local HF checkpoints.
 
 Counterpart of ``crowdllama_tpu/engine/weights.py``.  Nothing is
 downloaded.  A native checkpoint is the engine's own layout on disk: a
 ``config.json`` holding the marker key and the whole ``ModelConfig``, and
 a ``model.safetensors`` holding the flattened parameter dict (the JAX
 package's ``/``-joined names, float32, as ``train/distill.py`` and
-``save_params`` there write it).  The safetensors format is read and
-written here with numpy alone (an 8-byte little-endian header length, a
-JSON header of dtype, shape and byte offsets, then the raw little-endian
-buffers): ``BF16`` tensors are read as ``uint16`` and viewed as
-``torch.bfloat16``.  HF-layout checkpoints (``config_from_hf_dir``,
-``params_from_hf``) are not ported yet.
+``save_params`` there write it).  An HF checkpoint is a directory of
+``config.json`` and one or more ``*.safetensors`` shards under the
+``transformers`` names (``model.safetensors.index.json`` maps names to
+shards): :func:`config_from_hf_dir` derives its ``ModelConfig`` and
+:func:`load_safetensors_params` feeds ``models/convert.py``.  The
+safetensors format is read and written here with numpy alone (an 8-byte
+little-endian header length, a JSON header of dtype, shape and byte
+offsets, then the raw little-endian buffers); a file is read through a
+copy-on-write memory map, one tensor at a time, so loading copies each
+tensor once, into the stacked parameter.  ``BF16`` tensors are read as
+``uint16`` and viewed as ``torch.bfloat16``.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import struct
-from dataclasses import asdict
+from dataclasses import asdict, replace
 from pathlib import Path
 
 import numpy as np
@@ -27,9 +33,10 @@ import torch
 from crowdllama_tpu_torch.models import transformer as T
 from crowdllama_tpu_torch.models.config import ModelConfig, RopeScaling
 
+log = logging.getLogger("crowdllama.torch.engine.weights")
+
 #: the config.json key that marks a native checkpoint
 NATIVE_MARKER = "crowdllama_tpu_native"
-_HF_ITEM = "ROADMAP Queue 1 item 9 (HF checkpoints)"
 
 # safetensors dtype names -> numpy dtypes (BF16 as its raw uint16 bits).
 _ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
@@ -69,54 +76,83 @@ def params_from_numpy(flat: dict[str, np.ndarray],
 
 # ---------------------------------------------------------------- safetensors
 
-def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
-    """Every tensor of a safetensors file, on the host (BF16 as
-    ``torch.bfloat16``)."""
-    data = Path(path).read_bytes()
-    (n,) = struct.unpack("<Q", data[:8])
-    header = json.loads(data[8:8 + n])
-    base = 8 + n
-    out: dict[str, torch.Tensor] = {}
-    for name, meta in header.items():
-        if name == "__metadata__":
-            continue
+class SafetensorsFile:
+    """One safetensors file, its header parsed and its body mapped
+    (copy-on-write, so tensors are writable views that never touch the
+    file); :meth:`get` returns one tensor without copying it."""
+
+    def __init__(self, path: str | Path):
+        self.path = Path(path)
+        with open(self.path, "rb") as f:
+            (n,) = struct.unpack("<Q", f.read(8))
+            header = json.loads(f.read(n))
+        header.pop("__metadata__", None)
+        self.header: dict = header
+        self._base = 8 + n
+        size = self.path.stat().st_size
+        self._map = (np.memmap(self.path, dtype=np.uint8, mode="c")
+                     if size > self._base else np.zeros(0, np.uint8))
+
+    def keys(self) -> list[str]:
+        return list(self.header)
+
+    def get(self, name: str) -> torch.Tensor:
+        meta = self.header[name]
         kind = meta["dtype"]
         if kind not in _ST_DTYPES:
-            raise ValueError(f"{path}: tensor {name} has dtype {kind}, which "
-                             f"this reader does not know")
+            raise ValueError(f"{self.path}: tensor {name} has dtype {kind}, "
+                             f"which this reader does not know")
         start, end = meta["data_offsets"]
-        dt = np.dtype(_ST_DTYPES[kind]).newbyteorder("<")
-        arr = np.frombuffer(data, dtype=dt, count=(end - start) // dt.itemsize,
-                            offset=base + start).reshape(meta["shape"])
-        t = torch.from_numpy(arr.astype(dt.newbyteorder("="), copy=True))
-        out[name] = t.view(torch.bfloat16) if kind == "BF16" else t
-    return out
+        dt = np.dtype(_ST_DTYPES[kind])
+        raw = self._map[self._base + start:self._base + end]
+        t = torch.from_numpy(raw.view(dt).reshape(meta["shape"]))
+        return t.view(torch.bfloat16) if kind == "BF16" else t
 
 
-def write_safetensors(tensors: dict[str, np.ndarray],
-                      path: str | Path) -> None:
-    """Write numpy arrays as a safetensors file (names sorted, buffers
-    packed in that order, the header padded with spaces to 8 bytes)."""
+def read_safetensors(path: str | Path) -> dict[str, torch.Tensor]:
+    """Every tensor of a safetensors file, on the host (BF16 as
+    ``torch.bfloat16``), each a view of the file's memory map."""
+    f = SafetensorsFile(path)
+    return {name: f.get(name) for name in f.keys()}
+
+
+def _st_array(value) -> tuple[str, np.ndarray]:
+    """(safetensors dtype name, a little-endian numpy view) of a numpy
+    array or a host tensor (``torch.bfloat16`` as its uint16 bits)."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach().contiguous()
+        if t.dtype == torch.bfloat16:
+            return "BF16", t.view(torch.uint16).numpy()
+        value = t.numpy()
+    arr = np.ascontiguousarray(value)
+    kind = _ST_NAMES.get(arr.dtype)
+    if kind is None:
+        raise ValueError(f"dtype {arr.dtype} has no safetensors name")
+    return kind, arr.astype(arr.dtype.newbyteorder("<"), copy=False)
+
+
+def write_safetensors(tensors: dict, path: str | Path) -> None:
+    """Write numpy arrays or host tensors (``torch.bfloat16`` as ``BF16``)
+    as a safetensors file (names sorted, buffers packed in that order, the
+    header padded with spaces to 8 bytes), one tensor at a time."""
     header: dict = {}
-    offset, bufs = 0, []
+    offset, arrays = 0, []
     for name in sorted(tensors):
-        arr = np.ascontiguousarray(tensors[name])
-        kind = _ST_NAMES.get(arr.dtype)
-        if kind is None:
-            raise ValueError(f"tensor {name}: dtype {arr.dtype} has no "
-                             f"safetensors name")
-        buf = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        try:
+            kind, arr = _st_array(tensors[name])
+        except ValueError as e:
+            raise ValueError(f"tensor {name}: {e}") from None
         header[name] = {"dtype": kind, "shape": list(arr.shape),
-                        "data_offsets": [offset, offset + len(buf)]}
-        bufs.append(buf)
-        offset += len(buf)
+                        "data_offsets": [offset, offset + arr.nbytes]}
+        arrays.append(arr)
+        offset += arr.nbytes
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for buf in bufs:
-            f.write(buf)
+        for arr in arrays:
+            f.write(memoryview(arr.reshape(-1)).cast("B"))
 
 
 # ---------------------------------------------------------- native checkpoints
@@ -132,14 +168,30 @@ def is_native_checkpoint(path: str | Path) -> bool:
 
 
 def require_native_checkpoint(path: str | Path, what: str) -> None:
-    """Raise unless ``path`` is a native checkpoint (HF-layout directories
-    are not ported yet)."""
+    """Raise unless ``path`` is a native checkpoint."""
     if not is_native_checkpoint(path):
         raise ValueError(
             f"{what}={str(path)!r} is not a native checkpoint (no "
-            f"{NATIVE_MARKER} marker in its config.json); HF-layout "
-            f"checkpoints are not served by crowdllama_tpu_torch yet "
-            f"({_HF_ITEM})")
+            f"{NATIVE_MARKER} marker in its config.json)")
+
+
+def is_hf_checkpoint(path: str | Path) -> bool:
+    """A directory holding a ``config.json`` without the native marker
+    and at least one ``*.safetensors`` file."""
+    path = Path(path).expanduser()
+    return (path.is_dir() and (path / "config.json").exists()
+            and not is_native_checkpoint(path)
+            and any(path.glob("*.safetensors")))
+
+
+def require_checkpoint(path: str | Path, what: str) -> None:
+    """Raise unless ``path`` is a native or an HF checkpoint directory."""
+    if not (is_native_checkpoint(path) or is_hf_checkpoint(path)):
+        raise ValueError(
+            f"{what}={str(path)!r} is not a checkpoint directory: neither "
+            f"a native checkpoint ({NATIVE_MARKER} marker in its "
+            f"config.json) nor an HF checkpoint (config.json and "
+            f"*.safetensors)")
 
 
 def flatten_params(params: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -214,3 +266,201 @@ def flatten_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
                 yield key, tuple(v.shape)
 
     return dict(walk(params))
+
+
+# ------------------------------------------------------------ HF checkpoints
+
+def load_or_init_params(cfg: ModelConfig, model_path: str = "",
+                        dtype: torch.dtype = torch.bfloat16, seed: int = 0,
+                        device: torch.device | str = "cpu") -> dict:
+    """A native checkpoint, else an HF checkpoint, else (no path, or a
+    path without safetensors, with a warning) random weights from
+    ``seed``; loaded weights land on the host in ``dtype``."""
+    if model_path:
+        path = Path(model_path).expanduser()
+        if is_native_checkpoint(path):
+            log.info("loading native checkpoint from %s", path)
+            return load_native_params(cfg, path, dtype=dtype)
+        if path.is_dir() and list(path.glob("*.safetensors")):
+            log.info("loading weights from %s", path)
+            return load_safetensors_params(cfg, path, dtype=dtype)
+        log.warning("model_path %s has no safetensors; using random init",
+                    path)
+    return init_params(cfg, seed=seed, dtype=dtype, device=device)
+
+
+def load_safetensors_params(cfg: ModelConfig, path: str | Path,
+                            dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Lazy multi-shard reader feeding the HF-name converter: the shards
+    ``model.safetensors.index.json`` maps names to, else every
+    ``*.safetensors`` in the directory; each shard is mapped once, on its
+    first tensor, and every tensor is read when the converter asks."""
+    from crowdllama_tpu_torch.models.convert import params_from_hf
+
+    path = Path(path).expanduser()
+    files: dict[str, SafetensorsFile] = {}
+
+    def shard(fname: str) -> SafetensorsFile:
+        if fname not in files:
+            files[fname] = SafetensorsFile(path / fname)
+        return files[fname]
+
+    index_file = path / "model.safetensors.index.json"
+    if index_file.exists():
+        weight_map: dict[str, str] = json.loads(
+            index_file.read_text())["weight_map"]
+
+        def get(name: str) -> torch.Tensor:
+            return shard(weight_map[name]).get(name)
+    else:
+        names = {n: p.name for p in sorted(path.glob("*.safetensors"))
+                 for n in shard(p.name).keys()}
+
+        def get(name: str) -> torch.Tensor:
+            if name not in names:
+                raise KeyError(f"tensor {name} not found in {path}")
+            return shard(names[name]).get(name)
+
+    return params_from_hf(cfg, get, dtype=dtype)
+
+
+def save_hf_checkpoint(state_dict: dict[str, torch.Tensor],
+                       config: dict, out_dir: str | Path,
+                       shards: int = 1) -> list[Path]:
+    """Write an HF checkpoint: ``config`` as config.json and the state
+    dict (host tensors, as they are) in ``shards`` safetensors files of
+    about equal size; with more than one, a
+    ``model.safetensors.index.json`` maps each name to its shard.
+    Returns the shard paths."""
+    out = Path(out_dir).expanduser()
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "config.json").write_text(json.dumps(config, indent=2))
+    if shards <= 1:
+        path = out / "model.safetensors"
+        write_safetensors(state_dict, path)
+        return [path]
+    names = list(state_dict)
+    total = sum(t.numel() * t.element_size() for t in state_dict.values())
+    groups: list[list[str]] = [[]]
+    size = 0
+    for name in names:
+        t = state_dict[name]
+        if (groups[-1] and len(groups) < shards
+                and size >= total * len(groups) / shards):
+            groups.append([])
+        groups[-1].append(name)
+        size += t.numel() * t.element_size()
+    paths, weight_map = [], {}
+    for k, group in enumerate(groups):
+        fname = f"model-{k + 1:05d}-of-{len(groups):05d}.safetensors"
+        write_safetensors({n: state_dict[n] for n in group}, out / fname)
+        weight_map.update({n: fname for n in group})
+        paths.append(out / fname)
+    (out / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map},
+        indent=2))
+    return paths
+
+
+def _rope_scaling_from_hf(d: dict | None) -> RopeScaling | None:
+    """``rope_scaling`` of a config.json as a RopeScaling (None and
+    "default" mean none); types other than llama3 and linear raise."""
+    if not d:
+        return None
+    kind = d.get("rope_type") or d.get("type") or ""
+    if kind in ("", "default"):
+        return None
+    if kind == "llama3":
+        return RopeScaling(
+            rope_type="llama3", factor=float(d["factor"]),
+            low_freq_factor=float(d.get("low_freq_factor", 1.0)),
+            high_freq_factor=float(d.get("high_freq_factor", 4.0)),
+            original_max_position_embeddings=int(
+                d.get("original_max_position_embeddings", 8192)))
+    if kind == "linear":
+        return RopeScaling(rope_type="linear", factor=float(d["factor"]))
+    raise ValueError(f"unsupported rope_scaling type {kind!r} "
+                     f"(supported: llama3, linear)")
+
+
+def resolve_clamped_model_config(config) -> ModelConfig:
+    """The engine's model config for a node Configuration: the registry
+    entry or the checkpoint's config.json, its context clamped to
+    ``config.max_context_length``."""
+    cfg = resolve_model_config(config.model, config.model_path)
+    if config.max_context_length:
+        cfg = replace(cfg, max_context_length=min(
+            cfg.max_context_length, config.max_context_length))
+    return cfg
+
+
+def load_params_for(config, cfg: ModelConfig,
+                    dtype: torch.dtype = torch.bfloat16,
+                    device: torch.device | str = "cpu") -> dict:
+    """Load-or-init for a node Configuration, as the engine does.
+    Quantized weights are refused, as the serving plan refuses them."""
+    if config.quantize:
+        raise NotImplementedError(
+            f"quantize={config.quantize!r} is not ported to "
+            f"crowdllama_tpu_torch yet: quantized weights (ROADMAP Queue 1 "
+            f"item 10)")
+    return load_or_init_params(cfg, config.model_path, dtype=dtype,
+                               device=device)
+
+
+def resolve_model_config(name: str, model_path: str = "",
+                         **overrides) -> ModelConfig:
+    """Registry lookup, with a checkpoint fallback: a name not in the
+    registry serves from ``model_path``'s config.json under that name."""
+    from crowdllama_tpu_torch.models.config import _REGISTRY, get_config
+
+    if name in _REGISTRY or not model_path:
+        return get_config(name, **overrides)
+    path = Path(model_path).expanduser()
+    if not (path / "config.json").exists():
+        return get_config(name, **overrides)  # raises with the known list
+    cfg = replace(config_from_hf_dir(path), name=name)
+    return replace(cfg, **overrides) if overrides else cfg
+
+
+def config_from_hf_dir(path: str | Path) -> ModelConfig:
+    """A ModelConfig from a checkpoint's config.json: the family sniffed
+    from ``architectures``, ``head_dim`` 0 unless given, the sliding
+    window kept for gemma2 and mistral only."""
+    d = json.loads((Path(path).expanduser() / "config.json").read_text())
+    arch = (d.get("architectures") or [""])[0].lower()
+    family = ("gemma2" if "gemma2" in arch
+              else "mixtral" if "mixtral" in arch
+              else "mistral" if "mistral" in arch
+              else "qwen3" if "qwen3" in arch
+              else "qwen2" if "qwen2" in arch else "llama")
+    return ModelConfig(
+        name=d.get("_name_or_path", "hf-model"),
+        family=family,
+        vocab_size=d["vocab_size"],
+        hidden_size=d["hidden_size"],
+        intermediate_size=d["intermediate_size"],
+        num_layers=d["num_hidden_layers"],
+        num_heads=d["num_attention_heads"],
+        num_kv_heads=d.get("num_key_value_heads", d["num_attention_heads"]),
+        head_dim=d.get("head_dim", 0),
+        rope_theta=d.get("rope_theta", 10000.0),
+        rope_scaling=_rope_scaling_from_hf(d.get("rope_scaling")),
+        rms_norm_eps=d.get("rms_norm_eps", 1e-5),
+        tie_word_embeddings=d.get("tie_word_embeddings", False),
+        max_context_length=d.get("max_position_embeddings", 4096),
+        attn_logit_softcap=d.get("attn_logit_softcapping") or 0.0,
+        final_logit_softcap=d.get("final_logit_softcapping") or 0.0,
+        query_pre_attn_scalar=d.get("query_pre_attn_scalar") or 0.0,
+        # The families whose serving paths window their layers
+        # (transformer.layer_sliding_windows); others ignore the value.
+        sliding_window=((d.get("sliding_window") or 0)
+                        if family in ("gemma2", "mistral") else 0),
+        post_norms=family == "gemma2",
+        embedding_multiplier=((d["hidden_size"] ** 0.5)
+                              if family == "gemma2" else 0.0),
+        num_experts=d.get("num_local_experts", 0),
+        num_experts_per_tok=d.get("num_experts_per_tok", 2),
+        attn_qkv_bias=family == "qwen2" or bool(d.get("attention_bias")),
+        qk_norm=family == "qwen3",
+    )

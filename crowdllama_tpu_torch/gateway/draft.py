@@ -6,10 +6,10 @@ the worker over the inference stream (``DraftChunk`` frames), and the
 worker batch-verifies each chunk with its hosted verify step, so the
 swarm RTT is paid once per pipeline window instead of once per token.
 
-- :class:`GatewayDrafter`: the draft model (a native checkpoint) on the
-  gateway's device (the card unless the caller asks for the CPU): its
-  prompt prefill runs kernel A, its greedy decode step kernel D over a
-  contiguous cache; shared by every stream.
+- :class:`GatewayDrafter`: the draft model (a native or an HF
+  checkpoint) on the gateway's device (the card unless the caller asks
+  for the CPU): its prompt prefill runs kernel A, its greedy decode step
+  kernel D over a contiguous cache; shared by every stream.
 - :class:`DraftSession`: per-stream drafting state: the committed
   sequence, the outstanding speculative rollout, and the draft's cache
   kept in lockstep (a rejected tail is masked by position and
@@ -72,16 +72,22 @@ class GatewayDrafter:
                         device: torch.device | str | None = None,
                         dtype: torch.dtype = torch.bfloat16
                         ) -> "GatewayDrafter":
-        """Load a native draft checkpoint (HF-layout directories are not
-        ported: they raise)."""
+        """Load a draft checkpoint directory (native, or HF safetensors
+        with the architecture from its config.json) as the worker engine
+        would."""
         from crowdllama_tpu_torch.engine.weights import (
-            load_native_params,
+            config_from_hf_dir,
+            is_native_checkpoint,
+            load_or_init_params,
             native_config_from_dir,
         )
 
-        cfg = native_config_from_dir(path)
-        return cls(load_native_params(cfg, path, dtype=dtype), cfg,
-                   max_seq=max_seq, device=device)
+        if is_native_checkpoint(path):
+            cfg = native_config_from_dir(path)
+        else:
+            cfg = config_from_hf_dir(path)
+        params = load_or_init_params(cfg, path, dtype=dtype)
+        return cls(params, cfg, max_seq=max_seq, device=device)
 
     @torch.inference_mode()
     def prefill(self, toks: list[int]):

@@ -368,8 +368,11 @@ async def _topology(tmp_path) -> dict:
             fo["hedge_robust"] = dict(tgw._robust)
             fo["hedge_log"] = list(plan.log)
             await _wait(lambda: _idle(teng), "the hedge's slots")
-            # Stall at the third chunk under a 1.5 s stall budget.
-            tgw.stream_stall_ms = 1500.0
+            # Stall at the third chunk.  The injected stall never writes
+            # again, so the budget costs only its own wait: 8 s keeps it
+            # well above the slowest undisturbed chunk, and the JAX
+            # worker's first chunk after the failover, on a loaded CPU.
+            tgw.stream_stall_ms = 8000.0
             plan = faults.FaultPlan(rules=[faults.FaultRule(
                 site="engine.stream_chunk", action="stall_stream", after=2,
                 match={"worker": tworker.peer_id})])

@@ -31,7 +31,8 @@ from crowdllama_tpu_torch.ops.cuda.paged import (  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 PORT = sorted((ROOT / "crowdllama_tpu_torch").rglob("*.py"))
 FORBIDDEN = {"jax", "jaxlib", "crowdllama_tpu", "google", "aiohttp", "cryptography",
-             "safetensors", "transformers"}
+             "safetensors", "transformers", "tokenizers", "jinja2", "regex",
+             "sentencepiece", "tiktoken"}
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -7,14 +7,13 @@
 - The port's safetensors reader on a file the ``safetensors`` package
   writes (F32, BF16, I32), and the bytes it writes read back by that
   package.
-- A directory without the marker (an HF layout), or none at all, is
-  refused naming ROADMAP Queue 1 item 9, at load and as a
-  ``spec_draft_path``; a shape that does not match the config is refused.
+- An HF checkpoint directory (config.json without the marker, and
+  safetensors) is refused by ``load_native_params`` as not native, and
+  accepted as a ``spec_draft_path``; no directory at all is refused by
+  both; a shape that does not match the config is refused.
 - The port's permutation weights: the JAX embeddings and unembedding,
   and greedy decode walking the cycle (every argmax its successor).
 """
-
-import json
 
 import numpy as np
 import pytest
@@ -100,16 +99,30 @@ def test_safetensors_reader_and_writer_agree_with_the_package(tmp_path):
 @pytest.mark.parametrize("layout", ["hf", "missing"])
 def test_non_native_directories_are_refused_naming_item_9(tmp_path,
                                                            layout):
+    # HF checkpoints are served now (ROADMAP Queue 1 item 9a): an HF
+    # directory is no native checkpoint, but is a draft checkpoint.
+    from crowdllama_tpu_torch.models.convert import hf_state_dict
+
+    cfg = get_config("tiny-test")
     path = tmp_path / "d"
     if layout == "hf":
-        path.mkdir()
-        (path / "config.json").write_text(json.dumps({"model_type": "llama"}))
+        tw.save_hf_checkpoint(
+            hf_state_dict(cfg, tw.init_params(cfg, dtype=torch.float32)),
+            {"architectures": ["LlamaForCausalLM"], "model_type": "llama"},
+            path, shards=2)
+        assert tw.is_hf_checkpoint(path)
     assert not tw.is_native_checkpoint(path)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 9"):
-        tw.load_native_params(get_config("tiny-test"), path)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 9"):
-        Configuration.from_environment(spec_decode="draft",
-                                       spec_draft_path=str(path))
+    with pytest.raises(ValueError, match="not a native checkpoint") as e:
+        tw.load_native_params(cfg, path)
+    assert "item 9" not in str(e.value)
+    if layout == "hf":
+        c = Configuration.from_environment(spec_decode="draft",
+                                           spec_draft_path=str(path))
+        assert c.spec_draft_path == str(path)
+    else:
+        with pytest.raises(ValueError, match="not a checkpoint directory"):
+            Configuration.from_environment(spec_decode="draft",
+                                           spec_draft_path=str(path))
 
 
 def test_shape_mismatch_is_refused(tmp_path):

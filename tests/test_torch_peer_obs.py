@@ -292,18 +292,27 @@ def test_cli_refuses_consumer_mode_and_a_missing_card(monkeypatch, capsys):
 ])
 def test_unported_flags_refuse_any_value_but_their_default(flag, value,
                                                           item, tmp_path):
-    # The JAX CLI takes the value; the port parses it and refuses it at
-    # start, naming the ROADMAP item that ports its plane.  A draft
-    # checkpoint is served when native: an HF-layout directory (config.json
-    # without the marker) or no directory at all is refused (item 9).
+    # Both CLIs take a draft checkpoint directory, native or HF (ROADMAP
+    # Queue 1 item 9a): an HF directory (config.json without the marker,
+    # and safetensors) is accepted; no directory at all is refused at
+    # start, no longer naming the item.
+    from crowdllama_tpu_torch.engine.weights import write_safetensors
+
     if value == "hf-dir":
         (tmp_path / "config.json").write_text('{"model_type": "llama"}')
+        write_safetensors({"model.norm.weight": torch.ones(4)},
+                          tmp_path / "model.safetensors")
         value = str(tmp_path)
     args = ["start", flag, value]
     jconfig.Configuration.from_flags(jcli.build_parser().parse_args(args))
-    with pytest.raises(ValueError, match=f"ROADMAP Queue 1 {item}\\b"):
-        tconfig.Configuration.from_flags(
-            tcli.build_parser().parse_args(args))
+    parsed = tcli.build_parser().parse_args(args)
+    if value == str(tmp_path):
+        assert tconfig.Configuration.from_flags(parsed).spec_draft_path == \
+            value
+        return
+    with pytest.raises(ValueError, match="not a checkpoint directory") as e:
+        tconfig.Configuration.from_flags(parsed)
+    assert item not in str(e.value)
 
 
 def test_cli_worker_joins_a_jax_swarm_on_the_cpu(tmp_path):
