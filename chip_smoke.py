@@ -39,7 +39,14 @@ Phases, each printing one JSON line:
    kernel, the plain version, one PyTorch SDPA call over the same
    (gathered; for int8, dequantized to bf16) inputs and the card's least
    time for the work (its bound).  F at tp 2 and 4 must equal B on the
-   whole pool bit for bit;
+   whole pool bit for bit.  The fp32 entries of A and D (the
+   distillation trainer's: fp32 in, fp32 out, fp32 FMAs) at both head
+   dims against their plain versions on fp32 inputs at atol and rtol
+   1e-5, on the same shapes (A also at a group of 7) and on the shapes
+   the distill phase gives them (A at 16 x 64 tokens, D over 64 slots of
+   a 64-key cache at lengths 1-64), with their bounds at the card's fp32
+   rate and one SDPA call in fp32 under the memory-efficient backend
+   (flash refuses fp32; the backend is named);
 5. engine: ``TorchEngine`` serving tinyllama-1.1b at full width (random
    weights from seed 0, default config: 8 slots, page 128, context 2048)
    to 8 concurrent greedy ``generate()`` streams — 6 short prompts, one
@@ -242,6 +249,28 @@ Phases, each printing one JSON line:
    those of an engine on the same weights in memory fed the same prompt
    ids, A, B and C launched, stream deltas equal to ``decode``; load
    seconds, GB/s and the host's peak RSS;
+12c. share (its own line): swarm model sharing on 127.0.0.1, every
+   module the port's own (a DHT node, two workers, a consumer and its
+   gateway): worker 1 serves the hf phase's tinyllama directory (2.2 GB,
+   two shards) under a name outside the registry; a client times the
+   ``manifest`` op (SHA-256 of every file), then sends worker 2 (empty
+   ``models_dir``) the ``pull`` op: the fetch's GB/s, the hot
+   registration's seconds, the pulled files' hashes equal to the
+   donor's; ``/api/pull`` 200 for the model, 404 for a name nobody has;
+   worker 2's first stream on the pulled model (TTFT, launches of A, B
+   and C) token for token worker 1's; the CLI's ``pull`` into a third
+   directory, ``list``, ``list --gateway``, ``show`` and ``rm`` as
+   subprocesses, exit codes 0;
+12d. distill (its own line): ``distill-draft`` through the port's CLI in
+   a process of its own: tinyllama-1.1b at full width and depth in fp32
+   as the teacher (seed-0 weights), a 2-layer student, ``DISTILL``'s
+   shapes; rollout seconds and tokens/s, the train step's device ms
+   (CUDA events), the losses and agreement; the loss falls; A's and D's
+   fp32 entries launch exactly once per layer per train step and per
+   rollout step, no other kernel; the step-1 gradient through A's
+   ``autograd.Function`` against the plain function's on the card
+   (``GRAD_RTOL``); the checkpoint loads and drafts for the seed-0
+   weights in one short speculative stream;
 13. engine_llama_int8, contiguous_llama, engine_llama_tp,
    engine_llama_tp_int8: llama-3-8b cut to 4 layers at full width on
    int8 pools (B-int8, C-int8), the contiguous layout (D), tp=2 on the
@@ -255,7 +284,11 @@ its weights (TinyLlama's kept on the host between phases, llama-3-8b's
 made on the card for each phase), the start's peak and the serving peak
 apart.  No engine path of either package runs kernel E (the
 unified ragged step replaced it), so it launches only in the kernel
-phase and its row's launch count is 0.
+phase and its row's launch count is 0; the fp32 entries of A and D run
+on the distill phase's path at Dh 64 only, so their Dh-128 rows' counts
+are 0.  Tinyllama's seed-0 weights are made once and kept on the host;
+no phase changes them (the gateway phase zeroes the unembedding columns
+of a copy on the card).
 Then the ``kernels`` line (a row per kernel and head dim, the Dh-128
 rows named ``<symbol>_dh128`` with the llama phases' launches), the
 ``nvidia-smi`` line, and last
@@ -283,6 +316,9 @@ import torch
 # the int8-pool kernels: their products pair a bf16 query with int8 keys
 # and values, which convert to bf16 exactly, so bf16 is their rate.
 PEAK_BF16_FLOPS = 989e12
+# H100 SXM fp32 outside the tensor cores (data sheet, 700 W): the bound of
+# the fp32 entries of kernels A and D, whose products are fp32 FMAs.
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # At most the H100's boost clock (1.98 GHz): a sleep of this many cycles
 # per second of host time lasts at least that long.
@@ -291,6 +327,10 @@ SLEEP_CYCLES_PER_S = 2e9
 # accumulate in fp32 in different orders, then round to bf16, so they may
 # differ by one bf16 ulp of the value (2^-8 relative) plus fp32 order noise.
 ATOL, RTOL = 2e-2, 1e-2
+# The fp32 entries of A and D against the plain versions on fp32 inputs:
+# no rounding to bf16 anywhere, only fp32 summation order (about 1e-6 of
+# outputs of order 1), so ten times that.
+ATOL_FP32, RTOL_FP32 = 1e-5, 1e-5
 # One step's logits through the kernels vs through the plain versions:
 # each of the 22 layers' attention outputs may differ by one bf16 rounding
 # (above), and random-weight layers carry that noise to the logits, so the
@@ -339,22 +379,32 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float,
+             peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def sdpa_fp32_ms(fn) -> tuple[float, str]:
+    """Device ms of the SDPA call ``fn`` on fp32 inputs under the
+    memory-efficient backend (flash refuses fp32), and that backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return time_ms(fn), SDPBackend.EFFICIENT_ATTENTION.name.lower()
+
+
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
-            rows=None) -> float:
+            rows=None, atol: float = ATOL, rtol: float = RTOL) -> float:
     """Max |got - want| over ``rows`` (all when None); raises beyond
-    ATOL + RTOL * |want|."""
+    atol + rtol * |want|."""
     g, w = got.float(), want.float()
     if rows is not None:
         g, w = g[rows], w[rows]
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (g - w).abs()
-    bad = err > ATOL + RTOL * w.abs()
+    bad = err > atol + rtol * w.abs()
     if bad.any():
         raise AssertionError(f"{name}: {int(bad.sum())} elements beyond "
                              f"tolerance, max abs err {float(err.max()):.4g}")
@@ -369,16 +419,19 @@ def nbytes(*ts) -> int:
 
 def check_prefill(dev, gen, t: int, softcap: float, window: int,
                   masked_rows: int, timed: bool, h: int = 32, hkv: int = 4,
-                  dh: int = 64) -> dict:
+                  dh: int = 64, dtype: torch.dtype = torch.bfloat16,
+                  b: int = 1) -> dict:
     from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
     from crowdllama_tpu_torch.ops.cuda.flash import flash_prefill_attention
 
-    bf = dict(device=dev, dtype=torch.bfloat16)
-    q = torch.randn((1, t, h, dh), generator=gen, **bf)
-    k = torch.randn((1, hkv, t, dh), generator=gen, **bf)
-    v = torch.randn((1, hkv, t, dh), generator=gen, **bf)
-    pos = torch.arange(t, device=dev, dtype=torch.int32)[None]
-    valid = torch.ones((1, t), device=dev, dtype=torch.bool)
+    f32 = dtype == torch.float32
+    bf = dict(device=dev, dtype=dtype)
+    q = torch.randn((b, t, h, dh), generator=gen, **bf)
+    k = torch.randn((b, hkv, t, dh), generator=gen, **bf)
+    v = torch.randn((b, hkv, t, dh), generator=gen, **bf)
+    pos = torch.arange(t, device=dev, dtype=torch.int32)[None].expand(
+        b, t).contiguous()
+    valid = torch.ones((b, t), device=dev, dtype=torch.bool)
     valid[:, :masked_rows] = False  # queries < masked_rows see no key
     scale = dh ** -0.5
     args = (q, k, v, pos, scale)
@@ -386,10 +439,13 @@ def check_prefill(dev, gen, t: int, softcap: float, window: int,
     got = flash_prefill_attention(*args, **kw)
     want = prefill_attention_ref(*args, **kw)
     torch.cuda.synchronize()
-    if masked_rows and got[0, :masked_rows].abs().max() != 0:
+    if masked_rows and got[:, :masked_rows].abs().max() != 0:
         raise AssertionError("prefill: all-masked rows must be zero")
-    err = compare(f"prefill t={t}", got[0, masked_rows:],
-                  want[0, masked_rows:])
+    if got.dtype != dtype:
+        raise AssertionError(f"prefill: {dtype} in, {got.dtype} out")
+    tol = dict(atol=ATOL_FP32, rtol=RTOL_FP32) if f32 else {}
+    err = compare(f"prefill b={b} t={t} {dtype}", got[:, masked_rows:],
+                  want[:, masked_rows:], **tol)
     res = {"max_abs_err": err}
     if timed:
         g = h // hkv
@@ -397,12 +453,19 @@ def check_prefill(dev, gen, t: int, softcap: float, window: int,
         qt = q.transpose(1, 2)
         res["ms"] = time_ms(lambda: flash_prefill_attention(*args, **kw))
         res["plain_ms"] = time_ms(lambda: prefill_attention_ref(*args, **kw))
-        res["library_ms"] = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kr, vr, is_causal=True, scale=scale))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kr, vr, is_causal=True, scale=scale)
+
+        if f32:
+            res["library_ms"], res["library_backend"] = sdpa_fp32_ms(sdpa)
+        else:
+            res["library_ms"] = time_ms(sdpa)
         seen = t * (t + 1) // 2  # causal (query, key) pairs per head
         res["bound_ms"], res["bound_by"] = bound_ms(
-            nbytes(q, k, v, pos, valid, got), 4 * dh * h * seen)
+            nbytes(q, k, v, pos, valid, got), 4 * dh * h * b * seen,
+            PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS)
     return res
 
 
@@ -588,14 +651,16 @@ def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
 
 def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
                        window: int, timed: bool, hkv: int = 4,
-                       dh: int = 64) -> dict:
+                       dh: int = 64, dtype: torch.dtype = torch.bfloat16
+                       ) -> dict:
     from crowdllama_tpu_torch.ops.cuda.flash import (
         decode_attention_plain,
         flash_decode_attention,
     )
 
+    f32 = dtype == torch.float32
     b, h = len(lens), 32
-    bf = dict(device=dev, dtype=torch.bfloat16)
+    bf = dict(device=dev, dtype=dtype)
     q = torch.randn((b, h, dh), generator=gen, **bf)
     kc = torch.randn((b, hkv, s, dh), generator=gen, **bf)
     vc = torch.randn((b, hkv, s, dh), generator=gen, **bf)
@@ -614,7 +679,11 @@ def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
     if dead and got[dead].abs().max() != 0:
         raise AssertionError("flash decode: a zero-length slot must output "
                              "zeros")
-    res = {"max_abs_err": compare("flash decode", got, want, live)}
+    if got.dtype != dtype:
+        raise AssertionError(f"flash decode: {dtype} in, {got.dtype} out")
+    tol = dict(atol=ATOL_FP32, rtol=RTOL_FP32) if f32 else {}
+    res = {"max_abs_err": compare(f"flash decode {dtype}", got, want, live,
+                                  **tol)}
     if timed:
         res["ms"] = time_ms(lambda: flash_decode_attention(*args, **kw))
         res["plain_ms"] = time_ms(lambda: decode_attention_plain(*args, **kw))
@@ -624,12 +693,20 @@ def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
             h // hkv, 1)
         mask = (torch.arange(s, device=dev)[None] < seq[:, None])[:, None,
                                                                    None]
-        res["library_ms"] = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q[:, :, None], kr, vr, attn_mask=mask))
-        kv = sum(lens) * hkv * dh * 2 * 2  # live K and V rows, bf16
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kr, vr, attn_mask=mask)
+
+        if f32:
+            res["library_ms"], res["library_backend"] = sdpa_fp32_ms(sdpa)
+        else:
+            res["library_ms"] = time_ms(sdpa)
+        # live K and V rows
+        kv = sum(lens) * hkv * dh * 2 * kc.element_size()
         res["bound_ms"], res["bound_by"] = bound_ms(
-            nbytes(q, seq, got) + kv, 4 * dh * h * sum(lens))
+            nbytes(q, seq, got) + kv, 4 * dh * h * sum(lens),
+            PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS)
     return res
 
 
@@ -798,6 +875,37 @@ def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
                            **d)["max_abs_err"]
         for sc, win in SPLIT_EDGE_CASES]
     out["D"] = dres
+    # The fp32 entries (the distillation trainer's teacher and student).
+    f32 = dict(d, dtype=torch.float32)
+    a32 = check_prefill(dev, gen, 512, 0.0, 0, 0, timed=True, **f32)
+    a32["small"] = [check_prefill(dev, gen, 64, 30.0, 9, 5, False, **f32)
+                    ["max_abs_err"],
+                    check_prefill(dev, gen, 96, 0.0, 17, 0, False, **f32)
+                    ["max_abs_err"],
+                    check_prefill(dev, gen, 200, 0.0, 0, 0, False, h=7 * hkv,
+                                  **f32)["max_abs_err"]]
+    # The distill phase's shapes: the train step's 16 x 64-token batch
+    # (teacher and student), the rollout's 64 slots over a 64-key cache at
+    # every length it steps through.
+    seq, slots = int(DISTILL["--seq-len"]), int(DISTILL["--corpus-seqs"])
+    a32["distill_shape"] = check_prefill(
+        dev, gen, seq, 0.0, 0, 0, False, b=int(DISTILL["--batch"]),
+        **f32)["max_abs_err"]
+    out["A_fp32"] = a32
+    d32 = check_flash_decode(dev, gen, serve_lens, 2048, 0.0, 0, timed=True,
+                             **f32)
+    d32["small"] = [check_flash_decode(dev, gen, [0, 5, 300, 129], 300,
+                                       30.0, 0, False, **f32)["max_abs_err"],
+                    check_flash_decode(dev, gen, [260, 1, 0, 64], 300, 0.0,
+                                       40, False, **f32)["max_abs_err"]]
+    d32["split_edges"] = [
+        check_flash_decode(dev, gen, SPLIT_EDGE_LENS, 2048, sc, win, False,
+                           **f32)["max_abs_err"]
+        for sc, win in SPLIT_EDGE_CASES]
+    d32["distill_shape"] = check_flash_decode(
+        dev, gen, [1 + i % seq for i in range(slots)], seq, 0.0, 0, False,
+        **f32)["max_abs_err"]
+    out["D_fp32"] = d32
     for key, int8 in (("E", False), ("E_int8", True)):
         eres = check_chunk(dev, gen, 1024, 512, 512, 0.0, 0, timed=True,
                            int8=int8, **d)
@@ -841,7 +949,9 @@ def kernel_phase(dev) -> dict:
     for dh, hkv in ((64, 4), (128, 8)):
         res = kernel_checks(dev, gen, hkv, dh)
         emit({"phase": "kernels_vs_plain", "head_dim": dh, "kv_heads": hkv,
-              "tolerance": {"atol": ATOL, "rtol": RTOL}, **res})
+              "tolerance": {"atol": ATOL, "rtol": RTOL},
+              "tolerance_fp32": {"atol": ATOL_FP32, "rtol": RTOL_FP32},
+              **res})
         out.update({k + ("" if dh == 64 else "_dh128"): v
                     for k, v in res.items()})
     group7 = {dh: [check_prefill(dev, gen, 512, 0.0, 0, 0, False, h=28,
@@ -916,11 +1026,13 @@ def _counters() -> dict:
     )
 
     return {"A": (flash_prefill_attention, "launches"),
+            "A_fp32": (flash_prefill_attention, "launches_fp32"),
             "B": (flash_paged_decode_attention, "launches"),
             "B_int8": (flash_paged_decode_attention, "launches_int8"),
             "C": (ragged_paged_attention, "launches"),
             "C_int8": (ragged_paged_attention, "launches_int8"),
             "D": (flash_decode_attention, "launches"),
+            "D_fp32": (flash_decode_attention, "launches_fp32"),
             "E": (flash_ragged_chunk_attention, "launches"),
             "E_int8": (flash_ragged_chunk_attention, "launches_int8"),
             "F": (flash_paged_decode_attention_tp, "launches"),
@@ -1970,20 +2082,18 @@ def _printable_init():
 
 
 def gateway_params(dev) -> dict:
-    """TinyLlama's seed-0 weights (as ``seed0_params``), made once on the
-    card for every engine of the gateway phase to share, with the
-    unembedding columns of every id but printable ASCII (32-126) zeroed:
-    a greedy token is then one character of text, so a stream carries a
-    frame per token and its text is as long as its token ids (the byte
-    tokenizer renders the ids past 255 that random weights otherwise emit
-    as nothing)."""
-    params = _printable(seed0_params(dev))
-
+    """TinyLlama's seed-0 weights (as ``seed0_params``), copied to the card
+    for every engine of the gateway phase to share, with the unembedding
+    columns of every id but printable ASCII (32-126) zeroed in the copy
+    (the cached host weights stay the seed-0 ones): a greedy token is then
+    one character of text, so a stream carries a frame per token and its
+    text is as long as its token ids (the byte tokenizer renders the ids
+    past 255 that random weights otherwise emit as nothing)."""
     def card(tree):
-        return {k: card(v) if isinstance(v, dict) else v.to(dev)
+        return {k: card(v) if isinstance(v, dict) else v.to(dev, copy=True)
                 for k, v in tree.items()}
 
-    return card(params)
+    return _printable(card(seed0_params(dev)))
 
 
 def _http(port: int, method: str, path: str, body=None,
@@ -2718,7 +2828,9 @@ def kv_ship_phase(dev) -> tuple[dict, dict]:
     (503, ``Retry-After``) while another tenant is admitted, and replica
     1, charged by the gossiped usage, sheds it too; the drain replica 1
     saw quarantines worker 1 on replica 2 within one gossip round (the
-    ``quar/`` entry from replica 1's node)."""
+    ``quar/`` entry from replica 1's node); replica 1's ``mark_draining``
+    calls are traced (whether each found worker 1 already held draining,
+    and whether it recorded) and reported, on failure too."""
     import os
     import tempfile
 
@@ -2984,6 +3096,21 @@ def kv_ship_phase(dev) -> tuple[dict, dict]:
 
             gnodes[0].record_quarantine = stamped_record
             gnodes[1].on_entry = stamped_entry
+            # Replica 1's quarantines: whether it already held worker 1 as
+            # draining (its metadata refresh got there first) and whether
+            # it recorded (and so gossiped) this one.
+            pm1, marks = consumers[0].peer_manager, []
+            mark = pm1.mark_draining
+
+            def traced_mark(peer_id, reason="drain"):
+                info = pm1.peers.get(peer_id)
+                held = bool(info is not None and getattr(
+                    info.resource, "draining", False))
+                ok = mark(peer_id, reason)
+                marks.append({"held_draining": held, "recorded": ok})
+                return ok
+
+            pm1.mark_draining = traced_mark
             lines: list = []
             p0, f0 = e2.runner.kv_pages_imported, m2.kv_ship["fetches"]
             moving = asyncio.create_task(
@@ -2995,13 +3122,21 @@ def kv_ship_phase(dev) -> tuple[dict, dict]:
             migrated = await w1.drain()
             moved = await moving
             _unsteer(gw1)
-            while "applied" not in stamps or \
-                    consumers[1].peer_manager.is_routable(
-                        w1.peer_id, TINYLLAMA) is not None:
+            # Wait for the gossip record to reach replica 2 and for it to
+            # stop routing to worker 1.  Where it never comes, the error
+            # carries replica 1's mark_draining calls: whether each found
+            # worker 1 already held draining (its early return, in both
+            # packages' PeerManager, writes no record).
+            def settled() -> bool:
+                return "applied" in stamps and consumers[
+                    1].peer_manager.is_routable(w1.peer_id, TINYLLAMA) is None
+
+            while not settled():
                 if time.perf_counter() - t_drain > 20 * GOSSIP_INTERVAL_S:
                     raise AssertionError(f"replicated: no quarantine "
-                                         f"relayed {stamps}")
+                                         f"relayed {stamps} {marks}")
                 await asyncio.sleep(0.01)
+            pm1.mark_draining = mark
             relay_s = stamps["applied"] - stamps["recorded"]
             origin = gnodes[1].state.entries[quar].origin
             out["handoff"] = {
@@ -3024,7 +3159,8 @@ def kv_ship_phase(dev) -> tuple[dict, dict]:
                     and m2.kv_ship["fallbacks"] == 1):
                 raise AssertionError(f"kv_ship: handoff {out['handoff']}")
             rep["quarantine"] = {
-                "relay_s": relay_s, "interval_s": GOSSIP_INTERVAL_S,
+                "marks": marks, "relay_s": relay_s,
+                "interval_s": GOSSIP_INTERVAL_S,
                 "from_replica_1": origin == gnodes[0].state.node_id}
             if not (origin == gnodes[0].state.node_id
                     and relay_s <= 2 * GOSSIP_INTERVAL_S):
@@ -3225,9 +3361,11 @@ def cli_child(module: str, out_path: str, *argv: str) -> None:
     its native data plane's stats, its kernel launch counts since the
     last SIGUSR1 (which zeroes them) and its AEAD totals (net/secure.py)
     at each SIGUSR1 and SIGUSR2 (which also writes the launch counts to
-    ``<out_path>.snap`` at once).  With ``CHIP_SMOKE_PRINTABLE`` set, the
-    engines it builds hold ``_printable_init``'s weights.  The relay and
-    split phases start their processes through it."""
+    ``<out_path>.snap`` at once), and for ``distill-draft`` the figures of
+    ``distill_draft``'s result (``DISTILL_FIGURES``).  With
+    ``CHIP_SMOKE_PRINTABLE`` set, the engines it builds hold
+    ``_printable_init``'s weights.  The relay, split and distill phases
+    start their processes through it."""
     import faulthandler
     import importlib
     import os
@@ -3251,6 +3389,18 @@ def cli_child(module: str, out_path: str, *argv: str) -> None:
     signal.signal(signal.SIGUSR2, mark)
     # SIGQUIT prints every thread's stack (a phase that times out asks).
     faulthandler.register(signal.SIGQUIT, all_threads=True)
+    result: dict = {}
+    if argv and argv[0] == "distill-draft":
+        from crowdllama_tpu_torch.train import distill
+
+        run = distill.distill_draft
+
+        def recorded(dc):
+            res = run(dc)
+            result.update({k: res[k] for k in DISTILL_FIGURES})
+            return res
+
+        distill.distill_draft = recorded
     main = importlib.import_module(module).main
     if os.environ.get("CHIP_SMOKE_PRINTABLE"):
         with _printable_init():
@@ -3259,7 +3409,8 @@ def cli_child(module: str, out_path: str, *argv: str) -> None:
         rc = main(list(argv))
     with open(out_path, "w") as f:
         json.dump({"rc": rc, "native": native.stats(),
-                   "launches": _launches(), "aead": marks}, f)
+                   "launches": _launches(), "aead": marks,
+                   "result": result}, f)
     sys.exit(rc)
 
 
@@ -4376,7 +4527,7 @@ def _zero_columns(params: dict, ids) -> dict:
     return params
 
 
-def hf_phase(dev) -> dict:
+def hf_phase(dev, keep: str) -> dict:
     """HF checkpoints served through ``TorchEngine(model=<a name outside
     the registry>, model_path=dir)``.  Two directories are written under
     a temporary directory by the port's own ``save_hf_checkpoint`` /
@@ -4405,7 +4556,9 @@ def hf_phase(dev) -> dict:
     to ``decode`` of the ids.  The line: per model the write and load
     seconds, GB/s of the load (from the page cache), the host's RSS
     before and at its peak while the engine started, shards and bytes,
-    the launches and each chat's prompt tokens."""
+    the launches and each chat's prompt tokens.  The tinyllama directory
+    is written under ``keep`` and outlives the phase (the share phase
+    serves it)."""
     import tempfile
 
     from crowdllama_tpu_torch.engine.weights import init_params
@@ -4420,11 +4573,11 @@ def hf_phase(dev) -> dict:
     out = {}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="hf") as root:
-        # A fresh copy: the cached one is shared, and the gateway phase
-        # made it printable in place.
+        # A fresh copy: the cached one is shared, and its columns are
+        # zeroed here in place.
         params = _zero_columns(seed0_params.__wrapped__(dev), range(3 + 256))
         out[TINYLLAMA] = _hf_model(
-            dev, root, "hf-tinyllama-chat", TINYLLAMA, params,
+            dev, keep, SHARE_NAME, TINYLLAMA, params,
             hf.TINYLLAMA_CONFIG, hf.sentencepiece_tokenizer(HF_CORPUS), 2,
             chats, "long", HF_TOKENS, None)
         del params
@@ -5400,6 +5553,430 @@ def spec_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ share
+
+#: the name worker 1 serves the hf phase's tinyllama directory under (outside
+#: the registry: only worker 1 can share it)
+SHARE_NAME = "hf-tinyllama-chat"
+SHARE_TOKENS = 32
+
+
+def _sha256_tree(d: str) -> dict:
+    """name -> SHA-256 of every checkpoint file of directory ``d``."""
+    from pathlib import Path
+
+    from crowdllama_tpu_torch.net.model_share import _sha256_file, _shareable
+
+    return {p.name: _sha256_file(p) for p in sorted(Path(d).iterdir())
+            if _shareable(p.name)}
+
+
+async def _cli(root: str, *argv: str, timeout: float = 300.0) -> dict:
+    """``python -m crowdllama_tpu_torch.cli.main <argv>`` as a subprocess:
+    its exit code and output."""
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "crowdllama_tpu_torch.cli.main", *argv,
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = await asyncio.wait_for(proc.communicate(), timeout)
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+    return {"rc": proc.returncode, "out": out.decode(),
+            "err": err.decode()[-2000:]}
+
+
+def share_phase(dev, hf_dir: str) -> dict:
+    """Swarm model sharing, every module the port's own, on 127.0.0.1: a
+    DHT node, two torch workers and a consumer ``Peer`` with its
+    ``Gateway``.  Worker 1 serves the hf phase's tinyllama-1.1b directory
+    (full width and depth, bf16, two shards, 2.2 GB) through
+    ``model_path`` under ``SHARE_NAME``, a name outside the registry;
+    worker 2 serves tinyllama-1.1b's seed-0 weights and has an empty
+    ``models_dir``.  A client host times the ``manifest`` op on worker 1
+    (the SHA-256 of every file, a cold hash cache), then sends worker 2
+    the ``pull`` op (what the gateway's ``/api/pull`` proxies): worker 2
+    fetches every file from worker 1, verifies it and hot-registers the
+    model (fetch GB/s and registration seconds apart).  The pulled files'
+    SHA-256 must equal the donor's; ``/api/pull`` through the gateway
+    then answers 200 for the model (served) and 404 naming the failed
+    swarm pull for a name nobody has.  Worker 2's first stream on the
+    pulled model (the long prompt, greedy, ``SHARE_TOKENS`` tokens; its
+    TTFT and the launches of A, B and C, counts zeroed right before it)
+    must equal worker 1's stream of the same prompt token for token: the
+    same kernels on the same bytes.  Last the CLI in subprocesses:
+    ``pull`` into a third directory (hashes equal too), ``list``,
+    ``list --gateway``, ``show`` and ``rm`` on it, each exit code."""
+    import os
+    import tempfile
+
+    from crowdllama_tpu_torch.config import Configuration
+    from crowdllama_tpu_torch.core.protocol import MODEL_PROTOCOL
+    from crowdllama_tpu_torch.engine.engine import FakeEngine
+    from crowdllama_tpu_torch.engine.multi import MultiEngine
+    from crowdllama_tpu_torch.gateway.gateway import Gateway
+    from crowdllama_tpu_torch.net import model_share
+    from crowdllama_tpu_torch.net.discovery import new_host_and_dht
+    from crowdllama_tpu_torch.net.host import (
+        read_json_frame,
+        write_json_frame,
+    )
+    from crowdllama_tpu_torch.peer.peer import Peer
+    from crowdllama_tpu_torch.utils.crypto import Ed25519PrivateKey
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    key = Ed25519PrivateKey.generate
+    want = _sha256_tree(hf_dir)
+    nbytes_ = sum(os.path.getsize(os.path.join(hf_dir, n)) for n in want)
+
+    async def stream(multi, model: str) -> dict:
+        eng = multi._engines[model]
+        eng.tokenizer = _IdRecorder(eng.tokenizer)
+        ids: list[int] = []
+        _STREAM_IDS.set(ids)
+        final = None
+        async for chunk in multi.generate(LONG, model=model,
+                                          max_tokens=SHARE_TOKENS):
+            final = chunk
+        return {"ids": ids, "done": final.done,
+                "prompt_tokens": final.prompt_tokens,
+                "ttft_ms": (final.queue_ns + final.prefill_ns) / 1e6}
+
+    async def go(tmp: str) -> dict:
+        boot, _ = await new_host_and_dht(key(), listen_host="127.0.0.1")
+        baddr = f"127.0.0.1:{boot.listen_port}"
+        node = dict(listen_host="127.0.0.1", bootstrap_peers=[baddr])
+        cfg1 = Configuration(model=SHARE_NAME, model_path=hf_dir, **node)
+        cfg2 = Configuration(model=TINYLLAMA, models_dir=os.path.join(
+            tmp, "models2"), **node)
+        e1, e2 = MultiEngine(cfg1, device=dev), MultiEngine(cfg2, device=dev)
+        w1, w2 = Peer(key(), cfg1, e1), Peer(key(), cfg2, e2)
+        consumer = Peer(key(), Configuration(**node), FakeEngine(models=[]),
+                        worker_mode=False)
+        gw = Gateway(consumer, port=0, host="127.0.0.1")
+        client, _ = await new_host_and_dht(key(), listen_host="127.0.0.1")
+        started: list = []
+        out: dict = {}
+        try:
+            for part in (e1, w1, e2, w2, consumer, gw):
+                await part.start()
+                started.append(part)
+            t0 = time.perf_counter()
+            while not any(SHARE_NAME in p.resource.supported_models
+                          for p in w2.peer_manager.get_healthy_peers()):
+                if time.perf_counter() - t0 > 60:
+                    raise AssertionError("share: worker 2 never saw worker 1")
+                await asyncio.sleep(0.1)
+
+            # The manifest: every file hashed on worker 1 (cold cache).
+            t0 = time.perf_counter()
+            s = await client.new_stream(w1.host.contact, MODEL_PROTOCOL)
+            try:
+                await write_json_frame(s.writer, {"op": "manifest",
+                                                  "model": SHARE_NAME})
+                manifest = await read_json_frame(
+                    s.reader, model_share.MANIFEST_TIMEOUT)
+            finally:
+                s.close()
+            out["manifest_s"] = time.perf_counter() - t0
+            if not manifest.get("ok") or {f["name"]: f["sha256"] for f in
+                                          manifest["files"]} != want:
+                raise AssertionError(f"share: manifest {manifest}")
+
+            # The pull op on worker 2: fetch and hot registration timed apart.
+            spans: dict = {}
+            fetch, add = model_share.fetch_model, e2.add_model
+
+            async def timed_fetch(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return await fetch(*a, **kw)
+                finally:
+                    spans["fetch_s"] = time.perf_counter() - t
+
+            async def timed_add(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return await add(*a, **kw)
+                finally:
+                    spans["register_s"] = time.perf_counter() - t
+
+            model_share.fetch_model, e2.add_model = timed_fetch, timed_add
+            try:
+                t0 = time.perf_counter()
+                path = await model_share.request_pull(
+                    client, w2.host.contact, SHARE_NAME)
+                out["pull_s"] = time.perf_counter() - t0
+            finally:
+                model_share.fetch_model = fetch
+                del e2.add_model
+            out.update(spans, path_ran="pull op sent to worker 2",
+                       bytes=nbytes_,
+                       fetch_gb_per_s=nbytes_ / spans["fetch_s"] / 1e9)
+            got = await asyncio.to_thread(_sha256_tree, path)
+            out["hashes_equal"] = got == want
+            if not (out["hashes_equal"] and e2.models == [TINYLLAMA,
+                                                          SHARE_NAME]):
+                raise AssertionError(f"share: pulled {got} into {path}, "
+                                     f"serving {e2.models}")
+
+            # /api/pull through the gateway: served, then absent.
+            gport = gw.port
+            t0 = time.perf_counter()
+            while not any(p.peer_id == w2.peer_id
+                          and SHARE_NAME in p.resource.supported_models
+                          for p in consumer.peer_manager
+                          .get_healthy_peers()):
+                if time.perf_counter() - t0 > 60:
+                    raise AssertionError("share: the gateway never saw "
+                                         "worker 2 serve the pulled model")
+                await asyncio.sleep(0.1)
+            served = await asyncio.to_thread(
+                _http, gport, "POST", "/api/pull",
+                {"model": SHARE_NAME, "stream": True})
+            absent = await asyncio.to_thread(
+                _http, gport, "POST", "/api/pull",
+                {"model": "no-such-model", "stream": False})
+            out["api_pull"] = {
+                "served": [served["status"], _ndjson(served)],
+                "absent": [absent["status"],
+                           json.loads(absent["lines"][0][1])["error"]]}
+            if not (served["status"] == 200 and _ndjson(served)[-1]
+                    == {"status": "success"} and absent["status"] == 404
+                    and "swarm pull failed" in out["api_pull"]["absent"][1]):
+                raise AssertionError(f"share: /api/pull {out['api_pull']}")
+
+            # Worker 2's first stream on the pulled model, then worker 1's.
+            _zero_launches()
+            first = await stream(e2, SHARE_NAME)
+            launches = _launches()
+            ref = await stream(e1, SHARE_NAME)
+            out["stream"] = {
+                "prompt_tokens": first["prompt_tokens"],
+                "ttft_ms": first["ttft_ms"],
+                "worker1_ttft_ms": ref["ttft_ms"],
+                "launches": {k: launches[k] for k in ("A", "B", "C")},
+                "tokens_equal_to_worker1": first["ids"] == ref["ids"]}
+            _expect_launches(launches, {"B"} | {k for k in ("A", "C")
+                                                if launches[k]}, "share")
+            if not (first["done"] and len(first["ids"]) == SHARE_TOKENS
+                    and first["ids"] == ref["ids"]
+                    and launches["A"] + launches["C"] > 0):
+                raise AssertionError(f"share: stream {out['stream']} "
+                                     f"{first['ids']} vs {ref['ids']}")
+
+            # The CLI, in subprocesses.
+            dir3 = os.path.join(tmp, "models3")
+            cli = {"pull": await _cli(
+                root, "pull", SHARE_NAME, "--bootstrap-peers", baddr,
+                "--models-dir", dir3, "--key-path",
+                os.path.join(tmp, "cli.key"))}
+            pulled3 = cli["pull"]["out"].strip()
+            cli_hashes = (await asyncio.to_thread(_sha256_tree, pulled3)
+                          if cli["pull"]["rc"] == 0 else {})
+            cli["list"] = await _cli(root, "list", "--models-dir", dir3)
+            cli["list_gateway"] = await _cli(
+                root, "list", "--gateway", f"http://127.0.0.1:{gport}")
+            cli["show"] = await _cli(root, "show", SHARE_NAME,
+                                     "--models-dir", dir3)
+            cli["rm"] = await _cli(root, "rm", SHARE_NAME, "--models-dir",
+                                   dir3)
+            out["cli"] = {k: v["rc"] for k, v in cli.items()}
+            out["cli_hashes_equal"] = cli_hashes == want
+            if not (all(v["rc"] == 0 for v in cli.values())
+                    and cli_hashes == want
+                    and SHARE_NAME in cli["list"]["out"]
+                    and SHARE_NAME in cli["list_gateway"]["out"].split()
+                    and "checkpoint:   " + pulled3 in cli["show"]["out"]
+                    and not os.path.exists(pulled3)):
+                raise AssertionError(f"share: cli {cli}")
+        finally:
+            await client.close()
+            for part in reversed(started):
+                await part.stop()
+            await boot.close()
+        return out
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="share") as tmp:
+        out = asyncio.run(go(tmp))
+    return {"phase": "share", "model": SHARE_NAME, "source": TINYLLAMA,
+            **out, "seconds": time.perf_counter() - t0,
+            "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()}
+
+
+# ------------------------------------------------------------ distill
+
+#: ``distill-draft``'s arguments on the card: a 2-layer student on
+#: 16 x 64-token batches, a corpus and a step count that keep the phase
+#: near half a minute
+DISTILL = {"--draft-layers": "2", "--seq-len": "64", "--batch": "16",
+           "--corpus-seqs": "64", "--steps": "40"}
+#: the student's gradient through A's autograd.Function against the plain
+#: function's, per leaf: max |diff| over max |plain gradient|
+GRAD_RTOL = 1e-4
+#: the keys of ``distill_draft``'s result that ``cli_child`` reports
+DISTILL_FIGURES = ("losses", "agreement", "checkpoint", "rollout_s",
+                   "rollout_tokens", "step_ms")
+
+
+def distill_grad_check(dev, first_loss: float) -> dict:
+    """The student's step-1 gradient, in this process on the card: the
+    run's teacher (tinyllama-1.1b seed-0 weights in fp32), initial student
+    and first batch, rebuilt as ``distill_draft`` builds them; the
+    gradient of ``distill_loss`` through kernel A's ``PrefillAttention``
+    against the same through the plain ``prefill_attention_ref``."""
+    import numpy as np
+
+    from crowdllama_tpu_torch.engine.weights import init_params
+    from crowdllama_tpu_torch.models.config import get_config
+    from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
+    from crowdllama_tpu_torch.train import distill as td
+
+    a = {k.lstrip("-").replace("-", "_"): int(v) for k, v in DISTILL.items()}
+    cfg = get_config(TINYLLAMA)
+    teacher = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    dcfg = td.draft_config_for(cfg, a["draft_layers"])
+    _, k_rand, k_init = td.distill_keys(0)
+    corpus = td.rollout_corpus(cfg, teacher, k_rand, a["corpus_seqs"],
+                               a["seq_len"], 0.0)
+    rows = torch.randperm(corpus.shape[0], generator=torch.Generator()
+                          .manual_seed(0))[:a["batch"]]
+    tokens = torch.from_numpy(corpus[rows.numpy()]).long().to(dev)
+    student = td.init_draft_params(dcfg, k_init, dev)
+    for k in ("embed", "lm_head", "final_norm"):
+        student[k] = teacher[k].clone()
+    tl = td._teacher_logits(teacher, cfg, tokens)
+    del teacher
+    grads, losses = [], []
+    for attention in (None, prefill_attention_ref):
+        params = td._tree_map(lambda x: x.detach().requires_grad_(), student)
+        kw = {} if attention is None else {"attention": attention}
+        loss, _ = td.distill_loss(params, dcfg, tl, tokens, 0.5, 2.0, **kw)
+        grads.append(torch.autograd.grad(loss, td._leaves(params)))
+        losses.append(float(loss.detach()))
+    errs = [float((g - p).abs().max() / p.abs().max())
+            for g, p in zip(*grads)]
+    del student, tl, grads
+    _free_card()
+    return {"loss_kernel": losses[0], "loss_plain": losses[1],
+            "cli_first_loss": first_loss,
+            "max_rel_err": max(errs), "leaves": len(errs),
+            "rtol": GRAD_RTOL,
+            "first_loss_equal": bool(np.isclose(losses[0], first_loss,
+                                                rtol=1e-5))}
+
+
+def distill_phase(dev) -> tuple[dict, str]:
+    """``distill-draft`` on the card through the port's CLI
+    (``crowdllama_tpu_torch.cli.main``, in a process of its own through
+    ``cli_child``, which reports its launch counts and the run's
+    figures): the teacher is
+    tinyllama-1.1b at full width and depth in fp32 (its seed-0 random
+    weights, 4.4 GB), the student 2 layers; ``DISTILL``'s corpus and
+    steps.  The run's figures give the rollout's seconds and tokens/s,
+    each train step's device ms (CUDA events), the losses and the
+    agreement.  Checks: the loss falls; kernel D's fp32 entry launches
+    once per layer per rollout step and A's once per layer per train step
+    (22 teacher and 2 student layers), and no other kernel; the student's
+    step-1 gradient through A's ``autograd.Function`` within
+    ``GRAD_RTOL`` of the plain function's (``distill_grad_check``); the
+    checkpoint loads, and serves as ``spec_draft_path`` behind the seed-0
+    weights in one short greedy stream that verifies drafts.  Returns the
+    line and the launches of A_fp32 and D_fp32."""
+    import os
+    import tempfile
+
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.engine.weights import (
+        load_native_params,
+        native_config_from_dir,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="distill") as tmp:
+        ckpt = os.path.join(tmp, "draft")
+        argv = ["distill-draft", "--teacher", TINYLLAMA, "--out", ckpt,
+                *[x for kv in DISTILL.items() for x in kv]]
+
+        async def run():
+            proc, res = await _spawn_cli(root, tmp, "distill",
+                                         "crowdllama_tpu_torch.cli.main",
+                                         *argv)
+            rc = await asyncio.wait_for(proc.wait(), 600)
+            proc.err_file.close()
+            if rc != 0 or not os.path.exists(res):
+                with open(os.path.join(tmp, "distill.err")) as f:
+                    raise AssertionError(f"distill: exited {rc}: "
+                                         f"{f.read()[-3000:]}")
+            with open(res) as f:
+                return json.load(f)
+
+        child = asyncio.run(run())
+        cli_s = time.perf_counter() - t0
+        rep, launches = child["result"], child["launches"]
+        steps, seq = int(DISTILL["--steps"]), int(DISTILL["--seq-len"])
+        layers, draft_layers = 22, int(DISTILL["--draft-layers"])
+        step_ms = sorted(rep["step_ms"][1:])
+        out = {"cli_seconds": cli_s, "rollout_s": rep["rollout_s"],
+               "rollout_tokens": rep["rollout_tokens"],
+               "rollout_tokens_per_s": rep["rollout_tokens"]
+               / rep["rollout_s"],
+               "step_ms_first": rep["step_ms"][0],
+               "step_ms_median": step_ms[len(step_ms) // 2],
+               "step_ms_min": step_ms[0],
+               "loss_first": rep["losses"][0], "loss_last": rep["losses"][-1],
+               "agreement": rep["agreement"], "launches": launches}
+        _expect_launches(launches, {"A_fp32", "D_fp32"}, "distill")
+        if not (rep["losses"][-1] < rep["losses"][0]
+                and launches["D_fp32"] == layers * seq
+                and launches["A_fp32"] == (layers + draft_layers) * steps):
+            raise AssertionError(f"distill: {out}")
+
+        out["gradient"] = distill_grad_check(dev, rep["losses"][0])
+        if not (out["gradient"]["max_rel_err"] <= GRAD_RTOL
+                and out["gradient"]["first_loss_equal"]):
+            raise AssertionError(f"distill: gradient {out['gradient']}")
+
+        # The checkpoint: loads, then drafts for the seed-0 weights.
+        dcfg = native_config_from_dir(ckpt)
+        back = load_native_params(dcfg, ckpt, dtype=torch.float32)
+        out["checkpoint"] = {"layers": dcfg.num_layers, "tensors": len(
+            _flat(back))}
+        del back
+
+        async def spec():
+            engine = TorchEngine(params=seed0_params(dev), device=dev,
+                                 model=TINYLLAMA, spec_decode="draft",
+                                 spec_draft=SPEC_DRAFT, spec_draft_path=ckpt)
+            await engine.start()
+            try:
+                final = None
+                async for chunk in engine.generate(SHORT[2], max_tokens=32):
+                    final = chunk
+                return final, engine.describe()
+            finally:
+                await engine.stop()
+
+        final, desc = asyncio.run(spec())
+        stats = desc.get("spec_decode", {})
+        out["spec_stream"] = {"done": final.done,
+                              "completion_tokens": final.completion_tokens,
+                              "spec_decode": stats}
+        if not (final.done and final.completion_tokens == 32
+                and stats.get("verify_steps", 0) > 0):
+            raise AssertionError(f"distill: spec stream {out['spec_stream']}")
+    _free_card()
+    return ({"phase": "distill", "teacher": TINYLLAMA, "teacher_dtype":
+             "float32", "args": DISTILL, **out,
+             "seconds": time.perf_counter() - t0,
+             "card": torch.cuda.get_device_name(0),
+             "nvidia_smi": nvidia_smi()},
+            {k: launches[k] for k in ("A_fp32", "D_fp32")})
+
+
 # row -> (name, source, TPU kernel it replaces); the name is the C symbol,
 # for F B's symbol launched once over every tensor-parallel rank on the
 # card (the ranks folded into its grid).
@@ -5418,6 +5995,11 @@ KERNEL_ROWS = {
                "crowdllama_tpu/ops/pallas/paged.py:667"),
     "D": ("flash_decode", "crowdllama_tpu_torch/csrc/flash_decode.cu",
           "crowdllama_tpu/ops/pallas/flash.py:269"),
+    "A_fp32": ("flash_prefill_f32",
+               "crowdllama_tpu_torch/csrc/flash_prefill.cu",
+               "crowdllama_tpu/ops/pallas/flash.py:146"),
+    "D_fp32": ("flash_decode_f32", "crowdllama_tpu_torch/csrc/flash_decode.cu",
+               "crowdllama_tpu/ops/pallas/flash.py:269"),
     "E": ("ragged_chunk", "crowdllama_tpu_torch/csrc/paged_attention.cu",
           "crowdllama_tpu/ops/pallas/paged.py:412"),
     "E_int8": ("ragged_chunk_i8",
@@ -5503,7 +6085,17 @@ def main() -> int:
     _free_card()
     spec_phase(dev)
     _free_card()
-    emit(hf_phase(dev))
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="hfkeep") as keep:
+        emit(hf_phase(dev, keep))
+        _free_card()
+        emit(share_phase(dev, os.path.join(keep, SHARE_NAME)))
+    _free_card()
+    line, fp32 = distill_phase(dev)
+    emit(line)
+    launches.update(fp32)
     _free_card()
     # Dh 128: llama-3-8b at full depth on the paged main path, then cut to
     # LLAMA_CUT_LAYERS layers on the other paths.
@@ -5522,8 +6114,10 @@ def main() -> int:
         launches128.update({k: got[k] for k in ran - {"A", "C"}
                             if k not in launches128})
     # No engine path runs kernel E; every phase checked it stayed at 0.
+    # The fp32 entries run at Dh 64 only, in the distill phase.
     launches["E"] = launches["E_int8"] = 0
     launches128["E"] = launches128["E_int8"] = 0
+    launches128["A_fp32"] = launches128["D_fp32"] = 0
 
     rows = []
     for dh, counts in ((64, launches), (128, launches128)):
@@ -5536,7 +6130,9 @@ def main() -> int:
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"],
-                         "library_ms": r["library_ms"]})
+                         "library_ms": r["library_ms"],
+                         **({"library_backend": r["library_backend"]}
+                            if "library_backend" in r else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Node CLI: ``python -m crowdllama_tpu_torch.cli.main start [--worker-mode]
-| version | network-status | trace | top | run``.
+| version | network-status | trace | top | run | pull | list | show | rm |
+distill-draft``.
 
 Counterpart of ``crowdllama_tpu/cli/main.py``.  ``start --worker-mode``
 runs a worker: the node's identity key (``KeyManager``), the engine (the
@@ -17,8 +18,18 @@ signal on a consumer, finishes in-flight requests in place.
 
 A worker's engine serves on the card; without CUDA it refuses to start
 unless ``--device cpu`` is given.  A consumer runs no model, so it needs
-no card.  ``network-status``, ``trace``, ``top`` and ``run`` talk to a
-gateway over the port's HTTP client (``net/http.py``).
+no card.  ``network-status``, ``trace``, ``top``, ``run`` and ``list
+--gateway`` talk to a gateway over the port's HTTP client
+(``net/http.py``).
+
+Model management, as the JAX CLI's: ``pull MODEL --bootstrap-peers ...``
+fetches a checkpoint from a swarm worker that advertises it (every file
+SHA-256-verified, ``net/model_share.py``) into ``--models-dir`` (default
+``CROWDLLAMA_TPU_MODELS_DIR`` or ``~/.crowdllama-tpu/models``) and
+prints its path; ``list``, ``show`` and ``rm`` manage that directory.
+``distill-draft`` trains a draft model for ``--spec-decode draft``
+(``train/distill.py``) on the card, or with ``--device cpu`` on the CPU,
+and writes a native checkpoint ``--spec-draft-path`` serves.
 """
 
 from __future__ import annotations
@@ -77,6 +88,65 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--temperature", type=float, default=0.7)
     run.add_argument("--top-p", type=float, default=0.95)
     run.add_argument("--max-tokens", type=int, default=0)
+    pull = sub.add_parser(
+        "pull", help="fetch a model's checkpoint from a swarm peer "
+                     "(hash-verified safetensors transfer)")
+    pull.add_argument("model", help="model name advertised by some worker")
+    pull.add_argument("--bootstrap-peers", required=True,
+                      help="comma-separated host:port bootstrap addresses")
+    pull.add_argument("--models-dir", default="",
+                      help="destination root (default ~/.crowdllama-tpu/models)")
+    pull.add_argument("--key-path", default="")
+    lst = sub.add_parser("list", help="list local checkpoints (or the "
+                                      "swarm's models with --gateway)")
+    lst.add_argument("--models-dir", default="")
+    lst.add_argument("--gateway", default="",
+                     help="query this gateway's /api/tags instead")
+    show = sub.add_parser("show", help="model config + local checkpoint "
+                                       "details")
+    show.add_argument("model")
+    show.add_argument("--models-dir", default="")
+    rm = sub.add_parser("rm", help="delete a local pulled checkpoint")
+    rm.add_argument("model")
+    rm.add_argument("--models-dir", default="")
+    distill = sub.add_parser(
+        "distill-draft",
+        help="distill a small draft model from a main model's logits for "
+             "--spec-decode draft (train/distill.py)")
+    distill.add_argument("--teacher", default="tiny-test",
+                         help="main-model registry name")
+    distill.add_argument("--teacher-path", default="",
+                         help="teacher checkpoint dir (empty = random init, "
+                              "matching a checkpoint-less serving node on "
+                              "the same device)")
+    distill.add_argument("--out", required=True,
+                         help="checkpoint dir to write (becomes "
+                              "--spec-draft-path)")
+    distill.add_argument("--draft-layers", type=int, default=2)
+    distill.add_argument("--steps", type=int, default=1200)
+    distill.add_argument("--batch", type=int, default=16)
+    distill.add_argument("--seq-len", type=int, default=64)
+    distill.add_argument("--corpus-seqs", type=int, default=256,
+                         help="teacher-rollout sequences to synthesize")
+    distill.add_argument("--corpus", default="",
+                         help="optional text file: seeds rollout prefixes "
+                              "(the prompt distribution) and joins the "
+                              "corpus as raw chunks")
+    distill.add_argument("--max-prefix", type=int, default=32,
+                         help="longest rollout prefix length")
+    distill.add_argument("--sample-temperature", type=float, default=0.0,
+                         help="rollout sampling temperature (0 = greedy, "
+                              "the verify-time trajectory distribution)")
+    distill.add_argument("--no-tie-embeddings", action="store_true",
+                         help="random-init embed/lm_head instead of "
+                              "copying the teacher's")
+    distill.add_argument("--lr", type=float, default=3e-3)
+    distill.add_argument("--kl-weight", type=float, default=0.5)
+    distill.add_argument("--kl-temperature", type=float, default=2.0)
+    distill.add_argument("--seed", type=int, default=0)
+    distill.add_argument("--verbose", action="store_true")
+    distill.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                         help="train on the card (default) or the CPU")
     return p
 
 
@@ -222,6 +292,205 @@ async def run_node(cfg: Configuration, worker_mode: bool = True) -> None:
             await gateway.stop()
         await peer.stop()
         await engine.stop()
+
+
+# ------------------------------------------------------ model commands
+
+
+def _distill_draft(args) -> int:
+    """Train and save a speculative draft checkpoint (train/distill.py);
+    prints the flags that load it back into a serving node."""
+    logging.basicConfig(
+        stream=sys.stderr,
+        level=logging.DEBUG if args.verbose else logging.INFO)
+    from crowdllama_tpu_torch.train.distill import (
+        DistillConfig,
+        distill_draft,
+    )
+
+    dc = DistillConfig(
+        teacher=args.teacher, teacher_path=args.teacher_path,
+        draft_layers=args.draft_layers, steps=args.steps, batch=args.batch,
+        seq_len=args.seq_len, corpus_seqs=args.corpus_seqs,
+        corpus_path=args.corpus, sample_temperature=args.sample_temperature,
+        max_prefix=args.max_prefix,
+        tie_embeddings=not args.no_tie_embeddings,
+        lr=args.lr, kl_weight=args.kl_weight,
+        kl_temperature=args.kl_temperature, seed=args.seed, out=args.out,
+        device=args.device)
+    if dc.device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("error: no CUDA device available; distillation runs on "
+                  "the card (pass --device cpu to train on the CPU)",
+                  file=sys.stderr)
+            return 2
+    result = distill_draft(dc)
+    print(f"checkpoint: {result['checkpoint']}")
+    print(f"final loss: {result['losses'][-1]:.4f}  "
+          f"greedy agreement: {result['agreement']:.3f}")
+    print("serve with: python -m crowdllama_tpu_torch.cli.main start "
+          "--worker-mode "
+          f"--model {args.teacher} --spec-decode draft "
+          f"--spec-draft-path {result['checkpoint']}")
+    return 0
+
+
+async def _pull(args) -> int:
+    """Standalone swarm pull: discover a peer advertising the model, fetch
+    its checkpoint with hash verification, print the local path."""
+    from crowdllama_tpu_torch.net.discovery import (
+        discover_peers,
+        new_host_and_dht,
+    )
+    from crowdllama_tpu_torch.net.model_share import fetch_model
+
+    logging.basicConfig(stream=sys.stderr, level=logging.INFO)
+    cfg = Configuration.from_environment()
+    models_dir = args.models_dir or cfg.models_dir
+    key = KeyManager(args.key_path or None).get_or_create_private_key("pull")
+    host, dht = await new_host_and_dht(key, listen_host="127.0.0.1")
+    try:
+        boots = [a.strip() for a in args.bootstrap_peers.split(",")
+                 if a.strip()]
+        await dht.bootstrap(boots)
+        resources = await discover_peers(host, dht)
+        sources = [r for r in resources
+                   if r.worker_mode and args.model in r.supported_models]
+        if not sources:
+            print(f"no swarm peer advertises model {args.model!r} "
+                  f"(discovered {len(resources)} peers)", file=sys.stderr)
+            return 1
+        last_err = None
+        for r in sources:
+            contact = await dht.find_peer(r.peer_id)
+            if contact is None:
+                last_err = RuntimeError(
+                    f"cannot resolve peer {r.peer_id[:8]}")
+                continue
+            try:
+                dest = await fetch_model(host, contact, args.model,
+                                         models_dir)
+                print(dest)
+                return 0
+            except Exception as e:
+                last_err = e
+                log.warning("pull from %s failed: %s", r.peer_id[:8], e)
+        print(f"pull failed from every source: {last_err}", file=sys.stderr)
+        return 1
+    finally:
+        await host.close()
+
+
+def _models_root(args):
+    from pathlib import Path
+
+    cfg = Configuration.from_environment()
+    return Path(args.models_dir or cfg.models_dir).expanduser()
+
+
+def _dir_size(d) -> int:
+    return sum(p.stat().st_size for p in d.rglob("*") if p.is_file())
+
+
+def _fmt_bytes(n: int) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if n < 1024 or unit == "GiB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{n} B"
+        n /= 1024
+    return f"{n:.1f} GiB"
+
+
+def _list_local(args) -> int:
+    """``list``: local checkpoints under the models dir."""
+    root = _models_root(args)
+    rows = []
+    if root.is_dir():
+        for d in sorted(root.iterdir()):
+            if d.is_dir() and not d.name.endswith(".partial"):
+                st = list(d.glob("*.safetensors"))
+                if st:
+                    rows.append((d.name, _fmt_bytes(_dir_size(d)), len(st)))
+    if not rows:
+        print(f"no local checkpoints under {root}")
+        return 0
+    w = max(len(r[0]) for r in rows)
+    print(f"{'NAME'.ljust(w)}  SIZE        SHARDS")
+    for name, size, shards in rows:
+        print(f"{name.ljust(w)}  {size:<10}  {shards}")
+    return 0
+
+
+async def _list(args) -> int:
+    """``list --gateway``: the swarm's served models via /api/tags."""
+    try:
+        _, raw = await _get(f"{args.gateway}/api/tags", 5)
+        body = json.loads(raw)
+    except Exception as e:
+        print(f"gateway unreachable: {e}", file=sys.stderr)
+        return 1
+    models = body.get("models", [])
+    if not models:
+        print("no models served by the swarm")
+        return 0
+    for m in models:
+        print(m.get("name", m.get("model", "?")))
+    return 0
+
+
+def _show(args) -> int:
+    """``show MODEL``: registry config + local checkpoint details."""
+    from crowdllama_tpu_torch.models.config import get_config, list_models
+    from crowdllama_tpu_torch.net.model_share import dest_under_root
+
+    try:
+        cfg = get_config(args.model)
+    except KeyError:
+        cfg = None
+    if cfg is not None:
+        print(f"model:        {cfg.name} (family {cfg.family})")
+        print(f"layers:       {cfg.num_layers}")
+        print(f"hidden:       {cfg.hidden_size} "
+              f"(heads {cfg.num_heads}/{cfg.num_kv_heads} kv)")
+        print(f"context:      {cfg.max_context_length}")
+        if cfg.is_moe:
+            print(f"experts:      {cfg.num_experts} "
+                  f"(top-{cfg.num_experts_per_tok})")
+    else:
+        print(f"model:        {args.model} (not in the builtin registry; "
+              f"known: {', '.join(list_models())})")
+    try:
+        d = dest_under_root(_models_root(args), args.model)
+    except ValueError as e:
+        print(f"invalid model name: {e}", file=sys.stderr)
+        return 1
+    if d.is_dir() and list(d.glob("*.safetensors")):
+        print(f"checkpoint:   {d} ({_fmt_bytes(_dir_size(d))})")
+    else:
+        print("checkpoint:   none local (use `crowdllama-tpu pull`)")
+    return 0
+
+
+def _rm(args) -> int:
+    """``rm MODEL``: delete a local pulled checkpoint (name-validated and
+    containment-checked like every other models-dir path)."""
+    import shutil
+
+    from crowdllama_tpu_torch.net.model_share import dest_under_root
+
+    try:
+        d = dest_under_root(_models_root(args), args.model)
+    except ValueError as e:
+        print(f"invalid model name: {e}", file=sys.stderr)
+        return 1
+    if not d.is_dir():
+        print(f"no local checkpoint for {args.model!r} under {d.parent}",
+              file=sys.stderr)
+        return 1
+    shutil.rmtree(d)
+    print(f"removed {d}")
+    return 0
 
 
 # ----------------------------------------------------- gateway commands
@@ -491,6 +760,19 @@ def main(argv: list[str] | None = None) -> int:
         except KeyboardInterrupt:
             print(file=sys.stderr)
             return 0
+    if args.command == "pull":
+        try:
+            return asyncio.run(_pull(args))
+        except KeyboardInterrupt:
+            return 1
+    if args.command == "list":
+        return asyncio.run(_list(args)) if args.gateway else _list_local(args)
+    if args.command == "show":
+        return _show(args)
+    if args.command == "rm":
+        return _rm(args)
+    if args.command == "distill-draft":
+        return _distill_draft(args)
     if args.command != "start":
         build_parser().print_help()
         return 2

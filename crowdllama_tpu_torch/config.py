@@ -205,6 +205,12 @@ class Configuration:
     model: str = "tinyllama-1.1b"
     # empty = random-init weights; else a native or an HF checkpoint dir
     model_path: str = ""
+    # Destination for swarm-pulled checkpoints (net/model_share.py).
+    models_dir: str = "~/.crowdllama-tpu/models"
+    # Whether remote peers may trigger this worker to download a model
+    # (MODEL_PROTOCOL "pull" op, proxied by the gateway's /api/pull).
+    # Serving manifests/files for models it already has is always on.
+    allow_swarm_pull: bool = True
     max_batch_slots: int = 8
     max_context_length: int = 2048
     decode_chunk: int = 8  # decode steps per device dispatch
@@ -278,6 +284,8 @@ class Configuration:
         "metrics_exemplars": "CROWDLLAMA_TPU_METRICS_EXEMPLARS",
         "model": "CROWDLLAMA_TPU_MODEL",
         "model_path": "CROWDLLAMA_TPU_MODEL_PATH",
+        "models_dir": "CROWDLLAMA_TPU_MODELS_DIR",
+        "allow_swarm_pull": "CROWDLLAMA_TPU_ALLOW_SWARM_PULL",
         "max_batch_slots": "CROWDLLAMA_TPU_MAX_BATCH_SLOTS",
         "max_context_length": "CROWDLLAMA_TPU_MAX_CONTEXT_LENGTH",
         "decode_chunk": "CROWDLLAMA_TPU_DECODE_CHUNK",
@@ -343,6 +351,10 @@ class Configuration:
             else:
                 value = raw
             setattr(cfg, name, value)
+        # A set but empty CROWDLLAMA_TPU_ALLOW_SWARM_PULL disables pulls
+        # (the JAX package reads the variable whenever it is set).
+        if env.get(cls._ENV["allow_swarm_pull"]) == "":
+            cfg.allow_swarm_pull = False
         for k, v in overrides.items():
             if v is not None:
                 setattr(cfg, k, v)

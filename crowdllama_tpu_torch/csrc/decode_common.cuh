@@ -24,8 +24,9 @@
 //   counter per (slot, kv head) row; the block that brings the count to the
 //   number of live splits merges them all, reading the partials in split
 //   order (never arrival order, so the result is the same every run), writes
-//   bf16 out and resets the counter to 0.  The wrappers make the scratch and
-//   counters once per device: a call launches nothing else.
+//   the output (bf16, or fp32 beside an fp32 cache) and resets the counter
+//   to 0.  The wrappers make the scratch and counters once per device: a
+//   call launches nothing else.
 // - A staged ring (decode_span).  Stages of DEC_KEYS = 64 keys (K and V rows
 //   found by a key-row policy, keys outside the split's range zero-filled
 //   and never read) stream through a DEC_STAGES = 3 deep ring of 16-byte
@@ -46,6 +47,10 @@
 //   no FMA chain is longer than 8 a stage; the warps' sums are added in
 //   warp order at the end.  Three barriers a stage.  Registers: GP 4
 //   kernels and bf16 GP 8 at Dh 64 are held to 128, two blocks a SM.
+// - fp32 caches (kernel D beside an fp32 model) stage fp32 rows (twice
+//   bf16's bytes: 102,624 and 200,928 B a block at Dh 64 and 128, two
+//   blocks a SM at Dh 64, one at 128) and take fp32 queries and write fp32
+//   outputs (io_t); the arithmetic is the bf16 path's, fp32 throughout.
 // - int8 pools stage their raw bytes (half of bf16's) and their bf16
 //   scales; the one thread that reads an element converts it to fp32
 //   (exact: |x| <= 127), once per staged tile, through the same scoring
@@ -67,12 +72,21 @@ constexpr int DEC_WARPS = DEC_THREADS / 32;
 template <typename T>
 __host__ __device__ constexpr bool is_q8() { return std::is_same<T, int8_t>::value; }
 
+template <typename T>
+__host__ __device__ constexpr bool is_f32() { return std::is_same<T, float>::value; }
+
+// The type of the query and output rows beside a K/V element type T: fp32
+// caches take fp32 queries and write fp32 outputs; bf16 and int8 ones
+// bf16.
+template <typename T>
+using io_t = typename std::conditional<is_f32<T>(), float, __nv_bfloat16>::type;
+
 // Blocks a SM a decode kernel's registers are held to: two for GP 4 and
 // for bf16 at Dh 64 GP 8; int8 Dh 64 GP 8 and Dh 128 GP 8 need more
 // registers than half a SM's.
 template <typename T, int DH, int GP>
 __host__ __device__ constexpr int decode_min_blocks() {
-  return GP == 4 || (DH == 64 && !is_q8<T>()) ? 2 : 1;
+  return is_f32<T>() ? (DH == 64 ? 2 : 1) : (GP == 4 || (DH == 64 && !is_q8<T>()) ? 2 : 1);
 }
 
 // A decode block's shared memory: the ring of DEC_STAGES stages (K and V
@@ -126,6 +140,22 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* row, int i, float 
 }
 
 template <int N>
+__device__ __forceinline__ void load_vec(const float* row, int i, float (&f)[N]) {
+  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 dims");
+  if constexpr (N == 2) {
+    const float2 x = reinterpret_cast<const float2*>(row)[i];
+    f[0] = x.x;
+    f[1] = x.y;
+  } else {
+    const float4 x = reinterpret_cast<const float4*>(row)[i];
+    f[0] = x.x;
+    f[1] = x.y;
+    f[2] = x.z;
+    f[3] = x.w;
+  }
+}
+
+template <int N>
 __device__ __forceinline__ void load_vec(const int8_t* row, int i, float (&f)[N]) {
   static_assert(N == 2 || N == 4, "a lane owns 2 or 4 dims");
   if constexpr (N == 2) {
@@ -152,8 +182,16 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* row, int i, const float
     d2[e] = __floats2bfloat162_rn(acc[2 * e] * inv, acc[2 * e + 1] * inv);
 }
 
-// W consecutive elements of a staged row (bf16: one 16-byte load; int8: 8
-// or 16 bytes) as fp32.
+// acc / l (l == 0 read as 1) as fp32 into elements N * i .. of a row.
+template <int N>
+__device__ __forceinline__ void store_vec(float* row, int i, const float (&acc)[N], float l) {
+  const float inv = 1.f / (l == 0.f ? 1.f : l);
+#pragma unroll
+  for (int e = 0; e < N; ++e) row[N * i + e] = acc[e] * inv;
+}
+
+// W consecutive elements of a staged row (bf16: one 16-byte load; fp32:
+// two; int8: 8 or 16 bytes) as fp32.
 template <int W>
 __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&f)[W]) {
   static_assert(W == 8, "bf16 loads are 16 bytes");
@@ -163,6 +201,19 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&f)[W]) 
   for (int e = 0; e < 4; ++e) {
     f[2 * e] = __uint_as_float(w[e] << 16);
     f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void load_row(const float* p, float (&f)[W]) {
+  static_assert(W == 8, "fp32 loads are two 16-byte loads");
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const float4 u = reinterpret_cast<const float4*>(p)[e];
+    f[4 * e] = u.x;
+    f[4 * e + 1] = u.y;
+    f[4 * e + 2] = u.z;
+    f[4 * e + 3] = u.w;
   }
 }
 
@@ -263,7 +314,7 @@ struct ContigDecodeRows {
 // q_row points at head 0 of the kv head ([G][DH]).
 template <typename T, int DH, int GP, typename Rows>
 __device__ __forceinline__ void decode_span(unsigned char* smem,
-                                            const __nv_bfloat16* __restrict__ q_row,
+                                            const io_t<T>* __restrict__ q_row,
                                             const T* __restrict__ pool_k,
                                             const T* __restrict__ pool_v,
                                             const __nv_bfloat16* __restrict__ k_scale,
@@ -491,17 +542,17 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
 // y * gridDim.x + x, whose query token (q_row: head 0 of the kv head,
 // [G][DH]) sits at position len - 1 and sees the keys below `bound` (those
 // that exist) that the window allows, cut into splits of `span` keys (at
-// most `splits`, MAX_SPLITS or fewer).  Writes the G heads' bf16 outputs at
+// most `splits`, MAX_SPLITS or fewer).  Writes the G heads' outputs (io_t<T>) at
 // o_row ([G][DH]; zeros when no key is seen, from split 0).  The row's
 // partials live at scratch + row * splits * G * part_stride<DH>() floats,
 // its arrival counter at counters[row], zero between launches.
 template <typename T, int DH, int GP, typename Rows>
 __device__ __forceinline__ void decode_split(unsigned char* smem,
-                                             const __nv_bfloat16* __restrict__ q_row,
+                                             const io_t<T>* __restrict__ q_row,
                                              const T* __restrict__ k, const T* __restrict__ v,
                                              const __nv_bfloat16* __restrict__ ks,
                                              const __nv_bfloat16* __restrict__ vs,
-                                             const Rows& rows, __nv_bfloat16* __restrict__ o_row,
+                                             const Rows& rows, io_t<T>* __restrict__ o_row,
                                              float* __restrict__ scratch,
                                              int* __restrict__ counters, int G, int len,
                                              int window, int bound, int span, int splits,
@@ -513,7 +564,7 @@ __device__ __forceinline__ void decode_split(unsigned char* smem,
   const int s_lo = lo / span, s_hi = (bound + span - 1) / span;  // live splits
   if (s_hi <= s_lo) {  // no key to see (a zero-length slot): zeros, from split 0
     if (s == 0)
-      for (int i = threadIdx.x; i < G * DH; i += blockDim.x) o_row[i] = __float2bfloat16(0.f);
+      for (int i = threadIdx.x; i < G * DH; i += blockDim.x) o_row[i] = io_t<T>(0.f);
     return;
   }
   if (s < s_lo || s >= s_hi) return;

@@ -45,6 +45,7 @@ import random
 import tempfile
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import AsyncIterator
 
 import torch
@@ -192,6 +193,11 @@ class Engine:
     def describe(self) -> dict:
         """Capability/telemetry snapshot for Resource advertisement."""
         return {"models": self.models, "throughput": 0.0, "load": 0.0}
+
+    def model_dir(self, model: str) -> str | None:
+        """Local checkpoint directory for ``model`` if this engine can
+        share it over the swarm (net/model_share.py); None otherwise."""
+        return None
 
     def generate(self, prompt: str, model: str = "", max_tokens: int = 128,
                  temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
@@ -862,6 +868,14 @@ class TorchEngine(Engine):
             return out
 
         return await asyncio.to_thread(_export)
+
+    def model_dir(self, model: str) -> str | None:
+        """``model_path`` when it serves ``model`` and holds safetensors."""
+        mp = self.config.model_path
+        if (model in self.models and mp
+                and list(Path(mp).expanduser().glob("*.safetensors"))):
+            return mp
+        return None
 
     def describe(self) -> dict:
         d = {"models": self.models, "throughput": 0.0, "load": 0.0}

@@ -90,9 +90,13 @@ class MultiEngine(Engine):
             *(e.migrate() for e in self._engines.values()))
         return sum(moved)
 
+    def model_dir(self, model: str) -> str | None:
+        eng = self._engines.get(model)
+        return eng.model_dir(model) if eng is not None else None
+
     async def add_model(self, name: str, path: str = "") -> None:
-        """Hot-register a model: build and start a child engine, then
-        serve it."""
+        """Hot-register a model (a swarm pull landing, net/model_share.py):
+        build and start a child engine, then advertise the new list."""
         if name in self._engines:
             return
         eng = TorchEngine(dataclasses.replace(
@@ -103,6 +107,8 @@ class MultiEngine(Engine):
         await eng.start()
         self._engines[name] = eng
         self.models = list(self._engines)
+        if self._peer is not None:
+            self._peer.update_metadata()  # advertise without waiting a tick
         log.info("hot-registered model %s from %s", name, path or "<default>")
 
     # Point-in-time gauges take the max across children; depths and

@@ -13,6 +13,11 @@ chain and the random bits follow JAX's default ``threefry2x32`` PRNG with
 - ``split(key, n)[i]`` hashes ``(0, i)`` (the partitionable layout);
 - 32-bit ``random_bits`` of a shape hash the flat index ``n`` as
   ``(n >> 32, n & 0xFFFFFFFF)`` and xor the two output words;
+- ``randint`` (int32) draws two 32-bit words per value from
+  ``split(key)``'s two keys, ``hi`` and ``lo``, and returns ``minval +
+  (hi % span * (2**32 % span) + lo % span) % span`` in wrapping uint32
+  arithmetic, ``span`` being ``maxval - minval`` (1 where ``maxval <=
+  minval``);
 - ``uniform`` sets the top 23 bits as a mantissa of 1.x, subtracts 1,
   scales, then takes ``max(minval, .)``; ``gumbel`` (default "low" mode)
   is ``-log(-log(uniform(tiny, 1)))``; ``categorical`` is
@@ -93,6 +98,28 @@ def random_bits(keys: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
     k0, k1 = keys[..., 0, None], keys[..., 1, None]
     y0, y1 = threefry2x32(k0, k1, hi, lo)
     return (y0 ^ y1).reshape(*keys.shape[:-1], *shape)
+
+
+def randint(key: np.ndarray, shape: tuple[int, ...], minval,
+            maxval) -> np.ndarray:
+    """int32 ``jax.random.randint(key, shape, minval, maxval)`` for ONE key
+    [2]; ``minval`` / ``maxval`` are ints or arrays broadcasting to
+    ``shape`` (clipped to the int32 range, as JAX clips them)."""
+    info = np.iinfo(np.int32)
+    lo = np.broadcast_to(np.clip(np.asarray(minval, np.int64), info.min,
+                                 info.max), shape)
+    hi = np.broadcast_to(np.clip(np.asarray(maxval, np.int64), info.min,
+                                 info.max), shape)
+    k_hi, k_lo = split(key)
+    higher = random_bits(k_hi, shape).astype(np.uint64)
+    lower = random_bits(k_lo, shape).astype(np.uint64)
+    mask = np.uint64(0xFFFFFFFF)
+    span = np.where(hi <= lo, 1, (hi - lo) & 0xFFFFFFFF).astype(np.uint64)
+    mult = np.uint64(1 << 16) % span
+    mult = (mult * mult & mask) % span
+    offset = ((higher % span * mult & mask) + lower % span & mask) % span
+    return ((lo + offset.astype(np.int64)) & 0xFFFFFFFF).astype(
+        np.uint32).view(np.int32)
 
 
 def uniform(keys: np.ndarray, shape: tuple[int, ...], minval: float = 0.0,

@@ -27,8 +27,11 @@ other component raises :class:`UnsupportedComponent` at load, naming it.
 
 Patterns are Oniguruma's; Python's ``re`` lacks ``\\p{..}`` and its
 ``\\s`` also takes U+001C-U+001F, so :func:`onig_to_re` rewrites
-``\\p{X}`` / ``\\P{X}`` into classes built once from ``unicodedata`` and
-``\\s`` / ``\\S`` into the Unicode ``White_Space`` set.
+``\\p{X}`` / ``\\P{X}`` into classes built once from ``unicodedata``
+(overlaid with ``engine/unicode_overlay.py``: the categories of the code
+points ``tokenizers``' later Unicode tables assign or change, generated by
+``tools/gen_unicode_overlay.py``) and ``\\s`` / ``\\S`` into the Unicode
+``White_Space`` set.
 """
 
 from __future__ import annotations
@@ -58,8 +61,15 @@ _WS = frozenset(WHITE_SPACE)
 
 @functools.lru_cache(maxsize=1)
 def _categories() -> list[str]:
-    """The general category of every code point."""
-    return [unicodedata.category(chr(c)) for c in range(sys.maxunicode + 1)]
+    """The general category of every code point: ``unicodedata``'s,
+    overlaid with the categories ``tokenizers``' later Unicode tables give
+    the code points that changed since (``engine/unicode_overlay.py``)."""
+    from crowdllama_tpu_torch.engine.unicode_overlay import CHANGED
+
+    cats = [unicodedata.category(chr(c)) for c in range(sys.maxunicode + 1)]
+    for first, last, cat in CHANGED:
+        cats[first:last + 1] = [cat] * (last - first + 1)
+    return cats
 
 
 _CATEGORIES = ("Lu", "Ll", "Lt", "Lm", "Lo", "Mn", "Mc", "Me", "Nd", "Nl",

@@ -32,7 +32,8 @@ drain one replica observes quarantines the worker on all), and with
 ``tenant_quotas`` admission is per tenant (``X-Tenant``): a token bucket
 charged by every replica's admits, and a weighted fair share of the
 inflight cap.  ``/api/pull`` of
-a model no worker serves answers 501 (swarm model sharing, item 9).  The
+a model no worker serves is proxied to a worker, which pulls it from the
+swarm (``net/model_share.py``).  The
 autopilot's back-off capture goes with the autopilot (item 11).  The
 native data plane encodes request frames (``core/wire.encode_genreq_frame``)
 and decodes reply frames with its strict decoder where it applies
@@ -743,9 +744,11 @@ class Gateway:
         return reply
 
     async def handle_pull(self, request: web.Request) -> web.Response:
-        """POST /api/pull: success when a healthy worker already serves
-        the model; a swarm pull of a model nobody serves is not ported
-        (ROADMAP Queue 1 item 9), so that answers 501."""
+        """POST /api/pull.  Resolution order: a healthy worker already
+        serves the model -> success at once; else the pull is proxied to
+        the best worker (``net/model_share.py``'s ``pull`` op), which
+        acquires the checkpoint from whichever peer shares it and
+        hot-registers it; else 404 naming the failed swarm pull."""
         try:
             body = await request.json()
         except json.JSONDecodeError:
@@ -754,19 +757,45 @@ class Gateway:
         if not name:
             return web.json_response({"error": "model is required"},
                                      status=400)
-        if self._find_worker(name) is not None:
+
+        def _success(extra_lines=()):
             if not body.get("stream", True):
+                # Non-streaming clients parse one JSON body.
                 return web.json_response({"status": "success"})
-            lines = [{"status": "pulling manifest"}, {"status": "success"}]
+            lines = [{"status": "pulling manifest"}, *extra_lines,
+                     {"status": "success"}]
             return web.Response(
                 text="".join(json.dumps(line) + "\n" for line in lines),
                 content_type="application/x-ndjson")
+
+        # The predicate routing uses: pull must not report success for a
+        # model /api/chat would then refuse.
+        if self._find_worker(name) is not None:
+            return _success()
+
+        pull_err = "no workers available"
+        pm = self.peer.peer_manager
+        target = pm.find_best_worker("") if pm else None
+        if target is not None:
+            from crowdllama_tpu_torch.net.model_share import request_pull
+
+            try:
+                contact = await self.peer.dht.find_peer(target.peer_id)
+                if contact is None:
+                    raise RuntimeError(
+                        f"cannot resolve worker {target.peer_id[:8]}")
+                path = await request_pull(self.peer.host, contact, name)
+                return _success([{"status": f"pulled to {path} on worker "
+                                            f"{target.peer_id[:8]}"}])
+            except Exception as e:
+                pull_err = str(e)
+                log.warning("proxied pull of %s via %s failed: %s",
+                            name, target.peer_id[:8], e)
         return web.json_response({
-            "error": f"model {name!r} is not served by any worker, and "
-                     "pulling a model through the swarm is not ported to "
-                     "crowdllama_tpu_torch yet (ROADMAP Queue 1 item 9); "
-                     "start a worker with --worker-mode --model "
-                     f"{name}"}, status=501)
+            "error": f"model {name!r} is not served by any worker and the "
+                     f"swarm pull failed ({pull_err}); models are provided "
+                     "by swarm workers (start one with "
+                     f"--worker-mode --model {name})"}, status=404)
 
     async def handle_metrics(self, request: web.Request) -> web.Response:
         """GET /metrics: Prometheus text of the gateway and the swarm."""

@@ -50,12 +50,18 @@ SIGNATURES: dict[str, dict[str, list]] = {
         # window, dh, stream
         "flash_prefill": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
                           _I, _P],
+        # the same over fp32 q/k/v/out
+        "flash_prefill_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                              _I, _I, _P],
     },
     "flash_decode": {
         # q, k_cache, v_cache, seq_lens, scratch, counters, out, B, H, Hkv,
         # S, span, splits, scale, softcap, window, dh, stream
         "flash_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _I, _I, _P],
+        # the same over fp32 q/caches/out
+        "flash_decode_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _F, _F, _I, _I, _P],
     },
     "paged_attention": {
         # nranks, q[], pool_k[], pool_v[], out[] (host arrays of nranks
@@ -153,8 +159,13 @@ def build_all() -> list[Path]:
 
 
 # A kernel instantiation's mangled name: the kernel, then its template
-# arguments (the pool type, bf16 or int8 = "a", and the head dim).
-_KERNEL_RE = re.compile(r"\d([a-z_]+_kernel)I(?:13__nv_bfloat16|(a))?Li(\d+)E")
+# arguments (the element type, bf16, int8 = "a" or fp32 = "f", and the
+# head dim).
+_KERNEL_RE = re.compile(
+    r"\d([a-z_]+_kernel)I(?:13__nv_bfloat16|(a)|(f))?Li(\d+)E")
+# The element type of a kernel templated on the head dim alone: bf16 but
+# for these.
+_UNTYPED_DTYPE = {"prefill_simt_kernel": "fp32"}
 
 
 def ptxas_usage(name: str) -> list[dict]:
@@ -169,8 +180,10 @@ def ptxas_usage(name: str) -> list[dict]:
             m = _KERNEL_RE.search(line)
             cur = None if m is None else {
                 "kernel": m.group(1),
-                "dtype": "int8" if m.group(2) else "bf16",
-                "dh": int(m.group(3))}
+                "dtype": ("int8" if m.group(2) else
+                          "fp32" if m.group(3) else
+                          _UNTYPED_DTYPE.get(m.group(1), "bf16")),
+                "dh": int(m.group(4))}
         elif cur is not None and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             cur.update(stack=nums[0], spill_stores=nums[1],

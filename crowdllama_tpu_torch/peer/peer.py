@@ -40,7 +40,11 @@ donor.  The replicated gateway: a consumer's ``GossipNode``
 (``swarm/gossip.py``) attaches itself as ``gossip_node``, and inbound
 ``gossip_frame`` messages go to it (a node without one ignores them).
 
-Not ported: swarm model sharing and pull.
+Swarm model sharing (``net/model_share.py``): a worker serves
+``MODEL_PROTOCOL`` (its checkpoints' manifests and files, and the
+``pull`` trigger, unless ``allow_swarm_pull`` is off) and
+:meth:`Peer.pull_model` acquires a model from a worker that advertises
+it, then hot-registers it on the engine.
 """
 
 from __future__ import annotations
@@ -119,6 +123,14 @@ def device_capabilities(device) -> dict:
             "gpu_model": name, "vram_gb": int(round(total / (1 << 30)))}
 
 
+def _single_process() -> bool:
+    """Whether a pull may hot-register a second engine.  The JAX package
+    refuses it on a multi-process cluster (leader-replicated serving
+    cannot represent a second engine); a torch worker is one process,
+    always, so this holds.  Kept as the JAX gate's seam."""
+    return True
+
+
 class Peer:
     """One swarm node: a worker serving ``engine``, or a consumer."""
 
@@ -162,6 +174,18 @@ class Peer:
         self.dht.metadata_provider = self._metadata_snapshot
         self.host.set_stream_handler(INFERENCE_PROTOCOL,
                                      self._handle_inference_stream)
+        if self.worker_mode:
+            from crowdllama_tpu_torch.core.protocol import MODEL_PROTOCOL
+            from crowdllama_tpu_torch.net.model_share import (
+                ModelShareService,
+            )
+
+            self._model_share = ModelShareService(
+                model_dir=self.engine.model_dir, pull=self.pull_model,
+                allow_pull=(getattr(self.config, "allow_swarm_pull", True)
+                            and _single_process()))
+            self.host.set_stream_handler(MODEL_PROTOCOL,
+                                         self._model_share.handle)
         self.engine.obs = self.obs
         self.engine.attach_peer(self)
         self.peer_manager = PeerManager(
@@ -392,6 +416,54 @@ class Peer:
         log.info("peer %s draining: %d in-flight requests migrated",
                  self.peer_id[:8], migrated)
         return migrated
+
+    async def pull_model(self, model: str) -> str:
+        """Acquire ``model`` from a swarm peer and serve it: resolve the
+        healthy workers advertising it, stream a checkpoint from the first
+        that has one (each file SHA-256-verified, net/model_share.py), then
+        hot-register it on the engine (``MultiEngine.add_model``).
+        Returns the local checkpoint path."""
+        from crowdllama_tpu_torch.net.model_share import (
+            fetch_model,
+            safe_model_dirname,
+        )
+
+        safe_model_dirname(model)  # reject path-traversal names up front
+        if model in (self.engine.models or []):
+            return self.engine.model_dir(model) or ""
+        if self.peer_manager is None:
+            raise RuntimeError("peer not started")
+        candidates = [
+            p for p in self.peer_manager.get_healthy_peers()
+            if p.is_worker and model in p.resource.supported_models
+            and p.peer_id != self.peer_id]
+        if not candidates:
+            raise RuntimeError(f"no swarm peer advertises model {model!r}")
+        last_err: Exception | None = None
+        for cand in candidates:
+            try:
+                contact = await self.dht.find_peer(cand.peer_id)
+                if contact is None:
+                    raise RuntimeError(f"cannot resolve {cand.peer_id[:8]}")
+                dest = await fetch_model(self.host, contact, model,
+                                         self.config.models_dir)
+                break
+            except Exception as e:  # source without a checkpoint, wire error
+                log.warning("pull of %s from %s failed: %s", model,
+                            cand.peer_id[:8], e)
+                last_err = e
+        else:
+            raise RuntimeError(f"pull failed from every source: {last_err}")
+        add = getattr(self.engine, "add_model", None)
+        if add is None:
+            # Succeeding here would let /api/pull report success for a
+            # model /api/chat then refuses.
+            raise RuntimeError(
+                f"checkpoint downloaded to {dest} but this worker's engine "
+                f"cannot hot-register models; restart with --model {model} "
+                f"--model-path {dest}")
+        await add(model, str(dest))
+        return str(dest)
 
     async def stop(self) -> None:
         await self.stop_advertising()

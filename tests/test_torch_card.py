@@ -30,7 +30,12 @@ softcap and windows that empty whole splits, two calls equal; bit-equal
 to B on the same keys in pages of 128; D and B calls in turn on one
 stream, each equal to its plain version, the shared counters at zero.
 Tolerance: one bf16 rounding of outputs of magnitude ~1 plus fp32
-summation order, atol 2e-2 + rtol 1e-2.
+summation order, atol 2e-2 + rtol 1e-2.  The fp32 entries of A and D
+(the distillation trainer's): both head dims, groups of 4, 7 and 8,
+padding, softcap, windows, all-masked rows (zeros), zero-length slots and
+D's split edges, against the plain versions on fp32 inputs at atol 1e-5 +
+rtol 1e-5 (fp32 summation order only); A's ``PrefillAttention`` gradient
+equal to the plain function's.
 """
 
 import pytest
@@ -594,7 +599,10 @@ def test_builds_report_no_spills(cuda_device):
         (k, dh) for dh in (64, 128)
         for k in ("flash_prefill_kernel", "flash_decode_kernel",
                   "paged_decode_kernel", "ragged_paged_kernel",
-                  "ragged_chunk_kernel")}
+                  "ragged_chunk_kernel", "prefill_simt_kernel")}
+    assert {(r["kernel"], r["dh"]) for r in rows if r["dtype"] == "fp32"} >= {
+        (k, dh) for dh in (64, 128)
+        for k in ("flash_decode_kernel", "prefill_simt_kernel")}
     spills = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
     assert not spills, spills
 
@@ -858,3 +866,100 @@ def test_flash_decode_and_paged_decode_interleaved_on_card(cuda_device, dh,
             assert not got[0].any(), name
             counters = P._SPLIT_SCRATCH[got.device][1]
             assert not counters.any(), (name, counters.nonzero())
+
+
+# ------------------------------------------------------- the fp32 entries
+
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,h,hkv", [(64, 32, 4), (64, 28, 4),
+                                      (128, 32, 8), (128, 32, 4)])
+@pytest.mark.parametrize("softcap,window,masked", [(0.0, 0, 0),
+                                                   (30.0, 17, 5)])
+def test_prefill_fp32_matches_plain_on_card(cuda_device, dh, h, hkv,
+                                            softcap, window, masked):
+    from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    f = dict(device=cuda_device, dtype=torch.float32)
+    t, plen = 200, 190
+    q = torch.randn((2, t, h, dh), generator=gen, **f)
+    k = torch.randn((2, hkv, t, dh), generator=gen, **f)
+    v = torch.randn((2, hkv, t, dh), generator=gen, **f)
+    ar = torch.arange(t, device=cuda_device, dtype=torch.int32)
+    pos = torch.clamp(ar, max=plen - 1)[None].repeat(2, 1).contiguous()
+    valid = ((ar < plen) & (ar >= masked))[None].repeat(2, 1).contiguous()
+    kw = dict(softcap=softcap, sliding_window=window, kv_valid=valid)
+    before = flash_prefill_attention.launches_fp32
+    got = flash_prefill_attention(q, k, v, pos, dh ** -0.5, **kw)
+    want = prefill_attention_ref(q, k, v, pos, dh ** -0.5, **kw)
+    assert got.dtype == torch.float32
+    assert flash_prefill_attention.launches_fp32 == before + 1
+    torch.testing.assert_close(got[:, masked:], want[:, masked:], **F32_TOL)
+    assert not got[:, :masked].any()  # rows that see no key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("s", [2048, 600])
+def test_flash_decode_fp32_matches_plain_on_card(cuda_device, dh, hkv, s):
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        decode_attention_plain,
+        flash_decode_attention,
+    )
+
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    f = dict(device=cuda_device, dtype=torch.float32)
+    lens = [n for n in SPLIT_EDGE_LENS if n <= s] + [s, 37]
+    q = torch.randn((len(lens), 32, dh), generator=gen, **f)
+    kc = torch.randn((len(lens), hkv, s, dh), generator=gen, **f)
+    vc = torch.randn((len(lens), hkv, s, dh), generator=gen, **f)
+    seq = torch.tensor(lens, device=cuda_device, dtype=torch.int32)
+    live = [i for i, n in enumerate(lens) if n]
+    for softcap, window in ((0.0, 0), (30.0, 0), (0.0, 40)):
+        kw = dict(softcap=softcap, sliding_window=window)
+        got = flash_decode_attention(q, kc, vc, seq, dh ** -0.5, **kw)
+        again = flash_decode_attention(q, kc, vc, seq, dh ** -0.5, **kw)
+        want = decode_attention_plain(q, kc, vc, seq, dh ** -0.5, **kw)
+        assert got.dtype == torch.float32 and torch.equal(got, again)
+        torch.testing.assert_close(got[live], want[live], **F32_TOL)
+        assert not got[[i for i, n in enumerate(lens) if not n]].any()
+
+
+@pytest.mark.cuda
+def test_fp32_and_bf16_mixed_operands_are_refused(cuda_device):
+    from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
+
+    f = dict(device=cuda_device, dtype=torch.float32)
+    q = torch.zeros((1, 8, 64), **f)
+    kc = torch.zeros((1, 2, 64, 64), device=cuda_device,
+                     dtype=torch.bfloat16)
+    seq = torch.ones(1, device=cuda_device, dtype=torch.int32)
+    with pytest.raises(ValueError, match="bfloat16 or all float32"):
+        flash_decode_attention(q, kc, kc, seq, 0.125)
+    with pytest.raises(ValueError, match="bfloat16 or all float32"):
+        flash_decode_attention(q.half(), kc.half(), kc.half(), seq, 0.125)
+
+
+@pytest.mark.cuda
+def test_prefill_fp32_gradient_is_the_plain_gradient_on_card(cuda_device):
+    from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    f = dict(device=cuda_device, dtype=torch.float32)
+    q = torch.randn((4, 64, 32, 64), generator=gen, **f).requires_grad_()
+    k = torch.randn((4, 4, 64, 64), generator=gen, **f).requires_grad_()
+    v = torch.randn((4, 4, 64, 64), generator=gen, **f).requires_grad_()
+    pos = torch.arange(64, device=cuda_device,
+                       dtype=torch.int32)[None].repeat(4, 1).contiguous()
+    g = torch.randn((4, 64, 32, 64), generator=gen, **f)
+    before = flash_prefill_attention.launches_fp32
+    out = flash_prefill_attention(q, k, v, pos, 0.125)
+    assert flash_prefill_attention.launches_fp32 == before + 1
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(prefill_attention_ref(q, k, v, pos, 0.125),
+                               (q, k, v), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **F32_TOL)

@@ -38,6 +38,10 @@ from hypothesis import strategies as st  # noqa: E402
 from crowdllama_tpu.engine.tokenizer import HFTokenizer as JaxHF  # noqa: E402
 from crowdllama_tpu_torch.engine import tokenizer as ttok  # noqa: E402
 from crowdllama_tpu_torch.engine import tokenizer_json as tj  # noqa: E402
+from crowdllama_tpu_torch.engine.unicode_overlay import (  # noqa: E402
+    CHANGED,
+    UNICODE_VERSION,
+)
 
 CORPUS = """The quick brown fox jumps over the lazy dog. It's 2024; we'll see.
 Hello, world! I'm here and you're there; they've gone, she'd said.
@@ -268,10 +272,14 @@ def pairs(tmp_path_factory):
     return out
 
 
-# Characters this Python's Unicode database (15.0 on 3.12) leaves
-# unassigned (Cn) are left out: the classes are built from it, and
-# ``tokenizers`` may know a later Unicode, where some are letters.
-_ASSIGNED = st.characters(codec="utf-8", exclude_categories=("Cs", "Cn"))
+# Every character but the surrogates, unassigned ones too, and half the
+# time one of those whose category changed after this Python's Unicode
+# database (15.0 on 3.12), which ``tokenizers`` knows from its later tables
+# and the port from ``engine/unicode_overlay.py`` (U+13460 among them).
+_CHANGED = st.sampled_from(CHANGED).flatmap(
+    lambda r: st.integers(r[0], r[1])).map(chr)
+_ASSIGNED = st.one_of(st.characters(codec="utf-8", exclude_categories=("Cs",)),
+                      _CHANGED)
 
 
 _ADDED = ["<s>", "</s>", "<|user|>", "[INST]", "<|im_start|>",
@@ -378,3 +386,82 @@ def _pieces(pattern: str, text: str) -> list[str]:
     rx = tj._compile(pattern)
     return [p.text for p in tj._split(
         ns, [m.span() for m in rx.finditer(text)], "Isolated")]
+
+
+# ------------------------------------------------- the Unicode overlay
+
+def _changed_text() -> str:
+    return "".join(chr(c) for a, b, _ in CHANGED for c in range(a, b + 1))
+
+
+@pytest.mark.parametrize("cat", ["L", "N", "Lu", "Ll", "Lo", "Lm", "Mn",
+                                 "Mc", "Nd", "No", "Po", "So", "Cn"])
+def test_overlay_classes_match_the_oracle_on_changed_characters(cat):
+    """``\\p{cat}`` over every code point whose category changed after
+    Unicode 15.0: the port's class takes exactly what ``tokenizers``'
+    takes."""
+    from tokenizers import Regex
+    from tokenizers import pre_tokenizers as pt
+
+    text = _changed_text()
+    kept = set()
+    for _, (a, b) in pt.Split(Regex(rf"\p{{{cat}}}"), "removed"
+                              ).pre_tokenize_str(text):
+        kept.update(range(a, b))
+    want = {i for i in range(len(text)) if i not in kept}
+    rx = tj._compile(rf"\p{{{cat}}}")
+    assert {m.start() for m in rx.finditer(text)} == want
+
+
+def test_overlay_ids_equal_jax_after_unicode_15(pairs):
+    """Ids of text made of characters assigned after Unicode 15.0 (U+13460
+    and every changed range's first and last) equal JAX's, which come
+    through ``tokenizers``."""
+    assert UNICODE_VERSION >= "16.0"
+    chars = [chr(0x13460)] + [chr(c) for a, b, _ in CHANGED for c in (a, b)]
+    texts = ["".join(chars), " ".join(chars), "x" + "".join(chars[:40]) + "7",
+             "".join(chars[::-1]) + " 12"]
+    for case in CASE_IDS:
+        jax_tok, tok, _ = pairs[case]
+        for text in texts:
+            assert tok.encode(text) == jax_tok.encode(text), case
+        for pattern in (LLAMA3_SPLIT, QWEN_SPLIT):
+            from tokenizers import Regex
+            from tokenizers import pre_tokenizers as pt
+
+            for text in texts:
+                want = [w for w, _ in pt.Split(Regex(pattern), "isolated")
+                        .pre_tokenize_str(text)]
+                assert _pieces(pattern, text) == want
+
+
+def test_overlay_covers_every_character_assigned_after_unicode_15():
+    """Every code point ``tokenizers`` assigns (outside ``\\p{Cn}``) that
+    this Python's ``unicodedata`` leaves unassigned has its category in
+    the overlay, and nothing ``tokenizers`` leaves unassigned is assigned
+    by it (``tools/gen_unicode_overlay.py --check`` compares every
+    category)."""
+    import sys
+    import unicodedata
+
+    import numpy as np
+    from tokenizers import Regex
+    from tokenizers import pre_tokenizers as pt
+
+    cps = np.array([c for c in range(sys.maxunicode + 1)
+                    if not 0xD800 <= c <= 0xDFFF])
+    kept = np.zeros(len(cps), bool)
+    for _, (a, b) in pt.Split(Regex(r"\p{Cn}"), "removed").pre_tokenize_str(
+            "".join(map(chr, cps))):
+        kept[a:b] = True
+    oracle_cn = set(cps[~kept].tolist())
+    overlay = {c: cat for a, b, cat in CHANGED for c in range(a, b + 1)}
+    python_cn = {int(c) for c in cps if unicodedata.category(chr(c)) == "Cn"}
+    newly = python_cn - oracle_cn
+    assert 0x13460 in newly and len(newly) > 4000
+    assert all(overlay.get(c, "Cn") != "Cn" for c in newly)
+
+    def unassigned(c):  # this Python's category, overlaid
+        return overlay.get(c, "Cn" if c in python_cn else "assigned") == "Cn"
+
+    assert all(unassigned(c) for c in oracle_cn)
