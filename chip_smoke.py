@@ -235,6 +235,27 @@ Phases, each printing one JSON line:
    a streamed greedy ``/api/chat`` equal to a direct ``generate()`` with
    verify rounds answered, then ``"worker"`` mode (pure ack credits)
    with the same text;
+12a'. autotune (its own line): the autopilot on tinyllama-1.1b at full
+   width and depth on the permutation weights (8 slots, context 2,048,
+   page 128, prefix cache off), started with ``autotune=True`` and
+   ``slo_decode_ms``.  ``paged`` (``megastep_k=8``): 4 short and 4 echo
+   prompts of 64 tokens and the 1,465-token prompt sent while they
+   decode, three passes with the tuner detached, then three with it
+   (interval 2, ``min_gain`` 1e6 so every trial reverts, burn windows of
+   one), the middle pass under a ``scheduler.ragged_chunk`` delay of 1 s
+   at its first two ragged dispatches.  ``spec``: n-gram speculation with
+   ``spec_draft_max=4`` on the echo and short prompts, interval 1.  Each:
+   tuned token ids equal to the untuned ones, A, B and C (``paged``) or
+   A (``spec``) launched in the tuned passes, every megastep K flown
+   without a graph captured once and no graph captured twice (a revert
+   replays); ``paged`` >= 3 moves, >= 1 revert, >= 1 back-off; ``spec``
+   >= 2 moves, the draft cap among them.  Printed: the dial trajectory,
+   each graph's capture seconds, pool bytes and whether it was captured
+   mid-serve, peak memory, tokens/s tuned beside untuned (recorded, not
+   claimed), the phase's seconds.  The kernel phase holds kernel C
+   (bf16, Dh 64) at the chunk rows the dials give (128, 256, 384 and
+   1,024: a whole chunk and the long prompt's last one each) and A at q
+   1,024 at both head dims;
 12b. hf (its own line): HF checkpoints written by the port
    (``save_hf_checkpoint``: bf16 ``LlamaForCausalLM`` tensors in two
    shards with an index, the published ``config.json``, a
@@ -864,6 +885,22 @@ def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
         if int8:
             cres["small_fresh_kv_gap"] = [r["fresh_kv_gap"] for r in small]
         out[key] = cres
+    if dh == 64:
+        # The chunks the autopilot's budget and prefill-chunk dials give
+        # (the prefill chunk clamped to budget - slots, floored to the
+        # 128-token page): a whole chunk and LONG's last one at each.
+        from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
+
+        n = len(ByteTokenizer().encode(LONG))
+        out["C"]["chunk_rows"] = {
+            str(c): [check_ragged(dev, gen, ragged_serve[0], 3, ctx, c, v,
+                                  0.0, 0, timed=False, **d)["max_abs_err"]
+                     for ctx, v in ((0, c), (n - 1 - (n - 1) % c,
+                                             (n - 1) % c + 1))]
+            for c in (128, 256, 384, 1024)}
+    # The longest prompt a prefill chunk of 1024 admits in one prefill.
+    out["A"]["q1024"] = check_prefill(dev, gen, 1024, 0.0, 0, 0, False,
+                                      **d)["max_abs_err"]
     dres = check_flash_decode(dev, gen, serve_lens, 2048, 0.0, 0, timed=True,
                               **d)
     dres["small"] = [check_flash_decode(dev, gen, [0, 5, 300, 129], 300,
@@ -5553,6 +5590,230 @@ def spec_phase(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ autotune
+
+AUTOTUNE_K = 8
+AUTOTUNE_PASSES = 3
+# The tuned passes' decode objective (ms a token) and the ragged-dispatch
+# delay that breaches it: a delayed window emits at most 8 slots x 8
+# steps, so 1 s over 64 tokens is 15.6 ms a token.
+AUTOTUNE_DECODE_MS = 10.0
+AUTOTUNE_DELAY_S = 1.0
+
+
+def _dial_recorder(tuner) -> list:
+    """Wrap ``tuner._apply``: each dial write as [dial, value, windows
+    the tuner had folded in so far, moves, reverts, back-offs]."""
+    log, apply, seen = [], tuner._apply, [0]
+    on_window = tuner.on_window
+
+    def counted(*a):
+        seen[0] += 1
+        return on_window(*a)
+
+    def recorded(name, value):
+        log.append([name, int(value), seen[0], tuner.moves, tuner.reverts,
+                    tuner.backoffs])
+        return apply(name, value)
+
+    tuner._apply, tuner.on_window = recorded, counted
+    return log
+
+
+def autotune_run(dev, params, phase: str, streams: dict, interval: int,
+                 fault: bool, ran: set, **engine_kw) -> dict:
+    """One engine started with ``autotune=True`` (``interval``,
+    ``slo_decode_ms``) on ``params``.  ``AUTOTUNE_PASSES`` passes of
+    ``streams`` (each with LONG sent while they decode when LONG is in
+    them) run untuned (the tuner detached), then the same passes tuned
+    (``min_gain=1e6``: every trial reverts; burn windows of one, so one
+    breaching window is a fast-burn edge), the middle pass under a
+    ``scheduler.ragged_chunk`` delay of ``AUTOTUNE_DELAY_S`` at its first
+    two ragged dispatches when ``fault``.  Launch counts are zeroed right
+    before the tuned passes and read right after.  Checks: every stream
+    done and full in both runs, the tuned token ids equal to the untuned
+    ones, the kernels in ``ran`` launched; and that no megastep K is
+    captured twice (each K the tuned run flies without a graph captures
+    once; a revert replays)."""
+    from crowdllama_tpu_torch.engine.autotune import BACKOFF_LOG
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.obs.slo import WindowBurn
+    from crowdllama_tpu_torch.testing import faults
+
+    long = "long" in streams
+    streams = {k: v for k, v in streams.items() if k != "long"}
+
+    async def passes(engine, faulted: bool) -> tuple[list, float]:
+        out, wall = [], 0.0
+        for i in range(AUTOTUNE_PASSES):
+            plan = faults.FaultPlan(seed=0, rules=[faults.FaultRule(
+                site="scheduler.ragged_chunk", action="delay",
+                delay_s=AUTOTUNE_DELAY_S, times=2)])
+            ctx = (faults.installed(plan) if faulted and i == 1
+                   else contextlib.nullcontext())
+            with ctx:
+                served = await serve(engine, streams, SPEC_TOKENS, long=long)
+            if faulted and i == 1 and long and not plan.log:
+                raise AssertionError(f"{phase}: the ragged fault never "
+                                     f"fired")
+            out.append(served["requests"])
+            wall += served["wall_s"]
+        return out, wall
+
+    async def go():
+        torch.cuda.synchronize(dev)
+        # The prefix cache off: every pass prefills LONG through ragged
+        # steps (kernel C) at whatever chunk the dials give then.
+        engine = TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                             autotune=True, autotune_interval=interval,
+                             slo_decode_ms=AUTOTUNE_DECODE_MS,
+                             kv_prefix_cache=False, **engine_kw)
+        t0 = time.perf_counter()
+        await engine.start()
+        start_s = time.perf_counter() - t0
+        engine.tokenizer = _IdRecorder(engine.tokenizer)
+        sched, tuner, runner = engine.scheduler, engine.autotuner, \
+            engine.runner
+        if tuner is None or sched._autotune is not tuner:
+            raise AssertionError(f"{phase}: the engine built no tuner")
+        tuner.min_gain = 1e6
+        tuner.burn = WindowBurn(objective_ms=AUTOTUNE_DECODE_MS, short=1,
+                                long=1)
+        try:
+            sched.attach_autotuner(None)
+            untuned, untuned_wall = await passes(engine, False)
+            before = runner._graphs  # None until a first megastep flight
+            keys0 = set(before._graphs) if before is not None else set()
+            captures0 = before.captures if before is not None else 0
+            ks: list[int] = []
+            mega = runner.decode_megastep
+
+            def counted(state, k, **kw):
+                ks.append(k)
+                return mega(state, k, **kw)
+
+            runner.decode_megastep = counted
+            dials = _dial_recorder(tuner)
+            sched.attach_autotuner(tuner)
+            b0 = BACKOFF_LOG.snapshot()[0]
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _zero_launches()
+            tuned, tuned_wall = await passes(engine, fault)
+            launches = _launches()
+            peak = torch.cuda.max_memory_allocated(dev)
+            backoff_total, backoff_last = BACKOFF_LOG.snapshot()
+            del runner.decode_megastep
+            graphs = runner._graphs
+            gauges = engine.obs_gauges()
+            described = engine.describe()["autotune"]
+            graph_rows = {}
+            if graphs is not None:
+                for key, g in graphs._graphs.items():
+                    graph_rows[f"K{key[3]}{'_sampled' if key[4] else ''}"] = {
+                        "capture_s": g.capture_s, "pool_bytes": g.pool_bytes,
+                        "replays": g.replays, "mid_serve": key not in keys0}
+            new_captures = (graphs.captures - captures0
+                            if graphs is not None else 0)
+            nkeys = len(graphs._graphs) if graphs is not None else 0
+        finally:
+            await engine.stop()
+        return dict(start_s=start_s, untuned=untuned, tuned=tuned,
+                    untuned_wall=untuned_wall, tuned_wall=tuned_wall,
+                    launches=launches, peak=peak, dials=dials, ks=ks,
+                    keys0=keys0, new_captures=new_captures, nkeys=nkeys,
+                    captures=(graphs.captures if graphs is not None else 0),
+                    graph_rows=graph_rows, described=described,
+                    gauges=gauges, backoffs_logged=backoff_total - b0,
+                    backoff_last=backoff_last)
+
+    r = asyncio.run(go())
+    ntok = 0
+    for i, (u, t) in enumerate(zip(r["untuned"], r["tuned"])):
+        for name in u:
+            for run, v in (("untuned", u[name]), ("tuned", t[name])):
+                if not (v["done"] and len(v["ids"]) == SPEC_TOKENS):
+                    raise AssertionError(f"{phase}: {run} pass {i} stream "
+                                         f"{name} ended {v}")
+            if t[name]["ids"] != u[name]["ids"]:
+                raise AssertionError(
+                    f"{phase}: pass {i} stream {name}: tuned ids "
+                    f"{t[name]['ids']} differ from untuned "
+                    f"{u[name]['ids']}")
+            ntok += SPEC_TOKENS
+    _expect_launches({k: v for k, v in r["launches"].items() if k in ran},
+                     ran, phase)
+    d = r["described"]
+    # Each K flown by a megastep flight without a graph before the tuned
+    # run captured once, and no key twice: a revert replays its graph.
+    flown = {k for k in r["ks"]}
+    new_k = {k for k in flown
+             if not any(key[3] == k for key in r["keys0"])}
+    if r["new_captures"] != len(new_k) or r["captures"] != r["nkeys"]:
+        raise AssertionError(f"{phase}: {r['new_captures']} captures in the "
+                             f"tuned run for new K {sorted(new_k)} (flown "
+                             f"{sorted(flown)}); {r['captures']} captures "
+                             f"for {r['nkeys']} graphs")
+    g = r["gauges"]
+    if g["autotune_moves_total"] != float(d["moves"]):
+        raise AssertionError(f"{phase}: gauges {g} vs describe {d}")
+    return {"start_s": r["start_s"], "describe": d,
+            "dial_trajectory": r["dials"],
+            "megastep_k_flown": sorted(flown), "new_k": sorted(new_k),
+            "captures_in_tuned_run": r["new_captures"],
+            "graphs": r["graph_rows"], "serve_peak": r["peak"],
+            "launches": r["launches"],
+            "backoffs_logged": r["backoffs_logged"],
+            "backoff_last": r["backoff_last"],
+            "tokens_per_s": {"untuned": ntok / r["untuned_wall"],
+                             "tuned": ntok / r["tuned_wall"]},
+            "wall_s": {"untuned": r["untuned_wall"],
+                       "tuned": r["tuned_wall"]}}
+
+
+def autotune_phase(dev) -> dict:
+    """The autopilot on tinyllama-1.1b at full width and depth (22 layers,
+    8 slots, context 2048, page 128) on the permutation weights (every
+    attention route gives the same greedy tokens, and A, B and C still
+    launch).  Sub-run ``paged``: ``megastep_k=8``, ragged on, 8 streams
+    of ``SPEC_TOKENS`` tokens with LONG sent while they decode, three
+    passes untuned then three tuned (interval 2) under the ragged delay:
+    streams equal, >= 3 moves, >= 1 revert, >= 1 back-off, each new K
+    captured once (its capture seconds and pool bytes printed), A, B and
+    C launched.  Sub-run ``spec``: n-gram speculation with the adaptive
+    draft (``spec_draft_max=4``) on the echo and short prompts, tuned at
+    interval 1 (the draft cap and pipeline depth dials among its moves):
+    streams equal, >= 2 moves."""
+    t0 = time.perf_counter()
+    params = perm_params(dev)
+    streams = {**{f"short{i}": (SHORT[i], {}) for i in range(4)}, **ECHO,
+               "long": (LONG, {})}
+    out = {"paged": autotune_run(dev, params, "autotune paged", streams, 2,
+                                 True, {"A", "B", "C"},
+                                 megastep_k=AUTOTUNE_K)}
+    d = out["paged"]["describe"]
+    if not (d["moves"] >= 3 and d["reverts"] >= 1 and d["backoffs"] >= 1):
+        raise AssertionError(f"autotune paged: {d}")
+    _free_card()
+    out["spec"] = autotune_run(dev, params, "autotune spec",
+                               {**ECHO, **NON_ECHO}, 1, False, {"A"},
+                               spec_decode="ngram", spec_draft=SPEC_DRAFT,
+                               spec_draft_max=SPEC_DRAFT)
+    sd = out["spec"]["describe"]
+    moved = {row[0] for row in out["spec"]["dial_trajectory"]}
+    if sd["moves"] < 2 or "draft_k" not in moved:
+        raise AssertionError(f"autotune spec: {sd}, moved {moved}")
+    del params
+    perm_params.cache_clear()
+    emit({"phase": "autotune", "model": TINYLLAMA, "slots": 8, "page": 128,
+          "context": 2048, "tokens": SPEC_TOKENS,
+          "passes": AUTOTUNE_PASSES, "decode_ms": AUTOTUNE_DECODE_MS,
+          "delay_s": AUTOTUNE_DELAY_S, **out,
+          "seconds": time.perf_counter() - t0,
+          "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()})
+    return out
+
+
 # ------------------------------------------------------------ share
 
 #: the name worker 1 serves the hf phase's tinyllama directory under (outside
@@ -6084,6 +6345,8 @@ def main() -> int:
     int8_contiguous_phase(dev)
     _free_card()
     spec_phase(dev)
+    _free_card()
+    autotune_phase(dev)
     _free_card()
     import os
     import tempfile

@@ -11,7 +11,9 @@ port's ``MultiEngine`` over the comma-separated ``--model`` list, or
 in consumer mode over ``FakeEngine(models=[])`` and its ``Gateway`` on
 ``--gateway-port``, with the replicated gateway's ``GossipNode`` when
 ``--gateway-peers``, ``--gossip-snapshot`` or ``--tenant-quota`` is given
-(the map is snapshotted on shutdown).  SIGTERM on a worker drains
+(the map is snapshotted on shutdown).  A worker started with
+``--autotune`` and ``--gateway-peers`` joins that gossip plane for its
+autopilot's ``tune/<model>`` points.  SIGTERM on a worker drains
 (in-flight streams migrate to the swarm, then it stays up as a drained
 peer for ``--drain-timeout`` or until a second signal); SIGINT, and any
 signal on a consumer, finishes in-flight requests in place.
@@ -234,10 +236,21 @@ async def run_node(cfg: Configuration, worker_mode: bool = True) -> None:
                 gossip.metrics = gateway.obs.metrics
                 await gossip.start()
             await gateway.start()
-        elif cfg.worker_metrics_port:
-            obs_server = ObsServer(peer, host=cfg.listen_host,
-                                   port=cfg.worker_metrics_port)
-            await obs_server.start()
+        else:
+            if cfg.autotune and cfg.gateway_peers:
+                # The autopilot's warm-start plane: the worker joins the
+                # gateways' gossip (its peer dispatches gossip frames),
+                # and the join sync pulls the swarm's operating points.
+                from crowdllama_tpu_torch.swarm.gossip import GossipNode
+
+                gossip = GossipNode(peer, peers=cfg.gateway_peers,
+                                    interval=cfg.gossip_interval)
+                await gossip.start()
+                engine.set_gossip(gossip)
+            if cfg.worker_metrics_port:
+                obs_server = ObsServer(peer, host=cfg.listen_host,
+                                       port=cfg.worker_metrics_port)
+                await obs_server.start()
         if cfg.ipc_socket:
             ipc = IPCServer(cfg.ipc_socket, engine, peer=peer)
             await ipc.start()

@@ -14,7 +14,9 @@ package's, and so do speculation's (``spec_decode``, ``spec_draft``,
 ``spec_draft_model``, ``spec_draft_path``, ``spec_draft_max``,
 ``gateway_spec_pipeline``), with the JAX package's checks; a
 ``spec_draft_path`` must be a checkpoint directory, native or HF.  The
-replicated gateway's fields (``gateway_peers``,
+autopilot's (``autotune`` and its interval and dial ceilings) parse and
+are checked as the JAX package's.  The replicated gateway's fields
+(``gateway_peers``,
 ``gossip_interval``, ``gossip_snapshot_path``, ``tenant_quota``) and the
 worker's KV fetch threshold (``kv_ship_min_tokens``) parse and are served
 as the JAX package's.  The one new flag is
@@ -251,6 +253,18 @@ class Configuration:
     # dispatch-class flight-duration EWMA marks the engine wedged and
     # self-drains.  0 = off.
     wedge_multiplier: float = 0.0
+    # The closed-loop autopilot (engine/autotune.py): coordinate descent
+    # over megastep K, the draft cap, step_token_budget, the prefill chunk
+    # and the pipeline depth.  Off by default.
+    autotune: bool = False
+    # Retire windows per measurement phase (one move per ~2x this).
+    autotune_interval: int = 32
+    # Dial ceilings of the coordinate grids.
+    autotune_megastep_max: int = 16
+    autotune_draft_max: int = 8
+    autotune_budget_max: int = 4096
+    autotune_prefill_max: int = 1024
+    autotune_depth_max: int = 32
     warmup: bool = True  # run each serving path once at engine start
     admission_pending_max: int = 0  # 0 = no load-shedding threshold
     # Directory ``capture_profile`` writes its traces under; "" = off.
@@ -304,6 +318,13 @@ class Configuration:
         "step_token_budget": "CROWDLLAMA_TPU_STEP_TOKEN_BUDGET",
         "megastep_k": "CROWDLLAMA_TPU_MEGASTEP_K",
         "wedge_multiplier": "CROWDLLAMA_TPU_WEDGE_MULTIPLIER",
+        "autotune": "CROWDLLAMA_TPU_AUTOTUNE",
+        "autotune_interval": "CROWDLLAMA_TPU_AUTOTUNE_INTERVAL",
+        "autotune_megastep_max": "CROWDLLAMA_TPU_AUTOTUNE_MEGASTEP_MAX",
+        "autotune_draft_max": "CROWDLLAMA_TPU_AUTOTUNE_DRAFT_MAX",
+        "autotune_budget_max": "CROWDLLAMA_TPU_AUTOTUNE_BUDGET_MAX",
+        "autotune_prefill_max": "CROWDLLAMA_TPU_AUTOTUNE_PREFILL_MAX",
+        "autotune_depth_max": "CROWDLLAMA_TPU_AUTOTUNE_DEPTH_MAX",
         "warmup": "CROWDLLAMA_TPU_WARMUP",
         "admission_pending_max": "CROWDLLAMA_TPU_ADMISSION_PENDING_MAX",
         "profile_dir": "CROWDLLAMA_TPU_PROFILE_DIR",
@@ -384,6 +405,12 @@ class Configuration:
                 ("admission_max_inflight", 0, False),
                 ("retry_after_s", 0, False),
                 ("flight_recorder", 1, False),
+                ("autotune_interval", 1, False),
+                ("autotune_megastep_max", 0, False),
+                ("autotune_draft_max", 1, False),
+                ("autotune_budget_max", 1, False),
+                ("autotune_prefill_max", 64, False),
+                ("autotune_depth_max", 1, False),
                 ("slo_ttft_ms", 0, False), ("slo_decode_ms", 0, False),
                 ("stream_stall_ms", 0, False), ("hedge_ttft_ms", 0, False),
                 ("gossip_interval", 0, True)):
@@ -456,6 +483,30 @@ class Configuration:
                                  "decode steps per host dispatch with "
                                  "on-device sampling (0 = legacy per-step "
                                  "path)")
+        parser.add_argument("--autotune", dest="autotune",
+                            action="store_const", const=True, default=None,
+                            help="closed-loop performance autopilot: "
+                                 "coordinate descent over megastep K, the "
+                                 "spec draft cap, step_token_budget, the "
+                                 "prefill chunk and the pipeline depth")
+        parser.add_argument("--autotune-interval", dest="autotune_interval",
+                            type=int,
+                            help="retire windows per autotune measurement "
+                                 "phase (one dial move per ~2x this)")
+        parser.add_argument("--autotune-megastep-max",
+                            dest="autotune_megastep_max", type=int,
+                            help="autotune ceiling for megastep K")
+        parser.add_argument("--autotune-draft-max",
+                            dest="autotune_draft_max", type=int,
+                            help="autotune ceiling for the adaptive spec "
+                                 "draft-length cap")
+        parser.add_argument("--autotune-budget-max",
+                            dest="autotune_budget_max", type=int,
+                            help="autotune ceiling for the ragged "
+                                 "step_token_budget")
+        parser.add_argument("--autotune-prefill-max",
+                            dest="autotune_prefill_max", type=int,
+                            help="autotune ceiling for the prefill chunk")
         parser.add_argument("--no-ragged-prefill", dest="ragged_prefill",
                             action="store_const", const=False, default=None,
                             help="disable unified ragged prefill: long "
@@ -573,7 +624,9 @@ class Configuration:
         "kv_page_size", "kv_pool_tokens", "kv_dtype", "relay_mode",
         "spec_decode", "spec_draft", "spec_draft_model", "spec_draft_max",
         "step_token_budget", "ragged_prefill", "megastep_k",
-        "wedge_multiplier", "profile_dir",
+        "wedge_multiplier", "autotune", "autotune_interval",
+        "autotune_megastep_max", "autotune_draft_max", "autotune_budget_max",
+        "autotune_prefill_max", "profile_dir",
         "trace_buffer", "trace_ttl", "metrics_exemplars",
         "admission_pending_max", "kv_ship_timeout", "drain_timeout",
         "device", "gateway_port", "worker_metrics_port", "flight_recorder",

@@ -157,7 +157,8 @@ class Engine:
         engine's keys, at zero on an engine without a scheduler (a
         ``TorchEngine`` overlays its scheduler's measured values: the duty
         cycle per dispatch class, ``step_token_budget_used``, the
-        watchdog's).  The autopilot is not ported: its keys read 0."""
+        watchdog's, the autopilot's when it runs); without a tuner the
+        ``autotune_*`` keys read 0."""
         g = {"pending_depth": 0.0, "active_slots": 0.0,
              "batch_occupancy": 0.0, "kv_cache_utilization": 0.0,
              "prefill_chunk_slots": 0.0, "step_token_budget_used": 0.0,
@@ -178,6 +179,10 @@ class Engine:
         prefix, or None when this engine has nothing to offer (no paged
         prefix cache, another model, another page size)."""
         return None
+
+    def set_gossip(self, gossip) -> None:
+        """Hand the node's GossipNode to the engine (the autopilot's
+        ``tune/<model>`` keys); a no-op on engines that do not tune."""
 
     async def drain(self, timeout: float = 30.0) -> bool:
         """Finish in-flight work before shutdown; True when drained."""
@@ -459,6 +464,18 @@ class TorchEngine(Engine):
         self.load_seconds = 0.0  # host seconds to load model_path
         self.plan = None
         self._kv_streams = None  # pooled donor streams (lazy StreamPool)
+        # The autopilot, built in start() when config.autotune is set; the
+        # gossip node may be wired before or after.
+        self.autotuner = None
+        self._gossip = None
+
+    def set_gossip(self, gossip) -> None:
+        """The autopilot's warm-start and publish plane (the CLI starts
+        the node's GossipNode after the engine): kept for start() and
+        handed to a running tuner."""
+        self._gossip = gossip
+        if self.autotuner is not None:
+            self.autotuner.set_gossip(gossip)
 
     async def start(self) -> None:
         """Build tokenizer/params/runner (through the serving plan), run
@@ -512,6 +529,19 @@ class TorchEngine(Engine):
             spec_draft_max=c.spec_draft_max, ragged=c.ragged_prefill,
             megastep_k=c.megastep_k, wedge_multiplier=c.wedge_multiplier)
         self.scheduler.drain_requested_cb = self._self_drain
+        if c.autotune:
+            from crowdllama_tpu_torch.engine.autotune import AutoTuner
+
+            self.autotuner = AutoTuner(
+                self.scheduler, model_id=c.model,
+                interval=c.autotune_interval,
+                bounds={"megastep_k": c.autotune_megastep_max,
+                        "draft_k": c.autotune_draft_max,
+                        "step_token_budget": c.autotune_budget_max,
+                        "prefill_chunk": c.autotune_prefill_max,
+                        "pipeline_depth": c.autotune_depth_max},
+                decode_ms=c.slo_decode_ms, gossip=self._gossip)
+            self.scheduler.attach_autotuner(self.autotuner)
         self.scheduler.start()
         log.info("engine up: model=%s devices=%s layout=%s kv_dtype=%s "
                  "slots=%d max_seq=%d", cfg.name, self.runner.devices,
@@ -905,6 +935,8 @@ class TorchEngine(Engine):
                 }
         if self.scheduler is not None and self.scheduler.spec_steps:
             d["spec_decode"] = self._spec_stats()
+        if self.autotuner is not None:
+            d["autotune"] = self.autotuner.describe()
         return d
 
     def _spec_stats(self) -> dict:

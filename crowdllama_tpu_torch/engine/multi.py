@@ -42,6 +42,7 @@ class MultiEngine(Engine):
             for i, name in enumerate(names)}
         self.models = names
         self._obs = None
+        self._gossip = None
 
     # The peer hands its NodeObs to ``engine.obs``; the children serve, so
     # the handle fans out to them.
@@ -59,6 +60,13 @@ class MultiEngine(Engine):
         self._peer = peer
         for eng in self._engines.values():
             eng.attach_peer(peer)
+
+    def set_gossip(self, gossip) -> None:
+        """Every child tunes its own model, so each gets the node's
+        GossipNode (a model added later too)."""
+        self._gossip = gossip
+        for eng in self._engines.values():
+            eng.set_gossip(gossip)
 
     def _child(self, model: str) -> TorchEngine:
         if not model:
@@ -104,6 +112,7 @@ class MultiEngine(Engine):
             **self._engine_kw)
         eng.obs = self._obs
         eng.attach_peer(self._peer)
+        eng.set_gossip(self._gossip)
         await eng.start()
         self._engines[name] = eng
         self.models = list(self._engines)

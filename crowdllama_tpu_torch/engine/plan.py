@@ -45,12 +45,18 @@ class ServingPlan:
     spec: str = ""    # "" | "ngram" | "draft"
 
 
+def megastep_allowed(devices) -> bool:
+    """False when the tp ranks (``devices``) sit on distinct devices: a
+    megastep flight is one CUDA graph on one device, and graphs across
+    devices are not ported."""
+    return len({str(d) for d in devices or ()}) <= 1
+
+
 def check_megastep(megastep_k: int, devices) -> None:
-    """Refuse ``megastep_k > 0`` when the tp ranks (``devices``) sit on
-    distinct devices: a megastep flight is one CUDA graph on one device,
-    and graphs across devices are not ported."""
-    names = {str(d) for d in devices or ()}
-    if megastep_k > 0 and len(names) > 1:
+    """Refuse ``megastep_k > 0`` where :func:`megastep_allowed` is
+    false."""
+    if megastep_k > 0 and not megastep_allowed(devices):
+        names = {str(d) for d in devices}
         raise ValueError(
             f"megastep_k={megastep_k} with tp ranks on distinct devices "
             f"{sorted(names)} is not ported to crowdllama_tpu_torch yet: "

@@ -74,7 +74,13 @@ pages steer admission exactly as a local prefix hit does; a failed import
 falls back to plain prefill.  ``run_exclusive`` runs a donor's export on
 the dispatch thread between dispatches.
 
-Not ported yet: the autopilot and the fault-injection hooks.
+The autopilot (``engine/autotune.py``): an attached ``AutoTuner`` gets
+one ``on_window(cls, duty, emitted, dt)`` sample per retired flight that
+emitted tokens, at the end of ``_retire_inflight``, between dispatches,
+and moves its dials there; its gauges join ``telemetry_gauges``.  The
+``scheduler.ragged_chunk`` fault site fires before each ragged dispatch
+(``delay`` stalls it; ``drain`` starts a drain through
+``drain_requested_cb``, else ``migrate``, while the chunking goes on).
 """
 
 from __future__ import annotations
@@ -94,6 +100,7 @@ import torch
 
 from crowdllama_tpu_torch.engine import prng
 from crowdllama_tpu_torch.obs.metrics import ENGINE_TELEMETRY
+from crowdllama_tpu_torch.testing import faults
 
 log = logging.getLogger("crowdllama.torch.scheduler")
 
@@ -281,8 +288,16 @@ class Scheduler:
         self.spec_verifies = 0
         self.spec_stale_chunks = 0
         self.spec_pipeline_freeruns = 0
+        # The autopilot (None = off): fed and moved from the retire path.
+        self._autotune = None
 
     # ---------------------------------------------------------------- public
+
+    def attach_autotuner(self, tuner) -> None:
+        """Attach the autopilot (``engine/autotune.py``): each retired
+        flight that emitted tokens becomes one of its samples, and it
+        moves its dials there, between dispatches."""
+        self._autotune = tuner
 
     def _new_executor(self) -> ThreadPoolExecutor:
         dev = self.runner.device
@@ -486,7 +501,8 @@ class Scheduler:
         duty cycle per dispatch class, the self-watchdog's level and
         trips, the remote-draft pipeline's plane, and on a speculative
         runner the verify steps, emitted and accepted tokens and the live
-        draft length."""
+        draft length; the autopilot's when one is attached (the engine
+        zero-fills them otherwise)."""
         active = sum(1 for s in self.slots if isinstance(s, _SlotInfo))
         total = max(1, len(self.slots))
         r = self.runner
@@ -516,6 +532,8 @@ class Scheduler:
         }
         for cls in ("plain", "megastep", "ragged", "ragged_mega", "spec"):
             g[f"duty_cycle|dispatch={cls}"] = float(self._duty.get(cls, 0.0))
+        if self._autotune is not None:
+            g.update(self._autotune.gauges())
         if hasattr(r, "draft_len"):
             g.update(spec_steps=float(self.spec_steps),
                      spec_emitted=float(self.spec_emitted),
@@ -1045,6 +1063,18 @@ class Scheduler:
         n_chunks = -(-chunk_toks // max(1, c))
         done_dev = None
         try:
+            await faults.inject("scheduler.ragged_chunk",
+                                done=job.done_tokens,
+                                total=len(job.prompt_ids))
+        except faults.DrainRequested:
+            # A drain mid-chunked-prefill: started beside the loop, which
+            # keeps chunking until migrate() retires the job at its next
+            # safe point (completed pages stay prefix-cached).
+            if self.drain_requested_cb is not None:
+                self.drain_requested_cb()
+            else:
+                asyncio.get_running_loop().create_task(self.migrate())
+        try:
             if mega:
                 eos_ids, budgets = self._mega_limits()
                 tokens_dev, done_dev, self.state = await self._run(
@@ -1233,10 +1263,14 @@ class Scheduler:
         emitted = self._emit_flight(fl, tokens)
         self._tokens_per_dispatch = emitted
         if emitted == 0:
-            return  # pure-overshoot chunk: not a throughput sample
+            return  # pure-overshoot chunk: not a sample
         rate = emitted / dt
         self.throughput_ema = (rate if self.throughput_ema == 0.0
                                else 0.9 * self.throughput_ema + 0.1 * rate)
+        if self._autotune is not None:
+            # Between dispatches: a dial it moves shapes the next flight.
+            self._autotune.on_window(cls, self._duty.get(cls, 0.0), emitted,
+                                     dt)
 
     def _emit_flight(self, fl: _InFlightChunk, tokens: np.ndarray) -> int:
         """Emit a read-back flight's tokens to the slots still owned by the

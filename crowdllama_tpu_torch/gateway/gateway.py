@@ -33,8 +33,10 @@ drain one replica observes quarantines the worker on all), and with
 charged by every replica's admits, and a weighted fair share of the
 inflight cap.  ``/api/pull`` of
 a model no worker serves is proxied to a worker, which pulls it from the
-swarm (``net/model_share.py``).  The
-autopilot's back-off capture goes with the autopilot (item 11).  The
+swarm (``net/model_share.py``).  An
+autopilot back-off in this process (``engine/autotune.py BACKOFF_LOG``)
+captures the first request finished after it with the reason
+``autotune_backoff``, its stitched trace carrying the dial move.  The
 native data plane encodes request frames (``core/wire.encode_genreq_frame``)
 and decodes reply frames with its strict decoder where it applies
 (``core/wire.decode_payload_fast``); /metrics carries the
@@ -60,6 +62,7 @@ from crowdllama_tpu_torch.core.messages import (
     extract_generate_response,
 )
 from crowdllama_tpu_torch.core.protocol import INFERENCE_PROTOCOL
+from crowdllama_tpu_torch.engine.autotune import BACKOFF_LOG
 from crowdllama_tpu_torch.net import http as web
 from crowdllama_tpu_torch.net import secure
 from crowdllama_tpu_torch.net.host import HANDSHAKE_TIMEOUT, StreamPool
@@ -223,6 +226,8 @@ class Gateway:
         self._flight_inflight = 0
         self._flight_max_inflight = 4
         self._flight_tasks: set[asyncio.Task] = set()
+        # Back-offs already seen: the next one is an edge.
+        self._autotune_backoffs_seen = BACKOFF_LOG.snapshot()[0]
         self.cluster = ClusterScraper(peer)
         self.slo = SloEngine(ttft_ms=float(slo_ttft_ms),
                              decode_ms=float(slo_decode_ms))
@@ -958,11 +963,12 @@ class Gateway:
             if torch.cuda.is_available():
                 acts.append(ProfilerActivity.CUDA)
             prof = profile(activities=acts)
-            prof.start()
+            # Starting and stopping a session block: off the event loop.
+            await asyncio.to_thread(prof.start)
             try:
                 await asyncio.sleep(seconds)
             finally:
-                prof.stop()
+                await asyncio.to_thread(prof.stop)
             os.makedirs(path, exist_ok=True)
             await asyncio.to_thread(prof.export_chrome_trace,
                                     os.path.join(path, "trace.json"))
@@ -1640,6 +1646,12 @@ class Gateway:
             if self.slo.fast_burn() \
                     and self.slo.fast_burn_episodes_total > before:
                 reasons.append("slo_fast_burn")
+        backoffs, _ = BACKOFF_LOG.snapshot()
+        if backoffs > self._autotune_backoffs_seen:
+            # Edge-triggered: the first request after an autopilot
+            # back-off.
+            self._autotune_backoffs_seen = backoffs
+            reasons.append("autotune_backoff")
         rec = self.obs.trace.get(tid)
         if rec is not None:
             names = {s.get("name", "") for s in rec.get("spans", [])}
@@ -1667,6 +1679,12 @@ class Gateway:
             if stitched is None:
                 return
             final = list(reasons)
+            if "autotune_backoff" in final:
+                # Which dial move tripped the fast-burn guard.
+                last = BACKOFF_LOG.snapshot()[1]
+                if last:
+                    stitched = dict(stitched)
+                    stitched["autotune_backoff"] = dict(last)
             if "kv_hint" in final:
                 # Kept only when the worker's fetch fell back.
                 final.remove("kv_hint")
@@ -1870,9 +1888,9 @@ class Gateway:
                     err = t.exception()
                     if err is None:
                         if winner is None:
-                            winner = (t.result(), wid)
+                            winner = (await t, wid)
                         else:
-                            t.result()[0].close()  # a same-round loser
+                            (await t)[0].close()  # a same-round loser
                         continue
                     if isinstance(err, _WorkerDraining):
                         # A loser's drain still quarantines it.

@@ -8,12 +8,14 @@ observation is good or bad against its objective; the burn rate over a
 window is ``bad_fraction / error_budget``.  A 5 m and a 1 h window both
 at or above ``FAST_BURN`` is *fast burn*, an edge-triggered episode the
 flight recorder captures.  Host-side arithmetic over bucketed rolling
-counters with an injectable clock.  The autopilot's ``WindowBurn`` goes
-with the autopilot (ROADMAP Queue 1 item 11).
+counters with an injectable clock.  :class:`WindowBurn` is the same
+burn-rate arithmetic over the autopilot's retire windows
+(``engine/autotune.py``) in place of wall-clock cells.
 """
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 
@@ -78,6 +80,50 @@ class BurnRateTracker:
 
     def in_fast_burn(self) -> bool:
         return all(r >= FAST_BURN for r in self.burn_rates().values())
+
+
+class WindowBurn:
+    """Burn-rate arithmetic over the last N retire windows: the
+    autopilot's worker-local SLO signal.  The scheduler retires a window
+    every few milliseconds under load and none when idle, so wall-clock
+    cells would read empty just when a bad dial move stalls the loop.
+    Each observation is one window's per-token latency against
+    ``objective_ms``; burn over a deque is ``bad_fraction / budget``;
+    *fast burn* needs the short deque full and both deques at or above
+    ``FAST_BURN``."""
+
+    def __init__(self, objective_ms: float = 0.0, short: int = 8,
+                 long: int = 32, budget: float = DEFAULT_BUDGET) -> None:
+        self.objective_ms = float(objective_ms)
+        self.budget = min(1.0, max(1e-6, float(budget)))
+        self._short: collections.deque = collections.deque(
+            maxlen=max(1, int(short)))
+        self._long: collections.deque = collections.deque(
+            maxlen=max(1, int(long)))
+        self.breaches_total = 0
+
+    def observe(self, ms: float) -> bool:
+        """Record one window's per-token latency; True when it breached.
+        With no objective yet every window counts good (the autopilot
+        derives one from its first phase)."""
+        bad = self.objective_ms > 0.0 and ms > self.objective_ms
+        self._short.append(1 if bad else 0)
+        self._long.append(1 if bad else 0)
+        if bad:
+            self.breaches_total += 1
+        return bad
+
+    def _rate(self, dq) -> float:
+        return (sum(dq) / len(dq) / self.budget) if dq else 0.0
+
+    def burn(self) -> float:
+        """The long deque's burn rate (the autopilot's score penalty)."""
+        return self._rate(self._long)
+
+    def in_fast_burn(self) -> bool:
+        return (len(self._short) == self._short.maxlen
+                and self._rate(self._short) >= FAST_BURN
+                and self._rate(self._long) >= FAST_BURN)
 
 
 class SloEngine:

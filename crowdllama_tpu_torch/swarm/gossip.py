@@ -11,9 +11,10 @@ keeps a last-writer-wins map of the routing state:
 - ``quar/<worker-id>`` -> reason: drain quarantines, so one replica's
   observation of a drain quarantines the worker on every replica within
   an anti-entropy round;
-- ``tune/<model>`` -> an autopilot operating point.  The autopilot is not
-  ported (ROADMAP Queue 1 item 11): a port replica keeps and re-gossips
-  such entries from JAX replicas unchanged, like any other key.
+- ``tune/<model>`` -> an autopilot operating point
+  (``engine/autotune.py encode_point``, the JAX package's JSON): a
+  tuner publishes the point it keeps, and a fresh worker's tuner
+  warm-starts from it.
 
 Entries are versioned by a hybrid clock (``max(wall_ms, prev + 1)``), so
 versions compare across processes and survive restarts; ties break on
@@ -321,9 +322,9 @@ class GossipNode:
     ``interval`` seconds (and once at start, the join sync), and the
     inbound frames the peer's serve loop hands over.  ``peers`` are the
     other replicas' p2p listeners as "host:port"; their identity comes
-    from the authenticated hello.  The autopilot's operating-point calls
-    (``record_operating_point`` / ``lookup_operating_point``) go with the
-    autopilot (ROADMAP Queue 1 item 11)."""
+    from the authenticated hello.  A worker that tunes joins too: its
+    autopilot reads and writes ``tune/<model>`` through
+    ``record_operating_point`` / ``lookup_operating_point``."""
 
     def __init__(self, peer, peers=(), interval: float = 2.0,
                  snapshot_path: str = "", quotas: TenantQuotas | None = None,
@@ -397,6 +398,33 @@ class GossipNode:
     def drop_affinity(self, akey: str) -> None:
         self.state.delete(AFFINITY_PREFIX + akey)
         self._gauge()
+
+    def record_operating_point(self, model_id: str, point: dict) -> None:
+        """Publish a tuner's kept dial point for ``model_id``; an
+        unchanged point bumps no version."""
+        from crowdllama_tpu_torch.engine.autotune import encode_point
+
+        value = encode_point(point)
+        cur = self.state.get(TUNE_PREFIX + model_id)
+        if cur is not None and cur.value == value:
+            return
+        self.state.set(TUNE_PREFIX + model_id, value)
+        self._gauge()
+
+    def lookup_operating_point(self, model_id: str,
+                               max_age_s: float = 0.0) -> dict:
+        """The gossiped dial dict for ``model_id``; {} when absent,
+        older than ``max_age_s`` (by its hybrid-clock write time) or
+        invalid."""
+        from crowdllama_tpu_torch.engine.autotune import decode_point
+
+        e = self.state.get(TUNE_PREFIX + model_id)
+        if e is None or not e.value:
+            return {}
+        if max_age_s and (time.time() * 1000 - e.version
+                          > max_age_s * 1000):
+            return {}
+        return decode_point(e.value)
 
     def record_quarantine(self, worker_id: str, reason: str = "drain") -> None:
         cur = self.state.get(QUARANTINE_PREFIX + worker_id)

@@ -28,6 +28,7 @@ from dataclasses import dataclass, field
 FAULT_SITES: dict[str, str] = {
     "engine.request": "non-streamed inference entry (engine/engine.py)",
     "engine.stream_chunk": "before the worker yields chunk N of a stream",
+    "scheduler.ragged_chunk": "before a unified ragged prefill-chunk step",
     "host.new_stream": "before a dial + handshake (net/host.py)",
     "relay.op": "relay service op dispatch (net/relay.py)",
     "relay.splice": "before a relay starts its bidirectional copy loop",
@@ -35,6 +36,7 @@ FAULT_SITES: dict[str, str] = {
     "kv.serve": "donor side, before a KvFetchRequest is served",
     "gossip.send": "before a gateway replica pushes an anti-entropy frame",
     "gossip.recv": "before an inbound gossip frame is merged",
+    "obs.scrape": "before the gateway fetches one worker's metric snapshot",
     "spec.draft_chunk": "after the worker reads a DraftChunk off a "
                         "remote-draft stream (peer/peer.py)",
     "spec.verify": "before a VerifyResult frame is written (the engine's "
