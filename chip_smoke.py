@@ -47,6 +47,19 @@ Phases, each printing one JSON line:
    a 64-key cache at lengths 1-64), with their bounds at the card's fp32
    rate and one SDPA call in fp32 under the memory-efficient backend
    (flash refuses fp32; the backend is named);
+4a. kernel_G (its own line): kernel G, the grouped GEMM over an expert
+   bank (``csrc/grouped_gemm.cu``; no Pallas counterpart: it stands in for
+   ``lax.ragged_dot`` and ``qeinsum``'s dequant), on bf16, int8 and int4
+   banks against its plain version within 0.0156 of the output's scale:
+   Mixtral's decode shapes (8 experts, 2 rows a token at 1, 8 and 64
+   tokens, hidden 4096 -> 14336 and back, the rows routed at random so
+   some experts get none, and 16 rows all on one expert), one prefill of
+   1,024 tokens, llama-3-8b's dense products (E 1 at 8 and 512 rows);
+   each with the kernel's, the plain version's and the bound's ms (the
+   touched experts' weight and scale bytes plus the rows at 3.35 TB/s,
+   or 2 * rows * K * N at 989 TF/s) and, for bf16, one library call's
+   (``torch._grouped_mm``, or ``torch.matmul`` at E 1; none dequantises,
+   so int8 and int4 have no yardstick);
 5. engine: ``TorchEngine`` serving tinyllama-1.1b at full width (random
    weights from seed 0, default config: 8 slots, page 128, context 2048)
    to 8 concurrent greedy ``generate()`` streams — 6 short prompts, one
@@ -256,6 +269,23 @@ Phases, each printing one JSON line:
    (bf16, Dh 64) at the chunk rows the dials give (128, 256, 384 and
    1,024: a whole chunk and the long prompt's last one each) and A at q
    1,024 at both head dims;
+12a''. moe (its own line, then ``moe_bf16``, ``moe_int4``, ``moe_tp1``
+   and ``moe_tp2``): mixtral-8x7b at full width and depth (32 layers, 8
+   experts, top 2) with int8 weights born quantized on the card
+   (``random_quantized_params``: the 93 GB bf16 tree never exists;
+   ~47 GB held), paged bf16 KV at context 2,048, ``megastep_k=4``:
+   the paged phase's traffic, 16 tokens, served eagerly (A, B, C and
+   G-int8 launch, no other), then 2 prompts eagerly and as megastep
+   flights on one engine, token-identical (the MoE forward is captured
+   in a graph: no host sync); prefill, decode and ragged-step logits
+   through the kernels against the plain route within ``LOGIT_RTOL``, the
+   plain route taking the kernel route's expert choices (a top-k choice
+   flips at near-ties; the flips it would have made are counted); the
+   steady step beside its bound (every weight byte once) and G's share;
+   peak memory.  Cut in depth (``reduced``): bf16 weights at 4 layers (G
+   on bf16 banks), int4 at 8, and tp=2 int8 at 2 layers on the one card
+   (F, G per rank) token for token with tp=1 on live permutation weights
+   (``moe_live_params``);
 12b. hf (its own line): HF checkpoints written by the port
    (``save_hf_checkpoint``: bf16 ``LlamaForCausalLM`` tensors in two
    shards with an index, the published ``config.json``, a
@@ -297,7 +327,12 @@ Phases, each printing one JSON line:
    int8 pools (B-int8, C-int8), the contiguous layout (D), tp=2 on the
    one card (F) and tp=2 on int8 pools (F-int8), 3 streams of 16 tokens
    each, one decode step (and on bf16 paged pools a prefill and a ragged
-   step) vs the plain versions; the cut is printed as ``reduced``.
+   step) vs the plain versions; the cut is printed as ``reduced``;
+14. quant: llama-3-8b at full depth with int8 and then int4 weights
+   (born quantized on the card), the paged phase's traffic, 16
+   tokens: A, B, C and G (its int8 or int4 entry) launch, the logits
+   through the kernels against the plain route, the steady step and G's
+   share beside ``engine_llama``'s bf16 step.
 
 Each engine phase starts once the previous engine has stopped and its
 memory is freed; its peak memory is counted from before the engine loads
@@ -310,8 +345,11 @@ on the distill phase's path at Dh 64 only, so their Dh-128 rows' counts
 are 0.  Tinyllama's seed-0 weights are made once and kept on the host;
 no phase changes them (the gateway phase zeroes the unembedding columns
 of a copy on the card).
+Every line carries ``t_s``, the seconds since the script started.
 Then the ``kernels`` line (a row per kernel and head dim, the Dh-128
-rows named ``<symbol>_dh128`` with the llama phases' launches), the
+rows named ``<symbol>_dh128`` with the llama phases' launches; kernel
+G's three entries with their ``moe`` phases' launches and the 8-slot
+Mixtral decode shape's times), the
 ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero exit and
 no last line.  Exits non-zero without a CUDA device.
@@ -325,6 +363,7 @@ import contextvars
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import struct
 import subprocess
@@ -364,8 +403,13 @@ LOGIT_RTOL_TP = 0.02
 TP_MEMORY_RATIO = 1.1
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one phase line, with the seconds since the script started
+    (``t_s``: what each phase adds to the run's time)."""
+    print(json.dumps({**obj, "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1055,6 +1099,7 @@ def _counters() -> dict:
         flash_decode_attention,
         flash_prefill_attention,
     )
+    from crowdllama_tpu_torch.ops.cuda.gemm import grouped_gemm
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_paged_decode_attention,
         flash_paged_decode_attention_tp,
@@ -1073,7 +1118,10 @@ def _counters() -> dict:
             "E": (flash_ragged_chunk_attention, "launches"),
             "E_int8": (flash_ragged_chunk_attention, "launches_int8"),
             "F": (flash_paged_decode_attention_tp, "launches"),
-            "F_int8": (flash_paged_decode_attention_tp, "launches_int8")}
+            "F_int8": (flash_paged_decode_attention_tp, "launches_int8"),
+            "G": (grouped_gemm, "launches"),
+            "G_int8": (grouped_gemm, "launches_int8"),
+            "G_int4": (grouped_gemm, "launches_int4")}
 
 
 def _zero_launches() -> None:
@@ -1129,10 +1177,13 @@ async def serve(engine, streams: dict, max_tokens: int,
 
 
 def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
-               params: dict | None = None, **engine_kw):
+               params: dict | None = None, random_init: bool = False,
+               **engine_kw):
     """Reset the card's peak-memory mark, start ``TorchEngine`` on
-    ``params`` (default: TinyLlama's seed-0 weights) (on ``dev``, or on the
-    tp ranks ``devices`` in
+    ``params`` (default: TinyLlama's seed-0 weights; with ``random_init``
+    the runner's own seed-0 init on the card, quantized as it is drawn
+    when ``engine_kw`` sets ``quantize``, its EOS column zeroed) (on
+    ``dev``, or on the tp ranks ``devices`` in
     ``engine_kw`` names), zero every launch count, serve the traffic, read
     the counts, stop.  The card's memory is read at four points: what was
     allocated before the engine, the peak while it started (loading and
@@ -1146,7 +1197,8 @@ def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
         engine_kw["device"] = dev
 
     async def go():
-        weights = seed0_params(dev) if params is None else params
+        weights = (None if random_init else seed0_params(dev)
+                   if params is None else params)
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         memory = {"before_start": torch.cuda.memory_allocated(dev)}
@@ -1154,6 +1206,8 @@ def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
         t0 = time.perf_counter()
         await engine.start()
         start_s = time.perf_counter() - t0
+        if random_init:
+            _zero_eos(engine.runner)
         engine.tokenizer = _IdRecorder(engine.tokenizer)
         try:
             memory.update(start_peak=torch.cuda.max_memory_allocated(dev),
@@ -1234,12 +1288,86 @@ def _three_slots(r, tok):
     return st
 
 
+@contextlib.contextmanager
+def _swapped(owner, name: str, value):
+    """``owner.name`` is ``value`` while entered."""
+    real = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def _plain_products():
+    """The model's quantized and expert products through kernel G's plain
+    version while entered: a check's reference route."""
+    from crowdllama_tpu_torch.models import transformer as T
+    from crowdllama_tpu_torch.ops.cuda.gemm import grouped_gemm_plain
+
+    return _swapped(T, "grouped_gemm", grouped_gemm_plain)
+
+
+class _Routing:
+    """MoE routing for a kernel-vs-plain check: the kernel route's expert
+    choices, taken by the plain route.  A top-k choice is discontinuous
+    (it flips where two router logits nearly tie), so two routes that
+    round differently can send a token to other experts and then part by
+    far more than their rounding; the plain route here takes the kernel
+    route's experts (its own router weights over them) and counts the
+    tokens whose own choice would have differed.  Each pair of routes
+    runs ``kernel`` then ``plain``; without MoE layers it is a no-op."""
+
+    def __init__(self, moe: bool):
+        self.moe = moe
+        self.tape: list = []
+        self.flips = self.tokens = 0
+
+    def _patched(self, route):
+        from crowdllama_tpu_torch.models import transformer as T
+
+        real = T._route_topk
+        return _swapped(T, "_route_topk", route(real) if self.moe else real)
+
+    def kernel(self):
+        def route(real):
+            def recorded(lp, cfg, x):
+                w, ids = real(lp, cfg, x)
+                self.tape.append(ids)
+                return w, ids
+            return recorded
+        return self._patched(route)
+
+    def plain(self):
+        def route(real):
+            def replayed(lp, cfg, x):
+                ids = self.tape.pop(0)
+                logits = x.float() @ lp["router"].float()
+                _, own = real(lp, cfg, x)
+                self.flips += int((own.sort(-1)[0] != ids.sort(-1)[0])
+                                  .any(-1).sum())
+                self.tokens += own.shape[0]
+                return torch.softmax(logits.gather(-1, ids), dim=-1), ids
+            return replayed
+        return self._patched(route)
+
+    def report(self, err: dict) -> dict:
+        if self.moe:
+            err = dict(err, routing_flips=self.flips,
+                       routing_tokens=self.tokens)
+            self.flips = self.tokens = 0
+        return err
+
+
 def logits_check(engine, dev, ragged: bool = True) -> dict:
     """One decode step through kernel F (B's grid over every rank: its bf16
     or int8 variant, as the runner's pool is) and through its plain version
     on the same state (3 live slots); with ``ragged`` also one prefill through
     kernel A and one ragged step through kernel C, each against its plain
-    version."""
+    version.  The kernel route's expert and quantized products go through
+    kernel G, the plain route's through G's plain version
+    (``T.grouped_gemm`` swapped); on MoE layers the plain route takes the
+    kernel route's expert choices (``_Routing``)."""
     from crowdllama_tpu_torch.models import transformer as T
     from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
     from crowdllama_tpu_torch.ops.cuda.flash import flash_prefill_attention
@@ -1252,6 +1380,7 @@ def logits_check(engine, dev, ragged: bool = True) -> dict:
 
     r = engine.runner
     tok = engine.tokenizer
+    routing = _Routing(r.cfg.is_moe)
     errs = {}
     with torch.inference_mode():
         if ragged:
@@ -1261,20 +1390,25 @@ def logits_check(engine, dev, ragged: bool = True) -> dict:
             ar = torch.arange(t, device=dev, dtype=torch.int32)
             pos = torch.clamp(ar, max=len(ids) - 1)[None]
             valid = (ar < len(ids))[None]
-            lk = T.prefill(r.params, r.cfg, tokens, pos, valid,
-                           attention=flash_prefill_attention)[0]
-            lp = T.prefill(r.params, r.cfg, tokens, pos, valid,
-                           attention=prefill_attention_ref)[0]
-            errs["prefill"] = _logit_err(lk[0, :len(ids)], lp[0, :len(ids)])
+            with routing.kernel():
+                lk = T.prefill(r.params, r.cfg, tokens, pos, valid,
+                               attention=flash_prefill_attention)[0]
+            with routing.plain(), _plain_products():
+                lp = T.prefill(r.params, r.cfg, tokens, pos, valid,
+                               attention=prefill_attention_ref)[0]
+            errs["prefill"] = routing.report(
+                _logit_err(lk[0, :len(ids)], lp[0, :len(ids)]))
 
         st = _three_slots(r, tok)
         r.pre_decode_check(1)
         table = r._table()
+        with routing.kernel():
+            dk = r.decode_logits(st, table)
         r.decode_attn = paged_decode_attention_tp_plain
-        dp = r.decode_logits(st, table)
+        with routing.plain(), _plain_products():
+            dp = r.decode_logits(st, table)
         r.decode_attn = flash_paged_decode_attention_tp
-        dk = r.decode_logits(st, table)
-        errs["decode"] = _logit_err(dk[:3], dp[:3])
+        errs["decode"] = routing.report(_logit_err(dk[:3], dp[:3]))
 
         if ragged:
             long_ids = tok.encode(LONG)
@@ -1282,14 +1416,16 @@ def logits_check(engine, dev, ragged: bool = True) -> dict:
             chunk, ctx_arr, _, wp = r._ragged_provision(job, 1)
             table = r._table(wp)
             ctoks = torch.from_numpy(chunk[0]).to(dev)
+            with routing.kernel():
+                rk, _ = r.ragged_logits(st, table, len(long_ids), 5,
+                                        ctx_arr[0], ctoks)
             r.ragged_attn = ragged_paged_attention_ref
-            rp, n = r.ragged_logits(st, table, len(long_ids), 5, ctx_arr[0],
-                                    ctoks)
+            with routing.plain(), _plain_products():
+                rp, n = r.ragged_logits(st, table, len(long_ids), 5,
+                                        ctx_arr[0], ctoks)
             r.ragged_attn = ragged_paged_attention
-            rk, _ = r.ragged_logits(st, table, len(long_ids), 5, ctx_arr[0],
-                                    ctoks)
             rows = [0, 1, 2, r.max_slots]  # live decode rows + the chunk row
-            errs["ragged"] = _logit_err(rk[rows], rp[rows])
+            errs["ragged"] = routing.report(_logit_err(rk[rows], rp[rows]))
             r.ragged_abort(job)
     return errs
 
@@ -1309,12 +1445,13 @@ def _event_timed(kernel, spans: list):
 
 
 def decode_step_timing(engine, dev, kernel=None, steps: int = 8,
-                       temperature: float = 0.0) -> dict:
+                       temperature: float = 0.0, gemm: bool = False) -> dict:
     """Steady-state decode with all slots live (each sampling at
     ``temperature``): host wall time per step (ending in a synchronize)
     and, when ``kernel`` is the runner's decode attention, the GPU time it
     takes per step (its launches alone, CUDA events over the same
-    steps)."""
+    steps); with ``gemm`` also kernel G's time and launches per step (its
+    calls event-timed through a swapped ``T.grouped_gemm``)."""
     r = engine.runner
     tok = engine.tokenizer
     with torch.inference_mode():
@@ -1337,11 +1474,24 @@ def decode_step_timing(engine, dev, kernel=None, steps: int = 8,
             r.decode_steps(st, steps)
             r.decode_attn = seam
             torch.cuda.synchronize()
+        gspans = []
+        if gemm:
+            from crowdllama_tpu_torch.models import transformer as T
+            from crowdllama_tpu_torch.ops.cuda.gemm import grouped_gemm
+
+            with _swapped(T, "grouped_gemm",
+                          _event_timed(grouped_gemm, gspans)):
+                r.decode_steps(st, steps)
+            torch.cuda.synchronize()
     out = {"slots": r.max_slots, "temperature": temperature,
            "step_ms": step_ms, "tokens_per_s": r.max_slots * 1e3 / step_ms}
     if kernel is not None:
         out["kernel_ms_per_step"] = sum(a.elapsed_time(b)
                                         for a, b in spans) / steps
+    if gemm:
+        out["gemm_ms_per_step"] = sum(a.elapsed_time(b)
+                                      for a, b in gspans) / steps
+        out["gemm_launches_per_step"] = len(gspans) / steps
     return out
 
 
@@ -6241,6 +6391,463 @@ def distill_phase(dev) -> tuple[dict, str]:
 # row -> (name, source, TPU kernel it replaces); the name is the C symbol,
 # for F B's symbol launched once over every tensor-parallel rank on the
 # card (the ranks folded into its grid).
+# ------------------------------------------------ kernel G, MoE, quantization
+
+MIXTRAL = "mixtral-8x7b"
+# Mixtral's expert bank: 8 experts, hidden 4096, expert width 14336.
+MIX_E, MIX_D, MIX_F = 8, 4096, 14336
+# Kernel G against its plain version: within 0.0156 of the output's scale
+# (max |plain|), as A and C are held (one bf16 rounding of an output of
+# the scale's order, plus fp32 order noise over K up to 14,336 terms).
+GEMM_RTOL = 0.0156
+GEMM_FORMATS = ("bf16", "int8", "int4")
+GEMM_ROW = {"bf16": "G", "int8": "G_int8", "int4": "G_int4"}
+# Mixtral's decode batches (2 rows a token: its top-2 experts) and one
+# prefill of 1,024 tokens; llama-3-8b's dense products (E 1).
+GEMM_DECODE_SLOTS = (1, 8, 64)
+GEMM_PREFILL_TOKENS = 1024
+GEMM_DENSE = ((8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
+              (8, 14336, 4096), (512, 4096, 4096), (512, 4096, 14336),
+              (512, 14336, 4096))
+# The kernels line's row of each format: Mixtral's 8-slot decode, gate/up
+# direction (16 rows spread over the experts), the main path's shape.
+GEMM_ROW_CASE = "decode8_gate"
+MOE_TOKENS = 16
+MOE_CONTEXT = 2048
+MOE_K = 4
+# Depths of the reduced Mixtral cells.
+MOE_BF16_LAYERS, MOE_INT4_LAYERS, MOE_TP_LAYERS = 4, 8, 2
+
+
+def _bank(dev, gen, fmt: str, e: int, k: int, n: int):
+    """A random expert bank [E, K, N] (2-D when E is 1) in ``fmt``."""
+    from crowdllama_tpu_torch.ops.quant import (
+        quantize_weight,
+        quantize_weight_int4,
+    )
+
+    w = (torch.randn((e, k, n), generator=gen, device=dev) / k ** 0.5).to(
+        torch.bfloat16)
+    if e == 1:
+        w = w[0]
+    if fmt == "int8":
+        return quantize_weight(w)
+    if fmt == "int4":
+        return quantize_weight_int4(w)
+    return w
+
+
+def _weight_bytes(w, experts: int) -> int:
+    """Bytes of ``experts`` experts' values and scales of the bank."""
+    q = getattr(w, "q", w)
+    per = nbytes(q) // (q.shape[0] if q.dim() == 3 else 1)
+    if hasattr(w, "s"):
+        per += nbytes(w.s) // (q.shape[0] if q.dim() == 3 else 1)
+    return per * experts
+
+
+def check_gemm(dev, gen, w, fmt: str, sizes: list[int] | None,
+               m: int) -> dict:
+    """Kernel G on ``m`` rows grouped by ``sizes`` (None: the dense
+    product, a bank of one) against its plain version; the kernel's, the
+    plain version's and one library call's device ms, and the bound from
+    the touched experts' bytes and the rows' operations."""
+    from crowdllama_tpu_torch.ops.cuda.gemm import (
+        grouped_gemm,
+        grouped_gemm_plain,
+    )
+
+    q = getattr(w, "q", w)
+    k = q.shape[-2]
+    n = w.shape[-1]
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    off = None
+    if sizes is not None:
+        off = torch.tensor([0, *itertools.accumulate(sizes)],
+                           dtype=torch.int32, device=dev)
+    got = grouped_gemm(x, w, off)
+    want = grouped_gemm_plain(x, w, off)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"G {fmt}: non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not err <= GEMM_RTOL * scale:
+        raise AssertionError(f"G {fmt} m={m} k={k} n={n} sizes={sizes}: "
+                             f"max abs err {err} beyond {GEMM_RTOL} of "
+                             f"{scale}")
+    touched = 1 if sizes is None else sum(1 for v in sizes if v)
+    moved = (_weight_bytes(w, touched) + nbytes(x, got)
+             + (0 if off is None else nbytes(off)))
+    bound, by = bound_ms(moved, 2 * m * k * n)
+    row = {"rows": m, "k": k, "n": n, "experts_touched": touched,
+           "max_abs_err": err, "scale": scale,
+           "ms": time_ms(lambda: grouped_gemm(x, w, off)),
+           "plain_ms": time_ms(lambda: grouped_gemm_plain(x, w, off),
+                               iters=3),
+           "bound_ms": bound, "bound_by": by, "library_ms": None}
+    if fmt == "bf16" and sizes is None:
+        row["library_ms"] = time_ms(lambda: torch.matmul(x, w))
+        row["library"] = "torch.matmul"
+    elif fmt == "bf16" and hasattr(torch, "_grouped_mm"):
+        ends = off[1:].contiguous()
+        ref = torch._grouped_mm(x, w, offs=ends)
+        torch.cuda.synchronize()
+        row["library_max_abs_diff"] = float((ref.float() - want.float())
+                                            .abs().max())
+        row["library_ms"] = time_ms(lambda: torch._grouped_mm(x, w,
+                                                              offs=ends))
+        row["library"] = "torch._grouped_mm"
+    else:
+        row["library"] = ("no single PyTorch call dequantises in the "
+                          "product" if fmt != "bf16" else
+                          "torch._grouped_mm missing from this torch")
+    return row
+
+
+def _spread(gen_cpu: torch.Generator, rows: int, experts: int) -> list[int]:
+    """Group sizes of ``rows`` routed at random (some experts may get
+    none)."""
+    ids = torch.randint(0, experts, (rows,), generator=gen_cpu)
+    return torch.bincount(ids, minlength=experts).tolist()
+
+
+def gemm_phase(dev) -> dict:
+    """Kernel G in bf16, int8 and int4 against its plain version at
+    Mixtral's decode shapes (8 experts, 2 rows a token at 1, 8 and 64
+    tokens, hidden 4096 -> 14336 and back, the rows spread at random, and
+    all 16 rows of 8 tokens on one expert), one prefill of 1,024 tokens,
+    and llama-3-8b's dense products (E 1, 8 and 512 rows).  Emits the
+    ``kernel_G`` line; returns each format's row at ``GEMM_ROW_CASE``
+    and its worst error."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gen_cpu = torch.Generator().manual_seed(0)
+    cases: dict[str, dict] = {}
+    plans = []
+    for slots in GEMM_DECODE_SLOTS:
+        plans.append((f"decode{slots}", _spread(gen_cpu, 2 * slots, MIX_E)))
+    plans.append(("decode8_one_expert", [16] + [0] * (MIX_E - 1)))
+    plans.append(("prefill", _spread(gen_cpu, 2 * GEMM_PREFILL_TOKENS,
+                                     MIX_E)))
+    for fmt in GEMM_FORMATS:
+        out = cases[fmt] = {}
+        for direction, (k, n) in (("gate", (MIX_D, MIX_F)),
+                                  ("down", (MIX_F, MIX_D))):
+            w = _bank(dev, gen, fmt, MIX_E, k, n)
+            for name, sizes in plans:
+                out[f"{name}_{direction}"] = dict(
+                    check_gemm(dev, gen, w, fmt, sizes, sum(sizes)),
+                    sizes=sizes)
+            del w
+            _free_card()
+        for m, k, n in GEMM_DENSE:
+            w = _bank(dev, gen, fmt, 1, k, n)
+            out[f"dense_m{m}_{k}x{n}"] = check_gemm(dev, gen, w, fmt, None, m)
+            del w
+        _free_card()
+    from crowdllama_tpu_torch.ops import cuda as kernels
+
+    emit({"phase": "kernel_G", "rtol_of_scale": GEMM_RTOL,
+          "grouped_mm_available": hasattr(torch, "_grouped_mm"),
+          "resources": {sym: kernels.kernel_resources("grouped_gemm", sym, 0,
+                                                      0, dev)
+                        for sym in kernels.SIGNATURES["grouped_gemm"]},
+          "cases": cases, "card": torch.cuda.get_device_name(0)})
+    return {fmt: dict(cases[fmt][GEMM_ROW_CASE],
+                      max_abs_err=max(c["max_abs_err"]
+                                      for c in cases[fmt].values()))
+            for fmt in GEMM_FORMATS}
+
+
+def _zero_eos(runner) -> None:
+    """Zero the EOS column of every rank's unembedding that holds it (its
+    value, or its nibble, in a quantized one), so no random-weight stream
+    stops early."""
+    from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
+    from crowdllama_tpu_torch.ops.quant import QTensor, QTensor4
+
+    col = ByteTokenizer.EOS
+    for p in runner.params:
+        head = p["lm_head"]
+        width = head.shape[-1]
+        if col < width:
+            if isinstance(head, QTensor4):  # keep the byte's other nibble
+                byte = head.q[:, col // 2].to(torch.int16)
+                keep = (byte >> 4) << 4 if col % 2 == 0 else byte & 0xF
+                head.q[:, col // 2] = keep.to(torch.int8)
+            elif isinstance(head, QTensor):
+                head.q[:, col] = 0
+            else:
+                head[:, col] = 0
+            return
+        col -= width
+
+
+def moe_live_params(dev, layers: int, quantize: str = "int8") -> tuple:
+    """Mixtral cut to ``layers`` layers at full width on permutation
+    weights (``testing/modelgen.py``) with attention and experts kept live:
+    ``wo`` and ``w_down`` random at 0.45 / sqrt(fan_in * hidden) instead of
+    zero (each moves the residual stream by ~0.2 of a unit embedding, as
+    the CPU tests' tiny checkpoint), so greedy decode keeps O(1) margins
+    while every expert reaches the logits; quantized on the card.
+    Returns (config, params)."""
+    from crowdllama_tpu_torch.models.config import get_config
+    from crowdllama_tpu_torch.ops.quant import quantize_params
+    from crowdllama_tpu_torch.testing.modelgen import permutation_params
+
+    cfg = get_config(MIXTRAL, num_layers=layers,
+                     max_context_length=MOE_CONTEXT)
+    params = permutation_params(cfg, dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for name in ("wo", "w_down"):
+        w = params["layers"][name]
+        fan_in = w.shape[-2]
+        w.copy_((torch.randn(w.shape, generator=gen, device=dev)
+                 * (0.45 / (fan_in * cfg.hidden_size) ** 0.5)).to(w.dtype))
+    return cfg, quantize_params(params, mode=quantize, device=dev)
+
+
+def moe_cut_phase(dev, phase: str, ran: set[str], layers: int,
+                  quantize: str, params=None, cfg=None, **engine_kw) -> dict:
+    """Mixtral at full width cut to ``layers`` layers (random seed-0
+    weights made by the runner, or ``params``): 2 greedy short prompts and
+    the long one, 16 tokens; the kernels in ``ran`` launch and no other;
+    the step logits through the kernels agree with the plain route (2% of
+    the scale under tp, else 5%); the steady step.  Returns the launches,
+    the streams' token ids and the line."""
+    from crowdllama_tpu_torch.models.config import get_config
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+    )
+
+    if cfg is None:
+        cfg = get_config(MIXTRAL, num_layers=layers,
+                         max_context_length=MOE_CONTEXT)
+    engine, summary, reqs = run_engine(
+        dev, {k: GREEDY[k] for k in ("short0", "short1")}, MOE_TOKENS,
+        params=params, random_init=params is None, model=MIXTRAL,
+        model_config=cfg, quantize=quantize, **engine_kw)
+    del params
+    tp = int(engine_kw.get("mesh_shape") or 1)
+    _expect_launches(summary["launches"], ran, phase)
+    out = {}
+    if tp > 1:
+        out["decode_steps"] = _expect_tp_launches(
+            summary["launches"], tp, False, phase, layers)
+    if reqs["long"]["prompt_tokens"] <= engine.runner.ragged_chunk \
+            or engine.scheduler.ragged_chunks < 1:
+        raise AssertionError(f"{phase}: the long prompt took no ragged chunk")
+    errs = logits_check(engine, dev)
+    rtol = LOGIT_RTOL_TP if tp > 1 else LOGIT_RTOL
+    for k, e in errs.items():
+        if not e["max_abs_err"] <= rtol * e["scale"]:
+            raise AssertionError(f"{phase} {k} logits: kernel vs plain {e}")
+    steady = decode_step_timing(engine, dev, flash_paged_decode_attention_tp,
+                                gemm=True)
+    kw = {k: [str(d) for d in v] if k == "devices" else v
+          for k, v in engine_kw.items()}
+    line = {"phase": phase, "model": MIXTRAL, "layers": cfg.num_layers,
+            "quantize": quantize or "bf16",
+            "reduced": {"num_layers": [32, cfg.num_layers],
+                        "max_context_length": [32768, MOE_CONTEXT]},
+            **kw, **summary, **out, "logits_max_abs_err": errs,
+            "logits_rtol": rtol, "steady_decode": steady,
+            "card": torch.cuda.get_device_name(0)}
+    return summary["launches"], {k: v["ids"] for k, v in reqs.items()}, line
+
+
+def moe_phase(dev) -> dict:
+    """mixtral-8x7b at full width and depth (32 layers, 8 experts, top 2,
+    hidden 4096, expert width 14336) with int8 weights: the runner makes
+    seed-0 weights born quantized on the card (``random_quantized_params``,
+    ~47 GB; the 93 GB bf16 tree never exists), paged bf16 KV,
+    context clamped to 2,048, ``megastep_k=4``.  The paged phase's traffic
+    (6 short greedy prompts, a prefix hit, the long prompt through ragged
+    chunks) served eagerly, 16 tokens: A, B, C and G (int8) launch and no
+    other; then 2 prompts under a page served eagerly and as megastep
+    flights on the same engine: token-identical (the MoE forward runs in
+    a captured graph, so it is free of host syncs); the last-position
+    logits of a prefill, a decode step and a ragged step through the
+    kernels against the plain route (``LOGIT_RTOL``); the steady decode
+    step with all slots live beside its bound (every weight byte once at
+    3.35 TB/s), and G's share of it; peak memory.  Then, cut in depth:
+    bf16 weights at 4 layers (G on bf16 banks), int4 at 8 layers, and
+    tp=2 int8 at 2 layers on one card (F, G per rank) against tp=1 on the
+    same live permutation weights, token for token.  Returns the G rows'
+    launches by format."""
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+    )
+
+    streams = {**GREEDY, "prefix_hit": (HIT, {})}
+    pair = {k: GREEDY[k] for k in ("short2", "short5")}
+
+    async def go():
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        memory = {"before_start": torch.cuda.memory_allocated(dev)}
+        engine = TorchEngine(model=MIXTRAL, quantize="int8", device=dev,
+                             max_context_length=MOE_CONTEXT,
+                             megastep_k=MOE_K, decode_chunk=MOE_K)
+        t0 = time.perf_counter()
+        await engine.start()
+        start_s = time.perf_counter() - t0
+        _zero_eos(engine.runner)
+        engine.tokenizer = _IdRecorder(engine.tokenizer)
+        r = engine.runner
+        memory.update(start_peak=torch.cuda.max_memory_allocated(dev),
+                      after_start=torch.cuda.memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            engine.scheduler._megastep = False
+            _zero_launches()
+            served = await serve(engine, streams, MOE_TOKENS)
+            launches = _launches()
+            hits = r.prefix_hits
+            eager = await _serve_ids(engine, pair, MOE_TOKENS)
+            engine.scheduler._megastep = True
+            replays0 = sum(g.replays for g in r._graphs._graphs.values())
+            mega = await _serve_ids(engine, pair, MOE_TOKENS)
+            replays = sum(g.replays for g in r._graphs._graphs.values()) \
+                - replays0
+            memory["serve_peak"] = torch.cuda.max_memory_allocated(dev)
+        finally:
+            await engine.stop()
+        return engine, start_s, served, launches, hits, eager, mega, \
+            replays, memory
+
+    engine, start_s, served, launches, hits, eager, mega, replays, memory = \
+        asyncio.run(go())
+    reqs = served["requests"]
+    for name, v in reqs.items():
+        if not (v["done"] and v["completion_tokens"] == MOE_TOKENS):
+            raise AssertionError(f"moe: stream {name} ended {v}")
+    _expect_launches(launches, {"A", "B", "C", "G_int8"}, "moe")
+    if hits < 1 or engine.scheduler.ragged_chunks < 1:
+        raise AssertionError(f"moe: prefix hits {hits}, ragged chunks "
+                             f"{engine.scheduler.ragged_chunks}")
+    if mega != eager or replays < 1:
+        raise AssertionError(f"moe: megastep streams {mega} (replays "
+                             f"{replays}) differ from eager {eager}")
+    errs = _check_logit_errs(logits_check(engine, dev), "moe")
+    steady = decode_step_timing(engine, dev, flash_paged_decode_attention_tp,
+                                gemm=True)
+    r = engine.runner
+    weight_bytes = _step_weight_bytes(r)
+    tokens = sum(v["completion_tokens"] for v in reqs.values())
+    ttft = sorted(v["ttft_ms"] for v in reqs.values())
+    moe_line = {
+        "phase": "moe", "model": MIXTRAL, "layers": r.cfg.num_layers,
+        "quantize": "int8", "experts": [r.cfg.num_experts,
+                                        r.cfg.num_experts_per_tok],
+        "reduced": {"max_context_length": [32768, MOE_CONTEXT]},
+        "start_s": start_s, "wall_s": served["wall_s"],
+        "completion_tokens": tokens,
+        "tokens_per_s": tokens / served["wall_s"],
+        "ttft_ms_median": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
+        "long_ttft_ms": reqs["long"]["ttft_ms"], "prefix_hits": hits,
+        "ragged_chunks": engine.scheduler.ragged_chunks,
+        "launches": launches, "memory": memory,
+        "max_memory_allocated": max(memory["start_peak"],
+                                    memory["serve_peak"]),
+        "weight_bytes": weight_bytes,
+        "megastep": {"k": MOE_K, "streams": len(pair), "tokens": MOE_TOKENS,
+                     "graph_replays": replays,
+                     "graph_captures": r._graphs.captures,
+                     "capture_s": r._graphs.capture_s,
+                     "token_identical_to_eager": True},
+        "logits_max_abs_err": errs, "logits_rtol": LOGIT_RTOL,
+        "steady_decode": steady,
+        "steady_bound_ms": weight_bytes / PEAK_BYTES * 1e3,
+        "card": torch.cuda.get_device_name(0)}
+    del engine, r
+    _free_card()
+    emit(moe_line)
+    counts = {"G_int8": launches["G_int8"]}
+    lines = []
+    got, _, line = moe_cut_phase(dev, "moe_bf16", {"A", "B", "C", "G"},
+                                 MOE_BF16_LAYERS, "")
+    counts["G"] = got["G"]
+    lines.append(line)
+    _free_card()
+    got, _, line = moe_cut_phase(dev, "moe_int4", {"A", "B", "C", "G_int4"},
+                                 MOE_INT4_LAYERS, "int4")
+    counts["G_int4"] = got["G_int4"]
+    lines.append(line)
+    _free_card()
+    cfg, params = moe_live_params(dev, MOE_TP_LAYERS)
+    _, one, line1 = moe_cut_phase(dev, "moe_tp1", {"A", "B", "C", "G_int8"},
+                                  MOE_TP_LAYERS, "int8", params=params,
+                                  cfg=cfg)
+    _free_card()
+    _, two, line2 = moe_cut_phase(dev, "moe_tp2", {"A", "C", "F", "G_int8"},
+                                  MOE_TP_LAYERS, "int8", params=params,
+                                  cfg=cfg, mesh_shape="2",
+                                  devices=[dev, dev])
+    del params
+    if one != two:
+        raise AssertionError(f"moe_tp2: streams {two} differ from tp=1's "
+                             f"{one}")
+    line2["token_identical_to_tp1"] = True
+    lines += [line1, line2]
+    for line in lines:
+        emit(line)
+    _free_card()
+    return counts
+
+
+def _step_weight_bytes(runner) -> int:
+    """Bytes of the weights a decode step reads whole (every leaf but the
+    embedding table, of which it gathers a row a slot; a quantized leaf's
+    values and scales), over every rank."""
+    def leaves(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v)
+            elif k != "embed":
+                yield v
+
+    return sum(nbytes(v.q, v.s) if hasattr(v, "q") else nbytes(v)
+               for p in runner.params for v in leaves(p))
+
+
+def quant_phase(dev, bf16_steady: dict) -> None:
+    """llama-3-8b at full width and depth (32 layers) with int8 and then
+    int4 weights (born quantized on the card: ``random_quantized_params``),
+    the paged phase's traffic, 16 tokens: A, B, C and G launch (its int8
+    or int4 entry) and no other; prefill, decode and ragged step logits
+    through the kernels against the plain route; the steady step and G's
+    share of it beside the bf16 phase's step (``engine_llama``)."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+    )
+
+    out = {}
+    for mode in ("int8", "int4"):
+        engine, summary, reqs = run_engine(
+            dev, {**GREEDY, "prefix_hit": (HIT, {})}, MOE_TOKENS,
+            random_init=True, model=LLAMA, quantize=mode)
+        _expect_launches(summary["launches"],
+                         {"A", "B", "C", GEMM_ROW[mode]}, f"quant_{mode}")
+        if summary["prefix_hits"] < 1 or engine.scheduler.ragged_chunks < 1:
+            raise AssertionError(f"quant_{mode}: a path was not taken")
+        errs = _check_logit_errs(logits_check(engine, dev), f"quant_{mode}")
+        steady = decode_step_timing(engine, dev,
+                                    flash_paged_decode_attention_tp,
+                                    gemm=True)
+        weight_bytes = _step_weight_bytes(engine.runner)
+        out[mode] = {**summary, "logits_max_abs_err": errs,
+                     "steady_decode": steady, "weight_bytes": weight_bytes,
+                     "steady_bound_ms": weight_bytes / PEAK_BYTES * 1e3}
+        layers = engine.runner.cfg.num_layers
+        del engine
+        _free_card()
+    emit({"phase": "quant", "model": LLAMA, "layers": layers,
+          **out, "bf16_steady_decode": bf16_steady,
+          "logits_rtol": LOGIT_RTOL, "card": torch.cuda.get_device_name(0)})
+
+
 KERNEL_ROWS = {
     "A": ("flash_prefill", "crowdllama_tpu_torch/csrc/flash_prefill.cu",
           "crowdllama_tpu/ops/pallas/flash.py:146"),
@@ -6272,6 +6879,12 @@ KERNEL_ROWS = {
                "crowdllama_tpu_torch/csrc/paged_attention.cu",
                "crowdllama_tpu/ops/pallas/paged.py:898"),
 }
+# Kernel G replaces no Pallas kernel: the rows name what it stands in for.
+G_REPLACES = ("no Pallas counterpart: lax.ragged_dot "
+              "(crowdllama_tpu/models/transformer.py:198) and qeinsum's "
+              "dequant (crowdllama_tpu/ops/quant.py:138)")
+G_ROWS = {"G": "grouped_gemm_bf16", "G_int8": "grouped_gemm_i8",
+          "G_int4": "grouped_gemm_i4"}
 
 
 def main() -> int:
@@ -6305,6 +6918,8 @@ def main() -> int:
 
     emit({"phase": "threefry", **prng_golden.check(dev)})
     res = kernel_phase(dev)
+    gemm = gemm_phase(dev)
+    _free_card()
     paged = engine_phase(dev)
     launches = {k: paged["launches"][k] for k in ("A", "B", "C")}
     _free_card()
@@ -6348,6 +6963,8 @@ def main() -> int:
     _free_card()
     autotune_phase(dev)
     _free_card()
+    gemm_launches = moe_phase(dev)
+    _free_card()
     import os
     import tempfile
 
@@ -6362,7 +6979,8 @@ def main() -> int:
     _free_card()
     # Dh 128: llama-3-8b at full depth on the paged main path, then cut to
     # LLAMA_CUT_LAYERS layers on the other paths.
-    paged128 = llama_phase(dev)["launches"]
+    llama = llama_phase(dev)
+    paged128 = llama["launches"]
     launches128 = {k: paged128[k] for k in ("A", "B", "C")}
     for phase, ran, kw in (
             ("engine_llama_int8", {"A", "B_int8", "C_int8"},
@@ -6376,6 +6994,9 @@ def main() -> int:
         got = llama_cut_phase(dev, phase, ran, **kw)
         launches128.update({k: got[k] for k in ran - {"A", "C"}
                             if k not in launches128})
+    _free_card()
+    quant_phase(dev, llama["steady"])
+    _free_card()
     # No engine path runs kernel E; every phase checked it stayed at 0.
     # The fp32 entries run at Dh 64 only, in the distill phase.
     launches["E"] = launches["E_int8"] = 0
@@ -6396,6 +7017,17 @@ def main() -> int:
                          "library_ms": r["library_ms"],
                          **({"library_backend": r["library_backend"]}
                             if "library_backend" in r else {})})
+    for key, symbol in G_ROWS.items():
+        fmt = {"G": "bf16", "G_int8": "int8", "G_int4": "int4"}[key]
+        r = gemm[fmt]
+        rows.append({"name": symbol, "head_dim": None, "route": "cuda",
+                     "source": "crowdllama_tpu_torch/csrc/grouped_gemm.cu",
+                     "replaces": G_REPLACES, "launches": gemm_launches[key],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"],
+                     "library": r["library"], "shape": GEMM_ROW_CASE})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

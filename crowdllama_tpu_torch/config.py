@@ -222,7 +222,7 @@ class Configuration:
     # "bf16" or "int8": int8 KV with per-(position, kv head) scales, on
     # both layouts (paged: kernels B and C read the int8 pages).
     kv_dtype: str = "bf16"
-    quantize: str = ""  # "" = bf16 weights (only mode ported)
+    quantize: str = ""  # "" (bf16) | "int8" | "int4" weight-only (ops/quant.py)
     # "" | "ngram" (prompt-lookup drafts) | "draft" (a small draft model
     # proposes; paged layout only): engine/spec.py.
     spec_decode: str = ""

@@ -3,8 +3,9 @@
 Counterpart of the ported subset of ``crowdllama_tpu/engine/factory.py``
 ``build_runner``: the plan's runner on one device or, paged, over the tp
 mesh ``config.mesh_shape`` names (ranks on ``devices``, else the visible
-CUDA devices).  The draft-model runner's draft comes from
-``spec_draft_path`` (a native checkpoint, which carries its own
+CUDA devices), quantizing the weights as the plan says.  The draft-model
+runner's draft comes from ``spec_draft_path`` (a native checkpoint, which
+carries its own
 architecture, or an HF checkpoint of ``spec_draft_model``'s
 architecture) or, without one, is ``spec_draft_model`` from the registry
 on random weights (seed 0).
@@ -50,7 +51,8 @@ def build_runner(config, plan, cfg, params=None, *,
     kwargs = dict(params=params, max_slots=config.max_batch_slots,
                   max_seq=cfg.max_context_length, dtype=dtype, seed=seed,
                   device=device, kv_dtype=plan.kv_dtype,
-                  mesh_shape=plan.mesh_shape, devices=devices)
+                  quantize=plan.quantize, mesh_shape=plan.mesh_shape,
+                  devices=devices)
     if plan.spec:
         kwargs["draft_len"] = config.spec_draft
     if plan.kv_layout == "paged":

@@ -2,13 +2,14 @@
 
 Counterpart of the ported subset of ``crowdllama_tpu/engine/plan.py``
 ``resolve_serving_plan``: the paged and the contiguous layout with a bf16
-or int8 KV cache and bf16 weights, on one device, and the paged layout
-tensor-parallel over a tp mesh (``mesh_shape="2"``); the spec axis as the
+or int8 KV cache and bf16, int8 or int4 weights (``quantize``), on one
+device, and the paged layout tensor-parallel over a tp mesh
+(``mesh_shape="2"``); the spec axis as the
 JAX plan composes it (paged + ngram: ``SpecPagedModelRunner``, paged +
 draft: ``DraftSpecPagedModelRunner``, contiguous + ngram:
 ``SpecModelRunner``; draft on the contiguous layout and ngram on the
-contiguous int8 cache raise ``ValueError``).  Every other combination
-raises ``NotImplementedError`` naming the ROADMAP item that will port it;
+contiguous int8 cache raise ``ValueError``).  Every other mesh raises
+``NotImplementedError`` naming the ROADMAP item that will port it;
 nothing falls back silently (the JAX package moves a paged request on a
 dp/sp/pp mesh to the contiguous layout; the port refuses it).  ``megastep_k > 0`` needs every tp rank on one device (each
 flight is one CUDA graph there): :func:`check_megastep` refuses ranks on
@@ -21,10 +22,6 @@ from dataclasses import dataclass
 
 from crowdllama_tpu_torch.parallel.mesh import AXES, mesh_axes
 
-# What is not ported yet, and the ROADMAP Queue 1 item that ports it.
-_NOT_PORTED = {
-    "quantize": ("", "quantized weights (ROADMAP Queue 1 item 10)"),
-}
 _RUNNERS = {("paged", ""): "PagedModelRunner",
             ("paged", "ngram"): "SpecPagedModelRunner",
             ("paged", "draft"): "DraftSpecPagedModelRunner",
@@ -41,6 +38,7 @@ class ServingPlan:
     runner: str       # a name of ``_RUNNERS``
     kv_layout: str
     kv_dtype: str = "bf16"
+    quantize: str = ""  # "" (the compute dtype) | "int8" | "int4" weights
     mesh_shape: str = ""  # "" = one device, or the paged default mesh
     spec: str = ""    # "" | "ngram" | "draft"
 
@@ -70,12 +68,6 @@ def resolve_serving_plan(config, devices=None) -> ServingPlan:
     ``megastep_k > 0`` the tp ranks must share one device: ``devices`` as
     the engine places them, or, without a list, a tp mesh (its default
     ranks are distinct devices) is refused with a ``ValueError``."""
-    for axis, (ported, what) in _NOT_PORTED.items():
-        value = getattr(config, axis)
-        if value != ported:
-            raise NotImplementedError(
-                f"{axis}={value!r} is not ported to crowdllama_tpu_torch "
-                f"yet: {what}")
     shape = mesh_axes(config.mesh_shape)
     if shape is not None:
         axes = dict(zip(AXES, shape))
@@ -104,4 +96,5 @@ def resolve_serving_plan(config, devices=None) -> ServingPlan:
                 "cache (the verify forward reads the cache as bf16 context)")
     return ServingPlan(runner=_RUNNERS[(config.kv_layout, spec)],
                        kv_layout=config.kv_layout, kv_dtype=config.kv_dtype,
+                       quantize=config.quantize,
                        mesh_shape=config.mesh_shape, spec=spec)

@@ -61,7 +61,8 @@ from crowdllama_tpu_torch.models import transformer as T
 from crowdllama_tpu_torch.models.config import ModelConfig
 from crowdllama_tpu_torch.ops.attention import decode_attention, prefill_attention
 from crowdllama_tpu_torch.ops.megastep import NO_BUDGET, run_decode_megastep
-from crowdllama_tpu_torch.ops.quant import quantize_kv
+from crowdllama_tpu_torch.ops.quant import MODES as QUANT_MODES
+from crowdllama_tpu_torch.ops.quant import quantize_kv, quantize_params
 from crowdllama_tpu_torch.parallel.mesh import Mesh, build_mesh
 from crowdllama_tpu_torch.parallel.sharding import shard_params
 
@@ -146,10 +147,12 @@ class ModelRunner:
                  dtype: torch.dtype = torch.bfloat16, seed: int = 0,
                  device: torch.device | str | None = None,
                  kv_dtype: str = "bf16", mesh_shape: str = "",
-                 devices: list | None = None):
+                 devices: list | None = None, quantize: str = ""):
         if kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"kv_dtype must be 'bf16' or 'int8', got {kv_dtype!r}")
+        if quantize not in ("", *QUANT_MODES):
+            raise ValueError(f"unknown quantization mode {quantize!r}")
         self.kv_dtype = kv_dtype
         self.cfg = cfg
         self.mesh = self._build_mesh(mesh_shape, device, devices)
@@ -160,11 +163,19 @@ class ModelRunner:
         self.tp = self.mesh.tp
         self.max_slots = max_slots
         self.max_seq = max_seq or cfg.max_context_length
+        # Under tp the full weights are made (or quantized) on the host,
+        # so no card ever holds more than its ranks' slices.
+        home = self.device if self.tp == 1 else "cpu"
         if params is None:
-            # Under tp the full random init is made on the host, so no
-            # card ever holds more than its ranks' slices.
-            params = init_params(cfg, seed, dtype=dtype, device=(
-                self.device if self.tp == 1 else "cpu"))
+            # Quantized weights are born quantized: the full-precision
+            # tree never exists.
+            params = init_params(cfg, seed, dtype=dtype, device=home,
+                                 quantize=quantize)
+        elif quantize:
+            # Given weights are quantized on the card at tp=1, else where
+            # they are (the ranks then copy their slices).
+            params = quantize_params(params, mode=quantize, device=(
+                self.device if self.tp == 1 else None))
         #: the per-rank parameter dicts (one on one device); the full dict
         #: is not kept
         self.params = shard_params(params, cfg, self.mesh)

@@ -32,6 +32,7 @@ import torch
 
 from crowdllama_tpu_torch.models import transformer as T
 from crowdllama_tpu_torch.models.config import ModelConfig, RopeScaling
+from crowdllama_tpu_torch.ops.quant import random_quantized_params
 
 log = logging.getLogger("crowdllama.torch.engine.weights")
 
@@ -48,9 +49,15 @@ _ST_NAMES = {np.dtype(v): k for k, v in _ST_DTYPES.items() if k != "BF16"}
 
 def init_params(cfg: ModelConfig, seed: int = 0,
                 dtype: torch.dtype = torch.bfloat16,
-                device: torch.device | str = "cpu") -> dict:
-    """Random weights made on ``device`` from ``torch.Generator(seed)``."""
+                device: torch.device | str = "cpu",
+                quantize: str = "") -> dict:
+    """Random weights made on ``device`` from ``torch.Generator(seed)``;
+    with ``quantize`` born quantized (``ops/quant.py
+    random_quantized_params``: no full-precision tree)."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    if quantize:
+        return random_quantized_params(cfg, gen, dtype=dtype, mode=quantize,
+                                       device=device)
     return T.init_params(cfg, gen, dtype=dtype, device=device)
 
 
@@ -59,19 +66,48 @@ def params_from_numpy(flat: dict[str, np.ndarray],
                       device: torch.device | str = "cpu") -> dict:
     """Rebuild the parameter dict from the JAX package's flat ``/``-joined
     names (``layers/wq``, ``embed``, ...: its ``_flatten_params``), casting
-    to ``dtype`` on ``device``.  The full dict serves a one-device runner
-    as it is; a tensor-parallel runner slices it per rank
+    to ``dtype`` on ``device``.  A quantized weight comes as the JAX
+    ``QTensor``'s / ``QTensor4``'s fields, ``<name>/q`` (int8) and
+    ``<name>/s`` (its scales, bf16 as ``ml_dtypes.bfloat16``), and becomes
+    the port's class with both kept in their own dtypes (a ``QTensor4``
+    when ``s`` has the rank of ``q``).  The full dict serves a one-device
+    runner as it is; a tensor-parallel runner slices it per rank
     (``parallel/sharding.py shard_params``)."""
+    from crowdllama_tpu_torch.ops.quant import QTensor, QTensor4
+
     params: dict = {}
+    quantized = []
     for name, arr in flat.items():
         node = params
         *parents, leaf = name.split("/")
         for p in parents:
             node = node.setdefault(p, {})
-        value = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(
-            np.array(arr))
-        node[leaf] = value.to(device=device, dtype=dtype)
+        value = _host_tensor(arr)
+        if leaf in ("q", "s") and parents:
+            node[leaf] = value.to(device=device)
+            quantized.append(parents)
+        else:
+            node[leaf] = value.to(device=device, dtype=dtype)
+    for parents in quantized:
+        *up, key = parents
+        node = params
+        for p in up:
+            node = node[p]
+        if isinstance(node[key], dict):
+            q, s = node[key]["q"], node[key]["s"]
+            node[key] = (QTensor4 if s.dim() == q.dim() else QTensor)(q=q, s=s)
     return params
+
+
+def _host_tensor(arr) -> torch.Tensor:
+    """A numpy array (``ml_dtypes.bfloat16`` as ``torch.bfloat16``) or a
+    tensor, as a host tensor of its own dtype."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 # ---------------------------------------------------------------- safetensors
@@ -397,15 +433,16 @@ def resolve_clamped_model_config(config) -> ModelConfig:
 def load_params_for(config, cfg: ModelConfig,
                     dtype: torch.dtype = torch.bfloat16,
                     device: torch.device | str = "cpu") -> dict:
-    """Load-or-init for a node Configuration, as the engine does.
-    Quantized weights are refused, as the serving plan refuses them."""
+    """Load-or-init for a node Configuration, then its weight-only
+    quantization (``config.quantize``), as the engine does; quantized
+    leaves stay where the weights were loaded, leaf by leaf."""
+    params = load_or_init_params(cfg, config.model_path, dtype=dtype,
+                                 device=device)
     if config.quantize:
-        raise NotImplementedError(
-            f"quantize={config.quantize!r} is not ported to "
-            f"crowdllama_tpu_torch yet: quantized weights (ROADMAP Queue 1 "
-            f"item 10)")
-    return load_or_init_params(cfg, config.model_path, dtype=dtype,
-                               device=device)
+        from crowdllama_tpu_torch.ops.quant import quantize_params
+
+        params = quantize_params(params, mode=config.quantize)
+    return params
 
 
 def resolve_model_config(name: str, model_path: str = "",

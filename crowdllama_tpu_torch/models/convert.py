@@ -1,15 +1,18 @@
 """HF checkpoint tensors -> the port's parameter dict.
 
 Counterpart of ``crowdllama_tpu/models/convert.py``: maps the
-``transformers`` state-dict names of the dense families the port serves
-(Llama, Mistral, Qwen2 with its q/k/v biases, Qwen3 with ``q_norm`` /
-``k_norm``, Gemma-2 with its four norms) onto the stacked-layer dict of
+``transformers`` state-dict names of the families the port serves (Llama,
+Mistral, Qwen2 with its q/k/v biases, Qwen3 with ``q_norm`` / ``k_norm``,
+Gemma-2 with its four norms, Mixtral's ``block_sparse_moe`` router and
+experts ``w1`` / ``w2`` / ``w3``) onto the stacked-layer dict of
 ``models/transformer.py``.  Projections are stored ``[out, in]`` by HF and
 ``[in, out]`` here, so each is transposed; every per-layer tensor is
-stacked on a new leading axis.  A tensor is converted to ``dtype`` on its
-own before the stack, so the only full-size copy is the stacked result.
-Mixture-of-experts checkpoints (``block_sparse_moe.*``) raise.
-:func:`hf_state_dict` is the inverse: the HF names of a parameter dict.
+stacked on a new leading axis (and an expert bank's experts on the next).
+A tensor is converted to ``dtype`` on its own before the stack, so the
+only full-size copy is the stacked result.  As in the JAX package, every
+MoE config reads Mixtral's names (a Qwen3-MoE checkpoint's ``mlp.experts``
+names are not read).  :func:`hf_state_dict` is the inverse: the HF names
+of a parameter dict.
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ from crowdllama_tpu_torch.models.config import ModelConfig
 
 TensorSource = Callable[[str], torch.Tensor]
 
-_MOE_ITEM = "mixture-of-experts layers (ROADMAP Queue 1 item 7)"
+# Mixtral's expert projections: (our name, HF's).
+_EXPERTS = (("w_gate", "w1"), ("w_down", "w2"), ("w_up", "w3"))
+_MOE = "model.layers.{i}.block_sparse_moe."
 
 
 def params_from_hf(cfg: ModelConfig, get: TensorSource,
@@ -30,11 +35,6 @@ def params_from_hf(cfg: ModelConfig, get: TensorSource,
     """The parameter dict, pulling each tensor from ``get(name)`` (a lazy
     safetensors reader, or :func:`state_dict_source` over a state dict),
     on the host in ``dtype``."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.num_experts}-expert checkpoints "
-            f"(model.layers.*.block_sparse_moe.*) are not ported to "
-            f"crowdllama_tpu_torch yet: {_MOE_ITEM}")
     nl = cfg.num_layers
 
     def one(name: str, transpose: bool) -> torch.Tensor:
@@ -69,10 +69,19 @@ def params_from_hf(cfg: ModelConfig, get: TensorSource,
     else:
         layers["ln2"] = stack(
             "model.layers.{i}.post_attention_layernorm.weight", False)
-    mlp = "model.layers.{i}.mlp."
-    layers["w_gate"] = stack(mlp + "gate_proj.weight")
-    layers["w_up"] = stack(mlp + "up_proj.weight")
-    layers["w_down"] = stack(mlp + "down_proj.weight")
+    if cfg.is_moe:
+        layers["router"] = stack(_MOE + "gate.weight")
+        for ours, theirs in _EXPERTS:
+            layers[ours] = torch.stack([
+                torch.stack([one(_MOE.format(i=i) + f"experts.{x}.{theirs}"
+                                 ".weight", True)
+                             for x in range(cfg.num_experts)])
+                for i in range(nl)])
+    else:
+        mlp = "model.layers.{i}.mlp."
+        layers["w_gate"] = stack(mlp + "gate_proj.weight")
+        layers["w_up"] = stack(mlp + "up_proj.weight")
+        layers["w_down"] = stack(mlp + "down_proj.weight")
 
     params: dict = {
         "embed": one("model.embed_tokens.weight", False).contiguous(),
@@ -98,8 +107,6 @@ def hf_state_dict(cfg: ModelConfig, params: dict) -> dict[str, torch.Tensor]:
     """The HF state dict of a parameter dict (projections transposed back
     to ``[out, in]``, the layer stack split), on the host; the inverse of
     :func:`params_from_hf`."""
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: {_MOE_ITEM}")
     names = {"wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
              "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
              "bq": "self_attn.q_proj.bias", "bk": "self_attn.k_proj.bias",
@@ -118,9 +125,16 @@ def hf_state_dict(cfg: ModelConfig, params: dict) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {
         "model.embed_tokens.weight": params["embed"].detach().cpu(),
         "model.norm.weight": params["final_norm"].detach().cpu()}
+    experts = dict(_EXPERTS) if cfg.is_moe else {}
+    names["router"] = "block_sparse_moe.gate.weight"
     for key, stacked in params["layers"].items():
         for i in range(cfg.num_layers):
             t = stacked[i].detach().cpu()
+            if key in experts:
+                for x in range(cfg.num_experts):
+                    out[_MOE.format(i=i) + f"experts.{x}.{experts[key]}"
+                        ".weight"] = t[x].t().contiguous()
+                continue
             out[f"model.layers.{i}.{names[key]}"] = (
                 t.t().contiguous() if t.dim() == 2 else t.clone())
     if not cfg.tie_word_embeddings:

@@ -1,4 +1,4 @@
-"""The dense decoder core (Llama / Gemma-2 / Qwen / Mistral switches).
+"""The decoder core (Llama / Gemma-2 / Qwen / Mistral / Mixtral switches).
 
 Counterpart of ``crowdllama_tpu/models/transformer.py``: plain functions
 over a parameter dict whose layer weights are stacked on a leading layer
@@ -6,7 +6,20 @@ axis (``params["layers"][name]`` is ``[L, ...]``), the same names and
 shapes as the JAX package's pytree, so weights cross between the packages
 through numpy (``engine/weights.py params_from_numpy``).  The JAX layer
 ``scan`` becomes a Python loop over layers.  Weights are bf16 on the card;
-norms and softmax accumulate in fp32.  MoE layers are not ported yet.
+norms and softmax accumulate in fp32.
+
+Weight products go through :func:`qmatmul` (the JAX package's
+``qeinsum``): a plain weight is a ``torch.matmul``; a quantized one
+(``ops/quant.py QTensor`` / ``QTensor4``) goes through kernel G on the
+card (``ops/cuda/gemm.py``, dequantising in the kernel) and through its
+plain version on the CPU.  Mixture-of-experts layers (Mixtral, Qwen3-MoE)
+route each token to its top-k experts (:func:`_route_topk`) and run the
+experts as grouped products over the tokens sorted by expert
+(:func:`_moe_sorted`, kernel G), or over every expert
+(:func:`_moe_dense`, ``moe_dispatch="dense"``, the oracle); neither reads
+a routing value on the host.  A check that holds the kernel route
+against the plain one swaps this module's ``grouped_gemm`` for
+``grouped_gemm_plain`` (both products look it up at each call).
 
 Tensor parallelism: the forward functions take ``shards``, the list of
 per-rank parameter dicts that ``parallel/sharding.py shard_params`` makes
@@ -33,8 +46,9 @@ from crowdllama_tpu_torch.ops.attention import (
     prefill_attention,
     prefill_attention_ctx,
 )
+from crowdllama_tpu_torch.ops.cuda.gemm import grouped_gemm
 from crowdllama_tpu_torch.ops.norms import rms_norm
-from crowdllama_tpu_torch.ops.quant import quantize_kv
+from crowdllama_tpu_torch.ops.quant import QTensor, qeinsum, quantize_kv
 from crowdllama_tpu_torch.ops.rope import apply_rope, rope_table
 from crowdllama_tpu_torch.parallel.sharding import (
     row_parallel_sum,
@@ -44,14 +58,21 @@ from crowdllama_tpu_torch.parallel.sharding import (
 
 Params = dict[str, Any]
 
+def qmatmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]``: ``torch.matmul`` for a plain weight,
+    kernel G (one expert over every row) for a quantized one."""
+    if not isinstance(w, QTensor):
+        return x @ w
+    lead = x.shape[:-1]
+    y = grouped_gemm(x.reshape(-1, x.shape[-1]).contiguous(), w)
+    return y.reshape(*lead, y.shape[-1])
+
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16,
                 device: torch.device | str = "cpu") -> Params:
     """Random-init a parameter dict (layers stacked on axis 0) from
     ``generator`` (which must live on ``device``)."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
     dh = cfg.resolved_head_dim()
     d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     h, hkv, nl = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers
@@ -73,15 +94,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "wk": dense(nl, d, hkv * dh, fan_in=d),
         "wv": dense(nl, d, hkv * dh, fan_in=d),
         "wo": dense(nl, h * dh, d, fan_in=h * dh),
-        "w_gate": dense(nl, d, f, fan_in=d),
-        "w_up": dense(nl, d, f, fan_in=d),
-        "w_down": dense(nl, f, d, fan_in=f),
     }
     if cfg.attn_qkv_bias:  # Qwen2/2.5
         layers.update(bq=zeros(nl, h * dh), bk=zeros(nl, hkv * dh),
                       bv=zeros(nl, hkv * dh))
     if cfg.qk_norm:  # Qwen3
         layers.update(q_norm=ones(nl, dh), k_norm=ones(nl, dh))
+    if cfg.is_moe:
+        e = cfg.num_experts
+        layers["router"] = dense(nl, d, e, fan_in=d)
+        layers["w_gate"] = dense(nl, e, d, f, fan_in=d)
+        layers["w_up"] = dense(nl, e, d, f, fan_in=d)
+        layers["w_down"] = dense(nl, e, f, d, fan_in=f)
+    else:
+        layers["w_gate"] = dense(nl, d, f, fan_in=d)
+        layers["w_up"] = dense(nl, d, f, fan_in=d)
+        layers["w_down"] = dense(nl, f, d, fan_in=f)
     if cfg.post_norms:
         layers.update(post_ln1=ones(nl, d), post_ln2=ones(nl, d))
     params: Params = {"embed": dense(v, d, fan_in=d), "layers": layers,
@@ -155,8 +183,9 @@ def _unembed(shards: list[Params], cfg: ModelConfig,
         xr = x.to(p["embed"].device)
         if cfg.tie_word_embeddings:
             parts.append(xr @ p["embed"].float().T)
-        else:
-            parts.append(xr @ p["lm_head"].float())
+        else:  # a quantized lm_head dequantised, as JAX's qeinsum
+            parts.append(qeinsum("...d,dv->...v", xr, p["lm_head"],
+                                 dtype=torch.float32))
     logits = vocab_gather(parts)
     if cfg.final_logit_softcap > 0:
         cap = cfg.final_logit_softcap
@@ -166,18 +195,100 @@ def _unembed(shards: list[Params], cfg: ModelConfig,
 
 def _mlp(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Dense SwiGLU (Llama) / GeGLU-tanh (Gemma) MLP. x: [..., D]."""
-    gate = x @ lp["w_gate"]
-    up = x @ lp["w_up"]
+    gate = qmatmul(x, lp["w_gate"])
+    up = qmatmul(x, lp["w_up"])
     act = (F.gelu(gate, approximate="tanh") if cfg.family == "gemma2"
            else F.silu(gate))
-    return (act * up) @ lp["w_down"]
+    return qmatmul(act * up, lp["w_down"])
+
+
+def _route_topk(lp: Params, cfg: ModelConfig, x: torch.Tensor):
+    """Router top-k: (weights [..., K] fp32 softmaxed, expert ids [..., K]
+    int64).  A stable descending sort keeps ``lax.top_k``'s order on
+    ties (the lower expert id first)."""
+    logits = x.float() @ lp["router"].float()
+    top, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
+    k = cfg.num_experts_per_tok
+    return torch.softmax(top[..., :k], dim=-1), ids[..., :k]
+
+
+def _expert_ffn(lp: Params, xs: torch.Tensor,
+                offsets: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over rows grouped by expert (``offsets``
+    [E + 1] int32 on the device): three grouped products."""
+    gate = grouped_gemm(xs, lp["w_gate"], offsets)
+    up = grouped_gemm(xs, lp["w_up"], offsets)
+    act = (F.silu(gate) * up).to(xs.dtype)
+    return grouped_gemm(act, lp["w_down"], offsets)
+
+
+def _moe_dense(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Every expert on every token, weighted by the router's top-k
+    (``moe_dispatch="dense"``; the oracle of :func:`_moe_sorted`, E / K
+    times its products).  The tokens are repeated once per expert and run
+    as one grouped product of E equal groups."""
+    e = cfg.num_experts
+    topw, topi = _route_topk(lp, cfg, x)
+    experts = torch.arange(e, device=x.device)
+    one_hot = (topi[..., None] == experts).float()            # [..., K, E]
+    weights = torch.einsum("...ke,...k->...e", one_hot, topw)
+    xf = x.reshape(-1, x.shape[-1])
+    n = xf.shape[0]
+    offsets = torch.arange(e + 1, device=x.device, dtype=torch.int32) * n
+    per = _expert_ffn(lp, xf.repeat(e, 1).contiguous(), offsets)
+    per = per.float().reshape(e, n, -1)                      # [E, N, D]
+    out = torch.einsum("end,ne->nd", per, weights.reshape(n, e))
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _moe_sorted(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Sorted token-grouping MoE dispatch: the N * K (token, expert) pairs
+    sorted by expert (stable, as ``jnp.argsort``), each token row computed
+    for exactly its K experts by grouped products, the rows weighted by
+    their fp32 router weights and summed per token in ascending expert
+    order, the order of the JAX function's scatter-add (so any K gives
+    its sums; for K = 2 the order cannot matter).  Group sizes come from
+    a comparison sum and offsets from a cumsum, on the device."""
+    shape = x.shape
+    d = shape[-1]
+    xf = x.reshape(-1, d)
+    n, k, e = xf.shape[0], cfg.num_experts_per_tok, cfg.num_experts
+    topw, topi = _route_topk(lp, cfg, xf)                     # [N, K]
+    e_flat = topi.reshape(-1)                                 # [NK]
+    order = torch.argsort(e_flat, stable=True)
+    xs = xf.index_select(0, order // k)                       # [NK, D]
+    experts = torch.arange(e, device=x.device)
+    sizes = (e_flat[:, None] == experts).sum(0)
+    offsets = F.pad(torch.cumsum(sizes, 0), (1, 0)).to(torch.int32)
+    ys = _expert_ffn(lp, xs, offsets)                         # [NK, D]
+    contrib = ys.float() * topw.reshape(-1)[order][:, None]
+    per = torch.empty_like(contrib).index_copy_(0, order, contrib)
+    per = per.reshape(n, k, d)
+    by_expert = torch.argsort(topi, dim=-1, stable=True)      # [N, K]
+    per = per.gather(1, by_expert[..., None].expand(n, k, d))
+    out = per[:, 0]
+    for j in range(1, k):
+        out = out + per[:, j]
+    return out.reshape(shape).to(x.dtype)
+
+
+def _moe(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Top-k MoE, x [..., D]; dispatches per ``cfg.moe_dispatch``."""
+    if cfg.moe_dispatch == "dense":
+        return _moe_dense(lp, cfg, x)
+    return _moe_sorted(lp, cfg, x)
+
+
+def _ffn(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    return _moe(lp, cfg, x) if cfg.is_moe else _mlp(lp, cfg, x)
 
 
 def _qkv(lp: Params, cfg: ModelConfig, h: torch.Tensor):
     """Projections (+ Qwen bias / qk-norm) for h [..., D] -> q [..., H, Dh],
     k/v [..., Hkv, Dh]."""
     dh = cfg.resolved_head_dim()
-    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    q, k, v = (qmatmul(h, lp["wq"]), qmatmul(h, lp["wk"]),
+               qmatmul(h, lp["wv"]))
     if "bq" in lp:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     lead = h.shape[:-1]  # heads: all, or a tp rank's share
@@ -194,12 +305,13 @@ def _residual_tail(lps: list[Params], cfg: ModelConfig, x: torch.Tensor,
                    attns: list[torch.Tensor]) -> torch.Tensor:
     """Output projection, residuals and MLP after attention; ``lps`` and
     ``attns`` per rank (the two row-parallel products summed over ranks)."""
-    attn = row_parallel_sum([a @ lp["wo"] for a, lp in zip(attns, lps)])
+    attn = row_parallel_sum([qmatmul(a, lp["wo"])
+                             for a, lp in zip(attns, lps)])
     if cfg.post_norms:
         attn = _norm(attn, lps[0]["post_ln1"], cfg, plus_one=True)
     x = x + attn
     h = _norm(x, lps[0]["ln2"], cfg)
-    mlp_out = row_parallel_sum([_mlp(lp, cfg, h.to(lp["w_down"].device))
+    mlp_out = row_parallel_sum([_ffn(lp, cfg, h.to(lp["w_down"].device))
                                 for lp in lps])
     if cfg.post_norms:
         mlp_out = _norm(mlp_out, lps[0]["post_ln2"], cfg, plus_one=True)

@@ -42,8 +42,9 @@ CUDA_ROOTS = ("/usr/local/cuda",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every kernel entry: library -> {symbol: argtypes}.  Every
-# entry ends with the head dim (``dh``, 64 or 128: each kernel is compiled
-# for both) and the stream.
+# attention entry ends with the head dim (``dh``, 64 or 128: each kernel is
+# compiled for both) and the stream; kernel G's entries (one a weight
+# format) end with the stream.
 SIGNATURES: dict[str, dict[str, list]] = {
     "flash_prefill": {
         # q, k, v, positions, kv_valid, out, B, T, H, Hkv, scale, softcap,
@@ -85,6 +86,12 @@ SIGNATURES: dict[str, dict[str, list]] = {
                          _F, _I, _I, _P],
         "ragged_chunk_i8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _F, _F, _I, _I, _P],
+    },
+    "grouped_gemm": {
+        # x, w, scale, offsets, y, M, K, N, E, groups, msplit, stream
+        "grouped_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "grouped_gemm_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "grouped_gemm_i4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -166,6 +173,9 @@ _KERNEL_RE = re.compile(
 # The element type of a kernel templated on the head dim alone: bf16 but
 # for these.
 _UNTYPED_DTYPE = {"prefill_simt_kernel": "fp32"}
+# Kernels whose one integer template argument is a weight format, not a
+# head dim: their rows carry the format as ``dtype`` and no ``dh``.
+_FORMAT_KERNELS = {"grouped_gemm_kernel": ("bf16", "int8", "int4")}
 
 
 def ptxas_usage(name: str) -> list[dict]:
@@ -178,12 +188,16 @@ def ptxas_usage(name: str) -> list[dict]:
     for line in _log_path(name).read_text().splitlines():
         if "Compiling entry function" in line:
             m = _KERNEL_RE.search(line)
-            cur = None if m is None else {
-                "kernel": m.group(1),
-                "dtype": ("int8" if m.group(2) else
-                          "fp32" if m.group(3) else
-                          _UNTYPED_DTYPE.get(m.group(1), "bf16")),
-                "dh": int(m.group(4))}
+            if m is not None and m.group(1) in _FORMAT_KERNELS:
+                cur = {"kernel": m.group(1), "dh": None,
+                       "dtype": _FORMAT_KERNELS[m.group(1)][int(m.group(4))]}
+            else:
+                cur = None if m is None else {
+                    "kernel": m.group(1),
+                    "dtype": ("int8" if m.group(2) else
+                              "fp32" if m.group(3) else
+                              _UNTYPED_DTYPE.get(m.group(1), "bf16")),
+                    "dh": int(m.group(4))}
         elif cur is not None and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
             cur.update(stack=nums[0], spill_stores=nums[1],

@@ -5,9 +5,16 @@ axis: Megatron-style tensor parallelism with the JAX package's rules.
 Attention QKV (and the Qwen biases) and MLP gate/up are column-parallel
 (output dim on tp), attention output and MLP down row-parallel (input dim
 on tp), the embedding and the LM head vocab-sharded, norms replicated.
+MoE layers keep the router replicated and split every expert on F (gate
+and up column-parallel, down row-parallel), so each rank routes every
+token itself and its partial expert sums join the row-parallel sum.
 Query heads shard in kv-major order, so rank r holds kv heads
 ``[r * Hkv/tp, (r + 1) * Hkv/tp)`` and exactly the query heads that read
-them.
+them.  A quantized leaf (``ops/quant.py QTensor``) slices its values like
+the weight and its per-channel scales like the weight without its input
+axis; a ``QTensor4``'s group scales follow the weight's axes where they
+divide and are otherwise replicated (a slice of the packed output axis
+keeps nibble pairs whole).
 
 The JAX package leaves the collectives to GSPMD.  The port runs every
 shard from one process, so it writes them out:
@@ -19,8 +26,8 @@ shard from one process, so it writes them out:
 - :func:`vocab_gather`: the gather of vocab-sharded logits.
 
 Each returns its single input as it is when there is one shard, so a tp=1
-model (a list of one parameter dict) runs no extra operation.  MoE and pipeline (ep, pp) rules are not
-ported yet.
+model (a list of one parameter dict) runs no extra operation.  The
+expert-parallel and pipeline (ep, pp) rules are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +37,11 @@ from typing import Any
 import torch
 
 from crowdllama_tpu_torch.models.config import ModelConfig
+from crowdllama_tpu_torch.ops.quant import (
+    QTensor,
+    QTensor4,
+    drop_input_axis_spec,
+)
 from crowdllama_tpu_torch.parallel.mesh import AXIS_TP, Mesh
 
 Params = dict[str, Any]
@@ -39,14 +51,17 @@ def param_pspecs(cfg: ModelConfig) -> Params:
     """Per-leaf partition tuples mirroring ``models.transformer.
     init_params`` (layer leaves carry their leading layer axis); only the
     tp axis is named."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE partition rules are not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
     col = (None, None, AXIS_TP)   # [L, D, out] column-parallel
     row = (None, AXIS_TP, None)   # [L, in, D] row-parallel
     layers: Params = {"ln1": (None, None), "ln2": (None, None),
-                      "wq": col, "wk": col, "wv": col, "wo": row,
-                      "w_gate": col, "w_up": col, "w_down": row}
+                      "wq": col, "wk": col, "wv": col, "wo": row}
+    if cfg.is_moe:  # [L, E, D, F] / [L, E, F, D], experts split on F
+        layers.update(router=(None, None, None),
+                      w_gate=(None, None, None, AXIS_TP),
+                      w_up=(None, None, None, AXIS_TP),
+                      w_down=(None, None, AXIS_TP, None))
+    else:
+        layers.update(w_gate=col, w_up=col, w_down=row)
     if cfg.attn_qkv_bias:  # [L, out] follows the column-parallel dim
         layers.update(bq=(None, AXIS_TP), bk=(None, AXIS_TP),
                       bv=(None, AXIS_TP))
@@ -61,10 +76,12 @@ def param_pspecs(cfg: ModelConfig) -> Params:
     return specs
 
 
-def _slice_to(x: torch.Tensor, spec: tuple, rank: int, tp: int,
-              device: torch.device) -> torch.Tensor:
+def _slice_to(x, spec: tuple, rank: int, tp: int, device: torch.device):
     """Rank ``rank``'s slice of ``x`` under ``spec`` as a contiguous copy on
-    ``device`` (replicated leaves are copied whole)."""
+    ``device`` (replicated leaves are copied whole); a quantized leaf is
+    sliced by :func:`_slice_quantized`."""
+    if isinstance(x, QTensor):
+        return _slice_quantized(x, spec, rank, tp, device)
     if AXIS_TP in spec:
         dim = spec.index(AXIS_TP)
         n = x.shape[dim]
@@ -75,6 +92,28 @@ def _slice_to(x: torch.Tensor, spec: tuple, rank: int, tp: int,
     out = torch.empty(x.shape, dtype=x.dtype, device=device)
     out.copy_(x)
     return out
+
+
+def _slice_quantized(w: QTensor, spec: tuple, rank: int, tp: int,
+                     device: torch.device) -> QTensor:
+    """A quantized leaf's slice: ``q`` under the weight's spec (the packed
+    axis of int4 splits in whole bytes); int8 scales under the spec
+    without the input axis; int4 group scales under the weight's spec
+    where their axis divides over tp, else whole (which keeps each rank's
+    groups only when there is one group)."""
+    q = _slice_to(w.q, spec, rank, tp, device)
+    nd = w.q.dim()
+    if not isinstance(w, QTensor4):
+        s_spec = drop_input_axis_spec(spec, nd)
+    else:
+        axes = tuple(spec) + (None,) * (nd - len(spec))
+        s_spec = tuple(ax if ax is None or n % tp == 0 else None
+                       for n, ax in zip(w.s.shape, axes))
+        if axes[-2] is not None and s_spec[-2] is None and w.s.shape[-2] > 1:
+            raise ValueError(
+                f"int4 scales of {w.s.shape[-2]} groups do not split over "
+                f"tp={tp} with the weight's input axis")
+    return type(w)(q=q, s=_slice_to(w.s, s_spec, rank, tp, device))
 
 
 def _tree_map(fn, tree: Params, specs: Params | None = None) -> Params:

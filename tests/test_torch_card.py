@@ -35,9 +35,14 @@ summation order, atol 2e-2 + rtol 1e-2.  The fp32 entries of A and D
 padding, softcap, windows, all-masked rows (zeros), zero-length slots and
 D's split edges, against the plain versions on fp32 inputs at atol 1e-5 +
 rtol 1e-5 (fp32 summation order only); A's ``PrefillAttention`` gradient
-equal to the plain function's.
+equal to the plain function's.  Kernel G (the grouped GEMM over bf16,
+int8 and int4 expert banks) against its plain version within 0.0156 of
+the output's scale: groups left empty, every row on one expert, groups
+longer than a 64-row pass, an empty bank, the dense product (E 1); its
+refusals of operands it does not take.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -603,6 +608,9 @@ def test_builds_report_no_spills(cuda_device):
     assert {(r["kernel"], r["dh"]) for r in rows if r["dtype"] == "fp32"} >= {
         (k, dh) for dh in (64, 128)
         for k in ("flash_decode_kernel", "prefill_simt_kernel")}
+    assert {r["dtype"] for r in rows
+            if r["kernel"] == "grouped_gemm_kernel"} == {"bf16", "int8",
+                                                         "int4"}
     spills = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
     assert not spills, spills
 
@@ -963,3 +971,84 @@ def test_prefill_fp32_gradient_is_the_plain_gradient_on_card(cuda_device):
                                (q, k, v), g)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **F32_TOL)
+
+
+# ------------------------------------------------------------ kernel G
+
+GEMM_CASES = [
+    # (rows per expert, K, N): decode spreads with empty experts, every row
+    # on one expert, a pass and a half (96 rows), blocks sharing passes.
+    ([3, 0, 5, 0, 2, 6, 0, 0], 256, 512),
+    ([16, 0, 0, 0, 0, 0, 0, 0], 256, 512),
+    ([70, 0, 129, 1], 512, 192),
+    ([0, 0, 0, 0], 128, 128),
+    ([300, 212, 0, 500], 128, 64),
+    (None, 4096, 1024),       # dense (E 1) at 8 rows
+    (None, 256, 256),         # dense at 512 rows
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("case", range(len(GEMM_CASES)))
+def test_grouped_gemm_matches_plain_on_card(cuda_device, fmt, case):
+    """Kernel G against its plain version on the same bank: within 0.0156
+    of the output's scale (one bf16 rounding of the output plus fp32
+    order noise); the launch counted under its format; an empty bank
+    writes nothing and reads nothing."""
+    from crowdllama_tpu_torch.ops.cuda.gemm import (
+        grouped_gemm,
+        grouped_gemm_plain,
+    )
+    from crowdllama_tpu_torch.ops.quant import (
+        quantize_weight,
+        quantize_weight_int4,
+    )
+
+    sizes, k, n = GEMM_CASES[case]
+    gen, bf = _card_case(cuda_device)
+    e = 1 if sizes is None else len(sizes)
+    m = (8 if k == 4096 else 512) if sizes is None else sum(sizes)
+    w = (torch.randn((e, k, n), generator=gen, device=cuda_device)
+         / k ** 0.5).to(torch.bfloat16)
+    if sizes is None:
+        w = w[0]
+    w = {"bf16": lambda t: t, "int8": quantize_weight,
+         "int4": quantize_weight_int4}[fmt](w)
+    x = torch.randn((m, k), generator=gen, **bf)
+    off = None if sizes is None else torch.tensor(
+        [0] + list(np.cumsum(sizes)), dtype=torch.int32, device=cuda_device)
+    attr = {"bf16": "launches", "int8": "launches_int8",
+            "int4": "launches_int4"}[fmt]
+    before = getattr(grouped_gemm, attr)
+    got = grouped_gemm(x, w, off)
+    want = grouped_gemm_plain(x, w, off)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert getattr(grouped_gemm, attr) == before + (1 if m else 0)
+    if m:
+        err = (got.float() - want.float()).abs().max()
+        assert float(err) <= 0.0156 * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_refuses_what_it_does_not_take(cuda_device):
+    """No fallback: operands the kernel does not take raise."""
+    from crowdllama_tpu_torch.ops.cuda.gemm import grouped_gemm
+    from crowdllama_tpu_torch.ops.quant import quantize_weight
+
+    gen, bf = _card_case(cuda_device)
+    w = torch.randn((2, 128, 128), generator=gen, **bf)
+    off = torch.tensor([0, 3, 8], dtype=torch.int32, device=cuda_device)
+    x = torch.randn((8, 128), generator=gen, **bf)
+    with pytest.raises(ValueError, match="bf16"):
+        grouped_gemm(x.float(), w, off)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        grouped_gemm(x[:, :96].contiguous(), w[:, :96].contiguous(), off)
+    with pytest.raises(ValueError, match="offsets"):
+        grouped_gemm(x, w, off.long())
+    with pytest.raises(ValueError, match="needs offsets"):
+        grouped_gemm(x, w)
+    q = quantize_weight(w)
+    with pytest.raises(ValueError, match="scales must be bf16"):
+        grouped_gemm(x, type(q)(q=q.q, s=q.s.float()), off)

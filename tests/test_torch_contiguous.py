@@ -298,9 +298,30 @@ async def test_chunked_admission_streams_match_jax_engine(tmp_path, layout):
 def test_unported_axes_raise_naming_the_roadmap_item(axis, value):
     """Unported axes raise naming their ROADMAP item.  int8 KV is ported:
     it resolves on both layouts, normalized and carried in the plan, and
-    an unknown KV dtype is refused.  A tp mesh is ported on the paged
+    an unknown KV dtype is refused.  Quantized weights are ported (ROADMAP
+    Queue 1 item 10): int8 and int4 resolve on both layouts, normalized
+    and carried in the plan as JAX's plan carries them, and an unknown
+    mode is refused as JAX refuses it.  A tp mesh is ported on the paged
     layout only: the contiguous layout refuses it; an sp mesh is refused
     on both."""
+    if axis == "quantize":
+        from crowdllama_tpu.config import Configuration as JConfiguration
+        from crowdllama_tpu.engine.plan import (
+            resolve_serving_plan as j_resolve_serving_plan,
+        )
+
+        for layout in ("paged", "contiguous"):
+            for mode in (value, "int4"):
+                plan = resolve_serving_plan(Configuration.from_environment(
+                    kv_layout=layout, quantize=f" {mode.upper()} "))
+                want = j_resolve_serving_plan(JConfiguration.from_environment(
+                    kv_layout=layout, quantize=f" {mode.upper()} "), 1)
+                assert (plan.kv_layout, plan.quantize) == (
+                    want.kv_layout, want.quantize) == (layout, mode)
+        for config in (Configuration, JConfiguration):
+            with pytest.raises(ValueError, match="unknown quantize mode"):
+                config.from_environment(quantize="fp8")
+        return
     if axis == "kv_dtype":
         for layout in ("paged", "contiguous"):
             plan = resolve_serving_plan(Configuration(

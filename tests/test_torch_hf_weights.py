@@ -222,25 +222,74 @@ def test_prefill_logits_match_hf_and_jax(tmp_path, model):
 
 
 def test_mixtral_directory_raises_naming_item_7(tmp_path):
-    hf = _hf_config("tiny-test-moe")
-    hf.architectures = ["MixtralForCausalLM"]
+    """A ``transformers`` ``MixtralForCausalLM`` directory (ROADMAP Queue 1
+    item 7, served since): its config is an MoE config, its tensors load
+    bit for bit as JAX's ``params_from_hf`` loads them (router and expert
+    banks ``w1`` / ``w3`` / ``w2`` into ``w_gate`` / ``w_up`` / ``w_down``),
+    ``hf_state_dict`` gives back every tensor as written, and the logits
+    are the HF model's and JAX's within 8e-3 (as the dense families')."""
+    hf_cfg = _hf_config("tiny-test-moe")
+    hf_cfg.architectures = ["MixtralForCausalLM"]
     torch.manual_seed(0)
-    transformers.MixtralForCausalLM(hf).save_pretrained(
-        str(tmp_path), safe_serialization=True)
+    hf = transformers.MixtralForCausalLM(hf_cfg)
+    hf.save_pretrained(str(tmp_path), safe_serialization=True)
     cfg = tw.config_from_hf_dir(tmp_path)
-    assert cfg.is_moe
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        tw.load_safetensors_params(cfg, tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        tw.load_or_init_params(cfg, str(tmp_path))
+    jcfg = jw.config_from_hf_dir(tmp_path)
+    assert cfg.is_moe and (cfg.num_experts, cfg.num_experts_per_tok) == (
+        jcfg.num_experts, jcfg.num_experts_per_tok) == (4, 2)
+    params = tw.load_safetensors_params(cfg, tmp_path, dtype=torch.float32)
+    jparams = jw.load_safetensors_params(jcfg, tmp_path, dtype=jnp.float32)
+    flat = tw.flatten_params(params)
+    jflat = jw._flatten_params(jparams)
+    assert set(flat) == set(jflat)
+    for name in flat:
+        np.testing.assert_array_equal(flat[name], jflat[name])
+    assert flat["layers/w_gate"].shape == (2, 4, 64, 128)
+    written = tw.read_safetensors(tmp_path / "model.safetensors")
+    back = convert.hf_state_dict(cfg, params)
+    assert set(back) == set(written)
+    for name, t in written.items():
+        assert torch.equal(back[name], t.float()), name
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24))
+    pos = np.broadcast_to(np.arange(24), (2, 24)).astype(np.int32)
+    with torch.no_grad():
+        ref = hf(torch.tensor(tokens)).logits.float().numpy()
+    got = T.prefill([params], cfg, torch.from_numpy(tokens).long(),
+                    torch.from_numpy(pos))[0].numpy()
+    want = np.asarray(JT.prefill(jparams, jcfg, jnp.asarray(tokens),
+                                 jnp.asarray(pos))[0], np.float32)
+    np.testing.assert_allclose(got, ref, atol=8e-3, rtol=0)
+    np.testing.assert_allclose(got, want, atol=8e-3, rtol=0)
 
 
 def test_quantize_stays_refused(tmp_path):
+    """``quantize`` (ROADMAP Queue 1 item 10, served since):
+    ``load_params_for`` returns the loaded weights quantized, with JAX's
+    ``load_params_for``'s structure and scales, for both modes (values:
+    ``tests/test_torch_quant.py``)."""
+    from crowdllama_tpu.config import Configuration as JConfiguration
     from crowdllama_tpu_torch.config import Configuration
+    from crowdllama_tpu_torch.ops.quant import QTensor, QTensor4
 
-    c = Configuration(model="tiny-test", quantize="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        tw.load_params_for(c, get_config("tiny-test"))
+    hf = _hf_model("tiny-test")
+    hf.save_pretrained(str(tmp_path), safe_serialization=True)
+    cfg = tw.config_from_hf_dir(tmp_path)
+    jcfg = jw.config_from_hf_dir(tmp_path)
+    for mode, cls in (("int8", QTensor), ("int4", QTensor4)):
+        got = tw.load_params_for(Configuration(
+            model="tiny-test", model_path=str(tmp_path), quantize=mode), cfg)
+        want = jw.load_params_for(JConfiguration(
+            model="tiny-test", model_path=str(tmp_path), quantize=mode), jcfg)
+        for k in ("wq", "wo", "w_gate", "w_down"):
+            assert type(got["layers"][k]) is cls
+            assert type(want["layers"][k]).__name__ == cls.__name__
+            assert tuple(got["layers"][k].q.shape) == tuple(
+                want["layers"][k].q.shape)
+            np.testing.assert_array_equal(
+                got["layers"][k].s.view(torch.uint16).numpy(),
+                np.asarray(want["layers"][k].s).view(np.uint16))
+        assert type(got["lm_head"]) is cls
+        assert got["embed"].dtype == torch.bfloat16
 
 
 # ----------------------------------------------------------------- engines
