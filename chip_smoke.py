@@ -334,6 +334,25 @@ Phases, each printing one JSON line:
    through the kernels against the plain route, the steady step and G's
    share beside ``engine_llama``'s bf16 step.
 
+15. shard_pp and shard_ep (a line each): sharded serving across workers
+   (``engine/sharded.py``), all on 127.0.0.1 in this process: a DHT node,
+   a two-member shard group (each member a ``ShardedEngine`` behind its
+   own ``Peer``, its share drawn on the card from seed 0 piece by piece,
+   never the whole tree), a consumer ``Peer`` and its ``Gateway``.
+   shard_pp: gemma-2-27b at full width cut to 8 of 46 layers (``reduced``)
+   in two pipeline stages of 4 (kernel A in each stage's prefill, D in its
+   decode, the windows sliced by global layer index); shard_ep:
+   mixtral-8x7b in bf16 at full width cut to 4 of 32 layers over two
+   expert banks of 4 (A and D on the leader, G on the banks).  Two greedy
+   ``/api/chat`` of 16 tokens, whole and streamed, and (pp) one n-gram
+   verify chat on an echo prompt; no session left after any request; the
+   leader's logits against one unsharded forward of the same weights and
+   the kernel route against the plain one within ``LOGIT_RTOL`` (ep: the
+   plain route replaying the kernel route's expert choices, flips
+   counted); TTFT, ms per decode token split into the members' device
+   time, the unembedding's and the rest, launches per token, each
+   member's start and bytes held, the serving peak.
+
 Each engine phase starts once the previous engine has stopped and its
 memory is freed; its peak memory is counted from before the engine loads
 its weights (TinyLlama's kept on the host between phases, llama-3-8b's
@@ -1346,7 +1365,7 @@ class _Routing:
                 _, own = real(lp, cfg, x)
                 self.flips += int((own.sort(-1)[0] != ids.sort(-1)[0])
                                   .any(-1).sum())
-                self.tokens += own.shape[0]
+                self.tokens += own[..., 0].numel()
                 return torch.softmax(logits.gather(-1, ids), dim=-1), ids
             return replayed
         return self._patched(route)
@@ -1595,18 +1614,22 @@ class _StreamLog(_IdRecorder):
     """``_IdRecorder`` that also keeps each stream decoder's token ids, in
     the order the streams started (``streams``, each a list of
     ``(host seconds, id)``), for streams served in tasks this script did
-    not create (the IPC server's)."""
+    not create (the IPC server's); ``on_first``, when set, is called as a
+    stream's first token arrives (its prefill is over)."""
 
-    def __init__(self, tok):
+    def __init__(self, tok, on_first=None):
         super().__init__(tok)
         self.streams: list[list] = []
+        self.on_first = on_first
 
     def stream_decoder(self):
-        dec, log = super().stream_decoder(), []
+        dec, log, first = super().stream_decoder(), [], self.on_first
         self.streams.append(log)
 
         class _Dec:
             def feed(self, token_id):
+                if not log and first is not None:
+                    first()
                 log.append((time.perf_counter(), int(token_id)))
                 return dec.feed(token_id)
 
@@ -2441,7 +2464,8 @@ def gateway_phase(dev) -> tuple[dict, dict]:
     hits, dials and handshake seconds of each batch); host us per NDJSON
     frame (the gateway's ``stream_flush`` span over its frames, and a
     render microbenchmark); the card's busy share over a 1 s
-    ``capture_profile`` while 4 streams go through the gateway.
+    ``capture_profile`` while 4 streams go through the gateway, opened on
+    the engine that serves the most of them.
     Then the long prompt through the gateway while both engines decode
     direct streams (kernel C), and last a stream whose worker is drained
     at its third chunk: it fails over to the other worker with the
@@ -2683,19 +2707,26 @@ def gateway_phase(dev) -> tuple[dict, dict]:
                 "flush_us_per_frame": flush,
                 "flush_us_per_frame_median": flush[len(flush) // 2],
                 "render_us": frame_render_us()}
-            # Busy share: a 1 s profile while 4 streams go through.
+            # Busy share: a 1 s profile while 4 streams go through, opened
+            # on the dispatch thread of the engine serving the most of
+            # them (a session records the kernels of the thread it opens
+            # on; another thread's only sometimes, see capture_profile).
             lines = [[] for _ in range(4)]
+            logs_n = [len(lg.streams) for lg in logs]
             busy_tasks = [asyncio.create_task(call(
                 "POST", "/api/chat",
                 _chat_body(p, GATEWAY_BUSY_TOKENS, True), lines[i]))
                 for i, p in enumerate(SHORT[:4])]
             while min(len(x) for x in lines) < 2:
                 await asyncio.sleep(0.01)
-            trace_dir = await engines[0].capture_profile(PROFILE_S)
+            served = [len(lg.streams) - n for lg, n in zip(logs, logs_n)]
+            profiled = served.index(max(served))
+            trace_dir = await engines[profiled].capture_profile(PROFILE_S)
             (trace,) = [os.path.join(trace_dir, f)
                         for f in os.listdir(trace_dir)]
-            out["busy"] = {"streams": 4, "trace_bytes":
-                           os.path.getsize(trace),
+            out["busy"] = {"streams": 4, "streams_by_engine": served,
+                           "profiled_engine": profiled,
+                           "trace_bytes": os.path.getsize(trace),
                            **busy_share(trace, PROFILE_S)}
             await asyncio.gather(*busy_tasks)
             # The long prompt through the gateway while both engines
@@ -6848,6 +6879,366 @@ def quant_phase(dev, bf16_steady: dict) -> None:
           "logits_rtol": LOGIT_RTOL, "card": torch.cuda.get_device_name(0)})
 
 
+# --------------------------------------------- sharded serving across workers
+
+SHARD_PP_MODEL = "gemma-2-27b"
+SHARD_PP_LAYERS = 8        # of 46: two stages of 4
+SHARD_EP_LAYERS = 4        # of Mixtral's 32, over two banks of 4 experts
+SHARD_CONTEXT = 8192
+SHARD_TOKENS = 16
+SHARD_ECHO = ECHO["echo0"][0]
+
+
+def _shard_intervals():
+    """Discovery and metadata cadences short enough that a group forms in
+    seconds (the CPU tests' test-mode values)."""
+    from crowdllama_tpu_torch.config import Intervals
+
+    return dataclasses.replace(
+        Intervals(), discovery=2.0, advertise=0.5, metadata_publish=1.0,
+        metadata_refresh=5.0, health_check=5.0, dht_provider_check=2.0,
+        backoff_base=0.5)
+
+
+def _zero_eos_params(params: dict) -> None:
+    """Zero the EOS unembedding column (the embedding row when tied), so
+    no random-weight stream stops early."""
+    from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    if "lm_head" in params:
+        params["lm_head"][:, ByteTokenizer.EOS] = 0
+    else:
+        params["embed"][ByteTokenizer.EOS] = 0
+
+
+def _tree_bytes(*trees) -> int:
+    n = 0
+    for tree in trees:
+        for v in tree.values():
+            n += _tree_bytes(v) if isinstance(v, dict) else (
+                v.numel() * v.element_size())
+    return n
+
+
+def _span_ms(spans: list) -> float:
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans)
+
+
+def shard_phase(dev, strategy: str) -> dict:
+    """Sharded serving across workers (``engine/sharded.py``) on the card,
+    every module the port's own, on 127.0.0.1: a DHT node, a two-member
+    shard group (each member a ``ShardedEngine`` behind its own ``Peer``,
+    its share drawn on the card from seed 0 piece by piece, never the
+    whole tree), a consumer ``Peer`` and its ``Gateway``.
+
+    ``pp`` (``shard_pp``): gemma-2-27b at full width (hidden 4608, 32 / 16
+    heads, Dh 128, FFN 36864, vocab 256,128; softcap 50, alternating
+    4,096-token windows sliced by global layer index, query scale
+    144^-0.5, final softcap 30) cut to 8 of 46 layers, two stages of 4:
+    prefill through kernel A, decode through kernel D in every stage.
+    ``ep`` (``shard_ep``): mixtral-8x7b in bf16 at full width cut to 4 of
+    32 layers, two banks of 4 experts (the leader also holds attention,
+    the router and the KV): A and D on the leader, the banks' products on
+    kernel G (bf16).
+
+    Traffic: two greedy ``/api/chat`` of 16 tokens, whole and streamed
+    (launch counts zeroed right before, read right after: A and D, and G
+    for ep, launch, no other); for pp, one n-gram verify chat on an echo
+    prompt (tokens per round trip).  After every request no member holds a
+    session.  Checks: the leader's last-position logits of one prompt
+    against one unsharded forward of the same weights on the card, and
+    the kernel route against the plain route (the stages' or the leader's
+    ``prefill_attn`` / ``decode_attn`` seams, G's plain version; for ep
+    the plain route replays the kernel route's expert choices and the
+    flips are counted), each within ``LOGIT_RTOL`` of the logits' scale.
+    Reports: TTFT, ms per decode token split into the members' device time
+    (CUDA events around each stage call or bank call and around the
+    leader's own steps), the unembedding's (it widens the vocab matrix to
+    fp32 at every call) and the rest (wire and host); launches per token;
+    each member's start time, bytes held and start peak, and the serving
+    peak of the process."""
+    from crowdllama_tpu_torch.config import Configuration
+    from crowdllama_tpu_torch.engine.engine import FakeEngine
+    from crowdllama_tpu_torch.engine.sharded import ShardedEngine
+    from crowdllama_tpu_torch.engine.weights import init_params_slice
+    from crowdllama_tpu_torch.gateway.gateway import Gateway
+    from crowdllama_tpu_torch.models import transformer as T
+    from crowdllama_tpu_torch.models.config import get_config
+    from crowdllama_tpu_torch.net.discovery import new_host_and_dht
+    from crowdllama_tpu_torch.ops.attention import (
+        decode_attention_ref,
+        prefill_attention_ref,
+    )
+    from crowdllama_tpu_torch.peer.peer import Peer
+    from crowdllama_tpu_torch.utils.crypto import Ed25519PrivateKey
+
+    phase = f"shard_{strategy}"
+    pp = strategy == "pp"
+    model = SHARD_PP_MODEL if pp else MIXTRAL
+    layers = SHARD_PP_LAYERS if pp else SHARD_EP_LAYERS
+    cfg = get_config(model, num_layers=layers,
+                     max_context_length=SHARD_CONTEXT)
+    group = f"{model}/{strategy}2"
+    ran = {"A", "D"} if pp else {"A", "D", "G"}
+
+    def key():
+        return Ed25519PrivateKey.generate()
+
+    async def chat(gw, prompt: str, stream: bool) -> dict:
+        body = {"model": model, "stream": stream,
+                "messages": [{"role": "user", "content": prompt}],
+                "options": {"num_predict": SHARD_TOKENS}}
+        r = await asyncio.to_thread(_http, gw.port, "POST", "/api/chat",
+                                    body)
+        if r["status"] != 200:
+            raise AssertionError(f"{phase}: /api/chat {r['status']}: "
+                                 f"{r['lines']}")
+        frames = _ndjson(r)
+        if not frames[-1].get("done"):
+            raise AssertionError(f"{phase}: stream not done: {frames[-1]}")
+        return {"t0": r["t0"], "frames": len(frames),
+                "eval_count": frames[-1].get("eval_count", 0)}
+
+    async def go() -> dict:
+        boot, _ = await new_host_and_dht(key(), listen_host="127.0.0.1")
+        node = dict(listen_host="127.0.0.1",
+                    bootstrap_peers=[f"127.0.0.1:{boot.listen_port}"],
+                    intervals=_shard_intervals())
+        started: list = []
+        out: dict = {"phase": phase, "model": model, "strategy": strategy,
+                     "reduced": {"num_layers": [layers, get_config(
+                         model).num_layers]},
+                     "context": SHARD_CONTEXT}
+        try:
+            engines, peers, members = [], [], []
+            for index in (0, 1):
+                conf = Configuration(
+                    model=model, shard_group=group, shard_index=index,
+                    shard_count=2, shard_strategy=strategy,
+                    max_context_length=SHARD_CONTEXT, **node)
+                eng = ShardedEngine(conf, device=dev, model_config=cfg)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                await eng.start()
+                torch.cuda.synchronize()
+                members.append({
+                    "index": index, "start_s": time.perf_counter() - t0,
+                    "held_gb": (torch.cuda.memory_allocated() - base) / 1e9,
+                    "start_peak_gb": (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9})
+                started.append(eng)
+                peer = Peer(key(), conf, eng)
+                await peer.start()
+                started.append(peer)
+                engines.append(eng)
+                peers.append(peer)
+            leader, member = engines
+            if pp:
+                _zero_eos_params(leader._embed_params)
+                shares = [dict(leader.runner.layers, **leader._embed_params),
+                          member.runner.layers]
+            else:
+                _zero_eos_params(leader.runner.embed_params)
+                shares = [dict(leader.runner.layers,
+                               **leader.runner.embed_params,
+                               wg=leader.bank.wg, wu=leader.bank.wu,
+                               wd=leader.bank.wd),
+                          dict(wg=member.bank.wg, wu=member.bank.wu,
+                               wd=member.bank.wd)]
+            for m, share in zip(members, shares):
+                m["weights_gb"] = _tree_bytes(share) / 1e9
+            if not pp:
+                out["expert_ids"] = [leader.expert_ids, member.expert_ids]
+            consumer = Peer(key(), Configuration(**node),
+                            FakeEngine(models=[]), worker_mode=False)
+            await consumer.start()
+            started.append(consumer)
+            gw = Gateway(consumer, port=0, host="127.0.0.1")
+            await gw.start()
+            started.append(gw)
+            pm = consumer.peer_manager
+            t0 = time.perf_counter()
+            while not ((best := pm.find_best_worker(model)) is not None
+                       and best.peer_id == peers[0].peer_id
+                       and peers[1].peer_id in {
+                           p.peer_id for p in
+                           peers[0].peer_manager.group_members(group)}):
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError(f"{phase}: group not routable")
+                await asyncio.sleep(0.1)
+            out["group_routable_s"] = time.perf_counter() - t0
+            pipe = await leader._resolve_pipeline()
+
+            # CUDA events around the members' device work.
+            spans = {"member": [], "leader": [], "unembed": []}
+            if pp:
+                for who, eng in (("leader", leader), ("member", member)):
+                    eng.runner.decode = _event_timed(eng.runner.decode,
+                                                     spans[who])
+                pipe._unembed = _event_timed(pipe._unembed,
+                                             spans["unembed"])
+            else:
+                r = leader.runner
+                r.decode_layer = _event_timed(r.decode_layer,
+                                              spans["leader"])
+                r.unembed = _event_timed(r.unembed, spans["unembed"])
+                leader.bank._ffn = _event_timed(leader.bank._ffn,
+                                                spans["leader"])
+                member.bank._ffn = _event_timed(member.bank._ffn,
+                                                spans["member"])
+
+            def sessions() -> int:
+                n = leader.runner.session_count
+                return n + (member.runner.session_count if pp else 0)
+
+            marks: list = []
+
+            def decode_only() -> None:
+                # A stream's first token: its prefill's spans go, and the
+                # launch counts so far are its prefill's.
+                for v in spans.values():
+                    v.clear()
+                marks.append(_launches())
+
+            tok = _StreamLog(leader.tokenizer, decode_only)
+            leader.tokenizer = tok
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launches()
+            chats = []
+            dev_total = dict.fromkeys(spans, 0.0)
+            decode_launches = dict.fromkeys(ran, 0)
+            unembeds = 0
+            for prompt, stream in ((SHORT[0], False), (SHORT[1], True)):
+                c = await chat(gw, prompt, stream)
+                now = _launches()
+                for k in ran:
+                    decode_launches[k] += now[k] - marks[-1][k]
+                if sessions():
+                    raise AssertionError(f"{phase}: {sessions()} sessions "
+                                         "left after a request")
+                for k, v in spans.items():
+                    dev_total[k] += _span_ms(v)
+                unembeds += len(spans["unembed"])
+                times = [t for t, _ in tok.streams[-1]]
+                c.update(tokens=len(times), ttft_ms=(times[0] - c["t0"]) * 1e3,
+                         decode_ms_per_token=(times[-1] - times[0]) * 1e3
+                         / max(1, len(times) - 1))
+                chats.append(c)
+            tok.on_first = None
+            launches = _launches()
+            _expect_launches(launches, ran, phase)
+            decode_tokens = sum(c["tokens"] - 1 for c in chats)
+            tokens = sum(c["tokens"] for c in chats)
+            if any(c["eval_count"] != SHARD_TOKENS for c in chats):
+                raise AssertionError(f"{phase}: chats {chats}")
+            dev_ms = {k: v / decode_tokens for k, v in dev_total.items()}
+            out["unembed_ms_per_call"] = dev_total["unembed"] / max(1, unembeds)
+            v, d = cfg.vocab_size, cfg.hidden_size
+            out["unembed_fp32_copy_gb"] = v * d * 4 / 1e9
+            per_token = sum(c["decode_ms_per_token"] * (c["tokens"] - 1)
+                            for c in chats) / decode_tokens
+            out["chats"] = chats
+            out["ttft_ms"] = [c["ttft_ms"] for c in chats]
+            out["decode_ms_per_token"] = per_token
+            out["device_ms_per_token"] = dev_ms
+            out["rest_ms_per_token"] = per_token - sum(dev_ms.values())
+            out["launches"] = {k: launches[k] for k in sorted(ran)}
+            out["launches_per_decode_token"] = {
+                k: decode_launches[k] / decode_tokens for k in sorted(ran)}
+            out["launches_per_prefill"] = {
+                k: (launches[k] - decode_launches[k]) / len(chats)
+                for k in sorted(ran)}
+            out["tokens"] = tokens
+            # Both members share this process and the card.
+            out["serving_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            out["serving_peak_above_weights_gb"] = (
+                torch.cuda.max_memory_allocated() - base) / 1e9
+            out["members"] = members
+            if pp:
+                # n-gram speculation on an echo prompt: one verify round
+                # trip per window (plain prefix-context attention).
+                leader.config.spec_decode = "ngram"
+                try:
+                    c = await chat(gw, SHARD_ECHO, True)
+                finally:
+                    leader.config.spec_decode = ""
+                if sessions():
+                    raise AssertionError(f"{phase}: sessions left after "
+                                         "the verify chat")
+                out["ngram"] = dict(leader.describe()["spec_decode"],
+                                    eval_count=c["eval_count"])
+            counts = _launches()
+
+            # The checks (their launches are not the path's).
+            ids = leader.tokenizer.encode(SHORT[2])
+            bucket = 16
+            while bucket < len(ids):
+                bucket *= 2
+
+            async def route(plain: bool, routing=None) -> list:
+                runners = ([leader.runner, member.runner] if pp
+                           else [leader.runner])
+                swaps = contextlib.ExitStack()
+                if plain:
+                    for rn in runners:
+                        swaps.enter_context(_swapped(
+                            rn, "prefill_attn", prefill_attention_ref))
+                        swaps.enter_context(_swapped(
+                            rn, "decode_attn", decode_attention_ref))
+                    swaps.enter_context(_plain_products())
+                if routing is not None:
+                    swaps.enter_context(routing.plain() if plain
+                                        else routing.kernel())
+                with swaps:
+                    first = await pipe.prefill("check", ids, bucket)
+                    step = await pipe.decode("check", int(first.argmax()),
+                                             len(ids), len(ids) + 1)
+                    await pipe.release("check")
+                return [torch.from_numpy(first), torch.from_numpy(step)]
+
+            routing = _Routing(not pp)
+            kernel = await route(False, routing)
+            plain = await route(True, routing)
+            errs = {"prefill": _logit_err(kernel[0], plain[0]),
+                    "decode": _logit_err(kernel[1], plain[1])}
+            errs["prefill"] = routing.report(errs["prefill"])
+            out["kernel_vs_plain"] = _check_logit_errs(errs, phase)
+
+            full = init_params_slice(cfg, 0, device=dev)
+            _zero_eos_params(full)
+            tokens_t = torch.tensor([ids], device=dev)
+            pos = torch.arange(len(ids), device=dev,
+                               dtype=torch.int32)[None]
+            with torch.inference_mode():
+                want, _, _ = T.prefill([full], cfg, tokens_t, pos)
+            want = want[0, -1].float().cpu()
+            del full
+            _free_card()
+            out["vs_unsharded"] = _check_logit_errs(
+                {"prefill": _logit_err(kernel[0], want)}, phase)
+            if sessions():
+                raise AssertionError(f"{phase}: sessions left after checks")
+            out["check_launches"] = {k: _launches()[k] - counts[k]
+                                     for k in sorted(ran)}
+            out["sessions_left"] = sessions()
+            _set_launches(counts)
+            return out
+        finally:
+            for part in reversed(started):
+                await part.stop()
+            await boot.close()
+
+    line = asyncio.run(go())
+    emit(line)
+    _free_card()
+    return line
+
+
 KERNEL_ROWS = {
     "A": ("flash_prefill", "crowdllama_tpu_torch/csrc/flash_prefill.cu",
           "crowdllama_tpu/ops/pallas/flash.py:146"),
@@ -6997,6 +7388,13 @@ def main() -> int:
     _free_card()
     quant_phase(dev, llama["steady"])
     _free_card()
+    # Sharded serving across workers: the launches of A and D (Dh 128)
+    # and of G (bf16) on those paths join the rows' counts.
+    for strategy in ("pp", "ep"):
+        line = shard_phase(dev, strategy)
+        for k in ("A", "D"):
+            launches128[k] += line["launches"][k]
+        gemm_launches["G"] += line["launches"].get("G", 0)
     # No engine path runs kernel E; every phase checked it stayed at 0.
     # The fp32 entries run at Dh 64 only, in the distill phase.
     launches["E"] = launches["E_int8"] = 0

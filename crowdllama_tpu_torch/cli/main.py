@@ -153,16 +153,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def make_engine(cfg: Configuration):
-    """``FakeEngine`` for ``--engine fake``, else the port's
-    ``MultiEngine`` (one child per model name) on ``cfg.device``."""
+    """``FakeEngine`` for ``--engine fake``, a ``ShardedEngine`` member for
+    ``--shard-count`` above 1, else the port's ``MultiEngine`` (one child
+    per model name), on ``cfg.device``."""
     from crowdllama_tpu_torch.engine.engine import FakeEngine
     from crowdllama_tpu_torch.engine.multi import MultiEngine
 
     names = [m.strip() for m in cfg.model.split(",") if m.strip()]
     if cfg.engine_backend == "fake":
         return FakeEngine(models=names)
-    # "cuda" names the card the runner resolves (and refuses without).
-    return MultiEngine(cfg, device="cpu" if cfg.device == "cpu" else None)
+    # "cuda" names the card the engine resolves (and refuses without).
+    device = "cpu" if cfg.device == "cpu" else None
+    if len(names) > 1 and cfg.shard_count > 1:
+        raise ValueError("multi-model workers cannot combine with "
+                         "--shard-count (shard one model per worker group)")
+    if cfg.shard_count > 1:
+        from crowdllama_tpu_torch.engine.sharded import ShardedEngine
+
+        return ShardedEngine(cfg, device=device)
+    return MultiEngine(cfg, device=device)
 
 
 def make_gossip(cfg: Configuration, peer):

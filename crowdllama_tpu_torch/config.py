@@ -19,7 +19,9 @@ are checked as the JAX package's.  The replicated gateway's fields
 (``gateway_peers``,
 ``gossip_interval``, ``gossip_snapshot_path``, ``tenant_quota``) and the
 worker's KV fetch threshold (``kv_ship_min_tokens``) parse and are served
-as the JAX package's.  The one new flag is
+as the JAX package's, and so do the shard settings (``shard_group``,
+``shard_index``, ``shard_count``, ``shard_strategy``: the sharded
+engine's group).  The one new flag is
 ``--device {cuda,cpu}`` (default ``cuda``): entry points run on the card
 unless the caller asks for the CPU.
 """
@@ -270,6 +272,18 @@ class Configuration:
     # Directory ``capture_profile`` writes its traces under; "" = off.
     profile_dir: str = ""
 
+    # Multi-worker sharded serving (engine/sharded.py): a node with
+    # shard_count > 1 serves one shard of an N-way split; shard_group names
+    # the group (same string on every member; default
+    # "<model>/<strategy><count>").  Index 0 is the group leader.
+    # strategy "pp": member i serves layer slice i (pipeline stages).
+    # strategy "ep": member i hosts experts e % count == i (MoE models);
+    # the leader runs attention/router and dispatches expert batches.
+    shard_group: str = ""
+    shard_index: int = 0
+    shard_count: int = 1
+    shard_strategy: str = "pp"  # "pp" | "ep"
+
     intervals: Intervals = field(default_factory=Intervals.default)
 
     def __post_init__(self) -> None:
@@ -328,6 +342,10 @@ class Configuration:
         "warmup": "CROWDLLAMA_TPU_WARMUP",
         "admission_pending_max": "CROWDLLAMA_TPU_ADMISSION_PENDING_MAX",
         "profile_dir": "CROWDLLAMA_TPU_PROFILE_DIR",
+        "shard_group": "CROWDLLAMA_TPU_SHARD_GROUP",
+        "shard_index": "CROWDLLAMA_TPU_SHARD_INDEX",
+        "shard_count": "CROWDLLAMA_TPU_SHARD_COUNT",
+        "shard_strategy": "CROWDLLAMA_TPU_SHARD_STRATEGY",
         "gateway_port": "CROWDLLAMA_TPU_GATEWAY_PORT",
         "worker_metrics_port": "CROWDLLAMA_TPU_WORKER_METRICS_PORT",
         "request_timeout": "CROWDLLAMA_TPU_REQUEST_TIMEOUT",
@@ -441,6 +459,15 @@ class Configuration:
         parser.add_argument("--model-path", dest="model_path")
         parser.add_argument("--engine", dest="engine_backend")
         parser.add_argument("--mesh", dest="mesh_shape")
+        parser.add_argument("--shard-group", dest="shard_group",
+                            help="sharded-model group id (same on all members)")
+        parser.add_argument("--shard-index", dest="shard_index", type=int,
+                            help="this worker's pipeline stage (0 = leader)")
+        parser.add_argument("--shard-count", dest="shard_count", type=int,
+                            help="number of workers sharing the model")
+        parser.add_argument("--shard-strategy", dest="shard_strategy",
+                            choices=("pp", "ep"),
+                            help="pp: layer slices; ep: MoE expert banks")
         parser.add_argument("--quantize", dest="quantize",
                             choices=("", "int8", "int4"),
                             help="weight-only quantization for the engine")
@@ -620,7 +647,8 @@ class Configuration:
 
     _FLAG_FIELDS = (
         "verbose", "key_path", "listen_port", "model", "model_path",
-        "engine_backend", "mesh_shape", "quantize", "kv_layout",
+        "engine_backend", "mesh_shape", "shard_group", "shard_index",
+        "shard_count", "shard_strategy", "quantize", "kv_layout",
         "kv_page_size", "kv_pool_tokens", "kv_dtype", "relay_mode",
         "spec_decode", "spec_draft", "spec_draft_model", "spec_draft_max",
         "step_token_budget", "ragged_prefill", "megastep_k",

@@ -21,8 +21,10 @@ tensor once, into the stacked parameter.  ``BF16`` tensors are read as
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
+import math
 import struct
 from dataclasses import asdict, replace
 from pathlib import Path
@@ -59,6 +61,83 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         return random_quantized_params(cfg, gen, dtype=dtype, mode=quantize,
                                        device=device)
     return T.init_params(cfg, gen, dtype=dtype, device=device)
+
+
+#: the expert banks' stacked leaves ([L, E, ...] in an MoE model)
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+_ONES = ("ln1", "ln2", "post_ln1", "post_ln2", "q_norm", "k_norm",
+         "final_norm")
+_ZEROS = ("bq", "bk", "bv")
+
+
+def _piece_generator(seed: int, device, *where) -> torch.Generator:
+    """A generator of its own for one piece of the weights, seeded from
+    ``seed`` and the piece's name and indices alone."""
+    digest = hashlib.blake2b(repr((seed, *where)).encode(),
+                             digest_size=8).digest()
+    return torch.Generator(device=device).manual_seed(
+        int.from_bytes(digest, "little") >> 1)
+
+
+def init_params_slice(cfg: ModelConfig, seed: int = 0, *,
+                      layers=None, experts=None, layer_keys=None,
+                      embed: bool = True,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device: torch.device | str = "cpu") -> dict:
+    """Random weights of one member's share of a sharded model, drawn
+    piece by piece on ``device``: every non-layer leaf, every layer of a
+    stacked leaf and every (layer, expert) of an expert leaf from a
+    generator seeded by ``seed`` and that piece's name and global
+    indices, so members given one seed hold the same values wherever
+    their shares meet, and none draws more than its share.  ``layers``
+    (global indices) and ``experts`` (expert ids of the expert leaves)
+    select the share, None meaning all; ``layer_keys`` names the stacked
+    leaves to hold (None: all); ``embed`` holds the embedding, the final
+    norm and the lm_head.  Norm weights are ones, biases zeros, the other
+    leaves normal over the square root of their fan-in, as
+    ``T.init_params``; its values differ (one generator per piece)."""
+    shapes = T.init_params(cfg, None, dtype=dtype, device="meta")
+    layers = range(cfg.num_layers) if layers is None else list(layers)
+    experts = (range(cfg.num_experts) if experts is None
+               else list(experts))
+
+    def draw(out: torch.Tensor, name: str, *where) -> None:
+        if name in _ONES:
+            out.fill_(1)
+        elif name in _ZEROS:
+            out.zero_()
+        else:
+            fan_in = out.shape[-1] if name == "embed" else out.shape[-2]
+            gen = _piece_generator(seed, device, name, *where)
+            w = torch.randn(tuple(out.shape), generator=gen, device=device,
+                            dtype=torch.float32)
+            out.copy_(w.div_(math.sqrt(fan_in)))
+
+    stacked: dict = {}
+    for name, meta in shapes["layers"].items():
+        if layer_keys is not None and name not in layer_keys:
+            continue
+        piece = tuple(meta.shape[1:])
+        if cfg.is_moe and name in EXPERT_KEYS:
+            leaf = torch.empty((len(layers), len(experts), *piece[1:]),
+                               dtype=dtype, device=device)
+            for i, layer in enumerate(layers):
+                for j, e in enumerate(experts):
+                    draw(leaf[i, j], name, layer, e)
+        else:
+            leaf = torch.empty((len(layers), *piece), dtype=dtype,
+                               device=device)
+            for i, layer in enumerate(layers):
+                draw(leaf[i], name, layer)
+        stacked[name] = leaf
+    params: dict = {"layers": stacked}
+    if embed:
+        for name, meta in shapes.items():
+            if name != "layers":
+                params[name] = torch.empty(tuple(meta.shape), dtype=dtype,
+                                           device=device)
+                draw(params[name], name)
+    return params
 
 
 def params_from_numpy(flat: dict[str, np.ndarray],

@@ -186,6 +186,12 @@ class Peer:
                             and _single_process()))
             self.host.set_stream_handler(MODEL_PROTOCOL,
                                          self._model_share.handle)
+        shard_service = getattr(self.engine, "shard_service", None)
+        if shard_service is not None:
+            from crowdllama_tpu_torch.core.protocol import SHARD_PROTOCOL
+
+            # Sharded-model member: serve our shard to group leaders.
+            self.host.set_stream_handler(SHARD_PROTOCOL, shard_service.handle)
         self.engine.obs = self.obs
         self.engine.attach_peer(self)
         self.peer_manager = PeerManager(
@@ -510,6 +516,9 @@ class Peer:
         r.embeddings = bool(d.get("embeddings", True))
         for k, v in self._capabilities.items():
             setattr(r, k, v)
+        sg = d.get("shard_group")
+        if sg is not None:
+            r.shard_group = sg
         r.touch()
 
     async def _publish_metadata(self) -> None:
