@@ -353,6 +353,30 @@ Phases, each printing one JSON line:
    time, the unembedding's and the rest, launches per token, each
    member's start and bytes held, the serving peak.
 
+16. mesh_* (a line each): the in-mesh axes, single-controller, every
+   rank on the one card (``devices=[dev] * n``).  TinyLlama at full width
+   and depth on its seed-0 weights serves 3 streams of 16 tokens (2 short
+   prompts and the long one) through ``TorchEngine``, first on one device
+   with the contiguous layout (``mesh_base``, the line the others stand
+   beside), then on each mesh with the default paged config, so that dp,
+   pp and sp go through the serving plan's loud move to the contiguous
+   layout (its note asserted, the runner a contiguous ``ModelRunner``):
+   mesh_tp_contig ("2", contiguous: A and D per tp rank), mesh_dp ("2x1":
+   D per dp rank each step), mesh_pp ("1x2x1x1x1": A on each stage's 11
+   layers a prefill, D on each stage's 11 layers per microbatch; one
+   megastep flight whose CUDA graph replay must equal eager), mesh_sp
+   ("1x2x1x1": ring prefill and the sp decode in plain torch, no A or D
+   launch; its logits also against one device), mesh_pp_tp ("1x2x1x1x2",
+   four ranks).  Then mesh_ep: mixtral-8x7b in bf16 at full width cut to
+   2 of 32 layers, paged, "1x2x1": G per ep bank, 2 streams, beside the
+   same model on one device.  Each line: launches against the
+   expectation, one decode step's logits through the kernels against
+   their plain versions (``LOGIT_RTOL_TP``), every stream done, the share
+   of greedy tokens equal to the one-device engine's, the steady decode
+   step (CUDA events) and TTFT beside the one-device engine's, the peak
+   memory and its ratio to the one-device run, and the card's name and
+   power limit.
+
 Each engine phase starts once the previous engine has stopped and its
 memory is freed; its peak memory is counted from before the engine loads
 its weights (TinyLlama's kept on the host between phases, llama-3-8b's
@@ -7239,6 +7263,258 @@ def shard_phase(dev, strategy: str) -> dict:
     return line
 
 
+MESH_TOKENS = 16
+MESH_K = 4  # the mesh_pp megastep flight
+# (phase, mesh spec, engine keywords, kernels that launch, A launches a
+# monolithic prefill, D launches a decode step) for TinyLlama (22
+# layers, 8 slots: pp takes 2 microbatches of 4).
+MESH_PHASES = (
+    ("mesh_tp_contig", "2", dict(kv_layout="contiguous"), {"A", "D"},
+     22 * 2, 22 * 2),
+    ("mesh_dp", "2x1", {}, {"A", "D"}, 22, 22 * 2),
+    ("mesh_pp", "1x2x1x1x1", {}, {"A", "D"}, 11 * 2, 11 * 2 * 2),
+    ("mesh_sp", "1x2x1x1", {}, set(), 0, 0),
+    ("mesh_pp_tp", "1x2x1x1x2", {}, {"A", "D"}, 11 * 2 * 2, 11 * 2 * 2 * 2),
+)
+MESH_EP_LAYERS = 2
+
+
+def _mesh_streams() -> dict:
+    return {k: GREEDY[k] for k in ("short0", "short1")}
+
+
+def _mesh_decode_logits(r, tok, plain: bool) -> tuple:
+    """3 slots prefilled and one decode step, through kernels A and D (per
+    rank) or, with ``plain``, through their plain versions: (logits of the
+    3 live rows on the host, their first tokens)."""
+    from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
+    from crowdllama_tpu_torch.ops.cuda.flash import decode_attention_plain
+
+    seams = r.prefill_attn, r.decode_attn
+    if plain:
+        r.prefill_attn, r.decode_attn = (prefill_attention_ref,
+                                         decode_attention_plain)
+    try:
+        with torch.inference_mode():
+            st = _three_slots(r, tok)
+            first = st.tokens[:3].cpu().tolist()
+            logits = r.decode_logits(st)[:3].float().cpu()
+    finally:
+        r.prefill_attn, r.decode_attn = seams
+    return logits, first
+
+
+def mesh_base_phase(dev) -> dict:
+    """TinyLlama on one device with the contiguous layout, the mesh
+    phases' traffic: the line every mesh line stands beside."""
+    from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
+
+    engine, summary, reqs = run_engine(dev, _mesh_streams(), MESH_TOKENS,
+                                       kv_layout="contiguous")
+    _expect_launches(summary["launches"], {"A", "D"}, "mesh_base")
+    logits, first = _mesh_decode_logits(engine.runner, engine.tokenizer,
+                                        plain=True)
+    steady = decode_step_timing(engine, dev, flash_decode_attention)
+    emit({"phase": "mesh_base", "model": TINYLLAMA, "layers": 22,
+          "kv_layout": "contiguous", **summary, "steady_decode": steady,
+          "card": nvidia_smi()})
+    return {"ids": {k: v["ids"] for k, v in reqs.items()},
+            "steady": steady, "ttft_ms_median": summary["ttft_ms_median"],
+            "max_memory_allocated": summary["max_memory_allocated"],
+            "logits": logits, "first": first}
+
+
+def mesh_megastep_check(r, tok) -> dict:
+    """One K-step megastep flight on the mesh runner (a CUDA graph captured
+    on its state and replayed) against K eager steps from the same 3
+    slots: the tokens must be equal."""
+    with torch.inference_mode():
+        st = _three_slots(r, tok)
+        eager = r.decode_steps(st, MESH_K)[0][:, :3].tolist()
+        st = _three_slots(r, tok)
+        toks, _, st = r.decode_megastep(st, MESH_K)
+        mega = toks[:, :3].cpu().tolist()
+    replays = sum(g.replays for g in r._graphs._graphs.values())
+    if mega != eager or replays < 1:
+        raise AssertionError(f"mesh megastep flight {mega} (replays "
+                             f"{replays}) differs from eager {eager}")
+    return {"k": MESH_K, "replays": replays, "equal_to_eager": True}
+
+
+def mesh_phase(dev, base: dict, phase: str, spec: str, engine_kw: dict,
+               ran: set, a_per_prefill: int, d_per_step: int) -> dict:
+    """One TinyLlama mesh, every rank on the one card: the traffic, the
+    launches, the plan's move to the contiguous layout, kernel-vs-plain
+    logits, the steady step and memory beside ``mesh_base``."""
+    import math
+
+    from crowdllama_tpu_torch.engine.runner import ModelRunner
+    from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
+    from crowdllama_tpu_torch.parallel.mesh import mesh_axes
+
+    n = math.prod(mesh_axes(spec))
+    engine, summary, reqs = run_engine(
+        dev, _mesh_streams(), MESH_TOKENS, mesh_shape=spec,
+        devices=[dev] * n, **engine_kw)
+    r, plan = engine.runner, engine.plan
+    if type(r) is not ModelRunner or r.kv_layout != "contiguous" \
+            or r.devices != [dev] * n:
+        raise AssertionError(f"{phase}: {type(r).__name__} "
+                             f"{r.kv_layout} on {r.devices}")
+    notes = [] if engine_kw.get("kv_layout") == "contiguous" else [
+        f"paged layout does not compose with mesh {spec} (dp/sp/pp > 1); "
+        f"using the contiguous layout"]
+    if plan.notes != notes:
+        raise AssertionError(f"{phase}: plan notes {plan.notes}")
+    launches = summary["launches"]
+    _expect_launches(launches, ran, phase)
+    a, d = launches["A"], launches["D"]
+    if ran and (a % a_per_prefill or d % d_per_step):
+        raise AssertionError(f"{phase}: A {a} not a multiple of "
+                             f"{a_per_prefill} a prefill or D {d} not a "
+                             f"multiple of {d_per_step} a decode step")
+    tok = engine.tokenizer
+    kernel, first = _mesh_decode_logits(r, tok, plain=False)
+    plain, _ = _mesh_decode_logits(r, tok, plain=True)
+    errs = {"decode": _logit_err(kernel, plain)}
+    agree = [i for i in range(3) if first[i] == base["first"][i]]
+    if not agree:
+        raise AssertionError(f"{phase}: no first token equals one "
+                             f"device's ({first} vs {base['first']})")
+    errs["vs_one_device"] = dict(
+        _logit_err(kernel[agree], base["logits"][agree]), rows=agree)
+    if not errs["decode"]["max_abs_err"] <= \
+            LOGIT_RTOL_TP * errs["decode"]["scale"]:
+        raise AssertionError(f"{phase} logits: kernel vs plain {errs}")
+    if not ran and not errs["vs_one_device"]["max_abs_err"] <= \
+            LOGIT_RTOL * errs["vs_one_device"]["scale"]:
+        raise AssertionError(f"{phase} logits: against one device {errs}")
+    out = {}
+    if phase == "mesh_pp":
+        out["megastep"] = mesh_megastep_check(r, tok)
+    steady = decode_step_timing(engine, dev,
+                                flash_decode_attention if ran else None)
+    peak = summary["max_memory_allocated"]
+    emit({"phase": phase, "model": TINYLLAMA, "layers": 22, "mesh": spec,
+          "axes": r.mesh.axes, "devices": [str(x) for x in r.devices],
+          "runner": type(r).__name__, "kv_layout": r.kv_layout,
+          "plan_notes": plan.notes, **summary,
+          "decode_steps": d // d_per_step if ran else None,
+          "prefills_through_a": a // a_per_prefill if ran else None,
+          "logits_max_abs_err": errs, "logits_rtol": LOGIT_RTOL_TP,
+          "greedy_tokens_equal_to_one_device": _greedy_share(base["ids"],
+                                                             reqs),
+          "steady_decode": steady, "one_device_steady_decode": base["steady"],
+          "one_device_ttft_ms_median": base["ttft_ms_median"],
+          "one_device_max_memory_allocated": base["max_memory_allocated"],
+          "memory_ratio_to_one_device": peak / base["max_memory_allocated"],
+          **out, "card": nvidia_smi()})
+    return launches
+
+
+def mesh_ep_phase(dev) -> dict:
+    """mixtral-8x7b in bf16 at full width cut to ``MESH_EP_LAYERS`` layers
+    (seed-0 weights made on the card, the EOS column zeroed, kept on the
+    host), paged, on one
+    device and then on ``"1x2x1"`` with both expert banks on the one card:
+    2 short streams and the long one, 16 tokens; A, B, C and G launch, G
+    once per ep bank per expert product; kernel-vs-plain logits (the plain
+    route replaying the kernel route's expert choices); the steady step and
+    memory beside one device."""
+    from crowdllama_tpu_torch.engine.paged import PagedModelRunner
+    from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
+    from crowdllama_tpu_torch.engine.weights import init_params
+    from crowdllama_tpu_torch.models.config import get_config
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+    )
+    from crowdllama_tpu_torch.parallel.sharding import ExpertBanks
+
+    cfg = get_config(MIXTRAL, num_layers=MESH_EP_LAYERS,
+                     max_context_length=MOE_CONTEXT)
+    params = init_params(cfg, 0, device=dev)
+    params["lm_head"][:, ByteTokenizer.EOS] = 0
+
+    def host(tree):  # kept on the host, as TinyLlama's: each engine copies
+        return {k: host(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    params = host(params)
+    _free_card()
+    runs = {}
+    for spec in ("", "1x2x1"):
+        kw = dict(mesh_shape=spec, devices=[dev, dev]) if spec else {}
+        engine, summary, reqs = run_engine(
+            dev, _mesh_streams(), MESH_TOKENS, params=params, model=MIXTRAL,
+            model_config=cfg, **kw)
+        launches = summary["launches"]
+        _expect_launches(launches, {"A", "B", "C", "G"}, f"mesh_ep {spec}")
+        r = engine.runner
+        errs = logits_check(engine, dev)
+        for k, e in errs.items():
+            if not e["max_abs_err"] <= LOGIT_RTOL_TP * e["scale"]:
+                raise AssertionError(f"mesh_ep {spec} {k} logits: kernel vs "
+                                     f"plain {e}")
+        steady = decode_step_timing(engine, dev,
+                                    flash_paged_decode_attention_tp,
+                                    gemm=True)
+        runs[spec] = dict(summary=summary, reqs=reqs, errs=errs,
+                          steady=steady)
+        if spec:
+            if not (type(r) is PagedModelRunner and (r.ep, r.tp) == (2, 1)
+                    and isinstance(r.params[0]["layers"]["w_gate"],
+                                   ExpertBanks)):
+                raise AssertionError(f"mesh_ep: {type(r).__name__} ep "
+                                     f"{r.ep} tp {r.tp}")
+            if launches["G"] % (3 * 2):
+                raise AssertionError(f"mesh_ep: G {launches['G']} not 3 "
+                                     f"products x 2 banks per MoE layer")
+        del engine, r
+        _free_card()
+    del params
+    one, ep = runs[""], runs["1x2x1"]
+    per_step = ep["steady"]["gemm_launches_per_step"]
+    if per_step != 2 * one["steady"]["gemm_launches_per_step"]:
+        raise AssertionError(f"mesh_ep: {per_step} G launches a step, not "
+                             f"twice one device's "
+                             f"{one['steady']['gemm_launches_per_step']}")
+    peak = ep["summary"]["max_memory_allocated"]
+    peak1 = one["summary"]["max_memory_allocated"]
+    emit({"phase": "mesh_ep", "model": MIXTRAL, "layers": MESH_EP_LAYERS,
+          "mesh": "1x2x1", "axes": {"dp": 1, "pp": 1, "sp": 1, "ep": 2,
+                                    "tp": 1},
+          "kv_layout": "paged",
+          "reduced": {"num_layers": [32, MESH_EP_LAYERS],
+                      "max_context_length": [32768, MOE_CONTEXT]},
+          **ep["summary"], "logits_max_abs_err": ep["errs"],
+          "logits_rtol": LOGIT_RTOL_TP,
+          "greedy_tokens_equal_to_one_device": _greedy_share(
+              {k: v["ids"] for k, v in one["reqs"].items()}, ep["reqs"]),
+          "steady_decode": ep["steady"],
+          "one_device_steady_decode": one["steady"],
+          "ttft_ms_median": ep["summary"]["ttft_ms_median"],
+          "one_device_ttft_ms_median": one["summary"]["ttft_ms_median"],
+          "one_device_max_memory_allocated": peak1,
+          "memory_ratio_to_one_device": peak / peak1,
+          "one_device_launches": one["summary"]["launches"],
+          "card": nvidia_smi()})
+    return ep["summary"]["launches"]
+
+
+def mesh_phases(dev) -> tuple[dict, dict]:
+    """Every mesh phase; returns the launches they add to the Dh-64 rows
+    (A, D) and to the Dh-128 and G rows (A, B, C, G of mesh_ep)."""
+    base = mesh_base_phase(dev)
+    _free_card()
+    dh64 = {"A": 0, "D": 0}
+    for args in MESH_PHASES:
+        got = mesh_phase(dev, base, *args)
+        for k in dh64:
+            dh64[k] += got[k]
+        _free_card()
+    return dh64, mesh_ep_phase(dev)
+
+
 KERNEL_ROWS = {
     "A": ("flash_prefill", "crowdllama_tpu_torch/csrc/flash_prefill.cu",
           "crowdllama_tpu/ops/pallas/flash.py:146"),
@@ -7350,6 +7626,12 @@ def main() -> int:
     _free_card()
     int8_contiguous_phase(dev)
     _free_card()
+    # The in-mesh axes, every rank on the one card: A and D at Dh 64 join
+    # the rows' counts, and mesh_ep's A, B, C (Dh 128) and G below.
+    mesh64, mesh_ep = mesh_phases(dev)
+    for k, n in mesh64.items():
+        launches[k] += n
+    _free_card()
     spec_phase(dev)
     _free_card()
     autotune_phase(dev)
@@ -7388,6 +7670,9 @@ def main() -> int:
     _free_card()
     quant_phase(dev, llama["steady"])
     _free_card()
+    for k in ("A", "B", "C"):
+        launches128[k] += mesh_ep[k]
+    gemm_launches["G"] += mesh_ep["G"]
     # Sharded serving across workers: the launches of A and D (Dh 128)
     # and of G (bf16) on those paths join the rows' counts.
     for strategy in ("pp", "ep"):

@@ -421,10 +421,12 @@ class TorchEngine(Engine):
     device, construction raises.  ``params`` (a parameter dict, e.g. from
     ``engine.weights.params_from_numpy``) replaces the random init, whose
     seed is ``seed``; the engine hands it to the runner (which shards it
-    under tp) and keeps no reference.  Tensor parallelism: ``mesh_shape``
-    (e.g. "2") with the ranks on ``devices`` (default: the visible CUDA
-    devices, each once); ``devices`` may name one device twice, e.g.
-    ``["cpu", "cpu"]`` or two shards on one card.  ``model_config`` (a
+    on a mesh) and keeps no reference.  A mesh: ``mesh_shape`` (e.g. "2",
+    "2x1", "1x2x1x1x2") with the ranks on ``devices`` (default: the
+    visible CUDA devices, each once); ``devices`` may name one device
+    several times, e.g. ``["cpu"] * 4`` or every rank on one card.  The
+    serving plan moves a paged request on a dp/sp/pp mesh to the
+    contiguous layout and logs why.  ``model_config`` (a
     ``ModelConfig``) serves in place of the registry's entry for
     ``config.model``, e.g. a copy cut to fewer layers.  ``model_path``
     (a native or an HF checkpoint directory) serves its weights and
@@ -494,7 +496,11 @@ class TorchEngine(Engine):
         )
 
         c = self.config
+        # The composition table's single decision point (engine/plan.py);
+        # a documented fallback is logged, never silent.
         self.plan = resolve_serving_plan(c, devices=self.devices)
+        for note in self.plan.notes:
+            log.warning("%s", note)
         if self._model_config is not None:
             cfg = self._model_config
             if c.max_context_length:
@@ -918,6 +924,7 @@ class TorchEngine(Engine):
             r = self.runner
             d["device"] = str(r.device)
             d["tp"] = r.tp
+            d["mesh"] = r.mesh.axes
             d["devices"] = [str(x) for x in r.devices]
             d["kv_layout"] = r.kv_layout
             d["kv_dtype"] = r.kv_dtype

@@ -1,9 +1,10 @@
 """Runner construction from a Configuration and its ServingPlan.
 
 Counterpart of the ported subset of ``crowdllama_tpu/engine/factory.py``
-``build_runner``: the plan's runner on one device or, paged, over the tp
-mesh ``config.mesh_shape`` names (ranks on ``devices``, else the visible
-CUDA devices), quantizing the weights as the plan says.  The draft-model
+``build_runner``: the plan's runner (its layout after a fallback) on one
+device or over the mesh ``config.mesh_shape`` names (ranks on
+``devices``, else the visible CUDA devices), quantizing the weights as
+the plan says.  The draft-model
 runner's draft comes from ``spec_draft_path`` (a native checkpoint, which
 carries its own
 architecture, or an HF checkpoint of ``spec_draft_model``'s

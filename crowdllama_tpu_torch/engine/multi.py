@@ -192,7 +192,22 @@ class MultiEngine(Engine):
         return await self._child(model).embed(texts, model=model,
                                               truncate=truncate)
 
+    def _live_streams(self, eng: TorchEngine) -> int:
+        """Streams a child holds: its occupied slots and its queue."""
+        sched = eng.scheduler
+        if sched is None:
+            return 0
+        return (sum(1 for s in sched.slots if s is not None)
+                + sched.pending.qsize() + len(sched._deferred))
+
     async def capture_profile(self, seconds: float = 3.0) -> str:
-        # One trace covers every child: they share the device.
-        return await next(iter(self._engines.values())).capture_profile(
-            seconds)
+        """The profile of the child serving the most live streams (the
+        first on a tie): a session opens on one child's dispatch thread
+        and may hold no kernel another thread launched
+        (``TorchEngine.capture_profile``), so it opens where the work
+        is.  Logs which child it traced."""
+        name, eng = max(self._engines.items(),
+                        key=lambda kv: self._live_streams(kv[1]))
+        log.info("capture_profile: tracing %s (%d live streams)", name,
+                 self._live_streams(eng))
+        return await eng.capture_profile(seconds)

@@ -32,6 +32,12 @@ one device or tensor-parallel over a tp mesh:
   GSPMD cannot partition a ``pallas_call``; A and C are independent per kv
   head, so the port runs them per rank.  The function is the same.)
 
+- expert parallelism (``mesh_shape="1x2x1"``, ``"1x2x2"``): each MoE
+  layer runs each ep rank's expert bank over the rows routed to its
+  experts (kernel G), the pools shard on tp only; dp, sp and pp meshes
+  are refused here, as the JAX runner asserts (the engine's plan moves
+  them to the contiguous layout).
+
 Device state is updated in place (the JAX package donates and replaces
 it); methods still return the state so callers read like the reference.
 Legacy chunked admission (``ragged_prefill=False``) runs the base runner's
@@ -47,7 +53,7 @@ shipping: ``export_pages`` gathers the prefix index's pages for a donor
 fetch and ``import_pages`` writes a donor's pages into fresh pool pages
 in place, in the JAX package's wire format (one ``[L, Hkv, page, Dh]``
 buffer a page, the whole head axis, so pages cross tp degrees and
-packages).  Meshes other than tp are not ported yet.
+packages).
 """
 
 from __future__ import annotations
@@ -159,7 +165,13 @@ class PagedModelRunner(ModelRunner):
             if tp == 1 and devices is None:
                 return Mesh.single(resolve_device(None))
             mesh_shape = str(tp)
-        return super()._build_mesh(mesh_shape, device, devices)
+        mesh = super()._build_mesh(mesh_shape, device, devices)
+        if mesh.dp > 1 or mesh.pp > 1 or mesh.sp > 1:
+            raise ValueError(
+                f"mesh {mesh.axes}: paged KV composes with plain/tp/ep meshes "
+                f"only (the shared page pool cannot shard over dp; sp/pp use "
+                f"the contiguous layout)")
+        return mesh
 
     def _rank_kv(self, st: PagedDecodeState) -> list[tuple]:
         """Per rank: (pool_k, pool_v, k_scale, v_scale), the scales None on
@@ -293,7 +305,7 @@ class PagedModelRunner(ModelRunner):
         kept = self._kept_state()
         if kept is not None:
             return kept
-        per = [self._kv_zeros(shape, d) for d in self.devices]
+        per = [self._kv_zeros(shape, d) for d in self.tp_devices]
         scales = {name: [p[2][name] for p in per] for name in per[0][2]}
         return PagedDecodeState(pool_k=[p[0] for p in per],
                                 pool_v=[p[1] for p in per],
@@ -776,7 +788,7 @@ class PagedModelRunner(ModelRunner):
 
     def _on_ranks(self, *xs: torch.Tensor) -> list[tuple]:
         """``xs`` on every rank's device, per rank (no copy on rank 0's)."""
-        return [tuple(x.to(d) for x in xs) for d in self.devices]
+        return [tuple(x.to(d) for x in xs) for d in self.tp_devices]
 
     def _layer_body(self, i: int, x, positions, attn_fn):
         """Layer ``i`` over x [N, D] with ``attn_fn`` taking and returning

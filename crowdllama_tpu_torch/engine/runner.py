@@ -14,11 +14,44 @@ scales ``[L, B, Hkv, S]``: insert quantizes the prefilled bucket, decode
 quantizes each new token and attends with the plain
 ``decode_attention_q`` (the JAX package has no Pallas kernel for this
 path either).  The paged subclass (``engine/paged.py``) replaces the cache
-layout and reuses the rest.  The base runner holds the tp mesh and the
-per-rank parameters and rope tables (lists of one on one device); only
-the paged runner serves over more than one rank.  Sequence/pipeline
-parallelism is not ported yet; speculation subclasses both layouts
+layout and reuses the rest; speculation subclasses both layouts
 (``engine/spec.py``).
+
+The mesh (``mesh_shape``, the ranks on ``devices``), as JAX's runner
+serves it, single-controller: one process drives every rank, and a rank
+may sit on any device, every rank on one card included.  Every rank holds
+its parameters (``parallel/sharding.py``); ``groups`` bundles them by
+(dp, pp, sp) coordinate into the tp lists the model's forward functions
+take, and ``params`` is the group of (0, 0, 0).  The contiguous cache is
+one tensor on one device, else one shard a (dp, pp, sp, tp) rank
+``[L/pp, B/dp, Hkv/tp, S/sp, Dh]`` on the rank's device, in that
+row-major order (ep ranks hold no cache: attention is replicated over
+ep, and the port runs it once):
+
+- tp: prefill runs kernel A and decode kernel D per tp rank, on the
+  rank's heads; the row-parallel products sum over the ranks;
+- dp: slot ``b`` lives on dp rank ``b // (B/dp)`` (``max_slots`` rounds
+  down to a multiple of dp); each decode step runs every dp rank's slots
+  on its own parameters and cache (kernel D per rank), and the logits
+  join on rank 0's device, where sampling runs; prefill runs on dp rank
+  0 and ``insert`` writes the slot's dp rank's cache;
+- sp: prefill runs each sp rank's shard of the sequence on its own
+  parameters with ring attention between them (``ops/ring.py``), and
+  ``insert`` scatters the prompt's KV to the shards that own its
+  positions; decode writes each token into the shard that owns its
+  position and attends through ``sp_decode_attention`` (no A or D
+  launch in attention, as JAX reaches no Pallas kernel there); prefill
+  buckets are multiples of sp and ``max_seq`` must divide by sp;
+- pp: the stages hold ``L/pp`` layers each; prefill, decode and the
+  embeddings forward run the GPipe microbatch schedule
+  (``parallel/pipeline.py``): kernel A per stage and tp rank, kernel D
+  per stage, microbatch and tp rank; pp x sp is refused, as in JAX;
+- ep: a MoE layer runs each ep rank's expert bank over the rows routed
+  to its experts (kernel G) and combines them in the one-device order.
+
+Legacy chunked admission is off (``prefill_chunk = 0``) on pp and sp
+meshes, and the int8 KV cache serves only without sp and pp, as in the
+JAX runner.
 
 Megastep (``decode_megastep``, both layouts): K decode steps per host
 dispatch with on-device sampling and done-flags (``ops/megastep.py``).
@@ -39,6 +72,8 @@ without CUDA and without an explicit device, construction raises.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -64,7 +99,14 @@ from crowdllama_tpu_torch.ops.megastep import NO_BUDGET, run_decode_megastep
 from crowdllama_tpu_torch.ops.quant import MODES as QUANT_MODES
 from crowdllama_tpu_torch.ops.quant import quantize_kv, quantize_params
 from crowdllama_tpu_torch.parallel.mesh import Mesh, build_mesh
-from crowdllama_tpu_torch.parallel.sharding import shard_params
+from crowdllama_tpu_torch.parallel.pipeline import (
+    pp_decode_step,
+    pp_forward,
+    pp_hidden_states,
+)
+from crowdllama_tpu_torch.parallel.sharding import rank_groups, shard_params
+
+log = logging.getLogger("crowdllama.torch.engine.runner")
 
 KV_DTYPES = ("bf16", "int8")
 
@@ -120,10 +162,13 @@ class SlotState:
 class DecodeState(SlotState):
     """Contiguous-layout decode state."""
 
-    k_cache: torch.Tensor         # [L, B, Hkv, S, Dh] head-major (int8
-    v_cache: torch.Tensor         # with kv_dtype="int8")
-    k_scale: torch.Tensor | None = None  # [L, B, Hkv, S] bf16, int8 only
-    v_scale: torch.Tensor | None = None
+    # [L, B, Hkv, S, Dh] head-major (int8 with kv_dtype="int8"); on a
+    # mesh one shard a (dp, pp, sp, tp) rank, [L/pp, B/dp, Hkv/tp, S/sp, Dh]
+    k_cache: torch.Tensor | list[torch.Tensor]
+    v_cache: torch.Tensor | list[torch.Tensor]
+    # [L, B, Hkv, S] bf16 (per rank on a mesh), int8 only
+    k_scale: torch.Tensor | list[torch.Tensor] | None = None
+    v_scale: torch.Tensor | list[torch.Tensor] | None = None
 
 
 class ModelRunner:
@@ -156,39 +201,46 @@ class ModelRunner:
         self.kv_dtype = kv_dtype
         self.cfg = cfg
         self.mesh = self._build_mesh(mesh_shape, device, devices)
-        #: the tp ranks' devices, rank 0's first; the slot state, the
-        #: activations between layers and the logits live on rank 0's
+        self.dp, self.pp, self.sp, self.ep, self.tp = self.mesh.shape
+        #: every rank's device, in rank order, rank 0's first; the slot
+        #: state, sampling and the logits live on rank 0's
         self.devices = list(self.mesh.devices)
         self.device = self.devices[0]
-        self.tp = self.mesh.tp
+        #: the devices of the tp ranks of (dp, pp, sp, ep) = 0: where
+        #: prefill's KV and a paged runner's pools live
+        self.tp_devices = [self.mesh.device(tp=t) for t in range(self.tp)]
         self.max_slots = max_slots
         self.max_seq = max_seq or cfg.max_context_length
-        # Under tp the full weights are made (or quantized) on the host,
+        self._check_mesh()
+        # On a mesh the full weights are made (or quantized) on the host,
         # so no card ever holds more than its ranks' slices.
-        home = self.device if self.tp == 1 else "cpu"
+        one = self.mesh.size == 1
+        home = self.device if one else "cpu"
         if params is None:
             # Quantized weights are born quantized: the full-precision
             # tree never exists.
             params = init_params(cfg, seed, dtype=dtype, device=home,
                                  quantize=quantize)
         elif quantize:
-            # Given weights are quantized on the card at tp=1, else where
-            # they are (the ranks then copy their slices).
+            # Given weights are quantized on the card on one device, else
+            # where they are (the ranks then copy their slices).
             params = quantize_params(params, mode=quantize, device=(
-                self.device if self.tp == 1 else None))
-        #: the per-rank parameter dicts (one on one device); the full dict
-        #: is not kept
-        self.params = shard_params(params, cfg, self.mesh)
+                self.device if one else None))
+        #: the (dp, pp, sp) groups' tp lists of per-rank parameter dicts;
+        #: the full dict is not kept
+        self.groups = rank_groups(shard_params(params, cfg, self.mesh),
+                                  self.mesh)
+        del params
+        #: the group of (dp, pp, sp) = (0, 0, 0): the whole model unless pp
+        self.params = self.groups[(0, 0, 0)]
         self.dtype = self.params[0]["embed"].dtype
-        self.buckets = prefill_buckets(self.max_seq)
+        self.buckets = [b for b in prefill_buckets(self.max_seq)
+                        if b % self.sp == 0]
         self.windows = T.layer_sliding_windows(cfg)
         self.scale = T.attn_scale(cfg)
-        #: per-rank (cos, sin) rope tables; ranks on one device share a pair
-        tables: dict = {}
-        for d in self.devices:
-            if d not in tables:
-                tables[d] = T.rope_for(cfg, d)
-        self.ropes = [tables[d] for d in self.devices]
+        self._rope_tables: dict = {}  # device -> (cos, sin), shared
+        #: the (cos, sin) rope tables of ``params``' ranks
+        self.ropes = self._group_ropes(self.params)
         self.noise_w = noise_width(cfg.vocab_size)
         #: no-context prefill attention (kernel A) and contiguous decode
         #: attention (kernel D); seams that let a caller run the same step
@@ -199,20 +251,61 @@ class ModelRunner:
     def _build_mesh(self, mesh_shape: str, device,
                     devices: list | None) -> Mesh:
         """The runner's mesh: one device (``device``, else CUDA) unless a
-        mesh spec or a device list is given.  The contiguous layout serves
-        on one device only."""
+        mesh spec or a device list is given."""
         if not mesh_shape and devices is None:
             return Mesh.single(resolve_device(device))
         if device is not None:
             raise ValueError("pass device= or a mesh (mesh_shape=/devices=), "
                              "not both")
-        mesh = build_mesh(mesh_shape, devices)
-        if mesh.size > 1 and self.kv_layout != "paged":
-            raise NotImplementedError(
-                f"mesh {mesh.axes} on the {self.kv_layout} layout is not "
-                f"ported yet: multi-device meshes other than tp on the paged "
-                f"layout (ROADMAP Queue 1 item 8)")
-        return mesh
+        return build_mesh(mesh_shape, devices)
+
+    def _check_mesh(self) -> None:
+        """JAX's runner's mesh rules: max_slots rounds down to a multiple
+        of dp; sp needs max_seq % sp == 0; pp needs L % pp == 0 and no sp;
+        int8 KV serves without sp and pp; chunked admission is off on pp
+        and sp."""
+        dp, pp, sp = self.dp, self.pp, self.sp
+        if self.max_slots % dp:
+            self.max_slots = max(dp, (self.max_slots // dp) * dp)
+            log.warning("max_slots rounded to %d (dp=%d)", self.max_slots, dp)
+        if sp > 1 and self.max_seq % sp:
+            raise ValueError(f"max_seq {self.max_seq} must divide by sp={sp}")
+        if pp > 1 and sp > 1:
+            raise ValueError("pp x sp composition not supported yet")
+        if self.cfg.num_layers % pp:
+            raise ValueError(f"{self.cfg.num_layers} layers not divisible by "
+                             f"pp={pp}")
+        if self.kv_dtype == "int8" and (sp > 1 or pp > 1):
+            raise ValueError(
+                "int8 KV cache does not compose with sp/pp meshes yet")
+        if pp > 1 or sp > 1:
+            # Chunked admission runs the plain layer scan; pp needs the
+            # pipeline and sp the ring: monolithic prefill only.
+            self.prefill_chunk = 0
+
+    # --------------------------------------------------------- mesh groups
+
+    def _rope_on(self, device: torch.device):
+        if device not in self._rope_tables:
+            self._rope_tables[device] = T.rope_for(self.cfg, device)
+        return self._rope_tables[device]
+
+    def _group_ropes(self, group: list) -> list:
+        """(cos, sin) for each tp rank of ``group``, on its device."""
+        return [self._rope_on(p["final_norm"].device) for p in group]
+
+    def _stages(self, d: int) -> list:
+        """dp rank ``d``'s pipeline stages (their tp lists)."""
+        return [self.groups[(d, p, 0)] for p in range(self.pp)]
+
+    def _sp_groups(self, d: int) -> list:
+        """dp rank ``d``'s sp ranks (their tp lists)."""
+        return [self.groups[(d, 0, s)] for s in range(self.sp)]
+
+    def _cache_index(self, d: int, p: int, s: int, t: int) -> int:
+        """The (dp, pp, sp, tp) rank's index in a mesh state's cache
+        lists."""
+        return ((d * self.pp + p) * self.sp + s) * self.tp + t
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -339,21 +432,53 @@ class ModelRunner:
                 top_p: float, key=None, state=None, top_k: int = 0,
                 repeat_penalty: float = 1.0):
         """Bucketed monolithic prefill; returns (first_token, ks, vs, plen)
-        with ks/vs per rank [L, 1, Hkv/tp, bucket, Dh].  Padding positions
-        clamp to plen-1 and ``kv_valid`` excludes them.  ``state`` is accepted (and
-        ignored) so the scheduler passes its live state uniformly."""
+        with ks/vs one a (pp stage, tp rank), in that order,
+        [L/pp, 1, Hkv/tp, bucket, Dh] (under sp the shards' KV joined on
+        the tp rank's device).  Padding positions clamp to plen-1 and
+        ``kv_valid`` excludes them.  Runs on dp rank 0.  ``state`` is
+        accepted (and ignored) so the scheduler passes its live state
+        uniformly."""
+        cfg = self.cfg
         plen = len(prompt_ids)
         bucket = self.bucket_for(plen)
         ar = torch.arange(bucket, device=self.device, dtype=torch.int32)
         positions = torch.clamp(ar, max=plen - 1)[None]
         kv_valid = (ar < plen)[None]
-        x = T._embed(self.params, self.cfg, self._padded(prompt_ids, bucket))
-        x, ks, vs = T.scan_prefill_layers(
-            T.layer_stacks(self.params), self.windows, self.cfg, x, positions,
-            kv_valid=kv_valid, attention=self.prefill_attn, rope=self.ropes)
-        logits = T._unembed(self.params, self.cfg, x[:, plen - 1])
-        tok = self._sample_first(logits, prompt_ids, temperature, top_p,
-                                 key, top_k, repeat_penalty)
+        tokens = self._padded(prompt_ids, bucket)
+        if self.pp > 1:
+            stages = self._stages(0)
+            x, ks, vs = pp_forward(
+                stages, cfg, tokens, positions, kv_valid,
+                ropes=[self._group_ropes(g) for g in stages],
+                attention=self.prefill_attn)
+            ks = [k for stage in ks for k in stage]
+            vs = [v for stage in vs for v in stage]
+            logits = T._unembed(stages[-1], cfg, x[:, plen - 1])
+        elif self.sp > 1:
+            groups = self._sp_groups(0)
+            xs = [T._embed(g, cfg, tk)
+                  for g, tk in zip(groups, T.sp_split(tokens, groups))]
+            xs, kss, vss = T.scan_prefill_layers(
+                T.layer_stacks_sp(groups), self.windows, cfg, xs,
+                T.sp_split(positions, groups),
+                kv_valid=T.sp_split(kv_valid, groups),
+                rope=[self._group_ropes(g) for g in groups], sp=True)
+            shard, off = divmod(plen - 1, bucket // self.sp)
+            logits = T._unembed(groups[shard], cfg, xs[shard][:, off])
+            ks, vs = ([torch.cat([part[s][t].to(d) for s in range(self.sp)],
+                                 dim=3)
+                       for t, d in enumerate(self.tp_devices)]
+                      for part in (kss, vss))
+        else:
+            x = T._embed(self.params, cfg, tokens)
+            x, ks, vs = T.scan_prefill_layers(
+                T.layer_stacks(self.params), self.windows, cfg, x,
+                positions, kv_valid=kv_valid, attention=self.prefill_attn,
+                rope=self.ropes)
+            logits = T._unembed(self.params, cfg, x[:, plen - 1])
+        tok = self._sample_first(logits.to(self.device), prompt_ids,
+                                 temperature, top_p, key, top_k,
+                                 repeat_penalty)
         return tok, ks, vs, plen
 
     # ------------------------------------------------------ chunked prefill
@@ -389,7 +514,7 @@ class ModelRunner:
                  self.bucket_for(len(prompt_ids)), cfg.resolved_head_dim())
         return self.PrefillJob(list(prompt_ids), *(
             [torch.zeros(shape, dtype=self.dtype, device=d)
-             for d in self.devices] for _ in range(2)))
+             for d in self.tp_devices] for _ in range(2)))
 
     def prefill_step(self, job: "ModelRunner.PrefillJob") -> bool:
         """Run ONE chunk of the job's prompt; True when the prompt is done."""
@@ -487,9 +612,22 @@ class ModelRunner:
         ar = torch.arange(t, device=self.device, dtype=torch.int32)[None]
         positions = torch.minimum(ar, plens[:, None] - 1).contiguous()
         kv_valid = (ar < plens[:, None]).contiguous()
-        h = T.hidden_states(self.params, self.cfg, tokens, positions,
-                            kv_valid=kv_valid, attention=self.prefill_attn,
-                            rope=self.ropes)
+        if self.pp > 1:  # the microbatch pipeline, as prefill
+            stages = self._stages(0)
+            h = pp_hidden_states(
+                stages, self.cfg, tokens, positions, kv_valid,
+                ropes=[self._group_ropes(g) for g in stages],
+                attention=self.prefill_attn).to(self.device)
+        elif self.sp > 1:  # the ring, as prefill
+            groups = self._sp_groups(0)
+            h = T.hidden_states(
+                groups, self.cfg, tokens, positions, kv_valid=kv_valid,
+                rope=[self._group_ropes(g) for g in groups],
+                sp=True).to(self.device)
+        else:
+            h = T.hidden_states(self.params, self.cfg, tokens, positions,
+                                kv_valid=kv_valid,
+                                attention=self.prefill_attn, rope=self.ropes)
         mask = kv_valid[..., None].float()
         pooled = (h.float() * mask).sum(1) / mask.sum(1).clamp_min(1.0)
         return pooled / pooled.norm(dim=-1, keepdim=True).clamp_min(1e-9)
@@ -541,29 +679,70 @@ class ModelRunner:
         if kept is not None:
             return kept
         cfg = self.cfg
-        k, v, scales = self._kv_zeros(
-            (cfg.num_layers, self.max_slots, cfg.num_kv_heads, self.max_seq,
-             cfg.resolved_head_dim()))
-        return DecodeState(k_cache=k, v_cache=v, **scales,
+        if self.mesh.size == 1:
+            k, v, scales = self._kv_zeros(
+                (cfg.num_layers, self.max_slots, cfg.num_kv_heads,
+                 self.max_seq, cfg.resolved_head_dim()))
+            return DecodeState(k_cache=k, v_cache=v, **scales,
+                               **self._slot_fields())
+        shape = (cfg.num_layers // self.pp, self.max_slots // self.dp,
+                 cfg.num_kv_heads // self.tp, self.max_seq // self.sp,
+                 cfg.resolved_head_dim())
+        ks, vs, scales = [], [], {}
+        for d, p, s, t in itertools.product(range(self.dp), range(self.pp),
+                                            range(self.sp), range(self.tp)):
+            k, v, sc = self._kv_zeros(shape, self.mesh.device(
+                dp=d, pp=p, sp=s, tp=t))
+            ks.append(k)
+            vs.append(v)
+            for name, x in sc.items():
+                scales.setdefault(name, []).append(x)
+        return DecodeState(k_cache=ks, v_cache=vs, **scales,
                            **self._slot_fields())
+
+    @staticmethod
+    def _ranks(x) -> list:
+        """A state's cache field as its list of rank shards."""
+        return x if isinstance(x, list) else [x]
 
     @torch.inference_mode()
     def insert(self, state: DecodeState, slot: int, ks, vs, plen: int,
                first_token: int, temperature: float, top_p: float,
                prompt_tokens: list[int] | None = None, slot_key=None,
                top_k: int = 0, repeat_penalty: float = 1.0) -> DecodeState:
-        """Write a prefilled sequence (ks/vs: one rank's [L, 1, Hkv, T, Dh],
-        quantized first on an int8 cache) into ``slot``; ``slot_key`` seeds the slot's
-        sampling stream (default: ``default_slot_key(slot)``)."""
-        (ks,), (vs,) = ks, vs
-        t = ks.shape[3]
-        if self.kv_dtype == "int8":
-            ks, k_sc = quantize_kv(ks, state.k_scale.dtype)
-            vs, v_sc = quantize_kv(vs, state.v_scale.dtype)
-            state.k_scale[:, slot, :, :t] = k_sc[:, 0]
-            state.v_scale[:, slot, :, :t] = v_sc[:, 0]
-        state.k_cache[:, slot, :, :t] = ks[:, 0].to(state.k_cache.dtype)
-        state.v_cache[:, slot, :, :t] = vs[:, 0].to(state.v_cache.dtype)
+        """Write a prefilled sequence (ks/vs as :meth:`prefill` returns
+        them, quantized first on an int8 cache) into ``slot``: its dp
+        rank's cache, each sp shard taking the positions it owns;
+        ``slot_key`` seeds the slot's sampling stream (default:
+        ``default_slot_key(slot)``)."""
+        t_len = ks[0].shape[3]
+        d, local = divmod(slot, self.max_slots // self.dp)
+        shard = self.max_seq // self.sp
+        kcs, vcs = self._ranks(state.k_cache), self._ranks(state.v_cache)
+        quantized = self.kv_dtype == "int8"
+        if quantized:
+            kss, vss = self._ranks(state.k_scale), self._ranks(state.v_scale)
+        for p, t in itertools.product(range(self.pp), range(self.tp)):
+            k, v = ks[p * self.tp + t], vs[p * self.tp + t]
+            if quantized:
+                k, k_sc = quantize_kv(k, kss[0].dtype)
+                v, v_sc = quantize_kv(v, vss[0].dtype)
+            for s in range(self.sp):
+                lo = s * shard
+                n = min(shard, t_len - lo)
+                if n <= 0:
+                    break
+                i = self._cache_index(d, p, s, t)
+                kc, vc = kcs[i], vcs[i]
+                kc[:, local, :, :n] = k[:, 0, :, lo:lo + n].to(kc.device,
+                                                               kc.dtype)
+                vc[:, local, :, :n] = v[:, 0, :, lo:lo + n].to(vc.device,
+                                                               vc.dtype)
+                if quantized:
+                    kss[i][:, local, :, :n] = k_sc[:, 0, :, lo:lo + n].to(
+                        kc.device)
+                    vss[i][:, local, :, :n] = v_sc[:, 0, :, lo:lo + n].to(
+                        kc.device)
         recent_row = self._recent_from_prompt(
             list(prompt_tokens or []), first_token, plen=plen)
         self._activate(state, slot, plen, first_token, temperature, top_p,
@@ -581,15 +760,55 @@ class ModelRunner:
 
     def decode_logits(self, st: DecodeState) -> torch.Tensor:
         """One decode step's forward for every slot: writes each token's KV
-        into the cache and returns logits [B, V] fp32 (no sampling)."""
+        into the cache and returns logits [B, V] fp32 on rank 0's device
+        (no sampling).  Each dp rank runs its slots on its own parameters
+        and cache: through its pipeline stages under pp, over the
+        sequence shards under sp."""
         positions = torch.clamp(st.seq_lens, max=self.max_seq - 1)
         lens = torch.clamp(st.seq_lens + 1, max=self.max_seq)
-        out = T.decode_step(self.params, self.cfg, st.tokens, positions,
-                            st.k_cache, st.v_cache, lens,
-                            rope=self.ropes,
-                            attention=self.decode_attn, k_scale=st.k_scale,
-                            v_scale=st.v_scale)
-        return out[0]
+        kcs, vcs = self._ranks(st.k_cache), self._ranks(st.v_cache)
+        quantized = st.k_scale is not None
+        kss = self._ranks(st.k_scale) if quantized else None
+        vss = self._ranks(st.v_scale) if quantized else None
+        per = self.max_slots // self.dp
+        tps = range(self.tp)
+        outs = []
+        for d in range(self.dp):
+            sl = slice(d * per, (d + 1) * per)
+            dev = self.mesh.device(dp=d)
+            tok, pos, ln = (x[sl].to(dev) for x in (st.tokens, positions,
+                                                    lens))
+            if self.pp > 1:
+                stages = self._stages(d)
+                idx = [[self._cache_index(d, p, 0, t) for t in tps]
+                       for p in range(self.pp)]
+                logits = pp_decode_step(
+                    stages, self.cfg, tok.long(), pos,
+                    [[kcs[i] for i in row] for row in idx],
+                    [[vcs[i] for i in row] for row in idx], ln,
+                    ropes=[self._group_ropes(g) for g in stages],
+                    attention=self.decode_attn)
+            else:
+                group = self.groups[(d, 0, 0)]
+                if self.sp > 1:
+                    idx = [[self._cache_index(d, 0, s, t)
+                            for s in range(self.sp)] for t in tps]
+                    kc = [[kcs[i] for i in row] for row in idx]
+                    vc = [[vcs[i] for i in row] for row in idx]
+                else:
+                    idx = [self._cache_index(d, 0, 0, t) for t in tps]
+                    kc, vc = [kcs[i] for i in idx], [vcs[i] for i in idx]
+                x = T._embed(group, self.cfg, tok.long())
+                x = T.scan_decode_layers(
+                    T.layer_stacks(group), self.windows, self.cfg, x, pos,
+                    kc, vc, ln, self._group_ropes(group),
+                    attention=self.decode_attn,
+                    k_scale=[kss[i] for i in idx] if quantized else None,
+                    v_scale=[vss[i] for i in idx] if quantized else None,
+                    sp=self.sp > 1)
+                logits = T._unembed(group, self.cfg, x)
+            outs.append(logits.to(self.device))
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     @torch.inference_mode()
     def decode_steps_device(self, state: DecodeState, num_steps: int = 1):
@@ -665,8 +884,8 @@ class ModelRunner:
         drive the flags; the defaults disable both, which makes it
         :meth:`decode_steps_device` plus all-false flags.  Host bookkeeping
         assumes the full K.  On CUDA the flight is one replay of the
-        graph for (layout, kv dtype, tp, K, sampled); on the CPU the
-        harness runs eagerly."""
+        graph for (layout, kv dtype, mesh shape, K, sampled); on the CPU
+        the harness runs eagerly."""
         check_megastep(num_steps, self.devices)
         eos_ids, budgets = self._mega_limits_dev(eos_ids, budgets)
         values = {"eos_ids": eos_ids, "budgets": budgets,
@@ -690,8 +909,8 @@ class ModelRunner:
         if graphs is None:
             tokens, done = body(values)
         else:
-            key = (self.kv_layout, self.kv_dtype, self.tp, num_steps,
-                   noise is not None)
+            key = (self.kv_layout, self.kv_dtype, self.mesh.shape,
+                   num_steps, noise is not None)
             graph = graphs.graph(
                 key, state,
                 lambda: {k: torch.zeros(v.shape, dtype=v.dtype,

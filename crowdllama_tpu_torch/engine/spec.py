@@ -235,10 +235,16 @@ class _AdaptiveDraftLen:
 
 class SpecModelRunner(_AdaptiveDraftLen, ModelRunner):
     """n-gram speculation on the contiguous cache (bf16 only: the verify
-    forward reads the cache directly as attention context)."""
+    forward reads the cache directly as attention context), on one device
+    or a dp / tp mesh: each dp rank verifies its slots on its own
+    parameters over its cache shards (one a tp rank).  sp and pp meshes
+    are refused, as in the JAX package."""
 
     def __init__(self, cfg, *args, draft_len: int = 4, **kwargs):
         super().__init__(cfg, *args, **kwargs)
+        if self.sp > 1 or self.pp > 1:
+            raise ValueError(
+                "speculative decode does not compose with sp/pp meshes yet")
         if self.kv_dtype != "bf16":
             raise ValueError("speculative decode on the contiguous layout "
                              "requires the bf16 KV cache")
@@ -261,19 +267,59 @@ class SpecModelRunner(_AdaptiveDraftLen, ModelRunner):
                        first_token)
         return state
 
+    def _dp_ranks(self):
+        """Per dp rank: (its slot rows, its tp ranks' cache indices)."""
+        per = self.max_slots // self.dp
+        return [(slice(d * per, (d + 1) * per),
+                 [self._cache_index(d, 0, 0, t) for t in range(self.tp)])
+                for d in range(self.dp)]
+
     def _verify_context(self, st, table):
+        """Per dp rank, per tp rank, the cache shards (ctx_k, ctx_v), and
+        ctx_valid [B, S]."""
+        kcs, vcs = self._ranks(st.k_cache), self._ranks(st.v_cache)
         valid = (torch.arange(self.max_seq, device=self.device)[None, :]
                  < st.seq_lens[:, None])
-        return [st.k_cache], [st.v_cache], valid
+        ranks = self._dp_ranks()
+        return ([[kcs[i] for i in idx] for _, idx in ranks],
+                [[vcs[i] for i in idx] for _, idx in ranks], valid)
+
+    def verify_forward(self, st, table, seq_drafts: torch.Tensor):
+        """The mixin's verify forward, each dp rank's slots on its own
+        group: ks/vs per dp rank, per tp rank [L, B/dp, Hkv/tp, J, Dh]."""
+        cfg, dev = self.cfg, self.device
+        j = 1 + seq_drafts.shape[1]
+        positions = torch.clamp(
+            st.seq_lens[:, None] + torch.arange(j, device=dev,
+                                                dtype=torch.int32),
+            max=self.max_seq - 1)                               # [B, J]
+        seq_tok = torch.cat([st.tokens[:, None], seq_drafts], dim=1)
+        ctx_k, ctx_v, ctx_valid = self._verify_context(st, table)
+        logits, ks, vs = [], [], []
+        for d, (rows, _) in enumerate(self._dp_ranks()):
+            group = self.groups[(d, 0, 0)]
+            gdev = self.mesh.device(dp=d)
+            x = T._embed(group, cfg, seq_tok[rows].long().to(gdev))
+            x, k, v = T.scan_prefill_layers(
+                T.layer_stacks(group), self.windows, cfg, x,
+                positions[rows].to(gdev), ctx_k=ctx_k[d], ctx_v=ctx_v[d],
+                ctx_valid=ctx_valid[rows].to(gdev),
+                rope=self._group_ropes(group))
+            logits.append(T._unembed(group, cfg, x).to(dev))
+            ks.append(k)
+            vs.append(v)
+        return torch.cat(logits), positions, ks, vs
 
     def _verify_scatter(self, st, table, positions, ks, vs) -> None:
-        bidx = torch.arange(self.max_slots, device=self.device)[:, None]
+        kcs, vcs = self._ranks(st.k_cache), self._ranks(st.v_cache)
         pos = positions.long()
-        (k,), (v,) = ks, vs
-        st.k_cache[:, bidx, :, pos] = k.permute(1, 3, 0, 2, 4).to(
-            st.k_cache.dtype)
-        st.v_cache[:, bidx, :, pos] = v.permute(1, 3, 0, 2, 4).to(
-            st.v_cache.dtype)
+        for (rows, idx), kd, vd in zip(self._dp_ranks(), ks, vs):
+            for i, k, v in zip(idx, kd, vd):
+                kc, vc = kcs[i], vcs[i]
+                p = pos[rows].to(kc.device)
+                bidx = torch.arange(p.shape[0], device=kc.device)[:, None]
+                kc[:, bidx, :, p] = k.permute(1, 3, 0, 2, 4).to(kc.dtype)
+                vc[:, bidx, :, p] = v.permute(1, 3, 0, 2, 4).to(vc.dtype)
 
     @torch.inference_mode()
     def decode_steps_device(self, state, num_steps: int = 1):

@@ -22,13 +22,24 @@ against the plain one swaps this module's ``grouped_gemm`` for
 ``grouped_gemm_plain`` (both products look it up at each call).
 
 Tensor parallelism: the forward functions take ``shards``, the list of
-per-rank parameter dicts that ``parallel/sharding.py shard_params`` makes
-(one dict on one device).  Each rank computes its heads and its slice of
-the MLP on its device; the row-parallel products, the embedding and the
-logits go through the sharding module's reductions, which pass a single
-rank's tensor through untouched.  The values that are per rank (K/V,
-attention inputs and outputs, ``rope`` tables) are per-rank lists too.
-The activations between layers are one tensor on rank 0's device.
+per-rank parameter dicts of one (dp, pp, sp) coordinate that
+``parallel/sharding.py rank_groups`` makes (one dict on one device).  Each
+rank computes its heads and its slice of the MLP on its device; the
+row-parallel products, the embedding and the logits go through the
+sharding module's reductions, which pass a single rank's tensor through
+untouched.  The values that are per rank (K/V, attention inputs and
+outputs, ``rope`` tables) are per-rank lists too.  The activations
+between layers are one tensor on rank 0's device.  Expert parallelism: an
+expert leaf sharded on ep is an ``ExpertBanks``; each bank runs kernel G
+over the rows routed to its experts on its device and the rows join in
+the one-device combine order (:func:`_expert_ffn`).  Sequence
+parallelism (``sp=True`` in :func:`scan_prefill_layers`,
+:func:`hidden_states` and :func:`scan_decode_layers`): prefill runs each
+sp rank's token shard on its own parameters with the ring attention of
+``ops/ring.py`` between them; decode writes and reads the sequence-
+sharded cache through ``sp_cache_update`` / ``sp_decode_attention``.
+Pipeline stages run these layer scans over their own layers
+(``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -49,8 +60,14 @@ from crowdllama_tpu_torch.ops.attention import (
 from crowdllama_tpu_torch.ops.cuda.gemm import grouped_gemm
 from crowdllama_tpu_torch.ops.norms import rms_norm
 from crowdllama_tpu_torch.ops.quant import QTensor, qeinsum, quantize_kv
+from crowdllama_tpu_torch.ops.ring import (
+    ring_prefill_attention,
+    sp_cache_update,
+    sp_decode_attention,
+)
 from crowdllama_tpu_torch.ops.rope import apply_rope, rope_table
 from crowdllama_tpu_torch.parallel.sharding import (
+    ExpertBanks,
     row_parallel_sum,
     vocab_embed,
     vocab_gather,
@@ -146,6 +163,11 @@ def layer_stacks(shards: list[Params]) -> list[Params]:
     return [p["layers"] for p in shards]
 
 
+def layer_stacks_sp(groups: list[list[Params]]) -> list[list[Params]]:
+    """Each sp rank's :func:`layer_stacks`."""
+    return [layer_stacks(g) for g in groups]
+
+
 def layer_params(layers: list[Params], i: int) -> list[Params]:
     """Layer ``i`` of each rank's stacked layer weights."""
     return [{k: w[i] for k, w in stack.items()} for stack in layers]
@@ -212,14 +234,41 @@ def _route_topk(lp: Params, cfg: ModelConfig, x: torch.Tensor):
     return torch.softmax(top[..., :k], dim=-1), ids[..., :k]
 
 
+def _bank_ffn(w_gate, w_up, w_down, xs: torch.Tensor,
+              offsets: torch.Tensor) -> torch.Tensor:
+    """One bank's SwiGLU over rows grouped by expert: three grouped
+    products."""
+    gate = grouped_gemm(xs, w_gate, offsets)
+    up = grouped_gemm(xs, w_up, offsets)
+    act = (F.silu(gate) * up).to(xs.dtype)
+    return grouped_gemm(act, w_down, offsets)
+
+
 def _expert_ffn(lp: Params, xs: torch.Tensor,
                 offsets: torch.Tensor) -> torch.Tensor:
     """The experts' SwiGLU over rows grouped by expert (``offsets``
-    [E + 1] int32 on the device): three grouped products."""
-    gate = grouped_gemm(xs, lp["w_gate"], offsets)
-    up = grouped_gemm(xs, lp["w_up"], offsets)
-    act = (F.silu(gate) * up).to(xs.dtype)
-    return grouped_gemm(act, lp["w_down"], offsets)
+    [E + 1] int32 on the device).  With the banks sharded on ep
+    (``ExpertBanks``) each bank runs on its device over the rows of its
+    experts (``offsets[lo:hi + 1]``: kernel G writes only the rows of a
+    group) and its rows are taken into the result where they lie, so the
+    rows, and the combine after, are the one-device ones."""
+    if not isinstance(lp["w_gate"], ExpertBanks):
+        return _bank_ffn(lp["w_gate"], lp["w_up"], lp["w_down"], xs, offsets)
+    n_banks = len(lp["w_gate"])
+    per = (offsets.shape[0] - 1) // n_banks
+    rows = torch.arange(xs.shape[0], device=xs.device)
+    out = None
+    for b, (wg, wu, wd) in enumerate(zip(lp["w_gate"].banks,
+                                         lp["w_up"].banks,
+                                         lp["w_down"].banks)):
+        dev = wg.device
+        lo, hi = b * per, (b + 1) * per
+        y = _bank_ffn(wg, wu, wd, xs.to(dev), offsets[lo:hi + 1].to(dev))
+        y = y.to(xs.device)
+        mine = ((rows >= offsets[lo]) & (rows < offsets[hi]))[:, None]
+        out = torch.where(mine, y, torch.zeros_like(y) if out is None
+                          else out)
+    return out
 
 
 def _moe_dense(lp: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -325,10 +374,17 @@ def scan_prefill_layers(layers: list[Params], windows: list[int],
                         ctx_k: list | None = None, ctx_v: list | None = None,
                         ctx_valid: torch.Tensor | None = None,
                         attention: Callable = prefill_attention,
-                        rope: list | None = None):
+                        rope: list | None = None, sp: bool = False):
     """Run every decoder layer over x [B, T, D] (``layers``: each rank's
     stacked weights); returns (x, ks, vs) with ks/vs per rank, each
     [L, B, Hkv/tp, T, Dh] head-major and contiguous on its rank's device.
+
+    With ``sp`` the sequence is sharded over the sp ranks: ``layers``,
+    ``x`` ([B, T/sp, D]), ``positions``, ``kv_valid`` and ``rope`` are
+    lists over the sp ranks (each entry what the one-rank call takes),
+    attention is :func:`ring_prefill_attention` between the shards, and
+    the result is (xs, ks, vs) with ks/vs per sp rank per tp rank
+    [L, B, Hkv/tp, T/sp, Dh].  No prefix context under sp.
 
     With ``ctx_k``/``ctx_v`` (per rank [L, B, Hkv/tp, C, Dh], ``ctx_valid``
     [B, C]) the batch is a suffix continuing a cached prefix: queries
@@ -337,6 +393,10 @@ def scan_prefill_layers(layers: list[Params], windows: list[int],
     ``attention`` is the no-context attention function (kernel A's
     dispatch by default).  ``rope`` is the per-rank (cos, sin) pairs
     (built here when None; a runner passes its own)."""
+    if sp:
+        assert ctx_k is None, "prefix-context prefill does not compose with sp"
+        return _scan_prefill_sp(layers, windows, cfg, x, positions, kv_valid,
+                                rope)
     scale = attn_scale(cfg)
     ropes = _ropes(rope, cfg, layers)
     if ctx_k is None:
@@ -375,6 +435,65 @@ def scan_prefill_layers(layers: list[Params], windows: list[int],
     return x, [torch.stack(k) for k in ks], [torch.stack(v) for v in vs]
 
 
+def _scan_prefill_sp(layers: list, windows: list[int], cfg: ModelConfig,
+                     xs: list, positions: list, kv_valid: list | None,
+                     rope: list | None):
+    """:func:`scan_prefill_layers` with the sequence on sp (its ``sp``
+    branch): each sp rank's token shard through its own layers, the ring
+    between the shards of each tp rank."""
+    scale = attn_scale(cfg)
+    n = len(layers)
+    ropes = [_ropes(None if rope is None else rope[s], cfg, layers[s])
+             for s in range(n)]
+    if kv_valid is None:
+        kv_valid = [None] * n
+    tp = len(layers[0])
+    ks = [[[] for _ in range(tp)] for _ in range(n)]
+    vs = [[[] for _ in range(tp)] for _ in range(n)]
+    for i, window in enumerate(windows):
+        lps = [layer_params(stack, i) for stack in layers]
+        qkv = []  # per sp rank, per tp rank: (q, k, v, positions, valid)
+        for s in range(n):
+            h = _norm(xs[s], lps[s][0]["ln1"], cfg)
+            row = []
+            for r, lp in enumerate(lps[s]):
+                dev = lp["wq"].device
+                pos = positions[s].to(dev)
+                valid = (torch.ones(pos.shape, dtype=torch.bool, device=dev)
+                         if kv_valid[s] is None else kv_valid[s].to(dev))
+                q, k, v = _qkv(lp, cfg, h.to(dev))
+                cos, sin = ropes[s][r]
+                q = apply_rope(q, pos, cos, sin)
+                k = apply_rope(k, pos, cos, sin)
+                row.append((q, k, v, pos, valid))
+                ks[s][r].append(k.transpose(1, 2).contiguous())
+                vs[s][r].append(v.transpose(1, 2).contiguous())
+            qkv.append(row)
+        attns = [[None] * tp for _ in range(n)]
+        for r in range(tp):
+            outs = ring_prefill_attention(
+                [qkv[s][r][0] for s in range(n)],
+                [qkv[s][r][1] for s in range(n)],
+                [qkv[s][r][2] for s in range(n)],
+                [qkv[s][r][3] for s in range(n)], scale,
+                softcap=cfg.attn_logit_softcap, sliding_window=window,
+                kv_valid=[qkv[s][r][4] for s in range(n)])
+            for s in range(n):
+                b, t = outs[s].shape[:2]
+                attns[s][r] = outs[s].reshape(b, t, -1)
+        xs = [_residual_tail(lps[s], cfg, xs[s], attns[s]) for s in range(n)]
+    return (xs, [[torch.stack(k) for k in row] for row in ks],
+            [[torch.stack(v) for v in row] for row in vs])
+
+
+def sp_split(x: torch.Tensor, groups: list[list[Params]]) -> list:
+    """x [B, T, ...] cut along T into one shard per sp rank, each on its
+    rank's device (``groups``: the sp ranks' tp lists)."""
+    parts = x.chunk(len(groups), dim=1)
+    return [p.to(g[0]["final_norm"].device).contiguous()
+            for p, g in zip(parts, groups)]
+
+
 def prefill(shards: list[Params], cfg: ModelConfig, tokens: torch.Tensor,
             positions: torch.Tensor, kv_valid: torch.Tensor | None = None,
             ctx_k=None, ctx_v=None, ctx_valid=None,
@@ -394,9 +513,24 @@ def hidden_states(shards: list[Params], cfg: ModelConfig,
                   tokens: torch.Tensor, positions: torch.Tensor,
                   kv_valid: torch.Tensor | None = None,
                   attention: Callable = prefill_attention,
-                  rope=None) -> torch.Tensor:
+                  rope=None, sp: bool = False) -> torch.Tensor:
     """Final-norm hidden states [B, T, D]: the embeddings forward (the
-    prefill layer stack without the vocab projection)."""
+    prefill layer stack without the vocab projection).  With ``sp``,
+    ``shards`` and ``rope`` are per sp rank and the sequence is sharded
+    over them (ring attention); the shards' states are gathered on the
+    first rank's device."""
+    if sp:
+        groups = shards
+        xs = [_embed(g, cfg, t.to(g[0]["final_norm"].device))
+              for g, t in zip(groups, sp_split(tokens, groups))]
+        xs, _, _ = scan_prefill_layers(
+            layer_stacks_sp(groups), layer_sliding_windows(cfg), cfg, xs,
+            sp_split(positions, groups),
+            kv_valid=None if kv_valid is None else sp_split(kv_valid, groups),
+            rope=rope, sp=True)
+        dev = groups[0][0]["final_norm"].device
+        x = torch.cat([x.to(dev) for x in xs], dim=1)
+        return _norm(x, groups[0][0]["final_norm"], cfg)
     x = _embed(shards, cfg, tokens)
     x, _, _ = scan_prefill_layers(layer_stacks(shards),
                                   layer_sliding_windows(cfg), cfg, x,
@@ -429,47 +563,73 @@ def decode_layer_body(lps: list[Params], cfg: ModelConfig, x: torch.Tensor,
 
 def scan_decode_layers(layers: list[Params], windows: list[int],
                        cfg: ModelConfig, x: torch.Tensor,
-                       positions: torch.Tensor, k_cache: torch.Tensor,
-                       v_cache: torch.Tensor, seq_lens: torch.Tensor,
-                       rope: list, attention: Callable = decode_attention,
-                       k_scale: torch.Tensor | None = None,
-                       v_scale: torch.Tensor | None = None) -> torch.Tensor:
+                       positions: torch.Tensor, k_cache, v_cache,
+                       seq_lens: torch.Tensor, rope: list,
+                       attention: Callable = decode_attention,
+                       k_scale=None, v_scale=None,
+                       sp: bool = False) -> torch.Tensor:
     """Every decoder layer over one token per slot, x [B, D], against the
-    contiguous cache [L, B, Hkv, S, Dh] on one device (``layers`` and
-    ``rope`` are one rank's): each layer writes its token's K/V at
-    ``positions`` in place, then attends over ``seq_lens`` keys
-    (``attention``: kernel D's dispatch by default).  With ``k_scale`` /
-    ``v_scale`` [L, B, Hkv, S] the caches are int8: the token's K/V are
-    quantized on write (values and scales at ``positions``) and attention
-    is the plain :func:`decode_attention_q`.  Returns x."""
-    scale = attn_scale(cfg)
-    slot_idx = torch.arange(x.shape[0], device=x.device)
-    pos = positions.long()
+    contiguous cache (``layers`` and ``rope``: each tp rank's): each layer
+    writes its token's K/V at ``positions`` in place, then attends over
+    ``seq_lens`` keys (``attention``: kernel D's dispatch by default).
+    ``k_cache``/``v_cache`` are the cache [L, B, Hkv, S, Dh] of a
+    one-rank model, or one a tp rank [L, B, Hkv/tp, S, Dh] on the rank's
+    device.  With ``k_scale`` / ``v_scale`` (the same per rank, [L, B,
+    Hkv, S]) the caches are int8: the token's K/V are quantized on write
+    (values and scales at ``positions``) and attention is the plain
+    :func:`decode_attention_q`.  With ``sp`` each rank's entry is a list
+    of its sequence shards [L, B, Hkv/tp, S/sp, Dh]: the token is written
+    by :func:`sp_cache_update` and attention is
+    :func:`sp_decode_attention` (no int8 cache under sp).  Returns x."""
     quantized = k_scale is not None
+    if quantized:
+        assert not sp, "int8 KV cache does not compose with sp yet"
+    per_rank = isinstance(k_cache, list)
+    kcs = k_cache if per_rank else [k_cache]
+    vcs = v_cache if per_rank else [v_cache]
+    kss = (k_scale if per_rank else [k_scale]) if quantized else None
+    vss = (v_scale if per_rank else [v_scale]) if quantized else None
+    scale = attn_scale(cfg)
     kw = dict(softcap=cfg.attn_logit_softcap)
-    for i, window in enumerate(windows):
-        kc, vc = k_cache[i], v_cache[i]
+    on_dev: dict = {}  # device -> (slot indices, positions, seq_lens)
 
-        if quantized:
-            def attn_fn(qs, ks, vs, kc=kc, vc=vc, k_sc=k_scale[i],
-                        v_sc=v_scale[i], window=window):
-                (q,), (k,), (v,) = qs, ks, vs
-                kq, k_row = quantize_kv(k, k_sc.dtype)  # [B,Hkv,Dh], [B,Hkv]
-                vq, v_row = quantize_kv(v, v_sc.dtype)
-                kc[slot_idx, :, pos] = kq
-                vc[slot_idx, :, pos] = vq
-                k_sc[slot_idx, :, pos] = k_row
-                v_sc[slot_idx, :, pos] = v_row
-                return [decode_attention_q(q, kc, k_sc, vc, v_sc, seq_lens,
-                                           scale, sliding_window=window,
-                                           **kw)]
-        else:
-            def attn_fn(qs, ks, vs, kc=kc, vc=vc, window=window):
-                (q,), (k,), (v,) = qs, ks, vs
-                kc[slot_idx, :, pos] = k.to(kc.dtype)
-                vc[slot_idx, :, pos] = v.to(vc.dtype)
-                return [attention(q, kc, vc, seq_lens, scale,
-                                  sliding_window=window, **kw)]
+    def idx(dev):
+        if dev not in on_dev:
+            on_dev[dev] = (torch.arange(x.shape[0], device=dev),
+                           positions.to(dev).long(), seq_lens.to(dev))
+        return on_dev[dev]
+
+    for i, window in enumerate(windows):
+
+        def attn_fn(qs, ks, vs, i=i, window=window):
+            outs = []
+            for r, (q, k, v) in enumerate(zip(qs, ks, vs)):
+                slot_idx, pos, lens = idx(q.device)
+                if sp:
+                    kc = [c[i] for c in kcs[r]]
+                    vc = [c[i] for c in vcs[r]]
+                    sp_cache_update(k, v, pos, kc, vc)
+                    outs.append(sp_decode_attention(
+                        q, kc, vc, lens, scale, sliding_window=window, **kw))
+                    continue
+                kc, vc = kcs[r][i], vcs[r][i]
+                if quantized:
+                    k_sc, v_sc = kss[r][i], vss[r][i]
+                    kq, k_row = quantize_kv(k, k_sc.dtype)  # [B,Hkv,Dh]
+                    vq, v_row = quantize_kv(v, v_sc.dtype)
+                    kc[slot_idx, :, pos] = kq
+                    vc[slot_idx, :, pos] = vq
+                    k_sc[slot_idx, :, pos] = k_row
+                    v_sc[slot_idx, :, pos] = v_row
+                    outs.append(decode_attention_q(
+                        q, kc, k_sc, vc, v_sc, lens, scale,
+                        sliding_window=window, **kw))
+                else:
+                    kc[slot_idx, :, pos] = k.to(kc.dtype)
+                    vc[slot_idx, :, pos] = v.to(vc.dtype)
+                    outs.append(attention(q, kc, vc, lens, scale,
+                                          sliding_window=window, **kw))
+            return outs
 
         x = decode_layer_body(layer_params(layers, i), cfg, x, positions,
                               rope, attn_fn)

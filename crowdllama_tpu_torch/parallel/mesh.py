@@ -6,14 +6,19 @@ Counterpart of ``crowdllama_tpu/parallel/mesh.py``: the same spec strings
 ep=D, tp=E) and the same automatic choices (:func:`largest_tp`,
 :func:`choose_mesh_shape`).
 
-Tensor parallelism in the port is single-controller, as in the JAX
-package: one process drives every shard.  A :class:`Mesh` is therefore a
-record, not a communicator: the axis sizes and the devices of the tp
-ranks, in rank order.  Each rank's weights, KV pools and scales live on
-its device; the few reductions GSPMD derives are written out in
-``parallel/sharding.py``.  The default device list is the visible CUDA
+Every in-mesh axis in the port is single-controller, as in the JAX
+package: one process drives every rank.  A :class:`Mesh` is therefore a
+record, not a communicator: the axis sizes and the device of each rank,
+the ranks in the row-major order of JAX's device array (tp fastest, then
+ep, sp, pp, dp), with each rank's (dp, pp, sp, ep, tp) coordinates
+(:meth:`Mesh.coords`) and the ranks along one axis
+(:meth:`Mesh.ranks_along`).  Each rank's weights, KV cache or pools and
+scales live on its device; the collectives GSPMD and ``shard_map``
+derive are written out in ``parallel/sharding.py``, ``ops/ring.py`` and
+``parallel/pipeline.py``.  The default device list is the visible CUDA
 devices, each once; an explicit list may name one device several times
-(virtual shards, as the JAX tests place shards on virtual CPU devices).
+(virtual ranks, as the JAX tests place shards on virtual CPU devices,
+or every rank on one card).
 """
 
 from __future__ import annotations
@@ -87,8 +92,9 @@ def visible_devices() -> list[torch.device]:
 
 @dataclass(frozen=True)
 class Mesh:
-    """Axis sizes and the devices of the mesh, in (dp, pp, sp, ep, tp)
-    row-major order; with only tp > 1 the devices are the tp ranks."""
+    """Axis sizes and the devices of the mesh, one a rank in (dp, pp, sp,
+    ep, tp) row-major order; with only tp > 1 the devices are the tp
+    ranks."""
 
     shape: tuple[int, int, int, int, int]
     devices: tuple[torch.device, ...]
@@ -98,12 +104,57 @@ class Mesh:
         return dict(zip(AXES, self.shape))
 
     @property
+    def dp(self) -> int:
+        return self.shape[0]
+
+    @property
+    def pp(self) -> int:
+        return self.shape[1]
+
+    @property
+    def sp(self) -> int:
+        return self.shape[2]
+
+    @property
+    def ep(self) -> int:
+        return self.shape[3]
+
+    @property
     def tp(self) -> int:
         return self.shape[-1]
 
     @property
     def size(self) -> int:
         return math.prod(self.shape)
+
+    def coords(self, rank: int) -> tuple[int, int, int, int, int]:
+        """Rank ``rank``'s (dp, pp, sp, ep, tp) coordinates (row-major,
+        as ``np.unravel_index`` over the shape)."""
+        out = []
+        for n in reversed(self.shape):
+            out.append(rank % n)
+            rank //= n
+        return tuple(reversed(out))
+
+    def rank(self, dp: int = 0, pp: int = 0, sp: int = 0, ep: int = 0,
+             tp: int = 0) -> int:
+        """The rank at these coordinates."""
+        r = 0
+        for c, n in zip((dp, pp, sp, ep, tp), self.shape):
+            if not 0 <= c < n:
+                raise ValueError(f"coordinate {c} outside an axis of {n}")
+            r = r * n + c
+        return r
+
+    def ranks_along(self, axis: str, **fixed: int) -> list[int]:
+        """The ranks along ``axis``, in order, with the other coordinates
+        ``fixed`` (0 where not given)."""
+        i = AXES.index(axis)
+        return [self.rank(**{**fixed, axis: c}) for c in range(self.shape[i])]
+
+    def device(self, **coords: int) -> torch.device:
+        """The device of the rank at ``coords`` (0 where not given)."""
+        return self.devices[self.rank(**coords)]
 
     @classmethod
     def single(cls, device: torch.device) -> "Mesh":

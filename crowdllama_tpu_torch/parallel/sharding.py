@@ -1,33 +1,48 @@
-"""Tensor-parallel partition rules and the reductions GSPMD derives.
+"""Partition rules over the (dp, pp, sp, ep, tp) mesh and the reductions
+GSPMD derives.
 
-Counterpart of ``crowdllama_tpu/parallel/sharding.py`` for the ``tp``
-axis: Megatron-style tensor parallelism with the JAX package's rules.
-Attention QKV (and the Qwen biases) and MLP gate/up are column-parallel
-(output dim on tp), attention output and MLP down row-parallel (input dim
-on tp), the embedding and the LM head vocab-sharded, norms replicated.
-MoE layers keep the router replicated and split every expert on F (gate
-and up column-parallel, down row-parallel), so each rank routes every
-token itself and its partial expert sums join the row-parallel sum.
-Query heads shard in kv-major order, so rank r holds kv heads
+Counterpart of ``crowdllama_tpu/parallel/sharding.py``: the same
+:func:`param_pspecs` and :func:`cache_pspec`.  Megatron-style tensor
+parallelism: attention QKV (and the Qwen biases) and MLP gate/up are
+column-parallel (output dim on tp), attention output and MLP down
+row-parallel (input dim on tp), the embedding and the LM head
+vocab-sharded, norms replicated.  Layer-stacked leaves put their leading
+layer axis on pp: a pipeline stage holds its contiguous ``L/pp`` layers
+(``parallel/pipeline.py``).  MoE layers keep the router replicated and
+shard the expert banks on ep along the expert axis, each expert still
+split on F over tp (gate and up column-parallel, down row-parallel), so
+each rank routes every token itself, runs its bank over the rows routed
+to its experts, and its partial expert sums join the row-parallel sum.
+Every other leaf is replicated over dp, sp and ep: each rank holds its own
+copy.  Query heads shard in kv-major order, so tp rank r holds kv heads
 ``[r * Hkv/tp, (r + 1) * Hkv/tp)`` and exactly the query heads that read
 them.  A quantized leaf (``ops/quant.py QTensor``) slices its values like
 the weight and its per-channel scales like the weight without its input
 axis; a ``QTensor4``'s group scales follow the weight's axes where they
 divide and are otherwise replicated (a slice of the packed output axis
-keeps nibble pairs whole).
+keeps nibble pairs whole).  The KV cache ``[L, B, Hkv, S, Dh]`` puts
+layers on pp, slots on dp (block-sharded: slot ``b`` lives on dp rank
+``b // (B/dp)``), kv heads on tp and the sequence on sp; int8 scales
+follow the cache without Dh.
 
 The JAX package leaves the collectives to GSPMD.  The port runs every
-shard from one process, so it writes them out:
+rank from one process, so it writes them out:
 
-- :func:`row_parallel_sum`: the sum of the shards' partial outputs after
+- :func:`row_parallel_sum`: the sum of the tp ranks' partial outputs after
   ``wo`` and after ``w_down``, in rank order;
 - :func:`vocab_embed`: the sum of the vocab-sharded embedding lookups
   (exact: every other shard adds zeros);
-- :func:`vocab_gather`: the gather of vocab-sharded logits.
+- :func:`vocab_gather`: the gather of vocab-sharded logits;
+- the ep combine: ``models/transformer.py _expert_ffn`` takes each
+  bank's rows from its rank and the per-token sum keeps the one-device
+  order, ascending by expert (``_moe_sorted``).
 
-Each returns its single input as it is when there is one shard, so a tp=1
-model (a list of one parameter dict) runs no extra operation.  The
-expert-parallel and pipeline (ep, pp) rules are not ported yet.
+Each reduction returns its single input as it is when there is one shard,
+so a one-device model (a list of one parameter dict) runs no extra
+operation.  :func:`shard_params` makes every rank's dict;
+:func:`rank_groups` bundles them into the tp lists the model's forward
+functions take, one for each (dp, pp, sp) coordinate, with an expert
+leaf sharded on ep as :class:`ExpertBanks`.
 """
 
 from __future__ import annotations
@@ -42,78 +57,99 @@ from crowdllama_tpu_torch.ops.quant import (
     QTensor4,
     drop_input_axis_spec,
 )
-from crowdllama_tpu_torch.parallel.mesh import AXIS_TP, Mesh
+from crowdllama_tpu_torch.parallel.mesh import (
+    AXES,
+    AXIS_DP,
+    AXIS_EP,
+    AXIS_PP,
+    AXIS_SP,
+    AXIS_TP,
+    Mesh,
+)
 
 Params = dict[str, Any]
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def param_pspecs(cfg: ModelConfig) -> Params:
     """Per-leaf partition tuples mirroring ``models.transformer.
-    init_params`` (layer leaves carry their leading layer axis); only the
-    tp axis is named."""
-    col = (None, None, AXIS_TP)   # [L, D, out] column-parallel
-    row = (None, AXIS_TP, None)   # [L, in, D] row-parallel
-    layers: Params = {"ln1": (None, None), "ln2": (None, None),
+    init_params``: JAX's ``PartitionSpec`` of each leaf as a tuple."""
+    col = (AXIS_PP, None, AXIS_TP)   # [L, D, out] column-parallel
+    row = (AXIS_PP, AXIS_TP, None)   # [L, in, D] row-parallel
+    vec = (AXIS_PP, None)            # [L, D] norms
+    layers: Params = {"ln1": vec, "ln2": vec,
                       "wq": col, "wk": col, "wv": col, "wo": row}
-    if cfg.is_moe:  # [L, E, D, F] / [L, E, F, D], experts split on F
-        layers.update(router=(None, None, None),
-                      w_gate=(None, None, None, AXIS_TP),
-                      w_up=(None, None, None, AXIS_TP),
-                      w_down=(None, None, AXIS_TP, None))
+    if cfg.attn_qkv_bias:  # [L, out] follows the column-parallel dim
+        layers.update(bq=(AXIS_PP, AXIS_TP), bk=(AXIS_PP, AXIS_TP),
+                      bv=(AXIS_PP, AXIS_TP))
+    if cfg.qk_norm:  # [L, Dh] per-head gains, replicated
+        layers.update(q_norm=vec, k_norm=vec)
+    if cfg.is_moe:  # [L, E, D, F] / [L, E, F, D]: experts on ep, F on tp
+        layers.update(router=(AXIS_PP, None, None),
+                      w_gate=(AXIS_PP, AXIS_EP, None, AXIS_TP),
+                      w_up=(AXIS_PP, AXIS_EP, None, AXIS_TP),
+                      w_down=(AXIS_PP, AXIS_EP, AXIS_TP, None))
     else:
         layers.update(w_gate=col, w_up=col, w_down=row)
-    if cfg.attn_qkv_bias:  # [L, out] follows the column-parallel dim
-        layers.update(bq=(None, AXIS_TP), bk=(None, AXIS_TP),
-                      bv=(None, AXIS_TP))
-    if cfg.qk_norm:  # [L, Dh] per-head gains, replicated
-        layers.update(q_norm=(None, None), k_norm=(None, None))
     if cfg.post_norms:
-        layers.update(post_ln1=(None, None), post_ln2=(None, None))
+        layers.update(post_ln1=vec, post_ln2=vec)
     specs: Params = {"embed": (AXIS_TP, None), "layers": layers,
-                     "final_norm": (None,)}
+                     "final_norm": ()}
     if not cfg.tie_word_embeddings:
         specs["lm_head"] = (None, AXIS_TP)  # [D, V]
     return specs
 
 
-def _slice_to(x, spec: tuple, rank: int, tp: int, device: torch.device):
-    """Rank ``rank``'s slice of ``x`` under ``spec`` as a contiguous copy on
-    ``device`` (replicated leaves are copied whole); a quantized leaf is
+def cache_pspec() -> tuple:
+    """The KV cache ``[L, B, Hkv, S, Dh]``: layers on pp, slots on dp, kv
+    heads on tp, sequence on sp (JAX's ``cache_pspec``); the int8 scales
+    ``[L, B, Hkv, S]`` take the same without the last axis."""
+    return (AXIS_PP, AXIS_DP, AXIS_TP, AXIS_SP, None)
+
+
+def _slice_to(x, spec: tuple, coords: dict, sizes: dict,
+              device: torch.device):
+    """The slice of ``x`` at the mesh ``coords`` (axis -> index) under
+    ``spec``, the axes of ``sizes`` (axis -> size), as a contiguous copy on
+    ``device`` (replicated axes are copied whole); a quantized leaf is
     sliced by :func:`_slice_quantized`."""
     if isinstance(x, QTensor):
-        return _slice_quantized(x, spec, rank, tp, device)
-    if AXIS_TP in spec:
-        dim = spec.index(AXIS_TP)
-        n = x.shape[dim]
-        if n % tp:
+        return _slice_quantized(x, spec, coords, sizes, device)
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        n, parts = x.shape[dim], sizes[axis]
+        if n % parts:
             raise ValueError(f"dim {dim} of size {n} does not split over "
-                             f"tp={tp}")
-        x = x.narrow(dim, rank * (n // tp), n // tp)
+                             f"{axis}={parts}")
+        x = x.narrow(dim, coords[axis] * (n // parts), n // parts)
     out = torch.empty(x.shape, dtype=x.dtype, device=device)
     out.copy_(x)
     return out
 
 
-def _slice_quantized(w: QTensor, spec: tuple, rank: int, tp: int,
+def _slice_quantized(w: QTensor, spec: tuple, coords: dict, sizes: dict,
                      device: torch.device) -> QTensor:
     """A quantized leaf's slice: ``q`` under the weight's spec (the packed
     axis of int4 splits in whole bytes); int8 scales under the spec
     without the input axis; int4 group scales under the weight's spec
-    where their axis divides over tp, else whole (which keeps each rank's
-    groups only when there is one group)."""
-    q = _slice_to(w.q, spec, rank, tp, device)
+    where their axis divides, else whole (which keeps each rank's groups
+    only when there is one group)."""
+    q = _slice_to(w.q, spec, coords, sizes, device)
     nd = w.q.dim()
     if not isinstance(w, QTensor4):
         s_spec = drop_input_axis_spec(spec, nd)
     else:
         axes = tuple(spec) + (None,) * (nd - len(spec))
-        s_spec = tuple(ax if ax is None or n % tp == 0 else None
+        s_spec = tuple(ax if ax is None or n % sizes[ax] == 0 else None
                        for n, ax in zip(w.s.shape, axes))
         if axes[-2] is not None and s_spec[-2] is None and w.s.shape[-2] > 1:
             raise ValueError(
                 f"int4 scales of {w.s.shape[-2]} groups do not split over "
-                f"tp={tp} with the weight's input axis")
-    return type(w)(q=q, s=_slice_to(w.s, s_spec, rank, tp, device))
+                f"{axes[-2]}={sizes[axes[-2]]} with the weight's input "
+                f"axis")
+    return type(w)(q=q, s=_slice_to(w.s, s_spec, coords, sizes, device))
 
 
 def _tree_map(fn, tree: Params, specs: Params | None = None) -> Params:
@@ -127,24 +163,75 @@ def _tree_map(fn, tree: Params, specs: Params | None = None) -> Params:
 
 def shard_params(params: Params, cfg: ModelConfig,
                  mesh: Mesh) -> list[Params]:
-    """The per-rank parameter dicts, each on its rank's device.  With tp=1
-    the one dict holds ``params``' own tensors when they are already on
-    the device (moved there otherwise).  With tp > 1 every leaf is a copy
-    of the rank's slice, so once the caller drops ``params`` (best kept on
-    the host) the ranks together hold one model's weights."""
-    if mesh.size != mesh.tp:
-        raise NotImplementedError(
-            f"mesh {mesh.axes}: only the tp axis is ported (dp/pp/sp/ep "
-            f"meshes: ROADMAP Queue 1 item 8)")
-    if mesh.tp == 1:
+    """Every rank's parameter dict, in rank order, each on its rank's
+    device.  On one device the one dict holds ``params``' own tensors when
+    they are already there (moved there otherwise).  On a mesh every leaf
+    is a copy of the rank's slice (replicated leaves whole), so once the
+    caller drops ``params`` (best kept on the host) the ranks together
+    hold what JAX's sharded pytree does.  An axis that does not divide
+    its dim raises (kv heads over tp checked by name: a head split inside
+    a head's columns would divide)."""
+    if mesh.size == 1:
         return [_tree_map(lambda x, _: x.to(mesh.devices[0]), params)]
     if cfg.num_kv_heads % mesh.tp:
         raise ValueError(f"{cfg.num_kv_heads} kv heads do not split over "
                          f"tp={mesh.tp}")
     specs = param_pspecs(cfg)
-    return [_tree_map(lambda x, spec: _slice_to(x, spec, r, mesh.tp, d),
-                      params, specs)
-            for r, d in enumerate(mesh.devices)]
+    out = []
+    for r, d in enumerate(mesh.devices):
+        coords = dict(zip(AXES, mesh.coords(r)))
+        out.append(_tree_map(
+            lambda x, spec, c=coords, d=d: _slice_to(x, spec, c, mesh.axes,
+                                                     d),
+            params, specs))
+    return out
+
+
+class ExpertBanks:
+    """An expert leaf sharded on ep: each ep rank's bank (``[..., E/ep,
+    ...]``, a tensor or a ``QTensor``) on its device, in rank order.
+    Indexing takes the leading axes of every bank (a layer of a stacked
+    leaf); ``device`` is the first bank's."""
+
+    def __init__(self, banks):
+        self.banks = tuple(banks)
+
+    def __getitem__(self, idx) -> "ExpertBanks":
+        return ExpertBanks(b[idx] for b in self.banks)
+
+    def __len__(self) -> int:
+        return len(self.banks)
+
+    @property
+    def device(self) -> torch.device:
+        return self.banks[0].device
+
+
+def rank_groups(shards: list[Params], mesh: Mesh) -> dict:
+    """The tp lists of parameter dicts the forward functions take, keyed
+    by (dp, pp, sp) coordinates: the dicts of the tp ranks at ep 0, with
+    each expert leaf replaced by the :class:`ExpertBanks` of the ep ranks
+    at the same (dp, pp, sp, tp) when ep > 1.  Attention and the dense
+    leaves run once over ep (JAX computes them on every ep rank, the same
+    function), so the other ep ranks' copies of them are not kept."""
+    groups = {}
+    for d in range(mesh.dp):
+        for p in range(mesh.pp):
+            for s in range(mesh.sp):
+                tps = []
+                for t in range(mesh.tp):
+                    base = shards[mesh.rank(d, p, s, 0, t)]
+                    if mesh.ep > 1 and "router" in base["layers"]:
+                        layers = dict(base["layers"])
+                        for k in EXPERT_LEAVES:
+                            layers[k] = ExpertBanks(
+                                shards[r]["layers"][k] for r in
+                                mesh.ranks_along(AXIS_EP, dp=d, pp=p, sp=s,
+                                                 tp=t))
+                        base = {**base, "layers": layers}
+                    tps.append(base)
+                groups[(d, p, s)] = tps
+    return groups
 
 
 def row_parallel_sum(parts: list[torch.Tensor]) -> torch.Tensor:

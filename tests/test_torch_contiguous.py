@@ -301,9 +301,10 @@ def test_unported_axes_raise_naming_the_roadmap_item(axis, value):
     an unknown KV dtype is refused.  Quantized weights are ported (ROADMAP
     Queue 1 item 10): int8 and int4 resolve on both layouts, normalized
     and carried in the plan as JAX's plan carries them, and an unknown
-    mode is refused as JAX refuses it.  A tp mesh is ported on the paged
-    layout only: the contiguous layout refuses it; an sp mesh is refused
-    on both."""
+    mode is refused as JAX refuses it.  Every in-mesh axis is ported
+    (ROADMAP Queue 1 item 8.1): a tp mesh serves on both layouts, and an
+    sp mesh serves on the contiguous layout, a paged request falling back
+    to it with JAX's note."""
     if axis == "quantize":
         from crowdllama_tpu.config import Configuration as JConfiguration
         from crowdllama_tpu.engine.plan import (
@@ -330,19 +331,23 @@ def test_unported_axes_raise_naming_the_roadmap_item(axis, value):
         with pytest.raises(ValueError, match="unknown kv dtype"):
             Configuration(kv_dtype="fp8")
         return
-    if axis == "mesh_shape" and value != "1x2":
-        for layout in ("paged", "contiguous"):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue 1 item 8"):
-                resolve_serving_plan(Configuration(mesh_shape=value,
-                                                   kv_layout=layout))
-        return
     if axis == "mesh_shape":
-        assert resolve_serving_plan(Configuration(
-            mesh_shape=value)).mesh_shape == value
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-            resolve_serving_plan(Configuration(mesh_shape=value,
-                                               kv_layout="contiguous"))
+        from crowdllama_tpu.config import Configuration as JConfiguration
+        from crowdllama_tpu.engine.plan import (
+            resolve_serving_plan as j_resolve_serving_plan,
+        )
+
+        sp = value != "1x2"
+        for layout in ("paged", "contiguous"):
+            plan = resolve_serving_plan(Configuration(mesh_shape=value,
+                                                      kv_layout=layout))
+            want = j_resolve_serving_plan(JConfiguration(
+                mesh_shape=value, kv_layout=layout), 8)
+            assert (plan.runner, plan.kv_layout, plan.notes) == (
+                want.runner, want.kv_layout, want.notes)
+            assert plan.mesh_shape == value
+            assert plan.kv_layout == ("contiguous" if sp else layout)
+            assert plan.fallback == (sp and layout == "paged")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         resolve_serving_plan(Configuration(**{axis: value}))

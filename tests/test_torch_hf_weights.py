@@ -18,7 +18,9 @@ against the JAX package's, and an engine serving an HF directory.
   shards and an index.
 - A draft runner on an HF ``spec_draft_path`` and
   ``GatewayDrafter.from_checkpoint`` on an HF directory give JAX's tokens.
-- A Mixtral directory raises, naming ROADMAP Queue 1 item 7.
+- A Mixtral directory loads: an MoE config, its tensors bit for bit as
+  JAX's ``params_from_hf`` loads them, and logits equal to the HF
+  model's and JAX's within tolerance.
 """
 
 import asyncio

@@ -51,6 +51,30 @@ def test_port_imports_no_jax(path):
     assert not _imported_roots(path) & FORBIDDEN
 
 
+def test_the_in_mesh_modules_are_covered():
+    """The sequence-parallel and pipeline modules are among the files the
+    two checks above walk, and the mesh runner's entry points refuse to
+    fall back to the CPU on their own."""
+    names = {str(p.relative_to(ROOT)) for p in PORT}
+    assert {"crowdllama_tpu_torch/ops/ring.py",
+            "crowdllama_tpu_torch/parallel/pipeline.py",
+            "crowdllama_tpu_torch/parallel/sharding.py",
+            "crowdllama_tpu_torch/engine/plan.py"} <= names
+
+
+def test_mesh_without_cuda_raises_instead_of_running_on_cpu(monkeypatch):
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.engine.runner import ModelRunner
+    from crowdllama_tpu_torch.models.config import get_config
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="have 0"):
+        ModelRunner(get_config("tiny-test"), mesh_shape="1x1x1x1x1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError):
+        TorchEngine(mesh_shape="2x1")
+
+
 def test_port_calls_no_library_attention():
     for path in PORT:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -211,7 +211,8 @@ def test_tp_slices_concatenate_back(kind, spec, shape, tp):
 
     spec = tuple(AXIS_TP if a == "tp" else None for a in spec)
     _, w = _qtensor_pair(kind, shape, 5)
-    ranks = [_slice_to(w, spec, r, tp, torch.device("cpu")) for r in range(tp)]
+    ranks = [_slice_to(w, spec, {AXIS_TP: r}, {AXIS_TP: tp},
+                       torch.device("cpu")) for r in range(tp)]
     axis = spec.index(AXIS_TP)
     np.testing.assert_array_equal(
         torch.cat([p.q for p in ranks], axis).numpy(), w.q.numpy())
@@ -229,7 +230,8 @@ def test_tp_refuses_int4_groups_that_do_not_split():
 
     _, w = _qtensor_pair("int4", (192, 64), 0)  # 3 groups
     with pytest.raises(ValueError, match="do not split"):
-        _slice_to(w, (AXIS_TP, None), 0, 2, torch.device("cpu"))
+        _slice_to(w, (AXIS_TP, None), {AXIS_TP: 0}, {AXIS_TP: 2},
+                  torch.device("cpu"))
 
 
 # ------------------------------------------------------------------- model

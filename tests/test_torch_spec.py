@@ -627,7 +627,7 @@ def _outcome(config_cls, resolve, **axes):
         return ("not ported", str(e))
     except ValueError as e:
         return ("error", str(e))
-    return ("ok", plan.runner, plan.kv_layout)
+    return ("ok", plan.runner, plan.kv_layout, plan.notes)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -635,9 +635,9 @@ def _outcome(config_cls, resolve, **axes):
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
 @pytest.mark.parametrize("spec_mode", ["", "ngram", "draft"])
 def test_plan_spec_axis_matches_jax(mesh, layout, kv_dtype, spec_mode):
-    """JAX's runner or refusal in every cell; where the JAX plan moves a
-    dp/sp/pp mesh to another layout the port refuses the mesh (Queue 1
-    item 8) instead."""
+    """JAX's runner, layout and notes, or its refusal, in every cell: the
+    JAX plan's move of a paged request on a dp/sp/pp mesh to the
+    contiguous layout included (ROADMAP Queue 1 item 8.1)."""
     from crowdllama_tpu.config import Configuration as JConfiguration
     from crowdllama_tpu.engine.plan import resolve_serving_plan as jresolve
     from crowdllama_tpu_torch.config import Configuration
@@ -655,7 +655,7 @@ def test_plan_spec_axis_matches_jax(mesh, layout, kv_dtype, spec_mode):
     elif want[0] == "error":
         assert got[0] in ("error", "not ported")
     else:
-        assert got[0] == "not ported" and "item 8" in got[1]
+        assert got == want
 
 
 def test_paused_flights_replay_the_warmup_graph(perm_ckpt, plain_streams,

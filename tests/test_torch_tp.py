@@ -335,10 +335,14 @@ def test_tp_runner_matches_the_one_device_runner(kv_dtype):
 
 
 def test_tp_runner_refusals():
+    """JAX's outcomes: the contiguous runner serves a tp mesh; the paged
+    runner refuses a dp mesh (JAX's runner asserts: the shared page pool
+    cannot shard over dp)."""
     cfg = get_config("tiny-test", max_context_length=MAX_SEQ)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ModelRunner(cfg, mesh_shape="2", devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    contiguous = ModelRunner(cfg, mesh_shape="2", devices=["cpu", "cpu"],
+                             max_slots=1)
+    assert (contiguous.tp, contiguous.kv_layout) == (2, "contiguous")
+    with pytest.raises(ValueError, match="cannot shard over dp"):
         PagedModelRunner(cfg, mesh_shape="2x1", devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="not both"):
         PagedModelRunner(cfg, device="cpu", mesh_shape="2",
@@ -470,19 +474,26 @@ async def test_tp_engine_streams_match_the_one_device_engine(tmp_path):
 
 # ------------------------------------------------------------------ plan
 
-@pytest.mark.parametrize("mesh,layout,serves", [
-    ("2", "paged", True), ("1x2", "paged", True), ("1", "contiguous", True),
-    ("2", "contiguous", False), ("2x1", "paged", False),
-    ("1x2x1x1x1", "paged", False), ("1x1x2x1x1", "paged", False),
-    ("1x2x2", "paged", False)])
-def test_plan_serves_paged_tp_only(mesh, layout, serves):
-    config = Configuration(mesh_shape=mesh, kv_layout=layout)
-    if serves:
-        plan = resolve_serving_plan(config)
-        assert (plan.kv_layout, plan.mesh_shape) == (layout, mesh)
-    else:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            resolve_serving_plan(config)
+@pytest.mark.parametrize("mesh,layout,fallback", [
+    ("2", "paged", False), ("1x2", "paged", False),
+    ("1", "contiguous", False), ("2", "contiguous", False),
+    ("2x1", "paged", True), ("1x2x1x1x1", "paged", True),
+    ("1x1x2x1x1", "paged", True), ("1x2x2", "paged", False)])
+def test_plan_serves_paged_tp_only(mesh, layout, fallback):
+    """Every mesh gets the JAX plan's runner and layout: a paged request
+    on a dp/sp/pp mesh falls back to the contiguous layout with JAX's
+    note; tp and ep x tp meshes keep the paged layout."""
+    from crowdllama_tpu.config import Configuration as JConfiguration
+    from crowdllama_tpu.engine.plan import resolve_serving_plan as jresolve
+
+    plan = resolve_serving_plan(Configuration(mesh_shape=mesh,
+                                              kv_layout=layout))
+    want = jresolve(JConfiguration(mesh_shape=mesh, kv_layout=layout), 8)
+    assert (plan.runner, plan.kv_layout, plan.notes) == (
+        want.runner, want.kv_layout, want.notes)
+    assert plan.fallback == fallback
+    assert plan.kv_layout == ("contiguous" if fallback else layout)
+    assert plan.mesh_shape == mesh
 
 
 def test_engine_mesh_without_enough_devices_raises(monkeypatch):
