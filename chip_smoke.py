@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``crowdllama_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase multiprocess   # that phase alone
 
 Phases, each printing one JSON line:
 
@@ -4522,6 +4523,7 @@ def llama_cut_phase(dev, phase: str, ran: set[str], **engine_kw) -> dict:
 # ------------------------------------------------------------ HF checkpoints
 
 HF_TOKENS = 32
+HF_TINY_LAYERS = 4
 HF_LLAMA = "llama-3.1-8b"
 HF_LLAMA_TOKENS = 16
 # Decode dispatches before the long chat enters the queue: the same step
@@ -4779,9 +4781,11 @@ def hf_phase(dev, keep: str) -> dict:
     fields; a ``tokenizer.json`` and a ``tokenizer_config.json`` with the
     family's chat template, written here (``testing/hf_fixtures.py``):
 
-    - tinyllama-1.1b at full width and depth: the seed-0 weights with the
-      unembedding of ``<unk>``, ``<s>``, ``</s>`` and the 256 byte tokens
-      zeroed; TinyLlama's kind of byte-fallback BPE; TinyLlama-Chat's
+    - tinyllama-1.1b at full width cut to ``HF_TINY_LAYERS`` layers
+      (``reduced``; the share phase pulls this directory twice, and at
+      full depth its 2.2 GB took ~90 s of AEAD-bound transfer): the
+      seed-0 weights with the unembedding of ``<unk>``, ``<s>``, ``</s>``
+      and the 256 byte tokens zeroed; TinyLlama's kind of byte-fallback BPE; TinyLlama-Chat's
       template; the paged phase's 8 streams of 32 tokens as chats (6
       short, the prefix hit, the long one sent while the others decode);
     - llama-3.1-8b cut to ``LLAMA_CUT_LAYERS`` layers (``reduced``), its
@@ -4817,11 +4821,13 @@ def hf_phase(dev, keep: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="hf") as root:
         # A fresh copy: the cached one is shared, and its columns are
         # zeroed here in place.
-        params = _zero_columns(seed0_params.__wrapped__(dev), range(3 + 256))
+        params = _cut(_zero_columns(seed0_params.__wrapped__(dev),
+                                    range(3 + 256)), HF_TINY_LAYERS)
         out[TINYLLAMA] = _hf_model(
             dev, keep, SHARE_NAME, TINYLLAMA, params,
             hf.TINYLLAMA_CONFIG, hf.sentencepiece_tokenizer(HF_CORPUS), 2,
-            chats, "long", HF_TOKENS, None)
+            chats, "long", HF_TOKENS, HF_TINY_LAYERS)
+        out[TINYLLAMA]["reduced"] = {"num_layers": [22, HF_TINY_LAYERS]}
         del params
         _free_card()
         cfg = get_config(HF_LLAMA, num_layers=LLAMA_CUT_LAYERS)
@@ -5320,6 +5326,11 @@ def megastep_phase(dev, paged: dict) -> tuple[dict, dict]:
 
 SPEC_TOKENS = 64
 SPEC_DRAFT = 4
+# The permutation weights' depth in the spec phase (``reduced``): their
+# layers add nothing to the logits, so the streams and acceptance are the
+# full model's; the eager steps' host time scales with the layers, and
+# the cut keeps the script inside its limit.
+SPEC_LAYERS = 4
 SPEC_PAIRS = 5
 # Echo prompts: a stretch of the permutation cycle over printable ASCII
 # (one byte token a character, which the byte tokenizer round-trips),
@@ -5349,6 +5360,13 @@ def perm_params(dev) -> dict:
 def _cut(params: dict, layers: int) -> dict:
     return {**params, "layers": {k: v[:layers].clone()
                                  for k, v in params["layers"].items()}}
+
+
+def _tiny_config(params: dict):
+    """TinyLlama's config at the depth of ``params``."""
+    from crowdllama_tpu_torch.models.config import get_config
+
+    return get_config(TINYLLAMA, num_layers=params["layers"]["wq"].shape[0])
 
 
 def _spec_recorders(engine) -> tuple[dict, list]:
@@ -5440,7 +5458,7 @@ def spec_engine(dev, params, phase: str, ref: dict | None, ran: set,
     async def go():
         torch.cuda.synchronize(dev)
         engine = TorchEngine(params=params, device=dev, model=TINYLLAMA,
-                             **engine_kw)
+                             model_config=_tiny_config(params), **engine_kw)
         await engine.start()
         engine.tokenizer = _IdRecorder(engine.tokenizer)
         sched = engine.scheduler
@@ -5627,6 +5645,7 @@ def spec_pipeline(dev, params, ckpt: str) -> dict:
         node = dict(listen_host="127.0.0.1",
                     bootstrap_peers=[f"127.0.0.1:{boot.listen_port}"])
         engine = TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                             model_config=_tiny_config(params),
                              spec_decode="ngram", spec_draft=SPEC_DRAFT)
         worker = Peer(key(), Configuration(model=TINYLLAMA, **node), engine)
         consumer = Peer(key(), Configuration(**node), FakeEngine(models=[]),
@@ -5686,9 +5705,9 @@ def spec_pipeline(dev, params, ckpt: str) -> dict:
 
 
 def spec_phase(dev) -> dict:
-    """Speculative decoding on tinyllama-1.1b at full width (22 layers,
-    page 128, context 2048, 8 slots).  Weights: the permutation weights
-    (``perm_params``); the draft is the same weights cut to 2 layers,
+    """Speculative decoding on tinyllama-1.1b at full width (page 128,
+    context 2048, 8 slots).  Weights: the permutation weights
+    (``perm_params``) cut to ``SPEC_LAYERS`` layers; the draft is the same weights cut to 2 layers,
     written with the port's ``save_params`` and read back byte-equal, and
     served through ``spec_draft_path``; the seed-0 random weights.  The
     plain paged engine serves the reference: 4 echo prompts, 3 short
@@ -5712,7 +5731,7 @@ def spec_phase(dev) -> dict:
     from crowdllama_tpu_torch.models.config import get_config
 
     out: dict = {}
-    params = perm_params(dev)
+    params = _cut(perm_params(dev), SPEC_LAYERS)
     draft = _cut(params, 2)
     with tempfile.TemporaryDirectory() as tmp:
         dcfg = get_config(TINYLLAMA, num_layers=2)
@@ -5789,6 +5808,7 @@ def spec_phase(dev) -> dict:
                                 for n, r in runs.items()}
     out["serve_peak"] = {n: r["serve_peak"] for n, r in runs.items()}
     emit({"phase": "spec", "model": TINYLLAMA, "slots": 8, "page": 128,
+          "reduced": {"num_layers": [22, SPEC_LAYERS]},
           "context": 2048, "tokens": SPEC_TOKENS, "draft_len": SPEC_DRAFT,
           **out, "logits_rtol": LOGIT_RTOL,
           "card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi()})
@@ -6057,7 +6077,7 @@ def share_phase(dev, hf_dir: str) -> dict:
     """Swarm model sharing, every module the port's own, on 127.0.0.1: a
     DHT node, two torch workers and a consumer ``Peer`` with its
     ``Gateway``.  Worker 1 serves the hf phase's tinyllama-1.1b directory
-    (full width and depth, bf16, two shards, 2.2 GB) through
+    (full width, ``HF_TINY_LAYERS`` layers, bf16, two shards) through
     ``model_path`` under ``SHARE_NAME``, a name outside the registry;
     worker 2 serves tinyllama-1.1b's seed-0 weights and has an empty
     ``models_dir``.  A client host times the ``manifest`` op on worker 1
@@ -7265,22 +7285,36 @@ def shard_phase(dev, strategy: str) -> dict:
 
 MESH_TOKENS = 16
 MESH_K = 4  # the mesh_pp megastep flight
+# TinyLlama at full width cut in depth (``reduced`` on each line): the
+# mesh phases check the sharded math and the launches, which the depth
+# only multiplies, and the cut keeps the script inside its limit.
+MESH_LAYERS = 8
+_ML = MESH_LAYERS
 # (phase, mesh spec, engine keywords, kernels that launch, A launches a
-# monolithic prefill, D launches a decode step) for TinyLlama (22
+# monolithic prefill, D launches a decode step) for TinyLlama (MESH_LAYERS
 # layers, 8 slots: pp takes 2 microbatches of 4).
 MESH_PHASES = (
     ("mesh_tp_contig", "2", dict(kv_layout="contiguous"), {"A", "D"},
-     22 * 2, 22 * 2),
-    ("mesh_dp", "2x1", {}, {"A", "D"}, 22, 22 * 2),
-    ("mesh_pp", "1x2x1x1x1", {}, {"A", "D"}, 11 * 2, 11 * 2 * 2),
+     _ML * 2, _ML * 2),
+    ("mesh_dp", "2x1", {}, {"A", "D"}, _ML, _ML * 2),
+    ("mesh_pp", "1x2x1x1x1", {}, {"A", "D"}, _ML, _ML * 2),
     ("mesh_sp", "1x2x1x1", {}, set(), 0, 0),
-    ("mesh_pp_tp", "1x2x1x1x2", {}, {"A", "D"}, 11 * 2 * 2, 11 * 2 * 2 * 2),
+    ("mesh_pp_tp", "1x2x1x1x2", {}, {"A", "D"}, _ML * 2, _ML * 4),
 )
 MESH_EP_LAYERS = 2
 
 
 def _mesh_streams() -> dict:
     return {k: GREEDY[k] for k in ("short0", "short1")}
+
+
+def _mesh_model(dev) -> dict:
+    """run_engine's keywords for TinyLlama cut to MESH_LAYERS layers: the
+    seed-0 weights' first layers and the cut config."""
+    from crowdllama_tpu_torch.models.config import get_config
+
+    return dict(params=_cut(seed0_params(dev), MESH_LAYERS),
+                model_config=get_config(TINYLLAMA, num_layers=MESH_LAYERS))
 
 
 def _mesh_decode_logits(r, tok, plain: bool) -> tuple:
@@ -7310,12 +7344,14 @@ def mesh_base_phase(dev) -> dict:
     from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
 
     engine, summary, reqs = run_engine(dev, _mesh_streams(), MESH_TOKENS,
-                                       kv_layout="contiguous")
+                                       kv_layout="contiguous",
+                                       **_mesh_model(dev))
     _expect_launches(summary["launches"], {"A", "D"}, "mesh_base")
     logits, first = _mesh_decode_logits(engine.runner, engine.tokenizer,
                                         plain=True)
     steady = decode_step_timing(engine, dev, flash_decode_attention)
-    emit({"phase": "mesh_base", "model": TINYLLAMA, "layers": 22,
+    emit({"phase": "mesh_base", "model": TINYLLAMA, "layers": MESH_LAYERS,
+          "reduced": {"num_layers": [22, MESH_LAYERS]},
           "kv_layout": "contiguous", **summary, "steady_decode": steady,
           "card": nvidia_smi()})
     return {"ids": {k: v["ids"] for k, v in reqs.items()},
@@ -7355,7 +7391,7 @@ def mesh_phase(dev, base: dict, phase: str, spec: str, engine_kw: dict,
     n = math.prod(mesh_axes(spec))
     engine, summary, reqs = run_engine(
         dev, _mesh_streams(), MESH_TOKENS, mesh_shape=spec,
-        devices=[dev] * n, **engine_kw)
+        devices=[dev] * n, **engine_kw, **_mesh_model(dev))
     r, plan = engine.runner, engine.plan
     if type(r) is not ModelRunner or r.kv_layout != "contiguous" \
             or r.devices != [dev] * n:
@@ -7395,7 +7431,8 @@ def mesh_phase(dev, base: dict, phase: str, spec: str, engine_kw: dict,
     steady = decode_step_timing(engine, dev,
                                 flash_decode_attention if ran else None)
     peak = summary["max_memory_allocated"]
-    emit({"phase": phase, "model": TINYLLAMA, "layers": 22, "mesh": spec,
+    emit({"phase": phase, "model": TINYLLAMA, "layers": MESH_LAYERS,
+          "reduced": {"num_layers": [22, MESH_LAYERS]}, "mesh": spec,
           "axes": r.mesh.axes, "devices": [str(x) for x in r.devices],
           "runner": type(r).__name__, "kv_layout": r.kv_layout,
           "plan_notes": plan.notes, **summary,
@@ -7515,6 +7552,404 @@ def mesh_phases(dev) -> tuple[dict, dict]:
     return dh64, mesh_ep_phase(dev)
 
 
+# ------------------------------------------------------------ multiprocess
+
+MP_TOKENS = 32
+MP_TIMEOUT_S = 240.0
+MP_CHILD = "import sys, chip_smoke; chip_smoke.mp_child(*sys.argv[1:])"
+# (phase, mesh spec, kv layout, kernels that launch in each process): two
+# processes on the one card, the mesh split across them.
+MP_MESHES = (
+    ("multiprocess_tp", "1x2", "paged", {"A", "B"}),
+    ("multiprocess_dp", "2x1", "contiguous", {"A", "D"}),
+)
+
+
+def _mp_device() -> torch.device:
+    return torch.device("cuda", 0)
+
+
+def _mp_streams() -> dict:
+    return {k: GREEDY[k] for k in ("short0", "short1")}
+
+
+def _mp_config(spec: str, layout: str, coord: str = "", pid: int = -1):
+    """TinyLlama's serving config for the multiprocess phase: 8 slots,
+    context 2,048, page 128; legacy chunked admission (the replicated
+    runner has no ragged step, so the one-process reference runs without
+    it too)."""
+    from crowdllama_tpu_torch.config import Configuration
+
+    kw = {}
+    if coord:
+        kw = dict(dist_coordinator=coord, dist_num_processes=2,
+                  dist_process_id=pid)
+    return Configuration(model=TINYLLAMA, max_batch_slots=8,
+                         max_context_length=2048, kv_page_size=128,
+                         mesh_shape=spec, kv_layout=layout,
+                         ragged_prefill=False, **kw)
+
+
+class _PlainCheck:
+    """A kernel wrapper standing in for the runner's seam: every call
+    launches the kernel (and counts); the first call after ``arm()`` also
+    runs the plain version on the same inputs and keeps the max |kernel -
+    plain| and whether every element is within ATOL + RTOL * |plain| (the
+    plain call counts nothing; the serving path is not interrupted, the
+    phase fails on the report)."""
+
+    def __init__(self, name: str, kernel, plain):
+        self.name, self.kernel, self.plain = name, kernel, plain
+        self.armed, self.err, self.ok = False, None, True
+
+    def arm(self) -> None:
+        self.armed = True
+
+    def __call__(self, *a, **kw):
+        out = self.kernel(*a, **kw)
+        if self.armed:
+            self.armed = False
+            want = self.plain(*a, **kw)
+            pairs = (list(zip(out, want)) if isinstance(out, list)
+                     else [(out, want)])
+            for g, w in pairs:
+                g, w = g.float(), w.float()
+                err = (g - w).abs()
+                self.ok &= bool(torch.isfinite(g).all()
+                                and (err <= ATOL + RTOL * w.abs()).all())
+                self.err = max(self.err or 0.0, float(err.max()))
+        return out
+
+
+def _mp_seams(layout: str) -> dict:
+    """Install the kernel-vs-plain checks on the seams the runners take at
+    construction: A (prefill) and D (contiguous decode) or B/F (paged)."""
+    from crowdllama_tpu_torch.engine import paged as paged_mod
+    from crowdllama_tpu_torch.engine import runner as runner_mod
+    from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
+    from crowdllama_tpu_torch.ops.cuda.flash import decode_attention_plain
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        paged_decode_attention_tp_plain,
+    )
+
+    checks = {"A": _PlainCheck("A", runner_mod.prefill_attention,
+                               prefill_attention_ref)}
+    runner_mod.prefill_attention = checks["A"]
+    if layout == "paged":
+        checks["B/F"] = _PlainCheck(
+            "B/F", paged_mod.flash_paged_decode_attention_tp,
+            paged_decode_attention_tp_plain)
+        paged_mod.flash_paged_decode_attention_tp = checks["B/F"]
+    else:
+        checks["D"] = _PlainCheck("D", runner_mod.decode_attention,
+                                  decode_attention_plain)
+        runner_mod.decode_attention = checks["D"]
+    return checks
+
+
+MP_LOGITS_PROMPT = ("A prompt no stream sent, prefilled whole for the "
+                    "logits check. " + SHORT[1])
+
+
+def _mp_prefill_logits(runner, tok, state) -> torch.Tensor:
+    """The last-row logits of a monolithic prefill of ``MP_LOGITS_PROMPT``
+    (the sampler's input, caught at ``_sample_first``; a replicated
+    runner frames the call, so every process runs it).  ``state`` is a
+    live state, as the scheduler passes one: a follower replays PREFILL
+    with its own, so a prefix lookup must happen on both sides."""
+    inner = getattr(runner, "inner", runner)
+    seen = []
+    real = inner._sample_first
+
+    def catch(logits, *a, **kw):
+        seen.append(logits.float().cpu())
+        return real(logits, *a, **kw)
+
+    inner._sample_first = catch
+    try:
+        with torch.inference_mode():
+            runner.prefill(tok.encode(MP_LOGITS_PROMPT), 0.0, 1.0, None,
+                           state=state)
+    finally:
+        del inner._sample_first
+    return seen[0]
+
+
+def _mp_step_timing(engine, dev) -> dict:
+    """Steady decode on the leader with all 8 slots live, through the
+    replicated runner (every call framed): host ms a step (ending in a
+    synchronize), and the frame headers' host µs and the collectives' ms
+    a step (``multihost.stats``)."""
+    from crowdllama_tpu_torch.parallel import multihost
+
+    r, tok, steps = engine.runner, engine.tokenizer, 8
+    with torch.inference_mode():
+        st = r.init_state()
+        for slot in range(r.max_slots):
+            ids = tok.encode(SHORT[slot % len(SHORT)] + str(slot))
+            first, ks, vs, plen = r.prefill(ids, 0.0, 1.0, None, state=st)
+            st = r.insert(st, slot, ks, vs, plen, first, 0.0, 1.0,
+                          prompt_tokens=ids)
+        r.decode_steps(st, steps)  # warm
+        torch.cuda.synchronize(dev)
+        multihost.reset_stats()
+        t0 = time.perf_counter()
+        r.decode_steps(st, steps)
+        torch.cuda.synchronize(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
+        s = multihost.stats()
+    return {"slots": r.max_slots, "step_ms": step_ms,
+            "tokens_per_s": r.max_slots * 1e3 / step_ms,
+            "frames": s["frames"],
+            "frame_host_us_per_dispatch": s["frame_s"] * 1e6 / max(
+                1, s["frames"]),
+            "collective_ms_per_step": s["device_s"] * 1e3 / steps,
+            "collectives_per_step": s["device_calls"] / steps,
+            "collective_bytes_per_step": s["device_bytes"] / steps,
+            "gather_ms_per_step": s["gather_s"] * 1e3 / steps,
+            "host_copies": s["host_copies"]}
+
+
+def mp_child(pid: str, phase: str, spec: str, layout: str, coord: str,
+             out: str) -> None:
+    """One process of a multiprocess phase (``python -c "import
+    chip_smoke; chip_smoke.mp_child(...)"``): join the group, make
+    TinyLlama's seed-0 weights (EOS column zeroed) on the card, identical
+    in both processes, and serve.  Process 0 runs ``TorchEngine`` (its
+    runner framed, ``parallel/replicated.py``) under the phase's traffic,
+    then the prefill logits and the steady step; process 1 replays the
+    frames (``run_follower``) until STOP.  Each writes its launches, its
+    kernel-vs-plain errors, its peak memory and its collective counters
+    to ``out``."""
+    from crowdllama_tpu_torch.parallel import multihost, replicated
+
+    dev = _mp_device()
+    cfg = _mp_config(spec, layout, coord, int(pid))
+    multihost.initialize_from_config(cfg)
+    checks = _mp_seams(layout)
+    params = seed0_params(dev)
+    _free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    res: dict = {"pid": int(pid)}
+    if multihost.is_leader():
+        from crowdllama_tpu_torch.engine.engine import TorchEngine
+
+        async def go():
+            engine = TorchEngine(cfg, params=params)
+            t0 = time.perf_counter()
+            await engine.start()
+            res["start_s"] = time.perf_counter() - t0
+            engine.tokenizer = _IdRecorder(engine.tokenizer)
+            try:
+                for c in checks.values():
+                    c.arm()
+                _zero_launches()
+                multihost.reset_stats()
+                served = await serve(engine, _mp_streams(), MP_TOKENS,
+                                     again="short0")
+                res["launches"] = _launches()
+                res["serve_stats"] = multihost.stats()
+                res["serve_peak"] = torch.cuda.max_memory_allocated(dev)
+                sched = engine.scheduler
+                # The timing's INIT ends the follower's serve window.
+                res["steady"] = await sched.on_dispatch_thread(
+                    _mp_step_timing, engine, dev)
+                res["logits"] = (await sched.on_dispatch_thread(
+                    _mp_prefill_logits, engine.runner, engine.tokenizer,
+                    sched.state)).tolist()
+                res["mesh"] = engine.describe()["mesh"]
+            finally:
+                await engine.stop()
+            res["requests"] = served["requests"]
+            res["wall_s"] = served["wall_s"]
+
+        asyncio.run(go())
+    else:
+        windows, peaks = [], []
+        real = replicated._apply
+
+        def apply(runner, state, pending, job, op, *a):
+            if op == replicated._OP_INIT:
+                # Launches between INITs: build, warm-up, serve, timing.
+                windows.append(_launches())
+                peaks.append(torch.cuda.max_memory_allocated(dev))
+                _zero_launches()
+                for c in checks.values():
+                    c.arm()
+            return real(runner, state, pending, job, op, *a)
+
+        replicated._apply = apply
+        res["frames"] = replicated.run_follower(cfg, params=params)
+        windows.append(_launches())
+        res["launches"] = windows[2]  # the serve window (after warm-up)
+        res["serve_peak"] = peaks[2]
+        res["stopped"] = True
+    res["checks"] = {k: c.err for k, c in checks.items()}
+    res["checks_ok"] = all(c.ok for c in checks.values())
+    res["max_memory_allocated"] = res["serve_peak"]
+    res["stats"] = multihost.stats()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def _mp_reference(dev, spec: str, layout: str) -> dict:
+    """The one-process engine on the same mesh (both ranks on the one
+    card) under the same traffic: ids, TTFT, memory, prefill logits and
+    the steady step."""
+    kernel = None
+    if layout == "contiguous":
+        from crowdllama_tpu_torch.ops.cuda.flash import (
+            flash_decode_attention as kernel,
+        )
+    c = _mp_config(spec, layout)
+    engine, summary, reqs = run_engine(
+        dev, _mp_streams(), MP_TOKENS, again="short0", mesh_shape=spec,
+        devices=[dev, dev], kv_layout=layout, ragged_prefill=False,
+        max_batch_slots=c.max_batch_slots, kv_page_size=c.kv_page_size)
+    logits = _mp_prefill_logits(engine.runner, engine.tokenizer,
+                                engine.scheduler.state)
+    steady = decode_step_timing(engine, dev, kernel)
+    return {"ids": {k: v["ids"] for k, v in reqs.items()},
+            "ttft_ms_median": summary["ttft_ms_median"],
+            "max_memory_allocated": summary["max_memory_allocated"],
+            "launches": summary["launches"], "logits": logits,
+            "steady": steady}
+
+
+async def _mp_run(phase: str, spec: str, layout: str, tmp: str) -> list:
+    """Both processes of one phase; each must exit 0 within
+    ``MP_TIMEOUT_S`` (a child still alive then is killed and the phase
+    fails).  Returns their reports."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    coord = f"127.0.0.1:{_free_port()}"
+    procs, outs, errs = [], [], []
+    for pid in ("0", "1"):
+        out = os.path.join(tmp, f"{phase}_{pid}.json")
+        err = open(os.path.join(tmp, f"{phase}_{pid}.err"), "w")
+        procs.append(await asyncio.create_subprocess_exec(
+            sys.executable, "-c", MP_CHILD, pid, phase, spec, layout, coord,
+            out,
+            cwd=root, stderr=err))
+        outs.append(out)
+        errs.append(err)
+    try:
+        rcs = await asyncio.wait_for(
+            asyncio.gather(*(p.wait() for p in procs)), MP_TIMEOUT_S)
+    except asyncio.TimeoutError:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.returncode is None:
+                p.kill()
+                await p.wait()
+        for e in errs:
+            e.close()
+    if rcs is None or any(rcs) or not all(os.path.exists(o) for o in outs):
+        tails = []
+        for pid in ("0", "1"):
+            with open(os.path.join(tmp, f"{phase}_{pid}.err")) as f:
+                tails.append(f.read()[-3000:])
+        raise AssertionError(f"{phase}: processes exited {rcs} (None: "
+                             f"killed at {MP_TIMEOUT_S} s): {tails}")
+    reports = []
+    for o in outs:
+        with open(o) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def multiprocess_phase(dev) -> dict:
+    """Two processes on the one card serve TinyLlama at full width and
+    depth (seed-0 bf16 weights, EOS column zeroed; 8 slots, context 2,048,
+    page 128), one mesh each: "1x2" paged (tp across the processes, one
+    rank each: A and B in each) and "2x1" contiguous (dp across them: A
+    and D).  Traffic: 2 greedy streams and the 1,465-token prompt, 32
+    tokens each, then one stream again.  The leader's line holds the
+    streams, the prefill logits against the one-process engine on the
+    same mesh (2% of their scale), the greedy share, each process's
+    launches and kernel-vs-plain errors, the steady step beside the
+    one-process mesh's with the frames' host µs and the collectives' ms
+    split out, TTFT, memory per process and the collective backend; the
+    follower's line its frames and its exit on STOP.  Returns the
+    launches both processes add to the Dh-64 rows."""
+    import tempfile
+
+    total = {"A": 0, "B": 0, "D": 0}
+    with tempfile.TemporaryDirectory(prefix="mp") as tmp:
+        for phase, spec, layout, ran in MP_MESHES:
+            ref = _mp_reference(dev, spec, layout)
+            _free_card()
+            lead, follow = asyncio.run(_mp_run(phase, spec, layout, tmp))
+            reqs = lead["requests"]
+            for name, v in reqs.items():
+                if not (v["done"] and v["completion_tokens"] == MP_TOKENS):
+                    raise AssertionError(f"{phase}: stream {name} ended {v}")
+            ids = {k: v["ids"] for k, v in reqs.items()}
+            if ids["short0"] != ids["short0_again"]:
+                raise AssertionError(f"{phase}: the repeated stream differs")
+            for rep in (lead, follow):
+                _expect_launches(rep["launches"], ran,
+                                 f"{phase} process {rep['pid']}")
+                for k in total:
+                    total[k] += rep["launches"][k]
+                if (any(e is None for e in rep["checks"].values())
+                        or not rep["checks_ok"]):
+                    raise AssertionError(f"{phase}: a kernel-vs-plain check "
+                                         f"did not run or missed "
+                                         f"(atol {ATOL}, rtol {RTOL}): "
+                                         f"{rep['checks']}")
+            logits = torch.tensor(lead["logits"])
+            err = _logit_err(logits, ref["logits"])
+            if not err["max_abs_err"] <= LOGIT_RTOL_TP * err["scale"]:
+                raise AssertionError(f"{phase}: prefill logits against one "
+                                     f"process {err}")
+            if not follow.get("stopped"):
+                raise AssertionError(f"{phase}: the follower did not stop")
+            one_peak = ref["max_memory_allocated"]
+            ttft = sorted(v["ttft_ms"] for k, v in reqs.items()
+                          if not k.endswith("_again"))
+            emit({"phase": phase, "model": TINYLLAMA, "layers": 22,
+                  "mesh": spec, "kv_layout": layout, "processes": 2,
+                  "collectives": lead["mesh"], "start_s": lead["start_s"],
+                  "wall_s": lead["wall_s"],
+                  "requests": {k: {x: y for x, y in v.items()
+                                   if x not in ("ids", "text")}
+                               for k, v in reqs.items()},
+                  "repeat_equal": True,
+                  "prefill_logits_vs_one_process": err,
+                  "logits_rtol": LOGIT_RTOL_TP,
+                  "greedy_tokens_equal_to_one_process": _greedy_share(
+                      ref["ids"], reqs),
+                  "launches": {"leader": lead["launches"],
+                               "follower": follow["launches"]},
+                  "one_process_launches": ref["launches"],
+                  "kernel_vs_plain_max_abs_err": {
+                      "leader": lead["checks"],
+                      "follower": follow["checks"]},
+                  "steady_decode": lead["steady"],
+                  "one_process_steady_decode": ref["steady"],
+                  "serve_collectives": lead["serve_stats"],
+                  "ttft_ms_median": ttft[len(ttft) // 2],
+                  "ttft_ms_max": ttft[-1],
+                  "one_process_ttft_ms_median": ref["ttft_ms_median"],
+                  "max_memory_allocated": {
+                      "leader": lead["max_memory_allocated"],
+                      "follower": follow["max_memory_allocated"]},
+                  "one_process_max_memory_allocated": one_peak,
+                  "memory_ratio_to_one_process": {
+                      "leader": lead["max_memory_allocated"] / one_peak,
+                      "follower": follow["max_memory_allocated"] / one_peak},
+                  "card": nvidia_smi()})
+            emit({"phase": phase + "_follower", "mesh": spec,
+                  "frames_replayed": follow["frames"],
+                  "exit": "STOP, rc 0", "stats": follow["stats"],
+                  "card": nvidia_smi()})
+            _free_card()
+    return total
+
+
 KERNEL_ROWS = {
     "A": ("flash_prefill", "crowdllama_tpu_torch/csrc/flash_prefill.cu",
           "crowdllama_tpu/ops/pallas/flash.py:146"),
@@ -7632,6 +8067,11 @@ def main() -> int:
     for k, n in mesh64.items():
         launches[k] += n
     _free_card()
+    # One worker over two processes on the one card: each process's A, B
+    # and D launches join the Dh-64 rows.
+    for k, n in multiprocess_phase(dev).items():
+        launches[k] += n
+    _free_card()
     spec_phase(dev)
     _free_card()
     autotune_phase(dev)
@@ -7719,5 +8159,30 @@ def main() -> int:
     return 0
 
 
+def phase_main(name: str) -> int:
+    """One phase alone after the build (``--phase multiprocess``): its
+    lines, then the contract's last line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if name != "multiprocess":
+        print(f"chip_smoke: no phase {name!r} runs alone", file=sys.stderr)
+        return 2
+    from crowdllama_tpu_torch.ops import cuda as kernels
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    kernels.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    emit({"phase": "multiprocess_launches", **multiprocess_phase(dev)})
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase"] and len(sys.argv) == 3:
+        sys.exit(phase_main(sys.argv[2]))
     sys.exit(main())

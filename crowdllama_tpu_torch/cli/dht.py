@@ -20,6 +20,7 @@ import sys
 from crowdllama_tpu_torch import native
 from crowdllama_tpu_torch.config import Intervals
 from crowdllama_tpu_torch.core.protocol import DEFAULT_DHT_PORT, namespace_key
+from crowdllama_tpu_torch.logutil import new_app_logger
 from crowdllama_tpu_torch.net.discovery import new_host_and_dht
 from crowdllama_tpu_torch.net.relay import RelayService
 from crowdllama_tpu_torch.utils.keys import KeyManager
@@ -48,10 +49,10 @@ def main(argv: list[str] | None = None) -> int:
         print(version_string())
         return 0
     if args.command == "start":
+        new_app_logger("crowdllama-dht", args.verbose)
         logging.basicConfig(
             stream=sys.stderr,
-            level=logging.DEBUG if args.verbose else logging.INFO,
-            format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+            level=logging.DEBUG if args.verbose else logging.INFO)
         native.ensure_built()
         try:
             asyncio.run(run_server(args.host, args.port, args.key_path))

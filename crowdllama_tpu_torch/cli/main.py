@@ -19,7 +19,12 @@ peer for ``--drain-timeout`` or until a second signal); SIGINT, and any
 signal on a consumer, finishes in-flight requests in place.
 
 A worker's engine serves on the card; without CUDA it refuses to start
-unless ``--device cpu`` is given.  A consumer runs no model, so it needs
+unless ``--device cpu`` is given.  ``start --worker-mode
+--dist-coordinator HOST:PORT --dist-num-processes N --dist-process-id I``
+runs one worker over N processes (``parallel/multihost.py``): process 0
+runs the node and every other process replays its engine's frames
+(``parallel/replicated.py run_follower``) and exits 0 on the leader's
+STOP; a consumer, ``--shard-count`` above 1 or a model list exits 2.  A consumer runs no model, so it needs
 no card.  ``network-status``, ``trace``, ``top``, ``run`` and ``list
 --gateway`` talk to a gateway over the port's HTTP client
 (``net/http.py``).
@@ -46,6 +51,7 @@ import sys
 
 from crowdllama_tpu_torch import native
 from crowdllama_tpu_torch.config import Configuration
+from crowdllama_tpu_torch.logutil import new_app_logger
 from crowdllama_tpu_torch.utils.keys import KeyManager
 from crowdllama_tpu_torch.version import version_string
 
@@ -799,9 +805,26 @@ def main(argv: list[str] | None = None) -> int:
         build_parser().print_help()
         return 2
     cfg = Configuration.from_flags(args)
-    logging.basicConfig(
-        stream=sys.stderr, level=logging.DEBUG if cfg.verbose else logging.INFO,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    new_app_logger("crowdllama", cfg.verbose)
+    logging.getLogger().setLevel(
+        logging.DEBUG if cfg.verbose else logging.INFO)
+    logging.basicConfig(stream=sys.stderr)
+    if cfg.dist_coordinator:
+        # One worker over several processes (parallel/replicated.py):
+        # process 0 runs the whole node, its engine broadcasting every
+        # device-touching call, and every other process replays the frame
+        # stream.  One engine's stream only: shapes that would start
+        # other engines (a consumer, a sharded group, a model list) are
+        # refused instead of waiting on the first collective.
+        if (not args.worker_mode or cfg.shard_count > 1
+                or "," in cfg.model):
+            print("error: --dist-coordinator serves exactly one "
+                  "worker-mode model per cluster (no consumer mode, "
+                  "--shard-count, or model lists)", file=sys.stderr)
+            return 2
+        # A swarm pull hot-registering a second engine would emit frames
+        # the follower loop cannot represent.
+        cfg.allow_swarm_pull = False
     if (args.worker_mode and cfg.engine_backend != "fake"
             and cfg.device == "cuda"):
         import torch
@@ -809,6 +832,18 @@ def main(argv: list[str] | None = None) -> int:
         if not torch.cuda.is_available():
             print(NO_CUDA, file=sys.stderr)
             return 2
+    if cfg.dist_coordinator:
+        from crowdllama_tpu_torch.parallel.multihost import (
+            initialize_from_config,
+            is_leader,
+        )
+
+        initialize_from_config(cfg)
+        if not is_leader():
+            from crowdllama_tpu_torch.parallel.replicated import run_follower
+
+            run_follower(cfg)
+            return 0
     # Build the native data plane before the loop runs: under a running
     # loop a first build goes to a background thread and the first
     # streams take the Python path.

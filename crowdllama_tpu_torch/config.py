@@ -21,7 +21,10 @@ are checked as the JAX package's.  The replicated gateway's fields
 worker's KV fetch threshold (``kv_ship_min_tokens``) parse and are served
 as the JAX package's, and so do the shard settings (``shard_group``,
 ``shard_index``, ``shard_count``, ``shard_strategy``: the sharded
-engine's group).  The one new flag is
+engine's group), and so do the multi-process fields
+(``dist_coordinator``, ``dist_num_processes``, ``dist_process_id``:
+one worker over several processes, ``parallel/multihost.py``).  The one
+new flag is
 ``--device {cuda,cpu}`` (default ``cuda``): entry points run on the card
 unless the caller asks for the CPU.
 """
@@ -284,6 +287,14 @@ class Configuration:
     shard_count: int = 1
     shard_strategy: str = "pp"  # "pp" | "ep"
 
+    # Multi-process single-worker serving (parallel/multihost.py): every
+    # process of one logical worker sets dist_coordinator to process 0's
+    # "host:port" and the mesh spans every process's devices.  Empty =
+    # one process (the common case).
+    dist_coordinator: str = ""
+    dist_num_processes: int = 0  # 0 = take WORLD_SIZE from the environment
+    dist_process_id: int = -1    # -1 = take RANK from the environment
+
     intervals: Intervals = field(default_factory=Intervals.default)
 
     def __post_init__(self) -> None:
@@ -346,6 +357,9 @@ class Configuration:
         "shard_index": "CROWDLLAMA_TPU_SHARD_INDEX",
         "shard_count": "CROWDLLAMA_TPU_SHARD_COUNT",
         "shard_strategy": "CROWDLLAMA_TPU_SHARD_STRATEGY",
+        "dist_coordinator": "CROWDLLAMA_TPU_DIST_COORDINATOR",
+        "dist_num_processes": "CROWDLLAMA_TPU_DIST_NUM_PROCESSES",
+        "dist_process_id": "CROWDLLAMA_TPU_DIST_PROCESS_ID",
         "gateway_port": "CROWDLLAMA_TPU_GATEWAY_PORT",
         "worker_metrics_port": "CROWDLLAMA_TPU_WORKER_METRICS_PORT",
         "request_timeout": "CROWDLLAMA_TPU_REQUEST_TIMEOUT",
@@ -468,6 +482,13 @@ class Configuration:
         parser.add_argument("--shard-strategy", dest="shard_strategy",
                             choices=("pp", "ep"),
                             help="pp: layer slices; ep: MoE expert banks")
+        parser.add_argument("--dist-coordinator", dest="dist_coordinator",
+                            help="multi-process: process 0's host:port "
+                                 "(parallel/multihost.py)")
+        parser.add_argument("--dist-num-processes",
+                            dest="dist_num_processes", type=int)
+        parser.add_argument("--dist-process-id", dest="dist_process_id",
+                            type=int)
         parser.add_argument("--quantize", dest="quantize",
                             choices=("", "int8", "int4"),
                             help="weight-only quantization for the engine")
@@ -661,7 +682,8 @@ class Configuration:
         "slo_ttft_ms", "slo_decode_ms", "stream_stall_ms", "hedge_ttft_ms",
         "request_timeout", "admission_max_inflight", "retry_after_s",
         "kv_ship", "kv_ship_min_tokens", "tenant_quota", "gossip_interval",
-        "gossip_snapshot_path", "gateway_spec_pipeline", "spec_draft_path")
+        "gossip_snapshot_path", "gateway_spec_pipeline", "spec_draft_path",
+        "dist_coordinator", "dist_num_processes", "dist_process_id")
 
     @classmethod
     def from_flags(cls, args: argparse.Namespace) -> "Configuration":

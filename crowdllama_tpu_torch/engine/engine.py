@@ -65,8 +65,11 @@ from crowdllama_tpu_torch.core.messages import (
     migrate_frame_msg,
     verify_result_msg,
 )
+from crowdllama_tpu_torch.engine.factory import process_devices
 from crowdllama_tpu_torch.engine.runner import resolve_device
+from crowdllama_tpu_torch.parallel import multihost
 from crowdllama_tpu_torch.parallel.mesh import build_mesh
+from crowdllama_tpu_torch.parallel.replicated import ReplicatedRunner
 from crowdllama_tpu_torch.testing import faults
 
 log = logging.getLogger("crowdllama.torch.engine")
@@ -444,6 +447,9 @@ class TorchEngine(Engine):
         self.config = dataclasses.replace(config or Configuration(),
                                           **overrides)
         self.models = [self.config.model]
+        if devices is None and multihost.process_count() > 1:
+            # One worker over several processes: this process's ranks.
+            devices, device = process_devices(self.config, device), None
         if devices is not None and device is not None:
             raise ValueError("pass device= or devices=, not both")
         self._device = device
@@ -483,48 +489,37 @@ class TorchEngine(Engine):
         """Build tokenizer/params/runner (through the serving plan), run
         each serving path once (warmup, which also builds the kernels),
         start the scheduler."""
-        from crowdllama_tpu_torch.engine.factory import build_runner
-        from crowdllama_tpu_torch.engine.plan import (
-            check_megastep,
-            resolve_serving_plan,
-        )
+        from crowdllama_tpu_torch.engine.factory import build_process_runner
+        from crowdllama_tpu_torch.engine.plan import check_megastep
         from crowdllama_tpu_torch.engine.scheduler import Scheduler
         from crowdllama_tpu_torch.engine.tokenizer import get_tokenizer
-        from crowdllama_tpu_torch.engine.weights import (
-            load_params_for,
-            resolve_clamped_model_config,
-        )
 
         c = self.config
-        # The composition table's single decision point (engine/plan.py);
-        # a documented fallback is logged, never silent.
-        self.plan = resolve_serving_plan(c, devices=self.devices)
-        for note in self.plan.notes:
-            log.warning("%s", note)
-        if self._model_config is not None:
-            cfg = self._model_config
-            if c.max_context_length:
-                cfg = dataclasses.replace(cfg, max_context_length=min(
-                    cfg.max_context_length, c.max_context_length))
-        else:
-            cfg = resolve_clamped_model_config(c)
-        self.model_config = cfg
         self.tokenizer = get_tokenizer(c.model_path)
         loop = asyncio.get_running_loop()
 
         def _build():
+            # One builder shared with run_follower (engine/factory.py):
+            # every process builds the same runner.
             params, self._params = self._params, None
-            if params is None and c.model_path:
-                # Loaded on the host; the runner places (and under tp
-                # shards) it.  Without a path the runner inits on the card.
-                t0 = time.perf_counter()
-                params = load_params_for(c, cfg, dtype=self.dtype)
-                self.load_seconds = time.perf_counter() - t0
-            return build_runner(c, self.plan, cfg, params,
-                                dtype=self.dtype, seed=self.seed,
-                                device=self._device, devices=self.devices)
+            return build_process_runner(
+                c, devices=self.devices, device=self._device, params=params,
+                dtype=self.dtype, seed=self.seed,
+                model_config=self._model_config)
 
-        self.runner = await loop.run_in_executor(None, _build)
+        runner, self.plan, cfg, self.load_seconds = (
+            await loop.run_in_executor(None, _build))
+        # The composition table's single decision point (engine/plan.py);
+        # a documented fallback is logged, never silent.
+        for note in self.plan.notes:
+            log.warning("%s", note)
+        self.model_config = cfg
+        if multihost.process_count() > 1:
+            # One worker over several processes: every device-touching
+            # call is broadcast to the followers before it runs
+            # (parallel/replicated.py).
+            runner = ReplicatedRunner(runner)
+        self.runner = runner
         check_megastep(c.megastep_k, self.runner.devices)
         self.device = self.runner.device
         if c.warmup:
@@ -627,7 +622,11 @@ class TorchEngine(Engine):
         if self._kv_streams is not None:
             self._kv_streams.close()
         if self.scheduler is not None:
+            # Waits for the dispatch thread's last call, so STOP below
+            # never interleaves with a frame.
             await self.scheduler.stop()
+        if isinstance(self.runner, ReplicatedRunner):
+            self.runner.shutdown()  # release the follower loops
 
     @property
     def supports_remote_draft(self) -> bool:  # type: ignore[override]
@@ -684,6 +683,12 @@ class TorchEngine(Engine):
         """Whether this engine imports a donor's pages: ``kv_ship`` on
         (a migrated stream needs no opt-in) and a paged prefix cache."""
         r = self.runner
+        if isinstance(r, ReplicatedRunner):
+            # A leader-side import would part the processes' pools and
+            # allocators: refused (parallel/replicated.py UNFRAMED).
+            if self.config.kv_ship or migrate:
+                log.warning("kv import refused under multi-process serving")
+            return False
         return ((bool(self.config.kv_ship) or migrate)
                 and self.scheduler is not None and r is not None
                 and getattr(r, "prefix_cache", False)
@@ -701,6 +706,11 @@ class TorchEngine(Engine):
                 or not hasattr(r, "export_pages")):
             return None
         if model and model not in self.models:
+            return None
+        if isinstance(r, ReplicatedRunner):
+            # A leader-side export reads its own shards only and touches
+            # the prefix LRU on the leader alone (UNFRAMED): no pages.
+            log.warning("kv export refused under multi-process serving")
             return None
         hashes = [bytes(h) for h in chain_hashes]
         return await self.scheduler.run_exclusive(
@@ -925,6 +935,13 @@ class TorchEngine(Engine):
             d["device"] = str(r.device)
             d["tp"] = r.tp
             d["mesh"] = r.mesh.axes
+            if r.mesh.n_processes > 1:
+                comm = getattr(r, "tp_comm", None)
+                d["mesh"] = {**r.mesh.axes,
+                             "processes": r.mesh.n_processes,
+                             "frames": "gloo",
+                             "device_collectives": (comm.backend if comm
+                                                    else None)}
             d["devices"] = [str(x) for x in r.devices]
             d["kv_layout"] = r.kv_layout
             d["kv_dtype"] = r.kv_dtype

@@ -79,6 +79,16 @@ class MultiEngine(Engine):
         return eng
 
     async def start(self) -> None:
+        from crowdllama_tpu_torch.parallel import multihost
+
+        if multihost.process_count() > 1 and len(self._engines) > 1:
+            # Each child would wrap its runner in a ReplicatedRunner and
+            # interleave frame streams the single follower replay loop
+            # (parallel/replicated.py) cannot represent.  One child is
+            # fine: one stream.
+            raise ValueError(
+                "multi-model workers do not compose with multi-host "
+                "serving (one replicated engine per cluster)")
         # Sequential: children build and warm up on the same device.
         for name, eng in self._engines.items():
             log.info("starting child engine for %s", name)

@@ -77,6 +77,7 @@ from crowdllama_tpu_torch.ops.cuda.paged import (
 )
 from crowdllama_tpu_torch.ops.megastep import run_ragged_megastep
 from crowdllama_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+from crowdllama_tpu_torch.parallel import multihost
 from crowdllama_tpu_torch.parallel.mesh import (
     Mesh,
     largest_tp,
@@ -161,7 +162,8 @@ class PagedModelRunner(ModelRunner):
         visible CUDA devices) and the kv heads; 1 on a one-card machine."""
         if not mesh_shape and device is None:
             devs = devices if devices is not None else visible_devices()
-            tp = largest_tp(len(devs), self.cfg.num_kv_heads)
+            tp = largest_tp(len(devs) * multihost.process_count(),
+                            self.cfg.num_kv_heads)
             if tp == 1 and devices is None:
                 return Mesh.single(resolve_device(None))
             mesh_shape = str(tp)
@@ -176,7 +178,7 @@ class PagedModelRunner(ModelRunner):
     def _rank_kv(self, st: PagedDecodeState) -> list[tuple]:
         """Per rank: (pool_k, pool_v, k_scale, v_scale), the scales None on
         a bf16 pool."""
-        none = [None] * self.tp
+        none = [None] * len(self.tp_devices)
         return list(zip(st.pool_k, st.pool_v, st.k_scale or none,
                         st.v_scale or none))
 
@@ -702,10 +704,10 @@ class PagedModelRunner(ModelRunner):
                                              torch.bfloat16, (l, hkv, pg))))
         share = hkv // self.tp
         for pools, host in sources:
-            for r, pool in enumerate(pools):
+            for t, pool in zip(self.local_tp, pools):
                 idx = torch.as_tensor(fresh, dtype=torch.long,
                                       device=pool.device)
-                part = host[:, :, r * share:(r + 1) * share]
+                part = host[:, :, t * share:(t + 1) * share]
                 pool[:, idx] = part.to(pool.device).movedim(0, 1)
         for i, page in enumerate(fresh):
             key = keys[skip + i]

@@ -11,11 +11,12 @@ sp/pp mesh raise ``ValueError``, as in the JAX package.  ``MESH_KINDS``,
 :func:`sweep` and :func:`render_markdown` are JAX's; ``python -m
 crowdllama_tpu_torch.engine.plan`` prints the port's composition table.
 
-Two rules are the port's own.  Multi-process serving (``n_processes >
-1``, JAX's leader-replicated dispatch) is not ported: it raises
-``NotImplementedError`` naming its ROADMAP item, so the ``multihost-tp``
-rows are the only ones that differ from JAX's table.  And ``megastep_k >
-0`` needs every rank of the mesh on one device (each flight is one CUDA
+Multi-process serving (``n_processes > 1``, leader-replicated dispatch
+through ``parallel/replicated.py``) imposes no composition rule of its
+own, as in JAX: the ``multihost-tp`` rows equal the ``tp`` rows.  Which
+axes of a mesh may cross processes is the runner's check
+(``engine/runner.py``).  One rule is the port's own: ``megastep_k > 0``
+needs every rank of the mesh on one device (each flight is one CUDA
 graph there): :func:`check_megastep` refuses ranks on distinct devices.
 """
 
@@ -31,10 +32,10 @@ _RUNNERS = {("paged", ""): "PagedModelRunner",
             ("paged", "draft"): "DraftSpecPagedModelRunner",
             ("contiguous", ""): "ModelRunner",
             ("contiguous", "ngram"): "SpecModelRunner"}
-MULTIPROCESS = ("multi-process serving (ROADMAP Queue 1 item 8.2: "
-                "parallel/multihost.py and parallel/replicated.py)")
 GRAPHS_ACROSS_DEVICES = ("megastep graphs across distinct devices "
                          "(ROADMAP Queue 1 item 8.3)")
+ACROSS_PROCESSES = ("sp, pp and ep groups, and speculation on a dp axis, "
+                    "across processes (ROADMAP Queue 1 item 8.2b)")
 
 
 @dataclass
@@ -77,16 +78,13 @@ def resolve_serving_plan(config, devices=None,
 
     Raises ``ValueError`` for the combinations that must not serve (the
     table's error cells), appends to ``notes`` for the documented loud
-    fallback, and raises ``NotImplementedError`` for ``n_processes > 1``.
-    A mesh spec is checked for its axes only; the runner checks it against
+    fallback; ``n_processes`` changes nothing (every runner the
+    one-process table serves is framed).  A mesh spec is checked for its axes only; the runner checks it against
     the devices.  With ``megastep_k > 0`` the mesh's ranks must share one
     device: ``devices`` as the engine places them, or, without a list, a
     mesh of more than one rank (its default ranks are distinct devices) is
     refused with a ``ValueError``."""
-    if n_processes > 1:
-        raise NotImplementedError(
-            f"n_processes={n_processes}: {MULTIPROCESS} is not ported to "
-            f"crowdllama_tpu_torch yet")
+    del n_processes
     shape = mesh_axes(config.mesh_shape) or (1, 1, 1, 1, 1)
     dp, pp, sp, _ep, _tp = shape
     megastep_k = getattr(config, "megastep_k", 0)
@@ -144,7 +142,7 @@ def resolve_serving_plan(config, devices=None,
 
 #: Representative mesh per kind, JAX's: ep rides along with tp for MoE
 #: models and changes nothing about the KV axes, so it is not a row.  The
-#: multihost-tp kind runs the tp mesh with n_processes=2 (refused here).
+#: multihost-tp kind runs the tp mesh with n_processes=2.
 MESH_KINDS = (
     ("single", "1"),
     ("tp", "2"),
@@ -157,9 +155,7 @@ MESH_KINDS = (
 
 def sweep():
     """Yield (axes, outcome) for the full composition product: outcome is
-    ("ok" | "fallback", ServingPlan) or ("error", message); a cell the
-    port refuses as not ported is an error whose message names its
-    ROADMAP item."""
+    ("ok" | "fallback", ServingPlan) or ("error", message)."""
     from crowdllama_tpu_torch.config import Configuration
 
     for mesh_kind, mesh in MESH_KINDS:
@@ -181,7 +177,7 @@ def sweep():
                                 cfg, n_processes=(
                                     2 if mesh_kind.startswith("multihost")
                                     else 1))
-                        except (ValueError, NotImplementedError) as e:
+                        except ValueError as e:
                             yield axes, ("error", str(e))
                             continue
                         yield axes, ("fallback" if plan.fallback else "ok",

@@ -53,6 +53,21 @@ Legacy chunked admission is off (``prefill_chunk = 0``) on pp and sp
 meshes, and the int8 KV cache serves only without sp and pp, as in the
 JAX runner.
 
+A mesh across processes (``parallel/multihost.py``; each process holds
+the ranks ``[p*L, (p+1)*L)``) serves when each process holds whole dp
+ranks (dp across processes) or, without sp, pp and ep, a share of one tp
+group (tp across processes); an sp, pp or ep group that would cross
+processes is refused (ROADMAP Queue 1 item 8.2b).  The runner then holds
+and runs only its process's ranks: ``groups``, the state's cache shards,
+``devices`` and ``tp_devices`` are this process's; prefill runs on the
+process's first dp rank (every process prefills each prompt, so no
+prompt KV crosses processes); decode runs the slots of the local dp
+ranks (``slot_rows``) and returns their tokens, which the leader-
+replicated dispatch gathers (``parallel/replicated.py``); a tp group's
+sums complete over its processes (``parallel/sharding.py TPGroup``).
+Every process drives the same calls in the same order, with the same
+host inputs, so the replicated slot state stays the same everywhere.
+
 Megastep (``decode_megastep``, both layouts): K decode steps per host
 dispatch with on-device sampling and done-flags (``ops/megastep.py``).
 On the CPU the harness runs eagerly; on CUDA each flight replays a CUDA
@@ -81,7 +96,7 @@ import torch
 
 from crowdllama_tpu_torch.engine import prng
 from crowdllama_tpu_torch.engine.graphs import GraphCache
-from crowdllama_tpu_torch.engine.plan import check_megastep
+from crowdllama_tpu_torch.engine.plan import ACROSS_PROCESSES, check_megastep
 from crowdllama_tpu_torch.engine.sampling import (
     REPEAT_LAST_N,
     apply_repeat_penalty,
@@ -98,7 +113,13 @@ from crowdllama_tpu_torch.ops.attention import decode_attention, prefill_attenti
 from crowdllama_tpu_torch.ops.megastep import NO_BUDGET, run_decode_megastep
 from crowdllama_tpu_torch.ops.quant import MODES as QUANT_MODES
 from crowdllama_tpu_torch.ops.quant import quantize_kv, quantize_params
-from crowdllama_tpu_torch.parallel.mesh import Mesh, build_mesh
+from crowdllama_tpu_torch.parallel import multihost
+from crowdllama_tpu_torch.parallel.mesh import (
+    AXIS_TP,
+    Mesh,
+    build_mesh,
+    choose_mesh_shape,
+)
 from crowdllama_tpu_torch.parallel.pipeline import (
     pp_decode_step,
     pp_forward,
@@ -202,16 +223,20 @@ class ModelRunner:
         self.cfg = cfg
         self.mesh = self._build_mesh(mesh_shape, device, devices)
         self.dp, self.pp, self.sp, self.ep, self.tp = self.mesh.shape
-        #: every rank's device, in rank order, rank 0's first; the slot
-        #: state, sampling and the logits live on rank 0's
+        #: every rank's device (this process's ranks), in rank order, the
+        #: first rank's first; the slot state, sampling and the logits
+        #: live on the first rank's
         self.devices = list(self.mesh.devices)
         self.device = self.devices[0]
-        #: the devices of the tp ranks of (dp, pp, sp, ep) = 0: where
-        #: prefill's KV and a paged runner's pools live
-        self.tp_devices = [self.mesh.device(tp=t) for t in range(self.tp)]
         self.max_slots = max_slots
         self.max_seq = max_seq or cfg.max_context_length
         self._check_mesh()
+        self._place_processes()
+        #: the devices of the tp ranks (this process's) of the first local
+        #: dp rank at (pp, sp, ep) = 0: where prefill's KV and a paged
+        #: runner's pools live
+        self.tp_devices = [self.mesh.device(dp=self.local_dp[0], tp=t)
+                           for t in self.local_tp]
         # On a mesh the full weights are made (or quantized) on the host,
         # so no card ever holds more than its ranks' slices.
         one = self.mesh.size == 1
@@ -228,11 +253,21 @@ class ModelRunner:
                 self.device if one else None))
         #: the (dp, pp, sp) groups' tp lists of per-rank parameter dicts;
         #: the full dict is not kept
+        comm = None
+        if self.mesh.n_processes > 1:
+            comm = multihost.axis_comm(
+                self.mesh, [self.mesh.ranks_along(AXIS_TP, dp=d)
+                            for d in range(self.dp)], self.devices)
+        #: the cross-process half of the tp collectives (None unless a tp
+        #: group spans processes)
+        self.tp_comm = comm
+        #: the (dp, pp, sp) groups' tp lists of per-rank parameter dicts
+        #: (this process's); the full dict is not kept
         self.groups = rank_groups(shard_params(params, cfg, self.mesh),
-                                  self.mesh)
+                                  self.mesh, comm)
         del params
-        #: the group of (dp, pp, sp) = (0, 0, 0): the whole model unless pp
-        self.params = self.groups[(0, 0, 0)]
+        #: the group of (first local dp, 0, 0): the whole model unless pp
+        self.params = self.groups[(self.local_dp[0], 0, 0)]
         self.dtype = self.params[0]["embed"].dtype
         self.buckets = [b for b in prefill_buckets(self.max_seq)
                         if b % self.sp == 0]
@@ -251,12 +286,20 @@ class ModelRunner:
     def _build_mesh(self, mesh_shape: str, device,
                     devices: list | None) -> Mesh:
         """The runner's mesh: one device (``device``, else CUDA) unless a
-        mesh spec or a device list is given."""
-        if not mesh_shape and devices is None:
+        mesh spec or a device list is given.  Across processes the
+        default is JAX's: as much tp as the kv heads allow over every
+        process's devices, the rest dp (or ep)."""
+        n = multihost.process_count()
+        if not mesh_shape and devices is None and n == 1:
             return Mesh.single(resolve_device(device))
         if device is not None:
             raise ValueError("pass device= or a mesh (mesh_shape=/devices=), "
                              "not both")
+        if not mesh_shape and n > 1:
+            local = len(devices) if devices is not None else len(
+                build_mesh("", None, (1, 0)).devices)
+            mesh_shape = "x".join(str(a) for a in choose_mesh_shape(
+                local * n, self.cfg.num_kv_heads, self.cfg.num_experts))
         return build_mesh(mesh_shape, devices)
 
     def _check_mesh(self) -> None:
@@ -283,6 +326,42 @@ class ModelRunner:
             # pipeline and sp the ring: monolithic prefill only.
             self.prefill_chunk = 0
 
+    def _place_processes(self) -> None:
+        """This process's share of the mesh: ``local_dp`` (its dp ranks),
+        ``local_tp`` (its tp ranks of them) and ``slot_rows`` (the slots
+        its decode runs), as :meth:`_process_share` places them."""
+        self.local_dp, self.local_tp = self._process_share(
+            self.mesh.process_index)
+        self.slot_rows = self.process_slot_rows(self.mesh.process_index)
+
+    def _process_share(self, p: int) -> tuple[list[int], list[int]]:
+        """(dp ranks, tp ranks of them) of process ``p``.  One process
+        holds everything.  Across processes a process holds whole dp
+        ranks, or a share of one tp group when sp, pp and ep are 1; any
+        other split would put an sp, pp or ep group (or a tp group
+        unevenly) across processes, which is refused."""
+        m = self.mesh
+        block = self.pp * self.sp * self.ep * self.tp  # ranks a dp rank
+        size = m.local_size
+        first = p * size
+        if size % block == 0:
+            return (list(range(first // block, (first + size) // block)),
+                    list(range(self.tp)))
+        if self.pp == self.sp == self.ep == 1 and self.tp % size == 0:
+            return ([first // self.tp],
+                    list(range(first % self.tp, first % self.tp + size)))
+        raise ValueError(
+            f"mesh {m.axes} over {m.n_processes} processes of {size} "
+            f"ranks each puts an sp, pp or ep group (or a tp group "
+            f"unevenly) across processes, which is not ported to "
+            f"crowdllama_tpu_torch yet: {ACROSS_PROCESSES}")
+
+    def process_slot_rows(self, p: int) -> slice:
+        """The slots process ``p``'s decode runs (its dp ranks')."""
+        per = self.max_slots // self.dp
+        dps = self._process_share(p)[0]
+        return slice(dps[0] * per, (dps[-1] + 1) * per)
+
     # --------------------------------------------------------- mesh groups
 
     def _rope_on(self, device: torch.device):
@@ -304,8 +383,14 @@ class ModelRunner:
 
     def _cache_index(self, d: int, p: int, s: int, t: int) -> int:
         """The (dp, pp, sp, tp) rank's index in a mesh state's cache
-        lists."""
-        return ((d * self.pp + p) * self.sp + s) * self.tp + t
+        lists (this process's ranks, in rank order)."""
+        d -= self.local_dp[0]
+        t -= self.local_tp[0]
+        return ((d * self.pp + p) * self.sp + s) * len(self.local_tp) + t
+
+    def _group_device(self, d: int) -> torch.device:
+        """The device of dp rank ``d``'s first local rank."""
+        return self.groups[(d, 0, 0)][0]["final_norm"].device
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -370,22 +455,24 @@ class ModelRunner:
 
     def _sample_decode(self, st: SlotState, logits: torch.Tensor,
                        noise: torch.Tensor | None) -> torch.Tensor:
-        """Sample every slot's next token from logits [B, V] with this
-        step's ``noise`` [B, W], advance the slot state in place; returns
-        the tokens [B] int32."""
-        logits = apply_repeat_penalty(logits, st.recent, st.repeat_penalty)
-        nxt = sample_with_noise(logits, st.temperature, st.top_p, noise,
-                                top_k=st.top_k)
-        nxt = torch.where(st.active, nxt, torch.zeros_like(nxt))
+        """Sample the next token of every slot of ``slot_rows`` (every
+        slot unless dp spans processes) from their logits [b, V] with this
+        step's ``noise`` [B, W], advance their slot state in place;
+        returns the tokens [b] int32."""
+        r = self.slot_rows
+        active, seq, recent = st.active[r], st.seq_lens[r], st.recent[r]
+        logits = apply_repeat_penalty(logits, recent, st.repeat_penalty[r])
+        nxt = sample_with_noise(logits, st.temperature[r], st.top_p[r],
+                                None if noise is None else noise[r],
+                                top_k=st.top_k[r])
+        nxt = torch.where(active, nxt, torch.zeros_like(nxt))
         # The sampled token's sequence position is seq_lens + 1 (the
         # pending token occupies seq_lens).
-        bidx = torch.arange(st.recent.shape[0], device=self.device)
-        cursor = ((st.seq_lens + 1) % REPEAT_LAST_N).long()
-        st.recent[bidx, cursor] = torch.where(st.active, nxt,
-                                              st.recent[bidx, cursor])
-        st.seq_lens.copy_(torch.where(st.active, st.seq_lens + 1,
-                                      st.seq_lens))
-        st.tokens.copy_(nxt)
+        bidx = torch.arange(recent.shape[0], device=self.device)
+        cursor = ((seq + 1) % REPEAT_LAST_N).long()
+        recent[bidx, cursor] = torch.where(active, nxt, recent[bidx, cursor])
+        seq.copy_(torch.where(active, seq + 1, seq))
+        st.tokens[r].copy_(nxt)
         return nxt
 
     # -------------------------------------------------------------- prefill
@@ -502,8 +589,8 @@ class ModelRunner:
 
     def prefill_begin(self, prompt_ids: list[int],
                       state=None) -> "ModelRunner.PrefillJob":
-        """Start a chunked admission; accumulators are sized to the
-        prompt's bucket.  ``state`` is accepted (and ignored) here; the
+        """Start a chunked admission; accumulators (one a local tp rank)
+        are sized to the prompt's bucket.  ``state`` is accepted (and ignored) here; the
         paged runner seeds the job from cached prefix pages with it."""
         if len(prompt_ids) >= self.max_seq:
             raise ValueError(
@@ -689,8 +776,8 @@ class ModelRunner:
                  cfg.num_kv_heads // self.tp, self.max_seq // self.sp,
                  cfg.resolved_head_dim())
         ks, vs, scales = [], [], {}
-        for d, p, s, t in itertools.product(range(self.dp), range(self.pp),
-                                            range(self.sp), range(self.tp)):
+        for d, p, s, t in itertools.product(self.local_dp, range(self.pp),
+                                            range(self.sp), self.local_tp):
             k, v, sc = self._kv_zeros(shape, self.mesh.device(
                 dp=d, pp=p, sp=s, tp=t))
             ks.append(k)
@@ -712,7 +799,8 @@ class ModelRunner:
                top_k: int = 0, repeat_penalty: float = 1.0) -> DecodeState:
         """Write a prefilled sequence (ks/vs as :meth:`prefill` returns
         them, quantized first on an int8 cache) into ``slot``: its dp
-        rank's cache, each sp shard taking the positions it owns;
+        rank's cache (when this process holds it), each sp shard taking
+        the positions it owns;
         ``slot_key`` seeds the slot's sampling stream (default:
         ``default_slot_key(slot)``)."""
         t_len = ks[0].shape[3]
@@ -722,8 +810,14 @@ class ModelRunner:
         quantized = self.kv_dtype == "int8"
         if quantized:
             kss, vss = self._ranks(state.k_scale), self._ranks(state.v_scale)
-        for p, t in itertools.product(range(self.pp), range(self.tp)):
-            k, v = ks[p * self.tp + t], vs[p * self.tp + t]
+        n_tp = len(self.local_tp)
+        if d not in self.local_dp:
+            pairs = []  # the slot's dp rank lives in another process
+        else:
+            pairs = itertools.product(range(self.pp), range(n_tp))
+        for p, j in pairs:
+            t = self.local_tp[j]
+            k, v = ks[p * n_tp + j], vs[p * n_tp + j]
             if quantized:
                 k, k_sc = quantize_kv(k, kss[0].dtype)
                 v, v_sc = quantize_kv(v, vss[0].dtype)
@@ -759,9 +853,9 @@ class ModelRunner:
         return []
 
     def decode_logits(self, st: DecodeState) -> torch.Tensor:
-        """One decode step's forward for every slot: writes each token's KV
-        into the cache and returns logits [B, V] fp32 on rank 0's device
-        (no sampling).  Each dp rank runs its slots on its own parameters
+        """One decode step's forward for every slot of ``slot_rows``:
+        writes each token's KV into the cache and returns their logits
+        [b, V] fp32 on the first rank's device (no sampling).  Each dp rank runs its slots on its own parameters
         and cache: through its pipeline stages under pp, over the
         sequence shards under sp."""
         positions = torch.clamp(st.seq_lens, max=self.max_seq - 1)
@@ -771,11 +865,11 @@ class ModelRunner:
         kss = self._ranks(st.k_scale) if quantized else None
         vss = self._ranks(st.v_scale) if quantized else None
         per = self.max_slots // self.dp
-        tps = range(self.tp)
+        tps = self.local_tp
         outs = []
-        for d in range(self.dp):
+        for d in self.local_dp:
             sl = slice(d * per, (d + 1) * per)
-            dev = self.mesh.device(dp=d)
+            dev = self._group_device(d)
             tok, pos, ln = (x[sl].to(dev) for x in (st.tokens, positions,
                                                     lens))
             if self.pp > 1:

@@ -255,6 +255,11 @@ class Scheduler:
         # run_exclusive calls waiting for the loop's next safe point:
         # (fn, future) pairs.
         self._exclusive: list[tuple] = []
+        # Slots retired in _emit whose release waits for the dispatch
+        # thread (a runner with ``defer_release``: a multi-process release
+        # is a broadcast, which must not leave the event loop's thread
+        # while that thread may be broadcasting).
+        self._to_release: list[int] = []
         # Steps dispatched per class (a plain flight of K steps counts K),
         # counted at dispatch: the kernels a flight launches are too.
         self.class_steps: dict[str, int] = {}
@@ -674,6 +679,7 @@ class Scheduler:
             slot_key=self._req_key(req, 1), top_k=req.top_k,
             repeat_penalty=req.repeat_penalty)
         self._place(req, slot, plen, first)
+        await self._flush_releases()
 
     def _place(self, req: GenRequest, slot: int, plen: int,
                first: int) -> None:
@@ -695,9 +701,13 @@ class Scheduler:
             req.finish("stop" if token == req.eos_id else "length")
             slot = self.slots.index(info)
             self.slots[slot] = None
-            # Runs between dispatches on the loop; the release itself is
-            # host bookkeeping plus tiny device writes queued in order.
-            self.state = self.runner.release(self.state, slot)
+            if getattr(self.runner, "defer_release", False):
+                # Every emit site flushes before the slot can be reused.
+                self._to_release.append(slot)
+            else:
+                # Runs between dispatches on the loop; the release is host
+                # bookkeeping plus tiny device writes queued in order.
+                self.state = self.runner.release(self.state, slot)
 
     def _chunk_size(self) -> int:
         """Steps per dispatch: 1 while an admittable request waits
@@ -935,6 +945,7 @@ class Scheduler:
                 log.exception("decode loop error; failing in-flight requests")
                 self._inflight = None
                 self._fail_all("error: engine failure")
+                self._to_release.clear()  # init_state replaces it all
                 self.state = await self._run(self.runner.init_state)
 
     async def _abort_chunking(self) -> None:
@@ -944,8 +955,19 @@ class Scheduler:
         self.slots[slot] = None  # release the reservation
         if getattr(job, "ragged", False):  # a legacy job holds no pages
             await self._run(self.runner.ragged_abort, job)
+        elif getattr(self.runner, "prefill_abort", None) is not None:
+            # Multi-process: followers drop the job's accumulators.
+            await self._run(self.runner.prefill_abort, job)
+
+    async def _flush_releases(self) -> None:
+        """The releases ``_emit`` deferred, on the dispatch thread."""
+        while self._to_release:
+            slot = self._to_release.pop(0)
+            self.state = await self._run(self.runner.release, self.state,
+                                         slot)
 
     async def _loop_once(self) -> None:
+        await self._flush_releases()
         if (all(s is None for s in self.slots) and self.pending.empty()
                 and self._inflight is None and self._chunking is None
                 and not self._deferred and not self._exclusive
@@ -1111,6 +1133,7 @@ class Scheduler:
                 req.finish("error: engine failure")
                 raise
             self._place(req, slot, len(req.prompt_ids), first)
+            await self._flush_releases()
         return dispatched
 
     async def _prefill_chunk_step(self) -> None:
@@ -1261,6 +1284,7 @@ class Scheduler:
             useful=live * steps_run,
             waste=max(0, tokens.shape[-1] - live) * steps_run)
         emitted = self._emit_flight(fl, tokens)
+        await self._flush_releases()
         self._tokens_per_dispatch = emitted
         if emitted == 0:
             return  # pure-overshoot chunk: not a sample

@@ -40,12 +40,14 @@ import numpy as np
 import torch
 
 from crowdllama_tpu_torch.engine.paged import PagedModelRunner
+from crowdllama_tpu_torch.engine.plan import ACROSS_PROCESSES
 from crowdllama_tpu_torch.engine.runner import ModelRunner
 from crowdllama_tpu_torch.engine.sampling import sample_with_noise
 from crowdllama_tpu_torch.engine.weights import init_params
 from crowdllama_tpu_torch.models import transformer as T
 from crowdllama_tpu_torch.ops.attention import decode_attention
 from crowdllama_tpu_torch.ops.quant import dequantize_kv, quantize_kv
+from crowdllama_tpu_torch.parallel.sharding import TPGroup
 
 
 def propose_ngram_drafts(hist: torch.Tensor, seq_lens: torch.Tensor,
@@ -248,6 +250,11 @@ class SpecModelRunner(_AdaptiveDraftLen, ModelRunner):
         if self.kv_dtype != "bf16":
             raise ValueError("speculative decode on the contiguous layout "
                              "requires the bf16 KV cache")
+        if len(self.local_dp) < self.dp:
+            raise ValueError(
+                f"speculative decode with dp={self.dp} across processes is "
+                f"not ported to crowdllama_tpu_torch yet: "
+                f"{ACROSS_PROCESSES}")
         self._spec_setup(draft_len)
 
     @torch.inference_mode()
@@ -268,10 +275,11 @@ class SpecModelRunner(_AdaptiveDraftLen, ModelRunner):
         return state
 
     def _dp_ranks(self):
-        """Per dp rank: (its slot rows, its tp ranks' cache indices)."""
+        """Per dp rank: (its slot rows, its tp ranks' cache indices; this
+        process's tp ranks)."""
         per = self.max_slots // self.dp
         return [(slice(d * per, (d + 1) * per),
-                 [self._cache_index(d, 0, 0, t) for t in range(self.tp)])
+                 [self._cache_index(d, 0, 0, t) for t in self.local_tp])
                 for d in range(self.dp)]
 
     def _verify_context(self, st, table):
@@ -298,7 +306,7 @@ class SpecModelRunner(_AdaptiveDraftLen, ModelRunner):
         logits, ks, vs = [], [], []
         for d, (rows, _) in enumerate(self._dp_ranks()):
             group = self.groups[(d, 0, 0)]
-            gdev = self.mesh.device(dp=d)
+            gdev = self._group_device(d)
             x = T._embed(group, cfg, seq_tok[rows].long().to(gdev))
             x, k, v = T.scan_prefill_layers(
                 T.layer_stacks(group), self.windows, cfg, x,
@@ -489,8 +497,9 @@ class DraftSpecPagedModelRunner(SpecPagedModelRunner):
             return {k: place(v) if isinstance(v, dict)
                     else v.to(self.device) for k, v in tree.items()}
 
-        #: the draft's parameter dict, as a one-rank shard list
-        self.draft_params = [place(draft_params)]
+        #: the draft's parameter dict, as a one-rank shard list (whole,
+        #: beside a main model whose tp may span processes)
+        self.draft_params = TPGroup([place(draft_params)])
         self._draft_dtype = self.draft_params[0]["embed"].dtype
         self.draft_rope = [T.rope_for(draft_cfg, self.device)]
         #: the draft's decode attention (kernel D); a seam like decode_attn

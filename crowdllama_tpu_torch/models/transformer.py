@@ -68,7 +68,9 @@ from crowdllama_tpu_torch.ops.ring import (
 from crowdllama_tpu_torch.ops.rope import apply_rope, rope_table
 from crowdllama_tpu_torch.parallel.sharding import (
     ExpertBanks,
+    like,
     row_parallel_sum,
+    tp_comm,
     vocab_embed,
     vocab_gather,
 )
@@ -159,8 +161,9 @@ def rope_for(cfg: ModelConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def layer_stacks(shards: list[Params]) -> list[Params]:
-    """Each rank's stacked layer weights."""
-    return [p["layers"] for p in shards]
+    """Each rank's stacked layer weights (a tp group across processes
+    keeps its comm)."""
+    return like(shards, [p["layers"] for p in shards])
 
 
 def layer_stacks_sp(groups: list[list[Params]]) -> list[list[Params]]:
@@ -170,7 +173,8 @@ def layer_stacks_sp(groups: list[list[Params]]) -> list[list[Params]]:
 
 def layer_params(layers: list[Params], i: int) -> list[Params]:
     """Layer ``i`` of each rank's stacked layer weights."""
-    return [{k: w[i] for k, w in stack.items()} for stack in layers]
+    return like(layers, [{k: w[i] for k, w in stack.items()}
+                         for stack in layers])
 
 
 def _ropes(rope, cfg: ModelConfig, layers: list[Params]) -> list:
@@ -189,7 +193,7 @@ def _norm(x, w, cfg: ModelConfig, plus_one: bool | None = None):
 
 def _embed(shards: list[Params], cfg: ModelConfig,
            tokens: torch.Tensor) -> torch.Tensor:
-    x = vocab_embed([p["embed"] for p in shards], tokens)
+    x = vocab_embed([p["embed"] for p in shards], tokens, tp_comm(shards))
     if cfg.embedding_multiplier > 0:
         x = (x.float() * cfg.embedding_multiplier).to(x.dtype)
     return x
@@ -208,7 +212,7 @@ def _unembed(shards: list[Params], cfg: ModelConfig,
         else:  # a quantized lm_head dequantised, as JAX's qeinsum
             parts.append(qeinsum("...d,dv->...v", xr, p["lm_head"],
                                  dtype=torch.float32))
-    logits = vocab_gather(parts)
+    logits = vocab_gather(parts, tp_comm(shards))
     if cfg.final_logit_softcap > 0:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
@@ -354,14 +358,15 @@ def _residual_tail(lps: list[Params], cfg: ModelConfig, x: torch.Tensor,
                    attns: list[torch.Tensor]) -> torch.Tensor:
     """Output projection, residuals and MLP after attention; ``lps`` and
     ``attns`` per rank (the two row-parallel products summed over ranks)."""
+    comm = tp_comm(lps)
     attn = row_parallel_sum([qmatmul(a, lp["wo"])
-                             for a, lp in zip(attns, lps)])
+                             for a, lp in zip(attns, lps)], comm)
     if cfg.post_norms:
         attn = _norm(attn, lps[0]["post_ln1"], cfg, plus_one=True)
     x = x + attn
     h = _norm(x, lps[0]["ln2"], cfg)
     mlp_out = row_parallel_sum([_ffn(lp, cfg, h.to(lp["w_down"].device))
-                                for lp in lps])
+                                for lp in lps], comm)
     if cfg.post_norms:
         mlp_out = _norm(mlp_out, lps[0]["post_ln2"], cfg, plus_one=True)
     return x + mlp_out

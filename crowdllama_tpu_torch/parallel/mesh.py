@@ -19,6 +19,13 @@ derive are written out in ``parallel/sharding.py``, ``ops/ring.py`` and
 devices, each once; an explicit list may name one device several times
 (virtual ranks, as the JAX tests place shards on virtual CPU devices,
 or every rank on one card).
+
+A mesh may span processes (``parallel/multihost.py``): JAX orders the
+global devices by process, so in a mesh of ``n`` processes process ``p``
+holds the row-major ranks ``[p*L, (p+1)*L)``, ``L = size / n``, on its
+own devices; :attr:`Mesh.devices` are those local ranks' devices,
+:meth:`Mesh.process_of` names a rank's process and
+:attr:`Mesh.local_ranks` this process's ranks.
 """
 
 from __future__ import annotations
@@ -92,12 +99,32 @@ def visible_devices() -> list[torch.device]:
 
 @dataclass(frozen=True)
 class Mesh:
-    """Axis sizes and the devices of the mesh, one a rank in (dp, pp, sp,
-    ep, tp) row-major order; with only tp > 1 the devices are the tp
-    ranks."""
+    """Axis sizes and the devices of this process's ranks, one a rank in
+    (dp, pp, sp, ep, tp) row-major order (every rank in one process);
+    with only tp > 1 the devices are the tp ranks."""
 
     shape: tuple[int, int, int, int, int]
     devices: tuple[torch.device, ...]
+    n_processes: int = 1
+    process_index: int = 0
+
+    @property
+    def local_size(self) -> int:
+        """L: the ranks each process holds."""
+        return self.size // self.n_processes
+
+    @property
+    def local_ranks(self) -> range:
+        """This process's global ranks."""
+        first = self.process_index * self.local_size
+        return range(first, first + self.local_size)
+
+    def process_of(self, rank: int) -> int:
+        """The process that holds global rank ``rank``."""
+        return rank // self.local_size
+
+    def is_local(self, rank: int) -> bool:
+        return self.process_of(rank) == self.process_index
 
     @property
     def axes(self) -> dict[str, int]:
@@ -153,22 +180,47 @@ class Mesh:
         return [self.rank(**{**fixed, axis: c}) for c in range(self.shape[i])]
 
     def device(self, **coords: int) -> torch.device:
-        """The device of the rank at ``coords`` (0 where not given)."""
-        return self.devices[self.rank(**coords)]
+        """The device of the rank at ``coords`` (0 where not given), which
+        this process must hold."""
+        return self.rank_device(self.rank(**coords))
+
+    def rank_device(self, rank: int) -> torch.device:
+        """The device of global rank ``rank``, which this process holds."""
+        if not self.is_local(rank):
+            raise ValueError(f"rank {rank} lives in process "
+                             f"{self.process_of(rank)}, not in process "
+                             f"{self.process_index}")
+        return self.devices[rank - self.local_ranks.start]
 
     @classmethod
     def single(cls, device: torch.device) -> "Mesh":
         return cls((1, 1, 1, 1, 1), (device,))
 
 
-def build_mesh(spec: str = "", devices: list | None = None) -> Mesh:
+def build_mesh(spec: str = "", devices: list | None = None,
+               processes: tuple[int, int] | None = None) -> Mesh:
     """Build the mesh ``spec`` names over ``devices`` (default: the visible
     CUDA devices); a spec smaller than the device list takes a prefix of
-    it.  ``devices`` may repeat a device."""
+    it.  ``devices`` may repeat a device.
+
+    ``processes`` is (process count, this process's index), by default
+    the running ``torch.distributed`` group's (``parallel/multihost.py``;
+    (1, 0) without one).  Across ``n`` processes ``devices`` are this
+    process's: the mesh's size must divide by ``n``, and the process
+    places its ``size / n`` ranks on a prefix of them."""
+    if processes is None:
+        from crowdllama_tpu_torch.parallel import multihost
+
+        processes = (multihost.process_count(), multihost.process_index())
+    n, p = processes
     devs = [torch.device(d) for d in
             (devices if devices is not None else visible_devices())]
-    shape = parse_mesh_spec(spec, len(devs))
+    shape = parse_mesh_spec(spec, len(devs) * n)
     if not devs:
         raise ValueError("no devices for the mesh (no CUDA device visible; "
                          "pass devices= to place the shards)")
-    return Mesh(shape, tuple(devs[:math.prod(shape)]))
+    size = math.prod(shape)
+    if size % n:
+        raise ValueError(f"mesh {shape} of {size} ranks does not split over "
+                         f"{n} processes")
+    return Mesh(shape, tuple(devs[:size // n]), n, p)

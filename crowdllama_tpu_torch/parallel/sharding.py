@@ -39,14 +39,25 @@ rank from one process, so it writes them out:
 
 Each reduction returns its single input as it is when there is one shard,
 so a one-device model (a list of one parameter dict) runs no extra
-operation.  :func:`shard_params` makes every rank's dict;
-:func:`rank_groups` bundles them into the tp lists the model's forward
-functions take, one for each (dp, pp, sp) coordinate, with an expert
-leaf sharded on ep as :class:`ExpertBanks`.
+operation.  :func:`shard_params` makes the dict of every rank this
+process holds; :func:`rank_groups` bundles them into the tp lists the
+model's forward functions take, one for each (dp, pp, sp) coordinate,
+with an expert leaf sharded on ep as :class:`ExpertBanks`.
+
+On a mesh across processes (``parallel/multihost.py``) a tp group may
+span processes: its list then holds this process's ranks only, as a
+:class:`TPGroup` that carries the group's ``AxisComm``, and each
+reduction combines the local parts as above, then sums over the group's
+processes (one fp32 ``all_reduce``; the vocab-sharded embedding and
+logits are written into zeros of the full width first, so their sums
+stay exact).  With two processes of one rank each the sum is the one
+addition the one-process loop makes, so the result is bit-identical;
+with more ranks a process the local sums are added first.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any
 
 import torch
@@ -163,8 +174,9 @@ def _tree_map(fn, tree: Params, specs: Params | None = None) -> Params:
 
 def shard_params(params: Params, cfg: ModelConfig,
                  mesh: Mesh) -> list[Params]:
-    """Every rank's parameter dict, in rank order, each on its rank's
-    device.  On one device the one dict holds ``params``' own tensors when
+    """The parameter dict of every rank this process holds
+    (``mesh.local_ranks``: every rank in one process), in rank order,
+    each on its rank's device.  On one device the one dict holds ``params``' own tensors when
     they are already there (moved there otherwise).  On a mesh every leaf
     is a copy of the rank's slice (replicated leaves whole), so once the
     caller drops ``params`` (best kept on the host) the ranks together
@@ -178,7 +190,7 @@ def shard_params(params: Params, cfg: ModelConfig,
                          f"tp={mesh.tp}")
     specs = param_pspecs(cfg)
     out = []
-    for r, d in enumerate(mesh.devices):
+    for r, d in zip(mesh.local_ranks, mesh.devices):
         coords = dict(zip(AXES, mesh.coords(r)))
         out.append(_tree_map(
             lambda x, spec, c=coords, d=d: _slice_to(x, spec, c, mesh.axes,
@@ -207,53 +219,128 @@ class ExpertBanks:
         return self.banks[0].device
 
 
-def rank_groups(shards: list[Params], mesh: Mesh) -> dict:
+class TPGroup(list):
+    """A tp list (per-rank dicts or values) that states whether it is
+    whole.  With ``comm``, the ``parallel.multihost.AxisComm`` of a tp
+    group that spans processes, it holds this process's ranks only and
+    the reductions complete their sums over the other processes' ranks
+    through it; without, it holds a whole model (a draft beside a split
+    main model).  While a list with a comm lives in this process, a
+    plain list that reaches a reduction is refused (:func:`tp_comm`), so
+    a per-rank list rebuilt without :func:`like` fails loudly instead of
+    returning a partial sum."""
+
+    def __init__(self, items=(), comm=None):
+        super().__init__(items)
+        self.comm = comm
+        if comm is not None:
+            _SPLIT_LIVE[0] += 1
+            weakref.finalize(self, _split_gone)
+
+
+#: how many tp lists with a cross-process comm live in this process
+_SPLIT_LIVE = [0]
+
+
+def _split_gone() -> None:
+    _SPLIT_LIVE[0] -= 1
+
+
+def tp_comm(group) -> Any:
+    """The cross-process comm of a tp list: a :class:`TPGroup`'s, None for
+    a plain list; a plain list raises while a tp group of this process
+    spans processes."""
+    if isinstance(group, TPGroup):
+        return group.comm
+    if _SPLIT_LIVE[0]:
+        raise RuntimeError(
+            "a plain per-rank list reached a tp reduction while this "
+            "process's tp groups span processes: its cross-process sum "
+            "would be lost (rebuild per-rank lists with sharding.like, or "
+            "state a whole model as TPGroup(items))")
+    return None
+
+
+def like(group, items: list) -> list:
+    """``items`` as a tp list of the same kind as ``group`` (a
+    :class:`TPGroup` keeps its comm; the copy is not counted live, as
+    ``group`` outlives its use)."""
+    if not isinstance(group, TPGroup):
+        return items
+    out = TPGroup(items)
+    out.comm = group.comm
+    return out
+
+
+def rank_groups(shards: list[Params], mesh: Mesh, comm=None) -> dict:
     """The tp lists of parameter dicts the forward functions take, keyed
-    by (dp, pp, sp) coordinates: the dicts of the tp ranks at ep 0, with
-    each expert leaf replaced by the :class:`ExpertBanks` of the ep ranks
-    at the same (dp, pp, sp, tp) when ep > 1.  Attention and the dense
-    leaves run once over ep (JAX computes them on every ep rank, the same
-    function), so the other ep ranks' copies of them are not kept."""
+    by (dp, pp, sp) coordinates, for the groups this process holds ranks
+    of (``shards`` are this process's ranks, as :func:`shard_params`
+    returns them): the dicts of the tp ranks at ep 0, with each expert
+    leaf replaced by the :class:`ExpertBanks` of the ep ranks at the same
+    (dp, pp, sp, tp) when ep > 1.  Attention and the dense leaves run once
+    over ep (JAX computes them on every ep rank, the same function), so
+    the other ep ranks' copies of them are not kept.  A group whose tp
+    ranks span processes is a :class:`TPGroup` over ``comm``."""
+    first = mesh.local_ranks.start
+
+    def local(r):
+        return shards[r - first]
+
     groups = {}
     for d in range(mesh.dp):
         for p in range(mesh.pp):
             for s in range(mesh.sp):
                 tps = []
                 for t in range(mesh.tp):
-                    base = shards[mesh.rank(d, p, s, 0, t)]
+                    r = mesh.rank(d, p, s, 0, t)
+                    if not mesh.is_local(r):
+                        continue
+                    base = local(r)
                     if mesh.ep > 1 and "router" in base["layers"]:
                         layers = dict(base["layers"])
                         for k in EXPERT_LEAVES:
                             layers[k] = ExpertBanks(
-                                shards[r]["layers"][k] for r in
+                                local(e)["layers"][k] for e in
                                 mesh.ranks_along(AXIS_EP, dp=d, pp=p, sp=s,
                                                  tp=t))
                         base = {**base, "layers": layers}
                     tps.append(base)
-                groups[(d, p, s)] = tps
+                if not tps:
+                    continue
+                groups[(d, p, s)] = (TPGroup(tps, comm)
+                                     if len(tps) < mesh.tp else tps)
     return groups
 
 
-def row_parallel_sum(parts: list[torch.Tensor]) -> torch.Tensor:
+def row_parallel_sum(parts: list[torch.Tensor], comm=None) -> torch.Tensor:
     """The psum after a row-parallel product: the shards' partial outputs
     added in rank order on rank 0's device, in fp32, rounded once to the
-    parts' dtype."""
-    if len(parts) == 1:
+    parts' dtype; with ``comm`` (a tp group across processes) the local
+    fp32 sum is then summed over the group's processes before the
+    rounding."""
+    if len(parts) == 1 and comm is None:
         return parts[0]
     dev = parts[0].device
     acc = parts[0].float()
     for p in parts[1:]:
         acc = acc + p.to(dev).float()
+    if comm is not None:
+        comm.all_reduce(acc)
     return acc.to(parts[0].dtype)
 
 
-def vocab_embed(tables: list[torch.Tensor], tokens: torch.Tensor) -> torch.Tensor:
+def vocab_embed(tables: list[torch.Tensor], tokens: torch.Tensor,
+                comm=None) -> torch.Tensor:
     """Embedding rows of ``tokens`` from vocab-sharded tables [V/tp, D]:
     each shard looks up the ids it holds and zeros elsewhere, and the
-    lookups add up on rank 0's device (exact)."""
-    if len(tables) == 1:
+    lookups add up on rank 0's device (exact); with ``comm`` the local
+    tables are the group's ranks from ``comm.offset`` on, and the sum
+    runs over the group's processes too (in fp32, still exact)."""
+    if len(tables) == 1 and comm is None:
         return tables[0][tokens]
-    dev, lo, out = tables[0].device, 0, None
+    dev, out = tables[0].device, None
+    lo = 0 if comm is None else comm.offset * tables[0].shape[0]
     for table in tables:
         n = table.shape[0]
         local = tokens.to(table.device) - lo
@@ -263,13 +350,25 @@ def vocab_embed(tables: list[torch.Tensor], tokens: torch.Tensor) -> torch.Tenso
                                        device=table.device)).to(dev)
         out = rows if out is None else out + rows
         lo += n
-    return out
+    if comm is None:
+        return out
+    return comm.all_reduce(out.float()).to(out.dtype)
 
 
-def vocab_gather(parts: list[torch.Tensor]) -> torch.Tensor:
+def vocab_gather(parts: list[torch.Tensor], comm=None) -> torch.Tensor:
     """Vocab-sharded logits [..., V/tp] gathered into [..., V] on rank 0's
-    device."""
-    if len(parts) == 1:
+    device; with ``comm`` this process's parts are written at their
+    ranks' columns of a zeroed [..., V] and summed over the group's
+    processes (exact: every other column adds zeros)."""
+    if len(parts) == 1 and comm is None:
         return parts[0]
     dev = parts[0].device
-    return torch.cat([p.to(dev) for p in parts], dim=-1)
+    if comm is None:
+        return torch.cat([p.to(dev) for p in parts], dim=-1)
+    w = parts[0].shape[-1]
+    full = torch.zeros((*parts[0].shape[:-1], w * comm.size),
+                       dtype=torch.float32, device=dev)
+    for i, p in enumerate(parts):
+        lo = (comm.offset + i) * w
+        full[..., lo:lo + w] = p.to(dev)
+    return comm.all_reduce(full).to(parts[0].dtype)

@@ -124,11 +124,13 @@ def device_capabilities(device) -> dict:
 
 
 def _single_process() -> bool:
-    """Whether a pull may hot-register a second engine.  The JAX package
-    refuses it on a multi-process cluster (leader-replicated serving
-    cannot represent a second engine); a torch worker is one process,
-    always, so this holds.  Kept as the JAX gate's seam."""
-    return True
+    """Whether a pull may hot-register a second engine: a swarm pull's
+    second engine is one multi-process leader-replicated serving cannot
+    represent (parallel/replicated.py), so the pull is refused at the
+    service on a multi-process cluster."""
+    from crowdllama_tpu_torch.parallel import multihost
+
+    return multihost.process_count() == 1
 
 
 class Peer:

@@ -62,6 +62,27 @@ def test_the_in_mesh_modules_are_covered():
             "crowdllama_tpu_torch/engine/plan.py"} <= names
 
 
+def test_the_multiprocess_modules_are_covered(monkeypatch):
+    """The multi-process modules and the logger are among the files the
+    import check walks, and a worker over several processes without CUDA
+    raises instead of placing its ranks on the CPU."""
+    from crowdllama_tpu_torch.config import Configuration
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.parallel import multihost
+
+    names = {str(p.relative_to(ROOT)) for p in PORT}
+    assert {"crowdllama_tpu_torch/parallel/multihost.py",
+            "crowdllama_tpu_torch/parallel/replicated.py",
+            "crowdllama_tpu_torch/logutil.py"} <= names
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchEngine(Configuration(mesh_shape="1x2"))
+    eng = TorchEngine(Configuration(mesh_shape="1x2", device="cpu"))
+    assert eng.devices == [torch.device("cpu")]
+
+
 def test_mesh_without_cuda_raises_instead_of_running_on_cpu(monkeypatch):
     from crowdllama_tpu_torch.engine.engine import TorchEngine
     from crowdllama_tpu_torch.engine.runner import ModelRunner

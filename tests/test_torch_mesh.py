@@ -24,7 +24,7 @@ CPU devices, the port's ranks on ``devices=["cpu"] * n``.
 - Megastep equals eager on every new axis (the graph path on the CPU
   through the megastep tests' ``fake_capture``).
 - The plan: ``sweep()`` equals JAX's cell for cell (status, runner,
-  layout, notes), apart from ``multihost-tp``, refused naming item 8.2.
+  layout, notes), ``multihost-tp`` included.
 - ``MultiEngine.capture_profile`` traces the child with the most live
   streams (ROADMAP Queue 3 item 16).
 """
@@ -557,12 +557,7 @@ def test_sweep_matches_jax_cell_for_cell():
     assert len(ours) == len(theirs) == 144
     for (axes, got), (jaxes, want) in zip(ours, theirs):
         assert axes == jaxes
-        if axes["mesh_kind"] == "multihost-tp":
-            # Refused, naming item 8.2, where JAX serves (a cell its
-            # configuration refuses first stays that refusal).
-            assert got[0] == "error", axes
-            assert want[0] == "error" or "item 8.2" in got[1], axes
-            continue
+        # multihost-tp included: n_processes=2 resolves as JAX's does.
         assert got[0] == want[0], axes
         if got[0] != "error":
             g, w = got[1], want[1]
@@ -578,8 +573,16 @@ def test_plan_refusals_name_their_items():
         resolve_serving_plan,
     )
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8.2"):
-        resolve_serving_plan(Configuration(mesh_shape="2"), n_processes=2)
+    from crowdllama_tpu.config import Configuration as JConfiguration
+    from crowdllama_tpu.engine.plan import (
+        resolve_serving_plan as j_resolve,
+    )
+
+    # Two processes resolve as JAX's plan does (no refusal).
+    got = resolve_serving_plan(Configuration(mesh_shape="2"), n_processes=2)
+    want = j_resolve(JConfiguration(mesh_shape="2"), 8, n_processes=2)
+    assert (got.runner, got.kv_layout, got.notes) == (
+        want.runner, want.kv_layout, want.notes)
     with pytest.raises(ValueError, match="Queue 1 item 8.3"):
         resolve_serving_plan(Configuration(mesh_shape="2x1", megastep_k=4))
     with pytest.raises(ValueError, match="Queue 1 item 8.3"):

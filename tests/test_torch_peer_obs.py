@@ -262,7 +262,23 @@ def test_every_port_flag_is_a_jax_flag_but_device():
     assert port - options(jcli.build_parser()) == {"--device"}
 
 
-def test_cli_refuses_consumer_mode_and_a_missing_card(monkeypatch, capsys):
+@pytest.fixture
+def app_logger_restored():
+    """``start`` builds the "crowdllama" app logger as JAX's CLI does (its
+    own handler, no propagation); put it back so later tests' ``caplog``
+    sees the package's records."""
+    import logging
+
+    log = logging.getLogger("crowdllama")
+    saved = (log.level, log.propagate, list(log.handlers))
+    yield
+    log.setLevel(saved[0])
+    log.propagate = saved[1]
+    log.handlers[:] = saved[2]
+
+
+def test_cli_refuses_consumer_mode_and_a_missing_card(monkeypatch, capsys,
+                                                     app_logger_restored):
     # Consumer mode is served now (it runs no model, so it needs no card);
     # a worker without a card is still refused.
     ran = []
