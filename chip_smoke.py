@@ -41,13 +41,16 @@ Phases, each printing one JSON line:
    (gathered; for int8, dequantized to bf16) inputs and the card's least
    time for the work (its bound).  F at tp 2 and 4 must equal B on the
    whole pool bit for bit.  The fp32 entries of A and D (the
-   distillation trainer's: fp32 in, fp32 out, fp32 FMAs) at both head
-   dims against their plain versions on fp32 inputs at atol and rtol
-   1e-5, on the same shapes (A also at a group of 7) and on the shapes
-   the distill phase gives them (A at 16 x 64 tokens, D over 64 slots of
-   a 64-key cache at lengths 1-64), with their bounds at the card's fp32
-   rate and one SDPA call in fp32 under the memory-efficient backend
-   (flash refuses fp32; the backend is named);
+   distillation trainer's: fp32 in, fp32 out; A's products 3xTF32 on the
+   tensor cores, D's fp32 FMAs) at both head dims against their plain
+   versions on fp32 inputs at atol and rtol 1e-5, on the same shapes (A
+   also at a group of 7) and on the shapes the distill phase gives them
+   (A at 16 x 64 tokens, D over 64 slots of a 64-key cache at lengths
+   1-64), with their bounds (D's at the card's fp32 rate, A's at a third
+   of the TF32 rate, the rate of its 3xTF32 products, with the fp32 rate's
+   beside it, ``bound_fp32_fma_ms``) and one SDPA call in fp32 under
+   the memory-efficient backend (flash refuses fp32; the backend is
+   named);
 4a. kernel_G (its own line): kernel G, the grouped GEMM over an expert
    bank (``csrc/grouped_gemm.cu``; no Pallas counterpart: it stands in for
    ``lax.ragged_dot`` and ``qeinsum``'s dequant), on bf16, int8 and int4
@@ -59,8 +62,16 @@ Phases, each printing one JSON line:
    each with the kernel's, the plain version's and the bound's ms (the
    touched experts' weight and scale bytes plus the rows at 3.35 TB/s,
    or 2 * rows * K * N at 989 TF/s) and, for bf16, one library call's
-   (``torch._grouped_mm``, or ``torch.matmul`` at E 1; none dequantises,
-   so int8 and int4 have no yardstick);
+   (``torch._grouped_mm``, or ``torch.matmul`` at E 1; at E 1 for int8
+   ``torch._weight_int8pack_mm`` and for int4 ``torch._weight_int4pack_mm``
+   on the bank repacked once, where this torch has a CUDA kernel for it,
+   else "none" and why; no call dequantises per expert, so the grouped
+   int8 and int4 cases have no yardstick); each case names the schedule the
+   plan chose from its shapes (``stream``: register dequantisation and
+   split K; ``wgmma``: 128-row passes of wgmma tiles), its split factor,
+   grid and (streaming) wave of resident blocks, and the line carries
+   each schedule's shared memory and blocks an SM (the streaming ones
+   must equal the plan's ``STREAM_BLOCKS_PER_SM``);
 5. engine: ``TorchEngine`` serving tinyllama-1.1b at full width (random
    weights from seed 0, default config: 8 slots, page 128, context 2048)
    to 8 concurrent greedy ``generate()`` streams — 6 short prompts, one
@@ -421,8 +432,14 @@ import torch
 # and values, which convert to bf16 exactly, so bf16 is their rate.
 PEAK_BF16_FLOPS = 989e12
 # H100 SXM fp32 outside the tensor cores (data sheet, 700 W): the bound of
-# the fp32 entries of kernels A and D, whose products are fp32 FMAs.
+# kernel D's fp32 entry, whose products are fp32 FMAs (kernel A's fp32
+# entry runs 3xTF32 on the tensor cores: this rate is its second bound,
+# bound_fp32_fma_ms).
 PEAK_FP32_FLOPS = 67e12
+# H100 SXM dense TF32 on the tensor cores (data sheet, 700 W).  Kernel A's
+# fp32 entry takes three TF32 products a product (3xTF32), so a third of
+# it is that entry's rate on the tensor cores and its bound.
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # At most the H100's boost clock (1.98 GHz): a sleep of this many cycles
 # per second of host time lasts at least that long.
@@ -572,9 +589,16 @@ def check_prefill(dev, gen, t: int, softcap: float, window: int,
         else:
             res["library_ms"] = time_ms(sdpa)
         seen = t * (t + 1) // 2  # causal (query, key) pairs per head
+        # fp32 at fp32 accuracy: the card's fastest route is 3xTF32 on the
+        # tensor cores (a third of the TF32 rate); the fp32-FMA rate's
+        # bound is kept beside it.
         res["bound_ms"], res["bound_by"] = bound_ms(
             nbytes(q, k, v, pos, valid, got), 4 * dh * h * b * seen,
-            PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS)
+            PEAK_TF32_FLOPS / 3 if f32 else PEAK_BF16_FLOPS)
+        if f32:
+            res["bound_fp32_fma_ms"] = bound_ms(
+                nbytes(q, k, v, pos, valid, got), 4 * dh * h * b * seen,
+                PEAK_FP32_FLOPS)[0]
     return res
 
 
@@ -1495,7 +1519,11 @@ def decode_step_timing(engine, dev, kernel=None, steps: int = 8,
     and, when ``kernel`` is the runner's decode attention, the GPU time it
     takes per step (its launches alone, CUDA events over the same
     steps); with ``gemm`` also kernel G's time and launches per step (its
-    calls event-timed through a swapped ``T.grouped_gemm``)."""
+    calls event-timed through a swapped ``T.grouped_gemm``: the events of
+    an eager step also span the gaps where the card waits for the host's
+    launches), and from a profiler pass over the same steps the card's
+    kernel time a step and G's part of it (``device_busy_ms_per_step``,
+    ``gemm_device_ms_per_step``: CUPTI's kernel durations, no gaps)."""
     r = engine.runner
     tok = engine.tokenizer
     with torch.inference_mode():
@@ -1527,6 +1555,16 @@ def decode_step_timing(engine, dev, kernel=None, steps: int = 8,
                           _event_timed(grouped_gemm, gspans)):
                 r.decode_steps(st, steps)
             torch.cuda.synchronize()
+            # The same steps under the profiler: CUPTI's kernel durations
+            # hold no host gap.
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                r.decode_steps(st, steps)
+                torch.cuda.synchronize()
+            device_us = {e.key: getattr(e, "device_time_total",
+                                        getattr(e, "cuda_time_total", 0))
+                         for e in prof.key_averages()}
     out = {"slots": r.max_slots, "temperature": temperature,
            "step_ms": step_ms, "tokens_per_s": r.max_slots * 1e3 / step_ms}
     if kernel is not None:
@@ -1536,6 +1574,9 @@ def decode_step_timing(engine, dev, kernel=None, steps: int = 8,
         out["gemm_ms_per_step"] = sum(a.elapsed_time(b)
                                       for a, b in gspans) / steps
         out["gemm_launches_per_step"] = len(gspans) / steps
+        out["device_busy_ms_per_step"] = sum(device_us.values()) / 1e3 / steps
+        out["gemm_device_ms_per_step"] = sum(
+            v for k, v in device_us.items() if "grouped_" in k) / 1e3 / steps
     return out
 
 
@@ -6528,6 +6569,7 @@ def check_gemm(dev, gen, w, fmt: str, sizes: list[int] | None,
     plain version's and one library call's device ms, and the bound from
     the touched experts' bytes and the rows' operations."""
     from crowdllama_tpu_torch.ops.cuda.gemm import (
+        gemm_launch_shape,
         grouped_gemm,
         grouped_gemm_plain,
     )
@@ -6555,7 +6597,10 @@ def check_gemm(dev, gen, w, fmt: str, sizes: list[int] | None,
     moved = (_weight_bytes(w, touched) + nbytes(x, got)
              + (0 if off is None else nbytes(off)))
     bound, by = bound_ms(moved, 2 * m * k * n)
+    plan = gemm_launch_shape(x, w, off)
     row = {"rows": m, "k": k, "n": n, "experts_touched": touched,
+           "schedule": plan["schedule"], "split": plan["split"],
+           "grid": list(plan["grid"]), "wave": plan.get("wave"),
            "max_abs_err": err, "scale": scale,
            "ms": time_ms(lambda: grouped_gemm(x, w, off)),
            "plain_ms": time_ms(lambda: grouped_gemm_plain(x, w, off),
@@ -6573,11 +6618,80 @@ def check_gemm(dev, gen, w, fmt: str, sizes: list[int] | None,
         row["library_ms"] = time_ms(lambda: torch._grouped_mm(x, w,
                                                               offs=ends))
         row["library"] = "torch._grouped_mm"
+    elif fmt == "int8" and sizes is None:
+        row.update(_int8pack_mm_ms(x, w, want))
+    elif fmt == "int4" and sizes is None:
+        row.update(_int4pack_mm_ms(x, w, want))
     else:
-        row["library"] = ("no single PyTorch call dequantises in the "
-                          "product" if fmt != "bf16" else
+        row["library"] = ("none: no PyTorch call dequantises a bank of "
+                          "experts in the product" if fmt != "bf16" else
                           "torch._grouped_mm missing from this torch")
     return row
+
+
+def _int8pack_mm_ms(x, w, want) -> dict:
+    """The yardstick of an int8 dense product: one
+    ``torch._weight_int8pack_mm`` call (x times the [N, K] int8 weight
+    and its per-channel scales) where this torch has a CUDA kernel for
+    it, else none and why.  The port never calls it."""
+    name = "torch._weight_int8pack_mm"
+    if not hasattr(torch, "_weight_int8pack_mm"):
+        return {"library": f"none: {name} missing from this torch"}
+    wt = w.q.t().contiguous()
+    try:
+        ref = torch._weight_int8pack_mm(x, wt, w.s)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        return {"library": f"none: {name} has no CUDA kernel here "
+                           f"({str(exc).splitlines()[0][:160]})"}
+    return {"library": name,
+            "library_max_abs_diff": float((ref.float() - want.float())
+                                          .abs().max()),
+            "library_ms": time_ms(lambda: torch._weight_int8pack_mm(
+                x, wt, w.s))}
+
+
+# inner k tiles of the tinygemm int4 layout (its kernel's widest)
+INT4PACK_INNER_K_TILES = 8
+
+
+def _int4pack_mm_ms(x, w, want) -> dict:
+    """The yardstick of an int4 dense product: one
+    ``torch._weight_int4pack_mm`` call (tinygemm's kernel: x times
+    ``(u - 8) * s + z`` for the unsigned nibbles ``u``, group scales ``s``
+    and zero points ``z``) on the QTensor4 repacked once, with ``u = q +
+    8`` and ``z = 0``, so it computes ``x @ (q * s)``, the same function,
+    where this torch has a CUDA kernel for it, else none and why.  The
+    port never calls it."""
+    from crowdllama_tpu_torch.ops.quant import unpack_int4
+
+    name = "torch._weight_int4pack_mm"
+    if not (hasattr(torch, "_weight_int4pack_mm")
+            and hasattr(torch, "_convert_weight_to_int4pack")):
+        return {"library": f"none: {name} missing from this torch"}
+    u = (unpack_int4(w.q).to(torch.int32) + 8).t().contiguous()  # [N, K]
+    zeros = torch.zeros_like(w.s)
+    sz = torch.stack((w.s, zeros), dim=-1).contiguous()  # [K/g, N, 2]
+    group = w.group
+    # This torch's packing takes nibble pairs in uint8 [N, K / 2] (torch
+    # 2.5 on) or the values in int32 [N, K] (before).
+    errors = []
+    for packed in (((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8), u):
+        try:
+            wp = torch._convert_weight_to_int4pack(packed,
+                                                   INT4PACK_INNER_K_TILES)
+            ref = torch._weight_int4pack_mm(x, wp, group, sz)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as exc:
+            errors.append(str(exc).splitlines()[0][:120])
+            continue
+        return {"library": name,
+                "library_max_abs_diff": float((ref.float() - want.float())
+                                              .abs().max()),
+                "library_ms": time_ms(lambda: torch._weight_int4pack_mm(
+                    x, wp, group, sz))}
+    return {"library": f"none: {name} has no CUDA kernel here "
+                       f"({'; '.join(errors)})"}
 
 
 def _spread(gen_cpu: torch.Generator, rows: int, experts: int) -> list[int]:
@@ -6621,12 +6735,22 @@ def gemm_phase(dev) -> dict:
             del w
         _free_card()
     from crowdllama_tpu_torch.ops import cuda as kernels
+    from crowdllama_tpu_torch.ops.cuda.gemm import STREAM_BLOCKS_PER_SM
 
+    resources = {sym + sfx: kernels.kernel_resources("grouped_gemm",
+                                                     sym + sfx, 0, 0, dev)
+                 for sym in kernels.SIGNATURES["grouped_gemm"]
+                 for sfx in ("", "_stream")}
+    # The streaming plan's wave is the build's occupancy.
+    for fmt, sym in zip(GEMM_FORMATS, kernels.SIGNATURES["grouped_gemm"]):
+        held = resources[sym + "_stream"]["blocks_per_sm"]
+        if held != STREAM_BLOCKS_PER_SM[fmt]:
+            raise AssertionError(f"G {fmt}: the streaming kernel holds {held} "
+                                 f"blocks an SM, the plan assumes "
+                                 f"{STREAM_BLOCKS_PER_SM[fmt]}")
     emit({"phase": "kernel_G", "rtol_of_scale": GEMM_RTOL,
           "grouped_mm_available": hasattr(torch, "_grouped_mm"),
-          "resources": {sym: kernels.kernel_resources("grouped_gemm", sym, 0,
-                                                      0, dev)
-                        for sym in kernels.SIGNATURES["grouped_gemm"]},
+          "resources": resources,
           "cases": cases, "card": torch.cuda.get_device_name(0)})
     return {fmt: dict(cases[fmt][GEMM_ROW_CASE],
                       max_abs_err=max(c["max_abs_err"]
@@ -8138,8 +8262,8 @@ def main() -> int:
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"],
                          "library_ms": r["library_ms"],
-                         **({"library_backend": r["library_backend"]}
-                            if "library_backend" in r else {})})
+                         **({k: r[k] for k in ("library_backend",
+                                               "bound_fp32_fma_ms") if k in r})})
     for key, symbol in G_ROWS.items():
         fmt = {"G": "bf16", "G_int8": "int8", "G_int4": "int4"}[key]
         r = gemm[fmt]
@@ -8150,7 +8274,8 @@ def main() -> int:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
-                     "library": r["library"], "shape": GEMM_ROW_CASE})
+                     "library": r["library"], "shape": GEMM_ROW_CASE,
+                     "schedule": r["schedule"], "split": r["split"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

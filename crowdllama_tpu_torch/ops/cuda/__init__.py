@@ -88,10 +88,14 @@ SIGNATURES: dict[str, dict[str, list]] = {
                             _I, _I, _F, _F, _I, _I, _P],
     },
     "grouped_gemm": {
-        # x, w, scale, offsets, y, M, K, N, E, groups, msplit, stream
-        "grouped_gemm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        "grouped_gemm_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        "grouped_gemm_i4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # x, w, scale, offsets, y, ws, counters, M, K, N, E, groups,
+        # schedule, split, stream
+        "grouped_gemm_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
+        "grouped_gemm_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _P],
+        "grouped_gemm_i4": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _P],
     },
 }
 
@@ -172,10 +176,11 @@ _KERNEL_RE = re.compile(
     r"\d([a-z_]+_kernel)I(?:13__nv_bfloat16|(a)|(f))?Li(\d+)E")
 # The element type of a kernel templated on the head dim alone: bf16 but
 # for these.
-_UNTYPED_DTYPE = {"prefill_simt_kernel": "fp32"}
+_UNTYPED_DTYPE = {"prefill_tf_kernel": "fp32"}
 # Kernels whose one integer template argument is a weight format, not a
 # head dim: their rows carry the format as ``dtype`` and no ``dh``.
-_FORMAT_KERNELS = {"grouped_gemm_kernel": ("bf16", "int8", "int4")}
+_FORMAT_KERNELS = {"grouped_stream_kernel": ("bf16", "int8", "int4"),
+                   "grouped_wgmma_kernel": ("bf16", "int8", "int4")}
 
 
 def ptxas_usage(name: str) -> list[dict]:

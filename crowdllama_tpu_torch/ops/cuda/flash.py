@@ -15,8 +15,8 @@ Counterparts of ``crowdllama_tpu/ops/pallas/flash.py``:
 
 Both take bf16 or fp32 operands and return the same type: bf16 runs the
 serving kernels, fp32 (the distillation trainer's fp32 teacher and
-student, ``train/distill.py``) the entries ``flash_prefill_f32`` (a SIMT
-tile) and ``flash_decode_f32`` (the split-KV stages over fp32 rows), each
+student, ``train/distill.py``) the entries ``flash_prefill_f32`` (a
+3xTF32 tensor-core tile) and ``flash_decode_f32`` (the split-KV stages over fp32 rows), each
 counted apart (``launches_fp32``).  Nothing is cast: any other dtype is
 refused.  A gradient through A is :class:`PrefillAttention`, whose
 forward runs the kernel and whose backward is the plain function's

@@ -18,6 +18,19 @@ experts that reads no offset on the host, so the MoE forward stays free
 of host syncs on the CPU too); ``qragged_dot`` is the same over group
 sizes.
 
+The kernel has two schedules, and :func:`launch_shape` picks one from
+the shapes alone (M, K, N, E, the format and the int4 group), never from
+the offsets' values, so a captured graph replays the same grid: the
+streaming schedule (dequantisation in registers, the weight as the mma's
+16-row operand, K split across blocks) where an even spread gives an
+expert at most ``STREAM_ROWS`` rows, the wgmma schedule (128-row passes
+of ``wgmma.m64n128k16``) otherwise.
+A split launch sums its fp32 partials in split order in its last block,
+through one counter per (column tile, expert) that every launch leaves
+at zero: the partials and counters are the scratch kernels B and D
+share on the device (``ops/cuda/paged.py split_scratch``), so G's calls
+run in one stream's order with theirs.
+
 The wrapper launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; a CUDA operand the kernel does not take (not
 bf16 activations, K or N not multiples of 64, scales not bf16, ...)
@@ -27,14 +40,30 @@ raises.  Launches are counted by weight format: ``launches`` (bf16),
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from crowdllama_tpu_torch.ops.cuda import check, launch
+from crowdllama_tpu_torch.ops.cuda.paged import split_scratch
 from crowdllama_tpu_torch.ops.quant import QTensor, QTensor4, qeinsum
 
-TILE = 64         # the kernel's column tile and staged input rows
-PASS_ROWS = 64    # rows of one pass of a block
+TILE = 64         # K and N are multiples of it
+PASS_ROWS = 128   # rows of one pass of a wgmma block
 MAX_MSPLIT = 32   # blocks sharing one (column tile, expert)'s passes
+COL_TILE = 128    # the wgmma schedule's column tile
+# the streaming schedule's: bf16 takes 64 columns, so a block's staged row
+# is 128 bytes in bf16 as in int8 (int4's is 64)
+STREAM_COLS = {"bf16": 64, "int8": 128, "int4": 128}
+K_TILE = 64       # input rows of their staged tiles (a k tile)
+STREAM_ROWS = 32    # rows of x a streaming pass holds
+SMS = 132           # the H100's streaming multiprocessors
+# Streaming blocks an SM holds, by format (the build's occupancy, which
+# chip_smoke.py's kernel_G line checks on the card): one wave of resident
+# blocks is SMS times this.
+STREAM_BLOCKS_PER_SM = {"bf16": 3, "int8": 4, "int4": 3}
+MIN_SPLIT_KTILES = 4     # k tiles a split walks at least
+THREADS = 128       # both schedules: 4 warps a block
 
 _ENTRIES = {"bf16": ("grouped_gemm_bf16", "launches"),
             "int8": ("grouped_gemm_i8", "launches_int8"),
@@ -50,11 +79,65 @@ def weight_format(w) -> str:
 
 
 def msplit_for(m: int, experts: int) -> int:
-    """Blocks that share one (column tile, expert)'s 64-row passes: the
+    """Blocks that share one (column tile, expert)'s 128-row passes: the
     passes an expert holds when the rows spread evenly, from the shapes
     alone (so a captured graph replays the same grid)."""
     passes = -(-m // PASS_ROWS)
     return max(1, min(-(-passes // experts), MAX_MSPLIT))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_shape(m: int, k: int, n: int, experts: int, fmt: str,
+                 groups: int = 1) -> dict:
+    """Kernel G's launch from shapes alone: ``schedule`` ("stream" or
+    "wgmma"), ``grid``, ``threads`` and ``split`` (the streaming
+    schedule's splits of K; the wgmma schedule's blocks sharing a group's
+    passes), with ``ktiles_per_split``, ``busy_blocks`` (the streaming
+    blocks of the (column tile, expert) pairs an even spread of ``m`` rows
+    fills) and ``wave`` (the streaming blocks the card holds at once) for
+    the streaming one.
+
+    Streaming where an even spread gives an expert at most
+    ``STREAM_ROWS`` rows (and an int4 group is a multiple of 16 rows).  Its
+    split factor, measured on the H100 over Mixtral's decode and
+    llama-3-8b's dense products: busy pairs that fit in one wave are split
+    until the blocks fill it (all start together and finish together);
+    more than one wave but less than one and a half are split in two (so
+    the second wave is not a short tail of long blocks); more run whole.
+    Each split walks at least ``MIN_SPLIT_KTILES`` k tiles; ``split`` is
+    normalised so every split holds a k tile; ``ktiles_per_split`` is the
+    kernel's own, ``ceil(ktiles / split)``.  Cached per shape: callers
+    read the dict and do not change it."""
+    if -(-m // experts) <= STREAM_ROWS and (
+            fmt != "int4" or (k // groups) % 16 == 0):
+        ntiles = -(-n // STREAM_COLS[fmt])
+        ktiles = k // K_TILE
+        busy = ntiles * max(1, min(experts, m))
+        wave = SMS * STREAM_BLOCKS_PER_SM[fmt]
+        split = (wave // busy if busy <= wave
+                 else 2 if 2 * busy < 3 * wave else 1)
+        split = max(1, min(split, ktiles // MIN_SPLIT_KTILES))
+        split = -(-ktiles // -(-ktiles // split))
+        return dict(schedule="stream", grid=(ntiles, experts, split),
+                    threads=THREADS, split=split,
+                    ktiles_per_split=-(-ktiles // split),
+                    busy_blocks=busy * split, wave=wave)
+    split = msplit_for(m, experts)
+    return dict(schedule="wgmma", grid=(-(-n // COL_TILE), experts, split),
+                threads=THREADS, split=split)
+
+
+def gemm_launch_shape(xs: torch.Tensor, w, offsets: torch.Tensor | None
+                      = None) -> dict:
+    """:func:`launch_shape` of these operands, read from their shapes: the
+    offsets' values (the router's, on the device) never enter it."""
+    fmt = weight_format(w)
+    q = w.q if fmt != "bf16" else w
+    e, k, cols = q.shape if q.dim() == 3 else (1, *q.shape)
+    groups = w.s.shape[-2] if fmt == "int4" else 1
+    return dict(launch_shape(xs.shape[0], k,
+                             cols * 2 if fmt == "int4" else cols, e, fmt,
+                             groups))
 
 
 def grouped_gemm(xs: torch.Tensor, w, offsets: torch.Tensor | None = None
@@ -117,11 +200,19 @@ def grouped_gemm(xs: torch.Tensor, w, offsets: torch.Tensor | None = None
     y = torch.empty((m, n), dtype=torch.bfloat16, device=xs.device)
     if m == 0:
         return y
+    plan = launch_shape(m, k, n, e, fmt, groups)
+    ws = counters = None
+    if plan["schedule"] == "stream" and plan["split"] > 1:
+        ws, counters = split_scratch(xs.device, e * plan["grid"][0],
+                                     plan["split"] * m * n)
     symbol, counter = _ENTRIES[fmt]
     launch("grouped_gemm", symbol, xs.device, xs.data_ptr(), q.data_ptr(),
            None if scale is None else scale.data_ptr(),
            None if offsets is None else offsets.data_ptr(), y.data_ptr(),
-           m, k, n, e, groups, msplit_for(m, e))
+           None if ws is None else ws.data_ptr(),
+           None if counters is None else counters.data_ptr(),
+           m, k, n, e, groups, 0 if plan["schedule"] == "stream" else 1,
+           plan["split"])
     setattr(grouped_gemm, counter, getattr(grouped_gemm, counter) + 1)
     return y
 

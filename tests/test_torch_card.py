@@ -39,7 +39,10 @@ equal to the plain function's.  Kernel G (the grouped GEMM over bf16,
 int8 and int4 expert banks) against its plain version within 0.0156 of
 the output's scale: groups left empty, every row on one expert, groups
 longer than a 64-row pass, an empty bank, the dense product (E 1); its
-refusals of operands it does not take.
+refusals of operands it does not take.  G's streaming schedule at split
+K, a last column tile of 64, groups longer than a 32-row pass and int4
+groups of 16 rows: within the same bound, the schedule the plan names,
+two calls bit-equal and the split counters left at zero.
 """
 
 import numpy as np
@@ -604,13 +607,13 @@ def test_builds_report_no_spills(cuda_device):
         (k, dh) for dh in (64, 128)
         for k in ("flash_prefill_kernel", "flash_decode_kernel",
                   "paged_decode_kernel", "ragged_paged_kernel",
-                  "ragged_chunk_kernel", "prefill_simt_kernel")}
+                  "ragged_chunk_kernel", "prefill_tf_kernel")}
     assert {(r["kernel"], r["dh"]) for r in rows if r["dtype"] == "fp32"} >= {
         (k, dh) for dh in (64, 128)
-        for k in ("flash_decode_kernel", "prefill_simt_kernel")}
-    assert {r["dtype"] for r in rows
-            if r["kernel"] == "grouped_gemm_kernel"} == {"bf16", "int8",
-                                                         "int4"}
+        for k in ("flash_decode_kernel", "prefill_tf_kernel")}
+    for kernel in ("grouped_stream_kernel", "grouped_wgmma_kernel"):
+        assert {r["dtype"] for r in rows
+                if r["kernel"] == kernel} == {"bf16", "int8", "int4"}
     spills = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
     assert not spills, spills
 
@@ -1052,3 +1055,120 @@ def test_grouped_gemm_refuses_what_it_does_not_take(cuda_device):
     q = quantize_weight(w)
     with pytest.raises(ValueError, match="scales must be bf16"):
         grouped_gemm(x, type(q)(q=q.q, s=q.s.float()), off)
+
+
+GEMM_STREAM_CASES = [
+    # (rows per expert, K, N, int4 group): split K over a last column tile
+    # of 64 (int8 and int4: bf16's tiles are 64); the dense product at 8
+    # rows and 8 splits; 40 rows on one expert (two 32-row passes); int4
+    # groups of 16 rows.
+    ([1, 0, 3, 0], 1024, 192, 64),
+    (None, 2048, 320, 64),
+    ([40, 0, 0, 0], 512, 256, 64),
+    ([2, 5, 0, 1], 512, 256, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("case", range(len(GEMM_STREAM_CASES)))
+def test_grouped_gemm_stream_schedule_on_card(cuda_device, fmt, case):
+    """Kernel G's streaming schedule (dequantisation in registers, split
+    K summed in split order by the last block): within 0.0156 of the
+    output's scale of its plain version, bit-equal over two calls, and
+    the split counters at zero after each."""
+    from crowdllama_tpu_torch.ops.cuda import gemm as G
+    from crowdllama_tpu_torch.ops.quant import (
+        quantize_weight,
+        quantize_weight_int4,
+    )
+
+    sizes, k, n, group = GEMM_STREAM_CASES[case]
+    gen, bf = _card_case(cuda_device)
+    e = 1 if sizes is None else len(sizes)
+    m = 8 if sizes is None else sum(sizes)
+    w = (torch.randn((e, k, n), generator=gen, device=cuda_device)
+         / k ** 0.5).to(torch.bfloat16)
+    if sizes is None:
+        w = w[0]
+    w = {"bf16": lambda t: t, "int8": quantize_weight,
+         "int4": lambda t: quantize_weight_int4(t, group=group)}[fmt](w)
+    x = torch.randn((m, k), generator=gen, **bf)
+    off = None if sizes is None else torch.tensor(
+        [0] + list(np.cumsum(sizes)), dtype=torch.int32, device=cuda_device)
+    plan = G.gemm_launch_shape(x, w, off)
+    assert plan["schedule"] == "stream"
+    got = G.grouped_gemm(x, w, off)
+    again = G.grouped_gemm(x, w, off)
+    want = G.grouped_gemm_plain(x, w, off)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max()
+    assert float(err) <= 0.0156 * float(want.float().abs().max())
+    if plan["split"] > 1:
+        from crowdllama_tpu_torch.ops.cuda import paged as P
+
+        assert not P._SPLIT_SCRATCH[got.device][1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_grouped_gemm_stream_dequant_is_dequant_bit_for_bit(cuda_device,
+                                                           fmt):
+    """One-hot rows of x read single rows of the dequantised weight out of
+    the streaming kernel (one product with 1.0, exact): equal to
+    ``dequant`` value for value (a -0 sums to +0), over every int8 (or
+    int4) value and scales that include subnormals, large ones and
+    negatives."""
+    from crowdllama_tpu_torch.ops.cuda import gemm as G
+    from crowdllama_tpu_torch.ops.quant import QTensor, QTensor4, dequant
+
+    k, n = 64, 256
+    gen = torch.Generator().manual_seed(5)
+    bits = torch.tensor([0x0001, 0x0040, 0x0080, 0x3F80, 0x7A00, 0x8001,
+                         0xBF80, 0x3A83], dtype=torch.int32)
+    pick = torch.randint(0, len(bits), (n,), generator=gen)
+    if fmt == "int8":
+        q = torch.arange(k * n, dtype=torch.int32).reshape(k, n) % 256 - 128
+        s = bits[pick].to(torch.int16).view(torch.bfloat16)
+        w = QTensor(q=q.to(torch.int8), s=s)
+    else:
+        q = torch.randint(-128, 128, (k, n // 2), generator=gen)
+        groups = k // 16
+        s = bits[torch.randint(0, len(bits), (groups, n), generator=gen)]
+        w = QTensor4(q=q.to(torch.int8),
+                     s=s.to(torch.int16).view(torch.bfloat16))
+    want = dequant(w).float()
+    w = w.to(cuda_device)
+    for k0 in range(0, k, 16):
+        x = torch.zeros((16, k), dtype=torch.bfloat16, device=cuda_device)
+        x[torch.arange(16), k0 + torch.arange(16)] = 1.0
+        assert G.gemm_launch_shape(x, w)["schedule"] == "stream"
+        got = G.grouped_gemm(x, w).cpu().float()
+        assert torch.equal(got, want[k0:k0 + 16]), k0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [16, 32, 128])
+def test_grouped_gemm_wgmma_int4_groups_on_card(cuda_device, group):
+    """Kernel G's wgmma schedule on int4 banks whose scale groups span
+    part of a k tile (16, 32 rows: a scale row a weight row) or several
+    (128: one staged row a tile), against its plain version within
+    0.0156 of the output's scale."""
+    from crowdllama_tpu_torch.ops.cuda import gemm as G
+    from crowdllama_tpu_torch.ops.quant import quantize_weight_int4
+
+    gen, bf = _card_case(cuda_device)
+    sizes, k, n = [300, 0, 170, 6], 512, 320
+    w = quantize_weight_int4(
+        (torch.randn((len(sizes), k, n), generator=gen, device=cuda_device)
+         / k ** 0.5).to(torch.bfloat16), group=group)
+    x = torch.randn((sum(sizes), k), generator=gen, **bf)
+    off = torch.tensor([0] + list(np.cumsum(sizes)), dtype=torch.int32,
+                       device=cuda_device)
+    assert G.gemm_launch_shape(x, w, off)["schedule"] == "wgmma"
+    got = G.grouped_gemm(x, w, off)
+    want = G.grouped_gemm_plain(x, w, off)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max()
+    assert float(err) <= 0.0156 * float(want.float().abs().max())

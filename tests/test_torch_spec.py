@@ -409,10 +409,20 @@ class _Ids:
 
 async def _streams(engine, probe_interval=None, names=tuple(STREAMS)):
     """``names`` of the streams at once (the long one once the others
-    started): name -> (text, token ids)."""
+    started: sent when every other stream has yielded its first chunk, so
+    it is admitted while they decode on every engine, however the
+    scheduler's thread and the event loop interleave): name -> (text,
+    token ids)."""
     if probe_interval is not None:
         engine.scheduler.spec_probe_interval = probe_interval
     out = {}
+    waiting = {n for n in names if n != "long"}  # no chunk yielded yet
+    started = asyncio.Event()
+
+    def yielded(name):
+        waiting.discard(name)
+        if not waiting:
+            started.set()
 
     async def run(name):
         ids: list[int] = []
@@ -420,13 +430,20 @@ async def _streams(engine, probe_interval=None, names=tuple(STREAMS)):
         text = ""
         async for chunk in engine.generate(STREAMS[name], max_tokens=TOKENS):
             text += chunk.text
+            yielded(name)
         out[name] = (text, ids)
+        yielded(name)
+
+    async def run_long():
+        await started.wait()
+        await run("long")
 
     engine.tokenizer = _Ids(engine.tokenizer)
+    if not waiting:
+        started.set()
     tasks = [asyncio.create_task(run(n)) for n in names if n != "long"]
-    await asyncio.sleep(0)
     if "long" in names:
-        tasks.append(asyncio.create_task(run("long")))
+        tasks.append(asyncio.create_task(run_long()))
     await asyncio.gather(*tasks)
     return out
 
