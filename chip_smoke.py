@@ -139,12 +139,13 @@ Phases, each printing one JSON line:
    gateway (its own line, and a ``gateway_megastep`` line): the consumer
    side, every module the port's own, on 127.0.0.1 — a DHT node, two
    workers (eager, paged bf16, one set of seed-0 weights shared on the
-   card, the unembedding of every id but printable ASCII zeroed so each
-   token is a character), a consumer ``Peer`` and its ``Gateway``, the
+   card, cut to ``GATEWAY_LAYERS`` layers (``reduced``), the unembedding
+   of every id but printable ASCII zeroed so each token is a character),
+   a consumer ``Peer`` and its ``Gateway``, the
    standard library's ``http.client`` as the client: greedy ``/api/chat``
    (streamed and not) and the CLI's ``run`` through this gateway,
-   ``/api/generate`` equal to ``generate()``, a
-   seeded request that repeats, SSE ``/v1/chat/completions``,
+   ``/api/generate`` equal to ``generate()``, a seeded request that
+   repeats, SSE ``/v1/chat/completions``,
    ``/api/embed`` vs the runner, tags, health, /metrics, a stitched
    trace, a burst shed with ``Retry-After``, TTFB and tokens/s of 8
    concurrent chats beside 8 direct streams, host us per NDJSON frame,
@@ -154,7 +155,8 @@ Phases, each printing one JSON line:
    ``megastep_k=8`` behind the same gateway: tokens/s of 8 streams
    beside direct ``generate()`` and the AEAD's us per operation;
    kv_ship and replicated (a line each): two tinyllama workers (paged
-   bf16, the gateway phase's printable weights, ``kv_ship``) behind two
+   bf16, the gateway phase's printable weights and depth, ``kv_ship``)
+   behind two
    ``Gateway`` replicas gossiping through ``GossipNode``s, all on
    127.0.0.1.  The continuation of a chat whose 1,465-token first turn
    ran on worker 1 lands on worker 2, which fetches worker 1's 11 pages
@@ -178,8 +180,9 @@ Phases, each printing one JSON line:
    start`` (bootstrap node and relay), a worker ``start --worker-mode
    --relay-mode always`` (tinyllama-1.1b, seed-0 weights,
    ``--megastep-k 8``) reachable only through the relay, and per rung of
-   the dial ladder a consumer ``start`` with its gateway: the splice,
-   connection reversal and a hole punch on loopback.  Each rung: a greedy
+   the dial ladder a consumer ``start`` with its gateway (the three
+   started at once, beside the worker): the splice, connection reversal
+   and a hole punch on loopback.  Each rung: a greedy
    streamed ``/api/chat`` equal in text and tokens to a direct greedy
    ``generate()`` here on the same weights (TTFB beside its TTFT), 8
    concurrent chats, the ladder's counters and the worker's inbound
@@ -188,9 +191,10 @@ Phases, each printing one JSON line:
    SIGTERM;
    aead_split (its own line): ``gateway_megastep`` with the gateway in
    a process of its own (a consumer ``start``), the megastep worker
-   here, once with ``CROWDLLAMA_NO_NATIVE=1`` on both sides and once
-   without: per side AEAD operations, us per operation and share of the
-   wall, and tokens/s through the gateway as a share of direct;
+   here (the gateway phase's weights and depth), once with
+   ``CROWDLLAMA_NO_NATIVE=1`` on both sides and once without: per side
+   AEAD operations, us per operation and share of the wall, and
+   tokens/s through the gateway as a share of direct;
 7. engine_int8: the same engine with ``kv_dtype="int8"`` (int8 pools)
    and the same traffic plus a seeded sampled stream (temperature 0.8,
    seed 1234) that must repeat token for token when sent again; kernels
@@ -387,7 +391,25 @@ Phases, each printing one JSON line:
    of greedy tokens equal to the one-device engine's, the steady decode
    step (CUDA events) and TTFT beside the one-device engine's, the peak
    memory and its ratio to the one-device run, and the card's name and
-   power limit.
+   power limit.  mesh_dp, mesh_pp, mesh_sp and mesh_ep also keep their
+   prefill logits of one prompt for the multiprocess lines.
+
+17. multiprocess_* (a leader and a follower line each): one worker over
+   two processes on the one card (``parallel/multihost.py``, gloo: the
+   processes share the card), every mesh served in one launch of the two
+   processes (``mp_child``).  TinyLlama cut to MESH_LAYERS on "1x2" paged
+   (tp across the processes; beside the one-process engine on the same
+   mesh, run here), "2x1" contiguous (dp), "1x2x1x1x1" (a pp stage a
+   process), "1x2x1x1" (an sp shard a process) and "2x1" with n-gram
+   speculation (a dp rank a process), and mixtral-8x7b bf16 cut to
+   MESH_EP_LAYERS on "1x2x1" (an expert bank a process), beside mesh_dp
+   (dp and speculation), mesh_pp, mesh_sp and mesh_ep.
+   Each line: every stream done, the repeat equal, each process's
+   launches and each launched kernel (A, B/F, D, G) against its plain
+   version on the served inputs, the prefill logits against the
+   one-process mesh's (``LOGIT_RTOL_TP``), the greedy share, the leader's
+   steady step with the frames' host us and the collectives' ms, TTFT,
+   memory per process and the collective backend.
 
 Each engine phase starts once the previous engine has stopped and its
 memory is freed; its peak memory is counted from before the engine loads
@@ -1624,12 +1646,13 @@ def seed0_params(dev) -> dict:
 
     params = init_params(get_config("tinyllama-1.1b"), seed=0, device=dev)
     params["lm_head"][:, ByteTokenizer.EOS] = 0
+    return _host_tree(params)
 
-    def host(tree):
-        return {k: host(v) if isinstance(v, dict) else v.cpu()
-                for k, v in tree.items()}
 
-    return host(params)
+def _host_tree(tree: dict) -> dict:
+    """A parameter tree's tensors copied to the host."""
+    return {k: _host_tree(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
 
 
 def _free_card() -> None:
@@ -2357,9 +2380,17 @@ def _printable_init():
         runner.init_params = init
 
 
+# The depth of the gateway, kv_ship and aead_split phases' TinyLlama
+# (``reduced`` on their lines): their checks are of the host's request
+# path, whose eager steps cost about as much a layer.
+GATEWAY_LAYERS = 8
+
+
 def gateway_params(dev) -> dict:
-    """TinyLlama's seed-0 weights (as ``seed0_params``), copied to the card
-    for every engine of the gateway phase to share, with the unembedding
+    """TinyLlama's seed-0 weights (as ``seed0_params``) cut to
+    ``GATEWAY_LAYERS`` layers, copied to the card for every engine of the
+    gateway phase to share (:func:`_tiny_config` gives their config), with
+    the unembedding
     columns of every id but printable ASCII (32-126) zeroed in the copy
     (the cached host weights stay the seed-0 ones): a greedy token is then
     one character of text, so a stream carries a frame per token and its
@@ -2369,7 +2400,7 @@ def gateway_params(dev) -> dict:
         return {k: card(v) if isinstance(v, dict) else v.to(dev, copy=True)
                 for k, v in tree.items()}
 
-    return _printable(card(seed0_params(dev)))
+    return _printable(card(_cut(seed0_params(dev), GATEWAY_LAYERS)))
 
 
 def _http(port: int, method: str, path: str, body=None,
@@ -2496,12 +2527,20 @@ def _flush_us_per_frame(gw, tids: set, frames: dict) -> list[float]:
     return sorted(out)
 
 
-async def _wait_routable(pm, ids: set, timeout: float = 90.0) -> None:
+async def _wait_routable(pm, ids: set, timeout: float = 90.0,
+                         rediscover: bool = False) -> None:
+    """Wait until the peer manager ``pm`` routes to every worker of
+    ``ids``.  With ``rediscover`` each poll runs a discovery round at
+    once: a worker joining a settled swarm is otherwise found only when
+    the consumer's discovery, backed off up to 8x its interval while
+    nothing new appeared, next runs."""
     deadline = time.monotonic() + timeout
     while not ids <= {p.peer_id for p in pm.get_healthy_peers()
                       if p.is_worker and not p.resource.draining}:
         if time.monotonic() > deadline:
             raise AssertionError(f"gateway: workers {ids} not routable")
+        if rediscover:
+            await pm.run_discovery_once()
         await asyncio.sleep(0.1)
 
 
@@ -2509,8 +2548,9 @@ def gateway_phase(dev) -> tuple[dict, dict]:
     """The consumer side on the card, all port modules on 127.0.0.1: a DHT
     bootstrap node, two workers (``Peer`` over ``TorchEngine``,
     tinyllama-1.1b paged bf16, eager, on one set of ``gateway_params``
-    shared on the card), a consumer ``Peer`` and its ``Gateway``; the
-    client is the standard library's ``http.client``.  Launch counts are
+    shared on the card, cut to ``GATEWAY_LAYERS`` layers), a consumer
+    ``Peer`` and its ``Gateway``; the client is the standard library's
+    ``http.client``.  Launch counts are
     zeroed once the workers are routable and read after the eager part.
     Checks: a greedy ``/api/chat`` of 32 tokens, not streamed and
     streamed, whose text and token ids equal a direct ``generate()`` of
@@ -2566,6 +2606,7 @@ def gateway_phase(dev) -> tuple[dict, dict]:
         node = dict(listen_host="127.0.0.1",
                     bootstrap_peers=[f"127.0.0.1:{boot.listen_port}"])
         engines = [TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                               model_config=_tiny_config(params),
                                profile_dir=os.path.join(tmp, f"p{i}"))
                    for i in range(2)]
         workers = [Peer(key(), Configuration(model=TINYLLAMA, **node), e)
@@ -2848,6 +2889,7 @@ def gateway_phase(dev) -> tuple[dict, dict]:
             engines = workers = by_id = logs = None
             _free_card()
             mega = TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                               model_config=_tiny_config(params),
                                megastep_k=MEGASTEP_K, decode_chunk=8)
             t0 = time.perf_counter()
             await mega.start()
@@ -2857,7 +2899,7 @@ def gateway_phase(dev) -> tuple[dict, dict]:
                            mega)
             await mworker.start()
             started.append(mworker)
-            await _wait_routable(pm, {mworker.peer_id})
+            await _wait_routable(pm, {mworker.peer_id}, rediscover=True)
             mprompts = (SHORT + [HIT, SAMPLED[0]])[:GATEWAY_STREAMS]
             await _concurrent(gw, mprompts, 8)  # fills the stream pool
             ns0, ops0 = secure.aead_stats()
@@ -2901,9 +2943,12 @@ def gateway_phase(dev) -> tuple[dict, dict]:
                                  f"{launches}")
     card = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    line = {"phase": "gateway", "model": TINYLLAMA, "workers": 2, **out,
+    cut = {"num_layers": [22, GATEWAY_LAYERS]}
+    line = {"phase": "gateway", "model": TINYLLAMA, "reduced": cut,
+            "workers": 2, **out,
             "launches": launches, "card": card, "nvidia_smi": smi}
-    mline = {"phase": "gateway_megastep", "model": TINYLLAMA, **mega_out,
+    mline = {"phase": "gateway_megastep", "model": TINYLLAMA,
+             "reduced": cut, **mega_out,
              "card": card, "nvidia_smi": smi}
     return line, mline
 
@@ -3064,11 +3109,11 @@ async def import_logits_check(engine, prompt: str, pages: int) -> dict:
 def kv_ship_phase(dev) -> tuple[dict, dict]:
     """KV page shipping and the replicated gateway on the card, every
     module the port's own, on 127.0.0.1: a DHT node, two tinyllama-1.1b
-    workers (paged bf16 at full width and depth, prefix cache on,
-    ``kv_ship``, the printable seed-0 weights of the gateway phase shared
-    on the card), and two consumers whose ``Gateway`` replicas
-    (``kv_ship``, tenant quotas ``default=1000,hot=2``) gossip through
-    ``GossipNode``s every 0.5 s.
+    workers (paged bf16 at full width cut to ``GATEWAY_LAYERS`` layers,
+    prefix cache on, ``kv_ship``, the printable seed-0 weights of the
+    gateway phase shared on the card), and two consumers whose
+    ``Gateway`` replicas (``kv_ship``, tenant quotas
+    ``default=1000,hot=2``) gossip through ``GossipNode``s every 0.5 s.
 
     The streams a fetch must reproduce token for token are the donor's
     own: the donor serving the same prompt from its cached pages takes
@@ -3139,6 +3184,7 @@ def kv_ship_phase(dev) -> tuple[dict, dict]:
         node = dict(listen_host="127.0.0.1",
                     bootstrap_peers=[f"127.0.0.1:{boot.listen_port}"])
         engines = [TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                               model_config=_tiny_config(params),
                                kv_ship=True, **kw) for _ in range(2)]
         workers = [Peer(key(), Configuration(model=TINYLLAMA, kv_ship=True,
                                              **node), e) for e in engines]
@@ -3497,9 +3543,11 @@ def kv_ship_phase(dev) -> tuple[dict, dict]:
         out, rep = asyncio.run(go(tmp))
     _free_card()
     card, smi = torch.cuda.get_device_name(0), nvidia_smi()
-    return ({"phase": "kv_ship", "model": TINYLLAMA, **out,
+    cut = {"num_layers": [22, GATEWAY_LAYERS]}
+    return ({"phase": "kv_ship", "model": TINYLLAMA, "reduced": cut, **out,
              "logits_rtol": LOGIT_RTOL, "card": card, "nvidia_smi": smi},
-            {"phase": "replicated", "model": TINYLLAMA, "replicas": 2,
+            {"phase": "replicated", "model": TINYLLAMA, "reduced": cut,
+             "replicas": 2,
              **rep, "card": card, "nvidia_smi": smi})
 
 
@@ -3871,33 +3919,32 @@ RUNG_KIND = {"splice": "relayed", "reverse": "reversed", "punch": "punched"}
 
 
 def relay_phase(dev, extra: tuple = ()) -> dict:
-    """A torch-only swarm in processes of their own, each started through
-    its CLI: ``python -m crowdllama_tpu_torch.cli.dht start`` (the
-    bootstrap node, hosting the relay), one worker ``start --worker-mode
-    --relay-mode always`` (tinyllama-1.1b at full width, seed-0 random
-    weights made printable by ``_printable_init``, ``--megastep-k 8``, no
-    prefix cache) that is reachable only through the relay, and for each
-    rung of the dial ladder a consumer ``start`` with its gateway: the
-    splice (reversal and punch off), connection reversal (the consumer's
-    port dial-back confirmed) and a hole punch on loopback (reversal
-    off).  Each rung: one greedy streamed ``/api/chat`` whose text (a
-    character a token, never empty) and token count equal a direct
-    greedy ``generate()`` of the same prompt on the same weights in this
-    process (its TTFB beside the direct TTFT), then 8 concurrent greedy
-    chats, each one's text equal to a direct ``generate()`` of its
-    prompt.  The prefix cache is off on both sides, so every prompt takes
-    the same full prefill: a prefix hit prefills through another
-    attention path, whose bf16 rounding flips near-tied greedy tokens of
-    random weights (with the cache on, 3 of the 8 chats of the second
-    rung, which hit the first rung's pages, differed from direct).  The
-    consumer's ladder counters and the worker's stream kinds show the
-    rung taken.  Kernels A, B and C launch on the worker (counts zeroed
-    before the first rung's traffic, read at its exit); every process
-    has the native data plane on with no fallback and exits 0 on
-    SIGTERM; the native envelope served every frame (each consumer's
-    native envelope calls at least the frames its gateway streamed, the
-    worker's at least all of them).  ``extra`` adds the worker's CLI
-    flags."""
+    """A torch-only swarm in processes of their own, each started through its
+    CLI: ``python -m crowdllama_tpu_torch.cli.dht start`` (the bootstrap node,
+    hosting the relay), one worker ``start --worker-mode --relay-mode always``
+    (tinyllama-1.1b at full width, seed-0 random weights made printable by
+    ``_printable_init``, ``--megastep-k 8``, no prefix cache) that is reachable
+    only through the relay, and for each rung of the dial ladder a consumer
+    ``start`` with its gateway (the three started at once, once the direct
+    reference is done; each serves its rung's traffic in turn): the splice
+    (reversal and punch off), connection reversal (the consumer's port
+    dial-back confirmed) and a hole punch on loopback (reversal off).  Each
+    rung: one greedy streamed ``/api/chat`` whose text (a character a token,
+    never empty) and token count equal a direct greedy ``generate()`` of the
+    same prompt on the same weights in this process (its TTFB beside the direct
+    TTFT), then 8 concurrent greedy chats, each one's text equal to a direct
+    ``generate()`` of its prompt.  The prefix cache is off on both sides, so
+    every prompt takes the same full prefill: a prefix hit prefills through
+    another attention path, whose bf16 rounding flips near-tied greedy tokens
+    of random weights (with the cache on, 3 of the 8 chats of the second rung,
+    which hit the first rung's pages, differed from direct).  The consumer's
+    ladder counters and the worker's inbound stream kinds since it started show
+    the rung taken.  Kernels A, B and C launch on the worker (counts zeroed
+    before the first rung's traffic, read at its exit); every process has the
+    native data plane on with no fallback and exits 0 on SIGTERM; the native
+    envelope served every frame (each consumer's native envelope calls at least
+    the frames its gateway streamed, the worker's at least all of
+    them).  ``extra`` adds the worker's CLI flags."""
     import os
     import signal
     import tempfile
@@ -3966,7 +4013,9 @@ def relay_phase(dev, extra: tuple = ()) -> dict:
             _free_card()
             print("relay: direct reference done", file=sys.stderr,
                   flush=True)
-            zeroed, seen_before, streamed = False, {}, 0
+            # The rungs' consumers start at once; each serves its rung's
+            # traffic in turn.
+            consumers = {}
             for rung, env in RELAY_RUNGS:
                 gport = _free_port()
                 cons, c_out = await _spawn_cli(
@@ -3975,6 +4024,10 @@ def relay_phase(dev, extra: tuple = ()) -> dict:
                     "--key-path", os.path.join(tmp, f"c_{rung}"),
                     "--listen-port", "0", env=env)
                 procs.append((cons, c_out, f"consumer_{rung}"))
+                consumers[rung] = (gport, cons, c_out)
+            zeroed, streamed = False, 0
+            for rung, _env in RELAY_RUNGS:
+                gport, cons, c_out = consumers[rung]
                 worker_id = await _wait_worker(gport, cons)
                 print(f"relay {rung}: the worker is routable", file=sys.stderr,
                       flush=True)
@@ -4003,12 +4056,12 @@ def relay_phase(dev, extra: tuple = ()) -> dict:
                     f'outcome="{o}"}}', 0.0)
                     for g in ("direct", "reverse", "punch", "splice")
                     for o in ("ok", "fail")}
-                seen = {k: wm.get(f'crowdllama_host_streams_total{{kind='
-                                  f'"streams_{k}_in"}}', 0.0)
-                        for k in ("relayed", "reversed", "punched")}
-                kinds = {k: v - seen_before.get(k, 0.0)
-                         for k, v in seen.items()}
-                seen_before = seen
+                # Since the worker started: each rung's consumer is the
+                # only one whose streams take its kind (a fallback is
+                # relayed), and the idle ones may dial before their turn.
+                kinds = {k: wm.get(f'crowdllama_host_streams_total{{kind='
+                                   f'"streams_{k}_in"}}', 0.0)
+                         for k in ("relayed", "reversed", "punched")}
                 procs.remove((cons, c_out, f"consumer_{rung}"))
                 rep = await _stop_cli(cons, c_out, f"consumer_{rung}", tmp)
                 differ = [p for p, t in zip(prompts, conc.pop("texts"))
@@ -4088,7 +4141,8 @@ def aead_split_phase(dev) -> dict:
     worker (``megastep_k=8``, the gateway phase's printable seed-0
     weights) in this process behind a consumer ``start`` with its gateway
     in another, once with ``CROWDLLAMA_NO_NATIVE=1`` on both sides (the
-    Python AEAD) and once without (native).  For each side, over the 8
+    Python AEAD) and once without (native); the two gateways start at
+    once, beside the worker, and serve in turn.  For each side, over the 8
     concurrent streams of 64 tokens: AEAD operations, us per operation
     and the AEAD's share of the wall, beside tokens/s through the gateway
     as a share of direct ``generate()`` streams on the same engine (the
@@ -4113,7 +4167,20 @@ def aead_split_phase(dev) -> dict:
         boot, _ = await new_host_and_dht(Ed25519PrivateKey.generate(),
                                          listen_host="127.0.0.1")
         addr = f"127.0.0.1:{boot.listen_port}"
+        # Both sides' gateways start at once, while the worker starts, and
+        # are up before any timed traffic; each serves its side in turn.
+        gateways = {}
+        for mode in ("python", "native"):
+            env = {"CROWDLLAMA_NO_NATIVE": "1"} if mode == "python" else {}
+            gport = _free_port()
+            gateways[mode] = (gport, *await _spawn_cli(
+                root, tmp, f"gateway_{mode}",
+                "crowdllama_tpu_torch.cli.main", "start",
+                "--gateway-port", str(gport), "--bootstrap-peers", addr,
+                "--key-path", os.path.join(tmp, f"g_{mode}"),
+                "--listen-port", "0", "--relay-mode", "off", env=env))
         engine = TorchEngine(params=params, device=dev, model=TINYLLAMA,
+                             model_config=_tiny_config(params),
                              megastep_k=MEGASTEP_K, decode_chunk=8)
         await engine.start()
         worker = Peer(Ed25519PrivateKey.generate(), Configuration(
@@ -4122,6 +4189,13 @@ def aead_split_phase(dev) -> dict:
         await worker.start()
         out: dict = {}
         try:
+            for gport, cons, c_out in gateways.values():
+                try:
+                    await _wait_worker(gport, cons)
+                except BaseException:
+                    _dump_children([(c[1], c[2], m)
+                                    for m, c in gateways.items()], tmp)
+                    raise
             chats = [engine._format_chat([{"role": "user", "content": p}])
                      for p in prompts]
             await _concurrent_direct([(engine, c) for c in chats], 8)
@@ -4133,22 +4207,12 @@ def aead_split_phase(dev) -> dict:
                                               for d in direct],
                              "ttft_ms_median": [d["ttft_ms_median"]
                                                 for d in direct]}
-            for mode in ("python", "native"):
-                env = {"CROWDLLAMA_NO_NATIVE": "1"} if mode == "python" \
-                    else {}
+            for mode, (gport, cons, c_out) in gateways.items():
                 if mode == "python":
                     os.environ["CROWDLLAMA_NO_NATIVE"] = "1"
                 else:
                     os.environ.pop("CROWDLLAMA_NO_NATIVE", None)
-                gport = _free_port()
-                cons, c_out = await _spawn_cli(
-                    root, tmp, f"gateway_{mode}",
-                    "crowdllama_tpu_torch.cli.main", "start",
-                    "--gateway-port", str(gport), "--bootstrap-peers", addr,
-                    "--key-path", os.path.join(tmp, f"g_{mode}"),
-                    "--listen-port", "0", "--relay-mode", "off", env=env)
                 try:
-                    await _wait_worker(gport, cons)
                     await _concurrent_port(gport, prompts, 8)  # the pool
                     cons.send_signal(signal.SIGUSR1)
                     await asyncio.sleep(0.2)
@@ -4195,6 +4259,11 @@ def aead_split_phase(dev) -> dict:
                     raise AssertionError(f"aead_split {mode}: {out[mode]}")
         finally:
             os.environ.pop("CROWDLLAMA_NO_NATIVE", None)
+            for _gport, cons, _c_out in gateways.values():
+                if cons.returncode is None:
+                    cons.kill()
+                    await cons.wait()
+                cons.err_file.close()
             await worker.stop()
             await engine.stop()
             await boot.close()
@@ -4203,6 +4272,7 @@ def aead_split_phase(dev) -> dict:
     with tempfile.TemporaryDirectory(prefix="split") as tmp:
         out = asyncio.run(go(tmp))
     line = {"phase": "aead_split", "model": TINYLLAMA,
+            "reduced": {"num_layers": [22, GATEWAY_LAYERS]},
             "megastep_k": MEGASTEP_K, "streams": GATEWAY_STREAMS,
             "tokens": GATEWAY_MEGA_TOKENS, **out,
             "card": torch.cuda.get_device_name(0),
@@ -4223,7 +4293,7 @@ async def _cli_consumer(cli: tuple, root: str, gport: int, worker_id: str,
                         cons) -> dict:
     """The CLI consumer's side of the cli phase: wait for its gateway to
     list ``worker_id`` healthy, then ``network-status`` and ``run``
-    through it as subprocesses; both must exit 0."""
+    through it as subprocesses, at once; both must exit 0."""
     gateway = f"http://127.0.0.1:{gport}"
     t0 = time.perf_counter()
     while True:
@@ -4240,11 +4310,12 @@ async def _cli_consumer(cli: tuple, root: str, gport: int, worker_id: str,
             pass  # not up yet
         await asyncio.sleep(0.5)
     out: dict = {"up_s": time.perf_counter() - t0}
-    out["network_status"] = await _cli_command(
-        cli, root, "cli", "network-status", "--gateway", gateway)
-    out["run"] = await _cli_command(
-        cli, root, "cli", "run", TINYLLAMA, SHORT[2], "--gateway", gateway,
-        "--max-tokens", str(CLI_TOKENS), "--temperature", "0")
+    out["network_status"], out["run"] = await asyncio.gather(
+        _cli_command(cli, root, "cli", "network-status", "--gateway",
+                     gateway),
+        _cli_command(cli, root, "cli", "run", TINYLLAMA, SHORT[2],
+                     "--gateway", gateway, "--max-tokens", str(CLI_TOKENS),
+                     "--temperature", "0"))
     status = out["network_status"]["stdout"]
     if not (f"{worker_id[:12]} [healthy]" in status
             and "workers: 1" in status):
@@ -7554,6 +7625,9 @@ def mesh_phase(dev, base: dict, phase: str, spec: str, engine_kw: dict,
         out["megastep"] = mesh_megastep_check(r, tok)
     steady = decode_step_timing(engine, dev,
                                 flash_decode_attention if ran else None)
+    if phase in {m[-1] for m in MP_MESHES}:
+        _MESH_REFS[phase] = _mesh_reference(phase, engine, summary, reqs,
+                                            steady)
     peak = summary["max_memory_allocated"]
     emit({"phase": phase, "model": TINYLLAMA, "layers": MESH_LAYERS,
           "reduced": {"num_layers": [22, MESH_LAYERS]}, "mesh": spec,
@@ -7573,6 +7647,22 @@ def mesh_phase(dev, base: dict, phase: str, spec: str, engine_kw: dict,
     return launches
 
 
+def _mesh_ep_model(dev) -> dict:
+    """run_engine's keywords for mixtral-8x7b in bf16 cut to
+    MESH_EP_LAYERS layers: seed-0 weights made on the card with the EOS
+    column zeroed, kept on the host as TinyLlama's (each engine copies
+    them), and the cut config."""
+    from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
+    from crowdllama_tpu_torch.engine.weights import init_params
+    from crowdllama_tpu_torch.models.config import get_config
+
+    cfg = get_config(MIXTRAL, num_layers=MESH_EP_LAYERS,
+                     max_context_length=MOE_CONTEXT)
+    params = init_params(cfg, 0, device=dev)
+    params["lm_head"][:, ByteTokenizer.EOS] = 0
+    return dict(params=_host_tree(params), model_config=cfg)
+
+
 def mesh_ep_phase(dev) -> dict:
     """mixtral-8x7b in bf16 at full width cut to ``MESH_EP_LAYERS`` layers
     (seed-0 weights made on the card, the EOS column zeroed, kept on the
@@ -7583,24 +7673,13 @@ def mesh_ep_phase(dev) -> dict:
     route replaying the kernel route's expert choices); the steady step and
     memory beside one device."""
     from crowdllama_tpu_torch.engine.paged import PagedModelRunner
-    from crowdllama_tpu_torch.engine.tokenizer import ByteTokenizer
-    from crowdllama_tpu_torch.engine.weights import init_params
-    from crowdllama_tpu_torch.models.config import get_config
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_paged_decode_attention_tp,
     )
     from crowdllama_tpu_torch.parallel.sharding import ExpertBanks
 
-    cfg = get_config(MIXTRAL, num_layers=MESH_EP_LAYERS,
-                     max_context_length=MOE_CONTEXT)
-    params = init_params(cfg, 0, device=dev)
-    params["lm_head"][:, ByteTokenizer.EOS] = 0
-
-    def host(tree):  # kept on the host, as TinyLlama's: each engine copies
-        return {k: host(v) if isinstance(v, dict) else v.cpu()
-                for k, v in tree.items()}
-
-    params = host(params)
+    model = _mesh_ep_model(dev)
+    params, cfg = model["params"], model["model_config"]
     _free_card()
     runs = {}
     for spec in ("", "1x2x1"):
@@ -7621,6 +7700,9 @@ def mesh_ep_phase(dev) -> dict:
                                     gemm=True)
         runs[spec] = dict(summary=summary, reqs=reqs, errs=errs,
                           steady=steady)
+        if spec:
+            _MESH_REFS["mesh_ep"] = _mesh_reference("mesh_ep", engine,
+                                                    summary, reqs, steady)
         if spec:
             if not (type(r) is PagedModelRunner and (r.ep, r.tp) == (2, 1)
                     and isinstance(r.params[0]["layers"]["w_gate"],
@@ -7678,52 +7760,87 @@ def mesh_phases(dev) -> tuple[dict, dict]:
 
 # ------------------------------------------------------------ multiprocess
 
-MP_TOKENS = 32
-MP_TIMEOUT_S = 240.0
+# Every mesh below is served in one launch of the two processes (one
+# torch import and one CUDA context a process for all of them), at the
+# mesh phases' depth and tokens: TinyLlama cut to MESH_LAYERS (tp and dp
+# once ran at full depth, 32 tokens; cut so the script keeps inside its
+# limit) and mixtral-8x7b bf16 cut to MESH_EP_LAYERS.
+MP_TIMEOUT_S = 600.0
 MP_CHILD = "import sys, chip_smoke; chip_smoke.mp_child(*sys.argv[1:])"
-# (phase, mesh spec, kv layout, kernels that launch in each process): two
-# processes on the one card, the mesh split across them.
+# (phase, mesh spec, kv layout, kernels that launch in each process, model,
+# speculation, the mesh phase whose one-process line it stands beside;
+# None: the one-process engine on the same mesh, run here): two processes
+# on the one card, the mesh split across them.  Speculation runs no D: the
+# replicated runner keeps the draft length fixed (JAX's rule), so no
+# verify step pauses to the plain decode step.
 MP_MESHES = (
-    ("multiprocess_tp", "1x2", "paged", {"A", "B"}),
-    ("multiprocess_dp", "2x1", "contiguous", {"A", "D"}),
+    ("multiprocess_tp", "1x2", "paged", {"A", "B"}, TINYLLAMA, "", None),
+    ("multiprocess_dp", "2x1", "contiguous", {"A", "D"}, TINYLLAMA, "",
+     "mesh_dp"),
+    ("multiprocess_pp", "1x2x1x1x1", "contiguous", {"A", "D"}, TINYLLAMA,
+     "", "mesh_pp"),
+    ("multiprocess_sp", "1x2x1x1", "contiguous", set(), TINYLLAMA, "",
+     "mesh_sp"),
+    ("multiprocess_ep", "1x2x1", "paged", {"A", "B", "G"}, MIXTRAL, "",
+     "mesh_ep"),
+    ("multiprocess_spec_dp", "2x1", "contiguous", {"A"}, TINYLLAMA, "ngram",
+     "mesh_dp"),
 )
+#: the mesh phases' one-process references of MP_MESHES, by phase (filled
+#: by ``mesh_phase`` and ``mesh_ep_phase``)
+_MESH_REFS: dict = {}
 
 
 def _mp_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def _mp_streams() -> dict:
-    return {k: GREEDY[k] for k in ("short0", "short1")}
-
-
-def _mp_config(spec: str, layout: str, coord: str = "", pid: int = -1):
-    """TinyLlama's serving config for the multiprocess phase: 8 slots,
-    context 2,048, page 128; legacy chunked admission (the replicated
-    runner has no ragged step, so the one-process reference runs without
-    it too)."""
+def _mp_config(spec: str, layout: str, coord: str = "", pid: int = -1,
+               model: str = TINYLLAMA, spec_decode: str = ""):
+    """The serving config of a multiprocess mesh: 8 slots, context 2,048,
+    page 128 (the engine's defaults, which the mesh phases serve with);
+    legacy chunked admission (the replicated runner has no ragged step, so
+    the one-process reference runs without it too)."""
     from crowdllama_tpu_torch.config import Configuration
 
     kw = {}
     if coord:
         kw = dict(dist_coordinator=coord, dist_num_processes=2,
                   dist_process_id=pid)
-    return Configuration(model=TINYLLAMA, max_batch_slots=8,
+    return Configuration(model=model, max_batch_slots=8,
                          max_context_length=2048, kv_page_size=128,
                          mesh_shape=spec, kv_layout=layout,
-                         ragged_prefill=False, **kw)
+                         ragged_prefill=False, spec_decode=spec_decode, **kw)
+
+
+def _mp_model(dev, model: str, cache: dict) -> dict:
+    """The engine keywords of ``model``, made once a process as the mesh
+    phases make them (:func:`_mesh_model`, :func:`_mesh_ep_model`)."""
+    if model not in cache:
+        cache[model] = (_mesh_ep_model(dev) if model == MIXTRAL
+                        else _mesh_model(dev))
+        _free_card()
+    return cache[model]
 
 
 class _PlainCheck:
     """A kernel wrapper standing in for the runner's seam: every call
     launches the kernel (and counts); the first call after ``arm()`` also
     runs the plain version on the same inputs and keeps the max |kernel -
-    plain| and whether every element is within ATOL + RTOL * |plain| (the
-    plain call counts nothing; the serving path is not interrupted, the
-    phase fails on the report)."""
+    plain| and whether every element is within ATOL + RTOL * |plain| (with
+    ``scale_rtol``: within that share of max |plain|, as the G phase
+    holds G) (the plain call counts nothing; the serving path is not
+    interrupted, the phase fails on the report).  ``rows(args, kwargs)``
+    names the output rows the kernel writes (all by default)."""
 
-    def __init__(self, name: str, kernel, plain):
+    def __init__(self, name: str, kernel, plain,
+                 scale_rtol: float | None = None, rows=None):
         self.name, self.kernel, self.plain = name, kernel, plain
+        self.scale_rtol = scale_rtol
+        self.rows = rows
+        self.reset()
+
+    def reset(self) -> None:
         self.armed, self.err, self.ok = False, None, True
 
     def arm(self) -> None:
@@ -7736,38 +7853,58 @@ class _PlainCheck:
             want = self.plain(*a, **kw)
             pairs = (list(zip(out, want)) if isinstance(out, list)
                      else [(out, want)])
+            rows = slice(None) if self.rows is None else self.rows(a, kw)
             for g, w in pairs:
-                g, w = g.float(), w.float()
+                g, w = g[rows].float(), w[rows].float()
                 err = (g - w).abs()
+                bound = (self.scale_rtol * w.abs().max()
+                         if self.scale_rtol is not None
+                         else ATOL + RTOL * w.abs())
                 self.ok &= bool(torch.isfinite(g).all()
-                                and (err <= ATOL + RTOL * w.abs()).all())
+                                and (err <= bound).all())
                 self.err = max(self.err or 0.0, float(err.max()))
         return out
 
 
-def _mp_seams(layout: str) -> dict:
+#: kernel row -> the check that stands in for its seam
+_MP_CHECK_OF = {"A": "A", "B": "B/F", "D": "D", "G": "G"}
+
+
+def _group_rows(a: tuple, kw: dict) -> slice:
+    """The rows kernel G writes: those of its groups (``offsets[0]`` to
+    ``offsets[-1]``; an ep bank's slice of the offsets leaves the other
+    banks' rows unwritten)."""
+    off = kw.get("offsets", a[2] if len(a) > 2 else None)
+    return slice(None) if off is None else slice(int(off[0]), int(off[-1]))
+
+
+def _mp_seams() -> dict:
     """Install the kernel-vs-plain checks on the seams the runners take at
-    construction: A (prefill) and D (contiguous decode) or B/F (paged)."""
+    construction (A for prefill, D for contiguous decode, B/F for paged
+    decode) and on the expert products' lookup (G)."""
     from crowdllama_tpu_torch.engine import paged as paged_mod
     from crowdllama_tpu_torch.engine import runner as runner_mod
+    from crowdllama_tpu_torch.models import transformer as T
     from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
     from crowdllama_tpu_torch.ops.cuda.flash import decode_attention_plain
+    from crowdllama_tpu_torch.ops.cuda.gemm import grouped_gemm_plain
     from crowdllama_tpu_torch.ops.cuda.paged import (
         paged_decode_attention_tp_plain,
     )
 
-    checks = {"A": _PlainCheck("A", runner_mod.prefill_attention,
-                               prefill_attention_ref)}
+    checks = {
+        "A": _PlainCheck("A", runner_mod.prefill_attention,
+                         prefill_attention_ref),
+        "B/F": _PlainCheck("B/F", paged_mod.flash_paged_decode_attention_tp,
+                           paged_decode_attention_tp_plain),
+        "D": _PlainCheck("D", runner_mod.decode_attention,
+                         decode_attention_plain),
+        "G": _PlainCheck("G", T.grouped_gemm, grouped_gemm_plain,
+                         scale_rtol=GEMM_RTOL, rows=_group_rows)}
     runner_mod.prefill_attention = checks["A"]
-    if layout == "paged":
-        checks["B/F"] = _PlainCheck(
-            "B/F", paged_mod.flash_paged_decode_attention_tp,
-            paged_decode_attention_tp_plain)
-        paged_mod.flash_paged_decode_attention_tp = checks["B/F"]
-    else:
-        checks["D"] = _PlainCheck("D", runner_mod.decode_attention,
-                                  decode_attention_plain)
-        runner_mod.decode_attention = checks["D"]
+    paged_mod.flash_paged_decode_attention_tp = checks["B/F"]
+    runner_mod.decode_attention = checks["D"]
+    T.grouped_gemm = checks["G"]
     return checks
 
 
@@ -7801,9 +7938,9 @@ def _mp_prefill_logits(runner, tok, state) -> torch.Tensor:
 
 def _mp_step_timing(engine, dev) -> dict:
     """Steady decode on the leader with all 8 slots live, through the
-    replicated runner (every call framed): host ms a step (ending in a
-    synchronize), and the frame headers' host µs and the collectives' ms
-    a step (``multihost.stats``)."""
+    replicated runner (every call framed): host ms a step (a verify step
+    under speculation, ending in a synchronize), and the frame headers'
+    host µs and the collectives' ms a step (``multihost.stats``)."""
     from crowdllama_tpu_torch.parallel import multihost
 
     r, tok, steps = engine.runner, engine.tokenizer, 8
@@ -7834,92 +7971,123 @@ def _mp_step_timing(engine, dev) -> dict:
             "host_copies": s["host_copies"]}
 
 
-def mp_child(pid: str, phase: str, spec: str, layout: str, coord: str,
-             out: str) -> None:
-    """One process of a multiprocess phase (``python -c "import
-    chip_smoke; chip_smoke.mp_child(...)"``): join the group, make
-    TinyLlama's seed-0 weights (EOS column zeroed) on the card, identical
-    in both processes, and serve.  Process 0 runs ``TorchEngine`` (its
-    runner framed, ``parallel/replicated.py``) under the phase's traffic,
-    then the prefill logits and the steady step; process 1 replays the
-    frames (``run_follower``) until STOP.  Each writes its launches, its
-    kernel-vs-plain errors, its peak memory and its collective counters
-    to ``out``."""
-    from crowdllama_tpu_torch.parallel import multihost, replicated
+def _mp_leader(cfg, dev, model: dict, ran: set, checks: dict,
+               tokens: int) -> dict:
+    """Process 0's serve of one mesh: ``TorchEngine`` (its runner framed,
+    ``parallel/replicated.py``) under the traffic, then the steady step
+    and the prefill logits; STOP ends the follower's replay."""
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+    from crowdllama_tpu_torch.parallel import multihost
+
+    res: dict = {}
+
+    async def go():
+        engine = TorchEngine(cfg, **model)
+        t0 = time.perf_counter()
+        await engine.start()
+        res["start_s"] = time.perf_counter() - t0
+        engine.tokenizer = _IdRecorder(engine.tokenizer)
+        try:
+            for k in ran:
+                checks[_MP_CHECK_OF[k]].arm()
+            _zero_launches()
+            multihost.reset_stats()
+            served = await serve(engine, _mesh_streams(), tokens,
+                                 again="short0")
+            res["launches"] = _launches()
+            res["serve_stats"] = multihost.stats()
+            res["serve_peak"] = torch.cuda.max_memory_allocated(dev)
+            sched = engine.scheduler
+            # The timing's INIT ends the follower's serve window.
+            res["steady"] = await sched.on_dispatch_thread(
+                _mp_step_timing, engine, dev)
+            res["logits"] = (await sched.on_dispatch_thread(
+                _mp_prefill_logits, engine.runner, engine.tokenizer,
+                sched.state)).tolist()
+            res["mesh"] = engine.describe()["mesh"]
+        finally:
+            await engine.stop()
+        res["requests"] = served["requests"]
+        res["wall_s"] = served["wall_s"]
+
+    asyncio.run(go())
+    return res
+
+
+def _mp_follower(cfg, dev, model: dict, ran: set, checks: dict) -> dict:
+    """Process 1's replay of one mesh's frames until STOP; its launches
+    and peak memory in the serve window (between the second and the third
+    INIT: build and warm-up before, the steady timing after)."""
+    from crowdllama_tpu_torch.parallel import replicated
+
+    windows, peaks = [], []
+    real = replicated._apply
+
+    def apply(runner, state, pending, job, op, *a):
+        if op == replicated._OP_INIT:
+            windows.append(_launches())
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+            _zero_launches()
+            for k in ran:
+                checks[_MP_CHECK_OF[k]].arm()
+        return real(runner, state, pending, job, op, *a)
+
+    replicated._apply = apply
+    try:
+        frames = replicated.run_follower(cfg, **model)
+    finally:
+        replicated._apply = real
+    windows.append(_launches())
+    return {"frames": frames, "launches": windows[2],
+            "serve_peak": peaks[2], "stopped": True}
+
+
+def mp_child(pid: str, names: str, coord: str, out_dir: str) -> None:
+    """One process of the multiprocess phase (``python -c "import
+    chip_smoke; chip_smoke.mp_child(...)"``): join the group, then serve
+    each mesh of ``names`` (a comma-separated list of MP_MESHES phases) in
+    turn, on weights made on the card identically in both processes.
+    Process 0 runs the engine (:func:`_mp_leader`), process 1 replays its
+    frames (:func:`_mp_follower`).  Each writes, per mesh, its launches,
+    its kernel-vs-plain errors, its peak memory and its collective
+    counters to ``out_dir/<phase>_<pid>.json``."""
+    import os
+
+    from crowdllama_tpu_torch.parallel import multihost
 
     dev = _mp_device()
-    cfg = _mp_config(spec, layout, coord, int(pid))
-    multihost.initialize_from_config(cfg)
-    checks = _mp_seams(layout)
-    params = seed0_params(dev)
-    _free_card()
-    torch.cuda.reset_peak_memory_stats(dev)
-    res: dict = {"pid": int(pid)}
-    if multihost.is_leader():
-        from crowdllama_tpu_torch.engine.engine import TorchEngine
-
-        async def go():
-            engine = TorchEngine(cfg, params=params)
-            t0 = time.perf_counter()
-            await engine.start()
-            res["start_s"] = time.perf_counter() - t0
-            engine.tokenizer = _IdRecorder(engine.tokenizer)
-            try:
-                for c in checks.values():
-                    c.arm()
-                _zero_launches()
-                multihost.reset_stats()
-                served = await serve(engine, _mp_streams(), MP_TOKENS,
-                                     again="short0")
-                res["launches"] = _launches()
-                res["serve_stats"] = multihost.stats()
-                res["serve_peak"] = torch.cuda.max_memory_allocated(dev)
-                sched = engine.scheduler
-                # The timing's INIT ends the follower's serve window.
-                res["steady"] = await sched.on_dispatch_thread(
-                    _mp_step_timing, engine, dev)
-                res["logits"] = (await sched.on_dispatch_thread(
-                    _mp_prefill_logits, engine.runner, engine.tokenizer,
-                    sched.state)).tolist()
-                res["mesh"] = engine.describe()["mesh"]
-            finally:
-                await engine.stop()
-            res["requests"] = served["requests"]
-            res["wall_s"] = served["wall_s"]
-
-        asyncio.run(go())
-    else:
-        windows, peaks = [], []
-        real = replicated._apply
-
-        def apply(runner, state, pending, job, op, *a):
-            if op == replicated._OP_INIT:
-                # Launches between INITs: build, warm-up, serve, timing.
-                windows.append(_launches())
-                peaks.append(torch.cuda.max_memory_allocated(dev))
-                _zero_launches()
-                for c in checks.values():
-                    c.arm()
-            return real(runner, state, pending, job, op, *a)
-
-        replicated._apply = apply
-        res["frames"] = replicated.run_follower(cfg, params=params)
-        windows.append(_launches())
-        res["launches"] = windows[2]  # the serve window (after warm-up)
-        res["serve_peak"] = peaks[2]
-        res["stopped"] = True
-    res["checks"] = {k: c.err for k, c in checks.items()}
-    res["checks_ok"] = all(c.ok for c in checks.values())
-    res["max_memory_allocated"] = res["serve_peak"]
-    res["stats"] = multihost.stats()
-    with open(out, "w") as f:
-        json.dump(res, f)
+    meshes = {m[0]: m for m in MP_MESHES}
+    multihost.initialize_from_config(_mp_config("1x2", "paged", coord,
+                                                int(pid)))
+    checks = _mp_seams()
+    models: dict = {}
+    for name in names.split(","):
+        phase, spec, layout, ran, model, spec_decode, _ = meshes[name]
+        cfg = _mp_config(spec, layout, coord, int(pid), model, spec_decode)
+        kw = _mp_model(dev, model, models)
+        for c in checks.values():
+            c.reset()
+        _free_card()
+        torch.cuda.reset_peak_memory_stats(dev)
+        multihost.reset_stats()
+        if multihost.is_leader():
+            res = _mp_leader(cfg, dev, kw, ran, checks, MESH_TOKENS)
+        else:
+            res = _mp_follower(cfg, dev, kw, ran, checks)
+        res.update(pid=int(pid), phase=phase,
+                   checks={k: checks[_MP_CHECK_OF[k]].err for k in ran},
+                   checks_ok=all(checks[_MP_CHECK_OF[k]].ok for k in ran),
+                   max_memory_allocated=res["serve_peak"],
+                   stats=multihost.stats())
+        with open(os.path.join(out_dir, f"{phase}_{pid}.json"), "w") as f:
+            json.dump(res, f)
+        _free_card()
 
 
 def _mp_reference(dev, spec: str, layout: str) -> dict:
     """The one-process engine on the same mesh (both ranks on the one
-    card) under the same traffic: ids, TTFT, memory, prefill logits and
-    the steady step."""
+    card) under the same traffic, TinyLlama cut to MESH_LAYERS: ids, TTFT,
+    memory, prefill logits and the steady step."""
     kernel = None
     if layout == "contiguous":
         from crowdllama_tpu_torch.ops.cuda.flash import (
@@ -7927,9 +8095,10 @@ def _mp_reference(dev, spec: str, layout: str) -> dict:
         )
     c = _mp_config(spec, layout)
     engine, summary, reqs = run_engine(
-        dev, _mp_streams(), MP_TOKENS, again="short0", mesh_shape=spec,
+        dev, _mesh_streams(), MESH_TOKENS, again="short0", mesh_shape=spec,
         devices=[dev, dev], kv_layout=layout, ragged_prefill=False,
-        max_batch_slots=c.max_batch_slots, kv_page_size=c.kv_page_size)
+        max_batch_slots=c.max_batch_slots, kv_page_size=c.kv_page_size,
+        **_mesh_model(dev))
     logits = _mp_prefill_logits(engine.runner, engine.tokenizer,
                                 engine.scheduler.state)
     steady = decode_step_timing(engine, dev, kernel)
@@ -7937,26 +8106,37 @@ def _mp_reference(dev, spec: str, layout: str) -> dict:
             "ttft_ms_median": summary["ttft_ms_median"],
             "max_memory_allocated": summary["max_memory_allocated"],
             "launches": summary["launches"], "logits": logits,
-            "steady": steady}
+            "steady": steady, "source": "one-process engine, this phase"}
 
 
-async def _mp_run(phase: str, spec: str, layout: str, tmp: str) -> list:
-    """Both processes of one phase; each must exit 0 within
-    ``MP_TIMEOUT_S`` (a child still alive then is killed and the phase
-    fails).  Returns their reports."""
+def _mesh_reference(phase: str, engine, summary: dict, reqs: dict,
+                    steady: dict) -> dict:
+    """A mesh phase's one-process line as a multiprocess reference: ids,
+    TTFT, memory, launches, the steady step and the prefill logits of
+    ``MP_LOGITS_PROMPT`` through its runner."""
+    return {"ids": {k: v["ids"] for k, v in reqs.items()},
+            "ttft_ms_median": summary["ttft_ms_median"],
+            "max_memory_allocated": summary["max_memory_allocated"],
+            "launches": summary["launches"],
+            "logits": _mp_prefill_logits(engine.runner, engine.tokenizer,
+                                         engine.scheduler.state),
+            "steady": steady, "source": phase}
+
+
+async def _mp_run(names: list[str], tmp: str) -> dict:
+    """Both processes, serving the meshes ``names`` in one launch; each
+    must exit 0 within ``MP_TIMEOUT_S`` (a child still alive then is
+    killed and the phase fails).  Returns their reports by phase."""
     import os
 
     root = os.path.dirname(os.path.abspath(__file__))
     coord = f"127.0.0.1:{_free_port()}"
-    procs, outs, errs = [], [], []
+    procs, errs = [], []
     for pid in ("0", "1"):
-        out = os.path.join(tmp, f"{phase}_{pid}.json")
-        err = open(os.path.join(tmp, f"{phase}_{pid}.err"), "w")
+        err = open(os.path.join(tmp, f"mp_{pid}.err"), "w")
         procs.append(await asyncio.create_subprocess_exec(
-            sys.executable, "-c", MP_CHILD, pid, phase, spec, layout, coord,
-            out,
+            sys.executable, "-c", MP_CHILD, pid, ",".join(names), coord, tmp,
             cwd=root, stderr=err))
-        outs.append(out)
         errs.append(err)
     try:
         rcs = await asyncio.wait_for(
@@ -7970,108 +8150,137 @@ async def _mp_run(phase: str, spec: str, layout: str, tmp: str) -> list:
                 await p.wait()
         for e in errs:
             e.close()
-    if rcs is None or any(rcs) or not all(os.path.exists(o) for o in outs):
+    outs = {n: [os.path.join(tmp, f"{n}_{pid}.json") for pid in ("0", "1")]
+            for n in names}
+    if rcs is None or any(rcs) or not all(
+            os.path.exists(o) for pair in outs.values() for o in pair):
         tails = []
         for pid in ("0", "1"):
-            with open(os.path.join(tmp, f"{phase}_{pid}.err")) as f:
+            with open(os.path.join(tmp, f"mp_{pid}.err")) as f:
                 tails.append(f.read()[-3000:])
-        raise AssertionError(f"{phase}: processes exited {rcs} (None: "
+        raise AssertionError(f"multiprocess: processes exited {rcs} (None: "
                              f"killed at {MP_TIMEOUT_S} s): {tails}")
-    reports = []
-    for o in outs:
-        with open(o) as f:
-            reports.append(json.load(f))
+    reports = {}
+    for n, pair in outs.items():
+        reports[n] = []
+        for o in pair:
+            with open(o) as f:
+                reports[n].append(json.load(f))
     return reports
 
 
 def multiprocess_phase(dev) -> dict:
-    """Two processes on the one card serve TinyLlama at full width and
-    depth (seed-0 bf16 weights, EOS column zeroed; 8 slots, context 2,048,
-    page 128), one mesh each: "1x2" paged (tp across the processes, one
-    rank each: A and B in each) and "2x1" contiguous (dp across them: A
-    and D).  Traffic: 2 greedy streams and the 1,465-token prompt, 32
-    tokens each, then one stream again.  The leader's line holds the
-    streams, the prefill logits against the one-process engine on the
-    same mesh (2% of their scale), the greedy share, each process's
-    launches and kernel-vs-plain errors, the steady step beside the
-    one-process mesh's with the frames' host µs and the collectives' ms
-    split out, TTFT, memory per process and the collective backend; the
-    follower's line its frames and its exit on STOP.  Returns the
-    launches both processes add to the Dh-64 rows."""
+    """Two processes on the one card serve every mesh of MP_MESHES in one
+    launch (seed-0 bf16 weights, EOS column zeroed; 8 slots, context
+    2,048, page 128): TinyLlama cut to MESH_LAYERS on "1x2" paged (tp
+    across the processes, one rank each: A and B in each), "2x1"
+    contiguous (dp across them: A and D), "1x2x1x1x1" (a pp stage each: A
+    and D), "1x2x1x1" (an sp shard each: no kernel) and "2x1" with n-gram
+    speculation (a dp rank each: A); mixtral-8x7b bf16 at MESH_EP_LAYERS
+    on "1x2x1" paged (an expert bank each: A, B and G).  Traffic: 2
+    greedy streams and the 1,465-token prompt, MESH_TOKENS tokens each,
+    then one stream again.  The leader's line holds the streams, the
+    prefill logits against the one-process engine on the same mesh (2% of
+    their scale; tp's reference runs here, the others' is the mesh phase
+    that served the same mesh in one process), the greedy share, each
+    process's launches and kernel-vs-plain errors, the steady step beside
+    the one-process mesh's with the frames' host µs and the collectives'
+    ms split out, TTFT, memory per process and the collective backend;
+    the follower's line its frames and its exit on STOP.  Returns the
+    launches both processes add to the Dh-64 rows (A, B, D) and to G's and
+    the Dh-128 rows (Mixtral: A, B, G)."""
     import tempfile
 
+    refs = {}
+    for phase, spec, layout, _, _, _, ref in MP_MESHES:
+        if ref is None:
+            refs[phase] = _mp_reference(dev, spec, layout)
+            _free_card()
+        else:
+            refs[phase] = _MESH_REFS[ref]
     total = {"A": 0, "B": 0, "D": 0}
+    total128 = {"A": 0, "B": 0, "G": 0}
     with tempfile.TemporaryDirectory(prefix="mp") as tmp:
-        for phase, spec, layout, ran in MP_MESHES:
-            ref = _mp_reference(dev, spec, layout)
-            _free_card()
-            lead, follow = asyncio.run(_mp_run(phase, spec, layout, tmp))
-            reqs = lead["requests"]
-            for name, v in reqs.items():
-                if not (v["done"] and v["completion_tokens"] == MP_TOKENS):
-                    raise AssertionError(f"{phase}: stream {name} ended {v}")
-            ids = {k: v["ids"] for k, v in reqs.items()}
-            if ids["short0"] != ids["short0_again"]:
-                raise AssertionError(f"{phase}: the repeated stream differs")
-            for rep in (lead, follow):
-                _expect_launches(rep["launches"], ran,
-                                 f"{phase} process {rep['pid']}")
-                for k in total:
-                    total[k] += rep["launches"][k]
-                if (any(e is None for e in rep["checks"].values())
-                        or not rep["checks_ok"]):
-                    raise AssertionError(f"{phase}: a kernel-vs-plain check "
-                                         f"did not run or missed "
-                                         f"(atol {ATOL}, rtol {RTOL}): "
-                                         f"{rep['checks']}")
-            logits = torch.tensor(lead["logits"])
-            err = _logit_err(logits, ref["logits"])
-            if not err["max_abs_err"] <= LOGIT_RTOL_TP * err["scale"]:
-                raise AssertionError(f"{phase}: prefill logits against one "
-                                     f"process {err}")
-            if not follow.get("stopped"):
-                raise AssertionError(f"{phase}: the follower did not stop")
-            one_peak = ref["max_memory_allocated"]
-            ttft = sorted(v["ttft_ms"] for k, v in reqs.items()
-                          if not k.endswith("_again"))
-            emit({"phase": phase, "model": TINYLLAMA, "layers": 22,
-                  "mesh": spec, "kv_layout": layout, "processes": 2,
-                  "collectives": lead["mesh"], "start_s": lead["start_s"],
-                  "wall_s": lead["wall_s"],
-                  "requests": {k: {x: y for x, y in v.items()
-                                   if x not in ("ids", "text")}
-                               for k, v in reqs.items()},
-                  "repeat_equal": True,
-                  "prefill_logits_vs_one_process": err,
-                  "logits_rtol": LOGIT_RTOL_TP,
-                  "greedy_tokens_equal_to_one_process": _greedy_share(
-                      ref["ids"], reqs),
-                  "launches": {"leader": lead["launches"],
-                               "follower": follow["launches"]},
-                  "one_process_launches": ref["launches"],
-                  "kernel_vs_plain_max_abs_err": {
-                      "leader": lead["checks"],
-                      "follower": follow["checks"]},
-                  "steady_decode": lead["steady"],
-                  "one_process_steady_decode": ref["steady"],
-                  "serve_collectives": lead["serve_stats"],
-                  "ttft_ms_median": ttft[len(ttft) // 2],
-                  "ttft_ms_max": ttft[-1],
-                  "one_process_ttft_ms_median": ref["ttft_ms_median"],
-                  "max_memory_allocated": {
-                      "leader": lead["max_memory_allocated"],
-                      "follower": follow["max_memory_allocated"]},
-                  "one_process_max_memory_allocated": one_peak,
-                  "memory_ratio_to_one_process": {
-                      "leader": lead["max_memory_allocated"] / one_peak,
-                      "follower": follow["max_memory_allocated"] / one_peak},
-                  "card": nvidia_smi()})
-            emit({"phase": phase + "_follower", "mesh": spec,
-                  "frames_replayed": follow["frames"],
-                  "exit": "STOP, rc 0", "stats": follow["stats"],
-                  "card": nvidia_smi()})
-            _free_card()
-    return total
+        reports = asyncio.run(_mp_run([m[0] for m in MP_MESHES], tmp))
+    for phase, spec, layout, ran, model, spec_decode, _ in MP_MESHES:
+        ref = refs[phase]
+        lead, follow = reports[phase]
+        reqs = lead["requests"]
+        for name, v in reqs.items():
+            if not (v["done"] and v["completion_tokens"] == MESH_TOKENS):
+                raise AssertionError(f"{phase}: stream {name} ended {v}")
+        ids = {k: v["ids"] for k, v in reqs.items()}
+        if ids["short0"] != ids["short0_again"]:
+            raise AssertionError(f"{phase}: the repeated stream differs")
+        add = total128 if model == MIXTRAL else total
+        for rep in (lead, follow):
+            _expect_launches(rep["launches"], ran,
+                             f"{phase} process {rep['pid']}")
+            for k in add:
+                add[k] += rep["launches"][k]
+            if (any(e is None for e in rep["checks"].values())
+                    or not rep["checks_ok"]):
+                raise AssertionError(f"{phase}: a kernel-vs-plain check "
+                                     f"did not run or missed (atol "
+                                     f"{ATOL}, rtol {RTOL}; G within "
+                                     f"{GEMM_RTOL} of scale): "
+                                     f"{rep['checks']}")
+        logits = torch.tensor(lead["logits"])
+        err = _logit_err(logits, ref["logits"])
+        if not err["max_abs_err"] <= LOGIT_RTOL_TP * err["scale"]:
+            raise AssertionError(f"{phase}: prefill logits against one "
+                                 f"process {err}")
+        if not follow.get("stopped"):
+            raise AssertionError(f"{phase}: the follower did not stop")
+        one_peak = ref["max_memory_allocated"]
+        ttft = sorted(v["ttft_ms"] for k, v in reqs.items()
+                      if not k.endswith("_again"))
+        cut = ({"num_layers": [32, MESH_EP_LAYERS],
+                "max_context_length": [32768, MOE_CONTEXT]}
+               if model == MIXTRAL else {"num_layers": [22, MESH_LAYERS]})
+        if phase in ("multiprocess_tp", "multiprocess_dp"):
+            cut["max_tokens"] = [32, MESH_TOKENS]  # their earlier tokens
+        emit({"phase": phase, "model": model,
+              "layers": MESH_EP_LAYERS if model == MIXTRAL else MESH_LAYERS,
+              "reduced": cut,
+              "mesh": spec, "kv_layout": layout, "spec_decode": spec_decode,
+              "processes": 2,
+              "collectives": lead["mesh"], "start_s": lead["start_s"],
+              "wall_s": lead["wall_s"],
+              "requests": {k: {x: y for x, y in v.items()
+                               if x not in ("ids", "text")}
+                           for k, v in reqs.items()},
+              "repeat_equal": True,
+              "one_process_reference": ref["source"],
+              "prefill_logits_vs_one_process": err,
+              "logits_rtol": LOGIT_RTOL_TP,
+              "greedy_tokens_equal_to_one_process": _greedy_share(
+                  ref["ids"], reqs),
+              "launches": {"leader": lead["launches"],
+                           "follower": follow["launches"]},
+              "one_process_launches": ref["launches"],
+              "kernel_vs_plain_max_abs_err": {
+                  "leader": lead["checks"],
+                  "follower": follow["checks"]},
+              "steady_decode": lead["steady"],
+              "one_process_steady_decode": ref["steady"],
+              "serve_collectives": lead["serve_stats"],
+              "ttft_ms_median": ttft[len(ttft) // 2],
+              "ttft_ms_max": ttft[-1],
+              "one_process_ttft_ms_median": ref["ttft_ms_median"],
+              "max_memory_allocated": {
+                  "leader": lead["max_memory_allocated"],
+                  "follower": follow["max_memory_allocated"]},
+              "one_process_max_memory_allocated": one_peak,
+              "memory_ratio_to_one_process": {
+                  "leader": lead["max_memory_allocated"] / one_peak,
+                  "follower": follow["max_memory_allocated"] / one_peak},
+              "card": nvidia_smi()})
+        emit({"phase": phase + "_follower", "mesh": spec,
+              "frames_replayed": follow["frames"],
+              "exit": "STOP, rc 0", "stats": follow["stats"],
+              "card": nvidia_smi()})
+    return {"dh64": total, "mixtral": total128}
 
 
 KERNEL_ROWS = {
@@ -8192,8 +8401,10 @@ def main() -> int:
         launches[k] += n
     _free_card()
     # One worker over two processes on the one card: each process's A, B
-    # and D launches join the Dh-64 rows.
-    for k, n in multiprocess_phase(dev).items():
+    # and D launches join the Dh-64 rows (TinyLlama), its A, B and G
+    # launches the Dh-128 and G rows (Mixtral, added below).
+    mp = multiprocess_phase(dev)
+    for k, n in mp["dh64"].items():
         launches[k] += n
     _free_card()
     spec_phase(dev)
@@ -8237,6 +8448,9 @@ def main() -> int:
     for k in ("A", "B", "C"):
         launches128[k] += mesh_ep[k]
     gemm_launches["G"] += mesh_ep["G"]
+    for k in ("A", "B"):
+        launches128[k] += mp["mixtral"][k]
+    gemm_launches["G"] += mp["mixtral"]["G"]
     # Sharded serving across workers: the launches of A and D (Dh 128)
     # and of G (bf16) on those paths join the rows' counts.
     for strategy in ("pp", "ep"):
@@ -8299,6 +8513,9 @@ def phase_main(name: str) -> int:
     t0 = time.perf_counter()
     kernels.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    # The cut meshes stand beside the mesh phases' one-process lines.
+    mesh_phases(dev)
+    _free_card()
     emit({"phase": "multiprocess_launches", **multiprocess_phase(dev)})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

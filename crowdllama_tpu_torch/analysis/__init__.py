@@ -1,4 +1,4 @@
-"""The port's static analysis: three checkers over
+"""The port's static analysis: four checkers over
 ``crowdllama_tpu_torch/``.
 
 Counterpart of ``crowdllama_tpu/analysis/`` (swarmlint), with the rules
@@ -12,7 +12,12 @@ that guard seams only the port has:
   flight's one read-back in its retire aside;
 - :mod:`.ffi_contract`: every ``extern "C"`` export of the native plane
   declared in ctypes with its arity and return type, and nothing else
-  declared.
+  declared;
+- :mod:`.contracts`: the string-keyed contracts between nodes and
+  surfaces (JAX's rules): every llama.v1 oneof arm constructed,
+  extracted and dispatched; fault sites registered, instrumented and
+  named right in tests; metric families documented; config fields
+  settable from the environment and flags consumed.
 
 Findings resolve against ``analysis/baseline.toml`` (empty: zero
 waivers).  Run::
@@ -37,6 +42,7 @@ def all_checkers():
     from crowdllama_tpu_torch.analysis.async_hotpath import (
         check_async_hotpath,
     )
+    from crowdllama_tpu_torch.analysis.contracts import check_contracts
     from crowdllama_tpu_torch.analysis.ffi_contract import check_ffi_contract
     from crowdllama_tpu_torch.analysis.torch_purity import check_torch_purity
 
@@ -44,6 +50,7 @@ def all_checkers():
         "async-hotpath": check_async_hotpath,
         "torch-purity": check_torch_purity,
         "ffi-contract": check_ffi_contract,
+        "contracts": check_contracts,
     }
 
 

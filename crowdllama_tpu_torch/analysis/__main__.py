@@ -15,7 +15,7 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m crowdllama_tpu_torch.analysis",
         description="the port's static analysis: async-hotpath, "
-                    "torch-purity and ffi-contract checkers")
+                    "torch-purity, ffi-contract and contracts checkers")
     ap.add_argument("--format", choices=("text", "json"), default="text")
     ap.add_argument("--baseline", default=None,
                     help="waiver file (default: analysis/baseline.toml)")

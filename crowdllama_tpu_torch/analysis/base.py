@@ -22,7 +22,7 @@ PACKAGE = "crowdllama_tpu_torch"
 
 @dataclass(frozen=True)
 class Finding:
-    checker: str   # "async-hotpath" | "torch-purity" | "ffi-contract"
+    checker: str   # the checker's name, e.g. "ffi-contract"
     code: str      # the rule within the checker, e.g. "blocking-call"
     path: str      # repo-relative posix path
     line: int      # 1-based; 0 for a whole-file or contract finding

@@ -936,12 +936,13 @@ class TorchEngine(Engine):
             d["tp"] = r.tp
             d["mesh"] = r.mesh.axes
             if r.mesh.n_processes > 1:
-                comm = getattr(r, "tp_comm", None)
+                comms = getattr(r, "comms", {})
                 d["mesh"] = {**r.mesh.axes,
                              "processes": r.mesh.n_processes,
                              "frames": "gloo",
-                             "device_collectives": (comm.backend if comm
-                                                    else None)}
+                             "device_collectives": next(
+                                 (c.backend for c in comms.values()), None),
+                             "axes_across": sorted(comms)}
             d["devices"] = [str(x) for x in r.devices]
             d["kv_layout"] = r.kv_layout
             d["kv_dtype"] = r.kv_dtype

@@ -15,9 +15,12 @@ Multi-process serving (``n_processes > 1``, leader-replicated dispatch
 through ``parallel/replicated.py``) imposes no composition rule of its
 own, as in JAX: the ``multihost-tp`` rows equal the ``tp`` rows.  Which
 axes of a mesh may cross processes is the runner's check
-(``engine/runner.py``).  One rule is the port's own: ``megastep_k > 0``
-needs every rank of the mesh on one device (each flight is one CUDA
-graph there): :func:`check_megastep` refuses ranks on distinct devices.
+(``engine/runner.py``): any axis may, as long as each process's ranks
+form a box of the mesh; only a tp group split unevenly
+(:data:`ACROSS_PROCESSES`) is refused.  One rule is the port's own:
+``megastep_k > 0`` needs every rank of the mesh on one device (each
+flight is one CUDA graph there): :func:`check_megastep` refuses ranks on
+distinct devices.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ _RUNNERS = {("paged", ""): "PagedModelRunner",
             ("contiguous", "ngram"): "SpecModelRunner"}
 GRAPHS_ACROSS_DEVICES = ("megastep graphs across distinct devices "
                          "(ROADMAP Queue 1 item 8.3)")
-ACROSS_PROCESSES = ("sp, pp and ep groups, and speculation on a dp axis, "
-                    "across processes (ROADMAP Queue 1 item 8.2b)")
+ACROSS_PROCESSES = ("a tp group split unevenly across processes (a "
+                    "process's ranks must form a box of the mesh; ROADMAP "
+                    "Queue 1 item 8.2b)")
 
 
 @dataclass

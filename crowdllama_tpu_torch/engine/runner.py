@@ -54,19 +54,27 @@ meshes, and the int8 KV cache serves only without sp and pp, as in the
 JAX runner.
 
 A mesh across processes (``parallel/multihost.py``; each process holds
-the ranks ``[p*L, (p+1)*L)``) serves when each process holds whole dp
-ranks (dp across processes) or, without sp, pp and ep, a share of one tp
-group (tp across processes); an sp, pp or ep group that would cross
-processes is refused (ROADMAP Queue 1 item 8.2b).  The runner then holds
-and runs only its process's ranks: ``groups``, the state's cache shards,
-``devices`` and ``tp_devices`` are this process's; prefill runs on the
-process's first dp rank (every process prefills each prompt, so no
-prompt KV crosses processes); decode runs the slots of the local dp
-ranks (``slot_rows``) and returns their tokens, which the leader-
-replicated dispatch gathers (``parallel/replicated.py``); a tp group's
-sums complete over its processes (``parallel/sharding.py TPGroup``).
-Every process drives the same calls in the same order, with the same
-host inputs, so the replicated slot state stays the same everywhere.
+the ranks ``[p*L, (p+1)*L)``) serves when each process's ranks form a box
+of the mesh: whole dp ranks, whole blocks of the inner axes (a pp stage
+with its tp ranks, an sp shard, an ep bank) or an even share of one tp
+group; a tp group split unevenly is refused (ROADMAP Queue 1 item 8.2b).
+The runner then holds and runs only its process's ranks (``local_dp``,
+``local_pp``, ``local_sp``, ``local_ep``, ``local_tp``): ``groups``, the
+state's cache shards, ``devices`` and ``tp_devices`` are this process's,
+and each axis whose groups cross processes has its ``AxisComm``
+(``comms``).  Prefill runs on the process's first dp rank (every process
+prefills each prompt, so no prompt KV crosses processes but sp's ring
+blocks); decode runs the slots of the local dp ranks (``slot_rows``) and
+returns their tokens, which the leader-replicated dispatch gathers
+(``parallel/replicated.py``); a tp group's sums complete over its
+processes (``parallel/sharding.py TPGroup``); a pp stage hands its
+output to the next process's stage and the last stage's activations go
+to every process (``parallel/pipeline.py``); the sp ring gathers the K/V
+blocks and the sp decode the partial softmax sums (``ops/ring.py``); an
+ep bank's rows join the other processes' in one sum
+(``models/transformer.py _expert_ffn``).  Every process drives the same
+calls in the same order, with the same host inputs, so the replicated
+slot state stays the same everywhere.
 
 Megastep (``decode_megastep``, both layouts): K decode steps per host
 dispatch with on-device sampling and done-flags (``ops/megastep.py``).
@@ -89,6 +97,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import logging
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -115,6 +124,9 @@ from crowdllama_tpu_torch.ops.quant import MODES as QUANT_MODES
 from crowdllama_tpu_torch.ops.quant import quantize_kv, quantize_params
 from crowdllama_tpu_torch.parallel import multihost
 from crowdllama_tpu_torch.parallel.mesh import (
+    AXIS_EP,
+    AXIS_PP,
+    AXIS_SP,
     AXIS_TP,
     Mesh,
     build_mesh,
@@ -232,11 +244,12 @@ class ModelRunner:
         self.max_seq = max_seq or cfg.max_context_length
         self._check_mesh()
         self._place_processes()
-        #: the devices of the tp ranks (this process's) of the first local
-        #: dp rank at (pp, sp, ep) = 0: where prefill's KV and a paged
-        #: runner's pools live
-        self.tp_devices = [self.mesh.device(dp=self.local_dp[0], tp=t)
-                           for t in self.local_tp]
+        #: the devices of this process's tp ranks at its first (dp, pp,
+        #: sp, ep) coordinates: where prefill's KV and a paged runner's
+        #: pools live
+        self.tp_devices = [self.mesh.device(
+            dp=self.local_dp[0], pp=self.local_pp[0], sp=self.local_sp[0],
+            ep=self.local_ep[0], tp=t) for t in self.local_tp]
         # On a mesh the full weights are made (or quantized) on the host,
         # so no card ever holds more than its ranks' slices.
         one = self.mesh.size == 1
@@ -251,23 +264,27 @@ class ModelRunner:
             # where they are (the ranks then copy their slices).
             params = quantize_params(params, mode=quantize, device=(
                 self.device if one else None))
-        #: the (dp, pp, sp) groups' tp lists of per-rank parameter dicts;
-        #: the full dict is not kept
-        comm = None
+        #: the cross-process half of each axis's collectives (the
+        #: ``multihost.AxisComm`` of this process's group along tp, pp,
+        #: sp and ep; an axis whose groups stay in one process has none)
+        self.comms = {}
         if self.mesh.n_processes > 1:
-            comm = multihost.axis_comm(
-                self.mesh, [self.mesh.ranks_along(AXIS_TP, dp=d)
-                            for d in range(self.dp)], self.devices)
-        #: the cross-process half of the tp collectives (None unless a tp
-        #: group spans processes)
-        self.tp_comm = comm
+            for axis in (AXIS_TP, AXIS_PP, AXIS_SP, AXIS_EP):
+                c = multihost.axis_comm(self.mesh,
+                                        self.mesh.axis_groups(axis),
+                                        self.devices)
+                if c is not None:
+                    self.comms[axis] = c
         #: the (dp, pp, sp) groups' tp lists of per-rank parameter dicts
         #: (this process's); the full dict is not kept
         self.groups = rank_groups(shard_params(params, cfg, self.mesh),
-                                  self.mesh, comm)
+                                  self.mesh, self.comms.get(AXIS_TP),
+                                  self.comms.get(AXIS_EP))
         del params
-        #: the group of (first local dp, 0, 0): the whole model unless pp
-        self.params = self.groups[(self.local_dp[0], 0, 0)]
+        #: the group of this process's first (dp, pp, sp): the whole model
+        #: unless pp
+        self.params = self.groups[(self.local_dp[0], self.local_pp[0],
+                                   self.local_sp[0])]
         self.dtype = self.params[0]["embed"].dtype
         self.buckets = [b for b in prefill_buckets(self.max_seq)
                         if b % self.sp == 0]
@@ -327,34 +344,32 @@ class ModelRunner:
             self.prefill_chunk = 0
 
     def _place_processes(self) -> None:
-        """This process's share of the mesh: ``local_dp`` (its dp ranks),
-        ``local_tp`` (its tp ranks of them) and ``slot_rows`` (the slots
-        its decode runs), as :meth:`_process_share` places them."""
-        self.local_dp, self.local_tp = self._process_share(
-            self.mesh.process_index)
+        """This process's share of the mesh: its indices along each axis
+        (``local_dp``, ``local_pp``, ``local_sp``, ``local_ep``,
+        ``local_tp``) and ``slot_rows`` (the slots its decode runs), as
+        :meth:`_process_share` places them."""
+        (self.local_dp, self.local_pp, self.local_sp, self.local_ep,
+         self.local_tp) = self._process_share(self.mesh.process_index)
         self.slot_rows = self.process_slot_rows(self.mesh.process_index)
 
-    def _process_share(self, p: int) -> tuple[list[int], list[int]]:
-        """(dp ranks, tp ranks of them) of process ``p``.  One process
-        holds everything.  Across processes a process holds whole dp
-        ranks, or a share of one tp group when sp, pp and ep are 1; any
-        other split would put an sp, pp or ep group (or a tp group
-        unevenly) across processes, which is refused."""
+    def _process_share(self, p: int) -> tuple[list[int], ...]:
+        """Process ``p``'s (dp, pp, sp, ep, tp) indices, each a run along
+        its axis.  One process holds everything.  Across processes the
+        ranks ``[p*L, (p+1)*L)`` must form a box of the mesh: whole dp
+        ranks, whole blocks of the inner axes (one pp stage with all its
+        tp ranks, one sp shard, one ep bank) or an even share of one tp
+        group.  A run that is no box splits a tp group unevenly (its
+        ranks over two processes in unequal parts), which is refused."""
         m = self.mesh
-        block = self.pp * self.sp * self.ep * self.tp  # ranks a dp rank
         size = m.local_size
-        first = p * size
-        if size % block == 0:
-            return (list(range(first // block, (first + size) // block)),
-                    list(range(self.tp)))
-        if self.pp == self.sp == self.ep == 1 and self.tp % size == 0:
-            return ([first // self.tp],
-                    list(range(first % self.tp, first % self.tp + size)))
-        raise ValueError(
-            f"mesh {m.axes} over {m.n_processes} processes of {size} "
-            f"ranks each puts an sp, pp or ep group (or a tp group "
-            f"unevenly) across processes, which is not ported to "
-            f"crowdllama_tpu_torch yet: {ACROSS_PROCESSES}")
+        coords = [m.coords(r) for r in range(p * size, (p + 1) * size)]
+        share = tuple(sorted({c[i] for c in coords}) for i in range(5))
+        if math.prod(len(a) for a in share) != size:
+            raise ValueError(
+                f"mesh {m.axes} over {m.n_processes} processes of {size} "
+                f"ranks each splits a tp group unevenly across processes, "
+                f"which is not served: {ACROSS_PROCESSES}")
+        return share
 
     def process_slot_rows(self, p: int) -> slice:
         """The slots process ``p``'s decode runs (its dp ranks')."""
@@ -374,23 +389,28 @@ class ModelRunner:
         return [self._rope_on(p["final_norm"].device) for p in group]
 
     def _stages(self, d: int) -> list:
-        """dp rank ``d``'s pipeline stages (their tp lists)."""
-        return [self.groups[(d, p, 0)] for p in range(self.pp)]
+        """dp rank ``d``'s pipeline stages (their tp lists; this
+        process's)."""
+        return [self.groups[(d, p, 0)] for p in self.local_pp]
 
     def _sp_groups(self, d: int) -> list:
-        """dp rank ``d``'s sp ranks (their tp lists)."""
-        return [self.groups[(d, 0, s)] for s in range(self.sp)]
+        """dp rank ``d``'s sp ranks (their tp lists; this process's)."""
+        return [self.groups[(d, 0, s)] for s in self.local_sp]
 
     def _cache_index(self, d: int, p: int, s: int, t: int) -> int:
         """The (dp, pp, sp, tp) rank's index in a mesh state's cache
         lists (this process's ranks, in rank order)."""
         d -= self.local_dp[0]
+        p -= self.local_pp[0]
+        s -= self.local_sp[0]
         t -= self.local_tp[0]
-        return ((d * self.pp + p) * self.sp + s) * len(self.local_tp) + t
+        return (((d * len(self.local_pp) + p) * len(self.local_sp) + s)
+                * len(self.local_tp) + t)
 
     def _group_device(self, d: int) -> torch.device:
         """The device of dp rank ``d``'s first local rank."""
-        return self.groups[(d, 0, 0)][0]["final_norm"].device
+        return self.groups[(d, self.local_pp[0],
+                            self.local_sp[0])][0]["final_norm"].device
 
     def bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -519,10 +539,11 @@ class ModelRunner:
                 top_p: float, key=None, state=None, top_k: int = 0,
                 repeat_penalty: float = 1.0):
         """Bucketed monolithic prefill; returns (first_token, ks, vs, plen)
-        with ks/vs one a (pp stage, tp rank), in that order,
-        [L/pp, 1, Hkv/tp, bucket, Dh] (under sp the shards' KV joined on
-        the tp rank's device).  Padding positions clamp to plen-1 and
-        ``kv_valid`` excludes them.  Runs on dp rank 0.  ``state`` is
+        with ks/vs one a (pp stage, tp rank) of this process, in that
+        order, [L/pp, 1, Hkv/tp, bucket, Dh] (under sp every shard's KV
+        joined on the tp rank's device).  Padding positions clamp to
+        plen-1 and ``kv_valid`` excludes them.  Runs on this process's
+        first dp rank.  ``state`` is
         accepted (and ignored) so the scheduler passes its live state
         uniformly."""
         cfg = self.cfg
@@ -532,26 +553,33 @@ class ModelRunner:
         positions = torch.clamp(ar, max=plen - 1)[None]
         kv_valid = (ar < plen)[None]
         tokens = self._padded(prompt_ids, bucket)
+        d0 = self.local_dp[0]
         if self.pp > 1:
-            stages = self._stages(0)
+            stages = self._stages(d0)
             x, ks, vs = pp_forward(
                 stages, cfg, tokens, positions, kv_valid,
                 ropes=[self._group_ropes(g) for g in stages],
-                attention=self.prefill_attn)
+                attention=self.prefill_attn, comm=self.comms.get(AXIS_PP))
             ks = [k for stage in ks for k in stage]
             vs = [v for stage in vs for v in stage]
             logits = T._unembed(stages[-1], cfg, x[:, plen - 1])
         elif self.sp > 1:
-            groups = self._sp_groups(0)
-            xs = [T._embed(g, cfg, tk)
-                  for g, tk in zip(groups, T.sp_split(tokens, groups))]
+            groups, comm = self._sp_groups(d0), self.comms.get(AXIS_SP)
+            xs = [T._embed(g, cfg, tk) for g, tk in zip(
+                groups, T.sp_split(tokens, groups, comm))]
             xs, kss, vss = T.scan_prefill_layers(
                 T.layer_stacks_sp(groups), self.windows, cfg, xs,
-                T.sp_split(positions, groups),
-                kv_valid=T.sp_split(kv_valid, groups),
-                rope=[self._group_ropes(g) for g in groups], sp=True)
+                T.sp_split(positions, groups, comm),
+                kv_valid=T.sp_split(kv_valid, groups, comm),
+                rope=[self._group_ropes(g) for g in groups], sp=True,
+                sp_comm=comm)
             shard, off = divmod(plen - 1, bucket // self.sp)
-            logits = T._unembed(groups[shard], cfg, xs[shard][:, off])
+            # The vocab projection is replicated over sp: the shard's own
+            # rank, or this process's first when another process holds it.
+            mine = shard - self.local_sp[0]
+            g = groups[mine] if 0 <= mine < len(groups) else groups[0]
+            logits = T._unembed(g, cfg, xs[shard][:, off].to(
+                g[0]["final_norm"].device))
             ks, vs = ([torch.cat([part[s][t].to(d) for s in range(self.sp)],
                                  dim=3)
                        for t, d in enumerate(self.tp_devices)]
@@ -699,18 +727,20 @@ class ModelRunner:
         ar = torch.arange(t, device=self.device, dtype=torch.int32)[None]
         positions = torch.minimum(ar, plens[:, None] - 1).contiguous()
         kv_valid = (ar < plens[:, None]).contiguous()
+        d0 = self.local_dp[0]
         if self.pp > 1:  # the microbatch pipeline, as prefill
-            stages = self._stages(0)
+            stages = self._stages(d0)
             h = pp_hidden_states(
                 stages, self.cfg, tokens, positions, kv_valid,
                 ropes=[self._group_ropes(g) for g in stages],
-                attention=self.prefill_attn).to(self.device)
+                attention=self.prefill_attn,
+                comm=self.comms.get(AXIS_PP)).to(self.device)
         elif self.sp > 1:  # the ring, as prefill
-            groups = self._sp_groups(0)
+            groups = self._sp_groups(d0)
             h = T.hidden_states(
                 groups, self.cfg, tokens, positions, kv_valid=kv_valid,
                 rope=[self._group_ropes(g) for g in groups],
-                sp=True).to(self.device)
+                sp=True, sp_comm=self.comms.get(AXIS_SP)).to(self.device)
         else:
             h = T.hidden_states(self.params, self.cfg, tokens, positions,
                                 kv_valid=kv_valid,
@@ -776,10 +806,10 @@ class ModelRunner:
                  cfg.num_kv_heads // self.tp, self.max_seq // self.sp,
                  cfg.resolved_head_dim())
         ks, vs, scales = [], [], {}
-        for d, p, s, t in itertools.product(self.local_dp, range(self.pp),
-                                            range(self.sp), self.local_tp):
+        for d, p, s, t in itertools.product(self.local_dp, self.local_pp,
+                                            self.local_sp, self.local_tp):
             k, v, sc = self._kv_zeros(shape, self.mesh.device(
-                dp=d, pp=p, sp=s, tp=t))
+                dp=d, pp=p, sp=s, ep=self.local_ep[0], tp=t))
             ks.append(k)
             vs.append(v)
             for name, x in sc.items():
@@ -799,8 +829,9 @@ class ModelRunner:
                top_k: int = 0, repeat_penalty: float = 1.0) -> DecodeState:
         """Write a prefilled sequence (ks/vs as :meth:`prefill` returns
         them, quantized first on an int8 cache) into ``slot``: its dp
-        rank's cache (when this process holds it), each sp shard taking
-        the positions it owns;
+        rank's cache (when this process holds it), each of this process's
+        pp stages and sp shards taking its layers and the positions it
+        owns;
         ``slot_key`` seeds the slot's sampling stream (default:
         ``default_slot_key(slot)``)."""
         t_len = ks[0].shape[3]
@@ -814,14 +845,14 @@ class ModelRunner:
         if d not in self.local_dp:
             pairs = []  # the slot's dp rank lives in another process
         else:
-            pairs = itertools.product(range(self.pp), range(n_tp))
-        for p, j in pairs:
+            pairs = itertools.product(enumerate(self.local_pp), range(n_tp))
+        for (i, p), j in pairs:
             t = self.local_tp[j]
-            k, v = ks[p * n_tp + j], vs[p * n_tp + j]
+            k, v = ks[i * n_tp + j], vs[i * n_tp + j]
             if quantized:
                 k, k_sc = quantize_kv(k, kss[0].dtype)
                 v, v_sc = quantize_kv(v, vss[0].dtype)
-            for s in range(self.sp):
+            for s in self.local_sp:
                 lo = s * shard
                 n = min(shard, t_len - lo)
                 if n <= 0:
@@ -875,18 +906,18 @@ class ModelRunner:
             if self.pp > 1:
                 stages = self._stages(d)
                 idx = [[self._cache_index(d, p, 0, t) for t in tps]
-                       for p in range(self.pp)]
+                       for p in self.local_pp]
                 logits = pp_decode_step(
                     stages, self.cfg, tok.long(), pos,
                     [[kcs[i] for i in row] for row in idx],
                     [[vcs[i] for i in row] for row in idx], ln,
                     ropes=[self._group_ropes(g) for g in stages],
-                    attention=self.decode_attn)
+                    attention=self.decode_attn, comm=self.comms.get(AXIS_PP))
             else:
-                group = self.groups[(d, 0, 0)]
+                group = self.groups[(d, 0, self.local_sp[0])]
                 if self.sp > 1:
                     idx = [[self._cache_index(d, 0, s, t)
-                            for s in range(self.sp)] for t in tps]
+                            for s in self.local_sp] for t in tps]
                     kc = [[kcs[i] for i in row] for row in idx]
                     vc = [[vcs[i] for i in row] for row in idx]
                 else:
@@ -899,7 +930,7 @@ class ModelRunner:
                     attention=self.decode_attn,
                     k_scale=[kss[i] for i in idx] if quantized else None,
                     v_scale=[vss[i] for i in idx] if quantized else None,
-                    sp=self.sp > 1)
+                    sp=self.sp > 1, sp_comm=self.comms.get(AXIS_SP))
                 logits = T._unembed(group, self.cfg, x)
             outs.append(logits.to(self.device))
         return outs[0] if len(outs) == 1 else torch.cat(outs)

@@ -36,11 +36,12 @@ captured on the state stays valid across speculative flights.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
 from crowdllama_tpu_torch.engine.paged import PagedModelRunner
-from crowdllama_tpu_torch.engine.plan import ACROSS_PROCESSES
 from crowdllama_tpu_torch.engine.runner import ModelRunner
 from crowdllama_tpu_torch.engine.sampling import sample_with_noise
 from crowdllama_tpu_torch.engine.weights import init_params
@@ -203,21 +204,26 @@ class _AdaptiveDraftLen:
                      match_drafts: torch.Tensor,
                      from_prompt: torch.Tensor) -> torch.Tensor:
         """One verify step over explicit drafts, in place on ``st``:
-        ``seq_drafts`` [B, k] feed the forward (valid ids), ``match_drafts``
+        ``seq_drafts`` [b, k] feed the forward (valid ids), ``match_drafts``
         the acceptance compare (the hosted path matches the raw ids, so a
-        -1 sentinel is never accepted).  Returns the packed [2+J, B]."""
+        -1 sentinel is never accepted).  The rows are the slots of
+        ``slot_rows`` (every slot unless dp spans processes, where each
+        process verifies its own dp ranks' slots; every slot's key still
+        splits).  Returns the packed [2+J, b]."""
         s_max = self.max_seq
+        r = self.slot_rows
         logits, positions, ks, vs = self.verify_forward(st, table,
                                                         seq_drafts)
         self._verify_scatter(st, table, positions, ks, vs)
         noise = self._step_noise(st, 1)
+        rows = _rows_of(st, r)
         counts, emit, pending, accepted = verify_accept_emit(
-            st, logits, match_drafts, s_max,
-            None if noise is None else noise[0])
+            rows, logits, match_drafts, s_max,
+            None if noise is None else noise[0][r])
         if st.hist is not None:
-            update_hist(st.hist, st.seq_lens, emit, accepted, s_max)
-        st.seq_lens.add_(counts)
-        st.tokens.copy_(torch.where(st.active, pending, st.tokens))
+            update_hist(st.hist[r], rows.seq_lens, emit, accepted, s_max)
+        rows.seq_lens.add_(counts)
+        rows.tokens.copy_(torch.where(rows.active, pending, rows.tokens))
         src = torch.where(counts > 1,
                           torch.where(from_prompt, 1, 2),
                           0).to(torch.int32)
@@ -226,21 +232,32 @@ class _AdaptiveDraftLen:
     def _spec_steps(self, state, table, num_steps: int,
                     draft_len: int) -> torch.Tensor:
         """``num_steps`` verify steps with local drafts: packed
-        [K, 2+J, B]."""
+        [K, 2+J, b] over the slots of ``slot_rows``."""
+        r = self.slot_rows
         out = []
         for _ in range(num_steps):
             drafts, from_prompt = self._propose(state, draft_len)
-            out.append(self._verify_step(state, table, drafts, drafts,
-                                         from_prompt))
+            out.append(self._verify_step(state, table, drafts[r], drafts[r],
+                                         from_prompt[r]))
         return torch.stack(out)
+
+
+def _rows_of(st, r: slice) -> SimpleNamespace:
+    """The per-slot fields a verify step reads and advances, as views of
+    ``st``'s rows ``r`` (an update in place lands in ``st``)."""
+    return SimpleNamespace(**{name: getattr(st, name)[r] for name in (
+        "seq_lens", "tokens", "active", "temperature", "top_p", "top_k")})
 
 
 class SpecModelRunner(_AdaptiveDraftLen, ModelRunner):
     """n-gram speculation on the contiguous cache (bf16 only: the verify
     forward reads the cache directly as attention context), on one device
     or a dp / tp mesh: each dp rank verifies its slots on its own
-    parameters over its cache shards (one a tp rank).  sp and pp meshes
-    are refused, as in the JAX package."""
+    parameters over its cache shards (one a tp rank).  With dp across
+    processes each process verifies its own dp ranks' slots
+    (``slot_rows``) and returns their packed block, which the
+    leader-replicated readback gathers by dp rows, as the plain decode's
+    tokens.  sp and pp meshes are refused, as in the JAX package."""
 
     def __init__(self, cfg, *args, draft_len: int = 4, **kwargs):
         super().__init__(cfg, *args, **kwargs)
@@ -250,11 +267,6 @@ class SpecModelRunner(_AdaptiveDraftLen, ModelRunner):
         if self.kv_dtype != "bf16":
             raise ValueError("speculative decode on the contiguous layout "
                              "requires the bf16 KV cache")
-        if len(self.local_dp) < self.dp:
-            raise ValueError(
-                f"speculative decode with dp={self.dp} across processes is "
-                f"not ported to crowdllama_tpu_torch yet: "
-                f"{ACROSS_PROCESSES}")
         self._spec_setup(draft_len)
 
     @torch.inference_mode()
@@ -275,42 +287,45 @@ class SpecModelRunner(_AdaptiveDraftLen, ModelRunner):
         return state
 
     def _dp_ranks(self):
-        """Per dp rank: (its slot rows, its tp ranks' cache indices; this
-        process's tp ranks)."""
+        """Per dp rank of this process: (the rank, its slots' rows among
+        ``slot_rows``, its tp ranks' cache indices; this process's tp
+        ranks)."""
         per = self.max_slots // self.dp
-        return [(slice(d * per, (d + 1) * per),
+        base = self.slot_rows.start
+        return [(d, slice(d * per - base, (d + 1) * per - base),
                  [self._cache_index(d, 0, 0, t) for t in self.local_tp])
-                for d in range(self.dp)]
+                for d in self.local_dp]
 
     def _verify_context(self, st, table):
         """Per dp rank, per tp rank, the cache shards (ctx_k, ctx_v), and
-        ctx_valid [B, S]."""
+        ctx_valid [b, S] over ``slot_rows``."""
         kcs, vcs = self._ranks(st.k_cache), self._ranks(st.v_cache)
         valid = (torch.arange(self.max_seq, device=self.device)[None, :]
-                 < st.seq_lens[:, None])
+                 < st.seq_lens[self.slot_rows][:, None])
         ranks = self._dp_ranks()
-        return ([[kcs[i] for i in idx] for _, idx in ranks],
-                [[vcs[i] for i in idx] for _, idx in ranks], valid)
+        return ([[kcs[i] for i in idx] for _, _, idx in ranks],
+                [[vcs[i] for i in idx] for _, _, idx in ranks], valid)
 
     def verify_forward(self, st, table, seq_drafts: torch.Tensor):
-        """The mixin's verify forward, each dp rank's slots on its own
-        group: ks/vs per dp rank, per tp rank [L, B/dp, Hkv/tp, J, Dh]."""
-        cfg, dev = self.cfg, self.device
+        """The mixin's verify forward over the slots of ``slot_rows``, each
+        dp rank's slots on its own group: ks/vs per dp rank, per tp rank
+        [L, B/dp, Hkv/tp, J, Dh]."""
+        cfg, dev, r = self.cfg, self.device, self.slot_rows
         j = 1 + seq_drafts.shape[1]
         positions = torch.clamp(
-            st.seq_lens[:, None] + torch.arange(j, device=dev,
-                                                dtype=torch.int32),
-            max=self.max_seq - 1)                               # [B, J]
-        seq_tok = torch.cat([st.tokens[:, None], seq_drafts], dim=1)
+            st.seq_lens[r][:, None] + torch.arange(j, device=dev,
+                                                   dtype=torch.int32),
+            max=self.max_seq - 1)                               # [b, J]
+        seq_tok = torch.cat([st.tokens[r][:, None], seq_drafts], dim=1)
         ctx_k, ctx_v, ctx_valid = self._verify_context(st, table)
         logits, ks, vs = [], [], []
-        for d, (rows, _) in enumerate(self._dp_ranks()):
+        for (d, rows, _), ck, cv in zip(self._dp_ranks(), ctx_k, ctx_v):
             group = self.groups[(d, 0, 0)]
             gdev = self._group_device(d)
             x = T._embed(group, cfg, seq_tok[rows].long().to(gdev))
             x, k, v = T.scan_prefill_layers(
                 T.layer_stacks(group), self.windows, cfg, x,
-                positions[rows].to(gdev), ctx_k=ctx_k[d], ctx_v=ctx_v[d],
+                positions[rows].to(gdev), ctx_k=ck, ctx_v=cv,
                 ctx_valid=ctx_valid[rows].to(gdev),
                 rope=self._group_ropes(group))
             logits.append(T._unembed(group, cfg, x).to(dev))
@@ -321,7 +336,7 @@ class SpecModelRunner(_AdaptiveDraftLen, ModelRunner):
     def _verify_scatter(self, st, table, positions, ks, vs) -> None:
         kcs, vcs = self._ranks(st.k_cache), self._ranks(st.v_cache)
         pos = positions.long()
-        for (rows, idx), kd, vd in zip(self._dp_ranks(), ks, vs):
+        for (_, rows, idx), kd, vd in zip(self._dp_ranks(), ks, vs):
             for i, k, v in zip(idx, kd, vd):
                 kc, vc = kcs[i], vcs[i]
                 p = pos[rows].to(kc.device)

@@ -64,6 +64,7 @@ from crowdllama_tpu_torch.ops.ring import (
     ring_prefill_attention,
     sp_cache_update,
     sp_decode_attention,
+    sp_gather,
 )
 from crowdllama_tpu_torch.ops.rope import apply_rope, rope_table
 from crowdllama_tpu_torch.parallel.sharding import (
@@ -255,16 +256,21 @@ def _expert_ffn(lp: Params, xs: torch.Tensor,
     (``ExpertBanks``) each bank runs on its device over the rows of its
     experts (``offsets[lo:hi + 1]``: kernel G writes only the rows of a
     group) and its rows are taken into the result where they lie, so the
-    rows, and the combine after, are the one-device ones."""
-    if not isinstance(lp["w_gate"], ExpertBanks):
+    rows, and the combine after, are the one-device ones.  When ep spans
+    processes the banks are this process's (from bank ``first``), every
+    other row is zero, and one fp32 ``all_reduce`` over the ep group
+    joins the processes' rows: the banks' rows are disjoint, so each sum
+    is x + 0 = x, exact."""
+    banks = lp["w_gate"]
+    if not isinstance(banks, ExpertBanks):
         return _bank_ffn(lp["w_gate"], lp["w_up"], lp["w_down"], xs, offsets)
-    n_banks = len(lp["w_gate"])
+    n_banks = len(banks) if banks.comm is None else banks.comm.size
     per = (offsets.shape[0] - 1) // n_banks
     rows = torch.arange(xs.shape[0], device=xs.device)
     out = None
-    for b, (wg, wu, wd) in enumerate(zip(lp["w_gate"].banks,
-                                         lp["w_up"].banks,
-                                         lp["w_down"].banks)):
+    for b, (wg, wu, wd) in enumerate(zip(banks.banks, lp["w_up"].banks,
+                                         lp["w_down"].banks),
+                                     start=banks.first):
         dev = wg.device
         lo, hi = b * per, (b + 1) * per
         y = _bank_ffn(wg, wu, wd, xs.to(dev), offsets[lo:hi + 1].to(dev))
@@ -272,6 +278,8 @@ def _expert_ffn(lp: Params, xs: torch.Tensor,
         mine = ((rows >= offsets[lo]) & (rows < offsets[hi]))[:, None]
         out = torch.where(mine, y, torch.zeros_like(y) if out is None
                           else out)
+    if banks.comm is not None:
+        out = banks.comm.all_reduce(out.float()).to(y.dtype)
     return out
 
 
@@ -379,7 +387,8 @@ def scan_prefill_layers(layers: list[Params], windows: list[int],
                         ctx_k: list | None = None, ctx_v: list | None = None,
                         ctx_valid: torch.Tensor | None = None,
                         attention: Callable = prefill_attention,
-                        rope: list | None = None, sp: bool = False):
+                        rope: list | None = None, sp: bool = False,
+                        sp_comm=None):
     """Run every decoder layer over x [B, T, D] (``layers``: each rank's
     stacked weights); returns (x, ks, vs) with ks/vs per rank, each
     [L, B, Hkv/tp, T, Dh] head-major and contiguous on its rank's device.
@@ -389,7 +398,10 @@ def scan_prefill_layers(layers: list[Params], windows: list[int],
     lists over the sp ranks (each entry what the one-rank call takes),
     attention is :func:`ring_prefill_attention` between the shards, and
     the result is (xs, ks, vs) with ks/vs per sp rank per tp rank
-    [L, B, Hkv/tp, T/sp, Dh].  No prefix context under sp.
+    [L, B, Hkv/tp, T/sp, Dh].  No prefix context under sp.  With
+    ``sp_comm`` (the sp group across processes) the lists in are this
+    process's run of sp ranks, and the lists out every sp rank's (the
+    blocks this process lacks gathered over the group).
 
     With ``ctx_k``/``ctx_v`` (per rank [L, B, Hkv/tp, C, Dh], ``ctx_valid``
     [B, C]) the batch is a suffix continuing a cached prefix: queries
@@ -401,7 +413,7 @@ def scan_prefill_layers(layers: list[Params], windows: list[int],
     if sp:
         assert ctx_k is None, "prefix-context prefill does not compose with sp"
         return _scan_prefill_sp(layers, windows, cfg, x, positions, kv_valid,
-                                rope)
+                                rope, sp_comm)
     scale = attn_scale(cfg)
     ropes = _ropes(rope, cfg, layers)
     if ctx_k is None:
@@ -442,59 +454,80 @@ def scan_prefill_layers(layers: list[Params], windows: list[int],
 
 def _scan_prefill_sp(layers: list, windows: list[int], cfg: ModelConfig,
                      xs: list, positions: list, kv_valid: list | None,
-                     rope: list | None):
+                     rope: list | None, comm=None):
     """:func:`scan_prefill_layers` with the sequence on sp (its ``sp``
     branch): each sp rank's token shard through its own layers, the ring
-    between the shards of each tp rank."""
+    between the shards of each tp rank.  Across processes (``comm``)
+    each layer's K/V blocks of every tp rank are gathered once over the
+    sp group (the positions and validity once a call), each process runs
+    the ring for its own query shards, and the last layer's activations
+    are gathered, so every process returns every shard's."""
     scale = attn_scale(cfg)
     n = len(layers)
     ropes = [_ropes(None if rope is None else rope[s], cfg, layers[s])
              for s in range(n)]
-    if kv_valid is None:
-        kv_valid = [None] * n
     tp = len(layers[0])
-    ks = [[[] for _ in range(tp)] for _ in range(n)]
-    vs = [[[] for _ in range(tp)] for _ in range(n)]
+    valids = [torch.ones(p.shape, dtype=torch.bool, device=p.device)
+              if kv_valid is None or kv_valid[s] is None
+              else kv_valid[s].to(p.device)
+              for s, p in enumerate(positions)]
+    every_pos = sp_gather(list(positions), comm)
+    every_valid = sp_gather(valids, comm)
+    n_all = len(every_pos)
+    ks = [[[] for _ in range(tp)] for _ in range(n_all)]
+    vs = [[[] for _ in range(tp)] for _ in range(n_all)]
     for i, window in enumerate(windows):
         lps = [layer_params(stack, i) for stack in layers]
-        qkv = []  # per sp rank, per tp rank: (q, k, v, positions, valid)
+        qkv = []  # per local sp rank, per tp rank: (q, k, v)
         for s in range(n):
             h = _norm(xs[s], lps[s][0]["ln1"], cfg)
             row = []
             for r, lp in enumerate(lps[s]):
                 dev = lp["wq"].device
                 pos = positions[s].to(dev)
-                valid = (torch.ones(pos.shape, dtype=torch.bool, device=dev)
-                         if kv_valid[s] is None else kv_valid[s].to(dev))
                 q, k, v = _qkv(lp, cfg, h.to(dev))
                 cos, sin = ropes[s][r]
-                q = apply_rope(q, pos, cos, sin)
-                k = apply_rope(k, pos, cos, sin)
-                row.append((q, k, v, pos, valid))
-                ks[s][r].append(k.transpose(1, 2).contiguous())
-                vs[s][r].append(v.transpose(1, 2).contiguous())
+                row.append((apply_rope(q, pos, cos, sin),
+                            apply_rope(k, pos, cos, sin), v))
             qkv.append(row)
+        # Every sp rank's (k, v) per tp rank: the local ones, or gathered
+        # (each local rank's as one [tp, 2, B, T/sp, Hkv/tp, Dh] block).
+        kv = [[x[1:] for x in row] for row in qkv]
+        if comm is not None:
+            dev = xs[0].device
+            kv = [[(x[r, 0], x[r, 1]) for r in range(tp)]
+                  for x in sp_gather([torch.stack([torch.stack(x).to(dev)
+                                                    for x in row])
+                                       for row in kv], comm)]
         attns = [[None] * tp for _ in range(n)]
         for r in range(tp):
+            every_k = [row[r][0] for row in kv]
+            every_v = [row[r][1] for row in kv]
+            for s in range(n_all):
+                ks[s][r].append(every_k[s].transpose(1, 2).contiguous())
+                vs[s][r].append(every_v[s].transpose(1, 2).contiguous())
             outs = ring_prefill_attention(
-                [qkv[s][r][0] for s in range(n)],
-                [qkv[s][r][1] for s in range(n)],
-                [qkv[s][r][2] for s in range(n)],
-                [qkv[s][r][3] for s in range(n)], scale,
-                softcap=cfg.attn_logit_softcap, sliding_window=window,
-                kv_valid=[qkv[s][r][4] for s in range(n)])
+                [qkv[s][r][0] for s in range(n)], every_k, every_v, every_pos,
+                scale, softcap=cfg.attn_logit_softcap, sliding_window=window,
+                kv_valid=every_valid, comm=comm)
             for s in range(n):
                 b, t = outs[s].shape[:2]
                 attns[s][r] = outs[s].reshape(b, t, -1)
         xs = [_residual_tail(lps[s], cfg, xs[s], attns[s]) for s in range(n)]
-    return (xs, [[torch.stack(k) for k in row] for row in ks],
+    return (sp_gather(xs, comm),
+            [[torch.stack(k) for k in row] for row in ks],
             [[torch.stack(v) for v in row] for row in vs])
 
 
-def sp_split(x: torch.Tensor, groups: list[list[Params]]) -> list:
+def sp_split(x: torch.Tensor, groups: list[list[Params]],
+             comm=None) -> list:
     """x [B, T, ...] cut along T into one shard per sp rank, each on its
-    rank's device (``groups``: the sp ranks' tp lists)."""
-    parts = x.chunk(len(groups), dim=1)
+    rank's device (``groups``: the sp ranks' tp lists); with ``comm`` (sp
+    across processes) into ``comm.size`` shards, of which this process's
+    run (``groups``) is returned."""
+    n, first = ((len(groups), 0) if comm is None
+                else (comm.size, comm.offset))
+    parts = x.chunk(n, dim=1)[first:first + len(groups)]
     return [p.to(g[0]["final_norm"].device).contiguous()
             for p, g in zip(parts, groups)]
 
@@ -518,21 +551,24 @@ def hidden_states(shards: list[Params], cfg: ModelConfig,
                   tokens: torch.Tensor, positions: torch.Tensor,
                   kv_valid: torch.Tensor | None = None,
                   attention: Callable = prefill_attention,
-                  rope=None, sp: bool = False) -> torch.Tensor:
+                  rope=None, sp: bool = False, sp_comm=None) -> torch.Tensor:
     """Final-norm hidden states [B, T, D]: the embeddings forward (the
     prefill layer stack without the vocab projection).  With ``sp``,
     ``shards`` and ``rope`` are per sp rank and the sequence is sharded
     over them (ring attention); the shards' states are gathered on the
-    first rank's device."""
+    first rank's device.  With ``sp_comm`` the sp ranks are this
+    process's run of them, and every process gets every shard's
+    states."""
     if sp:
         groups = shards
         xs = [_embed(g, cfg, t.to(g[0]["final_norm"].device))
-              for g, t in zip(groups, sp_split(tokens, groups))]
+              for g, t in zip(groups, sp_split(tokens, groups, sp_comm))]
         xs, _, _ = scan_prefill_layers(
             layer_stacks_sp(groups), layer_sliding_windows(cfg), cfg, xs,
-            sp_split(positions, groups),
-            kv_valid=None if kv_valid is None else sp_split(kv_valid, groups),
-            rope=rope, sp=True)
+            sp_split(positions, groups, sp_comm),
+            kv_valid=None if kv_valid is None
+            else sp_split(kv_valid, groups, sp_comm),
+            rope=rope, sp=True, sp_comm=sp_comm)
         dev = groups[0][0]["final_norm"].device
         x = torch.cat([x.to(dev) for x in xs], dim=1)
         return _norm(x, groups[0][0]["final_norm"], cfg)
@@ -572,7 +608,7 @@ def scan_decode_layers(layers: list[Params], windows: list[int],
                        seq_lens: torch.Tensor, rope: list,
                        attention: Callable = decode_attention,
                        k_scale=None, v_scale=None,
-                       sp: bool = False) -> torch.Tensor:
+                       sp: bool = False, sp_comm=None) -> torch.Tensor:
     """Every decoder layer over one token per slot, x [B, D], against the
     contiguous cache (``layers`` and ``rope``: each tp rank's): each layer
     writes its token's K/V at ``positions`` in place, then attends over
@@ -585,7 +621,11 @@ def scan_decode_layers(layers: list[Params], windows: list[int],
     :func:`decode_attention_q`.  With ``sp`` each rank's entry is a list
     of its sequence shards [L, B, Hkv/tp, S/sp, Dh]: the token is written
     by :func:`sp_cache_update` and attention is
-    :func:`sp_decode_attention` (no int8 cache under sp).  Returns x."""
+    :func:`sp_decode_attention` (no int8 cache under sp); with
+    ``sp_comm`` (sp across processes) the shards are this process's run
+    of them, the token lands only in the process that owns its position,
+    and the decode's partial sums are gathered over the group.  Returns
+    x."""
     quantized = k_scale is not None
     if quantized:
         assert not sp, "int8 KV cache does not compose with sp yet"
@@ -613,9 +653,10 @@ def scan_decode_layers(layers: list[Params], windows: list[int],
                 if sp:
                     kc = [c[i] for c in kcs[r]]
                     vc = [c[i] for c in vcs[r]]
-                    sp_cache_update(k, v, pos, kc, vc)
+                    sp_cache_update(k, v, pos, kc, vc, comm=sp_comm)
                     outs.append(sp_decode_attention(
-                        q, kc, vc, lens, scale, sliding_window=window, **kw))
+                        q, kc, vc, lens, scale, sliding_window=window,
+                        comm=sp_comm, **kw))
                     continue
                 kc, vc = kcs[r][i], vcs[r][i]
                 if quantized:

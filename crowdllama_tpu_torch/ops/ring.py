@@ -1,9 +1,12 @@
 """Sequence parallelism: ring attention and the distributed decode.
 
 Counterpart of ``crowdllama_tpu/ops/ring.py``, over the sp ranks'
-sequence shards instead of a ``shard_map`` body.  The port drives every
-rank from one process, so each function takes one tensor a rank (each on
-its rank's device, in sp-rank order) and writes out the collectives:
+sequence shards instead of a ``shard_map`` body.  Each function takes one
+tensor a rank (each on its rank's device, in sp-rank order) and writes
+out the collectives.  In one process every rank is there; when sp spans
+processes (``parallel/multihost.py``) a process holds a run of the ranks
+and the blocks it lacks come over the sp group (the ring's KV blocks,
+gathered by the caller; the decode's partial sums, gathered here):
 
 - :func:`ring_prefill_attention`: blockwise causal attention with the
   sequence sharded over sp.  JAX's ring rotates each KV shard (with its
@@ -72,21 +75,26 @@ def ring_prefill_attention(qs: list[torch.Tensor], ks: list[torch.Tensor],
                            vs: list[torch.Tensor],
                            positions: list[torch.Tensor], scale: float, *,
                            softcap: float = 0.0, sliding_window: int = 0,
-                           kv_valid: list[torch.Tensor] | None = None
-                           ) -> list[torch.Tensor]:
+                           kv_valid: list[torch.Tensor] | None = None,
+                           comm=None) -> list[torch.Tensor]:
     """Causal attention with the sequence sharded over the sp ranks.
 
     Per rank: q [B, T/sp, H, Dh], k/v [B, T/sp, Hkv, Dh] (a tp rank's
     heads), ``positions`` [B, T/sp] absolute, ``kv_valid`` [B, T/sp]
-    bool (default all valid).  Returns each rank's output [B, T/sp, H,
+    bool (default all valid).  ``ks``, ``vs``, ``positions`` and
+    ``kv_valid`` hold every sp rank's; with ``comm`` (the sp group across
+    processes) ``qs`` holds this process's run of them only, from rank
+    ``comm.offset``: each query shard visits the KV shards in the same
+    ring order either way.  Returns each query shard's output [B, T/sp, H,
     Dh] in q's dtype on its device."""
-    n = len(qs)
+    n = len(ks)
+    first = 0 if comm is None else comm.offset
     if kv_valid is None:
         kv_valid = [torch.ones(p.shape, dtype=torch.bool, device=p.device)
                     for p in positions]
     window = int(sliding_window)
     outs = []
-    for i, q in enumerate(qs):
+    for i, q in enumerate(qs, start=first):
         dev = q.device
         b, tq, h, dh = q.shape
         hkv = ks[i].shape[2]
@@ -96,7 +104,7 @@ def ring_prefill_attention(qs: list[torch.Tensor], ks: list[torch.Tensor],
                        device=dev)
         l = torch.zeros((b, hkv, g, tq), dtype=torch.float32, device=dev)
         o = torch.zeros((b, tq, hkv, g, dh), dtype=torch.float32, device=dev)
-        qpos = positions[i]
+        qpos = positions[i].to(dev)
         for step in range(n):
             j = (i - step) % n  # the block the ring brings at this step
             m, l, o = _block_accumulate(
@@ -111,14 +119,18 @@ def ring_prefill_attention(qs: list[torch.Tensor], ks: list[torch.Tensor],
 
 def sp_cache_update(k_new: torch.Tensor, v_new: torch.Tensor,
                     positions: torch.Tensor, k_shards: list[torch.Tensor],
-                    v_shards: list[torch.Tensor]) -> None:
+                    v_shards: list[torch.Tensor], comm=None) -> None:
     """Write one token's K/V a slot (k_new/v_new [B, Hkv, Dh], at
     ``positions`` [B]) into the sequence-sharded cache in place (shards
     [B, Hkv, S/sp, Dh], shard s holding positions ``[s * S/sp, (s + 1) *
     S/sp)``): each shard writes only the slots whose position it owns and
     rewrites the others' entries with their own values, as JAX's
-    shard-local body does (no host read, so it runs in a CUDA graph)."""
-    for s, (kc, vc) in enumerate(zip(k_shards, v_shards)):
+    shard-local body does (no host read, so it runs in a CUDA graph).
+    With ``comm`` (the sp group across processes) the shards given are
+    this process's run of them, from shard ``comm.offset``: a position
+    another process owns is written there only."""
+    first = 0 if comm is None else comm.offset
+    for s, (kc, vc) in enumerate(zip(k_shards, v_shards), start=first):
         dev, n = kc.device, kc.shape[2]
         local = positions.to(dev).long() - s * n
         sel = ((local >= 0) & (local < n))[:, None, None]
@@ -130,19 +142,41 @@ def sp_cache_update(k_new: torch.Tensor, v_new: torch.Tensor,
                                        vc[bidx, :, idx])
 
 
+def sp_gather(parts: list[torch.Tensor], comm) -> list[torch.Tensor]:
+    """One tensor a local sp rank -> one a rank of the sp group, in shard
+    order: ``parts`` as they are without ``comm``; across processes each
+    member's run gathered (one ``all_gather``), on the first part's
+    device."""
+    if comm is None:
+        return parts
+    dev = parts[0].device
+    mine = torch.stack([p.to(dev) for p in parts])
+    return [x for member in comm.all_gather(mine) for x in member]
+
+
 def sp_decode_attention(q: torch.Tensor, k_shards: list[torch.Tensor],
                         v_shards: list[torch.Tensor], seq_lens: torch.Tensor,
                         scale: float, *, softcap: float = 0.0,
-                        sliding_window: int = 0) -> torch.Tensor:
+                        sliding_window: int = 0,
+                        comm=None) -> torch.Tensor:
     """Flash-decoding over the sequence-sharded cache: q [B, H, Dh],
     shards [B, Hkv, S/sp, Dh], ``seq_lens`` [B] (the new token included).
-    Returns [B, H, Dh] in q's dtype on q's device."""
+    Returns [B, H, Dh] in q's dtype on q's device.
+
+    With ``comm`` (the sp group across processes) the shards are this
+    process's run of them, from shard ``comm.offset``: each shard's row
+    maxima are gathered (one ``all_gather``) for the pmax, then each
+    shard's ``exp``-sums and their products with V (a second), and the
+    psums add them in shard order on every process, which is the
+    one-process merge bit for bit.  No ``all_reduce``: its order of
+    summation is the backend's."""
     b, h, dh = q.shape
     hkv = k_shards[0].shape[1]
     g = h // hkv
     window = int(sliding_window)
+    first = 0 if comm is None else comm.offset
     logits = []
-    for s, kc in enumerate(k_shards):
+    for s, kc in enumerate(k_shards, start=first):
         dev, n = kc.device, kc.shape[2]
         qg = q.to(dev).float().reshape(b, hkv, g, dh)
         lg = _softcap(torch.einsum("bhgd,bhkd->bhgk", qg, kc.float())
@@ -155,14 +189,18 @@ def sp_decode_attention(q: torch.Tensor, k_shards: list[torch.Tensor],
         logits.append(torch.where(valid[:, None, None, :], lg,
                                   torch.full_like(lg, NEG_INF)))
     m = None  # the pmax: the shards' row maxima, on q's device
-    for lg in logits:
-        mx = lg.amax(dim=-1).to(q.device)
+    for mx in sp_gather([lg.amax(dim=-1).to(q.device) for lg in logits],
+                        comm):
         m = mx if m is None else torch.maximum(m, mx)
-    l = o = None  # the psums, in shard order
+    sums = []  # each shard's P.V and exp-sum, side by side [.., Dh + 1]
     for lg, vc in zip(logits, v_shards):
         p = torch.exp(lg - m.to(lg.device)[..., None])
         ls = p.sum(dim=-1).to(q.device)
         os_ = torch.einsum("bhgk,bhkd->bhgd", p, vc.float()).to(q.device)
+        sums.append(torch.cat([os_, ls[..., None]], dim=-1))
+    l = o = None  # the psums, in shard order
+    for part in sp_gather(sums, comm):
+        os_, ls = part[..., :dh], part[..., dh]
         l = ls if l is None else l + ls
         o = os_ if o is None else o + os_
     out = o / torch.clamp(l, min=1e-20)[..., None]

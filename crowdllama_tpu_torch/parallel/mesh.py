@@ -30,6 +30,7 @@ own devices; :attr:`Mesh.devices` are those local ranks' devices,
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 
@@ -178,6 +179,15 @@ class Mesh:
         ``fixed`` (0 where not given)."""
         i = AXES.index(axis)
         return [self.rank(**{**fixed, axis: c}) for c in range(self.shape[i])]
+
+    def axis_groups(self, axis: str) -> list[list[int]]:
+        """Every group of ranks along ``axis``, one for each setting of
+        the other coordinates (in row-major order), each in axis order."""
+        i = AXES.index(axis)
+        return [self.ranks_along(axis, **dict(zip(AXES, c)))
+                for c in itertools.product(*(
+                    range(1 if j == i else n)
+                    for j, n in enumerate(self.shape)))]
 
     def device(self, **coords: int) -> torch.device:
         """The device of the rank at ``coords`` (0 where not given), which

@@ -30,10 +30,11 @@ Process groups, chosen once at start and logged:
   devices, and gloo when any two of them share a device (NCCL refuses
   two ranks on one GPU) or the ranks sit on the CPU
   (:func:`device_backend`).  The rule is decided from the devices, never
-  by trying NCCL first.  Every device collective is an ``all_reduce``,
-  which both backends take on CUDA tensors, so no tensor is staged
-  through the host for it; a CUDA tensor handed to a host collective is
-  copied to the host explicitly, and each such copy is counted
+  by trying NCCL first.  The device collectives are ``all_reduce``,
+  ``all_gather`` and ``broadcast`` (:class:`AxisComm`), which both
+  backends take on CUDA tensors, so no tensor is staged through the host
+  for them; a CUDA tensor handed to a host collective is copied to the
+  host explicitly, and each such copy is counted
   (``stats()["host_copies"]``).
 
 Counters (:func:`stats`, :func:`reset_stats`): frames and their bytes and
@@ -288,39 +289,85 @@ def _group(ranks: tuple[int, ...], backend: str):
 
 class AxisComm:
     """The cross-process half of one mesh axis's collectives: the group
-    of the processes that hold ranks of this process's axis group.
-    ``offset`` is how many of the axis's ranks lie in earlier processes
-    (where this process's ranks start along the axis), ``size`` the
-    axis's rank count."""
+    of the processes that hold ranks of this process's axis group, in
+    process order (``processes``; ``index`` is this process's place
+    there).  ``offset`` is how many of the axis's ranks lie in earlier
+    processes (where this process's ranks start along the axis), ``size``
+    the axis's rank count; each process holds ``size /
+    len(processes)`` of them (a process's ranks are a box of the mesh).
+
+    Every operation is one collective over the group, which every member
+    must make, in the same order: :meth:`all_reduce` (the tp sums, the
+    ep combine), :meth:`all_gather` (the sp blocks and partial softmax
+    sums, the pp hand-off) and :meth:`broadcast` (the last pp stage's
+    activations).  The gather and the broadcast move the tensor's bytes
+    (any dtype, exact); the sum takes the tensor's own dtype."""
 
     def __init__(self, group, processes: tuple[int, ...], offset: int,
-                 size: int, backend: str):
+                 size: int, backend: str, index: int):
         self.group = group
         self.processes = processes
         self.offset = offset
         self.size = size
         self.backend = backend
+        self.index = index
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the group's processes, in place; returns it.  On
-        CUDA the collective is timed by two events on the current stream
-        (read in :func:`stats`), so the host never waits for it here."""
+    @property
+    def local(self) -> int:
+        """The axis's ranks each member process holds."""
+        return self.size // len(self.processes)
+
+    def _timed(self, t: torch.Tensor, nbytes: int, op) -> None:
+        """Run the collective ``op()`` on ``t``'s device and count it.  On
+        CUDA it is timed by two events on the current stream (read in
+        :func:`stats`), so the host never waits for it here."""
         if t.device.type == "cuda":
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-            _dist().all_reduce(t, group=self.group)
+            op()
             ev[1].record()
             _EVENTS.append(ev)
             if len(_EVENTS) > 256:
                 _fold_events(block=False)
         else:
             t0 = time.perf_counter()
-            _dist().all_reduce(t, group=self.group)
+            op()
             _STATS["device_s"] += time.perf_counter() - t0
         _STATS["device_calls"] += 1
-        _STATS["device_bytes"] += t.numel() * t.element_size()
+        _STATS["device_bytes"] += nbytes
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the group's processes, in place; returns it."""
+        self._timed(t, t.numel() * t.element_size(),
+                    lambda: _dist().all_reduce(t, group=self.group))
         return t
+
+    def all_gather(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every member's ``t`` (the same shape and dtype everywhere), in
+        member order, on ``t``'s device: bit for bit what each sent."""
+        buf = _as_bytes(t)
+        parts = [torch.empty_like(buf) for _ in self.processes]
+        self._timed(t, buf.numel() * len(parts),
+                    lambda: _dist().all_gather(parts, buf, group=self.group))
+        return [p.view(t.dtype).view(t.shape) for p in parts]
+
+    def broadcast(self, t: torch.Tensor, member: int) -> torch.Tensor:
+        """``t`` as member ``member`` holds it, written into ``t`` in
+        place on every member; returns it."""
+        buf = _as_bytes(t)
+        src = self.processes[member]
+        self._timed(t, buf.numel(),
+                    lambda: _dist().broadcast(buf, src=src, group=self.group))
+        if buf.data_ptr() != t.data_ptr():
+            t.copy_(buf.view(t.dtype).view(t.shape))
+        return t
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes as a flat uint8 tensor (a view when ``t`` is
+    contiguous): every backend moves uint8, whatever ``t``'s dtype."""
+    return t.contiguous().view(-1).view(torch.uint8)
 
 
 def _fold_events(block: bool) -> None:
@@ -357,5 +404,6 @@ def axis_comm(mesh, axis_ranks: list[list[int]], devices) -> AxisComm | None:
         if mesh.process_index in procs:
             offset = sum(1 for r in ranks
                          if mesh.process_of(r) < mesh.process_index)
-            mine = AxisComm(g, procs, offset, len(ranks), backend)
+            mine = AxisComm(g, procs, offset, len(ranks), backend,
+                            procs.index(mesh.process_index))
     return mine

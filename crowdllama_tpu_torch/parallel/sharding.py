@@ -35,7 +35,9 @@ rank from one process, so it writes them out:
 - :func:`vocab_gather`: the gather of vocab-sharded logits;
 - the ep combine: ``models/transformer.py _expert_ffn`` takes each
   bank's rows from its rank and the per-token sum keeps the one-device
-  order, ascending by expert (``_moe_sorted``).
+  order, ascending by expert (``_moe_sorted``); across processes the
+  processes' zero-masked rows are summed once over the ep group (exact:
+  the banks' rows are disjoint).
 
 Each reduction returns its single input as it is when there is one shard,
 so a one-device model (a list of one parameter dict) runs no extra
@@ -52,7 +54,12 @@ processes (one fp32 ``all_reduce``; the vocab-sharded embedding and
 logits are written into zeros of the full width first, so their sums
 stay exact).  With two processes of one rank each the sum is the one
 addition the one-process loop makes, so the result is bit-identical;
-with more ranks a process the local sums are added first.
+with more ranks a process the local sums are added first.  A pp, sp or
+ep group may span processes as well: :func:`rank_groups` then holds the
+(dp, pp, sp) groups of this process's coordinates only, each with the
+dense leaves of its first local ep rank and the :class:`ExpertBanks` of
+its local ep ranks (``parallel/pipeline.py``, ``ops/ring.py`` and
+``models/transformer.py`` write out the collectives).
 """
 
 from __future__ import annotations
@@ -203,13 +210,18 @@ class ExpertBanks:
     """An expert leaf sharded on ep: each ep rank's bank (``[..., E/ep,
     ...]``, a tensor or a ``QTensor``) on its device, in rank order.
     Indexing takes the leading axes of every bank (a layer of a stacked
-    leaf); ``device`` is the first bank's."""
+    leaf); ``device`` is the first bank's.  When ep spans processes the
+    banks are this process's, from ep rank ``first``, and ``comm`` is
+    the ep group's ``AxisComm`` the combine sums over."""
 
-    def __init__(self, banks):
+    def __init__(self, banks, first: int = 0, comm=None):
         self.banks = tuple(banks)
+        self.first = first
+        self.comm = comm
 
     def __getitem__(self, idx) -> "ExpertBanks":
-        return ExpertBanks(b[idx] for b in self.banks)
+        return ExpertBanks((b[idx] for b in self.banks), self.first,
+                           self.comm)
 
     def __len__(self) -> int:
         return len(self.banks)
@@ -272,16 +284,19 @@ def like(group, items: list) -> list:
     return out
 
 
-def rank_groups(shards: list[Params], mesh: Mesh, comm=None) -> dict:
+def rank_groups(shards: list[Params], mesh: Mesh, comm=None,
+                ep_comm=None) -> dict:
     """The tp lists of parameter dicts the forward functions take, keyed
     by (dp, pp, sp) coordinates, for the groups this process holds ranks
     of (``shards`` are this process's ranks, as :func:`shard_params`
-    returns them): the dicts of the tp ranks at ep 0, with each expert
-    leaf replaced by the :class:`ExpertBanks` of the ep ranks at the same
-    (dp, pp, sp, tp) when ep > 1.  Attention and the dense leaves run once
-    over ep (JAX computes them on every ep rank, the same function), so
-    the other ep ranks' copies of them are not kept.  A group whose tp
-    ranks span processes is a :class:`TPGroup` over ``comm``."""
+    returns them): the dicts of the tp ranks at the first ep rank this
+    process holds, with each expert leaf replaced by the
+    :class:`ExpertBanks` of this process's ep ranks at the same (dp, pp,
+    sp, tp) when ep > 1 (over ``ep_comm`` when the ep group spans
+    processes).  Attention and the dense leaves run once a process over
+    ep (JAX computes them on every ep rank, the same function), so the
+    other ep ranks' copies of them are not kept.  A group whose tp ranks
+    span processes is a :class:`TPGroup` over ``comm``."""
     first = mesh.local_ranks.start
 
     def local(r):
@@ -293,17 +308,18 @@ def rank_groups(shards: list[Params], mesh: Mesh, comm=None) -> dict:
             for s in range(mesh.sp):
                 tps = []
                 for t in range(mesh.tp):
-                    r = mesh.rank(d, p, s, 0, t)
-                    if not mesh.is_local(r):
+                    eps = [r for r in mesh.ranks_along(AXIS_EP, dp=d, pp=p,
+                                                       sp=s, tp=t)
+                           if mesh.is_local(r)]
+                    if not eps:
                         continue
-                    base = local(r)
+                    base = local(eps[0])
                     if mesh.ep > 1 and "router" in base["layers"]:
                         layers = dict(base["layers"])
                         for k in EXPERT_LEAVES:
                             layers[k] = ExpertBanks(
-                                local(e)["layers"][k] for e in
-                                mesh.ranks_along(AXIS_EP, dp=d, pp=p, sp=s,
-                                                 tp=t))
+                                (local(e)["layers"][k] for e in eps),
+                                mesh.coords(eps[0])[3], ep_comm)
                         base = {**base, "layers": layers}
                     tps.append(base)
                 if not tps:

@@ -1,11 +1,14 @@
 """The port's static analysis (``crowdllama_tpu_torch/analysis/``): the
-port's tree is clean under all three checkers within the 30 s budget
+port's tree is clean under all four checkers within the 30 s budget
 with zero waivers; each rule fires on a seeded violation and stays quiet
 on the idiom it must allow; ``async_hotpath`` finds what the JAX
 package's checker finds on the same source laid out under either
 package; the FFI checker reads all 17 declarations of
 ``native/__init__.py`` and reports each of its four rules on a drifted
-copy; the CLI's exit codes and JSON."""
+copy; ``contracts`` fires each of its codes on a seeded violation as the
+JAX package's checker does on the same violation in its own tree, reads
+the port's tree clean and skips the golden ``crowdllama_engine`` token;
+the CLI's exit codes and JSON."""
 
 import json
 import shutil
@@ -18,8 +21,14 @@ import pytest
 from crowdllama_tpu.analysis.async_hotpath import (
     check_async_hotpath as jax_async_hotpath,
 )
-from crowdllama_tpu_torch.analysis import load_baseline, repo_root, run_all
-from crowdllama_tpu_torch.analysis import torch_purity
+from crowdllama_tpu.analysis import contracts as jax_contracts
+from crowdllama_tpu_torch.analysis import (
+    contracts,
+    load_baseline,
+    repo_root,
+    run_all,
+    torch_purity,
+)
 from crowdllama_tpu_torch.analysis.__main__ import main as cli_main
 from crowdllama_tpu_torch.analysis.async_hotpath import check_async_hotpath
 from crowdllama_tpu_torch.analysis.base import (
@@ -333,6 +342,213 @@ def test_ffi_fails_when_it_reads_no_declarations(tmp_path):
     assert len([f for f in found if f.code == "ffi-undeclared"]) == 18
 
 
+# ------------------------------------------------------------ contracts
+
+CONFIG_SEED = """
+    import os
+
+
+    class Configuration:
+        alpha: int = 1
+        beta: str = ""
+        gamma: int = 2
+
+        @classmethod
+        def from_environment(cls, **overrides):
+            env = os.environ
+            cfg = cls()
+            cfg.alpha = int(env.get("CROWDLLAMA_TPU_ALPHA", cfg.alpha))
+            cfg.gamma = int(env.get("CROWDLLAMA_TPU_GAMMA", cfg.gamma))
+            return cfg
+
+        @classmethod
+        def add_flags(cls, ap):
+            ap.add_argument("--alpha", type=int)
+            ap.add_argument("--gamma", type=int)
+            ap.add_argument("--delta", type=int)
+
+        @classmethod
+        def from_flags(cls, args):
+            cfg = cls.from_environment()
+            for name in ("alpha",):
+                setattr(cfg, name, getattr(args, name))
+            return cfg
+"""
+
+# The same violations in the port's idiom: the environment and the flags
+# read through class tables.
+CONFIG_TABLE_SEED = """
+    import os
+
+
+    class Configuration:
+        alpha: int = 1
+        beta: str = ""
+        gamma: int = 2
+
+        _ENV = {"alpha": "CROWDLLAMA_TPU_ALPHA",
+                "gamma": "CROWDLLAMA_TPU_GAMMA"}
+        _FLAG_FIELDS = ("alpha",)
+
+        @classmethod
+        def from_environment(cls, **overrides):
+            cfg = cls()
+            for name, var in cls._ENV.items():
+                if var in os.environ:
+                    setattr(cfg, name, int(os.environ[var]))
+            return cfg
+
+        @staticmethod
+        def add_flags(ap):
+            ap.add_argument("--alpha", type=int)
+            ap.add_argument("--gamma", type=int)
+            ap.add_argument("--delta", type=int)
+
+        @classmethod
+        def from_flags(cls, args):
+            return cls.from_environment(
+                **{k: getattr(args, k) for k in cls._FLAG_FIELDS})
+"""
+
+METRICS_SEED = """
+    def expose(key):
+        lines = ["# TYPE crowdllama_documented_total counter",
+                 "# TYPE crowdllama_undocumented_total counter"]
+        lines.append(f"crowdllama_dyn_{key}_total 1")
+        return lines
+"""
+
+FAULT_TEST_SEED = """
+    import pytest
+
+    from PKG.testing.faults import FaultRule
+
+
+    def test_seed():
+        FaultRule(site="nope.site")
+        with pytest.raises(ValueError):
+            FaultRule(site="deliberately.bad")
+"""
+
+
+def _codes(findings) -> set:
+    return {(f.code, f.symbol) for f in findings}
+
+
+def _laid_out(tmp_path, files):
+    """``files`` ({relpath: source}, ``PKG`` standing for the package and
+    ``TEST`` for a test module's name) under the port's and the JAX
+    package's layouts: (port root, JAX root)."""
+    roots = []
+    for pkg, test in (("crowdllama_tpu_torch", "test_torch_fx"),
+                      ("crowdllama_tpu", "test_fx")):
+        roots.append(_fake_repo(tmp_path / pkg, {
+            rel.replace("PKG", pkg).replace("TEST", test):
+            text.replace("PKG", pkg) for rel, text in files.items()}))
+    return roots
+
+
+def test_contract_config_rules_fire_as_the_jax_checker(tmp_path):
+    port, jax = _laid_out(tmp_path, {"PKG/config.py": CONFIG_SEED})
+    got = _codes(contracts.check_config_parity(port))
+    assert got == _codes(jax_contracts.check_config_parity(jax)) == {
+        ("config-no-env", "beta"), ("config-unknown-dest", "delta"),
+        ("config-flag-unconsumed", "gamma")}
+    table = _fake_repo(tmp_path / "table", {
+        "crowdllama_tpu_torch/config.py": CONFIG_TABLE_SEED})
+    assert _codes(contracts.check_config_parity(table)) == got
+
+
+def test_contract_metrics_rules_fire_as_the_jax_checker(tmp_path):
+    port, jax = _laid_out(tmp_path, {
+        "PKG/obs/fx.py": METRICS_SEED,
+        "docs/OBSERVABILITY.md": (
+            "`crowdllama_documented_total` and the `crowdllama_dyn_fast`\n"
+            "family; `crowdllama_vanished_total` (no longer emitted).\n")})
+    got = _codes(contracts.check_metrics_docs(port))
+    assert got == _codes(jax_contracts.check_metrics_docs(jax)) == {
+        ("metrics-undocumented", "crowdllama_undocumented_total"),
+        ("metrics-stale-doc", "crowdllama_vanished_total")}
+
+
+def test_contract_fault_site_rules_fire_as_the_jax_checker(tmp_path):
+    from crowdllama_tpu.testing.faults import FAULT_SITES as JAX_SITES
+    from crowdllama_tpu_torch.testing.faults import FAULT_SITES
+
+    assert set(FAULT_SITES) == set(JAX_SITES)
+    inject_all = "\n".join(
+        f'    await faults.inject("{s}")' for s in FAULT_SITES)
+    port, jax = _laid_out(tmp_path, {
+        "PKG/fx.py": ("from PKG.testing import faults\n\n\n"
+                      "async def run():\n"
+                      f"{inject_all}\n"
+                      '    await faults.inject("bogus.site")\n'),
+        "tests/TEST.py": FAULT_TEST_SEED})
+    got = _codes(contracts.check_fault_sites(port))
+    assert got == _codes(jax_contracts.check_fault_sites(jax)) == {
+        ("fault-site-unregistered", "bogus.site"),
+        ("fault-site-unknown-in-test", "nope.site")}
+    # Without the instrumented module every registered site is dead.
+    (Path(port) / "crowdllama_tpu_torch" / "fx.py").unlink()
+    dead = _codes(contracts.check_fault_sites(port))
+    assert dead == {("fault-site-unknown-in-test", "nope.site")} | {
+        ("fault-site-uninstrumented", s) for s in FAULT_SITES}
+    # The JAX package's tests build the JAX package's rules: not read.
+    _fake_repo(Path(port), {
+        "tests/test_fx.py": 'FaultRule(site="jax.only.site")\n'})
+    assert _codes(contracts.check_fault_sites(port)) == dead
+
+
+def test_contract_oneof_rules_fire_as_the_jax_checker(tmp_path):
+    from crowdllama_tpu.core import llama_v1_pb2 as pb
+
+    arms = contracts._oneof_arms()
+    assert arms == [f.name for f in
+                    pb.BaseMessage.DESCRIPTOR.oneofs_by_name["message"].fields]
+    assert contracts.RESPONSE_ARMS == jax_contracts.RESPONSE_ARMS
+    requests = [a for a in arms if a not in contracts.RESPONSE_ARMS]
+    drop_build, drop_extract, drop_dispatch = arms[1], arms[0], requests[-1]
+    messages = "\n".join(
+        [f"mk = lambda: BaseMessage({a}=None)" for a in arms
+         if a != drop_build]
+        + [f'WHICH = "{a}"' for a in arms if a != drop_extract])
+    peer = "\n".join(f'ok = which == "{a}"' for a in requests
+                     if a != drop_dispatch)
+    port, jax = _laid_out(tmp_path, {"PKG/core/messages.py": messages,
+                                     "PKG/peer/peer.py": peer})
+    got = _codes(contracts.check_oneof(port))
+    assert got == _codes(jax_contracts.check_oneof(jax)) == {
+        ("oneof-constructor", drop_build), ("oneof-extractor", drop_extract),
+        ("oneof-dispatch", drop_dispatch)}
+
+
+def test_contracts_read_the_ports_tree_clean_with_zero_waivers():
+    """Every contract reads something on the port's tree (none is a
+    no-op) and finds nothing; the baseline waives nothing."""
+    root = repo_root()
+    assert contracts.check_contracts(root) == []
+    assert load_baseline().entries == []
+    assert len(contracts._oneof_arms()) == 14
+    assert len(contracts._inject_sites(root)) >= 10
+    exact, prefixes = contracts.collect_metric_families(root)
+    assert len(exact) > 50
+    assert "crowdllama_request_seconds" in exact
+    assert "crowdllama_engine_" in prefixes
+
+
+def test_the_golden_metrics_fetch_prefix_is_not_a_family():
+    """``crowdllama_engine`` alone, the prefix a golden metrics_fetch frame
+    asks for, is neither collected nor reported; the families that start
+    with it are collected."""
+    golden = (ROOT / "crowdllama_tpu_torch/core/wire_golden.py").read_text()
+    assert '"crowdllama_engine"' in golden
+    exact, prefixes = contracts.collect_metric_families(repo_root())
+    assert "crowdllama_engine" not in exact
+    assert any(f.startswith("crowdllama_engine_") for f in exact)
+    assert not [f for f in contracts.check_metrics_docs(repo_root())
+                if f.symbol == "crowdllama_engine"]
+
+
 # ------------------------------------------------------------------ CLI
 
 
@@ -342,7 +558,7 @@ def test_cli_exit_codes_and_json(tmp_path, capsys):
     assert cli_main(["--format=json"]) == 0
     report = json.loads(capsys.readouterr().out)
     assert report["findings"] == [] and report["checkers"] == [
-        "async-hotpath", "ffi-contract", "torch-purity"]
+        "async-hotpath", "contracts", "ffi-contract", "torch-purity"]
     root = _native_copy(tmp_path, lambda t: t)
     _fake_repo(tmp_path, {"crowdllama_tpu_torch/net/bad.py": """
         import time
@@ -351,12 +567,19 @@ def test_cli_exit_codes_and_json(tmp_path, capsys):
         async def stall():
             time.sleep(1)
     """})
-    assert cli_main(["--root", root, "--format=json"]) == 1
+    assert cli_main(["--root", root, "--checker", "async-hotpath",
+                     "--format=json"]) == 1
     report = json.loads(capsys.readouterr().out)
     assert [(f["checker"], f["code"], f["symbol"])
             for f in report["findings"]] == [
         ("async-hotpath", "blocking-call", "stall")]
     assert cli_main(["--root", root, "--checker", "ffi-contract"]) == 0
+    # A tree without the contracts' anchor files (config.py,
+    # core/messages.py, ...) fails loudly instead of passing unchecked.
+    with pytest.raises(FileNotFoundError):
+        cli_main(["--root", root])
+    with pytest.raises(FileNotFoundError):
+        cli_main(["--root", root, "--checker", "contracts"])
     capsys.readouterr()
     bad = tmp_path / "bad.toml"
     bad.write_text("checker = 3\n")

@@ -17,8 +17,12 @@ against the JAX package's.
   ``process_allgather`` pass through.
 - The mesh layout: process ``p`` holds ranks ``[p*L, (p+1)*L)``; "4x2"
   over 2 x 4 splits along dp, "1x2" over 2 x 1 puts one tp rank in
-  each process; the runner refuses an sp, pp or ep group across
-  processes naming item 8.2b.
+  each process; "1x2x1x1x2" over 2 x 2 a pp stage with its tp ranks,
+  "1x1x2x1x1" an sp shard and "1x2x1" an ep bank in each; the runner
+  refuses a tp group split unevenly ("3x2" over 2 x 3) naming item 8.2b.
+- pp, pp x tp, sp, ep and n-gram speculation on dp across two processes:
+  the fp32 prefill logits, the decode tokens and a decode step's fp32
+  logits equal the one-process runner's on the same mesh bit for bit.
 - The device-collective rule: NCCL only where every process holds its
   own CUDA devices, gloo where processes share one or sit on the CPU.
 - Each process's decode rows, as the readback places them, are where
@@ -120,8 +124,8 @@ _CHILD = textwrap.dedent("""
         res = {"tokens": toks[:, 0].tolist(), "first": int(first),
                "local_dp": runner.local_dp, "local_tp": runner.local_tp,
                "slot_rows": [runner.slot_rows.start, runner.slot_rows.stop],
-               "comm": None if runner.tp_comm is None
-               else runner.tp_comm.backend}
+               "comm": None if "tp" not in runner.comms
+               else runner.comms["tp"].backend}
         if mode == "tp":
             n = len(prompt)
             pos = torch.arange(n)[None]
@@ -231,6 +235,179 @@ def test_tp_across_processes_is_bit_identical_to_one_process(tmp_path,
         np.testing.assert_array_equal(got, want.numpy())
 
 
+# ----------------------------------- sp, pp and ep across the processes
+
+#: mode -> (mesh, CPU ranks a process, model, runner): one pp stage a
+#: process, a stage with both its tp ranks a process, one sp shard a
+#: process, one of tiny-test-moe's two expert banks a process (paged), and
+#: n-gram speculation with one dp rank a process
+ACROSS = {
+    "pp": ("1x2x1x1x1", 1, "tiny-test", "contiguous"),
+    "pp_tp": ("1x2x1x1x2", 2, "tiny-test", "contiguous"),
+    "sp": ("1x2x1x1", 1, "tiny-test", "contiguous"),
+    "ep": ("1x2x1", 1, "tiny-test-moe", "paged"),
+    "spec_dp": ("2x1", 1, "tiny-test", "spec"),
+}
+# The second prompt ends two positions short of the sp shards' boundary
+# (max_seq 64 over sp 2): its decode writes land in both shards.
+_PROMPTS = ((0, list(range(7, 19))), (2, list(range(30, 60))))
+
+
+def across_runner(mode, ckpt, devices):
+    """The fp32 runner of ``mode`` on ``devices`` (this process's, or
+    every rank's in one process)."""
+    from crowdllama_tpu_torch.engine.paged import PagedModelRunner
+    from crowdllama_tpu_torch.engine.runner import ModelRunner
+    from crowdllama_tpu_torch.engine.spec import SpecModelRunner
+    from crowdllama_tpu_torch.engine.weights import load_or_init_params
+    from crowdllama_tpu_torch.models.config import get_config
+
+    mesh, _, model, kind = ACROSS[mode]
+    mcfg = get_config(model, max_context_length=64)
+    cls, kw = {"contiguous": (ModelRunner, {}),
+               "paged": (PagedModelRunner, {"page_size": 16}),
+               "spec": (SpecModelRunner, {"draft_len": 2})}[kind]
+    return cls(mcfg, params=load_or_init_params(mcfg, ckpt,
+                                                dtype=torch.float32),
+               max_slots=4, max_seq=64, mesh_shape=mesh, devices=devices,
+               dtype=torch.float32, **kw)
+
+
+def across_drive(runner) -> dict:
+    """Prefill two prompts into slots 0 and 2 (one a dp rank on "2x1"),
+    catching the fp32 logits each prefill samples its first token from;
+    6 decode steps, gathered over every slot; then one more step's fp32
+    logits of this process's slots."""
+    from crowdllama_tpu_torch.parallel.replicated import gather_tokens
+
+    caught = []
+    real = runner._sample_first
+
+    def catch(logits, *a, **kw):
+        caught.append(logits.float().cpu().numpy())
+        return real(logits, *a, **kw)
+
+    runner._sample_first = catch
+    st = runner.init_state()
+    firsts = []
+    for slot, prompt in _PROMPTS:
+        first, ks, vs, plen = runner.prefill(prompt, 0.0, 1.0, None,
+                                             state=st)
+        st = runner.insert(st, slot, ks, vs, plen, first, 0.0, 1.0,
+                           prompt_tokens=prompt)
+        firsts.append(int(first))
+    toks, st = runner.decode_steps_device(st, 6)
+    toks = gather_tokens(runner, toks)
+    table = None
+    if runner.kv_layout == "paged":
+        runner.pre_decode_check(1)
+        table = runner._table()
+    with torch.inference_mode():
+        step = runner._step_logits(st, table)
+    return {"first": firsts, "tokens": toks.tolist(),
+            "prefill_logits": np.stack(caught),
+            "step_logits": step.float().cpu().numpy(),
+            "rows": [runner.slot_rows.start, runner.slot_rows.stop]}
+
+
+_ACROSS_CHILD = textwrap.dedent("""
+    import json, sys
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    coord, pid, mode, ckpt, out = sys.argv[1:6]
+    from crowdllama_tpu_torch.config import Configuration
+    from crowdllama_tpu_torch.parallel import multihost
+    from test_torch_multihost import ACROSS, across_drive, across_runner
+    assert multihost.initialize_from_config(Configuration(
+        dist_coordinator=coord, dist_num_processes=2,
+        dist_process_id=int(pid)))
+    r = across_runner(mode, ckpt, ["cpu"] * ACROSS[mode][1])
+    res = across_drive(r)
+    for k in ("prefill_logits", "step_logits"):
+        np.save(f"{out}.{k}.npy", res.pop(k))
+    res.update(local=[r.local_dp, r.local_pp, r.local_sp, r.local_ep,
+                      r.local_tp],
+               across=sorted(r.comms),
+               backends=sorted({c.backend for c in r.comms.values()}),
+               stats=multihost.stats())
+    multihost.barrier("done")
+    with open(out, "w") as f:
+        json.dump(res, f)
+    print("MH_OK", flush=True)
+""")
+
+
+@pytest.fixture(scope="module")
+def moe_ckpt(tmp_path_factory):
+    from test_torch_replicated import live_checkpoint
+
+    return live_checkpoint(tmp_path_factory.mktemp("live_moe") / "ckpt",
+                           "tiny-test-moe")
+
+
+@pytest.mark.parametrize("mode", list(ACROSS))
+def test_axes_across_processes_equal_one_process_bit_for_bit(
+        tmp_path, ckpt, moe_ckpt, mode):
+    """Two processes over gloo, each holding a pp stage (with its tp
+    ranks), an sp shard, an ep bank or a dp rank under speculation: the
+    fp32 prefill logits, the decode tokens and one more step's fp32
+    logits equal the one-process runner's on the same mesh bit for bit
+    (the pp hand-off and the sp blocks move bytes, the sp decode merges
+    the gathered partial sums in the one-process order, the ep combine
+    adds zeros)."""
+    mesh, ndev, model, _ = ACROSS[mode]
+    path = moe_ckpt if model == "tiny-test-moe" else ckpt
+    script = tmp_path / "child.py"
+    script.write_text(_ACROSS_CHILD)
+    coord = _free_addr()
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([str(REPO), str(REPO / "tests")])}
+    env.pop("JAX_PLATFORMS", None)
+    outs = [tmp_path / f"out_{i}.json" for i in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), coord, str(i), mode, path,
+         str(outs[i])], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TIMEOUT)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0 and "MH_OK" in log, \
+            f"proc {i} failed:\n{log[-3000:]}"
+    got = [json.loads(o.read_text()) for o in outs]
+    one = across_drive(across_runner(mode, path, ["cpu"] * (2 * ndev)))
+    axis = {"pp": "pp", "pp_tp": "pp", "sp": "sp", "ep": "ep"}.get(mode)
+    for i, (res, o) in enumerate(zip(got, outs)):
+        assert res["across"] == ([axis] if axis else [])
+        assert res["backends"] == (["gloo"] if axis else [])
+        assert res["stats"]["host_copies"] == 0
+        if axis:
+            assert res["stats"]["device_calls"] > 0
+        assert res["first"] == one["first"] and res["tokens"] == one[
+            "tokens"], (i, res, one)
+        np.testing.assert_array_equal(np.load(f"{o}.prefill_logits.npy"),
+                                      one["prefill_logits"])
+        rows = slice(*res["rows"])
+        np.testing.assert_array_equal(np.load(f"{o}.step_logits.npy"),
+                                      one["step_logits"][rows])
+    local = [res["local"] for res in got]
+    if mode in ("pp", "pp_tp"):
+        tp = [0, 1] if mode == "pp_tp" else [0]
+        assert local == [[[0], [0], [0], [0], tp], [[0], [1], [0], [0], tp]]
+    elif mode == "sp":
+        assert local == [[[0], [0], [0], [0], [0]], [[0], [0], [1], [0], [0]]]
+    elif mode == "ep":
+        assert local == [[[0], [0], [0], [0], [0]], [[0], [0], [0], [1], [0]]]
+    else:
+        assert local == [[[0], [0], [0], [0], [0]], [[1], [0], [0], [0], [0]]]
+        assert [res["rows"] for res in got] == [[0, 2], [2, 4]]
+
+
 # -------------------------------------------------------- without a group
 
 def test_toolkit_without_a_process_group(monkeypatch):
@@ -304,9 +481,6 @@ def test_mesh_places_each_process_on_its_row_major_ranks(spec, n, local):
 
 
 @pytest.mark.parametrize("spec,local", [
-    ("1x2x1x1x2", 2),   # a pp group across the processes
-    ("1x1x2x1x1", 1),   # sp
-    ("1x2x1", 1),       # ep
     ("3x2", 3),         # a tp group split unevenly (ranks 2, 3)
 ])
 def test_runner_refuses_groups_across_processes(monkeypatch, spec, local):
@@ -316,11 +490,43 @@ def test_runner_refuses_groups_across_processes(monkeypatch, spec, local):
 
     monkeypatch.setattr(multihost, "process_count", lambda: 2)
     monkeypatch.setattr(multihost, "process_index", lambda: 0)
-    model = "tiny-test-moe" if spec == "1x2x1" else "tiny-test"
-    cfg = get_config(model, max_context_length=64)
+    cfg = get_config("tiny-test", max_context_length=64)
     with pytest.raises(ValueError, match="item 8.2b"):
         ModelRunner(cfg, max_slots=2, max_seq=64, mesh_shape=spec,
                     devices=["cpu"] * local, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("spec,local,model,want", [
+    # a pp stage with both its tp ranks a process
+    ("1x2x1x1x2", 2, "tiny-test",
+     [([0], [0], [0], [0], [0, 1]), ([0], [1], [0], [0], [0, 1])]),
+    # one sp shard a process
+    ("1x1x2x1x1", 1, "tiny-test",
+     [([0], [0], [0], [0], [0]), ([0], [0], [1], [0], [0])]),
+    # one expert bank a process
+    ("1x2x1", 1, "tiny-test-moe",
+     [([0], [0], [0], [0], [0]), ([0], [0], [0], [1], [0])]),
+])
+def test_runner_places_groups_across_processes(monkeypatch, spec, local,
+                                                model, want):
+    """Each process's indices along every axis, its dp and tp lists and
+    its slot rows: a pp, sp or ep group across the processes leaves every
+    slot to every process (no dp split)."""
+    from crowdllama_tpu_torch.engine.runner import ModelRunner
+    from crowdllama_tpu_torch.models.config import get_config
+    from crowdllama_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    cfg = get_config(model, max_context_length=64)
+    for p in range(2):
+        monkeypatch.setattr(multihost, "process_index", lambda p=p: p)
+        monkeypatch.setattr(multihost, "axis_comm", lambda *a: None)
+        r = ModelRunner(cfg, max_slots=2, max_seq=64, mesh_shape=spec,
+                        devices=["cpu"] * local, dtype=torch.float32)
+        assert tuple(r._process_share(p)) == want[p]
+        assert (r.local_dp, r.local_tp) == (want[p][0], want[p][4])
+        assert r.slot_rows == slice(0, 2)
+        assert [r.process_slot_rows(q) for q in range(2)] == [slice(0, 2)] * 2
 
 
 @pytest.mark.parametrize("spec,local", [("4x2", 4), ("2x1", 1),

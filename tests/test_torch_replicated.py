@@ -13,10 +13,15 @@ the logits.
 
 - Streams: on contiguous "4x2" (dp across the processes, 4 CPU ranks a
   process), paged "1x2" (tp across them, one rank a process; prefix
-  cache and embeddings too) and paged "1x2" with ngram and draft
-  speculation, the port's greedy streams are token-identical to JAX's
-  two-process cluster and to the port's one-process engine on the same
-  mesh.  JAX's cluster runs once per mesh, in a module fixture.
+  cache and embeddings too), paged "1x2" with ngram and draft
+  speculation, contiguous "1x2x1x1x1" (one pp stage a process),
+  "1x2x1x1x2" (a stage with both its tp ranks a process), "1x2x1x1"
+  (one sp shard a process), paged "1x2x1" on tiny-test-moe (one of its
+  two expert banks a process) and contiguous "2x1" with ngram
+  speculation (one dp rank a process, both verifying at once), the
+  port's greedy streams are token-identical to JAX's two-process
+  cluster and to the port's one-process engine on the same mesh.  JAX's
+  cluster runs once per mesh, in a module fixture.
 - Faults, as JAX's ``tests/test_replicated.py``: a deterministic
   dispatch fault on both processes leaves the cluster serving; a
   follower-local failure terminates the follower; a ValueError is
@@ -49,7 +54,8 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 TIMEOUT = 240
 
-# name -> (Configuration fields, virtual devices a process, mesh ranks)
+# name -> (Configuration fields, virtual devices a process).  The model is
+# tiny-test unless the fields name another.
 SCENARIOS = {
     "contig": (dict(max_batch_slots=4, max_context_length=128,
                     mesh_shape="4x2", decode_chunk=4, kv_layout="paged"),
@@ -64,7 +70,30 @@ SCENARIOS = {
                    mesh_shape="1x2", decode_chunk=2, kv_layout="paged",
                    kv_page_size=32, spec_decode="draft",
                    spec_draft_model="tiny-test"), 1),
+    # One pipeline stage a process (pp), a stage with both its tp ranks
+    # a process (pp x tp), one sequence shard a process (sp), one expert
+    # bank of tiny-test-moe's 4 experts a process (ep), and n-gram
+    # speculation with one dp rank a process.
+    "pp": (dict(max_batch_slots=4, max_context_length=128,
+                mesh_shape="1x2x1x1x1", decode_chunk=4,
+                kv_layout="contiguous"), 1),
+    "pp_tp": (dict(max_batch_slots=4, max_context_length=128,
+                   mesh_shape="1x2x1x1x2", decode_chunk=4,
+                   kv_layout="contiguous"), 2),
+    "sp": (dict(max_batch_slots=4, max_context_length=128,
+                mesh_shape="1x2x1x1", decode_chunk=4,
+                kv_layout="contiguous"), 1),
+    "ep": (dict(model="tiny-test-moe", max_batch_slots=4,
+                max_context_length=128, mesh_shape="1x2x1", decode_chunk=4,
+                kv_layout="paged", kv_page_size=32), 1),
+    "spec_dp": (dict(max_batch_slots=4, max_context_length=128,
+                     mesh_shape="2x1", decode_chunk=2,
+                     kv_layout="contiguous", spec_decode="ngram"), 1),
 }
+#: the scenarios of meshes whose sp, pp or ep group, or whose speculation
+#: on dp, crosses the processes
+ACROSS = ("pp", "pp_tp", "sp", "ep", "spec_dp")
+
 
 # The leader's traffic: two concurrent greedy streams, then the first
 # again (it must repeat), then a one-token request with another waiting
@@ -111,6 +140,12 @@ _TRAFFIC = textwrap.dedent("""
             again = await one("ababababab", 8)
             assert again == out["abab"], (again, out["abab"])
             return out
+        if scenario == "spec_dp":  # both dp ranks verify at once
+            out["abab"], out["xyz"] = await asyncio.gather(
+                one("ababababab", 8), one("xyzxyzxyzxyz", 8))
+            again = await one("ababababab", 8)
+            assert again == out["abab"], (again, out["abab"])
+            return out
         out["a"], out["b"] = await asyncio.gather(one("alpha beta", 12),
                                                   one("gamma", 12))
         again = await one("alpha beta", 12)
@@ -152,9 +187,10 @@ _CHILD = textwrap.dedent("""
         from crowdllama_tpu_torch.config import Configuration
         from crowdllama_tpu_torch.parallel import multihost
         extra = {"device": "cpu"}
+    fields.setdefault("model", "tiny-test")
     cfg = Configuration(dist_coordinator=coord, dist_num_processes=2,
-                        dist_process_id=int(pid), model="tiny-test",
-                        model_path=ckpt, **fields, **extra)
+                        dist_process_id=int(pid), model_path=ckpt, **fields,
+                        **extra)
     assert multihost.initialize_from_config(cfg) is True
     assert multihost.process_count() == 2
     assert multihost.is_leader() == (pid == "0")
@@ -238,16 +274,16 @@ def _ok(outs, rcs):
         outs[1][-2000:]
 
 
-def live_checkpoint(path) -> str:
-    """Write the live permutation checkpoint both packages load into
-    ``path``; returns it as a string."""
+def live_checkpoint(path, model: str = "tiny-test") -> str:
+    """Write the live permutation checkpoint of ``model`` both packages
+    load into ``path``; returns it as a string."""
     import jax.numpy as jnp
 
     from crowdllama_tpu.engine.weights import _flatten_params, save_params
     from crowdllama_tpu.models.config import get_config as j_get_config
     from crowdllama_tpu.testing.modelgen import permutation_params
 
-    jcfg = j_get_config("tiny-test", max_context_length=256)
+    jcfg = j_get_config(model, max_context_length=256)
     flat = {k: np.asarray(v, np.float32) for k, v in
             _flatten_params(permutation_params(jcfg)).items()}
     rng = np.random.default_rng(3)
@@ -273,14 +309,26 @@ def ckpt(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def jax_streams(ckpt, tmp_path_factory):
+def moe_ckpt(tmp_path_factory):
+    return live_checkpoint(tmp_path_factory.mktemp("live_moe") / "ckpt",
+                           "tiny-test-moe")
+
+
+def _ckpt_of(scenario, ckpt, moe_ckpt) -> str:
+    model = SCENARIOS[scenario][0].get("model", "tiny-test")
+    return moe_ckpt if model == "tiny-test-moe" else ckpt
+
+
+@pytest.fixture(scope="module")
+def jax_streams(ckpt, moe_ckpt, tmp_path_factory):
     """JAX's two-process cluster, once per mesh (lazily)."""
     cache: dict = {}
 
     def get(scenario):
         if scenario not in cache:
             tmp = tmp_path_factory.mktemp(f"jax_{scenario}")
-            res, outs, rcs = _cluster(tmp, "jax", scenario, ckpt)
+            res, outs, rcs = _cluster(tmp, "jax", scenario,
+                                      _ckpt_of(scenario, ckpt, moe_ckpt))
             _ok(outs, rcs)
             cache[scenario] = res
         return cache[scenario]
@@ -298,8 +346,8 @@ async def _one_process(ckpt, scenario):
     n = int(np.prod([int(a) for a in fields["mesh_shape"].split("x")]))
     ns: dict = {}
     exec(_TRAFFIC, ns)
-    eng = TorchEngine(Configuration(model="tiny-test", model_path=ckpt,
-                                    device="cpu", **fields),
+    eng = TorchEngine(Configuration(**{"model": "tiny-test", **fields},
+                                    model_path=ckpt, device="cpu"),
                       devices=["cpu"] * n)
     await eng.start()
     try:
@@ -308,19 +356,27 @@ async def _one_process(ckpt, scenario):
         await eng.stop()
 
 
-@pytest.mark.parametrize("scenario", ["contig", "paged", "ngram", "draft"])
+#: the axes whose groups cross the processes, by scenario
+AXES_ACROSS = {"contig": [], "paged": ["tp"], "ngram": ["tp"],
+               "draft": ["tp"], "pp": ["pp"], "pp_tp": ["pp"], "sp": ["sp"],
+               "ep": ["ep"], "spec_dp": []}
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
 async def test_two_process_streams_match_jax_and_one_process(
-        tmp_path, ckpt, jax_streams, scenario):
-    res, outs, rcs = _cluster(tmp_path, "torch", scenario, ckpt)
+        tmp_path, ckpt, moe_ckpt, jax_streams, scenario):
+    path = _ckpt_of(scenario, ckpt, moe_ckpt)
+    res, outs, rcs = _cluster(tmp_path, "torch", scenario, path)
     _ok(outs, rcs)
     mesh = res.pop("mesh")
     assert mesh["processes"] == 2 and mesh["frames"] == "gloo"
-    # tp across the processes reduces over gloo (CPU ranks); dp alone
-    # needs no device collective.
-    assert mesh["device_collectives"] == (None if scenario == "contig"
-                                          else "gloo")
+    # tp, pp, sp and ep across the processes collect over gloo (CPU
+    # ranks); dp alone needs no device collective.
+    assert mesh["axes_across"] == AXES_ACROSS[scenario]
+    assert mesh["device_collectives"] == (
+        "gloo" if AXES_ACROSS[scenario] else None)
     want = jax_streams(scenario)
-    one = await _one_process(ckpt, scenario)
+    one = await _one_process(path, scenario)
     embed = res.pop("embed", None)
     assert res == {k: v for k, v in want.items() if k != "embed"}
     assert res == {k: v for k, v in one.items() if k != "embed"}
