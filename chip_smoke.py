@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase multiprocess   # that phase alone
+    python3 chip_smoke.py --phase gemma2   # the Dh-256 kernel line and
+                                           # engine_gemma2_9b alone
 
 Phases, each printing one JSON line:
 
 1. device: the card's name, compute capability (must be 9.0) and
    ``nvidia-smi`` name/power limit;
 2. build: compiles every kernel from ``crowdllama_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once; each kernel at head dims 64 and 128)
-   and reports the seconds it took, each instantiation's registers and
-   spills from ``ptxas -v``, and each entry's dynamic shared memory and
-   blocks per SM at the serving groups (8 query heads a kv head at Dh 64,
-   4 at Dh 128);
+   ``nvcc`` per source, all at once; each attention kernel at head dims
+   64, 128 and 256, the fp32 entries at 64 and 128) and reports the
+   seconds it took, each instantiation's registers and spills from
+   ``ptxas -v``, and each entry's dynamic shared memory and blocks per SM
+   at the serving groups (8 query heads a kv head at Dh 64, 4 at Dh 128,
+   2 at Dh 256);
    native: the native data plane (``crowdllama_tpu_torch/native``)
    built from the checkout's C++ source with g++ (a failure is an
    error), then seal and open of one 64 KiB and one 256 KiB (``CHUNK``)
@@ -22,11 +25,14 @@ Phases, each printing one JSON line:
 3. threefry: the port's threefry keys and bits, and its samplers on logits
    on the card (rows with tied logits too), against golden vectors
    captured from JAX (``engine/prng_golden.py``);
-4. kernels, once at Dh 64 over TinyLlama's 4 kv heads and once at Dh 128
-   over Llama-3-8B's 8 (A also at qwen2.5-7b's group of 7, 28 / 4 heads,
-   at both): each hand-written kernel (A prefill, B paged decode, C ragged
-   paged, D contiguous decode, E one prefill chunk over its slot's pages,
-   F paged decode on tensor-parallel shares of the heads, and B, C, E and
+4. kernels, once at Dh 64 over TinyLlama's 32 / 4 heads, once at Dh 128
+   over Llama-3-8B's 32 / 8 and once at Dh 256 over Gemma-2-9b's 16 / 8
+   (A also at qwen2.5-7b's group of 7, 28 / 4 heads, at all three; at Dh
+   256 the fp32 entries, compiled at 64 and 128 only, must be refused
+   naming ROADMAP Queue 2 item 11): each hand-written kernel (A prefill,
+   B paged decode, C ragged paged, D contiguous decode, E one prefill
+   chunk over its slot's pages, F paged decode on tensor-parallel shares
+   of the heads, and B, C, E and
    F on int8 pools with bf16 scales from ``quantize_kv``) against its
    plain PyTorch version on the same inputs — at the serving shapes
    TinyLlama-1.1B gives it, and at small shapes with softcap, a sliding
@@ -344,6 +350,18 @@ Phases, each printing one JSON line:
    one card (F) and tp=2 on int8 pools (F-int8), 3 streams of 16 tokens
    each, one decode step (and on bf16 paged pools a prefill and a ragged
    step) vs the plain versions; the cut is printed as ``reduced``;
+13b. engine_gemma2_9b: Gemma-2-9b (Google's published config: head dim 256,
+   16 / 8 heads, 42 layers, a window of 4,096 on every other layer,
+   softcaps, tied, context 8,192) at full width and depth on the paged
+   main path, random bf16 weights from seed 0 made on the card (norm
+   weights at Hugging Face's init, ``gemma2_9b_params``): the paged
+   phase's short prompts and prefix hit and a ~6,000-token prompt past
+   the window, 32 tokens each; A, B and C launch once a layer; logits
+   through the kernels against the plain versions (5% of scale) and the
+   ``rounding_probe``; the steady step, TTFT and the serving peak beside
+   their predictions; then engine_gemma2_9b_int8, contiguous_gemma2_9b,
+   engine_gemma2_9b_tp and engine_gemma2_9b_tp_int8 cut to 4 layers, as
+   the llama cuts;
 14. quant: llama-3-8b at full depth with int8 and then int4 weights
    (born quantized on the card), the paged phase's traffic, 16
    tokens: A, B, C and G (its int8 or int4 entry) launch, the logits
@@ -424,7 +442,9 @@ no phase changes them (the gateway phase zeroes the unembedding columns
 of a copy on the card).
 Every line carries ``t_s``, the seconds since the script started.
 Then the ``kernels`` line (a row per kernel and head dim, the Dh-128
-rows named ``<symbol>_dh128`` with the llama phases' launches; kernel
+rows named ``<symbol>_dh128`` with the llama phases' launches, the
+Dh-256 rows ``<symbol>_dh256`` with the Gemma-2-9b phases' (no fp32 row:
+not compiled there); kernel
 G's three entries with their ``moe`` phases' launches and the 8-slot
 Mixtral decode shape's times), the
 ``nvidia-smi`` line, and last
@@ -542,6 +562,38 @@ def sdpa_fp32_ms(fn) -> tuple[float, str]:
         return time_ms(fn), SDPBackend.EFFICIENT_ATTENTION.name.lower()
 
 
+# The SDPA backends tried on bf16 calls; the math backend only when none
+# of these takes the call.
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_ms(fn) -> tuple[float, str]:
+    """Device ms of the SDPA call ``fn`` under the fastest backend of
+    SDPA_BACKENDS that runs it (flash takes no arbitrary mask; some take
+    no head dim of 256), else under the math backend, and that backend."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for name in SDPA_BACKENDS + ("MATH",):
+        if name == "MATH" and times:
+            break
+        with sdpa_kernel(getattr(SDPBackend, name)), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                fn()
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            times[name.lower()] = time_ms(fn)
+    if not times:
+        raise AssertionError("no SDPA backend runs the call")
+    best = min(times, key=times.get)
+    return times[best], best
+
+
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
             rows=None, atol: float = ATOL, rtol: float = RTOL) -> float:
     """Max |got - want| over ``rows`` (all when None); raises beyond
@@ -606,10 +658,8 @@ def check_prefill(dev, gen, t: int, softcap: float, window: int,
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kr, vr, is_causal=True, scale=scale)
 
-        if f32:
-            res["library_ms"], res["library_backend"] = sdpa_fp32_ms(sdpa)
-        else:
-            res["library_ms"] = time_ms(sdpa)
+        res["library_ms"], res["library_backend"] = (
+            sdpa_fp32_ms if f32 else sdpa_ms)(sdpa)
         seen = t * (t + 1) // 2  # causal (query, key) pairs per head
         # fp32 at fp32 accuracy: the card's fastest route is 3xTF32 on the
         # tensor cores (a third of the TF32 rate); the fp32-FMA rate's
@@ -677,7 +727,7 @@ def _kv_token_bytes(hkv: int, dh: int, int8: bool) -> int:
 
 def check_decode(dev, gen, lens: list[int], softcap: float, window: int,
                  timed: bool, int8: bool = False, hkv: int = 4,
-                 dh: int = 64) -> dict:
+                 dh: int = 64, h: int = 32) -> dict:
     """Kernel B (bf16 pool, or the int8 variant on a quantized pool)
     against its plain version."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
@@ -685,7 +735,7 @@ def check_decode(dev, gen, lens: list[int], softcap: float, window: int,
         paged_decode_attention_plain,
     )
 
-    b, h, page, np_ = len(lens), 32, 128, 16
+    b, page, np_ = len(lens), 128, 16
     pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129,
                                           hkv, dh)
     lib_pools, scales = (pool_k, pool_v), {}
@@ -712,7 +762,7 @@ def check_decode(dev, gen, lens: list[int], softcap: float, window: int,
         res["ms"] = time_ms(lambda: flash_paged_decode_attention(*args, **kw))
         res["plain_ms"] = time_ms(
             lambda: paged_decode_attention_plain(*args, **kw))
-        res["library_ms"] = time_ms(_sdpa_gathered(
+        res["library_ms"], res["library_backend"] = sdpa_ms(_sdpa_gathered(
             q[:, :, None], *lib_pools, table, seq, (seq - 1)[:, None]))
         kv = sum(lens) * _kv_token_bytes(hkv, dh, int8)  # live tokens only
         res["bound_ms"], res["bound_by"] = bound_ms(
@@ -723,7 +773,7 @@ def check_decode(dev, gen, lens: list[int], softcap: float, window: int,
 def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
                  c: int, valid: int, softcap: float, window: int,
                  timed: bool, int8: bool = False, hkv: int = 4,
-                 dh: int = 64) -> dict:
+                 dh: int = 64, h: int = 32) -> dict:
     """Kernel C (bf16 pool, or the int8 variant) against its plain version.
     The kernel reads the chunk's KV back from the pool, so on an int8 pool
     the plain version is fed the chunk rows as the pool holds them
@@ -735,7 +785,7 @@ def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
     )
     from crowdllama_tpu_torch.ops.quant import dequantize_kv
 
-    b, h, page, np_ = len(dec_lens), 32, 128, 16
+    b, page, np_ = len(dec_lens), 128, 16
     lens = list(dec_lens)
     lens[chunk_slot] = ctx + valid  # the chunk slot's pages hold ctx+chunk
     pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129,
@@ -793,8 +843,8 @@ def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
         qpos = torch.zeros((b + 1, c), device=dev, dtype=torch.int64)
         qpos[:b, 0] = kl[:b] - 1
         qpos[b] = cpos
-        res["library_ms"] = time_ms(_sdpa_gathered(qq, *lib_pools, tab, kl,
-                                                   qpos))
+        res["library_ms"], res["library_backend"] = sdpa_ms(_sdpa_gathered(
+            qq, *lib_pools, tab, kl, qpos))
         dec = [kv_lens[i] for i in range(b) if q_lens[i]]
         seen = sum(dec) + sum(ctx + r + 1 for r in range(valid))
         kv_tokens = sum(dec) + ctx + valid
@@ -806,15 +856,15 @@ def check_ragged(dev, gen, dec_lens: list[int], chunk_slot: int, ctx: int,
 
 def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
                        window: int, timed: bool, hkv: int = 4,
-                       dh: int = 64, dtype: torch.dtype = torch.bfloat16
-                       ) -> dict:
+                       dh: int = 64, dtype: torch.dtype = torch.bfloat16,
+                       h: int = 32) -> dict:
     from crowdllama_tpu_torch.ops.cuda.flash import (
         decode_attention_plain,
         flash_decode_attention,
     )
 
     f32 = dtype == torch.float32
-    b, h = len(lens), 32
+    b = len(lens)
     bf = dict(device=dev, dtype=dtype)
     q = torch.randn((b, h, dh), generator=gen, **bf)
     kc = torch.randn((b, hkv, s, dh), generator=gen, **bf)
@@ -853,10 +903,8 @@ def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
             return torch.nn.functional.scaled_dot_product_attention(
                 q[:, :, None], kr, vr, attn_mask=mask)
 
-        if f32:
-            res["library_ms"], res["library_backend"] = sdpa_fp32_ms(sdpa)
-        else:
-            res["library_ms"] = time_ms(sdpa)
+        res["library_ms"], res["library_backend"] = (
+            sdpa_fp32_ms if f32 else sdpa_ms)(sdpa)
         # live K and V rows
         kv = sum(lens) * hkv * dh * 2 * kc.element_size()
         res["bound_ms"], res["bound_by"] = bound_ms(
@@ -901,7 +949,7 @@ def check_chunk(dev, gen, ctx: int, c: int, valid: int, softcap: float,
         res["plain_ms"] = time_ms(
             lambda: ragged_chunk_attention_plain(*args, **kw))
         qpos = (ctx + torch.arange(c, device=dev))[None]
-        res["library_ms"] = time_ms(_sdpa_gathered(
+        res["library_ms"], res["library_backend"] = sdpa_ms(_sdpa_gathered(
             q.transpose(0, 1)[None], *lib_pools, table, kv_t[None], qpos))
         seen = sum(ctx + r + 1 for r in range(valid))
         res["bound_ms"], res["bound_by"] = bound_ms(
@@ -913,7 +961,7 @@ def check_chunk(dev, gen, ctx: int, c: int, valid: int, softcap: float,
 
 def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
                     window: int, timed: bool, int8: bool = False,
-                    hkv: int = 4, dh: int = 64) -> dict:
+                    hkv: int = 4, dh: int = 64, h: int = 32) -> dict:
     """Kernel F on tp shares of B's inputs (q heads and pool kv heads,
     kv-major): every rank's output must equal B's on the whole pool bit
     for bit, and F is held against its plain version."""
@@ -923,7 +971,7 @@ def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
         paged_decode_attention_tp_plain,
     )
 
-    b, h, page, np_ = len(lens), 32, 128, 16
+    b, page, np_ = len(lens), 128, 16
     pool_k, pool_v, table = _paged_inputs(dev, gen, b, lens, page, np_, 129,
                                           hkv, dh)
     lib_pools, scales = (pool_k, pool_v), {}
@@ -961,7 +1009,7 @@ def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
             lambda: flash_paged_decode_attention_tp(*args, **kw))
         res["plain_ms"] = time_ms(
             lambda: paged_decode_attention_tp_plain(*args, **kw))
-        res["library_ms"] = time_ms(_sdpa_gathered(
+        res["library_ms"], res["library_backend"] = sdpa_ms(_sdpa_gathered(
             q[:, :, None], *lib_pools, table, seq, (seq - 1)[:, None]))
         kv = sum(lens) * _kv_token_bytes(hkv, dh, int8)  # live tokens only
         res["bound_ms"], res["bound_by"] = bound_ms(
@@ -977,13 +1025,86 @@ def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
 # and a window of 300 (first key 1,748: 6 splits empty, 2 merged).
 SPLIT_EDGE_LENS = [0, 1, 127, 128, 129, 256, 257, 2048]
 SPLIT_EDGE_CASES = [(0.0, 0), (0.0, 40), (30.0, 300)]
+# The ROADMAP item a refused fp32 call names.
+FP32_ITEM = "ROADMAP Queue 2 item 11"
+# The 8 decode slots' lengths of the timed decode shapes (6,924 live keys).
+SERVE_LENS = [1723, 1, 402, 2048, 77, 1200, 513, 960]
 
 
-def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
+def fp32_checks(dev, gen, f32: dict) -> dict:
+    """The fp32 entries of A and D against their plain versions on fp32
+    inputs (``f32``: kernel_checks' heads and head dim, fp32): the serving
+    shapes timed, the small shapes, the distill phase's shapes."""
+    a32 = check_prefill(dev, gen, 512, 0.0, 0, 0, timed=True, **f32)
+    a32["small"] = [check_prefill(dev, gen, 64, 30.0, 9, 5, False, **f32)
+                    ["max_abs_err"],
+                    check_prefill(dev, gen, 96, 0.0, 17, 0, False, **f32)
+                    ["max_abs_err"],
+                    check_prefill(dev, gen, 200, 0.0, 0, 0, False,
+                                  **dict(f32, h=7 * f32["hkv"]))
+                    ["max_abs_err"]]
+    # The distill phase's shapes: the train step's 16 x 64-token batch
+    # (teacher and student), the rollout's 64 slots over a 64-key cache at
+    # every length it steps through.
+    seq, slots = int(DISTILL["--seq-len"]), int(DISTILL["--corpus-seqs"])
+    a32["distill_shape"] = check_prefill(
+        dev, gen, seq, 0.0, 0, 0, False, b=int(DISTILL["--batch"]),
+        **f32)["max_abs_err"]
+    d32 = check_flash_decode(dev, gen, SERVE_LENS, 2048, 0.0, 0, timed=True,
+                             **f32)
+    d32["small"] = [check_flash_decode(dev, gen, [0, 5, 300, 129], 300,
+                                       30.0, 0, False, **f32)["max_abs_err"],
+                    check_flash_decode(dev, gen, [260, 1, 0, 64], 300, 0.0,
+                                       40, False, **f32)["max_abs_err"]]
+    d32["split_edges"] = [
+        check_flash_decode(dev, gen, SPLIT_EDGE_LENS, 2048, sc, win, False,
+                           **f32)["max_abs_err"]
+        for sc, win in SPLIT_EDGE_CASES]
+    d32["distill_shape"] = check_flash_decode(
+        dev, gen, [1 + i % seq for i in range(slots)], seq, 0.0, 0, False,
+        **f32)["max_abs_err"]
+    return {"A_fp32": a32, "D_fp32": d32}
+
+
+def fp32_refused(dev, gen, f32: dict) -> dict:
+    """At a head dim the fp32 entries are not compiled for, a call of each
+    must be refused naming the ROADMAP item (no fallback): their rows
+    carry that instead of a time."""
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        flash_decode_attention,
+        flash_prefill_attention,
+    )
+
+    x = dict(device=dev, dtype=torch.float32)
+    h, hkv, dh = f32["h"], f32["hkv"], f32["dh"]
+    q = torch.randn((1, 16, h, dh), generator=gen, **x)
+    k = torch.randn((1, hkv, 16, dh), generator=gen, **x)
+    pos = torch.arange(16, device=dev, dtype=torch.int32)[None]
+    lens = torch.tensor([16], device=dev, dtype=torch.int32)
+    out = {}
+    for key, call in (
+            ("A_fp32", lambda: flash_prefill_attention(q, k, k, pos, 0.1)),
+            ("D_fp32", lambda: flash_decode_attention(
+                q[:, 0].contiguous(), k, k, lens, 0.1))):
+        try:
+            call()
+        except ValueError as e:
+            if FP32_ITEM not in str(e):
+                raise
+            out[key] = {"compiled": False, "refused": str(e)}
+        else:
+            raise AssertionError(f"{key} at Dh {dh} was not refused")
+    return out
+
+
+def kernel_checks(dev, gen, hkv: int, dh: int, h: int = 32) -> dict:
     """Every kernel against its plain version at head dim ``dh`` over
-    ``hkv`` kv heads (32 query heads; TinyLlama's 4 at Dh 64, Llama-3-8B's
-    8 at Dh 128): the serving shapes timed, then the small shapes."""
-    d = dict(hkv=hkv, dh=dh)
+    ``h`` query and ``hkv`` kv heads (TinyLlama's 32 / 4 at Dh 64,
+    Llama-3-8B's 32 / 8 at Dh 128, Gemma-2-9b's 16 / 8 at Dh 256): the
+    serving shapes timed, then the small shapes.  The fp32 entries of A
+    and D are compiled at Dh 64 and 128 only: at other head dims their
+    rows say so (``fp32_refused``)."""
+    d = dict(hkv=hkv, dh=dh, h=h)
     out = {}
     a = check_prefill(dev, gen, 512, 0.0, 0, 0, timed=True, **d)
     a["small"] = [check_prefill(dev, gen, 64, 30.0, 9, 5, False, **d)
@@ -991,7 +1112,7 @@ def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
                   check_prefill(dev, gen, 96, 0.0, 17, 0, False, **d)
                   ["max_abs_err"]]
     out["A"] = a
-    serve_lens = [1723, 1, 402, 2048, 77, 1200, 513, 960]
+    serve_lens = SERVE_LENS
     for key, int8 in (("B", False), ("B_int8", True)):
         bres = check_decode(dev, gen, serve_lens, 0.0, 0, timed=True,
                             int8=int8, **d)
@@ -1047,36 +1168,11 @@ def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
         for sc, win in SPLIT_EDGE_CASES]
     out["D"] = dres
     # The fp32 entries (the distillation trainer's teacher and student).
+    from crowdllama_tpu_torch.ops.cuda import FP32_HEAD_DIMS
+
     f32 = dict(d, dtype=torch.float32)
-    a32 = check_prefill(dev, gen, 512, 0.0, 0, 0, timed=True, **f32)
-    a32["small"] = [check_prefill(dev, gen, 64, 30.0, 9, 5, False, **f32)
-                    ["max_abs_err"],
-                    check_prefill(dev, gen, 96, 0.0, 17, 0, False, **f32)
-                    ["max_abs_err"],
-                    check_prefill(dev, gen, 200, 0.0, 0, 0, False, h=7 * hkv,
-                                  **f32)["max_abs_err"]]
-    # The distill phase's shapes: the train step's 16 x 64-token batch
-    # (teacher and student), the rollout's 64 slots over a 64-key cache at
-    # every length it steps through.
-    seq, slots = int(DISTILL["--seq-len"]), int(DISTILL["--corpus-seqs"])
-    a32["distill_shape"] = check_prefill(
-        dev, gen, seq, 0.0, 0, 0, False, b=int(DISTILL["--batch"]),
-        **f32)["max_abs_err"]
-    out["A_fp32"] = a32
-    d32 = check_flash_decode(dev, gen, serve_lens, 2048, 0.0, 0, timed=True,
-                             **f32)
-    d32["small"] = [check_flash_decode(dev, gen, [0, 5, 300, 129], 300,
-                                       30.0, 0, False, **f32)["max_abs_err"],
-                    check_flash_decode(dev, gen, [260, 1, 0, 64], 300, 0.0,
-                                       40, False, **f32)["max_abs_err"]]
-    d32["split_edges"] = [
-        check_flash_decode(dev, gen, SPLIT_EDGE_LENS, 2048, sc, win, False,
-                           **f32)["max_abs_err"]
-        for sc, win in SPLIT_EDGE_CASES]
-    d32["distill_shape"] = check_flash_decode(
-        dev, gen, [1 + i % seq for i in range(slots)], seq, 0.0, 0, False,
-        **f32)["max_abs_err"]
-    out["D_fp32"] = d32
+    out.update(fp32_checks(dev, gen, f32) if dh in FP32_HEAD_DIMS
+               else fp32_refused(dev, gen, f32))
     for key, int8 in (("E", False), ("E_int8", True)):
         eres = check_chunk(dev, gen, 1024, 512, 512, 0.0, 0, timed=True,
                            int8=int8, **d)
@@ -1090,7 +1186,7 @@ def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
             check_chunk(dev, gen, 200, 75, 60, 30.0, 100, False,
                         int8=int8, **d)["max_abs_err"],
             check_chunk(dev, gen, 200, 75, 61, 0.0, 100, False, int8=int8,
-                        h=7 * hkv, **d)["max_abs_err"]]
+                        **dict(d, h=7 * hkv))["max_abs_err"]]
         out[key] = eres
     for key, int8 in (("F", False), ("F_int8", True)):
         fres = check_tp_decode(dev, gen, serve_lens, 2, 0.0, 0, timed=True,
@@ -1110,25 +1206,41 @@ def kernel_checks(dev, gen, hkv: int, dh: int) -> dict:
     return out
 
 
+# (head dim, query heads, kv heads) of each kernel line: TinyLlama,
+# Llama-3-8B, Gemma-2-9b; a row's key takes the suffix of its head dim.
+KERNEL_LINES = ((64, 32, 4), (128, 32, 8), (256, 16, 8))
+DH_SUFFIX = {64: "", 128: "_dh128", 256: "_dh256"}
+
+
+def kernel_line(dev, gen, dh: int, h: int, hkv: int) -> dict:
+    """One ``kernels_vs_plain`` line: every kernel against its plain
+    version at head dim ``dh`` over ``h`` / ``hkv`` heads (timed, bound,
+    one SDPA call naming its backend); returns the rows keyed by kernel
+    and the head dim's suffix."""
+    t0 = time.perf_counter()
+    res = kernel_checks(dev, gen, hkv, dh, h)
+    emit({"phase": "kernels_vs_plain", "head_dim": dh, "heads": h,
+          "kv_heads": hkv, "tolerance": {"atol": ATOL, "rtol": RTOL},
+          "tolerance_fp32": {"atol": ATOL_FP32, "rtol": RTOL_FP32},
+          "seconds": time.perf_counter() - t0, **res})
+    return {k + DH_SUFFIX[dh]: v for k, v in res.items()}
+
+
 def kernel_phase(dev) -> dict:
-    """The kernel checks at Dh 64 (TinyLlama) and at Dh 128 (Llama-3-8B),
-    a line each, then kernel A at a group of 7 (qwen2.5-7b's 28 query / 4
-    kv heads: 18 queries a block, its last two rows empty) at both; returns
-    the rows keyed by kernel, ``_dh128`` appended at Dh 128."""
+    """The kernel checks at Dh 64 (TinyLlama), Dh 128 (Llama-3-8B) and Dh
+    256 (Gemma-2-9b's 16 query / 8 kv heads), a line each, then kernel A
+    at a group of 7 (qwen2.5-7b's 28 query / 4 kv heads: 18 queries a
+    block, its last two rows empty) at all three; returns the rows keyed
+    by kernel and head dim (``DH_SUFFIX``)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for dh, hkv in ((64, 4), (128, 8)):
-        res = kernel_checks(dev, gen, hkv, dh)
-        emit({"phase": "kernels_vs_plain", "head_dim": dh, "kv_heads": hkv,
-              "tolerance": {"atol": ATOL, "rtol": RTOL},
-              "tolerance_fp32": {"atol": ATOL_FP32, "rtol": RTOL_FP32},
-              **res})
-        out.update({k + ("" if dh == 64 else "_dh128"): v
-                    for k, v in res.items()})
+    for dh, h, hkv in KERNEL_LINES:
+        out.update(kernel_line(dev, gen, dh, h, hkv))
     group7 = {dh: [check_prefill(dev, gen, 512, 0.0, 0, 0, False, h=28,
                                  dh=dh)["max_abs_err"],
                    check_prefill(dev, gen, 96, 30.0, 17, 5, False, h=28,
-                                 dh=dh)["max_abs_err"]] for dh in (64, 128)}
+                                 dh=dh)["max_abs_err"]]
+              for dh, _, _ in KERNEL_LINES}
     emit({"phase": "kernel_A_group7", "heads": [28, 4],
           "max_abs_err": group7})
     return out
@@ -1229,10 +1341,12 @@ def _set_launches(counts: dict) -> None:
 
 
 async def serve(engine, streams: dict, max_tokens: int,
-                again: str | None = None, long: bool = True) -> dict:
+                again: str | None = None, long: bool = True,
+                long_prompt: str = LONG) -> dict:
     """Send ``streams`` (name -> (prompt, generate kwargs)) at once, then
-    LONG once the others are decoding (unless ``long`` is False), then
-    stream ``again`` alone a second time (as ``<again>_again``)."""
+    ``long_prompt`` (LONG) once the others are decoding (unless ``long``
+    is False), then stream ``again`` alone a second time (as
+    ``<again>_again``)."""
     results: dict[str, dict] = {}
 
     async def run(name: str, prompt: str, kw: dict) -> None:
@@ -1258,7 +1372,7 @@ async def serve(engine, streams: dict, max_tokens: int,
            and not all(t.done() for t in tasks)):
         await asyncio.sleep(0.005)
     if long:
-        tasks.append(asyncio.create_task(run("long", LONG, {})))
+        tasks.append(asyncio.create_task(run("long", long_prompt, {})))
     await asyncio.gather(*tasks)
     wall = time.perf_counter() - t0
     if again:
@@ -1268,7 +1382,7 @@ async def serve(engine, streams: dict, max_tokens: int,
 
 def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
                params: dict | None = None, random_init: bool = False,
-               **engine_kw):
+               long_prompt: str = LONG, **engine_kw):
     """Reset the card's peak-memory mark, start ``TorchEngine`` on
     ``params`` (default: TinyLlama's seed-0 weights; with ``random_init``
     the runner's own seed-0 init on the card, quantized as it is drawn
@@ -1278,7 +1392,8 @@ def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
     the counts, stop.  The card's memory is read at four points: what was
     allocated before the engine, the peak while it started (loading and
     warm-up), what stayed allocated after that, and the peak while it
-    served; ``max_memory_allocated`` is the larger peak.  Checks that every stream ended done with
+    served; ``max_memory_allocated`` is the larger peak.  The long stream
+    sends ``long_prompt``.  Checks that every stream ended done with
     ``max_tokens`` tokens and that a seeded stream sent again repeated
     token for token."""
     from crowdllama_tpu_torch.engine.engine import TorchEngine
@@ -1305,7 +1420,8 @@ def run_engine(dev, streams: dict, max_tokens: int, again: str | None = None,
             torch.cuda.reset_peak_memory_stats(dev)
             hits0 = getattr(engine.runner, "prefix_hits", 0)
             _zero_launches()
-            served = await serve(engine, streams, max_tokens, again)
+            served = await serve(engine, streams, max_tokens, again,
+                                 long_prompt=long_prompt)
             launches = _launches()
             memory["serve_peak"] = torch.cuda.max_memory_allocated(dev)
             hits = getattr(engine.runner, "prefix_hits", 0) - hits0
@@ -4578,24 +4694,40 @@ def llama_phase(dev) -> dict:
     return engine_phase(dev, "engine_llama", LLAMA, llama_params(dev)[1])
 
 
-def llama_cut_phase(dev, phase: str, ran: set[str], **engine_kw) -> dict:
-    """llama-3-8b cut to LLAMA_CUT_LAYERS layers at full width, on one
-    more path at Dh 128 (``engine_kw``: int8 pools, the contiguous layout,
-    tp=2 on the one card): 2 greedy short prompts and the long one, 16
-    tokens each.  The kernels in ``ran`` launch and no other; one decode
-    step (and on bf16 paged pools a prefill and a ragged step) through the
-    kernels agrees with the plain versions (2% of the logits' scale under
-    tp, else 5%); the steady decode step is reported.  Returns the launch
-    counts of the streams."""
+def _cut_model(dev, model: str) -> tuple:
+    """``model`` (LLAMA or GEMMA9) cut to LLAMA_CUT_LAYERS layers at full
+    width, its seed-0 weights made on the card: (config, params, its full
+    depth)."""
+    from crowdllama_tpu_torch.models.config import get_config
+
+    if model == GEMMA9:
+        full = gemma2_9b_config()
+        cfg = dataclasses.replace(full, num_layers=LLAMA_CUT_LAYERS)
+        return cfg, gemma2_9b_params(dev, cfg), full.num_layers
+    return (*llama_params(dev, LLAMA_CUT_LAYERS),
+            get_config(LLAMA).num_layers)
+
+
+def llama_cut_phase(dev, phase: str, ran: set[str], model: str = LLAMA,
+                    **engine_kw) -> dict:
+    """``model`` (llama-3-8b at Dh 128, or Gemma-2-9b at Dh 256) cut to
+    LLAMA_CUT_LAYERS layers at full width, on one more path
+    (``engine_kw``: int8 pools, the contiguous layout, tp=2 on the one
+    card): 2 greedy short prompts and the long one, 16 tokens each.  The
+    kernels in ``ran`` launch and no other; one decode step (and on bf16
+    paged pools a prefill and a ragged step) through the kernels agrees
+    with the plain versions (2% of the logits' scale under tp, else 5%);
+    the steady decode step is reported.  Returns the launch counts of the
+    streams."""
     from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_paged_decode_attention_tp,
     )
 
-    cfg, params = llama_params(dev, LLAMA_CUT_LAYERS)
+    cfg, params, full = _cut_model(dev, model)
     engine, summary, reqs = run_engine(
         dev, {k: GREEDY[k] for k in ("short0", "short1")}, 16,
-        params=params, model=LLAMA, model_config=cfg, **engine_kw)
+        params=params, model=model, model_config=cfg, **engine_kw)
     del params
     r = engine.runner
     int8 = engine_kw.get("kv_dtype") == "int8"
@@ -4624,12 +4756,203 @@ def llama_cut_phase(dev, phase: str, ran: set[str], **engine_kw) -> dict:
     steady = decode_step_timing(engine, dev, kernel)
     kw = {k: [str(d) for d in v] if k == "devices" else v
           for k, v in engine_kw.items()}
-    emit({"phase": phase, "model": LLAMA, "layers": cfg.num_layers,
+    emit({"phase": phase, "model": model, "layers": cfg.num_layers,
           "head_dim": cfg.resolved_head_dim(),
-          "reduced": {"num_layers": [32, LLAMA_CUT_LAYERS]}, **kw,
+          "reduced": {"num_layers": [full, LLAMA_CUT_LAYERS]}, **kw,
           **summary, **out, "logits_max_abs_err": errs, "logits_rtol": rtol,
           "steady_decode": steady, "card": torch.cuda.get_device_name(0)})
     return summary["launches"]
+
+
+# ------------------------------------------------------------ Gemma-2-9b
+
+GEMMA9 = "gemma-2-9b"
+GEMMA9_TOKENS = 32
+# A prompt of ~6,000 byte tokens, past Gemma-2-9b's 4,096-token window,
+# sent while the others decode: its ragged chunks past the window, and the
+# decode steps after them, mask the oldest keys on every other layer.
+GEMMA9_LONG = ("Past the sliding window the local layers mask the oldest keys "
+               "of this prompt, while the global layers between them still "
+               "attend to every one. ") * 42
+# Predictions made before the phase's first run on the card (PERF.md,
+# PR 25): the steady eager step with 8 live slots (ms), TTFT median and
+# max (ms), each a range.
+GEMMA9_PREDICTED = {"step_ms": [30.0, 75.0], "ttft_ms_median": [150.0, 600.0],
+                    "ttft_ms_max": [800.0, 3000.0]}
+
+
+def gemma2_9b_config():
+    """Gemma-2-9b as Google's published ``config.json`` for
+    ``google/gemma-2-9b`` gives it: hidden 3,584, intermediate 14,336, 42
+    layers, 16 query and 8 kv heads of head dim 256, vocab 256,000,
+    ``query_pre_attn_scalar`` 256, a window of 4,096 on every other layer,
+    softcaps 50 / 30, post-norms, tied embeddings, context 8,192 (the
+    port's ``gemma-2-27b`` entry widened by ``dataclasses.replace``; the
+    registry stays the JAX package's)."""
+    from crowdllama_tpu_torch.models.config import get_config
+
+    return dataclasses.replace(
+        get_config("gemma-2-27b"), name=GEMMA9, vocab_size=256000,
+        hidden_size=3584, intermediate_size=14336, num_layers=42,
+        num_heads=16, num_kv_heads=8, head_dim=256,
+        query_pre_attn_scalar=256.0, embedding_multiplier=3584 ** 0.5)
+
+
+GEMMA9_NORMS = ("ln1", "ln2", "post_ln1", "post_ln2")
+
+
+def gemma2_9b_params(dev, cfg) -> dict:
+    """Random bf16 weights from seed 0 made on the card (~18.5 GB), the
+    EOS embedding row zeroed (tied: no stream stops early), and every
+    RMSNorm weight zero, as Hugging Face's ``Gemma2RMSNorm`` initialises
+    them (Gemma scales by 1 + w, so a scale of 1).  The port's
+    ``init_params`` sets them to one, a scale of 2 on every norm: under it
+    42 random layers amplify one bf16 rounding of an attention output to a
+    third of the logits' scale (``rounding_probe`` measures both)."""
+    from crowdllama_tpu_torch.engine.weights import init_params
+
+    params = init_params(cfg, seed=0, device=dev)
+    _zero_eos_params(params)
+    for key in GEMMA9_NORMS:
+        params["layers"][key].zero_()
+    params["final_norm"].zero_()
+    return params
+
+
+def rounding_probe(engine, dev) -> dict:
+    """How far one bf16 rounding moves the prefill logits: the prompt of
+    ``logits_check``'s prefill through the plain route, through kernel A
+    (``kernel``) and through the plain route with every attention output
+    element moved by one bf16 ulp up or down at random (``one_ulp``),
+    each max |gap| over the plain logits' max |logit|; on the served
+    weights, and again with the norm weights at the port's init (one)."""
+    from crowdllama_tpu_torch.models import transformer as T
+    from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
+    from crowdllama_tpu_torch.ops.cuda.flash import flash_prefill_attention
+
+    r, tok = engine.runner, engine.tokenizer
+    ids = tok.encode(SHORT[1])
+    n, t = len(ids), r.bucket_for(len(ids))
+    tokens = r._padded(ids, t)
+    ar = torch.arange(t, device=dev, dtype=torch.int32)
+    pos = torch.clamp(ar, max=n - 1)[None]
+    valid = (ar < n)[None]
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def one_ulp(*a, **kw):
+        o = prefill_attention_ref(*a, **kw)
+        sign = torch.randint(0, 2, o.shape, generator=gen, device=dev) * 2 - 1
+        return (o.float() * (1 + sign * 2.0 ** -7)).to(o.dtype)
+
+    def gaps() -> dict:
+        out = {}
+        for name, fn in (("plain", prefill_attention_ref),
+                         ("kernel", flash_prefill_attention),
+                         ("one_ulp", one_ulp)):
+            out[name] = T.prefill(r.params, r.cfg, tokens, pos, valid,
+                                  attention=fn)[0][0, :n]
+        ref = out.pop("plain")
+        return {k: float((v - ref).abs().max() / ref.abs().max())
+                for k, v in out.items()}
+
+    lp = r.params[0]
+    norms = [lp["layers"][k] for k in GEMMA9_NORMS] + [lp["final_norm"]]
+    with torch.inference_mode():
+        served = gaps()
+        kept = [w.clone() for w in norms]
+        for w in norms:
+            w.fill_(1)
+        try:
+            ones = gaps()
+        finally:
+            for w, k in zip(norms, kept):
+                w.copy_(k)
+    return {"served": served, "norms_one": ones}
+
+
+def _gemma9_memory(cfg, weight_bytes: int, slots: int, page: int) -> dict:
+    """The serving peak predicted from the configuration: the weights, the
+    paged pool (every slot at the full context, and the dump page) and the
+    tied unembedding's fp32 copy made at each call (ROADMAP Queue 1 item
+    3.2)."""
+    token = (cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim()
+             * 2 * 2)  # bf16 K and V of every layer
+    pool = (slots * cfg.max_context_length + page) * token
+    unembed = cfg.vocab_size * cfg.hidden_size * 4
+    return {"weights": weight_bytes, "kv_pool": pool, "kv_token": token,
+            "unembed_fp32": unembed,
+            "total": weight_bytes + pool + unembed}
+
+
+def gemma2_phase(dev) -> dict:
+    """Gemma-2-9b at full width and all 42 layers (head dim 256, the
+    tensor-core tile with Q in shared memory, 32- and 64-key stages) on the
+    paged main path, random bf16 weights from seed 0 made on the card: the
+    engine phase's 6 short prompts and prefix hit, and a ~6,000-token
+    prompt past the 4,096 window sent while they decode, 32 tokens each
+    (weights: ``gemma2_9b_params``).
+    A launches 42 times a prefill, B 42 a decode step and C 42 a ragged
+    step, and no other kernel; one prefill, decode step and ragged step
+    through the kernels agree with the plain versions within 5% of the
+    logits' scale; the steady step, TTFT and the serving peak are printed
+    beside their predictions.  Returns the launch counts."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+        ragged_paged_attention,
+    )
+
+    cfg = gemma2_9b_config()
+    t0 = time.perf_counter()
+    params = gemma2_9b_params(dev, cfg)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    weight_bytes = _tree_bytes(params)
+    engine, summary, reqs = run_engine(
+        dev, {**GREEDY, "prefix_hit": (HIT, {})}, GEMMA9_TOKENS,
+        params=params, model=GEMMA9, model_config=cfg,
+        max_context_length=cfg.max_context_length, long_prompt=GEMMA9_LONG)
+    del params
+    r = engine.runner
+    phase = "engine_gemma2_9b"
+    long_tokens = reqs["long"]["prompt_tokens"]
+    if long_tokens <= cfg.sliding_window:
+        raise AssertionError(f"{phase}: the long prompt ({long_tokens}) must "
+                             f"pass the {cfg.sliding_window}-token window")
+    launches = summary["launches"]
+    _expect_launches(launches, {"A", "B", "C"}, phase)
+    layers = cfg.num_layers
+    if any(launches[k] % layers for k in ("A", "B", "C")):
+        raise AssertionError(f"{phase}: A, B and C launch once a layer: "
+                             f"{launches}")
+    ragged_chunks = engine.scheduler.ragged_chunks
+    if (summary["prefix_hits"] < 1
+            or ragged_chunks * r.ragged_chunk < long_tokens):
+        raise AssertionError(f"{phase}: prefix hits {summary['prefix_hits']},"
+                             f" ragged chunks {ragged_chunks}: a path was "
+                             f"not taken")
+    errs = _check_logit_errs(logits_check(engine, dev), phase)
+    probe = rounding_probe(engine, dev)
+    ragged = ragged_step_timing(engine, ragged_paged_attention)
+    steady = decode_step_timing(engine, dev, flash_paged_decode_attention_tp)
+    memory = _gemma9_memory(cfg, weight_bytes, r.max_slots, r.page_size)
+    emit({"phase": phase, "model": GEMMA9, "layers": layers,
+          "head_dim": cfg.resolved_head_dim(),
+          "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "sliding_window": cfg.sliding_window,
+          "context": cfg.max_context_length, "page": r.page_size,
+          "weights_init_s": init_s, **summary,
+          "launches_per_layer": {k: launches[k] // layers
+                                 for k in ("A", "B", "C")},
+          "ragged_chunks": ragged_chunks, "long_prompt_tokens": long_tokens,
+          "long_ttft_ms": reqs["long"]["ttft_ms"], "ragged_step": ragged,
+          "logits_max_abs_err": errs, "logits_rtol": LOGIT_RTOL,
+          "rounding_probe": probe,
+          "steady_decode": steady, "predicted": GEMMA9_PREDICTED,
+          "memory_predicted": memory,
+          "memory_over_predicted": summary["max_memory_allocated"]
+          / memory["total"],
+          "card": nvidia_smi()})
+    return launches
 
 
 # ------------------------------------------------------------ HF checkpoints
@@ -8322,6 +8645,42 @@ G_ROWS = {"G": "grouped_gemm_bf16", "G_int8": "grouped_gemm_i8",
           "G_int4": "grouped_gemm_i4"}
 
 
+def kernel_rows(res: dict, counts_by_dh) -> list[dict]:
+    """The ``kernels`` line's attention rows: one a kernel and head dim
+    (``counts_by_dh``: (head dim, launches by kernel) pairs), from the
+    kernel lines' results ``res``; an entry not compiled at a head dim (the
+    fp32 ones at Dh 256) has no row there."""
+    rows = []
+    for dh, counts in counts_by_dh:
+        sfx = DH_SUFFIX[dh]
+        for key, (kname, src, repl) in KERNEL_ROWS.items():
+            r = res[key + sfx]
+            if r.get("compiled") is False:
+                continue
+            rows.append({"name": kname + sfx, "head_dim": dh, "route": "cuda",
+                         "source": src, "replaces": repl,
+                         "launches": counts[key],
+                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                         "bound_by": r["bound_by"],
+                         "library_ms": r["library_ms"],
+                         **({k: r[k] for k in ("library_backend",
+                                               "bound_fp32_fma_ms") if k in r})})
+    return rows
+
+
+def build_smem(kernels, dev) -> list[dict]:
+    """Each entry's dynamic shared memory and blocks a SM at Dh 64 (group
+    8), 128 (4) and 256 (Gemma-2-9b's 2; not the fp32 entries, compiled at
+    64 and 128 only, nor kernel G's, which have no head dim)."""
+    return [dict(kernels.kernel_resources(lib, sym, dh, g, dev), entry=sym,
+                 dh=dh, group=g)
+            for lib, entries in kernels.SIGNATURES.items()
+            for sym in entries for dh, g in ((64, 8), (128, 4), (256, 2))
+            if dh in kernels.FP32_HEAD_DIMS
+            or not (sym.endswith("_f32") or lib == "grouped_gemm")]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8343,10 +8702,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": [dict(r, library=lib) for lib in kernels.SIGNATURES
                     for r in kernels.ptxas_usage(lib)],
-          "smem": [dict(kernels.kernel_resources(lib, sym, dh, g, dev),
-                        entry=sym, dh=dh, group=g)
-                   for lib, entries in kernels.SIGNATURES.items()
-                   for sym in entries for dh, g in ((64, 8), (128, 4))]})
+          "smem": build_smem(kernels, dev)})
 
     native_phase()
     from crowdllama_tpu_torch.engine import prng_golden
@@ -8430,18 +8786,28 @@ def main() -> int:
     llama = llama_phase(dev)
     paged128 = llama["launches"]
     launches128 = {k: paged128[k] for k in ("A", "B", "C")}
-    for phase, ran, kw in (
-            ("engine_llama_int8", {"A", "B_int8", "C_int8"},
-             dict(kv_dtype="int8")),
-            ("contiguous_llama", {"A", "D"}, dict(kv_layout="contiguous")),
-            ("engine_llama_tp", {"A", "C", "F"},
-             dict(mesh_shape="2", devices=[dev, dev])),
-            ("engine_llama_tp_int8", {"A", "C_int8", "F_int8"},
-             dict(mesh_shape="2", devices=[dev, dev], kv_dtype="int8"))):
+    cut_paths = (("engine_{}_int8", {"A", "B_int8", "C_int8"},
+                  dict(kv_dtype="int8")),
+                 ("contiguous_{}", {"A", "D"}, dict(kv_layout="contiguous")),
+                 ("engine_{}_tp", {"A", "C", "F"},
+                  dict(mesh_shape="2", devices=[dev, dev])),
+                 ("engine_{}_tp_int8", {"A", "C_int8", "F_int8"},
+                  dict(mesh_shape="2", devices=[dev, dev], kv_dtype="int8")))
+    for phase, ran, kw in cut_paths:
         _free_card()
-        got = llama_cut_phase(dev, phase, ran, **kw)
+        got = llama_cut_phase(dev, phase.format("llama"), ran, **kw)
         launches128.update({k: got[k] for k in ran - {"A", "C"}
                             if k not in launches128})
+    _free_card()
+    # Dh 256: Gemma-2-9b at full width and depth on the paged main path,
+    # then cut to LLAMA_CUT_LAYERS layers on the other paths.
+    launches256 = gemma2_phase(dev)
+    for phase, ran, kw in cut_paths:
+        _free_card()
+        got = llama_cut_phase(dev, phase.format("gemma2_9b"), ran,
+                              model=GEMMA9, **kw)
+        for k in ran - {"A", "C"}:
+            launches256[k] += got[k]
     _free_card()
     quant_phase(dev, llama["steady"])
     _free_card()
@@ -8463,21 +8829,11 @@ def main() -> int:
     launches["E"] = launches["E_int8"] = 0
     launches128["E"] = launches128["E_int8"] = 0
     launches128["A_fp32"] = launches128["D_fp32"] = 0
+    # Only the paged bf16 main path runs at Dh 256 (A, B, C).
+    launches256 = {k: launches256.get(k, 0) for k in KERNEL_ROWS}
 
-    rows = []
-    for dh, counts in ((64, launches), (128, launches128)):
-        sfx = "" if dh == 64 else "_dh128"
-        for key, (kname, src, repl) in KERNEL_ROWS.items():
-            r = res[key + sfx]
-            rows.append({"name": kname + sfx, "head_dim": dh, "route": "cuda",
-                         "source": src, "replaces": repl,
-                         "launches": counts[key],
-                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                         "bound_by": r["bound_by"],
-                         "library_ms": r["library_ms"],
-                         **({k: r[k] for k in ("library_backend",
-                                               "bound_fp32_fma_ms") if k in r})})
+    rows = kernel_rows(res, ((64, launches), (128, launches128),
+                             (256, launches256)))
     for key, symbol in G_ROWS.items():
         fmt = {"G": "bf16", "G_int8": "int8", "G_int4": "int4"}[key]
         r = gemm[fmt]
@@ -8499,12 +8855,14 @@ def main() -> int:
 
 
 def phase_main(name: str) -> int:
-    """One phase alone after the build (``--phase multiprocess``): its
-    lines, then the contract's last line."""
+    """One phase alone after the build (``--phase multiprocess``, or
+    ``--phase gemma2``: the Dh-256 kernel line and ``engine_gemma2_9b``,
+    then the kernels line of their rows): its lines, then the contract's
+    last line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if name != "multiprocess":
+    if name not in ("multiprocess", "gemma2"):
         print(f"chip_smoke: no phase {name!r} runs alone", file=sys.stderr)
         return 2
     from crowdllama_tpu_torch.ops import cuda as kernels
@@ -8512,11 +8870,22 @@ def phase_main(name: str) -> int:
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     kernels.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0})
-    # The cut meshes stand beside the mesh phases' one-process lines.
-    mesh_phases(dev)
-    _free_card()
-    emit({"phase": "multiprocess_launches", **multiprocess_phase(dev)})
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          **({"ptxas": [dict(r, library=lib) for lib in kernels.SIGNATURES
+                        for r in kernels.ptxas_usage(lib)],
+              "smem": build_smem(kernels, dev)} if name == "gemma2" else {})})
+    if name == "gemma2":
+        res = kernel_line(dev, torch.Generator(device=dev).manual_seed(0),
+                          *KERNEL_LINES[-1])
+        _free_card()
+        counts = gemma2_phase(dev)
+        print(json.dumps({"kernels": kernel_rows(res, ((256, {
+            k: counts.get(k, 0) for k in KERNEL_ROWS}),))}), flush=True)
+    else:
+        # The cut meshes stand beside the mesh phases' one-process lines.
+        mesh_phases(dev)
+        _free_card()
+        emit({"phase": "multiprocess_launches", **multiprocess_phase(dev)})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

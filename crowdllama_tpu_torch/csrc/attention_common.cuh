@@ -6,8 +6,9 @@
 // across key tiles; a row that saw no valid key ends with l == 0, which is
 // read as 1, so it outputs zeros and never NaN.  Query head h reads kv head
 // h / G.  The head dim DH is a template parameter of every routine; the
-// kernels instantiate 64 (TinyLlama) and 128 (Llama-3, Mistral, Qwen,
-// Gemma-2) and their C entries dispatch on it (the wrappers refuse other
+// kernels instantiate 64 (TinyLlama), 128 (Llama-3, Mistral, Qwen,
+// Gemma-2-27b) and 256 (Gemma-2-9b and -2b; the fp32 entries stay at 64
+// and 128) and their C entries dispatch on it (the wrappers refuse other
 // dims).  Int8 K/V come with per-key fp32 scales: the K scale multiplies
 // the score after `scale`, before the softcap; the V scale multiplies the
 // probability after it was added to l, so only the output sum sees it
@@ -22,9 +23,12 @@
 //   visible (row, key) pair at 989 TF/s bf16; the K/V bytes are read once
 //   per block, mostly from L2, and take less time.  Design: a block holds
 //   128 (query, head) rows of one kv head, 16 per warp; Q's mma fragments
-//   are loaded once per block; key tiles of tc_tile<DH>() keys (128 at Dh
-//   64, 64 at Dh 128, so a thread's fp32 S, O and Q fragments fit its
-//   registers at both), gathered from wherever the caller says each 16
+//   are loaded once per block into registers at Dh 64 and 128; at Dh 256
+//   (tc_q_smem) Q's tile stays in shared memory and each k-step re-reads
+//   its two fragments with ldmatrix, so a thread's registers hold only its
+//   fp32 O (128) and S; key tiles of tc_tile<DH>() keys (128 at Dh 64, 64
+//   at Dh 128, 32 at Dh 256, so a thread's fp32 S, O and Q fragments fit
+//   its registers), gathered from wherever the caller says each 16
 //   keys live (pages of the pool, or a stretch of a contiguous K/V), stream
 //   through a three-stage cp.async ring, so two tiles are in flight while
 //   one is computed, with one barrier per tile (int8: two, around its
@@ -35,7 +39,7 @@
 //   flags of their own) masks only the tiles that cross a live row's view;
 //   O rescaled once per tile; P reused in registers as the A operand of O
 //   += P V (ldmatrix.trans for V).  Rows are padded in shared memory by 16
-//   bytes (144 or 272 bytes, 4 banks apart), so ldmatrix has no bank
+//   bytes (144, 272 or 528 bytes, 4 banks apart), so ldmatrix has no bank
 //   conflicts.  An int8 tile is staged raw (half the bytes) and converted
 //   to bf16 in shared memory once per block, exactly (|x| <= 127).
 //   Products of bf16 values are exact in the fp32 accumulators; the one
@@ -120,15 +124,22 @@ constexpr int TC_GROUP = 16;            // keys a caller places together
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Keys per staged tile: a thread holds TILE / 2 fp32 of S, DH / 2 of O and
-// DH / 4 words of Q's fragments, 112 at Dh 64 and 128 at Dh 128.
+// (at Dh 64 and 128) DH / 4 words of Q's fragments: 112 at Dh 64, 128 at
+// Dh 128, and at Dh 256, Q in shared memory, 144 (16 of S, 128 of O).
 template <int DH>
 __host__ __device__ constexpr int tc_tile() {
-  static_assert(DH == 64 || DH == 128, "head dims 64 and 128");
+  static_assert(DH == 64 || DH == 128 || DH == 256, "head dims 64, 128 and 256");
   return 8192 / DH;
 }
 
+// Does the tile keep Q's fragments in shared memory (re-read by ldmatrix
+// at each k-step) rather than in registers?  At Dh 256 they would take 64
+// registers a thread beside O's 128.
+template <int DH>
+__host__ __device__ constexpr bool tc_q_smem() { return DH > 128; }
+
 // bf16 shared-memory row: 16 bytes of padding, so the 8 rows an ldmatrix
-// reads start 4 banks apart (144 or 272 bytes).
+// reads start 4 banks apart (144, 272 or 528 bytes).
 template <int DH>
 __host__ __device__ constexpr int tc_srow() { return DH + 8; }
 
@@ -192,16 +203,24 @@ __device__ __forceinline__ uint32_t i8x2_to_bf16(uint32_t w, int i) {
                    (float)((int)(w << (16 - 16 * i)) >> 24));
 }
 
-// Shared memory of tc_attend.  bf16: a ring of TC_STAGES K and V tiles
-// [TILE][SROW].  int8: the bf16 K and V tiles the mma reads, a ring of raw
-// stages (K, V [TILE][DH] int8, then their bf16 scales), and the current
-// tile's scales in fp32.
+// Shared memory of tc_attend's key tiles.  bf16: a ring of TC_STAGES K and
+// V tiles [TILE][SROW].  int8: the bf16 K and V tiles the mma reads, a
+// ring of raw stages (K, V [TILE][DH] int8, then their bf16 scales), and
+// the current tile's scales in fp32.
 template <typename T, int DH>
-__host__ __device__ constexpr size_t tc_smem_bytes() {
+__host__ __device__ constexpr size_t tc_ring_bytes() {
   constexpr size_t TILE = tc_tile<DH>(), SROW = tc_srow<DH>();
   return std::is_same<T, int8_t>::value
              ? TILE * (2 * SROW * 2 + TC_STAGES * (2 * DH + 2 * 2) + 2 * 4)
              : TILE * TC_STAGES * 2 * SROW * 2;
+}
+
+// Shared memory of tc_attend: the key tiles, then (tc_q_smem) Q's tile
+// [TC_ROWS][SROW] bf16.  At Dh 256: 101,376 + 67,584 bytes on bf16 pools,
+// 83,584 + 67,584 on int8.
+template <typename T, int DH>
+__host__ __device__ constexpr size_t tc_smem_bytes() {
+  return tc_ring_bytes<T, DH>() + (tc_q_smem<DH>() ? (size_t)TC_ROWS * tc_srow<DH>() * 2 : 0);
 }
 
 // Mask policy of keys whose positions are their indices (the paged
@@ -326,16 +345,33 @@ __device__ __forceinline__ void tc_attend(
     }
   }
   // Q as the A operand of DH / 16 k-steps of 16 dims, zero on rows without
-  // a query.
-  uint32_t qf[DH / 16][4];
+  // a query: in registers, or (QS) in shared memory, where each k-step's
+  // fragment is read back with ldmatrix (row lane % 16, dims (lane / 16) *
+  // 8 of the step: the same fragment).
+  constexpr bool QS = tc_q_smem<DH>();
+  uint32_t qf[QS ? 1 : DH / 16][4];
+  if constexpr (!QS) {
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
+    for (int kk = 0; kk < DH / 16; ++kk) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = e & 1, col = kk * 16 + 2 * tq + (e >> 1) * 8;
-      qf[kk][e] = live[i] ? *reinterpret_cast<const uint32_t*>(q + roff[i] + col) : 0u;
+      for (int e = 0; e < 4; ++e) {
+        const int i = e & 1, col = kk * 16 + 2 * tq + (e >> 1) * 8;
+        qf[kk][e] = live[i] ? *reinterpret_cast<const uint32_t*>(q + roff[i] + col) : 0u;
+      }
     }
   }
+  __nv_bfloat16* const Qs =
+      reinterpret_cast<__nv_bfloat16*>(smem + tc_ring_bytes<T, DH>());
+  // Copy Q's tile in (with the first ring stage's group): row r is query r
+  // / G, head r % G; rows without a live query are zero-filled.
+  auto issue_q = [&]() {
+    for (int c = tid; c < TC_ROWS * (DH / 8); c += TC_THREADS) {
+      const int r = c / (DH / 8), col = (c % (DH / 8)) * 8, qi = r / G;
+      const bool ok = qi < TC_ROWS / G && qi < n_queries && qi < q_valid;
+      cp_async16_zfill(Qs + r * SROW + col,
+                       ok ? q + (size_t)qi * q_stride + (size_t)(r % G) * DH + col : q, ok);
+    }
+  };
 
   float o[DH / 8][4];
 #pragma unroll
@@ -388,6 +424,9 @@ __device__ __forceinline__ void tc_attend(
 
   const int t_lo = max(k_lo, 0) / TILE;
   const int ntiles = k_hi > 0 ? (k_hi + TILE - 1) / TILE - t_lo : 0;
+  if constexpr (QS) {
+    if (ntiles > 0) issue_q();
+  }
 #pragma unroll
   for (int st = 0; st < TC_STAGES - 1; ++st) {
     if (st < ntiles) issue(t_lo + st, st);
@@ -432,18 +471,37 @@ __device__ __forceinline__ void tc_attend(
     const bool edge = mask.edge(base, TILE, stage, qlo, qhi);
 
     // S = Q K^T: column tile nt holds keys nt * 8 .. + 7; each ldmatrix
-    // brings 32 dims (two k-steps).
+    // brings 32 dims (two k-steps).  Every column tile sums its k-steps in
+    // ascending order either way.
     float s[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (nt * 8 + (lane & 7)) * SROW + (lane >> 3) * 8;
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    if constexpr (!QS) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const __nv_bfloat16* kr = Ks + (nt * 8 + (lane & 7)) * SROW + (lane >> 3) * 8;
+#pragma unroll
+        for (int kk = 0; kk < DH / 32; ++kk) {
+          uint32_t b[4];
+          ldsm_x4(b, kr + kk * 32);
+          mma_16816(s[nt], qf[2 * kk], b[0], b[1]);
+          mma_16816(s[nt], qf[2 * kk + 1], b[2], b[3]);
+        }
+      }
+    } else {
+      const __nv_bfloat16* qr = Qs + (warp * 16 + (lane & 15)) * SROW + (lane >> 4) * 8;
 #pragma unroll
       for (int kk = 0; kk < DH / 32; ++kk) {
-        uint32_t b[4];
-        ldsm_x4(b, kr + kk * 32);
-        mma_16816(s[nt], qf[2 * kk], b[0], b[1]);
-        mma_16816(s[nt], qf[2 * kk + 1], b[2], b[3]);
+        uint32_t a0[4], a1[4];
+        ldsm_x4(a0, qr + kk * 32);
+        ldsm_x4(a1, qr + kk * 32 + 16);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t b[4];
+          ldsm_x4(b, Ks + (nt * 8 + (lane & 7)) * SROW + (lane >> 3) * 8 + kk * 32);
+          mma_16816(s[nt], a0, b[0], b[1]);
+          mma_16816(s[nt], a1, b[2], b[3]);
+        }
       }
     }
     // Logits in log2 units: dot * scale (* K scale), softcap, mask.

@@ -33,20 +33,27 @@
 //   cp.async copies, so two stages load while one is computed.  The paged
 //   policy reads the table's page ids one stage ahead of the copies that
 //   need them; the contiguous policy addresses its plane directly.  A bf16
-//   stage is 16 KB at Dh 64 and 32 KB at Dh 128: 53,472 and 102,624 B a
-//   block in all (int8: 29,664 and 54,240), room for two blocks a SM at
-//   both.
+//   stage is 16 KB at Dh 64, 32 KB at Dh 128 and 64 KB at Dh 256: 53,472,
+//   102,624 and 200,928 B a block in all (int8: 29,664, 54,240 and
+//   103,392), room for two blocks a SM at Dh 64 and 128, one at Dh 256 on
+//   bf16 (two stages in flight are 128 KB a SM, far more than the bytes
+//   the card's memory latency needs in flight).  The stage keeps its 64
+//   keys at every head dim, so the plans of ops/cuda/paged.py and flash.py
+//   do not depend on it.
 // - Every K and V element is read from shared memory once and used for all
 //   G heads of its kv head (the block's 8 warps, whatever G is; G is padded
-//   to GP = 4 or 8, a template parameter).  Scores: 8 lanes a key, each
-//   holding a Dh / 8 slice of every head's q in fp32 registers, sum their
-//   slices and exchange them in 7 shuffles (lane g ends with head g's
-//   dot).  Softmax: warp g takes head g's 64 scores (running max m, sum l,
-//   rescale alpha) and writes the probabilities.  P.V: warp w sums keys
-//   8w .. 8w + 7 into all heads' outputs for its lane's Dh / 32 dims, so
-//   no FMA chain is longer than 8 a stage; the warps' sums are added in
-//   warp order at the end.  Three barriers a stage.  Registers: GP 4
-//   kernels and bf16 GP 8 at Dh 64 are held to 128, two blocks a SM.
+//   to GP = 4 or 8, a template parameter).  Scores: LPK lanes a key
+//   (dec_lanes: 8 at Dh 64 and 128; at Dh 256 16 for GP 4 and 32 for GP 8,
+//   so a lane's q slice stays at 64 fp32 registers), each holding a Dh /
+//   LPK slice of every head's q in fp32 registers, sum their slices and
+//   exchange them in shuffles (lane g ends with head g's dot).  Softmax:
+//   warp g takes head g's 64 scores (running max m, sum l, rescale alpha)
+//   and writes the probabilities.  P.V: warp w sums keys
+//   8w .. 8w + 7 into all heads' outputs for its lane's Dh / 32 dims (2, 4
+//   or 8), so no FMA chain is longer than 8 a stage; the warps' sums are
+//   added in warp order at the end.  Three barriers a stage.  Registers:
+//   GP 4 kernels at Dh 64 and 128 and bf16 GP 8 at Dh 64 are held to 128,
+//   two blocks a SM.
 // - fp32 caches (kernel D beside an fp32 model) stage fp32 rows (twice
 //   bf16's bytes: 102,624 and 200,928 B a block at Dh 64 and 128, two
 //   blocks a SM at Dh 64, one at 128) and take fp32 queries and write fp32
@@ -83,11 +90,20 @@ using io_t = typename std::conditional<is_f32<T>(), float, __nv_bfloat16>::type;
 
 // Blocks a SM a decode kernel's registers are held to: two for GP 4 and
 // for bf16 at Dh 64 GP 8; int8 Dh 64 GP 8 and Dh 128 GP 8 need more
-// registers than half a SM's.
+// registers than half a SM's.  At Dh 256 a bf16 block's shared memory
+// (200,928 B) leaves one a SM, and an int8 block's q slice and 8 output
+// dims a head would not fit 128 registers without spills: not held.
 template <typename T, int DH, int GP>
 __host__ __device__ constexpr int decode_min_blocks() {
-  return is_f32<T>() ? (DH == 64 ? 2 : 1) : (GP == 4 || (DH == 64 && !is_q8<T>()) ? 2 : 1);
+  return is_f32<T>() ? (DH == 64 ? 2 : 1)
+                     : (DH < 256 && (GP == 4 || (DH == 64 && !is_q8<T>())) ? 2 : 1);
 }
+
+// Lanes that score one key together: 8, or at Dh 256 DH * GP / 64 (16 for
+// GP 4, 32 for GP 8), so a lane holds DH / LPK dims of each of the GP
+// heads' q rows: 64 fp32 registers at Dh 256 (128 at Dh 128 GP 8).
+template <int DH, int GP>
+__host__ __device__ constexpr int dec_lanes() { return DH <= 128 ? 8 : DH * GP / 64; }
 
 // A decode block's shared memory: the ring of DEC_STAGES stages (K and V
 // rows [DEC_KEYS][DH], bf16 or int8, then on int8 pools their bf16 K and V
@@ -109,6 +125,7 @@ struct DecodeSmem {
   static constexpr size_t FLAG_OFF = ALPHA_OFF + 32;
   static constexpr size_t BYTES = FLAG_OFF + 16;
   static_assert(DEC_WARPS * 8 * DH * 4 <= DEC_STAGES * STAGE, "output sums fit the ring");
+  static_assert(BYTES <= 232448, "a block's shared memory");
 
   __device__ static int* pids(unsigned char* smem) {
     return reinterpret_cast<int*>(smem + PID_OFF);
@@ -125,11 +142,11 @@ __host__ __device__ constexpr size_t decode_smem_bytes() {
 template <int DH>
 __host__ __device__ constexpr int part_stride() { return DH + 4; }
 
-// Elements N * i .. N * i + N - 1 (N = 2 or 4) of a staged bf16 or int8
-// row as fp32: a decode lane's share of the output dims.
+// Elements N * i .. N * i + N - 1 (N = 2, 4 or 8) of a staged bf16 or
+// int8 row as fp32: a decode lane's share of the output dims.
 template <int N>
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* row, int i, float (&f)[N]) {
-  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 dims");
+  static_assert(N == 2 || N == 4 || N == 8, "a lane owns 2, 4 or 8 dims");
   const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(row) + (N / 2) * i;
 #pragma unroll
   for (int e = 0; e < N / 2; ++e) {
@@ -157,17 +174,24 @@ __device__ __forceinline__ void load_vec(const float* row, int i, float (&f)[N])
 
 template <int N>
 __device__ __forceinline__ void load_vec(const int8_t* row, int i, float (&f)[N]) {
-  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 dims");
+  static_assert(N == 2 || N == 4 || N == 8, "a lane owns 2, 4 or 8 dims");
   if constexpr (N == 2) {
     const char2 c = reinterpret_cast<const char2*>(row)[i];
     f[0] = (float)c.x;
     f[1] = (float)c.y;
-  } else {
+  } else if constexpr (N == 4) {
     const char4 c = reinterpret_cast<const char4*>(row)[i];
     f[0] = (float)c.x;
     f[1] = (float)c.y;
     f[2] = (float)c.z;
     f[3] = (float)c.w;
+  } else {
+    const uint2 u = reinterpret_cast<const uint2*>(row)[i];
+    const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[4 * j + e] = (float)((int)(w[j] << (24 - 8 * e)) >> 24);
   }
 }
 
@@ -301,9 +325,10 @@ struct ContigDecodeRows {
 // multiples of DEC_KEYS, by the block's DEC_THREADS threads.  Each staged K
 // and V element is read (and, on int8, converted) by one thread and used
 // for every head:
-// - scores: 8 lanes a key, each holding a DH / 8 slice of all GP heads' q
-//   rows in fp32 registers, sum their slice of each head's dot and
-//   exchange the sums (7 shuffles: lane `sub` < GP ends with head sub's);
+// - scores: LPK = dec_lanes<DH, GP>() lanes a key, each holding a DH /
+//   LPK slice of all GP heads' q rows in fp32 registers, sum their slice of
+//   each head's dot and exchange the sums (lane `sub` < GP ends with head
+//   sub's);
 // - softmax: warp g < G takes head g's stage scores (online max m, sum l,
 //   alpha) and writes the probabilities (times the V scale on int8);
 // - P.V: warp w sums keys 8w .. 8w + 7 of the stage into all GP heads'
@@ -325,18 +350,21 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
   using S = DecodeSmem<T, DH>;
   constexpr bool Q8 = is_q8<T>();
   constexpr int N = DH / 32;                       // output dims a lane owns
-  constexpr int DPL = DH / 8;                      // dims a lane scores
+  constexpr int LPK = dec_lanes<DH, GP>();         // lanes a key
+  constexpr int DPL = DH / LPK;                    // dims a lane scores
   constexpr int W = Q8 ? (DPL < 16 ? DPL : 16) : 8;  // elements a load
   constexpr int NSEG = DPL / W;                    // loads a lane a key
-  constexpr int KPP = DEC_THREADS / 8;             // keys a score pass
+  constexpr int KPP = DEC_THREADS / LPK;           // keys a score pass
   constexpr int SS = DEC_KEYS + 4;                 // S row stride (conflict-free writes)
   constexpr int KPW = DEC_KEYS / DEC_WARPS;        // P.V keys a warp
-  static_assert(DEC_KEYS % KPP == 0 && KPW % 4 == 0, "stage shape");
+  static_assert(DEC_KEYS % KPP == 0 && KPW % 4 == 0 && LPK >= GP && LPK <= 32,
+                "stage shape");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int sub = tid % 8, kq = tid / 8;  // place in its key's lane group; key of the pass
-  // Segment i of this lane's dims starts at element seg(i): the 8 lanes of
-  // a key read 8 consecutive pieces of its row (128 bytes a load on bf16).
-  auto seg = [&](int i) { return (i * 8 + sub) * W; };
+  const int sub = tid % LPK, kq = tid / LPK;  // place in its key's lane group; key of the pass
+  // Segment i of this lane's dims starts at element seg(i): the LPK lanes
+  // of a key read LPK consecutive pieces of its row (8 lanes, 128 bytes, a
+  // load phase on bf16).
+  auto seg = [&](int i) { return (i * LPK + sub) * W; };
 
   float* const Ssm = reinterpret_cast<float*>(smem + S::S_OFF);
   float* const PT = reinterpret_cast<float*>(smem + S::PT_OFF);
@@ -443,7 +471,7 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
       // Lane sub < GP ends with head sub's dot: add across lane groups of
       // GP first, then halve the heads each step.
 #pragma unroll
-      for (int hw = 4; hw >= GP; hw /= 2)
+      for (int hw = LPK / 2; hw >= GP; hw /= 2)
 #pragma unroll
         for (int g = 0; g < GP; ++g) d[g] += __shfl_xor_sync(0xffffffffu, d[g], hw);
 #pragma unroll

@@ -103,6 +103,11 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache, const int*
     case 128:
       return launch_decode<T, 128>(q, k_cache, v_cache, seq_lens, scratch, counters, out, B, H,
                                    Hkv, S, span, splits, scale, softcap, window, stream);
+    case 256:  // bf16 only: the fp32 entry is compiled at Dh 64 and 128
+      if constexpr (!is_f32<T>())
+        return launch_decode<T, 256>(q, k_cache, v_cache, seq_lens, scratch, counters, out, B,
+                                     H, Hkv, S, span, splits, scale, softcap, window, stream);
+      return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -148,6 +153,8 @@ extern "C" int resources(const char* entry, int dh, int G, int* out) {
       return f32 ? report<float, 64>(G, out) : report<bf16, 64>(G, out);
     case 128:
       return f32 ? report<float, 128>(G, out) : report<bf16, 128>(G, out);
+    case 256:
+      return f32 ? (int)cudaErrorInvalidValue : report<bf16, 256>(G, out);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -438,6 +438,9 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
     case 128:
       return launch_prefill<128>(q, k, v, positions, kv_valid, out, B, T, H, Hkv, scale,
                                  softcap, window, stream);
+    case 256:
+      return launch_prefill<256>(q, k, v, positions, kv_valid, out, B, T, H, Hkv, scale,
+                                 softcap, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -445,7 +448,7 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
 
 // The dynamic shared memory an entry of kernel A (flash_prefill, or
 // flash_prefill_f32) launches with at head dim dh (any G), and its blocks
-// an SM holds (out[1]).
+// an SM holds (out[1]).  The fp32 entry is compiled at Dh 64 and 128 only.
 extern "C" int resources(const char* entry, int dh, int, int* out) {
   if (!strcmp(entry, "flash_prefill_f32")) {
     switch (dh) {
@@ -467,6 +470,9 @@ extern "C" int resources(const char* entry, int dh, int, int* out) {
     case 128:
       return occupancy(flash_prefill_kernel<128>, TC_THREADS, prefill_smem_bytes<128>(),
                        prefill_smem_bytes<128>(), out);
+    case 256:
+      return occupancy(flash_prefill_kernel<256>, TC_THREADS, prefill_smem_bytes<256>(),
+                       prefill_smem_bytes<256>(), out);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -13,7 +13,7 @@
 // alone over its slot's pages, C's chunk blocks without the decode rows
 // (both run the same chunk_block routine).
 //
-// Pool layout (one layer): [P, Hkv, page, DH] bf16 (DH 64 or 128, a
+// Pool layout (one layer): [P, Hkv, page, DH] bf16 (DH 64, 128 or 256, a
 // template parameter; every C entry takes `dh` and dispatches), or int8 with per-key
 // scales [P, Hkv, page] bf16 (the *_i8 entries, the TPU kernels' `quant`
 // branch); page id `P - 1` is the engine's dump page and is read like any
@@ -38,7 +38,7 @@
 // Chunk blocks (C's chunk rows, and every block of E): one block per
 // (query block of 128 / G queries, kv head), the 128 (query, head) rows of
 // the tensor-core tile of attention_common.cuh (tc_attend), which gathers
-// its key tiles (128 keys at Dh 64, 64 at Dh 128) from the slot's pages in
+// its key tiles (128 keys at Dh 64, 64 at Dh 128, 32 at Dh 256) from the slot's pages in
 // 16-key groups.  Bound on the H100: operations, 4 * DH flops per visible
 // (row, key) pair at 989 TF/s bf16 (TinyLlama's 512-row chunk at context
 // 1024 moves ~5.8 MB of q, K/V and out, whose time at 3.35 TB/s is about a
@@ -46,8 +46,10 @@
 // hold a key some live row sees: from the window's start for its first
 // query to its causal/validity bound.  With G = 8 a block holds 16
 // queries, so a 512-row chunk is 32 x Hkv blocks.  Dynamic shared memory
-// is 110,592 bytes at Dh 64 (three bf16 stages of K and V; int8: 88,576)
-// and 104,448 at Dh 128 (int8: 85,248), past the 48 KB default: each
+// is 110,592 bytes at Dh 64 (three bf16 stages of K and V; int8: 88,576),
+// 104,448 at Dh 128 (int8: 85,248) and 168,960 at Dh 256 with Q's tile
+// (int8: 151,168; C's block takes the decode stages' 200,928 /
+// 103,392 when larger), past the 48 KB default: each
 // launcher opts its kernel in once per device, as B's does.  The registers
 // (a whole tile's fp32 S, O and Q's fragments) hold an SM to one such
 // block of 256 threads; C's 8 decode + 32 chunk blocks per kv head thus
@@ -336,13 +338,15 @@ int report(const char* entry, int G, int* out) {
 
 }  // namespace
 
-// Each entry runs its launcher's Dh-64 or Dh-128 instantiation.
+// Each entry runs its launcher's Dh-64, Dh-128 or Dh-256 instantiation.
 #define CLA_BY_DH(launcher, T, ...)                     \
   switch (dh) {                                         \
     case 64:                                            \
       return launcher<T, 64>(__VA_ARGS__);              \
     case 128:                                           \
       return launcher<T, 128>(__VA_ARGS__);             \
+    case 256:                                           \
+      return launcher<T, 256>(__VA_ARGS__);             \
     default:                                            \
       return (int)cudaErrorInvalidValue;                \
   }
@@ -420,6 +424,8 @@ extern "C" int resources(const char* entry, int dh, int G, int* out) {
       return report<64>(entry, G, out);
     case 128:
       return report<128>(entry, G, out);
+    case 256:
+      return report<256>(entry, G, out);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -42,9 +42,9 @@ CUDA_ROOTS = ("/usr/local/cuda",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every kernel entry: library -> {symbol: argtypes}.  Every
-# attention entry ends with the head dim (``dh``, 64 or 128: each kernel is
-# compiled for both) and the stream; kernel G's entries (one a weight
-# format) end with the stream.
+# attention entry ends with the head dim (``dh``: each kernel is compiled
+# for every one of HEAD_DIMS, the fp32 entries for FP32_HEAD_DIMS) and the
+# stream; kernel G's entries (one a weight format) end with the stream.
 SIGNATURES: dict[str, dict[str, list]] = {
     "flash_prefill": {
         # q, k, v, positions, kv_valid, out, B, T, H, Hkv, scale, softcap,
@@ -103,8 +103,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
 # int out[2] (dynamic shared memory bytes, blocks an SM holds).
 RESOURCES = [ctypes.c_char_p, _I, _I, _P]
 
-# Head dims every kernel is compiled for; the wrappers refuse others.
-HEAD_DIMS = (64, 128)
+# Head dims every attention kernel is compiled for; the wrappers refuse
+# others.  The fp32 entries of A and D (the distillation trainer's) are
+# compiled for the first two only.
+HEAD_DIMS = (64, 128, 256)
+FP32_HEAD_DIMS = (64, 128)
 
 
 class KernelBuildError(RuntimeError):
@@ -261,3 +264,14 @@ def check(cond: bool, msg: str) -> None:
     """Argument validation for the wrappers (never stripped under -O)."""
     if not cond:
         raise ValueError(msg)
+
+
+def check_head_dim(dh: int, fp32: bool = False) -> None:
+    """Refuse a head dim no kernel (or, with ``fp32``, no fp32 entry) is
+    compiled for, naming the ROADMAP item that would add it."""
+    check(dh in HEAD_DIMS,
+          f"head dim {dh} unsupported: the attention kernels are compiled "
+          f"at {HEAD_DIMS} (ROADMAP Queue 2 item 12)")
+    check(not fp32 or dh in FP32_HEAD_DIMS,
+          f"head dim {dh} unsupported on fp32: the fp32 entries are "
+          f"compiled at {FP32_HEAD_DIMS} (ROADMAP Queue 2 item 11)")

@@ -34,7 +34,7 @@ from crowdllama_tpu_torch.ops.attention import (
     decode_attention_ref,
     prefill_attention_ref,
 )
-from crowdllama_tpu_torch.ops.cuda import HEAD_DIMS, check, launch
+from crowdllama_tpu_torch.ops.cuda import check, check_head_dim, launch
 from crowdllama_tpu_torch.ops.cuda.paged import (
     DECODE_STAGE_KEYS,
     split_plan,
@@ -62,10 +62,11 @@ def flash_prefill_attention(q, k, v, positions, scale: float,
 
     The caller guarantees ``positions[b, t] <= t`` (arange, or arange
     clamped at plen-1 with ``kv_valid`` masking the padding): the kernel
-    skips key tiles above each query block's diagonal.  Head dims 64 and
-    128, up to 8 query heads per kv head.  Where autograd records (grad
-    mode on and q, k or v requiring grad) the call goes through
-    :class:`PrefillAttention`, whose forward is the same launch.
+    skips key tiles above each query block's diagonal.  Head dims 64, 128
+    and 256 (fp32: 64 and 128), up to 8 query heads per kv head.  Where
+    autograd records (grad mode on and q, k or v requiring grad) the call
+    goes through :class:`PrefillAttention`, whose forward is the same
+    launch.
     """
     if q.device.type == "cpu":
         return prefill_attention_ref(q, k, v, positions, scale,
@@ -90,8 +91,7 @@ def _launch_prefill(q, k, v, positions, scale, softcap, sliding_window,
           "all operands must be on one device")
     check(q.dtype == k.dtype == v.dtype and q.dtype in DTYPES,
           "q/k/v must all be bfloat16 or all float32")
-    check(dh in HEAD_DIMS,
-          f"head dim {dh} unsupported (kernel takes {HEAD_DIMS})")
+    check_head_dim(dh, fp32=q.dtype == torch.float32)
     check(h % hkv == 0 and h // hkv <= MAX_GROUP,
           f"heads {h}/{hkv}: at most {MAX_GROUP} query heads per kv head")
     check(tuple(k.shape) == tuple(v.shape) == (b, hkv, t, dh),
@@ -206,8 +206,7 @@ def flash_decode_attention(q, k_cache, v_cache, seq_lens, scale: float,
           "all operands must be on one device")
     check(q.dtype == k_cache.dtype == v_cache.dtype and q.dtype in DTYPES,
           "q and caches must all be bfloat16 or all float32")
-    check(dh in HEAD_DIMS,
-          f"head dim {dh} unsupported (kernel takes {HEAD_DIMS})")
+    check_head_dim(dh, fp32=q.dtype == torch.float32)
     check(tuple(k_cache.shape) == tuple(v_cache.shape) == (b, hkv, s, dh),
           f"cache shape {tuple(k_cache.shape)} != {(b, hkv, s, dh)}")
     check(h % hkv == 0 and h // hkv <= MAX_GROUP,

@@ -35,7 +35,7 @@ Calls on one device share that buffer, kernel D's calls too
 (``ops/cuda/flash.py``), so they run in one stream's order; every launch
 leaves the counters at zero.
 
-Pools are one layer's ``[P, Hkv, page, Dh]`` (Dh 64 or 128 on the
+Pools are one layer's ``[P, Hkv, page, Dh]`` (Dh 64, 128 or 256 on the
 card), bf16 or int8 (the last page is the engine's dump page), tables
 ``[B, NP]`` int32.  An int8 pool comes
 with per-position scales ``k_scale``/``v_scale`` ``[P, Hkv, page]`` bf16:
@@ -61,7 +61,7 @@ from crowdllama_tpu_torch.ops.attention import (
     decode_attention_ref,
     prefill_attention_ctx,
 )
-from crowdllama_tpu_torch.ops.cuda import HEAD_DIMS, check, launch
+from crowdllama_tpu_torch.ops.cuda import check, check_head_dim, launch
 from crowdllama_tpu_torch.ops.quant import dequantize_kv
 
 # Query heads per kv head: a decode warp each, 8 warps a block; the chunk
@@ -191,8 +191,8 @@ def _check_pool(q, pool_k, pool_v, page_table, k_scale,
     check(q.dtype == torch.bfloat16, "q must be bfloat16")
     check(scales or pool_k.dtype == pool_v.dtype == torch.bfloat16,
           "pools must be bfloat16 (or int8 with scales)")
-    check(dh == pdh and dh in HEAD_DIMS,
-          f"head dim {dh} unsupported (kernels take {HEAD_DIMS})")
+    check(dh == pdh, f"q's head dim {dh} != the pool's {pdh}")
+    check_head_dim(dh)
     check(pool_v.shape == pool_k.shape, "pool_k/pool_v shapes differ")
     check(h % hkv == 0 and h // hkv <= MAX_GROUP,
           f"heads {h}/{hkv}: at most {MAX_GROUP} query heads per kv head")

@@ -16,7 +16,12 @@ windows across pages, groups of 2, 4 and 7; kernel F bit-equal to B at
 tp 2 and 4);
 and at head dim 128 with Llama-3-8B's heads (32 query, 8 kv): every
 kernel on both pools, A at groups of 4 and 7 (and 7 at Dh 64), F
-bit-equal to B, and the builds' ``ptxas`` reports without spills.  Kernel
+bit-equal to B, and the builds' ``ptxas`` reports without spills; at
+head dim 256 with Gemma-2-9b's group of 2 (16 query, 8 kv) and groups of
+7 and 8: A, B and F (bit-equal to B) on both pools, D, C's chunk rows and
+E on both pools, B's and D's split edges, every entry's block fitting a
+SM, and a head dim of 96 (every wrapper) and fp32 at 256 (A's and D's
+fp32 entries) refused naming their ROADMAP items.  Kernel
 B's split-KV grid on both pools, at both head dims and groups of 1, 2, 4,
 7 and 8 (padded to 4 or 8 heads), at lengths on its split edges (0, 1,
 page - 1, page, page + 1, one split's 256 keys, one more, the table's
@@ -392,11 +397,14 @@ def _close(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh,h,hkv,softcap,window", [
     (128, 32, 8, 0.0, 0), (128, 32, 8, 30.0, 17), (128, 28, 4, 0.0, 0),
-    (128, 28, 4, 30.0, 40), (64, 28, 4, 0.0, 33)])
+    (128, 28, 4, 30.0, 40), (64, 28, 4, 0.0, 33), (256, 16, 8, 0.0, 0),
+    (256, 16, 8, 50.0, 33), (256, 14, 2, 30.0, 0), (256, 8, 1, 0.0, 40)])
 def test_prefill_kernel_head_dims_and_groups_on_card(cuda_device, dh, h, hkv,
                                                      softcap, window):
-    """Kernel A at Dh 128 (groups of 4 and 7) and at Dh 64 with a group of
-    7, over two batch rows padded past their prompt (positions clamped,
+    """Kernel A at Dh 128 (groups of 4 and 7), at Dh 64 with a group of 7
+    and at Dh 256 (Gemma-2-9b's group of 2, and 7 and 8; Q's tile in
+    shared memory, 32-key tiles), over two batch rows padded past their
+    prompt (positions clamped,
     padding keys invalid), every row that sees a key held against the
     plain version; row 1's first 7 queries see none and are zeros from the
     kernel (the plain version averages V there)."""
@@ -419,12 +427,13 @@ def test_prefill_kernel_head_dims_and_groups_on_card(cuda_device, dh, h, hkv,
     assert not got[1, :7].any()
 
 
-def _pools128(dev, gen, int8: bool, page: int = 128, pages: int = 17):
+def _pools128(dev, gen, int8: bool, page: int = 128, pages: int = 17,
+              dh: int = 128):
     from crowdllama_tpu_torch.ops.quant import quantize_kv
 
     bf = dict(device=dev, dtype=torch.bfloat16)
-    pk = torch.randn((pages, 8, page, 128), generator=gen, **bf)
-    pv = torch.randn((pages, 8, page, 128), generator=gen, **bf)
+    pk = torch.randn((pages, 8, page, dh), generator=gen, **bf)
+    pv = torch.randn((pages, 8, page, dh), generator=gen, **bf)
     if not int8:
         return pk, pv, {}
     (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
@@ -486,15 +495,19 @@ CHUNK128_CASES = [
     (0, 80, 64, 0.0, 0, 32), (256, 80, 50, 30.0, 0, 32),
     (200, 75, 60, 30.0, 100, 32), (130, 70, 70, 0.0, 50, 16),
     (200, 75, 61, 0.0, 100, 56)]
+# The same at Dh 256 (32-key tiles, Q's tile in shared memory): Gemma-2-9b's
+# group of 2 (16 / 8), softcap 50, windows across tiles and pages, and
+# groups of 7 and 8.
+CHUNK256_CASES = [
+    (0, 80, 64, 0.0, 0, 16), (256, 80, 50, 50.0, 0, 16),
+    (200, 75, 60, 50.0, 100, 16), (130, 70, 70, 0.0, 33, 16),
+    (200, 75, 61, 0.0, 100, 56), (100, 40, 37, 30.0, 0, 64)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("ctx,c,valid,softcap,window,h", CHUNK128_CASES)
-def test_chunk_and_ragged_dh128_on_card(cuda_device, int8, ctx, c, valid,
-                                        softcap, window, h):
+def _chunk_and_ragged(cuda_device, int8, ctx, c, valid, softcap, window,
+                      h, dh: int = 128):
     """Kernel E over its slot's pages, and C's chunk rows beside decode
-    rows on the same pool, at Dh 128."""
+    rows on the same pool, at head dim ``dh``."""
     from crowdllama_tpu_torch.ops.cuda.paged import (
         flash_ragged_chunk_attention,
         ragged_chunk_attention_plain,
@@ -503,12 +516,12 @@ def test_chunk_and_ragged_dh128_on_card(cuda_device, int8, ctx, c, valid,
     from crowdllama_tpu_torch.ops.quant import dequantize_kv
 
     gen, bf = _card_case(cuda_device)
-    pk, pv, sc = _pools128(cuda_device, gen, int8)
+    pk, pv, sc = _pools128(cuda_device, gen, int8, dh=dh)
     i32 = dict(dtype=torch.int32, device=cuda_device)
-    q = torch.randn((c, h, 128), generator=gen, **bf)
+    q = torch.randn((c, h, dh), generator=gen, **bf)
     pages = torch.tensor([3, 9, 1, 14], **i32)
     args = (q, pk, pv, pages, torch.tensor(ctx, **i32),
-            torch.tensor(ctx + valid, **i32), 0.088)
+            torch.tensor(ctx + valid, **i32), dh ** -0.5)
     kw = dict(softcap=softcap, sliding_window=window, **sc)
     got = flash_ragged_chunk_attention(*args, **kw)
     want = ragged_chunk_attention_plain(*args, **kw)
@@ -517,7 +530,7 @@ def test_chunk_and_ragged_dh128_on_card(cuda_device, int8, ctx, c, valid,
 
     b, page = 4, 128
     table = torch.tensor(_TABLE, **i32)
-    qr = torch.randn((b + c, h, 128), generator=gen, **bf)
+    qr = torch.randn((b + c, h, dh), generator=gen, **bf)
     cpos = torch.clamp(ctx + torch.arange(c, device=cuda_device),
                        max=ctx + valid - 1)
     cp, co = table[3, cpos // page].long(), cpos % page
@@ -531,12 +544,109 @@ def test_chunk_and_ragged_dh128_on_card(cuda_device, int8, ctx, c, valid,
     ck, cv = rows(pk, sc.get("k_scale")), rows(pv, sc.get("v_scale"))
     ql = torch.tensor([1, 0, 1, 0, valid], **i32)
     kl = torch.tensor([300, 1, 512, 1, ctx + valid], **i32)
-    rargs = (qr, ck, cv, pk, pv, table, ql, kl, 3, 0.088)
+    rargs = (qr, ck, cv, pk, pv, table, ql, kl, 3, dh ** -0.5)
     got = ragged_paged_attention(*rargs, **kw)
     want = ragged_paged_attention_ref(*rargs, **kw)
     live = [0, 2] + [b + i for i in range(valid)]
     _close(got[live], want[live])
     assert not got[[1, 3] + [b + i for i in range(valid, c)]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ctx,c,valid,softcap,window,h", CHUNK128_CASES)
+def test_chunk_and_ragged_dh128_on_card(cuda_device, int8, ctx, c, valid,
+                                        softcap, window, h):
+    _chunk_and_ragged(cuda_device, int8, ctx, c, valid, softcap, window, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ctx,c,valid,softcap,window,h", CHUNK256_CASES)
+def test_chunk_and_ragged_dh256_on_card(cuda_device, int8, ctx, c, valid,
+                                        softcap, window, h):
+    _chunk_and_ragged(cuda_device, int8, ctx, c, valid, softcap, window, h,
+                      dh=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("softcap,window", [(0.0, 0), (50.0, 40)])
+@pytest.mark.parametrize("h", [16, 64])
+def test_paged_decode_and_flash_decode_dh256_on_card(cuda_device, int8,
+                                                     softcap, window, h):
+    """B and F (tp 2, one launch, bit-equal to B) at Dh 256 on both pools,
+    and D over the contiguous cache, at Gemma-2-9b's group of 2 (16 / 8:
+    16 lanes a key) and a group of 8 (64 / 8: 32 lanes a key); a one-token
+    and a zero-length slot."""
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        decode_attention_plain,
+        flash_decode_attention,
+    )
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+        paged_decode_attention_plain,
+    )
+
+    gen, bf = _card_case(cuda_device)
+    pk, pv, sc = _pools128(cuda_device, gen, int8, dh=256)
+    table = torch.tensor(_TABLE, dtype=torch.int32, device=cuda_device)
+    q = torch.randn((4, h, 256), generator=gen, **bf)
+    lens = torch.tensor([300, 1, 0, 512], dtype=torch.int32,
+                        device=cuda_device)
+    kw = dict(softcap=softcap, sliding_window=window)
+    got = flash_paged_decode_attention(q, pk, pv, table, lens, 0.0625, **kw,
+                                       **sc)
+    want = paged_decode_attention_plain(q, pk, pv, table, lens, 0.0625, **kw,
+                                        **sc)
+    _close(got[[0, 1, 3]], want[[0, 1, 3]])
+    assert not got[2].any()
+
+    def cut(x):
+        return [s.contiguous() for s in x.chunk(2, dim=1)]
+
+    outs = flash_paged_decode_attention_tp(
+        cut(q), cut(pk), cut(pv), table, lens, 0.0625, **kw,
+        **{f"{k}s": cut(v) for k, v in sc.items()})
+    assert torch.equal(torch.cat(outs, dim=1), got)
+    if int8:
+        return
+    kc = torch.randn((4, 8, 600, 256), generator=gen, **bf)
+    vc = torch.randn((4, 8, 600, 256), generator=gen, **bf)
+    dlens = torch.tensor([600, 1, 0, 129], dtype=torch.int32,
+                         device=cuda_device)
+    got = flash_decode_attention(q, kc, vc, dlens, 0.0625, **kw)
+    want = decode_attention_plain(q, kc, vc, dlens, 0.0625, **kw)
+    _close(got[[0, 1, 3]], want[[0, 1, 3]])
+    assert not got[2].any()
+
+
+@pytest.mark.cuda
+def test_other_head_dims_and_fp32_dh256_are_refused(cuda_device):
+    """A head dim no kernel is compiled for (96) is refused by every
+    wrapper, and an fp32 call at Dh 256 by A's and D's fp32 entries, each
+    naming the ROADMAP item that would add it; nothing falls back to the
+    plain version."""
+    from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
+
+    gen, bf = _card_case(cuda_device)
+    f32 = dict(device=cuda_device, dtype=torch.float32)
+    i32 = dict(device=cuda_device, dtype=torch.int32)
+    for dh, opts, item in ((96, bf, "item 12"), (256, f32, "item 11")):
+        q = torch.randn((1, 16, 4, dh), generator=gen, **opts)
+        k = torch.randn((1, 2, 16, dh), generator=gen, **opts)
+        pos = torch.arange(16, **i32)[None]
+        with pytest.raises(ValueError, match=f"ROADMAP Queue 2 {item}"):
+            flash_prefill_attention(q, k, k, pos, 0.1)
+        with pytest.raises(ValueError, match=f"ROADMAP Queue 2 {item}"):
+            flash_decode_attention(q[:, 0].contiguous(), k, k,
+                                   torch.tensor([16], **i32), 0.1)
+    pk = torch.randn((3, 2, 16, 96), generator=gen, **bf)
+    table = torch.tensor([[0, 1]], **i32)
+    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 12"):
+        flash_paged_decode_attention(
+            torch.randn((1, 4, 96), generator=gen, **bf), pk, pk, table,
+            torch.tensor([20], **i32), 0.1)
 
 
 @pytest.mark.cuda
@@ -597,18 +707,25 @@ def test_tp_decode_dh128_bit_identical_to_paged_decode(cuda_device, int8, tp):
 
 @pytest.mark.cuda
 def test_builds_report_no_spills(cuda_device):
-    """Every kernel instantiation, at Dh 64 and 128 on both pools, keeps
-    its registers: ``ptxas -v`` reports no spill stores or loads."""
+    """Every kernel instantiation, at Dh 64, 128 and 256 on both pools (the
+    fp32 entries at 64 and 128 only), keeps its registers: ``ptxas -v``
+    reports no spill stores or loads."""
     from crowdllama_tpu_torch.ops import cuda as kernels
 
     rows = [dict(r, library=name) for name in kernels.SIGNATURES
             for r in kernels.ptxas_usage(name)]
     assert {(r["kernel"], r["dh"]) for r in rows} >= {
-        (k, dh) for dh in (64, 128)
+        (k, dh) for dh in (64, 128, 256)
         for k in ("flash_prefill_kernel", "flash_decode_kernel",
                   "paged_decode_kernel", "ragged_paged_kernel",
-                  "ragged_chunk_kernel", "prefill_tf_kernel")}
-    assert {(r["kernel"], r["dh"]) for r in rows if r["dtype"] == "fp32"} >= {
+                  "ragged_chunk_kernel")} | {
+        ("prefill_tf_kernel", dh) for dh in (64, 128)}
+    assert {(r["kernel"], r["dh"], r["dtype"]) for r in rows
+            if r["dh"] == 256} >= {
+        (k, 256, t) for t in ("bf16", "int8")
+        for k in ("paged_decode_kernel", "ragged_paged_kernel",
+                  "ragged_chunk_kernel")}
+    assert {(r["kernel"], r["dh"]) for r in rows if r["dtype"] == "fp32"} == {
         (k, dh) for dh in (64, 128)
         for k in ("flash_decode_kernel", "prefill_tf_kernel")}
     for kernel in ("grouped_stream_kernel", "grouped_wgmma_kernel"):
@@ -668,7 +785,7 @@ def _split_case(dev, gen, int8: bool, dh: int, h: int, hkv: int,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (256, 8)])
 @pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 40),
                                             (0.0, 300)])
@@ -775,6 +892,27 @@ def test_decode_block_leaves_two_blocks_a_sm(cuda_device, dh, group):
         assert res["blocks_per_sm"] >= 1, res
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [2, 8])
+def test_dh256_blocks_fit_and_launch(cuda_device, group):
+    """At Dh 256 every attention entry's block fits the 227 KB a block may
+    take and at least one block fits a SM (the bf16 decode block's three
+    64-key stages of 64 KB leave room for one)."""
+    from crowdllama_tpu_torch.ops import cuda as kernels
+
+    for lib, entry in (("paged_attention", "paged_decode"),
+                       ("paged_attention", "paged_decode_i8"),
+                       ("paged_attention", "ragged_paged"),
+                       ("paged_attention", "ragged_paged_i8"),
+                       ("paged_attention", "ragged_chunk"),
+                       ("paged_attention", "ragged_chunk_i8"),
+                       ("flash_decode", "flash_decode"),
+                       ("flash_prefill", "flash_prefill")):
+        res = kernels.kernel_resources(lib, entry, 256, group, cuda_device)
+        assert res["smem_bytes"] <= 232448 and res["blocks_per_sm"] >= 1, (
+            entry, res)
+
+
 # ------------------------------------------------------ D's split-KV grid
 
 def _contig_case(dev, gen, dh: int, h: int, hkv: int, s: int):
@@ -790,7 +928,7 @@ def _contig_case(dev, gen, dh: int, h: int, hkv: int, s: int):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (256, 8)])
 @pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("s", [2048, 600])
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 40),
@@ -821,8 +959,8 @@ def test_flash_decode_split_edges_match_plain_on_card(cuda_device, dh, hkv,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
-@pytest.mark.parametrize("group", [4, 8])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (256, 8)])
+@pytest.mark.parametrize("group", [2, 4, 8])
 def test_flash_decode_is_bit_identical_to_paged_decode(cuda_device, dh, hkv,
                                                        group):
     """D on a contiguous cache and B on the same keys in pages of 128 run
