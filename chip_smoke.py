@@ -5,14 +5,16 @@
     python3 chip_smoke.py --phase multiprocess   # that phase alone
     python3 chip_smoke.py --phase gemma2   # the Dh-256 kernel line and
                                            # engine_gemma2_9b alone
+    python3 chip_smoke.py --phase distill_gemma2   # the Dh-256 kernel
+                                   # line and distill_gemma2_9b alone
 
 Phases, each printing one JSON line:
 
 1. device: the card's name, compute capability (must be 9.0) and
    ``nvidia-smi`` name/power limit;
 2. build: compiles every kernel from ``crowdllama_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once; each attention kernel at head dims
-   64, 128 and 256, the fp32 entries at 64 and 128) and reports the
+   ``nvcc`` per source, all at once; each attention kernel, the fp32
+   entries too, at head dims 64, 128 and 256) and reports the
    seconds it took, each instantiation's registers and spills from
    ``ptxas -v``, and each entry's dynamic shared memory and blocks per SM
    at the serving groups (8 query heads a kv head at Dh 64, 4 at Dh 128,
@@ -27,13 +29,11 @@ Phases, each printing one JSON line:
    captured from JAX (``engine/prng_golden.py``);
 4. kernels, once at Dh 64 over TinyLlama's 32 / 4 heads, once at Dh 128
    over Llama-3-8B's 32 / 8 and once at Dh 256 over Gemma-2-9b's 16 / 8
-   (A also at qwen2.5-7b's group of 7, 28 / 4 heads, at all three; at Dh
-   256 the fp32 entries, compiled at 64 and 128 only, must be refused
-   naming ROADMAP Queue 2 item 11): each hand-written kernel (A prefill,
-   B paged decode, C ragged paged, D contiguous decode, E one prefill
-   chunk over its slot's pages, F paged decode on tensor-parallel shares
-   of the heads, and B, C, E and
-   F on int8 pools with bf16 scales from ``quantize_kv``) against its
+   (A also at qwen2.5-7b's group of 7, 28 / 4 heads, at all three): each
+   hand-written kernel (A prefill, B paged decode, C ragged paged, D
+   contiguous decode, E one prefill chunk over its slot's pages, F paged
+   decode on tensor-parallel shares of the heads, and B, C, E and F on
+   int8 pools with bf16 scales from ``quantize_kv``) against its
    plain PyTorch version on the same inputs — at the serving shapes
    TinyLlama-1.1B gives it, and at small shapes with softcap, a sliding
    window and all-masked rows or zero-length slots (B, B-int8, D, F and
@@ -48,15 +48,15 @@ Phases, each printing one JSON line:
    time for the work (its bound).  F at tp 2 and 4 must equal B on the
    whole pool bit for bit.  The fp32 entries of A and D (the
    distillation trainer's: fp32 in, fp32 out; A's products 3xTF32 on the
-   tensor cores, D's fp32 FMAs) at both head dims against their plain
+   tensor cores, D's fp32 FMAs) at all three head dims against their plain
    versions on fp32 inputs at atol and rtol 1e-5, on the same shapes (A
    also at a group of 7) and on the shapes the distill phase gives them
    (A at 16 x 64 tokens, D over 64 slots of a 64-key cache at lengths
    1-64), with their bounds (D's at the card's fp32 rate, A's at a third
    of the TF32 rate, the rate of its 3xTF32 products, with the fp32 rate's
    beside it, ``bound_fp32_fma_ms``) and one SDPA call in fp32 under
-   the memory-efficient backend (flash refuses fp32; the backend is
-   named);
+   the fastest backend that takes it (flash and cuDNN refuse fp32; the
+   backend is named);
 4a. kernel_G (its own line): kernel G, the grouped GEMM over an expert
    bank (``csrc/grouped_gemm.cu``; no Pallas counterpart: it stands in for
    ``lax.ragged_dot`` and ``qeinsum``'s dequant), on bf16, int8 and int4
@@ -342,8 +342,18 @@ Phases, each printing one JSON line:
    fp32 entries launch exactly once per layer per train step and per
    rollout step, no other kernel; the step-1 gradient through A's
    ``autograd.Function`` against the plain function's on the card
-   (``GRAD_RTOL``); the checkpoint loads and drafts for the seed-0
-   weights in one short speculative stream;
+   (``GRAD_RTOL``); one batch's teacher logits through A's and D's fp32
+   entries against the plain route (``TEACHER_LOGIT_RTOL``); the
+   checkpoint loads and drafts for the seed-0 weights in one short
+   speculative stream;
+12e. distill_gemma2_9b: the same with a Gemma-2-9b teacher at full width
+   and all 42 layers in fp32 (head dim 256: the fp32 entries at Dh 256),
+   its directory holding Google's published ``config.json`` with Hugging
+   Face's default ``tie_word_embeddings`` stated, no weights (seed-0
+   random init in fp32 on the card, 37 GB), ``DISTILL_GEMMA9``'s steps;
+   the child's peak memory beside ``distill_memory``'s reckoning; the
+   speculative stream serves Gemma-2-9b in bf16 at a 1,024-token
+   context;
 13. engine_llama_int8, contiguous_llama, engine_llama_tp,
    engine_llama_tp_int8: llama-3-8b cut to 4 layers at full width on
    int8 pools (B-int8, C-int8), the contiguous layout (D), tp=2 on the
@@ -436,15 +446,14 @@ made on the card for each phase), the start's peak and the serving peak
 apart.  No engine path of either package runs kernel E (the
 unified ragged step replaced it), so it launches only in the kernel
 phase and its row's launch count is 0; the fp32 entries of A and D run
-on the distill phase's path at Dh 64 only, so their Dh-128 rows' counts
-are 0.  Tinyllama's seed-0 weights are made once and kept on the host;
-no phase changes them (the gateway phase zeroes the unembedding columns
+on the distill phases' paths at Dh 64 and 256, so their Dh-128 rows'
+counts are 0.  Tinyllama's seed-0 weights are made once and kept on the
+host; no phase changes them (the gateway phase zeroes the unembedding columns
 of a copy on the card).
 Every line carries ``t_s``, the seconds since the script started.
 Then the ``kernels`` line (a row per kernel and head dim, the Dh-128
 rows named ``<symbol>_dh128`` with the llama phases' launches, the
-Dh-256 rows ``<symbol>_dh256`` with the Gemma-2-9b phases' (no fp32 row:
-not compiled there); kernel
+Dh-256 rows ``<symbol>_dh256`` with the Gemma-2-9b phases'; kernel
 G's three entries with their ``moe`` phases' launches and the 8-slot
 Mixtral decode shape's times), the
 ``nvidia-smi`` line, and last
@@ -553,24 +562,16 @@ def bound_ms(nbytes: float, flops: float,
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def sdpa_fp32_ms(fn) -> tuple[float, str]:
-    """Device ms of the SDPA call ``fn`` on fp32 inputs under the
-    memory-efficient backend (flash refuses fp32), and that backend."""
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-        return time_ms(fn), SDPBackend.EFFICIENT_ATTENTION.name.lower()
-
-
-# The SDPA backends tried on bf16 calls; the math backend only when none
-# of these takes the call.
+# The SDPA backends tried on a call (flash and cuDNN refuse fp32); the
+# math backend only when none of these takes the call.
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 
 
 def sdpa_ms(fn) -> tuple[float, str]:
     """Device ms of the SDPA call ``fn`` under the fastest backend of
-    SDPA_BACKENDS that runs it (flash takes no arbitrary mask; some take
-    no head dim of 256), else under the math backend, and that backend."""
+    SDPA_BACKENDS that runs it (flash takes no arbitrary mask nor fp32;
+    some take no head dim of 256), else under the math backend, and that
+    backend."""
     import warnings
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -658,8 +659,7 @@ def check_prefill(dev, gen, t: int, softcap: float, window: int,
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kr, vr, is_causal=True, scale=scale)
 
-        res["library_ms"], res["library_backend"] = (
-            sdpa_fp32_ms if f32 else sdpa_ms)(sdpa)
+        res["library_ms"], res["library_backend"] = sdpa_ms(sdpa)
         seen = t * (t + 1) // 2  # causal (query, key) pairs per head
         # fp32 at fp32 accuracy: the card's fastest route is 3xTF32 on the
         # tensor cores (a third of the TF32 rate); the fp32-FMA rate's
@@ -903,8 +903,7 @@ def check_flash_decode(dev, gen, lens: list[int], s: int, softcap: float,
             return torch.nn.functional.scaled_dot_product_attention(
                 q[:, :, None], kr, vr, attn_mask=mask)
 
-        res["library_ms"], res["library_backend"] = (
-            sdpa_fp32_ms if f32 else sdpa_ms)(sdpa)
+        res["library_ms"], res["library_backend"] = sdpa_ms(sdpa)
         # live K and V rows
         kv = sum(lens) * hkv * dh * 2 * kc.element_size()
         res["bound_ms"], res["bound_by"] = bound_ms(
@@ -1025,8 +1024,6 @@ def check_tp_decode(dev, gen, lens: list[int], tp: int, softcap: float,
 # and a window of 300 (first key 1,748: 6 splits empty, 2 merged).
 SPLIT_EDGE_LENS = [0, 1, 127, 128, 129, 256, 257, 2048]
 SPLIT_EDGE_CASES = [(0.0, 0), (0.0, 40), (30.0, 300)]
-# The ROADMAP item a refused fp32 call names.
-FP32_ITEM = "ROADMAP Queue 2 item 11"
 # The 8 decode slots' lengths of the timed decode shapes (6,924 live keys).
 SERVE_LENS = [1723, 1, 402, 2048, 77, 1200, 513, 960]
 
@@ -1066,44 +1063,12 @@ def fp32_checks(dev, gen, f32: dict) -> dict:
     return {"A_fp32": a32, "D_fp32": d32}
 
 
-def fp32_refused(dev, gen, f32: dict) -> dict:
-    """At a head dim the fp32 entries are not compiled for, a call of each
-    must be refused naming the ROADMAP item (no fallback): their rows
-    carry that instead of a time."""
-    from crowdllama_tpu_torch.ops.cuda.flash import (
-        flash_decode_attention,
-        flash_prefill_attention,
-    )
-
-    x = dict(device=dev, dtype=torch.float32)
-    h, hkv, dh = f32["h"], f32["hkv"], f32["dh"]
-    q = torch.randn((1, 16, h, dh), generator=gen, **x)
-    k = torch.randn((1, hkv, 16, dh), generator=gen, **x)
-    pos = torch.arange(16, device=dev, dtype=torch.int32)[None]
-    lens = torch.tensor([16], device=dev, dtype=torch.int32)
-    out = {}
-    for key, call in (
-            ("A_fp32", lambda: flash_prefill_attention(q, k, k, pos, 0.1)),
-            ("D_fp32", lambda: flash_decode_attention(
-                q[:, 0].contiguous(), k, k, lens, 0.1))):
-        try:
-            call()
-        except ValueError as e:
-            if FP32_ITEM not in str(e):
-                raise
-            out[key] = {"compiled": False, "refused": str(e)}
-        else:
-            raise AssertionError(f"{key} at Dh {dh} was not refused")
-    return out
-
-
 def kernel_checks(dev, gen, hkv: int, dh: int, h: int = 32) -> dict:
     """Every kernel against its plain version at head dim ``dh`` over
     ``h`` query and ``hkv`` kv heads (TinyLlama's 32 / 4 at Dh 64,
     Llama-3-8B's 32 / 8 at Dh 128, Gemma-2-9b's 16 / 8 at Dh 256): the
-    serving shapes timed, then the small shapes.  The fp32 entries of A
-    and D are compiled at Dh 64 and 128 only: at other head dims their
-    rows say so (``fp32_refused``)."""
+    serving shapes timed, then the small shapes; the fp32 entries of A
+    and D on the same heads (``fp32_checks``)."""
     d = dict(hkv=hkv, dh=dh, h=h)
     out = {}
     a = check_prefill(dev, gen, 512, 0.0, 0, 0, timed=True, **d)
@@ -1168,11 +1133,7 @@ def kernel_checks(dev, gen, hkv: int, dh: int, h: int = 32) -> dict:
         for sc, win in SPLIT_EDGE_CASES]
     out["D"] = dres
     # The fp32 entries (the distillation trainer's teacher and student).
-    from crowdllama_tpu_torch.ops.cuda import FP32_HEAD_DIMS
-
-    f32 = dict(d, dtype=torch.float32)
-    out.update(fp32_checks(dev, gen, f32) if dh in FP32_HEAD_DIMS
-               else fp32_refused(dev, gen, f32))
+    out.update(fp32_checks(dev, gen, dict(d, dtype=torch.float32)))
     for key, int8 in (("E", False), ("E_int8", True)):
         eres = check_chunk(dev, gen, 1024, 512, 512, 0.0, 0, timed=True,
                            int8=int8, **d)
@@ -3807,7 +3768,8 @@ def cli_child(module: str, out_path: str, *argv: str) -> None:
     process, as ``python -m <module> <argv>`` would, and write what only
     this process can see to ``out_path`` when it returns: its exit code,
     its native data plane's stats, its kernel launch counts since the
-    last SIGUSR1 (which zeroes them) and its AEAD totals (net/secure.py)
+    last SIGUSR1 (which zeroes them), its card's peak memory (0 when it
+    used none) and its AEAD totals (net/secure.py)
     at each SIGUSR1 and SIGUSR2 (which also writes the launch counts to
     ``<out_path>.snap`` at once), and for ``distill-draft`` the figures of
     ``distill_draft``'s result (``DISTILL_FIGURES``).  With
@@ -3855,10 +3817,12 @@ def cli_child(module: str, out_path: str, *argv: str) -> None:
             rc = main(list(argv))
     else:
         rc = main(list(argv))
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.cuda.is_initialized() else 0)
     with open(out_path, "w") as f:
         json.dump({"rc": rc, "native": native.stats(),
                    "launches": _launches(), "aead": marks,
-                   "result": result}, f)
+                   "result": result, "max_memory_allocated": peak}, f)
     sys.exit(rc)
 
 
@@ -6734,48 +6698,135 @@ def share_phase(dev, hf_dir: str) -> dict:
 #: near half a minute
 DISTILL = {"--draft-layers": "2", "--seq-len": "64", "--batch": "16",
            "--corpus-seqs": "64", "--steps": "40"}
+#: the Gemma-2-9b teacher's run: the same shapes, 16 steps (a step's fp32
+#: teacher forward alone is 18.9 TFLOP)
+DISTILL_GEMMA9 = {**DISTILL, "--steps": "16"}
+#: the context of the Gemma-2-9b spec stream's engine (its pool at the
+#: full 8,192 would hold 22.6 GB)
+DISTILL_SPEC_CONTEXT = 1024
 #: the student's gradient through A's autograd.Function against the plain
 #: function's, per leaf: max |diff| over max |plain gradient|
 GRAD_RTOL = 1e-4
+#: one batch's teacher logits through A's and D's fp32 entries against the
+#: plain route at full depth: max |gap| over max |logit|.  The entries
+#: differ from the plain versions by fp32 summation order and 3xTF32's
+#: truncation (~1e-6 of an attention output); random layers at the port's
+#: norm init amplify one perturbation ~100x on its way to the logits (PR
+#: 25's ``rounding_probe``: one bf16 ulp, 2^-8, moved Gemma-2-9b's logits
+#: by 39% of scale), so ~1e-4 is expected and 1e-3 is the bound; one TF32
+#: pass (2^-11) would part them by ~5e-2.
+TEACHER_LOGIT_RTOL = 1e-3
 #: the keys of ``distill_draft``'s result that ``cli_child`` reports
 DISTILL_FIGURES = ("losses", "agreement", "checkpoint", "rollout_s",
                    "rollout_tokens", "step_ms")
 
 
-def distill_grad_check(dev, first_loss: float) -> dict:
+def _distill_args(args: dict) -> dict:
+    """``distill-draft``'s numeric flags as ``DistillConfig`` fields."""
+    return {k.lstrip("-").replace("-", "_"): int(v) for k, v in args.items()}
+
+
+def distill_memory(cfg, args: dict) -> dict:
+    """The distillation's peak on the card, reckoned from the
+    configuration: the fp32 teacher, the student's params, gradients and
+    Adam moments (updated in place), the new params an Adam step builds
+    beside the old, the teacher's logits for a batch, and two temporaries
+    the size of the largest leaf (the tied embedding) inside the step."""
+    from crowdllama_tpu_torch.train import distill as td
+
+    a = _distill_args(args)
+    student = td.draft_config_for(cfg, a["draft_layers"]).param_count() * 4
+    parts = {"teacher": cfg.param_count() * 4, "student_x5": 5 * student,
+             "teacher_logits": a["batch"] * a["seq_len"] * cfg.vocab_size * 4,
+             "temporaries": 2 * cfg.vocab_size * cfg.hidden_size * 4}
+    return {**parts, "total": sum(parts.values())}
+
+
+def teacher_logits_check(teacher: dict, cfg, tokens, logits) -> dict:
+    """The teacher's logits for one batch through the fp32 entries of A and
+    D against the plain route: ``logits`` (the trainer's, through A)
+    against a prefill through ``prefill_attention_ref``; then every
+    position of the batch decoded one token a step (teacher forcing) over
+    two fp32 caches, one through D's entry, one through its plain version.
+    Each gap is max |kernel - plain| over max |plain logit|."""
+    from crowdllama_tpu_torch.models import transformer as T
+    from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
+    from crowdllama_tpu_torch.ops.cuda.flash import (
+        decode_attention_plain,
+        flash_decode_attention,
+    )
+    from crowdllama_tpu_torch.train import distill as td
+
+    def gap(kernel, plain):
+        return float((kernel - plain).abs().max() / plain.abs().max())
+
+    b, s = tokens.shape
+    with torch.inference_mode():
+        plain = T.prefill([teacher], cfg, tokens, td._positions(tokens),
+                          attention=prefill_attention_ref)[0].float()
+        out = {"prefill": gap(logits, plain)}
+        del plain
+        dev = tokens.device
+        shape = (cfg.num_layers, b, cfg.num_kv_heads, s,
+                 cfg.resolved_head_dim())
+        caches = {fn: (torch.zeros(shape, device=dev),
+                       torch.zeros(shape, device=dev))
+                  for fn in (flash_decode_attention, decode_attention_plain)}
+        rope = [T.rope_for(cfg, dev)]
+        worst = 0.0
+        for i in range(s):
+            pos = torch.full((b,), i, dtype=torch.int32, device=dev)
+            step = [T.decode_step([teacher], cfg, tokens[:, i], pos, kc, vc,
+                                  pos + 1, rope=rope, attention=fn)[0]
+                    for fn, (kc, vc) in caches.items()]
+            worst = max(worst, gap(*step))
+        out["decode"] = worst
+        del caches
+    return dict(out, rtol=TEACHER_LOGIT_RTOL)
+
+
+def distill_grad_check(dev, first_loss: float, teacher: str = TINYLLAMA,
+                       teacher_path: str = "",
+                       args: dict = DISTILL) -> dict:
     """The student's step-1 gradient, in this process on the card: the
-    run's teacher (tinyllama-1.1b seed-0 weights in fp32), initial student
-    and first batch, rebuilt as ``distill_draft`` builds them; the
-    gradient of ``distill_loss`` through kernel A's ``PrefillAttention``
-    against the same through the plain ``prefill_attention_ref``."""
+    run's teacher (``teacher``, or the configuration ``teacher_path``
+    holds, seed-0 weights in fp32), initial student and first batch,
+    rebuilt as ``distill_draft`` builds them; the gradient of
+    ``distill_loss`` through kernel A's ``PrefillAttention`` against the
+    same through the plain ``prefill_attention_ref``; and the batch's
+    teacher logits kernel against plain (``teacher_logits_check``)."""
     import numpy as np
 
-    from crowdllama_tpu_torch.engine.weights import init_params
-    from crowdllama_tpu_torch.models.config import get_config
+    from crowdllama_tpu_torch.engine.weights import (
+        init_params,
+        resolve_model_config,
+    )
     from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
     from crowdllama_tpu_torch.train import distill as td
 
-    a = {k.lstrip("-").replace("-", "_"): int(v) for k, v in DISTILL.items()}
-    cfg = get_config(TINYLLAMA)
-    teacher = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    a = _distill_args(args)
+    cfg = resolve_model_config(teacher, teacher_path)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
     dcfg = td.draft_config_for(cfg, a["draft_layers"])
     _, k_rand, k_init = td.distill_keys(0)
-    corpus = td.rollout_corpus(cfg, teacher, k_rand, a["corpus_seqs"],
+    corpus = td.rollout_corpus(cfg, params, k_rand, a["corpus_seqs"],
                                a["seq_len"], 0.0)
     rows = torch.randperm(corpus.shape[0], generator=torch.Generator()
                           .manual_seed(0))[:a["batch"]]
     tokens = torch.from_numpy(corpus[rows.numpy()]).long().to(dev)
     student = td.init_draft_params(dcfg, k_init, dev)
     for k in ("embed", "lm_head", "final_norm"):
-        student[k] = teacher[k].clone()
-    tl = td._teacher_logits(teacher, cfg, tokens)
-    del teacher
+        if k in params:
+            student[k] = params[k].clone()
+    tl = td._teacher_logits(params, cfg, tokens)
+    logits = teacher_logits_check(params, cfg, tokens, tl)
+    del params
     grads, losses = [], []
     for attention in (None, prefill_attention_ref):
-        params = td._tree_map(lambda x: x.detach().requires_grad_(), student)
+        leaves = td._tree_map(lambda x: x.detach().requires_grad_(), student)
         kw = {} if attention is None else {"attention": attention}
-        loss, _ = td.distill_loss(params, dcfg, tl, tokens, 0.5, 2.0, **kw)
-        grads.append(torch.autograd.grad(loss, td._leaves(params)))
+        loss, _ = td.distill_loss(leaves, dcfg, tl, tokens, 0.5, 2.0, **kw)
+        grads.append(torch.autograd.grad(loss, td._leaves(leaves)))
         losses.append(float(loss.detach()))
     errs = [float((g - p).abs().max() / p.abs().max())
             for g, p in zip(*grads)]
@@ -6786,51 +6837,95 @@ def distill_grad_check(dev, first_loss: float) -> dict:
             "max_rel_err": max(errs), "leaves": len(errs),
             "rtol": GRAD_RTOL,
             "first_loss_equal": bool(np.isclose(losses[0], first_loss,
-                                                rtol=1e-5))}
+                                                rtol=1e-5)),
+            "teacher_logits": logits}
 
 
-def distill_phase(dev) -> tuple[dict, str]:
+def _distill_spec_stream(dev, ckpt: str, engine_kw: dict) -> dict:
+    """One 32-token greedy stream with the draft checkpoint ``ckpt`` as
+    ``spec_draft_path`` (``engine_kw`` names the served model and its
+    weights); it must end done and verify drafts."""
+    from crowdllama_tpu_torch.engine.engine import TorchEngine
+
+    async def spec():
+        engine = TorchEngine(device=dev, spec_decode="draft",
+                             spec_draft=SPEC_DRAFT, spec_draft_path=ckpt,
+                             **engine_kw)
+        await engine.start()
+        try:
+            final = None
+            async for chunk in engine.generate(SHORT[2], max_tokens=32):
+                final = chunk
+            return final, engine.describe()
+        finally:
+            await engine.stop()
+
+    final, desc = asyncio.run(spec())
+    stats = desc.get("spec_decode", {})
+    out = {"done": final.done, "completion_tokens": final.completion_tokens,
+           "spec_decode": stats}
+    if not (final.done and final.completion_tokens == 32
+            and stats.get("verify_steps", 0) > 0):
+        raise AssertionError(f"distill: spec stream {out}")
+    return out
+
+
+def distill_phase(dev, phase: str = "distill", teacher: str = TINYLLAMA,
+                  args: dict = DISTILL,
+                  teacher_config: dict | None = None) -> tuple[dict, str]:
     """``distill-draft`` on the card through the port's CLI
     (``crowdllama_tpu_torch.cli.main``, in a process of its own through
-    ``cli_child``, which reports its launch counts and the run's
-    figures): the teacher is
-    tinyllama-1.1b at full width and depth in fp32 (its seed-0 random
-    weights, 4.4 GB), the student 2 layers; ``DISTILL``'s corpus and
-    steps.  The run's figures give the rollout's seconds and tokens/s,
-    each train step's device ms (CUDA events), the losses and the
-    agreement.  Checks: the loss falls; kernel D's fp32 entry launches
-    once per layer per rollout step and A's once per layer per train step
-    (22 teacher and 2 student layers), and no other kernel; the student's
-    step-1 gradient through A's ``autograd.Function`` within
-    ``GRAD_RTOL`` of the plain function's (``distill_grad_check``); the
-    checkpoint loads, and serves as ``spec_draft_path`` behind the seed-0
-    weights in one short greedy stream that verifies drafts.  Returns the
-    line and the launches of A_fp32 and D_fp32."""
+    ``cli_child``, which reports its launch counts, its peak memory and
+    the run's figures): the teacher at full width and depth in fp32 (its
+    seed-0 random weights; tinyllama-1.1b's 4.4 GB by default, or with
+    ``teacher_config`` the model whose ``config.json`` that dict is,
+    written into the directory passed as ``--teacher-path``), the student
+    ``args``' layers on ``args``' corpus and steps.  The run's figures
+    give the rollout's seconds and tokens/s, each train step's device ms
+    (CUDA events), the losses and the agreement.  Checks: the loss falls;
+    kernel D's fp32 entry launches once per layer per rollout step and A's
+    once per layer per train step (teacher and student layers), and no
+    other kernel; the student's step-1 gradient through A's
+    ``autograd.Function`` within ``GRAD_RTOL`` of the plain function's and
+    one batch's teacher logits within ``TEACHER_LOGIT_RTOL`` of the plain
+    route's (``distill_grad_check``); the checkpoint loads, and serves as
+    ``spec_draft_path`` behind the teacher's weights in bf16 in one short
+    greedy stream that verifies drafts.  Returns the line and the
+    launches of A_fp32 and D_fp32."""
     import os
     import tempfile
 
-    from crowdllama_tpu_torch.engine.engine import TorchEngine
     from crowdllama_tpu_torch.engine.weights import (
+        init_params,
         load_native_params,
         native_config_from_dir,
+        resolve_model_config,
     )
 
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="distill") as tmp:
         ckpt = os.path.join(tmp, "draft")
-        argv = ["distill-draft", "--teacher", TINYLLAMA, "--out", ckpt,
-                *[x for kv in DISTILL.items() for x in kv]]
+        path = ""
+        if teacher_config is not None:
+            path = os.path.join(tmp, "teacher")
+            os.makedirs(path)
+            with open(os.path.join(path, "config.json"), "w") as f:
+                json.dump(teacher_config, f)
+        cfg = resolve_model_config(teacher, path)
+        argv = ["distill-draft", "--teacher", teacher, "--out", ckpt,
+                *(["--teacher-path", path] if path else []),
+                *[x for kv in args.items() for x in kv]]
 
         async def run():
-            proc, res = await _spawn_cli(root, tmp, "distill",
+            proc, res = await _spawn_cli(root, tmp, phase,
                                          "crowdllama_tpu_torch.cli.main",
                                          *argv)
             rc = await asyncio.wait_for(proc.wait(), 600)
             proc.err_file.close()
             if rc != 0 or not os.path.exists(res):
-                with open(os.path.join(tmp, "distill.err")) as f:
-                    raise AssertionError(f"distill: exited {rc}: "
+                with open(os.path.join(tmp, f"{phase}.err")) as f:
+                    raise AssertionError(f"{phase}: exited {rc}: "
                                          f"{f.read()[-3000:]}")
             with open(res) as f:
                 return json.load(f)
@@ -6838,9 +6933,11 @@ def distill_phase(dev) -> tuple[dict, str]:
         child = asyncio.run(run())
         cli_s = time.perf_counter() - t0
         rep, launches = child["result"], child["launches"]
-        steps, seq = int(DISTILL["--steps"]), int(DISTILL["--seq-len"])
-        layers, draft_layers = 22, int(DISTILL["--draft-layers"])
+        a = _distill_args(args)
+        steps, seq = a["steps"], a["seq_len"]
+        layers, draft_layers = cfg.num_layers, a["draft_layers"]
         step_ms = sorted(rep["step_ms"][1:])
+        memory = distill_memory(cfg, args)
         out = {"cli_seconds": cli_s, "rollout_s": rep["rollout_s"],
                "rollout_tokens": rep["rollout_tokens"],
                "rollout_tokens_per_s": rep["rollout_tokens"]
@@ -6849,53 +6946,64 @@ def distill_phase(dev) -> tuple[dict, str]:
                "step_ms_median": step_ms[len(step_ms) // 2],
                "step_ms_min": step_ms[0],
                "loss_first": rep["losses"][0], "loss_last": rep["losses"][-1],
-               "agreement": rep["agreement"], "launches": launches}
-        _expect_launches(launches, {"A_fp32", "D_fp32"}, "distill")
+               "agreement": rep["agreement"], "launches": launches,
+               "max_memory_allocated": child["max_memory_allocated"],
+               "parent_memory_allocated": (torch.cuda.memory_allocated(dev)
+                                           if dev.type == "cuda" else 0),
+               "memory_predicted": memory,
+               "memory_over_predicted": child["max_memory_allocated"]
+               / memory["total"]}
+        _expect_launches(launches, {"A_fp32", "D_fp32"}, phase)
         if not (rep["losses"][-1] < rep["losses"][0]
                 and launches["D_fp32"] == layers * seq
                 and launches["A_fp32"] == (layers + draft_layers) * steps):
-            raise AssertionError(f"distill: {out}")
+            raise AssertionError(f"{phase}: {out}")
 
-        out["gradient"] = distill_grad_check(dev, rep["losses"][0])
-        if not (out["gradient"]["max_rel_err"] <= GRAD_RTOL
-                and out["gradient"]["first_loss_equal"]):
-            raise AssertionError(f"distill: gradient {out['gradient']}")
+        out["gradient"] = distill_grad_check(dev, rep["losses"][0], teacher,
+                                             path, args)
+        grad, logit = out["gradient"], out["gradient"]["teacher_logits"]
+        if not (grad["max_rel_err"] <= GRAD_RTOL and grad["first_loss_equal"]
+                and max(logit["prefill"], logit["decode"])
+                <= TEACHER_LOGIT_RTOL):
+            raise AssertionError(f"{phase}: gradient {grad}")
 
-        # The checkpoint: loads, then drafts for the seed-0 weights.
+        # The checkpoint: loads, then drafts for the teacher's weights.
         dcfg = native_config_from_dir(ckpt)
         back = load_native_params(dcfg, ckpt, dtype=torch.float32)
         out["checkpoint"] = {"layers": dcfg.num_layers, "tensors": len(
             _flat(back))}
         del back
-
-        async def spec():
-            engine = TorchEngine(params=seed0_params(dev), device=dev,
-                                 model=TINYLLAMA, spec_decode="draft",
-                                 spec_draft=SPEC_DRAFT, spec_draft_path=ckpt)
-            await engine.start()
-            try:
-                final = None
-                async for chunk in engine.generate(SHORT[2], max_tokens=32):
-                    final = chunk
-                return final, engine.describe()
-            finally:
-                await engine.stop()
-
-        final, desc = asyncio.run(spec())
-        stats = desc.get("spec_decode", {})
-        out["spec_stream"] = {"done": final.done,
-                              "completion_tokens": final.completion_tokens,
-                              "spec_decode": stats}
-        if not (final.done and final.completion_tokens == 32
-                and stats.get("verify_steps", 0) > 0):
-            raise AssertionError(f"distill: spec stream {out['spec_stream']}")
+        if teacher_config is None:
+            served = dict(params=seed0_params(dev), model=teacher)
+        else:
+            params = init_params(cfg, seed=0, device=dev)
+            _zero_eos_params(params)
+            served = dict(params=params, model=teacher, model_config=cfg,
+                          max_context_length=DISTILL_SPEC_CONTEXT)
+        out["spec_stream"] = _distill_spec_stream(dev, ckpt, served)
+        del served
     _free_card()
-    return ({"phase": "distill", "teacher": TINYLLAMA, "teacher_dtype":
-             "float32", "args": DISTILL, **out,
+    return ({"phase": phase, "teacher": teacher, "teacher_dtype": "float32",
+             "layers": layers, "head_dim": cfg.resolved_head_dim(),
+             "args": args, **out,
              "seconds": time.perf_counter() - t0,
              "card": torch.cuda.get_device_name(0),
              "nvidia_smi": nvidia_smi()},
             {k: launches[k] for k in ("A_fp32", "D_fp32")})
+
+
+def distill_gemma2_phase(dev) -> tuple[dict, str]:
+    """``distill_phase`` with a Gemma-2-9b teacher at full width and all
+    42 layers in fp32 (head dim 256): its directory holds Google's
+    published ``config.json`` with ``tie_word_embeddings`` stated at
+    Hugging Face's default (``hf_fixtures.GEMMA2_9B_TIED_CONFIG``), no
+    weights, so the CLI draws the seed-0 init on the card (37 GB)."""
+    from crowdllama_tpu_torch.testing.hf_fixtures import (
+        GEMMA2_9B_TIED_CONFIG,
+    )
+
+    return distill_phase(dev, "distill_gemma2_9b", GEMMA9, DISTILL_GEMMA9,
+                         GEMMA2_9B_TIED_CONFIG)
 
 
 # row -> (name, source, TPU kernel it replaces); the name is the C symbol,
@@ -8648,15 +8756,12 @@ G_ROWS = {"G": "grouped_gemm_bf16", "G_int8": "grouped_gemm_i8",
 def kernel_rows(res: dict, counts_by_dh) -> list[dict]:
     """The ``kernels`` line's attention rows: one a kernel and head dim
     (``counts_by_dh``: (head dim, launches by kernel) pairs), from the
-    kernel lines' results ``res``; an entry not compiled at a head dim (the
-    fp32 ones at Dh 256) has no row there."""
+    kernel lines' results ``res``."""
     rows = []
     for dh, counts in counts_by_dh:
         sfx = DH_SUFFIX[dh]
         for key, (kname, src, repl) in KERNEL_ROWS.items():
             r = res[key + sfx]
-            if r.get("compiled") is False:
-                continue
             rows.append({"name": kname + sfx, "head_dim": dh, "route": "cuda",
                          "source": src, "replaces": repl,
                          "launches": counts[key],
@@ -8670,15 +8775,14 @@ def kernel_rows(res: dict, counts_by_dh) -> list[dict]:
 
 
 def build_smem(kernels, dev) -> list[dict]:
-    """Each entry's dynamic shared memory and blocks a SM at Dh 64 (group
-    8), 128 (4) and 256 (Gemma-2-9b's 2; not the fp32 entries, compiled at
-    64 and 128 only, nor kernel G's, which have no head dim)."""
+    """Each attention entry's dynamic shared memory and blocks a SM at Dh
+    64 (group 8), 128 (4) and 256 (Gemma-2-9b's 2); not kernel G's, which
+    have no head dim."""
     return [dict(kernels.kernel_resources(lib, sym, dh, g, dev), entry=sym,
                  dh=dh, group=g)
             for lib, entries in kernels.SIGNATURES.items()
-            for sym in entries for dh, g in ((64, 8), (128, 4), (256, 2))
-            if dh in kernels.FP32_HEAD_DIMS
-            or not (sym.endswith("_f32") or lib == "grouped_gemm")]
+            if lib != "grouped_gemm"
+            for sym in entries for dh, g in ((64, 8), (128, 4), (256, 2))]
 
 
 def main() -> int:
@@ -8809,6 +8913,11 @@ def main() -> int:
         for k in ran - {"A", "C"}:
             launches256[k] += got[k]
     _free_card()
+    # The fp32 entries at Dh 256: distill-draft with a Gemma-2-9b teacher.
+    line, fp32 = distill_gemma2_phase(dev)
+    emit(line)
+    launches256.update(fp32)
+    _free_card()
     quant_phase(dev, llama["steady"])
     _free_card()
     for k in ("A", "B", "C"):
@@ -8825,11 +8934,10 @@ def main() -> int:
             launches128[k] += line["launches"][k]
         gemm_launches["G"] += line["launches"].get("G", 0)
     # No engine path runs kernel E; every phase checked it stayed at 0.
-    # The fp32 entries run at Dh 64 only, in the distill phase.
+    # The fp32 entries run at Dh 64 and 256, in the distill phases.
     launches["E"] = launches["E_int8"] = 0
     launches128["E"] = launches128["E_int8"] = 0
     launches128["A_fp32"] = launches128["D_fp32"] = 0
-    # Only the paged bf16 main path runs at Dh 256 (A, B, C).
     launches256 = {k: launches256.get(k, 0) for k in KERNEL_ROWS}
 
     rows = kernel_rows(res, ((64, launches), (128, launches128),
@@ -8855,14 +8963,14 @@ def main() -> int:
 
 
 def phase_main(name: str) -> int:
-    """One phase alone after the build (``--phase multiprocess``, or
-    ``--phase gemma2``: the Dh-256 kernel line and ``engine_gemma2_9b``,
-    then the kernels line of their rows): its lines, then the contract's
-    last line."""
+    """One phase alone after the build (``--phase multiprocess``;
+    ``--phase gemma2`` or ``distill_gemma2``: the Dh-256 kernel line and
+    ``engine_gemma2_9b`` or ``distill_gemma2_9b``, then the kernels line
+    of their rows): its lines, then the contract's last line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if name not in ("multiprocess", "gemma2"):
+    if name not in ("multiprocess", "gemma2", "distill_gemma2"):
         print(f"chip_smoke: no phase {name!r} runs alone", file=sys.stderr)
         return 2
     from crowdllama_tpu_torch.ops import cuda as kernels
@@ -8873,12 +8981,17 @@ def phase_main(name: str) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           **({"ptxas": [dict(r, library=lib) for lib in kernels.SIGNATURES
                         for r in kernels.ptxas_usage(lib)],
-              "smem": build_smem(kernels, dev)} if name == "gemma2" else {})})
-    if name == "gemma2":
+              "smem": build_smem(kernels, dev)} if name != "multiprocess"
+             else {})})
+    if name != "multiprocess":
         res = kernel_line(dev, torch.Generator(device=dev).manual_seed(0),
                           *KERNEL_LINES[-1])
         _free_card()
-        counts = gemma2_phase(dev)
+        if name == "gemma2":
+            counts = gemma2_phase(dev)
+        else:
+            line, counts = distill_gemma2_phase(dev)
+            emit(line)
         print(json.dumps({"kernels": kernel_rows(res, ((256, {
             k: counts.get(k, 0) for k in KERNEL_ROWS}),))}), flush=True)
     else:

@@ -27,19 +27,20 @@
 //   the output (bf16, or fp32 beside an fp32 cache) and resets the counter
 //   to 0.  The wrappers make the scratch and counters once per device: a
 //   call launches nothing else.
-// - A staged ring (decode_span).  Stages of DEC_KEYS = 64 keys (K and V rows
-//   found by a key-row policy, keys outside the split's range zero-filled
-//   and never read) stream through a DEC_STAGES = 3 deep ring of 16-byte
-//   cp.async copies, so two stages load while one is computed.  The paged
+// - A staged ring (decode_span).  Stages of DEC_KEYS = 64 keys (32 on fp32
+//   rows at Dh 256, below; K and V rows found by a key-row policy, keys
+//   outside the split's range zero-filled and never read) stream through a
+//   DEC_STAGES = 3 deep ring of 16-byte cp.async copies, so two stages load
+//   while one is computed.  The paged
 //   policy reads the table's page ids one stage ahead of the copies that
 //   need them; the contiguous policy addresses its plane directly.  A bf16
 //   stage is 16 KB at Dh 64, 32 KB at Dh 128 and 64 KB at Dh 256: 53,472,
 //   102,624 and 200,928 B a block in all (int8: 29,664, 54,240 and
 //   103,392), room for two blocks a SM at Dh 64 and 128, one at Dh 256 on
 //   bf16 (two stages in flight are 128 KB a SM, far more than the bytes
-//   the card's memory latency needs in flight).  The stage keeps its 64
-//   keys at every head dim, so the plans of ops/cuda/paged.py and flash.py
-//   do not depend on it.
+//   the card's memory latency needs in flight).  Splits are multiples of
+//   64 keys at every head dim and type (a 32-key stage walks two a 64), so
+//   the plans of ops/cuda/paged.py and flash.py do not depend on either.
 // - Every K and V element is read from shared memory once and used for all
 //   G heads of its kv head (the block's 8 warps, whatever G is; G is padded
 //   to GP = 4 or 8, a template parameter).  Scores: LPK lanes a key
@@ -49,8 +50,9 @@
 //   exchange them in shuffles (lane g ends with head g's dot).  Softmax:
 //   warp g takes head g's 64 scores (running max m, sum l, rescale alpha)
 //   and writes the probabilities.  P.V: warp w sums keys
-//   8w .. 8w + 7 into all heads' outputs for its lane's Dh / 32 dims (2, 4
-//   or 8), so no FMA chain is longer than 8 a stage; the warps' sums are
+//   8w .. 8w + 7 (4w .. 4w + 3 on a 32-key stage) into all heads' outputs
+//   for its lane's Dh / 32 dims (2, 4 or 8), so no FMA chain is longer
+//   than 8 a stage; the warps' sums are
 //   added in warp order at the end.  Three barriers a stage.  Registers:
 //   GP 4 kernels at Dh 64 and 128 and bf16 GP 8 at Dh 64 are held to 128,
 //   two blocks a SM.
@@ -58,6 +60,11 @@
 //   bf16's bytes: 102,624 and 200,928 B a block at Dh 64 and 128, two
 //   blocks a SM at Dh 64, one at 128) and take fp32 queries and write fp32
 //   outputs (io_t); the arithmetic is the bf16 path's, fp32 throughout.
+//   At Dh 256 a 64-key fp32 stage is 128 KB, so not even two fit a block's
+//   227 KB: those stages hold 32 keys (dec_keys; 64 KB, three in the ring,
+//   198,864 B a block, one a SM), the softmax warp holds one score a lane
+//   instead of two, and the P.V warps sum 4 keys each.  Only the
+//   contiguous policy (kernel D) runs them.
 // - int8 pools stage their raw bytes (half of bf16's) and their bf16
 //   scales; the one thread that reads an element converts it to fp32
 //   (exact: |x| <= 127), once per staged tile, through the same scoring
@@ -72,7 +79,7 @@ namespace cla {
 
 constexpr int DEC_THREADS = TC_THREADS;  // 8 warps a decode block
 constexpr int MAX_SPLITS = 32;  // splits of a (slot, kv head): a lane each in the merge
-constexpr int DEC_KEYS = 64;    // keys a decode stage holds
+constexpr int DEC_KEYS = 64;    // keys a decode stage holds (the splits' unit)
 constexpr int DEC_STAGES = 3;   // stages in the decode ring
 constexpr int DEC_WARPS = DEC_THREADS / 32;
 
@@ -105,23 +112,29 @@ __host__ __device__ constexpr int decode_min_blocks() {
 template <int DH, int GP>
 __host__ __device__ constexpr int dec_lanes() { return DH <= 128 ? 8 : DH * GP / 64; }
 
+// Keys a decode stage holds over K/V elements of type T at head dim DH:
+// DEC_KEYS, or 32 for fp32 rows at Dh 256 (a 64-key stage there is 128 KB).
+template <typename T, int DH>
+__host__ __device__ constexpr int dec_keys() { return is_f32<T>() && DH > 128 ? 32 : DEC_KEYS; }
+
 // A decode block's shared memory: the ring of DEC_STAGES stages (K and V
-// rows [DEC_KEYS][DH], bf16 or int8, then on int8 pools their bf16 K and V
-// scales [DEC_KEYS] each); the page id of each 16-key group of each ring
-// stage (the paged policy's); the stage's scores S [8][DEC_KEYS + 4] and
-// probabilities PT [DEC_KEYS][GP] fp32 (GP = 4 or 8 heads, sized for 8);
-// each head's alpha; a flag word.  Every part is a multiple of 16 bytes.
-// After the last stage the ring holds the warps' output sums
-// [DEC_WARPS][GP][DH] fp32.
+// rows [KEYS][DH], bf16, fp32 or int8, then on int8 pools their bf16 K and
+// V scales [KEYS] each); the page id of each 16-key group of each ring
+// stage (the paged policy's); the stage's scores S [8][KEYS + 4] and
+// probabilities PT [KEYS][GP] fp32 (GP = 4 or 8 heads, sized for 8); each
+// head's alpha; a flag word.  Every part is a multiple of 16 bytes.  After
+// the last stage the ring holds the warps' output sums [DEC_WARPS][GP][DH]
+// fp32.
 template <typename T, int DH>
 struct DecodeSmem {
-  static constexpr int GROUPS = DEC_KEYS / 16;  // 16-key groups a stage
+  static constexpr int KEYS = dec_keys<T, DH>();  // keys a stage
+  static constexpr int GROUPS = KEYS / 16;        // 16-key groups a stage
   static constexpr size_t STAGE =
-      2 * (size_t)DEC_KEYS * DH * sizeof(T) + (is_q8<T>() ? 2 * DEC_KEYS * 2 : 0);
+      2 * (size_t)KEYS * DH * sizeof(T) + (is_q8<T>() ? 2 * KEYS * 2 : 0);
   static constexpr size_t PID_OFF = DEC_STAGES * STAGE;
   static constexpr size_t S_OFF = PID_OFF + align16(DEC_STAGES * GROUPS * 4);
-  static constexpr size_t PT_OFF = S_OFF + 8 * (DEC_KEYS + 4) * 4;
-  static constexpr size_t ALPHA_OFF = PT_OFF + DEC_KEYS * 8 * 4;
+  static constexpr size_t PT_OFF = S_OFF + 8 * (KEYS + 4) * 4;
+  static constexpr size_t ALPHA_OFF = PT_OFF + KEYS * 8 * 4;
   static constexpr size_t FLAG_OFF = ALPHA_OFF + 32;
   static constexpr size_t BYTES = FLAG_OFF + 16;
   static_assert(DEC_WARPS * 8 * DH * 4 <= DEC_STAGES * STAGE, "output sums fit the ring");
@@ -158,17 +171,20 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* row, int i, float 
 
 template <int N>
 __device__ __forceinline__ void load_vec(const float* row, int i, float (&f)[N]) {
-  static_assert(N == 2 || N == 4, "a lane owns 2 or 4 dims");
+  static_assert(N == 2 || N == 4 || N == 8, "a lane owns 2, 4 or 8 dims");
   if constexpr (N == 2) {
     const float2 x = reinterpret_cast<const float2*>(row)[i];
     f[0] = x.x;
     f[1] = x.y;
   } else {
-    const float4 x = reinterpret_cast<const float4*>(row)[i];
-    f[0] = x.x;
-    f[1] = x.y;
-    f[2] = x.z;
-    f[3] = x.w;
+#pragma unroll
+    for (int e = 0; e < N / 4; ++e) {
+      const float4 x = reinterpret_cast<const float4*>(row)[(N / 4) * i + e];
+      f[4 * e] = x.x;
+      f[4 * e + 1] = x.y;
+      f[4 * e + 2] = x.z;
+      f[4 * e + 3] = x.w;
+    }
   }
 }
 
@@ -321,8 +337,8 @@ struct ContigDecodeRows {
 // Decode attention of one slot's query token for the G <= GP query heads
 // of a kv head over the slot's keys at positions [k_lo, k_hi) (where
 // `rows` says they live; keys seen as key_visible(kpos, qpos, kv_len,
-// window) says), in stages of DEC_KEYS keys at positions that are
-// multiples of DEC_KEYS, by the block's DEC_THREADS threads.  Each staged K
+// window) says), in stages of KEYS = dec_keys<T, DH>() keys at positions
+// that are multiples of KEYS, by the block's DEC_THREADS threads.  Each staged K
 // and V element is read (and, on int8, converted) by one thread and used
 // for every head:
 // - scores: LPK = dec_lanes<DH, GP>() lanes a key, each holding a DH /
@@ -331,9 +347,9 @@ struct ContigDecodeRows {
 //   sub's);
 // - softmax: warp g < G takes head g's stage scores (online max m, sum l,
 //   alpha) and writes the probabilities (times the V scale on int8);
-// - P.V: warp w sums keys 8w .. 8w + 7 of the stage into all GP heads'
-//   outputs for its lane's DH / 32 dims; the warps' sums are added in warp
-//   order after the last stage.
+// - P.V: warp w sums keys KPW w .. KPW w + KPW - 1 of the stage (KPW =
+//   KEYS / 8) into all GP heads' outputs for its lane's DH / 32 dims; the
+//   warps' sums are added in warp order after the last stage.
 // Warp g < G returns head g's running max m, sum l and its lane's DH / 32
 // unnormalised output dims (m = NEG_INF, l = 0 when no key was seen).
 // q_row points at head 0 of the kv head ([G][DH]).
@@ -348,6 +364,7 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
                                             int k_lo, int k_hi, float scale, float softcap,
                                             float& m, float& l, float (&acc)[DH / 32]) {
   using S = DecodeSmem<T, DH>;
+  constexpr int KEYS = S::KEYS;                    // keys a stage
   constexpr bool Q8 = is_q8<T>();
   constexpr int N = DH / 32;                       // output dims a lane owns
   constexpr int LPK = dec_lanes<DH, GP>();         // lanes a key
@@ -355,10 +372,14 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
   constexpr int W = Q8 ? (DPL < 16 ? DPL : 16) : 8;  // elements a load
   constexpr int NSEG = DPL / W;                    // loads a lane a key
   constexpr int KPP = DEC_THREADS / LPK;           // keys a score pass
-  constexpr int SS = DEC_KEYS + 4;                 // S row stride (conflict-free writes)
-  constexpr int KPW = DEC_KEYS / DEC_WARPS;        // P.V keys a warp
-  static_assert(DEC_KEYS % KPP == 0 && KPW % 4 == 0 && LPK >= GP && LPK <= 32,
+  constexpr int SS = KEYS + 4;                     // S row stride (conflict-free writes)
+  constexpr int KPW = KEYS / DEC_WARPS;            // P.V keys a warp
+  constexpr int SPL = KEYS / 32;                   // a softmax lane's scores
+  static_assert(KEYS % KPP == 0 && KPW % 4 == 0 && LPK >= GP && LPK <= 32 && SPL >= 1,
                 "stage shape");
+  // The paged policy reads its page ids in 64-key stages.
+  static_assert(KEYS == DEC_KEYS || std::is_same<Rows, ContigDecodeRows>::value,
+                "short stages run over the contiguous cache only");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int sub = tid % LPK, kq = tid / LPK;  // place in its key's lane group; key of the pass
   // Segment i of this lane's dims starts at element seg(i): the LPK lanes
@@ -369,11 +390,11 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
   float* const Ssm = reinterpret_cast<float*>(smem + S::S_OFF);
   float* const PT = reinterpret_cast<float*>(smem + S::PT_OFF);
   float* const alpha_s = reinterpret_cast<float*>(smem + S::ALPHA_OFF);
-  const int t_lo = k_lo / DEC_KEYS;
-  const int ntiles = k_hi > k_lo ? (k_hi + DEC_KEYS - 1) / DEC_KEYS - t_lo : 0;
+  const int t_lo = k_lo / KEYS;
+  const int ntiles = k_hi > k_lo ? (k_hi + KEYS - 1) / KEYS - t_lo : 0;
   rows.start(t_lo, ntiles, k_lo, k_hi, tid);
   // Heads past G keep P = 0 and alpha = 1.
-  for (int i = tid; i < DEC_KEYS * GP; i += DEC_THREADS) PT[i] = 0.f;
+  for (int i = tid; i < KEYS * GP; i += DEC_THREADS) PT[i] = 0.f;
   if (tid < GP) alpha_s[tid] = 1.f;
 
   // This lane's slice of every head's q row, fp32 (zeros past G).
@@ -403,14 +424,14 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
   m = NEG_INF;
   l = 0.f;
 
-  // Start the copies of stage n (keys n * DEC_KEYS ..) into ring slot st.
+  // Start the copies of stage n (keys n * KEYS ..) into ring slot st.
   auto issue = [&](int n, int st) {
     T* kd = reinterpret_cast<T*>(smem + (size_t)st * S::STAGE);
-    T* vd = kd + (size_t)DEC_KEYS * DH;
-    const int base = n * DEC_KEYS;
+    T* vd = kd + (size_t)KEYS * DH;
+    const int base = n * KEYS;
     constexpr int C = DH * (int)sizeof(T) / 16;  // 16-byte chunks a row
     constexpr int E = 16 / (int)sizeof(T);       // elements a chunk
-    for (int c = tid; c < DEC_KEYS * C; c += DEC_THREADS) {
+    for (int c = tid; c < KEYS * C; c += DEC_THREADS) {
       const int r = c / C, col = (c % C) * E, pos = base + r;
       const bool in = pos >= k_lo && pos < k_hi;
       const size_t row = in ? rows.row(st, r, pos) : 0;
@@ -419,12 +440,12 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
     }
     if constexpr (Q8) {
       // Scales: 8 keys a copy (a page holds a multiple of 16), K's then V's.
-      __nv_bfloat16* sd = reinterpret_cast<__nv_bfloat16*>(vd + (size_t)DEC_KEYS * DH);
-      for (int c = tid; c < 2 * (DEC_KEYS / 8); c += DEC_THREADS) {
-        const int g = c % (DEC_KEYS / 8), pos = base + 8 * g;
-        const bool isv = c >= DEC_KEYS / 8, in = pos + 7 >= k_lo && pos < k_hi;
+      __nv_bfloat16* sd = reinterpret_cast<__nv_bfloat16*>(vd + (size_t)KEYS * DH);
+      for (int c = tid; c < 2 * (KEYS / 8); c += DEC_THREADS) {
+        const int g = c % (KEYS / 8), pos = base + 8 * g;
+        const bool isv = c >= KEYS / 8, in = pos + 7 >= k_lo && pos < k_hi;
         const size_t row = in ? rows.row(st, 8 * g, pos) : 0;
-        cp_async16_zfill(sd + isv * DEC_KEYS + 8 * g, (isv ? v_scale : k_scale) + row, in);
+        cp_async16_zfill(sd + isv * KEYS + 8 * g, (isv ? v_scale : k_scale) + row, in);
       }
     }
   };
@@ -448,13 +469,13 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
     cp_async_commit();
     rows.ahead(n, it, ntiles, k_lo, k_hi, tid);
     const T* Ks = reinterpret_cast<const T*>(smem + (size_t)st * S::STAGE);
-    const T* Vs = Ks + (size_t)DEC_KEYS * DH;
-    const __nv_bfloat16* sc8 = reinterpret_cast<const __nv_bfloat16*>(Vs + (size_t)DEC_KEYS * DH);
-    const int base = n * DEC_KEYS;
+    const T* Vs = Ks + (size_t)KEYS * DH;
+    const __nv_bfloat16* sc8 = reinterpret_cast<const __nv_bfloat16*>(Vs + (size_t)KEYS * DH);
+    const int base = n * KEYS;
 
     // Scores: key kq + KPP * p of the stage, this lane's slice.
 #pragma unroll
-    for (int p = 0; p < DEC_KEYS / KPP; ++p) {
+    for (int p = 0; p < KEYS / KPP; ++p) {
       const int j = kq + KPP * p;
       float d[GP];
 #pragma unroll
@@ -494,21 +515,29 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
     }
     __syncthreads();
 
-    // Online softmax of head `warp` over the stage.
+    // Online softmax of head `warp` over the stage: keys lane + 32 i.
     if (warp < G) {
-      const float s0 = Ssm[warp * SS + lane], s1 = Ssm[warp * SS + lane + 32];
-      const float m_new = fmaxf(m, warp_max(fmaxf(s0, s1)));
+      float sv[SPL];
+#pragma unroll
+      for (int i = 0; i < SPL; ++i) sv[i] = Ssm[warp * SS + lane + 32 * i];
+      float mx = sv[0];
+#pragma unroll
+      for (int i = 1; i < SPL; ++i) mx = fmaxf(mx, sv[i]);
+      const float m_new = fmaxf(m, warp_max(mx));
       const float alpha = expf(m - m_new);
-      const float p0 = s0 == NEG_INF ? 0.f : expf(s0 - m_new);
-      const float p1 = s1 == NEG_INF ? 0.f : expf(s1 - m_new);
-      l = l * alpha + warp_sum(p0 + p1);
+#pragma unroll
+      for (int i = 0; i < SPL; ++i) sv[i] = sv[i] == NEG_INF ? 0.f : expf(sv[i] - m_new);
+      float ps = sv[0];
+#pragma unroll
+      for (int i = 1; i < SPL; ++i) ps += sv[i];
+      l = l * alpha + warp_sum(ps);
       m = m_new;
-      if constexpr (Q8) {  // the V scale after l's sum
-        PT[lane * GP + warp] = p0 * __bfloat162float(sc8[DEC_KEYS + lane]);
-        PT[(lane + 32) * GP + warp] = p1 * __bfloat162float(sc8[DEC_KEYS + lane + 32]);
-      } else {
-        PT[lane * GP + warp] = p0;
-        PT[(lane + 32) * GP + warp] = p1;
+#pragma unroll
+      for (int i = 0; i < SPL; ++i) {
+        if constexpr (Q8)  // the V scale after l's sum
+          PT[(lane + 32 * i) * GP + warp] = sv[i] * __bfloat162float(sc8[KEYS + lane + 32 * i]);
+        else
+          PT[(lane + 32 * i) * GP + warp] = sv[i];
       }
       if (lane == 0) alpha_s[warp] = alpha;
     }

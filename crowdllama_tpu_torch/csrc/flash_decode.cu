@@ -26,9 +26,11 @@
 //   host sizes the grid without reading the lengths; splits past a slot's
 //   length or before its window return at once, and the live splits merge
 //   in the same launch, in split order;
-// - 64-key stages stream through a three-stage cp.async ring, so two
-//   stages load while one is computed; keys at or past min(seq_len, S) are
-//   zero-filled and masked, never read, so S need not be a multiple of 64;
+// - 64-key stages (32-key ones on fp32 rows at Dh 256, whose 64-key stage
+//   alone would be 128 KB) stream through a three-stage cp.async ring, so
+//   two stages load while one is computed; keys at or past min(seq_len, S)
+//   are zero-filled and masked, never read, so S need not be a multiple of
+//   64;
 // - each staged K and V element is read from shared memory once and used
 //   for all G heads of its kv head, and no FMA chain is longer than 8 keys
 //   a stage.
@@ -103,11 +105,9 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache, const int*
     case 128:
       return launch_decode<T, 128>(q, k_cache, v_cache, seq_lens, scratch, counters, out, B, H,
                                    Hkv, S, span, splits, scale, softcap, window, stream);
-    case 256:  // bf16 only: the fp32 entry is compiled at Dh 64 and 128
-      if constexpr (!is_f32<T>())
-        return launch_decode<T, 256>(q, k_cache, v_cache, seq_lens, scratch, counters, out, B,
-                                     H, Hkv, S, span, splits, scale, softcap, window, stream);
-      return (int)cudaErrorInvalidValue;
+    case 256:
+      return launch_decode<T, 256>(q, k_cache, v_cache, seq_lens, scratch, counters, out, B, H,
+                                   Hkv, S, span, splits, scale, softcap, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -154,7 +154,7 @@ extern "C" int resources(const char* entry, int dh, int G, int* out) {
     case 128:
       return f32 ? report<float, 128>(G, out) : report<bf16, 128>(G, out);
     case 256:
-      return f32 ? (int)cudaErrorInvalidValue : report<bf16, 256>(G, out);
+      return f32 ? report<float, 256>(G, out) : report<bf16, 256>(G, out);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -51,6 +51,17 @@
 // so no fragment load has a bank conflict.  A tile is masked only where a
 // key is invalid, past a row's position or under a window; the key walk
 // stops at the query block's causal end, as the bf16 kernel's does.
+// At Dh 256 a warp's O alone would be 128 fp32 registers a thread (16
+// rows x 256 columns over 32 lanes), before S, the split fragments and the
+// softmax state: the block takes 8 warps, a pair for each 16 rows, and each
+// warp of a pair keeps half of O's columns (64 registers, as at Dh 128).
+// Both warps of a pair compute the same S = Q K^T and the same online
+// softmax (the same inputs in the same order, so the same P), and each
+// multiplies P by its half of V: the pair does 1.5x the products of one
+// warp holding all of O, for no exchange through shared memory and no
+// barrier of its own, and every output element is summed in the order it
+// is at Dh 64 and 128.  Shared memory: Q's tile and two 32-key stages,
+// 202,256 B, one block a SM.
 
 #include <cstring>
 
@@ -129,9 +140,15 @@ int launch_prefill(const void* q, const void* k, const void* v, const int* posit
 
 constexpr int TF_Q = 64;          // query rows of a block (one query head), 16 a warp
 constexpr int TF_K = 32;          // keys of a tile
-constexpr int TF_THREADS = 128;
 constexpr int TF_STAGES = 2;
 constexpr int TF_INFO = 2 * TF_K + 2;  // a stage's key positions, flags, max, all-valid
+
+// Warps that share a block's 16-row group, each holding DH / tf_cols of
+// O's columns: 1, or 2 at Dh 256; the block's threads.
+template <int DH>
+__host__ __device__ constexpr int tf_cols() { return DH > 128 ? 2 : 1; }
+template <int DH>
+__host__ __device__ constexpr int tf_threads() { return 128 * tf_cols<DH>(); }
 
 // fp32 row strides: Q and K rows padded by 8 floats, V rows by 4, so the
 // fragment loads (Q, K: 8 bytes at row gq, column 2 tq; V: 4 bytes at row
@@ -203,17 +220,20 @@ __device__ __forceinline__ void mma_3xtf32(float (*d)[4], const Tf32Frag& a, con
 }
 
 template <int DH>
-__global__ void __launch_bounds__(TF_THREADS)
+__global__ void __launch_bounds__(tf_threads<DH>())
 prefill_tf_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const int* __restrict__ positions,
                     const unsigned char* __restrict__ kv_valid, float* __restrict__ out, int T,
                     int H, int Hkv, float scale, float softcap, int window) {
   constexpr int KROW = tf_krow<DH>(), VROW = tf_vrow<DH>();
+  constexpr int TF_THREADS = tf_threads<DH>();
+  constexpr int OC = DH / tf_cols<DH>();  // O's columns a warp holds
   extern __shared__ __align__(16) unsigned char smem[];
   float* const Qs = reinterpret_cast<float*>(smem);
   float* const ring = Qs + TF_Q * KROW;  // stage st: K at st * (KROW + VROW) * TF_K, then V
   int* const kinfo = reinterpret_cast<int*>(ring + TF_STAGES * TF_K * (KROW + VROW));
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32 % 4, c0 = tid / 128 * OC;  // row group; first O column
   const int gq = lane / 4, tq = lane % 4;
   // The longest key walks first: the last query block is block 0.
   const int q0 = (gridDim.x - 1 - blockIdx.x) * TF_Q, h = blockIdx.y, b = blockIdx.z;
@@ -266,9 +286,9 @@ prefill_tf_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // at or below it, with no window, needs no mask (a row past T, -1,
   // makes every tile masked, which leaves its unstored row at zero).
   const int qmin = __reduce_min_sync(0xffffffffu, min(qp[0], qp[1]));
-  float o[DH / 8][4];
+  float o[OC / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < DH / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  for (int dt = 0; dt < OC / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};  // running max, log2 units
   float l[2] = {0.f, 0.f};          // this thread's share of the row sums
 
@@ -353,21 +373,22 @@ prefill_tf_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + lsum[i];
 #pragma unroll
-    for (int dt = 0; dt < DH / 8; ++dt) {
+    for (int dt = 0; dt < OC / 8; ++dt) {
       o[dt][0] *= alpha[0];
       o[dt][1] *= alpha[0];
       o[dt][2] *= alpha[1];
       o[dt][3] *= alpha[1];
     }
 
-    // O += P V: S's column tile j is the A fragment of keys j * 8 .. + 7
-    // (k index tq is key 2 tq, tq + 4 key 2 tq + 1).
+    // O += P V over this warp's columns c0 ..: S's column tile j is the A
+    // fragment of keys j * 8 .. + 7 (k index tq is key 2 tq, tq + 4 key
+    // 2 tq + 1).
 #pragma unroll
     for (int j = 0; j < TF_K / 8; ++j) {
       const Tf32Frag a(s[j][0], s[j][2], s[j][1], s[j][3]);
-      const float* v0 = vs + (j * 8 + 2 * tq) * VROW + gq;
+      const float* v0 = vs + (j * 8 + 2 * tq) * VROW + c0 + gq;
 #pragma unroll
-      for (int d0 = 0; d0 < DH / 8; d0 += 8) {
+      for (int d0 = 0; d0 < OC / 8; d0 += 8) {
         float bv[8][2];
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
@@ -387,9 +408,9 @@ prefill_tf_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + warp * 16 + gq + 8 * i;
     if (r >= T) continue;
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-    float* orow = out + ((row0 + r) * H + h) * DH + 2 * tq;
+    float* orow = out + ((row0 + r) * H + h) * DH + c0 + 2 * tq;
 #pragma unroll
-    for (int dt = 0; dt < DH / 8; ++dt)
+    for (int dt = 0; dt < OC / 8; ++dt)
       *reinterpret_cast<float2*>(orow + dt * 8) = make_float2(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
   }
 }
@@ -402,7 +423,8 @@ int launch_prefill_f32(const void* q, const void* k, const void* v, const int* p
   const cudaError_t err = allow_smem(prefill_tf_kernel<DH>, tf_smem_bytes<DH>(), opted);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + TF_Q - 1) / TF_Q, H, B);
-  prefill_tf_kernel<DH><<<grid, TF_THREADS, tf_smem_bytes<DH>(), (cudaStream_t)stream>>>(
+  prefill_tf_kernel<DH>
+      <<<grid, tf_threads<DH>(), tf_smem_bytes<DH>(), (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, positions, kv_valid, (float*)out, T, H,
       Hkv, scale, softcap, window);
   return (int)cudaGetLastError();
@@ -420,6 +442,9 @@ extern "C" int flash_prefill_f32(const void* q, const void* k, const void* v,
                                     softcap, window, stream);
     case 128:
       return launch_prefill_f32<128>(q, k, v, positions, kv_valid, out, B, T, H, Hkv, scale,
+                                     softcap, window, stream);
+    case 256:
+      return launch_prefill_f32<256>(q, k, v, positions, kv_valid, out, B, T, H, Hkv, scale,
                                      softcap, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -448,16 +473,19 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
 
 // The dynamic shared memory an entry of kernel A (flash_prefill, or
 // flash_prefill_f32) launches with at head dim dh (any G), and its blocks
-// an SM holds (out[1]).  The fp32 entry is compiled at Dh 64 and 128 only.
+// an SM holds (out[1]).
 extern "C" int resources(const char* entry, int dh, int, int* out) {
   if (!strcmp(entry, "flash_prefill_f32")) {
     switch (dh) {
       case 64:
-        return occupancy(prefill_tf_kernel<64>, TF_THREADS, tf_smem_bytes<64>(),
+        return occupancy(prefill_tf_kernel<64>, tf_threads<64>(), tf_smem_bytes<64>(),
                          tf_smem_bytes<64>(), out);
       case 128:
-        return occupancy(prefill_tf_kernel<128>, TF_THREADS, tf_smem_bytes<128>(),
+        return occupancy(prefill_tf_kernel<128>, tf_threads<128>(), tf_smem_bytes<128>(),
                          tf_smem_bytes<128>(), out);
+      case 256:
+        return occupancy(prefill_tf_kernel<256>, tf_threads<256>(), tf_smem_bytes<256>(),
+                         tf_smem_bytes<256>(), out);
       default:
         return (int)cudaErrorInvalidValue;
     }

@@ -105,9 +105,9 @@ RESOURCES = [ctypes.c_char_p, _I, _I, _P]
 
 # Head dims every attention kernel is compiled for; the wrappers refuse
 # others.  The fp32 entries of A and D (the distillation trainer's) are
-# compiled for the first two only.
+# compiled for the same ones.
 HEAD_DIMS = (64, 128, 256)
-FP32_HEAD_DIMS = (64, 128)
+FP32_HEAD_DIMS = (64, 128, 256)
 
 
 class KernelBuildError(RuntimeError):
@@ -274,4 +274,4 @@ def check_head_dim(dh: int, fp32: bool = False) -> None:
           f"at {HEAD_DIMS} (ROADMAP Queue 2 item 12)")
     check(not fp32 or dh in FP32_HEAD_DIMS,
           f"head dim {dh} unsupported on fp32: the fp32 entries are "
-          f"compiled at {FP32_HEAD_DIMS} (ROADMAP Queue 2 item 11)")
+          f"compiled at {FP32_HEAD_DIMS} (ROADMAP Queue 2 item 12)")

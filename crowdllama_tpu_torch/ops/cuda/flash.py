@@ -63,7 +63,7 @@ def flash_prefill_attention(q, k, v, positions, scale: float,
     The caller guarantees ``positions[b, t] <= t`` (arange, or arange
     clamped at plen-1 with ``kv_valid`` masking the padding): the kernel
     skips key tiles above each query block's diagonal.  Head dims 64, 128
-    and 256 (fp32: 64 and 128), up to 8 query heads per kv head.  Where
+    and 256 (bf16 and fp32), up to 8 query heads per kv head.  Where
     autograd records (grad mode on and q, k or v requiring grad) the call
     goes through :class:`PrefillAttention`, whose forward is the same
     launch.

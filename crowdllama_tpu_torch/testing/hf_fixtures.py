@@ -3,9 +3,9 @@
 What a smoke run or a test needs to serve an HF directory when no
 checkpoint can be fetched: the chat templates of the registry's families
 as their checkpoints publish them, the published ``config.json`` fields
-of TinyLlama-1.1B-Chat and Llama-3.1-8B-Instruct, and two synthetic
-``tokenizer.json`` files of the families' kinds at a model's full vocab
-size:
+of TinyLlama-1.1B-Chat, Llama-3.1-8B-Instruct and Gemma-2-9b, and two
+synthetic ``tokenizer.json`` files of the families' kinds at a model's
+full vocab size:
 
 - :func:`sentencepiece_tokenizer`: TinyLlama's byte-fallback BPE (the
   ``Prepend`` + ``Replace`` normalizer, no pre-tokenizer, ``<0xXX>`` byte
@@ -175,6 +175,30 @@ LLAMA31_CONFIG = {
                      "rope_type": "llama3"},
     "rope_theta": 500000.0, "tie_word_embeddings": False,
     "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 128256}
+# google/gemma-2-9b's config.json as published (the fields a loader reads,
+# and the rest as they stand there).
+GEMMA2_9B_CONFIG = {
+    "architectures": ["Gemma2ForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "attn_logit_softcapping": 50.0,
+    "bos_token_id": 2, "cache_implementation": "hybrid", "eos_token_id": 1,
+    "final_logit_softcapping": 30.0, "head_dim": 256,
+    "hidden_act": "gelu_pytorch_tanh",
+    "hidden_activation": "gelu_pytorch_tanh", "hidden_size": 3584,
+    "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 8192, "model_type": "gemma2",
+    "num_attention_heads": 16, "num_hidden_layers": 42,
+    "num_key_value_heads": 8, "pad_token_id": 0,
+    "query_pre_attn_scalar": 256, "rms_norm_eps": 1e-06,
+    "rope_theta": 10000.0, "sliding_window": 4096,
+    "sliding_window_size": 4096, "torch_dtype": "float32",
+    "transformers_version": "4.42.0.dev0", "use_cache": True,
+    "vocab_size": 256000}
+# The published file has no tie_word_embeddings key.  Hugging Face's
+# Gemma2Config defaults it to true, so transformers loads the model tied;
+# both packages' config_from_hf_dir read a missing key as false (ROADMAP
+# Queue 3 item 21).  A directory meant to hold the model as Hugging Face
+# reads it states the default.
+GEMMA2_9B_TIED_CONFIG = {**GEMMA2_9B_CONFIG, "tie_word_embeddings": True}
 
 LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|"
                 r"\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|"

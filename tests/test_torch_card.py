@@ -20,8 +20,8 @@ bit-equal to B, and the builds' ``ptxas`` reports without spills; at
 head dim 256 with Gemma-2-9b's group of 2 (16 query, 8 kv) and groups of
 7 and 8: A, B and F (bit-equal to B) on both pools, D, C's chunk rows and
 E on both pools, B's and D's split edges, every entry's block fitting a
-SM, and a head dim of 96 (every wrapper) and fp32 at 256 (A's and D's
-fp32 entries) refused naming their ROADMAP items.  Kernel
+SM (the fp32 entries' too), and a head dim of 96 refused by every wrapper
+and by A's and D's fp32 entries, naming its ROADMAP item.  Kernel
 B's split-KV grid on both pools, at both head dims and groups of 1, 2, 4,
 7 and 8 (padded to 4 or 8 heads), at lengths on its split edges (0, 1,
 page - 1, page, page + 1, one split's 256 keys, one more, the table's
@@ -36,11 +36,13 @@ to B on the same keys in pages of 128; D and B calls in turn on one
 stream, each equal to its plain version, the shared counters at zero.
 Tolerance: one bf16 rounding of outputs of magnitude ~1 plus fp32
 summation order, atol 2e-2 + rtol 1e-2.  The fp32 entries of A and D
-(the distillation trainer's): both head dims, groups of 4, 7 and 8,
-padding, softcap, windows, all-masked rows (zeros), zero-length slots and
-D's split edges, against the plain versions on fp32 inputs at atol 1e-5 +
-rtol 1e-5 (fp32 summation order only); A's ``PrefillAttention`` gradient
-equal to the plain function's.  Kernel G (the grouped GEMM over bf16,
+(the distillation trainer's): all three head dims (Gemma-2-9b's 16 / 8
+heads at 256), groups of 2, 4, 7 and 8, padding, softcap, windows,
+all-masked rows (zeros), zero-length slots and D's split edges over
+caches of 2,048, 600 and 64 keys, against the plain versions on fp32
+inputs at atol 1e-5 + rtol 1e-5 (fp32 summation order only); A's
+``PrefillAttention`` gradient equal to the plain function's at Dh 64 and
+256.  Kernel G (the grouped GEMM over bf16,
 int8 and int4 expert banks) against its plain version within 0.0156 of
 the output's scale: groups left empty, every row on one expert, groups
 longer than a 64-row pass, an empty bank, the dense product (E 1); its
@@ -622,23 +624,22 @@ def test_paged_decode_and_flash_decode_dh256_on_card(cuda_device, int8,
 
 
 @pytest.mark.cuda
-def test_other_head_dims_and_fp32_dh256_are_refused(cuda_device):
+def test_other_head_dims_are_refused(cuda_device):
     """A head dim no kernel is compiled for (96) is refused by every
-    wrapper, and an fp32 call at Dh 256 by A's and D's fp32 entries, each
-    naming the ROADMAP item that would add it; nothing falls back to the
-    plain version."""
+    wrapper, on bf16 and by A's and D's fp32 entries, naming the ROADMAP
+    item that would add it; nothing falls back to the plain version."""
     from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
 
     gen, bf = _card_case(cuda_device)
     f32 = dict(device=cuda_device, dtype=torch.float32)
     i32 = dict(device=cuda_device, dtype=torch.int32)
-    for dh, opts, item in ((96, bf, "item 12"), (256, f32, "item 11")):
-        q = torch.randn((1, 16, 4, dh), generator=gen, **opts)
-        k = torch.randn((1, 2, 16, dh), generator=gen, **opts)
+    for opts in (bf, f32):
+        q = torch.randn((1, 16, 4, 96), generator=gen, **opts)
+        k = torch.randn((1, 2, 16, 96), generator=gen, **opts)
         pos = torch.arange(16, **i32)[None]
-        with pytest.raises(ValueError, match=f"ROADMAP Queue 2 {item}"):
+        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 12"):
             flash_prefill_attention(q, k, k, pos, 0.1)
-        with pytest.raises(ValueError, match=f"ROADMAP Queue 2 {item}"):
+        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 12"):
             flash_decode_attention(q[:, 0].contiguous(), k, k,
                                    torch.tensor([16], **i32), 0.1)
     pk = torch.randn((3, 2, 16, 96), generator=gen, **bf)
@@ -707,9 +708,9 @@ def test_tp_decode_dh128_bit_identical_to_paged_decode(cuda_device, int8, tp):
 
 @pytest.mark.cuda
 def test_builds_report_no_spills(cuda_device):
-    """Every kernel instantiation, at Dh 64, 128 and 256 on both pools (the
-    fp32 entries at 64 and 128 only), keeps its registers: ``ptxas -v``
-    reports no spill stores or loads."""
+    """Every kernel instantiation, at Dh 64, 128 and 256 on both pools and
+    the fp32 entries, keeps its registers: ``ptxas -v`` reports no spill
+    stores or loads."""
     from crowdllama_tpu_torch.ops import cuda as kernels
 
     rows = [dict(r, library=name) for name in kernels.SIGNATURES
@@ -719,14 +720,14 @@ def test_builds_report_no_spills(cuda_device):
         for k in ("flash_prefill_kernel", "flash_decode_kernel",
                   "paged_decode_kernel", "ragged_paged_kernel",
                   "ragged_chunk_kernel")} | {
-        ("prefill_tf_kernel", dh) for dh in (64, 128)}
+        ("prefill_tf_kernel", dh) for dh in (64, 128, 256)}
     assert {(r["kernel"], r["dh"], r["dtype"]) for r in rows
             if r["dh"] == 256} >= {
         (k, 256, t) for t in ("bf16", "int8")
         for k in ("paged_decode_kernel", "ragged_paged_kernel",
                   "ragged_chunk_kernel")}
     assert {(r["kernel"], r["dh"]) for r in rows if r["dtype"] == "fp32"} == {
-        (k, dh) for dh in (64, 128)
+        (k, dh) for dh in (64, 128, 256)
         for k in ("flash_decode_kernel", "prefill_tf_kernel")}
     for kernel in ("grouped_stream_kernel", "grouped_wgmma_kernel"):
         assert {r["dtype"] for r in rows
@@ -897,7 +898,8 @@ def test_decode_block_leaves_two_blocks_a_sm(cuda_device, dh, group):
 def test_dh256_blocks_fit_and_launch(cuda_device, group):
     """At Dh 256 every attention entry's block fits the 227 KB a block may
     take and at least one block fits a SM (the bf16 decode block's three
-    64-key stages of 64 KB leave room for one)."""
+    64-key stages of 64 KB leave room for one, as do the fp32 one's three
+    32-key stages and the fp32 prefill's Q tile and two key tiles)."""
     from crowdllama_tpu_torch.ops import cuda as kernels
 
     for lib, entry in (("paged_attention", "paged_decode"),
@@ -907,7 +909,9 @@ def test_dh256_blocks_fit_and_launch(cuda_device, group):
                        ("paged_attention", "ragged_chunk"),
                        ("paged_attention", "ragged_chunk_i8"),
                        ("flash_decode", "flash_decode"),
-                       ("flash_prefill", "flash_prefill")):
+                       ("flash_decode", "flash_decode_f32"),
+                       ("flash_prefill", "flash_prefill"),
+                       ("flash_prefill", "flash_prefill_f32")):
         res = kernels.kernel_resources(lib, entry, 256, group, cuda_device)
         assert res["smem_bytes"] <= 232448 and res["blocks_per_sm"] >= 1, (
             entry, res)
@@ -1024,7 +1028,9 @@ F32_TOL = dict(atol=1e-5, rtol=1e-5)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dh,h,hkv", [(64, 32, 4), (64, 28, 4),
-                                      (128, 32, 8), (128, 32, 4)])
+                                      (128, 32, 8), (128, 32, 4),
+                                      (256, 16, 8), (256, 56, 8),
+                                      (256, 64, 8)])
 @pytest.mark.parametrize("softcap,window,masked", [(0.0, 0, 0),
                                                    (30.0, 17, 5)])
 def test_prefill_fp32_matches_plain_on_card(cuda_device, dh, h, hkv,
@@ -1051,8 +1057,9 @@ def test_prefill_fp32_matches_plain_on_card(cuda_device, dh, h, hkv,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
-@pytest.mark.parametrize("s", [2048, 600])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (256, 8), (256, 16),
+                                    (256, 4)])
+@pytest.mark.parametrize("s", [2048, 600, 64])
 def test_flash_decode_fp32_matches_plain_on_card(cuda_device, dh, hkv, s):
     from crowdllama_tpu_torch.ops.cuda.flash import (
         decode_attention_plain,
@@ -1093,17 +1100,19 @@ def test_fp32_and_bf16_mixed_operands_are_refused(cuda_device):
 
 
 @pytest.mark.cuda
-def test_prefill_fp32_gradient_is_the_plain_gradient_on_card(cuda_device):
+@pytest.mark.parametrize("dh,h,hkv", [(64, 32, 4), (256, 16, 8)])
+def test_prefill_fp32_gradient_is_the_plain_gradient_on_card(cuda_device, dh,
+                                                             h, hkv):
     from crowdllama_tpu_torch.ops.attention import prefill_attention_ref
 
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     f = dict(device=cuda_device, dtype=torch.float32)
-    q = torch.randn((4, 64, 32, 64), generator=gen, **f).requires_grad_()
-    k = torch.randn((4, 4, 64, 64), generator=gen, **f).requires_grad_()
-    v = torch.randn((4, 4, 64, 64), generator=gen, **f).requires_grad_()
+    q = torch.randn((4, 64, h, dh), generator=gen, **f).requires_grad_()
+    k = torch.randn((4, hkv, 64, dh), generator=gen, **f).requires_grad_()
+    v = torch.randn((4, hkv, 64, dh), generator=gen, **f).requires_grad_()
     pos = torch.arange(64, device=cuda_device,
                        dtype=torch.int32)[None].repeat(4, 1).contiguous()
-    g = torch.randn((4, 64, 32, 64), generator=gen, **f)
+    g = torch.randn((4, 64, h, dh), generator=gen, **f)
     before = flash_prefill_attention.launches_fp32
     out = flash_prefill_attention(q, k, v, pos, 0.125)
     assert flash_prefill_attention.launches_fp32 == before + 1

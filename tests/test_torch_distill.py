@@ -6,6 +6,11 @@
 - ``rollout_corpus`` token-equal to JAX's on the permutation weights of
   ``testing/modelgen.py``: greedy and sampled at temperature 0.8 (the
   port's threefry draws), uniform prefixes and a prefix pool.
+- Each of the rollout, loss and whole-run tests on two teachers
+  (``TEACHERS``): ``tiny-test``, and ``tiny-test-gemma`` at head dim 256
+  (Gemma-2-9b's: softcaps, ``query_pre_attn_scalar``, post-norms, 1 + w
+  norms, a window on every other layer), the port on its plain versions,
+  JAX as its own tests run it.
 - ``distill_loss`` (loss, kl, ce, agreement) on random fp32 weights
   within ``TOL`` of JAX's; the gradient of every leaf against
   ``jax.grad`` within ``GRAD_TOL`` of its scale.
@@ -13,8 +18,10 @@
   params: losses within ``TOL``, params within ``PARAM_TOL`` (Adam's
   m / sqrt(v) turns a gradient element near zero into a step of about
   the learning rate whose sign fp32 noise may flip).
-- ``draft_config_for`` equal field by field; a checkpoint either package
-  writes loads in the other, tensor for tensor.
+- ``draft_config_for`` equal field by field (registry models, and
+  Gemma-2-9b read from its published ``config.json``, as published and
+  with the tied key the card's teacher directory states); a checkpoint
+  either package writes loads in the other, tensor for tensor.
 - A whole ``distill_draft`` run from the same permutation teacher and the
   same initial draft weights (injected into the JAX trainer through
   ``monkeypatch`` of its ``T.init_params``, its batch rows through its
@@ -28,6 +35,7 @@
 """
 
 import dataclasses
+import json
 import types
 
 import numpy as np
@@ -48,6 +56,7 @@ from crowdllama_tpu.train import distill as jd  # noqa: E402
 from crowdllama_tpu_torch.engine import prng  # noqa: E402
 from crowdllama_tpu_torch.engine import weights as tw  # noqa: E402
 from crowdllama_tpu_torch.models.config import get_config  # noqa: E402
+from crowdllama_tpu_torch.testing import hf_fixtures as hf  # noqa: E402
 from crowdllama_tpu_torch.train import distill as td  # noqa: E402
 
 #: loss, kl, ce (fp32 sums of a few thousand terms, orders apart)
@@ -57,6 +66,13 @@ GRAD_TOL = 1e-4
 #: params after Adam steps at lr 3e-3 (see the module docstring)
 PARAM_TOL = 2e-4
 CTX = 64
+#: the teachers and their overrides: tiny-test as registered, and
+#: tiny-test-gemma at Gemma-2-9b's head dim and query_pre_attn_scalar
+#: (256), its window cut to 8 so the tests' 16-32-token sequences pass it
+TEACHERS = {"tiny-test": {},
+            "tiny-test-gemma": {"head_dim": 256,
+                                "query_pre_attn_scalar": 256.0,
+                                "sliding_window": 8}}
 
 
 def _jparams(flat):
@@ -70,19 +86,20 @@ def _jparams(flat):
     return out
 
 
-def _cfgs(**kw):
-    return (j_get_config("tiny-test", max_context_length=CTX, **kw),
-            get_config("tiny-test", max_context_length=CTX, **kw))
+def _cfgs(teacher="tiny-test", **kw):
+    kw = {**TEACHERS[teacher], **kw}
+    return (j_get_config(teacher, max_context_length=CTX, **kw),
+            get_config(teacher, max_context_length=CTX, **kw))
 
 
-def _perm_flat():
+def _perm_flat(teacher="tiny-test"):
     from crowdllama_tpu.testing.modelgen import permutation_params
 
-    return jw._flatten_params(permutation_params(_cfgs()[0]))
+    return jw._flatten_params(permutation_params(_cfgs(teacher)[0]))
 
 
-def _random_flat(layers=2, seed=1):
-    jcfg = _cfgs(num_layers=layers)[0]
+def _random_flat(layers=2, seed=1, teacher="tiny-test"):
+    jcfg = _cfgs(teacher, num_layers=layers)[0]
     return jw._flatten_params(JT.init_params(jcfg, jax.random.PRNGKey(seed),
                                              dtype=jnp.float32))
 
@@ -117,11 +134,12 @@ def test_randint_serving_ranges_and_array_bounds(lo, hi):
 
 # ------------------------------------------------------------------ corpus
 
+@pytest.mark.parametrize("teacher", list(TEACHERS))
 @pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "t0.8"])
 @pytest.mark.parametrize("pool", [False, True], ids=["uniform", "pool"])
-def test_rollout_corpus_token_equal_to_jax(temperature, pool):
-    jcfg, tcfg = _cfgs()
-    flat = _perm_flat()
+def test_rollout_corpus_token_equal_to_jax(temperature, pool, teacher):
+    jcfg, tcfg = _cfgs(teacher)
+    flat = _perm_flat(teacher)
     prefix_pool = (np.arange(300, dtype=np.int32) * 7) % 512 if pool else None
     key = jax.random.PRNGKey(5)
     want = jd.rollout_corpus(jcfg, _jparams(flat), key, 6, 24, temperature,
@@ -153,11 +171,12 @@ def _batch(seed=0, b=4, t=16):
     return tokens, teacher
 
 
+@pytest.mark.parametrize("teacher", list(TEACHERS))
 @pytest.mark.parametrize("kl_weight,tau", [(0.5, 2.0), (1.0, 1.0),
                                            (0.0, 3.0)])
-def test_distill_loss_matches_jax(kl_weight, tau):
-    jcfg, tcfg = _cfgs(num_layers=2)
-    flat = _random_flat()
+def test_distill_loss_matches_jax(kl_weight, tau, teacher):
+    jcfg, tcfg = _cfgs(teacher, num_layers=2)
+    flat = _random_flat(teacher=teacher)
     tokens, teacher = _batch()
     lj, auxj = jd.distill_loss(_jparams(flat), jcfg, jnp.asarray(teacher),
                                jnp.asarray(tokens), kl_weight, tau)
@@ -285,20 +304,34 @@ def test_three_train_steps_match_jax():
 
 # ------------------------------------------------------ config, checkpoint
 
+#: Gemma-2-9b's config.json as published, and as the card's teacher
+#: directory holds it (Hugging Face's tie_word_embeddings default stated)
+PUBLISHED = {"gemma-2-9b": hf.GEMMA2_9B_CONFIG,
+             "gemma-2-9b-tied": hf.GEMMA2_9B_TIED_CONFIG}
+
+
 @pytest.mark.parametrize("model,layers,ctx", [("tiny-test", 1, 0),
                                               ("tiny-test", 2, 128),
                                               ("tinyllama-1.1b", 2, 0),
-                                              ("llama-3-8b", 3, 4096)])
-def test_draft_config_for_matches_jax(model, layers, ctx):
-    want = dataclasses.asdict(jd.draft_config_for(j_get_config(model),
-                                                  layers, ctx))
-    got = dataclasses.asdict(td.draft_config_for(get_config(model), layers,
-                                                 ctx))
+                                              ("llama-3-8b", 3, 4096),
+                                              ("gemma-2-9b", 2, 0),
+                                              ("gemma-2-9b-tied", 2, 0)])
+def test_draft_config_for_matches_jax(model, layers, ctx, tmp_path):
+    if model in PUBLISHED:
+        (tmp_path / "config.json").write_text(json.dumps(PUBLISHED[model]))
+        jcfg = jw.config_from_hf_dir(tmp_path)
+        tcfg = tw.config_from_hf_dir(tmp_path)
+        assert tcfg.resolved_head_dim() == 256
+        assert tcfg.tie_word_embeddings == model.endswith("-tied")
+    else:
+        jcfg, tcfg = j_get_config(model), get_config(model)
+    want = dataclasses.asdict(jd.draft_config_for(jcfg, layers, ctx))
+    got = dataclasses.asdict(td.draft_config_for(tcfg, layers, ctx))
     assert got == want
 
 
-def _smoke(out, **kw):
-    return td.DistillConfig(teacher="tiny-test", steps=12, batch=8,
+def _smoke(out, teacher="tiny-test", **kw):
+    return td.DistillConfig(teacher=teacher, steps=12, batch=8,
                             seq_len=32, corpus_seqs=16, out=str(out),
                             log_every=0, device="cpu", **kw)
 
@@ -339,10 +372,11 @@ class _Rows:
         return torch.randperm(n, generator=self.gen)[:size].numpy()
 
 
-def test_whole_run_matches_jax(tmp_path, monkeypatch):
-    jcfg, tcfg = _cfgs()
-    flat = _perm_flat()
-    dc = _smoke(tmp_path / "torch", seed=3)
+@pytest.mark.parametrize("teacher", list(TEACHERS))
+def test_whole_run_matches_jax(tmp_path, monkeypatch, teacher):
+    jcfg, tcfg = _cfgs(teacher)
+    flat = _perm_flat(teacher)
+    dc = _smoke(tmp_path / "torch", teacher, seed=3)
     res = td.distill_draft(dc, teacher_cfg=tcfg,
                            teacher_params=tw.params_from_numpy(flat))
     init = tw.flatten_params(td.init_draft_params(
@@ -355,7 +389,7 @@ def test_whole_run_matches_jax(tmp_path, monkeypatch):
                                        "ndarray")},
         random=types.SimpleNamespace(default_rng=_Rows)))
     jres = jd.distill_draft(jd.DistillConfig(
-        teacher="tiny-test", steps=dc.steps, batch=dc.batch,
+        teacher=teacher, steps=dc.steps, batch=dc.batch,
         seq_len=dc.seq_len, corpus_seqs=dc.corpus_seqs, seed=dc.seed,
         out=str(tmp_path / "jax"), log_every=0), teacher_cfg=jcfg,
         teacher_params=_jparams(flat))

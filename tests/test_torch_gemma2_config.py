@@ -7,7 +7,10 @@ by ``query_pre_attn_scalar`` 256 and a sliding window of 4,096 on every
 other layer (``layer_sliding_windows`` of both packages).  The
 configuration ``chip_smoke.py`` serves on the card (the port's
 ``gemma-2-27b`` entry widened by ``dataclasses.replace``) must be that
-configuration too.
+configuration too, and the directory its distillation teacher reads
+(the file with ``tie_word_embeddings`` stated) must give it.  The
+published dict lives in ``testing/hf_fixtures.py``, which the smoke
+reads too.
 """
 
 import dataclasses
@@ -22,40 +25,9 @@ from crowdllama_tpu.engine import weights as JW  # noqa: E402
 from crowdllama_tpu.models import transformer as JT  # noqa: E402
 from crowdllama_tpu_torch.engine import weights as TW  # noqa: E402
 from crowdllama_tpu_torch.models import transformer as T  # noqa: E402
+from crowdllama_tpu_torch.testing import hf_fixtures as hf  # noqa: E402
 
-# google/gemma-2-9b's config.json as published (the fields a loader reads,
-# and the rest as they stand there).
-GEMMA2_9B = {
-    "architectures": ["Gemma2ForCausalLM"],
-    "attention_bias": False,
-    "attention_dropout": 0.0,
-    "attn_logit_softcapping": 50.0,
-    "bos_token_id": 2,
-    "cache_implementation": "hybrid",
-    "eos_token_id": 1,
-    "final_logit_softcapping": 30.0,
-    "head_dim": 256,
-    "hidden_act": "gelu_pytorch_tanh",
-    "hidden_activation": "gelu_pytorch_tanh",
-    "hidden_size": 3584,
-    "initializer_range": 0.02,
-    "intermediate_size": 14336,
-    "max_position_embeddings": 8192,
-    "model_type": "gemma2",
-    "num_attention_heads": 16,
-    "num_hidden_layers": 42,
-    "num_key_value_heads": 8,
-    "pad_token_id": 0,
-    "query_pre_attn_scalar": 256,
-    "rms_norm_eps": 1e-06,
-    "rope_theta": 10000.0,
-    "sliding_window": 4096,
-    "sliding_window_size": 4096,
-    "torch_dtype": "float32",
-    "transformers_version": "4.42.0.dev0",
-    "use_cache": True,
-    "vocab_size": 256000,
-}
+GEMMA2_9B = hf.GEMMA2_9B_CONFIG
 
 
 @pytest.fixture
@@ -101,3 +73,21 @@ def test_chip_smoke_serves_the_published_configuration(configs):
             assert getattr(smoke, name) == value, name
     assert smoke.tie_word_embeddings
     assert smoke.param_count() == pytest.approx(9.24e9, rel=0.01)
+
+
+def test_distill_teacher_directory_reads_as_the_served_model(tmp_path):
+    """The card's ``distill_gemma2_9b`` teacher directory (the published
+    file with Hugging Face's ``tie_word_embeddings`` default stated) reads
+    alike in both packages, tied, and under the teacher's name it is
+    ``chip_smoke.gemma2_9b_config`` field by field."""
+    import chip_smoke
+
+    (tmp_path / "config.json").write_text(
+        json.dumps(hf.GEMMA2_9B_TIED_CONFIG))
+    jcfg, cfg = JW.config_from_hf_dir(tmp_path), TW.config_from_hf_dir(
+        tmp_path)
+    assert _fields(jcfg) == _fields(cfg) and cfg.tie_word_embeddings
+    served = TW.resolve_model_config(chip_smoke.GEMMA9, str(tmp_path))
+    assert _fields(served) == _fields(chip_smoke.gemma2_9b_config())
+    assert hf.GEMMA2_9B_TIED_CONFIG == {**GEMMA2_9B,
+                                        "tie_word_embeddings": True}

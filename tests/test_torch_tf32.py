@@ -11,10 +11,14 @@ V) stays within atol 1e-5 + rtol 1e-5 of JAX's fp32 prefill reference
 (``crowdllama_tpu.ops.attention.prefill_attention``, the CPU route) and
 of the port's plain version, the bound ``chip_smoke.py`` and the card
 tests hold the kernel to, on the shapes they use: TinyLlama's 512-token
-prompt (32 / 4 heads, Dh 64), Llama-3-8B's (32 / 8, Dh 128), a group of
-7 at both, the distillation step (16 x 64 tokens), and padded prompts
-with softcap, a window and rows that see no key; and against JAX's Pallas
-kernel in interpret mode at a small shape.  One TF32 product alone (the
+prompt (32 / 4 heads, Dh 64), Llama-3-8B's (32 / 8, Dh 128), Gemma-2-9b's
+(16 / 8, Dh 256), a group of 7 at Dh 64 and 128, the distillation step
+(16 x 64 tokens) at Dh 64 and 256, and padded prompts with softcap, a
+window and rows that see no key; and against JAX's Pallas kernel in
+interpret mode at a small shape, at each head dim.  At Dh 256 the kernel
+splits O's columns between the two warps of a pair, which both compute
+the whole S and P: every output element still sums its products in the
+order it does at Dh 64 and 128, so one emulation models all three.  One TF32 product alone (the
 hi*hi term) misses that bound at these shapes, which is why the kernel
 takes three.
 """
@@ -133,6 +137,9 @@ CASES = {
     "distill_step": (16, 64, 32, 4, 64, None, 0, 0.0, 0),
     "padded_dh64": (2, 200, 32, 4, 64, 190, 5, 30.0, 17),
     "padded_dh128": (2, 200, 32, 8, 128, 190, 5, 30.0, 17),
+    "gemma9_512": (1, 512, 16, 8, 256, None, 0, 0.0, 0),
+    "distill_step_dh256": (16, 64, 16, 8, 256, None, 0, 0.0, 0),
+    "padded_dh256": (2, 200, 16, 8, 256, 190, 5, 50.0, 17),
 }
 
 
@@ -182,7 +189,7 @@ def interpret_mode():
     os.environ.pop("CROWDLLAMA_PALLAS_INTERPRET", None)
 
 
-@pytest.mark.parametrize("dh,hkv", [(64, 2), (128, 2)])
+@pytest.mark.parametrize("dh,hkv", [(64, 2), (128, 2), (256, 2)])
 def test_3xtf32_matches_the_pallas_kernel_in_interpret_mode(interpret_mode,
                                                             dh, hkv):
     """The emulation against JAX's A itself (Pallas, interpret mode, fp32
