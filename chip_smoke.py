@@ -7,6 +7,8 @@
                                            # engine_gemma2_9b alone
     python3 chip_smoke.py --phase distill_gemma2   # the Dh-256 kernel
                                    # line and distill_gemma2_9b alone
+    python3 chip_smoke.py --phase danube   # the Dh-80 and Dh-96 kernel
+                          # lines, engine_danube_1_8b and its cuts alone
 
 Phases, each printing one JSON line:
 
@@ -14,11 +16,11 @@ Phases, each printing one JSON line:
    ``nvidia-smi`` name/power limit;
 2. build: compiles every kernel from ``crowdllama_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once; each attention kernel, the fp32
-   entries too, at head dims 64, 128 and 256) and reports the
-   seconds it took, each instantiation's registers and spills from
-   ``ptxas -v``, and each entry's dynamic shared memory and blocks per SM
-   at the serving groups (8 query heads a kv head at Dh 64, 4 at Dh 128,
-   2 at Dh 256);
+   entries too, at head dims 64, 128 and 256, the bf16 and int8 ones also
+   at 80 and 96) and reports the seconds it took, each instantiation's
+   registers and spills from ``ptxas -v``, and each entry's dynamic
+   shared memory and blocks per SM at the serving groups (8 query heads a
+   kv head at Dh 64, 4 at Dh 128, 2 at Dh 256, 4 at Dh 80 and 96);
    native: the native data plane (``crowdllama_tpu_torch/native``)
    built from the checkout's C++ source with g++ (a failure is an
    error), then seal and open of one 64 KiB and one 256 KiB (``CHUNK``)
@@ -28,8 +30,10 @@ Phases, each printing one JSON line:
    on the card (rows with tied logits too), against golden vectors
    captured from JAX (``engine/prng_golden.py``);
 4. kernels, once at Dh 64 over TinyLlama's 32 / 4 heads, once at Dh 128
-   over Llama-3-8B's 32 / 8 and once at Dh 256 over Gemma-2-9b's 16 / 8
-   (A also at qwen2.5-7b's group of 7, 28 / 4 heads, at all three): each
+   over Llama-3-8B's 32 / 8, once at Dh 256 over Gemma-2-9b's 16 / 8, once
+   at Dh 80 over H2O-Danube-1.8B's 32 / 8 and once at Dh 96 over the same
+   heads (A also at qwen2.5-7b's group of 7, 28 / 4 heads, at all five;
+   the fp32 entries below only at Dh 64, 128 and 256): each
    hand-written kernel (A prefill, B paged decode, C ragged paged, D
    contiguous decode, E one prefill chunk over its slot's pages, F paged
    decode on tensor-parallel shares of the heads, and B, C, E and F on
@@ -372,6 +376,18 @@ Phases, each printing one JSON line:
    their predictions; then engine_gemma2_9b_int8, contiguous_gemma2_9b,
    engine_gemma2_9b_tp and engine_gemma2_9b_tp_int8 cut to 4 layers, as
    the llama cuts;
+13c. engine_danube_1_8b: H2O-Danube-1.8B (its published config, read
+   through ``config_from_hf_dir``: a Mistral model, head dim 80, 32 / 8
+   heads, 24 layers, a window of 4,096 on every layer, untied, context
+   16,384) at full width and depth on the paged main path, random bf16
+   weights from seed 0 made on the card: the paged phase's short prompts
+   and prefix hit and a ~6,000-token prompt past the window, 32 tokens
+   each; A, B and C launch once a layer; logits through the kernels
+   against the plain versions (5% of scale); the steady step, the ragged
+   step with C's time, TTFT and the serving peak beside their
+   predictions; then engine_danube_1_8b_int8, contiguous_danube_1_8b,
+   engine_danube_1_8b_tp and engine_danube_1_8b_tp_int8 cut to 4 layers,
+   as the llama cuts;
 14. quant: llama-3-8b at full depth with int8 and then int4 weights
    (born quantized on the card), the paged phase's traffic, 16
    tokens: A, B, C and G (its int8 or int4 entry) launch, the logits
@@ -453,7 +469,9 @@ of a copy on the card).
 Every line carries ``t_s``, the seconds since the script started.
 Then the ``kernels`` line (a row per kernel and head dim, the Dh-128
 rows named ``<symbol>_dh128`` with the llama phases' launches, the
-Dh-256 rows ``<symbol>_dh256`` with the Gemma-2-9b phases'; kernel
+Dh-256 rows ``<symbol>_dh256`` with the Gemma-2-9b phases', the Dh-80
+rows ``<symbol>_dh80`` with the Danube phases' and the Dh-96 rows
+``<symbol>_dh96`` at 0 (no served model has that head dim); kernel
 G's three entries with their ``moe`` phases' launches and the 8-slot
 Mixtral decode shape's times), the
 ``nvidia-smi`` line, and last
@@ -1066,9 +1084,11 @@ def fp32_checks(dev, gen, f32: dict) -> dict:
 def kernel_checks(dev, gen, hkv: int, dh: int, h: int = 32) -> dict:
     """Every kernel against its plain version at head dim ``dh`` over
     ``h`` query and ``hkv`` kv heads (TinyLlama's 32 / 4 at Dh 64,
-    Llama-3-8B's 32 / 8 at Dh 128, Gemma-2-9b's 16 / 8 at Dh 256): the
+    Llama-3-8B's 32 / 8 at Dh 128, Gemma-2-9b's 16 / 8 at Dh 256,
+    H2O-Danube-1.8B's 32 / 8 at Dh 80 and the same heads at Dh 96): the
     serving shapes timed, then the small shapes; the fp32 entries of A
-    and D on the same heads (``fp32_checks``)."""
+    and D on the same heads (``fp32_checks``) where they are compiled
+    (``FP32_HEAD_DIMS``)."""
     d = dict(hkv=hkv, dh=dh, h=h)
     out = {}
     a = check_prefill(dev, gen, 512, 0.0, 0, 0, timed=True, **d)
@@ -1133,7 +1153,10 @@ def kernel_checks(dev, gen, hkv: int, dh: int, h: int = 32) -> dict:
         for sc, win in SPLIT_EDGE_CASES]
     out["D"] = dres
     # The fp32 entries (the distillation trainer's teacher and student).
-    out.update(fp32_checks(dev, gen, dict(d, dtype=torch.float32)))
+    from crowdllama_tpu_torch.ops.cuda import FP32_HEAD_DIMS
+
+    if dh in FP32_HEAD_DIMS:
+        out.update(fp32_checks(dev, gen, dict(d, dtype=torch.float32)))
     for key, int8 in (("E", False), ("E_int8", True)):
         eres = check_chunk(dev, gen, 1024, 512, 512, 0.0, 0, timed=True,
                            int8=int8, **d)
@@ -1168,9 +1191,13 @@ def kernel_checks(dev, gen, hkv: int, dh: int, h: int = 32) -> dict:
 
 
 # (head dim, query heads, kv heads) of each kernel line: TinyLlama,
-# Llama-3-8B, Gemma-2-9b; a row's key takes the suffix of its head dim.
-KERNEL_LINES = ((64, 32, 4), (128, 32, 8), (256, 16, 8))
-DH_SUFFIX = {64: "", 128: "_dh128", 256: "_dh256"}
+# Llama-3-8B, Gemma-2-9b, H2O-Danube-1.8B (Dh 80) and its heads at Dh 96;
+# a row's key takes the suffix of its head dim.
+KERNEL_LINES = ((64, 32, 4), (128, 32, 8), (256, 16, 8), (80, 32, 8),
+                (96, 32, 8))
+DH_SUFFIX = {64: "", 128: "_dh128", 256: "_dh256", 80: "_dh80", 96: "_dh96"}
+# The rows of the fp32 entries, which run only at FP32_HEAD_DIMS.
+FP32_ROWS = ("A_fp32", "D_fp32")
 
 
 def kernel_line(dev, gen, dh: int, h: int, hkv: int) -> dict:
@@ -1188,11 +1215,12 @@ def kernel_line(dev, gen, dh: int, h: int, hkv: int) -> dict:
 
 
 def kernel_phase(dev) -> dict:
-    """The kernel checks at Dh 64 (TinyLlama), Dh 128 (Llama-3-8B) and Dh
-    256 (Gemma-2-9b's 16 query / 8 kv heads), a line each, then kernel A
-    at a group of 7 (qwen2.5-7b's 28 query / 4 kv heads: 18 queries a
-    block, its last two rows empty) at all three; returns the rows keyed
-    by kernel and head dim (``DH_SUFFIX``)."""
+    """The kernel checks at Dh 64 (TinyLlama), Dh 128 (Llama-3-8B), Dh
+    256 (Gemma-2-9b's 16 query / 8 kv heads), Dh 80 (H2O-Danube-1.8B's 32
+    / 8) and Dh 96 (the same heads), a line each, then kernel A at a group
+    of 7 (qwen2.5-7b's 28 query / 4 kv heads: 18 queries a block, its last
+    two rows empty) at all five; returns the rows keyed by kernel and head
+    dim (``DH_SUFFIX``)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     for dh, h, hkv in KERNEL_LINES:
@@ -4659,23 +4687,25 @@ def llama_phase(dev) -> dict:
 
 
 def _cut_model(dev, model: str) -> tuple:
-    """``model`` (LLAMA or GEMMA9) cut to LLAMA_CUT_LAYERS layers at full
-    width, its seed-0 weights made on the card: (config, params, its full
-    depth)."""
+    """``model`` (LLAMA, GEMMA9 or DANUBE) cut to LLAMA_CUT_LAYERS layers
+    at full width, its seed-0 weights made on the card: (config, params,
+    its full depth)."""
     from crowdllama_tpu_torch.models.config import get_config
 
-    if model == GEMMA9:
-        full = gemma2_9b_config()
+    if model in (GEMMA9, DANUBE):
+        full = gemma2_9b_config() if model == GEMMA9 else danube_config()
         cfg = dataclasses.replace(full, num_layers=LLAMA_CUT_LAYERS)
-        return cfg, gemma2_9b_params(dev, cfg), full.num_layers
+        made = gemma2_9b_params if model == GEMMA9 else danube_params
+        return cfg, made(dev, cfg), full.num_layers
     return (*llama_params(dev, LLAMA_CUT_LAYERS),
             get_config(LLAMA).num_layers)
 
 
 def llama_cut_phase(dev, phase: str, ran: set[str], model: str = LLAMA,
                     **engine_kw) -> dict:
-    """``model`` (llama-3-8b at Dh 128, or Gemma-2-9b at Dh 256) cut to
-    LLAMA_CUT_LAYERS layers at full width, on one more path
+    """``model`` (llama-3-8b at Dh 128, Gemma-2-9b at Dh 256 or
+    H2O-Danube-1.8B at Dh 80) cut to LLAMA_CUT_LAYERS layers at full
+    width, on one more path
     (``engine_kw``: int8 pools, the contiguous layout, tp=2 on the one
     card): 2 greedy short prompts and the long one, 16 tokens each.  The
     kernels in ``ran`` launch and no other; one decode step (and on bf16
@@ -4834,10 +4864,10 @@ def rounding_probe(engine, dev) -> dict:
     return {"served": served, "norms_one": ones}
 
 
-def _gemma9_memory(cfg, weight_bytes: int, slots: int, page: int) -> dict:
+def _serving_memory(cfg, weight_bytes: int, slots: int, page: int) -> dict:
     """The serving peak predicted from the configuration: the weights, the
     paged pool (every slot at the full context, and the dump page) and the
-    tied unembedding's fp32 copy made at each call (ROADMAP Queue 1 item
+    unembedding's fp32 copy made at each call (ROADMAP Queue 1 item
     3.2)."""
     token = (cfg.num_layers * cfg.num_kv_heads * cfg.resolved_head_dim()
              * 2 * 2)  # bf16 K and V of every layer
@@ -4898,7 +4928,7 @@ def gemma2_phase(dev) -> dict:
     probe = rounding_probe(engine, dev)
     ragged = ragged_step_timing(engine, ragged_paged_attention)
     steady = decode_step_timing(engine, dev, flash_paged_decode_attention_tp)
-    memory = _gemma9_memory(cfg, weight_bytes, r.max_slots, r.page_size)
+    memory = _serving_memory(cfg, weight_bytes, r.max_slots, r.page_size)
     emit({"phase": phase, "model": GEMMA9, "layers": layers,
           "head_dim": cfg.resolved_head_dim(),
           "heads": [cfg.num_heads, cfg.num_kv_heads],
@@ -4912,6 +4942,125 @@ def gemma2_phase(dev) -> dict:
           "logits_max_abs_err": errs, "logits_rtol": LOGIT_RTOL,
           "rounding_probe": probe,
           "steady_decode": steady, "predicted": GEMMA9_PREDICTED,
+          "memory_predicted": memory,
+          "memory_over_predicted": summary["max_memory_allocated"]
+          / memory["total"],
+          "card": nvidia_smi()})
+    return launches
+
+
+# ------------------------------------------------------------ H2O-Danube-1.8B
+
+DANUBE = "h2o-danube-1.8b"
+DANUBE_TOKENS = 32
+# A prompt of ~6,000 byte tokens, past Danube's 4,096-token window, sent
+# while the others decode: its ragged chunks past the window, and the
+# decode steps after them, mask the oldest keys on every layer.
+DANUBE_LONG = ("Past the sliding window every layer of this model masks the "
+               "oldest keys of the prompt, so the newest 4,096 positions are "
+               "all that a query sees. ") * 42
+# Predictions made before the phase's first run on the card (PERF.md,
+# PR 27): the steady eager step with 8 live slots (ms), TTFT median and
+# max (ms), the serving peak (GB), each a range.
+DANUBE_PREDICTED = {"step_ms": [12.0, 45.0], "ttft_ms_median": [100.0, 900.0],
+                    "ttft_ms_max": [400.0, 3000.0],
+                    "peak_gb": [12.0, 14.5]}
+
+
+def danube_config():
+    """H2O-Danube-1.8B as its published ``config.json`` gives it
+    (``testing/hf_fixtures.py DANUBE_1_8B_CONFIG``, written out and read
+    through the port's ``config_from_hf_dir``): a Mistral model, hidden
+    2,560, intermediate 6,912, 24 layers, 32 query and 8 kv heads of head
+    dim 80, vocab 32,000, a window of 4,096 on every layer, context
+    16,384, untied embeddings."""
+    import json
+    import tempfile
+    from pathlib import Path
+
+    from crowdllama_tpu_torch.engine.weights import config_from_hf_dir
+    from crowdllama_tpu_torch.testing.hf_fixtures import DANUBE_1_8B_CONFIG
+
+    with tempfile.TemporaryDirectory(prefix="danube") as d:
+        (Path(d) / "config.json").write_text(json.dumps(DANUBE_1_8B_CONFIG))
+        return dataclasses.replace(config_from_hf_dir(d), name=DANUBE)
+
+
+def danube_params(dev, cfg) -> dict:
+    """Random bf16 weights from seed 0 made on the card (~3.66 GB at full
+    depth), the EOS column of ``lm_head`` zeroed so no stream stops early.
+    Mistral's RMSNorm scales by w, so the port's init of one is Hugging
+    Face's."""
+    from crowdllama_tpu_torch.engine.weights import init_params
+
+    params = init_params(cfg, seed=0, device=dev)
+    _zero_eos_params(params)
+    return params
+
+
+def danube_phase(dev) -> dict:
+    """H2O-Danube-1.8B at full width and all 24 layers (head dim 80: the
+    tensor-core tile's 96-key tiles and odd last k-step, the decode stages'
+    uneven lane shares) at its published 16,384 context on the paged main
+    path, random bf16 weights from seed 0 made on the card: the engine
+    phase's 6 short prompts and prefix hit, and a ~6,000-token prompt past
+    the 4,096 window sent while they decode, 32 tokens each.  A launches
+    24 times a prefill, B 24 a decode step and C 24 a ragged step, and no
+    other kernel; one prefill, decode step and ragged step through the
+    kernels agree with the plain versions within 5% of the logits' scale;
+    the steady step, the ragged step with C's time, TTFT and the serving
+    peak are printed beside their predictions.  Returns the launch
+    counts."""
+    from crowdllama_tpu_torch.ops.cuda.paged import (
+        flash_paged_decode_attention_tp,
+        ragged_paged_attention,
+    )
+
+    cfg = danube_config()
+    t0 = time.perf_counter()
+    params = danube_params(dev, cfg)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    weight_bytes = _tree_bytes(params)
+    engine, summary, reqs = run_engine(
+        dev, {**GREEDY, "prefix_hit": (HIT, {})}, DANUBE_TOKENS,
+        params=params, model=DANUBE, model_config=cfg,
+        max_context_length=cfg.max_context_length, long_prompt=DANUBE_LONG)
+    del params
+    r = engine.runner
+    phase = "engine_danube_1_8b"
+    long_tokens = reqs["long"]["prompt_tokens"]
+    if long_tokens <= cfg.sliding_window:
+        raise AssertionError(f"{phase}: the long prompt ({long_tokens}) must "
+                             f"pass the {cfg.sliding_window}-token window")
+    launches = summary["launches"]
+    _expect_launches(launches, {"A", "B", "C"}, phase)
+    layers = cfg.num_layers
+    if any(launches[k] % layers for k in ("A", "B", "C")):
+        raise AssertionError(f"{phase}: A, B and C launch once a layer: "
+                             f"{launches}")
+    ragged_chunks = engine.scheduler.ragged_chunks
+    if (summary["prefix_hits"] < 1
+            or ragged_chunks * r.ragged_chunk < long_tokens):
+        raise AssertionError(f"{phase}: prefix hits {summary['prefix_hits']},"
+                             f" ragged chunks {ragged_chunks}: a path was "
+                             f"not taken")
+    errs = _check_logit_errs(logits_check(engine, dev), phase)
+    ragged = ragged_step_timing(engine, ragged_paged_attention)
+    steady = decode_step_timing(engine, dev, flash_paged_decode_attention_tp)
+    memory = _serving_memory(cfg, weight_bytes, r.max_slots, r.page_size)
+    emit({"phase": phase, "model": DANUBE, "layers": layers,
+          "head_dim": cfg.resolved_head_dim(),
+          "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "sliding_window": cfg.sliding_window,
+          "context": cfg.max_context_length, "page": r.page_size,
+          "slots": r.max_slots, "weights_init_s": init_s, **summary,
+          "launches_per_layer": {k: launches[k] // layers
+                                 for k in ("A", "B", "C")},
+          "ragged_chunks": ragged_chunks, "long_prompt_tokens": long_tokens,
+          "long_ttft_ms": reqs["long"]["ttft_ms"], "ragged_step": ragged,
+          "logits_max_abs_err": errs, "logits_rtol": LOGIT_RTOL,
+          "steady_decode": steady, "predicted": DANUBE_PREDICTED,
           "memory_predicted": memory,
           "memory_over_predicted": summary["max_memory_allocated"]
           / memory["total"],
@@ -8757,10 +8906,14 @@ def kernel_rows(res: dict, counts_by_dh) -> list[dict]:
     """The ``kernels`` line's attention rows: one a kernel and head dim
     (``counts_by_dh``: (head dim, launches by kernel) pairs), from the
     kernel lines' results ``res``."""
+    from crowdllama_tpu_torch.ops.cuda import FP32_HEAD_DIMS
+
     rows = []
     for dh, counts in counts_by_dh:
         sfx = DH_SUFFIX[dh]
         for key, (kname, src, repl) in KERNEL_ROWS.items():
+            if key in FP32_ROWS and dh not in FP32_HEAD_DIMS:
+                continue
             r = res[key + sfx]
             rows.append({"name": kname + sfx, "head_dim": dh, "route": "cuda",
                          "source": src, "replaces": repl,
@@ -8776,13 +8929,41 @@ def kernel_rows(res: dict, counts_by_dh) -> list[dict]:
 
 def build_smem(kernels, dev) -> list[dict]:
     """Each attention entry's dynamic shared memory and blocks a SM at Dh
-    64 (group 8), 128 (4) and 256 (Gemma-2-9b's 2); not kernel G's, which
+    64 (group 8), 128 (4), 256 (Gemma-2-9b's 2), 80 (H2O-Danube-1.8B's 4)
+    and 96 (4), the fp32 entries at their own dims; not kernel G's, which
     have no head dim."""
     return [dict(kernels.kernel_resources(lib, sym, dh, g, dev), entry=sym,
                  dh=dh, group=g)
             for lib, entries in kernels.SIGNATURES.items()
             if lib != "grouped_gemm"
-            for sym in entries for dh, g in ((64, 8), (128, 4), (256, 2))]
+            for sym in entries
+            for dh, g in ((64, 8), (128, 4), (256, 2), (80, 4), (96, 4))
+            if not sym.endswith("_f32") or dh in kernels.FP32_HEAD_DIMS]
+
+
+# The cut paths of a full-depth model's phase: the phase name's pattern,
+# the kernels that launch on it, the engine's options.
+def cut_paths_for(dev) -> tuple:
+    return (("engine_{}_int8", {"A", "B_int8", "C_int8"},
+             dict(kv_dtype="int8")),
+            ("contiguous_{}", {"A", "D"}, dict(kv_layout="contiguous")),
+            ("engine_{}_tp", {"A", "C", "F"},
+             dict(mesh_shape="2", devices=[dev, dev])),
+            ("engine_{}_tp_int8", {"A", "C_int8", "F_int8"},
+             dict(mesh_shape="2", devices=[dev, dev], kv_dtype="int8")))
+
+
+def danube_cut_phases(dev, launches: dict, cut_paths) -> dict:
+    """H2O-Danube-1.8B's cuts to LLAMA_CUT_LAYERS layers on the other
+    paths after its full-depth phase (``launches``, its counts): the rows'
+    Dh-80 counts, every kernel of KERNEL_ROWS keyed."""
+    for phase, ran, kw in cut_paths:
+        _free_card()
+        got = llama_cut_phase(dev, phase.format("danube_1_8b"), ran,
+                              model=DANUBE, **kw)
+        for k in ran - {"A", "C"}:
+            launches[k] += got[k]
+    return {k: launches.get(k, 0) for k in KERNEL_ROWS}
 
 
 def main() -> int:
@@ -8890,13 +9071,7 @@ def main() -> int:
     llama = llama_phase(dev)
     paged128 = llama["launches"]
     launches128 = {k: paged128[k] for k in ("A", "B", "C")}
-    cut_paths = (("engine_{}_int8", {"A", "B_int8", "C_int8"},
-                  dict(kv_dtype="int8")),
-                 ("contiguous_{}", {"A", "D"}, dict(kv_layout="contiguous")),
-                 ("engine_{}_tp", {"A", "C", "F"},
-                  dict(mesh_shape="2", devices=[dev, dev])),
-                 ("engine_{}_tp_int8", {"A", "C_int8", "F_int8"},
-                  dict(mesh_shape="2", devices=[dev, dev], kv_dtype="int8")))
+    cut_paths = cut_paths_for(dev)
     for phase, ran, kw in cut_paths:
         _free_card()
         got = llama_cut_phase(dev, phase.format("llama"), ran, **kw)
@@ -8917,6 +9092,10 @@ def main() -> int:
     line, fp32 = distill_gemma2_phase(dev)
     emit(line)
     launches256.update(fp32)
+    _free_card()
+    # Dh 80: H2O-Danube-1.8B at full width and depth on the paged main
+    # path, then cut to LLAMA_CUT_LAYERS layers on the other paths.
+    launches80 = danube_cut_phases(dev, danube_phase(dev), cut_paths)
     _free_card()
     quant_phase(dev, llama["steady"])
     _free_card()
@@ -8939,9 +9118,13 @@ def main() -> int:
     launches128["E"] = launches128["E_int8"] = 0
     launches128["A_fp32"] = launches128["D_fp32"] = 0
     launches256 = {k: launches256.get(k, 0) for k in KERNEL_ROWS}
+    # No served model has head dim 96: its rows' kernels ran only in the
+    # kernel phase.
+    launches96 = {k: 0 for k in KERNEL_ROWS}
 
     rows = kernel_rows(res, ((64, launches), (128, launches128),
-                             (256, launches256)))
+                             (256, launches256), (80, launches80),
+                             (96, launches96)))
     for key, symbol in G_ROWS.items():
         fmt = {"G": "bf16", "G_int8": "int8", "G_int4": "int4"}[key]
         r = gemm[fmt]
@@ -8966,11 +9149,13 @@ def phase_main(name: str) -> int:
     """One phase alone after the build (``--phase multiprocess``;
     ``--phase gemma2`` or ``distill_gemma2``: the Dh-256 kernel line and
     ``engine_gemma2_9b`` or ``distill_gemma2_9b``, then the kernels line
-    of their rows): its lines, then the contract's last line."""
+    of their rows; ``--phase danube``: the Dh-80 and Dh-96 kernel lines,
+    ``engine_danube_1_8b`` and its cuts, then the kernels line of their
+    rows): its lines, then the contract's last line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if name not in ("multiprocess", "gemma2", "distill_gemma2"):
+    if name not in ("multiprocess", "gemma2", "distill_gemma2", "danube"):
         print(f"chip_smoke: no phase {name!r} runs alone", file=sys.stderr)
         return 2
     from crowdllama_tpu_torch.ops import cuda as kernels
@@ -8983,9 +9168,18 @@ def phase_main(name: str) -> int:
                         for r in kernels.ptxas_usage(lib)],
               "smem": build_smem(kernels, dev)} if name != "multiprocess"
              else {})})
-    if name != "multiprocess":
+    if name == "danube":
+        gen = torch.Generator(device=dev).manual_seed(0)
+        res = {}
+        for line in KERNEL_LINES[-2:]:
+            res.update(kernel_line(dev, gen, *line))
+        _free_card()
+        counts = danube_cut_phases(dev, danube_phase(dev), cut_paths_for(dev))
+        print(json.dumps({"kernels": kernel_rows(res, (
+            (80, counts), (96, {k: 0 for k in KERNEL_ROWS})))}), flush=True)
+    elif name != "multiprocess":
         res = kernel_line(dev, torch.Generator(device=dev).manual_seed(0),
-                          *KERNEL_LINES[-1])
+                          *KERNEL_LINES[2])
         _free_card()
         if name == "gemma2":
             counts = gemma2_phase(dev)

@@ -6,13 +6,14 @@
 // across key tiles; a row that saw no valid key ends with l == 0, which is
 // read as 1, so it outputs zeros and never NaN.  Query head h reads kv head
 // h / G.  The head dim DH is a template parameter of every routine; the
-// kernels instantiate 64 (TinyLlama), 128 (Llama-3, Mistral, Qwen,
-// Gemma-2-27b) and 256 (Gemma-2-9b and -2b; the fp32 entries stay at 64
-// and 128) and their C entries dispatch on it (the wrappers refuse other
-// dims).  Int8 K/V come with per-key fp32 scales: the K scale multiplies
-// the score after `scale`, before the softcap; the V scale multiplies the
-// probability after it was added to l, so only the output sum sees it
-// (ops/pallas/paged.py _decode_kernel, _chunk_kernel).
+// kernels instantiate 64 (TinyLlama), 80 (H2O-Danube-1.8B), 96, 128
+// (Llama-3, Mistral, Qwen, Gemma-2-27b) and 256 (Gemma-2-9b and -2b; the
+// fp32 entries stay at 64, 128 and 256) and their C entries dispatch on it
+// (the wrappers refuse other dims).  Int8 K/V come with per-key fp32
+// scales: the K scale multiplies the score after `scale`, before the
+// softcap; the V scale multiplies the probability after it was added to l,
+// so only the output sum sees it (ops/pallas/paged.py _decode_kernel,
+// _chunk_kernel).
 //
 // Two ways to attend query rows to key tiles:
 //
@@ -26,22 +27,26 @@
 //   are loaded once per block into registers at Dh 64 and 128; at Dh 256
 //   (tc_q_smem) Q's tile stays in shared memory and each k-step re-reads
 //   its two fragments with ldmatrix, so a thread's registers hold only its
-//   fp32 O (128) and S; key tiles of tc_tile<DH>() keys (128 at Dh 64, 64
-//   at Dh 128, 32 at Dh 256, so a thread's fp32 S, O and Q fragments fit
-//   its registers), gathered from wherever the caller says each 16
-//   keys live (pages of the pool, or a stretch of a contiguous K/V), stream
+//   fp32 O (128) and S; key tiles of tc_tile<DH>() keys (128 at Dh 64, 96
+//   at Dh 80, 64 at Dh 96 and 128, 32 at Dh 256, so a thread's fp32 S, O
+//   and Q fragments fit its registers), gathered from wherever the caller
+//   says each 16 keys live (pages of the pool, or a stretch of a
+//   contiguous K/V), stream
 //   through a three-stage cp.async ring, so two tiles are in flight while
 //   one is computed, with one barrier per tile (int8: two, around its
 //   conversion); S = Q K^T of a whole tile is mma.sync.m16n8k16 (bf16 in,
-//   fp32 accumulate) from ldmatrix fragments into fp32 registers; row max
+//   fp32 accumulate) from ldmatrix fragments into fp32 registers
+//   (k-steps of 16 dims in pairs, an ldmatrix.x4 a pair, and at Dh 80 a
+//   last odd step from an ldmatrix.x2); row max
 //   and sum by quad shuffles; a mask policy (SpanMask for keys whose
 //   positions are their indices, PosMask for keys with positions and valid
 //   flags of their own) masks only the tiles that cross a live row's view;
 //   O rescaled once per tile; P reused in registers as the A operand of O
 //   += P V (ldmatrix.trans for V).  Rows are padded in shared memory by 16
-//   bytes (144, 272 or 528 bytes, 4 banks apart), so ldmatrix has no bank
-//   conflicts.  An int8 tile is staged raw (half the bytes) and converted
-//   to bf16 in shared memory once per block, exactly (|x| <= 127).
+//   bytes (144, 176, 208, 272 or 528 bytes: the 8 rows an ldmatrix reads
+//   fall on distinct 4-bank groups), so ldmatrix has no bank conflicts.
+//   An int8 tile is staged raw (half the bytes) and converted to bf16 in
+//   shared memory once per block, exactly (|x| <= 127).
 //   Products of bf16 values are exact in the fp32 accumulators; the one
 //   rounding the TPU kernel does not make is P in bf16 (it keeps P in
 //   fp32), after l's sum and after the V scale.
@@ -123,13 +128,18 @@ constexpr int TC_STAGES = 3;            // tiles in the cp.async ring
 constexpr int TC_GROUP = 16;            // keys a caller places together
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Keys per staged tile: a thread holds TILE / 2 fp32 of S, DH / 2 of O and
-// (at Dh 64 and 128) DH / 4 words of Q's fragments: 112 at Dh 64, 128 at
-// Dh 128, and at Dh 256, Q in shared memory, 144 (16 of S, 128 of O).
+// Keys per staged tile: 8192 / DH rounded down to a multiple of 32
+// (PosMask stages a tile by whole warps): 128 at Dh 64, 96 at Dh 80, 64
+// at Dh 96 and 128, 32 at Dh 256.  A thread holds TILE / 2 fp32 of S, DH /
+// 2 of O and (below Dh 256) DH / 4 words of Q's fragments: 112 at Dh 64,
+// 108 at Dh 80, 104 at Dh 96, 128 at Dh 128, and at Dh 256, Q in shared
+// memory, 144 (16 of S, 128 of O).  (96-key tiles at Dh 96, 120 of them,
+// spilled kernel A's PosMask thread past 255 registers.)
 template <int DH>
 __host__ __device__ constexpr int tc_tile() {
-  static_assert(DH == 64 || DH == 128 || DH == 256, "head dims 64, 128 and 256");
-  return 8192 / DH;
+  static_assert(DH == 64 || DH == 80 || DH == 96 || DH == 128 || DH == 256,
+                "head dims 64, 80, 96, 128 and 256");
+  return 8192 / DH / 32 * 32;
 }
 
 // Does the tile keep Q's fragments in shared memory (re-read by ldmatrix
@@ -139,7 +149,7 @@ template <int DH>
 __host__ __device__ constexpr bool tc_q_smem() { return DH > 128; }
 
 // bf16 shared-memory row: 16 bytes of padding, so the 8 rows an ldmatrix
-// reads start 4 banks apart (144, 272 or 528 bytes).
+// reads start on distinct 4-bank groups (144, 176, 208, 272 or 528 bytes).
 template <int DH>
 __host__ __device__ constexpr int tc_srow() { return DH + 8; }
 
@@ -173,6 +183,13 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Two 8 x 8 matrices: lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 
@@ -349,6 +366,7 @@ __device__ __forceinline__ void tc_attend(
   // fragment is read back with ldmatrix (row lane % 16, dims (lane / 16) *
   // 8 of the step: the same fragment).
   constexpr bool QS = tc_q_smem<DH>();
+  static_assert(!QS || DH % 32 == 0, "Q's tile in shared memory takes k-steps in pairs");
   uint32_t qf[QS ? 1 : DH / 16][4];
   if constexpr (!QS) {
 #pragma unroll
@@ -471,8 +489,8 @@ __device__ __forceinline__ void tc_attend(
     const bool edge = mask.edge(base, TILE, stage, qlo, qhi);
 
     // S = Q K^T: column tile nt holds keys nt * 8 .. + 7; each ldmatrix
-    // brings 32 dims (two k-steps).  Every column tile sums its k-steps in
-    // ascending order either way.
+    // brings 32 dims (two k-steps), and at Dh 80 a last ldmatrix.x2 the odd
+    // 16.  Every column tile sums its k-steps in ascending order either way.
     float s[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
@@ -486,6 +504,11 @@ __device__ __forceinline__ void tc_attend(
           ldsm_x4(b, kr + kk * 32);
           mma_16816(s[nt], qf[2 * kk], b[0], b[1]);
           mma_16816(s[nt], qf[2 * kk + 1], b[2], b[3]);
+        }
+        if constexpr (DH % 32 != 0) {
+          uint32_t b[2];
+          ldsm_x2(b, kr + (DH - 16));
+          mma_16816(s[nt], qf[DH / 16 - 1], b[0], b[1]);
         }
       }
     } else {

@@ -34,11 +34,12 @@
 //   while one is computed.  The paged
 //   policy reads the table's page ids one stage ahead of the copies that
 //   need them; the contiguous policy addresses its plane directly.  A bf16
-//   stage is 16 KB at Dh 64, 32 KB at Dh 128 and 64 KB at Dh 256: 53,472,
-//   102,624 and 200,928 B a block in all (int8: 29,664, 54,240 and
-//   103,392), room for two blocks a SM at Dh 64 and 128, one at Dh 256 on
-//   bf16 (two stages in flight are 128 KB a SM, far more than the bytes
-//   the card's memory latency needs in flight).  Splits are multiples of
+//   stage is 16 KB at Dh 64, 20 KB at Dh 80, 24 KB at Dh 96, 32 KB at Dh
+//   128 and 64 KB at Dh 256: 53,472, 65,760, 78,048, 102,624 and 200,928 B
+//   a block in all (int8: 29,664, 35,808, 41,952, 54,240 and 103,392),
+//   room for two blocks a SM below Dh 256, one at Dh 256 on bf16 (two
+//   stages in flight are 128 KB a SM, far more than the bytes the card's
+//   memory latency needs in flight).  Splits are multiples of
 //   64 keys at every head dim and type (a 32-key stage walks two a 64), so
 //   the plans of ops/cuda/paged.py and flash.py do not depend on either.
 // - Every K and V element is read from shared memory once and used for all
@@ -51,11 +52,18 @@
 //   warp g takes head g's 64 scores (running max m, sum l, rescale alpha)
 //   and writes the probabilities.  P.V: warp w sums keys
 //   8w .. 8w + 7 (4w .. 4w + 3 on a 32-key stage) into all heads' outputs
-//   for its lane's Dh / 32 dims (2, 4 or 8), so no FMA chain is longer
-//   than 8 a stage; the warps' sums are
-//   added in warp order at the end.  Three barriers a stage.  Registers:
-//   GP 4 kernels at Dh 64 and 128 and bf16 GP 8 at Dh 64 are held to 128,
-//   two blocks a SM.
+//   for its lane's dec_dims (Dh / 32: 2, 4 or 8), so no FMA chain is
+//   longer than 8 a stage; the warps' sums are
+//   added in warp order at the end.
+// - Head dims 80 and 96 (H2O-Danube-1.8B's 80).  A bf16 row is 10 or 12
+//   16-byte loads (int8: 10 or 12 of 8 bytes), which 8 lanes a key do not
+//   share evenly: each lane scores whole loads, the first NL % 8 lanes of
+//   a key one more than the rest (a lane's q slice is two loads wide, as
+//   at Dh 128).  In P.V the first DH / 4 lanes (20 or 24) own 4 output
+//   dims each and the others idle.  Nothing is padded in device memory or
+//   in the stages: rows keep the pools' exact [.., DH] layout.
+//   Three barriers a stage.  Registers: GP 4 kernels below Dh 256 and bf16
+//   GP 8 at Dh 64 are held to 128, two blocks a SM.
 // - fp32 caches (kernel D beside an fp32 model) stage fp32 rows (twice
 //   bf16's bytes: 102,624 and 200,928 B a block at Dh 64 and 128, two
 //   blocks a SM at Dh 64, one at 128) and take fp32 queries and write fp32
@@ -111,6 +119,14 @@ __host__ __device__ constexpr int decode_min_blocks() {
 // heads' q rows: 64 fp32 registers at Dh 256 (128 at Dh 128 GP 8).
 template <int DH, int GP>
 __host__ __device__ constexpr int dec_lanes() { return DH <= 128 ? 8 : DH * GP / 64; }
+
+// Output dims a decode lane owns in P.V and the merge: DH / 32 (2, 4 or 8),
+// or 4 at Dh 80 and 96, where only the first dec_out_lanes (20 or 24) own
+// any.
+template <int DH>
+__host__ __device__ constexpr int dec_dims() { return DH % 64 == 0 ? DH / 32 : 4; }
+template <int DH>
+__host__ __device__ constexpr int dec_out_lanes() { return DH / dec_dims<DH>(); }
 
 // Keys a decode stage holds over K/V elements of type T at head dim DH:
 // DEC_KEYS, or 32 for fp32 rows at Dh 256 (a 64-key stage there is 128 KB).
@@ -348,10 +364,12 @@ struct ContigDecodeRows {
 // - softmax: warp g < G takes head g's stage scores (online max m, sum l,
 //   alpha) and writes the probabilities (times the V scale on int8);
 // - P.V: warp w sums keys KPW w .. KPW w + KPW - 1 of the stage (KPW =
-//   KEYS / 8) into all GP heads' outputs for its lane's DH / 32 dims; the
-//   warps' sums are added in warp order after the last stage.
-// Warp g < G returns head g's running max m, sum l and its lane's DH / 32
-// unnormalised output dims (m = NEG_INF, l = 0 when no key was seen).
+//   KEYS / 8) into all GP heads' outputs for its lane's dec_dims<DH>()
+//   dims (lanes below dec_out_lanes<DH>()); the warps' sums are added in
+//   warp order after the last stage.
+// Warp g < G returns head g's running max m, sum l and its lane's
+// dec_dims<DH>() unnormalised output dims (m = NEG_INF, l = 0 when no key
+// was seen; nothing on lanes past dec_out_lanes<DH>()).
 // q_row points at head 0 of the kv head ([G][DH]).
 template <typename T, int DH, int GP, typename Rows>
 __device__ __forceinline__ void decode_span(unsigned char* smem,
@@ -362,15 +380,19 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
                                             const __nv_bfloat16* __restrict__ v_scale,
                                             Rows rows, int G, int qpos, int kv_len, int window,
                                             int k_lo, int k_hi, float scale, float softcap,
-                                            float& m, float& l, float (&acc)[DH / 32]) {
+                                            float& m, float& l,
+                                            float (&acc)[dec_dims<DH>()]) {
   using S = DecodeSmem<T, DH>;
   constexpr int KEYS = S::KEYS;                    // keys a stage
   constexpr bool Q8 = is_q8<T>();
-  constexpr int N = DH / 32;                       // output dims a lane owns
+  constexpr int N = dec_dims<DH>();                // output dims a lane owns
+  constexpr int OL = dec_out_lanes<DH>();          // lanes that own them
   constexpr int LPK = dec_lanes<DH, GP>();         // lanes a key
-  constexpr int DPL = DH / LPK;                    // dims a lane scores
-  constexpr int W = Q8 ? (DPL < 16 ? DPL : 16) : 8;  // elements a load
-  constexpr int NSEG = DPL / W;                    // loads a lane a key
+  constexpr int W = Q8 ? (DH / LPK < 16 ? 8 : 16) : 8;  // elements a load
+  constexpr int NL = DH / W;                       // loads a row
+  constexpr int NSEG = (NL + LPK - 1) / LPK;       // loads a lane a key, at most
+  constexpr int DPL = NSEG * W;                    // q dims a lane holds a head
+  static_assert(DH % W == 0, "whole loads a row");
   constexpr int KPP = DEC_THREADS / LPK;           // keys a score pass
   constexpr int SS = KEYS + 4;                     // S row stride (conflict-free writes)
   constexpr int KPW = KEYS / DEC_WARPS;            // P.V keys a warp
@@ -386,6 +408,9 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
   // of a key read LPK consecutive pieces of its row (8 lanes, 128 bytes, a
   // load phase on bf16).
   auto seg = [&](int i) { return (i * LPK + sub) * W; };
+  // Does this lane take load i of its key?  (All do but at Dh 80 and 96,
+  // where the last load goes to the first NL % LPK lanes.)
+  auto has = [&](int i) { return NL % LPK == 0 || i * LPK + sub < NL; };
 
   float* const Ssm = reinterpret_cast<float*>(smem + S::S_OFF);
   float* const PT = reinterpret_cast<float*>(smem + S::PT_OFF);
@@ -406,7 +431,7 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
       float f[8];
 #pragma unroll
       for (int c = 0; c < W; c += 8) {
-        if (g < G) {
+        if (g < G && has(i)) {
           load_row<8>(q_row + (size_t)g * DH + seg(i) + c, f);
         } else {
 #pragma unroll
@@ -482,6 +507,7 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
       for (int g = 0; g < GP; ++g) d[g] = 0.f;
 #pragma unroll
       for (int i = 0; i < NSEG; ++i) {
+        if (!has(i)) continue;
         float k[W];
         load_row<W>(Ks + j * DH + seg(i), k);
 #pragma unroll
@@ -560,6 +586,7 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
         for (int e = 0; e < N; ++e) o[g][e] *= al[g];
 #pragma unroll
       for (int jj = 0; jj < KPW; ++jj) {
+        if (lane >= OL) break;  // lanes that own no dims (Dh 80 and 96)
         const int j = KPW * warp + jj;
         float v[N];
         load_vec<N>(Vs + j * DH, lane, v);
@@ -582,13 +609,13 @@ __device__ __forceinline__ void decode_span(unsigned char* smem,
   float* const sums = reinterpret_cast<float*>(smem);  // [DEC_WARPS][GP][DH]
 #pragma unroll
   for (int g = 0; g < GP; ++g)
-    if (g < G)
+    if (g < G && lane < OL)
 #pragma unroll
       for (int e = 0; e < N; ++e) sums[((size_t)warp * GP + g) * DH + lane * N + e] = o[g][e];
   __syncthreads();
 #pragma unroll
   for (int e = 0; e < N; ++e) acc[e] = 0.f;
-  if (warp < G)
+  if (warp < G && lane < OL)
     for (int w = 0; w < DEC_WARPS; ++w)
 #pragma unroll
       for (int e = 0; e < N; ++e) acc[e] += sums[((size_t)w * GP + warp) * DH + lane * N + e];
@@ -614,7 +641,7 @@ __device__ __forceinline__ void decode_split(unsigned char* smem,
                                              int* __restrict__ counters, int G, int len,
                                              int window, int bound, int span, int splits,
                                              float scale, float softcap) {
-  constexpr int N = DH / 32, PS = part_stride<DH>();
+  constexpr int N = dec_dims<DH>(), OL = dec_out_lanes<DH>(), PS = part_stride<DH>();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, s = blockIdx.z;
   const int qpos = len - 1;
   const int lo = window > 0 ? max(0, qpos - window + 1) : 0;  // first key the window sees
@@ -630,9 +657,9 @@ __device__ __forceinline__ void decode_split(unsigned char* smem,
   decode_span<T, DH, GP>(smem, q_row, k, v, ks, vs, rows, G, qpos, len, window,
                          max(lo, s * span), min(bound, (s + 1) * span), scale, softcap, m, l,
                          acc);
-  const bool head = warp < G;
+  const bool head = warp < G, owns = lane < OL;
   if (s_hi - s_lo == 1) {  // one live split: no partials
-    if (head) store_vec<N>(o_row + (size_t)warp * DH, lane, acc, l);
+    if (head && owns) store_vec<N>(o_row + (size_t)warp * DH, lane, acc, l);
     return;
   }
 
@@ -645,8 +672,9 @@ __device__ __forceinline__ void decode_split(unsigned char* smem,
       p[0] = m;
       p[1] = l;
     }
+    if (owns)
 #pragma unroll
-    for (int e = 0; e < N; ++e) p[4 + lane * N + e] = acc[e];
+      for (int e = 0; e < N; ++e) p[4 + lane * N + e] = acc[e];
   }
   __threadfence();  // the partial is visible device-wide before it is counted
   __syncthreads();
@@ -674,10 +702,11 @@ __device__ __forceinline__ void decode_split(unsigned char* smem,
     const float w = __shfl_sync(0xffffffffu, w_t, t);
     L += w * __shfl_sync(0xffffffffu, l_t, t);
     const float* p = mine + (size_t)t * G * PS + 4 + lane * N;
+    if (owns)
 #pragma unroll
-    for (int e = 0; e < N; ++e) o[e] += w * __ldcg(p + e);
+      for (int e = 0; e < N; ++e) o[e] += w * __ldcg(p + e);
   }
-  store_vec<N>(o_row + (size_t)warp * DH, lane, o, L);
+  if (owns) store_vec<N>(o_row + (size_t)warp * DH, lane, o, L);
 }
 
 }  // namespace cla

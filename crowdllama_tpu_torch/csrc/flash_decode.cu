@@ -2,9 +2,10 @@
 //
 // Replaces crowdllama_tpu/ops/pallas/flash.py flash_decode_attention
 // (_decode_kernel).  Cache layout (one layer): [B, Hkv, S, DH] bf16 (entry
-// flash_decode) or fp32 (flash_decode_f32, the contiguous fp32 cache the
-// distillation trainer's teacher rolls out over), head major, so a (slot,
-// kv head) pair's keys are one contiguous [S, DH] plane.
+// flash_decode; DH 64, 80, 96, 128 or 256) or fp32 (flash_decode_f32, the
+// contiguous fp32 cache the distillation trainer's teacher rolls out over;
+// DH 64, 128 or 256), head major, so a (slot, kv head) pair's keys are
+// one contiguous [S, DH] plane.
 // Key j of slot b is seen when j < seq_lens[b] and (window <= 0 or
 // j > seq_lens[b] - 1 - window); keys at or past S do not exist.  The
 // output is acc / l with l == 0 read as 1, so a slot with seq_len 0 writes
@@ -102,6 +103,13 @@ int dispatch(const void* q, const void* k_cache, const void* v_cache, const int*
     case 64:
       return launch_decode<T, 64>(q, k_cache, v_cache, seq_lens, scratch, counters, out, B, H,
                                   Hkv, S, span, splits, scale, softcap, window, stream);
+    case 80:
+    case 96:  // bf16 only: the fp32 entry is not compiled at these dims
+      if constexpr (!is_f32<T>())
+        return (dh == 80 ? launch_decode<T, 80> : launch_decode<T, 96>)(
+            q, k_cache, v_cache, seq_lens, scratch, counters, out, B, H, Hkv, S, span, splits,
+            scale, softcap, window, stream);
+      return (int)cudaErrorInvalidValue;
     case 128:
       return launch_decode<T, 128>(q, k_cache, v_cache, seq_lens, scratch, counters, out, B, H,
                                    Hkv, S, span, splits, scale, softcap, window, stream);
@@ -151,6 +159,10 @@ extern "C" int resources(const char* entry, int dh, int G, int* out) {
   switch (dh) {
     case 64:
       return f32 ? report<float, 64>(G, out) : report<bf16, 64>(G, out);
+    case 80:
+      return f32 ? (int)cudaErrorInvalidValue : report<bf16, 80>(G, out);
+    case 96:
+      return f32 ? (int)cudaErrorInvalidValue : report<bf16, 96>(G, out);
     case 128:
       return f32 ? report<float, 128>(G, out) : report<bf16, 128>(G, out);
     case 256:

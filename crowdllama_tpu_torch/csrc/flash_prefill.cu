@@ -2,10 +2,11 @@
 //
 // Replaces crowdllama_tpu/ops/pallas/flash.py flash_prefill_attention
 // (_prefill_kernel).  Same function: q [B, T, H, DH], head-major k/v
-// [B, Hkv, T, DH], all bf16 (entry flash_prefill) or all fp32
-// (flash_prefill_f32); the mask is kpos <= qpos from `positions`
-// [B, T] plus an optional kv_valid [B, T] padding mask, softcap and a
-// sliding window (<= 0 disables); fp32 online softmax; out [B, T, H, DH].
+// [B, Hkv, T, DH], all bf16 (entry flash_prefill, DH 64, 80, 96, 128 or
+// 256) or all fp32 (flash_prefill_f32, DH 64, 128 or 256); the mask is
+// kpos <= qpos from `positions` [B, T] plus an optional kv_valid [B, T]
+// padding mask, softcap and a sliding window (<= 0 disables); fp32 online
+// softmax; out [B, T, H, DH].
 //
 // Bound on the H100: operations for the prompts the engine prefills.  The
 // causal work is 4 * H * DH * T(T+1)/2 flops against 2 * T * (H + Hkv) *
@@ -460,6 +461,12 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
     case 64:
       return launch_prefill<64>(q, k, v, positions, kv_valid, out, B, T, H, Hkv, scale,
                                 softcap, window, stream);
+    case 80:
+      return launch_prefill<80>(q, k, v, positions, kv_valid, out, B, T, H, Hkv, scale,
+                                softcap, window, stream);
+    case 96:
+      return launch_prefill<96>(q, k, v, positions, kv_valid, out, B, T, H, Hkv, scale,
+                                softcap, window, stream);
     case 128:
       return launch_prefill<128>(q, k, v, positions, kv_valid, out, B, T, H, Hkv, scale,
                                  softcap, window, stream);
@@ -495,6 +502,12 @@ extern "C" int resources(const char* entry, int dh, int, int* out) {
     case 64:
       return occupancy(flash_prefill_kernel<64>, TC_THREADS, prefill_smem_bytes<64>(),
                        prefill_smem_bytes<64>(), out);
+    case 80:
+      return occupancy(flash_prefill_kernel<80>, TC_THREADS, prefill_smem_bytes<80>(),
+                       prefill_smem_bytes<80>(), out);
+    case 96:
+      return occupancy(flash_prefill_kernel<96>, TC_THREADS, prefill_smem_bytes<96>(),
+                       prefill_smem_bytes<96>(), out);
     case 128:
       return occupancy(flash_prefill_kernel<128>, TC_THREADS, prefill_smem_bytes<128>(),
                        prefill_smem_bytes<128>(), out);

@@ -13,8 +13,8 @@
 // alone over its slot's pages, C's chunk blocks without the decode rows
 // (both run the same chunk_block routine).
 //
-// Pool layout (one layer): [P, Hkv, page, DH] bf16 (DH 64, 128 or 256, a
-// template parameter; every C entry takes `dh` and dispatches), or int8 with per-key
+// Pool layout (one layer): [P, Hkv, page, DH] bf16 (DH 64, 80, 96, 128 or
+// 256, a template parameter; every C entry takes `dh` and dispatches), or int8 with per-key
 // scales [P, Hkv, page] bf16 (the *_i8 entries, the TPU kernels' `quant`
 // branch); page id `P - 1` is the engine's dump page and is read like any
 // other.  The table is [B, NP] int32.  Masks follow ops/attention.py: a
@@ -38,7 +38,8 @@
 // Chunk blocks (C's chunk rows, and every block of E): one block per
 // (query block of 128 / G queries, kv head), the 128 (query, head) rows of
 // the tensor-core tile of attention_common.cuh (tc_attend), which gathers
-// its key tiles (128 keys at Dh 64, 64 at Dh 128, 32 at Dh 256) from the slot's pages in
+// its key tiles (128 keys at Dh 64, 96 at Dh 80, 64 at Dh 96 and 128, 32
+// at Dh 256) from the slot's pages in
 // 16-key groups.  Bound on the H100: operations, 4 * DH flops per visible
 // (row, key) pair at 989 TF/s bf16 (TinyLlama's 512-row chunk at context
 // 1024 moves ~5.8 MB of q, K/V and out, whose time at 3.35 TB/s is about a
@@ -161,7 +162,7 @@ ragged_paged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ p
   const int nb = blockIdx.x, h = blockIdx.y;
 
   if (nb < B) {  // decode row nb: its newest position is kv_len - 1
-    constexpr int N = DH / 32;
+    constexpr int N = dec_dims<DH>();
     __nv_bfloat16* o_row = out + (size_t)nb * H * DH + (size_t)h * G * DH;
     if (q_lens[nb] <= 0) {  // inactive slot: zeros, as the TPU kernel writes
       for (int i = threadIdx.x; i < G * DH; i += blockDim.x) o_row[i] = __float2bfloat16(0.f);
@@ -181,7 +182,8 @@ ragged_paged_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ p
       decode_span<T, DH, 8>(smem, q_row, pool_k, pool_v, k_scale, v_scale, rows, G, qpos,
                             kv_len, window, lo, bound, scale, softcap, m, l, acc);
     const int warp = threadIdx.x / 32;
-    if (warp < G) store_vec<N>(o_row + (size_t)warp * DH, threadIdx.x % 32, acc, l);
+    if (warp < G && threadIdx.x % 32 < dec_out_lanes<DH>())
+      store_vec<N>(o_row + (size_t)warp * DH, threadIdx.x % 32, acc, l);
     return;
   }
 
@@ -338,11 +340,15 @@ int report(const char* entry, int G, int* out) {
 
 }  // namespace
 
-// Each entry runs its launcher's Dh-64, Dh-128 or Dh-256 instantiation.
+// Each entry runs its launcher's instantiation at head dim dh.
 #define CLA_BY_DH(launcher, T, ...)                     \
   switch (dh) {                                         \
     case 64:                                            \
       return launcher<T, 64>(__VA_ARGS__);              \
+    case 80:                                            \
+      return launcher<T, 80>(__VA_ARGS__);              \
+    case 96:                                            \
+      return launcher<T, 96>(__VA_ARGS__);              \
     case 128:                                           \
       return launcher<T, 128>(__VA_ARGS__);             \
     case 256:                                           \
@@ -422,6 +428,10 @@ extern "C" int resources(const char* entry, int dh, int G, int* out) {
   switch (dh) {
     case 64:
       return report<64>(entry, G, out);
+    case 80:
+      return report<80>(entry, G, out);
+    case 96:
+      return report<96>(entry, G, out);
     case 128:
       return report<128>(entry, G, out);
     case 256:

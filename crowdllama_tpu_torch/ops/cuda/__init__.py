@@ -105,8 +105,8 @@ RESOURCES = [ctypes.c_char_p, _I, _I, _P]
 
 # Head dims every attention kernel is compiled for; the wrappers refuse
 # others.  The fp32 entries of A and D (the distillation trainer's) are
-# compiled for the same ones.
-HEAD_DIMS = (64, 128, 256)
+# compiled for fewer.
+HEAD_DIMS = (64, 80, 96, 128, 256)
 FP32_HEAD_DIMS = (64, 128, 256)
 
 
@@ -271,7 +271,7 @@ def check_head_dim(dh: int, fp32: bool = False) -> None:
     compiled for, naming the ROADMAP item that would add it."""
     check(dh in HEAD_DIMS,
           f"head dim {dh} unsupported: the attention kernels are compiled "
-          f"at {HEAD_DIMS} (ROADMAP Queue 2 item 12)")
+          f"at {HEAD_DIMS} (ROADMAP Queue 2 item 12c)")
     check(not fp32 or dh in FP32_HEAD_DIMS,
           f"head dim {dh} unsupported on fp32: the fp32 entries are "
-          f"compiled at {FP32_HEAD_DIMS} (ROADMAP Queue 2 item 12)")
+          f"compiled at {FP32_HEAD_DIMS} (ROADMAP Queue 2 item 12b)")

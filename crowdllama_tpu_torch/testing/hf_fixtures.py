@@ -200,6 +200,23 @@ GEMMA2_9B_CONFIG = {
 # reads it states the default.
 GEMMA2_9B_TIED_CONFIG = {**GEMMA2_9B_CONFIG, "tie_word_embeddings": True}
 
+# H2O-Danube-1.8B as the published ``config.json`` of
+# ``h2oai/h2o-danube-1.8b-base`` states it (the H2O-Danube technical
+# report, arXiv:2401.16818, Table 1): a Mistral model, hidden 2,560 over
+# 32 query heads (head dim 80) and 8 kv heads, a 4,096-token window on
+# every layer, context 16,384, untied embeddings.  The file's bookkeeping
+# keys (``_name_or_path``, ``transformers_version``) are left out.
+DANUBE_1_8B_CONFIG = {
+    "architectures": ["MistralForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu",
+    "hidden_size": 2560, "initializer_range": 0.02,
+    "intermediate_size": 6912, "max_position_embeddings": 16384,
+    "model_type": "mistral", "num_attention_heads": 32,
+    "num_hidden_layers": 24, "num_key_value_heads": 8,
+    "rms_norm_eps": 1e-05, "rope_theta": 10000.0, "sliding_window": 4096,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_cache": True, "vocab_size": 32000}
+
 LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|"
                 r"\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|"
                 r"\s+")

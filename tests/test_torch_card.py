@@ -400,12 +400,18 @@ def _close(got, want):
 @pytest.mark.parametrize("dh,h,hkv,softcap,window", [
     (128, 32, 8, 0.0, 0), (128, 32, 8, 30.0, 17), (128, 28, 4, 0.0, 0),
     (128, 28, 4, 30.0, 40), (64, 28, 4, 0.0, 33), (256, 16, 8, 0.0, 0),
-    (256, 16, 8, 50.0, 33), (256, 14, 2, 30.0, 0), (256, 8, 1, 0.0, 40)])
+    (256, 16, 8, 50.0, 33), (256, 14, 2, 30.0, 0), (256, 8, 1, 0.0, 40),
+    (80, 32, 8, 0.0, 0), (80, 32, 8, 30.0, 17), (80, 28, 4, 30.0, 40),
+    (80, 56, 8, 0.0, 33), (96, 32, 8, 0.0, 0), (96, 32, 8, 50.0, 33),
+    (96, 28, 4, 30.0, 40), (96, 8, 1, 0.0, 17)])
 def test_prefill_kernel_head_dims_and_groups_on_card(cuda_device, dh, h, hkv,
                                                      softcap, window):
-    """Kernel A at Dh 128 (groups of 4 and 7), at Dh 64 with a group of 7
-    and at Dh 256 (Gemma-2-9b's group of 2, and 7 and 8; Q's tile in
-    shared memory, 32-key tiles), over two batch rows padded past their
+    """Kernel A at Dh 128 (groups of 4 and 7), at Dh 64 with a group of 7,
+    at Dh 256 (Gemma-2-9b's group of 2, and 7 and 8; Q's tile in shared
+    memory, 32-key tiles) and at Dh 80 (H2O-Danube-1.8B's group of 4; an
+    odd last k-step; 96-key tiles) and 96 (64-key tiles; groups of 4, 7
+    and 8),
+    over two batch rows padded past their
     prompt (positions clamped,
     padding keys invalid), every row that sees a key held against the
     plain version; row 1's first 7 queries see none and are zeros from the
@@ -572,6 +578,20 @@ def test_chunk_and_ragged_dh256_on_card(cuda_device, int8, ctx, c, valid,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", [80, 96])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("ctx,c,valid,softcap,window,h", CHUNK128_CASES)
+def test_chunk_and_ragged_dh80_dh96_on_card(cuda_device, dh, int8, ctx, c,
+                                            valid, softcap, window, h):
+    """E and C's chunk and decode rows at Dh 80 and 96 (96- and 64-key
+    tiles over pages of 128, Dh 80's odd last k-step; decode rows whose
+    lanes score uneven shares of a row and whose P.V runs on 20 or 24
+    lanes)."""
+    _chunk_and_ragged(cuda_device, int8, ctx, c, valid, softcap, window, h,
+                      dh=dh)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (50.0, 40)])
 @pytest.mark.parametrize("h", [16, 64])
@@ -625,28 +645,33 @@ def test_paged_decode_and_flash_decode_dh256_on_card(cuda_device, int8,
 
 @pytest.mark.cuda
 def test_other_head_dims_are_refused(cuda_device):
-    """A head dim no kernel is compiled for (96) is refused by every
-    wrapper, on bf16 and by A's and D's fp32 entries, naming the ROADMAP
-    item that would add it; nothing falls back to the plain version."""
+    """A head dim no kernel is compiled for (72, a multiple of 8 that JAX
+    takes) is refused by every wrapper, on bf16 and by A's and D's fp32
+    entries, naming the ROADMAP item that would add it (12c); the fp32
+    entries also refuse Dh 80 and 96 (12b); nothing falls back to the
+    plain version."""
     from crowdllama_tpu_torch.ops.cuda.flash import flash_decode_attention
 
     gen, bf = _card_case(cuda_device)
     f32 = dict(device=cuda_device, dtype=torch.float32)
     i32 = dict(device=cuda_device, dtype=torch.int32)
-    for opts in (bf, f32):
-        q = torch.randn((1, 16, 4, 96), generator=gen, **opts)
-        k = torch.randn((1, 2, 16, 96), generator=gen, **opts)
+    cases = [(72, bf, "12c"), (72, f32, "12c"), (80, f32, "12b"),
+             (96, f32, "12b")]
+    for dh, opts, item in cases:
+        q = torch.randn((1, 16, 4, dh), generator=gen, **opts)
+        k = torch.randn((1, 2, 16, dh), generator=gen, **opts)
         pos = torch.arange(16, **i32)[None]
-        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 12"):
+        match = f"ROADMAP Queue 2 item {item}"
+        with pytest.raises(ValueError, match=match):
             flash_prefill_attention(q, k, k, pos, 0.1)
-        with pytest.raises(ValueError, match="ROADMAP Queue 2 item 12"):
+        with pytest.raises(ValueError, match=match):
             flash_decode_attention(q[:, 0].contiguous(), k, k,
                                    torch.tensor([16], **i32), 0.1)
-    pk = torch.randn((3, 2, 16, 96), generator=gen, **bf)
+    pk = torch.randn((3, 2, 16, 72), generator=gen, **bf)
     table = torch.tensor([[0, 1]], **i32)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 12"):
+    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 12c"):
         flash_paged_decode_attention(
-            torch.randn((1, 4, 96), generator=gen, **bf), pk, pk, table,
+            torch.randn((1, 4, 72), generator=gen, **bf), pk, pk, table,
             torch.tensor([20], **i32), 0.1)
 
 
@@ -708,22 +733,22 @@ def test_tp_decode_dh128_bit_identical_to_paged_decode(cuda_device, int8, tp):
 
 @pytest.mark.cuda
 def test_builds_report_no_spills(cuda_device):
-    """Every kernel instantiation, at Dh 64, 128 and 256 on both pools and
-    the fp32 entries, keeps its registers: ``ptxas -v`` reports no spill
-    stores or loads."""
+    """Every kernel instantiation, at Dh 64, 80, 96, 128 and 256 on both
+    pools and the fp32 entries, keeps its registers: ``ptxas -v`` reports
+    no spill stores or loads."""
     from crowdllama_tpu_torch.ops import cuda as kernels
 
     rows = [dict(r, library=name) for name in kernels.SIGNATURES
             for r in kernels.ptxas_usage(name)]
     assert {(r["kernel"], r["dh"]) for r in rows} >= {
-        (k, dh) for dh in (64, 128, 256)
+        (k, dh) for dh in (64, 80, 96, 128, 256)
         for k in ("flash_prefill_kernel", "flash_decode_kernel",
                   "paged_decode_kernel", "ragged_paged_kernel",
                   "ragged_chunk_kernel")} | {
         ("prefill_tf_kernel", dh) for dh in (64, 128, 256)}
     assert {(r["kernel"], r["dh"], r["dtype"]) for r in rows
-            if r["dh"] == 256} >= {
-        (k, 256, t) for t in ("bf16", "int8")
+            if r["dh"] in (80, 96, 256)} >= {
+        (k, dh, t) for t in ("bf16", "int8") for dh in (80, 96, 256)
         for k in ("paged_decode_kernel", "ragged_paged_kernel",
                   "ragged_chunk_kernel")}
     assert {(r["kernel"], r["dh"]) for r in rows if r["dtype"] == "fp32"} == {
@@ -786,7 +811,8 @@ def _split_case(dev, gen, int8: bool, dh: int, h: int, hkv: int,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (256, 8)])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (256, 8),
+                                    (80, 8), (96, 8)])
 @pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 40),
                                             (0.0, 300)])
@@ -815,7 +841,8 @@ def test_split_decode_edges_match_plain_on_card(cuda_device, int8, dh, hkv,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (80, 8),
+                                    (96, 8)])
 @pytest.mark.parametrize("page", [16, 32, 64])
 def test_split_decode_small_pages_on_card(cuda_device, int8, dh, hkv, page):
     """Kernel B on pages smaller than its 64-key stages (16, 32: a stage
@@ -841,7 +868,8 @@ def test_split_decode_small_pages_on_card(cuda_device, int8, dh, hkv, page):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (80, 8),
+                                    (96, 8)])
 @pytest.mark.parametrize("tp", [2, 4])
 def test_tp_decode_at_split_edges_is_one_launch_equal_to_b(cuda_device, int8,
                                                            dh, hkv, tp):
@@ -876,7 +904,8 @@ def test_tp_decode_at_split_edges_is_one_launch_equal_to_b(cuda_device, int8,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,group", [(64, 8), (128, 4), (128, 8)])
+@pytest.mark.parametrize("dh,group", [(64, 8), (128, 4), (128, 8), (80, 4),
+                                      (80, 8), (96, 4), (96, 8)])
 def test_decode_block_leaves_two_blocks_a_sm(cuda_device, dh, group):
     """The decode block of B and D (the ring of three 64-key stages, page
     ids, P and the flag) leaves room for two blocks a SM in shared memory at
@@ -932,7 +961,8 @@ def _contig_case(dev, gen, dh: int, h: int, hkv: int, s: int):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (256, 8)])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (256, 8),
+                                    (80, 8), (96, 8)])
 @pytest.mark.parametrize("group", [1, 2, 4, 7, 8])
 @pytest.mark.parametrize("s", [2048, 600])
 @pytest.mark.parametrize("softcap,window", [(0.0, 0), (30.0, 40),
@@ -963,7 +993,8 @@ def test_flash_decode_split_edges_match_plain_on_card(cuda_device, dh, hkv,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (256, 8)])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (256, 8),
+                                    (80, 8), (96, 8)])
 @pytest.mark.parametrize("group", [2, 4, 8])
 def test_flash_decode_is_bit_identical_to_paged_decode(cuda_device, dh, hkv,
                                                        group):
@@ -990,7 +1021,8 @@ def test_flash_decode_is_bit_identical_to_paged_decode(cuda_device, dh, hkv,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8)])
+@pytest.mark.parametrize("dh,hkv", [(64, 4), (128, 8), (80, 8),
+                                    (96, 8)])
 def test_flash_decode_and_paged_decode_interleaved_on_card(cuda_device, dh,
                                                            hkv):
     """D and B share the device's split scratch and counters: calls of one

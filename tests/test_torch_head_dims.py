@@ -1,6 +1,6 @@
-"""The port at head dims 128 (Llama-3, Mistral, Qwen, Gemma-2-27b) and 256
-(Gemma-2-9b and -2b) against the JAX package, on the CPU.  Every test runs
-at both (``dh``).
+"""The port at head dims 80 (H2O-Danube-1.8B), 96, 128 (Llama-3, Mistral,
+Qwen, Gemma-2-27b) and 256 (Gemma-2-9b and -2b) against the JAX package, on
+the CPU.  Every test runs at each (``dh``).
 
 - Every kernel's plain version (what its wrapper runs on CPU tensors)
   against the JAX kernel in interpret mode: A at groups of 4 and 7 with
@@ -10,14 +10,15 @@ at both (``dh``).
   orders, then round to bf16); rows where the TPU kernel writes zeros (no
   key, no query) are left out, as in ``tests/test_torch_kernels.py``.
 - A torch emulation of kernel A's order on the CUDA tile (query blocks of
-  128 / G rows, key tiles of 8192 / Dh keys, 64 at Dh 128 and 32 at Dh
-  256, up to the block's causal bound, positions and valid flags per key,
+  128 / G rows, key tiles of 8192 / Dh keys rounded down to a multiple of
+  32: 96 at Dh 80, 64 at Dh 96 and 128 and 32 at Dh 256, up to the block's causal bound, positions and valid flags per key,
   an online softmax rescaled once per tile, P rounded to bf16) against
   JAX's A in interpret mode, at the same tolerance, all-masked rows zeros
-  on both.  Where the tile reads Q (registers at Dh 128, shared memory at
-  Dh 256) changes no sum: each S element adds its k-steps in the same
-  order.
-- The model and the engine on ``tiny-test`` with ``head_dim=128`` and on
+  on both.  Where the tile reads Q (registers below Dh 256, shared memory
+  at Dh 256) and whether a k-step pairs with another (Dh 80 ends on an odd
+  one) changes no sum: each S element adds its k-steps in the same order.
+- The model and the engine on ``tiny-test`` with ``head_dim`` 80, 96 and
+  128 and on
   ``tiny-test-gemma`` (softcaps, post-norms, a window of 32 on every
   other layer, group 2) with ``head_dim=256`` (from
   ``dataclasses.replace``; registered for the test in both packages'
@@ -63,10 +64,10 @@ from crowdllama_tpu_torch.ops.cuda.paged import (  # noqa: E402
 from crowdllama_tpu_torch.ops.quant import dequantize_kv, quantize_kv  # noqa: E402
 
 ATOL, RTOL = 2e-2, 1e-2
-HEAD_DIMS = (128, 256)
+HEAD_DIMS = (80, 96, 128, 256)
 NEG_INF = -1e30
 
-# Every test runs at both head dims.
+# Every test runs at each head dim.
 pytestmark = pytest.mark.parametrize("dh", HEAD_DIMS)
 
 
@@ -133,10 +134,22 @@ def test_prefill_plain_matches_jax_kernel(interpret_mode, dh, h, hkv,
     assert not np.asarray(want, np.float32)[1, :3].any()
 
 
+def a_tile(dh: int) -> int:
+    """Keys of kernel A's staged tile (``tc_tile`` in
+    csrc/attention_common.cuh): 8192 / Dh rounded down to a multiple of
+    32."""
+    return 8192 // dh // 32 * 32
+
+
+def test_a_tile_sizes(dh):
+    assert a_tile(dh) == {80: 96, 96: 64, 128: 64, 256: 32}[dh]
+    assert a_tile(dh) % 32 == 0
+
+
 def _tile_emulation_a(q, k, v, pos, valid, scale, softcap=0.0, window=0):
     """Kernel A's order on the CUDA tile, in torch: per (batch row, kv
-    head, block of 128 // G queries), tiles of 8192 // Dh keys (64 at Dh
-    128, 32 at Dh 256) from key 0 up to the block's causal bound min(T, q0 + 128 // G) (whole tiles: keys past
+    head, block of 128 // G queries), tiles of ``a_tile(dh)`` keys (96 at
+    Dh 80, 64 at Dh 96 and 128, 32 at Dh 256) from key 0 up to the block's causal bound min(T, q0 + 128 // G) (whole tiles: keys past
     the bound but inside the last tile are masked by their positions and
     flags, not skipped), logits dot * scale then the softcap, masked where
     kv_valid fails, kpos > qpos or the window drops the key; an fp32
@@ -145,7 +158,7 @@ def _tile_emulation_a(q, k, v, pos, valid, scale, softcap=0.0, window=0):
     b, t, h, dh = q.shape
     hkv = k.shape[1]
     g = h // hkv
-    qb, tile = 128 // g, 8192 // dh
+    qb, tile = 128 // g, a_tile(dh)
     out = torch.zeros((b, t, h, dh))
     for bi in range(b):
         for hi in range(hkv):
@@ -340,9 +353,11 @@ def test_ragged_plain_matches_jax_kernel(interpret_mode, dh, int8, softcap,
 # ---------------------------------------------------------- model, engine
 
 # head dim -> (the registry model it widens, the test's name for it): Dh
-# 128 on tiny-test, Dh 256 on tiny-test-gemma (Gemma-2's features at a
-# group of 2, as Gemma-2-9b).
-MODELS = {128: ("tiny-test", "tiny-test-dh128"),
+# 80, 96 and 128 on tiny-test, Dh 256 on tiny-test-gemma (Gemma-2's
+# features at a group of 2, as Gemma-2-9b).
+MODELS = {80: ("tiny-test", "tiny-test-dh80"),
+          96: ("tiny-test", "tiny-test-dh96"),
+          128: ("tiny-test", "tiny-test-dh128"),
           256: ("tiny-test-gemma", "tiny-test-gemma-dh256")}
 
 

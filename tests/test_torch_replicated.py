@@ -34,7 +34,11 @@ the logits.
   --dist-coordinator ...`` replays and exits 0 on STOP; consumer mode,
   ``--shard-count`` above 1 and a model list exit 2 with JAX's message.
 
-Every subprocess has JAX's 240 s timeout.
+Every subprocess has JAX's 240 s timeout.  JAX's processes meet at a
+coordination barrier before either builds its runner: XLA's gloo context
+gives up when the first cross-process collective finds the other process
+more than 30 s behind, which the leader's tokenizer load alone has taken
+under load.
 """
 
 import json
@@ -194,6 +198,22 @@ _CHILD = textwrap.dedent("""
     assert multihost.initialize_from_config(cfg) is True
     assert multihost.process_count() == 2
     assert multihost.is_leader() == (pid == "0")
+    if package == "jax":
+        # The leader's engine loads its tokenizer and imports the engine
+        # before its runner's first cross-process collective; the follower
+        # does neither.  Under load that gap has passed the 30 s in which
+        # XLA's gloo context connects ("Gloo context initialization
+        # failed: Connect timeout"), so both processes do that work first
+        # and meet at the coordination service's barrier (its own long
+        # timeout) before either builds a runner.
+        from jax._src import distributed
+
+        from crowdllama_tpu.engine import engine as _engine  # noqa: F401
+        from crowdllama_tpu.engine.tokenizer import get_tokenizer
+        from crowdllama_tpu.parallel import replicated as _repl  # noqa: F401
+        get_tokenizer(ckpt)
+        distributed.global_state.client.wait_at_barrier(
+            "child_ready", int(os.environ["CHILD_TIMEOUT_S"]) * 1000)
     exec(os.environ.get("CHILD_PATCH", ""))
     if multihost.is_leader():
         import asyncio
@@ -244,6 +264,7 @@ def _cluster(tmp_path, package, scenario, ckpt, scripts=None, env=None):
     penv = {**os.environ, "PYTHONPATH": str(REPO),
             "SCENARIO_FIELDS": json.dumps(fields),
             "SCENARIO_DEVICES": str(ndev), "TRAFFIC": _TRAFFIC,
+            "CHILD_TIMEOUT_S": str(TIMEOUT),
             **(env or {})}
     penv.pop("JAX_PLATFORMS", None)
     cmds = [[sys.executable, str(script), coord, str(i), package, scenario,
